@@ -1,0 +1,175 @@
+"""The Allegro two-track layer stack (twin of ``allegro_tpu/nn/allegro.py``).
+
+Scalar latents plus the flat dim-major tensor track ``[E, d*U]``. Per layer:
+weight the SH basis into channels with the current env weights, contract
+against the tensor features with the environment sum fused in
+(``scatter_factor = 1/sqrt(avg_num_neighbors)``), take the leading ``0e``
+block as the layer's tensor scalars, and run the latent MLP on the densenet
+concat of all scalar blocks so far, sliced into the next scalar block and
+the next env weights.
+
+The scatter factor is applied exactly once: in ``env_sum`` on the einsum
+backend, folded into the last weight columns of the MLPs that produce env
+weights on the fused backend.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence
+
+import torch
+from torch import nn
+
+from ..data import keys
+from ..lib.irreps import Irrep, Irreps, tp_path_exists
+from .channels import MakeWeightedChannels
+from .contract import Contracter
+from .mlp import ScalarMLP, silu
+
+BACKENDS = ("einsum", "fused_infer")
+
+
+def compute_irreps_ladder(irreps_sh: Irreps, allowed: Irreps, num_layers: int) -> List[Irreps]:
+    """Per-layer tensor-track irreps: [input, out_0, ..., out_{L-1}]."""
+    irreps_sh = Irreps(irreps_sh)
+    allowed = Irreps(allowed).sorted().merged()
+    ladder = [irreps_sh]
+    for layer in range(num_layers):
+        targets = Irreps("1x0e") if layer == num_layers - 1 else allowed
+        out = Irreps(
+            [(1, mi.ir) for mi in targets if tp_path_exists(ladder[-1], irreps_sh, mi.ir)]
+        )
+        if len(out) == 0 or out[0].ir != Irrep("0e"):
+            raise ValueError(f"layer {layer}: ladder must start with 0e, got {out}")
+        ladder.append(out)
+    # backward prune: keep only irreps that can still produce a wanted output
+    for layer in reversed(range(num_layers)):
+        wanted = [w.ir for w in ladder[layer + 1]]
+        kept = [
+            (1, mi.ir)
+            for mi in ladder[layer]
+            if any(any(ir in wanted for ir in mi.ir * sh.ir) for sh in irreps_sh)
+        ]
+        ladder[layer] = Irreps(kept)
+    return ladder
+
+
+def _subset_dims(full: Irreps, subset: Irreps) -> List[int]:
+    """Basis-dim indices of ``subset``'s irreps inside ``full`` (ordered)."""
+    dims: List[int] = []
+    used = set()
+    full_slices = full.slices()
+    for mi in subset:
+        for k, fmi in enumerate(full):
+            if fmi.ir == mi.ir and k not in used:
+                used.add(k)
+                dims.extend(range(full_slices[k].start, full_slices[k].stop))
+                break
+        else:
+            raise ValueError(f"{mi} not found in {full}")
+    return dims
+
+
+class AllegroLayers(nn.Module):
+    """Consumes EDGE_EMBEDDING/EDGE_ATTRS/EDGE_FEATURES, writes EDGE_SCALARS
+    (a tuple of ``num_layers + 1`` blocks ``[E, S]``)."""
+
+    def __init__(
+        self,
+        irreps_sh: str,
+        tensor_track_allowed_irreps: str,
+        embed_dim: int,
+        num_layers: int = 2,
+        num_scalar_features: int = 64,
+        num_tensor_features: int = 16,
+        avg_num_neighbors: float = 1.0,
+        mlp_hidden_dims: Sequence[int] = (64,),
+        mlp_nonlinearity=silu,
+        tp_path_channel_coupling: bool = True,
+        dtype=torch.float32,
+        tp_kernel_backend: str = "einsum",
+    ):
+        super().__init__()
+        if tp_kernel_backend not in BACKENDS:
+            raise NotImplementedError(
+                f"tp_kernel_backend={tp_kernel_backend!r} is not ported yet; the port has "
+                f"{BACKENDS} (ROADMAP.md queue 1, items 7-8)"
+            )
+        irreps_sh = Irreps(irreps_sh)
+        ladder = compute_irreps_ladder(irreps_sh, Irreps(tensor_track_allowed_irreps), num_layers)
+        self.num_layers = int(num_layers)
+        self.S = S = int(num_scalar_features)
+        self.U = U = int(num_tensor_features)
+        self.backend = tp_kernel_backend
+        self.dtype = dtype
+        self.env_weighter = MakeWeightedChannels(irreps_sh, U)
+        env_numel = self.env_weighter.weight_numel
+        scatter_factor = 1.0 / math.sqrt(avg_num_neighbors)
+        fold = tp_kernel_backend == "fused_infer"
+        env_scale = (S, scatter_factor) if fold else None
+        self.first_projection = ScalarMLP(
+            embed_dim, S + env_numel, hidden_dims=(), dtype=dtype, out_col_scale=env_scale
+        )
+        self.tps = nn.ModuleList()
+        self.latents = nn.ModuleList()
+        for layer in range(self.num_layers):
+            self.tps.append(
+                Contracter(
+                    str(ladder[layer]), str(irreps_sh), str(ladder[layer + 1]), U,
+                    path_channel_coupling=tp_path_channel_coupling,
+                    scatter_factor=None if fold else scatter_factor,
+                    dtype=dtype,
+                )
+            )
+            last = layer == self.num_layers - 1
+            self.latents.append(
+                ScalarMLP(
+                    S * (layer + 1) + U, S + (0 if last else env_numel),
+                    hidden_dims=tuple(mlp_hidden_dims), nonlinearity=mlp_nonlinearity,
+                    dtype=dtype, out_col_scale=None if last else env_scale,
+                )
+            )
+        # layer-0 column blocks if the backward prune shrank the input irreps
+        self.input_dims = None if ladder[0] == irreps_sh else tuple(_subset_dims(irreps_sh, ladder[0]))
+
+    def forward(self, data: Dict) -> Dict:
+        S, U = self.S, self.U
+        n_atoms = data[keys.POSITIONS].shape[0]
+        centers = data[keys.EDGE_INDEX][0]
+        sh = data[keys.EDGE_ATTRS].to(self.dtype)
+        features = data[keys.EDGE_FEATURES]
+        if self.input_dims is not None:
+            cols = torch.as_tensor(
+                [d * U + u for d in self.input_dims for u in range(U)], device=features.device
+            )
+            features = features.index_select(1, cols)
+        if self.backend == "fused_infer":
+            if keys.CENTER_ROW_PTR not in data:
+                raise ValueError(
+                    "tp_kernel_backend='fused_infer' needs the CSR statics: "
+                    "call Model.precompute_statics(data) once per neighbor list"
+                )
+            centers = centers.to(torch.int32).contiguous()
+            row_ptr = data[keys.CENTER_ROW_PTR]
+            sh = sh.contiguous()
+        proj = self.first_projection(data[keys.EDGE_EMBEDDING])
+        scalar_blocks = [proj[:, :S]]
+        env_w = proj[:, S:]
+        for layer in range(self.num_layers):
+            tp = self.tps[layer]
+            if self.backend == "fused_infer":
+                feats = tp.fused_call(
+                    features.contiguous(), sh, env_w.contiguous(), centers, row_ptr
+                )
+            else:
+                weighted_sh = self.env_weighter.flat_dim_major(sh, env_w)
+                feats = tp(features, weighted_sh, centers, n_atoms)
+            # densenet latent input: the pieces, not a materialized concat
+            lat = self.latents[layer](scalar_blocks + [feats[:, :U]])
+            scalar_blocks.append(lat[:, :S])
+            env_w = lat[:, S:]
+            features = feats
+        out = dict(data)
+        out[keys.EDGE_SCALARS] = tuple(scalar_blocks)
+        return out

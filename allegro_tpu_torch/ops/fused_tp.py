@@ -1,0 +1,313 @@
+"""The four tensor-product layer kernels: wrappers, plain versions, counters.
+
+Each wrapper takes its arguments in the JAX package's layout (edges sorted
+by center, sentinel center ``n_atoms`` on padded edges, flat dim-major
+tensor track: column ``i*U+u`` is basis dim ``i``, channel ``u``) and returns
+per-atom arrays as one ``[n_atoms, ·]`` array, where the TPU kernels returned
+two rank-window partials ``(eA, eB)``.
+
+- A tensor on the CPU goes to the kernel's plain PyTorch version
+  (``*_reference``), which the CPU tests hold against the Pallas kernels.
+- A tensor on a CUDA device goes to the hand-written CUDA kernel
+  (``csrc/fused_tp.cu``, built by ``ops/_build.py``) on the current stream;
+  the wrapper raises if the launch fails. There is no fallback.
+- ``LAUNCHES[name]`` counts the kernel launches, and only those.
+
+| wrapper | replaces (allegro_tpu/ops/fused_tp.py) |
+| --- | --- |
+| ``env_scatter`` | ``env_scatter_call`` / ``_env_scatter_kernel`` |
+| ``gather_tp`` | ``gather_tp_raw_call`` / ``_gather_tp_raw_kernel`` |
+| ``bwd_fused`` | ``bwd_fused_raw_call`` / ``_bwd_fused_raw_kernel`` |
+| ``unweight_both`` | ``unweight_both_raw_call`` / ``_unweight_both_raw_kernel`` |
+
+What bounds each kernel on the card and how its design answers it is noted
+beside each kernel in the CUDA source.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+LAUNCHES: Dict[str, int] = {
+    "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def csr_row_ptr(centers: np.ndarray, n_atoms: int) -> np.ndarray:
+    """Host CSR statics: ``row_ptr[a]`` is the first edge of atom ``a`` in
+    the center-sorted edge list, ``row_ptr[n_atoms]`` the first padded
+    (sentinel) edge. Raises ValueError unless the centers lie in
+    ``[0, n_atoms]`` and are non-decreasing (padding trailing), the order
+    the kernels rely on (as ``make_block_plan_np`` checks on the TPU)."""
+    centers = np.asarray(centers).astype(np.int64)
+    if centers.size and (centers.min() < 0 or centers.max() > n_atoms):
+        raise ValueError(f"edge centers must lie in [0, {n_atoms}] (sentinel {n_atoms})")
+    if centers.size and (np.diff(centers) < 0).any():
+        raise ValueError(
+            "the fused TP kernels require edges sorted by center atom (non-decreasing "
+            "edge_index[0], padded edges last); neighbor_list produces this order"
+        )
+    return np.searchsorted(centers, np.arange(n_atoms + 1), side="left").astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# segment helpers (edges → atoms and back; sentinel edges are dropped / read 0)
+# ---------------------------------------------------------------------------
+
+
+def segment_sum(values: torch.Tensor, centers: torch.Tensor, n_atoms: int) -> torch.Tensor:
+    """``out[a] = Σ_{centers[e] = a} values[e]``; ids ``>= n_atoms`` are dropped."""
+    idx = centers.long().clamp(0, n_atoms)
+    out = values.new_zeros((n_atoms + 1,) + tuple(values.shape[1:]))
+    return out.index_add(0, idx, values)[:n_atoms]
+
+
+def gather_rows(table: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """``out[e] = table[centers[e]]``, zeros for ids ``>= len(table)``."""
+    n = table.shape[0]
+    padded = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
+    return padded.index_select(0, centers.long().clamp(0, n))
+
+
+def _path_tensor(w, entry_idx, entry_coef, d1, d2, d3):
+    """``ww[u, i, j, k] = Σ_p w[p, u] C[p, i, j, k]`` from the sparse entries."""
+    P = w.shape[0]
+    idx = entry_idx.long()
+    C = w.new_zeros((P, d1, d2, d3))
+    C.index_put_((idx[:, 3], idx[:, 0], idx[:, 1], idx[:, 2]), entry_coef.to(w.dtype),
+                 accumulate=True)
+    return torch.einsum("pu,pijk->uijk", w, C)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U):
+    E, d2 = sh.shape
+    w = wexp.view(E, -1, U).index_select(1, dim_to_irr.long())  # [E, d2, U]
+    return segment_sum((sh[:, :, None] * w).reshape(E, d2 * U), centers, n_atoms)
+
+
+def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3):
+    E, U = x.shape[0], w.shape[1]
+    d1, d2 = x.shape[1] // U, env.shape[1] // U
+    ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
+    env_e = gather_rows(env, centers).view(E, d2, U)
+    xv = x.view(E, d1, U)
+    out = x.new_zeros((E, d3, U))
+    for i in range(d1):
+        out = out + xv[:, i : i + 1, :] * torch.einsum("eju,ujk->eku", env_e, ww[:, i])
+    return out.reshape(E, d3 * U)
+
+
+def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef):
+    E, U = x.shape[0], w.shape[1]
+    d1, d2, d3 = x.shape[1] // U, env.shape[1] // U, g.shape[1] // U
+    ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
+    env_e = gather_rows(env, centers).view(E, d2, U)
+    xv, gv = x.view(E, d1, U), g.view(E, d3, U)
+    dx = []
+    denv_e = x.new_zeros((E, d2, U))
+    for i in range(d1):
+        t = torch.einsum("eku,ujk->eju", gv, ww[:, i])  # [E, d2, U]
+        dx.append((t * env_e).sum(1))
+        denv_e = denv_e + xv[:, i : i + 1, :] * t
+    dx = torch.stack(dx, dim=1).reshape(E, d1 * U)
+    return dx, segment_sum(denv_e.reshape(E, d2 * U), centers, n_atoms)
+
+
+def unweight_both_reference(t, sh, wexp, centers, dim_to_irr):
+    E, d2 = sh.shape
+    U = t.shape[1] // d2
+    n_irr = wexp.shape[1] // U
+    d2i = dim_to_irr.long()
+    t_e = gather_rows(t, centers).view(E, d2, U)
+    dsh = (t_e * wexp.view(E, n_irr, U).index_select(1, d2i)).sum(-1)
+    dwexp = wexp.new_zeros((E, n_irr, U)).index_add(1, d2i, t_e * sh[:, :, None])
+    return dsh, dwexp.reshape(E, n_irr * U)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(*tensors) -> bool:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"all arguments must be on one device, got {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}: the kernels run on CUDA or CPU")
+    return False
+
+
+def _check_kernel_args(floats, ints) -> None:
+    for name, t in floats.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: index arrays must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    _build.check(lib, rc, name)
+    LAUNCHES[name] += 1
+
+
+def _check_entries(entry_idx, entry_coef):
+    if entry_idx.ndim != 2 or entry_idx.shape[1] != 4 or entry_coef.shape != entry_idx.shape[:1]:
+        raise ValueError(
+            f"entry table must be idx [n, 4] (i, j, k, p) and coef [n], got "
+            f"{tuple(entry_idx.shape)} and {tuple(entry_coef.shape)}"
+        )
+
+
+def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
+    """env [n_atoms, d2*U]: ``env[a, jU+u] = Σ_{c(e)=a} sh[e,j] wexp[e, irr(j)U+u]``.
+
+    sh [E, d2], wexp [E, n_irr*U], centers [E], row_ptr [n_atoms+1] (CSR over
+    the center-sorted edges), dim_to_irr [d2].
+
+    Replaces ``_env_scatter_kernel``. Bound by the one read of wexp; one
+    block per atom sums its CSR segment in edge order (no atomics)."""
+    E, d2 = sh.shape
+    n_atoms = row_ptr.shape[0] - 1
+    n_irr = wexp.shape[1] // U
+    if wexp.shape != (E, n_irr * U) or centers.shape != (E,) or dim_to_irr.shape != (d2,):
+        raise ValueError(
+            f"env_scatter shapes: sh {tuple(sh.shape)}, wexp {tuple(wexp.shape)}, "
+            f"centers {tuple(centers.shape)}, dim_to_irr {tuple(dim_to_irr.shape)}, U={U}"
+        )
+    if _on_cpu(sh, wexp, centers, row_ptr, dim_to_irr):
+        return env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U)
+    _check_kernel_args(
+        {"sh": sh, "wexp": wexp}, {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr}
+    )
+    env = torch.empty((n_atoms, d2 * U), dtype=sh.dtype, device=sh.device)
+    if n_atoms == 0:
+        return env
+    _launch("env_scatter", "atpt_env_scatter", sh.device,
+            sh.data_ptr(), wexp.data_ptr(), row_ptr.data_ptr(), dim_to_irr.data_ptr(),
+            n_atoms, d2, n_irr, U, env.data_ptr())
+    return env
+
+
+def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int) -> torch.Tensor:
+    """out [E, d3*U]: ``out[e,kU+u] = Σ c w[p,u] x[e,iU+u] env[c(e),jU+u]``.
+
+    x [E, d1*U], env [n_atoms, d2*U], w [P, U], entries (i, j, k, p) / c.
+
+    Replaces ``_gather_tp_raw_kernel``. Bound by the read of x and the write
+    of out; one warp per edge, lane = channel, coalesced rows."""
+    E, U = x.shape[0], w.shape[1]
+    n_atoms = env.shape[0]
+    _check_entries(entry_idx, entry_coef)
+    if x.shape[1] % U or env.shape[1] % U or centers.shape != (E,):
+        raise ValueError(
+            f"gather_tp shapes: x {tuple(x.shape)}, env {tuple(env.shape)}, "
+            f"w {tuple(w.shape)}, centers {tuple(centers.shape)}"
+        )
+    if _on_cpu(x, env, w, centers, entry_idx, entry_coef):
+        return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3)
+    _check_kernel_args(
+        {"x": x, "env": env, "w": w, "entry_coef": entry_coef},
+        {"centers": centers, "entry_idx": entry_idx},
+    )
+    out = torch.empty((E, d3 * U), dtype=x.dtype, device=x.device)
+    if E == 0:
+        return out
+    _launch("gather_tp", "atpt_gather_tp", x.device,
+            x.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
+            entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
+            E, n_atoms, x.shape[1] // U, env.shape[1] // U, d3, U, out.data_ptr())
+    return out
+
+
+def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx,
+              entry_coef) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``gather_tp`` in x and env, without dw:
+    dx [E, d1*U] and denv [n_atoms, d2*U].
+
+    Replaces ``_bwd_fused_raw_kernel``. Bound by the reads of x and g and the
+    write of dx; one block per atom segment gives dx and denv in one pass,
+    denv summed across warps in shared memory in a fixed order."""
+    E, U = x.shape[0], w.shape[1]
+    n_atoms = row_ptr.shape[0] - 1
+    _check_entries(entry_idx, entry_coef)
+    if (g.shape[0] != E or g.shape[1] % U or env.shape[0] != n_atoms
+            or centers.shape != (E,)):
+        raise ValueError(
+            f"bwd_fused shapes: x {tuple(x.shape)}, g {tuple(g.shape)}, "
+            f"env {tuple(env.shape)}, row_ptr {tuple(row_ptr.shape)}"
+        )
+    if _on_cpu(x, g, env, w, centers, row_ptr, entry_idx, entry_coef):
+        return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef)
+    _check_kernel_args(
+        {"x": x, "g": g, "env": env, "w": w, "entry_coef": entry_coef},
+        {"row_ptr": row_ptr, "entry_idx": entry_idx},
+    )
+    dx = torch.empty_like(x)
+    denv = torch.empty_like(env)
+    if E == 0 and n_atoms == 0:
+        return dx, denv
+    _launch("bwd_fused", "atpt_bwd_fused", x.device,
+            x.data_ptr(), g.data_ptr(), env.data_ptr(), w.data_ptr(), row_ptr.data_ptr(),
+            entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0], E, n_atoms,
+            x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U,
+            dx.data_ptr(), denv.data_ptr())
+    return dx, denv
+
+
+def unweight_both(t, sh, wexp, centers, dim_to_irr) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two transposes of ``env_scatter`` from t = denv [n_atoms, d2*U]:
+    dsh [E, d2] and dwexp [E, n_irr*U].
+
+    Replaces ``_unweight_both_raw_kernel``. Bound by the read of wexp and the
+    write of dwexp; one warp per edge, dsh by a warp shuffle reduction."""
+    E, d2 = sh.shape
+    U = t.shape[1] // d2
+    n_irr = wexp.shape[1] // U
+    if (t.shape[1] != d2 * U or wexp.shape != (E, n_irr * U) or centers.shape != (E,)
+            or dim_to_irr.shape != (d2,)):
+        raise ValueError(
+            f"unweight_both shapes: t {tuple(t.shape)}, sh {tuple(sh.shape)}, "
+            f"wexp {tuple(wexp.shape)}, centers {tuple(centers.shape)}"
+        )
+    if _on_cpu(t, sh, wexp, centers, dim_to_irr):
+        return unweight_both_reference(t, sh, wexp, centers, dim_to_irr)
+    _check_kernel_args(
+        {"t": t, "sh": sh, "wexp": wexp}, {"centers": centers, "dim_to_irr": dim_to_irr}
+    )
+    dsh = torch.empty_like(sh)
+    dwexp = torch.empty_like(wexp)
+    if E == 0:
+        return dsh, dwexp
+    _launch("unweight_both", "atpt_unweight_both", t.device,
+            t.data_ptr(), sh.data_ptr(), wexp.data_ptr(), centers.data_ptr(),
+            dim_to_irr.data_ptr(), E, t.shape[0], d2, n_irr, U,
+            dsh.data_ptr(), dwexp.data_ptr())
+    return dsh, dwexp

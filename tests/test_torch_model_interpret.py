@@ -1,0 +1,67 @@
+"""The port's ``fused_infer`` force call against JAX ``fused_infer`` with
+its Pallas kernels in interpret mode (float64, 1e-10).
+
+JAX runs ``fused_infer`` without the mega kernels and the fused readout
+(``use_mega=False, use_fused_readout=False``), so each layer goes through
+``env_scatter``, ``gather_tp_raw``, ``bwd_fused_raw`` and
+``unweight_both_raw``: the four kernels the port replaces. The batch has no
+precomputed statics, so JAX's edge vectors take the plain gather branch, as
+the port's do.
+"""
+
+import numpy as np
+import jax
+import torch
+
+from allegro_tpu.data import to_jax
+from allegro_tpu.model import AllegroModel as JaxAllegroModel
+from allegro_tpu.ops import fused_tp as jax_ftp
+
+from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
+from allegro_tpu_torch.model import AllegroModel, params_from_jax
+
+R_MAX = 4.0
+TOL = 1e-10
+
+
+def _frame():
+    """12 atoms: a jittered 2x2x3 periodic lattice, three types."""
+    rng = np.random.RandomState(1)
+    grid = np.stack(np.meshgrid(*(np.arange(s) for s in (2, 2, 3)), indexing="ij"), -1)
+    grid = grid.reshape(-1, 3)
+    frame = {
+        keys.POSITIONS: grid * 2.2 + 0.1 * rng.randn(12, 3),
+        keys.ATOM_TYPES: rng.randint(0, 3, 12).astype(np.int32),
+        keys.CELL: np.diag([4.4, 4.4, 6.6]),
+        keys.PBC: np.ones(3, dtype=bool),
+    }
+    return neighbor_list(frame, R_MAX)
+
+
+def test_port_matches_jax_fused_infer_interpret():
+    batch = batch_frames([_frame()], n_frames=1)
+    kw = dict(
+        r_max=R_MAX, type_names=["A", "B", "C"], l_max=2, parity=True, num_layers=2,
+        num_scalar_features=16, num_tensor_features=4,
+        avg_num_neighbors=float(batch[keys.EDGE_MASK].sum()) / 12.0,
+        per_type_energy_scales=[1.0, 0.5, 2.0], per_type_energy_shifts=[0.1, -0.2, 0.3],
+        model_dtype="float64", tp_kernel_backend="fused_infer", use_mega=False,
+    )
+    jm = JaxAllegroModel(**kw, use_fused_readout=False)
+    jb = to_jax(batch, dtype=np.float64)
+    params = jm.init(3, jb)
+    old = jax_ftp.INTERPRET
+    jax_ftp.INTERPRET = True
+    try:
+        want = jm.apply_with_derivatives(params, jb)
+    finally:
+        jax_ftp.INTERPRET = old
+    m = AllegroModel(**kw)
+    m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    out = m.apply_with_derivatives(to_torch(m.precompute_statics(batch), dtype=torch.float64))
+    for k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES, keys.VIRIAL):
+        w = np.asarray(want[k])
+        got = out[k].numpy()
+        assert got.shape == w.shape, k
+        err = float(np.abs(got - w).max())
+        assert err <= TOL * max(1.0, float(np.abs(w).max())), f"{k}: max abs err {err:.3e}"
