@@ -3,8 +3,9 @@
 The same names as ``allegro_tpu/data/keys.py``, so a data dict means the same
 thing in both packages: ``EDGE_INDEX`` row 0 is the center atom, row 1 the
 neighbor; padded edges carry the sentinel center ``n_atoms``. The TPU block
-plan keys are not carried over: the port's kernels read a CSR row pointer
-over the center-sorted edges instead (``CENTER_ROW_PTR``).
+plan, rank-identity and window keys are not carried over: the port's kernels
+read CSR row pointers instead (``CENTER_ROW_PTR`` over the center-sorted
+edges, ``NBR_ROW_PTR`` over the neighbor-sorted order ``NBR_PERM``).
 """
 
 # --- per-atom ---
@@ -36,6 +37,11 @@ EDGE_ENERGY = "edge_energy"           # [E, 1]
 # [row_ptr[a], row_ptr[a+1]); sentinel (padded) edges lie at and after
 # row_ptr[n_atoms]
 CENTER_ROW_PTR = "center_row_ptr"     # [N+1] int32
+# the edges sorted by neighbor (stable, sentinel neighbors last): NBR_PERM[k]
+# is the k-th edge in that order, and NBR_ROW_PTR its CSR row pointer, so the
+# edges whose neighbor is atom a are NBR_PERM[NBR_ROW_PTR[a]:NBR_ROW_PTR[a+1]]
+NBR_PERM = "nbr_perm"                 # [E] int32
+NBR_ROW_PTR = "nbr_row_ptr"           # [N+1] int32
 
 # --- per-frame ---
 CELL = "cell"                         # [F, 3, 3] float (rows are lattice vectors)

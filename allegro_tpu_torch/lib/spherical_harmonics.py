@@ -68,6 +68,13 @@ def sh_coefficients(l: int) -> np.ndarray:
     return coeffs
 
 
+@functools.lru_cache(maxsize=None)
+def _device_coefficients(l: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``sh_coefficients(l)`` on ``device``, uploaded once: an upload per
+    call would make the host wait for the device."""
+    return torch.as_tensor(sh_coefficients(l), dtype=dtype, device=device)
+
+
 def spherical_harmonics(
     ls: Union[int, Sequence[int]],
     vectors: torch.Tensor,
@@ -100,6 +107,5 @@ def spherical_harmonics(
         monos = torch.stack(
             [xs[a] * ys[b] * zs[c] for (a, b, c) in monomial_exponents(l)], dim=-1
         )
-        coeffs = torch.as_tensor(sh_coefficients(l), dtype=v.dtype, device=v.device)
-        blocks.append(monos @ coeffs)
+        blocks.append(monos @ _device_coefficients(l, v.dtype, v.device))
     return torch.cat(blocks, dim=-1)

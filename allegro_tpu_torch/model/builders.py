@@ -34,7 +34,8 @@ from ..nn import (
     force_stress_wrapper,
 )
 from ..nn.mlp import silu
-from ..ops.fused_tp import csr_row_ptr
+from ..ops.fused_primitives import readout_sum_infer
+from ..ops.fused_tp import csr_row_ptr, neighbor_csr
 
 NONLINEARITIES = {
     "silu": silu,
@@ -78,22 +79,38 @@ class FieldMLP(torch.nn.Module):
 class FusedEdgeReadoutSum(torch.nn.Module):
     """``edge_readout`` + ``edge_sum`` as one stage for the inference backend,
     with the edgewise ``factor`` folded into the MLP's last weight matrix.
-    The port runs the JAX stage's plain branch (readout MLP, then the edge
-    sum); its fused readout kernel is not ported yet."""
+
+    As in JAX, the fused readout kernel (``readout_sum_infer``: the per-edge
+    MLP and the per-atom energy sum in one pass) runs when the CSR statics
+    are present, the MLP has at most one hidden layer, its activation is
+    SiLU, and ``use_fused`` is not False; otherwise the plain chain runs
+    (readout MLP, then the edge sum, which takes the ``center_sum`` kernel
+    when the statics are present). The parameters are ``mlp.w*`` either way,
+    as in the JAX stage."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int] = (), nonlinearity=silu,
-                 dtype=torch.float32, factor: Optional[float] = None):
+                 dtype=torch.float32, factor: Optional[float] = None,
+                 use_fused: Optional[bool] = None):
         super().__init__()
         self.mlp = ScalarMLP(
             in_dim, 1, tuple(hidden_dims), nonlinearity, dtype,
             out_col_scale=None if factor is None else (0, factor),
         )
+        self.fusable = len(hidden_dims) <= 1 and nonlinearity is silu and use_fused is not False
         self.reduce = EdgewiseReduce(field=keys.EDGE_ENERGY, out_field=keys.PER_ATOM_ENERGY)
 
     def forward(self, data: Dict) -> Dict:
         blocks = data[keys.EDGE_SCALARS]
         pieces = tuple(blocks) if isinstance(blocks, (tuple, list)) else (blocks,)
         out = dict(data)
+        if self.fusable and keys.CENTER_ROW_PTR in data:
+            ws = self.mlp.weights()
+            centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+            out[keys.PER_ATOM_ENERGY] = readout_sum_infer(
+                pieces, ws[0], ws[1] if len(ws) > 1 else None, centers,
+                data[keys.CENTER_ROW_PTR],
+            )
+            return out
         out[keys.EDGE_ENERGY] = self.mlp(pieces)
         return self.reduce(out)
 
@@ -136,10 +153,12 @@ class Model:
 
     def precompute_statics(self, data: Dict) -> Dict:
         """Attach the position-independent per-neighbor-list arrays, on the
-        host: ``EDGE_TYPE``, and for ``fused_infer`` the CSR row pointer
-        ``CENTER_ROW_PTR`` over the center-sorted edges. Raises ValueError
-        on edges that are not sorted by center. Torch inputs get tensors on
-        the device of ``EDGE_INDEX``."""
+        host: ``EDGE_TYPE``, and for ``fused_infer`` the CSR statics of the
+        center gathers: ``CENTER_ROW_PTR`` over the center-sorted edges, and
+        ``NBR_PERM`` / ``NBR_ROW_PTR`` over the neighbor-sorted order. Call it
+        once per neighbor list. Raises ValueError on edges that are not
+        sorted by center. Torch inputs get tensors on the device of
+        ``EDGE_INDEX``."""
         ei = _as_numpy(data[keys.EDGE_INDEX])
         types = _as_numpy(data[keys.ATOM_TYPES])
         n_atoms = types.shape[0]
@@ -149,6 +168,7 @@ class Model:
         new = {keys.EDGE_TYPE: (ct * num_types + nt).astype(np.int32)}
         if self.builder_kwargs.get("tp_kernel_backend") == "fused_infer":
             new[keys.CENTER_ROW_PTR] = csr_row_ptr(ei[0], n_atoms)
+            new[keys.NBR_PERM], new[keys.NBR_ROW_PTR] = neighbor_csr(ei[1], n_atoms)
         out = dict(data)
         like = data[keys.EDGE_INDEX]
         for k, v in new.items():
@@ -247,8 +267,6 @@ def FullAllegroEnergyModel(
             "the mega-fused layers (use_mega=None or True with fused_infer; pass use_mega=False)",
             "queue 2, kernels 7-10",
         )
-    if use_fused_readout:
-        raise _not_ported("use_fused_readout=True", "queue 2, kernels 11-12")
     if tensor_dtype is not None:
         raise _not_ported(f"tensor_dtype={tensor_dtype!r}", "queue 1, item 6")
     if remat or checkpoint_energy:
@@ -320,7 +338,8 @@ def FullAllegroEnergyModel(
     if tp_kernel_backend == "fused_infer":
         layers.append((
             "edge_readout",
-            FusedEdgeReadoutSum(readout_in, readout_hidden, readout_act, dtype, factor=factor),
+            FusedEdgeReadoutSum(readout_in, readout_hidden, readout_act, dtype, factor=factor,
+                                use_fused=use_fused_readout),
         ))
     else:
         layers += [

@@ -23,7 +23,7 @@ from torch import nn
 
 from ..data import keys
 from ..lib.irreps import Irrep, Irreps, tp_path_exists
-from .channels import MakeWeightedChannels
+from .channels import MakeWeightedChannels, device_index
 from .contract import Contracter
 from .mlp import ScalarMLP, silu
 
@@ -140,8 +140,8 @@ class AllegroLayers(nn.Module):
         sh = data[keys.EDGE_ATTRS].to(self.dtype)
         features = data[keys.EDGE_FEATURES]
         if self.input_dims is not None:
-            cols = torch.as_tensor(
-                [d * U + u for d in self.input_dims for u in range(U)], device=features.device
+            cols = device_index(
+                tuple(d * U + u for d in self.input_dims for u in range(U)), features.device
             )
             features = features.index_select(1, cols)
         if self.backend == "fused_infer":

@@ -9,9 +9,18 @@ track, column ``i*mul + u`` being basis dim ``i``, channel ``u``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..lib.irreps import Irreps
+
+
+@functools.lru_cache(maxsize=None)
+def device_index(values: tuple, device: torch.device) -> torch.Tensor:
+    """An index table on ``device``, uploaded once: an upload per call would
+    make the host wait for the device."""
+    return torch.as_tensor(values, device=device)
 
 
 class MakeWeightedChannels:
@@ -28,6 +37,6 @@ class MakeWeightedChannels:
     def flat_dim_major(self, edge_attr: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         """edge_attr [E, dim], weights [E, n_irr*mul] → [E, dim*mul]."""
         E, dim = edge_attr.shape
-        idx = torch.as_tensor(self.dim_to_irr, device=weights.device)
+        idx = device_index(self.dim_to_irr, weights.device)
         w = weights.reshape(E, len(self.irreps_in), self.mul_out).index_select(1, idx)
         return (edge_attr[:, :, None] * w).reshape(E, dim * self.mul_out)

@@ -1,9 +1,13 @@
 """Edge geometry: vectors, lengths, normalized lengths, edge types.
 
-Twin of the gather branch of ``allegro_tpu/nn/edge_geometry.py``. Edge
-vectors are ``pos[j] - pos[i] + shift @ cell``, with indices clamped to the
-atom range, so padded (sentinel) edges get ``vec == 0`` as JAX's
-``mode="clip"`` gives them.
+Twin of ``allegro_tpu/nn/edge_geometry.py``. Edge vectors are
+``pos[j] - pos[i] + shift @ cell``. With the CSR statics of
+``Model.precompute_statics`` (``CENTER_ROW_PTR``, ``NBR_PERM``,
+``NBR_ROW_PTR``) both position gathers go through the ``center_gather``
+kernel, whose transpose, the force scatter, is the ``center_sum`` kernel over
+the center and the neighbor CSR; sentinel edges read zero rows there.
+Without them the indices are clamped to the atom range, as JAX's
+``mode="clip"``. Either way padded (sentinel) edges get ``vec == 0``.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Dict
 import torch
 
 from ..data import keys
+from ..ops.fused_primitives import center_gather
 
 
 def with_edge_vectors(data: Dict) -> Dict:
@@ -21,9 +26,17 @@ def with_edge_vectors(data: Dict) -> Dict:
         return data
     pos = data[keys.POSITIONS]
     n = pos.shape[0]
-    centers = data[keys.EDGE_INDEX][0].long().clamp(0, n - 1)
-    neighbors = data[keys.EDGE_INDEX][1].long().clamp(0, n - 1)
-    vec = pos.index_select(0, neighbors) - pos.index_select(0, centers)
+    if keys.CENTER_ROW_PTR in data:
+        # exact position gathers (copies) through the kernels
+        ei = data[keys.EDGE_INDEX].to(torch.int32)
+        p = pos.contiguous()
+        vec = center_gather(
+            p, ei[1].contiguous(), data[keys.NBR_ROW_PTR], data[keys.NBR_PERM]
+        ) - center_gather(p, ei[0].contiguous(), data[keys.CENTER_ROW_PTR])
+    else:
+        centers = data[keys.EDGE_INDEX][0].long().clamp(0, n - 1)
+        neighbors = data[keys.EDGE_INDEX][1].long().clamp(0, n - 1)
+        vec = pos.index_select(0, neighbors) - pos.index_select(0, centers)
     if keys.CELL in data and keys.EDGE_CELL_SHIFT in data:
         cell = data[keys.CELL]
         if cell.ndim == 2:
@@ -32,6 +45,7 @@ def with_edge_vectors(data: Dict) -> Dict:
         if cell.shape[0] == 1 or keys.BATCH not in data:
             vec = vec + shift @ cell[0].to(vec.dtype)
         else:
+            centers = data[keys.EDGE_INDEX][0].long().clamp(0, n - 1)
             edge_frame = data[keys.BATCH].long().index_select(0, centers)
             edge_cell = cell.to(vec.dtype).index_select(0, edge_frame)  # [E, 3, 3]
             vec = vec + torch.einsum("es,esr->er", shift, edge_cell)

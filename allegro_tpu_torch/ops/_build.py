@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The kernels are CUDA C++ with a plain C interface (``allegro_tpu_torch/csrc``),
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library at
-first use and loaded with ``ctypes``. The library goes into
+compiled with ``nvcc`` for Hopper (``sm_90a``) at first use, one ``nvcc``
+process per source, all started together, then linked into one shared
+library and loaded with ``ctypes``. The library goes into
 ``allegro_tpu_torch/_build/``, named by a hash of the sources and flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is.
 """
@@ -20,15 +21,17 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_longlong
-# C signatures of csrc/fused_tp.cu; every pointer and the stream are void*
+_vpp = ctypes.POINTER(ctypes.c_void_p)
+_i64p = ctypes.POINTER(ctypes.c_longlong)
+_i32p = ctypes.POINTER(ctypes.c_int)
+# C signatures of csrc/*.cu; every device pointer and the stream are void*,
+# the readout's piece tables are host arrays
 _SIGNATURES = {
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32,
@@ -37,6 +40,11 @@ _SIGNATURES = {
                        _i32, _i32, _vp, _vp, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
                            _vp],
+    "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
+    "atpt_center_sum": [_vp, _vp, _vp, _i32, _i32, _vp, _vp],
+    "atpt_readout_sum": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
+    "atpt_readout_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _i64,
+                         _i32, _i32, _vp],
 }
 
 
@@ -77,15 +85,33 @@ def build_library(build_dir: Path | str = BUILD_DIR) -> Path:
             "the CUDA kernels of allegro_tpu_torch cannot be built"
         )
     build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = so_path.with_name(f"{so_path.name}.tmp{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+    tag = f"tmp{os.getpid()}"
+    objs = [build_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = so_path.with_name(f"{so_path.name}.{tag}")
+    try:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        results = []
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate()
+            results.append((cmd, proc.returncode, out, err))
+        for cmd, rc, out, err in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{err}")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(link)}\n{proc.stderr}"
+            )
+        so_path.with_suffix(".log").write_text(
+            "".join(out + err for _, _, out, err in results) + proc.stdout + proc.stderr
         )
-    so_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so_path)
+        os.replace(tmp, so_path)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return so_path
 
 

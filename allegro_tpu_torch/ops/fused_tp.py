@@ -1,4 +1,4 @@
-"""The four tensor-product layer kernels: wrappers, plain versions, counters.
+"""The force call's kernels: wrappers, plain versions, counters.
 
 Each wrapper takes its arguments in the JAX package's layout (edges sorted
 by center, sentinel center ``n_atoms`` on padded edges, flat dim-major
@@ -19,14 +19,20 @@ two rank-window partials ``(eA, eB)``.
 | ``gather_tp`` | ``gather_tp_raw_call`` / ``_gather_tp_raw_kernel`` |
 | ``bwd_fused`` | ``bwd_fused_raw_call`` / ``_bwd_fused_raw_kernel`` |
 | ``unweight_both`` | ``unweight_both_raw_call`` / ``_unweight_both_raw_kernel`` |
+| ``center_gather`` | ``center_broadcast_call`` / ``_center_broadcast_kernel`` |
+| ``center_sum`` | ``center_sum_call`` / ``_center_sum_kernel`` |
+| ``readout_sum`` | ``readout_sum_call`` / ``_readout_sum_kernel`` |
+| ``readout_bwd`` | ``readout_bwd_call`` / ``_readout_bwd_kernel`` |
 
-What bounds each kernel on the card and how its design answers it is noted
-beside each kernel in the CUDA source.
+The first four are in ``csrc/fused_tp.cu``, the last four in
+``csrc/center_readout.cu``. What bounds each kernel on the card and how its
+design answers it is noted beside each kernel in the CUDA source.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +41,7 @@ from . import _build
 
 LAUNCHES: Dict[str, int] = {
     "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
+    "center_gather": 0, "center_sum": 0, "readout_sum": 0, "readout_bwd": 0,
 }
 
 
@@ -58,6 +65,17 @@ def csr_row_ptr(centers: np.ndarray, n_atoms: int) -> np.ndarray:
             "edge_index[0], padded edges last); neighbor_list produces this order"
         )
     return np.searchsorted(centers, np.arange(n_atoms + 1), side="left").astype(np.int32)
+
+
+def neighbor_csr(neighbors: np.ndarray, n_atoms: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host CSR statics of the neighbor side: ``perm`` lists the edges sorted
+    by neighbor (stable, so each segment keeps edge order; sentinel
+    neighbors ``n_atoms`` last) and ``row_ptr`` is the CSR over that order.
+    ``center_sum(v, row_ptr, perm)`` is then the sum over each atom's
+    incoming edges, the transpose of gathering by neighbor."""
+    neighbors = np.asarray(neighbors).astype(np.int64)
+    perm = np.argsort(neighbors, kind="stable").astype(np.int32)
+    return perm, csr_row_ptr(neighbors[perm], n_atoms)
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +155,48 @@ def unweight_both_reference(t, sh, wexp, centers, dim_to_irr):
     dsh = (t_e * wexp.view(E, n_irr, U).index_select(1, d2i)).sum(-1)
     dwexp = wexp.new_zeros((E, n_irr, U)).index_add(1, d2i, t_e * sh[:, :, None])
     return dsh, dwexp.reshape(E, n_irr * U)
+
+
+def center_gather_reference(a, idx):
+    return gather_rows(a, idx)
+
+
+def center_sum_reference(v, row_ptr, perm=None):
+    n_atoms = row_ptr.shape[0] - 1
+    E = v.shape[0]
+    k = torch.arange(E, device=v.device)
+    # atom of CSR position k (n_atoms for the positions after row_ptr[n_atoms])
+    seg = torch.searchsorted(row_ptr[1:].long(), k, right=True)
+    rows = v if perm is None else v.index_select(0, perm.long())
+    out = v.new_zeros((n_atoms + 1,) + tuple(v.shape[1:]))
+    return out.index_add(0, seg, rows)[:n_atoms]
+
+
+def _readout_mlp(pieces, w0, w1):
+    """Per-edge ``pre = Σ_i p_i @ W0_i`` and energy ``silu(pre) @ w1`` (or
+    ``pre`` itself without a hidden layer, ``w1 is None``)."""
+    pre = None
+    off = 0
+    for p in pieces:
+        t = p @ w0[off : off + p.shape[1]]
+        pre = t if pre is None else pre + t
+        off += p.shape[1]
+    return pre, pre if w1 is None else torch.nn.functional.silu(pre) @ w1
+
+
+def readout_sum_reference(pieces, w0, w1, row_ptr):
+    _, energy = _readout_mlp(pieces, w0, w1)
+    return center_sum_reference(energy, row_ptr)
+
+
+def readout_bwd_reference(pieces, w0, w1, y, centers):
+    pre, _ = _readout_mlp(pieces, w0, w1)
+    dh = gather_rows(y, centers)  # [E, 1]
+    if w1 is not None:
+        sig = torch.sigmoid(pre)
+        dh = (dh @ w1.T) * (sig * (1.0 + pre * (1.0 - sig)))
+    dp = dh @ w0.T
+    return tuple(torch.split(dp, [p.shape[1] for p in pieces], dim=1))
 
 
 # ---------------------------------------------------------------------------
@@ -311,3 +371,149 @@ def unweight_both(t, sh, wexp, centers, dim_to_irr) -> Tuple[torch.Tensor, torch
             dim_to_irr.data_ptr(), E, t.shape[0], d2, n_irr, U,
             dsh.data_ptr(), dwexp.data_ptr())
     return dsh, dwexp
+
+
+def center_gather(a, idx) -> torch.Tensor:
+    """out [E, C]: ``out[e] = a[idx[e]]``, zeros where ``idx[e] >= n_atoms``
+    (sentinel edges). a [n_atoms, C], idx [E]. Exact (a copy).
+
+    Replaces ``_center_broadcast_kernel``. Bound by the write of out; one
+    thread per output element, an indexed load."""
+    if a.ndim != 2 or idx.ndim != 1:
+        raise ValueError(f"center_gather shapes: a {tuple(a.shape)}, idx {tuple(idx.shape)}")
+    if _on_cpu(a, idx):
+        return center_gather_reference(a, idx)
+    _check_kernel_args({"a": a}, {"idx": idx})
+    E, (n_atoms, C) = idx.shape[0], a.shape
+    out = torch.empty((E, C), dtype=a.dtype, device=a.device)
+    if E == 0 or C == 0:
+        return out
+    _launch("center_gather", "atpt_center_gather", a.device,
+            a.data_ptr(), idx.data_ptr(), E, n_atoms, C, out.data_ptr())
+    return out
+
+
+def center_sum(v, row_ptr, perm=None) -> torch.Tensor:
+    """s [n_atoms, C]: ``s[a] = Σ_{k ∈ [row_ptr[a], row_ptr[a+1])} v[perm[k]]``
+    (``perm`` None = identity, the center side). v [E, C], row_ptr
+    [n_atoms+1], perm [E]; CSR positions after ``row_ptr[n_atoms]`` (sentinel
+    edges) are dropped.
+
+    Replaces ``_center_sum_kernel``. Bound by the read of v; one thread per
+    (atom, column) sums its segment in edge order (no atomics)."""
+    n_atoms = row_ptr.shape[0] - 1
+    if v.ndim != 2 or row_ptr.ndim != 1 or (perm is not None and perm.shape != v.shape[:1]):
+        raise ValueError(
+            f"center_sum shapes: v {tuple(v.shape)}, row_ptr {tuple(row_ptr.shape)}, "
+            f"perm {None if perm is None else tuple(perm.shape)}"
+        )
+    ints = {"row_ptr": row_ptr} if perm is None else {"row_ptr": row_ptr, "perm": perm}
+    if _on_cpu(v, *ints.values()):
+        return center_sum_reference(v, row_ptr, perm)
+    _check_kernel_args({"v": v}, ints)
+    C = v.shape[1]
+    out = torch.empty((n_atoms, C), dtype=v.dtype, device=v.device)
+    if n_atoms == 0 or C == 0:
+        return out
+    _launch("center_sum", "atpt_center_sum", v.device,
+            v.data_ptr(), row_ptr.data_ptr(), None if perm is None else perm.data_ptr(),
+            n_atoms, C, out.data_ptr())
+    return out
+
+
+_MAX_PIECES = 16  # kMaxPieces of csrc/center_readout.cu
+
+
+def _check_readout(pieces, w0, w1, E) -> int:
+    """Checks the readout's shapes; returns the hidden width (1 without a
+    hidden layer)."""
+    K = sum(p.shape[1] for p in pieces)
+    H = w0.shape[1] if w0.ndim == 2 else -1
+    if (not pieces or any(p.ndim != 2 or p.shape[0] != E for p in pieces) or w0.shape != (K, H)
+            or (w1 is None and H != 1) or (w1 is not None and w1.shape != (H, 1))):
+        raise ValueError(
+            f"readout shapes: pieces {[tuple(p.shape) for p in pieces]}, w0 {tuple(w0.shape)}, "
+            f"w1 {None if w1 is None else tuple(w1.shape)}"
+        )
+    if len(pieces) > _MAX_PIECES:
+        raise ValueError(f"the readout kernels take at most {_MAX_PIECES} pieces")
+    return H
+
+
+def _piece_table(pieces):
+    """Host arrays of the pieces' row pointers and row strides (elements);
+    each piece must have unit column stride."""
+    for i, p in enumerate(pieces):
+        if p.shape[1] > 1 and p.stride(1) != 1:
+            raise ValueError(f"piece {i} must have unit column stride")
+    n = len(pieces)
+    return ((ctypes.c_void_p * n)(*(p.data_ptr() for p in pieces)),
+            (ctypes.c_longlong * n)(*(p.stride(0) for p in pieces)))
+
+
+def readout_sum(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor],
+                row_ptr) -> torch.Tensor:
+    """Per-atom readout energy [n_atoms, 1]: ``Σ_{c(e)=a} silu(Σ_i p_i[e] @
+    W0_i) @ w1``, or ``Σ_i p_i[e] @ W0_i`` without a hidden layer
+    (``w1=None``, w0 [K, 1]). pieces [E, S_i] (column slices are fine: only
+    their rows are read), w0 [ΣS_i, H], w1 [H, 1], row_ptr [n_atoms+1] (the
+    center CSR; sentinel edges after ``row_ptr[n_atoms]`` add nothing). The edgewise factor is expected folded into the last weight.
+
+    Replaces ``_readout_sum_kernel``. Bound by the read of the pieces and
+    K·H FMAs per edge; W0 in shared memory, one warp per atom, lane = edge,
+    the per-edge energies summed in edge order."""
+    pieces = tuple(pieces)
+    n_atoms = row_ptr.shape[0] - 1
+    H = _check_readout(pieces, w0, w1, pieces[0].shape[0] if pieces else 0)
+    rest = () if w1 is None else (w1,)
+    if _on_cpu(*pieces, w0, *rest, row_ptr):
+        return readout_sum_reference(pieces, w0, w1, row_ptr)
+    _check_kernel_args({"w0": w0, **{"w1": w for w in rest}}, {"row_ptr": row_ptr})
+    for i, p in enumerate(pieces):
+        if p.dtype != torch.float32:
+            raise TypeError(f"piece {i}: the CUDA kernels take float32, got {p.dtype}")
+    energy = torch.empty((n_atoms, 1), dtype=w0.dtype, device=w0.device)
+    if n_atoms == 0:
+        return energy
+    ptrs, strides = _piece_table(pieces)
+    dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
+    _launch("readout_sum", "atpt_readout_sum", w0.device,
+            ptrs, strides, dims, len(pieces), w0.data_ptr(),
+            None if w1 is None else w1.data_ptr(), row_ptr.data_ptr(), n_atoms, H,
+            energy.data_ptr())
+    return energy
+
+
+def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], y,
+                centers) -> Tuple[torch.Tensor, ...]:
+    """Backward of ``readout_sum`` in the pieces, from the per-atom energy
+    cotangent y [n_atoms, 1]: ``dp_i[e] = (y[c(e)] w1ᵀ ⊙ silu'(pre_e)) @
+    W0_iᵀ`` (``y[c(e)] W0_iᵀ`` without a hidden layer); zero rows on sentinel
+    edges. Returns contiguous dpieces [E, S_i].
+
+    Replaces ``_readout_bwd_kernel``. Bound by the read of the pieces and the
+    write of their cotangents; one thread per edge gathers y[c(e)] itself,
+    recomputes the pre-activation and writes its dp rows."""
+    pieces = tuple(pieces)
+    E = centers.shape[0]
+    H = _check_readout(pieces, w0, w1, E)
+    if y.ndim != 2 or y.shape[1] != 1:
+        raise ValueError(f"readout_bwd: y must be [n_atoms, 1], got {tuple(y.shape)}")
+    rest = () if w1 is None else (w1,)
+    if _on_cpu(*pieces, w0, *rest, y, centers):
+        return readout_bwd_reference(pieces, w0, w1, y, centers)
+    _check_kernel_args({"w0": w0, "y": y, **{"w1": w for w in rest}}, {"centers": centers})
+    for i, p in enumerate(pieces):
+        if p.dtype != torch.float32:
+            raise TypeError(f"piece {i}: the CUDA kernels take float32, got {p.dtype}")
+    dpieces = tuple(torch.empty(p.shape, dtype=p.dtype, device=p.device) for p in pieces)
+    if E == 0:
+        return dpieces
+    ptrs, strides = _piece_table(pieces)
+    dptrs, dstrides = _piece_table(dpieces)
+    dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
+    _launch("readout_bwd", "atpt_readout_bwd", w0.device,
+            ptrs, strides, dptrs, dstrides, dims, len(pieces), w0.data_ptr(),
+            None if w1 is None else w1.data_ptr(), y.data_ptr(), centers.data_ptr(), E,
+            y.shape[0], H)
+    return dpieces

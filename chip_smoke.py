@@ -6,19 +6,35 @@
 Phases (any failure exits non-zero; there is no CPU fallback):
 
 0. device: the card's name and power limit (``nvidia-smi``);
-1. build: compile the CUDA kernels (``allegro_tpu_torch/csrc``) with nvcc;
-2. kernels: on the 4,096-atom periodic crystal (r_max 4.0, seed 0), each of
-   the four kernels against its plain PyTorch version at the flagship shapes
-   of both layers (U = 32; layer 0 dims (9, 9, 9) with 83 CG entries, layer 1
-   (9, 9, 1) with 9), bound max|err| / max|ref| < 1e-5, with median times
-   from CUDA events; then, checks only, at U = 16 and 48 (the kernels' lane
-   loop for other widths);
-3. slice: the flagship ``AllegroModel`` (l_max 2, 2 layers, 64 scalar and 32
-   tensor features, random weights from seed 0) on ``fused_infer`` makes 5
-   force calls; every kernel must launch exactly twice per call, outputs must
-   be finite, and forces / per-atom energies must agree with the port's
-   plain ``einsum`` backend on the same card (force max-abs rel < 1e-5,
-   per-atom energies allclose at 5e-5). Prints µs/atom per force call.
+1. build: compile the CUDA kernels (``allegro_tpu_torch/csrc/*.cu``) with
+   nvcc, one process per source, all started together;
+2. kernels: on the 4,096-atom periodic crystal (r_max 4.0, seed 0), each
+   kernel against its plain PyTorch version at the flagship shapes, bound
+   max|err| / max|ref| < 1e-5, with median times from CUDA events: the four
+   layer kernels at both layers (U = 32; layer 0 dims (9, 9, 9) with 83 CG
+   entries, layer 1 (9, 9, 1) with 9), then, checks only, at U = 16 and 48
+   (the lane loop for other widths); the center gather and sum on positions
+   [4096, 3] at the center and the neighbor side (and, checks only, on the
+   [·, 1] energy column of the plain readout chain); the fused readout and
+   its backward on three 64-wide pieces (W0 [192, 32], w1 [32, 1]);
+3. force call: the flagship ``AllegroModel`` (l_max 2, 2 layers, 64 scalar
+   and 32 tensor features, random weights from seed 0) on ``fused_infer``
+   with ``use_mega=False``, in two configurations: the default fused readout,
+   and ``use_fused_readout=False`` (the plain readout chain). 5 force calls
+   each, with the exact launch count of every kernel asserted after each
+   call; outputs finite and in agreement with the port's plain ``einsum``
+   backend on the same card (force max-abs rel < 1e-5, per-atom energies
+   allclose at 5e-5). Prints µs/atom per force call and the run-to-run
+   max |Δforces| of two identical calls;
+4. MD and calculator: ``md.Simulation`` runs 100 steps (10 blocks) of NVE on
+   the crystal with a skin small enough to re-neighbor, asserting finite
+   positions, the exact launch counts of every block (each of its force
+   calls), no host synchronization inside a block, and agreement within
+   1e-4 Å with the ``einsum`` backend after the first block; prints the
+   energy drift, ms/step and µs/atom per step. Then three
+   ``AllegroCalculator.calculate`` calls on jittered copies of the crystal,
+   each checked against ``apply_with_derivatives`` and its launch counts;
+   the padded buckets must not grow after the first call.
 
 The last two lines of stdout are a JSON object with the kernels' records and
 the JSON result ``{"ok": true, "device": {...}}``.
@@ -39,6 +55,7 @@ R_MAX = 4.0
 SEED = 0
 N_CALLS = 5
 KERNEL_TOL = 1e-5
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock: longer than queueing 20 calls
 FLAGSHIP = dict(
     r_max=R_MAX,
     type_names=["A", "B", "C"],
@@ -51,13 +68,46 @@ FLAGSHIP = dict(
     per_type_energy_shifts=0.0,
     model_dtype="float32",
 )
-SOURCE = "allegro_tpu_torch/csrc/fused_tp.cu"
+SOURCES = {
+    "env_scatter": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "gather_tp": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "bwd_fused": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "unweight_both": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "center_gather": "allegro_tpu_torch/csrc/center_readout.cu",
+    "center_sum": "allegro_tpu_torch/csrc/center_readout.cu",
+    "readout_sum": "allegro_tpu_torch/csrc/center_readout.cu",
+    "readout_bwd": "allegro_tpu_torch/csrc/center_readout.cu",
+}
 REPLACES = {
     "env_scatter": "allegro_tpu/ops/fused_tp.py:1091",
     "gather_tp": "allegro_tpu/ops/fused_tp.py:500",
     "bwd_fused": "allegro_tpu/ops/fused_tp.py:1340",
     "unweight_both": "allegro_tpu/ops/fused_tp.py:1455",
+    "center_gather": "allegro_tpu/ops/fused_tp.py:1043",
+    "center_sum": "allegro_tpu/ops/fused_tp.py:991",
+    "readout_sum": "allegro_tpu/ops/fused_tp.py:1794",
+    "readout_bwd": "allegro_tpu/ops/fused_tp.py:1873",
 }
+# launches per force call of the 2-layer flagship on fused_infer: each layer
+# kernel once per layer; the two position gathers (center and neighbor side)
+# and their transposes, the two force scatters; the fused readout and its
+# backward once each. The plain readout chain sums the per-edge energies with
+# center_sum instead, and its backward gathers the per-atom cotangent back to
+# the edges with center_gather: one more launch of each, none of the readout.
+PER_CALL = {
+    "fused readout": {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
+                      "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1},
+    "plain readout": {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
+                      "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0},
+}
+MD_BLOCKS = 10
+MD_STEPS_PER_BLOCK = 10
+MD = dict(masses=[1.0, 1.0, 1.0], r_max=R_MAX, dt=0.01, skin=0.2,
+          steps_per_block=MD_STEPS_PER_BLOCK, edge_multiple=1024)
+MD_KT = 0.01
+MD_TOL = 1e-4
+CALC_JITTER = 0.01
+CALC_SEED = 100
 
 
 def crystal_frame(n_atoms, r_max, seed):
@@ -83,19 +133,25 @@ def crystal_frame(n_atoms, r_max, seed):
     return neighbor_list(frame, r_max), n_atoms
 
 
-def median_ms(fn, reps=20, warmup=3):
+def median_ms(fn, reps=20, runs=5, warmup=3):
+    """Device time of one call of ``fn``, in ms: ``reps`` calls queued behind
+    a sleep kernel (so the device runs them back to back, without waiting
+    for the host to launch them) between two CUDA events; the median of
+    ``runs`` such batches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
 
 
@@ -149,27 +205,88 @@ def check_kernels(tps, data, rng, records=None):
             ),
         }
         for name, (kernel, plain) in cases.items():
-            got, ref = kernel(), plain()
-            torch.cuda.synchronize()
-            errs = [rel_err(a, b) for a, b in zip(got, ref)]
-            abs_err = max(e[0] for e in errs)
-            rel = max(e[1] for e in errs)
-            ok = rel < KERNEL_TOL
-            print(f"  U {U} layer {layer} dims ({d1},{d2},{d3}) entries {idx.shape[0]:3d} "
-                  f"{name:14s} max_abs_err {abs_err:.3e} rel {rel:.3e} (< {KERNEL_TOL}) "
-                  f"{'ok' if ok else 'FAIL'}", end="")
-            if not ok:
-                print()
-                raise AssertionError(f"{name} (U {U}, layer {layer}) disagrees with its plain version")
-            if records is None:
-                print()
-                continue
-            ms, plain_ms = median_ms(kernel), median_ms(plain)
-            print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-            rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-            rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
-            rec["ms"] += ms
-            rec["plain_ms"] += plain_ms
+            label = f"U {U} layer {layer} dims ({d1},{d2},{d3}) entries {idx.shape[0]:3d}"
+            check_case(name, kernel, plain, label, records)
+
+
+def check_case(name, kernel, plain, label, records=None):
+    """One kernel call against its plain version (max|err| / max|ref| <
+    KERNEL_TOL); with ``records``, also their median times, accumulated
+    there under ``name``."""
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(got, ref)]
+    abs_err = max(e[0] for e in errs)
+    rel = max(e[1] for e in errs)
+    ok = rel < KERNEL_TOL
+    print(f"  {label} {name:14s} max_abs_err {abs_err:.3e} rel {rel:.3e} (< {KERNEL_TOL}) "
+          f"{'ok' if ok else 'FAIL'}", end="")
+    if not ok:
+        print()
+        raise AssertionError(f"{name} ({label}) disagrees with its plain version")
+    if records is None:
+        print()
+        return
+    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    rec["ms"] += ms
+    rec["plain_ms"] += plain_ms
+
+
+def check_center_readout(data, rng, records):
+    """Phase 2, second part: the center gather and sum and the fused readout
+    at the force call's shapes, summed over the launches of one call."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    ei = data[keys.EDGE_INDEX].to(torch.int32)
+    centers, neighbors = ei[0].contiguous(), ei[1].contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    nbr = (data[keys.NBR_ROW_PTR], data[keys.NBR_PERM])
+    n_atoms = row_ptr.shape[0] - 1
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+    E = centers.shape[0]
+
+    def rand(*shape, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return t * real if edge else t
+
+    pos = data[keys.POSITIONS].contiguous()
+    for width, timed in ((3, True), (1, False)):
+        a = pos if width == 3 else rand(n_atoms, 1, edge=False)
+        v = rand(E, width)
+        rec = records if timed else None
+        for side, idx, (rp, perm) in (("center", centers, (row_ptr, None)),
+                                      ("neighbor", neighbors, nbr)):
+            label = f"[{n_atoms}, {width}] <-> [{E}, {width}] {side:8s}"
+            check_case("center_gather",
+                       lambda: (fused_tp.center_gather(a, idx),),
+                       lambda: (fused_tp.center_gather_reference(a, idx),), label, rec)
+            check_case("center_sum",
+                       lambda: (fused_tp.center_sum(v, rp, perm),),
+                       lambda: (fused_tp.center_sum_reference(v, rp, perm),), label, rec)
+            if width == 1:  # the plain readout chain sums on the center side only
+                break
+    S, H = FLAGSHIP["num_scalar_features"], 32
+    K = S * (FLAGSHIP["num_layers"] + 1)
+    # the scalar track's pieces are column slices of the layers' MLP outputs
+    wide = [rand(E, S + 96), rand(E, S + 96), rand(E, S)]
+    pieces = [w[:, :S] for w in wide]
+    w0 = rand(K, H, edge=False) / K**0.5
+    w1 = rand(H, 1, edge=False) / H**0.5
+    y = rand(n_atoms, 1, edge=False)
+    label = f"pieces 3 x [{E}, {S}] W0 [{K}, {H}]"
+    check_case("readout_sum",
+               lambda: (fused_tp.readout_sum(pieces, w0, w1, row_ptr),),
+               lambda: (fused_tp.readout_sum_reference(pieces, w0, w1, row_ptr),),
+               label, records)
+    check_case("readout_bwd",
+               lambda: fused_tp.readout_bwd(pieces, w0, w1, y, centers),
+               lambda: fused_tp.readout_bwd_reference(pieces, w0, w1, y, centers),
+               label, records)
 
 
 def time_force_call(model, data, n_atoms, reps=10):
@@ -230,29 +347,71 @@ def main() -> int:
         ).to(dev)
         check_kernels(other.module.allegro.tps, data, rng)
 
-    # phase 3: the slice — 5 force calls through the kernels
-    fused.apply_with_derivatives(data)
-    torch.cuda.synchronize()
-    fused_tp.reset_launch_counts()
-    for call in range(1, N_CALLS + 1):
-        out = fused.apply_with_derivatives(data)
-        bad = {k: v for k, v in fused_tp.LAUNCHES.items() if v != 2 * call}
-        if bad:
-            raise AssertionError(f"force call {call}: expected 2 launches per call, got {bad}")
-    torch.cuda.synchronize()
-    launches = dict(fused_tp.LAUNCHES)
-    print(f"[3] {N_CALLS} force calls on fused_infer; kernel launches {launches}")
-    for k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES, keys.VIRIAL):
-        if not torch.isfinite(out[k]).all():
-            raise AssertionError(f"non-finite {k}")
-    if out[keys.FORCES].shape != (batch_np[keys.POSITIONS].shape[0], 3):
-        raise AssertionError(f"forces shape {tuple(out[keys.FORCES].shape)}")
+    check_center_readout(data, rng, records)
 
+    # phase 3: the force call — 5 calls per configuration through the kernels
+    fused_ro = AllegroModel(
+        **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
+        use_mega=False,
+    ).to(dev)
+    fused_ro.load_state_dict(fused.state_dict())
     einsum = AllegroModel(
         **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="einsum"
     ).to(dev)
     einsum.load_state_dict(fused.state_dict())
-    ref = einsum.apply_with_derivatives(data)
+    einsum_data = to_torch(einsum.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+    ref = einsum.apply_with_derivatives(einsum_data)
+    us = {}
+    launches = {}
+    for config, model in (("fused readout", fused_ro), ("plain readout", fused)):
+        model.apply_with_derivatives(data)
+        torch.cuda.synchronize()
+        fused_tp.reset_launch_counts()
+        for call in range(1, N_CALLS + 1):
+            out = model.apply_with_derivatives(data)
+            want = {k: n * call for k, n in PER_CALL[config].items()}
+            if fused_tp.LAUNCHES != want:
+                raise AssertionError(f"{config}, force call {call}: launches "
+                                     f"{fused_tp.LAUNCHES}, expected {want}")
+        torch.cuda.synchronize()
+        launches[config] = dict(fused_tp.LAUNCHES)
+        print(f"[3] {N_CALLS} force calls on fused_infer, {config}; launches {launches[config]}")
+        check_force_call(out, ref, n_atoms, batch_np[keys.POSITIONS].shape[0])
+        again = model.apply_with_derivatives(data)
+        drift = (again[keys.FORCES] - out[keys.FORCES]).abs().max().item()
+        print(f"    run-to-run max |dforces| of two identical calls {drift:.3e}")
+        us[config] = time_force_call(model, data, n_atoms)
+    us["einsum"] = time_force_call(einsum, einsum_data, n_atoms)
+    print("    force call: " + ", ".join(f"{k} {v:.3f} us/atom" for k, v in us.items())
+          + f" ({n_atoms} atoms, f32; {smi})")
+
+    # phase 4: the MD and calculator entry points
+    md_launches = run_md(fused_ro, einsum, frame, n_atoms, dev, smi)
+    calc_launches = run_calculator(fused_ro, frame, n_atoms, dev)
+
+    print(smi)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": launches["fused readout"][name], "max_abs_err": rec["max_abs_err"],
+         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+         "launches_plain_readout": launches["plain readout"][name],
+         "launches_md": md_launches[name], "launches_calculator": calc_launches[name]}
+        for name, rec in records.items()
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def check_force_call(out, ref, n_atoms, n_rows):
+    """Finite outputs of the right shape that agree with the einsum backend."""
+    from allegro_tpu_torch.data import keys
+
+    for k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES, keys.VIRIAL):
+        if not torch.isfinite(out[k]).all():
+            raise AssertionError(f"non-finite {k}")
+    if out[keys.FORCES].shape != (n_rows, 3):
+        raise AssertionError(f"forces shape {tuple(out[keys.FORCES].shape)}")
     f_f = out[keys.FORCES][:n_atoms].double()
     f_o = ref[keys.FORCES][:n_atoms].double()
     force_rel = ((f_f - f_o).abs().max() / f_o.abs().max().clamp_min(1e-6)).item()
@@ -265,21 +424,115 @@ def main() -> int:
         raise AssertionError(f"fused_infer vs einsum forces: rel {force_rel:.3e}")
     np.testing.assert_allclose(ea_f, ea_o, rtol=5e-5, atol=5e-5)
 
-    us_fused = time_force_call(fused, data, n_atoms)
-    us_einsum = time_force_call(einsum, data, n_atoms)
-    print(f"    force call: fused_infer {us_fused:.3f} us/atom, einsum {us_einsum:.3f} us/atom "
-          f"({n_atoms} atoms, f32; {smi})")
 
-    print(smi)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": rec["max_abs_err"],
-         "ms": rec["ms"], "plain_ms": rec["plain_ms"]}
-        for name, rec in records.items()
-    ]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-    return 0
+def run_md(model, einsum, frame, n_atoms, dev, smi):
+    """Phase 4a: MD_BLOCKS blocks of NVE through ``md.Simulation``."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.md import MDState, Simulation, kinetic_energy
+    from allegro_tpu_torch.md import maxwell_boltzmann_velocities
+    from allegro_tpu_torch.ops import fused_tp
+
+    types = frame[keys.ATOM_TYPES]
+    kw = dict(atom_types=types, cell=frame[keys.CELL], pbc=frame[keys.PBC], device=dev, **MD)
+    sim = Simulation(model, **kw)
+    pos0 = frame[keys.POSITIONS]
+    vel0 = maxwell_boltzmann_velocities(sim.masses_per_atom, MD_KT, seed=SEED)
+    block = sim._block
+
+    def no_sync_block(*args):
+        # a host synchronization inside the block raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return block(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    sim._block = no_sync_block
+    per_block = {k: n * (MD_STEPS_PER_BLOCK + 1) for k, n in PER_CALL["fused readout"].items()}
+    state = MDState(pos0, vel0)
+    totals, times, rebuilt = [], [], []
+    total_launches = {k: 0 for k in per_block}
+    for b in range(MD_BLOCKS):
+        rebuilds = sim.rebuilds
+        fused_tp.reset_launch_counts()
+        t0 = time.perf_counter()
+        energies = []
+        state = sim.run(state, MD_STEPS_PER_BLOCK, callback=lambda s, e: energies.append(e))
+        times.append(time.perf_counter() - t0)
+        rebuilt.append(sim.rebuilds > rebuilds)
+        if fused_tp.LAUNCHES != per_block:
+            raise AssertionError(f"MD block {b}: launches {fused_tp.LAUNCHES}, "
+                                 f"expected {per_block} ({MD_STEPS_PER_BLOCK + 1} force calls)")
+        for k, n in fused_tp.LAUNCHES.items():
+            total_launches[k] += n
+        if not np.isfinite(state.positions).all() or not np.isfinite(state.velocities).all():
+            raise AssertionError(f"MD block {b}: non-finite positions or velocities")
+        totals.append(energies[-1] + kinetic_energy(state.velocities, sim.masses_per_atom))
+        if b == 0:
+            first = state.positions.copy()
+    steps = MD_BLOCKS * MD_STEPS_PER_BLOCK
+    print(f"[4] MD: {steps} steps on fused_infer, {sim.rebuilds} neighbor lists "
+          f"(edge bucket {sim._edge_bucket}, grown {sim.bucket_grows}x), "
+          f"launches per block {per_block}")
+    if sim.rebuilds < 2:
+        raise AssertionError("MD: no re-neighboring happened")
+    ref_sim = Simulation(einsum, **kw)
+    ref = ref_sim.run(MDState(pos0, vel0), MD_STEPS_PER_BLOCK)
+    dpos = float(np.abs(first - ref.positions).max())
+    print(f"    after block 1: max |dpos| vs einsum {dpos:.3e} A (< {MD_TOL})")
+    if not dpos < MD_TOL:
+        raise AssertionError(f"MD positions vs einsum: {dpos:.3e}")
+    e = np.asarray(totals)
+    drift = float(np.abs(e - e[0]).max())
+    steady = [t for t, r in zip(times, rebuilt) if not r] or times
+    ms_step = 1e3 * float(np.median(steady)) / MD_STEPS_PER_BLOCK
+    print(f"    NVE total energy {e[0]:.6f} -> {e[-1]:.6f}, max |drift| {drift:.3e} "
+          f"({drift / abs(e[0]):.3e} rel) over {steps} steps")
+    print(f"    {ms_step:.3f} ms/step, {ms_step * 1e3 / n_atoms:.3f} us/atom per step "
+          f"(median of {len(steady)} blocks without a rebuild; all {steps} steps with "
+          f"rebuilds {1e3 * sum(times) / steps:.3f} ms/step; {smi})")
+    return total_launches
+
+
+def run_calculator(model, frame, n_atoms, dev):
+    """Phase 4b: three single-point calls on jittered copies of the crystal."""
+    from allegro_tpu_torch.calculator import AllegroCalculator
+    from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
+    from allegro_tpu_torch.ops import fused_tp
+
+    calc = AllegroCalculator(model, device=dev)
+    rng = np.random.RandomState(CALC_SEED)
+    total_launches = {k: 0 for k in fused_tp.LAUNCHES}
+    for call in range(3):
+        pos = frame[keys.POSITIONS] + CALC_JITTER * rng.randn(n_atoms, 3)
+        fused_tp.reset_launch_counts()
+        res = calc.calculate(pos, atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL],
+                             pbc=frame[keys.PBC])
+        if fused_tp.LAUNCHES != PER_CALL["fused readout"]:
+            raise AssertionError(f"calculator call {call}: launches {fused_tp.LAUNCHES}")
+        for k, n in fused_tp.LAUNCHES.items():
+            total_launches[k] += n
+        if call == 0:
+            buckets = (calc.n_atoms_pad, calc.n_edges_pad)
+        elif (calc.n_atoms_pad, calc.n_edges_pad) != buckets:
+            raise AssertionError(f"calculator buckets grew: {buckets} -> "
+                                 f"{(calc.n_atoms_pad, calc.n_edges_pad)}")
+        fr = neighbor_list({**frame, keys.POSITIONS: pos}, R_MAX)
+        data = to_torch(model.precompute_statics(batch_frames([fr], n_frames=1)),
+                        dtype=torch.float32, device=dev)
+        want = model.apply_with_derivatives(data)
+        f_w = want[keys.FORCES][:n_atoms].double().cpu().numpy()
+        rel = float(np.abs(res["forces"] - f_w).max() / np.abs(f_w).max())
+        e_w = want[keys.PER_ATOM_ENERGY][:n_atoms, 0].double().cpu().numpy()
+        if not (np.isfinite(res["forces"]).all() and rel < 1e-5):
+            raise AssertionError(f"calculator call {call}: forces rel {rel:.3e}")
+        np.testing.assert_allclose(res["energies"], e_w, rtol=5e-5, atol=5e-5)
+        np.testing.assert_allclose(res["energy"], want[keys.TOTAL_ENERGY].sum().item(),
+                                   rtol=5e-5, atol=5e-5)
+        print(f"    calculator call {call}: energy {res['energy']:.6f}, forces rel "
+              f"{rel:.3e} vs apply_with_derivatives, buckets (atoms {calc.n_atoms_pad}, "
+              f"edges {calc.n_edges_pad})")
+    return total_launches
 
 
 if __name__ == "__main__":

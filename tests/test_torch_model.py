@@ -155,7 +155,6 @@ def test_unsorted_edges_raise(frames, avg_n):
 @pytest.mark.parametrize("override", [
     {"tp_kernel_backend": "fused_infer", "use_mega": None},
     {"tp_kernel_backend": "fused_infer", "use_mega": True},
-    {"tp_kernel_backend": "fused_infer", "use_mega": False, "use_fused_readout": True},
     {"tensor_dtype": "bfloat16"},
     {"remat": True},
     {"checkpoint_energy": True},
@@ -171,6 +170,70 @@ def test_unported_options_raise(override, avg_n):
     kw = {**_model_kwargs(avg_n, "float32"), **override}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AllegroModel(**kw)
+
+
+# wrapper calls per fused_infer force call of the 2-layer model: on a card,
+# each call is one launch (chip_smoke.py asserts the same counts there)
+_PER_CALL = {
+    True: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
+           "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1},
+    # plain readout chain: the edge sum and its transpose take the center kernels
+    False: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
+            "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0},
+}
+
+
+def _count_wrapper_calls(monkeypatch):
+    calls = {name: 0 for name in fused_tp.LAUNCHES}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name in calls:
+        monkeypatch.setattr(fused_tp, name, counted(name, getattr(fused_tp, name)))
+    return calls
+
+
+@pytest.mark.parametrize("use_fused_readout", [None, True, False])
+def test_fused_readout_options_build_and_run(batch, avg_n, use_fused_readout, monkeypatch):
+    """None and True take the fused readout kernel, False the plain chain;
+    all three give the einsum backend's outputs. (None used to run the plain
+    chain silently.)"""
+    kw = _model_kwargs(avg_n, "float64")
+    ref = _port("einsum", kw).init(0)
+    m = AllegroModel(**kw, tp_kernel_backend="fused_infer", use_mega=False,
+                     use_fused_readout=use_fused_readout)
+    m.load_state_dict(ref.state_dict())
+    want = ref.apply_with_derivatives(to_torch(ref.precompute_statics(batch), torch.float64))
+    data = to_torch(m.precompute_statics(batch), torch.float64)
+    calls = _count_wrapper_calls(monkeypatch)
+    out = m.apply_with_derivatives(data)
+    assert calls == _PER_CALL[use_fused_readout is not False]
+    for k in OUT_KEYS:
+        torch.testing.assert_close(out[k], want[k], rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("override", [
+    {"readout_mlp_hidden_layers_depth": 2},
+    {"readout_mlp_nonlinearity": "mish"},
+], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
+def test_readout_outside_the_kernel_conditions_takes_the_plain_chain(batch, avg_n, override,
+                                                                     monkeypatch):
+    """As in JAX: more than one hidden layer, or another activation than
+    SiLU, is the plain readout chain even with use_fused_readout=True."""
+    kw = {**_model_kwargs(avg_n, "float64"), **override}
+    ref = _port("einsum", kw).init(0)
+    m = AllegroModel(**kw, tp_kernel_backend="fused_infer", use_mega=False,
+                     use_fused_readout=True)
+    m.load_state_dict(ref.state_dict())
+    calls = _count_wrapper_calls(monkeypatch)
+    out = m.apply_with_derivatives(to_torch(m.precompute_statics(batch), torch.float64))
+    assert calls == _PER_CALL[False]
+    want = ref.apply_with_derivatives(to_torch(ref.precompute_statics(batch), torch.float64))
+    torch.testing.assert_close(out[keys.FORCES], want[keys.FORCES], rtol=0, atol=1e-10)
 
 
 def test_tpu_blocking_kwargs_are_accepted_and_ignored(avg_n):
@@ -206,7 +269,9 @@ class _Block:
 
 sys.meta_path.insert(0, _Block())
 import torch
+from allegro_tpu_torch.calculator import AllegroCalculator
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
+from allegro_tpu_torch.md import MDState, Simulation
 from allegro_tpu_torch.model import AllegroModel
 import numpy as np
 
@@ -215,12 +280,20 @@ grid = np.stack(np.meshgrid(*(np.arange(2),) * 3, indexing="ij"), -1).reshape(-1
 frame = {keys.POSITIONS: grid * 2.2 + 0.1 * rng.randn(8, 3),
          keys.ATOM_TYPES: rng.randint(0, 2, 8).astype(np.int32),
          keys.CELL: np.eye(3) * 4.4, keys.PBC: np.ones(3, dtype=bool)}
-m = AllegroModel(r_max=4.0, type_names=["A", "B"], l_max=2, num_layers=2,
+m = AllegroModel(r_max=4.0, type_names=["H", "C"], l_max=2, num_layers=2,
                  num_scalar_features=8, num_tensor_features=4, model_dtype="float32",
                  tp_kernel_backend="fused_infer", use_mega=False).init(0)
 b = batch_frames([neighbor_list(frame, 4.0)])
 out = m.apply_with_derivatives(to_torch(m.precompute_statics(b), torch.float32))
 assert torch.isfinite(out[keys.FORCES]).all()
+res = AllegroCalculator(m, device="cpu").calculate(
+    frame[keys.POSITIONS], atomic_numbers=np.array([1, 6])[frame[keys.ATOM_TYPES]],
+    cell=frame[keys.CELL], pbc=(True,) * 3)
+assert np.isfinite(res["forces"]).all()
+sim = Simulation(m, frame[keys.ATOM_TYPES], np.ones(2), 4.0, cell=frame[keys.CELL],
+                 pbc=(True,) * 3, steps_per_block=2, device="cpu")
+st = sim.run(MDState(frame[keys.POSITIONS], np.zeros((8, 3))), 2)
+assert np.isfinite(st.positions).all()
 assert not [n for n in sys.modules if n.split(".")[0] in ("jax", "flax", "allegro_tpu")]
 print("ok")
 """

@@ -1,12 +1,16 @@
 """The port's ``fused_infer`` force call against JAX ``fused_infer`` with
 its Pallas kernels in interpret mode (float64, 1e-10).
 
-JAX runs ``fused_infer`` without the mega kernels and the fused readout
-(``use_mega=False, use_fused_readout=False``), so each layer goes through
-``env_scatter``, ``gather_tp_raw``, ``bwd_fused_raw`` and
-``unweight_both_raw``: the four kernels the port replaces. The batch has no
-precomputed statics, so JAX's edge vectors take the plain gather branch, as
-the port's do.
+JAX runs ``fused_infer`` without the mega kernels (``use_mega=False``), so
+each layer goes through ``env_scatter``, ``gather_tp_raw``, ``bwd_fused_raw``
+and ``unweight_both_raw``: the four layer kernels the port replaces.
+
+- Without precomputed statics and with ``use_fused_readout=False``, JAX's
+  edge vectors and edge sum take the plain gather branch, as the port's do.
+- With JAX's own ``precompute_statics`` and ``use_fused_readout=True``, JAX
+  also runs the center gathers and scatters and the fused readout (kernels
+  5, 6, 11, 12; the test checks that its program contains them), and the
+  port runs its statics through the same four.
 """
 
 import numpy as np
@@ -38,30 +42,59 @@ def _frame():
     return neighbor_list(frame, R_MAX)
 
 
-def test_port_matches_jax_fused_infer_interpret():
-    batch = batch_frames([_frame()], n_frames=1)
-    kw = dict(
+def _kwargs(batch):
+    return dict(
         r_max=R_MAX, type_names=["A", "B", "C"], l_max=2, parity=True, num_layers=2,
         num_scalar_features=16, num_tensor_features=4,
         avg_num_neighbors=float(batch[keys.EDGE_MASK].sum()) / 12.0,
         per_type_energy_scales=[1.0, 0.5, 2.0], per_type_energy_shifts=[0.1, -0.2, 0.3],
         model_dtype="float64", tp_kernel_backend="fused_infer", use_mega=False,
     )
-    jm = JaxAllegroModel(**kw, use_fused_readout=False)
-    jb = to_jax(batch, dtype=np.float64)
-    params = jm.init(3, jb)
+
+
+def _run_jax(jm, params, jb):
     old = jax_ftp.INTERPRET
     jax_ftp.INTERPRET = True
     try:
-        want = jm.apply_with_derivatives(params, jb)
+        return jm.apply_with_derivatives(params, jb)
     finally:
         jax_ftp.INTERPRET = old
-    m = AllegroModel(**kw)
-    m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
-    out = m.apply_with_derivatives(to_torch(m.precompute_statics(batch), dtype=torch.float64))
+
+
+def _check(out, want):
     for k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES, keys.VIRIAL):
         w = np.asarray(want[k])
         got = out[k].numpy()
         assert got.shape == w.shape, k
         err = float(np.abs(got - w).max())
         assert err <= TOL * max(1.0, float(np.abs(w).max())), f"{k}: max abs err {err:.3e}"
+
+
+def test_port_matches_jax_fused_infer_interpret():
+    batch = batch_frames([_frame()], n_frames=1)
+    kw = _kwargs(batch)
+    jm = JaxAllegroModel(**kw, use_fused_readout=False)
+    jb = to_jax(batch, dtype=np.float64)
+    params = jm.init(3, jb)
+    want = _run_jax(jm, params, jb)
+    m = AllegroModel(**kw, use_fused_readout=False)
+    m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    _check(m.apply_with_derivatives(to_torch(m.precompute_statics(batch), dtype=torch.float64)),
+           want)
+
+
+def test_port_matches_jax_fused_infer_with_statics_and_fused_readout_interpret():
+    batch = batch_frames([_frame()], n_frames=1)
+    kw = _kwargs(batch)
+    jm = JaxAllegroModel(**kw, use_fused_readout=True)
+    jb = jm.precompute_statics(to_jax(batch, dtype=np.float64))
+    params = jm.init(3, jb)
+    program = str(jax.make_jaxpr(jm.apply_with_derivatives)(params, jb))
+    for name in ("readout_sum_infer", "allegro_center_gather", "allegro_center_scatter"):
+        assert name in program, f"JAX did not run {name}"
+    want = _run_jax(jm, params, jb)
+    m = AllegroModel(**kw, use_fused_readout=True)
+    m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    data = m.precompute_statics(batch)
+    assert keys.NBR_PERM in data and keys.NBR_ROW_PTR in data
+    _check(m.apply_with_derivatives(to_torch(data, dtype=torch.float64)), want)
