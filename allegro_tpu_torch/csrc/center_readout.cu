@@ -21,46 +21,11 @@
 // so results are deterministic. Each kernel runs on the caller's stream and
 // allocates nothing; each entry point returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cu"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kMaxPieces = 16;
 constexpr int kThreads = 256;
-
-// The readout's input blocks: piece i holds columns [off[i], off[i]+dim[i])
-// of the (virtual) concatenated input; row e of piece i starts at
-// ptr[i] + e * stride[i].
-struct Pieces {
-  const float* ptr[kMaxPieces];
-  long long stride[kMaxPieces];
-  int dim[kMaxPieces];
-  int off[kMaxPieces];
-  int n;
-};
-
-struct OutPieces {
-  float* ptr[kMaxPieces];
-  long long stride[kMaxPieces];
-  int dim[kMaxPieces];
-  int off[kMaxPieces];
-  int n;
-};
-
-int grid_for(long long work, int per_block, int max_blocks) {
-  long long b = (work + per_block - 1) / per_block;
-  if (b < 1) b = 1;
-  return (int)(b < max_blocks ? b : max_blocks);
-}
-
-int sm_count() {
-  int dev = 0, n = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
 
 // ---------------------------------------------------------------------------
 // center_gather
@@ -107,58 +72,6 @@ __global__ void center_sum_kernel(const float* __restrict__ v, const int* __rest
     }
     out[t] = s;
   }
-}
-
-// ---------------------------------------------------------------------------
-// The readout MLP of a tile of 32 edges, one warp, lane = edge: lane l gets
-// pre[j] = sum_k x[e0+l, k] W0[k, h0+j] for a chunk of 32 hidden units. The
-// pieces are read 32 x 32 at a time into the warp's shared-memory tile, one
-// coalesced 128-byte row piece per load, and each lane then reads its own
-// row of the tile (row stride 33 floats: no bank conflicts). W0 sits in
-// shared memory as [K][Hp] with Hp = H rounded up to 32 and zero padding, so
-// its reads are float4 broadcasts (every lane reads the same row) and need no
-// guards. Rows of the tile past the n edges of the tile are zero.
-// ---------------------------------------------------------------------------
-constexpr int kTile = kWarp + 1;
-
-__device__ __forceinline__ void hidden_chunk(const Pieces& P, long long e0, int n,
-                                             const float* __restrict__ s_w0, int Hp, int h0,
-                                             float* tile, int lane, float (&pre)[kWarp]) {
-#pragma unroll
-  for (int j = 0; j < kWarp; ++j) pre[j] = 0.f;
-  for (int i = 0; i < P.n; ++i) {
-    const int d = P.dim[i];
-    const float* base = P.ptr[i];
-    const long long stride = P.stride[i];
-    for (int k0 = 0; k0 < d; k0 += kWarp) {
-      const int k = k0 + lane;
-#pragma unroll
-      for (int r = 0; r < kWarp; ++r)  // 32 independent loads in flight
-        tile[r * kTile + lane] = (r < n && k < d) ? __ldg(base + (e0 + r) * stride + k) : 0.f;
-      __syncwarp();
-      const int kc = min(kWarp, d - k0);
-      const float* wrow = s_w0 + (long long)(P.off[i] + k0) * Hp + h0;
-      for (int kk = 0; kk < kc; ++kk, wrow += Hp) {
-        const float x = tile[lane * kTile + kk];
-#pragma unroll
-        for (int j = 0; j < kWarp; j += 4) {
-          const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-          pre[j] = fmaf(x, w.x, pre[j]);
-          pre[j + 1] = fmaf(x, w.y, pre[j + 1]);
-          pre[j + 2] = fmaf(x, w.z, pre[j + 2]);
-          pre[j + 3] = fmaf(x, w.w, pre[j + 3]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float silu_grad(float x) {
-  const float s = 1.f / (1.f + expf(-x));
-  return s * (1.f + x * (1.f - s));
 }
 
 // W0 [K, H] → shared [K][Hp] (zero-padded columns), w1 [H] → shared [Hp]
@@ -268,58 +181,9 @@ __global__ void __launch_bounds__(kThreads, 2) readout_bwd_kernel(Pieces P, OutP
 #pragma unroll
         for (int j = 0; j < kWarp; ++j) dh[j] = ye * s_w1[h0 + j];
       }
-      for (int i = 0; i < D.n; ++i) {
-        const int d = D.dim[i];
-        float* base = D.ptr[i];
-        const long long stride = D.stride[i];
-        for (int k0 = 0; k0 < d; k0 += kWarp) {
-          const int kc = min(kWarp, d - k0);
-          const float* wrow = s_w0 + (long long)(D.off[i] + k0) * Hp + h0;
-          for (int kk = 0; kk < kc; ++kk, wrow += Hp) {
-            float s = 0.f;
-#pragma unroll
-            for (int j = 0; j < kWarp; j += 4) {
-              const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-              s = fmaf(dh[j], w.x, s);
-              s = fmaf(dh[j + 1], w.y, s);
-              s = fmaf(dh[j + 2], w.z, s);
-              s = fmaf(dh[j + 3], w.w, s);
-            }
-            tile[lane * kTile + kk] = s;
-          }
-          __syncwarp();
-          if (lane < kc) {
-            for (int r = 0; r < n; ++r) {
-              float* o = base + (e0 + r) * stride + k0 + lane;
-              *o = h0 == 0 ? tile[r * kTile + lane] : *o + tile[r * kTile + lane];
-            }
-          }
-          __syncwarp();
-        }
-      }
+      backprop_chunk(D, e0, n, s_w0, Hp, h0, dh, tile, lane, h0 == 0);
     }
   }
-}
-
-// Opts a kernel into more than 48 KB of dynamic shared memory when needed.
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-int fill_pieces(const float* const* ptrs, const long long* strides, const int* dims, int n,
-                const float** ptr, long long* stride, int* dim, int* off) {
-  if (n < 1 || n > kMaxPieces) return -1;
-  int k = 0;
-  for (int i = 0; i < n; ++i) {
-    ptr[i] = ptrs[i];
-    stride[i] = strides[i];
-    dim[i] = dims[i];
-    off[i] = k;
-    k += dims[i];
-  }
-  return k;
 }
 
 }  // namespace

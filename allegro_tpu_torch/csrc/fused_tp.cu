@@ -7,8 +7,10 @@
 //
 //   env_scatter   env[a, jU+u] = sum_{c(e)=a} sh[e,j] * wexp[e, irr(j)U+u]
 //   gather_tp     out[e, kU+u] = sum_n c_n w[p_n,u] x[e, i_nU+u] env[c(e), j_nU+u]
+//                 (optionally also ts[e, u] = out[e, u], the leading 0e block)
 //   bwd_fused     dx[e, iU+u]  = sum_n c_n w[p_n,u] g[e, k_nU+u] env[c(e), j_nU+u]
 //                 denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u]
+//                 (optionally with g[e, u] += gts[e, u], the cotangent of ts)
 //   unweight_both dsh[e, j]   = sum_u t[c(e), jU+u] * wexp[e, irr(j)U+u]
 //                 dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] * sh[e, j]
 //
@@ -24,25 +26,9 @@
 // Each kernel is launched on the caller's stream and allocates nothing; each
 // entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cu"
 
 namespace {
-
-constexpr int kWarp = 32;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Copies the entry table into shared memory: idx[4n] = (i, j, k, p), coef[n].
-__device__ __forceinline__ void load_entries(const int* __restrict__ eidx,
-                                             const float* __restrict__ ecoef, int n_entries,
-                                             int* s_idx, float* s_coef) {
-  for (int t = threadIdx.x; t < 4 * n_entries; t += blockDim.x) s_idx[t] = eidx[t];
-  for (int t = threadIdx.x; t < n_entries; t += blockDim.x) s_coef[t] = ecoef[t];
-}
 
 // ---------------------------------------------------------------------------
 // env_scatter
@@ -77,13 +63,17 @@ __global__ void env_scatter_kernel(const float* __restrict__ sh, const float* __
 // re-read by the ~25 edges of each atom and stay in L1/L2. Design: one warp
 // per edge, lane = channel u (U = 32 is exactly one warp; other U loop in
 // chunks of 32), so every load and store is a coalesced 128-byte row piece.
-// The k-accumulators live in shared memory, one slot per lane.
+// The k-accumulators live in shared memory, one slot per lane. With ``ts``
+// (the split scalar output), block k = 0 is also written to its own [E, U]
+// array, so the latent MLP reads a contiguous [E, U] and its cotangent stays
+// a separate [E, U] array instead of a zero-padded [E, d3*U] one.
 // ---------------------------------------------------------------------------
 __global__ void gather_tp_kernel(const float* __restrict__ x, const float* __restrict__ env,
                                  const float* __restrict__ w, const int* __restrict__ centers,
                                  const int* __restrict__ eidx, const float* __restrict__ ecoef,
                                  int n_entries, long long n_edges, int n_atoms, int d1, int d2,
-                                 int d3, int U, float* __restrict__ out) {
+                                 int d3, int U, float* __restrict__ out,
+                                 float* __restrict__ ts) {
   extern __shared__ unsigned char smem[];
   int* s_idx = reinterpret_cast<int*>(smem);
   float* s_coef = reinterpret_cast<float*>(s_idx + 4 * n_entries);
@@ -100,6 +90,7 @@ __global__ void gather_tp_kernel(const float* __restrict__ x, const float* __res
     const float* xe = x + e * d1 * U;
     const float* ee = env + (valid ? (long long)c * d2 * U : 0);
     float* oe = out + e * d3 * U;
+    float* tse = ts ? ts + e * U : nullptr;
     for (int u0 = 0; u0 < U; u0 += kWarp) {
       const int u = u0 + lane;
       const bool act = u < U;
@@ -111,8 +102,10 @@ __global__ void gather_tp_kernel(const float* __restrict__ x, const float* __res
           acc[k * kWarp + lane] += s_coef[n] * w[p * U + u] * xe[i * U + u] * ee[j * U + u];
         }
       }
-      if (act)
+      if (act) {
         for (int k = 0; k < d3; ++k) oe[k * U + u] = acc[k * kWarp + lane];
+        if (tse) tse[u] = acc[lane];
+      }
     }
   }
 }
@@ -128,9 +121,14 @@ __global__ void gather_tp_kernel(const float* __restrict__ x, const float* __res
 // denv in its own shared-memory row; the rows are summed across warps in a
 // fixed order, so denv is deterministic without atomics. Block n_atoms
 // zeroes dx on the sentinel (padded) edges, which belong to no segment.
+// ``gts`` (the cotangent of the split scalar output) is added to g's block
+// k = 0 as it is read, as the TPU kernel folds it in VMEM; the kernel is
+// instantiated with and without it, so the entry loop without it carries no
+// extra select.
 // ---------------------------------------------------------------------------
+template <bool kGts>
 __global__ void bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                 const float* __restrict__ env, const float* __restrict__ w,
+                                 const float* __restrict__ gts, const float* __restrict__ env, const float* __restrict__ w,
                                  const int* __restrict__ row_ptr, const int* __restrict__ eidx,
                                  const float* __restrict__ ecoef, int n_entries,
                                  long long n_edges, int n_atoms, int d1, int d2, int d3, int U,
@@ -165,11 +163,13 @@ __global__ void bwd_fused_kernel(const float* __restrict__ x, const float* __res
     for (int u0 = 0; u0 < U; u0 += kWarp) {
       const int u = u0 + lane;
       if (u >= U) continue;
+      const float g0 = kGts ? ge[u] + gts[(long long)e * U + u] : 0.f;
       for (int i = 0; i < d1; ++i) pdx[i * kWarp + lane] = 0.f;
       for (int n = 0; n < n_entries; ++n) {
         const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
                   p = s_idx[4 * n + 3];
-        const float cwg = s_coef[n] * w[p * U + u] * ge[k * U + u];
+        const float gk = (kGts && k == 0) ? g0 : ge[k * U + u];
+        const float cwg = s_coef[n] * w[p * U + u] * gk;
         pdx[i * kWarp + lane] += cwg * ea[j * U + u];
         pden[j * U + u] += cwg * xe[i * U + u];
       }
@@ -232,15 +232,6 @@ __global__ void unweight_both_kernel(const float* __restrict__ t, const float* _
   }
 }
 
-constexpr int kEdgeWarps = 4;           // warps per block of the per-edge kernels
-constexpr int kSegmentWarps = 8;        // warps per block of bwd_fused
-constexpr size_t kSmemLimit = 48 * 1024;
-
-int edge_blocks(long long n_edges) {
-  long long b = (n_edges + kEdgeWarps - 1) / kEdgeWarps;
-  return (int)(b < (1LL << 30) ? b : (1LL << 30));
-}
-
 }  // namespace
 
 extern "C" {
@@ -261,15 +252,17 @@ int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr,
 
 int atpt_gather_tp(const float* x, const float* env, const float* w, const int* centers,
                    const int* eidx, const float* ecoef, int n_entries, long long n_edges,
-                   int n_atoms, int d1, int d2, int d3, int U, float* out, void* stream) {
+                   int n_atoms, int d1, int d2, int d3, int U, float* out, float* ts,
+                   void* stream) {
   size_t smem = (size_t)n_entries * 5 * sizeof(float) + (size_t)kEdgeWarps * d3 * kWarp * 4;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
   gather_tp_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, smem, (cudaStream_t)stream>>>(
-      x, env, w, centers, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, out);
+      x, env, w, centers, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, out, ts);
   return (int)cudaGetLastError();
 }
 
-int atpt_bwd_fused(const float* x, const float* g, const float* env, const float* w,
+int atpt_bwd_fused(const float* x, const float* g, const float* gts, const float* env,
+                   const float* w,
                    const int* row_ptr, const int* eidx, const float* ecoef, int n_entries,
                    long long n_edges, int n_atoms, int d1, int d2, int d3, int U, float* dx,
                    float* denv, void* stream) {
@@ -279,9 +272,14 @@ int atpt_bwd_fused(const float* x, const float* g, const float* env, const float
   int warps = (int)((kSmemLimit - fixed) / per_warp);
   if (warps > kSegmentWarps) warps = kSegmentWarps;
   size_t smem = fixed + warps * per_warp;
-  bwd_fused_kernel<<<n_atoms + 1, warps * kWarp, smem, (cudaStream_t)stream>>>(
-      x, g, env, w, row_ptr, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, dx,
-      denv);
+  if (gts)
+    bwd_fused_kernel<true><<<n_atoms + 1, warps * kWarp, smem, (cudaStream_t)stream>>>(
+        x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, dx,
+        denv);
+  else
+    bwd_fused_kernel<false><<<n_atoms + 1, warps * kWarp, smem, (cudaStream_t)stream>>>(
+        x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, dx,
+        denv);
   return (int)cudaGetLastError();
 }
 

@@ -29,6 +29,9 @@ EDGE_CUTOFF = "edge_cutoff"           # [E, 1] — smooth cutoff envelope value
 EDGE_EMBEDDING = "edge_embedding"     # [E, D] — two-body scalar embedding
 EDGE_ATTRS = "edge_attrs"             # [E, dim] — SH tensor basis (mul=1)
 EDGE_FEATURES = "edge_features"       # [E, dim*mul] — flat dim-major tensor track
+EDGE_FEATURE_WEIGHTS = "edge_feature_weights"  # [E, n_irr*mul] — the tensor embed's
+                                      # channel weights: EDGE_FEATURES = sh ⊗ weights,
+                                      # in the factor form the layer-0 kernel reads
 EDGE_SCALARS = "edge_scalars"         # tuple of [E, S] blocks — scalar track
 EDGE_ENERGY = "edge_energy"           # [E, 1]
 

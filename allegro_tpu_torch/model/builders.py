@@ -262,11 +262,6 @@ def FullAllegroEnergyModel(
     **_unused,
 ) -> Model:
     _kwargs = {k: v for k, v in locals().items() if k != "_unused"}
-    if tp_kernel_backend == "fused_infer" and use_mega is not False:
-        raise _not_ported(
-            "the mega-fused layers (use_mega=None or True with fused_infer; pass use_mega=False)",
-            "queue 2, kernels 7-10",
-        )
     if tensor_dtype is not None:
         raise _not_ported(f"tensor_dtype={tensor_dtype!r}", "queue 1, item 6")
     if remat or checkpoint_energy:
@@ -301,6 +296,21 @@ def FullAllegroEnergyModel(
     readout_hidden = (readout_mlp_hidden_layers_width,) * readout_mlp_hidden_layers_depth
     readout_act = NONLINEARITIES[readout_mlp_nonlinearity]
     factor = 1.0 / math.sqrt(2.0 * avg_n)
+    allegro = AllegroLayers(
+        irreps_sh=str(irreps_sh),
+        tensor_track_allowed_irreps=str(tensor_track_allowed_irreps),
+        embed_dim=S,
+        num_layers=num_layers,
+        num_scalar_features=S,
+        num_tensor_features=num_tensor_features,
+        avg_num_neighbors=avg_n,
+        mlp_hidden_dims=(allegro_mlp_hidden_layers_width,) * allegro_mlp_hidden_layers_depth,
+        mlp_nonlinearity=NONLINEARITIES[allegro_mlp_nonlinearity],
+        tp_path_channel_coupling=tp_path_channel_coupling,
+        dtype=dtype,
+        tp_kernel_backend=tp_kernel_backend,
+        use_mega=use_mega,
+    )
 
     layers = [
         ("edge_norm", EdgeLengthNormalizer(r_max=r_max, num_types=num_types)),
@@ -315,25 +325,11 @@ def FullAllegroEnergyModel(
         ),
         (
             "tensor_embed",
-            TwoBodySphericalHarmonicTensorEmbed(str(irreps_sh), num_tensor_features, S, dtype),
+            # the mega-fused layer 0 reads the embed's factors, not its features
+            TwoBodySphericalHarmonicTensorEmbed(str(irreps_sh), num_tensor_features, S, dtype,
+                                                build_features=not allegro.mega),
         ),
-        (
-            "allegro",
-            AllegroLayers(
-                irreps_sh=str(irreps_sh),
-                tensor_track_allowed_irreps=str(tensor_track_allowed_irreps),
-                embed_dim=S,
-                num_layers=num_layers,
-                num_scalar_features=S,
-                num_tensor_features=num_tensor_features,
-                avg_num_neighbors=avg_n,
-                mlp_hidden_dims=(allegro_mlp_hidden_layers_width,) * allegro_mlp_hidden_layers_depth,
-                mlp_nonlinearity=NONLINEARITIES[allegro_mlp_nonlinearity],
-                tp_path_channel_coupling=tp_path_channel_coupling,
-                dtype=dtype,
-                tp_kernel_backend=tp_kernel_backend,
-            ),
-        ),
+        ("allegro", allegro),
     ]
     if tp_kernel_backend == "fused_infer":
         layers.append((

@@ -11,18 +11,23 @@ the next env weights.
 The scatter factor is applied exactly once: in ``env_sum`` on the einsum
 backend, folded into the last weight columns of the MLPs that produce env
 weights on the fused backend.
+
+On ``fused_infer`` the default is JAX's mega-fused stack (``_mega_forward``):
+each latent MLP runs in one kernel with the next layer's env scatter, and
+layer 0 builds its features from the tensor embed's factors in the kernel.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..data import keys
 from ..lib.irreps import Irrep, Irreps, tp_path_exists
+from ..ops.fused_primitives import gather_tp_embed_infer, gather_tp_infer, mega_latent_env
 from .channels import MakeWeightedChannels, device_index
 from .contract import Contracter
 from .mlp import ScalarMLP, silu
@@ -72,8 +77,18 @@ def _subset_dims(full: Irreps, subset: Irreps) -> List[int]:
 
 
 class AllegroLayers(nn.Module):
-    """Consumes EDGE_EMBEDDING/EDGE_ATTRS/EDGE_FEATURES, writes EDGE_SCALARS
-    (a tuple of ``num_layers + 1`` blocks ``[E, S]``)."""
+    """Consumes EDGE_EMBEDDING/EDGE_ATTRS and EDGE_FEATURES (on the mega
+    path EDGE_FEATURE_WEIGHTS instead), writes EDGE_SCALARS (a tuple of
+    ``num_layers + 1`` blocks ``[E, S]``).
+
+    ``use_mega`` (None, True or False) selects the mega-fused stack on
+    ``fused_infer``, as in JAX (``allegro_tpu/nn/allegro.py:341-357``): it
+    runs when the backend is ``fused_infer``, the latent MLPs have exactly
+    one hidden layer, their activation is SiLU (the mega kernels' own), and
+    ``use_mega`` is not False. Outside that condition ``use_mega=True``
+    takes the non-mega kernels (``fused_layer_infer``), as JAX does. JAX's
+    environment switches (``ALLEGRO_NO_MEGA``, ``ALLEGRO_TP_BYPASS``) are
+    not read: the model kwarg decides."""
 
     def __init__(
         self,
@@ -89,6 +104,7 @@ class AllegroLayers(nn.Module):
         tp_path_channel_coupling: bool = True,
         dtype=torch.float32,
         tp_kernel_backend: str = "einsum",
+        use_mega: Optional[bool] = None,
     ):
         super().__init__()
         if tp_kernel_backend not in BACKENDS:
@@ -132,18 +148,23 @@ class AllegroLayers(nn.Module):
             )
         # layer-0 column blocks if the backward prune shrank the input irreps
         self.input_dims = None if ladder[0] == irreps_sh else tuple(_subset_dims(irreps_sh, ladder[0]))
+        self.mega = (
+            fold and len(mlp_hidden_dims) == 1 and mlp_nonlinearity is silu
+            and use_mega is not False
+        )
+        # layer 0's input rows as (SH dim, irrep), for the embed-fused kernel
+        dim_to_irr = self.env_weighter.dim_to_irr
+        in_dims = self.input_dims or range(irreps_sh.dim)
+        self.register_buffer(
+            "row_specs", torch.tensor([(j, dim_to_irr[j]) for j in in_dims], dtype=torch.int32),
+            persistent=False,
+        )
 
     def forward(self, data: Dict) -> Dict:
         S, U = self.S, self.U
         n_atoms = data[keys.POSITIONS].shape[0]
         centers = data[keys.EDGE_INDEX][0]
         sh = data[keys.EDGE_ATTRS].to(self.dtype)
-        features = data[keys.EDGE_FEATURES]
-        if self.input_dims is not None:
-            cols = device_index(
-                tuple(d * U + u for d in self.input_dims for u in range(U)), features.device
-            )
-            features = features.index_select(1, cols)
         if self.backend == "fused_infer":
             if keys.CENTER_ROW_PTR not in data:
                 raise ValueError(
@@ -153,6 +174,16 @@ class AllegroLayers(nn.Module):
             centers = centers.to(torch.int32).contiguous()
             row_ptr = data[keys.CENTER_ROW_PTR]
             sh = sh.contiguous()
+        out = dict(data)
+        if self.mega:
+            out[keys.EDGE_SCALARS] = self._mega_forward(data, sh, centers, row_ptr)
+            return out
+        features = data[keys.EDGE_FEATURES]
+        if self.input_dims is not None:
+            cols = device_index(
+                tuple(d * U + u for d in self.input_dims for u in range(U)), features.device
+            )
+            features = features.index_select(1, cols)
         proj = self.first_projection(data[keys.EDGE_EMBEDDING])
         scalar_blocks = [proj[:, :S]]
         env_w = proj[:, S:]
@@ -170,6 +201,41 @@ class AllegroLayers(nn.Module):
             scalar_blocks.append(lat[:, :S])
             env_w = lat[:, S:]
             features = feats
-        out = dict(data)
         out[keys.EDGE_SCALARS] = tuple(scalar_blocks)
         return out
+
+    def _mega_forward(self, data: Dict, sh, centers, row_ptr) -> tuple:
+        """Twin of JAX's ``_mega_forward`` / ``_mega_layer_body``: the first
+        projection is a mega call with no hidden layer (scalar block 0 and
+        layer 0's env); layer 0 runs the embed-fused TP on the tensor embed's
+        factors (``EDGE_FEATURE_WEIGHTS``, which the port's embed always
+        emits), later layers the plain TP, each with its leading 0e block as
+        a second output wherever the layer has more than one output dim;
+        every latent but the last is a mega call that also scatters the next
+        layer's env, the last is the plain ScalarMLP."""
+        S, U = self.S, self.U
+        d2i = self.tps[0].dim_to_irr
+        (w_proj,) = self.first_projection.weights()
+        emb = data[keys.EDGE_EMBEDDING].to(self.dtype)
+        lat_s, env = mega_latent_env((emb,), sh, w_proj, None, centers, row_ptr, d2i, U, S)
+        blocks = [lat_s]
+        w2b = data[keys.EDGE_FEATURE_WEIGHTS].to(self.dtype).contiguous()
+        for layer, tp in enumerate(self.tps):
+            wk, entry_idx, entry_coef = tp.fused_infer_parts(self.dtype)
+            split = tp.d3 > 1
+            if layer == 0:
+                res = gather_tp_embed_infer(sh, w2b, env, wk, centers, row_ptr, entry_idx,
+                                            entry_coef, self.row_specs, tp.d3, split)
+            else:
+                res = gather_tp_infer(x, env, wk, centers, row_ptr, entry_idx, entry_coef, tp.d3,
+                                      split)
+            x, tp_scalars = res if split else (res, res[:, :U])
+            latent = self.latents[layer]
+            if layer == self.num_layers - 1:
+                lat_s = latent(blocks + [tp_scalars])
+            else:
+                w0, w1 = latent.weights()
+                lat_s, env = mega_latent_env(tuple(blocks) + (tp_scalars,), sh, w0, w1, centers,
+                                             row_ptr, d2i, U, S)
+            blocks.append(lat_s)
+        return tuple(blocks)

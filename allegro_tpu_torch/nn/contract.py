@@ -8,7 +8,8 @@ else ``(P,)``):
 - ``"einsum"``: plain torch — ``env_sum`` (scatter edges → atoms, gather
   back) then ``contract`` (a static loop over the first input's basis dims).
 - ``"fused_infer"``: ``fused_layer_infer``, the four CUDA kernels (their
-  plain versions on the CPU).
+  plain versions on the CPU); the mega-fused layers of ``nn/allegro.py``
+  drive the kernels themselves with ``fused_infer_parts``.
 """
 
 from __future__ import annotations
@@ -145,13 +146,17 @@ class Contracter(nn.Module):
     def forward(self, x1, x2, centers, n_atoms: int) -> torch.Tensor:
         return self.contract(x1, self.env_sum(x2, centers, n_atoms))
 
-    def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
-        """Whole layer update (env weight + scatter + gather + CG) through the
-        fused kernels; the scatter factor must already be folded into wexp."""
+    def fused_infer_parts(self, dtype):
+        """(wk [P, U], entry_idx, entry_coef) for the fused kernels; the
+        scatter factor must already be folded into the env weights."""
         if self.scatter_factor is not None:
             raise ValueError("fused_infer expects the scatter factor folded into the weights")
-        wk = self._w_up(x.dtype).T.contiguous()  # [P, U]
+        return self._w_up(dtype).T.contiguous(), self.entry_idx, self.entry_coef.to(dtype)
+
+    def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
+        """Whole layer update (env weight + scatter + gather + CG) through the
+        fused kernels."""
+        wk, entry_idx, entry_coef = self.fused_infer_parts(x.dtype)
         return fused_layer_infer(
-            x, sh, wexp, wk, centers, row_ptr, self.entry_idx,
-            self.entry_coef.to(x.dtype), self.dim_to_irr, self.d3,
+            x, sh, wexp, wk, centers, row_ptr, entry_idx, entry_coef, self.dim_to_irr, self.d3,
         )

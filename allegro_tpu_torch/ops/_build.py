@@ -35,8 +35,8 @@ _i32p = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32,
-                       _i32, _vp, _vp],
-    "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32,
+                       _i32, _vp, _vp, _vp],
+    "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32,
                        _i32, _i32, _vp, _vp, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
                            _vp],
@@ -45,6 +45,14 @@ _SIGNATURES = {
     "atpt_readout_sum": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
     "atpt_readout_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _i64,
                          _i32, _i32, _vp],
+    "atpt_latent_env_scatter": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _vp, _i64,
+                                _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp],
+    "atpt_latent_env_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _vp,
+                            _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp],
+    "atpt_gather_tp_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _i64, _i32, _i32,
+                             _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp],
+    "atpt_bwd_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _i64, _i32,
+                       _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
 }
 
 

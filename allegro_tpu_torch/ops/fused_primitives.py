@@ -9,6 +9,13 @@
   pair is closed under transposition and differentiable to any order.
 - ``readout_sum_infer``: the fused readout (per-edge MLP and per-atom energy
   sum); backward ``readout_bwd``, first order only.
+- The mega-fused layers (``nn/allegro.py``'s default inference path), each
+  one kernel forward and one backward, first order only:
+  ``mega_latent_env`` (latent MLP + env-weight slice + env scatter;
+  backward ``latent_env_bwd``), ``gather_tp_infer`` (env gather + CG TP,
+  optionally with the split scalar output; backward ``bwd_fused``) and
+  ``gather_tp_embed_infer`` (the same at layer 0 with the tensor embed built
+  in the kernel; backward ``bwd_embed``).
 
 On the inference Functions the weight gradients are NaN by design, so
 training parameters on the inference backend fails loudly instead of
@@ -23,6 +30,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import fused_tp
+
+
+def _nan_like(t: Optional[torch.Tensor], needed: bool) -> Optional[torch.Tensor]:
+    """The NaN weight cotangent of the inference Functions (None where not
+    needed)."""
+    return torch.full_like(t, float("nan")) if t is not None and needed else None
 
 
 class _FusedLayerInfer(torch.autograd.Function):
@@ -44,7 +57,7 @@ class _FusedLayerInfer(torch.autograd.Function):
             x, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef
         )
         dsh, dwexp = fused_tp.unweight_both(denv, sh, wexp, centers, dim_to_irr)
-        dw = torch.full_like(w, float("nan")) if ctx.needs_input_grad[3] else None
+        dw = _nan_like(w, ctx.needs_input_grad[3])
         return dx, dsh, dwexp, dw, None, None, None, None, None, None
 
 
@@ -109,10 +122,8 @@ class _ReadoutSumInfer(torch.autograd.Function):
     def backward(ctx, g):
         w0, w1, centers, *pieces = ctx.saved_tensors
         dpieces = fused_tp.readout_bwd(pieces, w0, w1, g.contiguous(), centers)
-        nan = float("nan")
-        dw0 = torch.full_like(w0, nan) if ctx.needs_input_grad[0] else None
-        dw1 = torch.full_like(w1, nan) if w1 is not None and ctx.needs_input_grad[1] else None
-        return (dw0, dw1, None, None, *dpieces)
+        nig = ctx.needs_input_grad
+        return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), None, None, *dpieces)
 
 
 def readout_sum_infer(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], centers,
@@ -121,3 +132,86 @@ def readout_sum_infer(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Ten
     [E, S_i] through the readout MLP (w0 [ΣS_i, H], w1 [H, 1]; ``w1=None``
     for a linear readout, w0 [ΣS_i, 1]), summed over each atom's edges."""
     return _ReadoutSumInfer.apply(w0, w1, centers, row_ptr, *pieces)
+
+
+class _MegaLatentEnv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, U, S, *pieces):
+        lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S)
+        ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, *pieces)
+        ctx.U, ctx.S = U, S
+        return lat_s, env
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_lat, g_env):
+        w0, w1, sh, centers, dim_to_irr, *pieces = ctx.saved_tensors
+        dsh, dpieces = fused_tp.latent_env_bwd(
+            pieces, sh, w0, w1, g_env.contiguous(), g_lat.contiguous(), centers, dim_to_irr,
+            ctx.U, ctx.S,
+        )
+        nig = ctx.needs_input_grad
+        return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), dsh, None, None, None, None, None,
+                *dpieces)
+
+
+def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], centers,
+                    row_ptr, dim_to_irr, U: int, S: int):
+    """A latent MLP (``w1=None``: a linear map) on the pieces [E, S_i] → its
+    scalar columns ``lat_s`` [E, S] and the environment ``env``
+    [n_atoms, d2*U] that its env-weight columns weight sh [E, d2] into,
+    summed over each atom's edges: ``(lat_s, env)``."""
+    return _MegaLatentEnv.apply(w0, w1, sh, centers, row_ptr, dim_to_irr, U, S, *pieces)
+
+
+class _GatherTpInfer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split):
+        ctx.save_for_backward(x, env, w, centers, row_ptr, entry_idx, entry_coef)
+        return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, gts=None):
+        x, env, w, centers, row_ptr, entry_idx, entry_coef = ctx.saved_tensors
+        dx, denv = fused_tp.bwd_fused(x, g.contiguous(), env, w, centers, row_ptr, entry_idx,
+                                      entry_coef, None if gts is None else gts.contiguous())
+        return dx, denv, _nan_like(w, ctx.needs_input_grad[2]), None, None, None, None, None, None
+
+
+def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
+                    split: bool = False):
+    """x [E, d1*U], env [n_atoms, d2*U], w [P, U] → out [E, d3*U], or
+    ``(out, ts)`` with ``split`` (ts [E, U], the leading 0e block, whose
+    cotangent the backward folds in)."""
+    return _GatherTpInfer.apply(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split)
+
+
+class _GatherTpEmbedInfer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs, d3,
+                split):
+        ctx.save_for_backward(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs)
+        return fused_tp.gather_tp_embed(sh, w2b, env, w, centers, entry_idx, entry_coef,
+                                        row_specs, d3, split)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, gts=None):
+        sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs = ctx.saved_tensors
+        dsh, dw2b, denv = fused_tp.bwd_embed(
+            sh, w2b, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
+            None if gts is None else gts.contiguous(),
+        )
+        return (dsh, dw2b, denv, _nan_like(w, ctx.needs_input_grad[3]), None, None, None, None,
+                None, None, None)
+
+
+def gather_tp_embed_infer(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
+                          d3: int, split: bool = False):
+    """``gather_tp_infer`` at layer 0 on the tensor embed's factors: sh
+    [E, d_sh] and w2b [E, n_irr*U] (its channel weights), the features
+    ``x0[e, iU+u] = sh[e, js_i] w2b[e, irs_i U+u]`` built in the kernel from
+    ``row_specs`` [d1, 2] = (js_i, irs_i)."""
+    return _GatherTpEmbedInfer.apply(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
+                                     row_specs, d3, split)

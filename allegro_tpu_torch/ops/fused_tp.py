@@ -23,10 +23,15 @@ two rank-window partials ``(eA, eB)``.
 | ``center_sum`` | ``center_sum_call`` / ``_center_sum_kernel`` |
 | ``readout_sum`` | ``readout_sum_call`` / ``_readout_sum_kernel`` |
 | ``readout_bwd`` | ``readout_bwd_call`` / ``_readout_bwd_kernel`` |
+| ``latent_env_scatter`` | ``latent_env_scatter_call`` / ``_latent_env_scatter_kernel`` |
+| ``latent_env_bwd`` | ``latent_env_bwd_call`` / ``_latent_env_bwd_kernel`` |
+| ``gather_tp_embed`` | ``gather_tp_embed_raw_call`` / ``_gather_tp_embed_raw_kernel`` |
+| ``bwd_embed`` | ``bwd_embed_raw_call`` / ``_bwd_embed_raw_kernel`` |
 
-The first four are in ``csrc/fused_tp.cu``, the last four in
-``csrc/center_readout.cu``. What bounds each kernel on the card and how its
-design answers it is noted beside each kernel in the CUDA source.
+The first four are in ``csrc/fused_tp.cu``, the next four in
+``csrc/center_readout.cu``, the last four (the mega-fused layers) in
+``csrc/mega.cu``. What bounds each kernel on the card and how its design
+answers it is noted beside each kernel in the CUDA source.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from . import _build
 LAUNCHES: Dict[str, int] = {
     "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
     "center_gather": 0, "center_sum": 0, "readout_sum": 0, "readout_bwd": 0,
+    "latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0,
 }
 
 
@@ -112,13 +118,35 @@ def _path_tensor(w, entry_idx, entry_coef, d1, d2, d3):
 # ---------------------------------------------------------------------------
 
 
-def env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U):
+def _weighted_sh(sh, wexp, dim_to_irr, U):
+    """``[E, d2*U]``: column ``jU+u`` is ``sh[e, j] wexp[e, irr(j)U+u]``."""
     E, d2 = sh.shape
-    w = wexp.view(E, -1, U).index_select(1, dim_to_irr.long())  # [E, d2, U]
-    return segment_sum((sh[:, :, None] * w).reshape(E, d2 * U), centers, n_atoms)
+    w = wexp.reshape(E, -1, U).index_select(1, dim_to_irr.long())  # [E, d2, U]
+    return (sh[:, :, None] * w).reshape(E, d2 * U)
 
 
-def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3):
+def env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U):
+    return segment_sum(_weighted_sh(sh, wexp, dim_to_irr, U), centers, n_atoms)
+
+
+def _fold_gts(g, gts):
+    """g with the split scalar output's cotangent added to its block 0."""
+    if gts is None:
+        return g
+    U = gts.shape[1]
+    return torch.cat([g[:, :U] + gts, g[:, U:]], dim=1)
+
+
+def _embed_x0(sh, w2b, row_specs, U):
+    """Layer 0's features ``x0[e, iU+u] = sh[e, js_i] w2b[e, irs_i U+u]``
+    from ``row_specs`` [d1, 2] = (js_i, irs_i)."""
+    E = sh.shape[0]
+    specs = row_specs.long()
+    w = w2b.reshape(E, -1, U).index_select(1, specs[:, 1])  # [E, d1, U]
+    return (sh.index_select(1, specs[:, 0])[:, :, None] * w).reshape(E, -1)
+
+
+def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split=False):
     E, U = x.shape[0], w.shape[1]
     d1, d2 = x.shape[1] // U, env.shape[1] // U
     ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
@@ -127,10 +155,12 @@ def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3):
     out = x.new_zeros((E, d3, U))
     for i in range(d1):
         out = out + xv[:, i : i + 1, :] * torch.einsum("eju,ujk->eku", env_e, ww[:, i])
-    return out.reshape(E, d3 * U)
+    out = out.reshape(E, d3 * U)
+    return (out, out[:, :U].clone()) if split else out
 
 
-def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef):
+def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts=None):
+    g = _fold_gts(g, gts)
     E, U = x.shape[0], w.shape[1]
     d1, d2, d3 = x.shape[1] // U, env.shape[1] // U, g.shape[1] // U
     ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
@@ -172,8 +202,8 @@ def center_sum_reference(v, row_ptr, perm=None):
     return out.index_add(0, seg, rows)[:n_atoms]
 
 
-def _readout_mlp(pieces, w0, w1):
-    """Per-edge ``pre = Σ_i p_i @ W0_i`` and energy ``silu(pre) @ w1`` (or
+def _edge_mlp(pieces, w0, w1):
+    """Per-edge ``pre = Σ_i p_i @ W0_i`` and output ``silu(pre) @ w1`` (or
     ``pre`` itself without a hidden layer, ``w1 is None``)."""
     pre = None
     off = 0
@@ -184,19 +214,57 @@ def _readout_mlp(pieces, w0, w1):
     return pre, pre if w1 is None else torch.nn.functional.silu(pre) @ w1
 
 
-def readout_sum_reference(pieces, w0, w1, row_ptr):
-    _, energy = _readout_mlp(pieces, w0, w1)
-    return center_sum_reference(energy, row_ptr)
-
-
-def readout_bwd_reference(pieces, w0, w1, y, centers):
-    pre, _ = _readout_mlp(pieces, w0, w1)
-    dh = gather_rows(y, centers)  # [E, 1]
+def _edge_mlp_bwd(pieces, pre, dout, w0, w1):
+    """The piece cotangents of :func:`_edge_mlp` from its output's ``dout``."""
+    dh = dout
     if w1 is not None:
         sig = torch.sigmoid(pre)
         dh = (dh @ w1.T) * (sig * (1.0 + pre * (1.0 - sig)))
     dp = dh @ w0.T
     return tuple(torch.split(dp, [p.shape[1] for p in pieces], dim=1))
+
+
+def readout_sum_reference(pieces, w0, w1, row_ptr):
+    _, energy = _edge_mlp(pieces, w0, w1)
+    return center_sum_reference(energy, row_ptr)
+
+
+def readout_bwd_reference(pieces, w0, w1, y, centers):
+    pre, _ = _edge_mlp(pieces, w0, w1)
+    return _edge_mlp_bwd(pieces, pre, gather_rows(y, centers), w0, w1)
+
+
+def latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S):
+    _, lat = _edge_mlp(pieces, w0, w1)
+    env = center_sum_reference(_weighted_sh(sh, lat[:, S:], dim_to_irr, U), row_ptr)
+    return lat[:, :S].contiguous(), env
+
+
+def latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S):
+    pre, lat = _edge_mlp(pieces, w0, w1)
+    dsh, dwexp = unweight_both_reference(t, sh, lat[:, S:], centers, dim_to_irr)
+    return dsh, _edge_mlp_bwd(pieces, pre, torch.cat([g_lat, dwexp], dim=1), w0, w1)
+
+
+def gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs, d3,
+                              split=False):
+    x0 = _embed_x0(sh, w2b, row_specs, w.shape[1])
+    return gather_tp_reference(x0, env, w, centers, entry_idx, entry_coef, d3, split)
+
+
+def bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef, row_specs,
+                        gts=None):
+    E, U = sh.shape[0], w.shape[1]
+    x0 = _embed_x0(sh, w2b, row_specs, U)
+    dx, denv = bwd_fused_reference(x0, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts)
+    specs = row_specs.long()
+    dx = dx.view(E, -1, U)  # [E, d1, U]
+    w = w2b.reshape(E, -1, U)
+    dsh = torch.zeros_like(sh).index_add(
+        1, specs[:, 0], (dx * w.index_select(1, specs[:, 1])).sum(-1))
+    dw2b = torch.zeros_like(w).index_add(
+        1, specs[:, 1], dx * sh.index_select(1, specs[:, 0])[:, :, None])
+    return dsh, dw2b.reshape(E, -1), denv
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +295,11 @@ def _check_kernel_args(floats, ints) -> None:
             raise TypeError(f"{name}: index arrays must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A device pointer for ctypes; None (a null pointer) for an absent array."""
+    return None if t is None else t.data_ptr()
 
 
 def _launch(name: str, fn: str, device: torch.device, *args) -> None:
@@ -276,10 +349,12 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
     return env
 
 
-def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int) -> torch.Tensor:
+def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = False):
     """out [E, d3*U]: ``out[e,kU+u] = Σ c w[p,u] x[e,iU+u] env[c(e),jU+u]``.
 
     x [E, d1*U], env [n_atoms, d2*U], w [P, U], entries (i, j, k, p) / c.
+    ``split``: also return the leading 0e block ``out[:, :U]`` as its own
+    [E, U] array, ``(out, ts)``.
 
     Replaces ``_gather_tp_raw_kernel``. Bound by the read of x and the write
     of out; one warp per edge, lane = channel, coalesced rows."""
@@ -292,25 +367,27 @@ def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int) -> torch.Tenso
             f"w {tuple(w.shape)}, centers {tuple(centers.shape)}"
         )
     if _on_cpu(x, env, w, centers, entry_idx, entry_coef):
-        return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3)
+        return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split)
     _check_kernel_args(
         {"x": x, "env": env, "w": w, "entry_coef": entry_coef},
         {"centers": centers, "entry_idx": entry_idx},
     )
     out = torch.empty((E, d3 * U), dtype=x.dtype, device=x.device)
-    if E == 0:
-        return out
-    _launch("gather_tp", "atpt_gather_tp", x.device,
-            x.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
-            entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
-            E, n_atoms, x.shape[1] // U, env.shape[1] // U, d3, U, out.data_ptr())
-    return out
+    ts = torch.empty((E, U), dtype=x.dtype, device=x.device) if split else None
+    if E > 0:
+        _launch("gather_tp", "atpt_gather_tp", x.device,
+                x.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
+                entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
+                E, n_atoms, x.shape[1] // U, env.shape[1] // U, d3, U, out.data_ptr(),
+                _ptr(ts))
+    return (out, ts) if split else out
 
 
-def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx,
-              entry_coef) -> Tuple[torch.Tensor, torch.Tensor]:
+def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef,
+              gts=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of ``gather_tp`` in x and env, without dw:
-    dx [E, d1*U] and denv [n_atoms, d2*U].
+    dx [E, d1*U] and denv [n_atoms, d2*U]. ``gts`` [E, U]: the cotangent of
+    the split scalar output, added to g's block 0.
 
     Replaces ``_bwd_fused_raw_kernel``. Bound by the reads of x and g and the
     write of dx; one block per atom segment gives dx and denv in one pass,
@@ -319,15 +396,18 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx,
     n_atoms = row_ptr.shape[0] - 1
     _check_entries(entry_idx, entry_coef)
     if (g.shape[0] != E or g.shape[1] % U or env.shape[0] != n_atoms
-            or centers.shape != (E,)):
+            or centers.shape != (E,) or (gts is not None and gts.shape != (E, U))):
         raise ValueError(
             f"bwd_fused shapes: x {tuple(x.shape)}, g {tuple(g.shape)}, "
-            f"env {tuple(env.shape)}, row_ptr {tuple(row_ptr.shape)}"
+            f"env {tuple(env.shape)}, row_ptr {tuple(row_ptr.shape)}, "
+            f"gts {None if gts is None else tuple(gts.shape)}"
         )
-    if _on_cpu(x, g, env, w, centers, row_ptr, entry_idx, entry_coef):
-        return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef)
+    opt = () if gts is None else (gts,)
+    if _on_cpu(x, g, *opt, env, w, centers, row_ptr, entry_idx, entry_coef):
+        return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts)
     _check_kernel_args(
-        {"x": x, "g": g, "env": env, "w": w, "entry_coef": entry_coef},
+        {"x": x, "g": g, "env": env, "w": w, "entry_coef": entry_coef,
+         **{"gts": t for t in opt}},
         {"row_ptr": row_ptr, "entry_idx": entry_idx},
     )
     dx = torch.empty_like(x)
@@ -335,8 +415,9 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx,
     if E == 0 and n_atoms == 0:
         return dx, denv
     _launch("bwd_fused", "atpt_bwd_fused", x.device,
-            x.data_ptr(), g.data_ptr(), env.data_ptr(), w.data_ptr(), row_ptr.data_ptr(),
-            entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0], E, n_atoms,
+            x.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
+            row_ptr.data_ptr(), entry_idx.data_ptr(), entry_coef.data_ptr(),
+            entry_idx.shape[0], E, n_atoms,
             x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U,
             dx.data_ptr(), denv.data_ptr())
     return dx, denv
@@ -424,20 +505,35 @@ def center_sum(v, row_ptr, perm=None) -> torch.Tensor:
 _MAX_PIECES = 16  # kMaxPieces of csrc/center_readout.cu
 
 
-def _check_readout(pieces, w0, w1, E) -> int:
-    """Checks the readout's shapes; returns the hidden width (1 without a
-    hidden layer)."""
+def _check_mlp(what, pieces, w0, w1, E, n_out=None) -> int:
+    """Checks the shapes of a per-edge MLP ``Σ_i p_i @ W0_i [→ silu → W1]``
+    (pieces [E, S_i], w0 [ΣS_i, H], w1 [H, N] or None); returns its output
+    width (``n_out`` if given: the only width allowed)."""
     K = sum(p.shape[1] for p in pieces)
     H = w0.shape[1] if w0.ndim == 2 else -1
+    N = H if w1 is None else (w1.shape[1] if w1.ndim == 2 else -1)
     if (not pieces or any(p.ndim != 2 or p.shape[0] != E for p in pieces) or w0.shape != (K, H)
-            or (w1 is None and H != 1) or (w1 is not None and w1.shape != (H, 1))):
+            or (w1 is not None and w1.shape[0] != H) or (n_out is not None and N != n_out)):
         raise ValueError(
-            f"readout shapes: pieces {[tuple(p.shape) for p in pieces]}, w0 {tuple(w0.shape)}, "
+            f"{what} shapes: pieces {[tuple(p.shape) for p in pieces]}, w0 {tuple(w0.shape)}, "
             f"w1 {None if w1 is None else tuple(w1.shape)}"
         )
     if len(pieces) > _MAX_PIECES:
-        raise ValueError(f"the readout kernels take at most {_MAX_PIECES} pieces")
-    return H
+        raise ValueError(f"the {what} kernels take at most {_MAX_PIECES} pieces")
+    return N
+
+
+def _check_pieces_dtype(pieces) -> None:
+    for i, p in enumerate(pieces):
+        if p.dtype != torch.float32:
+            raise TypeError(f"piece {i}: the CUDA kernels take float32, got {p.dtype}")
+
+
+def _check_readout(pieces, w0, w1, E) -> int:
+    """Checks the readout's shapes; returns the hidden width (1 without a
+    hidden layer)."""
+    _check_mlp("readout", pieces, w0, w1, E, n_out=1)
+    return w0.shape[1]
 
 
 def _piece_table(pieces):
@@ -469,9 +565,7 @@ def readout_sum(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor],
     if _on_cpu(*pieces, w0, *rest, row_ptr):
         return readout_sum_reference(pieces, w0, w1, row_ptr)
     _check_kernel_args({"w0": w0, **{"w1": w for w in rest}}, {"row_ptr": row_ptr})
-    for i, p in enumerate(pieces):
-        if p.dtype != torch.float32:
-            raise TypeError(f"piece {i}: the CUDA kernels take float32, got {p.dtype}")
+    _check_pieces_dtype(pieces)
     energy = torch.empty((n_atoms, 1), dtype=w0.dtype, device=w0.device)
     if n_atoms == 0:
         return energy
@@ -503,9 +597,7 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
     if _on_cpu(*pieces, w0, *rest, y, centers):
         return readout_bwd_reference(pieces, w0, w1, y, centers)
     _check_kernel_args({"w0": w0, "y": y, **{"w1": w for w in rest}}, {"centers": centers})
-    for i, p in enumerate(pieces):
-        if p.dtype != torch.float32:
-            raise TypeError(f"piece {i}: the CUDA kernels take float32, got {p.dtype}")
+    _check_pieces_dtype(pieces)
     dpieces = tuple(torch.empty(p.shape, dtype=p.dtype, device=p.device) for p in pieces)
     if E == 0:
         return dpieces
@@ -517,3 +609,161 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
             None if w1 is None else w1.data_ptr(), y.data_ptr(), centers.data_ptr(), E,
             y.shape[0], H)
     return dpieces
+
+
+def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], row_ptr,
+                       dim_to_irr, U: int, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's latent MLP fused with the next layer's environment sum:
+    ``lat = silu(Σ_i p_i @ W0_i) @ W1`` (or ``Σ_i p_i @ W0_i`` without a
+    hidden layer, ``w1=None``) per edge; returns its scalar columns
+    ``lat_s = lat[:, :S]`` [E, S] and ``env [n_atoms, d2*U]``, ``env[a, jU+u]
+    = Σ_{c(e)=a} sh[e,j] lat[e, S+irr(j)U+u]``. pieces [E, S_i] (column
+    slices are fine), sh [E, d2], w0 [ΣS_i, H], w1 [H, S+n_irr*U], row_ptr
+    [n_atoms+1] (the center CSR; sentinel edges get lat_s and add no env),
+    dim_to_irr [d2]. The scatter factor is expected folded into the env
+    columns of the last weight.
+
+    Replaces ``_latent_env_scatter_kernel``. Bound by exact-FP32 FMAs; the
+    hidden activation and the env weights never reach device memory."""
+    pieces = tuple(pieces)
+    E, d2 = sh.shape
+    n_atoms = row_ptr.shape[0] - 1
+    N = _check_mlp("latent_env_scatter", pieces, w0, w1, E)
+    if N <= S or (N - S) % U or dim_to_irr.shape != (d2,):
+        raise ValueError(f"latent_env_scatter shapes: MLP output {N}, S={S}, U={U}, "
+                         f"sh {tuple(sh.shape)}, dim_to_irr {tuple(dim_to_irr.shape)}")
+    rest = () if w1 is None else (w1,)
+    if _on_cpu(*pieces, sh, w0, *rest, row_ptr, dim_to_irr):
+        return latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S)
+    _check_kernel_args({"sh": sh, "w0": w0, **{"w1": w for w in rest}},
+                       {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr})
+    _check_pieces_dtype(pieces)
+    lat_s = torch.empty((E, S), dtype=sh.dtype, device=sh.device)
+    env = torch.empty((n_atoms, d2 * U), dtype=sh.dtype, device=sh.device)
+    if E == 0 and n_atoms == 0:
+        return lat_s, env
+    ptrs, strides = _piece_table(pieces)
+    dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
+    _launch("latent_env_scatter", "atpt_latent_env_scatter", sh.device,
+            ptrs, strides, dims, len(pieces), w0.data_ptr(), _ptr(w1), sh.data_ptr(),
+            row_ptr.data_ptr(), dim_to_irr.data_ptr(), E, n_atoms, d2, U, S,
+            0 if w1 is None else w0.shape[1], N, lat_s.data_ptr(), env.data_ptr())
+    return lat_s, env
+
+
+def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], t, g_lat,
+                   centers, dim_to_irr, U: int, S: int) -> Tuple[torch.Tensor, ...]:
+    """Backward of ``latent_env_scatter`` in sh and the pieces, from the env
+    cotangent t [n_atoms, d2*U] and the lat_s cotangent g_lat [E, S]:
+    ``(dsh [E, d2], dpieces)``, dpieces contiguous [E, S_i]. The MLP is
+    recomputed; a sentinel edge reads t = 0.
+
+    Replaces ``_latent_env_bwd_kernel``. Bound by exact-FP32 FMAs; one warp
+    per 32 edges, lane = edge, weights in shared memory."""
+    pieces = tuple(pieces)
+    E, d2 = sh.shape
+    N = _check_mlp("latent_env_bwd", pieces, w0, w1, E)
+    if (N <= S or (N - S) % U or t.ndim != 2 or t.shape[1] != d2 * U or g_lat.shape != (E, S)
+            or centers.shape != (E,) or dim_to_irr.shape != (d2,)):
+        raise ValueError(f"latent_env_bwd shapes: MLP output {N}, S={S}, U={U}, "
+                         f"sh {tuple(sh.shape)}, t {tuple(t.shape)}, g_lat {tuple(g_lat.shape)}")
+    rest = () if w1 is None else (w1,)
+    if _on_cpu(*pieces, sh, w0, *rest, t, g_lat, centers, dim_to_irr):
+        return latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S)
+    _check_kernel_args({"sh": sh, "w0": w0, "t": t, "g_lat": g_lat, **{"w1": w for w in rest}},
+                       {"centers": centers, "dim_to_irr": dim_to_irr})
+    _check_pieces_dtype(pieces)
+    dsh = torch.empty_like(sh)
+    dpieces = tuple(torch.empty(p.shape, dtype=p.dtype, device=p.device) for p in pieces)
+    if E == 0:
+        return dsh, dpieces
+    ptrs, strides = _piece_table(pieces)
+    dptrs, dstrides = _piece_table(dpieces)
+    dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
+    _launch("latent_env_bwd", "atpt_latent_env_bwd", sh.device,
+            ptrs, strides, dptrs, dstrides, dims, len(pieces), w0.data_ptr(), _ptr(w1),
+            sh.data_ptr(), t.data_ptr(), g_lat.data_ptr(), centers.data_ptr(),
+            dim_to_irr.data_ptr(), E, t.shape[0], d2, U, S, 0 if w1 is None else w0.shape[1], N,
+            dsh.data_ptr())
+    return dsh, dpieces
+
+
+def _check_embed(what, sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs) -> int:
+    """Checks the shapes of layer 0's embed-fused TP; returns n_irr."""
+    _check_entries(entry_idx, entry_coef)
+    E, U = sh.shape[0], w.shape[1]
+    if (w2b.ndim != 2 or w2b.shape[0] != E or w2b.shape[1] % U or env.shape[1] % U
+            or centers.shape != (E,) or row_specs.ndim != 2 or row_specs.shape[1] != 2):
+        raise ValueError(
+            f"{what} shapes: sh {tuple(sh.shape)}, w2b {tuple(w2b.shape)}, env {tuple(env.shape)}, "
+            f"w {tuple(w.shape)}, centers {tuple(centers.shape)}, "
+            f"row_specs {tuple(row_specs.shape)}"
+        )
+    return w2b.shape[1] // U
+
+
+def gather_tp_embed(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs, d3: int,
+                    split: bool = False):
+    """``gather_tp`` on layer 0's features ``x0[e, iU+u] = sh[e, js_i]
+    w2b[e, irs_i U+u]``, built on the fly: out [E, d3*U] (and ts [E, U]
+    with ``split``). sh [E, d_sh], w2b [E, n_irr*U] (the tensor embed's
+    channel weights), row_specs [d1, 2] int32 = (js_i, irs_i).
+
+    Replaces ``_gather_tp_embed_raw_kernel``. Bound by the write of out;
+    one warp per edge, lane = channel, x0 rows built in shared memory."""
+    E, U = sh.shape[0], w.shape[1]
+    n_irr = _check_embed("gather_tp_embed", sh, w2b, env, w, centers, entry_idx, entry_coef,
+                         row_specs)
+    if _on_cpu(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs):
+        return gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef,
+                                         row_specs, d3, split)
+    _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w, "entry_coef": entry_coef},
+                       {"centers": centers, "entry_idx": entry_idx, "row_specs": row_specs})
+    out = torch.empty((E, d3 * U), dtype=sh.dtype, device=sh.device)
+    ts = torch.empty((E, U), dtype=sh.dtype, device=sh.device) if split else None
+    if E > 0:
+        _launch("gather_tp_embed", "atpt_gather_tp_embed", sh.device,
+                sh.data_ptr(), w2b.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
+                entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
+                row_specs.data_ptr(), E, env.shape[0], sh.shape[1], n_irr, row_specs.shape[0],
+                env.shape[1] // U, d3, U, out.data_ptr(), _ptr(ts))
+    return (out, ts) if split else out
+
+
+def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
+              gts=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of ``gather_tp_embed`` in its factors and env, without dw:
+    dsh [E, d_sh], dw2b [E, n_irr*U] and denv [n_atoms, d2*U]; ``gts``
+    [E, U] is the cotangent of the split scalar output. Sentinel edges get
+    zero rows.
+
+    Replaces ``_bwd_embed_raw_kernel``. Bound by the read of g and the write
+    of dw2b; one block per atom segment, dx0 reduced onto the factors in
+    registers and never written."""
+    E, U = sh.shape[0], w.shape[1]
+    n_atoms = row_ptr.shape[0] - 1
+    n_irr = _check_embed("bwd_embed", sh, w2b, env, w, centers, entry_idx, entry_coef,
+                         row_specs)
+    if (g.shape[0] != E or g.shape[1] % U or env.shape[0] != n_atoms
+            or (gts is not None and gts.shape != (E, U))):
+        raise ValueError(f"bwd_embed shapes: g {tuple(g.shape)}, env {tuple(env.shape)}, "
+                         f"gts {None if gts is None else tuple(gts.shape)}")
+    opt = () if gts is None else (gts,)
+    if _on_cpu(sh, w2b, g, *opt, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs):
+        return bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef,
+                                   row_specs, gts)
+    _check_kernel_args({"sh": sh, "w2b": w2b, "g": g, "env": env, "w": w,
+                        "entry_coef": entry_coef, **{"gts": t for t in opt}},
+                       {"row_ptr": row_ptr, "entry_idx": entry_idx, "row_specs": row_specs})
+    dsh = torch.empty_like(sh)
+    dw2b = torch.empty_like(w2b)
+    denv = torch.empty_like(env)
+    if E == 0 and n_atoms == 0:
+        return dsh, dw2b, denv
+    _launch("bwd_embed", "atpt_bwd_embed", sh.device,
+            sh.data_ptr(), w2b.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
+            row_ptr.data_ptr(), entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
+            row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
+            env.shape[1] // U, g.shape[1] // U, U, dsh.data_ptr(), dw2b.data_ptr(),
+            denv.data_ptr())
+    return dsh, dw2b, denv

@@ -12,32 +12,45 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    kernel against its plain PyTorch version at the flagship shapes, bound
    max|err| / max|ref| < 1e-5, with median times from CUDA events: the four
    layer kernels at both layers (U = 32; layer 0 dims (9, 9, 9) with 83 CG
-   entries, layer 1 (9, 9, 1) with 9), then, checks only, at U = 16 and 48
-   (the lane loop for other widths); the center gather and sum on positions
-   [4096, 3] at the center and the neighbor side (and, checks only, on the
-   [·, 1] energy column of the plain readout chain); the fused readout and
-   its backward on three 64-wide pieces (W0 [192, 32], w1 [32, 1]);
+   entries, layer 1 (9, 9, 1) with 9); the mega kernels on the mega model's
+   weights: ``latent_env_scatter`` and ``latent_env_bwd`` without a hidden
+   layer (the first projection, W0 [64, 160]) and with one (layer 0's latent,
+   W0 [96, 64], W1 [64, 160]), ``gather_tp_embed`` with its split output and
+   ``bwd_embed`` with ``gts``, and ``gather_tp`` with the split output and
+   ``bwd_fused`` with ``gts`` at layer-0 dims; then, checks only, all of
+   these at U = 16 and 48 (the lane loops for other widths); the center
+   gather and sum on positions [4096, 3] at the center and the neighbor side
+   (and, checks only, on the [·, 1] energy column of the plain readout
+   chain); the fused readout and its backward on three 64-wide pieces (W0
+   [192, 32], w1 [32, 1]);
 3. force call: the flagship ``AllegroModel`` (l_max 2, 2 layers, 64 scalar
-   and 32 tensor features, random weights from seed 0) on ``fused_infer``
-   with ``use_mega=False``, in two configurations: the default fused readout,
-   and ``use_fused_readout=False`` (the plain readout chain). 5 force calls
+   and 32 tensor features, random weights from seed 0) on ``fused_infer`` in
+   three configurations: ``mega`` (the default ``use_mega=None``: the JAX
+   bench's default kwargs), and with ``use_mega=False`` the fused readout
+   and the plain readout chain (``use_fused_readout=False``). 5 force calls
    each, with the exact launch count of every kernel asserted after each
    call; outputs finite and in agreement with the port's plain ``einsum``
    backend on the same card (force max-abs rel < 1e-5, per-atom energies
    allclose at 5e-5). Prints µs/atom per force call and the run-to-run
    max |Δforces| of two identical calls;
-4. MD and calculator: ``md.Simulation`` runs 100 steps (10 blocks) of NVE on
-   the crystal with a skin small enough to re-neighbor, asserting finite
-   positions, the exact launch counts of every block (each of its force
-   calls), no host synchronization inside a block, and agreement within
-   1e-4 Å with the ``einsum`` backend after the first block; prints the
-   energy drift, ms/step and µs/atom per step. Then three
+4. MD and calculator, on the ``mega`` model: ``md.Simulation`` runs 100
+   steps (10 blocks) of NVE on the crystal with a skin small enough to
+   re-neighbor, asserting finite positions, the exact launch counts of every
+   block (each of its force calls), no host synchronization inside a block,
+   and agreement within 1e-4 Å with the ``einsum`` backend after the first
+   block; prints the energy drift, ms/step and µs/atom per step. Then three
    ``AllegroCalculator.calculate`` calls on jittered copies of the crystal,
    each checked against ``apply_with_derivatives`` and its launch counts;
    the padded buckets must not grow after the first call.
 
 The last two lines of stdout are a JSON object with the kernels' records and
-the JSON result ``{"ok": true, "device": {...}}``.
+the JSON result ``{"ok": true, "device": {...}}``. A kernel's ``ms`` and
+``plain_ms`` sum the device times of its launches in one force call of
+``ms_config`` (``mega``, except for the four layer kernels of
+``use_mega=False``: ``fused readout``, where all their launches are), and
+``launches`` counts their launches in the 5 force calls of that
+configuration. Every configuration and entry point has its own
+``launches_*`` key.
 """
 
 from __future__ import annotations
@@ -69,6 +82,10 @@ FLAGSHIP = dict(
     model_dtype="float32",
 )
 SOURCES = {
+    "latent_env_scatter": "allegro_tpu_torch/csrc/mega.cu",
+    "latent_env_bwd": "allegro_tpu_torch/csrc/mega.cu",
+    "gather_tp_embed": "allegro_tpu_torch/csrc/mega.cu",
+    "bwd_embed": "allegro_tpu_torch/csrc/mega.cu",
     "env_scatter": "allegro_tpu_torch/csrc/fused_tp.cu",
     "gather_tp": "allegro_tpu_torch/csrc/fused_tp.cu",
     "bwd_fused": "allegro_tpu_torch/csrc/fused_tp.cu",
@@ -79,6 +96,10 @@ SOURCES = {
     "readout_bwd": "allegro_tpu_torch/csrc/center_readout.cu",
 }
 REPLACES = {
+    "latent_env_scatter": "allegro_tpu/ops/fused_tp.py:1701",
+    "latent_env_bwd": "allegro_tpu/ops/fused_tp.py:1966",
+    "gather_tp_embed": "allegro_tpu/ops/fused_tp.py:603",
+    "bwd_embed": "allegro_tpu/ops/fused_tp.py:683",
     "env_scatter": "allegro_tpu/ops/fused_tp.py:1091",
     "gather_tp": "allegro_tpu/ops/fused_tp.py:500",
     "bwd_fused": "allegro_tpu/ops/fused_tp.py:1340",
@@ -88,17 +109,28 @@ REPLACES = {
     "readout_sum": "allegro_tpu/ops/fused_tp.py:1794",
     "readout_bwd": "allegro_tpu/ops/fused_tp.py:1873",
 }
-# launches per force call of the 2-layer flagship on fused_infer: each layer
-# kernel once per layer; the two position gathers (center and neighbor side)
-# and their transposes, the two force scatters; the fused readout and its
-# backward once each. The plain readout chain sums the per-edge energies with
-# center_sum instead, and its backward gathers the per-atom cotangent back to
-# the edges with center_gather: one more launch of each, none of the readout.
+# launches per force call of the 2-layer flagship on fused_infer. All
+# configurations: the two position gathers (center and neighbor side) and
+# their transposes, the two force scatters. mega: the first projection and
+# layer 0's latent are each one latent_env_scatter (and one latent_env_bwd);
+# layer 0's TP is gather_tp_embed / bwd_embed, layer 1's gather_tp /
+# bwd_fused; the fused readout and its backward once each. use_mega=False:
+# each of the four layer kernels once per layer. The plain readout chain sums
+# the per-edge energies with center_sum instead, and its backward gathers the
+# per-atom cotangent back to the edges with center_gather: one more launch of
+# each, none of the readout.
+LAYER_KERNELS = ("env_scatter", "gather_tp", "bwd_fused", "unweight_both")
+_NO_MEGA = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
 PER_CALL = {
-    "fused readout": {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
-                      "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1},
-    "plain readout": {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
-                      "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0},
+    "mega": {"latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1,
+             "env_scatter": 0, "gather_tp": 1, "bwd_fused": 1, "unweight_both": 0,
+             "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1},
+    "fused readout": {**_NO_MEGA, "env_scatter": 2, "gather_tp": 2, "bwd_fused": 2,
+                      "unweight_both": 2, "center_gather": 2, "center_sum": 2, "readout_sum": 1,
+                      "readout_bwd": 1},
+    "plain readout": {**_NO_MEGA, "env_scatter": 2, "gather_tp": 2, "bwd_fused": 2,
+                      "unweight_both": 2, "center_gather": 3, "center_sum": 3, "readout_sum": 0,
+                      "readout_bwd": 0},
 }
 MD_BLOCKS = 10
 MD_STEPS_PER_BLOCK = 10
@@ -212,14 +244,14 @@ def check_kernels(tps, data, rng, records=None):
 def check_case(name, kernel, plain, label, records=None):
     """One kernel call against its plain version (max|err| / max|ref| <
     KERNEL_TOL); with ``records``, also their median times, accumulated
-    there under ``name``."""
+    there under ``name`` (a kernel name, or ``kernel[variant]``)."""
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     abs_err = max(e[0] for e in errs)
     rel = max(e[1] for e in errs)
     ok = rel < KERNEL_TOL
-    print(f"  {label} {name:14s} max_abs_err {abs_err:.3e} rel {rel:.3e} (< {KERNEL_TOL}) "
+    print(f"  {label} {name:18s} max_abs_err {abs_err:.3e} rel {rel:.3e} (< {KERNEL_TOL}) "
           f"{'ok' if ok else 'FAIL'}", end="")
     if not ok:
         print()
@@ -233,6 +265,76 @@ def check_case(name, kernel, plain, label, records=None):
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     rec["ms"] += ms
     rec["plain_ms"] += plain_ms
+
+
+def check_mega_kernels(allegro, data, rng, records=None):
+    """Phase 2: the mega kernels and the split / gts variants of kernels 2
+    and 3 against their plain versions, on the mega model's weights at the
+    force call's shapes; with ``records``, also the median times, summed
+    over the launches of one force call (the variants under their own
+    keys). Pieces and g_lat have nonzero rows on the sentinel edges too."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    E = centers.shape[0]
+    S, U = allegro.S, allegro.U
+    tp = allegro.tps[0]
+    d2i, specs = tp.dim_to_irr, allegro.row_specs
+    n_irr = int(max(allegro.env_weighter.dim_to_irr)) + 1
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    sh, emb, ts = rand(E, tp.d2), rand(E, S), rand(E, U)
+    t, g_lat = rand(n_atoms, tp.d2 * U), rand(E, S)
+    (w_proj,) = allegro.first_projection.weights()
+    w0, w1 = allegro.latents[0].weights()
+    label = f"U {U} E {E}"
+    for pieces, a, b in (((emb,), w_proj.detach(), None),
+                         ((emb, ts), w0.detach(), w1.detach())):
+        what = f"{label} W0 {list(a.shape)}" + ("" if b is None else f" W1 {list(b.shape)}")
+        check_case("latent_env_scatter",
+                   lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, row_ptr, d2i, U, S),
+                   lambda: fused_tp.latent_env_scatter_reference(pieces, sh, a, b, row_ptr, d2i,
+                                                                 U, S), what, records)
+        check_case("latent_env_bwd",
+                   lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers,
+                                                         d2i, U, S)),
+                   lambda: _flat(fused_tp.latent_env_bwd_reference(pieces, sh, a, b, t, g_lat,
+                                                                   centers, d2i, U, S)),
+                   what, records)
+    wk, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
+    d1, d2, d3 = tp.d1, tp.d2, tp.d3
+    w2b, env = rand(E, n_irr * U), rand(n_atoms, d2 * U)
+    x, g, gts = rand(E, d1 * U), rand(E, d3 * U), rand(E, U)
+    what = f"{label} dims ({d1},{d2},{d3}) entries {idx.shape[0]}"
+    check_case("gather_tp_embed",
+               lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, idx, coef, specs, d3,
+                                                True),
+               lambda: fused_tp.gather_tp_embed_reference(sh, w2b, env, wk, centers, idx, coef,
+                                                          specs, d3, True), what, records)
+    check_case("bwd_embed",
+               lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
+                                          specs, gts),
+               lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx,
+                                                    coef, specs, gts), what, records)
+    check_case("gather_tp[split]",
+               lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, True),
+               lambda: fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, d3, True),
+               what, records)
+    check_case("bwd_fused[gts]",
+               lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts),
+               lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef,
+                                                    gts), what, records)
+
+
+def _flat(res):
+    """(dsh, (dp_0, dp_1, ...)) → (dsh, dp_0, dp_1, ...)."""
+    return (res[0], *res[1])
 
 
 def check_center_readout(data, rng, records):
@@ -337,15 +439,23 @@ def main() -> int:
         use_mega=False, use_fused_readout=False,
     ).init(SEED).to(dev)
     data = to_torch(fused.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+    mega = AllegroModel(
+        **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
+    ).to(dev)
+    mega.load_state_dict(fused.state_dict())
+    if not mega.module.allegro.mega:
+        raise AssertionError("the default fused_infer model does not take the mega path")
     records = {}
     rng = np.random.RandomState(SEED)
     check_kernels(fused.module.allegro.tps, data, rng, records)
+    check_mega_kernels(mega.module.allegro, data, rng, records)
     for U in (16, 48):
         other = AllegroModel(
-            **{**FLAGSHIP, "num_tensor_features": U}, tp_kernel_backend="fused_infer",
-            use_mega=False,
-        ).to(dev)
+            **{**FLAGSHIP, "num_tensor_features": U}, avg_num_neighbors=n_edges / n_atoms,
+            tp_kernel_backend="fused_infer",
+        ).init(SEED).to(dev)
         check_kernels(other.module.allegro.tps, data, rng)
+        check_mega_kernels(other.module.allegro, data, rng)
 
     check_center_readout(data, rng, records)
 
@@ -363,7 +473,7 @@ def main() -> int:
     ref = einsum.apply_with_derivatives(einsum_data)
     us = {}
     launches = {}
-    for config, model in (("fused readout", fused_ro), ("plain readout", fused)):
+    for config, model in (("mega", mega), ("fused readout", fused_ro), ("plain readout", fused)):
         model.apply_with_derivatives(data)
         torch.cuda.synchronize()
         fused_tp.reset_launch_counts()
@@ -385,22 +495,37 @@ def main() -> int:
     print("    force call: " + ", ".join(f"{k} {v:.3f} us/atom" for k, v in us.items())
           + f" ({n_atoms} atoms, f32; {smi})")
 
-    # phase 4: the MD and calculator entry points
-    md_launches = run_md(fused_ro, einsum, frame, n_atoms, dev, smi)
-    calc_launches = run_calculator(fused_ro, frame, n_atoms, dev)
+    # phase 4: the MD and calculator entry points, on the mega model
+    md_launches = run_md(mega, einsum, frame, n_atoms, dev, smi)
+    calc_launches = run_calculator(mega, frame, n_atoms, dev)
 
     print(smi)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches["fused readout"][name], "max_abs_err": rec["max_abs_err"],
-         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-         "launches_plain_readout": launches["plain readout"][name],
-         "launches_md": md_launches[name], "launches_calculator": calc_launches[name]}
-        for name, rec in records.items()
-    ]}))
+    print(json.dumps({"kernels": [kernel_record(name, records, launches, md_launches,
+                                                calc_launches) for name in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_record(name, records, launches, md_launches, calc_launches):
+    """One entry of the ``kernels`` JSON line (see the module docstring)."""
+    rec = records[name]
+    # the four layer kernels are timed on the use_mega=False path, where all
+    # their launches are; the rest on the mega path
+    serves = "fused readout" if name in LAYER_KERNELS else "mega"
+    out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+           "launches": launches[serves][name], "max_abs_err": rec["max_abs_err"],
+           "ms": rec["ms"], "plain_ms": rec["plain_ms"], "ms_config": serves}
+    for config in PER_CALL:
+        out["launches_" + config.replace(" ", "_")] = launches[config][name]
+    out["launches_md"] = md_launches[name]
+    out["launches_calculator"] = calc_launches[name]
+    for key, variant in records.items():
+        if key.startswith(name + "["):
+            tag = key[len(name) + 1:-1]
+            out[f"max_abs_err_{tag}"] = variant["max_abs_err"]
+            out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = variant["ms"], variant["plain_ms"]
+    return out
 
 
 def check_force_call(out, ref, n_atoms, n_rows):
@@ -448,7 +573,7 @@ def run_md(model, einsum, frame, n_atoms, dev, smi):
             torch.cuda.set_sync_debug_mode("default")
 
     sim._block = no_sync_block
-    per_block = {k: n * (MD_STEPS_PER_BLOCK + 1) for k, n in PER_CALL["fused readout"].items()}
+    per_block = {k: n * (MD_STEPS_PER_BLOCK + 1) for k, n in PER_CALL["mega"].items()}
     state = MDState(pos0, vel0)
     totals, times, rebuilt = [], [], []
     total_launches = {k: 0 for k in per_block}
@@ -471,7 +596,7 @@ def run_md(model, einsum, frame, n_atoms, dev, smi):
         if b == 0:
             first = state.positions.copy()
     steps = MD_BLOCKS * MD_STEPS_PER_BLOCK
-    print(f"[4] MD: {steps} steps on fused_infer, {sim.rebuilds} neighbor lists "
+    print(f"[4] MD: {steps} steps on fused_infer (mega), {sim.rebuilds} neighbor lists "
           f"(edge bucket {sim._edge_bucket}, grown {sim.bucket_grows}x), "
           f"launches per block {per_block}")
     if sim.rebuilds < 2:
@@ -508,7 +633,7 @@ def run_calculator(model, frame, n_atoms, dev):
         fused_tp.reset_launch_counts()
         res = calc.calculate(pos, atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL],
                              pbc=frame[keys.PBC])
-        if fused_tp.LAUNCHES != PER_CALL["fused readout"]:
+        if fused_tp.LAUNCHES != PER_CALL["mega"]:
             raise AssertionError(f"calculator call {call}: launches {fused_tp.LAUNCHES}")
         for k, n in fused_tp.LAUNCHES.items():
             total_launches[k] += n

@@ -1,8 +1,9 @@
 """The port's single-point calculator against the JAX package's, on the CPU.
 
 A small periodic crystal in float64: energy, per-atom energies, forces and
-stress at 1e-10 (the port on its ``einsum`` and ``fused_infer`` backends,
-JAX on ``einsum``); the padded buckets only grow, and growing them does not
+stress at 1e-10 (the port on its ``einsum`` backend and on ``fused_infer``
+with ``use_mega=False`` and with its default mega-fused layers, JAX on
+``einsum``); the padded buckets only grow, and growing them does not
 change the answer.
 """
 
@@ -48,8 +49,13 @@ def jax_calc():
 
 
 def _port_calc(params, backend):
-    extra = {"use_mega": False} if backend == "fused_infer" else {}
-    m = AllegroModel(**MODEL_KW, tp_kernel_backend=backend, **extra)
+    """``"mega"`` is ``fused_infer`` with its default ``use_mega``."""
+    if backend == "mega":
+        m = AllegroModel(**MODEL_KW, tp_kernel_backend="fused_infer")
+        assert m.module.allegro.mega
+    else:
+        extra = {"use_mega": False} if backend == "fused_infer" else {}
+        m = AllegroModel(**MODEL_KW, tp_kernel_backend=backend, **extra)
     m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     return AllegroCalculator(m, dtype=torch.float64, device="cpu")
 
@@ -61,7 +67,7 @@ def _close(got, want, what):
     assert err <= TOL * max(1.0, float(np.abs(want).max())), f"{what}: max abs err {err:.3e}"
 
 
-@pytest.mark.parametrize("backend", ["einsum", "fused_infer"])
+@pytest.mark.parametrize("backend", ["einsum", "fused_infer", "mega"])
 def test_calculator_matches_jax(jax_calc, backend):
     jcalc, params = jax_calc
     calc = _port_calc(params, backend)

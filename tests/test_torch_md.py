@@ -1,7 +1,9 @@
 """The port's MD engine against the JAX package's, on the CPU.
 
 The 27-atom periodic box of ``tests/md/test_simulation.py``: the port's
-``Simulation`` (float64, on its ``einsum`` and ``fused_infer`` backends)
+``Simulation`` (float64, on its ``einsum`` backend and on ``fused_infer``
+with ``use_mega=False`` and with its default mega-fused layers; the
+one-layer model runs kernels 7-10 there, without the split output)
 against JAX's ``Simulation`` on the ``einsum`` backend with the same
 parameters, positions and velocities, through neighbor rebuilds; NVE energy
 conservation and the Langevin equipartition band to the JAX tests' bounds;
@@ -55,8 +57,13 @@ def jax_params():
 
 
 def _port_model(jax_params, backend):
-    extra = {"use_mega": False} if backend == "fused_infer" else {}
-    m = AllegroEnergyModel(**MODEL_KW, tp_kernel_backend=backend, **extra)
+    """``"mega"`` is ``fused_infer`` with its default ``use_mega``."""
+    if backend == "mega":
+        m = AllegroEnergyModel(**MODEL_KW, tp_kernel_backend="fused_infer")
+        assert m.module.allegro.mega
+    else:
+        extra = {"use_mega": False} if backend == "fused_infer" else {}
+        m = AllegroEnergyModel(**MODEL_KW, tp_kernel_backend=backend, **extra)
     m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params[1])))
     return m
 
@@ -66,7 +73,7 @@ def _port_sim(model, types, cell, **kw):
                       **{**SIM_KW, **kw})
 
 
-@pytest.mark.parametrize("backend", ["einsum", "fused_infer"])
+@pytest.mark.parametrize("backend", ["einsum", "fused_infer", "mega"])
 def test_trajectory_matches_jax_through_rebuilds(jax_params, backend):
     pos, types, cell, rng = _system()
     v0 = rng.randn(len(pos), 3) * 0.4

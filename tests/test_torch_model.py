@@ -2,9 +2,9 @@
 
 JAX ``einsum`` parameters go through ``params_from_jax`` into the port's
 ``AllegroModel``; the port's ``einsum`` backend and its ``fused_infer``
-backend (the kernels' plain versions on the CPU) must match JAX ``einsum``
-on energy, per-atom energy, forces and virial: 1e-10 in float64, 5e-5 in
-float32. ``test_torch_model_interpret.py`` holds the port against JAX
+backend (the kernels' plain versions on the CPU), both its default mega-fused
+layers ("mega") and ``use_mega=False``, must match JAX ``einsum`` on energy,
+per-atom energy, forces and virial: 1e-10 in float64, 5e-5 in float32. ``test_torch_model_interpret.py`` holds the port against JAX
 ``fused_infer`` with the Pallas kernels in interpret mode.
 """
 
@@ -54,6 +54,9 @@ def _model_kwargs(avg_n, dtype_name):
 
 
 def _port(backend, kw):
+    """``"mega"`` is ``fused_infer`` with its default ``use_mega``."""
+    if backend == "mega":
+        return AllegroModel(**kw, tp_kernel_backend="fused_infer")
     extra = {"use_mega": False} if backend == "fused_infer" else {}
     return AllegroModel(**kw, tp_kernel_backend=backend, **extra)
 
@@ -99,7 +102,7 @@ def _close(got, want, tol, what):
 
 def test_params_from_jax_is_the_state_dict(jax_run, avg_n):
     _, params, _ = jax_run
-    for backend in ("einsum", "fused_infer"):
+    for backend in ("einsum", "fused_infer", "mega"):
         m = _port(backend, _model_kwargs(avg_n, "float64"))
         sd = params_from_jax(params)
         assert sorted(sd) == sorted(m.state_dict())
@@ -109,7 +112,7 @@ def test_params_from_jax_is_the_state_dict(jax_run, avg_n):
     assert "radial_chemical_embed.product_type_embed.radial_proj.w0" in sd
 
 
-@pytest.mark.parametrize("backend", ["einsum", "fused_infer"])
+@pytest.mark.parametrize("backend", ["einsum", "fused_infer", "mega"])
 def test_port_matches_jax_einsum(jax_run, batch, avg_n, backend):
     dtype_name, params, want = jax_run
     m = _port(backend, _model_kwargs(avg_n, dtype_name))
@@ -122,7 +125,7 @@ def test_port_matches_jax_einsum(jax_run, batch, avg_n, backend):
         _close(out[k], want[k], TOL[dtype_name], f"{backend} {dtype_name} {k}")
 
 
-@pytest.mark.parametrize("backend", ["einsum", "fused_infer"])
+@pytest.mark.parametrize("backend", ["einsum", "fused_infer", "mega"])
 def test_padding_invariance(frames, avg_n, backend):
     m = _port(backend, _model_kwargs(avg_n, "float64")).init(0)
     n_real = sum(f[keys.POSITIONS].shape[0] for f in frames)
@@ -153,8 +156,6 @@ def test_unsorted_edges_raise(frames, avg_n):
 
 
 @pytest.mark.parametrize("override", [
-    {"tp_kernel_backend": "fused_infer", "use_mega": None},
-    {"tp_kernel_backend": "fused_infer", "use_mega": True},
     {"tensor_dtype": "bfloat16"},
     {"remat": True},
     {"checkpoint_energy": True},
@@ -174,12 +175,19 @@ def test_unported_options_raise(override, avg_n):
 
 # wrapper calls per fused_infer force call of the 2-layer model: on a card,
 # each call is one launch (chip_smoke.py asserts the same counts there)
+_MEGA_OFF = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
 _PER_CALL = {
     True: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
-           "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1},
+           "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1, **_MEGA_OFF},
     # plain readout chain: the edge sum and its transpose take the center kernels
     False: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
-            "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0},
+            "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0, **_MEGA_OFF},
+    # the mega-fused layers: the first projection and layer 0's latent each a
+    # latent_env_scatter (and its backward), layer 0's TP on the embed's
+    # factors, layer 1's on gather_tp; no env_scatter / unweight_both
+    "mega": {"env_scatter": 0, "gather_tp": 1, "bwd_fused": 1, "unweight_both": 0,
+             "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1,
+             "latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1},
 }
 
 
@@ -212,6 +220,44 @@ def test_fused_readout_options_build_and_run(batch, avg_n, use_fused_readout, mo
     calls = _count_wrapper_calls(monkeypatch)
     out = m.apply_with_derivatives(data)
     assert calls == _PER_CALL[use_fused_readout is not False]
+    for k in OUT_KEYS:
+        torch.testing.assert_close(out[k], want[k], rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("use_mega", [None, True])
+def test_mega_default_launch_counts(batch, avg_n, use_mega, monkeypatch):
+    """None (the default) and True run the mega-fused layers: each wrapper
+    the counted number of times, the einsum backend's outputs, and no
+    expanded EDGE_FEATURES from the tensor embed."""
+    kw = _model_kwargs(avg_n, "float64")
+    ref = _port("einsum", kw).init(0)
+    m = AllegroModel(**kw, tp_kernel_backend="fused_infer", use_mega=use_mega)
+    assert m.module.allegro.mega and not m.module.tensor_embed.build_features
+    assert m.builder_kwargs["use_mega"] is use_mega
+    m.load_state_dict(ref.state_dict())
+    want = ref.apply_with_derivatives(to_torch(ref.precompute_statics(batch), torch.float64))
+    data = to_torch(m.precompute_statics(batch), torch.float64)
+    calls = _count_wrapper_calls(monkeypatch)
+    out = m.apply_with_derivatives(data)
+    assert calls == _PER_CALL["mega"]
+    assert keys.EDGE_FEATURES not in out and keys.EDGE_FEATURE_WEIGHTS in out
+    for k in OUT_KEYS:
+        torch.testing.assert_close(out[k], want[k], rtol=0, atol=1e-10)
+
+
+def test_mega_outside_its_condition_takes_the_non_mega_kernels(batch, avg_n, monkeypatch):
+    """JAX's latent MLPs are SiLU whatever the config says, and so are the
+    mega kernels: with another activation, use_mega=True runs the non-mega
+    kernels (as JAX does outside its mega condition) and matches einsum."""
+    kw = {**_model_kwargs(avg_n, "float64"), "allegro_mlp_nonlinearity": "mish"}
+    ref = _port("einsum", kw).init(0)
+    m = AllegroModel(**kw, tp_kernel_backend="fused_infer", use_mega=True)
+    assert not m.module.allegro.mega and m.module.tensor_embed.build_features
+    m.load_state_dict(ref.state_dict())
+    calls = _count_wrapper_calls(monkeypatch)
+    out = m.apply_with_derivatives(to_torch(m.precompute_statics(batch), torch.float64))
+    assert calls == _PER_CALL[True]
+    want = ref.apply_with_derivatives(to_torch(ref.precompute_statics(batch), torch.float64))
     for k in OUT_KEYS:
         torch.testing.assert_close(out[k], want[k], rtol=0, atol=1e-10)
 
@@ -250,12 +296,13 @@ def test_tpu_blocking_kwargs_are_accepted_and_ignored(avg_n):
 
 
 def test_cpu_force_call_launches_no_kernel(batch, avg_n):
-    m = _port("fused_infer", _model_kwargs(avg_n, "float32")).init(0)
-    fused_tp.reset_launch_counts()
-    out = m.apply_with_derivatives(to_torch(m.precompute_statics(batch), torch.float32))
-    assert torch.isfinite(out[keys.FORCES]).all()
-    assert not out[keys.FORCES].requires_grad
-    assert fused_tp.LAUNCHES == {k: 0 for k in fused_tp.LAUNCHES}
+    for backend in ("fused_infer", "mega"):
+        m = _port(backend, _model_kwargs(avg_n, "float32")).init(0)
+        fused_tp.reset_launch_counts()
+        out = m.apply_with_derivatives(to_torch(m.precompute_statics(batch), torch.float32))
+        assert torch.isfinite(out[keys.FORCES]).all()
+        assert not out[keys.FORCES].requires_grad
+        assert fused_tp.LAUNCHES == {k: 0 for k in fused_tp.LAUNCHES}
 
 
 _NO_JAX = """
@@ -282,10 +329,11 @@ frame = {keys.POSITIONS: grid * 2.2 + 0.1 * rng.randn(8, 3),
          keys.CELL: np.eye(3) * 4.4, keys.PBC: np.ones(3, dtype=bool)}
 m = AllegroModel(r_max=4.0, type_names=["H", "C"], l_max=2, num_layers=2,
                  num_scalar_features=8, num_tensor_features=4, model_dtype="float32",
-                 tp_kernel_backend="fused_infer", use_mega=False).init(0)
+                 tp_kernel_backend="fused_infer").init(0)
+assert m.module.allegro.mega
 b = batch_frames([neighbor_list(frame, 4.0)])
 out = m.apply_with_derivatives(to_torch(m.precompute_statics(b), torch.float32))
-assert torch.isfinite(out[keys.FORCES]).all()
+assert torch.isfinite(out[keys.FORCES]).all() and keys.EDGE_FEATURE_WEIGHTS in out
 res = AllegroCalculator(m, device="cpu").calculate(
     frame[keys.POSITIONS], atomic_numbers=np.array([1, 6])[frame[keys.ATOM_TYPES]],
     cell=frame[keys.CELL], pbc=(True,) * 3)

@@ -1,9 +1,13 @@
 """The port's ``fused_infer`` force call against JAX ``fused_infer`` with
 its Pallas kernels in interpret mode (float64, 1e-10).
 
-JAX runs ``fused_infer`` without the mega kernels (``use_mega=False``), so
-each layer goes through ``env_scatter``, ``gather_tp_raw``, ``bwd_fused_raw``
-and ``unweight_both_raw``: the four layer kernels the port replaces.
+With ``use_mega=False`` each layer goes through ``env_scatter``,
+``gather_tp_raw``, ``bwd_fused_raw`` and ``unweight_both_raw`` on both sides.
+With the port's default (``use_mega=None``) against JAX's ``use_mega=True``,
+both run the mega-fused layers: ``latent_env_scatter`` / ``latent_env_bwd``,
+``gather_tp_embed`` / ``bwd_embed`` at layer 0, and ``gather_tp`` /
+``bwd_fused`` with the split scalar output and its cotangent at the layers
+between (three layers exercise them).
 
 - Without precomputed statics and with ``use_fused_readout=False``, JAX's
   edge vectors and edge sum take the plain gather branch, as the port's do.
@@ -15,6 +19,7 @@ and ``unweight_both_raw``: the four layer kernels the port replaces.
 
 import numpy as np
 import jax
+import pytest
 import torch
 
 from allegro_tpu.data import to_jax
@@ -42,9 +47,9 @@ def _frame():
     return neighbor_list(frame, R_MAX)
 
 
-def _kwargs(batch):
+def _kwargs(batch, num_layers=2):
     return dict(
-        r_max=R_MAX, type_names=["A", "B", "C"], l_max=2, parity=True, num_layers=2,
+        r_max=R_MAX, type_names=["A", "B", "C"], l_max=2, parity=True, num_layers=num_layers,
         num_scalar_features=16, num_tensor_features=4,
         avg_num_neighbors=float(batch[keys.EDGE_MASK].sum()) / 12.0,
         per_type_energy_scales=[1.0, 0.5, 2.0], per_type_energy_shifts=[0.1, -0.2, 0.3],
@@ -98,3 +103,28 @@ def test_port_matches_jax_fused_infer_with_statics_and_fused_readout_interpret()
     data = m.precompute_statics(batch)
     assert keys.NBR_PERM in data and keys.NBR_ROW_PTR in data
     _check(m.apply_with_derivatives(to_torch(data, dtype=torch.float64)), want)
+
+
+@pytest.mark.parametrize("statics", [False, True], ids=["plain-statics", "jax-statics"])
+@pytest.mark.parametrize("num_layers", [2, 3])
+def test_port_mega_default_matches_jax_mega_interpret(num_layers, statics):
+    """The same converted parameters give JAX's mega outputs: the port's
+    default (no ``use_mega``) against JAX ``use_mega=True``, without and
+    with JAX's own statics (and its fused readout)."""
+    batch = batch_frames([_frame()], n_frames=1)
+    kw = {**_kwargs(batch, num_layers), "use_mega": True, "use_fused_readout": statics}
+    jm = JaxAllegroModel(**kw)
+    jb = to_jax(batch, dtype=np.float64)
+    if statics:
+        jb = jm.precompute_statics(jb)
+    params = jm.init(3, jb)
+    program = str(jax.make_jaxpr(jm.apply_with_derivatives)(params, jb))
+    for name in ("mega_latent_env", "gather_tp_embed_infer", "gather_tp_infer"):
+        assert name in program, f"JAX did not run {name}"
+    want = _run_jax(jm, params, jb)
+    del kw["use_mega"]
+    m = AllegroModel(**kw)
+    assert m.module.allegro.mega
+    m.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params)))
+    _check(m.apply_with_derivatives(to_torch(m.precompute_statics(batch), dtype=torch.float64)),
+           want)
