@@ -4,8 +4,10 @@
 of one configuration at a time. It builds the neighbor list, pads atoms and
 edges into sticky grow-only buckets (so repeated calls, as in a relaxation,
 give the model the same shapes) and attaches the model's per-neighbor-list
-statics (``Model.precompute_statics``). If the optional ``ase`` package is
-importable, ``as_ase()`` returns an ``ase`` calculator wrapping it.
+statics (``Model.precompute_statics``). It runs on the CUDA card unless
+``device="cpu"`` is given, and raises without a card. If the optional
+``ase`` package is importable, ``as_ase()`` returns an ``ase`` calculator
+wrapping it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .data import batch_frames, keys, neighbor_list, round_up, to_torch
 from .data.datasets import species_to_types
+from .device import resolve_device
 
 
 class AllegroCalculator:
@@ -38,9 +41,7 @@ class AllegroCalculator:
         self.atom_multiple = atom_multiple
         self.edge_multiple = edge_multiple
         self.dtype = dtype
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_atoms_pad = 0
         self.n_edges_pad = 0
 

@@ -3,6 +3,8 @@
 
 from . import keys
 from .atomic_data import AtomsData, batch_frames, pad_data, round_up, to_torch
+from .dataloader import DataLoader
+from .datasets import InMemoryDataset, compute_statistics, synthetic_molecular_frames
 from .neighborlist import neighbor_list, primitive_neighbor_list
 
 __all__ = [
@@ -12,6 +14,10 @@ __all__ = [
     "pad_data",
     "round_up",
     "to_torch",
+    "DataLoader",
+    "InMemoryDataset",
+    "compute_statistics",
+    "synthetic_molecular_frames",
     "neighbor_list",
     "primitive_neighbor_list",
 ]

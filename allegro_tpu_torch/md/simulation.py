@@ -26,6 +26,7 @@ import torch
 
 from ..data import keys, round_up, to_torch
 from ..data.neighborlist import primitive_neighbor_list
+from ..device import resolve_device
 
 _MULTI_DEVICE = "ROADMAP.md queue 1, item 11"
 
@@ -66,8 +67,8 @@ def maxwell_boltzmann_velocities(
 class Simulation:
     """MD of one system with a port ``Model`` (its energy; forces by
     autograd). ``mesh`` is the devices to run on: one, or None for
-    ``device`` (default: the first CUDA device if there is one, else the
-    CPU)."""
+    ``device`` (default: the CUDA card; raises without one unless
+    ``device="cpu"`` is given)."""
 
     def __init__(
         self,
@@ -103,9 +104,7 @@ class Simulation:
                     f"yet ({_MULTI_DEVICE}); pass one device"
                 )
             device = mesh[0]
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = model
         self.types = np.asarray(atom_types, dtype=np.int32)
         self.n_atoms = len(self.types)

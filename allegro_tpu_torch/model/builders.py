@@ -148,13 +148,20 @@ class Model:
     def state_dict(self):
         return self.module.state_dict()
 
+    def parameters(self) -> Dict[str, torch.nn.Parameter]:
+        """The trainable parameters by name: the ``state_dict`` names, which
+        are ``params_from_jax``'s (fixed per-type scales/shifts are buffers
+        and not among them)."""
+        return dict(self.module.named_parameters())
+
     def load_state_dict(self, state_dict, strict: bool = True):
         return self.module.load_state_dict(state_dict, strict=strict)
 
     def precompute_statics(self, data: Dict) -> Dict:
         """Attach the position-independent per-neighbor-list arrays, on the
-        host: ``EDGE_TYPE``, and for ``fused_infer`` the CSR statics of the
-        center gathers: ``CENTER_ROW_PTR`` over the center-sorted edges, and
+        host: ``EDGE_TYPE``, and for the kernel backends (``fused``,
+        ``fused_infer``) the CSR statics of the TP layers and the center
+        gathers: ``CENTER_ROW_PTR`` over the center-sorted edges, and
         ``NBR_PERM`` / ``NBR_ROW_PTR`` over the neighbor-sorted order. Call it
         once per neighbor list. Raises ValueError on edges that are not
         sorted by center. Torch inputs get tensors on the device of
@@ -166,7 +173,7 @@ class Model:
         ct = types[np.clip(ei[0], 0, n_atoms - 1)]
         nt = types[np.clip(ei[1], 0, n_atoms - 1)]
         new = {keys.EDGE_TYPE: (ct * num_types + nt).astype(np.int32)}
-        if self.builder_kwargs.get("tp_kernel_backend") == "fused_infer":
+        if self.builder_kwargs.get("tp_kernel_backend") in ("fused", "fused_infer"):
             new[keys.CENTER_ROW_PTR] = csr_row_ptr(ei[0], n_atoms)
             new[keys.NBR_PERM], new[keys.NBR_ROW_PTR] = neighbor_csr(ei[1], n_atoms)
         out = dict(data)
@@ -180,10 +187,13 @@ class Model:
         _pin_fp32_matmuls()
         return self.module(data)
 
-    def apply_with_derivatives(self, data: Dict) -> Dict:
-        """Forward + forces (and virial/stress when a cell is present)."""
+    def apply_with_derivatives(self, data: Dict, create_graph: bool = False) -> Dict:
+        """Forward + forces (and virial/stress when a cell is present).
+        ``create_graph``: keep the graph of the derivatives, so a loss on the
+        forces can be differentiated in the parameters (training); otherwise
+        the outputs are plain values (the force call)."""
         _pin_fp32_matmuls()
-        return force_stress_wrapper(self.module)(data)
+        return force_stress_wrapper(self.module, create_graph=create_graph)(data)
 
     def __call__(self, data: Dict) -> Dict:
         if self.has_derivatives:

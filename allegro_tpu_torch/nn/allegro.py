@@ -10,7 +10,8 @@ the next env weights.
 
 The scatter factor is applied exactly once: in ``env_sum`` on the einsum
 backend, folded into the last weight columns of the MLPs that produce env
-weights on the fused backend.
+weights on the kernel backends (``fused_infer``, and ``fused``, the
+trainable one).
 
 On ``fused_infer`` the default is JAX's mega-fused stack (``_mega_forward``):
 each latent MLP runs in one kernel with the next layer's env scatter, and
@@ -32,7 +33,7 @@ from .channels import MakeWeightedChannels, device_index
 from .contract import Contracter
 from .mlp import ScalarMLP, silu
 
-BACKENDS = ("einsum", "fused_infer")
+BACKENDS = ("einsum", "fused", "fused_infer")
 
 
 def compute_irreps_ladder(irreps_sh: Irreps, allowed: Irreps, num_layers: int) -> List[Irreps]:
@@ -110,7 +111,7 @@ class AllegroLayers(nn.Module):
         if tp_kernel_backend not in BACKENDS:
             raise NotImplementedError(
                 f"tp_kernel_backend={tp_kernel_backend!r} is not ported yet; the port has "
-                f"{BACKENDS} (ROADMAP.md queue 1, items 7-8)"
+                f"{BACKENDS} (ROADMAP.md queue 1, item 7)"
             )
         irreps_sh = Irreps(irreps_sh)
         ladder = compute_irreps_ladder(irreps_sh, Irreps(tensor_track_allowed_irreps), num_layers)
@@ -122,7 +123,7 @@ class AllegroLayers(nn.Module):
         self.env_weighter = MakeWeightedChannels(irreps_sh, U)
         env_numel = self.env_weighter.weight_numel
         scatter_factor = 1.0 / math.sqrt(avg_num_neighbors)
-        fold = tp_kernel_backend == "fused_infer"
+        fold = tp_kernel_backend in ("fused", "fused_infer")
         env_scale = (S, scatter_factor) if fold else None
         self.first_projection = ScalarMLP(
             embed_dim, S + env_numel, hidden_dims=(), dtype=dtype, out_col_scale=env_scale
@@ -136,6 +137,7 @@ class AllegroLayers(nn.Module):
                     path_channel_coupling=tp_path_channel_coupling,
                     scatter_factor=None if fold else scatter_factor,
                     dtype=dtype,
+                    kernel_backend=tp_kernel_backend,
                 )
             )
             last = layer == self.num_layers - 1
@@ -149,8 +151,8 @@ class AllegroLayers(nn.Module):
         # layer-0 column blocks if the backward prune shrank the input irreps
         self.input_dims = None if ladder[0] == irreps_sh else tuple(_subset_dims(irreps_sh, ladder[0]))
         self.mega = (
-            fold and len(mlp_hidden_dims) == 1 and mlp_nonlinearity is silu
-            and use_mega is not False
+            tp_kernel_backend == "fused_infer" and len(mlp_hidden_dims) == 1
+            and mlp_nonlinearity is silu and use_mega is not False
         )
         # layer 0's input rows as (SH dim, irrep), for the embed-fused kernel
         dim_to_irr = self.env_weighter.dim_to_irr
@@ -165,10 +167,11 @@ class AllegroLayers(nn.Module):
         n_atoms = data[keys.POSITIONS].shape[0]
         centers = data[keys.EDGE_INDEX][0]
         sh = data[keys.EDGE_ATTRS].to(self.dtype)
-        if self.backend == "fused_infer":
+        fused = self.backend != "einsum"
+        if fused:
             if keys.CENTER_ROW_PTR not in data:
                 raise ValueError(
-                    "tp_kernel_backend='fused_infer' needs the CSR statics: "
+                    f"tp_kernel_backend={self.backend!r} needs the CSR statics: "
                     "call Model.precompute_statics(data) once per neighbor list"
                 )
             centers = centers.to(torch.int32).contiguous()
@@ -189,7 +192,7 @@ class AllegroLayers(nn.Module):
         env_w = proj[:, S:]
         for layer in range(self.num_layers):
             tp = self.tps[layer]
-            if self.backend == "fused_infer":
+            if fused:
                 feats = tp.fused_call(
                     features.contiguous(), sh, env_w.contiguous(), centers, row_ptr
                 )

@@ -10,6 +10,8 @@ else ``(P,)``):
 - ``"fused_infer"``: ``fused_layer_infer``, the four CUDA kernels (their
   plain versions on the CPU); the mega-fused layers of ``nn/allegro.py``
   drive the kernels themselves with ``fused_infer_parts``.
+- ``"fused"``: ``fused_layer``, the trainable family of autograd Functions
+  (differentiable to any order, real weight gradients).
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from torch import nn
 
 from ..lib.irreps import Irreps
 from ..lib.wigner import wigner_3j
-from ..ops.fused_primitives import fused_layer_infer
-from ..ops.fused_tp import gather_rows, segment_sum
+from ..ops.fused_primitives import FusedStatics, fused_layer, fused_layer_infer
+from ..ops.fused_tp import gather_rows, segment_sum, swap_entries
 
 Entry = Tuple[int, int, int, int, float]  # (i, j, k, p, c)
 
@@ -71,7 +73,8 @@ def sparse_entries(w3j_packed: np.ndarray, tol: float = 1e-12) -> Tuple[Entry, .
 
 class Contracter(nn.Module):
     """``forward(x1 [E, d1*U], x2 [E, d2*U], centers [E], n_atoms)`` →
-    ``[E, d_out*U]`` on the einsum backend; ``fused_call`` on fused_infer."""
+    ``[E, d_out*U]`` on the einsum backend; ``fused_call`` on the kernel
+    backends (``kernel_backend`` "fused_infer" or "fused")."""
 
     def __init__(
         self,
@@ -82,8 +85,10 @@ class Contracter(nn.Module):
         path_channel_coupling: bool = True,
         scatter_factor: Optional[float] = None,
         dtype=torch.float32,
+        kernel_backend: str = "einsum",
     ):
         super().__init__()
+        self.kernel_backend = kernel_backend
         irreps_in1, irreps_in2, irreps_out = Irreps(irreps_in1), Irreps(irreps_in2), Irreps(irreps_out)
         self.mul = int(mul)
         self.path_channel_coupling = bool(path_channel_coupling)
@@ -102,10 +107,13 @@ class Contracter(nn.Module):
             torch.tensor([e[:4] for e in entries], dtype=torch.int32).reshape(-1, 4),
             persistent=False,
         )
+        # the role swap of the x-transposes, built once
+        self.register_buffer("entry_swapped", swap_entries(self.entry_idx), persistent=False)
         self.register_buffer(
             "entry_coef", torch.tensor([e[4] for e in entries], dtype=torch.float64),
             persistent=False,
         )
+        self.n_irr = len(irreps_in2)
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
         self.register_buffer("dim_to_irr", torch.tensor(dim_to_irr, dtype=torch.int32),
                              persistent=False)
@@ -150,13 +158,19 @@ class Contracter(nn.Module):
         """(wk [P, U], entry_idx, entry_coef) for the fused kernels; the
         scatter factor must already be folded into the env weights."""
         if self.scatter_factor is not None:
-            raise ValueError("fused_infer expects the scatter factor folded into the weights")
+            raise ValueError("the fused kernels expect the scatter factor folded into the weights")
         return self._w_up(dtype).T.contiguous(), self.entry_idx, self.entry_coef.to(dtype)
 
     def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
         """Whole layer update (env weight + scatter + gather + CG) through the
-        fused kernels."""
+        fused kernels: ``fused_layer`` on ``fused`` (differentiable weights),
+        ``fused_layer_infer`` on ``fused_infer`` (NaN weight gradients)."""
         wk, entry_idx, entry_coef = self.fused_infer_parts(x.dtype)
+        if self.kernel_backend == "fused":
+            st = FusedStatics(centers, row_ptr, self.dim_to_irr, self.n_irr, self.mul, entry_idx,
+                              self.entry_swapped, entry_coef, self.num_paths,
+                              (self.d1, self.d2, self.d3))
+            return fused_layer(x, sh, wexp, wk, st)
         return fused_layer_infer(
             x, sh, wexp, wk, centers, row_ptr, entry_idx, entry_coef, self.dim_to_irr, self.d3,
         )

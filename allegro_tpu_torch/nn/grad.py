@@ -3,8 +3,10 @@
 
 ``forces = -∂E/∂pos`` and, with a cell, the symmetric-strain trick:
 positions and cell are deformed by ``(I + ε)`` and ``virial = -∂E/∂ε`` at
-``ε = 0``; ``stress = -virial / volume``. First order only
-(``create_graph=False``): the force call's backward, not training's.
+``ε = 0``; ``stress = -virial / volume``. The force call takes the first
+order (``create_graph=False``, outputs detached); training takes the second
+(``create_graph=True``): the derivatives keep their graph, so a force loss
+can be differentiated in the parameters.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ def _detach(v):
     return v
 
 
-def force_stress_wrapper(apply_fn: Callable[[Dict], Dict], with_stress: bool = True):
+def force_stress_wrapper(apply_fn: Callable[[Dict], Dict], with_stress: bool = True,
+                         create_graph: bool = False):
     """Wrap ``apply_fn(data) -> data`` to add FORCES (+ VIRIAL/STRESS)."""
 
     def wrapped(data: Dict) -> Dict:
@@ -57,9 +60,10 @@ def force_stress_wrapper(apply_fn: Callable[[Dict], Dict], with_stress: bool = T
         e_total = out[keys.TOTAL_ENERGY]
         if keys.FRAME_MASK in data:
             e_total = e_total * data[keys.FRAME_MASK].to(e_total.dtype)[:, None]
-        grads = torch.autograd.grad(e_total.sum(), inputs, create_graph=False)
-        # the graph is spent: hand back plain values, as the JAX call does
-        out = {k: _detach(v) for k, v in out.items()}
+        grads = torch.autograd.grad(e_total.sum(), inputs, create_graph=create_graph)
+        if not create_graph:
+            # the graph is spent: hand back plain values, as the JAX call does
+            out = {k: _detach(v) for k, v in out.items()}
         forces = -grads[0]
         if keys.NODE_MASK in data:
             forces = forces * data[keys.NODE_MASK].to(forces.dtype)[:, None]

@@ -1,6 +1,15 @@
 """The kernels' ``torch.autograd.Function``s (twin of
 ``allegro_tpu/ops/fused_primitives.py``).
 
+- The trainable backend (``tp_kernel_backend="fused"``): ``fused_layer`` =
+  ``GatherTp(x, EnvScatter(sh, wexp), w)`` over the closed family
+  ``EnvScatter``, ``GatherTp``, ``TpScatter``, ``GatherDw``, ``UnweightSh``,
+  ``UnweightW``. Every function in it is multilinear, and each transpose is
+  again a member with permuted roles (the table of
+  ``allegro_tpu/ops/fused_primitives.py:18-33``; ᵀ is the role-swapped entry
+  table, :class:`FusedStatics.swap`). Each ``backward`` is built from
+  ``.apply`` of members only, so it is itself differentiable: the double
+  backward of force training runs on the kernels too.
 - ``fused_layer_infer``: one Allegro layer's tensor-track update on the
   inference backend. Forward: ``env_scatter`` → ``gather_tp``. Backward
   (first order only, the force call's): ``bwd_fused`` → ``unweight_both``.
@@ -24,7 +33,7 @@ silently.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -36,6 +45,152 @@ def _nan_like(t: Optional[torch.Tensor], needed: bool) -> Optional[torch.Tensor]
     """The NaN weight cotangent of the inference Functions (None where not
     needed)."""
     return torch.full_like(t, float("nan")) if t is not None and needed else None
+
+
+class FusedStatics(NamedTuple):
+    """The non-differentiable arguments of the trainable family: the CSR
+    statics (``centers`` [E] and ``row_ptr`` [n_atoms+1], int32), the SH
+    basis map (``dim_to_irr`` [d2] int32, ``n_irr``), the channels ``U``, and
+    the layer's sparse CG table (``entry_idx`` [n, 4] = (i, j, k, p),
+    ``entry_swapped`` its role swap, ``entry_coef`` [n], ``n_paths``) with its
+    dims ``(d1, d2, d3)``."""
+
+    centers: torch.Tensor
+    row_ptr: torch.Tensor
+    dim_to_irr: torch.Tensor
+    n_irr: int
+    U: int
+    entry_idx: torch.Tensor
+    entry_swapped: torch.Tensor
+    entry_coef: torch.Tensor
+    n_paths: int
+    dims: Tuple[int, int, int]
+
+    def swap(self) -> "FusedStatics":
+        """The ᵀ of the transpose table: entries (i,j,k) -> (k,j,i), dims reversed."""
+        d1, d2, d3 = self.dims
+        return self._replace(entry_idx=self.entry_swapped, entry_swapped=self.entry_idx,
+                             dims=(d3, d2, d1))
+
+
+def _need(ctx, i: int, fn):
+    """``fn()`` where input ``i`` needs a gradient, else None."""
+    return fn() if ctx.needs_input_grad[i] else None
+
+
+class EnvScatter(torch.autograd.Function):
+    """``env [n_atoms, d2*U] = Σ_{c(e)=a} sh[e,j] wexp[e, irr(j)U+u]``."""
+
+    @staticmethod
+    def forward(ctx, sh, wexp, st: FusedStatics):
+        ctx.save_for_backward(sh, wexp)
+        ctx.st = st
+        return fused_tp.env_scatter(sh, wexp, st.centers, st.row_ptr, st.dim_to_irr, st.U)
+
+    @staticmethod
+    def backward(ctx, t):
+        sh, wexp = ctx.saved_tensors
+        t, st = t.contiguous(), ctx.st
+        return (_need(ctx, 0, lambda: UnweightSh.apply(t, wexp, st)),
+                _need(ctx, 1, lambda: UnweightW.apply(t, sh, st)), None)
+
+
+class GatherTp(torch.autograd.Function):
+    """``out [E, d3*U] = Σ c w[p,u] x[e,iU+u] env[c(e),jU+u]``."""
+
+    @staticmethod
+    def forward(ctx, x, env, w, st: FusedStatics):
+        ctx.save_for_backward(x, env, w)
+        ctx.st = st
+        return fused_tp.gather_tp(x, env, w, st.centers, st.entry_idx, st.entry_coef, st.dims[2])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, env, w = ctx.saved_tensors
+        g, st = g.contiguous(), ctx.st
+        return (_need(ctx, 0, lambda: GatherTp.apply(g, env, w, st.swap())),
+                _need(ctx, 1, lambda: TpScatter.apply(x, g, w, st)),
+                _need(ctx, 2, lambda: GatherDw.apply(x, env, g, st)), None)
+
+
+class TpScatter(torch.autograd.Function):
+    """``denv [n_atoms, d2*U] = Σ_{c(e)=a} Σ c w[p,u] x[e,iU+u] g[e,kU+u]``."""
+
+    @staticmethod
+    def forward(ctx, x, g, w, st: FusedStatics):
+        ctx.save_for_backward(x, g, w)
+        ctx.st = st
+        return fused_tp.tp_scatter(x, g, w, st.centers, st.row_ptr, st.entry_idx, st.entry_coef,
+                                   st.dims[1])
+
+    @staticmethod
+    def backward(ctx, t):
+        x, g, w = ctx.saved_tensors
+        t, st = t.contiguous(), ctx.st
+        return (_need(ctx, 0, lambda: GatherTp.apply(g, t, w, st.swap())),
+                _need(ctx, 1, lambda: GatherTp.apply(x, t, w, st)),
+                _need(ctx, 2, lambda: GatherDw.apply(x, t, g, st)), None)
+
+
+class GatherDw(torch.autograd.Function):
+    """``dw [P, U] = Σ_e Σ_{(i,j,k)∈p} c x[e,iU+u] env[c(e),jU+u] g[e,kU+u]``."""
+
+    @staticmethod
+    def forward(ctx, x, env, g, st: FusedStatics):
+        ctx.save_for_backward(x, env, g)
+        ctx.st = st
+        return fused_tp.gather_dw(x, env, g, st.centers, st.entry_idx, st.entry_coef, st.n_paths,
+                                  st.U)
+
+    @staticmethod
+    def backward(ctx, v):
+        x, env, g = ctx.saved_tensors
+        v, st = v.contiguous(), ctx.st
+        return (_need(ctx, 0, lambda: GatherTp.apply(g, env, v, st.swap())),
+                _need(ctx, 1, lambda: TpScatter.apply(x, g, v, st)),
+                _need(ctx, 2, lambda: GatherTp.apply(x, env, v, st)), None)
+
+
+class UnweightSh(torch.autograd.Function):
+    """``dsh [E, d2] = Σ_u t[c(e), jU+u] wexp[e, irr(j)U+u]``."""
+
+    @staticmethod
+    def forward(ctx, t, wexp, st: FusedStatics):
+        ctx.save_for_backward(t, wexp)
+        ctx.st = st
+        return fused_tp.unweight_sh(t, wexp, st.centers, st.dim_to_irr)
+
+    @staticmethod
+    def backward(ctx, s):
+        t, wexp = ctx.saved_tensors
+        s, st = s.contiguous(), ctx.st
+        return (_need(ctx, 0, lambda: EnvScatter.apply(s, wexp, st)),
+                _need(ctx, 1, lambda: UnweightW.apply(t, s, st)), None)
+
+
+class UnweightW(torch.autograd.Function):
+    """``dwexp [E, n_irr*U] = Σ_{irr(j)=r} t[c(e), jU+u] sh[e, j]``."""
+
+    @staticmethod
+    def forward(ctx, t, sh, st: FusedStatics):
+        ctx.save_for_backward(t, sh)
+        ctx.st = st
+        return fused_tp.unweight_w(t, sh, st.centers, st.dim_to_irr, st.n_irr)
+
+    @staticmethod
+    def backward(ctx, v):
+        t, sh = ctx.saved_tensors
+        v, st = v.contiguous(), ctx.st
+        return (_need(ctx, 0, lambda: EnvScatter.apply(sh, v, st)),
+                _need(ctx, 1, lambda: UnweightSh.apply(t, v, st)), None)
+
+
+def fused_layer(x, sh, wexp, w, st: FusedStatics) -> torch.Tensor:
+    """One Allegro layer's tensor-track update on the trainable backend:
+    x [E, d1*U] features, sh [E, d2] basis, wexp [E, n_irr*U] env weights
+    (irrep-major, scatter factor already applied), w [P, U] path weights
+    → [E, d3*U]. Differentiable to any order in all four."""
+    return GatherTp.apply(x, EnvScatter.apply(sh, wexp, st), w, st)
 
 
 class _FusedLayerInfer(torch.autograd.Function):

@@ -27,11 +27,20 @@ two rank-window partials ``(eA, eB)``.
 | ``latent_env_bwd`` | ``latent_env_bwd_call`` / ``_latent_env_bwd_kernel`` |
 | ``gather_tp_embed`` | ``gather_tp_embed_raw_call`` / ``_gather_tp_embed_raw_kernel`` |
 | ``bwd_embed`` | ``bwd_embed_raw_call`` / ``_bwd_embed_raw_kernel`` |
+| ``tp_scatter`` | ``tp_scatter_call`` / ``_tp_scatter_kernel`` |
+| ``gather_dw`` | ``gather_dw_call`` / ``_gather_dw_kernel`` |
+| ``unweight_sh`` | ``gather_unweight_sh_call`` / ``_gather_unweight_sh_kernel`` |
+| ``unweight_w`` | ``gather_unweight_w_call`` / ``_gather_unweight_w_kernel`` |
 
 The first four are in ``csrc/fused_tp.cu``, the next four in
-``csrc/center_readout.cu``, the last four (the mega-fused layers) in
-``csrc/mega.cu``. What bounds each kernel on the card and how its design
-answers it is noted beside each kernel in the CUDA source.
+``csrc/center_readout.cu``, the next four (the mega-fused layers) in
+``csrc/mega.cu``, the last four (the trainable backend's transposes) in
+``csrc/train_tp.cu``. ``gather_tp`` also serves ``gather_tp_call`` /
+``_gather_tp_kernel``: the port keeps one env array, so that kernel's
+combined-env form is the same function, and its x-transpose is
+``gather_tp`` on the role-swapped entry table (:func:`swap_entries`). What
+bounds each kernel on the card and how its design answers it is noted
+beside each kernel in the CUDA source.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ LAUNCHES: Dict[str, int] = {
     "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
     "center_gather": 0, "center_sum": 0, "readout_sum": 0, "readout_bwd": 0,
     "latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0,
+    "tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0,
 }
 
 
@@ -103,13 +113,26 @@ def gather_rows(table: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return padded.index_select(0, centers.long().clamp(0, n))
 
 
+def swap_entries(entry_idx: torch.Tensor) -> torch.Tensor:
+    """The role swap ``(i, j, k, p) -> (k, j, i, p)`` of an entry table (the
+    coefficients keep their order): with it, ``gather_tp`` computes the
+    transpose of ``gather_tp`` in its first input, mapping ``[E, d3*U]`` to
+    ``[E, d1*U]``. Swapping twice gives the table back."""
+    return entry_idx[:, [2, 1, 0, 3]].contiguous()
+
+
+def _cg_tensor(like, entry_idx, entry_coef, n_paths, d1, d2, d3):
+    """The dense ``C[p, i, j, k]`` of the sparse entries, in ``like``'s dtype."""
+    idx = entry_idx.long()
+    C = like.new_zeros((n_paths, d1, d2, d3))
+    C.index_put_((idx[:, 3], idx[:, 0], idx[:, 1], idx[:, 2]), entry_coef.to(like.dtype),
+                 accumulate=True)
+    return C
+
+
 def _path_tensor(w, entry_idx, entry_coef, d1, d2, d3):
     """``ww[u, i, j, k] = Σ_p w[p, u] C[p, i, j, k]`` from the sparse entries."""
-    P = w.shape[0]
-    idx = entry_idx.long()
-    C = w.new_zeros((P, d1, d2, d3))
-    C.index_put_((idx[:, 3], idx[:, 0], idx[:, 1], idx[:, 2]), entry_coef.to(w.dtype),
-                 accumulate=True)
+    C = _cg_tensor(w, entry_idx, entry_coef, w.shape[0], d1, d2, d3)
     return torch.einsum("pu,pijk->uijk", w, C)
 
 
@@ -265,6 +288,45 @@ def bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_c
     dw2b = torch.zeros_like(w).index_add(
         1, specs[:, 1], dx * sh.index_select(1, specs[:, 0])[:, :, None])
     return dsh, dw2b.reshape(E, -1), denv
+
+
+def tp_scatter_reference(x, g, w, centers, n_atoms, entry_idx, entry_coef, d2):
+    E, U = x.shape[0], w.shape[1]
+    d1, d3 = x.shape[1] // U, g.shape[1] // U
+    ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
+    xv, gv = x.view(E, d1, U), g.view(E, d3, U)
+    denv_e = x.new_zeros((E, d2, U))
+    for i in range(d1):
+        denv_e = denv_e + xv[:, i : i + 1, :] * torch.einsum("eku,ujk->eju", gv, ww[:, i])
+    return segment_sum(denv_e.reshape(E, d2 * U), centers, n_atoms)
+
+
+def gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, n_paths, U):
+    E = x.shape[0]
+    d1, d2, d3 = x.shape[1] // U, env.shape[1] // U, g.shape[1] // U
+    C = _cg_tensor(x, entry_idx, entry_coef, n_paths, d1, d2, d3)
+    env_e = gather_rows(env, centers).view(E, d2, U)
+    xv, gv = x.view(E, d1, U), g.view(E, d3, U)
+    dw = x.new_zeros((n_paths, U))
+    for i in range(d1):
+        t = torch.einsum("eju,eku->jku", xv[:, i : i + 1, :] * env_e, gv)  # [d2, d3, U]
+        dw = dw + torch.einsum("pjk,jku->pu", C[:, i], t)
+    return dw
+
+
+def unweight_sh_reference(t, wexp, centers, dim_to_irr):
+    E, d2 = wexp.shape[0], dim_to_irr.shape[0]
+    U = t.shape[1] // d2
+    t_e = gather_rows(t, centers).view(E, d2, U)
+    return (t_e * wexp.view(E, -1, U).index_select(1, dim_to_irr.long())).sum(-1)
+
+
+def unweight_w_reference(t, sh, centers, dim_to_irr, n_irr):
+    E, d2 = sh.shape
+    U = t.shape[1] // d2
+    t_e = gather_rows(t, centers).view(E, d2, U)
+    dwexp = sh.new_zeros((E, n_irr, U)).index_add(1, dim_to_irr.long(), t_e * sh[:, :, None])
+    return dwexp.reshape(E, n_irr * U)
 
 
 # ---------------------------------------------------------------------------
@@ -767,3 +829,119 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
             env.shape[1] // U, g.shape[1] // U, U, dsh.data_ptr(), dw2b.data_ptr(),
             denv.data_ptr())
     return dsh, dw2b, denv
+
+
+def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int) -> torch.Tensor:
+    """denv [n_atoms, d2*U]: ``denv[a, jU+u] = Σ_{c(e)=a} Σ c w[p,u] x[e,iU+u]
+    g[e,kU+u]``, the env-transpose of ``gather_tp``. x [E, d1*U], g [E, d3*U],
+    w [P, U], row_ptr [n_atoms+1]; the entry table in either role order.
+
+    Replaces ``_tp_scatter_kernel``. Bound by the reads of x and g; one block
+    per atom segment, summed across warps in a fixed order (no atomics)."""
+    E, U = x.shape[0], w.shape[1]
+    n_atoms = row_ptr.shape[0] - 1
+    _check_entries(entry_idx, entry_coef)
+    if x.shape[1] % U or g.shape[0] != E or g.shape[1] % U or centers.shape != (E,):
+        raise ValueError(
+            f"tp_scatter shapes: x {tuple(x.shape)}, g {tuple(g.shape)}, w {tuple(w.shape)}, "
+            f"centers {tuple(centers.shape)}"
+        )
+    if _on_cpu(x, g, w, centers, row_ptr, entry_idx, entry_coef):
+        return tp_scatter_reference(x, g, w, centers, n_atoms, entry_idx, entry_coef, d2)
+    _check_kernel_args({"x": x, "g": g, "w": w, "entry_coef": entry_coef},
+                       {"row_ptr": row_ptr, "entry_idx": entry_idx})
+    denv = torch.empty((n_atoms, d2 * U), dtype=x.dtype, device=x.device)
+    if n_atoms == 0:
+        return denv
+    _launch("tp_scatter", "atpt_tp_scatter", x.device,
+            x.data_ptr(), g.data_ptr(), w.data_ptr(), row_ptr.data_ptr(), entry_idx.data_ptr(),
+            entry_coef.data_ptr(), entry_idx.shape[0], n_atoms, x.shape[1] // U, d2,
+            g.shape[1] // U, U, denv.data_ptr())
+    return denv
+
+
+_DW_MAX_BLOCKS = 1024  # blocks of gather_dw's first pass (partials [blocks, P, U])
+
+
+def gather_dw(x, env, g, centers, entry_idx, entry_coef, n_paths: int, U: int) -> torch.Tensor:
+    """dw [n_paths, U]: ``dw[p, u] = Σ_e Σ_{(i,j,k)∈p} c x[e,iU+u]
+    env[c(e),jU+u] g[e,kU+u]``, the w-transpose of ``gather_tp``. x [E,
+    d1*U], env [n_atoms, d2*U], g [E, d3*U]; sentinel edges add nothing.
+
+    Replaces ``_gather_dw_kernel``. Bound by the reads of x and g; per-block
+    partials summed in a second pass in block order (no float atomics)."""
+    E = x.shape[0]
+    _check_entries(entry_idx, entry_coef)
+    if x.shape[1] % U or env.shape[1] % U or g.shape[0] != E or g.shape[1] % U \
+            or centers.shape != (E,):
+        raise ValueError(
+            f"gather_dw shapes: x {tuple(x.shape)}, env {tuple(env.shape)}, g {tuple(g.shape)}, "
+            f"centers {tuple(centers.shape)}, U={U}"
+        )
+    if _on_cpu(x, env, g, centers, entry_idx, entry_coef):
+        return gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, n_paths, U)
+    _check_kernel_args({"x": x, "env": env, "g": g, "entry_coef": entry_coef},
+                       {"centers": centers, "entry_idx": entry_idx})
+    n_blocks = max(1, min(_DW_MAX_BLOCKS, -(-E // 64)))
+    partial = torch.empty((n_blocks, n_paths, U), dtype=x.dtype, device=x.device)
+    dw = torch.empty((n_paths, U), dtype=x.dtype, device=x.device)
+    _launch("gather_dw", "atpt_gather_dw", x.device,
+            x.data_ptr(), env.data_ptr(), g.data_ptr(), centers.data_ptr(),
+            entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0], E, env.shape[0],
+            x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
+            partial.data_ptr(), dw.data_ptr())
+    return dw
+
+
+def _check_unweight(what, t, e_arr, centers, dim_to_irr):
+    E, d2 = e_arr.shape[0], dim_to_irr.shape[0]
+    if t.ndim != 2 or t.shape[1] % d2 or centers.shape != (E,) or dim_to_irr.ndim != 1:
+        raise ValueError(
+            f"{what} shapes: t {tuple(t.shape)}, {tuple(e_arr.shape)}, "
+            f"centers {tuple(centers.shape)}, dim_to_irr {tuple(dim_to_irr.shape)}"
+        )
+    return t.shape[1] // d2
+
+
+def unweight_sh(t, wexp, centers, dim_to_irr) -> torch.Tensor:
+    """dsh [E, d2]: ``dsh[e, j] = Σ_u t[c(e), jU+u] wexp[e, irr(j)U+u]``, the
+    sh-transpose of ``env_scatter``. t [n_atoms, d2*U], wexp [E, n_irr*U].
+
+    Replaces ``_gather_unweight_sh_kernel``. Bound by the read of wexp; one
+    warp per edge, a warp shuffle reduction per basis dim."""
+    E, d2 = wexp.shape[0], dim_to_irr.shape[0]
+    U = _check_unweight("unweight_sh", t, wexp, centers, dim_to_irr)
+    if wexp.shape[1] % U:
+        raise ValueError(f"unweight_sh: wexp {tuple(wexp.shape)} is not [E, n_irr*{U}]")
+    if _on_cpu(t, wexp, centers, dim_to_irr):
+        return unweight_sh_reference(t, wexp, centers, dim_to_irr)
+    _check_kernel_args({"t": t, "wexp": wexp}, {"centers": centers, "dim_to_irr": dim_to_irr})
+    dsh = torch.empty((E, d2), dtype=t.dtype, device=t.device)
+    if E > 0:
+        _launch("unweight_sh", "atpt_unweight_sh", t.device,
+                t.data_ptr(), wexp.data_ptr(), centers.data_ptr(), dim_to_irr.data_ptr(), E,
+                t.shape[0], d2, wexp.shape[1] // U, U, dsh.data_ptr())
+    return dsh
+
+
+def unweight_w(t, sh, centers, dim_to_irr, n_irr: int) -> torch.Tensor:
+    """dwexp [E, n_irr*U]: ``dwexp[e, rU+u] = Σ_{irr(j)=r} t[c(e), jU+u]
+    sh[e, j]``, the wexp-transpose of ``env_scatter``. t [n_atoms, d2*U],
+    sh [E, d2].
+
+    Replaces ``_gather_unweight_w_kernel``. Bound by the write of dwexp; one
+    warp per edge, lane = channel."""
+    E = sh.shape[0]
+    U = _check_unweight("unweight_w", t, sh, centers, dim_to_irr)
+    if sh.shape[1] != dim_to_irr.shape[0]:
+        raise ValueError(f"unweight_w: sh {tuple(sh.shape)} against dim_to_irr "
+                         f"{tuple(dim_to_irr.shape)}")
+    if _on_cpu(t, sh, centers, dim_to_irr):
+        return unweight_w_reference(t, sh, centers, dim_to_irr, n_irr)
+    _check_kernel_args({"t": t, "sh": sh}, {"centers": centers, "dim_to_irr": dim_to_irr})
+    dwexp = torch.empty((E, n_irr * U), dtype=t.dtype, device=t.device)
+    if E > 0:
+        _launch("unweight_w", "atpt_unweight_w", t.device,
+                t.data_ptr(), sh.data_ptr(), centers.data_ptr(), dim_to_irr.data_ptr(), E,
+                t.shape[0], sh.shape[1], n_irr, U, dwexp.data_ptr())
+    return dwexp

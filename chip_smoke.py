@@ -43,14 +43,36 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    each checked against ``apply_with_derivatives`` and its launch counts;
    the padded buckets must not grow after the first call.
 
+5. training on the trainable ``fused`` backend: (a) on the JAX bench's
+   4 x 1,000-atom crystal batch (seeds 200-203, 100,928 edges), the four
+   transposes ``tp_scatter``, ``gather_dw`` (each layer's entry table in
+   both role orders), ``unweight_sh``, ``unweight_w`` and ``gather_tp`` on
+   the role-swapped table, each against its plain version (1e-5) with
+   median times, then checks only at U = 16 and 48; (b) on that batch (zero
+   targets) and on the bench's 16 synthetic 21-atom frames (984 edges):
+   the flagship on ``fused`` through ``Trainer.fit``, Adam 1e-3, EMA 0.999,
+   10 steps with the exact launch count of every kernel per step, finite
+   losses that fall, ms per step, samples/s, peak memory, the run-to-run
+   max |dparam| of two identical 3-step runs, and (1k batch) a
+   torch.profiler breakdown of 3 steps; (c) on the first step of each
+   batch, the parameter gradients against the ``einsum`` backend from the
+   same weights (max-abs error over max-abs < 1e-4 per tensor).
+
 The last two lines of stdout are a JSON object with the kernels' records and
 the JSON result ``{"ok": true, "device": {...}}``. A kernel's ``ms`` and
 ``plain_ms`` sum the device times of its launches in one force call of
 ``ms_config`` (``mega``, except for the four layer kernels of
-``use_mega=False``: ``fused readout``, where all their launches are), and
+``use_mega=False``: ``fused readout``, where all their launches are; for
+the trainable backend's four, ``train step``: one launch per layer), and
 ``launches`` counts their launches in the 5 force calls of that
-configuration. Every configuration and entry point has its own
-``launches_*`` key.
+configuration (the 10 training steps on the 1k batch). ``bound_ms`` is the
+least time of the same work on the card (the bytes of the inputs read once
+and the outputs written once at 3.35 TB/s, or the FLOPs at 67 TFLOP/s f32,
+the larger; ``bound_by`` says which), ``library_ms`` the time of one
+PyTorch call computing the same function where there is one (the center
+gather and sum), else null. Every configuration and entry point has its own
+``launches_*`` key; variants (``[split]``, ``[gts]``, ``[swapped]``) have
+their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*``.
 """
 
 from __future__ import annotations
@@ -94,6 +116,10 @@ SOURCES = {
     "center_sum": "allegro_tpu_torch/csrc/center_readout.cu",
     "readout_sum": "allegro_tpu_torch/csrc/center_readout.cu",
     "readout_bwd": "allegro_tpu_torch/csrc/center_readout.cu",
+    "tp_scatter": "allegro_tpu_torch/csrc/train_tp.cu",
+    "gather_dw": "allegro_tpu_torch/csrc/train_tp.cu",
+    "unweight_sh": "allegro_tpu_torch/csrc/train_tp.cu",
+    "unweight_w": "allegro_tpu_torch/csrc/train_tp.cu",
 }
 REPLACES = {
     "latent_env_scatter": "allegro_tpu/ops/fused_tp.py:1701",
@@ -101,14 +127,27 @@ REPLACES = {
     "gather_tp_embed": "allegro_tpu/ops/fused_tp.py:603",
     "bwd_embed": "allegro_tpu/ops/fused_tp.py:683",
     "env_scatter": "allegro_tpu/ops/fused_tp.py:1091",
-    "gather_tp": "allegro_tpu/ops/fused_tp.py:500",
+    # the port keeps one env array: _gather_tp_kernel (kernel 13, combined
+    # env, and its x-transpose on the swapped table) is the same function
+    "gather_tp": "allegro_tpu/ops/fused_tp.py:500, allegro_tpu/ops/fused_tp.py:451",
     "bwd_fused": "allegro_tpu/ops/fused_tp.py:1340",
     "unweight_both": "allegro_tpu/ops/fused_tp.py:1455",
     "center_gather": "allegro_tpu/ops/fused_tp.py:1043",
     "center_sum": "allegro_tpu/ops/fused_tp.py:991",
     "readout_sum": "allegro_tpu/ops/fused_tp.py:1794",
     "readout_bwd": "allegro_tpu/ops/fused_tp.py:1873",
+    "tp_scatter": "allegro_tpu/ops/fused_tp.py:835",
+    "gather_dw": "allegro_tpu/ops/fused_tp.py:907",
+    "unweight_sh": "allegro_tpu/ops/fused_tp.py:1159",
+    "unweight_w": "allegro_tpu/ops/fused_tp.py:1588",
 }
+# TPU kernels (ROADMAP.md queue 2) that each wrapper serves
+SERVES = {"env_scatter": [1], "gather_tp": [2, 13], "bwd_fused": [3], "unweight_both": [4],
+          "center_gather": [5], "center_sum": [6], "latent_env_scatter": [7],
+          "latent_env_bwd": [8], "gather_tp_embed": [9], "bwd_embed": [10], "readout_sum": [11],
+          "readout_bwd": [12], "tp_scatter": [14], "gather_dw": [15], "unweight_sh": [16],
+          "unweight_w": [17]}
+TRAIN_KERNELS = ("tp_scatter", "gather_dw", "unweight_sh", "unweight_w")
 # launches per force call of the 2-layer flagship on fused_infer. All
 # configurations: the two position gathers (center and neighbor side) and
 # their transposes, the two force scatters. mega: the first projection and
@@ -121,17 +160,40 @@ REPLACES = {
 # each, none of the readout.
 LAYER_KERNELS = ("env_scatter", "gather_tp", "bwd_fused", "unweight_both")
 _NO_MEGA = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
+_NO_TRAIN = {name: 0 for name in TRAIN_KERNELS}
 PER_CALL = {
     "mega": {"latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1,
              "env_scatter": 0, "gather_tp": 1, "bwd_fused": 1, "unweight_both": 0,
-             "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1},
+             "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1,
+             **_NO_TRAIN},
     "fused readout": {**_NO_MEGA, "env_scatter": 2, "gather_tp": 2, "bwd_fused": 2,
                       "unweight_both": 2, "center_gather": 2, "center_sum": 2, "readout_sum": 1,
-                      "readout_bwd": 1},
+                      "readout_bwd": 1, **_NO_TRAIN},
     "plain readout": {**_NO_MEGA, "env_scatter": 2, "gather_tp": 2, "bwd_fused": 2,
                       "unweight_both": 2, "center_gather": 3, "center_sum": 3, "readout_sum": 0,
-                      "readout_bwd": 0},
+                      "readout_bwd": 0, **_NO_TRAIN},
 }
+# launches per training step of the 2-layer flagship on `fused` (energy +
+# force loss, its gradient in the parameters). Forward: per layer one
+# env_scatter and one gather_tp; the two position gathers (center_gather);
+# the edge-energy sum (center_sum). Force backward (create_graph): the
+# energy sum's transpose (center_gather); per layer GatherTp's three
+# transposes (gather_tp on the swapped table, tp_scatter, gather_dw; the
+# forces never read that dw, but needs_input_grad is fixed at forward time)
+# and EnvScatter's two (unweight_sh, unweight_w); the position gathers'
+# transposes (2 center_sum). Parameter backward, per layer: GatherTp of the
+# forward again (gather_tp, tp_scatter, gather_dw), the force backward's
+# GatherTp on the swapped table (the same three on swapped tables) and its
+# TpScatter (two gather_tp, one gather_dw); EnvScatter again (unweight_sh,
+# unweight_w), the force backward's UnweightSh (env_scatter, unweight_w) and
+# UnweightW (env_scatter, unweight_sh); the energy sum's transpose and the
+# force backward's two center_sum, one center_gather each. Per step: 3 L
+# env_scatter, 6 L gather_tp, 3 L tp_scatter, 4 L gather_dw (L of them
+# unused), 3 L unweight_sh, 3 L unweight_w (L = 2 layers), 6 center_gather
+# and 3 center_sum.
+PER_STEP = {**{name: 0 for name in PER_CALL["mega"]},
+            "env_scatter": 6, "gather_tp": 12, "tp_scatter": 6, "gather_dw": 8,
+            "unweight_sh": 6, "unweight_w": 6, "center_gather": 6, "center_sum": 3}
 MD_BLOCKS = 10
 MD_STEPS_PER_BLOCK = 10
 MD = dict(masses=[1.0, 1.0, 1.0], r_max=R_MAX, dt=0.01, skin=0.2,
@@ -140,6 +202,16 @@ MD_KT = 0.01
 MD_TOL = 1e-4
 CALC_JITTER = 0.01
 CALC_SEED = 100
+# the card's published peaks (H100 SXM data sheet): what bound_ms divides by
+HBM_BYTES_PER_MS = 3.35e9
+F32_FLOPS_PER_MS = 67e9
+# phase 5: the JAX bench's training batches (allegro_tpu/bench.py:588-680)
+TRAIN_SEEDS = (200, 201, 202, 203)
+TRAIN_ATOMS = 1000
+MOL_FRAMES, MOL_ATOMS, MOL_SPREAD = 16, 21, 3.0
+TRAIN_STEPS = 10
+TRAIN_REPEAT_STEPS = 3
+GRAD_TOL = 1e-4
 
 
 def crystal_frame(n_atoms, r_max, seed):
@@ -193,6 +265,10 @@ def rel_err(got, ref):
     return err, err / scale
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def check_kernels(tps, data, rng, records=None):
     """Phase 2: each kernel against its plain version at the layers' shapes;
     with ``records``, also the median times, accumulated there."""
@@ -205,6 +281,7 @@ def check_kernels(tps, data, rng, records=None):
     n_atoms = row_ptr.shape[0] - 1
     real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
     E = centers.shape[0]
+    Er = int(data[keys.EDGE_MASK].sum())  # the edges whose work the bounds count
 
     def rand(*shape, edge=True):
         t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
@@ -218,33 +295,44 @@ def check_kernels(tps, data, rng, records=None):
         w = rand(tp.num_paths, U, edge=False)
         env = fused_tp.env_scatter(sh, wexp, centers, row_ptr, d2i, U)
         t = rand(n_atoms, d2 * U, edge=False)
+        n = idx.shape[0]
+        tables = (idx, coef, d2i)
+        # (kernel, plain version, inputs read, FLOPs): a CG entry costs 3 per
+        # edge and channel (c*w formed once; x*env, then the multiply-add)
         cases = {
             "env_scatter": (
                 lambda: (fused_tp.env_scatter(sh, wexp, centers, row_ptr, d2i, U),),
                 lambda: (fused_tp.env_scatter_reference(sh, wexp, centers, n_atoms, d2i, U),),
+                (sh, wexp, row_ptr, d2i), 2 * Er * d2 * U,
             ),
             "gather_tp": (
                 lambda: (fused_tp.gather_tp(x, env, w, centers, idx, coef, d3),),
                 lambda: (fused_tp.gather_tp_reference(x, env, w, centers, idx, coef, d3),),
+                (x, env, w, centers, *tables), 3 * Er * n * U,
             ),
             "bwd_fused": (
                 lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef),
                 lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx, coef),
+                (x, g, env, w, row_ptr, *tables), 6 * Er * n * U,
             ),
             "unweight_both": (
                 lambda: fused_tp.unweight_both(t, sh, wexp, centers, d2i),
                 lambda: fused_tp.unweight_both_reference(t, sh, wexp, centers, d2i),
+                (t, sh, wexp, centers, d2i), 4 * Er * d2 * U,
             ),
         }
-        for name, (kernel, plain) in cases.items():
-            label = f"U {U} layer {layer} dims ({d1},{d2},{d3}) entries {idx.shape[0]:3d}"
-            check_case(name, kernel, plain, label, records)
+        for name, (kernel, plain, reads, flops) in cases.items():
+            label = f"U {U} layer {layer} dims ({d1},{d2},{d3}) entries {n:3d}"
+            check_case(name, kernel, plain, label, records, reads, flops)
 
 
-def check_case(name, kernel, plain, label, records=None):
+def check_case(name, kernel, plain, label, records=None, reads=(), flops=0, library=None):
     """One kernel call against its plain version (max|err| / max|ref| <
     KERNEL_TOL); with ``records``, also their median times, accumulated
-    there under ``name`` (a kernel name, or ``kernel[variant]``)."""
+    there under ``name`` (a kernel name, or ``kernel[variant]``), with the
+    work the bound counts: the bytes of ``reads`` (each input read once) and
+    of the outputs (each written once), and ``flops``. ``library``: one
+    PyTorch call computing the same function, timed beside them."""
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
@@ -260,11 +348,29 @@ def check_case(name, kernel, plain, label, records=None):
         print()
         return
     ms, plain_ms = median_ms(kernel), median_ms(plain)
-    print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    work = nbytes(*reads, *got)
+    bound_ms, bound_by = bound(work, flops)
+    print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
+          end="")
+    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                    "bytes": 0, "flops": 0, "library_ms": None})
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     rec["ms"] += ms
     rec["plain_ms"] += plain_ms
+    rec["bytes"] += work
+    rec["flops"] += flops
+    if library is not None:
+        lib_ms = median_ms(library)
+        rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+        print(f"  library {lib_ms:.4f} ms", end="")
+    print()
+
+
+def bound(n_bytes, flops):
+    """The least time (ms) of the work on the card and what binds it: the
+    bytes at the memory rate or the FLOPs at the f32 rate, the larger."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check_mega_kernels(allegro, data, rng, records=None):
@@ -281,6 +387,7 @@ def check_mega_kernels(allegro, data, rng, records=None):
     row_ptr = data[keys.CENTER_ROW_PTR]
     n_atoms = row_ptr.shape[0] - 1
     E = centers.shape[0]
+    Er = int(data[keys.EDGE_MASK].sum())
     S, U = allegro.S, allegro.U
     tp = allegro.tps[0]
     d2i, specs = tp.dim_to_irr, allegro.row_specs
@@ -297,39 +404,49 @@ def check_mega_kernels(allegro, data, rng, records=None):
     for pieces, a, b in (((emb,), w_proj.detach(), None),
                          ((emb, ts), w0.detach(), w1.detach())):
         what = f"{label} W0 {list(a.shape)}" + ("" if b is None else f" W1 {list(b.shape)}")
+        # the MLP runs on every edge (sentinels too), the env work on real ones
+        mlp = a.shape[0] * a.shape[1] + (0 if b is None else b.shape[0] * b.shape[1])
+        env_flops = 2 * Er * tp.d2 * U
         check_case("latent_env_scatter",
                    lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, row_ptr, d2i, U, S),
                    lambda: fused_tp.latent_env_scatter_reference(pieces, sh, a, b, row_ptr, d2i,
-                                                                 U, S), what, records)
+                                                                 U, S), what, records,
+                   (*pieces, sh, a, b, row_ptr, d2i), 2 * E * mlp + env_flops)
         check_case("latent_env_bwd",
                    lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers,
                                                          d2i, U, S)),
                    lambda: _flat(fused_tp.latent_env_bwd_reference(pieces, sh, a, b, t, g_lat,
                                                                    centers, d2i, U, S)),
-                   what, records)
+                   what, records, (*pieces, sh, a, b, t, g_lat, centers, d2i),
+                   4 * E * mlp + 2 * env_flops)
     wk, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
     d1, d2, d3 = tp.d1, tp.d2, tp.d3
     w2b, env = rand(E, n_irr * U), rand(n_atoms, d2 * U)
     x, g, gts = rand(E, d1 * U), rand(E, d3 * U), rand(E, U)
     what = f"{label} dims ({d1},{d2},{d3}) entries {idx.shape[0]}"
+    tp_flops = 3 * Er * idx.shape[0] * U
     check_case("gather_tp_embed",
                lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, idx, coef, specs, d3,
                                                 True),
                lambda: fused_tp.gather_tp_embed_reference(sh, w2b, env, wk, centers, idx, coef,
-                                                          specs, d3, True), what, records)
+                                                          specs, d3, True), what, records,
+               (sh, w2b, env, wk, centers, idx, coef, specs), tp_flops + Er * d1 * U)
     check_case("bwd_embed",
                lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
                                           specs, gts),
                lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx,
-                                                    coef, specs, gts), what, records)
+                                                    coef, specs, gts), what, records,
+               (sh, w2b, g, gts, env, wk, row_ptr, idx, coef, specs),
+               2 * tp_flops + 4 * Er * d1 * U)
     check_case("gather_tp[split]",
                lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, True),
                lambda: fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, d3, True),
-               what, records)
+               what, records, (x, env, wk, centers, idx, coef), tp_flops)
     check_case("bwd_fused[gts]",
                lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts),
                lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef,
-                                                    gts), what, records)
+                                                    gts), what, records,
+               (x, g, gts, env, wk, row_ptr, idx, coef), 2 * tp_flops + Er * U)
 
 
 def _flat(res):
@@ -339,7 +456,10 @@ def _flat(res):
 
 def check_center_readout(data, rng, records):
     """Phase 2, second part: the center gather and sum and the fused readout
-    at the force call's shapes, summed over the launches of one call."""
+    at the force call's shapes, summed over the launches of one call. Beside
+    the center kernels, the one PyTorch call that computes the same function
+    (``index_select`` on the table with a zero row for the sentinel,
+    ``index_add_``) is timed; the port never calls it."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -351,6 +471,7 @@ def check_center_readout(data, rng, records):
     n_atoms = row_ptr.shape[0] - 1
     real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
     E = centers.shape[0]
+    Er = int(data[keys.EDGE_MASK].sum())
 
     def rand(*shape, edge=True):
         t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
@@ -361,15 +482,20 @@ def check_center_readout(data, rng, records):
         a = pos if width == 3 else rand(n_atoms, 1, edge=False)
         v = rand(E, width)
         rec = records if timed else None
+        a_pad = torch.cat([a, a.new_zeros((1, width))])  # the sentinel's zero row
         for side, idx, (rp, perm) in (("center", centers, (row_ptr, None)),
                                       ("neighbor", neighbors, nbr)):
             label = f"[{n_atoms}, {width}] <-> [{E}, {width}] {side:8s}"
+            idx_l = idx.long()
+            acc = a.new_zeros((n_atoms + 1, width))
             check_case("center_gather",
                        lambda: (fused_tp.center_gather(a, idx),),
-                       lambda: (fused_tp.center_gather_reference(a, idx),), label, rec)
+                       lambda: (fused_tp.center_gather_reference(a, idx),), label, rec,
+                       (a, idx), 0, lambda: a_pad.index_select(0, idx_l))
             check_case("center_sum",
                        lambda: (fused_tp.center_sum(v, rp, perm),),
-                       lambda: (fused_tp.center_sum_reference(v, rp, perm),), label, rec)
+                       lambda: (fused_tp.center_sum_reference(v, rp, perm),), label, rec,
+                       (v, rp, perm), Er * width, lambda: acc.index_add_(0, idx_l, v))
             if width == 1:  # the plain readout chain sums on the center side only
                 break
     S, H = FLAGSHIP["num_scalar_features"], 32
@@ -384,11 +510,230 @@ def check_center_readout(data, rng, records):
     check_case("readout_sum",
                lambda: (fused_tp.readout_sum(pieces, w0, w1, row_ptr),),
                lambda: (fused_tp.readout_sum_reference(pieces, w0, w1, row_ptr),),
-               label, records)
+               label, records, (*pieces, w0, w1, row_ptr), 2 * Er * (K * H + H))
     check_case("readout_bwd",
                lambda: fused_tp.readout_bwd(pieces, w0, w1, y, centers),
                lambda: fused_tp.readout_bwd_reference(pieces, w0, w1, y, centers),
-               label, records)
+               label, records, (*pieces, w0, w1, y, centers), 2 * Er * (2 * K * H + H))
+
+
+def check_train_kernels(tps, data, rng, records=None):
+    """Phase 5a: the trainable backend's transposes against their plain
+    versions at the training batch's shapes, each layer's table in both role
+    orders (the swapped one under ``kernel[swapped]``), and ``gather_tp`` on
+    the swapped table; with ``records``, also the median times (one launch per
+    layer and order, summed). Per-edge inputs are zero on sentinel edges,
+    per-atom ones (env, t) are not."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+    from allegro_tpu_torch.ops.fused_primitives import FusedStatics
+
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+    E = centers.shape[0]
+    Er = int(data[keys.EDGE_MASK].sum())
+
+    def rand(*shape, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return t * real if edge else t
+
+    for layer, tp in enumerate(tps):
+        U = tp.mul
+        _, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
+        d2i = tp.dim_to_irr
+        st = FusedStatics(centers, row_ptr, d2i, tp.n_irr, U, idx, tp.entry_swapped, coef,
+                          tp.num_paths, (tp.d1, tp.d2, tp.d3))
+        n = idx.shape[0]
+        t, sh, wexp = rand(n_atoms, tp.d2 * U, edge=False), rand(E, tp.d2), rand(E, tp.n_irr * U)
+        label = f"U {U} layer {layer} dims {st.dims} entries {n:3d}"
+        check_case("unweight_sh", lambda: (fused_tp.unweight_sh(t, wexp, centers, d2i),),
+                   lambda: (fused_tp.unweight_sh_reference(t, wexp, centers, d2i),), label,
+                   records, (t, wexp, centers, d2i), 2 * Er * tp.d2 * U)
+        check_case("unweight_w", lambda: (fused_tp.unweight_w(t, sh, centers, d2i, tp.n_irr),),
+                   lambda: (fused_tp.unweight_w_reference(t, sh, centers, d2i, tp.n_irr),),
+                   label, records, (t, sh, centers, d2i), 2 * Er * tp.d2 * U)
+        for tag, s in (("", st), ("[swapped]", st.swap())):
+            d1, d2, d3 = s.dims
+            x, g = rand(E, d1 * U), rand(E, d3 * U)
+            env, w = rand(n_atoms, d2 * U, edge=False), rand(s.n_paths, U, edge=False)
+            tab = (s.entry_idx, coef)
+            label = f"U {U} layer {layer} dims {s.dims} entries {n:3d}"
+            check_case("tp_scatter" + tag,
+                       lambda: (fused_tp.tp_scatter(x, g, w, centers, row_ptr, *tab, d2),),
+                       lambda: (fused_tp.tp_scatter_reference(x, g, w, centers, n_atoms, *tab,
+                                                              d2),),
+                       label, records, (x, g, w, row_ptr, *tab), 3 * Er * n * U)
+            # a CG entry's dw term: x*env, *g, then the multiply-add with c
+            check_case("gather_dw" + tag,
+                       lambda: (fused_tp.gather_dw(x, env, g, centers, *tab, s.n_paths, U),),
+                       lambda: (fused_tp.gather_dw_reference(x, env, g, centers, *tab,
+                                                             s.n_paths, U),),
+                       label, records, (x, env, g, centers, *tab), 4 * Er * n * U)
+            if tag:
+                check_case("gather_tp" + tag,
+                           lambda: (fused_tp.gather_tp(x, env, w, centers, *tab, d3),),
+                           lambda: (fused_tp.gather_tp_reference(x, env, w, centers, *tab, d3),),
+                           label, records, (x, env, w, centers, *tab), 3 * Er * n * U)
+
+
+def train_loaders():
+    """The JAX bench's training batches (``run_train_bench_1k`` and
+    ``run_train_bench``, allegro_tpu/bench.py:588-680): four 1,000-atom
+    crystals (seeds 200-203) with zero energy and force targets, and 16
+    synthetic 21-atom molecular frames (spread 3.0) with their labels, each
+    one batch, r_max 4.0."""
+    from allegro_tpu_torch.data import (DataLoader, InMemoryDataset, keys,
+                                        synthetic_molecular_frames)
+
+    crystals = []
+    for seed in TRAIN_SEEDS:
+        frame, _ = crystal_frame(TRAIN_ATOMS, R_MAX, seed)
+        crystals.append({**frame, keys.TOTAL_ENERGY: np.zeros(1),
+                         keys.FORCES: np.zeros_like(frame[keys.POSITIONS])})
+    mols = synthetic_molecular_frames(MOL_FRAMES, n_atoms=MOL_ATOMS, spread=MOL_SPREAD)
+    return {"1k": DataLoader(InMemoryDataset(crystals, R_MAX), batch_size=len(crystals)),
+            "21": DataLoader(InMemoryDataset(mols, R_MAX), batch_size=MOL_FRAMES)}
+
+
+def train_models(batch_np):
+    """The flagship on ``fused`` (random weights from SEED) and its ``einsum``
+    twin with the same weights, for one training batch."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.model import AllegroModel
+
+    avg_n = float(batch_np[keys.EDGE_MASK].sum()) / float(batch_np[keys.NODE_MASK].sum())
+    fused = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n,
+                         tp_kernel_backend="fused").init(SEED)
+    einsum = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n, tp_kernel_backend="einsum")
+    einsum.load_state_dict(fused.state_dict())
+    return fused, einsum
+
+
+def make_trainer(model, dev):
+    """Adam at 1e-3 and EMA 0.999 with the trainer's default loss: per-atom
+    energy and force MSE (the reference tutorial's). The bench's total-energy
+    MSE grows with the frame size: on zero targets, Adam's first steps (each
+    parameter moves by about the learning rate) overshoot it."""
+    from allegro_tpu_torch.train import Trainer
+
+    return Trainer(model, learning_rate=1e-3, ema_decay=0.999, device=dev,
+                   logger=lambda s: None)
+
+
+def peak_mib():
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def run_training(loaders, dev, smi):
+    """Phase 5b/5c on each batch: the gradient agreement of ``fused`` with
+    ``einsum`` on the first step (5c), then TRAIN_STEPS Adam steps through
+    ``Trainer.fit`` with the launch counts of every step (5b), two identical
+    runs of TRAIN_REPEAT_STEPS steps, and (1k batch) a torch.profiler trace
+    of 3 steps. Returns the launches of each batch's TRAIN_STEPS steps."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    launches = {}
+    for name, loader in loaders.items():
+        batch_np = next(iter(loader))
+        n_atoms, n_edges = int(batch_np[keys.NODE_MASK].sum()), int(batch_np[keys.EDGE_MASK].sum())
+        fused, einsum = train_models(batch_np)
+        init = {k: v.clone() for k, v in fused.state_dict().items()}
+        what = f"{name}: {loader.batch_size} frames, {n_atoms} atoms, {n_edges} edges"
+        # 5c: the parameter gradients of the first step, fused against einsum
+        grads, peaks = {}, {}
+        for backend, model in (("fused", fused), ("einsum", einsum)):
+            trainer = make_trainer(model, dev)
+            state = trainer.init_state()
+            data = trainer.to_device(batch_np)
+            torch.cuda.reset_peak_memory_stats()
+            _, _, grads[backend] = trainer.loss_and_grads(state, data)
+            peaks[backend] = peak_mib()
+        ratios = {k: ((g - grads["einsum"][k]).abs().max() / grads["einsum"][k].abs().max()).item()
+                  for k, g in grads["fused"].items()}
+        worst = max(ratios, key=ratios.get)
+        print(f"[5c] {what}: parameter gradients fused vs einsum, worst max-abs err / max-abs "
+              f"{ratios[worst]:.3e} ({worst}; < {GRAD_TOL}); peak of one step's gradient: "
+              f"fused {peaks['fused']:.1f} MiB, einsum {peaks['einsum']:.1f} MiB")
+        if not ratios[worst] < GRAD_TOL:
+            raise AssertionError(f"{name}: fused vs einsum gradient of {worst}: "
+                                 f"{ratios[worst]:.3e}")
+        del grads, einsum
+        torch.cuda.empty_cache()
+        # 5b: TRAIN_STEPS steps, one per fit call (the loader is one batch)
+        trainer = make_trainer(fused, dev)
+        state = trainer.init_state()
+        totals = {k: 0 for k in PER_STEP}
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS):
+            fused_tp.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.fit(state, loader, max_epochs=1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if fused_tp.LAUNCHES != PER_STEP:
+                raise AssertionError(f"{name} step {step}: launches {fused_tp.LAUNCHES}, "
+                                     f"expected {PER_STEP}")
+            for k, c in fused_tp.LAUNCHES.items():
+                totals[k] += c
+        peak = peak_mib()
+        losses = [h["train_loss"] for h in trainer.history]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses {losses} are not finite or did not fall")
+        ms = 1e3 * float(np.median(times[1:]))
+        print(f"[5b] {what}: {TRAIN_STEPS} Adam steps on fused, loss {losses[0]:.6e} -> "
+              f"{losses[-1]:.6e}; launches per step "
+              f"{ {k: c for k, c in PER_STEP.items() if c} }")
+        print(f"    {ms:.3f} ms/step (median of steps 2-{TRAIN_STEPS}, host clock, statics and "
+              f"upload included), {loader.batch_size / ms * 1e3:.2f} samples/s, peak "
+              f"{peak:.1f} MiB; {smi}")
+        launches[name] = totals
+        # two identical runs from the same weights
+        runs = []
+        for _ in range(2):
+            fused.load_state_dict(init)
+            again = make_trainer(fused, dev)
+            s = again.fit(again.init_state(), loader, max_epochs=TRAIN_REPEAT_STEPS)
+            runs.append({k: v.detach().clone() for k, v in s.params.items()})
+        delta = max((runs[0][k] - runs[1][k]).abs().max().item() for k in runs[0])
+        print(f"    max |dparam| of two identical runs of {TRAIN_REPEAT_STEPS} steps: {delta:.3e}")
+        if name == "1k":
+            profile_steps(again, s, loader)
+    return launches
+
+
+def profile_steps(trainer, state, loader, steps=3):
+    """Where a training step's time goes: torch.profiler over ``steps`` steps,
+    device time by kernel name and the device's idle share of the span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(state, loader, max_epochs=steps)
+        torch.cuda.synchronize()
+        span_ms = 1e3 * (time.perf_counter() - t0)
+    # device events only; a user annotation (Optimizer.step) spans kernels
+    # that are counted on their own
+    rows = [(e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print("    profile: torch.profiler recorded no device time")
+        return
+    print(f"    profile of {steps} steps (1k batch): {sum(r[1] for r in rows):.0f} device ops "
+          f"and {busy:.4f} ms device time per step, span {span_ms / steps:.4f} ms per step "
+          f"(profiled), idle {100 * (1 - busy * steps / span_ms):.1f}%; per step by name:")
+    for ms, count, key in sorted(rows, reverse=True)[:16]:
+        print(f"      {ms:9.4f} ms {count:6.1f}x  {key[:90]}")
 
 
 def time_force_call(model, data, n_atoms, reps=10):
@@ -499,32 +844,61 @@ def main() -> int:
     md_launches = run_md(mega, einsum, frame, n_atoms, dev, smi)
     calc_launches = run_calculator(mega, frame, n_atoms, dev)
 
+    # phase 5: training on the trainable `fused` backend
+    loaders = train_loaders()
+    batch_1k = next(iter(loaders["1k"]))
+    train, _ = train_models(batch_1k)
+    train_data = to_torch(train.to(dev).precompute_statics(batch_1k), dtype=torch.float32,
+                          device=dev)
+    print(f"[5] training batch: {int(batch_1k[keys.NODE_MASK].sum())} atoms, "
+          f"{int(batch_1k[keys.EDGE_MASK].sum())} edges (padded "
+          f"{batch_1k[keys.EDGE_INDEX].shape[1]})")
+    check_train_kernels(train.module.allegro.tps, train_data, rng, records)
+    for U in (16, 48):
+        other = AllegroModel(**{**FLAGSHIP, "num_tensor_features": U}, avg_num_neighbors=25.0,
+                             tp_kernel_backend="fused").init(SEED).to(dev)
+        check_train_kernels(other.module.allegro.tps, train_data, rng)
+    del train_data
+    train_launches = run_training(loaders, dev, smi)
+
     print(smi)
     print(json.dumps({"kernels": [kernel_record(name, records, launches, md_launches,
-                                                calc_launches) for name in SOURCES]}))
+                                                calc_launches, train_launches)
+                                  for name in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
-def kernel_record(name, records, launches, md_launches, calc_launches):
+def kernel_record(name, records, launches, md_launches, calc_launches, train_launches):
     """One entry of the ``kernels`` JSON line (see the module docstring)."""
     rec = records[name]
     # the four layer kernels are timed on the use_mega=False path, where all
-    # their launches are; the rest on the mega path
-    serves = "fused readout" if name in LAYER_KERNELS else "mega"
+    # their launches are; the trainable backend's on the training step; the
+    # rest on the mega path
+    if name in TRAIN_KERNELS:
+        config, count = "train step", train_launches["1k"][name]
+    else:
+        config = "fused readout" if name in LAYER_KERNELS else "mega"
+        count = launches[config][name]
+    bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
     out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-           "launches": launches[serves][name], "max_abs_err": rec["max_abs_err"],
-           "ms": rec["ms"], "plain_ms": rec["plain_ms"], "ms_config": serves}
+           "serves": SERVES[name], "launches": count, "max_abs_err": rec["max_abs_err"],
+           "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": rec["library_ms"], "ms_config": config}
     for config in PER_CALL:
         out["launches_" + config.replace(" ", "_")] = launches[config][name]
     out["launches_md"] = md_launches[name]
     out["launches_calculator"] = calc_launches[name]
+    for batch, counts in train_launches.items():
+        out[f"launches_train_{batch}"] = counts[name]
     for key, variant in records.items():
         if key.startswith(name + "["):
             tag = key[len(name) + 1:-1]
+            v_bound, v_by = bound(variant["bytes"], variant["flops"])
             out[f"max_abs_err_{tag}"] = variant["max_abs_err"]
             out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = variant["ms"], variant["plain_ms"]
+            out[f"bound_ms_{tag}"], out[f"bound_by_{tag}"] = v_bound, v_by
     return out
 
 

@@ -165,7 +165,7 @@ def test_unsorted_edges_raise(frames, avg_n):
     {"per_edge_type_cutoff": {"A": 3.0}},
     {"pair_potential": {"_target_": "allegro_tpu.nn.ZBLPairPotential"}},
     {"radial_chemical_embed": {"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed"}},
-    {"tp_kernel_backend": "fused"},
+    {"tp_kernel_backend": "pallas"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override, avg_n):
     kw = {**_model_kwargs(avg_n, "float32"), **override}
@@ -176,18 +176,23 @@ def test_unported_options_raise(override, avg_n):
 # wrapper calls per fused_infer force call of the 2-layer model: on a card,
 # each call is one launch (chip_smoke.py asserts the same counts there)
 _MEGA_OFF = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
+# the trainable backend's transposes never run in a fused_infer force call
+_TRAIN_OFF = {"tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0}
 _PER_CALL = {
     True: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
-           "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1, **_MEGA_OFF},
+           "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1, **_MEGA_OFF,
+           **_TRAIN_OFF},
     # plain readout chain: the edge sum and its transpose take the center kernels
     False: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
-            "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0, **_MEGA_OFF},
+            "center_gather": 3, "center_sum": 3, "readout_sum": 0, "readout_bwd": 0, **_MEGA_OFF,
+            **_TRAIN_OFF},
     # the mega-fused layers: the first projection and layer 0's latent each a
     # latent_env_scatter (and its backward), layer 0's TP on the embed's
     # factors, layer 1's on gather_tp; no env_scatter / unweight_both
     "mega": {"env_scatter": 0, "gather_tp": 1, "bwd_fused": 1, "unweight_both": 0,
              "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1,
-             "latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1},
+             "latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1,
+             **_TRAIN_OFF},
 }
 
 
@@ -318,8 +323,10 @@ sys.meta_path.insert(0, _Block())
 import torch
 from allegro_tpu_torch.calculator import AllegroCalculator
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
+from allegro_tpu_torch.data import DataLoader, InMemoryDataset, synthetic_molecular_frames
 from allegro_tpu_torch.md import MDState, Simulation
 from allegro_tpu_torch.model import AllegroModel
+from allegro_tpu_torch.train import Trainer
 import numpy as np
 
 rng = np.random.RandomState(0)
@@ -342,6 +349,13 @@ sim = Simulation(m, frame[keys.ATOM_TYPES], np.ones(2), 4.0, cell=frame[keys.CEL
                  pbc=(True,) * 3, steps_per_block=2, device="cpu")
 st = sim.run(MDState(frame[keys.POSITIONS], np.zeros((8, 3))), 2)
 assert np.isfinite(st.positions).all()
+ds = InMemoryDataset(synthetic_molecular_frames(4, n_atoms=6, spread=1.2), r_max=2.0)
+tm = AllegroModel(r_max=2.0, type_names=["A", "B", "C"], l_max=1, num_layers=2,
+                  num_scalar_features=8, num_tensor_features=4, model_dtype="float32",
+                  tp_kernel_backend="fused")
+trainer = Trainer(tm, device="cpu", logger=lambda s: None)
+state = trainer.fit(trainer.init_state(0), DataLoader(ds, batch_size=2))
+assert state.step == 2 and np.isfinite(trainer.history[-1]["train_loss"])
 assert not [n for n in sys.modules if n.split(".")[0] in ("jax", "flax", "allegro_tpu")]
 print("ok")
 """
