@@ -1,0 +1,203 @@
+"""Command-line entry points (twin of ``allegro_tpu/cli.py``):
+
+    python -m allegro_tpu_torch train -c configs/tutorial.yaml [-w workdir]
+    python -m allegro_tpu_torch test  -c configs/tutorial.yaml --ckpt <dir>
+    python -m allegro_tpu_torch run   -c configs/tutorial.yaml   # the config's `run:` list
+    python -m allegro_tpu_torch md    -c configs/md.yaml
+
+The JAX package's config files run as they are: ``_target_`` names under
+``allegro_tpu.`` build the port's builders and datasets, and ``optax.adam``
+is ``torch.optim.Adam``. Everything runs on the CUDA card unless
+``--device cpu`` is given; without a card the CLI raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import sys
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .model.builders import _not_ported
+
+_NOT_PORTED = {
+    "compile": "queue 1, item 10 (deployment)",
+    "package": "queue 1, item 8 (train/package.py)",
+    "benchmark": "queue 1, item 4 (the port bench)",
+}
+
+
+def _build_data(cfg: Dict[str, Any], seed: int = 0):
+    """(datasets, loaders) by split from the ``data`` block: ``_target_``
+    ``synthetic``, ``sgdml_npz_dataset`` or ``extxyz_dataset``, split by a
+    seeded permutation into train / val / test (fractions or counts)."""
+    from .data import DataLoader, InMemoryDataset
+    from .data.datasets import sgdml_npz_dataset, synthetic_molecular_frames
+
+    dcfg = dict(cfg)
+    target = dcfg.pop("_target_", "synthetic")
+    r_max = float(dcfg.pop("r_max"))
+    split = dcfg.pop("split", {"train": 0.8, "val": 0.1, "test": 0.1})
+    batch_size = int(dcfg.pop("batch_size", 1))
+    type_names = dcfg.pop("type_names", None)
+    shuffle_seed = int(dcfg.pop("seed", seed))
+    if target.endswith("sgdml_npz_dataset"):
+        ds = sgdml_npz_dataset(dcfg.pop("path"), r_max=r_max, type_names=type_names)
+    elif target.endswith("extxyz_dataset"):
+        from .data.xyz import extxyz_dataset
+
+        ds = extxyz_dataset(dcfg.pop("path"), r_max=r_max, type_names=type_names)
+    elif target == "synthetic":
+        frames = synthetic_molecular_frames(
+            n_frames=int(dcfg.pop("n_frames", 64)),
+            n_atoms=int(dcfg.pop("n_atoms", 21)),
+            n_types=len(type_names) if type_names else 3,
+            spread=float(dcfg.pop("spread", 1.8)),
+            seed=shuffle_seed,
+        )
+        ds = InMemoryDataset(frames, r_max=r_max, type_names=type_names)
+    else:
+        raise ValueError(f"unknown dataset {target}")
+    n = len(ds)
+    idx = np.random.RandomState(shuffle_seed).permutation(n)
+    parts, ofs = {}, 0
+    for k in ("train", "val", "test"):
+        if k in split:
+            v = split[k]
+            size = int(v * n) if isinstance(v, float) and v <= 1.0 else int(v)
+            sub = InMemoryDataset([], r_max=ds.r_max, type_names=ds.type_names)
+            sub.frames = [ds.frames[int(i)] for i in idx[ofs : ofs + size]]
+            parts[k] = sub
+            ofs += size
+    loaders = {
+        k: DataLoader(v, batch_size=batch_size, shuffle=(k == "train"), seed=shuffle_seed)
+        for k, v in parts.items()
+    }
+    return parts, loaders
+
+
+def _optimizer(opt_cfg: Dict[str, Any]):
+    """``torch.optim.Adam`` at the block's learning rate, for ``optax.adam``."""
+    opt_cfg = dict(opt_cfg)
+    target = str(opt_cfg.pop("_target_", "optax.adam"))
+    lr = float(opt_cfg.pop("learning_rate", opt_cfg.pop("lr", 1e-3)))
+    if target.rsplit(".", 1)[-1] != "adam" or opt_cfg:
+        raise _not_ported(f"optimizer {target} with {sorted(opt_cfg)}", "queue 1, item 8")
+    return functools.partial(torch.optim.Adam, lr=lr)
+
+
+def run_train(config: Dict[str, Any], workdir: str, device=None) -> str:
+    """Train the ``model`` block on the ``data`` block with the ``trainer``
+    block; checkpoints ``best.pt`` / ``last.pt`` and ``resolved_config.json``
+    go into ``workdir``."""
+    from .data import compute_statistics
+    from .train import EnergyForceLoss, Trainer
+    from .train.config import build_model, resolve
+
+    os.makedirs(workdir, exist_ok=True)
+    parts, loaders = _build_data(config["data"])
+    stats = compute_statistics(parts["train"])
+    print(f"dataset statistics: {json.dumps(stats)}")
+    cfg = resolve(config, stats)
+    model = build_model(cfg["model"])
+    tcfg = dict(cfg.get("trainer", {}))
+    if tcfg.pop("lr_scheduler", None):
+        raise _not_ported("trainer.lr_scheduler", "queue 1, item 8")
+    if tcfg.pop("profile_dir", None):
+        raise _not_ported("trainer.profile_dir", "queue 1, item 8")
+    trainer = Trainer(
+        model,
+        optimizer=_optimizer(tcfg.pop("optimizer", {"learning_rate": 1e-3})),
+        loss=EnergyForceLoss(tcfg.pop("loss_coeffs", None)),
+        ema_decay=float(tcfg.pop("ema_decay", 0.999)),
+        ema_use_num_updates=bool(tcfg.pop("ema_use_num_updates", True)),
+        log_every=int(tcfg.pop("log_every", 10)),
+        device=device,
+    )
+    state = trainer.init_state(int(cfg["model"].get("seed", 0)))
+    t0 = time.perf_counter()
+    state = trainer.fit(state, loaders["train"], val_loader=loaders.get("val"),
+                        max_epochs=int(tcfg.pop("max_epochs", 5)), ckpt_dir=workdir)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(workdir, "resolved_config.json"), "w") as f:
+        json.dump(cfg, f, indent=2, default=str)
+    n_samples = state.step * loaders["train"].batch_size
+    print(f"trained {state.step} steps in {seconds:.3f} s ({1e3 * seconds / max(state.step, 1):.3f} "
+          f"ms/step, {n_samples / seconds:.2f} samples/s, validation and checkpoints included)")
+    print(f"checkpoints written to {workdir}")
+    return workdir
+
+
+def run_test(config: Dict[str, Any], workdir: str, ckpt: Optional[str] = None,
+             device=None) -> Dict[str, float]:
+    """The test split's metrics with the EMA parameters of the ``best``
+    checkpoint (``last`` if there is none) in ``ckpt`` or ``workdir``."""
+    from .data import compute_statistics
+    from .train import Trainer, load_checkpoint
+    from .train.config import build_model, resolve
+
+    parts, loaders = _build_data(config["data"])
+    cfg = resolve(config, compute_statistics(parts["train"]))
+    trainer = Trainer(build_model(cfg["model"]), device=device)
+    state = trainer.init_state(0)
+    ckpt_dir = ckpt or workdir
+    name = "best" if os.path.exists(os.path.join(ckpt_dir, "best.pt")) else "last"
+    state = load_checkpoint(ckpt_dir, name, template=state)
+    metrics = trainer.evaluate(state.ema_params, loaders["test"])
+    print("test metrics: " + json.dumps(metrics))
+    return metrics
+
+
+def _global_options(gopt: Dict[str, Any]) -> None:
+    """``allow_tf32: false`` (and ``matmul_precision: highest``) are the
+    port's full-f32 pin, which every model call sets; other policies are
+    not ported."""
+    if gopt.get("allow_tf32") or gopt.get("matmul_precision", "highest") != "highest":
+        raise _not_ported(f"global_options {gopt}", "queue 1, item 6")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="allegro_tpu_torch")
+    p.add_argument("command",
+                   choices=["train", "test", "run", "compile", "package", "md", "benchmark"])
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("-w", "--workdir", default=None)
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
+    args = p.parse_args(argv)
+
+    from .device import resolve_device
+    from .train.config import load_config
+
+    device = resolve_device(args.device)
+    config = load_config(args.config)
+    _global_options(config.get("global_options") or {})
+    workdir = args.workdir or os.path.join(
+        "outputs", os.path.splitext(os.path.basename(args.config))[0])
+    stages = config.get("run", ["train", "test"]) if args.command == "run" else [args.command]
+    for stage in stages:
+        if stage in _NOT_PORTED:
+            raise _not_ported(f"the {stage} stage", _NOT_PORTED[stage])
+    for stage in stages:
+        if stage == "train":
+            run_train(config, workdir, device)
+        elif stage == "test":
+            run_test(config, workdir, ckpt=args.ckpt, device=device)
+        elif stage == "md":
+            from .md.cli import run_md
+
+            run_md(config, workdir, device)
+        else:
+            raise ValueError(f"unknown stage {stage}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -151,6 +151,17 @@ __device__ __forceinline__ void load_padded(const float* __restrict__ w, int row
   }
 }
 
+// The second pass of a reduction over edges without float atomics: out[t] =
+// sum over b of partial[b, t], added in block order, one thread per output.
+__global__ void partials_reduce_kernel(const float* __restrict__ partial, int n_blocks, int n,
+                                       float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < n_blocks; ++b) s += partial[(long long)b * n + t];
+  out[t] = s;
+}
+
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 int grid_for(long long work, int per_block, int max_blocks) {

@@ -130,15 +130,6 @@ __global__ void gather_dw_partial_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void gather_dw_reduce_kernel(const float* __restrict__ partial, int n_blocks, int PU,
-                                        float* __restrict__ dw) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= PU) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partial[(long long)b * PU + t];
-  dw[t] = s;
-}
-
 // ---------------------------------------------------------------------------
 // unweight_sh
 // Replaces allegro_tpu/ops/fused_tp.py:_gather_unweight_sh_kernel
@@ -249,8 +240,8 @@ int atpt_gather_dw(const float* x, const float* env, const float* g, const int* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int PU = P * U;
-  gather_dw_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
-                                                                             PU, dw);
+  partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
+                                                                            PU, dw);
   return (int)cudaGetLastError();
 }
 

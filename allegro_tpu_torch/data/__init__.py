@@ -4,7 +4,12 @@
 from . import keys
 from .atomic_data import AtomsData, batch_frames, pad_data, round_up, to_torch
 from .dataloader import DataLoader
-from .datasets import InMemoryDataset, compute_statistics, synthetic_molecular_frames
+from .datasets import (
+    InMemoryDataset,
+    compute_statistics,
+    sgdml_npz_dataset,
+    synthetic_molecular_frames,
+)
 from .neighborlist import neighbor_list, primitive_neighbor_list
 
 __all__ = [
@@ -17,6 +22,7 @@ __all__ = [
     "DataLoader",
     "InMemoryDataset",
     "compute_statistics",
+    "sgdml_npz_dataset",
     "synthetic_molecular_frames",
     "neighbor_list",
     "primitive_neighbor_list",

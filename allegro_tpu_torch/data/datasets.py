@@ -1,7 +1,8 @@
 """Datasets, species mapping and dataset statistics (twin of
-``allegro_tpu/data/datasets.py``, without the sGDML reader).
+``allegro_tpu/data/datasets.py``).
 
 ``InMemoryDataset`` holds frames with their neighbor lists,
+``sgdml_npz_dataset`` reads an sGDML ``.npz``,
 ``synthetic_molecular_frames`` makes labelled frames from a seed, and
 ``compute_statistics`` gives the values that configs interpolate as
 ``${training_data_stats:...}``: ``num_neighbors_mean``,
@@ -72,6 +73,28 @@ class InMemoryDataset:
         if self.type_names is not None:
             return len(self.type_names)
         return int(max(int(f[keys.ATOM_TYPES].max()) for f in self.frames)) + 1
+
+
+def sgdml_npz_dataset(path: str, r_max: float, type_names: Optional[Sequence[str]] = None,
+                      n_frames: Optional[int] = None, offset: int = 0) -> InMemoryDataset:
+    """An sGDML-format ``.npz`` (keys ``R`` [n, N, 3], ``z`` [N], ``E`` [n],
+    ``F`` [n, N, 3]), frames ``offset`` to ``offset + n_frames``; the type
+    names default to the species present, in order of atomic number."""
+    raw = np.load(path)
+    R, z, E, F = raw["R"], raw["z"], raw["E"].reshape(-1), raw["F"]
+    if type_names is None:
+        type_names = [CHEMICAL_SYMBOLS[int(zz)] for zz in sorted(set(z.tolist()))]
+    sel = slice(offset, offset + n_frames if n_frames is not None else None)
+    frames = [
+        {
+            keys.POSITIONS: R[k],
+            keys.ATOMIC_NUMBERS: z.astype(np.int32),
+            keys.TOTAL_ENERGY: np.asarray([E[k]], dtype=np.float64),
+            keys.FORCES: F[k],
+        }
+        for k in range(len(R))[sel]
+    ]
+    return InMemoryDataset(frames, r_max, type_names=type_names)
 
 
 def synthetic_molecular_frames(n_frames: int, n_atoms: int = 21, n_types: int = 3,

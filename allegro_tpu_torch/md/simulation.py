@@ -185,7 +185,8 @@ class Simulation:
             pos = pos.detach().requires_grad_(True)
             data = dict(self._static)
             data[keys.POSITIONS] = pos
-            energy = self.model.apply(data)[keys.TOTAL_ENERGY].sum()
+            # frozen parameters: no weight-gradient kernel runs for the forces
+            energy = self.model.apply(data, frozen=True)[keys.TOTAL_ENERGY].sum()
             (grad,) = torch.autograd.grad(energy, pos)
         return energy.detach(), -grad
 

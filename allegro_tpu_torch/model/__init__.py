@@ -1,7 +1,8 @@
-"""Model builders and the JAX parameter converter."""
+"""Model builders, model modifiers and the JAX parameter converter."""
 
 from .builders import (
     MODEL_BUILDERS,
+    MODEL_MODIFIERS,
     AllegroEnergyModel,
     AllegroModel,
     FieldMLP,
@@ -9,11 +10,13 @@ from .builders import (
     FullAllegroModel,
     FusedEdgeReadoutSum,
     Model,
+    modify,
 )
 from .convert import params_from_jax
 
 __all__ = [
     "MODEL_BUILDERS",
+    "MODEL_MODIFIERS",
     "AllegroEnergyModel",
     "AllegroModel",
     "FieldMLP",
@@ -21,5 +24,6 @@ __all__ = [
     "FullAllegroModel",
     "FusedEdgeReadoutSum",
     "Model",
+    "modify",
     "params_from_jax",
 ]

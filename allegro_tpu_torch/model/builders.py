@@ -3,9 +3,11 @@
 The same config-facing builders and keyword names, so a JAX builder config
 builds the same model here: edge normalization → radial-chemical embed →
 scalar-embed MLP → SH tensor embed → Allegro layers → edge readout → edge
-sum (× 1/sqrt(2·avg_num_neighbors)) → per-type scale/shift → atomwise sum.
-The stage names are the JAX package's, and ``model/convert.py`` carries JAX
-parameters over.
+sum (× 1/sqrt(2·avg_num_neighbors)) → per-type scale/shift → optional ZBL
+pair potential → atomwise sum. The stage names are the JAX package's, and
+``model/convert.py`` carries JAX parameters over. The model modifiers
+(``MODEL_MODIFIERS``, ``modify``) rebuild a model on another TP backend with
+the same parameters.
 
 Options the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item; none of them runs silently on something else.
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..data import keys
+from ..data.datasets import ATOMIC_NUMBERS
 from ..lib.irreps import Irreps
 from ..nn import (
     AllegroLayers,
@@ -31,6 +34,7 @@ from ..nn import (
     SequentialGraphNet,
     TwoBodyBesselScalarEmbed,
     TwoBodySphericalHarmonicTensorEmbed,
+    ZBLPairPotential,
     force_stress_wrapper,
 )
 from ..nn.mlp import silu
@@ -53,6 +57,14 @@ MODEL_BUILDERS: Dict[str, Callable] = {}
 
 def model_builder(fn: Callable) -> Callable:
     MODEL_BUILDERS[fn.__name__] = fn
+    return fn
+
+
+MODEL_MODIFIERS: Dict[str, Callable] = {}
+
+
+def model_modifier(fn: Callable) -> Callable:
+    MODEL_MODIFIERS[fn.__name__] = fn
     return fn
 
 
@@ -182,18 +194,28 @@ class Model:
             out[k] = torch.as_tensor(v, device=like.device) if isinstance(like, torch.Tensor) else v
         return out
 
-    def apply(self, data: Dict) -> Dict:
-        """Energy-only forward pass."""
+    def apply(self, data: Dict, frozen: bool = False) -> Dict:
+        """Energy-only forward pass. ``frozen``: with the parameters detached,
+        so no autograd pass through the result reaches them (the force call
+        and MD, whose derivatives are in the positions only)."""
         _pin_fp32_matmuls()
-        return self.module(data)
+        if not frozen:
+            return self.module(data)
+        params = {k: p.detach() for k, p in self.module.named_parameters()}
+        return torch.func.functional_call(self.module, params, (data,))
 
     def apply_with_derivatives(self, data: Dict, create_graph: bool = False) -> Dict:
         """Forward + forces (and virial/stress when a cell is present).
         ``create_graph``: keep the graph of the derivatives, so a loss on the
         forces can be differentiated in the parameters (training); otherwise
-        the outputs are plain values (the force call)."""
+        the outputs are plain values (the force call), evaluated with the
+        parameters frozen: ``ctx.needs_input_grad`` is fixed when a kernel's
+        Function runs forward, so with live parameters the force call would
+        also launch the weight-gradient kernels whose result nobody reads
+        (JAX's transposes skip them)."""
         _pin_fp32_matmuls()
-        return force_stress_wrapper(self.module, create_graph=create_graph)(data)
+        return force_stress_wrapper(lambda d: self.apply(d, frozen=not create_graph),
+                                    create_graph=create_graph)(data)
 
     def __call__(self, data: Dict) -> Dict:
         if self.has_derivatives:
@@ -280,8 +302,6 @@ def FullAllegroEnergyModel(
         raise _not_ported("tp_chunk_edges", "queue 1, item 6")
     if per_edge_type_cutoff is not None:
         raise _not_ported("per_edge_type_cutoff", "queue 1, item 7")
-    if pair_potential is not None:
-        raise _not_ported("pair_potential (ZBL)", "queue 1, item 7")
     if not weight_individual_irreps:
         raise _not_ported("weight_individual_irreps=False", "queue 1, item 7")
     if allow_tf32 or precision not in (None, "highest"):
@@ -368,8 +388,10 @@ def FullAllegroEnergyModel(
                 dtype=dtype,
             ),
         ),
-        ("total_energy_sum", AtomwiseReduce()),
     ]
+    if pair_potential is not None:
+        layers.append(("pair_potential", _zbl(pair_potential, r_max)))
+    layers.append(("total_energy_sum", AtomwiseReduce()))
     config = dict(
         r_max=r_max,
         type_names=tuple(type_names),
@@ -383,6 +405,67 @@ def FullAllegroEnergyModel(
     )
     return Model(SequentialGraphNet(layers), dtype, config, has_derivatives=False,
                  builder_kwargs=_kwargs)
+
+
+def _zbl(cfg, r_max: float) -> ZBLPairPotential:
+    """The ``pair_potential`` stage from its config block: ``_target_`` ZBL,
+    the atomic numbers as ``type_to_Z`` or as ``chemical_species`` names."""
+    cfg = dict(cfg)
+    target = cfg.pop("_target_", "allegro_tpu.nn.ZBLPairPotential")
+    if target.rsplit(".", 1)[-1] not in ("ZBL", "ZBLPairPotential"):
+        raise ValueError(f"unknown pair_potential {target}")
+    type_to_Z = cfg.pop("type_to_Z", None) or cfg.pop("chemical_species", None)
+    if type_to_Z is None:
+        raise ValueError("pair_potential needs type_to_Z or chemical_species")
+    if isinstance(type_to_Z[0], str):
+        type_to_Z = [ATOMIC_NUMBERS[s] for s in type_to_Z]
+    return ZBLPairPotential(type_to_Z=type_to_Z, r_max=r_max)
+
+
+def _rebuild(model: Model, **overrides) -> Model:
+    """The model built again from its builder kwargs with ``overrides``,
+    carrying its parameters (``state_dict``), its device and whether it
+    computes derivatives."""
+    kwargs = {**model.builder_kwargs, **overrides}
+    new = FullAllegroEnergyModel(**kwargs)
+    new.has_derivatives = model.has_derivatives
+    state = model.state_dict()
+    new.load_state_dict(state)
+    device = next((v.device for v in state.values()), None)
+    return new if device is None else new.to(device)
+
+
+@model_modifier
+def enable_PallasContracter(model: Model) -> Model:
+    """The TP on the per-edge sparse kernel (``pallas``), the parameters kept."""
+    return _rebuild(model, tp_kernel_backend="pallas")
+
+
+@model_modifier
+def enable_EinsumContracter(model: Model) -> Model:
+    return _rebuild(model, tp_kernel_backend="einsum")
+
+
+@model_modifier
+def enable_FusedContracter(model: Model) -> Model:
+    """The TP on the trainable fused kernels (``fused``), the parameters kept."""
+    return _rebuild(model, tp_kernel_backend="fused")
+
+
+# the reference configs' names for its Triton and cuEquivariance backends
+MODEL_MODIFIERS["enable_TritonContracter"] = enable_FusedContracter
+MODEL_MODIFIERS["enable_CuEquivarianceContracter"] = enable_FusedContracter
+
+
+def modify(model: Model, modifiers) -> Model:
+    """Apply named modifiers (names or ``{"modifier": name}`` dicts) in order."""
+    for m in modifiers:
+        if isinstance(m, dict):
+            m = m.get("modifier")
+        if m not in MODEL_MODIFIERS:
+            raise ValueError(f"unknown model modifier {m}; known: {sorted(MODEL_MODIFIERS)}")
+        model = MODEL_MODIFIERS[m](model)
+    return model
 
 
 @model_builder

@@ -13,6 +13,7 @@ from .allegro import AllegroLayers, compute_irreps_ladder
 from .edgewise import EdgewiseReduce
 from .atomwise import AtomwiseReduce, PerTypeScaleShift
 from .grad import force_stress_wrapper
+from .pair_potential import ZBLPairPotential
 
 __all__ = [
     "ScalarMLP",
@@ -33,4 +34,5 @@ __all__ = [
     "AtomwiseReduce",
     "PerTypeScaleShift",
     "force_stress_wrapper",
+    "ZBLPairPotential",
 ]

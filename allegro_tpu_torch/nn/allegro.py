@@ -9,7 +9,7 @@ concat of all scalar blocks so far, sliced into the next scalar block and
 the next env weights.
 
 The scatter factor is applied exactly once: in ``env_sum`` on the einsum
-backend, folded into the last weight columns of the MLPs that produce env
+and pallas backends, folded into the last weight columns of the MLPs that produce env
 weights on the kernel backends (``fused_infer``, and ``fused``, the
 trainable one).
 
@@ -33,7 +33,7 @@ from .channels import MakeWeightedChannels, device_index
 from .contract import Contracter
 from .mlp import ScalarMLP, silu
 
-BACKENDS = ("einsum", "fused", "fused_infer")
+BACKENDS = ("einsum", "fused", "fused_infer", "pallas")
 
 
 def compute_irreps_ladder(irreps_sh: Irreps, allowed: Irreps, num_layers: int) -> List[Irreps]:
@@ -167,7 +167,8 @@ class AllegroLayers(nn.Module):
         n_atoms = data[keys.POSITIONS].shape[0]
         centers = data[keys.EDGE_INDEX][0]
         sh = data[keys.EDGE_ATTRS].to(self.dtype)
-        fused = self.backend != "einsum"
+        # pallas is the einsum layer with the contraction on its kernel: no statics
+        fused = self.backend in ("fused", "fused_infer")
         if fused:
             if keys.CENTER_ROW_PTR not in data:
                 raise ValueError(

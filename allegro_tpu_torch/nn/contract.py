@@ -1,12 +1,15 @@
 """Channelwise Clebsch–Gordan tensor product fused with the neighbor
 environment sum (twin of ``allegro_tpu/nn/contract.py``).
 
-The tensor track is flat dim-major ``[E, d*U]``. Two backends share one
+The tensor track is flat dim-major ``[E, d*U]``. The backends share one
 parameter set (``path_weights``, ``(mul, P)`` with path-channel coupling,
 else ``(P,)``):
 
 - ``"einsum"``: plain torch — ``env_sum`` (scatter edges → atoms, gather
   back) then ``contract`` (a static loop over the first input's basis dims).
+- ``"pallas"``: ``env_sum`` as on einsum, then ``sparse_tp_layer``, the
+  per-edge sparse CG kernel (``csrc/sparse_tp.cu``) behind the closed
+  family ``SparseTp`` / ``SparseTpGradW`` (differentiable to any order).
 - ``"fused_infer"``: ``fused_layer_infer``, the four CUDA kernels (their
   plain versions on the CPU); the mega-fused layers of ``nn/allegro.py``
   drive the kernels themselves with ``fused_infer_parts``.
@@ -27,8 +30,8 @@ from ..lib.irreps import Irreps
 from ..lib.wigner import wigner_3j
 from ..ops.fused_primitives import FusedStatics, fused_layer, fused_layer_infer
 from ..ops.fused_tp import gather_rows, segment_sum, swap_entries
-
-Entry = Tuple[int, int, int, int, float]  # (i, j, k, p, c)
+from ..ops.pallas_contract import Entry, role_tables
+from ..ops.tp_primitives import TpStatics, sparse_tp_layer
 
 
 def enumerate_instructions(
@@ -73,8 +76,9 @@ def sparse_entries(w3j_packed: np.ndarray, tol: float = 1e-12) -> Tuple[Entry, .
 
 class Contracter(nn.Module):
     """``forward(x1 [E, d1*U], x2 [E, d2*U], centers [E], n_atoms)`` →
-    ``[E, d_out*U]`` on the einsum backend; ``fused_call`` on the kernel
-    backends (``kernel_backend`` "fused_infer" or "fused")."""
+    ``[E, d_out*U]`` on the ``einsum`` and ``pallas`` backends;
+    ``fused_call`` on the fused kernel backends (``kernel_backend``
+    "fused_infer" or "fused")."""
 
     def __init__(
         self,
@@ -117,6 +121,11 @@ class Contracter(nn.Module):
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
         self.register_buffer("dim_to_irr", torch.tensor(dim_to_irr, dtype=torch.int32),
                              persistent=False)
+        if kernel_backend == "pallas":
+            # the table in every role order of the transposes, built once
+            tp_idx, tp_coef = role_tables(entries, dtype)
+            self.register_buffer("tp_idx", tp_idx, persistent=False)
+            self.register_buffer("tp_coef", tp_coef, persistent=False)
 
     @property
     def num_paths(self) -> int:
@@ -152,7 +161,13 @@ class Contracter(nn.Module):
         return out.reshape(E, self.d3 * U)
 
     def forward(self, x1, x2, centers, n_atoms: int) -> torch.Tensor:
-        return self.contract(x1, self.env_sum(x2, centers, n_atoms))
+        env = self.env_sum(x2, centers, n_atoms)
+        if self.kernel_backend == "pallas":
+            st = TpStatics(self.tp_idx, self.tp_coef, (self.d1, self.d2, self.d3),
+                           self.num_paths)
+            w = self._w_up(x1.dtype).T.contiguous()  # [P, U]
+            return sparse_tp_layer(x1.contiguous(), env.contiguous(), w, st)
+        return self.contract(x1, env)
 
     def fused_infer_parts(self, dtype):
         """(wk [P, U], entry_idx, entry_coef) for the fused kernels; the

@@ -58,6 +58,8 @@ LAUNCHES: Dict[str, int] = {
     "center_gather": 0, "center_sum": 0, "readout_sum": 0, "readout_bwd": 0,
     "latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0,
     "tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0,
+    # the `pallas` backend's two, whose wrappers are in ops/pallas_contract.py
+    "sparse_tp": 0, "sparse_tp_gradw": 0,
 }
 
 

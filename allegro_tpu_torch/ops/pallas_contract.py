@@ -1,0 +1,157 @@
+"""The ``pallas`` backend's kernels: wrappers, plain versions, entry tables
+(twin of ``allegro_tpu/ops/pallas_contract.py``).
+
+The per-edge sparse Clebsch–Gordan tensor product
+``out[e, kU+u] = Σ_{(i,j,k,p,c)} c·w[p,u]·a[e,iU+u]·b[e,jU+u]`` and its weight
+transpose, on the port's flat dim-major track ``[E, d*U]`` with weights
+``[P, U]``. The TPU kernels' 128-lane packing ``[d, E*U/128, 128]``, lane-tiled
+weights and row padding are TPU mechanics and are not carried over.
+
+| wrapper | replaces (allegro_tpu/ops/pallas_contract.py) |
+| --- | --- |
+| ``sparse_tp`` | ``_run_tp`` / ``_tp_kernel`` |
+| ``sparse_tp_gradw`` | ``_run_gradw`` / ``_gradw_kernel`` |
+
+Both are in ``csrc/sparse_tp.cu``. As in ``ops/fused_tp.py``: a CPU tensor
+goes to the plain version (``*_reference``), a CUDA tensor to the kernel on
+the current stream (the wrapper raises if the launch fails; there is no
+fallback), and ``fused_tp.LAUNCHES[name]`` counts the launches.
+
+An entry table may come in any of the six role orders of :data:`ROLES`: the
+transposes of the derivative family (``ops/tp_primitives.py``) are the same
+kernel on permuted tables.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .fused_tp import (
+    _cg_tensor,
+    _check_entries,
+    _check_kernel_args,
+    _launch,
+    _on_cpu,
+    _path_tensor,
+)
+
+Entry = Tuple[int, int, int, int, float]  # (i, j, k, p, c)
+
+# The role orders of a table: order r maps an entry (i, j, k) to
+# (e[r[0]], e[r[1]], e[r[2]]); order 0 is the table itself.
+ROLES = tuple(itertools.permutations(range(3)))
+
+
+def permute_entries(entries: Sequence[Entry], roles: Tuple[int, int, int]) -> Tuple[Entry, ...]:
+    """The table with its (i, j, k) roles permuted, sorted by the new (i, j, k)
+    as JAX's ``_swap_a_out`` / ``_swap_b_out`` / ``_perm_gradw_a`` sort theirs:
+    ``(2, 1, 0)`` is the a-swap, ``(0, 2, 1)`` the b-swap, ``(1, 2, 0)`` the
+    a-transpose of the weight gradient."""
+    out = [(e[roles[0]], e[roles[1]], e[roles[2]], e[3], e[4]) for e in entries]
+    return tuple(sorted(out, key=lambda e: (e[0], e[1], e[2])))
+
+
+def role_tables(entries: Sequence[Entry], dtype: torch.dtype):
+    """The table in every order of :data:`ROLES`: idx ``[6, n, 4]`` int32
+    (i, j, k, p) and coef ``[6, n]`` in ``dtype``."""
+    tables = [permute_entries(entries, r) for r in ROLES]
+    idx = np.array([[e[:4] for e in t] for t in tables], dtype=np.int32).reshape(6, -1, 4)
+    coef = np.array([[e[4] for e in t] for t in tables], dtype=np.float64).reshape(6, -1)
+    return torch.from_numpy(idx), torch.from_numpy(coef).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def sparse_tp_reference(a, b, w, entry_idx, entry_coef, d3):
+    E, U = a.shape[0], w.shape[1]
+    d1, d2 = a.shape[1] // U, b.shape[1] // U
+    ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)  # [U, d1, d2, d3]
+    av, bv = a.view(E, d1, U), b.view(E, d2, U)
+    out = a.new_zeros((E, d3, U))
+    for i in range(d1):
+        out = out + av[:, i : i + 1, :] * torch.einsum("eju,ujk->eku", bv, ww[:, i])
+    return out.reshape(E, d3 * U)
+
+
+def sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U):
+    E = a.shape[0]
+    d1, d2, d3 = a.shape[1] // U, b.shape[1] // U, g.shape[1] // U
+    C = _cg_tensor(a, entry_idx, entry_coef, n_paths, d1, d2, d3)
+    av, bv, gv = a.view(E, d1, U), b.view(E, d2, U), g.view(E, d3, U)
+    gw = a.new_zeros((n_paths, U))
+    for i in range(d1):
+        t = torch.einsum("eju,eku->jku", av[:, i : i + 1, :] * bv, gv)  # [d2, d3, U]
+        gw = gw + torch.einsum("pjk,jku->pu", C[:, i], t)
+    return gw
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int) -> torch.Tensor:
+    """out [E, d3*U]: ``out[e, kU+u] = Σ c w[p,u] a[e,iU+u] b[e,jU+u]``.
+    a [E, d1*U], b [E, d2*U], w [P, U], entries (i, j, k, p) / c in any role
+    order; dims up to 32 and P up to 255 on the card.
+
+    Replaces ``_tp_kernel``. Bound by the reads of a and b and the write of
+    out; one thread per (edge, channel), coalesced rows, the table and w in
+    shared memory."""
+    E, U = a.shape[0], w.shape[1]
+    _check_entries(entry_idx, entry_coef)
+    if a.ndim != 2 or b.ndim != 2 or w.ndim != 2 or b.shape[0] != E or a.shape[1] % U \
+            or b.shape[1] % U:
+        raise ValueError(
+            f"sparse_tp shapes: a {tuple(a.shape)}, b {tuple(b.shape)}, w {tuple(w.shape)}"
+        )
+    if _on_cpu(a, b, w, entry_idx, entry_coef):
+        return sparse_tp_reference(a, b, w, entry_idx, entry_coef, d3)
+    _check_kernel_args({"a": a, "b": b, "w": w, "entry_coef": entry_coef},
+                       {"entry_idx": entry_idx})
+    out = torch.empty((E, d3 * U), dtype=a.dtype, device=a.device)
+    if E > 0:
+        _launch("sparse_tp", "atpt_sparse_tp", a.device,
+                a.data_ptr(), b.data_ptr(), w.data_ptr(), entry_idx.data_ptr(),
+                entry_coef.data_ptr(), entry_idx.shape[0], E, a.shape[1] // U, b.shape[1] // U,
+                d3, U, w.shape[0], out.data_ptr())
+    return out
+
+
+_GRADW_MAX_BLOCKS = 1024  # kGradwMaxBlocks of csrc/sparse_tp.cu (partials [blocks, P, U])
+
+
+def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int) -> torch.Tensor:
+    """gw [n_paths, U]: ``gw[p, u] = Σ_e Σ_{(i,j,k)∈p} c a[e,iU+u] b[e,jU+u]
+    g[e,kU+u]``, the w-transpose of ``sparse_tp``. a [E, d1*U], b [E, d2*U],
+    g [E, d3*U].
+
+    Replaces ``_gradw_kernel``. Bound by the reads of a, b and g; per-block
+    partials summed in a second launch in block order (no float atomics)."""
+    E = a.shape[0]
+    _check_entries(entry_idx, entry_coef)
+    if (a.ndim != 2 or b.ndim != 2 or g.ndim != 2 or b.shape[0] != E or g.shape[0] != E
+            or a.shape[1] % U or b.shape[1] % U or g.shape[1] % U):
+        raise ValueError(
+            f"sparse_tp_gradw shapes: a {tuple(a.shape)}, b {tuple(b.shape)}, "
+            f"g {tuple(g.shape)}, U={U}"
+        )
+    if _on_cpu(a, b, g, entry_idx, entry_coef):
+        return sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U)
+    _check_kernel_args({"a": a, "b": b, "g": g, "entry_coef": entry_coef},
+                       {"entry_idx": entry_idx})
+    n_blocks = max(1, min(_GRADW_MAX_BLOCKS, -(-E // 64)))
+    partial = torch.empty((n_blocks, n_paths, U), dtype=a.dtype, device=a.device)
+    gw = torch.empty((n_paths, U), dtype=a.dtype, device=a.device)
+    _launch("sparse_tp_gradw", "atpt_sparse_tp_gradw", a.device,
+            a.data_ptr(), b.data_ptr(), g.data_ptr(), entry_idx.data_ptr(),
+            entry_coef.data_ptr(), entry_idx.shape[0], E, a.shape[1] // U, b.shape[1] // U,
+            g.shape[1] // U, U, n_paths, n_blocks, partial.data_ptr(), gw.data_ptr())
+    return gw

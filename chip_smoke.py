@@ -57,6 +57,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    torch.profiler breakdown of 3 steps; (c) on the first step of each
    batch, the parameter gradients against the ``einsum`` backend from the
    same weights (max-abs error over max-abs < 1e-4 per tensor).
+6. the ``pallas`` backend (kernels 20 and 21, ``csrc/sparse_tp.cu``): (a)
+   ``sparse_tp`` and ``sparse_tp_gradw`` against their plain versions on
+   the crystal's 103,532 edges at both layer dims, on the layer's table and
+   its a- and b-swaps, with and without path-channel coupling (1e-5), with
+   median times, the bound and the one PyTorch call computing the same
+   function (``torch.einsum`` with the dense CG tensor; "OOM" where it runs
+   out of memory); (b) 5 force calls of the flagship on ``pallas`` with
+   exact launch counts (6 ``sparse_tp``, nothing else), held to ``einsum``
+   as in phase 3, and its µs/atom; (c) phase 5b/5c on ``pallas``: 10 Adam
+   steps on each batch with the exact launch counts of every step, the loss
+   falls, first-step gradients within 1e-4 of ``einsum``'s; (d) the command
+   line in subprocesses, as shipped: ``python -m allegro_tpu_torch md -c
+   configs/md.yaml`` (1,000 atoms, 200 steps on ``pallas``), ``run -c
+   configs/tutorial.yaml`` (train + test, ``einsum`` + ZBL) and the same with
+   ``model.tp_kernel_backend: pallas``; each must exit 0 and write its log,
+   checkpoints and test metrics, with the exact launch counts of its run.
 
 The last two lines of stdout are a JSON object with the kernels' records and
 the JSON result ``{"ok": true, "device": {...}}``. A kernel's ``ms`` and
@@ -65,7 +81,10 @@ the JSON result ``{"ok": true, "device": {...}}``. A kernel's ``ms`` and
 ``use_mega=False``: ``fused readout``, where all their launches are; for
 the trainable backend's four, ``train step``: one launch per layer), and
 ``launches`` counts their launches in the 5 force calls of that
-configuration (the 10 training steps on the 1k batch). ``bound_ms`` is the
+configuration (the 10 training steps on the 1k batch). ``sparse_tp`` is
+timed on the ``pallas`` force call (its 6 launches: each layer's table and
+both swaps), ``sparse_tp_gradw`` on the ``pallas`` training step (one launch
+per layer and table order, 6 of its 8 per step). ``bound_ms`` is the
 least time of the same work on the card (the bytes of the inputs read once
 and the outputs written once at 3.35 TB/s, or the FLOPs at 67 TFLOP/s f32,
 the larger; ``bound_by`` says which), ``library_ms`` the time of one
@@ -80,7 +99,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -120,6 +141,8 @@ SOURCES = {
     "gather_dw": "allegro_tpu_torch/csrc/train_tp.cu",
     "unweight_sh": "allegro_tpu_torch/csrc/train_tp.cu",
     "unweight_w": "allegro_tpu_torch/csrc/train_tp.cu",
+    "sparse_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
+    "sparse_tp_gradw": "allegro_tpu_torch/csrc/sparse_tp.cu",
 }
 REPLACES = {
     "latent_env_scatter": "allegro_tpu/ops/fused_tp.py:1701",
@@ -140,14 +163,17 @@ REPLACES = {
     "gather_dw": "allegro_tpu/ops/fused_tp.py:907",
     "unweight_sh": "allegro_tpu/ops/fused_tp.py:1159",
     "unweight_w": "allegro_tpu/ops/fused_tp.py:1588",
+    "sparse_tp": "allegro_tpu/ops/pallas_contract.py:84",
+    "sparse_tp_gradw": "allegro_tpu/ops/pallas_contract.py:102",
 }
 # TPU kernels (ROADMAP.md queue 2) that each wrapper serves
 SERVES = {"env_scatter": [1], "gather_tp": [2, 13], "bwd_fused": [3], "unweight_both": [4],
           "center_gather": [5], "center_sum": [6], "latent_env_scatter": [7],
           "latent_env_bwd": [8], "gather_tp_embed": [9], "bwd_embed": [10], "readout_sum": [11],
           "readout_bwd": [12], "tp_scatter": [14], "gather_dw": [15], "unweight_sh": [16],
-          "unweight_w": [17]}
+          "unweight_w": [17], "sparse_tp": [20], "sparse_tp_gradw": [21]}
 TRAIN_KERNELS = ("tp_scatter", "gather_dw", "unweight_sh", "unweight_w")
+PALLAS_KERNELS = ("sparse_tp", "sparse_tp_gradw")
 # launches per force call of the 2-layer flagship on fused_infer. All
 # configurations: the two position gathers (center and neighbor side) and
 # their transposes, the two force scatters. mega: the first projection and
@@ -160,7 +186,7 @@ TRAIN_KERNELS = ("tp_scatter", "gather_dw", "unweight_sh", "unweight_w")
 # each, none of the readout.
 LAYER_KERNELS = ("env_scatter", "gather_tp", "bwd_fused", "unweight_both")
 _NO_MEGA = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
-_NO_TRAIN = {name: 0 for name in TRAIN_KERNELS}
+_NO_TRAIN = {name: 0 for name in (*TRAIN_KERNELS, *PALLAS_KERNELS)}
 PER_CALL = {
     "mega": {"latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1,
              "env_scatter": 0, "gather_tp": 1, "bwd_fused": 1, "unweight_both": 0,
@@ -194,6 +220,21 @@ PER_CALL = {
 PER_STEP = {**{name: 0 for name in PER_CALL["mega"]},
             "env_scatter": 6, "gather_tp": 12, "tp_scatter": 6, "gather_dw": 8,
             "unweight_sh": 6, "unweight_w": 6, "center_gather": 6, "center_sum": 3}
+# the pallas backend: the env sum is plain torch and there are no CSR
+# statics, so per force call only sparse_tp runs: per layer the forward and
+# its two input transposes (a- and b-swapped tables); the parameters are
+# frozen in the force call, so no sparse_tp_gradw
+PER_CALL["pallas"] = {**{name: 0 for name in PER_CALL["mega"]}, "sparse_tp": 6}
+# per training step on pallas, per layer: the forward SparseTp (1); the force
+# backward (create_graph) runs its three transposes, two sparse_tp and one
+# sparse_tp_gradw (needs_input_grad is fixed at forward time: the loss never
+# reads that weight gradient); the parameter backward runs the three
+# transposes of the forward node and of the force backward's two SparseTp
+# nodes (6 sparse_tp, 3 sparse_tp_gradw; its SparseTpGradW node feeds nothing
+# the loss reads and is not run). Per step: 9 L sparse_tp, 4 L
+# sparse_tp_gradw (L = 2 layers).
+PER_STEP_PALLAS = {**{name: 0 for name in PER_CALL["mega"]}, "sparse_tp": 18,
+                   "sparse_tp_gradw": 8}
 MD_BLOCKS = 10
 MD_STEPS_PER_BLOCK = 10
 MD = dict(masses=[1.0, 1.0, 1.0], r_max=R_MAX, dt=0.01, skin=0.2,
@@ -212,6 +253,21 @@ MOL_FRAMES, MOL_ATOMS, MOL_SPREAD = 16, 21, 3.0
 TRAIN_STEPS = 10
 TRAIN_REPEAT_STEPS = 3
 GRAD_TOL = 1e-4
+REPO = Path(__file__).resolve().parent
+# phase 6d: the CLI as a user runs it (``python -m allegro_tpu_torch ...`` is
+# runpy.run_module), then the launch counts of that process's run
+CLI_DRIVER = """
+import json, runpy, sys
+from allegro_tpu_torch.ops import fused_tp
+sys.argv = ["allegro_tpu_torch", *sys.argv[1:]]
+try:
+    runpy.run_module("allegro_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+print("LAUNCHES " + json.dumps(fused_tp.LAUNCHES))
+"""
+CLI_TIMEOUT = 400
 
 
 def crystal_frame(n_atoms, r_max, seed):
@@ -579,6 +635,63 @@ def check_train_kernels(tps, data, rng, records=None):
                            label, records, (x, env, w, centers, *tab), 3 * Er * n * U)
 
 
+def check_pallas_kernels(tps, n_edges, dev, rng, records):
+    """Phase 6a: ``sparse_tp`` and ``sparse_tp_gradw`` against their plain
+    versions on ``n_edges`` rows, at each layer's dims, on its table and both
+    swaps (the tables of the force call's transposes), ``sparse_tp`` with
+    and without path-channel coupling (the weights of one path equal across
+    channels). Timed (coupled): the median times, summed over the two layers
+    and three table orders, with the one ``torch.einsum`` call that computes
+    the same function from the dense CG tensor (None and "OOM" printed where
+    it runs out of device memory)."""
+    from allegro_tpu_torch.ops import fused_tp
+    from allegro_tpu_torch.ops import pallas_contract as pc
+    from allegro_tpu_torch.ops.tp_primitives import SWAP_A, SWAP_B, compose
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    E = n_edges
+    for layer, tp in enumerate(tps):
+        U, P = tp.mul, tp.num_paths
+        for tag, r in (("table", 0), ("swap_a", compose(0, SWAP_A)), ("swap_b", compose(0, SWAP_B))):
+            d1, d2, d3 = ((tp.d1, tp.d2, tp.d3)[s] for s in pc.ROLES[r])
+            idx, coef = tp.tp_idx[r], tp.tp_coef[r]
+            n = idx.shape[0]
+            a, b, g = rand(E, d1 * U), rand(E, d2 * U), rand(E, d3 * U)
+            a3, b3, g3 = a.view(E, d1, U), b.view(E, d2, U), g.view(E, d3, U)
+            C = fused_tp._cg_tensor(a, idx, coef, P, d1, d2, d3)
+            label = f"U {U} layer {layer} {tag:6s} dims ({d1},{d2},{d3}) entries {n:3d}"
+            for coupled in (True, False):
+                w = rand(P, U) if coupled else rand(P, 1).expand(P, U).contiguous()
+                timed = records if coupled else None
+                lib = _fits(lambda: torch.einsum("eiu,eju,pu,pijk->eku", a3, b3, w, C)) \
+                    if coupled else None
+                check_case("sparse_tp", lambda: (pc.sparse_tp(a, b, w, idx, coef, d3),),
+                           lambda: (pc.sparse_tp_reference(a, b, w, idx, coef, d3),),
+                           f"{label} {'coupled' if coupled else 'uncoupled'}", timed,
+                           (a, b, w, idx, coef), 3 * E * n * U, lib)
+            lib = _fits(lambda: torch.einsum("eiu,eju,eku,pijk->pu", a3, b3, g3, C))
+            check_case("sparse_tp_gradw", lambda: (pc.sparse_tp_gradw(a, b, g, idx, coef, P, U),),
+                       lambda: (pc.sparse_tp_gradw_reference(a, b, g, idx, coef, P, U),), label,
+                       records, (a, b, g, idx, coef), 4 * E * n * U, lib)
+            del a, b, g, a3, b3, g3, C
+            torch.cuda.empty_cache()
+
+
+def _fits(fn):
+    """``fn`` if one call of it fits in device memory, else None (and "OOM"
+    is printed): the library yardstick of a kernel."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except torch.cuda.OutOfMemoryError:
+        print("  library call: OOM")
+        torch.cuda.empty_cache()
+        return None
+
+
 def train_loaders():
     """The JAX bench's training batches (``run_train_bench_1k`` and
     ``run_train_bench``, allegro_tpu/bench.py:588-680): four 1,000-atom
@@ -598,15 +711,15 @@ def train_loaders():
             "21": DataLoader(InMemoryDataset(mols, R_MAX), batch_size=MOL_FRAMES)}
 
 
-def train_models(batch_np):
-    """The flagship on ``fused`` (random weights from SEED) and its ``einsum``
-    twin with the same weights, for one training batch."""
+def train_models(batch_np, backend="fused"):
+    """The flagship on ``backend`` (random weights from SEED) and its
+    ``einsum`` twin with the same weights, for one training batch."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.model import AllegroModel
 
     avg_n = float(batch_np[keys.EDGE_MASK].sum()) / float(batch_np[keys.NODE_MASK].sum())
     fused = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n,
-                         tp_kernel_backend="fused").init(SEED)
+                         tp_kernel_backend=backend).init(SEED)
     einsum = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n, tp_kernel_backend="einsum")
     einsum.load_state_dict(fused.state_dict())
     return fused, einsum
@@ -628,12 +741,13 @@ def peak_mib():
     return torch.cuda.max_memory_allocated() / 2**20
 
 
-def run_training(loaders, dev, smi):
-    """Phase 5b/5c on each batch: the gradient agreement of ``fused`` with
-    ``einsum`` on the first step (5c), then TRAIN_STEPS Adam steps through
-    ``Trainer.fit`` with the launch counts of every step (5b), two identical
-    runs of TRAIN_REPEAT_STEPS steps, and (1k batch) a torch.profiler trace
-    of 3 steps. Returns the launches of each batch's TRAIN_STEPS steps."""
+def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=("5c", "5b")):
+    """Phase 5b/5c (6c on ``pallas``; ``labels`` of the two) on each batch: the gradient agreement
+    of ``backend`` with ``einsum`` on the first step, then TRAIN_STEPS Adam
+    steps through ``Trainer.fit`` with the launch counts of every step
+    (``per_step``), two identical runs of TRAIN_REPEAT_STEPS steps, and (1k
+    batch, ``fused``) a torch.profiler trace of 3 steps. Returns the launches
+    of each batch's TRAIN_STEPS steps."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -641,33 +755,33 @@ def run_training(loaders, dev, smi):
     for name, loader in loaders.items():
         batch_np = next(iter(loader))
         n_atoms, n_edges = int(batch_np[keys.NODE_MASK].sum()), int(batch_np[keys.EDGE_MASK].sum())
-        fused, einsum = train_models(batch_np)
+        fused, einsum = train_models(batch_np, backend)
         init = {k: v.clone() for k, v in fused.state_dict().items()}
         what = f"{name}: {loader.batch_size} frames, {n_atoms} atoms, {n_edges} edges"
         # 5c: the parameter gradients of the first step, fused against einsum
         grads, peaks = {}, {}
-        for backend, model in (("fused", fused), ("einsum", einsum)):
+        for which, model in ((backend, fused), ("einsum", einsum)):
             trainer = make_trainer(model, dev)
             state = trainer.init_state()
             data = trainer.to_device(batch_np)
             torch.cuda.reset_peak_memory_stats()
-            _, _, grads[backend] = trainer.loss_and_grads(state, data)
-            peaks[backend] = peak_mib()
+            _, _, grads[which] = trainer.loss_and_grads(state, data)
+            peaks[which] = peak_mib()
         ratios = {k: ((g - grads["einsum"][k]).abs().max() / grads["einsum"][k].abs().max()).item()
-                  for k, g in grads["fused"].items()}
+                  for k, g in grads[backend].items()}
         worst = max(ratios, key=ratios.get)
-        print(f"[5c] {what}: parameter gradients fused vs einsum, worst max-abs err / max-abs "
-              f"{ratios[worst]:.3e} ({worst}; < {GRAD_TOL}); peak of one step's gradient: "
-              f"fused {peaks['fused']:.1f} MiB, einsum {peaks['einsum']:.1f} MiB")
+        print(f"[{labels[0]}] {what}: parameter gradients {backend} vs einsum, worst max-abs err / "
+              f"max-abs {ratios[worst]:.3e} ({worst}; < {GRAD_TOL}); peak of one step's "
+              f"gradient: {backend} {peaks[backend]:.1f} MiB, einsum {peaks['einsum']:.1f} MiB")
         if not ratios[worst] < GRAD_TOL:
-            raise AssertionError(f"{name}: fused vs einsum gradient of {worst}: "
+            raise AssertionError(f"{name}: {backend} vs einsum gradient of {worst}: "
                                  f"{ratios[worst]:.3e}")
         del grads, einsum
         torch.cuda.empty_cache()
         # 5b: TRAIN_STEPS steps, one per fit call (the loader is one batch)
         trainer = make_trainer(fused, dev)
         state = trainer.init_state()
-        totals = {k: 0 for k in PER_STEP}
+        totals = {k: 0 for k in per_step}
         times = []
         torch.cuda.reset_peak_memory_stats()
         for step in range(TRAIN_STEPS):
@@ -676,9 +790,9 @@ def run_training(loaders, dev, smi):
             trainer.fit(state, loader, max_epochs=1)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            if fused_tp.LAUNCHES != PER_STEP:
+            if fused_tp.LAUNCHES != per_step:
                 raise AssertionError(f"{name} step {step}: launches {fused_tp.LAUNCHES}, "
-                                     f"expected {PER_STEP}")
+                                     f"expected {per_step}")
             for k, c in fused_tp.LAUNCHES.items():
                 totals[k] += c
         peak = peak_mib()
@@ -686,9 +800,9 @@ def run_training(loaders, dev, smi):
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"{name}: losses {losses} are not finite or did not fall")
         ms = 1e3 * float(np.median(times[1:]))
-        print(f"[5b] {what}: {TRAIN_STEPS} Adam steps on fused, loss {losses[0]:.6e} -> "
+        print(f"[{labels[1]}] {what}: {TRAIN_STEPS} Adam steps on {backend}, loss {losses[0]:.6e} -> "
               f"{losses[-1]:.6e}; launches per step "
-              f"{ {k: c for k, c in PER_STEP.items() if c} }")
+              f"{ {k: c for k, c in per_step.items() if c} }")
         print(f"    {ms:.3f} ms/step (median of steps 2-{TRAIN_STEPS}, host clock, statics and "
               f"upload included), {loader.batch_size / ms * 1e3:.2f} samples/s, peak "
               f"{peak:.1f} MiB; {smi}")
@@ -702,7 +816,7 @@ def run_training(loaders, dev, smi):
             runs.append({k: v.detach().clone() for k, v in s.params.items()})
         delta = max((runs[0][k] - runs[1][k]).abs().max().item() for k in runs[0])
         print(f"    max |dparam| of two identical runs of {TRAIN_REPEAT_STEPS} steps: {delta:.3e}")
-        if name == "1k":
+        if name == "1k" and backend == "fused":
             profile_steps(again, s, loader)
     return launches
 
@@ -734,6 +848,123 @@ def profile_steps(trainer, state, loader, steps=3):
           f"(profiled), idle {100 * (1 - busy * steps / span_ms):.1f}%; per step by name:")
     for ms, count, key in sorted(rows, reverse=True)[:16]:
         print(f"      {ms:9.4f} ms {count:6.1f}x  {key[:90]}")
+
+
+def drive_force_calls(phase, config, model, data, ref, n_atoms, n_rows):
+    """N_CALLS force calls with the exact launch counts of PER_CALL[config]
+    after each, the outputs held to ``ref`` (einsum), the run-to-run drift
+    of two calls and the µs/atom; returns (launches, µs/atom)."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    model.apply_with_derivatives(data)
+    torch.cuda.synchronize()
+    fused_tp.reset_launch_counts()
+    for call in range(1, N_CALLS + 1):
+        out = model.apply_with_derivatives(data)
+        want = {k: n * call for k, n in PER_CALL[config].items()}
+        if fused_tp.LAUNCHES != want:
+            raise AssertionError(f"{config}, force call {call}: launches "
+                                 f"{fused_tp.LAUNCHES}, expected {want}")
+    torch.cuda.synchronize()
+    launches = dict(fused_tp.LAUNCHES)
+    print(f"[{phase}] {N_CALLS} force calls, {config}; launches "
+          f"{ {k: c for k, c in launches.items() if c} }")
+    check_force_call(out, ref, n_atoms, n_rows)
+    again = model.apply_with_derivatives(data)
+    drift = (again[keys.FORCES] - out[keys.FORCES]).abs().max().item()
+    print(f"    run-to-run max |dforces| of two identical calls {drift:.3e}")
+    return launches, time_force_call(model, data, n_atoms)
+
+
+def cli_launches(config):
+    """The exact launch counts of one CLI run, derived from its config: on
+    ``pallas`` PER_CALL / PER_STEP_PALLAS scaled by the number of layers
+    (3 sparse_tp per layer and force call; 9 sparse_tp and 4
+    sparse_tp_gradw per layer and training step); ``einsum`` launches
+    nothing. ``md``: ``steps_per_block + 1`` force calls per block;
+    ``run``: the training steps, one validation pass per epoch and the test
+    pass, one force call per batch."""
+    counts = {k: 0 for k in PER_CALL["mega"]}
+    model = config["model"]
+    if model.get("tp_kernel_backend", "einsum") != "pallas":
+        return counts
+    L = int(model["num_layers"])
+    if "md" in config.get("run", []):
+        md = config["md"]
+        blocks = -(-int(md["n_steps"]) // int(md["steps_per_block"]))
+        counts["sparse_tp"] = 3 * L * blocks * (int(md["steps_per_block"]) + 1)
+        return counts
+    data, epochs = config["data"], int(config["trainer"]["max_epochs"])
+    batches = {k: -(-int(v) // int(data["batch_size"])) for k, v in data["split"].items()}
+    calls = epochs * batches["val"] + batches["test"]
+    steps = epochs * batches["train"]
+    counts["sparse_tp"] = 3 * L * calls + 9 * L * steps
+    counts["sparse_tp_gradw"] = 4 * L * steps
+    return counts
+
+
+def run_cli(smi):
+    """Phase 6d: ``python -m allegro_tpu_torch`` in subprocesses on the
+    shipped configs (``md -c configs/md.yaml``, ``run -c
+    configs/tutorial.yaml``) and on the tutorial with the ``pallas``
+    backend, each into a temporary workdir: exit 0, the exact launch counts
+    of the run, the files each writes, finite energies and test metrics.
+    Returns the launches by run."""
+    import yaml
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tutorial = yaml.safe_load((REPO / "configs/tutorial.yaml").read_text())
+        tutorial["model"]["tp_kernel_backend"] = "pallas"
+        pallas_cfg = Path(tmp) / "tutorial_pallas.yaml"
+        pallas_cfg.write_text(yaml.safe_dump(tutorial))
+        for name, args in (("md", ["md", "-c", "configs/md.yaml"]),
+                           ("tutorial", ["run", "-c", "configs/tutorial.yaml"]),
+                           ("tutorial_pallas", ["run", "-c", str(pallas_cfg)])):
+            workdir = Path(tmp) / name
+            cfg_path = Path(args[2]) if Path(args[2]).is_absolute() else REPO / args[2]
+            config = yaml.safe_load(cfg_path.read_text())
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", CLI_DRIVER, *args, "-w", str(workdir)],
+                                  cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(proc.stdout[-3000:])
+                print(proc.stderr[-3000:], file=sys.stderr)
+                raise AssertionError(f"CLI {' '.join(args)} exited {proc.returncode}")
+            lines = proc.stdout.splitlines()
+            launches = json.loads(lines[-1][len("LAUNCHES "):])
+            want = cli_launches(config)
+            if launches != want:
+                raise AssertionError(f"CLI {name}: launches {launches}, expected {want}")
+            out[name] = launches
+            print(f"[6d] python -m allegro_tpu_torch {' '.join(args)}: exit 0 in {seconds:.1f} s "
+                  f"(process start and kernel load included); launches "
+                  f"{ {k: c for k, c in launches.items() if c} }")
+            if name == "md":
+                log = json.loads((workdir / "md_log.json").read_text())
+                energies = [r["e_tot"] for r in log]
+                if len(log) != -(-config["md"]["n_steps"] // config["md"]["steps_per_block"]) \
+                        or not np.isfinite(energies).all():
+                    raise AssertionError(f"md_log.json: {log}")
+                print(f"    E_tot {energies[0]:.6f} -> {energies[-1]:.6f} over {log[-1]['step']} "
+                      f"steps")
+                print("    " + next(ln for ln in lines if ln.startswith("MD done")) + f"; {smi}")
+                continue
+            files = {p.name for p in workdir.iterdir()}
+            if not {"best.pt", "last.pt", "resolved_config.json"} <= files:
+                raise AssertionError(f"CLI {name} wrote {sorted(files)}")
+            metrics = json.loads(next(ln for ln in lines if ln.startswith("test metrics: "))
+                                 [len("test metrics: "):])
+            if not metrics or not np.isfinite(list(metrics.values())).all():
+                raise AssertionError(f"CLI {name}: test metrics {metrics}")
+            losses = [float(ln.split("train_loss=")[1].split()[0]) for ln in lines
+                      if ln.startswith("epoch=")]
+            print(f"    train_loss by epoch {[f'{x:.6f}' for x in losses]}; test metrics "
+                  f"{json.dumps(metrics)}")
+            print("    " + next(ln for ln in lines if ln.startswith("trained ")) + f"; {smi}")
+    return out
 
 
 def time_force_call(model, data, n_atoms, reps=10):
@@ -818,24 +1049,10 @@ def main() -> int:
     ref = einsum.apply_with_derivatives(einsum_data)
     us = {}
     launches = {}
+    n_rows = batch_np[keys.POSITIONS].shape[0]
     for config, model in (("mega", mega), ("fused readout", fused_ro), ("plain readout", fused)):
-        model.apply_with_derivatives(data)
-        torch.cuda.synchronize()
-        fused_tp.reset_launch_counts()
-        for call in range(1, N_CALLS + 1):
-            out = model.apply_with_derivatives(data)
-            want = {k: n * call for k, n in PER_CALL[config].items()}
-            if fused_tp.LAUNCHES != want:
-                raise AssertionError(f"{config}, force call {call}: launches "
-                                     f"{fused_tp.LAUNCHES}, expected {want}")
-        torch.cuda.synchronize()
-        launches[config] = dict(fused_tp.LAUNCHES)
-        print(f"[3] {N_CALLS} force calls on fused_infer, {config}; launches {launches[config]}")
-        check_force_call(out, ref, n_atoms, batch_np[keys.POSITIONS].shape[0])
-        again = model.apply_with_derivatives(data)
-        drift = (again[keys.FORCES] - out[keys.FORCES]).abs().max().item()
-        print(f"    run-to-run max |dforces| of two identical calls {drift:.3e}")
-        us[config] = time_force_call(model, data, n_atoms)
+        launches[config], us[config] = drive_force_calls("3", config, model, data, ref, n_atoms,
+                                                         n_rows)
     us["einsum"] = time_force_call(einsum, einsum_data, n_atoms)
     print("    force call: " + ", ".join(f"{k} {v:.3f} us/atom" for k, v in us.items())
           + f" ({n_atoms} atoms, f32; {smi})")
@@ -861,22 +1078,44 @@ def main() -> int:
     del train_data
     train_launches = run_training(loaders, dev, smi)
 
+    # phase 6: the pallas backend (kernels 20 and 21) and the CLI
+    pallas = AllegroModel(**FLAGSHIP, avg_num_neighbors=n_edges / n_atoms,
+                          tp_kernel_backend="pallas").to(dev)
+    pallas.load_state_dict(fused.state_dict())
+    print(f"[6] pallas kernels on the crystal's {n_edges} edges")
+    check_pallas_kernels(pallas.module.allegro.tps, n_edges, dev, rng, records)
+    pallas_data = to_torch(pallas.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+    launches["pallas"], us["pallas"] = drive_force_calls("6b", "pallas", pallas, pallas_data, ref,
+                                                         n_atoms, n_rows)
+    print(f"    force call: pallas {us['pallas']:.3f} us/atom, einsum {us['einsum']:.3f} us/atom "
+          f"({n_atoms} atoms, f32; {smi})")
+    del pallas_data
+    torch.cuda.empty_cache()
+    pallas_train = run_training(loaders, dev, smi, "pallas", PER_STEP_PALLAS, ("6c", "6c"))
+    cli = run_cli(smi)
+
     print(smi)
     print(json.dumps({"kernels": [kernel_record(name, records, launches, md_launches,
-                                                calc_launches, train_launches)
+                                                calc_launches, train_launches, pallas_train, cli)
                                   for name in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
-def kernel_record(name, records, launches, md_launches, calc_launches, train_launches):
+def kernel_record(name, records, launches, md_launches, calc_launches, train_launches,
+                  pallas_train, cli):
     """One entry of the ``kernels`` JSON line (see the module docstring)."""
     rec = records[name]
     # the four layer kernels are timed on the use_mega=False path, where all
-    # their launches are; the trainable backend's on the training step; the
-    # rest on the mega path
-    if name in TRAIN_KERNELS:
+    # their launches are; the trainable backend's on the training step;
+    # sparse_tp on the pallas force call, sparse_tp_gradw on the pallas
+    # training step; the rest on the mega path
+    if name == "sparse_tp":
+        config, count = "pallas", launches["pallas"][name]
+    elif name == "sparse_tp_gradw":
+        config, count = "pallas train step", pallas_train["1k"][name]
+    elif name in TRAIN_KERNELS:
         config, count = "train step", train_launches["1k"][name]
     else:
         config = "fused readout" if name in LAYER_KERNELS else "mega"
@@ -892,6 +1131,10 @@ def kernel_record(name, records, launches, md_launches, calc_launches, train_lau
     out["launches_calculator"] = calc_launches[name]
     for batch, counts in train_launches.items():
         out[f"launches_train_{batch}"] = counts[name]
+    for batch, counts in pallas_train.items():
+        out[f"launches_train_pallas_{batch}"] = counts[name]
+    for run, counts in cli.items():
+        out[f"launches_cli_{run}"] = counts[name]
     for key, variant in records.items():
         if key.startswith(name + "["):
             tag = key[len(name) + 1:-1]
@@ -920,7 +1163,7 @@ def check_force_call(out, ref, n_atoms, n_rows):
     print(f"    vs einsum on the card: force max-abs rel {force_rel:.3e} (< 1e-5), "
           f"per-atom energy max-abs {ea_err:.3e} (allclose 5e-5)")
     if not force_rel < 1e-5:
-        raise AssertionError(f"fused_infer vs einsum forces: rel {force_rel:.3e}")
+        raise AssertionError(f"forces vs einsum: rel {force_rel:.3e}")
     np.testing.assert_allclose(ea_f, ea_o, rtol=5e-5, atol=5e-5)
 
 

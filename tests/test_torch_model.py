@@ -23,7 +23,7 @@ from allegro_tpu.model import AllegroModel as JaxAllegroModel
 
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
-from allegro_tpu_torch.ops import fused_tp
+from allegro_tpu_torch.ops import fused_tp, pallas_contract
 
 R_MAX = 4.0
 OUT_KEYS = (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES, keys.VIRIAL)
@@ -163,9 +163,7 @@ def test_unsorted_edges_raise(frames, avg_n):
     {"l_max": 3},
     {"weight_individual_irreps": False},
     {"per_edge_type_cutoff": {"A": 3.0}},
-    {"pair_potential": {"_target_": "allegro_tpu.nn.ZBLPairPotential"}},
     {"radial_chemical_embed": {"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed"}},
-    {"tp_kernel_backend": "pallas"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override, avg_n):
     kw = {**_model_kwargs(avg_n, "float32"), **override}
@@ -176,8 +174,10 @@ def test_unported_options_raise(override, avg_n):
 # wrapper calls per fused_infer force call of the 2-layer model: on a card,
 # each call is one launch (chip_smoke.py asserts the same counts there)
 _MEGA_OFF = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
-# the trainable backend's transposes never run in a fused_infer force call
-_TRAIN_OFF = {"tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0}
+# the trainable backend's transposes and the pallas backend's kernels never
+# run in a fused_infer force call
+_TRAIN_OFF = {"tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0,
+              "sparse_tp": 0, "sparse_tp_gradw": 0}
 _PER_CALL = {
     True: {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
            "center_gather": 2, "center_sum": 2, "readout_sum": 1, "readout_bwd": 1, **_MEGA_OFF,
@@ -197,6 +197,8 @@ _PER_CALL = {
 
 
 def _count_wrapper_calls(monkeypatch):
+    """Counts the calls of every wrapper in ``fused_tp.LAUNCHES`` (the pallas
+    backend's are in ``pallas_contract``)."""
     calls = {name: 0 for name in fused_tp.LAUNCHES}
 
     def counted(name, fn):
@@ -206,7 +208,8 @@ def _count_wrapper_calls(monkeypatch):
         return wrapper
 
     for name in calls:
-        monkeypatch.setattr(fused_tp, name, counted(name, getattr(fused_tp, name)))
+        mod = fused_tp if hasattr(fused_tp, name) else pallas_contract
+        monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
     return calls
 
 
@@ -311,6 +314,7 @@ def test_cpu_force_call_launches_no_kernel(batch, avg_n):
 
 
 _NO_JAX = """
+import runpy
 import sys
 
 class _Block:
@@ -356,6 +360,16 @@ tm = AllegroModel(r_max=2.0, type_names=["A", "B", "C"], l_max=1, num_layers=2,
 trainer = Trainer(tm, device="cpu", logger=lambda s: None)
 state = trainer.fit(trainer.init_state(0), DataLoader(ds, batch_size=2))
 assert state.step == 2 and np.isfinite(trainer.history[-1]["train_loss"])
+pm = AllegroModel(r_max=4.0, type_names=["H", "C"], l_max=2, num_layers=2,
+                  num_scalar_features=8, num_tensor_features=4, model_dtype="float32",
+                  tp_kernel_backend="pallas").init(0)
+out = pm.apply_with_derivatives(to_torch(pm.precompute_statics(b), torch.float32))
+assert torch.isfinite(out[keys.FORCES]).all()
+sys.argv = ["allegro_tpu_torch", "--help"]
+try:
+    runpy.run_module("allegro_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0
 assert not [n for n in sys.modules if n.split(".")[0] in ("jax", "flax", "allegro_tpu")]
 print("ok")
 """
