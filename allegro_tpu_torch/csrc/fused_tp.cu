@@ -10,7 +10,9 @@
 //                 (optionally also ts[e, u] = out[e, u], the leading 0e block)
 //   bwd_fused     dx[e, iU+u]  = sum_n c_n w[p_n,u] g[e, k_nU+u] env[c(e), j_nU+u]
 //                 denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u]
-//                 (optionally with g[e, u] += gts[e, u], the cotangent of ts)
+//                 (optionally with g[e, u] += gts[e, u], the cotangent of ts,
+//                 and optionally also dw[p, u] = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u]
+//                 env[c(e), j_nU+u] g[e, k_nU+u], the weight gradient)
 //   unweight_both dsh[e, j]   = sum_u t[c(e), jU+u] * wexp[e, irr(j)U+u]
 //                 dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] * sh[e, j]
 //
@@ -23,6 +25,8 @@
 // (83 rows at the flagship width), copied into shared memory per block.
 //
 // Every sum runs in a fixed order (no atomics), so results are deterministic.
+// A launcher that needs more than 48 KB of shared memory opts in, up to the
+// card's maximum, and refuses only what does not fit there.
 // Each kernel is launched on the caller's stream and allocates nothing; each
 // entry point returns cudaGetLastError() after its launch.
 
@@ -112,75 +116,102 @@ __global__ void gather_tp_kernel(const float* __restrict__ x, const float* __res
 
 // ---------------------------------------------------------------------------
 // bwd_fused
-// Replaces allegro_tpu/ops/fused_tp.py:_bwd_fused_raw_kernel (bwd_fused_raw_call),
-// without the weight gradient (inference scope, as on the TPU).
+// Replaces allegro_tpu/ops/fused_tp.py:_bwd_fused_raw_kernel (bwd_fused_raw_call)
+// and, with the weight gradient (kDw), _bwd_fused_kernel (bwd_fused_call
+// with_dw=True), whose two env windows are one env array here.
 // Bound: one read each of x [E, d1*U] and g [E, d3*U], one write of dx
 // [E, d1*U]. Design: one block per atom segment, so dx and denv come from
 // one pass over the edges, as on the TPU. Each warp takes every W-th edge of
 // the segment (lane = channel), writes dx[e] and accumulates its share of
 // denv in its own shared-memory row; the rows are summed across warps in a
-// fixed order, so denv is deterministic without atomics. Block n_atoms
-// zeroes dx on the sentinel (padded) edges, which belong to no segment.
-// ``gts`` (the cotangent of the split scalar output) is added to g's block
-// k = 0 as it is read, as the TPU kernel folds it in VMEM; the kernel is
-// instantiated with and without it, so the entry loop without it carries no
-// extra select.
+// fixed order, so denv is deterministic without atomics. The atom n_atoms
+// stands for the sentinel (padded) edges, which belong to no segment: its
+// block zeroes their dx. ``gts`` (the cotangent of the split scalar output)
+// is added to g's block k = 0 as it is read, as the TPU kernel folds it in
+// VMEM. The kernel is instantiated with and without each option, so the
+// entry loop carries no select it does not need.
+// With kDw the grid strides over the atoms (a fixed number of blocks, from
+// n_atoms alone) and each lane also keeps its channel's P path sums
+// dw[p, u] += c x_i env_j g_k over all the edges its warp visits, from the
+// x, env and g values the entry already loaded; at the end the warps of a
+// block add theirs in warp order into the block's row of ``partial`` [blocks,
+// P, U], which partials_reduce_kernel adds in block order. No float atomics:
+// two identical calls give identical bits.
 // ---------------------------------------------------------------------------
-template <bool kGts>
+template <bool kGts, bool kDw>
 __global__ void bwd_fused_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                 const float* __restrict__ gts, const float* __restrict__ env, const float* __restrict__ w,
-                                 const int* __restrict__ row_ptr, const int* __restrict__ eidx,
-                                 const float* __restrict__ ecoef, int n_entries,
-                                 long long n_edges, int n_atoms, int d1, int d2, int d3, int U,
-                                 float* __restrict__ dx, float* __restrict__ denv) {
+                                 const float* __restrict__ gts, const float* __restrict__ env,
+                                 const float* __restrict__ w, const int* __restrict__ row_ptr,
+                                 const int* __restrict__ eidx, const float* __restrict__ ecoef,
+                                 int n_entries, long long n_edges, int n_atoms, int d1, int d2,
+                                 int d3, int U, int P, float* __restrict__ dx,
+                                 float* __restrict__ denv, float* __restrict__ partial) {
   extern __shared__ unsigned char smem[];
-  const int a = blockIdx.x;
   const long long d1U = (long long)d1 * U;
-  if (a == n_atoms) {
-    for (long long t = (long long)row_ptr[n_atoms] * d1U + threadIdx.x; t < n_edges * d1U;
-         t += blockDim.x)
-      dx[t] = 0.f;
-    return;
-  }
   int* s_idx = reinterpret_cast<int*>(smem);
   float* s_coef = reinterpret_cast<float*>(s_idx + 4 * n_entries);
   const int wpb = blockDim.x / kWarp;
   const int d2U = d2 * U;
+  const int PU = P * U;
   float* s_den = s_coef + n_entries;          // [wpb][d2*U]
   float* s_dx = s_den + wpb * d2U;            // [wpb][d1][32]
+  float* s_dw = s_dx + wpb * d1 * kWarp;      // kDw: [wpb][P*U]
   load_entries(eidx, ecoef, n_entries, s_idx, s_coef);
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   float* pden = s_den + warp * d2U;
   float* pdx = s_dx + warp * d1 * kWarp;
-  for (int col = lane; col < d2U; col += kWarp) pden[col] = 0.f;
+  float* pdw = s_dw + warp * PU;
+  if (kDw)
+    for (int q = lane; q < PU; q += kWarp) pdw[q] = 0.f;
   __syncthreads();
-  const int start = row_ptr[a], end = row_ptr[a + 1];
-  const float* ea = env + (long long)a * d2U;
-  for (int e = start + warp; e < end; e += wpb) {
-    const float* xe = x + (long long)e * d1U;
-    const float* ge = g + (long long)e * d3 * U;
-    float* dxe = dx + (long long)e * d1U;
-    for (int u0 = 0; u0 < U; u0 += kWarp) {
-      const int u = u0 + lane;
-      if (u >= U) continue;
-      const float g0 = kGts ? ge[u] + gts[(long long)e * U + u] : 0.f;
-      for (int i = 0; i < d1; ++i) pdx[i * kWarp + lane] = 0.f;
-      for (int n = 0; n < n_entries; ++n) {
-        const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
-                  p = s_idx[4 * n + 3];
-        const float gk = (kGts && k == 0) ? g0 : ge[k * U + u];
-        const float cwg = s_coef[n] * w[p * U + u] * gk;
-        pdx[i * kWarp + lane] += cwg * ea[j * U + u];
-        pden[j * U + u] += cwg * xe[i * U + u];
-      }
-      for (int i = 0; i < d1; ++i) dxe[i * U + u] = pdx[i * kWarp + lane];
+  for (int a = blockIdx.x; a <= n_atoms; a += gridDim.x) {
+    if (a == n_atoms) {
+      for (long long t = (long long)row_ptr[n_atoms] * d1U + threadIdx.x; t < n_edges * d1U;
+           t += blockDim.x)
+        dx[t] = 0.f;
+      continue;
     }
+    for (int col = lane; col < d2U; col += kWarp) pden[col] = 0.f;
+    __syncwarp();
+    const int start = row_ptr[a], end = row_ptr[a + 1];
+    const float* ea = env + (long long)a * d2U;
+    for (int e = start + warp; e < end; e += wpb) {
+      const float* xe = x + (long long)e * d1U;
+      const float* ge = g + (long long)e * d3 * U;
+      float* dxe = dx + (long long)e * d1U;
+      for (int u0 = 0; u0 < U; u0 += kWarp) {
+        const int u = u0 + lane;
+        if (u >= U) continue;
+        const float g0 = kGts ? ge[u] + gts[(long long)e * U + u] : 0.f;
+        for (int i = 0; i < d1; ++i) pdx[i * kWarp + lane] = 0.f;
+        for (int n = 0; n < n_entries; ++n) {
+          const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
+                    p = s_idx[4 * n + 3];
+          const float gk = (kGts && k == 0) ? g0 : ge[k * U + u];
+          const float cwg = s_coef[n] * w[p * U + u] * gk;
+          const float xi = xe[i * U + u], ej = ea[j * U + u];
+          pdx[i * kWarp + lane] += cwg * ej;
+          pden[j * U + u] += cwg * xi;
+          if (kDw) pdw[p * U + u] += s_coef[n] * gk * (xi * ej);
+        }
+        for (int i = 0; i < d1; ++i) dxe[i * U + u] = pdx[i * kWarp + lane];
+      }
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < d2U; col += blockDim.x) {
+      float s = 0.f;
+      for (int q = 0; q < wpb; ++q) s += s_den[q * d2U + col];
+      denv[(long long)a * d2U + col] = s;
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int col = threadIdx.x; col < d2U; col += blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < wpb; ++q) s += s_den[q * d2U + col];
-    denv[(long long)a * d2U + col] = s;
+  if (kDw) {
+    __syncthreads();
+    for (int q = threadIdx.x; q < PU; q += blockDim.x) {
+      float s = 0.f;
+      for (int v = 0; v < wpb; ++v) s += s_dw[v * PU + q];
+      partial[(long long)blockIdx.x * PU + q] = s;
+    }
   }
 }
 
@@ -232,6 +263,30 @@ __global__ void unweight_both_kernel(const float* __restrict__ t, const float* _
   }
 }
 
+template <bool kGts, bool kDw>
+int launch_bwd_fused(const float* x, const float* g, const float* gts, const float* env,
+                     const float* w, const int* row_ptr, const int* eidx, const float* ecoef,
+                     int n_entries, long long n_edges, int n_atoms, int d1, int d2, int d3, int U,
+                     int P, int n_blocks, float* dx, float* denv, float* partial, float* dw,
+                     cudaStream_t stream) {
+  const size_t fixed = (size_t)n_entries * 5 * sizeof(float);
+  const size_t per_warp =
+      ((size_t)d2 * U + (size_t)d1 * kWarp + (kDw ? (size_t)P * U : 0)) * sizeof(float);
+  size_t smem = 0;
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = prepare_smem(bwd_fused_kernel<kGts, kDw>, smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_fused_kernel<kGts, kDw><<<kDw ? n_blocks : n_atoms + 1, warps * kWarp, smem, stream>>>(
+      x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, P, dx,
+      denv, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kDw) return (int)err;
+  const int PU = P * U;
+  partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, stream>>>(partial, n_blocks, PU, dw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -255,32 +310,38 @@ int atpt_gather_tp(const float* x, const float* env, const float* w, const int* 
                    int n_atoms, int d1, int d2, int d3, int U, float* out, float* ts,
                    void* stream) {
   size_t smem = (size_t)n_entries * 5 * sizeof(float) + (size_t)kEdgeWarps * d3 * kWarp * 4;
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = prepare_smem(gather_tp_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   gather_tp_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, smem, (cudaStream_t)stream>>>(
       x, env, w, centers, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, out, ts);
   return (int)cudaGetLastError();
 }
 
+// dw, partial: null without the weight gradient; else dw [P, U] and scratch
+// partial [n_blocks, P, U], n_blocks chosen by the caller from n_atoms alone
+// (so the order of the sums does not depend on the card).
 int atpt_bwd_fused(const float* x, const float* g, const float* gts, const float* env,
-                   const float* w,
-                   const int* row_ptr, const int* eidx, const float* ecoef, int n_entries,
-                   long long n_edges, int n_atoms, int d1, int d2, int d3, int U, float* dx,
-                   float* denv, void* stream) {
-  size_t fixed = (size_t)n_entries * 5 * sizeof(float);
-  size_t per_warp = ((size_t)d2 * U + (size_t)d1 * kWarp) * sizeof(float);
-  if (fixed + per_warp > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  int warps = (int)((kSmemLimit - fixed) / per_warp);
-  if (warps > kSegmentWarps) warps = kSegmentWarps;
-  size_t smem = fixed + warps * per_warp;
+                   const float* w, const int* row_ptr, const int* eidx, const float* ecoef,
+                   int n_entries, long long n_edges, int n_atoms, int d1, int d2, int d3, int U,
+                   int P, int n_blocks, float* dx, float* denv, float* partial, float* dw,
+                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dw && (n_blocks < 1 || P < 1)) return (int)cudaErrorInvalidValue;
+  if (gts && dw)
+    return launch_bwd_fused<true, true>(x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries,
+                                        n_edges, n_atoms, d1, d2, d3, U, P, n_blocks, dx, denv,
+                                        partial, dw, st);
   if (gts)
-    bwd_fused_kernel<true><<<n_atoms + 1, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, dx,
-        denv);
-  else
-    bwd_fused_kernel<false><<<n_atoms + 1, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, dx,
-        denv);
-  return (int)cudaGetLastError();
+    return launch_bwd_fused<true, false>(x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries,
+                                         n_edges, n_atoms, d1, d2, d3, U, P, n_blocks, dx, denv,
+                                         partial, dw, st);
+  if (dw)
+    return launch_bwd_fused<false, true>(x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries,
+                                         n_edges, n_atoms, d1, d2, d3, U, P, n_blocks, dx, denv,
+                                         partial, dw, st);
+  return launch_bwd_fused<false, false>(x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries,
+                                        n_edges, n_atoms, d1, d2, d3, U, P, n_blocks, dx, denv,
+                                        partial, dw, st);
 }
 
 int atpt_unweight_both(const float* t, const float* sh, const float* wexp, const int* centers,

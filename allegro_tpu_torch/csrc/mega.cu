@@ -561,7 +561,8 @@ int atpt_gather_tp_embed(const float* sh, const float* w2b, const float* env, co
                          void* stream) {
   const size_t smem = (size_t)(5 * n_entries + 2 * d1) * 4 +
                       (size_t)kEdgeWarps * (d3 + d1) * kWarp * sizeof(float);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = prepare_smem(gather_tp_embed_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   gather_tp_embed_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, smem,
                            (cudaStream_t)stream>>>(sh, w2b, env, w, centers, eidx, ecoef,
                                                    n_entries, row_specs, n_edges, n_atoms, d_sh,
@@ -576,10 +577,12 @@ int atpt_bwd_embed(const float* sh, const float* w2b, const float* g, const floa
                    float* dw2b, float* denv, void* stream) {
   const size_t fixed = (size_t)(5 * n_entries + 2 * d1) * 4;
   const size_t per_warp = ((size_t)d2 * U + (size_t)(2 * d1 + d_sh) * kWarp) * sizeof(float);
-  if (fixed + per_warp > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  int warps = (int)((kSmemLimit - fixed) / per_warp);
-  if (warps > kSegmentWarps) warps = kSegmentWarps;
-  const size_t smem = fixed + warps * per_warp;
+  size_t smem = 0;
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = gts ? prepare_smem(bwd_embed_kernel<true>, smem)
+                        : prepare_smem(bwd_embed_kernel<false>, smem);
+  if (err != cudaSuccess) return (int)err;
   if (gts)
     bwd_embed_kernel<true><<<n_atoms + 1, warps * kWarp, smem, (cudaStream_t)stream>>>(
         sh, w2b, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, row_specs, n_edges, n_atoms,

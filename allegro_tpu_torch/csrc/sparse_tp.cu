@@ -5,8 +5,9 @@
 //   sparse_tp_gradw  gw[p, u]     = sum_e sum_{n: p_n=p} c_n a[e, i_nU+u] b[e, j_nU+u] g[e, k_nU+u]
 //
 // The `pallas` backend (`tp_kernel_backend="pallas"`) sums the environment
-// with plain tensor ops and then contracts two per-edge arrays: nothing is
-// gathered by center here, every row of a, b, g and out belongs to one edge.
+// first (on the center kernels, csrc/center_readout.cu) and then contracts
+// two per-edge arrays: nothing is gathered by center here, every row of a, b,
+// g and out belongs to one edge.
 // The entry table (i, j, k, p, c) is the caller's: the layer's own, or one of
 // its role permutations (the transposes of the derivative family,
 // allegro_tpu_torch/ops/tp_primitives.py), so a, b and out may have any of

@@ -214,12 +214,13 @@ int atpt_tp_scatter(const float* x, const float* g, const float* w, const int* r
                     int d2, int d3, int U, float* denv, void* stream) {
   size_t fixed = (size_t)n_entries * 5 * sizeof(float);
   size_t per_warp = (size_t)d2 * U * sizeof(float);
-  if (fixed + per_warp > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  int warps = (int)((kSmemLimit - fixed) / per_warp);
-  if (warps > kSegmentWarps) warps = kSegmentWarps;
-  tp_scatter_kernel<<<n_atoms, warps * kWarp, fixed + warps * per_warp,
-                      (cudaStream_t)stream>>>(x, g, w, row_ptr, eidx, ecoef, n_entries, d1, d2,
-                                              d3, U, denv);
+  size_t smem = 0;
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = prepare_smem(tp_scatter_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tp_scatter_kernel<<<n_atoms, warps * kWarp, smem, (cudaStream_t)stream>>>(
+      x, g, w, row_ptr, eidx, ecoef, n_entries, d1, d2, d3, U, denv);
   return (int)cudaGetLastError();
 }
 
@@ -230,14 +231,14 @@ int atpt_gather_dw(const float* x, const float* env, const float* g, const int* 
                    float* partial, float* dw, void* stream) {
   size_t fixed = (size_t)n_entries * 5 * sizeof(float);
   size_t per_warp = (size_t)P * U * sizeof(float);
-  if (fixed + per_warp > kSmemLimit) return (int)cudaErrorInvalidConfiguration;
-  int warps = (int)((kSmemLimit - fixed) / per_warp);
-  if (warps > kSegmentWarps) warps = kSegmentWarps;
-  gather_dw_partial_kernel<<<n_blocks, warps * kWarp, fixed + warps * per_warp,
-                             (cudaStream_t)stream>>>(x, env, g, centers, eidx, ecoef, n_entries,
-                                                     n_edges, n_atoms, d1, d2, d3, U, P,
-                                                     partial);
-  cudaError_t err = cudaGetLastError();
+  size_t smem = 0;
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = prepare_smem(gather_dw_partial_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gather_dw_partial_kernel<<<n_blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
+      x, env, g, centers, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, P, partial);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int PU = P * U;
   partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,

@@ -7,6 +7,7 @@ spherical-harmonic evaluation is torch.
 from .irreps import Irrep, MulIrrep, Irreps, tp_path_exists
 from .spherical_harmonics import spherical_harmonics, sh_coefficients
 from .wigner import wigner_3j, wigner_D, rand_rotation, rand_o3_matrix
+from .testing import rep_matrix, transform_flat_dim_major, transform_strided
 
 __all__ = [
     "Irrep",
@@ -19,4 +20,7 @@ __all__ = [
     "wigner_D",
     "rand_rotation",
     "rand_o3_matrix",
+    "rep_matrix",
+    "transform_strided",
+    "transform_flat_dim_major",
 ]

@@ -34,6 +34,7 @@ from ..nn import (
     SequentialGraphNet,
     TwoBodyBesselScalarEmbed,
     TwoBodySphericalHarmonicTensorEmbed,
+    TwoBodySplineScalarEmbed,
     ZBLPairPotential,
     force_stress_wrapper,
 )
@@ -51,6 +52,10 @@ NONLINEARITIES = {
 }
 
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+# the backends whose stages run on the kernels, and the CSR statics they read
+KERNEL_BACKENDS = ("fused", "fused_infer", "pallas")
+CSR_STATICS = (keys.CENTER_ROW_PTR, keys.NBR_PERM, keys.NBR_ROW_PTR)
 
 MODEL_BUILDERS: Dict[str, Callable] = {}
 
@@ -172,8 +177,9 @@ class Model:
     def precompute_statics(self, data: Dict) -> Dict:
         """Attach the position-independent per-neighbor-list arrays, on the
         host: ``EDGE_TYPE``, and for the kernel backends (``fused``,
-        ``fused_infer``) the CSR statics of the TP layers and the center
-        gathers: ``CENTER_ROW_PTR`` over the center-sorted edges, and
+        ``fused_infer``, ``pallas``) the CSR statics of the TP layers, the
+        env sums and the center gathers: ``CENTER_ROW_PTR`` over the
+        center-sorted edges, and
         ``NBR_PERM`` / ``NBR_ROW_PTR`` over the neighbor-sorted order. Call it
         once per neighbor list. Raises ValueError on edges that are not
         sorted by center. Torch inputs get tensors on the device of
@@ -185,7 +191,7 @@ class Model:
         ct = types[np.clip(ei[0], 0, n_atoms - 1)]
         nt = types[np.clip(ei[1], 0, n_atoms - 1)]
         new = {keys.EDGE_TYPE: (ct * num_types + nt).astype(np.int32)}
-        if self.builder_kwargs.get("tp_kernel_backend") in ("fused", "fused_infer"):
+        if self.on_kernels:
             new[keys.CENTER_ROW_PTR] = csr_row_ptr(ei[0], n_atoms)
             new[keys.NBR_PERM], new[keys.NBR_ROW_PTR] = neighbor_csr(ei[1], n_atoms)
         out = dict(data)
@@ -194,11 +200,28 @@ class Model:
             out[k] = torch.as_tensor(v, device=like.device) if isinstance(like, torch.Tensor) else v
         return out
 
+    @property
+    def on_kernels(self) -> bool:
+        return self.builder_kwargs.get("tp_kernel_backend") in KERNEL_BACKENDS
+
     def apply(self, data: Dict, frozen: bool = False) -> Dict:
         """Energy-only forward pass. ``frozen``: with the parameters detached,
         so no autograd pass through the result reaches them (the force call
-        and MD, whose derivatives are in the positions only)."""
+        and MD, whose derivatives are in the positions only).
+
+        The backend decides where the gathers and sums run: a kernel backend
+        raises without the CSR statics, so none of its stages falls back to
+        a plain sum; ``einsum``, the reference, drops them, so none of its
+        stages runs a kernel."""
         _pin_fp32_matmuls()
+        if self.on_kernels:
+            if keys.CENTER_ROW_PTR not in data:
+                raise ValueError(
+                    f"tp_kernel_backend={self.builder_kwargs['tp_kernel_backend']!r} needs the "
+                    "CSR statics: call Model.precompute_statics(data) once per neighbor list"
+                )
+        else:
+            data = {k: v for k, v in data.items() if k not in CSR_STATICS}
         if not frozen:
             return self.module(data)
         params = {k: p.detach() for k, p in self.module.named_parameters()}
@@ -230,18 +253,31 @@ def _pin_fp32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _bessel_embed(cfg, num_types: int, output_dim: int, dtype) -> TwoBodyBesselScalarEmbed:
+def _scalar_embed(cfg, num_types: int, output_dim: int, dtype) -> torch.nn.Module:
+    """The ``radial_chemical_embed`` stage from its config block (JAX's
+    ``_instantiate_scalar_embed``): the Bessel embed (the default) or the
+    spline embed, with JAX's kwargs and defaults."""
     cfg = dict(cfg or {})
     target = cfg.pop("_target_", "allegro_tpu.nn.TwoBodyBesselScalarEmbed")
-    if target.rsplit(".", 1)[-1] != "TwoBodyBesselScalarEmbed":
-        raise _not_ported(f"radial_chemical_embed {target}", "queue 1, item 7")
-    return TwoBodyBesselScalarEmbed(
-        num_types=num_types,
-        output_dim=output_dim,
-        num_bessels=int(cfg.pop("num_bessels", 8)),
-        polynomial_cutoff_p=int(cfg.pop("polynomial_cutoff_p", 6)),
-        dtype=dtype,
-    )
+    short = target.rsplit(".", 1)[-1]
+    if short == "TwoBodyBesselScalarEmbed":
+        return TwoBodyBesselScalarEmbed(
+            num_types=num_types,
+            output_dim=output_dim,
+            num_bessels=int(cfg.pop("num_bessels", 8)),
+            polynomial_cutoff_p=int(cfg.pop("polynomial_cutoff_p", 6)),
+            dtype=dtype,
+        )
+    if short == "TwoBodySplineScalarEmbed":
+        return TwoBodySplineScalarEmbed(
+            num_types=num_types,
+            output_dim=output_dim,
+            num_splines=int(cfg.pop("num_splines", cfg.pop("spline_grid_size", 16))),
+            spline_span=int(cfg.pop("spline_span", 12)),
+            polynomial_cutoff_p=int(cfg.pop("polynomial_cutoff_p", 6)),
+            dtype=dtype,
+        )
+    raise ValueError(f"unknown radial_chemical_embed target {target}")
 
 
 @model_builder
@@ -301,9 +337,7 @@ def FullAllegroEnergyModel(
     if tp_chunk_edges:
         raise _not_ported("tp_chunk_edges", "queue 1, item 6")
     if per_edge_type_cutoff is not None:
-        raise _not_ported("per_edge_type_cutoff", "queue 1, item 7")
-    if not weight_individual_irreps:
-        raise _not_ported("weight_individual_irreps=False", "queue 1, item 7")
+        raise _not_ported("per_edge_type_cutoff", "queue 1, item 9")
     if allow_tf32 or precision not in (None, "highest"):
         raise _not_ported(f"precision={precision!r}/allow_tf32={allow_tf32}", "queue 1, item 6")
     if str(model_dtype) not in DTYPES:
@@ -314,8 +348,6 @@ def FullAllegroEnergyModel(
         irreps_sh = Irreps.spherical_harmonics(irreps_edge_sh, p=-1)
     else:
         irreps_sh = Irreps(str(irreps_edge_sh))
-    if irreps_sh.lmax > 2:
-        raise _not_ported(f"l_max={irreps_sh.lmax} (> 2)", "queue 1, item 7")
     avg_n = float(avg_num_neighbors) if avg_num_neighbors is not None else 1.0
     embed_dim = (
         int(radial_chemical_embed_dim) if radial_chemical_embed_dim is not None
@@ -340,11 +372,12 @@ def FullAllegroEnergyModel(
         dtype=dtype,
         tp_kernel_backend=tp_kernel_backend,
         use_mega=use_mega,
+        weight_individual_irreps=weight_individual_irreps,
     )
 
     layers = [
         ("edge_norm", EdgeLengthNormalizer(r_max=r_max, num_types=num_types)),
-        ("radial_chemical_embed", _bessel_embed(radial_chemical_embed, num_types, embed_dim, dtype)),
+        ("radial_chemical_embed", _scalar_embed(radial_chemical_embed, num_types, embed_dim, dtype)),
         (
             "scalar_embed_mlp",
             FieldMLP(
@@ -470,13 +503,13 @@ def modify(model: Model, modifiers) -> Model:
 
 @model_builder
 def AllegroEnergyModel(l_max: int, parity: bool = True, **kwargs) -> Model:
-    """Derive irreps from ``l_max``/``parity``."""
-    if not parity:
-        raise _not_ported("parity=False", "queue 1, item 7")
-    if l_max > 2:
-        raise _not_ported(f"l_max={l_max} (> 2)", "queue 1, item 7")
+    """Derive irreps from ``l_max``/``parity``: with parity, the tensor track
+    may carry both parities of every l; without, only the SH irreps."""
     irreps_sh = Irreps.spherical_harmonics(l_max, p=-1)
-    allowed = Irreps([(1, (l, p)) for l in range(l_max + 1) for p in (1, -1)])
+    if parity:
+        allowed = Irreps([(1, (l, p)) for l in range(l_max + 1) for p in (1, -1)])
+    else:
+        allowed = irreps_sh
     return FullAllegroEnergyModel(
         irreps_edge_sh=str(irreps_sh), tensor_track_allowed_irreps=str(allowed), **kwargs
     )

@@ -7,7 +7,13 @@ from .channels import MakeWeightedChannels
 from .contract import Contracter
 from .sequential import SequentialGraphNet
 from .edge_geometry import EdgeLengthNormalizer, with_edge_vectors
-from .scalar_embed import OneHotEmbed, ProductTypeEmbedding, TwoBodyBesselScalarEmbed
+from .scalar_embed import (
+    OneHotEmbed,
+    ProductTypeEmbedding,
+    TwoBodyBesselScalarEmbed,
+    TwoBodySplineScalarEmbed,
+)
+from .spline import PerClassSpline, spline_basis
 from .tensor_embed import TwoBodySphericalHarmonicTensorEmbed
 from .allegro import AllegroLayers, compute_irreps_ladder
 from .edgewise import EdgewiseReduce
@@ -27,6 +33,9 @@ __all__ = [
     "OneHotEmbed",
     "ProductTypeEmbedding",
     "TwoBodyBesselScalarEmbed",
+    "TwoBodySplineScalarEmbed",
+    "PerClassSpline",
+    "spline_basis",
     "TwoBodySphericalHarmonicTensorEmbed",
     "AllegroLayers",
     "compute_irreps_ladder",

@@ -85,11 +85,15 @@ class AllegroLayers(nn.Module):
     ``use_mega`` (None, True or False) selects the mega-fused stack on
     ``fused_infer``, as in JAX (``allegro_tpu/nn/allegro.py:341-357``): it
     runs when the backend is ``fused_infer``, the latent MLPs have exactly
-    one hidden layer, their activation is SiLU (the mega kernels' own), and
+    one hidden layer, their activation is SiLU (the mega kernels' own), the
+    env weights are per irrep (``weight_individual_irreps``), and
     ``use_mega`` is not False. Outside that condition ``use_mega=True``
     takes the non-mega kernels (``fused_layer_infer``), as JAX does. JAX's
     environment switches (``ALLEGRO_NO_MEGA``, ``ALLEGRO_TP_BYPASS``) are
-    not read: the model kwarg decides."""
+    not read: the model kwarg decides.
+
+    ``weight_individual_irreps=False``: one env weight per channel, shared
+    by the irreps; the kernel backends read it tiled over the irreps."""
 
     def __init__(
         self,
@@ -106,6 +110,7 @@ class AllegroLayers(nn.Module):
         dtype=torch.float32,
         tp_kernel_backend: str = "einsum",
         use_mega: Optional[bool] = None,
+        weight_individual_irreps: bool = True,
     ):
         super().__init__()
         if tp_kernel_backend not in BACKENDS:
@@ -120,7 +125,7 @@ class AllegroLayers(nn.Module):
         self.U = U = int(num_tensor_features)
         self.backend = tp_kernel_backend
         self.dtype = dtype
-        self.env_weighter = MakeWeightedChannels(irreps_sh, U)
+        self.env_weighter = MakeWeightedChannels(irreps_sh, U, weight_individual_irreps)
         env_numel = self.env_weighter.weight_numel
         scatter_factor = 1.0 / math.sqrt(avg_num_neighbors)
         fold = tp_kernel_backend in ("fused", "fused_infer")
@@ -152,7 +157,7 @@ class AllegroLayers(nn.Module):
         self.input_dims = None if ladder[0] == irreps_sh else tuple(_subset_dims(irreps_sh, ladder[0]))
         self.mega = (
             tp_kernel_backend == "fused_infer" and len(mlp_hidden_dims) == 1
-            and mlp_nonlinearity is silu and use_mega is not False
+            and mlp_nonlinearity is silu and weight_individual_irreps and use_mega is not False
         )
         # layer 0's input rows as (SH dim, irrep), for the embed-fused kernel
         dim_to_irr = self.env_weighter.dim_to_irr
@@ -167,16 +172,19 @@ class AllegroLayers(nn.Module):
         n_atoms = data[keys.POSITIONS].shape[0]
         centers = data[keys.EDGE_INDEX][0]
         sh = data[keys.EDGE_ATTRS].to(self.dtype)
-        # pallas is the einsum layer with the contraction on its kernel: no statics
+        # the backend decides: einsum, the reference, ignores the CSR statics;
+        # every kernel backend needs them (pallas is the einsum layer with its
+        # env sum on the center kernels and its contraction on sparse_tp)
         fused = self.backend in ("fused", "fused_infer")
-        if fused:
-            if keys.CENTER_ROW_PTR not in data:
+        row_ptr = None
+        if self.backend != "einsum":
+            row_ptr = data.get(keys.CENTER_ROW_PTR)
+            if row_ptr is None:
                 raise ValueError(
                     f"tp_kernel_backend={self.backend!r} needs the CSR statics: "
                     "call Model.precompute_statics(data) once per neighbor list"
                 )
             centers = centers.to(torch.int32).contiguous()
-            row_ptr = data[keys.CENTER_ROW_PTR]
             sh = sh.contiguous()
         out = dict(data)
         if self.mega:
@@ -194,12 +202,13 @@ class AllegroLayers(nn.Module):
         for layer in range(self.num_layers):
             tp = self.tps[layer]
             if fused:
+                wexp = self.env_weighter.per_irrep(env_w)
                 feats = tp.fused_call(
-                    features.contiguous(), sh, env_w.contiguous(), centers, row_ptr
+                    features.contiguous(), sh, wexp.contiguous(), centers, row_ptr
                 )
             else:
                 weighted_sh = self.env_weighter.flat_dim_major(sh, env_w)
-                feats = tp(features, weighted_sh, centers, n_atoms)
+                feats = tp(features, weighted_sh, centers, n_atoms, row_ptr)
             # densenet latent input: the pieces, not a materialized concat
             lat = self.latents[layer](scalar_blocks + [feats[:, :U]])
             scalar_blocks.append(lat[:, :S])

@@ -11,7 +11,6 @@ import torch
 from torch import nn
 
 from ..data import keys
-from ..ops.fused_tp import segment_sum
 
 
 class PerTypeScaleShift(nn.Module):
@@ -53,9 +52,18 @@ class PerTypeScaleShift(nn.Module):
         return out
 
 
+def frame_one_hot(batch: torch.Tensor, n_frames: int, dtype) -> torch.Tensor:
+    """``[n_frames, N]``: 1 where atom n belongs to frame f. A sum over the
+    atoms of each frame as a product with it sums in a fixed order on the
+    card, where a scatter (``index_add``) would add with atomics."""
+    frames = torch.arange(n_frames, device=batch.device)
+    return (batch.long()[None, :] == frames[:, None]).to(dtype)
+
+
 class AtomwiseReduce:
     """Per-frame sum of the per-atom energies into TOTAL_ENERGY, masked by
-    NODE_MASK."""
+    NODE_MASK, as a product with the frames' one-hot (deterministic, and so
+    is its transpose)."""
 
     def __call__(self, data: Dict) -> Dict:
         x = data[keys.PER_ATOM_ENERGY]
@@ -66,7 +74,7 @@ class AtomwiseReduce:
             n_frames = (
                 data[keys.CELL].shape[0] if keys.CELL in data else int(data[keys.NUM_NODES].shape[0])
             )
-            out[keys.TOTAL_ENERGY] = segment_sum(x, data[keys.BATCH], n_frames)
+            out[keys.TOTAL_ENERGY] = frame_one_hot(data[keys.BATCH], n_frames, x.dtype) @ x
         else:
             out[keys.TOTAL_ENERGY] = x.sum(dim=0, keepdim=True)
         return out

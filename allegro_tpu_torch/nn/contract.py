@@ -7,9 +7,12 @@ else ``(P,)``):
 
 - ``"einsum"``: plain torch — ``env_sum`` (scatter edges → atoms, gather
   back) then ``contract`` (a static loop over the first input's basis dims).
-- ``"pallas"``: ``env_sum`` as on einsum, then ``sparse_tp_layer``, the
-  per-edge sparse CG kernel (``csrc/sparse_tp.cu``) behind the closed
-  family ``SparseTp`` / ``SparseTpGradW`` (differentiable to any order).
+- ``"pallas"``: ``env_sum`` on the center CSR (required): ``center_scatter``
+  then ``center_gather``, the ``center_sum`` and ``center_gather`` kernels,
+  each the other's transpose, so the layer sums in a fixed order to any
+  derivative order; then ``sparse_tp_layer``, the per-edge sparse CG kernel
+  (``csrc/sparse_tp.cu``) behind the closed family ``SparseTp`` /
+  ``SparseTpGradW`` (differentiable to any order).
 - ``"fused_infer"``: ``fused_layer_infer``, the four CUDA kernels (their
   plain versions on the CPU); the mega-fused layers of ``nn/allegro.py``
   drive the kernels themselves with ``fused_infer_parts``.
@@ -28,7 +31,13 @@ from torch import nn
 
 from ..lib.irreps import Irreps
 from ..lib.wigner import wigner_3j
-from ..ops.fused_primitives import FusedStatics, fused_layer, fused_layer_infer
+from ..ops.fused_primitives import (
+    FusedStatics,
+    center_gather,
+    center_scatter,
+    fused_layer,
+    fused_layer_infer,
+)
 from ..ops.fused_tp import gather_rows, segment_sum, swap_entries
 from ..ops.pallas_contract import Entry, role_tables
 from ..ops.tp_primitives import TpStatics, sparse_tp_layer
@@ -75,8 +84,9 @@ def sparse_entries(w3j_packed: np.ndarray, tol: float = 1e-12) -> Tuple[Entry, .
 
 
 class Contracter(nn.Module):
-    """``forward(x1 [E, d1*U], x2 [E, d2*U], centers [E], n_atoms)`` →
-    ``[E, d_out*U]`` on the ``einsum`` and ``pallas`` backends;
+    """``forward(x1 [E, d1*U], x2 [E, d2*U], centers [E], n_atoms, row_ptr)``
+    → ``[E, d_out*U]`` on the ``einsum`` and ``pallas`` backends (``row_ptr``:
+    the center CSR, which ``pallas`` requires and ``einsum`` ignores);
     ``fused_call`` on the fused kernel backends (``kernel_backend``
     "fused_infer" or "fused")."""
 
@@ -142,11 +152,23 @@ class Contracter(nn.Module):
         w = self.path_weights.to(dtype)
         return w if self.path_channel_coupling else w[None, :].expand(self.mul, -1)
 
-    def env_sum(self, x2: torch.Tensor, centers: torch.Tensor, n_atoms: int) -> torch.Tensor:
-        """Neighbor-environment sum: scatter edges → atoms, gather back."""
+    def env_sum(self, x2: torch.Tensor, centers: torch.Tensor, n_atoms: int,
+                row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Neighbor-environment sum: scatter edges → atoms, gather back. The
+        backend decides: ``einsum``, the reference, takes a plain segment sum
+        and ignores ``row_ptr``; ``pallas`` takes the center kernels over the
+        center CSR ``row_ptr`` (int32 ``centers``), which sum in edge order,
+        and raises without it."""
         if self.scatter_factor is not None:
             x2 = x2 * self.scatter_factor
-        return gather_rows(segment_sum(x2, centers, n_atoms), centers)
+        if self.kernel_backend == "einsum":
+            return gather_rows(segment_sum(x2, centers, n_atoms), centers)
+        if row_ptr is None:
+            raise ValueError(
+                f"kernel_backend={self.kernel_backend!r} needs the center CSR row_ptr: "
+                "call Model.precompute_statics(data) once per neighbor list"
+            )
+        return center_gather(center_scatter(x2.contiguous(), centers, row_ptr), centers, row_ptr)
 
     def contract(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """CG contraction ``out[e,k,u] = Σ_ij x1[e,i,u] x2[e,j,u] WW[u,i,j,k]``
@@ -160,8 +182,8 @@ class Contracter(nn.Module):
             out = t if out is None else out + t
         return out.reshape(E, self.d3 * U)
 
-    def forward(self, x1, x2, centers, n_atoms: int) -> torch.Tensor:
-        env = self.env_sum(x2, centers, n_atoms)
+    def forward(self, x1, x2, centers, n_atoms: int, row_ptr=None) -> torch.Tensor:
+        env = self.env_sum(x2, centers, n_atoms, row_ptr)
         if self.kernel_backend == "pallas":
             st = TpStatics(self.tp_idx, self.tp_coef, (self.d1, self.d2, self.d3),
                            self.num_paths)

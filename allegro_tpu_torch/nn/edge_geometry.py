@@ -6,8 +6,11 @@ Twin of ``allegro_tpu/nn/edge_geometry.py``. Edge vectors are
 ``NBR_ROW_PTR``) both position gathers go through the ``center_gather``
 kernel, whose transpose, the force scatter, is the ``center_sum`` kernel over
 the center and the neighbor CSR; sentinel edges read zero rows there.
-Without them the indices are clamped to the atom range, as JAX's
-``mode="clip"``. Either way padded (sentinel) edges get ``vec == 0``.
+Without them (the ``einsum`` reference) the indices are clamped to the
+atom range, as JAX's ``mode="clip"``. Either way padded (sentinel) edges get
+``vec == 0``. A batch of several periodic frames reads each edge's cell
+through a product with the one-hot of the edges' frames, so the virial's
+sum over edges needs no ``index_add`` either.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..data import keys
 from ..ops.fused_primitives import center_gather
+from .atomwise import frame_one_hot
 
 
 def with_edge_vectors(data: Dict) -> Dict:
@@ -45,9 +49,13 @@ def with_edge_vectors(data: Dict) -> Dict:
         if cell.shape[0] == 1 or keys.BATCH not in data:
             vec = vec + shift @ cell[0].to(vec.dtype)
         else:
+            # each edge's cell as a product with the one-hot of the edges'
+            # frames: its transpose, the virial's sum over a frame's edges,
+            # adds in a fixed order (a gather's would be an index_add)
             centers = data[keys.EDGE_INDEX][0].long().clamp(0, n - 1)
             edge_frame = data[keys.BATCH].long().index_select(0, centers)
-            edge_cell = cell.to(vec.dtype).index_select(0, edge_frame)  # [E, 3, 3]
+            onehot = frame_one_hot(edge_frame, cell.shape[0], vec.dtype)  # [F, E]
+            edge_cell = (onehot.T @ cell.to(vec.dtype).reshape(-1, 9)).reshape(-1, 3, 3)
             vec = vec + torch.einsum("es,esr->er", shift, edge_cell)
     out = dict(data)
     out[keys.EDGE_VECTORS] = vec

@@ -16,6 +16,7 @@ from typing import Callable, Dict
 import torch
 
 from ..data import keys
+from .atomwise import frame_one_hot
 
 
 def _detach(v):
@@ -44,15 +45,19 @@ def force_stress_wrapper(apply_fn: Callable[[Dict], Dict], with_stress: bool = T
         inputs = [pos]
         if do_stress:
             cell = data[keys.CELL] if data[keys.CELL].ndim == 3 else data[keys.CELL][None]
-            if keys.BATCH in data:
-                batch = data[keys.BATCH].long()
-            else:
-                batch = torch.zeros(pos.shape[0], dtype=torch.long, device=pos.device)
             strain = torch.zeros((cell.shape[0], 3, 3), dtype=pos.dtype, device=pos.device,
                                  requires_grad=True)
             inputs.append(strain)
             eps = 0.5 * (strain + strain.transpose(-1, -2))
-            d[keys.POSITIONS] = pos + torch.einsum("ni,nij->nj", pos, eps.index_select(0, batch))
+            if keys.BATCH in data:
+                # each atom's frame strain as a product with the frames'
+                # one-hot: its transpose, the virial's sum over atoms, adds in
+                # a fixed order (a gather's would be an index_add)
+                onehot = frame_one_hot(data[keys.BATCH], cell.shape[0], pos.dtype)
+                eps_atoms = (onehot.T @ eps.reshape(-1, 9)).reshape(-1, 3, 3)
+            else:
+                eps_atoms = eps[0].expand(pos.shape[0], 3, 3)
+            d[keys.POSITIONS] = pos + torch.einsum("ni,nij->nj", pos, eps_atoms)
             d[keys.CELL] = cell + torch.einsum("fij,fjk->fik", cell, eps)
         else:
             d[keys.POSITIONS] = pos

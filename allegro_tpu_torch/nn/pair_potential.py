@@ -11,7 +11,9 @@ parameter-free given the atomic numbers (metal units: eV, Å):
 
 times the polynomial cutoff envelope of ``r / r_max``. Each directed edge
 contributes half (pairs appear twice), and edges with ``EDGE_MASK`` False
-contribute nothing.
+contribute nothing. With the CSR statics (which ``Model.apply`` requires on
+the kernel backends and drops on ``einsum``) the edge → atom sum is the
+``center_sum`` kernel (edge order, no atomics), else a plain segment sum.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data import keys
+from ..ops.fused_primitives import center_scatter
 from ..ops.fused_tp import segment_sum
 from .cutoffs import PolynomialCutoff
 from .edge_geometry import with_edge_vectors
@@ -61,7 +64,12 @@ class ZBLPairPotential:
         e_edge = 0.5 * v * env
         if keys.EDGE_MASK in data:
             e_edge = e_edge * data[keys.EDGE_MASK].to(r.dtype)
-        e_atom = segment_sum(e_edge.to(dtype)[:, None], data[keys.EDGE_INDEX][0], n_atoms)
+        e_edge = e_edge.to(dtype)[:, None]
+        if keys.CENTER_ROW_PTR in data:
+            centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+            e_atom = center_scatter(e_edge.contiguous(), centers, data[keys.CENTER_ROW_PTR])
+        else:
+            e_atom = segment_sum(e_edge, data[keys.EDGE_INDEX][0], n_atoms)
         out = dict(data)
         out[keys.PER_ATOM_ENERGY] = data[keys.PER_ATOM_ENERGY] + e_atom
         return out

@@ -1,9 +1,14 @@
-"""Two-body radial × chemistry scalar embedding (twin of the Bessel half of
+"""Two-body radial × chemistry scalar embeddings (twin of
 ``allegro_tpu/nn/scalar_embed.py``).
 
-``TwoBodyBesselScalarEmbed`` writes ``EDGE_EMBEDDING`` and ``EDGE_CUTOFF``,
-multiplied by ``EDGE_MASK``, which keeps every padded edge identically zero
-through the whole network.
+- ``TwoBodyBesselScalarEmbed``: Bessel radial basis × polynomial cutoff,
+  times a product of center and neighbor type embeddings.
+- ``TwoBodySplineScalarEmbed``: a learned spline of the normalized length
+  per edge type (center type × neighbor type).
+
+Both write ``EDGE_EMBEDDING`` and ``EDGE_CUTOFF``, multiplied by
+``EDGE_MASK``, which keeps every padded edge identically zero through the
+whole network.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from torch import nn
 from ..data import keys
 from .cutoffs import PolynomialCutoff, bessel_basis
 from .mlp import ScalarMLP
+from .spline import PerClassSpline
 
 
 def _edge_mask(data: Dict, like: torch.Tensor) -> torch.Tensor:
@@ -86,5 +92,30 @@ class TwoBodyBesselScalarEmbed(nn.Module):
         out = dict(data)
         mask = _edge_mask(data, emb)
         out[keys.EDGE_CUTOFF] = cutoff * mask
+        out[keys.EDGE_EMBEDDING] = emb * mask
+        return out
+
+
+class TwoBodySplineScalarEmbed(nn.Module):
+    """Per-edge-type spline of the normalized length → ``EDGE_EMBEDDING``.
+    The spline basis vanishes smoothly at the cutoff by itself, so the
+    embedding takes no cutoff envelope; ``EDGE_CUTOFF`` is still attached
+    for downstream consumers (ZBL). The spline runs in the geometry's dtype
+    and is cast to the model dtype at the end, as in JAX."""
+
+    def __init__(self, num_types: int, output_dim: int = 64, num_splines: int = 16,
+                 spline_span: int = 12, polynomial_cutoff_p: int = 6, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.cutoff = PolynomialCutoff(polynomial_cutoff_p)
+        self.spline = PerClassSpline(num_types * num_types, output_dim, num_splines,
+                                     spline_span, dtype)
+
+    def forward(self, data: Dict) -> Dict:
+        u = data[keys.NORM_LENGTH][:, 0]
+        emb = self.spline(u, data[keys.EDGE_TYPE]).to(self.dtype)
+        out = dict(data)
+        mask = _edge_mask(data, emb)
+        out[keys.EDGE_CUTOFF] = self.cutoff(u)[:, None].to(emb.dtype) * mask
         out[keys.EDGE_EMBEDDING] = emb * mask
         return out

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32,
                        _i32, _vp, _vp, _vp],
     "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32,
-                       _i32, _i32, _vp, _vp, _vp],
+                       _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
                            _vp],
     "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],

@@ -17,7 +17,7 @@ two rank-window partials ``(eA, eB)``.
 | --- | --- |
 | ``env_scatter`` | ``env_scatter_call`` / ``_env_scatter_kernel`` |
 | ``gather_tp`` | ``gather_tp_raw_call`` / ``_gather_tp_raw_kernel`` |
-| ``bwd_fused`` | ``bwd_fused_raw_call`` / ``_bwd_fused_raw_kernel`` |
+| ``bwd_fused`` | ``bwd_fused_raw_call`` / ``_bwd_fused_raw_kernel``; with ``with_dw``, ``bwd_fused_call`` / ``_bwd_fused_kernel`` |
 | ``unweight_both`` | ``unweight_both_raw_call`` / ``_unweight_both_raw_kernel`` |
 | ``center_gather`` | ``center_broadcast_call`` / ``_center_broadcast_kernel`` |
 | ``center_sum`` | ``center_sum_call`` / ``_center_sum_kernel`` |
@@ -38,7 +38,9 @@ The first four are in ``csrc/fused_tp.cu``, the next four in
 ``csrc/train_tp.cu``. ``gather_tp`` also serves ``gather_tp_call`` /
 ``_gather_tp_kernel``: the port keeps one env array, so that kernel's
 combined-env form is the same function, and its x-transpose is
-``gather_tp`` on the role-swapped entry table (:func:`swap_entries`). What
+``gather_tp`` on the role-swapped entry table (:func:`swap_entries`).
+``unweight_both`` serves ``unweight_both_call`` / ``_unweight_both_kernel``
+the same way: from one denv array, the function of its window pair. What
 bounds each kernel on the card and how its design answers it is noted
 beside each kernel in the CUDA source.
 """
@@ -184,7 +186,8 @@ def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split=Fal
     return (out, out[:, :U].clone()) if split else out
 
 
-def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts=None):
+def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts=None,
+                        with_dw=False):
     g = _fold_gts(g, gts)
     E, U = x.shape[0], w.shape[1]
     d1, d2, d3 = x.shape[1] // U, env.shape[1] // U, g.shape[1] // U
@@ -198,7 +201,10 @@ def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, g
         dx.append((t * env_e).sum(1))
         denv_e = denv_e + xv[:, i : i + 1, :] * t
     dx = torch.stack(dx, dim=1).reshape(E, d1 * U)
-    return dx, segment_sum(denv_e.reshape(E, d2 * U), centers, n_atoms)
+    denv = segment_sum(denv_e.reshape(E, d2 * U), centers, n_atoms)
+    if not with_dw:
+        return dx, denv
+    return dx, denv, gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, w.shape[0], U)
 
 
 def unweight_both_reference(t, sh, wexp, centers, dim_to_irr):
@@ -447,17 +453,26 @@ def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = 
     return (out, ts) if split else out
 
 
-def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef,
-              gts=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backward of ``gather_tp`` in x and env, without dw:
-    dx [E, d1*U] and denv [n_atoms, d2*U]. ``gts`` [E, U]: the cotangent of
-    the split scalar output, added to g's block 0.
+_BWD_DW_MAX_BLOCKS = 1024  # blocks of bwd_fused's with_dw pass (partials [blocks, P, U])
 
-    Replaces ``_bwd_fused_raw_kernel``. Bound by the reads of x and g and the
-    write of dx; one block per atom segment gives dx and denv in one pass,
-    denv summed across warps in shared memory in a fixed order."""
+
+def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
+              with_dw: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Backward of ``gather_tp`` in x and env: dx [E, d1*U] and denv
+    [n_atoms, d2*U]; with ``with_dw`` also its weight gradient dw [P, U],
+    ``dw[p, u] = Σ_e Σ_{(i,j,k)∈p} c x[e,iU+u] env[c(e),jU+u] g[e,kU+u]``
+    (the sentinel edges add nothing). ``gts`` [E, U]: the cotangent of the
+    split scalar output, added to g's block 0.
+
+    Replaces ``_bwd_fused_raw_kernel`` and, with ``with_dw``,
+    ``_bwd_fused_kernel``. Bound by the reads of x and g and the write of
+    dx; one block per atom segment gives dx and denv in one pass, denv summed
+    across warps in shared memory in a fixed order; dw as per-lane path sums,
+    added across warps, then across blocks in block order (a second launch),
+    with no float atomics."""
     E, U = x.shape[0], w.shape[1]
     n_atoms = row_ptr.shape[0] - 1
+    n_paths = w.shape[0]
     _check_entries(entry_idx, entry_coef)
     if (g.shape[0] != E or g.shape[1] % U or env.shape[0] != n_atoms
             or centers.shape != (E,) or (gts is not None and gts.shape != (E, U))):
@@ -468,7 +483,8 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef,
         )
     opt = () if gts is None else (gts,)
     if _on_cpu(x, g, *opt, env, w, centers, row_ptr, entry_idx, entry_coef):
-        return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts)
+        return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts,
+                                   with_dw)
     _check_kernel_args(
         {"x": x, "g": g, "env": env, "w": w, "entry_coef": entry_coef,
          **{"gts": t for t in opt}},
@@ -476,15 +492,21 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef,
     )
     dx = torch.empty_like(x)
     denv = torch.empty_like(env)
-    if E == 0 and n_atoms == 0:
-        return dx, denv
-    _launch("bwd_fused", "atpt_bwd_fused", x.device,
-            x.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
-            row_ptr.data_ptr(), entry_idx.data_ptr(), entry_coef.data_ptr(),
-            entry_idx.shape[0], E, n_atoms,
-            x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U,
-            dx.data_ptr(), denv.data_ptr())
-    return dx, denv
+    n_blocks = max(1, min(_BWD_DW_MAX_BLOCKS, n_atoms + 1))
+    partial = dw = None
+    if with_dw:
+        partial = torch.empty((n_blocks, n_paths, U), dtype=x.dtype, device=x.device)
+        dw = torch.empty((n_paths, U), dtype=x.dtype, device=x.device)
+    if E > 0 or n_atoms > 0:
+        _launch("bwd_fused", "atpt_bwd_fused", x.device,
+                x.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
+                row_ptr.data_ptr(), entry_idx.data_ptr(), entry_coef.data_ptr(),
+                entry_idx.shape[0], E, n_atoms,
+                x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
+                dx.data_ptr(), denv.data_ptr(), _ptr(partial), _ptr(dw))
+    elif with_dw:
+        dw.zero_()
+    return (dx, denv, dw) if with_dw else (dx, denv)
 
 
 def unweight_both(t, sh, wexp, centers, dim_to_irr) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -64,34 +64,59 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    median times, the bound and the one PyTorch call computing the same
    function (``torch.einsum`` with the dense CG tensor; "OOM" where it runs
    out of memory); (b) 5 force calls of the flagship on ``pallas`` with
-   exact launch counts (6 ``sparse_tp``, nothing else), held to ``einsum``
-   as in phase 3, and its µs/atom; (c) phase 5b/5c on ``pallas``: 10 Adam
-   steps on each batch with the exact launch counts of every step, the loss
-   falls, first-step gradients within 1e-4 of ``einsum``'s; (d) the command
-   line in subprocesses, as shipped: ``python -m allegro_tpu_torch md -c
+   exact launch counts (6 ``sparse_tp``; the env sums, position gathers and
+   edge-energy sum on the center kernels, 7 + 7), held to ``einsum`` as in
+   phase 3, and its µs/atom; (c) phase 5b/5c on ``pallas``: 10 Adam steps on
+   each batch with the exact launch counts of every step, the loss falls,
+   first-step gradients within 1e-4 of ``einsum``'s; (d) the command line in
+   subprocesses, as shipped: ``python -m allegro_tpu_torch md -c
    configs/md.yaml`` (1,000 atoms, 200 steps on ``pallas``), ``run -c
    configs/tutorial.yaml`` (train + test, ``einsum`` + ZBL) and the same with
    ``model.tp_kernel_backend: pallas``; each must exit 0 and write its log,
    checkpoints and test metrics, with the exact launch counts of its run.
+7. kernels 18 and 19 and the rest of the model surface: (b) ``bwd_fused``
+   with its weight gradient (kernel 18) at the flagship's layer dims, with
+   and without dw, two calls with the same bits, timed at layer 0 beside the
+   three kernels it can replace on the same inputs, and ``unweight_both``
+   from one denv array (kernel 19); (a) every kernel with a basis dimension
+   (1-4, 7-10, 13-21) at the shapes of the JAX bench's l_max-3 model
+   (``run_lmax3_bench``): layer 0 (16, 16, 16; 353 entries, timed) and
+   layer 1 (16, 16, 1) of the 2-layer model, the 3-layer model's (16, 16,
+   31) and (31, 16, 16) (611 entries); (c) the l_max-3 force call on
+   ``mega``, ``use_mega=False``, ``pallas`` and ``einsum``: exact launch
+   counts, agreement with ``einsum`` as in phase 3, µs/atom, peak memory, a
+   torch.profiler breakdown; (d) 20 MD steps on ``mega`` (within 1e-4 Å of
+   ``einsum``) and a calculator call; (e) one force call of each remaining
+   configuration (``parity=False`` at 3 layers, the 3-layer l_max-3 model,
+   shared env weights, the spline embed) on ``fused_infer``'s default and
+   ``pallas`` against ``einsum``, with exact launch counts.
+   In phases 3, 5c, 6b, 6c, 7c and 7e two identical force calls must agree
+   bit for bit in energy, forces and virial (5c and 6c: on the 1k batch of
+   four periodic frames, whose virial sums per frame). Phase 7 times the
+   plain versions with fewer calls (``PHASE7_PLAIN_TIMING``).
 
 The last two lines of stdout are a JSON object with the kernels' records and
-the JSON result ``{"ok": true, "device": {...}}``. A kernel's ``ms`` and
-``plain_ms`` sum the device times of its launches in one force call of
-``ms_config`` (``mega``, except for the four layer kernels of
-``use_mega=False``: ``fused readout``, where all their launches are; for
-the trainable backend's four, ``train step``: one launch per layer), and
-``launches`` counts their launches in the 5 force calls of that
-configuration (the 10 training steps on the 1k batch). ``sparse_tp`` is
-timed on the ``pallas`` force call (its 6 launches: each layer's table and
-both swaps), ``sparse_tp_gradw`` on the ``pallas`` training step (one launch
-per layer and table order, 6 of its 8 per step). ``bound_ms`` is the
-least time of the same work on the card (the bytes of the inputs read once
-and the outputs written once at 3.35 TB/s, or the FLOPs at 67 TFLOP/s f32,
-the larger; ``bound_by`` says which), ``library_ms`` the time of one
-PyTorch call computing the same function where there is one (the center
-gather and sum), else null. Every configuration and entry point has its own
-``launches_*`` key; variants (``[split]``, ``[gts]``, ``[swapped]``) have
-their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*``.
+the JSON result ``{"ok": true, "device": {...}}``. The kernels line has one
+row per TPU kernel (``tpu_kernel`` 1-21, ``name`` the port's wrapper, with
+``[variant]`` where a variant serves it). A row's ``ms`` and ``plain_ms``
+sum the device times of its launches in one force call of ``ms_config``
+(``mega``, except for the four layer kernels and 19 on ``use_mega=False``:
+``fused readout``, where all their launches are; for the trainable
+backend's kernels, ``train step``: one launch per layer; 18: its layer-0
+launch), and ``launches`` counts the launches in the 5 force calls of that
+configuration (the 10 training steps on the 1k batch; 0 for 18, which no
+user path runs, in JAX either). ``sparse_tp`` is timed on the ``pallas``
+force call (its 6 launches), ``sparse_tp_gradw`` on the ``pallas`` training
+step (one launch per layer and table order, 6 of its 8 per step).
+``bound_ms`` is the least time of the same work on the card (the bytes of
+the inputs read once and the outputs written once at 3.35 TB/s, or the
+FLOPs at 67 TFLOP/s f32, the larger; ``bound_by`` says which),
+``library_ms`` the time of one PyTorch call computing the same function
+where there is one (the center gather and sum, ``sparse_tp*``), else null.
+Every configuration and entry point has its own ``launches_*`` key; the
+``*_lmax3`` keys are the same kernel's record at the l_max-3 layer-0 shapes;
+variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``) have
+their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*`` in the base row.
 """
 
 from __future__ import annotations
@@ -112,6 +137,9 @@ SEED = 0
 N_CALLS = 5
 KERNEL_TOL = 1e-5
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock: longer than queueing 20 calls
+# phase 7 times the plain versions with fewer calls (median_ms's reps, runs,
+# warmup): at the l_max-3 shapes one plain call takes up to 0.3 s
+PHASE7_PLAIN_TIMING = dict(reps=2, runs=3, warmup=1)
 FLAGSHIP = dict(
     r_max=R_MAX,
     type_names=["A", "B", "C"],
@@ -144,34 +172,34 @@ SOURCES = {
     "sparse_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "sparse_tp_gradw": "allegro_tpu_torch/csrc/sparse_tp.cu",
 }
-REPLACES = {
-    "latent_env_scatter": "allegro_tpu/ops/fused_tp.py:1701",
-    "latent_env_bwd": "allegro_tpu/ops/fused_tp.py:1966",
-    "gather_tp_embed": "allegro_tpu/ops/fused_tp.py:603",
-    "bwd_embed": "allegro_tpu/ops/fused_tp.py:683",
-    "env_scatter": "allegro_tpu/ops/fused_tp.py:1091",
-    # the port keeps one env array: _gather_tp_kernel (kernel 13, combined
-    # env, and its x-transpose on the swapped table) is the same function
-    "gather_tp": "allegro_tpu/ops/fused_tp.py:500, allegro_tpu/ops/fused_tp.py:451",
-    "bwd_fused": "allegro_tpu/ops/fused_tp.py:1340",
-    "unweight_both": "allegro_tpu/ops/fused_tp.py:1455",
-    "center_gather": "allegro_tpu/ops/fused_tp.py:1043",
-    "center_sum": "allegro_tpu/ops/fused_tp.py:991",
-    "readout_sum": "allegro_tpu/ops/fused_tp.py:1794",
-    "readout_bwd": "allegro_tpu/ops/fused_tp.py:1873",
-    "tp_scatter": "allegro_tpu/ops/fused_tp.py:835",
-    "gather_dw": "allegro_tpu/ops/fused_tp.py:907",
-    "unweight_sh": "allegro_tpu/ops/fused_tp.py:1159",
-    "unweight_w": "allegro_tpu/ops/fused_tp.py:1588",
-    "sparse_tp": "allegro_tpu/ops/pallas_contract.py:84",
-    "sparse_tp_gradw": "allegro_tpu/ops/pallas_contract.py:102",
-}
-# TPU kernels (ROADMAP.md queue 2) that each wrapper serves
-SERVES = {"env_scatter": [1], "gather_tp": [2, 13], "bwd_fused": [3], "unweight_both": [4],
-          "center_gather": [5], "center_sum": [6], "latent_env_scatter": [7],
-          "latent_env_bwd": [8], "gather_tp_embed": [9], "bwd_embed": [10], "readout_sum": [11],
-          "readout_bwd": [12], "tp_scatter": [14], "gather_dw": [15], "unweight_sh": [16],
-          "unweight_w": [17], "sparse_tp": [20], "sparse_tp_gradw": [21]}
+# the 21 TPU kernels (each function that reaches pl.pallas_call): number,
+# the record of the port's kernel that replaces it (a wrapper, or
+# ``wrapper[variant]``), and the TPU kernel's file:line. 13 and 19 are the
+# same functions as 2 and 4 from one env array; 13 runs on the role-swapped
+# table, 18 is bwd_fused with its weight gradient
+TPU_KERNELS = [
+    (1, "env_scatter", "allegro_tpu/ops/fused_tp.py:1091"),
+    (2, "gather_tp", "allegro_tpu/ops/fused_tp.py:500"),
+    (3, "bwd_fused", "allegro_tpu/ops/fused_tp.py:1340"),
+    (4, "unweight_both", "allegro_tpu/ops/fused_tp.py:1455"),
+    (5, "center_gather", "allegro_tpu/ops/fused_tp.py:1043"),
+    (6, "center_sum", "allegro_tpu/ops/fused_tp.py:991"),
+    (7, "latent_env_scatter", "allegro_tpu/ops/fused_tp.py:1701"),
+    (8, "latent_env_bwd", "allegro_tpu/ops/fused_tp.py:1966"),
+    (9, "gather_tp_embed", "allegro_tpu/ops/fused_tp.py:603"),
+    (10, "bwd_embed", "allegro_tpu/ops/fused_tp.py:683"),
+    (11, "readout_sum", "allegro_tpu/ops/fused_tp.py:1794"),
+    (12, "readout_bwd", "allegro_tpu/ops/fused_tp.py:1873"),
+    (13, "gather_tp[swapped]", "allegro_tpu/ops/fused_tp.py:451"),
+    (14, "tp_scatter", "allegro_tpu/ops/fused_tp.py:835"),
+    (15, "gather_dw", "allegro_tpu/ops/fused_tp.py:907"),
+    (16, "unweight_sh", "allegro_tpu/ops/fused_tp.py:1159"),
+    (17, "unweight_w", "allegro_tpu/ops/fused_tp.py:1588"),
+    (18, "bwd_fused[dw]", "allegro_tpu/ops/fused_tp.py:1207"),
+    (19, "unweight_both", "allegro_tpu/ops/fused_tp.py:1522"),
+    (20, "sparse_tp", "allegro_tpu/ops/pallas_contract.py:84"),
+    (21, "sparse_tp_gradw", "allegro_tpu/ops/pallas_contract.py:102"),
+]
 TRAIN_KERNELS = ("tp_scatter", "gather_dw", "unweight_sh", "unweight_w")
 PALLAS_KERNELS = ("sparse_tp", "sparse_tp_gradw")
 # launches per force call of the 2-layer flagship on fused_infer. All
@@ -220,21 +248,69 @@ PER_CALL = {
 PER_STEP = {**{name: 0 for name in PER_CALL["mega"]},
             "env_scatter": 6, "gather_tp": 12, "tp_scatter": 6, "gather_dw": 8,
             "unweight_sh": 6, "unweight_w": 6, "center_gather": 6, "center_sum": 3}
-# the pallas backend: the env sum is plain torch and there are no CSR
-# statics, so per force call only sparse_tp runs: per layer the forward and
-# its two input transposes (a- and b-swapped tables); the parameters are
-# frozen in the force call, so no sparse_tp_gradw
-PER_CALL["pallas"] = {**{name: 0 for name in PER_CALL["mega"]}, "sparse_tp": 6}
-# per training step on pallas, per layer: the forward SparseTp (1); the force
-# backward (create_graph) runs its three transposes, two sparse_tp and one
-# sparse_tp_gradw (needs_input_grad is fixed at forward time: the loss never
-# reads that weight gradient); the parameter backward runs the three
-# transposes of the forward node and of the force backward's two SparseTp
-# nodes (6 sparse_tp, 3 sparse_tp_gradw; its SparseTpGradW node feeds nothing
-# the loss reads and is not run). Per step: 9 L sparse_tp, 4 L
-# sparse_tp_gradw (L = 2 layers).
-PER_STEP_PALLAS = {**{name: 0 for name in PER_CALL["mega"]}, "sparse_tp": 18,
-                   "sparse_tp_gradw": 8}
+
+
+def per_call(config, L=2, zbl=False):
+    """Launches per force call of an L-layer model in ``config``: PER_CALL's
+    tables for L = 2, in general: ``mega``: L latent_env_scatter and
+    latent_env_bwd (the first projection and every latent but the last), one
+    gather_tp_embed / bwd_embed (layer 0), L - 1 gather_tp / bwd_fused;
+    ``fused readout``: each of the four layer kernels once per layer;
+    ``pallas``: per layer the forward sparse_tp and its two input transposes
+    (a- and b-swapped tables), no sparse_tp_gradw (the parameters are frozen
+    in the force call); the two position gathers and their transposes, the
+    edge-energy sum and its transpose, and per layer the env sum (center_sum
+    then center_gather) and its transpose; with ZBL (``zbl``) one more sum and
+    its transpose. The kernel configurations also run the position gathers
+    and their transposes (2 + 2) and the fused readout (1 + 1)."""
+    counts = {name: 0 for name in PER_CALL["mega"]}
+    if config == "pallas":
+        counts.update(sparse_tp=3 * L, center_gather=3 + 2 * L + zbl,
+                      center_sum=3 + 2 * L + zbl)
+        return counts
+    counts.update(center_gather=2, center_sum=2, readout_sum=1, readout_bwd=1)
+    if config == "mega":
+        counts.update(latent_env_scatter=L, latent_env_bwd=L, gather_tp_embed=1, bwd_embed=1,
+                      gather_tp=L - 1, bwd_fused=L - 1)
+    else:
+        counts.update({name: L for name in LAYER_KERNELS})
+    return counts
+
+
+def per_step_pallas(L=2, zbl=False):
+    """Launches per training step on ``pallas`` of an L-layer model. Per
+    layer: the forward SparseTp (1); the force backward (create_graph) runs
+    its three transposes, two sparse_tp and one sparse_tp_gradw
+    (needs_input_grad is fixed at forward time: the loss never reads that
+    weight gradient); the parameter backward runs the three transposes of the
+    forward node and of the force backward's two SparseTp nodes (6 sparse_tp,
+    3 sparse_tp_gradw; its SparseTpGradW node feeds nothing the loss reads and
+    is not run): 9 L sparse_tp, 4 L sparse_tp_gradw. The center kernels: the
+    forward's 3 + 2 L sums and gathers of ``per_call``, their transposes in the
+    force backward, and in the parameter backward the transposes of every
+    node on the way to a parameter: 6 + 4 L center_gather, 3 + 4 L
+    center_sum (ZBL: one more of each)."""
+    counts = {name: 0 for name in PER_CALL["mega"]}
+    counts.update(sparse_tp=9 * L, sparse_tp_gradw=4 * L, center_gather=6 + 4 * L + zbl,
+                  center_sum=3 + 4 * L + zbl)
+    return counts
+
+
+# the pallas backend: the CSR statics route its env sums, position
+# gathers and edge-energy sum through the center kernels, so two identical
+# calls give the same bits
+PER_CALL["pallas"] = per_call("pallas")
+PER_STEP_PALLAS = per_step_pallas()
+# phase 7: the JAX bench's l_max-3 model (allegro_tpu/bench.py:run_lmax3_bench,
+# BASELINE.json config 3) and the rest of the model surface, at full width
+LMAX3 = {**FLAGSHIP, "l_max": 3}
+SURFACE = {
+    "parity=False, 3 layers": {**FLAGSHIP, "parity": False, "num_layers": 3},
+    "l_max 3, 3 layers": {**LMAX3, "num_layers": 3},
+    "shared env weights": {**FLAGSHIP, "weight_individual_irreps": False},
+    "spline embed": {**FLAGSHIP, "radial_chemical_embed": {
+        "_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed"}},
+}
 MD_BLOCKS = 10
 MD_STEPS_PER_BLOCK = 10
 MD = dict(masses=[1.0, 1.0, 1.0], r_max=R_MAX, dt=0.01, skin=0.2,
@@ -325,9 +401,10 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def check_kernels(tps, data, rng, records=None):
-    """Phase 2: each kernel against its plain version at the layers' shapes;
-    with ``records``, also the median times, accumulated there."""
+def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
+    """Phase 2: each kernel against its plain version at the layers' shapes
+    (``tps``: layers ``first``, ``first + 1``, ...); with ``records``, also the
+    median times, accumulated there."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -343,7 +420,7 @@ def check_kernels(tps, data, rng, records=None):
         t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
         return t * real if edge else t
 
-    for layer, tp in enumerate(tps):
+    for layer, tp in enumerate(tps, first):
         U, d1, d2, d3 = tp.mul, tp.d1, tp.d2, tp.d3
         n_irr = int(tp.dim_to_irr.max().item()) + 1
         idx, coef, d2i = tp.entry_idx, tp.entry_coef.to(torch.float32), tp.dim_to_irr
@@ -379,18 +456,21 @@ def check_kernels(tps, data, rng, records=None):
         }
         for name, (kernel, plain, reads, flops) in cases.items():
             label = f"U {U} layer {layer} dims ({d1},{d2},{d3}) entries {n:3d}"
-            check_case(name, kernel, plain, label, records, reads, flops)
+            check_case(name, kernel, plain, label, records, reads, flops, plain_timing=plain_timing)
 
 
-def check_case(name, kernel, plain, label, records=None, reads=(), flops=0, library=None):
+def check_case(name, kernel, plain, label, records=None, reads=(), flops=0, library=None,
+               plain_timing=None):
     """One kernel call against its plain version (max|err| / max|ref| <
     KERNEL_TOL); with ``records``, also their median times, accumulated
     there under ``name`` (a kernel name, or ``kernel[variant]``), with the
     work the bound counts: the bytes of ``reads`` (each input read once) and
     of the outputs (each written once), and ``flops``. ``library``: one
-    PyTorch call computing the same function, timed beside them."""
-    got, ref = kernel(), plain()
-    torch.cuda.synchronize()
+    PyTorch call computing the same function, timed beside them.
+    ``plain_timing``: median_ms's keyword arguments for the plain version
+    (the caller's choice; default, median_ms's own)."""
+    got = kernel()
+    ref = plain()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     abs_err = max(e[0] for e in errs)
     rel = max(e[1] for e in errs)
@@ -403,7 +483,8 @@ def check_case(name, kernel, plain, label, records=None, reads=(), flops=0, libr
     if records is None:
         print()
         return
-    ms, plain_ms = median_ms(kernel), median_ms(plain)
+    ms = median_ms(kernel)
+    plain_ms = median_ms(plain, **(plain_timing or {}))
     work = nbytes(*reads, *got)
     bound_ms, bound_by = bound(work, flops)
     print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
@@ -429,7 +510,7 @@ def bound(n_bytes, flops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_mega_kernels(allegro, data, rng, records=None):
+def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
     """Phase 2: the mega kernels and the split / gts variants of kernels 2
     and 3 against their plain versions, on the mega model's weights at the
     force call's shapes; with ``records``, also the median times, summed
@@ -467,14 +548,15 @@ def check_mega_kernels(allegro, data, rng, records=None):
                    lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, row_ptr, d2i, U, S),
                    lambda: fused_tp.latent_env_scatter_reference(pieces, sh, a, b, row_ptr, d2i,
                                                                  U, S), what, records,
-                   (*pieces, sh, a, b, row_ptr, d2i), 2 * E * mlp + env_flops)
+                   (*pieces, sh, a, b, row_ptr, d2i), 2 * E * mlp + env_flops,
+                   plain_timing=plain_timing)
         check_case("latent_env_bwd",
                    lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers,
                                                          d2i, U, S)),
                    lambda: _flat(fused_tp.latent_env_bwd_reference(pieces, sh, a, b, t, g_lat,
                                                                    centers, d2i, U, S)),
                    what, records, (*pieces, sh, a, b, t, g_lat, centers, d2i),
-                   4 * E * mlp + 2 * env_flops)
+                   4 * E * mlp + 2 * env_flops, plain_timing=plain_timing)
     wk, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
     d1, d2, d3 = tp.d1, tp.d2, tp.d3
     w2b, env = rand(E, n_irr * U), rand(n_atoms, d2 * U)
@@ -486,23 +568,25 @@ def check_mega_kernels(allegro, data, rng, records=None):
                                                 True),
                lambda: fused_tp.gather_tp_embed_reference(sh, w2b, env, wk, centers, idx, coef,
                                                           specs, d3, True), what, records,
-               (sh, w2b, env, wk, centers, idx, coef, specs), tp_flops + Er * d1 * U)
+               (sh, w2b, env, wk, centers, idx, coef, specs), tp_flops + Er * d1 * U,
+               plain_timing=plain_timing)
     check_case("bwd_embed",
                lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
                                           specs, gts),
                lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx,
                                                     coef, specs, gts), what, records,
                (sh, w2b, g, gts, env, wk, row_ptr, idx, coef, specs),
-               2 * tp_flops + 4 * Er * d1 * U)
+               2 * tp_flops + 4 * Er * d1 * U, plain_timing=plain_timing)
     check_case("gather_tp[split]",
                lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, True),
                lambda: fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, d3, True),
-               what, records, (x, env, wk, centers, idx, coef), tp_flops)
+               what, records, (x, env, wk, centers, idx, coef), tp_flops, plain_timing=plain_timing)
     check_case("bwd_fused[gts]",
                lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts),
                lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef,
                                                     gts), what, records,
-               (x, g, gts, env, wk, row_ptr, idx, coef), 2 * tp_flops + Er * U)
+               (x, g, gts, env, wk, row_ptr, idx, coef), 2 * tp_flops + Er * U,
+               plain_timing=plain_timing)
 
 
 def _flat(res):
@@ -573,7 +657,7 @@ def check_center_readout(data, rng, records):
                label, records, (*pieces, w0, w1, y, centers), 2 * Er * (2 * K * H + H))
 
 
-def check_train_kernels(tps, data, rng, records=None):
+def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
     """Phase 5a: the trainable backend's transposes against their plain
     versions at the training batch's shapes, each layer's table in both role
     orders (the swapped one under ``kernel[swapped]``), and ``gather_tp`` on
@@ -596,7 +680,7 @@ def check_train_kernels(tps, data, rng, records=None):
         t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
         return t * real if edge else t
 
-    for layer, tp in enumerate(tps):
+    for layer, tp in enumerate(tps, first):
         U = tp.mul
         _, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
         d2i = tp.dim_to_irr
@@ -607,10 +691,11 @@ def check_train_kernels(tps, data, rng, records=None):
         label = f"U {U} layer {layer} dims {st.dims} entries {n:3d}"
         check_case("unweight_sh", lambda: (fused_tp.unweight_sh(t, wexp, centers, d2i),),
                    lambda: (fused_tp.unweight_sh_reference(t, wexp, centers, d2i),), label,
-                   records, (t, wexp, centers, d2i), 2 * Er * tp.d2 * U)
+                   records, (t, wexp, centers, d2i), 2 * Er * tp.d2 * U, plain_timing=plain_timing)
         check_case("unweight_w", lambda: (fused_tp.unweight_w(t, sh, centers, d2i, tp.n_irr),),
                    lambda: (fused_tp.unweight_w_reference(t, sh, centers, d2i, tp.n_irr),),
-                   label, records, (t, sh, centers, d2i), 2 * Er * tp.d2 * U)
+                   label, records, (t, sh, centers, d2i), 2 * Er * tp.d2 * U,
+                   plain_timing=plain_timing)
         for tag, s in (("", st), ("[swapped]", st.swap())):
             d1, d2, d3 = s.dims
             x, g = rand(E, d1 * U), rand(E, d3 * U)
@@ -621,21 +706,25 @@ def check_train_kernels(tps, data, rng, records=None):
                        lambda: (fused_tp.tp_scatter(x, g, w, centers, row_ptr, *tab, d2),),
                        lambda: (fused_tp.tp_scatter_reference(x, g, w, centers, n_atoms, *tab,
                                                               d2),),
-                       label, records, (x, g, w, row_ptr, *tab), 3 * Er * n * U)
+                       label, records, (x, g, w, row_ptr, *tab), 3 * Er * n * U,
+                       plain_timing=plain_timing)
             # a CG entry's dw term: x*env, *g, then the multiply-add with c
             check_case("gather_dw" + tag,
                        lambda: (fused_tp.gather_dw(x, env, g, centers, *tab, s.n_paths, U),),
                        lambda: (fused_tp.gather_dw_reference(x, env, g, centers, *tab,
                                                              s.n_paths, U),),
-                       label, records, (x, env, g, centers, *tab), 4 * Er * n * U)
+                       label, records, (x, env, g, centers, *tab), 4 * Er * n * U,
+                       plain_timing=plain_timing)
             if tag:
                 check_case("gather_tp" + tag,
                            lambda: (fused_tp.gather_tp(x, env, w, centers, *tab, d3),),
                            lambda: (fused_tp.gather_tp_reference(x, env, w, centers, *tab, d3),),
-                           label, records, (x, env, w, centers, *tab), 3 * Er * n * U)
+                           label, records, (x, env, w, centers, *tab), 3 * Er * n * U,
+                           plain_timing=plain_timing)
 
 
-def check_pallas_kernels(tps, n_edges, dev, rng, records):
+def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
+                         plain_timing=None):
     """Phase 6a: ``sparse_tp`` and ``sparse_tp_gradw`` against their plain
     versions on ``n_edges`` rows, at each layer's dims, on its table and both
     swaps (the tables of the force call's transposes), ``sparse_tp`` with
@@ -652,7 +741,7 @@ def check_pallas_kernels(tps, n_edges, dev, rng, records):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
 
     E = n_edges
-    for layer, tp in enumerate(tps):
+    for layer, tp in enumerate(tps, first):
         U, P = tp.mul, tp.num_paths
         for tag, r in (("table", 0), ("swap_a", compose(0, SWAP_A)), ("swap_b", compose(0, SWAP_B))):
             d1, d2, d3 = ((tp.d1, tp.d2, tp.d3)[s] for s in pc.ROLES[r])
@@ -666,15 +755,16 @@ def check_pallas_kernels(tps, n_edges, dev, rng, records):
                 w = rand(P, U) if coupled else rand(P, 1).expand(P, U).contiguous()
                 timed = records if coupled else None
                 lib = _fits(lambda: torch.einsum("eiu,eju,pu,pijk->eku", a3, b3, w, C)) \
-                    if coupled else None
+                    if coupled and library else None
                 check_case("sparse_tp", lambda: (pc.sparse_tp(a, b, w, idx, coef, d3),),
                            lambda: (pc.sparse_tp_reference(a, b, w, idx, coef, d3),),
                            f"{label} {'coupled' if coupled else 'uncoupled'}", timed,
-                           (a, b, w, idx, coef), 3 * E * n * U, lib)
-            lib = _fits(lambda: torch.einsum("eiu,eju,eku,pijk->pu", a3, b3, g3, C))
+                           (a, b, w, idx, coef), 3 * E * n * U, lib, plain_timing=plain_timing)
+            lib = _fits(lambda: torch.einsum("eiu,eju,eku,pijk->pu", a3, b3, g3, C)) \
+                if library else None
             check_case("sparse_tp_gradw", lambda: (pc.sparse_tp_gradw(a, b, g, idx, coef, P, U),),
                        lambda: (pc.sparse_tp_gradw_reference(a, b, g, idx, coef, P, U),), label,
-                       records, (a, b, g, idx, coef), 4 * E * n * U, lib)
+                       records, (a, b, g, idx, coef), 4 * E * n * U, lib, plain_timing=plain_timing)
             del a, b, g, a3, b3, g3, C
             torch.cuda.empty_cache()
 
@@ -743,7 +833,9 @@ def peak_mib():
 
 def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=("5c", "5b")):
     """Phase 5b/5c (6c on ``pallas``; ``labels`` of the two) on each batch: the gradient agreement
-    of ``backend`` with ``einsum`` on the first step, then TRAIN_STEPS Adam
+    of ``backend`` with ``einsum`` on the first step, two identical force
+    calls on the 1k batch (several periodic frames) that must give the same
+    bits in energy, forces and virial, then TRAIN_STEPS Adam
     steps through ``Trainer.fit`` with the launch counts of every step
     (``per_step``), two identical runs of TRAIN_REPEAT_STEPS steps, and (1k
     batch, ``fused``) a torch.profiler trace of 3 steps. Returns the launches
@@ -767,6 +859,8 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
             torch.cuda.reset_peak_memory_stats()
             _, _, grads[which] = trainer.loss_and_grads(state, data)
             peaks[which] = peak_mib()
+            if which == backend:
+                backend_data = data
         ratios = {k: ((g - grads["einsum"][k]).abs().max() / grads["einsum"][k].abs().max()).item()
                   for k, g in grads[backend].items()}
         worst = max(ratios, key=ratios.get)
@@ -778,6 +872,17 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
                                  f"{ratios[worst]:.3e}")
         del grads, einsum
         torch.cuda.empty_cache()
+        if name == "1k":
+            # several periodic frames: each edge reads its frame's cell, each
+            # atom its frame's strain, and the virial sums per frame
+            first, again = (fused.apply_with_derivatives(backend_data) for _ in range(2))
+            same = bitwise_same(first, again)
+            print(f"    two identical force calls on {backend}, {loader.batch_size} periodic frames "
+                  f"(virial {tuple(first[keys.VIRIAL].shape)}): energy, forces and virial "
+                  f"{'the same bits' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"{backend}: two identical force calls on the 1k batch differ")
+        del backend_data
         # 5b: TRAIN_STEPS steps, one per fit call (the loader is one batch)
         trainer = make_trainer(fused, dev)
         state = trainer.init_state()
@@ -852,8 +957,9 @@ def profile_steps(trainer, state, loader, steps=3):
 
 def drive_force_calls(phase, config, model, data, ref, n_atoms, n_rows):
     """N_CALLS force calls with the exact launch counts of PER_CALL[config]
-    after each, the outputs held to ``ref`` (einsum), the run-to-run drift
-    of two calls and the µs/atom; returns (launches, µs/atom)."""
+    after each, the outputs held to ``ref`` (einsum), two identical calls
+    that must give the same bits (energy, forces, virial) and the µs/atom;
+    returns (launches, µs/atom)."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -873,35 +979,37 @@ def drive_force_calls(phase, config, model, data, ref, n_atoms, n_rows):
     check_force_call(out, ref, n_atoms, n_rows)
     again = model.apply_with_derivatives(data)
     drift = (again[keys.FORCES] - out[keys.FORCES]).abs().max().item()
-    print(f"    run-to-run max |dforces| of two identical calls {drift:.3e}")
+    same = bitwise_same(out, again)
+    print(f"    two identical calls: max |dforces| {drift:.3e}; energy, forces and virial "
+          f"{'the same bits' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"{config}: two identical force calls differ")
     return launches, time_force_call(model, data, n_atoms)
 
 
 def cli_launches(config):
     """The exact launch counts of one CLI run, derived from its config: on
-    ``pallas`` PER_CALL / PER_STEP_PALLAS scaled by the number of layers
-    (3 sparse_tp per layer and force call; 9 sparse_tp and 4
-    sparse_tp_gradw per layer and training step); ``einsum`` launches
-    nothing. ``md``: ``steps_per_block + 1`` force calls per block;
+    ``pallas`` ``per_call`` / ``per_step_pallas`` for its number of layers
+    and pair potential; ``einsum`` launches nothing (no CSR statics). ``md``:
+    ``steps_per_block + 1`` force calls per block;
     ``run``: the training steps, one validation pass per epoch and the test
     pass, one force call per batch."""
     counts = {k: 0 for k in PER_CALL["mega"]}
     model = config["model"]
     if model.get("tp_kernel_backend", "einsum") != "pallas":
         return counts
-    L = int(model["num_layers"])
+    L, zbl = int(model["num_layers"]), model.get("pair_potential") is not None
     if "md" in config.get("run", []):
         md = config["md"]
         blocks = -(-int(md["n_steps"]) // int(md["steps_per_block"]))
-        counts["sparse_tp"] = 3 * L * blocks * (int(md["steps_per_block"]) + 1)
-        return counts
+        calls = blocks * (int(md["steps_per_block"]) + 1)
+        return {k: calls * n for k, n in per_call("pallas", L, zbl).items()}
     data, epochs = config["data"], int(config["trainer"]["max_epochs"])
     batches = {k: -(-int(v) // int(data["batch_size"])) for k, v in data["split"].items()}
     calls = epochs * batches["val"] + batches["test"]
     steps = epochs * batches["train"]
-    counts["sparse_tp"] = 3 * L * calls + 9 * L * steps
-    counts["sparse_tp_gradw"] = 4 * L * steps
-    return counts
+    call, step = per_call("pallas", L, zbl), per_step_pallas(L, zbl)
+    return {k: calls * call[k] + steps * step[k] for k in counts}
 
 
 def run_cli(smi):
@@ -965,6 +1073,288 @@ def run_cli(smi):
                   f"{json.dumps(metrics)}")
             print("    " + next(ln for ln in lines if ln.startswith("trained ")) + f"; {smi}")
     return out
+
+
+def check_kernel18(tps, data, rng, records, tag, plain_timing=None):
+    """Phase 7b: kernel 18 (``bwd_fused`` with its weight gradient) at each
+    layer's dims: with and without dw against the plain version, two calls
+    with dw giving the same bits, and with ``records`` (layer 0's dims) its
+    device time beside the three kernels the trainable backend runs for the
+    same cotangents (``gather_tp`` on the swapped table for dx,
+    ``tp_scatter`` for denv, ``gather_dw`` for dw) on the same inputs, under
+    ``bwd_fused[dw]`` and ``bwd_fused[trio]``. Kernel 19 (``unweight_both``
+    from one denv array) is checked beside it."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+    E = centers.shape[0]
+    Er = int(data[keys.EDGE_MASK].sum())
+
+    def rand(*shape, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return t * real if edge else t
+
+    for layer, tp in enumerate(tps):
+        U, d1, d2, d3, P = tp.mul, tp.d1, tp.d2, tp.d3, tp.num_paths
+        idx, coef, d2i = tp.entry_idx, tp.entry_coef.to(torch.float32), tp.dim_to_irr
+        n = idx.shape[0]
+        x, g, w = rand(E, d1 * U), rand(E, d3 * U), rand(P, U, edge=False)
+        env, t = rand(n_atoms, d2 * U, edge=False), rand(n_atoms, d2 * U, edge=False)
+        sh, wexp = rand(E, d2), rand(E, tp.n_irr * U)
+        timed = records if layer == 0 else None
+        label = f"{tag} U {U} layer {layer} dims ({d1},{d2},{d3}) entries {n:3d} P {P}"
+        reads = (x, g, env, w, row_ptr, idx, coef)
+        for with_dw in (False, True):
+            key = "bwd_fused[dw]" if with_dw else "bwd_fused"
+            check_case(key, lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef,
+                                                       with_dw=with_dw),
+                       lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx,
+                                                            coef, with_dw=with_dw),
+                       label, timed if with_dw else None, reads, (6 + 4 * with_dw) * Er * n * U,
+                       plain_timing=plain_timing)
+        first = fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef, with_dw=True)
+        again = fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef, with_dw=True)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"    bwd_fused with dw, two identical calls: {'same bits' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"bwd_fused with dw ({label}) is not deterministic")
+        swapped = tp.entry_swapped
+        trio = lambda: (fused_tp.gather_tp(g, env, w, centers, swapped, coef, d1),
+                        fused_tp.tp_scatter(x, g, w, centers, row_ptr, idx, coef, d2),
+                        fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U))
+        check_case("bwd_fused[trio]", trio,
+                   lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx, coef,
+                                                        with_dw=True),
+                   label + " (gather_tp swapped + tp_scatter + gather_dw)", timed,
+                   reads + (swapped,), 10 * Er * n * U, plain_timing=plain_timing)
+        check_case("unweight_both", lambda: fused_tp.unweight_both(t, sh, wexp, centers, d2i),
+                   lambda: fused_tp.unweight_both_reference(t, sh, wexp, centers, d2i),
+                   label + " (kernel 19)", None, plain_timing=plain_timing)
+
+
+def lmax3_models(n_edges, n_atoms, dev):
+    """The l_max-3 model of the JAX bench's run_lmax3_bench (BASELINE.json
+    config 3) at full width, random weights from SEED, on fused_infer (mega,
+    the default) and with the same weights on use_mega=False, pallas and
+    einsum; and its 3-layer twin (the middle dims 31) on fused and pallas."""
+    from allegro_tpu_torch.model import AllegroModel
+
+    avg_n = n_edges / n_atoms
+    base = AllegroModel(**LMAX3, avg_num_neighbors=avg_n, tp_kernel_backend="fused_infer")
+    base.init(SEED).to(dev)
+    models = {"mega": base}
+    for config, kw in (("fused readout", dict(tp_kernel_backend="fused_infer", use_mega=False)),
+                       ("pallas", dict(tp_kernel_backend="pallas")),
+                       ("einsum", dict(tp_kernel_backend="einsum"))):
+        m = AllegroModel(**LMAX3, avg_num_neighbors=avg_n, **kw).to(dev)
+        m.load_state_dict(base.state_dict())
+        models[config] = m
+    deep = tuple(AllegroModel(**{**LMAX3, "num_layers": 3}, avg_num_neighbors=avg_n,
+                              tp_kernel_backend=b).init(SEED).to(dev) for b in ("fused", "pallas"))
+    return models, deep
+
+
+def check_lmax3_kernels(models, deep, data, n_edges, dev, rng, records):
+    """Phase 7a: every kernel with a basis dimension (1-4, 7-10, 13-17, 18,
+    19, 20, 21) at the l_max-3 shapes on the crystal: layer 0 (16, 16, 16;
+    353 entries; timed into ``records``, the launches of one force call or
+    training step at that layer) and layer 1 (16, 16, 1; 16 entries) of the
+    2-layer model; the 3-layer model's middle dims (16, 16, 31) and (31, 16,
+    16) (611 entries each), checks only. ``deep``: that model on ``fused``
+    and on ``pallas`` (whose Contracters hold the six table orders)."""
+    mega, tps = models["mega"].module.allegro, models["fused readout"].module.allegro.tps
+    ptps = models["pallas"].module.allegro.tps
+    timing = PHASE7_PLAIN_TIMING
+    check_kernels(tps[:1], data, rng, records, plain_timing=timing)
+    check_kernels(tps[1:], data, rng, first=1)
+    check_mega_kernels(mega, data, rng, records, plain_timing=timing)
+    check_train_kernels(tps[:1], data, rng, records, plain_timing=timing)
+    check_train_kernels(tps[1:], data, rng, first=1)
+    check_kernel18(tps, data, rng, records, "l_max 3", timing)
+    check_pallas_kernels(ptps[:1], n_edges, dev, rng, records, library=False, plain_timing=timing)
+    check_pallas_kernels(ptps[1:], n_edges, dev, rng, None, library=False, first=1)
+    fused_deep, pallas_deep = (m.module.allegro for m in deep)
+    check_kernels(fused_deep.tps[:2], data, rng)
+    check_mega_kernels(fused_deep, data, rng)
+    check_train_kernels(fused_deep.tps[:2], data, rng)
+    check_kernel18(fused_deep.tps[:2], data, rng, None, "l_max 3, 3 layers")
+    check_pallas_kernels(pallas_deep.tps[:2], n_edges, dev, rng, None, library=False)
+
+
+def bitwise_same(a, b):
+    """Energy, forces and virial of two force calls equal bit for bit."""
+    from allegro_tpu_torch.data import keys
+
+    return all(torch.equal(a[k], b[k]) for k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL))
+
+
+def profile_calls(fn, calls, label):
+    """Where a force call's time goes: torch.profiler over ``calls`` calls,
+    device time by kernel name and the device's idle share of the span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        span_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.self_device_time_total / 1e3 / calls, e.count / calls, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    if not rows:
+        print(f"    profile ({label}): torch.profiler recorded no device time")
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"    profile of {calls} force calls ({label}): {sum(r[1] for r in rows):.0f} device "
+          f"ops and {busy:.4f} ms device time per call, span {span_ms / calls:.4f} ms per call "
+          f"(profiled), idle {100 * (1 - busy * calls / span_ms):.1f}%; per call by name:")
+    for ms, count, key in sorted(rows, reverse=True)[:12]:
+        print(f"      {ms:9.4f} ms {count:6.1f}x  {key[:90]}")
+
+
+def run_lmax3(models, frame, batch_np, n_atoms, dev, smi):
+    """Phase 7c/7d: the l_max-3 force call on mega, use_mega=False, pallas
+    and einsum (exact launch counts per call, forces and per-atom energies
+    held to einsum, µs/atom, peak memory, two calls bit for bit, a profile of
+    mega and pallas), then 20 MD steps on mega (2 blocks of 10) against
+    einsum and one calculator call. Returns the launches of each
+    configuration's calls and of the MD and calculator runs."""
+    from allegro_tpu_torch.calculator import AllegroCalculator
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.md import MDState, Simulation, maxwell_boltzmann_velocities
+    from allegro_tpu_torch.ops import fused_tp
+
+    n_rows = batch_np[keys.POSITIONS].shape[0]
+    data = {c: to_torch(m.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+            for c, m in models.items()}
+    ref = models["einsum"].apply_with_derivatives(data["einsum"])
+    launches, us = {}, {}
+    for config in ("mega", "fused readout", "pallas"):
+        model = models[config]
+        model.apply_with_derivatives(data[config])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_tp.reset_launch_counts()
+        calls = 3
+        for call in range(1, calls + 1):
+            out = model.apply_with_derivatives(data[config])
+            want = {k: n * call for k, n in per_call(config).items()}
+            if fused_tp.LAUNCHES != want:
+                raise AssertionError(f"l_max 3 {config}, call {call}: launches "
+                                     f"{fused_tp.LAUNCHES}, expected {want}")
+        peak = peak_mib()
+        launches[config] = dict(fused_tp.LAUNCHES)
+        print(f"[7c] l_max 3, {config}: {calls} force calls, launches per call "
+              f"{ {k: c for k, c in per_call(config).items() if c} }; peak {peak:.1f} MiB")
+        check_force_call(out, ref, n_atoms, n_rows)
+        again = model.apply_with_derivatives(data[config])
+        same = bitwise_same(out, again)
+        print(f"    two identical calls: energy, forces and virial "
+              f"{'the same bits' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"l_max 3 {config}: two identical force calls differ")
+        us[config] = time_force_call(model, data[config], n_atoms)
+    torch.cuda.reset_peak_memory_stats()
+    models["einsum"].apply_with_derivatives(data["einsum"])
+    einsum_peak = peak_mib()
+    us["einsum"] = time_force_call(models["einsum"], data["einsum"], n_atoms)
+    print("    l_max 3 force call: " + ", ".join(f"{k} {v:.3f} us/atom" for k, v in us.items())
+          + f"; einsum peak {einsum_peak:.1f} MiB ({n_atoms} atoms, f32; {smi})")
+    for config in ("mega", "pallas"):
+        profile_calls(lambda: models[config].apply_with_derivatives(data[config]), 3,
+                      f"l_max 3, {config}")
+    del data
+    torch.cuda.empty_cache()
+
+    # 7d: 20 MD steps on mega against einsum, and one calculator call
+    kw = dict(atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL], pbc=frame[keys.PBC],
+              device=dev, **MD)
+    pos0 = frame[keys.POSITIONS]
+    sim = Simulation(models["mega"], **kw)
+    vel0 = maxwell_boltzmann_velocities(sim.masses_per_atom, MD_KT, seed=SEED)
+    state = MDState(pos0, vel0)
+    per_block = {k: n * (MD_STEPS_PER_BLOCK + 1) for k, n in per_call("mega").items()}
+    md_launches = {k: 0 for k in per_block}
+    t0 = time.perf_counter()
+    for b in range(2):
+        fused_tp.reset_launch_counts()
+        state = sim.run(state, MD_STEPS_PER_BLOCK)
+        if fused_tp.LAUNCHES != per_block:
+            raise AssertionError(f"l_max 3 MD block {b}: launches {fused_tp.LAUNCHES}")
+        for k, n in fused_tp.LAUNCHES.items():
+            md_launches[k] += n
+    seconds = time.perf_counter() - t0
+    ref_state = Simulation(models["einsum"], **kw).run(MDState(pos0, vel0),
+                                                       2 * MD_STEPS_PER_BLOCK)
+    dpos = float(np.abs(state.positions - ref_state.positions).max())
+    print(f"[7d] l_max 3 MD: {2 * MD_STEPS_PER_BLOCK} steps on mega in 2 blocks, "
+          f"{1e3 * seconds / (2 * MD_STEPS_PER_BLOCK):.3f} ms/step (first block included); "
+          f"max |dpos| vs einsum {dpos:.3e} A (< {MD_TOL}); {smi}")
+    if not (np.isfinite(state.positions).all() and dpos < MD_TOL):
+        raise AssertionError(f"l_max 3 MD positions vs einsum: {dpos:.3e}")
+    fused_tp.reset_launch_counts()
+    res = AllegroCalculator(models["mega"], device=dev).calculate(
+        pos0, atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL], pbc=frame[keys.PBC])
+    calc_launches = dict(fused_tp.LAUNCHES)
+    if calc_launches != per_call("mega"):
+        raise AssertionError(f"l_max 3 calculator: launches {calc_launches}")
+    f_ref = ref[keys.FORCES][:n_atoms].double().cpu().numpy()
+    rel = float(np.abs(res["forces"] - f_ref).max() / np.abs(f_ref).max())
+    print(f"    calculator call: energy {res['energy']:.6f}, forces rel {rel:.3e} vs einsum")
+    if not rel < 1e-5:
+        raise AssertionError(f"l_max 3 calculator forces vs einsum: {rel:.3e}")
+    return launches, md_launches, calc_launches
+
+
+def run_surface(batch_np, n_atoms, n_edges, dev):
+    """Phase 7e: one force call of each remaining model configuration on
+    fused_infer's default and on pallas, against einsum with the same
+    weights, with the exact launch counts (shared env weights: the non-mega
+    kernels, as in JAX) and two calls bit for bit."""
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    n_rows = batch_np[keys.POSITIONS].shape[0]
+    for name, cfg in SURFACE.items():
+        L = cfg["num_layers"]
+        einsum = AllegroModel(**cfg, avg_num_neighbors=n_edges / n_atoms,
+                              tp_kernel_backend="einsum").init(SEED).to(dev)
+        ref = einsum.apply_with_derivatives(
+            to_torch(einsum.precompute_statics(batch_np), dtype=torch.float32, device=dev))
+        for backend in ("fused_infer", "pallas"):
+            m = AllegroModel(**cfg, avg_num_neighbors=n_edges / n_atoms,
+                             tp_kernel_backend=backend).to(dev)
+            m.load_state_dict(einsum.state_dict())
+            config = "pallas" if backend == "pallas" else (
+                "mega" if m.module.allegro.mega else "fused readout")
+            if name == "shared env weights" and config == "mega":
+                raise AssertionError("shared env weights took the mega kernels")
+            data = to_torch(m.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+            m.apply_with_derivatives(data)
+            fused_tp.reset_launch_counts()
+            out = m.apply_with_derivatives(data)
+            if fused_tp.LAUNCHES != per_call(config, L):
+                raise AssertionError(f"{name} on {config}: launches {fused_tp.LAUNCHES}, "
+                                     f"expected {per_call(config, L)}")
+            print(f"[7e] {name} on {backend} ({config}): launches "
+                  f"{ {k: c for k, c in fused_tp.LAUNCHES.items() if c} }")
+            check_force_call(out, ref, n_atoms, n_rows)
+            if not bitwise_same(out, m.apply_with_derivatives(data)):
+                raise AssertionError(f"{name} on {config}: two identical force calls differ")
+            del data, out
+        del einsum, ref
+        torch.cuda.empty_cache()
 
 
 def time_force_call(model, data, n_atoms, reps=10):
@@ -1094,54 +1484,84 @@ def main() -> int:
     pallas_train = run_training(loaders, dev, smi, "pallas", PER_STEP_PALLAS, ("6c", "6c"))
     cli = run_cli(smi)
 
+    # phase 7: kernels 18 and 19, the l_max-3 model and the rest of the surface
+    print("[7b] kernel 18 (bwd_fused with dw) and 19 (unweight_both) at the flagship dims")
+    check_kernel18(fused.module.allegro.tps, data, rng, records, "flagship", PHASE7_PLAIN_TIMING)
+    models, deep = lmax3_models(n_edges, n_atoms, dev)
+    print(f"[7a] kernels at the l_max-3 shapes on the crystal's {n_edges} edges")
+    records_l3 = {}
+    l3_data = to_torch(models["mega"].precompute_statics(batch_np), dtype=torch.float32,
+                       device=dev)
+    check_lmax3_kernels(models, deep, l3_data, n_edges, dev, rng, records_l3)
+    del deep, l3_data
+    torch.cuda.empty_cache()
+    l3_launches, l3_md, l3_calc = run_lmax3(models, frame, batch_np, n_atoms, dev, smi)
+    del models
+    torch.cuda.empty_cache()
+    run_surface(batch_np, n_atoms, n_edges, dev)
+
     print(smi)
-    print(json.dumps({"kernels": [kernel_record(name, records, launches, md_launches,
-                                                calc_launches, train_launches, pallas_train, cli)
-                                  for name in SOURCES]}))
+    runs = dict(launches=launches, md=md_launches, calculator=calc_launches, train=train_launches,
+                pallas_train=pallas_train, cli=cli, lmax3=l3_launches, lmax3_md=l3_md,
+                lmax3_calculator=l3_calc)
+    print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
+                                  for row in TPU_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
-def kernel_record(name, records, launches, md_launches, calc_launches, train_launches,
-                  pallas_train, cli):
+def kernel_record(row, records, records_l3, runs):
     """One entry of the ``kernels`` JSON line (see the module docstring)."""
-    rec = records[name]
-    # the four layer kernels are timed on the use_mega=False path, where all
-    # their launches are; the trainable backend's on the training step;
-    # sparse_tp on the pallas force call, sparse_tp_gradw on the pallas
-    # training step; the rest on the mega path
-    if name == "sparse_tp":
+    n, key, replaces = row
+    name = key.split("[")[0]
+    rec = records[key]
+    launches = runs["launches"]
+    # the four layer kernels (and 19) are timed on the use_mega=False path,
+    # where all their launches are; the trainable backend's on the training
+    # step; sparse_tp on the pallas force call, sparse_tp_gradw on the pallas
+    # training step; 18 on no path (JAX runs it on none); the rest on mega
+    if n == 18:
+        config, count = "none (not on a user path)", 0
+    elif name == "sparse_tp":
         config, count = "pallas", launches["pallas"][name]
     elif name == "sparse_tp_gradw":
-        config, count = "pallas train step", pallas_train["1k"][name]
-    elif name in TRAIN_KERNELS:
-        config, count = "train step", train_launches["1k"][name]
+        config, count = "pallas train step", runs["pallas_train"]["1k"][name]
+    elif name in TRAIN_KERNELS or n == 13:
+        config, count = "train step", runs["train"]["1k"][name]
     else:
         config = "fused readout" if name in LAYER_KERNELS else "mega"
         count = launches[config][name]
     bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
-    out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-           "serves": SERVES[name], "launches": count, "max_abs_err": rec["max_abs_err"],
+    out = {"name": key, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
+           "tpu_kernel": n, "launches": count, "max_abs_err": rec["max_abs_err"],
            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": rec["library_ms"], "ms_config": config}
     for config in PER_CALL:
         out["launches_" + config.replace(" ", "_")] = launches[config][name]
-    out["launches_md"] = md_launches[name]
-    out["launches_calculator"] = calc_launches[name]
-    for batch, counts in train_launches.items():
+    for run in ("md", "calculator", "lmax3_md", "lmax3_calculator"):
+        out["launches_" + run] = runs[run][name]
+    for batch, counts in runs["train"].items():
         out[f"launches_train_{batch}"] = counts[name]
-    for batch, counts in pallas_train.items():
+    for batch, counts in runs["pallas_train"].items():
         out[f"launches_train_pallas_{batch}"] = counts[name]
-    for run, counts in cli.items():
+    for run, counts in runs["cli"].items():
         out[f"launches_cli_{run}"] = counts[name]
-    for key, variant in records.items():
-        if key.startswith(name + "["):
-            tag = key[len(name) + 1:-1]
-            v_bound, v_by = bound(variant["bytes"], variant["flops"])
-            out[f"max_abs_err_{tag}"] = variant["max_abs_err"]
-            out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = variant["ms"], variant["plain_ms"]
-            out[f"bound_ms_{tag}"], out[f"bound_by_{tag}"] = v_bound, v_by
+    for config, counts in runs["lmax3"].items():
+        out["launches_lmax3_" + config.replace(" ", "_")] = counts[name]
+    l3 = records_l3.get(key)
+    if l3 is not None:
+        out["max_abs_err_lmax3"], out["ms_lmax3"] = l3["max_abs_err"], l3["ms"]
+        out["plain_ms_lmax3"] = l3["plain_ms"]
+        out["bound_ms_lmax3"], out["bound_by_lmax3"] = bound(l3["bytes"], l3["flops"])
+    if key == name:
+        for variant_key, variant in records.items():
+            if variant_key.startswith(name + "["):
+                tag = variant_key[len(name) + 1:-1]
+                v_bound, v_by = bound(variant["bytes"], variant["flops"])
+                out[f"max_abs_err_{tag}"] = variant["max_abs_err"]
+                out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = variant["ms"], variant["plain_ms"]
+                out[f"bound_ms_{tag}"], out[f"bound_by_{tag}"] = v_bound, v_by
     return out
 
 

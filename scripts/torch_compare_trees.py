@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Time two checkouts of allegro_tpu_torch on one CUDA card, interleaved.
+
+    python3 scripts/torch_compare_trees.py BEFORE AFTER [--out FILE]
+
+BEFORE and AFTER are directories that each hold a checkout (``git
+archive``) of the repository. Each tree is measured in a subprocess of its
+own, in the order BEFORE, AFTER, AFTER, BEFORE, so a drift of the host's
+clocks over the call shows as a difference between the two runs of a tree.
+Each run times, with that tree's package:
+
+- ``force_us_per_atom``: the flagship on ``pallas`` on the 4,096-atom
+  crystal (f32, random weights from seed 0): the mean of 20 force calls
+  after 3 warm-up calls, host clock, in µs per atom; ``launches_per_call``
+  its kernel launches;
+- ``train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
+  ``pallas`` on the 4 x 1,000-atom batch: the median of 10 steps after 2,
+  host clock;
+- ``md_ms_per_step``: ``python -m allegro_tpu_torch md -c configs/md.yaml``
+  run from the tree, its own "MD done" ms/step.
+
+The crystal, the batch and the flagship's settings come from this checkout's
+``chip_smoke.py``, so both trees see the same inputs. Prints one JSON line
+per run and the card's name and power limit; ``--out`` also writes them to
+a file. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+FORCE_CALLS, WARMUP_CALLS = 20, 3
+TRAIN_STEPS, WARMUP_STEPS = 10, 2
+TIMEOUT = 900
+
+
+def _smoke():
+    """This checkout's chip_smoke.py as a module (its helpers import the
+    package only inside their bodies, so they use the tree on sys.path)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def measure(tree: Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    import allegro_tpu_torch
+    from allegro_tpu_torch.data import batch_frames, keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    if Path(allegro_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
+        raise RuntimeError(f"imported {allegro_tpu_torch.__file__}, not the tree {tree}")
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    out = {"tree": str(tree)}
+
+    frame, n_atoms = smoke.crystal_frame(smoke.N_ATOMS, smoke.R_MAX, smoke.SEED)
+    n_edges = frame[keys.EDGE_INDEX].shape[1]
+    model = AllegroModel(**smoke.FLAGSHIP, avg_num_neighbors=n_edges / n_atoms,
+                         tp_kernel_backend="pallas").init(smoke.SEED).to(dev)
+    data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
+                    dtype=torch.float32, device=dev)
+    for _ in range(WARMUP_CALLS):
+        model.apply_with_derivatives(data)
+    torch.cuda.synchronize()
+    fused_tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(FORCE_CALLS):
+        model.apply_with_derivatives(data)
+    torch.cuda.synchronize()
+    out["force_us_per_atom"] = (time.perf_counter() - t0) / FORCE_CALLS / n_atoms * 1e6
+    out["launches_per_call"] = {k: c // FORCE_CALLS for k, c in fused_tp.LAUNCHES.items() if c}
+    del model, data
+    torch.cuda.empty_cache()
+
+    loader = smoke.train_loaders()["1k"]
+    train, _ = smoke.train_models(next(iter(loader)), "pallas")
+    trainer = smoke.make_trainer(train, dev)
+    state = trainer.init_state()
+    times = []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        trainer.fit(state, loader, max_epochs=1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["train_ms_per_step"] = 1e3 * float(np.median(times[WARMUP_STEPS:]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "allegro_tpu_torch", "md", "-c", "configs/md.yaml", "-w", tmp],
+            cwd=tree, capture_output=True, text=True, timeout=TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"md.yaml exited {proc.returncode}: {proc.stderr[-2000:]}")
+    done = next(ln for ln in proc.stdout.splitlines() if ln.startswith("MD done"))
+    out["md_ms_per_step"] = float(done.split(" ms/step")[0].rsplit("(", 1)[1])
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("before", type=Path)
+    ap.add_argument("after", type=Path, nargs="?")
+    ap.add_argument("--one", action="store_true", help="measure BEFORE alone, in this process")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    if args.one:
+        print(json.dumps(measure(args.before)))
+        return 0
+    if args.after is None:
+        ap.error("give two trees, or one with --one")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi)
+    lines = [smi]
+    for label, tree in (("before", args.before), ("after", args.after),
+                        ("after", args.after), ("before", args.before)):
+        proc = subprocess.run([sys.executable, __file__, str(tree), "--one"], capture_output=True,
+                              text=True, timeout=TIMEOUT)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:])
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return proc.returncode
+        result = {"run": label, **json.loads(proc.stdout.splitlines()[-1])}
+        print(json.dumps(result), flush=True)
+        lines.append(json.dumps(result))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -159,11 +159,7 @@ def test_unsorted_edges_raise(frames, avg_n):
     {"tensor_dtype": "bfloat16"},
     {"remat": True},
     {"checkpoint_energy": True},
-    {"parity": False},
-    {"l_max": 3},
-    {"weight_individual_irreps": False},
     {"per_edge_type_cutoff": {"A": 3.0}},
-    {"radial_chemical_embed": {"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed"}},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override, avg_n):
     kw = {**_model_kwargs(avg_n, "float32"), **override}
@@ -365,6 +361,14 @@ pm = AllegroModel(r_max=4.0, type_names=["H", "C"], l_max=2, num_layers=2,
                   tp_kernel_backend="pallas").init(0)
 out = pm.apply_with_derivatives(to_torch(pm.precompute_statics(b), torch.float32))
 assert torch.isfinite(out[keys.FORCES]).all()
+from allegro_tpu_torch.lib import rep_matrix
+sm = AllegroModel(r_max=4.0, type_names=["H", "C"], l_max=3, parity=False, num_layers=2,
+                  num_scalar_features=8, num_tensor_features=4, model_dtype="float32",
+                  weight_individual_irreps=False, tp_kernel_backend="pallas",
+                  radial_chemical_embed={"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed"}
+                  ).init(0)
+out = sm.apply_with_derivatives(to_torch(sm.precompute_statics(b), torch.float32))
+assert torch.isfinite(out[keys.FORCES]).all() and rep_matrix("1x3o", np.eye(3)).shape == (7, 7)
 sys.argv = ["allegro_tpu_torch", "--help"]
 try:
     runpy.run_module("allegro_tpu_torch", run_name="__main__")
@@ -378,6 +382,9 @@ print("ok")
 def test_port_imports_and_runs_without_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
+    # one intra-op thread: the test workers already occupy the cores, and
+    # spinning OpenMP threads on oversubscribed cores stall the subprocess
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -14,16 +14,23 @@
   mode) from the same weights: energy, forces and virial at 1e-10 (f64);
   force-loss parameter gradients on ``pallas`` against JAX ``einsum`` at
   1e-9; the wrapper calls of a force call (6 ``sparse_tp``, no
-  ``sparse_tp_gradw``).
+  ``sparse_tp_gradw``) and of a training step.
+- Determinism: no op adds into colliding rows outside the kernels on a
+  force call of two periodic frames, on ``pallas`` and the fused backends
+  (a dispatch mode records them); a kernel backend raises without the CSR
+  statics and ``einsum`` ignores them.
 - The model modifiers: backend round trips keep the parameters and the
   outputs.
 """
+
+import traceback
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import allegro_tpu.ops.pallas_contract as jpc
 from allegro_tpu.data import to_jax
@@ -198,29 +205,176 @@ def test_pallas_force_loss_gradients_match_jax_einsum(crystal):
         np.testing.assert_allclose(g.numpy(), want[name], atol=1e-9, rtol=1e-7, err_msg=name)
 
 
-def test_pallas_force_call_runs_no_weight_gradient(crystal, monkeypatch):
-    """Two layers: each one sparse_tp forward and its two input transposes;
-    the frozen parameters need no sparse_tp_gradw (JAX's transposes skip it
-    too). Training (create_graph=True) does run it."""
-    avg_n, batch = crystal
-    m = AllegroModel(**_kwargs(avg_n, tp_kernel_backend="pallas")).init(0)
-    calls = {"sparse_tp": 0, "sparse_tp_gradw": 0}
+def _count_wrapper_calls(monkeypatch):
+    """Counts the calls of every kernel wrapper (the CPU launches nothing)."""
+    calls = {name: 0 for name in fused_tp.LAUNCHES}
     for name in calls:
-        fn = getattr(pallas_contract, name)
+        mod = fused_tp if hasattr(fused_tp, name) else pallas_contract
+        fn = getattr(mod, name)
 
         def counted(*args, _fn=fn, _name=name, **kw):
             calls[_name] += 1
             return _fn(*args, **kw)
 
-        monkeypatch.setattr(pallas_contract, name, counted)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def _pallas_call_counts(L, zbl=False):
+    """Per force call of an L-layer pallas model: per layer the forward
+    sparse_tp and its two input transposes, no sparse_tp_gradw (frozen
+    parameters); the position gathers (2) and their transposes, the
+    edge-energy sum and its transpose, per layer the env sum (center_sum then
+    center_gather) and its transpose, and ZBL's sum and its transpose."""
+    counts = {name: 0 for name in fused_tp.LAUNCHES}
+    counts.update(sparse_tp=3 * L, center_gather=3 + 2 * L + zbl, center_sum=3 + 2 * L + zbl)
+    return counts
+
+
+def test_pallas_force_call_runs_no_weight_gradient(crystal, monkeypatch):
+    """Two layers: each one sparse_tp forward and its two input transposes;
+    the frozen parameters need no sparse_tp_gradw (JAX's transposes skip it
+    too). With the CSR statics the env sums, the position gathers and the
+    edge-energy sum take the center kernels: the exact count of every
+    wrapper. Training (create_graph=True) does run sparse_tp_gradw."""
+    avg_n, batch = crystal
+    m = AllegroModel(**_kwargs(avg_n, tp_kernel_backend="pallas")).init(0)
+    calls = _count_wrapper_calls(monkeypatch)
     fused_tp.reset_launch_counts()
     out = _port_outputs(m, batch)
-    assert calls == {"sparse_tp": 6, "sparse_tp_gradw": 0}
+    assert calls == _pallas_call_counts(2)
     assert not out[keys.FORCES].requires_grad
     assert fused_tp.LAUNCHES == {k: 0 for k in fused_tp.LAUNCHES}  # the CPU launches nothing
     out = _port_outputs(m, batch, create_graph=True)
     torch.autograd.grad((out[keys.FORCES] ** 2).sum(), list(m.parameters().values()))
     assert calls["sparse_tp_gradw"] > 0
+
+
+@pytest.mark.parametrize("L,zbl", [(2, False), (3, False), (2, True)])
+def test_pallas_launch_counts_per_call_and_training_step(crystal, monkeypatch, L, zbl):
+    """The exact wrapper calls of a pallas force call and of a Trainer step
+    (chip_smoke.py's per_call / per_step_pallas): per step 9 L sparse_tp,
+    4 L sparse_tp_gradw, 6 + 4 L center_gather and 3 + 4 L center_sum (ZBL:
+    one more of each)."""
+    from allegro_tpu_torch.data import DataLoader, InMemoryDataset
+    from allegro_tpu_torch.train import Trainer
+
+    avg_n, batch = crystal
+    extra = {"pair_potential": {"_target_": "allegro_tpu.nn.ZBLPairPotential",
+                                "type_to_Z": [1, 6, 8]}} if zbl else {}
+    m = AllegroModel(**{**_kwargs(avg_n, tp_kernel_backend="pallas", **extra), "num_layers": L})
+    frames = [_crystal((2, 2, 2), 0), _crystal((2, 2, 3), 1)]
+    for f in frames:
+        f[keys.TOTAL_ENERGY] = np.zeros(1)
+        f[keys.FORCES] = np.zeros_like(f[keys.POSITIONS])
+    loader = DataLoader(InMemoryDataset(frames, R_MAX), batch_size=2)
+    trainer = Trainer(m, device="cpu", logger=lambda s: None)
+    state = trainer.init_state(0)
+    calls = _count_wrapper_calls(monkeypatch)
+    _port_outputs(m, batch)
+    assert calls == _pallas_call_counts(L, zbl)
+    for k in calls:
+        calls[k] = 0
+    trainer.fit(state, loader, max_epochs=1)
+    want = {name: 0 for name in fused_tp.LAUNCHES}
+    want.update(sparse_tp=9 * L, sparse_tp_gradw=4 * L, center_gather=6 + 4 * L + zbl,
+                center_sum=3 + 4 * L + zbl)
+    assert calls == want
+
+
+class _CollidingSums(TorchDispatchMode):
+    """Records every op that adds into colliding rows (an ``index_add`` or
+    ``index_put(accumulate=True)`` whose index repeats, any ``scatter_add``
+    or ``embedding_dense_backward``): on the card such a sum adds with
+    atomics, in no fixed order. The kernels' plain versions (the
+    ``*_reference`` functions of ``ops/``, which the CPU runs in place of the
+    kernels) are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if name in ("index_add", "index_add_", "index_reduce", "index_reduce_"):
+            rows = args[2].reshape(-1, 1)
+        elif name in ("index_put", "index_put_", "_index_put_impl_") and (
+                args[3] if len(args) > 3 else kwargs.get("accumulate", False)):
+            rows = torch.stack([i.reshape(-1) for i in args[1] if i is not None], dim=1)
+        elif name in ("scatter_add", "scatter_add_", "scatter_reduce", "scatter_reduce_",
+                      "embedding_dense_backward"):
+            rows = None  # counted whatever its index
+        else:
+            return func(*args, **kwargs)
+        colliding = rows is None or torch.unique(rows, dim=0).shape[0] < rows.shape[0]
+        if colliding and not self._in_plain_version():
+            self.found.append(name)
+        return func(*args, **kwargs)
+
+    @staticmethod
+    def _in_plain_version():
+        return any(f.name.endswith("_reference") and "/ops/" in f.filename.replace("\\", "/")
+                   for f in traceback.extract_stack())
+
+
+def test_pallas_path_sums_in_a_fixed_order(crystal):
+    """The repaired fault: two identical pallas force calls differed on the
+    card (the env sum's index_add adds with atomics there). On a batch of two
+    periodic frames (so the per-frame cells and strains are read per edge and
+    per atom), a pallas force call, ZBL included, adds into colliding rows
+    nowhere outside the kernels: every sum is a center kernel, a matrix
+    product or a reduction, each in a fixed order, in energy, forces and
+    virial. Two calls agree bit for bit. The check itself catches a gather's
+    transpose."""
+    avg_n, batch = crystal
+    assert batch[keys.CELL].shape[0] == 2
+    zbl = {"_target_": "allegro_tpu.nn.ZBLPairPotential", "type_to_Z": [1, 6, 8]}
+    m = AllegroModel(**_kwargs(avg_n, tp_kernel_backend="pallas", pair_potential=zbl)).init(0)
+    with _CollidingSums() as mode:
+        first = _port_outputs(m, batch)
+    assert mode.found == []
+    again = _port_outputs(m, batch)
+    for k in OUT_KEYS:
+        assert torch.equal(first[k], again[k]), k
+    x = torch.ones(4, 3, requires_grad=True)
+    with _CollidingSums() as mode:
+        torch.autograd.grad(x.index_select(0, torch.tensor([0, 1, 1])).sum(), x)
+    assert mode.found == ["index_add"]
+
+
+@pytest.mark.parametrize("over", [dict(tp_kernel_backend="fused"),
+                                  dict(tp_kernel_backend="fused_infer"),
+                                  dict(tp_kernel_backend="fused_infer", use_mega=False)],
+                         ids=["fused", "mega", "fused_infer"])
+def test_fused_force_calls_add_into_no_colliding_rows(crystal, over):
+    """As above on the fused backends (the mega path and use_mega=False):
+    no op adds into colliding rows outside the kernels on a force call of
+    two periodic frames."""
+    avg_n, batch = crystal
+    m = AllegroModel(**_kwargs(avg_n, **over)).init(0)
+    with _CollidingSums() as mode:
+        _port_outputs(m, batch)
+    assert mode.found == []
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused", "fused_infer"])
+def test_backend_decides_the_statics(crystal, monkeypatch, backend):
+    """A kernel backend raises on a batch without the CSR statics (no stage
+    falls back to a plain sum); ``einsum``, the reference, drops them and
+    calls no kernel wrapper, with the same outputs either way."""
+    avg_n, batch = crystal
+    m = AllegroModel(**_kwargs(avg_n, tp_kernel_backend=backend)).init(0)
+    with pytest.raises(ValueError, match="precompute_statics"):
+        m.apply_with_derivatives(to_torch(batch, torch.float64))
+    ref = AllegroModel(**_kwargs(avg_n, tp_kernel_backend="einsum"))
+    ref.load_state_dict(m.state_dict())
+    want = ref.apply_with_derivatives(to_torch(batch, torch.float64))
+    calls = _count_wrapper_calls(monkeypatch)
+    out = ref.apply_with_derivatives(to_torch(m.precompute_statics(batch), torch.float64))
+    assert calls == {k: 0 for k in calls}
+    for k in OUT_KEYS:
+        assert torch.equal(out[k], want[k]), k
 
 
 def test_modifier_round_trips_keep_parameters_and_outputs(crystal):
