@@ -6,6 +6,7 @@
 //
 //   center_gather  out[e, c] = a[idx[e], c]           (0 where idx[e] >= n_atoms)
 //   center_sum     s[a, c]   = sum_{k in [row_ptr[a], row_ptr[a+1])} v[perm[k], c]
+//                  (also in fixed chunks, for a few long segments)
 //   readout_sum    E[a]      = sum_{c(e)=a} silu(sum_i p_i[e] @ W0_i) @ w1
 //   readout_bwd    dp_i[e]   = (E_ct[c(e)] * w1 * silu'(pre_e)) @ W0_i^T
 //
@@ -71,6 +72,39 @@ __global__ void center_sum_kernel(const float* __restrict__ v, const int* __rest
       s += v[r * C + c];
     }
     out[t] = s;
+  }
+}
+
+// center_sum over few, long segments (a parameter table's class CSR: a
+// handful of rows, each summing thousands of edges or atoms), where one
+// thread per (row, column) would walk a whole segment alone. Pass 1: block
+// i adds the CSR positions [i*chunk, (i+1)*chunk) of each segment it meets,
+// in position order, into partial[i][row] (the caller zeroes partial, so a
+// segment that misses the chunk stays 0); pass 2 (partials_reduce_kernel)
+// adds the blocks' partials in block order. A fixed order, no atomics.
+__global__ void center_sum_chunks_kernel(const float* __restrict__ v,
+                                         const int* __restrict__ row_ptr,
+                                         const int* __restrict__ perm, int n_rows, int C,
+                                         int chunk, float* __restrict__ partial) {
+  const long long k0 = (long long)blockIdx.x * chunk, end = row_ptr[n_rows];
+  if (k0 >= end) return;
+  const long long k1 = min(k0 + chunk, end);
+  int a0 = 0;  // the segment of position k0
+  while (row_ptr[a0 + 1] <= k0) ++a0;
+  float* out = partial + (long long)blockIdx.x * n_rows * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    int a = a0;
+    long long next = row_ptr[a + 1];
+    float s = 0.f;
+    for (long long k = k0; k < k1; ++k) {
+      while (k >= next) {  // segment a ends before k
+        out[(long long)a * C + c] = s;
+        s = 0.f;
+        next = row_ptr[++a + 1];
+      }
+      s += v[(perm ? perm[k] : k) * C + c];
+    }
+    out[(long long)a * C + c] = s;
   }
 }
 
@@ -203,6 +237,20 @@ int atpt_center_sum(const float* v, const int* row_ptr, const int* perm, int n_a
   const int blocks = grid_for((long long)n_atoms * C, kThreads, 8 * sm_count());
   center_sum_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(v, row_ptr, perm, n_atoms, C,
                                                                    out);
+  return (int)cudaGetLastError();
+}
+
+int atpt_center_sum_chunked(const float* v, const int* row_ptr, const int* perm, int n_rows,
+                            int C, long long n_pos, int chunk, float* partial, float* out,
+                            void* stream) {
+  const long long n_blocks = (n_pos + chunk - 1) / chunk;
+  const int threads = C < kThreads ? (C + kWarp - 1) / kWarp * kWarp : kThreads;
+  if (n_blocks > 0)
+    center_sum_chunks_kernel<<<(int)n_blocks, threads, 0, (cudaStream_t)stream>>>(
+        v, row_ptr, perm, n_rows, C, chunk, partial);
+  const int n = n_rows * C;
+  partials_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      partial, (int)n_blocks, n, out);
   return (int)cudaGetLastError();
 }
 

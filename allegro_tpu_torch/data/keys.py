@@ -45,6 +45,23 @@ CENTER_ROW_PTR = "center_row_ptr"     # [N+1] int32
 # edges whose neighbor is atom a are NBR_PERM[NBR_ROW_PTR[a]:NBR_ROW_PTR[a+1]]
 NBR_PERM = "nbr_perm"                 # [E] int32
 NBR_ROW_PTR = "nbr_row_ptr"           # [N+1] int32
+# Class CSRs of the parameter tables read per edge or per atom by a class
+# (the type embeddings, the spline's per-edge-type weights, the trainable
+# per-type scales and shifts). For lookup L, ``L_idx`` [M] int32 is the row
+# each edge or atom reads (the table's row count on padded ones: a row that
+# reads zeros and adds nothing), ``L_perm`` [M] its stable argsort and
+# ``L_row_ptr`` [rows+1] the CSR row pointer over that order: the read is
+# ``center_gather`` and the table's gradient ``center_sum``, in a fixed order.
+CENTER_TYPE_LOOKUP = "center_type"    # per edge, num_types rows
+NEIGHBOR_TYPE_LOOKUP = "neighbor_type"  # per edge, num_types rows
+EDGE_CLASS_LOOKUP = "edge_class"      # per edge, num_types² rows
+ATOM_TYPE_LOOKUP = "atom_type"        # per atom, num_types rows
+
+
+def class_csr_keys(lookup: str):
+    """The keys ``(idx, row_ptr, perm)`` of a lookup's class CSR."""
+    return f"{lookup}_idx", f"{lookup}_row_ptr", f"{lookup}_perm"
+
 
 # --- per-frame ---
 CELL = "cell"                         # [F, 3, 3] float (rows are lattice vectors)

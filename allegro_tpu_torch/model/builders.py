@@ -16,7 +16,7 @@ ROADMAP item; none of them runs silently on something else.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -179,10 +179,11 @@ class Model:
         host: ``EDGE_TYPE``, and for the kernel backends (``fused``,
         ``fused_infer``, ``pallas``) the CSR statics of the TP layers, the
         env sums and the center gathers: ``CENTER_ROW_PTR`` over the
-        center-sorted edges, and
-        ``NBR_PERM`` / ``NBR_ROW_PTR`` over the neighbor-sorted order. Call it
-        once per neighbor list. Raises ValueError on edges that are not
-        sorted by center. Torch inputs get tensors on the device of
+        center-sorted edges, ``NBR_PERM`` / ``NBR_ROW_PTR`` over the
+        neighbor-sorted order, and the class CSR of each trainable parameter
+        table read by class (``keys.class_csr_keys``; padded edges and atoms
+        read the sentinel row). Call it once per neighbor list. Raises
+        ValueError on edges that are not sorted by center. Torch inputs get tensors on the device of
         ``EDGE_INDEX``."""
         ei = _as_numpy(data[keys.EDGE_INDEX])
         types = _as_numpy(data[keys.ATOM_TYPES])
@@ -194,6 +195,22 @@ class Model:
         if self.on_kernels:
             new[keys.CENTER_ROW_PTR] = csr_row_ptr(ei[0], n_atoms)
             new[keys.NBR_PERM], new[keys.NBR_ROW_PTR] = neighbor_csr(ei[1], n_atoms)
+            real_edge = ei[0] < n_atoms
+            if keys.EDGE_MASK in data:
+                real_edge &= _as_numpy(data[keys.EDGE_MASK]).astype(bool)
+            real_atom = (_as_numpy(data[keys.NODE_MASK]).astype(bool) if keys.NODE_MASK in data
+                         else np.ones(n_atoms, dtype=bool))
+            classes = {  # lookup: (class per edge or atom, table rows, real)
+                keys.CENTER_TYPE_LOOKUP: (ct, num_types, real_edge),
+                keys.NEIGHBOR_TYPE_LOOKUP: (nt, num_types, real_edge),
+                keys.EDGE_CLASS_LOOKUP: (ct * num_types + nt, num_types**2, real_edge),
+                keys.ATOM_TYPE_LOOKUP: (types, num_types, real_atom),
+            }
+            for lookup in self.class_lookups:
+                cls, rows, real = classes[lookup]
+                idx = np.where(real, cls, rows).astype(np.int32)
+                perm, row_ptr = neighbor_csr(idx, rows)
+                new.update(zip(keys.class_csr_keys(lookup), (idx, row_ptr, perm)))
         out = dict(data)
         like = data[keys.EDGE_INDEX]
         for k, v in new.items():
@@ -203,6 +220,19 @@ class Model:
     @property
     def on_kernels(self) -> bool:
         return self.builder_kwargs.get("tp_kernel_backend") in KERNEL_BACKENDS
+
+    @property
+    def class_lookups(self) -> Tuple[str, ...]:
+        """The class lookups of the model's trainable parameter tables
+        (``keys.CENTER_TYPE_LOOKUP`` etc.), each stage's ``class_lookups``."""
+        return tuple(dict.fromkeys(
+            lookup for m in self.module.modules() for lookup in getattr(m, "class_lookups", ())))
+
+    @property
+    def statics_keys(self) -> Tuple[str, ...]:
+        """The keys ``precompute_statics`` attaches for the kernels."""
+        return CSR_STATICS + tuple(k for lookup in self.class_lookups
+                                   for k in keys.class_csr_keys(lookup))
 
     def apply(self, data: Dict, frozen: bool = False) -> Dict:
         """Energy-only forward pass. ``frozen``: with the parameters detached,
@@ -214,14 +244,17 @@ class Model:
         a plain sum; ``einsum``, the reference, drops them, so none of its
         stages runs a kernel."""
         _pin_fp32_matmuls()
+        statics = self.statics_keys
         if self.on_kernels:
-            if keys.CENTER_ROW_PTR not in data:
+            missing = [k for k in statics if k not in data]
+            if missing:
                 raise ValueError(
                     f"tp_kernel_backend={self.builder_kwargs['tp_kernel_backend']!r} needs the "
-                    "CSR statics: call Model.precompute_statics(data) once per neighbor list"
+                    f"CSR statics {missing}: call Model.precompute_statics(data) once per "
+                    "neighbor list"
                 )
         else:
-            data = {k: v for k, v in data.items() if k not in CSR_STATICS}
+            data = {k: v for k, v in data.items() if k not in statics}
         if not frozen:
             return self.module(data)
         params = {k: p.detach() for k, p in self.module.named_parameters()}

@@ -227,10 +227,11 @@ class AllegroLayers(nn.Module):
         every latent but the last is a mega call that also scatters the next
         layer's env, the last is the plain ScalarMLP."""
         S, U = self.S, self.U
-        d2i = self.tps[0].dim_to_irr
+        d2i, ranges = self.tps[0].dim_to_irr, self.tps[0].irr_ranges
         (w_proj,) = self.first_projection.weights()
         emb = data[keys.EDGE_EMBEDDING].to(self.dtype)
-        lat_s, env = mega_latent_env((emb,), sh, w_proj, None, centers, row_ptr, d2i, U, S)
+        lat_s, env = mega_latent_env((emb,), sh, w_proj, None, centers, row_ptr, d2i, U, S,
+                                     ranges)
         blocks = [lat_s]
         w2b = data[keys.EDGE_FEATURE_WEIGHTS].to(self.dtype).contiguous()
         for layer, tp in enumerate(self.tps):
@@ -238,7 +239,8 @@ class AllegroLayers(nn.Module):
             split = tp.d3 > 1
             if layer == 0:
                 res = gather_tp_embed_infer(sh, w2b, env, wk, centers, row_ptr, entry_idx,
-                                            entry_coef, self.row_specs, tp.d3, split)
+                                            entry_coef, self.row_specs, tp.d3, split,
+                                            tp.cg_paths())
             else:
                 res = gather_tp_infer(x, env, wk, centers, row_ptr, entry_idx, entry_coef, tp.d3,
                                       split)
@@ -249,6 +251,6 @@ class AllegroLayers(nn.Module):
             else:
                 w0, w1 = latent.weights()
                 lat_s, env = mega_latent_env(tuple(blocks) + (tp_scalars,), sh, w0, w1, centers,
-                                             row_ptr, d2i, U, S)
+                                             row_ptr, d2i, U, S, ranges)
             blocks.append(lat_s)
         return tuple(blocks)

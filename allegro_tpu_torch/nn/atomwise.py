@@ -11,11 +11,15 @@ import torch
 from torch import nn
 
 from ..data import keys
+from ..ops.fused_primitives import table_rows
+from .scalar_embed import class_csr
 
 
 class PerTypeScaleShift(nn.Module):
     """Fixed scales/shifts are non-persistent buffers; trainable ones are the
-    parameters ``scales``/``shifts`` (the JAX package's names)."""
+    parameters ``scales``/``shifts`` (the JAX package's names), read per atom
+    through the atom-type class CSR where the batch has it, so their
+    gradients sum in a fixed order."""
 
     def __init__(
         self,
@@ -35,16 +39,18 @@ class PerTypeScaleShift(nn.Module):
             t = torch.as_tensor(np.asarray(value, dtype=np.float64) * np.ones(num_types), dtype=dtype)
             if trainable:
                 self.register_parameter(name, nn.Parameter(t))
+                self.class_lookups = (keys.ATOM_TYPE_LOOKUP,)
             else:
                 self.register_buffer(name, t, persistent=False)
 
     def forward(self, data: Dict) -> Dict:
         x = data[keys.PER_ATOM_ENERGY]
-        types = data[keys.ATOM_TYPES].long()
+        types = data[keys.ATOM_TYPES]
+        csr = class_csr(data, keys.ATOM_TYPE_LOOKUP)
         if self.scales is not None:
-            x = x * self.scales.to(x.dtype).index_select(0, types)[:, None]
+            x = x * table_rows(self.scales.to(x.dtype), types, csr)[:, None]
         if self.shifts is not None:
-            x = x + self.shifts.to(x.dtype).index_select(0, types)[:, None]
+            x = x + table_rows(self.shifts.to(x.dtype), types, csr)[:, None]
         if keys.NODE_MASK in data:
             x = x * data[keys.NODE_MASK].to(x.dtype)[:, None]
         out = dict(data)

@@ -38,7 +38,8 @@ from ..ops.fused_primitives import (
     fused_layer,
     fused_layer_infer,
 )
-from ..ops.fused_tp import gather_rows, segment_sum, swap_entries
+from ..ops.fused_tp import gather_rows, irrep_ranges, segment_sum, swap_entries
+from ..ops.gen_cg_blocks import CgPaths, path_table
 from ..ops.pallas_contract import Entry, role_tables
 from ..ops.tp_primitives import TpStatics, sparse_tp_layer
 
@@ -127,10 +128,15 @@ class Contracter(nn.Module):
             "entry_coef", torch.tensor([e[4] for e in entries], dtype=torch.float64),
             persistent=False,
         )
+        # the table walked by path (the embed-fused backward), built once
+        for name, t in zip(("cg_desc", "cg_scale", "cg_entry_idx", "cg_entry_coef"),
+                           path_table(self.entry_idx, self.entry_coef, dtype)):
+            self.register_buffer(name, t, persistent=False)
         self.n_irr = len(irreps_in2)
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
         self.register_buffer("dim_to_irr", torch.tensor(dim_to_irr, dtype=torch.int32),
                              persistent=False)
+        self.register_buffer("irr_ranges", irrep_ranges(self.dim_to_irr), persistent=False)
         if kernel_backend == "pallas":
             # the table in every role order of the transposes, built once
             tp_idx, tp_coef = role_tables(entries, dtype)
@@ -197,6 +203,10 @@ class Contracter(nn.Module):
         if self.scatter_factor is not None:
             raise ValueError("the fused kernels expect the scatter factor folded into the weights")
         return self._w_up(dtype).T.contiguous(), self.entry_idx, self.entry_coef.to(dtype)
+
+    def cg_paths(self) -> CgPaths:
+        """The layer's path descriptors (``gen_cg_blocks.path_table``)."""
+        return CgPaths(self.cg_desc, self.cg_scale, self.cg_entry_idx, self.cg_entry_coef)
 
     def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
         """Whole layer update (env weight + scatter + gather + CG) through the

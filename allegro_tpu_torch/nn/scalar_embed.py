@@ -19,9 +19,17 @@ import torch
 from torch import nn
 
 from ..data import keys
+from ..ops.fused_primitives import table_rows
 from .cutoffs import PolynomialCutoff, bessel_basis
 from .mlp import ScalarMLP
 from .spline import PerClassSpline
+
+
+def class_csr(data: Dict, lookup: str):
+    """A lookup's class CSR statics ``(idx, row_ptr, perm)`` from ``data``,
+    or None where the batch has none (the ``einsum`` reference)."""
+    names = keys.class_csr_keys(lookup)
+    return tuple(data[k] for k in names) if names[0] in data else None
 
 
 def _edge_mask(data: Dict, like: torch.Tensor) -> torch.Tensor:
@@ -34,7 +42,9 @@ class OneHotEmbed(nn.Module):
     """Type-embedding table ``[num_embeddings, features]`` (param
     ``embedding``), looked up by exact row selection. JAX multiplies a
     one-hot matrix to keep the TPU's matrix unit busy; a row gather gives the
-    same values."""
+    same values. With the lookup's class CSR (``csr``) the rows are read with
+    ``center_gather``, whose transpose sums the table's gradient in a fixed
+    order (:func:`~allegro_tpu_torch.ops.fused_primitives.table_rows`)."""
 
     def __init__(self, num_embeddings: int, features: int, dtype=torch.float32):
         super().__init__()
@@ -47,8 +57,8 @@ class OneHotEmbed(nn.Module):
         with torch.no_grad():
             self.embedding.copy_(v / self.embedding.shape[1] ** 0.5)
 
-    def forward(self, indices: torch.Tensor) -> torch.Tensor:
-        return self.embedding.index_select(0, indices.long())
+    def forward(self, indices: torch.Tensor, csr=None) -> torch.Tensor:
+        return table_rows(self.embedding, indices, csr)
 
 
 class ProductTypeEmbedding(nn.Module):
@@ -63,9 +73,11 @@ class ProductTypeEmbedding(nn.Module):
         self.center_type_embed = OneHotEmbed(num_types, dim // 2, dtype)
         self.neighbor_type_embed = OneHotEmbed(num_types, dim // 2, dtype)
 
-    def forward(self, radial_basis, center_types, neighbor_types):
+    def forward(self, radial_basis, center_types, neighbor_types, center_csr=None,
+                neighbor_csr=None):
         chem = torch.cat(
-            [self.center_type_embed(center_types), self.neighbor_type_embed(neighbor_types)],
+            [self.center_type_embed(center_types, center_csr),
+             self.neighbor_type_embed(neighbor_types, neighbor_csr)],
             dim=-1,
         )
         return self.radial_proj(radial_basis) * chem
@@ -73,6 +85,8 @@ class ProductTypeEmbedding(nn.Module):
 
 class TwoBodyBesselScalarEmbed(nn.Module):
     """Bessel(norm_length) × polynomial cutoff → ProductTypeEmbedding."""
+
+    class_lookups = (keys.CENTER_TYPE_LOOKUP, keys.NEIGHBOR_TYPE_LOOKUP)
 
     def __init__(self, num_types: int, output_dim: int = 64, num_bessels: int = 8,
                  polynomial_cutoff_p: int = 6, dtype=torch.float32):
@@ -88,7 +102,9 @@ class TwoBodyBesselScalarEmbed(nn.Module):
         cutoff = self.cutoff(u)[:, None].to(self.dtype)
         radial = bessel_basis(u, self.num_bessels).to(self.dtype) * cutoff
         et = data[keys.EDGE_TYPE].long()
-        emb = self.product_type_embed(radial, et // self.num_types, et % self.num_types)
+        emb = self.product_type_embed(radial, et // self.num_types, et % self.num_types,
+                                      class_csr(data, keys.CENTER_TYPE_LOOKUP),
+                                      class_csr(data, keys.NEIGHBOR_TYPE_LOOKUP))
         out = dict(data)
         mask = _edge_mask(data, emb)
         out[keys.EDGE_CUTOFF] = cutoff * mask
@@ -103,6 +119,8 @@ class TwoBodySplineScalarEmbed(nn.Module):
     for downstream consumers (ZBL). The spline runs in the geometry's dtype
     and is cast to the model dtype at the end, as in JAX."""
 
+    class_lookups = (keys.EDGE_CLASS_LOOKUP,)
+
     def __init__(self, num_types: int, output_dim: int = 64, num_splines: int = 16,
                  spline_span: int = 12, polynomial_cutoff_p: int = 6, dtype=torch.float32):
         super().__init__()
@@ -113,7 +131,8 @@ class TwoBodySplineScalarEmbed(nn.Module):
 
     def forward(self, data: Dict) -> Dict:
         u = data[keys.NORM_LENGTH][:, 0]
-        emb = self.spline(u, data[keys.EDGE_TYPE]).to(self.dtype)
+        emb = self.spline(u, data[keys.EDGE_TYPE],
+                          class_csr(data, keys.EDGE_CLASS_LOOKUP)).to(self.dtype)
         out = dict(data)
         mask = _edge_mask(data, emb)
         out[keys.EDGE_CUTOFF] = self.cutoff(u)[:, None].to(emb.dtype) * mask

@@ -16,6 +16,8 @@ import math
 import torch
 from torch import nn
 
+from ..ops.fused_primitives import table_rows
+
 
 def spline_basis(x: torch.Tensor, num_splines: int, spline_span: int) -> torch.Tensor:
     """The bump basis on [0, 1]: ``x [...]`` → ``[..., num_splines]``."""
@@ -34,7 +36,9 @@ class PerClassSpline(nn.Module):
     parameter ``spline_weights [num_classes, channels, num_splines]``, read
     per edge by its class and contracted with the basis, as JAX's
     ``jnp.take`` and ``einsum``: ``[E, channels, K]`` whatever the class
-    count."""
+    count. With the lookup's class CSR (``csr``) the weights are read with
+    ``center_gather``, so their gradient sums in a fixed order
+    (:func:`~allegro_tpu_torch.ops.fused_primitives.table_rows`)."""
 
     def __init__(self, num_classes: int, channels: int, num_splines: int = 16,
                  spline_span: int = 12, dtype=torch.float32):
@@ -52,8 +56,8 @@ class PerClassSpline(nn.Module):
         with torch.no_grad():
             self.spline_weights.copy_((2.0 * v - 1.0) * bound)
 
-    def forward(self, x: torch.Tensor, class_idx: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, class_idx: torch.Tensor, csr=None) -> torch.Tensor:
         basis = spline_basis(x, self.num_splines, self.spline_span)  # [E, K]
         cls = class_idx.long().clamp(0, self.num_classes - 1)
-        w = self.spline_weights.to(basis.dtype).index_select(0, cls)  # [E, channels, K]
+        w = table_rows(self.spline_weights.to(basis.dtype), cls, csr)  # [E, channels, K]
         return torch.einsum("ek,eck->ec", basis, w)

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The kernels are CUDA C++ with a plain C interface (``allegro_tpu_torch/csrc``),
-compiled with ``nvcc`` for Hopper (``sm_90a``) at first use, one ``nvcc``
-process per source, all started together, then linked into one shared
-library and loaded with ``ctypes``. The library goes into
-``allegro_tpu_torch/_build/``, named by a hash of the sources and flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+The kernels are CUDA C++ with a plain C interface (``allegro_tpu_torch/csrc``;
+``cg_blocks.h``, which ``mega.cu`` includes, is written by
+``ops/gen_cg_blocks.py`` and checked in), compiled with ``nvcc`` for Hopper
+(``sm_90a``) at first use, one ``nvcc`` process per source, all started
+together, then linked into one shared library and loaded with ``ctypes``.
+The library goes into ``allegro_tpu_torch/_build/``, named by a hash of the
+sources, headers and flags, so a changed source is rebuilt and an unchanged
+one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ _SIGNATURES = {
                            _vp],
     "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
     "atpt_center_sum": [_vp, _vp, _vp, _i32, _i32, _vp, _vp],
+    "atpt_center_sum_chunked": [_vp, _vp, _vp, _i32, _i32, _i64, _i32, _vp, _vp, _vp],
     "atpt_readout_sum": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
     "atpt_readout_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _i64,
                          _i32, _i32, _vp],
@@ -51,8 +54,8 @@ _SIGNATURES = {
                             _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_gather_tp_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _i64, _i32, _i32,
                              _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp],
-    "atpt_bwd_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _i64, _i32,
-                       _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
+    "atpt_bwd_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
+                       _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
     "atpt_tp_scatter": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
                         _vp],
     "atpt_gather_dw": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32, _i32,
@@ -82,13 +85,18 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    """The generated headers the sources include (``csrc/cg_blocks.h``)."""
+    return sorted(CSRC.glob("*.h"))
+
+
 def build_library(build_dir: Path | str = BUILD_DIR) -> Path:
     """Compile ``csrc/*.cu`` into a shared library (once per source hash) and
     return its path. Raises ``RuntimeError`` when ``nvcc`` is missing or
     fails, with the compiler's output."""
     srcs = _sources()
     digest = hashlib.sha256()
-    for src in srcs:
+    for src in srcs + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

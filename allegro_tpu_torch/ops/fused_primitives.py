@@ -16,6 +16,7 @@
 - ``center_gather`` / ``center_scatter``: per-atom → per-edge gather and its
   transpose, the CSR segment sum. Each one's backward is the other, so the
   pair is closed under transposition and differentiable to any order.
+  ``table_rows`` reads a parameter table by class with the same pair.
 - ``readout_sum_infer``: the fused readout (per-edge MLP and per-atom energy
   sum); backward ``readout_bwd``, first order only.
 - The mega-fused layers (``nn/allegro.py``'s default inference path), each
@@ -229,41 +230,65 @@ def fused_layer_infer(x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, d
 
 class _CenterGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, idx, row_ptr, perm):
+    def forward(ctx, a, idx, row_ptr, perm, chunked):
         ctx.save_for_backward(idx, row_ptr, perm)
+        ctx.chunked = chunked
         return fused_tp.center_gather(a, idx)
 
     @staticmethod
     def backward(ctx, g):
         idx, row_ptr, perm = ctx.saved_tensors
-        return center_scatter(g.contiguous(), idx, row_ptr, perm), None, None, None
+        return (center_scatter(g.contiguous(), idx, row_ptr, perm, ctx.chunked), None, None,
+                None, None)
 
 
 class _CenterScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, idx, row_ptr, perm):
+    def forward(ctx, v, idx, row_ptr, perm, chunked):
         ctx.save_for_backward(idx, row_ptr, perm)
-        return fused_tp.center_sum(v, row_ptr, perm)
+        ctx.chunked = chunked
+        return fused_tp.center_sum(v, row_ptr, perm, chunked)
 
     @staticmethod
     def backward(ctx, g):
         idx, row_ptr, perm = ctx.saved_tensors
-        return center_gather(g.contiguous(), idx, row_ptr, perm), None, None, None
+        return (center_gather(g.contiguous(), idx, row_ptr, perm, ctx.chunked), None, None,
+                None, None)
 
 
-def center_gather(a, idx, row_ptr, perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+def center_gather(a, idx, row_ptr, perm: Optional[torch.Tensor] = None,
+                  chunked: bool = False) -> torch.Tensor:
     """a [n_atoms, C] → [E, C], ``out[e] = a[idx[e]]`` (zero rows for
     sentinel ids ``>= n_atoms``). ``row_ptr`` (and ``perm``, for an ``idx``
     that is not sorted) is the CSR of ``idx`` that the transpose sums over:
     ``keys.CENTER_ROW_PTR`` for the centers, ``keys.NBR_ROW_PTR`` with
-    ``keys.NBR_PERM`` for the neighbors."""
-    return _CenterGather.apply(a, idx, row_ptr, perm)
+    ``keys.NBR_PERM`` for the neighbors; ``chunked`` for a few long segments
+    (``fused_tp.center_sum``)."""
+    return _CenterGather.apply(a, idx, row_ptr, perm, chunked)
 
 
-def center_scatter(v, idx, row_ptr, perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+def center_scatter(v, idx, row_ptr, perm: Optional[torch.Tensor] = None,
+                   chunked: bool = False) -> torch.Tensor:
     """v [E, C] → [n_atoms, C], the sum of each atom's edges: the transpose
     of :func:`center_gather` with the same CSR statics."""
-    return _CenterScatter.apply(v, idx, row_ptr, perm)
+    return _CenterScatter.apply(v, idx, row_ptr, perm, chunked)
+
+
+def table_rows(table, idx, csr: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
+    """``table[idx]`` along dim 0 for a parameter table read per edge or per
+    atom by class. ``csr`` is the lookup's class CSR ``(idx, row_ptr, perm)``
+    (``keys.class_csr_keys``, from ``Model.precompute_statics``): with it, a
+    table that takes a gradient is read with :func:`center_gather`, so its
+    gradient is ``center_sum`` over the class CSR, summed in a fixed order
+    where ``index_select``'s transpose adds with atomics on the card. Rows
+    whose class-CSR idx is the table's row count (padded edges and atoms)
+    read zeros. A frozen table (the force call) or no ``csr`` (the ``einsum``
+    reference) reads with ``index_select``: the same values, copied."""
+    if csr is None or not table.requires_grad:
+        return table.index_select(0, idx.long())
+    # a few rows, each read by thousands of edges or atoms: the chunked sum
+    rows = center_gather(table.reshape(table.shape[0], -1), *csr, chunked=True)
+    return rows.reshape((rows.shape[0],) + tuple(table.shape[1:]))
 
 
 class _ReadoutSumInfer(torch.autograd.Function):
@@ -291,32 +316,35 @@ def readout_sum_infer(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Ten
 
 class _MegaLatentEnv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, U, S, *pieces):
+    def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S, *pieces):
         lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S)
-        ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, *pieces)
+        ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces)
         ctx.U, ctx.S = U, S
         return lat_s, env
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_lat, g_env):
-        w0, w1, sh, centers, dim_to_irr, *pieces = ctx.saved_tensors
+        w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces = ctx.saved_tensors
         dsh, dpieces = fused_tp.latent_env_bwd(
             pieces, sh, w0, w1, g_env.contiguous(), g_lat.contiguous(), centers, dim_to_irr,
-            ctx.U, ctx.S,
+            ctx.U, ctx.S, irr_ranges,
         )
         nig = ctx.needs_input_grad
         return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), dsh, None, None, None, None, None,
-                *dpieces)
+                None, *dpieces)
 
 
 def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], centers,
-                    row_ptr, dim_to_irr, U: int, S: int):
+                    row_ptr, dim_to_irr, U: int, S: int, irr_ranges=None):
     """A latent MLP (``w1=None``: a linear map) on the pieces [E, S_i] → its
     scalar columns ``lat_s`` [E, S] and the environment ``env``
     [n_atoms, d2*U] that its env-weight columns weight sh [E, d2] into,
-    summed over each atom's edges: ``(lat_s, env)``."""
-    return _MegaLatentEnv.apply(w0, w1, sh, centers, row_ptr, dim_to_irr, U, S, *pieces)
+    summed over each atom's edges: ``(lat_s, env)``. ``irr_ranges``: the
+    basis's per-irrep (start, len) table for the backward
+    (``Contracter.irr_ranges``; built from ``dim_to_irr`` where not given)."""
+    return _MegaLatentEnv.apply(w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S,
+                                *pieces)
 
 
 class _GatherTpInfer(torch.autograd.Function):
@@ -345,8 +373,9 @@ def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
 class _GatherTpEmbedInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs, d3,
-                split):
+                split, paths):
         ctx.save_for_backward(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs)
+        ctx.paths = paths
         return fused_tp.gather_tp_embed(sh, w2b, env, w, centers, entry_idx, entry_coef,
                                         row_specs, d3, split)
 
@@ -356,17 +385,19 @@ class _GatherTpEmbedInfer(torch.autograd.Function):
         sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs = ctx.saved_tensors
         dsh, dw2b, denv = fused_tp.bwd_embed(
             sh, w2b, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
-            None if gts is None else gts.contiguous(),
+            None if gts is None else gts.contiguous(), ctx.paths,
         )
         return (dsh, dw2b, denv, _nan_like(w, ctx.needs_input_grad[3]), None, None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 def gather_tp_embed_infer(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
-                          d3: int, split: bool = False):
+                          d3: int, split: bool = False, paths=None):
     """``gather_tp_infer`` at layer 0 on the tensor embed's factors: sh
     [E, d_sh] and w2b [E, n_irr*U] (its channel weights), the features
     ``x0[e, iU+u] = sh[e, js_i] w2b[e, irs_i U+u]`` built in the kernel from
-    ``row_specs`` [d1, 2] = (js_i, irs_i)."""
+    ``row_specs`` [d1, 2] = (js_i, irs_i). ``paths``: the entry table's path
+    descriptors for the backward (``Contracter.cg_paths``; built from the
+    entries where not given)."""
     return _GatherTpEmbedInfer.apply(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
-                                     row_specs, d3, split)
+                                     row_specs, d3, split, paths)

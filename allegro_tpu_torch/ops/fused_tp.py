@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .gen_cg_blocks import path_table
 
 LAUNCHES: Dict[str, int] = {
     "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
@@ -94,7 +95,10 @@ def neighbor_csr(neighbors: np.ndarray, n_atoms: int) -> Tuple[np.ndarray, np.nd
     ``center_sum(v, row_ptr, perm)`` is then the sum over each atom's
     incoming edges, the transpose of gathering by neighbor."""
     neighbors = np.asarray(neighbors).astype(np.int64)
-    perm = np.argsort(neighbors, kind="stable").astype(np.int32)
+    # sorted in the narrowest type that holds the ids: numpy sorts 8- and
+    # 16-bit integers by radix (csr_row_ptr rejects ids out of range)
+    narrow = neighbors.astype(np.min_scalar_type(n_atoms))
+    perm = np.argsort(narrow, kind="stable").astype(np.int32)
     return perm, csr_row_ptr(neighbors[perm], n_atoms)
 
 
@@ -115,6 +119,20 @@ def gather_rows(table: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     n = table.shape[0]
     padded = torch.cat([table, table.new_zeros((1,) + tuple(table.shape[1:]))])
     return padded.index_select(0, centers.long().clamp(0, n))
+
+
+def irrep_ranges(dim_to_irr: torch.Tensor) -> torch.Tensor:
+    """``[n_irr, 2]`` int32: (first dim, dim count) of each irrep of the SH
+    basis, from ``dim_to_irr`` [d2]: ``latent_env_bwd``'s table of each env
+    column block's basis dims. Raises ValueError unless each irrep's dims are
+    contiguous and the irreps in order."""
+    d2i = [int(r) for r in dim_to_irr.tolist()]
+    n_irr = max(d2i) + 1 if d2i else 0
+    if d2i != sorted(d2i) or set(d2i) != set(range(n_irr)):
+        raise ValueError(f"dim_to_irr {d2i}: each irrep's dims must be contiguous and in order")
+    counts = [d2i.count(r) for r in range(n_irr)]
+    starts = np.cumsum([0] + counts[:-1]).tolist()
+    return torch.tensor(list(zip(starts, counts)), dtype=torch.int32).reshape(n_irr, 2)
 
 
 def swap_entries(entry_idx: torch.Tensor) -> torch.Tensor:
@@ -560,14 +578,20 @@ def center_gather(a, idx) -> torch.Tensor:
     return out
 
 
-def center_sum(v, row_ptr, perm=None) -> torch.Tensor:
+CENTER_SUM_CHUNK = 256  # CSR positions per block of center_sum's chunked pass
+
+
+def center_sum(v, row_ptr, perm=None, chunked: bool = False) -> torch.Tensor:
     """s [n_atoms, C]: ``s[a] = Σ_{k ∈ [row_ptr[a], row_ptr[a+1])} v[perm[k]]``
     (``perm`` None = identity, the center side). v [E, C], row_ptr
     [n_atoms+1], perm [E]; CSR positions after ``row_ptr[n_atoms]`` (sentinel
-    edges) are dropped.
+    edges) are dropped. ``chunked``: for a few long segments (a parameter
+    table's class CSR), sum each segment in fixed chunks of
+    ``CENTER_SUM_CHUNK`` positions, then the chunks in order.
 
     Replaces ``_center_sum_kernel``. Bound by the read of v; one thread per
-    (atom, column) sums its segment in edge order (no atomics)."""
+    (atom, column) sums its segment in edge order (no atomics); chunked, one
+    block per chunk and a second pass over the chunks' partials."""
     n_atoms = row_ptr.shape[0] - 1
     if v.ndim != 2 or row_ptr.ndim != 1 or (perm is not None and perm.shape != v.shape[:1]):
         raise ValueError(
@@ -581,6 +605,13 @@ def center_sum(v, row_ptr, perm=None) -> torch.Tensor:
     C = v.shape[1]
     out = torch.empty((n_atoms, C), dtype=v.dtype, device=v.device)
     if n_atoms == 0 or C == 0:
+        return out
+    if chunked:
+        n_blocks = -(-v.shape[0] // CENTER_SUM_CHUNK)
+        partial = torch.zeros((n_blocks, n_atoms, C), dtype=v.dtype, device=v.device)
+        _launch("center_sum", "atpt_center_sum_chunked", v.device,
+                v.data_ptr(), row_ptr.data_ptr(), None if perm is None else perm.data_ptr(),
+                n_atoms, C, v.shape[0], CENTER_SUM_CHUNK, partial.data_ptr(), out.data_ptr())
         return out
     _launch("center_sum", "atpt_center_sum", v.device,
             v.data_ptr(), row_ptr.data_ptr(), None if perm is None else perm.data_ptr(),
@@ -738,14 +769,18 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
 
 
 def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], t, g_lat,
-                   centers, dim_to_irr, U: int, S: int) -> Tuple[torch.Tensor, ...]:
+                   centers, dim_to_irr, U: int, S: int,
+                   irr_ranges: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """Backward of ``latent_env_scatter`` in sh and the pieces, from the env
     cotangent t [n_atoms, d2*U] and the lat_s cotangent g_lat [E, S]:
     ``(dsh [E, d2], dpieces)``, dpieces contiguous [E, S_i]. The MLP is
-    recomputed; a sentinel edge reads t = 0.
+    recomputed; a sentinel edge reads t = 0. ``irr_ranges`` is
+    :func:`irrep_ranges` of ``dim_to_irr`` on the device (built on the host
+    where not given).
 
-    Replaces ``_latent_env_bwd_kernel``. Bound by exact-FP32 FMAs; one warp
-    per 32 edges, lane = edge, weights in shared memory."""
+    Replaces ``_latent_env_bwd_kernel``. Bound by exact-FP32 FMAs; tiles of
+    64 edges through four register-tiled products, weights in shared
+    memory."""
     pieces = tuple(pieces)
     E, d2 = sh.shape
     N = _check_mlp("latent_env_bwd", pieces, w0, w1, E)
@@ -756,8 +791,13 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
     rest = () if w1 is None else (w1,)
     if _on_cpu(*pieces, sh, w0, *rest, t, g_lat, centers, dim_to_irr):
         return latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S)
+    if irr_ranges is None:
+        irr_ranges = irrep_ranges(dim_to_irr).to(sh.device)
+    if irr_ranges.shape != ((N - S) // U, 2):
+        raise ValueError(f"latent_env_bwd: irr_ranges {tuple(irr_ranges.shape)} for "
+                         f"{(N - S) // U} irreps")
     _check_kernel_args({"sh": sh, "w0": w0, "t": t, "g_lat": g_lat, **{"w1": w for w in rest}},
-                       {"centers": centers, "dim_to_irr": dim_to_irr})
+                       {"centers": centers, "dim_to_irr": dim_to_irr, "irr_ranges": irr_ranges})
     _check_pieces_dtype(pieces)
     dsh = torch.empty_like(sh)
     dpieces = tuple(torch.empty(p.shape, dtype=p.dtype, device=p.device) for p in pieces)
@@ -769,7 +809,7 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
     _launch("latent_env_bwd", "atpt_latent_env_bwd", sh.device,
             ptrs, strides, dptrs, dstrides, dims, len(pieces), w0.data_ptr(), _ptr(w1),
             sh.data_ptr(), t.data_ptr(), g_lat.data_ptr(), centers.data_ptr(),
-            dim_to_irr.data_ptr(), E, t.shape[0], d2, U, S, 0 if w1 is None else w0.shape[1], N,
+            irr_ranges.data_ptr(), E, t.shape[0], d2, U, S, 0 if w1 is None else w0.shape[1], N,
             dsh.data_ptr())
     return dsh, dpieces
 
@@ -817,15 +857,18 @@ def gather_tp_embed(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs, 
 
 
 def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
-              gts=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              gts=None, paths=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of ``gather_tp_embed`` in its factors and env, without dw:
     dsh [E, d_sh], dw2b [E, n_irr*U] and denv [n_atoms, d2*U]; ``gts``
     [E, U] is the cotangent of the split scalar output. Sentinel edges get
-    zero rows.
+    zero rows. ``paths`` (``gen_cg_blocks.CgPaths`` on the device) is the
+    entry table by path, which the kernel walks; where it is not given it is
+    built from the entries on the host.
 
     Replaces ``_bwd_embed_raw_kernel``. Bound by the read of g and the write
-    of dw2b; one block per atom segment, dx0 reduced onto the factors in
-    registers and never written."""
+    of dw2b; a warp per atom segment walks the CG paths, each a block
+    compiled into ``csrc/cg_blocks.h``, and dx0 is reduced onto the factors
+    and never written."""
     E, U = sh.shape[0], w.shape[1]
     n_atoms = row_ptr.shape[0] - 1
     n_irr = _check_embed("bwd_embed", sh, w2b, env, w, centers, entry_idx, entry_coef,
@@ -838,9 +881,13 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
     if _on_cpu(sh, w2b, g, *opt, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs):
         return bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef,
                                    row_specs, gts)
+    if paths is None:
+        paths = path_table(entry_idx, entry_coef).to(sh.device)
     _check_kernel_args({"sh": sh, "w2b": w2b, "g": g, "env": env, "w": w,
-                        "entry_coef": entry_coef, **{"gts": t for t in opt}},
-                       {"row_ptr": row_ptr, "entry_idx": entry_idx, "row_specs": row_specs})
+                        "scale": paths.scale, "path_coef": paths.entry_coef,
+                        **{"gts": t for t in opt}},
+                       {"row_ptr": row_ptr, "desc": paths.desc, "path_idx": paths.entry_idx,
+                        "row_specs": row_specs})
     dsh = torch.empty_like(sh)
     dw2b = torch.empty_like(w2b)
     denv = torch.empty_like(env)
@@ -848,7 +895,8 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
         return dsh, dw2b, denv
     _launch("bwd_embed", "atpt_bwd_embed", sh.device,
             sh.data_ptr(), w2b.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
-            row_ptr.data_ptr(), entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
+            w.shape[0], row_ptr.data_ptr(), paths.desc.data_ptr(), paths.scale.data_ptr(),
+            paths.desc.shape[0], paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(),
             row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
             env.shape[1] // U, g.shape[1] // U, U, dsh.data_ptr(), dw2b.data_ptr(),
             denv.data_ptr())

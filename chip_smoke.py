@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    W0 [96, 64], W1 [64, 160]), ``gather_tp_embed`` with its split output and
    ``bwd_embed`` with ``gts``, and ``gather_tp`` with the split output and
    ``bwd_fused`` with ``gts`` at layer-0 dims; then, checks only, all of
-   these at U = 16 and 48 (the lane loops for other widths); the center
+   these at U = 16 and 48 (the lane loops for other widths), and
+   ``bwd_embed`` on an l = 4 layer at U = 32, whose paths beyond the
+   compiled CG header take the kernel's per-entry default case; the center
    gather and sum on positions [4096, 3] at the center and the neighbor side
    (and, checks only, on the [·, 1] energy column of the plain readout
    chain); the fused readout and its backward on three 64-wide pieces (W0
@@ -31,8 +33,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    each, with the exact launch count of every kernel asserted after each
    call; outputs finite and in agreement with the port's plain ``einsum``
    backend on the same card (force max-abs rel < 1e-5, per-atom energies
-   allclose at 5e-5). Prints µs/atom per force call and the run-to-run
-   max |Δforces| of two identical calls;
+   allclose at 5e-5). Prints µs/atom per force call, the run-to-run
+   max |Δforces| of two identical calls and a torch.profiler breakdown of
+   three ``mega`` calls;
 4. MD and calculator, on the ``mega`` model: ``md.Simulation`` runs 100
    steps (10 blocks) of NVE on the crystal with a skin small enough to
    re-neighbor, asserting finite positions, the exact launch counts of every
@@ -52,11 +55,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    targets) and on the bench's 16 synthetic 21-atom frames (984 edges):
    the flagship on ``fused`` through ``Trainer.fit``, Adam 1e-3, EMA 0.999,
    10 steps with the exact launch count of every kernel per step, finite
-   losses that fall, ms per step, samples/s, peak memory, the run-to-run
-   max |dparam| of two identical 3-step runs, and (1k batch) a
+   losses that fall, ms per step, samples/s, peak memory, two identical
+   3-step runs that must end in the same bits, and (1k batch) a
    torch.profiler breakdown of 3 steps; (c) on the first step of each
    batch, the parameter gradients against the ``einsum`` backend from the
-   same weights (max-abs error over max-abs < 1e-4 per tensor).
+   same weights (max-abs error over max-abs < 1e-4 per tensor); on the 1k
+   batch, two identical training steps whose gradients must agree bit for
+   bit in every parameter, for the flagship and for it with the spline
+   embed and trainable per-type scales and shifts (``TABLE_MODEL``: every
+   parameter table read by class, through the class CSR).
 6. the ``pallas`` backend (kernels 20 and 21, ``csrc/sparse_tp.cu``): (a)
    ``sparse_tp`` and ``sparse_tp_gradw`` against their plain versions on
    the crystal's 103,532 edges at both layer dims, on the layer's table and
@@ -68,7 +75,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    edge-energy sum on the center kernels, 7 + 7), held to ``einsum`` as in
    phase 3, and its µs/atom; (c) phase 5b/5c on ``pallas``: 10 Adam steps on
    each batch with the exact launch counts of every step, the loss falls,
-   first-step gradients within 1e-4 of ``einsum``'s; (d) the command line in
+   first-step gradients within 1e-4 of ``einsum``'s, and 5b/5c's same-bits
+   checks; (d) the command line in
    subprocesses, as shipped: ``python -m allegro_tpu_torch md -c
    configs/md.yaml`` (1,000 atoms, 200 steps on ``pallas``), ``run -c
    configs/tutorial.yaml`` (train + test, ``einsum`` + ZBL) and the same with
@@ -112,7 +120,9 @@ step (one launch per layer and table order, 6 of its 8 per step).
 the inputs read once and the outputs written once at 3.35 TB/s, or the
 FLOPs at 67 TFLOP/s f32, the larger; ``bound_by`` says which),
 ``library_ms`` the time of one PyTorch call computing the same function
-where there is one (the center gather and sum, ``sparse_tp*``), else null.
+where there is one (the center gather and sum, ``sparse_tp*``), else null,
+``ptxas`` the registers and spill bytes of each of its entry functions
+(``-Xptxas -v`` of this run's build).
 Every configuration and entry point has its own ``launches_*`` key; the
 ``*_lmax3`` keys are the same kernel's record at the l_max-3 layer-0 shapes;
 variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``) have
@@ -122,6 +132,7 @@ their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*`` in the base row.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -245,9 +256,12 @@ PER_CALL = {
 # env_scatter, 6 L gather_tp, 3 L tp_scatter, 4 L gather_dw (L of them
 # unused), 3 L unweight_sh, 3 L unweight_w (L = 2 layers), 6 center_gather
 # and 3 center_sum.
+# The parameter tables read by class (here the two type embeddings) each
+# take one center_gather forward and one center_sum in the parameter
+# backward: 2 more of each.
 PER_STEP = {**{name: 0 for name in PER_CALL["mega"]},
             "env_scatter": 6, "gather_tp": 12, "tp_scatter": 6, "gather_dw": 8,
-            "unweight_sh": 6, "unweight_w": 6, "center_gather": 6, "center_sum": 3}
+            "unweight_sh": 6, "unweight_w": 6, "center_gather": 8, "center_sum": 5}
 
 
 def per_call(config, L=2, zbl=False):
@@ -277,7 +291,7 @@ def per_call(config, L=2, zbl=False):
     return counts
 
 
-def per_step_pallas(L=2, zbl=False):
+def per_step_pallas(L=2, zbl=False, lookups=2):
     """Launches per training step on ``pallas`` of an L-layer model. Per
     layer: the forward SparseTp (1); the force backward (create_graph) runs
     its three transposes, two sparse_tp and one sparse_tp_gradw
@@ -289,10 +303,12 @@ def per_step_pallas(L=2, zbl=False):
     forward's 3 + 2 L sums and gathers of ``per_call``, their transposes in the
     force backward, and in the parameter backward the transposes of every
     node on the way to a parameter: 6 + 4 L center_gather, 3 + 4 L
-    center_sum (ZBL: one more of each)."""
+    center_sum (ZBL: one more of each); and one of each per parameter table
+    read by class (``lookups``: the two type embeddings of the Bessel
+    embed)."""
     counts = {name: 0 for name in PER_CALL["mega"]}
-    counts.update(sparse_tp=9 * L, sparse_tp_gradw=4 * L, center_gather=6 + 4 * L + zbl,
-                  center_sum=3 + 4 * L + zbl)
+    counts.update(sparse_tp=9 * L, sparse_tp_gradw=4 * L,
+                  center_gather=6 + 4 * L + zbl + lookups, center_sum=3 + 4 * L + zbl + lookups)
     return counts
 
 
@@ -304,6 +320,10 @@ PER_STEP_PALLAS = per_step_pallas()
 # phase 7: the JAX bench's l_max-3 model (allegro_tpu/bench.py:run_lmax3_bench,
 # BASELINE.json config 3) and the rest of the model surface, at full width
 LMAX3 = {**FLAGSHIP, "l_max": 3}
+# the parameter tables read by class beyond the type embeddings (phases 5c, 6c)
+TABLE_MODEL = dict(
+    radial_chemical_embed={"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed"},
+    per_type_energy_scales_trainable=True, per_type_energy_shifts_trainable=True)
 SURFACE = {
     "parity=False, 3 layers": {**FLAGSHIP, "parity": False, "num_layers": 3},
     "l_max 3, 3 layers": {**LMAX3, "num_layers": 3},
@@ -552,7 +572,7 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
                    plain_timing=plain_timing)
         check_case("latent_env_bwd",
                    lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers,
-                                                         d2i, U, S)),
+                                                         d2i, U, S, tp.irr_ranges)),
                    lambda: _flat(fused_tp.latent_env_bwd_reference(pieces, sh, a, b, t, g_lat,
                                                                    centers, d2i, U, S)),
                    what, records, (*pieces, sh, a, b, t, g_lat, centers, d2i),
@@ -570,9 +590,10 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
                                                           specs, d3, True), what, records,
                (sh, w2b, env, wk, centers, idx, coef, specs), tp_flops + Er * d1 * U,
                plain_timing=plain_timing)
+    paths = tp.cg_paths()
     check_case("bwd_embed",
                lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
-                                          specs, gts),
+                                          specs, gts, paths),
                lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx,
                                                     coef, specs, gts), what, records,
                (sh, w2b, g, gts, env, wk, row_ptr, idx, coef, specs),
@@ -587,6 +608,45 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
                                                     gts), what, records,
                (x, g, gts, env, wk, row_ptr, idx, coef), 2 * tp_flops + Er * U,
                plain_timing=plain_timing)
+
+
+def check_embed_beyond_the_header(data, rng):
+    """Phase 2: ``bwd_embed`` on a layer whose paths the compiled CG header
+    does not hold (l = 4: the kernel's per-entry default case), U = 32, on
+    the crystal's edges, against its plain version (with and without gts)."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.nn.contract import Contracter
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms, E, U = row_ptr.shape[0] - 1, centers.shape[0], 32
+    irreps = "1x0e+1x2e+1x4e"
+    tp = Contracter(irreps, irreps, irreps, U).to(dev)
+    paths = tp.cg_paths()
+    beyond = int((paths.desc[:, 1] < 0).sum())
+    assert beyond > 0, "the l = 4 layer has no path beyond the header"
+    idx, coef = tp.entry_idx, tp.entry_coef.to(torch.float32)
+    specs = torch.tensor([(j, int(r)) for j, r in enumerate(tp.dim_to_irr.tolist())],
+                         dtype=torch.int32, device=dev)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    wk = rand(tp.num_paths, U)
+
+    sh, w2b, env = rand(E, tp.d2), rand(E, tp.n_irr * U), rand(n_atoms, tp.d2 * U)
+    g, gts = rand(E, tp.d3 * U), rand(E, U)
+    label = (f"U {U} l_max 4 dims ({tp.d1},{tp.d2},{tp.d3}) entries {idx.shape[0]}, "
+             f"{beyond} of {paths.desc.shape[0]} paths beyond the header")
+    for opt in (None, gts):
+        check_case("bwd_embed",
+                   lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
+                                              specs, opt, paths),
+                   lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms,
+                                                        idx, coef, specs, opt),
+                   label + ("" if opt is None else " gts"))
 
 
 def _flat(res):
@@ -638,6 +698,21 @@ def check_center_readout(data, rng, records):
                        (v, rp, perm), Er * width, lambda: acc.index_add_(0, idx_l, v))
             if width == 1:  # the plain readout chain sums on the center side only
                 break
+    # the chunked sum of a parameter table's gradient over its class CSR: the
+    # crystal's edge types (9 classes, rows of 64 x 16 spline weights) and
+    # center types (3, rows of a 32-wide type embedding). Each row sums
+    # ~10^4-10^5 edges, so the plain version runs in float64: the kernel is
+    # held to the exact sum, not to another float32 order of it.
+    n_types = len(FLAGSHIP["type_names"])
+    perm, rp = fused_tp.neighbor_csr(data[keys.EDGE_TYPE].cpu().numpy(), n_types**2)
+    for rp, perm, width in ((torch.as_tensor(rp, device=dev), torch.as_tensor(perm, device=dev),
+                             64 * 16),
+                            (*(data[k] for k in keys.class_csr_keys(keys.CENTER_TYPE_LOOKUP)[1:]),
+                             32)):
+        v = rand(E, width)
+        check_case("center_sum", lambda: (fused_tp.center_sum(v, rp, perm, chunked=True),),
+                   lambda: (fused_tp.center_sum_reference(v.double(), rp, perm),),
+                   f"[{rp.shape[0] - 1}, {width}] <- [{E}, {width}] chunked (class CSR)")
     S, H = FLAGSHIP["num_scalar_features"], 32
     K = S * (FLAGSHIP["num_layers"] + 1)
     # the scalar track's pieces are column slices of the layers' MLP outputs
@@ -841,6 +916,7 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
     batch, ``fused``) a torch.profiler trace of 3 steps. Returns the launches
     of each batch's TRAIN_STEPS steps."""
     from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.model import AllegroModel
     from allegro_tpu_torch.ops import fused_tp
 
     launches = {}
@@ -861,6 +937,8 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
             peaks[which] = peak_mib()
             if which == backend:
                 backend_data = data
+                if name == "1k":
+                    check_same_gradients(trainer, state, data, f"{backend}, {what}")
         ratios = {k: ((g - grads["einsum"][k]).abs().max() / grads["einsum"][k].abs().max()).item()
                   for k, g in grads[backend].items()}
         worst = max(ratios, key=ratios.get)
@@ -883,6 +961,18 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
             if not same:
                 raise AssertionError(f"{backend}: two identical force calls on the 1k batch differ")
         del backend_data
+        if name == "1k":
+            # the spline embed and trainable per-type scales and shifts: the
+            # parameter tables read by class, whose gradients center_sum adds
+            spline = AllegroModel(**FLAGSHIP, **TABLE_MODEL, avg_num_neighbors=n_edges / n_atoms,
+                                  tp_kernel_backend=backend).init(SEED)
+            trainer = make_trainer(spline, dev)
+            state = trainer.init_state()
+            check_same_gradients(trainer, state, trainer.to_device(batch_np),
+                                 f"{backend}, spline embed and trainable scales and shifts, "
+                                 f"{what}")
+            del spline, trainer, state
+            torch.cuda.empty_cache()
         # 5b: TRAIN_STEPS steps, one per fit call (the loader is one batch)
         trainer = make_trainer(fused, dev)
         state = trainer.init_state()
@@ -921,9 +1011,29 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
             runs.append({k: v.detach().clone() for k, v in s.params.items()})
         delta = max((runs[0][k] - runs[1][k]).abs().max().item() for k in runs[0])
         print(f"    max |dparam| of two identical runs of {TRAIN_REPEAT_STEPS} steps: {delta:.3e}")
+        if delta != 0.0:
+            raise AssertionError(f"{name}: two identical runs on {backend} differ by {delta:.3e}")
         if name == "1k" and backend == "fused":
             profile_steps(again, s, loader)
     return launches
+
+
+def check_same_gradients(trainer, state, data, what):
+    """Phases 5c and 6c: two identical training steps' parameter gradients
+    (the same weights and batch) must agree bit for bit in every parameter,
+    and the class lookups' center kernels must have run."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    fused_tp.reset_launch_counts()
+    _, _, first = trainer.loss_and_grads(state, data)
+    gathers = fused_tp.LAUNCHES["center_gather"]
+    _, _, again = trainer.loss_and_grads(state, data)
+    differ = [k for k in first if not torch.equal(first[k], again[k])]
+    print(f"    two identical training steps on {what}: {len(first)} parameter gradients "
+          f"{'the same bits' if not differ else 'DIFFER in ' + ', '.join(differ)} "
+          f"({gathers} center_gather launches per step)")
+    if differ:
+        raise AssertionError(f"{what}: two identical training steps differ in {differ}")
 
 
 def profile_steps(trainer, state, loader, steps=3):
@@ -1195,7 +1305,9 @@ def bitwise_same(a, b):
 
 def profile_calls(fn, calls, label):
     """Where a force call's time goes: torch.profiler over ``calls`` calls,
-    device time by kernel name and the device's idle share of the span."""
+    device time by kernel name and the device's idle share of the span.
+    Returns (device ms per call, idle %, [(ms per call, count, name)]), or
+    None where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1213,13 +1325,16 @@ def profile_calls(fn, calls, label):
             and not getattr(e, "is_user_annotation", False)]
     if not rows:
         print(f"    profile ({label}): torch.profiler recorded no device time")
-        return
+        return None
     busy = sum(r[0] for r in rows)
+    idle = 100 * (1 - busy * calls / span_ms)
     print(f"    profile of {calls} force calls ({label}): {sum(r[1] for r in rows):.0f} device "
           f"ops and {busy:.4f} ms device time per call, span {span_ms / calls:.4f} ms per call "
-          f"(profiled), idle {100 * (1 - busy * calls / span_ms):.1f}%; per call by name:")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
+          f"(profiled), idle {idle:.1f}%; per call by name:")
+    rows.sort(reverse=True)
+    for ms, count, key in rows[:12]:
         print(f"      {ms:9.4f} ms {count:6.1f}x  {key[:90]}")
+    return busy, idle, rows
 
 
 def run_lmax3(models, frame, batch_np, n_atoms, dev, smi):
@@ -1392,8 +1507,9 @@ def main() -> int:
     _build.load_library()
     print(f"[1] built {so.name} in {time.perf_counter() - t0:.1f} s")
     log = so.with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip(), file=sys.stderr)
+    usage = ptxas_usage(log.read_text()) if log.exists() else {}
+    for mangled, (regs, stores, loads) in usage.items():
+        print(f"    ptxas: {regs:3d} registers, spill stores {stores} B, loads {loads} B: {mangled}")
 
     # phase 2: kernels at the slice's shapes
     frame, n_atoms = crystal_frame(N_ATOMS, R_MAX, SEED)
@@ -1422,6 +1538,7 @@ def main() -> int:
         ).init(SEED).to(dev)
         check_kernels(other.module.allegro.tps, data, rng)
         check_mega_kernels(other.module.allegro, data, rng)
+    check_embed_beyond_the_header(data, rng)
 
     check_center_readout(data, rng, records)
 
@@ -1443,6 +1560,7 @@ def main() -> int:
     for config, model in (("mega", mega), ("fused readout", fused_ro), ("plain readout", fused)):
         launches[config], us[config] = drive_force_calls("3", config, model, data, ref, n_atoms,
                                                          n_rows)
+    profile_calls(lambda: mega.apply_with_derivatives(data), 3, "flagship, mega")
     us["einsum"] = time_force_call(einsum, einsum_data, n_atoms)
     print("    force call: " + ", ".join(f"{k} {v:.3f} us/atom" for k, v in us.items())
           + f" ({n_atoms} atoms, f32; {smi})")
@@ -1503,12 +1621,50 @@ def main() -> int:
     print(smi)
     runs = dict(launches=launches, md=md_launches, calculator=calc_launches, train=train_launches,
                 pallas_train=pallas_train, cli=cli, lmax3=l3_launches, lmax3_md=l3_md,
-                lmax3_calculator=l3_calc)
+                lmax3_calculator=l3_calc, ptxas=usage)
     print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
                                   for row in TPU_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ptxas_usage(log):
+    """Registers and spill bytes of each entry function in nvcc's ``-Xptxas
+    -v`` output: {mangled name: [registers, spill stores, spill loads]}."""
+    usage, current, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            usage[current] = [0, 0, 0]
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in usage:
+            usage[props][1:] = [int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current in usage:
+            usage[current][0] = int(m.group(1))
+    return usage
+
+
+def kernel_ptxas(name, usage):
+    """The ptxas records of the entry functions of wrapper ``name``'s kernel
+    (``<name>_kernel`` and its ``_partial`` first pass; ``<true>`` /
+    ``<false>``: the instantiations of a bool template)."""
+    out = []
+    for mangled, (regs, stores, loads) in usage.items():
+        m = re.search(rf"\d({re.escape(name)}(?:_partial)?_kernel)(ILb([01])E)?", mangled)
+        if m:
+            tag = {"1": "<true>", "0": "<false>"}.get(m.group(3), "")
+            out.append({"kernel": m.group(1) + tag, "registers": regs, "spill_stores": stores,
+                        "spill_loads": loads})
+    return out
 
 
 def kernel_record(row, records, records_l3, runs):
@@ -1536,7 +1692,8 @@ def kernel_record(row, records, records_l3, runs):
     out = {"name": key, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
            "tpu_kernel": n, "launches": count, "max_abs_err": rec["max_abs_err"],
            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": rec["library_ms"], "ms_config": config}
+           "bound_by": bound_by, "library_ms": rec["library_ms"], "ms_config": config,
+           "ptxas": kernel_ptxas(name, runs["ptxas"])}
     for config in PER_CALL:
         out["launches_" + config.replace(" ", "_")] = launches[config][name]
     for run in ("md", "calculator", "lmax3_md", "lmax3_calculator"):

@@ -17,7 +17,16 @@ Each run times, with that tree's package:
   ``pallas`` on the 4 x 1,000-atom batch: the median of 10 steps after 2,
   host clock;
 - ``md_ms_per_step``: ``python -m allegro_tpu_torch md -c configs/md.yaml``
-  run from the tree, its own "MD done" ms/step.
+  run from the tree, its own "MD done" ms/step;
+- ``mega_us_per_atom`` and ``mega_lmax3_us_per_atom``: the same force call
+  on ``fused_infer``'s default mega path, for the flagship and its l_max-3
+  twin (``chip_smoke.LMAX3``); ``mega*_busy_ms`` and ``mega*_idle_pct``
+  their device time per call and idle share under torch.profiler (3 calls);
+- ``latent_env_bwd_ms`` (both launches of one mega force call: the first
+  projection and layer 0's latent) and ``bwd_embed_ms``, flagship and
+  l_max 3: device times from CUDA events (``chip_smoke.median_ms``) of the
+  tree's wrappers on the force call's shapes and the model's weights, with
+  the tables the tree's layers cache where it has them.
 
 The crystal, the batch and the flagship's settings come from this checkout's
 ``chip_smoke.py``, so both trees see the same inputs. Prints one JSON line
@@ -49,6 +58,43 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def kernel_times(smoke, allegro, data) -> tuple:
+    """Device ms of latent_env_bwd (its two launches in a force call) and of
+    bwd_embed (with gts) at the model's shapes, from CUDA events."""
+    import numpy as np
+    import torch
+
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    rng = np.random.RandomState(smoke.SEED)
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms, E = row_ptr.shape[0] - 1, centers.shape[0]
+    S, U, tp = allegro.S, allegro.U, allegro.tps[0]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    ranges = (tp.irr_ranges,) if hasattr(tp, "irr_ranges") else ()
+    paths = (tp.cg_paths(),) if hasattr(tp, "cg_paths") else ()
+    sh, emb, ts = rand(E, tp.d2), rand(E, S), rand(E, U)
+    t, g_lat = rand(n_atoms, tp.d2 * U), rand(E, S)
+    (w_proj,) = allegro.first_projection.weights()
+    w0, w1 = allegro.latents[0].weights()
+    ms8 = 0.0
+    for pieces, a, b in (((emb,), w_proj.detach(), None), ((emb, ts), w0.detach(), w1.detach())):
+        ms8 += smoke.median_ms(lambda: fused_tp.latent_env_bwd(
+            pieces, sh, a, b, t, g_lat, centers, tp.dim_to_irr, U, S, *ranges))
+    wk, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
+    w2b, env = rand(E, tp.n_irr * U), rand(n_atoms, tp.d2 * U)
+    g, gts = rand(E, tp.d3 * U), rand(E, U)
+    ms10 = smoke.median_ms(lambda: fused_tp.bwd_embed(
+        sh, w2b, g, env, wk, centers, row_ptr, idx, coef, allegro.row_specs, gts, *paths))
+    return ms8, ms10
 
 
 def measure(tree: Path) -> dict:
@@ -85,6 +131,21 @@ def measure(tree: Path) -> dict:
     out["launches_per_call"] = {k: c // FORCE_CALLS for k, c in fused_tp.LAUNCHES.items() if c}
     del model, data
     torch.cuda.empty_cache()
+
+    for tag, cfg in (("mega", smoke.FLAGSHIP), ("mega_lmax3", smoke.LMAX3)):
+        model = AllegroModel(**cfg, avg_num_neighbors=n_edges / n_atoms,
+                             tp_kernel_backend="fused_infer").init(smoke.SEED).to(dev)
+        data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
+                        dtype=torch.float32, device=dev)
+        out[f"{tag}_us_per_atom"] = smoke.time_force_call(model, data, n_atoms, FORCE_CALLS)
+        prof = smoke.profile_calls(lambda: model.apply_with_derivatives(data), 3, tag)
+        if prof is not None:
+            out[f"{tag}_busy_ms"], out[f"{tag}_idle_pct"] = prof[0], prof[1]
+        suffix = "" if tag == "mega" else "_lmax3"
+        ms8, ms10 = kernel_times(smoke, model.module.allegro, data)
+        out["latent_env_bwd_ms" + suffix], out["bwd_embed_ms" + suffix] = ms8, ms10
+        del model, data
+        torch.cuda.empty_cache()
 
     loader = smoke.train_loaders()["1k"]
     train, _ = smoke.train_models(next(iter(loader)), "pallas")

@@ -16,9 +16,11 @@
   1e-9; the wrapper calls of a force call (6 ``sparse_tp``, no
   ``sparse_tp_gradw``) and of a training step.
 - Determinism: no op adds into colliding rows outside the kernels on a
-  force call of two periodic frames, on ``pallas`` and the fused backends
-  (a dispatch mode records them); a kernel backend raises without the CSR
-  statics and ``einsum`` ignores them.
+  force call of two periodic frames, on ``pallas`` and the fused backends,
+  nor in a whole training step's backward on ``fused`` and ``pallas`` with
+  every parameter table read by class (a dispatch mode records them); those
+  models' force-loss gradients against JAX ``einsum`` at 1e-9; a kernel
+  backend raises without the CSR statics and ``einsum`` ignores them.
 - The model modifiers: backend round trips keep the parameters and the
   outputs.
 """
@@ -255,7 +257,9 @@ def test_pallas_launch_counts_per_call_and_training_step(crystal, monkeypatch, L
     """The exact wrapper calls of a pallas force call and of a Trainer step
     (chip_smoke.py's per_call / per_step_pallas): per step 9 L sparse_tp,
     4 L sparse_tp_gradw, 6 + 4 L center_gather and 3 + 4 L center_sum (ZBL:
-    one more of each)."""
+    one more of each), and one center_gather and one center_sum for each of
+    the two type embeddings' class lookups (the force call's frozen tables
+    read with index_select)."""
     from allegro_tpu_torch.data import DataLoader, InMemoryDataset
     from allegro_tpu_torch.train import Trainer
 
@@ -277,8 +281,8 @@ def test_pallas_launch_counts_per_call_and_training_step(crystal, monkeypatch, L
         calls[k] = 0
     trainer.fit(state, loader, max_epochs=1)
     want = {name: 0 for name in fused_tp.LAUNCHES}
-    want.update(sparse_tp=9 * L, sparse_tp_gradw=4 * L, center_gather=6 + 4 * L + zbl,
-                center_sum=3 + 4 * L + zbl)
+    want.update(sparse_tp=9 * L, sparse_tp_gradw=4 * L, center_gather=6 + 4 * L + zbl + 2,
+                center_sum=3 + 4 * L + zbl + 2)
     assert calls == want
 
 
@@ -341,6 +345,92 @@ def test_pallas_path_sums_in_a_fixed_order(crystal):
     with _CollidingSums() as mode:
         torch.autograd.grad(x.index_select(0, torch.tensor([0, 1, 1])).sum(), x)
     assert mode.found == ["index_add"]
+
+
+SPLINE = {"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed", "num_splines": 8,
+          "spline_span": 6}
+# every parameter table read by class: the spline's per-edge-type weights and
+# the per-type scales and shifts (the Bessel embed's type embeddings: below)
+TABLES = dict(radial_chemical_embed=SPLINE, per_type_energy_scales_trainable=True,
+              per_type_energy_shifts_trainable=True)
+
+
+def _force_loss(out):
+    return (out[keys.FORCES] ** 2).sum() + out[keys.TOTAL_ENERGY].sum() ** 2
+
+
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+@pytest.mark.parametrize("tables", [TABLES, {}], ids=["spline_trainable_scales", "bessel"])
+def test_training_step_sums_in_a_fixed_order(crystal, monkeypatch, backend, tables):
+    """The repaired fault: a parameter table read by class (type embeddings,
+    spline weights, trainable per-type scales and shifts) took its gradient
+    through index_select's transpose, an index_add that adds with atomics on
+    the card. With the class CSR statics a whole training step's backward
+    (force loss, create_graph) adds into colliding rows nowhere outside the
+    kernels, each table's read is a center_gather and its gradient a
+    center_sum; the force call, whose tables are frozen, reads them with
+    index_select and runs no more center kernels than before."""
+    avg_n, batch = crystal
+    m = AllegroModel(**_kwargs(avg_n, tp_kernel_backend=backend, **tables)).init(0)
+    lookups = m.class_lookups
+    assert set(lookups) == ({keys.EDGE_CLASS_LOOKUP, keys.ATOM_TYPE_LOOKUP} if tables else
+                            {keys.CENTER_TYPE_LOOKUP, keys.NEIGHBOR_TYPE_LOOKUP})
+    data = to_torch(m.precompute_statics(batch), torch.float64)
+    for lookup in lookups:
+        idx, row_ptr, perm = (data[k] for k in keys.class_csr_keys(lookup))
+        assert idx.dtype == row_ptr.dtype == perm.dtype == torch.int32
+        real = data[keys.NODE_MASK if lookup == keys.ATOM_TYPE_LOOKUP else keys.EDGE_MASK]
+        rows = row_ptr.shape[0] - 1
+        assert (idx[~real] == rows).all() and (idx[real] < rows).all()  # padding: the zero row
+    # the tables' values, read through center_gather (live parameters) or
+    # index_select (frozen), are the same bits
+    live, frozen = m.apply(data), m.apply(data, frozen=True)
+    for k in (keys.PER_ATOM_ENERGY, keys.TOTAL_ENERGY):
+        assert torch.equal(live[k], frozen[k]), k
+    calls = _count_wrapper_calls(monkeypatch)
+    with _CollidingSums() as mode:
+        out = m.apply_with_derivatives(data, create_graph=True)
+        grads = torch.autograd.grad(_force_loss(out), list(m.parameters().values()))
+    assert mode.found == []
+    assert all(torch.isfinite(g).all() for g in grads)
+    step = dict(calls)
+    for k in calls:
+        calls[k] = 0
+    m.apply_with_derivatives(data)
+    assert step["center_gather"] - calls["center_gather"] >= len(lookups)
+    if backend == "pallas":
+        assert calls == _pallas_call_counts(2)
+
+
+@pytest.fixture(scope="module")
+def jax_table_grads(crystal):
+    """JAX einsum's parameters and force-loss gradients of the model with
+    every class table trainable, under the port's names."""
+    avg_n, batch = crystal
+    jm = JaxAllegroModel(**_kwargs(avg_n, **TABLES))
+    jb = to_jax(batch, dtype=np.float64)
+    params = jm.init(0, jb)
+    grads = jax.jit(jax.grad(lambda p: _force_loss(jm.apply_with_derivatives(p, jb))))(params)
+    by_name = lambda tree: params_from_jax(jax.tree_util.tree_map(np.asarray, tree))  # noqa: E731
+    return by_name(params), {k: v.numpy() for k, v in by_name(grads).items()}
+
+
+@pytest.mark.parametrize("backend", ["fused", "pallas"])
+def test_table_gradients_match_jax_einsum(crystal, jax_table_grads, backend):
+    """The first step's force-loss gradients of a model with every class
+    table trainable (spline embed, per-type scales and shifts), through the
+    class CSR statics, against JAX's einsum model at 1e-9 (f64) in every
+    parameter."""
+    avg_n, batch = crystal
+    state, want = jax_table_grads
+    m = AllegroModel(**_kwargs(avg_n, tp_kernel_backend=backend, **TABLES))
+    m.load_state_dict(state)
+    out = _port_outputs(m, batch, create_graph=True)
+    ps = m.parameters()
+    assert sorted(ps) == sorted(want)
+    assert {"per_type_scale_shift.scales", "per_type_scale_shift.shifts"} <= set(ps)
+    for name, g in zip(ps, torch.autograd.grad(_force_loss(out), list(ps.values()))):
+        np.testing.assert_allclose(g.numpy(), want[name], atol=1e-9, rtol=1e-7, err_msg=name)
 
 
 @pytest.mark.parametrize("over", [dict(tp_kernel_backend="fused"),
