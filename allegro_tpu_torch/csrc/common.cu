@@ -141,16 +141,6 @@ __device__ __forceinline__ void backprop_chunk(const OutPieces& D, long long e0,
   }
 }
 
-// W [rows, cols] (row-major, device) → shared [rows_p][ldw], zero-padded in
-// both directions.
-__device__ __forceinline__ void load_padded(const float* __restrict__ w, int rows, int cols,
-                                            int rows_p, int ldw, float* s_w) {
-  for (int t = threadIdx.x; t < rows_p * ldw; t += blockDim.x) {
-    const int r = t / ldw, c = t - r * ldw;
-    s_w[t] = (r < rows && c < cols) ? w[(long long)r * cols + c] : 0.f;
-  }
-}
-
 // The second pass of a reduction over edges without float atomics: out[t] =
 // sum over b of partial[b, t], added in block order, one thread per output.
 __global__ void partials_reduce_kernel(const float* __restrict__ partial, int n_blocks, int n,

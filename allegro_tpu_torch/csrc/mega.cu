@@ -13,8 +13,10 @@
 //                       dp_i[e]       = dlat[e] back through W1, silu' and W0
 //   gather_tp_embed     out[e, kU+u]  = sum_n c_n w[p_n,u] x0[e, i_nU+u] env[c(e), j_nU+u]
 //                       with x0[e, iU+u] = sh[e, js_i] w2b[e, irs_i U+u] built on the fly
-//   bwd_embed           dsh, dw2b and denv of gather_tp_embed; dx0 never reaches memory;
-//                       the CG table walked by path, each path a block of cg_blocks.h
+//   bwd_embed           dsh, dw2b and denv of gather_tp_embed; dx0 never reaches memory
+//
+// The two embed kernels walk the CG table by path, each path a block of
+// cg_blocks.h (CgBlock::fwd and CgBlock::bwd).
 //
 // Layout (the JAX package's contract): per-edge arrays are row-major with the
 // flat dim-major tensor track; edges are sorted by center, row_ptr[a] is the
@@ -24,9 +26,11 @@
 // of row i of layer 0's input, after the irreps ladder's pruning.
 //
 // The MLPs run in exact FP32 FMAs (no TF32, no tensor cores: precision
-// "highest"); latent_env_bwd's four products are register-tiled GEMMs. Every per-atom sum runs in edge order (no atomics), so results
-// are deterministic. Each kernel runs on the caller's stream and allocates
-// nothing; each entry point returns cudaGetLastError().
+// "highest"); latent_env_scatter's two products and latent_env_bwd's four
+// are register-tiled GEMMs on tiles of 64 edges. Every per-atom sum runs in
+// edge order (no atomics), so results are deterministic. Each kernel runs on
+// the caller's stream and allocates nothing; each entry point returns
+// cudaGetLastError().
 
 #include <type_traits>
 
@@ -34,121 +38,6 @@
 #include "cg_blocks.h"
 
 namespace {
-
-constexpr int kMegaWarps = 8;  // warps per block of latent_env_scatter (fewer if shared memory is short)
-
-// ---------------------------------------------------------------------------
-// latent_env_scatter
-// Replaces allegro_tpu/ops/fused_tp.py:_latent_env_scatter_kernel
-// (latent_env_scatter_call). Bound: exact-FP32 FMAs, K*H + H*N per edge
-// (16,384 for the flagship's layer-0 latent: K = 96, H = 64, N = 160), issued
-// against shared-memory weight reads; the device-memory traffic is only the
-// pieces, sh, lat_s and env, because the hidden activation and the env
-// weights lat[:, S:] never leave the SM, as on the TPU. Design: a persistent
-// grid; each block stages W0 and W1 (64 KB at the flagship, above the 48 KB
-// default, so the entry point opts in) into shared memory once and its warps
-// loop over work items: one atom's CSR segment, or a tile of 32 sentinel
-// edges (which get lat_s but no env). Per 32 edges of a segment, lane = edge:
-// the hidden layer goes through hidden_chunk into the warp's h tile (SiLU
-// applied), then each chunk of 32 output columns is formed in registers and
-// transposed through the warp's tile so that lane = column: lat_s columns go
-// out as coalesced rows, env columns are weighted by sh and summed over the
-// segment's edges in edge order into the warp's env row, which is written
-// once per atom.
-// ---------------------------------------------------------------------------
-template <bool kHidden>
-__global__ void __launch_bounds__(kMegaWarps* kWarp) latent_env_scatter_kernel(
-    Pieces P, const float* __restrict__ w0, const float* __restrict__ w1,
-    const float* __restrict__ sh, const int* __restrict__ row_ptr,
-    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int U, int S,
-    int K, int H, int N, float* __restrict__ lat_s, float* __restrict__ env) {
-  extern __shared__ float smem[];
-  const int Np = round_up(N, kWarp);
-  const int Hp = kHidden ? round_up(H, kWarp) : Np;  // row width of W0 in shared memory
-  const int d2U = d2 * U;
-  float* s_w0 = smem;                                          // [K][Hp]
-  float* s_w1 = s_w0 + (size_t)K * Hp;                         // [Hp][Np]
-  int* s_irr = reinterpret_cast<int*>(s_w1 + (kHidden ? (size_t)Hp * Np : 0));
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  const int per_warp = kWarp * kTile + (kHidden ? kWarp * (Hp + 1) : 0) + d2U;
-  float* tile = reinterpret_cast<float*>(s_irr + round_up(d2, 4)) + (size_t)warp * per_warp;
-  float* htile = tile + kWarp * kTile;                         // [32][Hp+1]
-  float* envrow = htile + (kHidden ? kWarp * (Hp + 1) : 0);    // [d2*U]
-  load_padded(w0, K, kHidden ? H : N, K, Hp, s_w0);
-  if (kHidden) load_padded(w1, H, N, Hp, Np, s_w1);
-  for (int q = threadIdx.x; q < d2; q += blockDim.x) s_irr[q] = dim_to_irr[q];
-  __syncthreads();
-
-  const long long tail = row_ptr[n_atoms];
-  const long long n_items = n_atoms + (n_edges - tail + kWarp - 1) / kWarp;
-  float acc[kWarp];
-  for (long long item = (long long)blockIdx.x * wpb + warp; item < n_items;
-       item += (long long)gridDim.x * wpb) {
-    const bool atom = item < n_atoms;
-    long long start, end;
-    if (atom) {
-      start = row_ptr[item];
-      end = row_ptr[item + 1];
-      for (int c = lane; c < d2U; c += kWarp) envrow[c] = 0.f;
-    } else {
-      start = tail + (item - n_atoms) * kWarp;
-      end = min(start + kWarp, n_edges);
-    }
-    __syncwarp();
-    for (long long e0 = start; e0 < end; e0 += kWarp) {
-      const int n = (int)min((long long)kWarp, end - e0);
-      if (kHidden) {
-        for (int h0 = 0; h0 < Hp; h0 += kWarp) {
-          hidden_chunk(P, e0, n, s_w0, Hp, h0, tile, lane, acc);
-#pragma unroll
-          for (int j = 0; j < kWarp; ++j) htile[lane * (Hp + 1) + h0 + j] = silu(acc[j]);
-        }
-      }
-      for (int n0 = 0; n0 < Np; n0 += kWarp) {
-        if (kHidden) {
-#pragma unroll
-          for (int j = 0; j < kWarp; ++j) acc[j] = 0.f;
-          const float* hrow = htile + lane * (Hp + 1);
-          const float* wrow = s_w1 + n0;
-          for (int h = 0; h < Hp; ++h, wrow += Np) {
-            const float x = hrow[h];
-#pragma unroll
-            for (int j = 0; j < kWarp; j += 4) {
-              const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-              acc[j] = fmaf(x, w.x, acc[j]);
-              acc[j + 1] = fmaf(x, w.y, acc[j + 1]);
-              acc[j + 2] = fmaf(x, w.z, acc[j + 2]);
-              acc[j + 3] = fmaf(x, w.w, acc[j + 3]);
-            }
-          }
-        } else {
-          hidden_chunk(P, e0, n, s_w0, Hp, n0, tile, lane, acc);
-        }
-        // lane = edge → lane = column, through the tile
-#pragma unroll
-        for (int j = 0; j < kWarp; ++j) tile[lane * kTile + j] = acc[j];
-        __syncwarp();
-        const int c = n0 + lane;
-        if (c < S) {
-          for (int r = 0; r < n; ++r) lat_s[(e0 + r) * S + c] = tile[r * kTile + lane];
-        } else if (atom && c < N) {
-          const int col = c - S, irr = col / U, u = col - irr * U;
-          for (int j = 0; j < d2; ++j) {
-            if (s_irr[j] != irr) continue;
-            float s = envrow[j * U + u];
-            for (int r = 0; r < n; ++r) s = fmaf(sh[(e0 + r) * d2 + j], tile[r * kTile + lane], s);
-            envrow[j * U + u] = s;
-          }
-        }
-        __syncwarp();
-      }
-    }
-    if (atom)
-      for (int c = lane; c < d2U; c += kWarp) env[item * d2U + c] = envrow[c];
-    __syncwarp();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // latent_env_bwd
@@ -256,6 +145,11 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int kPending>
@@ -276,10 +170,30 @@ __device__ __forceinline__ void leb_load_rows(const float* src, long long stride
     for (int k = lane; k < width; k += kWarp) cp_async4(dst + m * ld + k, src + (e0 + m) * stride + k);
 }
 
-__device__ __forceinline__ void leb_load_pieces(const Pieces& P, long long e0, long long n_edges,
-                                                float* A, int ld) {
-  for (int i = 0; i < P.n; ++i)
-    leb_load_rows(P.ptr[i], P.stride[i], P.dim[i], e0, n_edges, A + P.off[i], ld);
+// Rows [e0, end) (at most kLebRows) of each piece into the tile (row stride
+// ld) by the kLebThreads threads of index tid: 16-byte copies where the
+// piece's rows and columns allow, else 4-byte ones, a warp per row.
+__device__ __forceinline__ void leb_load_pieces(const Pieces& P, long long e0, long long end,
+                                                float* A, int ld, int tid) {
+  const int lane = tid % kWarp, warp = tid / kWarp;
+  const int rows = (int)min((long long)kLebRows, end - e0);
+  for (int i = 0; i < P.n; ++i) {
+    const float* src = P.ptr[i] + e0 * P.stride[i];
+    float* dst = A + P.off[i];
+    const int d = P.dim[i];
+    if ((reinterpret_cast<uintptr_t>(P.ptr[i]) & 15) == 0 && (P.stride[i] & 3) == 0 &&
+        (d & 3) == 0 && (P.off[i] & 3) == 0) {
+      const int d4 = d / 4;
+      for (int q = tid; q < rows * d4; q += kLebThreads) {
+        const int m = q / d4, k = 4 * (q - m * d4);
+        cp_async16(dst + m * ld + k, src + m * P.stride[i] + k);
+      }
+    } else {
+      for (int m = warp; m < rows; m += kLebWarps)
+        for (int k = lane; k < d; k += kWarp)
+          cp_async4(dst + m * ld + k, src + m * P.stride[i] + k);
+    }
+  }
 }
 
 template <int TN>
@@ -325,7 +239,7 @@ __device__ __forceinline__ void load_cols(const float* Lt, int ldl, const float*
   for (int s = 0; s < 4; ++s) {
     a[s] = *reinterpret_cast<const float4*>(Lt + (k + s) * ldl);
     b[s][0] = *reinterpret_cast<const float4*>(R + (k + s) * ldr);
-    if (TN == 8) b[s][1] = *reinterpret_cast<const float4*>(R + (k + s) * ldr + 4);
+    if (TN == 8) b[s][1] = *reinterpret_cast<const float4*>(R + (k + s) * ldr + 32);
   }
 }
 
@@ -345,10 +259,12 @@ __device__ __forceinline__ void fma_cols(const float4 (&a)[4], const float4 (&b)
   }
 }
 
-// acc[i][j] += sum_k Lt[k][i] R[k][j] over Kd: the thread's 4 contiguous
-// columns of Lt (row stride ldl) against its TN contiguous columns of R, 4
-// k's at a time. Lt and R must have round_up(Kd, 4) readable rows (the tail
-// rows are multiplied by nothing).
+// acc[i][j] += sum_k Lt[k][i] R[k][j'] over Kd: the thread's 4 contiguous
+// columns of Lt (row stride ldl) against its TN columns of R, 4 k's at a
+// time; j' = j for j < 4 and j + 28 for the last 4 (TN = 8), so the 8
+// threads of a quarter warp, whose R starts 4 columns apart, read distinct
+// banks. Lt and R must have round_up(Kd, 4) readable rows (the tail rows are
+// multiplied by nothing).
 template <int TN>
 __device__ __forceinline__ void mma_cols(const float* Lt, int ldl, const float* R, int ldr, int Kd,
                                          float (&acc)[4][8]) {
@@ -440,13 +356,13 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
   float acc[4][8];
   int buf = 0;
   if (L.stages == 2 && blockIdx.x < n_tiles)
-    leb_load_pieces(P, (long long)blockIdx.x * kLebRows, n_edges, A0, L.ldK);
+    leb_load_pieces(P, (long long)blockIdx.x * kLebRows, n_edges, A0, L.ldK, tid);
   cp_async_commit();
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long e0 = tile * kLebRows;
     float* A = A0 + (L.stages == 2 ? buf * a_floats : 0);
     if (L.stages == 1) {
-      leb_load_pieces(P, e0, n_edges, A, L.ldK);
+      leb_load_pieces(P, e0, n_edges, A, L.ldK, tid);
       cp_async_commit();
     }
     leb_load_rows(g_lat, S, S, e0, n_edges, G, L.ldS);
@@ -464,7 +380,8 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
     if (L.stages == 2) {
       const long long next = tile + gridDim.x;
       if (next < n_tiles)
-        leb_load_pieces(P, next * kLebRows, n_edges, A0 + (buf ^ 1) * a_floats, L.ldK);
+        leb_load_pieces(P, next * kLebRows, n_edges, A0 + (buf ^ 1) * a_floats, L.ldK,
+                        tid);
       cp_async_commit();
       cp_async_wait<2>();
     } else {
@@ -497,7 +414,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       // lat_env = silu(pre) W1[:, S:]
       leb_chunks(NE, [&](auto tn, int c0) {
         constexpr int TN = decltype(tn)::value;
-        const int c = c0 + tx * TN;
+        const int c = c0 + tx * 4;
         zero_acc(acc);
         mma_cols<TN>(Ht + m0, L.ldM, Wc + c, L.ldE, H, acc);
 #pragma unroll
@@ -505,7 +422,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
           float* row = E + (m0 + i) * L.ldE + c;
           *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
           if (TN == 8)
-            *reinterpret_cast<float4*>(row + 4) =
+            *reinterpret_cast<float4*>(row + 32) =
                 make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
         }
       });
@@ -614,7 +531,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       // dA = dpre W0^T, into the tile's piece rows (read by nothing since pre)
       leb_chunks(K, [&](auto tn, int k0) {
         constexpr int TN = decltype(tn)::value;
-        const int k = k0 + tx * TN;
+        const int k = k0 + tx * 4;
         zero_acc(acc);
         mma_cols<TN>(Ht + m0, L.ldM, Wa + k, L.ldK, H, acc);
 #pragma unroll
@@ -622,7 +539,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
           float* row = A + (m0 + i) * L.ldK + k;
           *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
           if (TN == 8)
-            *reinterpret_cast<float4*>(row + 4) =
+            *reinterpret_cast<float4*>(row + 32) =
                 make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
         }
       });
@@ -656,58 +573,373 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// gather_tp_embed
-// Replaces allegro_tpu/ops/fused_tp.py:_gather_tp_embed_raw_kernel
-// (gather_tp_embed_raw_call). Bound: the write of out [E, d3*U] (and ts); the
-// reads are sh [E, d_sh] and w2b [E, n_irr*U], 3x fewer bytes than the
-// [E, d1*U] layer-0 features, which never exist. Design: gather_tp's (one
-// warp per edge, lane = channel u, k-accumulators in shared memory), with the
-// warp's x0 row built in shared memory from sh and w2b before the entry loop.
+// latent_env_scatter
+// Replaces allegro_tpu/ops/fused_tp.py:_latent_env_scatter_kernel
+// (latent_env_scatter_call). Bound: exact-FP32 FMAs, K*H + H*N per edge with
+// a hidden layer (16,384 for the flagship's layer-0 latent: K = 96, H = 64,
+// N = 160), K*N without; the device-memory traffic is only the pieces, sh,
+// lat_s and env, because the hidden activation and the env weights
+// lat[:, S:] never leave the SM, as on the TPU. Design: latent_env_bwd's
+// register-tiled GEMM chain run forwards, on its helpers, on tiles of
+// kLebRows edges that ignore atom boundaries, so no thread idles at a
+// segment's end:
+//   pre = A W0            (rows of A against rows of W0^T, 4 x 8 micro-tiles)
+//   lat = silu(pre) W1    (columns of silu(pre)^T against rows of W1)
+// or lat = A W0 without a hidden layer. A block stages the weights once,
+// zero-padded, and runs kLesGroups groups of kLebThreads threads (as shared
+// memory allows), each walking its own tiles with its own buffers and named
+// barrier, so that one group's loads and syncs overlap the other's math. A
+// tile's piece rows come in by cp.async (16 bytes a copy where aligned),
+// double-buffered where shared memory allows; with a hidden layer the lat
+// tile takes the place of the piece rows once pre is formed. Each piece row
+// is read once and SiLU applied once per element, when pre leaves the
+// registers. The lat tile stays in shared memory: its first S columns leave
+// as coalesced lat_s rows, and its env columns are weighted by the tile's sh
+// rows (also staged) and summed over each atom's edges in the tile, in edge
+// order, by one thread per (atom, up to 4 SH dims j of one irrep, 4 channels
+// u), 16 independent sums; the irreps' dims come from the per-irrep (start,
+// len) table, cut into chunks of 4: no branch over all d2 dims, no sh read
+// from device memory inside an FMA chain.
+// Across tiles every env row is still summed in one fixed order, in one
+// launch, by aligning to segments at the level of the walker rather than the
+// tile (the first of the two designs that keep one order; the second,
+// partial rows combined by another pass, costs a launch and a scratch
+// array): walker w (a group of a block) owns the atoms whose segments start
+// in its share [w, w+1) * ceil(E / n_walkers) of the edges, found by binary
+// search in row_ptr (no host statics), and walks their edges in consecutive
+// tiles. An atom that runs past a tile's end leaves its partial env row in
+// the walker's shared memory (two buffers, by tile parity) and the next tile
+// starts its sum from there. Only a walker's last tile can be ragged.
+// Sentinel edges (after row_ptr[n_atoms]) are shared out the same way and
+// get lat_s and no env; atoms without edges get a zero env row from their
+// walker. Every sum runs in a fixed order: no atomics.
 // ---------------------------------------------------------------------------
-__global__ void gather_tp_embed_kernel(
-    const float* __restrict__ sh, const float* __restrict__ w2b, const float* __restrict__ env,
-    const float* __restrict__ w, const int* __restrict__ centers, const int* __restrict__ eidx,
-    const float* __restrict__ ecoef, int n_entries, const int* __restrict__ row_specs,
-    long long n_edges, int n_atoms, int d_sh, int n_irr, int d1, int d2, int d3, int U,
-    float* __restrict__ out, float* __restrict__ ts) {
+constexpr int kLesGroups = 2;  // tile walkers per block
+static_assert(kLebRows == 2 * kWarp && kLebThreads >= kLebRows,
+              "latent_env_scatter finds a tile's atoms with the ballots of two warps");
+
+// Shared-memory layout of latent_env_scatter, offsets in floats (multiples
+// of 4): the block's weights and tables, then `groups` copies of a group's
+// buffers (offsets within them).
+struct LesLayout {
+  int ldK, ldN, ldM;   // strides of K- and N-wide rows and of kLebRows-wide rows
+  int w0, w1, irr, jc; // W0^T [round_up(H or N, 32)][ldK]; W1 [round_up(H, 4)][ldN];
+                       // the per-irrep (start, len) table; the SH-dim chunks
+  int group, per_group;
+  int a, lat, ht, sh, run, carry;  // pieces (stages of [kLebRows][ldK]); lat [kLebRows][ldN]
+                       // (over the pieces with a hidden layer); silu(pre)^T; sh; the
+                       // tile's atom runs (starts, atoms, count, flags, ballots); two
+                       // carried env rows
+  int stages, groups, total;
+};
+
+__host__ __device__ inline LesLayout les_layout(bool hidden, int K, int H, int N, int d2, int U,
+                                                int n_irr, int stages, int groups) {
+  LesLayout L;
+  L.ldK = leb_ld(K);
+  L.ldN = leb_ld(N);
+  L.ldM = kLebRows + 4;
+  int o = 0;
+  L.w0 = o;
+  o += round_up(hidden ? H : N, kWarp) * L.ldK;
+  L.w1 = o;
+  o += hidden ? round_up(H, 4) * L.ldN : 0;
+  L.irr = o;
+  o += round_up(2 * n_irr, 4);
+  L.jc = o;
+  o += round_up(3 * d2 + 1, 4);
+  L.group = o;
+  const int a_floats = stages * kLebRows * L.ldK, lat_floats = kLebRows * L.ldN;
+  int g = 0;
+  L.a = g;
+  L.lat = hidden ? g : g + a_floats;
+  g += hidden ? (a_floats > lat_floats ? a_floats : lat_floats) : a_floats + lat_floats;
+  L.ht = g;
+  g += hidden ? round_up(H, 4) * L.ldM : 0;
+  L.sh = g;
+  g += round_up(kLebRows * d2, 4);
+  L.run = g;
+  g += round_up(2 * kLebRows + 8, 4);
+  L.carry = g;
+  g += 2 * round_up(d2 * U, 4);
+  L.per_group = g;
+  L.stages = stages;
+  L.groups = groups;
+  L.total = o + groups * g;
+  return L;
+}
+
+// The first atom whose segment starts at edge e or later (n_atoms if none).
+__device__ __forceinline__ int first_atom_at(const int* __restrict__ row_ptr, int n_atoms,
+                                             long long e) {
+  int lo = 0, hi = n_atoms;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (row_ptr[mid] >= e) hi = mid; else lo = mid + 1;
+  }
+  return lo;
+}
+
+// The barrier of one group of kLebThreads threads (named barrier 1 + group).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(kLebThreads) : "memory");
+}
+
+template <bool kHidden>
+__global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter_kernel(
+    Pieces P, const float* __restrict__ w0, const float* __restrict__ w1,
+    const float* __restrict__ sh, const int* __restrict__ centers,
+    const int* __restrict__ row_ptr, const int* __restrict__ irr_ranges, long long n_edges,
+    int n_atoms, int d2, int n_irr, int U, int S, int K, int H, int N, LesLayout L,
+    float* __restrict__ lat_s, float* __restrict__ env) {
   extern __shared__ float smem[];
-  int* s_idx = reinterpret_cast<int*>(smem);
-  float* s_coef = reinterpret_cast<float*>(s_idx + 4 * n_entries);
-  int* s_spec = reinterpret_cast<int*>(s_coef + n_entries);
-  float* s_acc = reinterpret_cast<float*>(s_spec + 2 * d1);
-  load_entries(eidx, ecoef, n_entries, s_idx, s_coef);
-  for (int q = threadIdx.x; q < 2 * d1; q += blockDim.x) s_spec[q] = row_specs[q];
-  __syncthreads();
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  float* acc = s_acc + warp * (d3 + d1) * kWarp;
-  float* x0 = acc + d3 * kWarp;
-  const long long nU = (long long)n_irr * U;
-  for (long long e = (long long)blockIdx.x * wpb + warp; e < n_edges;
-       e += (long long)gridDim.x * wpb) {
-    const int c = centers[e];
-    const bool valid = c >= 0 && c < n_atoms;
-    const float* ee = env + (valid ? (long long)c * d2 * U : 0);
-    float* oe = out + e * d3 * U;
-    for (int u0 = 0; u0 < U; u0 += kWarp) {
-      const int u = u0 + lane;
-      const bool act = u < U;
-      for (int k = 0; k < d3; ++k) acc[k * kWarp + lane] = 0.f;
-      if (act && valid) {
-        for (int i = 0; i < d1; ++i)
-          x0[i * kWarp + lane] = sh[e * d_sh + s_spec[2 * i]] * w2b[e * nU + s_spec[2 * i + 1] * U + u];
-        for (int n = 0; n < n_entries; ++n) {
-          const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
-                    p = s_idx[4 * n + 3];
-          acc[k * kWarp + lane] += s_coef[n] * w[p * U + u] * x0[i * kWarp + lane] * ee[j * U + u];
-        }
-      }
-      if (act) {
-        for (int k = 0; k < d3; ++k) oe[k * U + u] = acc[k * kWarp + lane];
-        if (ts) ts[e * U + u] = acc[lane];
+  const int T = blockDim.x;
+  float* W0t = smem + L.w0;
+  float* W1 = smem + L.w1;
+  int* s_rng = reinterpret_cast<int*>(smem + L.irr);  // [n_irr][2] (start, len)
+  int* s_jc = reinterpret_cast<int*>(smem + L.jc);    // [n_jc][3] (first dim, dims, irrep); n_jc
+  // the weights, zero-padded, once per block
+  const int Hn = kHidden ? H : N;  // the columns of W0
+  for (int q = threadIdx.x; q < round_up(Hn, kWarp) * L.ldK; q += T) {
+    const int h = q / L.ldK, k = q - h * L.ldK;
+    W0t[q] = (h < Hn && k < K) ? w0[(long long)k * Hn + h] : 0.f;
+  }
+  if (kHidden)
+    for (int q = threadIdx.x; q < round_up(H, 4) * L.ldN; q += T) {
+      const int h = q / L.ldN, n = q - h * L.ldN;
+      W1[q] = (h < H && n < N) ? w1[(long long)h * N + n] : 0.f;
+    }
+  for (int q = L.group + threadIdx.x; q < L.total; q += T) smem[q] = 0.f;  // padding stays zero
+  for (int q = threadIdx.x; q < 2 * n_irr; q += T) s_rng[q] = irr_ranges[q];
+  if (threadIdx.x == 0) {  // each irrep's dims in chunks of up to 4
+    int n = 0;
+    for (int g = 0; g < n_irr; ++g) {
+      const int j0 = irr_ranges[2 * g], j1 = j0 + irr_ranges[2 * g + 1];
+      for (int j = j0; j < j1; j += 4, ++n) {
+        s_jc[3 * n] = j;
+        s_jc[3 * n + 1] = min(4, j1 - j);
+        s_jc[3 * n + 2] = g;
       }
     }
+    s_jc[3 * d2] = n;
   }
+  __syncthreads();
+
+  const int group = threadIdx.x / kLebThreads, gtid = threadIdx.x % kLebThreads;
+  const int ty = gtid / 8, tx = gtid % 8, m0 = ty * 4;
+  const int warp = gtid / kWarp, lane = gtid % kWarp;
+  float* G = smem + L.group + group * L.per_group;
+  float* A0 = G + L.a;
+  float* Lat = G + L.lat;
+  float* Ht = G + L.ht;
+  float* Sh = G + L.sh;
+  int* run_start = reinterpret_cast<int*>(G + L.run);  // [kLebRows + 1]
+  int* run_atom = run_start + kLebRows + 1;             // [kLebRows]
+  int* meta = run_atom + kLebRows;  // run count, carried in, carried out; two ballots
+  const int n_jc = s_jc[3 * d2];
+  const long long d2U = (long long)d2 * U;
+  const int dU = round_up(d2 * U, 4);
+
+  // the walker's atoms [a0, a1) with their edges [r0, r1), and its sentinel
+  // edges [z0, z1)
+  const long long nw = (long long)gridDim.x * L.groups;
+  const long long w = (long long)blockIdx.x * L.groups + group;
+  const long long chunk = (n_edges + nw - 1) / nw;
+  const long long s0 = min(w * chunk, n_edges);
+  const long long s1 = w + 1 == nw ? n_edges : min(s0 + chunk, n_edges);
+  const int a0 = first_atom_at(row_ptr, n_atoms, s0);
+  const int a1 = w + 1 == nw ? n_atoms : first_atom_at(row_ptr, n_atoms, s1);
+  const long long r0 = row_ptr[a0], r1 = row_ptr[a1], tail = row_ptr[n_atoms];
+  const long long z0 = max(tail, s0), z1 = max(tail, s1);
+  const int n_env_tiles = (int)((r1 - r0 + kLebRows - 1) / kLebRows);
+  const int n_tiles = n_env_tiles + (int)((z1 - z0 + kLebRows - 1) / kLebRows);
+  for (int a = a0 + warp; a < a1; a += kLebWarps)  // atoms without edges: zero rows
+    if (row_ptr[a] == row_ptr[a + 1])
+      for (int c = lane; c < d2U; c += kWarp) env[a * d2U + c] = 0.f;
+
+  const int a_floats = kLebRows * L.ldK;
+  const int Kd = round_up(K, 4);
+  // tile k of the walker: its first edge and the end of its range
+  auto tile_at = [&](int k, long long& e0, long long& end) {
+    if (k < n_env_tiles) {
+      e0 = r0 + (long long)k * kLebRows;
+      end = r1;
+    } else {
+      e0 = z0 + (long long)(k - n_env_tiles) * kLebRows;
+      end = z1;
+    }
+  };
+  float acc[4][8];
+  int buf = 0, cur = 0;
+  if (L.stages == 2 && n_tiles > 0) {
+    long long e0, end;
+    tile_at(0, e0, end);
+    leb_load_pieces(P, e0, end, A0, L.ldK, gtid);
+  }
+  cp_async_commit();
+  for (int k = 0; k < n_tiles; ++k) {
+    long long e0, end;
+    tile_at(k, e0, end);
+    const bool has_env = k < n_env_tiles;
+    const int rows = (int)min((long long)kLebRows, end - e0);
+    float* A = A0 + (L.stages == 2 ? buf * a_floats : 0);
+    if (L.stages == 1) {
+      leb_load_pieces(P, e0, end, A, L.ldK, gtid);
+      if (kHidden && Kd > K)  // the lat tile of the tile before wrote over the padding
+        for (int q = gtid; q < kLebRows * (Kd - K); q += kLebThreads)
+          A[(q / (Kd - K)) * L.ldK + K + q % (Kd - K)] = 0.f;
+      cp_async_commit();
+    }
+    // the tile's centers, read now and used after the products: one edge a
+    // thread of the group's first two warps; thread 0 also reads whether the
+    // first atom began before the tile and whether the last runs past it
+    int center = -1, before = -1;
+    bool carried = false, carries = false;
+    if (has_env) {
+      for (int q = gtid; q < rows * d2; q += kLebThreads) cp_async4(Sh + q, sh + e0 * d2 + q);
+      if (gtid < rows) {
+        center = centers[e0 + gtid];
+        before = gtid > 0 ? centers[e0 + gtid - 1] : -1;
+      }
+      if (gtid == 0) {
+        carried = row_ptr[centers[e0]] < e0;
+        carries = row_ptr[centers[e0 + rows - 1] + 1] > e0 + rows;
+      }
+    }
+    cp_async_commit();
+    if (L.stages == 2) {
+      if (k + 1 < n_tiles) {
+        long long n0, nend;
+        tile_at(k + 1, n0, nend);
+        leb_load_pieces(P, n0, nend, A0 + (buf ^ 1) * a_floats, L.ldK, gtid);
+      }
+      cp_async_commit();
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<1>();
+    }
+    group_sync(group);
+
+    if (kHidden) {
+      // pre = A W0, leaving the registers as silu(pre)^T
+      leb_chunks(H, [&](auto tn, int h0) {
+        constexpr int TN = decltype(tn)::value;
+        zero_acc(acc);
+        mma_rows<TN>(A + m0 * L.ldK, L.ldK, W0t + (h0 + tx) * L.ldK, L.ldK, Kd, acc);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int h = h0 + tx + 8 * j;
+          if (h < H)
+            *reinterpret_cast<float4*>(Ht + h * L.ldM + m0) =
+                make_float4(silu(acc[0][j]), silu(acc[1][j]), silu(acc[2][j]), silu(acc[3][j]));
+        }
+      });
+      group_sync(group);
+      // lat = silu(pre) W1, over the piece rows
+      leb_chunks(N, [&](auto tn, int c0) {
+        constexpr int TN = decltype(tn)::value;
+        const int c = c0 + tx * 4;
+        zero_acc(acc);
+        mma_cols<TN>(Ht + m0, L.ldM, W1 + c, L.ldN, H, acc);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* row = Lat + (m0 + i) * L.ldN + c;
+          *reinterpret_cast<float4*>(row) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          if (TN == 8)
+            *reinterpret_cast<float4*>(row + 32) =
+                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        }
+      });
+    } else {
+      // lat = A W0
+      leb_chunks(N, [&](auto tn, int c0) {
+        constexpr int TN = decltype(tn)::value;
+        zero_acc(acc);
+        mma_rows<TN>(A + m0 * L.ldK, L.ldK, W0t + (c0 + tx) * L.ldK, L.ldK, Kd, acc);
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) Lat[(m0 + i) * L.ldN + c0 + tx + 8 * j] = acc[i][j];
+      });
+    }
+    if (L.stages == 2) cp_async_wait<1>(); else cp_async_wait<0>();
+    // the tile's atom runs: a run starts where the center changes
+    const bool starts = center >= 0 && center != before;
+    if (has_env && gtid < kLebRows) {
+      const unsigned b = __ballot_sync(0xffffffffu, starts);
+      if (lane == 0) meta[3 + warp] = (int)b;
+    }
+    group_sync(group);
+
+    // lat_s out, a warp per row, lane = column
+    for (int m = warp; m < rows; m += kLebWarps)
+      for (int c = lane; c < S; c += kWarp) lat_s[(e0 + m) * S + c] = Lat[m * L.ldN + c];
+    if (has_env) {
+      if (gtid < kLebRows) {
+        const unsigned b0 = (unsigned)meta[3], b1 = (unsigned)meta[4];
+        const unsigned below = (1u << lane) - 1u;
+        if (starts) {
+          const int r = warp == 0 ? __popc(b0 & below) : __popc(b0) + __popc(b1 & below);
+          run_start[r] = gtid;
+          run_atom[r] = center;
+        }
+        if (gtid == 0) {
+          const int n_runs = __popc(b0) + __popc(b1);
+          run_start[n_runs] = rows;
+          meta[0] = n_runs;
+          meta[1] = carried;
+          meta[2] = carries;
+        }
+      }
+      group_sync(group);
+      // env[a, jU+u] = carried + sum over the atom's edges in the tile, in
+      // edge order, of sh[e, j] lat[e, S + irr(j)U + u]: a thread per (run,
+      // chunk of up to 4 dims j of one irrep, 4 channels u)
+      const int n_runs = meta[0];
+      const bool in = meta[1], out = meta[2];
+      const float* cin = G + L.carry + cur * dU;
+      float* cout = G + L.carry + (cur ^ 1) * dU;
+      const int n_u4 = (U + 3) / 4, per_run = n_jc * n_u4;
+      for (int q = gtid; q < n_runs * per_run; q += kLebThreads) {
+        const int r = q / per_run, rest = q - r * per_run, c = rest / n_u4;
+        const int u0 = 4 * (rest - c * n_u4);
+        const int j0 = s_jc[3 * c], nj = s_jc[3 * c + 1], g = s_jc[3 * c + 2];
+        const int ms = run_start[r], me = run_start[r + 1];
+        const bool from_carry = r == 0 && in;
+        float s[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            s[a][b] = from_carry && a < nj && u0 + b < U ? cin[(j0 + a) * U + u0 + b] : 0.f;
+        // the lat row's four columns (past U: the row's next columns, never
+        // written out) and up to four sh values of the edge
+        const float* lp = Lat + ms * L.ldN + S + g * U + u0;
+        const float* sp = Sh + ms * d2 + j0;
+        for (int m = ms; m < me; ++m, lp += L.ldN, sp += d2) {
+          float lv[4], sv[4];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) lv[b] = lp[b];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) sv[a] = a < nj ? sp[a] : 0.f;
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) s[a][b] = fmaf(sv[a], lv[b], s[a][b]);
+        }
+        float* dst = r == n_runs - 1 && out ? cout : env + run_atom[r] * d2U;
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (a < nj && u0 + b < U) dst[(j0 + a) * U + u0 + b] = s[a][b];
+      }
+      cur ^= 1;
+    }
+    group_sync(group);
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -931,42 +1163,188 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) bwd_embed_kernel(
   }
 }
 
-// Shared memory of latent_env_scatter: the weights, the irrep table, and
-// ``per_warp`` floats per warp; returns the warp count that fits (0: none).
-int mlp_warps(size_t fixed, size_t per_warp, size_t* smem) {
-  const size_t limit = smem_optin();
-  if (fixed + per_warp > limit) return 0;
-  size_t warps = (limit - fixed) / per_warp;
-  if (warps > (size_t)kMegaWarps) warps = kMegaWarps;
-  *smem = fixed + warps * per_warp;
-  return (int)warps;
+// ---------------------------------------------------------------------------
+// gather_tp_embed
+// Replaces allegro_tpu/ops/fused_tp.py:_gather_tp_embed_raw_kernel
+// (gather_tp_embed_raw_call). Bound: the writes of out [E, d3*U] and ts
+// [E, U]; the reads are sh [E, d_sh] and w2b [E, n_irr*U], 3x fewer bytes
+// than the [E, d1*U] layer-0 features, which never exist. Design: bwd_embed's
+// walk, forwards. The CG table is walked by path, not by entry: each path of
+// l <= 3 is one block of cg_blocks.h (CgBlock::fwd), straight-line FMAs on
+// register arrays; per path a lane loads its x0 slice (times the path weight
+// and the path's scale) and env slice once, runs the block and adds its out
+// slice once into a lane-major buffer (GatherPath). A path with l > 3 walks
+// its entries one by one (the switch's default case). A persistent grid;
+// each block stages the path table, the path weights and row_specs once, and
+// each warp takes whole work items: an atom, whose CSR segment it walks in
+// edge order with lane = channel u, with the atom's env row staged in shared
+// memory once (not read again for each of its ~25 edges), or a tile of 32
+// sentinel edges, whose out and ts rows it zeroes. An edge's sh and w2b rows
+// come into the warp's buffers by cp.async while the warp works on the edge
+// before it; each lane builds its x0 column once per edge, and the out row
+// and ts leave once per edge, coalesced.
+// ---------------------------------------------------------------------------
+
+// One path of gather_tp_embed for one lane: x (the lane's x0 column) and o
+// (its output column) have row stride kWarp, e (the atom's env row at the
+// lane's channel) ldr.
+struct GatherPath {
+  const float* x;
+  const float* e;
+  float* o;
+  int ldr, i0, j0, k0;
+  float ws;  // the path weight of the lane's channel times the path's scale
+
+  template <int L1, int L2, int L3>
+  __device__ __forceinline__ void run() {
+    constexpr int n1 = 2 * L1 + 1, n2 = 2 * L2 + 1, n3 = 2 * L3 + 1;
+    float xs[n1], es[n2], os[n3];
+#pragma unroll
+    for (int a = 0; a < n1; ++a) xs[a] = ws * x[(i0 + a) * kWarp];
+#pragma unroll
+    for (int b = 0; b < n2; ++b) es[b] = e[(j0 + b) * ldr];
+#pragma unroll
+    for (int c = 0; c < n3; ++c) os[c] = 0.f;
+    CgBlock<L1, L2, L3>::fwd(xs, es, os);
+#pragma unroll
+    for (int c = 0; c < n3; ++c) o[(k0 + c) * kWarp] += os[c];
+  }
+};
+
+// Shared memory of gather_tp_embed, in floats: the block's tables
+// (embed_fixed_floats), and one warp's buffers: the atom's env row [d2][Up];
+// two stages of an edge's w2b [n_irr][U] and sh [d_sh] rows; x0 [d1] and the
+// output [d3], lane-major.
+__host__ __device__ inline int gather_embed_edge_floats(int U, int d_sh, int n_irr) {
+  return round_up(n_irr * U + d_sh, 4);
 }
 
-size_t mlp_weights_bytes(int K, int H, int N, int d2, bool hidden) {
-  const int Np = round_up(N, kWarp);
-  const int Hp = hidden ? round_up(H, kWarp) : Np;
-  return ((size_t)K * Hp + (hidden ? (size_t)Hp * Np : 0) + round_up(d2, 4)) * sizeof(float);
+__host__ __device__ inline int gather_embed_warp_floats(int U, int d_sh, int n_irr, int d1, int d2,
+                                                        int d3) {
+  return d2 * round_up(U, kWarp) + 2 * gather_embed_edge_floats(U, d_sh, n_irr) +
+         (d1 + d3) * kWarp;
+}
+
+__global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
+    const float* __restrict__ sh, const float* __restrict__ w2b, const float* __restrict__ env,
+    const float* __restrict__ w, int n_w, const int* __restrict__ row_ptr,
+    const int* __restrict__ desc, const float* __restrict__ dscale, int n_paths,
+    const int* __restrict__ eidx, const float* __restrict__ ecoef,
+    const int* __restrict__ row_specs, long long n_edges, int n_atoms, int d_sh, int n_irr,
+    int d1, int d2, int d3, int U, float* __restrict__ out, float* __restrict__ ts) {
+  extern __shared__ float smem[];
+  const int Up = round_up(U, kWarp);
+  int* s_desc = reinterpret_cast<int*>(smem);                  // [n_paths][kDescCols]
+  int* s_spec = s_desc + n_paths * kDescCols;                  // [d1][2]
+  float* s_scale = reinterpret_cast<float*>(s_spec + 2 * d1);  // [n_paths]
+  float* s_w = s_scale + n_paths;                              // [n_w][U]
+  for (int q = threadIdx.x; q < n_paths * kDescCols; q += blockDim.x) s_desc[q] = desc[q];
+  for (int q = threadIdx.x; q < 2 * d1; q += blockDim.x) s_spec[q] = row_specs[q];
+  for (int q = threadIdx.x; q < n_paths; q += blockDim.x) s_scale[q] = dscale[q];
+  for (int q = threadIdx.x; q < n_w * U; q += blockDim.x) s_w[q] = w[q];
+  __syncthreads();
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int wpb = blockDim.x / kWarp;
+  const int edge_floats = gather_embed_edge_floats(U, d_sh, n_irr);
+  float* s_env = smem + embed_fixed_floats(n_paths, n_w, U, d1) +
+                 (size_t)warp * gather_embed_warp_floats(U, d_sh, n_irr, d1, d2, d3);
+  float* s_edge = s_env + d2 * Up;        // two stages of edge_floats: w2b, then sh
+  float* s_x = s_edge + 2 * edge_floats;  // [d1][kWarp], column lane
+  float* s_o = s_x + d1 * kWarp;          // [d3][kWarp]
+  const long long nU = (long long)n_irr * U, oU = (long long)d3 * U;
+  const long long tail = row_ptr[n_atoms];
+  const long long n_items = n_atoms + (n_edges - tail + kWarp - 1) / kWarp;
+  for (long long item = (long long)blockIdx.x * wpb + warp; item < n_items;
+       item += (long long)gridDim.x * wpb) {
+    if (item >= n_atoms) {  // a tile of sentinel edges: zero rows
+      const long long e0 = tail + (item - n_atoms) * kWarp, e1 = min(e0 + kWarp, n_edges);
+      for (long long q = e0 * oU + lane; q < e1 * oU; q += kWarp) out[q] = 0.f;
+      if (ts)
+        for (long long q = e0 * U + lane; q < e1 * U; q += kWarp) ts[q] = 0.f;
+      continue;
+    }
+    const long long a = item, start = row_ptr[a], end = row_ptr[a + 1];
+    // column j*Up + u of the env row belongs to lane u % 32
+    for (int j = 0; j < d2; ++j)
+      for (int u = lane; u < Up; u += kWarp)
+        s_env[j * Up + u] = u < U ? env[(a * d2 + j) * U + u] : 0.f;
+    auto load_edge = [&](long long e, float* dst) {
+      for (int q = lane; q < nU; q += kWarp) cp_async4(dst + q, w2b + e * nU + q);
+      for (int q = lane; q < d_sh; q += kWarp) cp_async4(dst + nU + q, sh + e * d_sh + q);
+      cp_async_commit();
+    };
+    if (start < end) load_edge(start, s_edge);
+    int stage = 0;
+    for (long long e = start; e < end; ++e) {
+      // the next edge's rows load while this one is worked on
+      if (e + 1 < end) {
+        load_edge(e + 1, s_edge + (stage ^ 1) * edge_floats);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const float* ewb = s_edge + stage * edge_floats;  // w2b [n_irr][U], then sh
+      const float* esh = ewb + nU;
+      for (int u0 = 0; u0 < U; u0 += kWarp) {
+        const int u = u0 + lane;
+        const bool act = u < U;
+        for (int i = 0; i < d1; ++i)
+          s_x[i * kWarp + lane] = act ? esh[s_spec[2 * i]] * ewb[s_spec[2 * i + 1] * U + u] : 0.f;
+        for (int k = 0; k < d3; ++k) s_o[k * kWarp + lane] = 0.f;
+        GatherPath f{s_x + lane, s_env + u, s_o + lane, Up, 0, 0, 0, 0.f};
+        for (int q = 0; q < n_paths; ++q) {
+          const int* dq = s_desc + q * kDescCols;
+          f.i0 = dq[2];
+          f.j0 = dq[3];
+          f.k0 = dq[4];
+          f.ws = act ? s_w[dq[0] * U + u] * s_scale[q] : 0.f;
+          if (!cg_dispatch(dq[1], f)) {  // l > 3: the path's entries one by one
+            for (int n = dq[5]; n < dq[6]; ++n) {
+              const int i = eidx[4 * n], j = eidx[4 * n + 1], k = eidx[4 * n + 2];
+              const float t = ecoef[n] * f.ws * s_x[i * kWarp + lane];
+              s_o[k * kWarp + lane] = fmaf(t, s_env[j * Up + u], s_o[k * kWarp + lane]);
+            }
+          }
+        }
+        if (act) {
+          for (int k = 0; k < d3; ++k) out[e * oU + k * U + u] = s_o[k * kWarp + lane];
+          if (ts) ts[e * U + u] = s_o[lane];
+        }
+      }
+      __syncwarp();
+      stage ^= 1;
+    }
+  }
 }
 
 template <bool kHidden>
 int launch_latent_env_scatter(const Pieces& P, const float* w0, const float* w1, const float* sh,
-                              const int* row_ptr, const int* dim_to_irr, long long n_edges,
-                              int n_atoms, int d2, int U, int S, int K, int H, int N, float* lat_s,
-                              float* env, cudaStream_t stream) {
-  const int Hp = kHidden ? round_up(H, kWarp) : round_up(N, kWarp);
-  const size_t per_warp =
-      (kWarp * kTile + (kHidden ? kWarp * (Hp + 1) : 0) + (size_t)d2 * U) * sizeof(float);
+                              const int* centers, const int* row_ptr, const int* irr_ranges,
+                              long long n_edges, int n_atoms, int d2, int U, int S, int K, int H,
+                              int N, float* lat_s, float* env, cudaStream_t stream) {
+  const int n_irr = (N - S) / U;
+  // kLesGroups walkers with double-buffered piece rows where shared memory
+  // allows (a single buffer with a hidden layer: the lat tile takes it
+  // over), then fewer
+  LesLayout L;
   size_t smem = 0;
-  const int warps = mlp_warps(mlp_weights_bytes(K, H, N, d2, kHidden), per_warp, &smem);
-  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = set_smem(latent_env_scatter_kernel<kHidden>, smem);
+  bool fits = false;
+  for (int groups = kLesGroups; groups >= 1 && !fits; --groups)
+    for (int stages = kHidden ? 1 : 2; stages >= 1 && !fits; --stages) {
+      L = les_layout(kHidden, K, H, N, d2, U, n_irr, stages, groups);
+      smem = (size_t)L.total * sizeof(float);
+      fits = smem <= smem_optin();
+    }
+  if (!fits) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = prepare_smem(latent_env_scatter_kernel<kHidden>, smem);
   if (err != cudaSuccess) return (int)err;
-  // work items: the atoms' segments and the 32-edge tiles of the sentinel tail
-  const long long items = n_atoms + (n_edges + kWarp - 1) / kWarp;
-  const int blocks = persistent_blocks(latent_env_scatter_kernel<kHidden>, warps * kWarp, smem,
-                                       items, warps);
-  latent_env_scatter_kernel<kHidden><<<blocks, warps * kWarp, smem, stream>>>(
-      P, w0, w1, sh, row_ptr, dim_to_irr, n_edges, n_atoms, d2, U, S, K, H, N, lat_s, env);
+  const int threads = L.groups * kLebThreads;
+  const int blocks = persistent_blocks(latent_env_scatter_kernel<kHidden>, threads, smem,
+                                       (n_edges + kLebRows - 1) / kLebRows, L.groups);
+  latent_env_scatter_kernel<kHidden><<<blocks, threads, smem, stream>>>(
+      P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges, n_atoms, d2, n_irr, U, S, K, H, N, L,
+      lat_s, env);
   return (int)cudaGetLastError();
 }
 
@@ -1005,19 +1383,21 @@ extern "C" {
 
 int atpt_latent_env_scatter(const float* const* piece_ptrs, const long long* piece_strides,
                             const int* piece_dims, int n_pieces, const float* w0, const float* w1,
-                            const float* sh, const int* row_ptr, const int* dim_to_irr,
-                            long long n_edges, int n_atoms, int d2, int U, int S, int H, int N,
-                            float* lat_s, float* env, void* stream) {
+                            const float* sh, const int* centers, const int* row_ptr,
+                            const int* irr_ranges, long long n_edges, int n_atoms, int d2, int U,
+                            int S, int H, int N, float* lat_s, float* env, void* stream) {
   Pieces P;
   const int K = fill_pieces(piece_ptrs, piece_strides, piece_dims, n_pieces, P.ptr, P.stride,
                             P.dim, P.off);
   if (K < 0) return (int)cudaErrorInvalidValue;
   P.n = n_pieces;
   if (w1)
-    return launch_latent_env_scatter<true>(P, w0, w1, sh, row_ptr, dim_to_irr, n_edges, n_atoms,
-                                           d2, U, S, K, H, N, lat_s, env, (cudaStream_t)stream);
-  return launch_latent_env_scatter<false>(P, w0, w1, sh, row_ptr, dim_to_irr, n_edges, n_atoms,
-                                          d2, U, S, K, H, N, lat_s, env, (cudaStream_t)stream);
+    return launch_latent_env_scatter<true>(P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges,
+                                           n_atoms, d2, U, S, K, H, N, lat_s, env,
+                                           (cudaStream_t)stream);
+  return launch_latent_env_scatter<false>(P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges,
+                                          n_atoms, d2, U, S, K, H, N, lat_s, env,
+                                          (cudaStream_t)stream);
 }
 
 int atpt_latent_env_bwd(const float* const* piece_ptrs, const long long* piece_strides,
@@ -1046,18 +1426,23 @@ int atpt_latent_env_bwd(const float* const* piece_ptrs, const long long* piece_s
 }
 
 int atpt_gather_tp_embed(const float* sh, const float* w2b, const float* env, const float* w,
-                         const int* centers, const int* eidx, const float* ecoef, int n_entries,
-                         const int* row_specs, long long n_edges, int n_atoms, int d_sh,
-                         int n_irr, int d1, int d2, int d3, int U, float* out, float* ts,
-                         void* stream) {
-  const size_t smem = (size_t)(5 * n_entries + 2 * d1) * 4 +
-                      (size_t)kEdgeWarps * (d3 + d1) * kWarp * sizeof(float);
+                         int n_w, const int* row_ptr, const int* desc, const float* dscale,
+                         int n_paths, const int* eidx, const float* ecoef, const int* row_specs,
+                         long long n_edges, int n_atoms, int d_sh, int n_irr, int d1, int d2,
+                         int d3, int U, float* out, float* ts, void* stream) {
+  const size_t fixed = (size_t)embed_fixed_floats(n_paths, n_w, U, d1) * sizeof(float);
+  const size_t per_warp =
+      (size_t)gather_embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
+  size_t smem = 0;
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = prepare_smem(gather_tp_embed_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  gather_tp_embed_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, smem,
-                           (cudaStream_t)stream>>>(sh, w2b, env, w, centers, eidx, ecoef,
-                                                   n_entries, row_specs, n_edges, n_atoms, d_sh,
-                                                   n_irr, d1, d2, d3, U, out, ts);
+  const long long items = n_atoms + (n_edges + kWarp - 1) / kWarp;
+  const int blocks = persistent_blocks(gather_tp_embed_kernel, warps * kWarp, smem, items, warps);
+  gather_tp_embed_kernel<<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
+      sh, w2b, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs, n_edges,
+      n_atoms, d_sh, n_irr, d1, d2, d3, U, out, ts);
   return (int)cudaGetLastError();
 }
 

@@ -317,7 +317,8 @@ def readout_sum_infer(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Ten
 class _MegaLatentEnv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S, *pieces):
-        lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S)
+        lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, centers, row_ptr,
+                                                 dim_to_irr, U, S, irr_ranges)
         ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces)
         ctx.U, ctx.S = U, S
         return lat_s, env
@@ -341,7 +342,7 @@ def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.T
     scalar columns ``lat_s`` [E, S] and the environment ``env``
     [n_atoms, d2*U] that its env-weight columns weight sh [E, d2] into,
     summed over each atom's edges: ``(lat_s, env)``. ``irr_ranges``: the
-    basis's per-irrep (start, len) table for the backward
+    basis's per-irrep (start, len) table, which both kernels read
     (``Contracter.irr_ranges``; built from ``dim_to_irr`` where not given)."""
     return _MegaLatentEnv.apply(w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S,
                                 *pieces)
@@ -376,8 +377,8 @@ class _GatherTpEmbedInfer(torch.autograd.Function):
                 split, paths):
         ctx.save_for_backward(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs)
         ctx.paths = paths
-        return fused_tp.gather_tp_embed(sh, w2b, env, w, centers, entry_idx, entry_coef,
-                                        row_specs, d3, split)
+        return fused_tp.gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
+                                        row_specs, d3, split, paths)
 
     @staticmethod
     @once_differentiable
@@ -397,7 +398,7 @@ def gather_tp_embed_infer(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_co
     [E, d_sh] and w2b [E, n_irr*U] (its channel weights), the features
     ``x0[e, iU+u] = sh[e, js_i] w2b[e, irs_i U+u]`` built in the kernel from
     ``row_specs`` [d1, 2] = (js_i, irs_i). ``paths``: the entry table's path
-    descriptors for the backward (``Contracter.cg_paths``; built from the
-    entries where not given)."""
+    descriptors, which both kernels walk (``Contracter.cg_paths``; built from
+    the entries where not given)."""
     return _GatherTpEmbedInfer.apply(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
                                      row_specs, d3, split, paths)

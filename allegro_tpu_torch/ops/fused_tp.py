@@ -399,6 +399,23 @@ def _launch(name: str, fn: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _device_irr_ranges(what, irr_ranges, dim_to_irr, n_irr, device):
+    """The per-irrep (start, len) table the mega kernels read: ``irr_ranges``
+    as given, or built from ``dim_to_irr`` on the host; raises unless it has
+    ``n_irr`` rows."""
+    if irr_ranges is None:
+        irr_ranges = irrep_ranges(dim_to_irr).to(device)
+    if irr_ranges.shape != (n_irr, 2):
+        raise ValueError(f"{what}: irr_ranges {tuple(irr_ranges.shape)} for {n_irr} irreps")
+    return irr_ranges
+
+
+def _device_paths(paths, entry_idx, entry_coef, device):
+    """The entry table by path that the embed kernels walk: ``paths`` as
+    given, or built from the entries on the host."""
+    return path_table(entry_idx, entry_coef).to(device) if paths is None else paths
+
+
 def _check_entries(entry_idx, entry_coef):
     if entry_idx.ndim != 2 or entry_idx.shape[1] != 4 or entry_coef.shape != entry_idx.shape[:1]:
         raise ValueError(
@@ -728,32 +745,41 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
     return dpieces
 
 
-def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], row_ptr,
-                       dim_to_irr, U: int, S: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor],
+                       centers, row_ptr, dim_to_irr, U: int, S: int,
+                       irr_ranges: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A layer's latent MLP fused with the next layer's environment sum:
     ``lat = silu(Σ_i p_i @ W0_i) @ W1`` (or ``Σ_i p_i @ W0_i`` without a
     hidden layer, ``w1=None``) per edge; returns its scalar columns
     ``lat_s = lat[:, :S]`` [E, S] and ``env [n_atoms, d2*U]``, ``env[a, jU+u]
     = Σ_{c(e)=a} sh[e,j] lat[e, S+irr(j)U+u]``. pieces [E, S_i] (column
-    slices are fine), sh [E, d2], w0 [ΣS_i, H], w1 [H, S+n_irr*U], row_ptr
-    [n_atoms+1] (the center CSR; sentinel edges get lat_s and add no env),
-    dim_to_irr [d2]. The scatter factor is expected folded into the env
-    columns of the last weight.
+    slices are fine), sh [E, d2], w0 [ΣS_i, H], w1 [H, S+n_irr*U], centers
+    [E] and row_ptr [n_atoms+1] (the center CSR; sentinel edges get lat_s and
+    add no env), dim_to_irr [d2]. The scatter factor is expected folded into
+    the env columns of the last weight. ``irr_ranges`` is
+    :func:`irrep_ranges` of ``dim_to_irr`` on the device (built on the host
+    where not given).
 
-    Replaces ``_latent_env_scatter_kernel``. Bound by exact-FP32 FMAs; the
-    hidden activation and the env weights never reach device memory."""
+    Replaces ``_latent_env_scatter_kernel``. Bound by exact-FP32 FMAs; tiles
+    of 64 edges through two register-tiled products, weights in shared
+    memory, the hidden activation and the env weights never in device
+    memory."""
     pieces = tuple(pieces)
     E, d2 = sh.shape
     n_atoms = row_ptr.shape[0] - 1
     N = _check_mlp("latent_env_scatter", pieces, w0, w1, E)
-    if N <= S or (N - S) % U or dim_to_irr.shape != (d2,):
+    if N <= S or (N - S) % U or dim_to_irr.shape != (d2,) or centers.shape != (E,):
         raise ValueError(f"latent_env_scatter shapes: MLP output {N}, S={S}, U={U}, "
-                         f"sh {tuple(sh.shape)}, dim_to_irr {tuple(dim_to_irr.shape)}")
+                         f"sh {tuple(sh.shape)}, dim_to_irr {tuple(dim_to_irr.shape)}, "
+                         f"centers {tuple(centers.shape)}")
     rest = () if w1 is None else (w1,)
-    if _on_cpu(*pieces, sh, w0, *rest, row_ptr, dim_to_irr):
+    if _on_cpu(*pieces, sh, w0, *rest, centers, row_ptr, dim_to_irr):
         return latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S)
+    irr_ranges = _device_irr_ranges("latent_env_scatter", irr_ranges, dim_to_irr, (N - S) // U,
+                                    sh.device)
     _check_kernel_args({"sh": sh, "w0": w0, **{"w1": w for w in rest}},
-                       {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr})
+                       {"centers": centers, "row_ptr": row_ptr, "irr_ranges": irr_ranges})
     _check_pieces_dtype(pieces)
     lat_s = torch.empty((E, S), dtype=sh.dtype, device=sh.device)
     env = torch.empty((n_atoms, d2 * U), dtype=sh.dtype, device=sh.device)
@@ -763,7 +789,7 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
     dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
     _launch("latent_env_scatter", "atpt_latent_env_scatter", sh.device,
             ptrs, strides, dims, len(pieces), w0.data_ptr(), _ptr(w1), sh.data_ptr(),
-            row_ptr.data_ptr(), dim_to_irr.data_ptr(), E, n_atoms, d2, U, S,
+            centers.data_ptr(), row_ptr.data_ptr(), irr_ranges.data_ptr(), E, n_atoms, d2, U, S,
             0 if w1 is None else w0.shape[1], N, lat_s.data_ptr(), env.data_ptr())
     return lat_s, env
 
@@ -791,11 +817,8 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
     rest = () if w1 is None else (w1,)
     if _on_cpu(*pieces, sh, w0, *rest, t, g_lat, centers, dim_to_irr):
         return latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S)
-    if irr_ranges is None:
-        irr_ranges = irrep_ranges(dim_to_irr).to(sh.device)
-    if irr_ranges.shape != ((N - S) // U, 2):
-        raise ValueError(f"latent_env_bwd: irr_ranges {tuple(irr_ranges.shape)} for "
-                         f"{(N - S) // U} irreps")
+    irr_ranges = _device_irr_ranges("latent_env_bwd", irr_ranges, dim_to_irr, (N - S) // U,
+                                    sh.device)
     _check_kernel_args({"sh": sh, "w0": w0, "t": t, "g_lat": g_lat, **{"w1": w for w in rest}},
                        {"centers": centers, "dim_to_irr": dim_to_irr, "irr_ranges": irr_ranges})
     _check_pieces_dtype(pieces)
@@ -828,30 +851,42 @@ def _check_embed(what, sh, w2b, env, w, centers, entry_idx, entry_coef, row_spec
     return w2b.shape[1] // U
 
 
-def gather_tp_embed(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs, d3: int,
-                    split: bool = False):
+def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
+                    d3: int, split: bool = False, paths=None):
     """``gather_tp`` on layer 0's features ``x0[e, iU+u] = sh[e, js_i]
     w2b[e, irs_i U+u]``, built on the fly: out [E, d3*U] (and ts [E, U]
     with ``split``). sh [E, d_sh], w2b [E, n_irr*U] (the tensor embed's
-    channel weights), row_specs [d1, 2] int32 = (js_i, irs_i).
+    channel weights), row_ptr [n_atoms+1] (the center CSR; sentinel edges
+    get zero rows), row_specs [d1, 2] int32 = (js_i, irs_i). ``paths``
+    (``gen_cg_blocks.CgPaths`` on the device) is the entry table by path,
+    which the kernel walks; where it is not given it is built from the
+    entries on the host.
 
-    Replaces ``_gather_tp_embed_raw_kernel``. Bound by the write of out;
-    one warp per edge, lane = channel, x0 rows built in shared memory."""
+    Replaces ``_gather_tp_embed_raw_kernel``. Bound by the write of out; a
+    warp per atom segment walks the CG paths, each a block compiled into
+    ``csrc/cg_blocks.h``, with the atom's env row staged once."""
     E, U = sh.shape[0], w.shape[1]
+    n_atoms = row_ptr.shape[0] - 1
     n_irr = _check_embed("gather_tp_embed", sh, w2b, env, w, centers, entry_idx, entry_coef,
                          row_specs)
-    if _on_cpu(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs):
+    if env.shape[0] != n_atoms:
+        raise ValueError(f"gather_tp_embed shapes: env {tuple(env.shape)} for {n_atoms} atoms")
+    if _on_cpu(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs):
         return gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef,
                                          row_specs, d3, split)
-    _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w, "entry_coef": entry_coef},
-                       {"centers": centers, "entry_idx": entry_idx, "row_specs": row_specs})
+    paths = _device_paths(paths, entry_idx, entry_coef, sh.device)
+    _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w, "scale": paths.scale,
+                        "path_coef": paths.entry_coef},
+                       {"row_ptr": row_ptr, "desc": paths.desc, "path_idx": paths.entry_idx,
+                        "row_specs": row_specs})
     out = torch.empty((E, d3 * U), dtype=sh.dtype, device=sh.device)
     ts = torch.empty((E, U), dtype=sh.dtype, device=sh.device) if split else None
     if E > 0:
         _launch("gather_tp_embed", "atpt_gather_tp_embed", sh.device,
-                sh.data_ptr(), w2b.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
-                entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
-                row_specs.data_ptr(), E, env.shape[0], sh.shape[1], n_irr, row_specs.shape[0],
+                sh.data_ptr(), w2b.data_ptr(), env.data_ptr(), w.data_ptr(), w.shape[0],
+                row_ptr.data_ptr(), paths.desc.data_ptr(), paths.scale.data_ptr(),
+                paths.desc.shape[0], paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(),
+                row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
                 env.shape[1] // U, d3, U, out.data_ptr(), _ptr(ts))
     return (out, ts) if split else out
 
@@ -881,8 +916,7 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
     if _on_cpu(sh, w2b, g, *opt, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs):
         return bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef,
                                    row_specs, gts)
-    if paths is None:
-        paths = path_table(entry_idx, entry_coef).to(sh.device)
+    paths = _device_paths(paths, entry_idx, entry_coef, sh.device)
     _check_kernel_args({"sh": sh, "w2b": w2b, "g": g, "env": env, "w": w,
                         "scale": paths.scale, "path_coef": paths.entry_coef,
                         **{"gts": t for t in opt}},

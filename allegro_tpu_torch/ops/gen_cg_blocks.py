@@ -4,8 +4,9 @@ Each path of a tensor-product layer couples one irrep slice of each input
 with one of the output, and its CG entries are a fixed block, ``wigner_3j(l1,
 l2, l3) * sqrt(2 l3 + 1)`` (``nn/contract.py:pack_w3j``), a function of the
 triple alone. ``csrc/cg_blocks.h`` holds the block of every triple with l1,
-l2, l3 <= 3 as literals in straight-line code, so a kernel walks paths, not
-CG entries. This module
+l2, l3 <= 3 as literals in straight-line code, in both faces (the path,
+``fwd``, and its transpose, ``bwd``), so a kernel walks paths, not CG
+entries. This module
 
 - computes the blocks from the port's ``lib/wigner.py`` (:func:`cg_block`),
 - writes the header (:func:`render_header`; run ``python -m
@@ -52,14 +53,16 @@ def render_header() -> str:
     out = [
         "// Generated by allegro_tpu_torch/ops/gen_cg_blocks.py from lib/wigner.py: do not edit.",
         "//",
-        "// CgBlock<l1, l2, l3>::bwd is the transpose of one tensor-product path in",
-        "// its two inputs, for one channel: with x, e and g the path's slices of the",
-        "// first input, the second input and the output cotangent (g already times",
-        "// the path weight), it adds dx[a] += sum_bc C[a,b,c] e[b] g[c] and",
-        "// de[b] += sum_ac C[a,b,c] x[a] g[c], where C = wigner_3j(l1, l2, l3) *",
-        "// sqrt(2 l3 + 1): its nonzero coefficients are literals, in straight-line",
-        "// FMAs. cg_dispatch(tid, f) calls f.template run<l1, l2, l3>() for the",
-        "// triple of id tid (gen_cg_blocks.TRIPLES) and returns false for any other.",
+        "// CgBlock<l1, l2, l3> is one tensor-product path for one channel, with",
+        "// C = wigner_3j(l1, l2, l3) * sqrt(2 l3 + 1): its nonzero coefficients are",
+        "// literals, in straight-line FMAs. fwd is the path itself: with x and e the",
+        "// path's slices of the two inputs (one of them already times the path",
+        "// weight), it adds out[c] += sum_ab C[a,b,c] x[a] e[b]. bwd is its transpose",
+        "// in the two inputs: with g the output cotangent's slice (already times the",
+        "// path weight), it adds dx[a] += sum_bc C[a,b,c] e[b] g[c] and",
+        "// de[b] += sum_ac C[a,b,c] x[a] g[c]. cg_dispatch(tid, f) calls",
+        "// f.template run<l1, l2, l3>() for the triple of id tid",
+        "// (gen_cg_blocks.TRIPLES) and returns false for any other.",
         "",
         "#pragma once",
         "",
@@ -79,6 +82,15 @@ def render_header() -> str:
             f"// triple {tid}: ({l1}, {l2}, {l3}), {int(np.count_nonzero(block))} coefficients",
             "template <>",
             f"struct CgBlock<{l1}, {l2}, {l3}> {{",
+            f"  static __device__ __forceinline__ void fwd(const float (&x)[{d1}], "
+            f"const float (&e)[{d2}], float (&out)[{d3}]) {{",
+        ]
+        for a, b, c in np.argwhere(block != 0.0):
+            coef = repr(float(block[a, b, c]))
+            out.append(f"    {{ const float t = static_cast<float>({coef}) * x[{a}]; "
+                       f"out[{c}] = fmaf(t, e[{b}], out[{c}]); }}")
+        out += [
+            "  }",
             f"  static __device__ __forceinline__ void bwd(const float (&x)[{d1}], "
             f"const float (&e)[{d2}], const float (&g)[{d3}],",
             f"                                             float (&dx)[{d1}], float (&de)[{d2}]) {{",

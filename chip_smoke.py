@@ -18,9 +18,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    W0 [96, 64], W1 [64, 160]), ``gather_tp_embed`` with its split output and
    ``bwd_embed`` with ``gts``, and ``gather_tp`` with the split output and
    ``bwd_fused`` with ``gts`` at layer-0 dims; then, checks only, all of
-   these at U = 16 and 48 (the lane loops for other widths), and
-   ``bwd_embed`` on an l = 4 layer at U = 32, whose paths beyond the
-   compiled CG header take the kernel's per-entry default case; the center
+   these at U = 16 and 48 (the lane loops for other widths),
+   ``gather_tp_embed`` (with and without its split output) and ``bwd_embed``
+   on an l = 4 layer at U = 32, whose paths beyond the compiled CG header
+   take the kernels' per-entry default case, and the mega kernels on the
+   same crystal at r_max 7.0 (~134 edges per atom: a segment spans three of
+   ``latent_env_scatter``'s 64-edge tiles); the center
    gather and sum on positions [4096, 3] at the center and the neighbor side
    (and, checks only, on the [·, 1] energy column of the plain readout
    chain); the fused readout and its backward on three 64-wide pieces (W0
@@ -144,6 +147,7 @@ import torch
 
 N_ATOMS = 4096
 R_MAX = 4.0
+LONG_R_MAX = 7.0  # phase 2's long segments: ~134 edges per atom
 SEED = 0
 N_CALLS = 5
 KERNEL_TOL = 1e-5
@@ -565,10 +569,11 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
         mlp = a.shape[0] * a.shape[1] + (0 if b is None else b.shape[0] * b.shape[1])
         env_flops = 2 * Er * tp.d2 * U
         check_case("latent_env_scatter",
-                   lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, row_ptr, d2i, U, S),
+                   lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, centers, row_ptr, d2i, U,
+                                                       S, tp.irr_ranges),
                    lambda: fused_tp.latent_env_scatter_reference(pieces, sh, a, b, row_ptr, d2i,
                                                                  U, S), what, records,
-                   (*pieces, sh, a, b, row_ptr, d2i), 2 * E * mlp + env_flops,
+                   (*pieces, sh, a, b, centers, row_ptr, tp.irr_ranges), 2 * E * mlp + env_flops,
                    plain_timing=plain_timing)
         check_case("latent_env_bwd",
                    lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers,
@@ -583,14 +588,14 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
     x, g, gts = rand(E, d1 * U), rand(E, d3 * U), rand(E, U)
     what = f"{label} dims ({d1},{d2},{d3}) entries {idx.shape[0]}"
     tp_flops = 3 * Er * idx.shape[0] * U
+    paths = tp.cg_paths()
     check_case("gather_tp_embed",
-               lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, idx, coef, specs, d3,
-                                                True),
+               lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, row_ptr, idx, coef,
+                                                specs, d3, True, paths),
                lambda: fused_tp.gather_tp_embed_reference(sh, w2b, env, wk, centers, idx, coef,
                                                           specs, d3, True), what, records,
-               (sh, w2b, env, wk, centers, idx, coef, specs), tp_flops + Er * d1 * U,
+               (sh, w2b, env, wk, row_ptr, *paths, specs), tp_flops + Er * d1 * U,
                plain_timing=plain_timing)
-    paths = tp.cg_paths()
     check_case("bwd_embed",
                lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
                                           specs, gts, paths),
@@ -611,9 +616,10 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
 
 
 def check_embed_beyond_the_header(data, rng):
-    """Phase 2: ``bwd_embed`` on a layer whose paths the compiled CG header
-    does not hold (l = 4: the kernel's per-entry default case), U = 32, on
-    the crystal's edges, against its plain version (with and without gts)."""
+    """Phase 2: ``gather_tp_embed`` and ``bwd_embed`` on a layer whose paths
+    the compiled CG header does not hold (l = 4: the kernels' per-entry
+    default case), U = 32, on the crystal's edges, against their plain
+    versions (with and without the split output / gts)."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.nn.contract import Contracter
     from allegro_tpu_torch.ops import fused_tp
@@ -640,6 +646,14 @@ def check_embed_beyond_the_header(data, rng):
     g, gts = rand(E, tp.d3 * U), rand(E, U)
     label = (f"U {U} l_max 4 dims ({tp.d1},{tp.d2},{tp.d3}) entries {idx.shape[0]}, "
              f"{beyond} of {paths.desc.shape[0]} paths beyond the header")
+    for split in (False, True):
+        check_case("gather_tp_embed",
+                   lambda: _flat_out(fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, row_ptr,
+                                                              idx, coef, specs, tp.d3, split,
+                                                              paths)),
+                   lambda: _flat_out(fused_tp.gather_tp_embed_reference(
+                       sh, w2b, env, wk, centers, idx, coef, specs, tp.d3, split)),
+                   label + (" split" if split else ""))
     for opt in (None, gts):
         check_case("bwd_embed",
                    lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef,
@@ -652,6 +666,26 @@ def check_embed_beyond_the_header(data, rng):
 def _flat(res):
     """(dsh, (dp_0, dp_1, ...)) → (dsh, dp_0, dp_1, ...)."""
     return (res[0], *res[1])
+
+
+def _flat_out(res):
+    """A kernel's output, or its outputs, as a tuple."""
+    return res if isinstance(res, tuple) else (res,)
+
+
+def check_long_segments(model, rng, dev):
+    """Phase 2: the mega kernels (checks only) on the crystal at r_max
+    LONG_R_MAX, where an atom has ~134 edges: its segment spans three of
+    ``latent_env_scatter``'s 64-edge tiles."""
+    from allegro_tpu_torch.data import batch_frames, keys, to_torch
+
+    frame, n_atoms = crystal_frame(N_ATOMS, LONG_R_MAX, SEED)
+    data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
+                    dtype=torch.float32, device=dev)
+    degree = torch.diff(data[keys.CENTER_ROW_PTR][: n_atoms + 1])
+    print(f"  r_max {LONG_R_MAX}: {int(data[keys.EDGE_MASK].sum())} edges, "
+          f"{degree.float().mean().item():.1f} per atom (at most {int(degree.max())})")
+    check_mega_kernels(model.module.allegro, data, rng)
 
 
 def check_center_readout(data, rng, records):
@@ -1539,6 +1573,7 @@ def main() -> int:
         check_kernels(other.module.allegro.tps, data, rng)
         check_mega_kernels(other.module.allegro, data, rng)
     check_embed_beyond_the_header(data, rng)
+    check_long_segments(mega, rng, dev)
 
     check_center_readout(data, rng, records)
 

@@ -22,11 +22,12 @@ Each run times, with that tree's package:
   on ``fused_infer``'s default mega path, for the flagship and its l_max-3
   twin (``chip_smoke.LMAX3``); ``mega*_busy_ms`` and ``mega*_idle_pct``
   their device time per call and idle share under torch.profiler (3 calls);
-- ``latent_env_bwd_ms`` (both launches of one mega force call: the first
-  projection and layer 0's latent) and ``bwd_embed_ms``, flagship and
-  l_max 3: device times from CUDA events (``chip_smoke.median_ms``) of the
-  tree's wrappers on the force call's shapes and the model's weights, with
-  the tables the tree's layers cache where it has them.
+- ``latent_env_scatter_ms`` and ``latent_env_bwd_ms`` (both launches of one
+  mega force call: the first projection and layer 0's latent),
+  ``gather_tp_embed_ms`` and ``bwd_embed_ms``, flagship and l_max 3
+  (``*_lmax3_ms``): device times from CUDA events (``chip_smoke.median_ms``)
+  of the tree's wrappers on the force call's shapes and the model's
+  weights, with the tables the tree's layers cache where it has them.
 
 The crystal, the batch and the flagship's settings come from this checkout's
 ``chip_smoke.py``, so both trees see the same inputs. Prints one JSON line
@@ -60,9 +61,14 @@ def _smoke():
     return mod
 
 
-def kernel_times(smoke, allegro, data) -> tuple:
-    """Device ms of latent_env_bwd (its two launches in a force call) and of
-    bwd_embed (with gts) at the model's shapes, from CUDA events."""
+def kernel_times(smoke, allegro, data) -> dict:
+    """Device ms, from CUDA events, of the mega kernels at the model's shapes:
+    latent_env_scatter and latent_env_bwd (the two launches of one force
+    call each: the first projection and layer 0's latent), gather_tp_embed
+    (split) and bwd_embed (with gts), each through the tree's wrapper with
+    the tables the tree's layers cache where it has them."""
+    import inspect
+
     import numpy as np
     import torch
 
@@ -75,9 +81,13 @@ def kernel_times(smoke, allegro, data) -> tuple:
     row_ptr = data[keys.CENTER_ROW_PTR]
     n_atoms, E = row_ptr.shape[0] - 1, centers.shape[0]
     S, U, tp = allegro.S, allegro.U, allegro.tps[0]
+    d2i = tp.dim_to_irr
 
     def rand(*shape):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    def takes(fn, name):
+        return name in inspect.signature(fn).parameters
 
     ranges = (tp.irr_ranges,) if hasattr(tp, "irr_ranges") else ()
     paths = (tp.cg_paths(),) if hasattr(tp, "cg_paths") else ()
@@ -85,16 +95,29 @@ def kernel_times(smoke, allegro, data) -> tuple:
     t, g_lat = rand(n_atoms, tp.d2 * U), rand(E, S)
     (w_proj,) = allegro.first_projection.weights()
     w0, w1 = allegro.latents[0].weights()
-    ms8 = 0.0
+    # older trees' scatter takes (row_ptr, ...), newer ones (centers, row_ptr, ...)
+    new_scatter = takes(fused_tp.latent_env_scatter, "centers")
+    scatter_csr = (centers, row_ptr) if new_scatter else (row_ptr,)
+    scatter_ranges = ranges if takes(fused_tp.latent_env_scatter, "irr_ranges") else ()
+    ms = {"latent_env_scatter_ms": 0.0, "latent_env_bwd_ms": 0.0}
     for pieces, a, b in (((emb,), w_proj.detach(), None), ((emb, ts), w0.detach(), w1.detach())):
-        ms8 += smoke.median_ms(lambda: fused_tp.latent_env_bwd(
-            pieces, sh, a, b, t, g_lat, centers, tp.dim_to_irr, U, S, *ranges))
+        ms["latent_env_scatter_ms"] += smoke.median_ms(lambda: fused_tp.latent_env_scatter(
+            pieces, sh, a, b, *scatter_csr, d2i, U, S, *scatter_ranges))
+        ms["latent_env_bwd_ms"] += smoke.median_ms(lambda: fused_tp.latent_env_bwd(
+            pieces, sh, a, b, t, g_lat, centers, d2i, U, S, *ranges))
     wk, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
     w2b, env = rand(E, tp.n_irr * U), rand(n_atoms, tp.d2 * U)
     g, gts = rand(E, tp.d3 * U), rand(E, U)
-    ms10 = smoke.median_ms(lambda: fused_tp.bwd_embed(
+    if takes(fused_tp.gather_tp_embed, "row_ptr"):
+        embed = lambda: fused_tp.gather_tp_embed(  # noqa: E731
+            sh, w2b, env, wk, centers, row_ptr, idx, coef, allegro.row_specs, tp.d3, True, *paths)
+    else:
+        embed = lambda: fused_tp.gather_tp_embed(  # noqa: E731
+            sh, w2b, env, wk, centers, idx, coef, allegro.row_specs, tp.d3, True)
+    ms["gather_tp_embed_ms"] = smoke.median_ms(embed)
+    ms["bwd_embed_ms"] = smoke.median_ms(lambda: fused_tp.bwd_embed(
         sh, w2b, g, env, wk, centers, row_ptr, idx, coef, allegro.row_specs, gts, *paths))
-    return ms8, ms10
+    return ms
 
 
 def measure(tree: Path) -> dict:
@@ -142,8 +165,8 @@ def measure(tree: Path) -> dict:
         if prof is not None:
             out[f"{tag}_busy_ms"], out[f"{tag}_idle_pct"] = prof[0], prof[1]
         suffix = "" if tag == "mega" else "_lmax3"
-        ms8, ms10 = kernel_times(smoke, model.module.allegro, data)
-        out["latent_env_bwd_ms" + suffix], out["bwd_embed_ms" + suffix] = ms8, ms10
+        for key, ms in kernel_times(smoke, model.module.allegro, data).items():
+            out[key.replace("_ms", suffix + "_ms")] = ms
         del model, data
         torch.cuda.empty_cache()
 

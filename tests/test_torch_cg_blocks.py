@@ -1,5 +1,6 @@
-"""The compiled CG blocks of ``bwd_embed`` (``csrc/cg_blocks.h``), the path
-table that walks them, and kernel 8's per-irrep ranges, on the CPU.
+"""The compiled CG blocks of ``gather_tp_embed`` and ``bwd_embed``
+(``csrc/cg_blocks.h``), the path table that walks them, and the per-irrep
+ranges of kernels 7 and 8, on the CPU.
 
 - The checked-in header is what ``ops/gen_cg_blocks.py`` writes, byte for
   byte, and its coefficients, parsed back, are ``lib/wigner.py``'s blocks
@@ -11,10 +12,13 @@ table that walks them, and kernel 8's per-irrep ranges, on the CPU.
   read back from the header, the descriptors cover every entry exactly
   once, at its coefficient; a table that is not a multiple of a block
   raises.
-- A plain emulation of the kernel's path-blocked traversal (the header's
+- Every block's forward face (``CgBlock::fwd``) holds the same
+  coefficients, read back from its literals.
+- A plain emulation of each kernel's path-blocked traversal (the header's
   parsed coefficients per path, a path beyond the header entry by entry)
-  equals ``bwd_embed_reference`` at 1e-12 in float64, with and without gts.
-- ``irrep_ranges`` (kernel 8's per-irrep [start, len) table) reproduces
+  equals its plain version at 1e-12 in float64: ``bwd_embed_reference``
+  with and without gts, ``gather_tp_embed_reference`` whole and split.
+- ``irrep_ranges`` (kernels 7 and 8's per-irrep [start, len) table) reproduces
   ``dim_to_irr``.
 
 The kernels themselves run only on the card (``chip_smoke.py``).
@@ -236,3 +240,99 @@ def test_irrep_ranges_reproduce_dim_to_irr(sh):
     assert [start for start, _ in ranges.tolist()] == [s.start for s in irreps.slices()]
     with pytest.raises(ValueError, match="contiguous"):
         irrep_ranges(torch.tensor([0, 1, 0], dtype=torch.int32))
+
+
+def _parse_fwd():
+    """{(l1, l2, l3): dense block} from the literals of the header's fwd
+    faces."""
+    text = gen_cg_blocks.HEADER.read_text()
+    blocks = {}
+    for m in re.finditer(r"struct CgBlock<(\d), (\d), (\d)> \{(.*?)\n\};", text, re.S):
+        ls = tuple(int(v) for v in m.groups()[:3])
+        body = m.group(4).split("void bwd(")[0]
+        block = np.zeros(tuple(2 * l + 1 for l in ls))
+        for coef, a, c, b in re.findall(
+                r"static_cast<float>\(([-+0-9.e]+)\) \* x\[(\d+)\]; "
+                r"out\[(\d+)\] = fmaf\(t, e\[(\d+)\], out\[\d+\]\)", body):
+            block[int(a), int(b), int(c)] += float(coef)
+        blocks[ls] = block
+    return blocks
+
+
+FWD_BLOCKS = _parse_fwd()
+
+
+def test_forward_blocks_are_the_generators_blocks():
+    assert list(FWD_BLOCKS) == list(gen_cg_blocks.TRIPLES)
+    assert sum(int(np.count_nonzero(b)) for b in FWD_BLOCKS.values()) == 611
+    for ls, block in FWD_BLOCKS.items():
+        np.testing.assert_array_equal(block, gen_cg_blocks.cg_block(*ls), err_msg=str(ls))
+        np.testing.assert_array_equal(block, BLOCKS[ls], err_msg=str(ls))
+
+
+def _emulate_forward(sh, w2b, env, w, row_ptr, paths, row_specs, d3, split):
+    """gather_tp_embed's traversal in plain float64: per atom segment, per
+    edge, per path, the x0 slice times the path weight and scale through the
+    parsed forward block (or the entries one by one, for the default case),
+    added into the edge's output; sentinel edges get zero rows."""
+    E, U = sh.shape[0], w.shape[1]
+    n_atoms = row_ptr.shape[0] - 1
+    d2 = env.shape[1] // U
+    specs = row_specs.long()
+    wb = w2b.view(E, -1, U)
+    out = sh.new_zeros((E, d3, U))
+    for a in range(n_atoms):
+        seg = slice(int(row_ptr[a]), int(row_ptr[a + 1]))
+        x0 = sh[seg][:, specs[:, 0], None] * wb[seg][:, specs[:, 1]]  # [n, d1, U]
+        ea = env[a].view(d2, U)
+        o = out[seg]
+        for q, (p, tid, i0, j0, k0, n0, n1, _) in enumerate(paths.desc.tolist()):
+            ws = w[p] * paths.scale[q]
+            if tid == gen_cg_blocks.DEFAULT:
+                for n in range(n0, n1):
+                    i, j, k = paths.entry_idx[n, :3].tolist()
+                    o[:, k] += paths.entry_coef[n] * ws * x0[:, i] * ea[j]
+                continue
+            C = torch.as_tensor(FWD_BLOCKS[gen_cg_blocks.TRIPLES[tid]])
+            na, nb, nc = C.shape
+            o[:, k0:k0 + nc] += torch.einsum("abc,eau,bu->ecu", C, ws * x0[:, i0:i0 + na],
+                                             ea[j0:j0 + nb])
+    out = out.reshape(E, d3 * U)
+    return (out, out[:, :U]) if split else (out,)
+
+
+@pytest.mark.parametrize("l_max,beyond", [(2, False), (3, False), (2, True)],
+                         ids=["lmax2", "lmax3", "beyond_the_header"])
+@pytest.mark.parametrize("split", [False, True], ids=["whole", "split"])
+def test_path_blocked_forward_equals_the_plain_version(l_max, beyond, split):
+    """gather_tp_embed's path walk with the forward blocks, on layer 0 of the
+    ladder; ``beyond``: with a path of l = 4 added (the default case)."""
+    sh_irreps = Irreps.spherical_harmonics(l_max)
+    out = compute_irreps_ladder(sh_irreps, Irreps("+".join(
+        f"1x{l}{p}" for l in range(l_max + 1) for p in "eo")), 2)[1]
+    w3j = pack_w3j(sh_irreps, sh_irreps, out, enumerate_instructions(sh_irreps, sh_irreps, out))
+    entries = sparse_entries(w3j)
+    idx = torch.tensor([e[:4] for e in entries], dtype=torch.int32)
+    coef = torch.tensor([e[4] for e in entries], dtype=torch.float64)
+    P, d1, d2, d3 = w3j.shape
+    if beyond:
+        idx = torch.cat([idx, torch.tensor([(i, 0, i, P) for i in range(9)], dtype=torch.int32)])
+        coef = torch.cat([coef, torch.linspace(0.5, 1.5, 9, dtype=torch.float64)])
+        P += 1
+    paths = gen_cg_blocks.path_table(idx, coef, torch.float64)
+    assert (paths.desc[:, 1] == gen_cg_blocks.DEFAULT).any().item() == beyond
+    U, n_atoms = 3, 7
+    rng = np.random.RandomState(10 + l_max)
+    centers = np.sort(np.r_[rng.choice([0, 1, 2, 4, 5, 6], 30), 0, 1, 2, 4, 5, 6])
+    centers = np.r_[centers, [n_atoms] * 5].astype(np.int32)  # atom 3 has no edges
+    E = centers.shape[0]
+    d2i = [k for k, s in enumerate(sh_irreps.slices()) for _ in range(s.stop - s.start)]
+    specs = torch.tensor([(j, d2i[j]) for j in range(d1)], dtype=torch.int32)
+    t = lambda *s: torch.as_tensor(rng.randn(*s))  # noqa: E731
+    sh, w2b, env, w = t(E, d2), t(E, len(sh_irreps) * U), t(n_atoms, d2 * U), t(P, U)
+    row_ptr = torch.as_tensor(csr_row_ptr(centers, n_atoms))
+    want = fused_tp.gather_tp_embed_reference(sh, w2b, env, w, torch.as_tensor(centers), idx,
+                                              coef, specs, d3, split)
+    got = _emulate_forward(sh, w2b, env, w, row_ptr, paths, specs, d3, split)
+    for a, b in zip(got, want if split else (want,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)

@@ -12,6 +12,10 @@
 - Each new ``autograd.Function``'s backward against torch.autograd through
   its plain forward composition, with nonzero cotangents on the sentinel
   edges too, and NaN weight gradients.
+- ``latent_env_scatter``'s walk (its walkers' shares of the edges, 64-edge
+  tiles, an atom's env row carried from tile to tile, the sentinel tail)
+  replayed in torch against its plain version (float64 at 1e-12), on a
+  graph with a segment that spans three tiles.
 """
 
 import numpy as np
@@ -142,8 +146,8 @@ def test_latent_env_scatter_and_bwd_match_pallas(graph, interpret, n_hidden):
         graph["offs"], graph["win"], n_rank_rows=graph["nr"], **kw,
     )
     tp = [_t(p) for p in pieces]
-    lat_s, env = fused_tp.latent_env_scatter(tp, _t(sh), _t(w0), _t(w1), graph["row_ptr"],
-                                             graph["d2i"], U, S)
+    lat_s, env = fused_tp.latent_env_scatter(tp, _t(sh), _t(w0), _t(w1), graph["t_centers"],
+                                             graph["row_ptr"], graph["d2i"], U, S)
     _close(lat_s, lat_j)
     _close(env, _atoms_of(graph, eA, eB))
 
@@ -219,8 +223,8 @@ def test_gather_tp_embed_and_bwd_embed_match_pallas(graph, interpret, split):
     idx = torch.tensor([e[:4] for e in entries], dtype=torch.int32)
     coef = torch.tensor([e[4] for e in entries], dtype=torch.float64)
     t_specs = torch.tensor(specs, dtype=torch.int32)
-    got = fused_tp.gather_tp_embed(_t(sh), _t(w2b), env, _t(w), graph["t_centers"], idx, coef,
-                                   t_specs, d3, split)
+    got = fused_tp.gather_tp_embed(_t(sh), _t(w2b), env, _t(w), graph["t_centers"],
+                                   graph["row_ptr"], idx, coef, t_specs, d3, split)
     for a, b in zip(got if split else (got,), want if split else (want,)):
         _close(a, b)
     dsh_j, dw2b_j, dA, dB = jax_ftp.bwd_embed_raw_call(
@@ -342,8 +346,8 @@ def test_sentinel_edges_of_the_mega_kernels(graph):
     pieces = [torch.as_tensor(rng.randn(Ep, S)), torch.as_tensor(rng.randn(Ep, U))]
     w0, w1 = torch.as_tensor(rng.randn(S + U, H)), torch.as_tensor(rng.randn(H, S + N_IRR * U))
     sh = torch.as_tensor(rng.randn(Ep, 9))
-    lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, graph["row_ptr"], graph["d2i"],
-                                             U, S)
+    lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, graph["t_centers"],
+                                             graph["row_ptr"], graph["d2i"], U, S)
     full = torch.nn.functional.silu(torch.cat(pieces, 1) @ w0) @ w1
     torch.testing.assert_close(lat_s, full[:, :S], rtol=0, atol=1e-12)
     t = torch.as_tensor(rng.randn(N_ATOMS, 9 * U))
@@ -374,15 +378,108 @@ def test_cpu_tensors_take_the_plain_path_and_shapes_are_checked(graph):
     pieces, w0, w1 = _mlp_inputs(rng, graph, 1)
     tp, sh = [_t(p) for p in pieces], torch.as_tensor(_arr(rng, Ep, 9))
     fused_tp.reset_launch_counts()
-    fused_tp.latent_env_scatter(tp, sh, _t(w0), _t(w1), graph["row_ptr"], graph["d2i"], U, S)
+    fused_tp.latent_env_scatter(tp, sh, _t(w0), _t(w1), graph["t_centers"], graph["row_ptr"],
+                                graph["d2i"], U, S)
     assert fused_tp.LAUNCHES == {k: 0 for k in fused_tp.LAUNCHES}
     with pytest.raises(ValueError, match="latent_env_scatter shapes"):
-        fused_tp.latent_env_scatter(tp, sh, _t(w0), _t(w1)[:, :-1], graph["row_ptr"],
-                                    graph["d2i"], U, S)
+        fused_tp.latent_env_scatter(tp, sh, _t(w0), _t(w1)[:, :-1], graph["t_centers"],
+                                    graph["row_ptr"], graph["d2i"], U, S)
     with pytest.raises(ValueError, match="latent_env_bwd shapes"):
         fused_tp.latent_env_bwd(tp, sh, _t(w0), _t(w1), torch.zeros(N_ATOMS, 9 * U),
                                 torch.zeros(Ep, S + 1), graph["t_centers"], graph["d2i"], U, S)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_tp.latent_env_scatter([p.to("meta") for p in tp], sh.to("meta"),
                                     _t(w0).to("meta"), _t(w1).to("meta"),
-                                    graph["row_ptr"].to("meta"), graph["d2i"].to("meta"), U, S)
+                                    graph["t_centers"].to("meta"), graph["row_ptr"].to("meta"),
+                                    graph["d2i"].to("meta"), U, S)
+
+
+# ---------------------------------------------------------------------------
+# latent_env_scatter's walk (csrc/mega.cu), replayed in torch
+# ---------------------------------------------------------------------------
+
+TILE = 64  # kLebRows
+
+
+def _replay_latent_env_scatter(pieces, sh, w0, w1, centers, row_ptr, irr_ranges, U, S,
+                               n_walkers):
+    """The kernel's order of work: walker w (a thread group of a block) owns
+    the atoms whose segments start in its share of the edges and walks their
+    edges in 64-edge tiles, an atom's partial env row carried from tile to
+    tile, then its share of the sentinel edges (lat_s only); atoms without
+    edges get zero rows. Each partial sum adds the edges in edge order.
+    Returns (lat_s, env, the most tiles one atom's segment spans)."""
+    E, d2 = sh.shape
+    n_atoms = row_ptr.shape[0] - 1
+    rp = row_ptr.long().tolist()
+    c_all = centers.long().tolist()
+    irr = [g for g, (_, n) in enumerate(irr_ranges.tolist()) for _ in range(n)]
+    cols = torch.tensor([S + irr[j] * U + u for j in range(d2) for u in range(U)])
+    _, lat = fused_tp._edge_mlp(pieces, w0, w1)
+    lat_s = torch.full((E, S), float("nan"), dtype=sh.dtype)
+    env = torch.full((n_atoms, d2 * U), float("nan"), dtype=sh.dtype)
+    tiles_of = {}
+
+    def first_atom_at(e):
+        return next((a for a in range(n_atoms) if rp[a] >= e), n_atoms)
+
+    chunk = -(-E // n_walkers)
+    for w in range(n_walkers):
+        last = w + 1 == n_walkers
+        s0 = min(w * chunk, E)
+        s1 = E if last else min(s0 + chunk, E)
+        a0, a1 = first_atom_at(s0), n_atoms if last else first_atom_at(s1)
+        r0, r1, tail = rp[a0], rp[a1], rp[n_atoms]
+        z0, z1 = max(tail, s0), max(tail, s1)
+        for a in range(a0, a1):
+            if rp[a] == rp[a + 1]:
+                env[a] = 0.0
+        tiles = [(e0, r1, True) for e0 in range(r0, r1, TILE)]
+        tiles += [(e0, z1, False) for e0 in range(z0, z1, TILE)]
+        carry = [torch.zeros(d2 * U, dtype=sh.dtype) for _ in range(2)]
+        cur = 0
+        for e0, end, has_env in tiles:
+            rows = min(TILE, end - e0)
+            lat_s[e0:e0 + rows] = lat[e0:e0 + rows, :S]
+            if not has_env:
+                continue
+            c = c_all[e0:e0 + rows]
+            starts = [m for m in range(rows) if m == 0 or c[m] != c[m - 1]] + [rows]
+            carried, carries = rp[c[0]] < e0, rp[c[-1] + 1] > e0 + rows
+            for r, (ms, me) in enumerate(zip(starts, starts[1:])):
+                a = c[ms]
+                tiles_of[a] = tiles_of.get(a, 0) + 1
+                s = carry[cur].clone() if r == 0 and carried else torch.zeros_like(carry[0])
+                for m in range(ms, me):
+                    s = s + sh[e0 + m].repeat_interleave(U) * lat[e0 + m, cols]
+                if r == len(starts) - 2 and carries:
+                    carry[cur ^ 1] = s
+                else:
+                    env[a] = s
+            cur ^= 1
+    return lat_s, env, max(tiles_of.values())
+
+
+@pytest.mark.parametrize("n_walkers", [1, 3, 8])
+def test_latent_env_scatter_walk_equals_the_plain_version(n_walkers):
+    """On a graph with a 150-edge atom (three tiles), atoms without edges in
+    the middle and at the end, and a sentinel tail of 37 edges."""
+    rng = np.random.RandomState(100 + n_walkers)
+    n_atoms = 12
+    degree = np.array([3, 0, 150, 1, 40, 0, 70, 2, 64, 5, 0, 0])
+    centers = np.r_[np.repeat(np.arange(n_atoms), degree), [n_atoms] * 37].astype(np.int32)
+    E = centers.shape[0]
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers, n_atoms))
+    d2i = torch.tensor(DIM_TO_IRR, dtype=torch.int32)
+    sh = torch.as_tensor(rng.randn(E, 9))
+    n_out = S + N_IRR * U
+    t = lambda *shape: torch.as_tensor(rng.randn(*shape))  # noqa: E731
+    for pieces, w0, w1 in (([t(E, S)], t(S, n_out), None),
+                           ([t(E, S), t(E, U)], t(S + U, H), t(H, n_out))):
+        want = fused_tp.latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, d2i, U, S)
+        lat_s, env, span = _replay_latent_env_scatter(
+            pieces, sh, w0, w1, torch.as_tensor(centers), row_ptr, fused_tp.irrep_ranges(d2i), U,
+            S, n_walkers)
+        assert span >= 3
+        torch.testing.assert_close(lat_s, want[0], rtol=0, atol=1e-12)
+        torch.testing.assert_close(env, want[1], rtol=0, atol=1e-12)
