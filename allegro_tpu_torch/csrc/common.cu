@@ -1,6 +1,7 @@
-// Device helpers shared by the kernels of csrc/*.cu: warp reductions, the
-// sparse Clebsch-Gordan table in shared memory, the per-edge MLP of a tile of
-// 32 edges (lane = edge) with its backward, and launch-size helpers.
+// Device helpers shared by the kernels of csrc/*.cu: warp reductions,
+// cp.async copies, the sparse Clebsch-Gordan table in shared memory, the
+// per-edge MLP of a tile of 32 edges (lane = edge) with its backward, and
+// launch-size helpers.
 //
 // The other sources include this file once each, and everything here has
 // internal linkage, so each gets its own copy. The build compiles every
@@ -21,6 +22,26 @@ constexpr size_t kSmemLimit = 48 * 1024;
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Asynchronous copies from device to shared memory (cp.async): 4 bytes, or
+// 16 aligned bytes; a thread's copies since its last commit form one group,
+// and cp_async_wait<n> waits until at most n of its groups are in flight.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // Copies the entry table into shared memory: idx[4n] = (i, j, k, p), coef[n].

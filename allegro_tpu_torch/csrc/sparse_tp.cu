@@ -8,37 +8,44 @@
 // first (on the center kernels, csrc/center_readout.cu) and then contracts
 // two per-edge arrays: nothing is gathered by center here, every row of a, b,
 // g and out belongs to one edge.
-// The entry table (i, j, k, p, c) is the caller's: the layer's own, or one of
-// its role permutations (the transposes of the derivative family,
+// The table is the caller's: the layer's own, or one of its role
+// permutations (the transposes of the derivative family,
 // allegro_tpu_torch/ops/tp_primitives.py), so a, b and out may have any of
-// the layer's dims in any order. Layout: per-edge arrays are row-major with
-// the flat dim-major track (column i*U+u is basis dim i, channel u), w and gw
-// are [P, U]. Padded edges are rows like any other: the caller's cotangents
-// are zero there. Every sum runs in a fixed order (no atomics), so two
-// identical calls give identical bits. Each kernel runs on the caller's
-// stream and allocates nothing; each entry point returns cudaGetLastError().
+// the layer's dims in any order. Both kernels walk it by path, not by entry
+// (gen_cg_blocks.path_table(by_output=True): rows (p, triple id, i0, j0, k0,
+// n0, n1, width) ordered by output slice k0, then p). A path with l <= 3 is
+// one block of cg_blocks.h (CgBlock::fwd: its coefficients are literals in
+// straight-line FMAs on register arrays) times the row's scale; a path
+// beyond the header (l > 3) walks its entries [n0, n1) one by one, those
+// whose output row falls in the row's slice [k0, k0 + width).
+// Layout: per-edge arrays are row-major with the flat dim-major track
+// (column i*U+u is basis dim i, channel u), w and gw are [P, U]. Padded
+// edges are rows like any other: the caller's cotangents are zero there.
+// Every sum runs in a fixed order (no atomics), so two identical calls give
+// identical bits. Each kernel runs on the caller's stream and allocates
+// nothing; each entry point returns cudaGetLastError().
 
 #include "common.cu"
+#include "cg_blocks.h"
 
 namespace {
 
 constexpr int kTpThreads = kEdgeWarps * kWarp;  // threads per block of sparse_tp
 constexpr int kMaxTpDim = 32;                   // basis dims of a, b, out (l_max 3, both parities)
-constexpr int kMaxTpPaths = 255;                // paths: p is packed into 8 bits
-constexpr int kGradwMaxBlocks = 1024;           // blocks of gradw's first pass
+constexpr int kSliceMax = 7;       // the widest output slice of a row: gen_cg_blocks.SLICE_MAX
+constexpr int kDescCols = 8;       // (p, triple id, i0, j0, k0, n0, n1, width)
+constexpr int kGradwMaxBlocks = 1024;  // blocks of gradw's first pass
 
-// The entry table in shared memory with (i, j, k, p) packed into one word,
-// so each entry is one broadcast load of the index and one of c.
-__device__ __forceinline__ void load_packed_entries(const int* __restrict__ eidx,
-                                                    const float* __restrict__ ecoef,
-                                                    int n_entries, unsigned* s_ent,
-                                                    float* s_coef) {
-  for (int t = threadIdx.x; t < n_entries; t += blockDim.x) {
-    const int* r = eidx + 4 * t;
-    s_ent[t] = (unsigned)r[0] | ((unsigned)r[1] << 8) | ((unsigned)r[2] << 16) |
-               ((unsigned)r[3] << 24);
-    s_coef[t] = ecoef[t];
-  }
+// Copies the path table into shared memory.
+__device__ __forceinline__ void load_desc(const int* __restrict__ desc, int n_rows, int* s_desc) {
+  for (int q = threadIdx.x; q < n_rows * kDescCols; q += blockDim.x) s_desc[q] = desc[q];
+}
+
+// Starts the cp.async copy of column u of an edge's rows (d rows at stride
+// U in device memory, from src) into a thread's shared-memory column (stride
+// T, from dst). The caller commits and waits.
+__device__ __forceinline__ void stage_column(const float* src, int d, int U, float* dst, int T) {
+  for (int i = 0; i < d; ++i) cp_async4(dst + i * T, src + (long long)i * U);
 }
 
 // ---------------------------------------------------------------------------
@@ -49,52 +56,124 @@ __device__ __forceinline__ void load_packed_entries(const int* __restrict__ eidx
 // Bound: one read each of a [E, d1*U] and b [E, d2*U] and one write of out
 // [E, d3*U] (3 x 119 MB at layer 0 of the 4,096-atom crystal, ~0.107 ms at
 // 3.35 TB/s); the ~3 FLOPs per entry, edge and channel are an order of
-// magnitude below that. Design: one thread per (edge, channel), consecutive
-// channels on consecutive lanes, so every row load and store is coalesced; a
-// grid-stride loop over a persistent grid loads the table and w [P, U] into
-// shared memory once per block. The table's indices are run-time values, so
-// a register array indexed by them would spill to local memory: each thread
-// keeps its a and b rows and its d3 accumulators in its own shared-memory
-// column (stride = block size: no bank conflicts). Entries sorted by (i, j)
-// form each product a_i * b_j once, as the TPU kernel does.
+// magnitude below that. Design: output-stationary path walk, one thread per
+// (edge, channel), consecutive channels on consecutive lanes, so every row
+// access is coalesced and any U works; a persistent grid strides over the
+// (edge, channel) items. Once per block: the path table and ws[row, u] =
+// w[p, u] * scale[row] go into shared memory, one load per path and lane.
+// Per item: the thread's a and b columns are copied into its own
+// shared-memory columns (stride = block size: no bank conflicts) by
+// cp.async, all in flight at once and holding no registers. (A second
+// buffer that loads the next item during this one measured slower: it
+// halves the blocks per SM.) Per row (warp-uniform: every thread
+// walks the same table, so the block's switch does not diverge): the x and e
+// slices into registers, CgBlock::fwd onto the register accumulator of the
+// current output slice; when the slice changes it is stored once, straight
+// to device memory, and the rows of out that no path writes are stored as
+// zeros. No shared-memory read-modify-write is left on a path with l <= 3.
 // ---------------------------------------------------------------------------
-__global__ void sparse_tp_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                 const float* __restrict__ w, const int* __restrict__ eidx,
-                                 const float* __restrict__ ecoef, int n_entries, long long n_edges,
-                                 int d1, int d2, int d3, int U, int P, float* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
+
+// One row of sparse_tp for one thread: adds the path's block, its x slice
+// times ws, onto the slice accumulator.
+struct TpRow {
+  const float* x;  // the thread's a column, stride T
+  const float* e;  // its b column
+  int T, i0, j0;
+  float ws;  // w[p, u] times the row's scale
+  float acc[kSliceMax];
+
+  template <int L1, int L2, int L3>
+  __device__ __forceinline__ void run() {
+    constexpr int n1 = 2 * L1 + 1, n2 = 2 * L2 + 1, n3 = 2 * L3 + 1;
+    float xs[n1], es[n2], os[n3];
+#pragma unroll
+    for (int a = 0; a < n1; ++a) xs[a] = ws * x[(i0 + a) * T];
+#pragma unroll
+    for (int b = 0; b < n2; ++b) es[b] = e[(j0 + b) * T];
+#pragma unroll
+    for (int c = 0; c < n3; ++c) os[c] = acc[c];
+    CgBlock<L1, L2, L3>::fwd(xs, es, os);
+#pragma unroll
+    for (int c = 0; c < n3; ++c) acc[c] = os[c];
+  }
+
+  // A path beyond the header: its entries one by one (k0, width: the row's slice).
+  __device__ __forceinline__ void entries(const int* __restrict__ eidx,
+                                          const float* __restrict__ ecoef, int n0, int n1,
+                                          int k0, int width) {
+    for (int n = n0; n < n1; ++n) {
+      const int k = __ldg(eidx + 4 * n + 2) - k0;
+      if (k < 0 || k >= width) continue;
+      const float v = __ldg(ecoef + n) * ws * x[__ldg(eidx + 4 * n) * T] *
+                      e[__ldg(eidx + 4 * n + 1) * T];
+#pragma unroll
+      for (int c = 0; c < kSliceMax; ++c)
+        if (c == k) acc[c] += v;
+    }
+  }
+};
+
+// Rows [k0, k0 + width) of one output column (row stride U) from acc.
+__device__ __forceinline__ void store_slice(float* o, const float (&acc)[kSliceMax], int k0,
+                                            int width, int U) {
+#pragma unroll
+  for (int c = 0; c < kSliceMax; ++c)
+    if (c < width) o[(long long)(k0 + c) * U] = acc[c];
+}
+
+__global__ void __launch_bounds__(kTpThreads) sparse_tp_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, const float* __restrict__ w,
+    const int* __restrict__ desc, const float* __restrict__ dscale, int n_rows,
+    const int* __restrict__ eidx, const float* __restrict__ ecoef, long long n_edges, int d1,
+    int d2, int d3, int U, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x, tid = threadIdx.x;
-  unsigned* s_ent = reinterpret_cast<unsigned*>(smem);
-  float* s_coef = reinterpret_cast<float*>(s_ent + n_entries);
-  float* s_w = s_coef + n_entries;  // [P*U]
-  float* s_a = s_w + P * U;         // [d1][T]
-  float* s_b = s_a + d1 * T;        // [d2][T]
-  float* s_o = s_b + d2 * T;        // [d3][T]
-  load_packed_entries(eidx, ecoef, n_entries, s_ent, s_coef);
-  for (int q = tid; q < P * U; q += T) s_w[q] = w[q];
+  int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
+  float* s_ws = smem + n_rows * kDescCols;        // [n_rows][U]
+  float* s_col = s_ws + n_rows * U;               // [d1 + d2][T]
+  load_desc(desc, n_rows, reinterpret_cast<int*>(s_desc));
   __syncthreads();
+  for (int q = tid; q < n_rows * U; q += T) {
+    const int r = q / U;
+    s_ws[q] = w[s_desc[2 * r].x * U + (q - r * U)] * dscale[r];
+  }
+  __syncthreads();
+  float* col = s_col + tid;  // the thread's a and b columns
   const long long work = n_edges * U;
   for (long long t = (long long)blockIdx.x * T + tid; t < work; t += (long long)gridDim.x * T) {
     const long long e = t / U;
     const int u = (int)(t - e * U);
-    const float* ae = a + e * d1 * U + u;
-    const float* be = b + e * d2 * U + u;
-    for (int i = 0; i < d1; ++i) s_a[i * T + tid] = ae[i * U];
-    for (int j = 0; j < d2; ++j) s_b[j * T + tid] = be[j * U];
-    for (int k = 0; k < d3; ++k) s_o[k * T + tid] = 0.f;
-    unsigned cur = 0xffffffffu;
-    float ab = 0.f;
-    for (int n = 0; n < n_entries; ++n) {
-      const unsigned q = s_ent[n];
-      if ((q & 0xffffu) != cur) {  // uniform across the block: every thread walks the same table
-        cur = q & 0xffffu;
-        ab = s_a[(q & 0xffu) * T + tid] * s_b[((q >> 8) & 0xffu) * T + tid];
+    stage_column(a + e * d1 * U + u, d1, U, col, T);
+    stage_column(b + e * d2 * U + u, d2, U, col + d1 * T, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    float* o = out + e * d3 * U + u;
+    TpRow f{col, col + d1 * T, T, 0, 0, 0.f, {}};
+    int k0 = -1, width = 0, next = 0;  // the current slice; the first row no slice has written
+    for (int q = 0; q < n_rows; ++q) {
+      // (p, triple id, i0, j0) and (k0, n0, n1, width)
+      const int4 dp = s_desc[2 * q], dk = s_desc[2 * q + 1];
+      if (dk.x != k0) {
+        if (k0 >= 0) {
+          store_slice(o, f.acc, k0, width, U);
+          next = k0 + width;
+        }
+        k0 = dk.x;
+        width = dk.w;
+        for (int k = next; k < k0; ++k) o[(long long)k * U] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kSliceMax; ++c) f.acc[c] = 0.f;
       }
-      const int k = (q >> 16) & 0xffu, p = q >> 24;
-      s_o[k * T + tid] += s_coef[n] * s_w[p * U + u] * ab;
+      f.i0 = dp.z;
+      f.j0 = dp.w;
+      f.ws = s_ws[q * U + u];
+      if (!cg_dispatch(dp.y, f)) f.entries(eidx, ecoef, dk.y, dk.z, k0, width);
     }
-    float* oe = out + e * d3 * U + u;
-    for (int k = 0; k < d3; ++k) oe[k * U] = s_o[k * T + tid];
+    if (k0 >= 0) {
+      store_slice(o, f.acc, k0, width, U);
+      next = k0 + width;
+    }
+    for (int k = next; k < d3; ++k) o[(long long)k * U] = 0.f;
   }
 }
 
@@ -109,48 +188,91 @@ __global__ void sparse_tp_kernel(const float* __restrict__ a, const float* __res
 // next; here a fixed grid of blocks (a function of E only) each sums a fixed,
 // strided share of the edges and writes its partial [P, U], and a second
 // launch adds the partials in block order. A block is U x (edges per step)
-// threads, so each thread keeps one channel u for the whole pass and
-// accumulates its P sums in its own shared-memory column; the block's columns
-// of one channel are added in a fixed order at the end. No float atomics: two
-// identical calls give identical bits.
+// threads, so each thread keeps one channel u for the whole pass, with its
+// P sums in its own shared-memory column. Per edge the thread's a, b and g
+// columns are copied into its own columns by cp.async, as in sparse_tp; per
+// row, t = CgBlock::fwd(x, e) runs in registers and scale * dot(t, g slice)
+// is added to the path's sum: one shared-memory update per path, edge and
+// channel. The block's columns of one channel are added in a fixed order at
+// the end. No float atomics: two identical calls give identical bits.
 // ---------------------------------------------------------------------------
-__global__ void sparse_tp_gradw_partial_kernel(const float* __restrict__ a,
-                                               const float* __restrict__ b,
-                                               const float* __restrict__ g,
-                                               const int* __restrict__ eidx,
-                                               const float* __restrict__ ecoef, int n_entries,
-                                               long long n_edges, int d1, int d2, int d3, int U,
-                                               int P, float* __restrict__ partial) {
-  extern __shared__ unsigned char smem[];
+
+// One row of sparse_tp_gradw for one thread: dot = sum_c fwd(x, e)[c] g[k0 + c].
+struct GradwRow {
+  const float* x;  // the thread's a, b and g columns, stride T
+  const float* e;
+  const float* g;
+  int T, i0, j0, k0;
+  float dot;
+
+  template <int L1, int L2, int L3>
+  __device__ __forceinline__ void run() {
+    constexpr int n1 = 2 * L1 + 1, n2 = 2 * L2 + 1, n3 = 2 * L3 + 1;
+    float xs[n1], es[n2], os[n3];
+#pragma unroll
+    for (int a = 0; a < n1; ++a) xs[a] = x[(i0 + a) * T];
+#pragma unroll
+    for (int b = 0; b < n2; ++b) es[b] = e[(j0 + b) * T];
+#pragma unroll
+    for (int c = 0; c < n3; ++c) os[c] = 0.f;
+    CgBlock<L1, L2, L3>::fwd(xs, es, os);
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < n3; ++c) s = fmaf(os[c], g[(k0 + c) * T], s);
+    dot = s;
+  }
+
+  // A path beyond the header: its entries one by one (width: the row's slice).
+  __device__ __forceinline__ float entries(const int* __restrict__ eidx,
+                                           const float* __restrict__ ecoef, int n0, int n1,
+                                           int width) const {
+    float s = 0.f;
+    for (int n = n0; n < n1; ++n) {
+      const int k = __ldg(eidx + 4 * n + 2);
+      if (k < k0 || k >= k0 + width) continue;
+      s += __ldg(ecoef + n) * x[__ldg(eidx + 4 * n) * T] * e[__ldg(eidx + 4 * n + 1) * T] *
+           g[k * T];
+    }
+    return s;
+  }
+};
+
+__global__ void sparse_tp_gradw_partial_kernel(
+    const float* __restrict__ a, const float* __restrict__ b, const float* __restrict__ g,
+    const int* __restrict__ desc, const float* __restrict__ dscale, int n_rows,
+    const int* __restrict__ eidx, const float* __restrict__ ecoef, long long n_edges, int d1,
+    int d2, int d3, int U, int P, float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int epb = T / U, slot = tid / U, u = tid - slot * U;
-  unsigned* s_ent = reinterpret_cast<unsigned*>(smem);
-  float* s_coef = reinterpret_cast<float*>(s_ent + n_entries);
-  float* s_a = s_coef + n_entries;  // [d1][T]
-  float* s_b = s_a + d1 * T;        // [d2][T]
-  float* s_g = s_b + d2 * T;        // [d3][T]
-  float* s_acc = s_g + d3 * T;      // [P][T]
-  load_packed_entries(eidx, ecoef, n_entries, s_ent, s_coef);
+  int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
+  float* s_scale = smem + n_rows * kDescCols;     // [n_rows]
+  float* s_acc = s_scale + n_rows;                // [P][T]
+  float* s_col = s_acc + P * T;                   // [d1 + d2 + d3][T]
+  load_desc(desc, n_rows, reinterpret_cast<int*>(s_desc));
+  for (int q = tid; q < n_rows; q += T) s_scale[q] = dscale[q];
   for (int p = 0; p < P; ++p) s_acc[p * T + tid] = 0.f;
   __syncthreads();
+  float* col = s_col + tid;  // the thread's a, b and g columns
   for (long long e = (long long)blockIdx.x * epb + slot; e < n_edges;
        e += (long long)gridDim.x * epb) {
-    const float* ae = a + e * d1 * U + u;
-    const float* be = b + e * d2 * U + u;
-    const float* ge = g + e * d3 * U + u;
-    for (int i = 0; i < d1; ++i) s_a[i * T + tid] = ae[i * U];
-    for (int j = 0; j < d2; ++j) s_b[j * T + tid] = be[j * U];
-    for (int k = 0; k < d3; ++k) s_g[k * T + tid] = ge[k * U];
-    unsigned cur = 0xffffffffu;
-    float ab = 0.f;
-    for (int n = 0; n < n_entries; ++n) {
-      const unsigned q = s_ent[n];
-      if ((q & 0xffffu) != cur) {
-        cur = q & 0xffffu;
-        ab = s_a[(q & 0xffu) * T + tid] * s_b[((q >> 8) & 0xffu) * T + tid];
-      }
-      const int k = (q >> 16) & 0xffu, p = q >> 24;
-      s_acc[p * T + tid] += s_coef[n] * ab * s_g[k * T + tid];
+    stage_column(a + e * d1 * U + u, d1, U, col, T);
+    stage_column(b + e * d2 * U + u, d2, U, col + d1 * T, T);
+    stage_column(g + e * d3 * U + u, d3, U, col + (d1 + d2) * T, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    GradwRow f{col, col + d1 * T, col + (d1 + d2) * T, T, 0, 0, 0, 0.f};
+    for (int q = 0; q < n_rows; ++q) {
+      // (p, triple id, i0, j0) and (k0, n0, n1, width)
+      const int4 dp = s_desc[2 * q], dk = s_desc[2 * q + 1];
+      f.i0 = dp.z;
+      f.j0 = dp.w;
+      f.k0 = dk.x;
+      float* acc = s_acc + dp.x * T + tid;
+      if (cg_dispatch(dp.y, f))
+        *acc = fmaf(s_scale[q], f.dot, *acc);
+      else
+        *acc += f.entries(eidx, ecoef, dk.y, dk.z, dk.w);
     }
   }
   __syncthreads();
@@ -164,9 +286,9 @@ __global__ void sparse_tp_gradw_partial_kernel(const float* __restrict__ a,
 }
 
 // Checks the sizes both kernels take; 0 or a CUDA error code.
-int check_tp_dims(int d1, int d2, int d3, int P) {
+int check_tp_dims(int d1, int d2, int d3, int P, int n_rows) {
   if (d1 < 1 || d2 < 1 || d3 < 1 || d1 > kMaxTpDim || d2 > kMaxTpDim || d3 > kMaxTpDim ||
-      P < 1 || P > kMaxTpPaths)
+      P < 1 || n_rows < 1)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -175,39 +297,40 @@ int check_tp_dims(int d1, int d2, int d3, int P) {
 
 extern "C" {
 
-int atpt_sparse_tp(const float* a, const float* b, const float* w, const int* eidx,
-                   const float* ecoef, int n_entries, long long n_edges, int d1, int d2, int d3,
-                   int U, int P, float* out, void* stream) {
-  if (int rc = check_tp_dims(d1, d2, d3, P)) return rc;
+// desc [n_rows, kDescCols], dscale [n_rows]: the table's path table in walk
+// order; eidx [n, 4], ecoef [n]: its entries ordered by path.
+int atpt_sparse_tp(const float* a, const float* b, const float* w, const int* desc,
+                   const float* dscale, int n_rows, const int* eidx, const float* ecoef,
+                   long long n_edges, int d1, int d2, int d3, int U, int P, float* out,
+                   void* stream) {
+  if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
   const int T = kTpThreads;
-  size_t smem = (size_t)n_entries * 2 * sizeof(float) + (size_t)P * U * sizeof(float) +
-                (size_t)(d1 + d2 + d3) * T * sizeof(float);
-  if (smem > smem_optin()) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = set_smem(sparse_tp_kernel, smem);
+  const size_t smem = (size_t)n_rows * (kDescCols + U) * sizeof(float) +
+                      (size_t)(d1 + d2) * T * sizeof(float);
+  cudaError_t err = prepare_smem(sparse_tp_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = persistent_blocks(sparse_tp_kernel, T, smem, n_edges * U, T);
-  sparse_tp_kernel<<<blocks, T, smem, (cudaStream_t)stream>>>(a, b, w, eidx, ecoef, n_entries,
-                                                              n_edges, d1, d2, d3, U, P, out);
+  sparse_tp_kernel<<<blocks, T, smem, (cudaStream_t)stream>>>(
+      a, b, w, desc, dscale, n_rows, eidx, ecoef, n_edges, d1, d2, d3, U, out);
   return (int)cudaGetLastError();
 }
 
 // partial: scratch [n_blocks, P, U]; n_blocks <= kGradwMaxBlocks, chosen by
 // the caller from E alone, so the order of the sums does not depend on the card.
-int atpt_sparse_tp_gradw(const float* a, const float* b, const float* g, const int* eidx,
-                         const float* ecoef, int n_entries, long long n_edges, int d1, int d2,
-                         int d3, int U, int P, int n_blocks, float* partial, float* gw,
-                         void* stream) {
-  if (int rc = check_tp_dims(d1, d2, d3, P)) return rc;
+int atpt_sparse_tp_gradw(const float* a, const float* b, const float* g, const int* desc,
+                         const float* dscale, int n_rows, const int* eidx, const float* ecoef,
+                         long long n_edges, int d1, int d2, int d3, int U, int P, int n_blocks,
+                         float* partial, float* gw, void* stream) {
+  if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
   if (U < 1 || U > 1024 || n_blocks < 1 || n_blocks > kGradwMaxBlocks)
     return (int)cudaErrorInvalidValue;
   const int T = U * (U < kTpThreads ? kTpThreads / U : 1);
-  size_t smem = (size_t)n_entries * 2 * sizeof(float) +
-                (size_t)(d1 + d2 + d3 + P) * T * sizeof(float);
-  if (smem > smem_optin()) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = set_smem(sparse_tp_gradw_partial_kernel, smem);
+  const size_t smem = (size_t)n_rows * (kDescCols + 1) * sizeof(float) +
+                      (size_t)(P + d1 + d2 + d3) * T * sizeof(float);
+  cudaError_t err = prepare_smem(sparse_tp_gradw_partial_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   sparse_tp_gradw_partial_kernel<<<n_blocks, T, smem, (cudaStream_t)stream>>>(
-      a, b, g, eidx, ecoef, n_entries, n_edges, d1, d2, d3, U, P, partial);
+      a, b, g, desc, dscale, n_rows, eidx, ecoef, n_edges, d1, d2, d3, U, P, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int PU = P * U;

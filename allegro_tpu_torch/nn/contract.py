@@ -40,7 +40,7 @@ from ..ops.fused_primitives import (
 )
 from ..ops.fused_tp import gather_rows, irrep_ranges, segment_sum, swap_entries
 from ..ops.gen_cg_blocks import CgPaths, path_table
-from ..ops.pallas_contract import Entry, role_tables
+from ..ops.pallas_contract import ROLES, Entry, role_tables
 from ..ops.tp_primitives import TpStatics, sparse_tp_layer
 
 
@@ -138,10 +138,16 @@ class Contracter(nn.Module):
                              persistent=False)
         self.register_buffer("irr_ranges", irrep_ranges(self.dim_to_irr), persistent=False)
         if kernel_backend == "pallas":
-            # the table in every role order of the transposes, built once
-            tp_idx, tp_coef = role_tables(entries, dtype)
+            # the table in every role order of the transposes, and each
+            # order's path table in the kernels' walk order, built once from
+            # the float64 coefficients (a float32 table is no CG block to 1e-12)
+            tp_idx, tp_coef = role_tables(entries, torch.float64)
             self.register_buffer("tp_idx", tp_idx, persistent=False)
-            self.register_buffer("tp_coef", tp_coef, persistent=False)
+            self.register_buffer("tp_coef", tp_coef.to(dtype), persistent=False)
+            for r in range(len(ROLES)):
+                for name, t in zip(CgPaths._fields,
+                                   path_table(tp_idx[r], tp_coef[r], dtype, by_output=True)):
+                    self.register_buffer(f"tp_paths{r}_{name}", t, persistent=False)
 
     @property
     def num_paths(self) -> int:
@@ -191,11 +197,23 @@ class Contracter(nn.Module):
     def forward(self, x1, x2, centers, n_atoms: int, row_ptr=None) -> torch.Tensor:
         env = self.env_sum(x2, centers, n_atoms, row_ptr)
         if self.kernel_backend == "pallas":
-            st = TpStatics(self.tp_idx, self.tp_coef, (self.d1, self.d2, self.d3),
-                           self.num_paths)
+            st = self.tp_statics()
             w = self._w_up(x1.dtype).T.contiguous()  # [P, U]
             return sparse_tp_layer(x1.contiguous(), env.contiguous(), w, st)
         return self.contract(x1, env)
+
+    def tp_statics(self) -> TpStatics:
+        """The ``pallas`` backend's statics: the six role orders' entry and
+        path tables, gathered from the buffers once and again only after a
+        move or cast has replaced them."""
+        st = self.__dict__.get("_tp_statics")
+        if st is None or st.entry_idx is not self.tp_idx or st.entry_coef is not self.tp_coef:
+            paths = tuple(CgPaths(*(getattr(self, f"tp_paths{r}_{name}")
+                                    for name in CgPaths._fields)) for r in range(len(ROLES)))
+            st = TpStatics(self.tp_idx, self.tp_coef, (self.d1, self.d2, self.d3),
+                           self.num_paths, paths)
+            self.__dict__["_tp_statics"] = st
+        return st
 
     def fused_infer_parts(self, dtype):
         """(wk [P, U], entry_idx, entry_coef) for the fused kernels; the

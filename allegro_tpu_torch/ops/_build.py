@@ -62,10 +62,10 @@ _SIGNATURES = {
                        _i32, _i32, _vp, _vp, _vp],
     "atpt_unweight_sh": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_unweight_w": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
-    "atpt_sparse_tp": [_vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32, _i32, _vp,
-                       _vp],
-    "atpt_sparse_tp_gradw": [_vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32, _i32,
-                             _i32, _vp, _vp, _vp],
+    "atpt_sparse_tp": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32,
+                       _i32, _vp, _vp],
+    "atpt_sparse_tp_gradw": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
+                             _i32, _i32, _i32, _vp, _vp, _vp],
 }
 
 

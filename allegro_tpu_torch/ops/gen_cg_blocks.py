@@ -38,7 +38,8 @@ TRIPLE_ID = {t: n for n, t in enumerate(TRIPLES)}
 DEFAULT = -1  # the triple id of a path the header does not hold (l > 3)
 HEADER = Path(__file__).resolve().parent.parent / "csrc" / "cg_blocks.h"
 TOL = 1e-12  # nn/contract.py:sparse_entries' cut for a nonzero coefficient
-DESC_COLS = 8  # (p, triple id, i0, j0, k0, first entry, end entry, 0)
+DESC_COLS = 8  # (p, triple id, i0, j0, k0, first entry, end entry, output width)
+SLICE_MAX = 2 * L_MAX + 1  # the widest output slice of a block: kSliceMax of csrc/sparse_tp.cu
 
 
 def cg_block(l1: int, l2: int, l3: int) -> np.ndarray:
@@ -109,13 +110,14 @@ def render_header() -> str:
 
 
 class CgPaths(NamedTuple):
-    """A layer's entry table walked by path: ``desc`` [n_paths, 8] int32 =
-    (p, triple id, i0, j0, k0, n0, n1, 0), where (i0, j0, k0) are the path's
-    slice offsets in the two inputs and the output and ``[n0, n1)`` its
-    entries in ``entry_idx`` / ``entry_coef`` (the layer's entries ordered by
-    path); ``scale`` [n_paths] the factor of its block. A path whose triple
-    the header does not hold (l > 3) has triple id ``DEFAULT`` and is walked
-    entry by entry."""
+    """A layer's entry table walked by path: ``desc`` [n_rows, 8] int32 =
+    (p, triple id, i0, j0, k0, n0, n1, width), where (i0, j0, k0) are the
+    path's slice offsets in the two inputs and the output, ``width`` its
+    output rows (2 l3 + 1) and ``[n0, n1)`` its entries in ``entry_idx`` /
+    ``entry_coef`` (the layer's entries ordered by path); ``scale`` [n_rows]
+    the factor of its block. A path whose triple the header does not hold
+    (l > 3) has triple id ``DEFAULT`` and is walked entry by entry. One row
+    per path, except in the output order of ``path_table(by_output=True)``."""
 
     desc: torch.Tensor
     scale: torch.Tensor
@@ -126,12 +128,21 @@ class CgPaths(NamedTuple):
         return CgPaths(*(t.to(device) for t in self))
 
 
-def path_table(entry_idx, entry_coef, dtype=torch.float32) -> CgPaths:
+def path_table(entry_idx, entry_coef, dtype=torch.float32, by_output=False) -> CgPaths:
     """The path descriptors of an entry table (idx [n, 4] = (i, j, k, p),
     coef [n]), on the CPU. Each path's slices are the ranges its entries
     span, its l's their half-widths; a path with l <= 3 must equal ``scale``
     times the header's block of its triple, entry for entry (raises
-    ValueError otherwise)."""
+    ValueError otherwise). The coefficients must be the float64 ones: a
+    float32 table is no block to ``TOL``.
+
+    ``by_output``: the rows in the order an output-stationary kernel walks
+    them (``csrc/sparse_tp.cu``), by output slice ``k0``, then ``p``, so
+    the rows of one slice are consecutive and the slice can stay in
+    registers while they run. A ``DEFAULT`` path wider than ``SLICE_MAX``
+    output rows takes one row per ``SLICE_MAX``-row chunk of its output
+    (``k0``, ``width``: the chunk), each over all of the path's entries;
+    the kernel keeps those whose output row falls in the chunk."""
     idx = np.asarray(torch.as_tensor(entry_idx).cpu(), dtype=np.int64).reshape(-1, 4)
     coef = np.asarray(torch.as_tensor(entry_coef).cpu(), dtype=np.float64).reshape(-1)
     order = np.argsort(idx[:, 3], kind="stable")
@@ -158,12 +169,30 @@ def path_table(entry_idx, entry_coef, dtype=torch.float32) -> CgPaths:
                     or np.abs(got - scale * block).max() > TOL * max(1.0, abs(scale))):
                 raise ValueError(f"path {p}: its entries are not a multiple of the CG block "
                                  f"of triple {ls}")
-        rows.append([int(p), tid, *map(int, lo), int(n0), int(n1), 0])
+        rows.append([int(p), tid, *map(int, lo), int(n0), int(n1), int(span[2]) + 1])
         scales.append(scale)
+    if by_output:
+        rows, scales = _by_output(rows, scales)
     return CgPaths(torch.tensor(rows, dtype=torch.int32).reshape(-1, DESC_COLS),
                    torch.tensor(scales, dtype=dtype),
                    torch.as_tensor(idx, dtype=torch.int32).contiguous(),
                    torch.as_tensor(coef, dtype=dtype))
+
+
+def _by_output(rows, scales):
+    """``path_table``'s rows in output order, wide ``DEFAULT`` outputs cut
+    into chunks of ``SLICE_MAX`` rows; raises ValueError where two slices
+    overlap without being the same."""
+    out = []
+    for row, scale in zip(rows, scales):
+        k0, width = row[4], row[7]
+        for c in range(0, width, SLICE_MAX):
+            out.append(([*row[:4], k0 + c, *row[5:7], min(SLICE_MAX, width - c)], scale))
+    out.sort(key=lambda rs: (rs[0][4], rs[0][0]))
+    for (a, _), (b, _) in zip(out, out[1:]):
+        if a[4] == b[4] and a[7] != b[7] or a[4] != b[4] and a[4] + a[7] > b[4]:
+            raise ValueError(f"output slices [{a[4]}, +{a[7]}) and [{b[4]}, +{b[7]}) overlap")
+    return [r for r, _ in out], [s for _, s in out]
 
 
 if __name__ == "__main__":

@@ -19,13 +19,16 @@ fallback), and ``fused_tp.LAUNCHES[name]`` counts the launches.
 
 An entry table may come in any of the six role orders of :data:`ROLES`: the
 transposes of the derivative family (``ops/tp_primitives.py``) are the same
-kernel on permuted tables.
+kernel on permuted tables. The kernels walk that order's path table
+(``gen_cg_blocks.path_table(by_output=True)``, built once per layer by
+``nn/contract.py:Contracter``): each path with l <= 3 is one compiled CG
+block of ``csrc/cg_blocks.h``, a path beyond it its entries one by one.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from .fused_tp import (
     _on_cpu,
     _path_tensor,
 )
+from .gen_cg_blocks import CgPaths
 
 Entry = Tuple[int, int, int, int, float]  # (i, j, k, p, c)
 
@@ -97,14 +101,32 @@ def sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U):
 # ---------------------------------------------------------------------------
 
 
-def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int) -> torch.Tensor:
+def _kernel_paths(name, paths: Optional[CgPaths], n_entries: int) -> CgPaths:
+    """The path table a kernel walks; raises where there is none (it is
+    built once per layer, never per call) or it is not in the kernels'
+    types."""
+    if paths is None:
+        raise ValueError(f"{name} on the card walks the table's path table: pass paths "
+                         "(nn/contract.py:Contracter.tp_statics builds them once)")
+    if paths.entry_idx.shape[0] != n_entries:
+        raise ValueError(f"{name}: the path table has {paths.entry_idx.shape[0]} entries, "
+                         f"the entry table {n_entries}")
+    _check_kernel_args({"scale": paths.scale, "paths.entry_coef": paths.entry_coef},
+                       {"desc": paths.desc, "paths.entry_idx": paths.entry_idx})
+    return paths
+
+
+def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int,
+              paths: Optional[CgPaths] = None) -> torch.Tensor:
     """out [E, d3*U]: ``out[e, kU+u] = Σ c w[p,u] a[e,iU+u] b[e,jU+u]``.
     a [E, d1*U], b [E, d2*U], w [P, U], entries (i, j, k, p) / c in any role
-    order; dims up to 32 and P up to 255 on the card.
+    order; on the card also ``paths``, that order's path table in walk
+    order; dims up to 32.
 
     Replaces ``_tp_kernel``. Bound by the reads of a and b and the write of
-    out; one thread per (edge, channel), coalesced rows, the table and w in
-    shared memory."""
+    out; one thread per (edge, channel), coalesced rows, each output slice
+    summed in registers over the compiled CG blocks of its paths and stored
+    once."""
     E, U = a.shape[0], w.shape[1]
     _check_entries(entry_idx, entry_coef)
     if a.ndim != 2 or b.ndim != 2 or w.ndim != 2 or b.shape[0] != E or a.shape[1] % U \
@@ -114,27 +136,30 @@ def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int) -> torch.Tensor:
         )
     if _on_cpu(a, b, w, entry_idx, entry_coef):
         return sparse_tp_reference(a, b, w, entry_idx, entry_coef, d3)
-    _check_kernel_args({"a": a, "b": b, "w": w, "entry_coef": entry_coef},
-                       {"entry_idx": entry_idx})
+    _check_kernel_args({"a": a, "b": b, "w": w}, {})
+    paths = _kernel_paths("sparse_tp", paths, entry_idx.shape[0])
     out = torch.empty((E, d3 * U), dtype=a.dtype, device=a.device)
     if E > 0:
         _launch("sparse_tp", "atpt_sparse_tp", a.device,
-                a.data_ptr(), b.data_ptr(), w.data_ptr(), entry_idx.data_ptr(),
-                entry_coef.data_ptr(), entry_idx.shape[0], E, a.shape[1] // U, b.shape[1] // U,
-                d3, U, w.shape[0], out.data_ptr())
+                a.data_ptr(), b.data_ptr(), w.data_ptr(), paths.desc.data_ptr(),
+                paths.scale.data_ptr(), paths.desc.shape[0], paths.entry_idx.data_ptr(),
+                paths.entry_coef.data_ptr(), E, a.shape[1] // U, b.shape[1] // U, d3, U,
+                w.shape[0], out.data_ptr())
     return out
 
 
 _GRADW_MAX_BLOCKS = 1024  # kGradwMaxBlocks of csrc/sparse_tp.cu (partials [blocks, P, U])
 
 
-def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int) -> torch.Tensor:
+def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int,
+                    paths: Optional[CgPaths] = None) -> torch.Tensor:
     """gw [n_paths, U]: ``gw[p, u] = Σ_e Σ_{(i,j,k)∈p} c a[e,iU+u] b[e,jU+u]
     g[e,kU+u]``, the w-transpose of ``sparse_tp``. a [E, d1*U], b [E, d2*U],
-    g [E, d3*U].
+    g [E, d3*U]; on the card also ``paths`` (as ``sparse_tp``).
 
-    Replaces ``_gradw_kernel``. Bound by the reads of a, b and g; per-block
-    partials summed in a second launch in block order (no float atomics)."""
+    Replaces ``_gradw_kernel``. Bound by the reads of a, b and g; each
+    path's compiled block once per edge and channel, per-block partials
+    summed in a second launch in block order (no float atomics)."""
     E = a.shape[0]
     _check_entries(entry_idx, entry_coef)
     if (a.ndim != 2 or b.ndim != 2 or g.ndim != 2 or b.shape[0] != E or g.shape[0] != E
@@ -145,13 +170,14 @@ def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int) -> tor
         )
     if _on_cpu(a, b, g, entry_idx, entry_coef):
         return sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U)
-    _check_kernel_args({"a": a, "b": b, "g": g, "entry_coef": entry_coef},
-                       {"entry_idx": entry_idx})
+    _check_kernel_args({"a": a, "b": b, "g": g}, {})
+    paths = _kernel_paths("sparse_tp_gradw", paths, entry_idx.shape[0])
     n_blocks = max(1, min(_GRADW_MAX_BLOCKS, -(-E // 64)))
     partial = torch.empty((n_blocks, n_paths, U), dtype=a.dtype, device=a.device)
     gw = torch.empty((n_paths, U), dtype=a.dtype, device=a.device)
     _launch("sparse_tp_gradw", "atpt_sparse_tp_gradw", a.device,
-            a.data_ptr(), b.data_ptr(), g.data_ptr(), entry_idx.data_ptr(),
-            entry_coef.data_ptr(), entry_idx.shape[0], E, a.shape[1] // U, b.shape[1] // U,
-            g.shape[1] // U, U, n_paths, n_blocks, partial.data_ptr(), gw.data_ptr())
+            a.data_ptr(), b.data_ptr(), g.data_ptr(), paths.desc.data_ptr(),
+            paths.scale.data_ptr(), paths.desc.shape[0], paths.entry_idx.data_ptr(),
+            paths.entry_coef.data_ptr(), E, a.shape[1] // U, b.shape[1] // U, g.shape[1] // U, U,
+            n_paths, n_blocks, partial.data_ptr(), gw.data_ptr())
     return gw

@@ -20,11 +20,12 @@ and computes only the cotangents in ``ctx.needs_input_grad``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import pallas_contract
+from .gen_cg_blocks import CgPaths
 from .fused_primitives import _need
 from .pallas_contract import ROLES
 
@@ -40,15 +41,22 @@ def compose(r: int, op: Tuple[int, int, int]) -> int:
 class TpStatics(NamedTuple):
     """The layer's entry table in all six role orders (``entry_idx`` [6, n, 4]
     int32, ``entry_coef`` [6, n], built once per ``Contracter``), its dims
-    ``(d1, d2, d3)`` in order 0 and its number of paths."""
+    ``(d1, d2, d3)`` in order 0, its number of paths and, for the kernels,
+    each role order's path table in walk order (``paths[r]``,
+    ``gen_cg_blocks.path_table(by_output=True)`` of the float64 entries;
+    the plain versions read the entries and need none)."""
 
     entry_idx: torch.Tensor
     entry_coef: torch.Tensor
     dims: Tuple[int, int, int]
     n_paths: int
+    paths: Tuple[CgPaths, ...] = ()
 
     def table(self, r: int):
         return self.entry_idx[r], self.entry_coef[r]
+
+    def walk(self, r: int) -> Optional[CgPaths]:
+        return self.paths[r] if self.paths else None
 
     def out_dim(self, r: int) -> int:
         return self.dims[ROLES[r][2]]
@@ -61,7 +69,7 @@ class SparseTp(torch.autograd.Function):
     def forward(ctx, a, b, w, st: TpStatics, r: int):
         ctx.save_for_backward(a, b, w)
         ctx.st, ctx.r = st, r
-        return pallas_contract.sparse_tp(a, b, w, *st.table(r), st.out_dim(r))
+        return pallas_contract.sparse_tp(a, b, w, *st.table(r), st.out_dim(r), st.walk(r))
 
     @staticmethod
     def backward(ctx, g):
@@ -81,7 +89,7 @@ class SparseTpGradW(torch.autograd.Function):
         ctx.save_for_backward(a, b, g)
         ctx.st, ctx.r = st, r
         U = a.shape[1] // st.dims[ROLES[r][0]]
-        return pallas_contract.sparse_tp_gradw(a, b, g, *st.table(r), st.n_paths, U)
+        return pallas_contract.sparse_tp_gradw(a, b, g, *st.table(r), st.n_paths, U, st.walk(r))
 
     @staticmethod
     def backward(ctx, t):

@@ -67,16 +67,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    bit in every parameter, for the flagship and for it with the spline
    embed and trainable per-type scales and shifts (``TABLE_MODEL``: every
    parameter table read by class, through the class CSR).
-6. the ``pallas`` backend (kernels 20 and 21, ``csrc/sparse_tp.cu``): (a)
-   ``sparse_tp`` and ``sparse_tp_gradw`` against their plain versions on
-   the crystal's 103,532 edges at both layer dims, on the layer's table and
-   its a- and b-swaps, with and without path-channel coupling (1e-5), with
-   median times, the bound and the one PyTorch call computing the same
-   function (``torch.einsum`` with the dense CG tensor; "OOM" where it runs
-   out of memory); (b) 5 force calls of the flagship on ``pallas`` with
-   exact launch counts (6 ``sparse_tp``; the env sums, position gathers and
-   edge-energy sum on the center kernels, 7 + 7), held to ``einsum`` as in
-   phase 3, and its µs/atom; (c) phase 5b/5c on ``pallas``: 10 Adam steps on
+6. the ``pallas`` backend (kernels 20 and 21, ``csrc/sparse_tp.cu``, each
+   walking the role order's path table): (a) ``sparse_tp`` and
+   ``sparse_tp_gradw`` against their plain versions on the crystal's
+   103,532 edges at both layer dims, in all six role orders of the layer's
+   table, with and without path-channel coupling (1e-5; ``sparse_tp_gradw``,
+   whose entries sum ~10^5 edges, against the plain version in float64),
+   with median times (the table and its a- and b-swaps; the plain versions
+   timed in float32), the bound and the one PyTorch call
+   computing the same function (``torch.einsum`` with the dense CG tensor;
+   "OOM" where it runs out of memory); then, checks only, on 103,531 edges
+   (not a whole number of any block's edges), all six orders at U = 16 and
+   48 and on an l = 4 layer (dims 25, 1,158 entries: paths beyond the
+   compiled CG header, walked entry by entry); (b) 5 force calls of the
+   flagship on ``pallas`` with exact launch counts (6 ``sparse_tp``; the
+   env sums, position gathers and edge-energy sum on the center kernels,
+   7 + 7), held to ``einsum`` as in phase 3, its µs/atom and a
+   torch.profiler breakdown of 3 calls; (c) phase 5b/5c on ``pallas``
+   (with 5b's profile of 3 steps on the 1k batch): 10 Adam steps on
    each batch with the exact launch counts of every step, the loss falls,
    first-step gradients within 1e-4 of ``einsum``'s, and 5b/5c's same-bits
    checks; (d) the command line in
@@ -484,7 +492,7 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
 
 
 def check_case(name, kernel, plain, label, records=None, reads=(), flops=0, library=None,
-               plain_timing=None):
+               plain_timing=None, exact=None):
     """One kernel call against its plain version (max|err| / max|ref| <
     KERNEL_TOL); with ``records``, also their median times, accumulated
     there under ``name`` (a kernel name, or ``kernel[variant]``), with the
@@ -492,9 +500,11 @@ def check_case(name, kernel, plain, label, records=None, reads=(), flops=0, libr
     of the outputs (each written once), and ``flops``. ``library``: one
     PyTorch call computing the same function, timed beside them.
     ``plain_timing``: median_ms's keyword arguments for the plain version
-    (the caller's choice; default, median_ms's own)."""
+    (the caller's choice; default, median_ms's own). ``exact``: the plain
+    version in float64, which the kernel is then held to (``plain`` is only
+    timed)."""
     got = kernel()
-    ref = plain()
+    ref = (exact or plain)()
     errs = [rel_err(a, b) for a, b in zip(got, ref)]
     abs_err = max(e[0] for e in errs)
     rel = max(e[1] for e in errs)
@@ -835,13 +845,22 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
 def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
                          plain_timing=None):
     """Phase 6a: ``sparse_tp`` and ``sparse_tp_gradw`` against their plain
-    versions on ``n_edges`` rows, at each layer's dims, on its table and both
-    swaps (the tables of the force call's transposes), ``sparse_tp`` with
-    and without path-channel coupling (the weights of one path equal across
-    channels). Timed (coupled): the median times, summed over the two layers
-    and three table orders, with the one ``torch.einsum`` call that computes
-    the same function from the dense CG tensor (None and "OOM" printed where
-    it runs out of device memory)."""
+    versions on ``n_edges`` rows, at each layer's dims, in all six role
+    orders of its table (each order's path table in walk order, as the
+    kernels take it from ``Contracter.tp_statics``), ``sparse_tp`` with and
+    without path-channel coupling (the weights of one path equal across
+    channels). Timed (coupled; the table and its a- and b-swaps, the orders
+    of the force call and of ``sparse_tp_gradw``'s launches in a training
+    step): the median times, summed over the layers and three orders, with
+    the one ``torch.einsum`` call that computes the same function from the
+    dense CG tensor (None and "OOM" printed where it runs out of device
+    memory). The other three orders (the weight gradient's transposes) are
+    checks only. Each entry of ``sparse_tp_gradw`` sums ~10^5 edges, and the
+    float32 plain version's own error comes near the tolerance at the 3-layer
+    l_max-3 dims (printed beside each case), so the kernel is held to the
+    plain version in float64 (from the float64 entries), as the chunked
+    ``center_sum`` is."""
+    from allegro_tpu_torch.nn.contract import sparse_entries
     from allegro_tpu_torch.ops import fused_tp
     from allegro_tpu_torch.ops import pallas_contract as pc
     from allegro_tpu_torch.ops.tp_primitives import SWAP_A, SWAP_B, compose
@@ -850,32 +869,69 @@ def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
         return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
 
     E = n_edges
+    timed_orders = {0: "table", compose(0, SWAP_A): "swap_a", compose(0, SWAP_B): "swap_b"}
     for layer, tp in enumerate(tps, first):
-        U, P = tp.mul, tp.num_paths
-        for tag, r in (("table", 0), ("swap_a", compose(0, SWAP_A)), ("swap_b", compose(0, SWAP_B))):
-            d1, d2, d3 = ((tp.d1, tp.d2, tp.d3)[s] for s in pc.ROLES[r])
-            idx, coef = tp.tp_idx[r], tp.tp_coef[r]
+        U, P, st = tp.mul, tp.num_paths, tp.tp_statics()
+        idx64, coef64 = (t.to(dev) for t in pc.role_tables(sparse_entries(tp.w3j.cpu().numpy()),
+                                                          torch.float64))
+        for r in range(len(pc.ROLES)):
+            tag = timed_orders.get(r, "".join(map(str, pc.ROLES[r])))
+            d1, d2, d3 = (st.dims[s] for s in pc.ROLES[r])
+            (idx, coef), paths = st.table(r), st.walk(r)
             n = idx.shape[0]
+            timed = records if r in timed_orders else None
             a, b, g = rand(E, d1 * U), rand(E, d2 * U), rand(E, d3 * U)
             a3, b3, g3 = a.view(E, d1, U), b.view(E, d2, U), g.view(E, d3, U)
             C = fused_tp._cg_tensor(a, idx, coef, P, d1, d2, d3)
-            label = f"U {U} layer {layer} {tag:6s} dims ({d1},{d2},{d3}) entries {n:3d}"
+            label = (f"U {U} E {E} layer {layer} {tag:6s} dims ({d1},{d2},{d3}) entries {n:3d} "
+                     f"rows {paths.desc.shape[0]}")
             for coupled in (True, False):
                 w = rand(P, U) if coupled else rand(P, 1).expand(P, U).contiguous()
-                timed = records if coupled else None
                 lib = _fits(lambda: torch.einsum("eiu,eju,pu,pijk->eku", a3, b3, w, C)) \
-                    if coupled and library else None
-                check_case("sparse_tp", lambda: (pc.sparse_tp(a, b, w, idx, coef, d3),),
+                    if coupled and library and timed is not None else None
+                check_case("sparse_tp", lambda: (pc.sparse_tp(a, b, w, idx, coef, d3, paths),),
                            lambda: (pc.sparse_tp_reference(a, b, w, idx, coef, d3),),
-                           f"{label} {'coupled' if coupled else 'uncoupled'}", timed,
-                           (a, b, w, idx, coef), 3 * E * n * U, lib, plain_timing=plain_timing)
+                           f"{label} {'coupled' if coupled else 'uncoupled'}",
+                           timed if coupled else None, (a, b, w, idx, coef), 3 * E * n * U, lib,
+                           plain_timing=plain_timing)
             lib = _fits(lambda: torch.einsum("eiu,eju,eku,pijk->pu", a3, b3, g3, C)) \
-                if library else None
-            check_case("sparse_tp_gradw", lambda: (pc.sparse_tp_gradw(a, b, g, idx, coef, P, U),),
-                       lambda: (pc.sparse_tp_gradw_reference(a, b, g, idx, coef, P, U),), label,
-                       records, (a, b, g, idx, coef), 4 * E * n * U, lib, plain_timing=plain_timing)
+                if library and timed is not None else None
+            exact = pc.sparse_tp_gradw_reference(a.double(), b.double(), g.double(), idx64[r],
+                                                 coef64[r], P, U)
+            plain_rel = rel_err(pc.sparse_tp_gradw_reference(a, b, g, idx, coef, P, U), exact)[1]
+            print(f"    the float32 plain sparse_tp_gradw against float64: rel {plain_rel:.3e}")
+            check_case("sparse_tp_gradw",
+                       lambda: (pc.sparse_tp_gradw(a, b, g, idx, coef, P, U, paths),),
+                       lambda: (pc.sparse_tp_gradw_reference(a, b, g, idx, coef, P, U),),
+                       f"{label} (vs float64)", timed, (a, b, g, idx, coef), 4 * E * n * U, lib,
+                       plain_timing=plain_timing, exact=lambda: (exact,))
+            del exact
             del a, b, g, a3, b3, g3, C
             torch.cuda.empty_cache()
+
+
+def check_pallas_shapes(n_edges, dev, rng):
+    """Phase 6a, checks only, on ``n_edges`` rows (odd: not a whole number of
+    any block's edges): both kernels in all six role orders of the
+    flagship's layers at U = 16 and 48 (a warp spans two edges; an edge
+    spans warps), and of a layer with paths beyond the compiled header (the
+    l_max-4 model's layer 0 at U = 32: dims 25, 1,158 entries; each l = 4
+    output slice walked in two chunks, entry by entry)."""
+    from allegro_tpu_torch.nn.contract import Contracter
+    from allegro_tpu_torch.ops import gen_cg_blocks
+
+    layers = [Contracter(*irreps, mul, kernel_backend="pallas")
+              for mul in (16, 48)
+              for irreps in (("1x0e+1x1o+1x2e",) * 3, ("1x0e+1x1o+1x2e",) * 2 + ("1x0e",))]
+    l4 = "+".join(f"1x{l}{'e' if l % 2 == 0 else 'o'}" for l in range(5))
+    layers.append(Contracter(l4, l4, l4, 32, kernel_backend="pallas"))
+    desc = layers[-1].tp_statics().walk(0).desc
+    beyond = int((desc[:, 1] == gen_cg_blocks.DEFAULT).sum())
+    if beyond == 0:
+        raise AssertionError("the l = 4 layer has no path beyond the header")
+    print(f"    l = 4 layer: {beyond} of its {desc.shape[0]} rows beyond the header")
+    for tp in layers:
+        check_pallas_kernels([tp.to(dev)], n_edges, dev, rng, None, library=False)
 
 
 def _fits(fn):
@@ -947,7 +1003,7 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
     bits in energy, forces and virial, then TRAIN_STEPS Adam
     steps through ``Trainer.fit`` with the launch counts of every step
     (``per_step``), two identical runs of TRAIN_REPEAT_STEPS steps, and (1k
-    batch, ``fused``) a torch.profiler trace of 3 steps. Returns the launches
+    batch) a torch.profiler trace of 3 steps. Returns the launches
     of each batch's TRAIN_STEPS steps."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.model import AllegroModel
@@ -1047,7 +1103,7 @@ def run_training(loaders, dev, smi, backend="fused", per_step=PER_STEP, labels=(
         print(f"    max |dparam| of two identical runs of {TRAIN_REPEAT_STEPS} steps: {delta:.3e}")
         if delta != 0.0:
             raise AssertionError(f"{name}: two identical runs on {backend} differ by {delta:.3e}")
-        if name == "1k" and backend == "fused":
+        if name == "1k":
             profile_steps(again, s, loader)
     return launches
 
@@ -1627,11 +1683,13 @@ def main() -> int:
     pallas.load_state_dict(fused.state_dict())
     print(f"[6] pallas kernels on the crystal's {n_edges} edges")
     check_pallas_kernels(pallas.module.allegro.tps, n_edges, dev, rng, records)
+    check_pallas_shapes(n_edges - 1, dev, rng)
     pallas_data = to_torch(pallas.precompute_statics(batch_np), dtype=torch.float32, device=dev)
     launches["pallas"], us["pallas"] = drive_force_calls("6b", "pallas", pallas, pallas_data, ref,
                                                          n_atoms, n_rows)
     print(f"    force call: pallas {us['pallas']:.3f} us/atom, einsum {us['einsum']:.3f} us/atom "
           f"({n_atoms} atoms, f32; {smi})")
+    profile_calls(lambda: pallas.apply_with_derivatives(pallas_data), 3, "flagship, pallas")
     del pallas_data
     torch.cuda.empty_cache()
     pallas_train = run_training(loaders, dev, smi, "pallas", PER_STEP_PALLAS, ("6c", "6c"))

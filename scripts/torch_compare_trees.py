@@ -12,7 +12,15 @@ Each run times, with that tree's package:
 - ``force_us_per_atom``: the flagship on ``pallas`` on the 4,096-atom
   crystal (f32, random weights from seed 0): the mean of 20 force calls
   after 3 warm-up calls, host clock, in µs per atom; ``launches_per_call``
-  its kernel launches;
+  its kernel launches; ``pallas_busy_ms`` and ``pallas_idle_pct`` its
+  device time per call and idle share under torch.profiler (3 calls);
+  ``pallas_lmax3_*`` the same for its l_max-3 twin (``chip_smoke.LMAX3``);
+- ``sparse_tp_ms`` and ``sparse_tp_gradw_ms``: device times from CUDA
+  events of the two ``pallas`` kernels on the force call's edges, summed
+  over the table and its a- and b-swaps (the orders of the force call's
+  launches and of the training step's weight gradients) at both flagship
+  layers, and (``*_lmax3_ms``) at the l_max-3 model's layer 0, with the
+  path tables the tree's layers cache where it has them;
 - ``train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``pallas`` on the 4 x 1,000-atom batch: the median of 10 steps after 2,
   host clock;
@@ -120,6 +128,41 @@ def kernel_times(smoke, allegro, data) -> dict:
     return ms
 
 
+def pallas_kernel_times(smoke, tps, n_edges, dev) -> dict:
+    """Device ms, from CUDA events, of sparse_tp and sparse_tp_gradw on
+    ``n_edges`` rows, summed over the layers ``tps`` and the three role
+    orders of the force call (the table, its a- and b-swap), each through
+    the tree's wrapper, with the order's path table where the tree's layers
+    cache one."""
+    import numpy as np
+    import torch
+
+    from allegro_tpu_torch.ops import pallas_contract as pc
+    from allegro_tpu_torch.ops.tp_primitives import SWAP_A, SWAP_B, compose
+
+    rng = np.random.RandomState(smoke.SEED)
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    ms = {"sparse_tp_ms": 0.0, "sparse_tp_gradw_ms": 0.0}
+    for tp in tps:
+        U, P = tp.mul, tp.num_paths
+        st = tp.tp_statics() if hasattr(tp, "tp_statics") else None
+        for r in (0, compose(0, SWAP_A), compose(0, SWAP_B)):
+            d1, d2, d3 = ((tp.d1, tp.d2, tp.d3)[s] for s in pc.ROLES[r])
+            idx, coef = tp.tp_idx[r], tp.tp_coef[r]
+            paths = (st.walk(r),) if st is not None else ()
+            a, b, g = rand(n_edges, d1 * U), rand(n_edges, d2 * U), rand(n_edges, d3 * U)
+            w = rand(P, U)
+            ms["sparse_tp_ms"] += smoke.median_ms(
+                lambda: pc.sparse_tp(a, b, w, idx, coef, d3, *paths))
+            ms["sparse_tp_gradw_ms"] += smoke.median_ms(
+                lambda: pc.sparse_tp_gradw(a, b, g, idx, coef, P, U, *paths))
+            del a, b, g
+    return ms
+
+
 def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -152,6 +195,24 @@ def measure(tree: Path) -> dict:
     torch.cuda.synchronize()
     out["force_us_per_atom"] = (time.perf_counter() - t0) / FORCE_CALLS / n_atoms * 1e6
     out["launches_per_call"] = {k: c // FORCE_CALLS for k, c in fused_tp.LAUNCHES.items() if c}
+    prof = smoke.profile_calls(lambda: model.apply_with_derivatives(data), 3, "pallas")
+    if prof is not None:
+        out["pallas_busy_ms"], out["pallas_idle_pct"] = prof[0], prof[1]
+    out.update(pallas_kernel_times(smoke, model.module.allegro.tps, n_edges, dev))
+    del model, data
+    torch.cuda.empty_cache()
+
+    model = AllegroModel(**smoke.LMAX3, avg_num_neighbors=n_edges / n_atoms,
+                         tp_kernel_backend="pallas").init(smoke.SEED).to(dev)
+    data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
+                    dtype=torch.float32, device=dev)
+    out["pallas_lmax3_us_per_atom"] = smoke.time_force_call(model, data, n_atoms, FORCE_CALLS)
+    prof = smoke.profile_calls(lambda: model.apply_with_derivatives(data), 3, "pallas_lmax3")
+    if prof is not None:
+        out["pallas_lmax3_busy_ms"], out["pallas_lmax3_idle_pct"] = prof[0], prof[1]
+    for key, ms in pallas_kernel_times(smoke, model.module.allegro.tps[:1], n_edges,
+                                       dev).items():
+        out[key.replace("_ms", "_lmax3_ms")] = ms
     del model, data
     torch.cuda.empty_cache()
 
