@@ -1,16 +1,18 @@
 // Allegro tensor-product layer kernels for Hopper (sm_90a), float32.
 //
-// The four kernels of one Allegro layer on the inference backend
-// (`tp_kernel_backend="fused_infer"` without the mega kernels). Each replaces
-// one Pallas TPU kernel of allegro_tpu/ops/fused_tp.py and computes the same
-// function, in atom space instead of the TPU's rank-window space:
+// Three of the four kernels of one Allegro layer on the inference backend
+// (`tp_kernel_backend="fused_infer"` without the mega kernels); the fourth,
+// gather_tp, walks compiled CG paths in csrc/sparse_tp.cu beside the
+// `pallas` backend's per-edge product, which differs from it only in where
+// its second input's row comes from. Each replaces one Pallas TPU kernel of
+// allegro_tpu/ops/fused_tp.py and computes the same function, in atom space
+// instead of the TPU's rank-window space:
 //
 //   env_scatter   env[a, jU+u] = sum_{c(e)=a} sh[e,j] * wexp[e, irr(j)U+u]
-//   gather_tp     out[e, kU+u] = sum_n c_n w[p_n,u] x[e, i_nU+u] env[c(e), j_nU+u]
-//                 (optionally also ts[e, u] = out[e, u], the leading 0e block)
 //   bwd_fused     dx[e, iU+u]  = sum_n c_n w[p_n,u] g[e, k_nU+u] env[c(e), j_nU+u]
 //                 denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u]
-//                 (optionally with g[e, u] += gts[e, u], the cotangent of ts,
+//                 (the backward of gather_tp; optionally with g[e, u] += gts[e, u],
+//                 the cotangent of gather_tp's split output ts,
 //                 and optionally also dw[p, u] = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u]
 //                 env[c(e), j_nU+u] g[e, k_nU+u], the weight gradient)
 //   unweight_both dsh[e, j]   = sum_u t[c(e), jU+u] * wexp[e, irr(j)U+u]
@@ -57,60 +59,6 @@ __global__ void env_scatter_kernel(const float* __restrict__ sh, const float* __
     float s = 0.f;
     for (int e = start; e < end; ++e) s += sh[(long long)e * d2 + j] * wexp[e * wstride + wcol];
     env[(long long)a * cols + col] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gather_tp
-// Replaces allegro_tpu/ops/fused_tp.py:_gather_tp_raw_kernel (gather_tp_raw_call).
-// Bound: one read of x [E, d1*U] and one write of out [E, d3*U]; env rows are
-// re-read by the ~25 edges of each atom and stay in L1/L2. Design: one warp
-// per edge, lane = channel u (U = 32 is exactly one warp; other U loop in
-// chunks of 32), so every load and store is a coalesced 128-byte row piece.
-// The k-accumulators live in shared memory, one slot per lane. With ``ts``
-// (the split scalar output), block k = 0 is also written to its own [E, U]
-// array, so the latent MLP reads a contiguous [E, U] and its cotangent stays
-// a separate [E, U] array instead of a zero-padded [E, d3*U] one.
-// ---------------------------------------------------------------------------
-__global__ void gather_tp_kernel(const float* __restrict__ x, const float* __restrict__ env,
-                                 const float* __restrict__ w, const int* __restrict__ centers,
-                                 const int* __restrict__ eidx, const float* __restrict__ ecoef,
-                                 int n_entries, long long n_edges, int n_atoms, int d1, int d2,
-                                 int d3, int U, float* __restrict__ out,
-                                 float* __restrict__ ts) {
-  extern __shared__ unsigned char smem[];
-  int* s_idx = reinterpret_cast<int*>(smem);
-  float* s_coef = reinterpret_cast<float*>(s_idx + 4 * n_entries);
-  float* s_acc = s_coef + n_entries;
-  load_entries(eidx, ecoef, n_entries, s_idx, s_coef);
-  __syncthreads();
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  float* acc = s_acc + warp * d3 * kWarp;
-  for (long long e = (long long)blockIdx.x * wpb + warp; e < n_edges;
-       e += (long long)gridDim.x * wpb) {
-    const int c = centers[e];
-    const bool valid = c >= 0 && c < n_atoms;
-    const float* xe = x + e * d1 * U;
-    const float* ee = env + (valid ? (long long)c * d2 * U : 0);
-    float* oe = out + e * d3 * U;
-    float* tse = ts ? ts + e * U : nullptr;
-    for (int u0 = 0; u0 < U; u0 += kWarp) {
-      const int u = u0 + lane;
-      const bool act = u < U;
-      for (int k = 0; k < d3; ++k) acc[k * kWarp + lane] = 0.f;
-      if (act && valid) {
-        for (int n = 0; n < n_entries; ++n) {
-          const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
-                    p = s_idx[4 * n + 3];
-          acc[k * kWarp + lane] += s_coef[n] * w[p * U + u] * xe[i * U + u] * ee[j * U + u];
-        }
-      }
-      if (act) {
-        for (int k = 0; k < d3; ++k) oe[k * U + u] = acc[k * kWarp + lane];
-        if (tse) tse[u] = acc[lane];
-      }
-    }
   }
 }
 
@@ -302,18 +250,6 @@ int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr,
   env_scatter_kernel<<<n_atoms, threads, 0, (cudaStream_t)stream>>>(sh, wexp, row_ptr,
                                                                      dim_to_irr, d2, n_irr, U,
                                                                      env);
-  return (int)cudaGetLastError();
-}
-
-int atpt_gather_tp(const float* x, const float* env, const float* w, const int* centers,
-                   const int* eidx, const float* ecoef, int n_entries, long long n_edges,
-                   int n_atoms, int d1, int d2, int d3, int U, float* out, float* ts,
-                   void* stream) {
-  size_t smem = (size_t)n_entries * 5 * sizeof(float) + (size_t)kEdgeWarps * d3 * kWarp * 4;
-  cudaError_t err = prepare_smem(gather_tp_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gather_tp_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, smem, (cudaStream_t)stream>>>(
-      x, env, w, centers, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, out, ts);
   return (int)cudaGetLastError();
 }
 

@@ -1,26 +1,35 @@
-// The per-edge sparse Clebsch-Gordan tensor product of the `pallas` backend
-// for Hopper (sm_90a), float32, and its weight gradient:
+// The sparse Clebsch-Gordan tensor product for Hopper (sm_90a), float32, and
+// its weight gradient, on a second input read per edge (the `pallas`
+// backend) or gathered by the edge's center (the `fused` and `fused_infer`
+// backends):
 //
 //   sparse_tp        out[e, kU+u] = sum_n c_n w[p_n, u] a[e, i_nU+u] b[e, j_nU+u]
 //   sparse_tp_gradw  gw[p, u]     = sum_e sum_{n: p_n=p} c_n a[e, i_nU+u] b[e, j_nU+u] g[e, k_nU+u]
+//   gather_tp        out[e, kU+u] = sum_n c_n w[p_n, u] x[e, i_nU+u] env[c(e), j_nU+u]
+//                    (optionally also ts[e, u] = out[e, u], the leading 0e block)
+//   gather_dw        dw[p, u]     = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u] env[c(e), j_nU+u] g[e, k_nU+u]
 //
 // The `pallas` backend (`tp_kernel_backend="pallas"`) sums the environment
 // first (on the center kernels, csrc/center_readout.cu) and then contracts
-// two per-edge arrays: nothing is gathered by center here, every row of a, b,
-// g and out belongs to one edge.
+// two per-edge arrays: nothing is gathered by center in sparse_tp and
+// sparse_tp_gradw, every row of a, b, g and out belongs to one edge. The
+// fused backends keep the environment per atom and gather_tp / gather_dw read
+// row c(e) of it for each edge (see their section below).
 // The table is the caller's: the layer's own, or one of its role
-// permutations (the transposes of the derivative family,
-// allegro_tpu_torch/ops/tp_primitives.py), so a, b and out may have any of
-// the layer's dims in any order. Both kernels walk it by path, not by entry
-// (gen_cg_blocks.path_table(by_output=True): rows (p, triple id, i0, j0, k0,
-// n0, n1, width) ordered by output slice k0, then p). A path with l <= 3 is
-// one block of cg_blocks.h (CgBlock::fwd: its coefficients are literals in
-// straight-line FMAs on register arrays) times the row's scale; a path
-// beyond the header (l > 3) walks its entries [n0, n1) one by one, those
-// whose output row falls in the row's slice [k0, k0 + width).
+// permutations (the transposes of the derivative families,
+// allegro_tpu_torch/ops/tp_primitives.py and ops/fused_primitives.py), so
+// the inputs and out may have any of the layer's dims in any order. All four
+// kernels walk it by path, not by entry (gen_cg_blocks.path_table(by_output=True):
+// rows (p, triple id, i0, j0, k0, n0, n1, width) ordered by output slice k0,
+// then p). A path with l <= 3 is one block of cg_blocks.h (CgBlock::fwd: its
+// coefficients are literals in straight-line FMAs on register arrays) times
+// the row's scale; a path beyond the header (l > 3) walks its entries
+// [n0, n1) one by one, those whose output row falls in the row's slice
+// [k0, k0 + width).
 // Layout: per-edge arrays are row-major with the flat dim-major track
 // (column i*U+u is basis dim i, channel u), w and gw are [P, U]. Padded
-// edges are rows like any other: the caller's cotangents are zero there.
+// edges of the per-edge kernels are rows like any other: the caller's
+// cotangents are zero there.
 // Every sum runs in a fixed order (no atomics), so two identical calls give
 // identical bits. Each kernel runs on the caller's stream and allocates
 // nothing; each entry point returns cudaGetLastError().
@@ -293,6 +302,176 @@ int check_tp_dims(int d1, int d2, int d3, int P, int n_rows) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// gather_tp, gather_dw
+// gather_tp replaces allegro_tpu/ops/fused_tp.py:_gather_tp_raw_kernel
+// (gather_tp_raw_call) and, on the role-swapped table, _gather_tp_kernel
+// (gather_tp_call), whose two env windows are one env array here: the
+// forward of the fused backends and the x-transpose of the trainable one.
+// gather_dw replaces _gather_dw_kernel (gather_dw_call), gather_tp's weight
+// transpose. They are sparse_tp's and sparse_tp_gradw's walks (TpRow,
+// GradwRow, the same path table) with the b column read from env
+// [n_atoms, d2*U] at row c(e), the edge's center.
+// Bound: one read of x [E, d1*U] and one write of out [E, d3*U] (gather_tp),
+// one read each of x and g (gather_dw); the env rows (4.7 MB at the flagship,
+// 8.4 MB at l_max 3) are re-read by the ~25 consecutive edges of an atom and
+// stay in L1/L2. Design: as sparse_tp (one thread per (edge, channel), a
+// persistent grid, the x and env columns into the thread's shared-memory
+// columns by cp.async, each output slice summed in registers over its rows
+// and stored once) and sparse_tp_gradw (a fixed grid of E alone, each path's
+// block dotted with g's slice into the thread's shared-memory column of path
+// sums, the partials added in block order). What the gather adds: a sentinel
+// edge (center n_atoms, after row_ptr[n_atoms]) reads nothing, since its
+// padded x row may hold anything: gather_tp stores zeros to its out row (and
+// ts), gather_dw skips it. With ts (the split scalar output), row 0 of the
+// slice that starts at 0 goes to ts from the same register as to out, so
+// ts == out[:, :U] bit for bit.
+// Kernels of their own, not a template shared with sparse_tp and
+// sparse_tp_gradw: that template compiled kernels 20 and 21 to other
+// schedules (the same registers) that measured ~3% slower at the l_max-3
+// shapes on the H100. gather_tp's launch bounds hold it to 48 registers (56
+// without them: 9 blocks per SM instead of 10), 3-4% faster; at 12 blocks
+// per SM it spills.
+// ---------------------------------------------------------------------------
+
+constexpr int kGatherMinBlocks = 10;  // gather_tp's blocks per SM: at most 51 registers a thread
+
+// The env row edge e reads: its center, or -1 for a sentinel edge (a center
+// outside [0, n_atoms)).
+__device__ __forceinline__ int center_row(const int* __restrict__ centers, long long e,
+                                          int n_atoms) {
+  const int c = __ldg(centers + e);
+  return c >= 0 && c < n_atoms ? c : -1;
+}
+
+// Zeros to rows [k0, k1) of one output column, and to ts where row 0 is one.
+__device__ __forceinline__ void zero_rows(float* o, float* ts, int k0, int k1, int U) {
+  for (int k = k0; k < k1; ++k) o[(long long)k * U] = 0.f;
+  if (ts && k0 == 0 && k1 > 0) *ts = 0.f;
+}
+
+// store_slice, and with ts row 0 there too, from the same register.
+__device__ __forceinline__ void store_slice_ts(float* o, float* ts,
+                                               const float (&acc)[kSliceMax], int k0, int width,
+                                               int U) {
+  store_slice(o, acc, k0, width, U);
+  if (ts && k0 == 0) *ts = acc[0];
+}
+
+__global__ void __launch_bounds__(kTpThreads, kGatherMinBlocks) gather_tp_kernel(
+    const float* __restrict__ x, const float* __restrict__ env, const float* __restrict__ w,
+    const int* __restrict__ centers, const int* __restrict__ desc,
+    const float* __restrict__ dscale, int n_rows, const int* __restrict__ eidx,
+    const float* __restrict__ ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
+    int U, float* __restrict__ out, float* __restrict__ ts) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
+  float* s_ws = smem + n_rows * kDescCols;        // [n_rows][U]
+  float* s_col = s_ws + n_rows * U;               // [d1 + d2][T]
+  load_desc(desc, n_rows, reinterpret_cast<int*>(s_desc));
+  __syncthreads();
+  for (int q = tid; q < n_rows * U; q += T) {
+    const int r = q / U;
+    s_ws[q] = w[s_desc[2 * r].x * U + (q - r * U)] * dscale[r];
+  }
+  __syncthreads();
+  float* col = s_col + tid;  // the thread's x and env columns
+  const long long work = n_edges * U;
+  for (long long t = (long long)blockIdx.x * T + tid; t < work; t += (long long)gridDim.x * T) {
+    const long long e = t / U;
+    const int u = (int)(t - e * U);
+    float* o = out + e * d3 * U + u;
+    float* tso = ts ? ts + e * U + u : nullptr;
+    const int ctr = center_row(centers, e, n_atoms);
+    if (ctr < 0) {  // a sentinel edge: a zero row
+      zero_rows(o, tso, 0, d3, U);
+      continue;
+    }
+    stage_column(x + e * d1 * U + u, d1, U, col, T);
+    stage_column(env + (long long)ctr * d2 * U + u, d2, U, col + d1 * T, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    TpRow f{col, col + d1 * T, T, 0, 0, 0.f, {}};
+    int k0 = -1, width = 0, next = 0;  // the current slice; the first row no slice has written
+    for (int q = 0; q < n_rows; ++q) {
+      // (p, triple id, i0, j0) and (k0, n0, n1, width)
+      const int4 dp = s_desc[2 * q], dk = s_desc[2 * q + 1];
+      if (dk.x != k0) {
+        if (k0 >= 0) {
+          store_slice_ts(o, tso, f.acc, k0, width, U);
+          next = k0 + width;
+        }
+        k0 = dk.x;
+        width = dk.w;
+        zero_rows(o, tso, next, k0, U);
+#pragma unroll
+        for (int c = 0; c < kSliceMax; ++c) f.acc[c] = 0.f;
+      }
+      f.i0 = dp.z;
+      f.j0 = dp.w;
+      f.ws = s_ws[q * U + u];
+      if (!cg_dispatch(dp.y, f)) f.entries(eidx, ecoef, dk.y, dk.z, k0, width);
+    }
+    if (k0 >= 0) {
+      store_slice_ts(o, tso, f.acc, k0, width, U);
+      next = k0 + width;
+    }
+    zero_rows(o, tso, next, d3, U);
+  }
+}
+
+__global__ void gather_dw_partial_kernel(
+    const float* __restrict__ x, const float* __restrict__ env, const float* __restrict__ g,
+    const int* __restrict__ centers, const int* __restrict__ desc,
+    const float* __restrict__ dscale, int n_rows, const int* __restrict__ eidx,
+    const float* __restrict__ ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
+    int U, int P, float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int epb = T / U, slot = tid / U, u = tid - slot * U;
+  int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
+  float* s_scale = smem + n_rows * kDescCols;     // [n_rows]
+  float* s_acc = s_scale + n_rows;                // [P][T]
+  float* s_col = s_acc + P * T;                   // [d1 + d2 + d3][T]
+  load_desc(desc, n_rows, reinterpret_cast<int*>(s_desc));
+  for (int q = tid; q < n_rows; q += T) s_scale[q] = dscale[q];
+  for (int p = 0; p < P; ++p) s_acc[p * T + tid] = 0.f;
+  __syncthreads();
+  float* col = s_col + tid;  // the thread's x, env and g columns
+  for (long long e = (long long)blockIdx.x * epb + slot; e < n_edges;
+       e += (long long)gridDim.x * epb) {
+    const int ctr = center_row(centers, e, n_atoms);
+    if (ctr < 0) continue;  // a sentinel edge adds nothing
+    stage_column(x + e * d1 * U + u, d1, U, col, T);
+    stage_column(env + (long long)ctr * d2 * U + u, d2, U, col + d1 * T, T);
+    stage_column(g + e * d3 * U + u, d3, U, col + (d1 + d2) * T, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    GradwRow f{col, col + d1 * T, col + (d1 + d2) * T, T, 0, 0, 0, 0.f};
+    for (int q = 0; q < n_rows; ++q) {
+      // (p, triple id, i0, j0) and (k0, n0, n1, width)
+      const int4 dp = s_desc[2 * q], dk = s_desc[2 * q + 1];
+      f.i0 = dp.z;
+      f.j0 = dp.w;
+      f.k0 = dk.x;
+      float* acc = s_acc + dp.x * T + tid;
+      if (cg_dispatch(dp.y, f))
+        *acc = fmaf(s_scale[q], f.dot, *acc);
+      else
+        *acc += f.entries(eidx, ecoef, dk.y, dk.z, dk.w);
+    }
+  }
+  __syncthreads();
+  const int PU = P * U;
+  for (int q = tid; q < PU; q += T) {
+    const int p = q / U, uu = q - p * U;
+    float s = 0.f;
+    for (int sl = 0; sl < epb; ++sl) s += s_acc[p * T + sl * U + uu];
+    partial[(long long)blockIdx.x * PU + q] = s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -336,6 +515,50 @@ int atpt_sparse_tp_gradw(const float* a, const float* b, const float* g, const i
   const int PU = P * U;
   partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
                                                                             PU, gw);
+  return (int)cudaGetLastError();
+}
+
+
+// env [n_atoms, d2*U], centers [E]; ts: null, or [E, U] for the split
+// output; the path table as in atpt_sparse_tp.
+int atpt_gather_tp(const float* x, const float* env, const float* w, const int* centers,
+                   const int* desc, const float* dscale, int n_rows, const int* eidx,
+                   const float* ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
+                   int U, int P, float* out, float* ts, void* stream) {
+  if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
+  const int T = kTpThreads;
+  const size_t smem = (size_t)n_rows * (kDescCols + U) * sizeof(float) +
+                      (size_t)(d1 + d2) * T * sizeof(float);
+  cudaError_t err = prepare_smem(gather_tp_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = persistent_blocks(gather_tp_kernel, T, smem, n_edges * U, T);
+  gather_tp_kernel<<<blocks, T, smem, (cudaStream_t)stream>>>(
+      x, env, w, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U,
+      out, ts);
+  return (int)cudaGetLastError();
+}
+
+// partial and n_blocks as in atpt_sparse_tp_gradw.
+int atpt_gather_dw(const float* x, const float* env, const float* g, const int* centers,
+                   const int* desc, const float* dscale, int n_rows, const int* eidx,
+                   const float* ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
+                   int U, int P, int n_blocks, float* partial, float* dw, void* stream) {
+  if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
+  if (U < 1 || U > 1024 || n_blocks < 1 || n_blocks > kGradwMaxBlocks)
+    return (int)cudaErrorInvalidValue;
+  const int T = U * (U < kTpThreads ? kTpThreads / U : 1);
+  const size_t smem = (size_t)n_rows * (kDescCols + 1) * sizeof(float) +
+                      (size_t)(P + d1 + d2 + d3) * T * sizeof(float);
+  cudaError_t err = prepare_smem(gather_dw_partial_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  gather_dw_partial_kernel<<<n_blocks, T, smem, (cudaStream_t)stream>>>(
+      x, env, g, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U, P,
+      partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int PU = P * U;
+  partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
+                                                                            PU, dw);
   return (int)cudaGetLastError();
 }
 

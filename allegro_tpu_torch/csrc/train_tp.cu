@@ -1,16 +1,17 @@
 // Allegro tensor-product kernels of the trainable backend for Hopper
 // (sm_90a), float32.
 //
-// The trainable backend (`tp_kernel_backend="fused"`) runs env_scatter and
-// gather_tp (csrc/fused_tp.cu) forward, and its derivatives are the closed
-// family of allegro_tpu/ops/fused_primitives.py: every transpose is again one
-// of the family with permuted roles, so the double backward of force training
-// stays on the kernels. This file holds the four members that are not in
-// fused_tp.cu; each replaces one Pallas TPU kernel of allegro_tpu/ops/fused_tp.py
-// and computes its function in atom space instead of the TPU's rank windows:
+// The trainable backend (`tp_kernel_backend="fused"`) runs env_scatter
+// (csrc/fused_tp.cu) and gather_tp (csrc/sparse_tp.cu) forward, and its
+// derivatives are the closed family of allegro_tpu/ops/fused_primitives.py:
+// every transpose is again one of the family with permuted roles, so the
+// double backward of force training stays on the kernels. This file holds
+// three of the members; gather_dw, the weight transpose, walks compiled CG
+// paths in csrc/sparse_tp.cu. Each replaces one Pallas TPU kernel of
+// allegro_tpu/ops/fused_tp.py and computes its function in atom space
+// instead of the TPU's rank windows:
 //
 //   tp_scatter   denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u]
-//   gather_dw    dw[p, u]      = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u] env[c(e), j_nU+u] g[e, k_nU+u]
 //   unweight_sh  dsh[e, j]     = sum_u t[c(e), jU+u] wexp[e, irr(j)U+u]
 //   unweight_w   dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] sh[e, j]
 //
@@ -72,61 +73,6 @@ __global__ void tp_scatter_kernel(const float* __restrict__ x, const float* __re
     float s = 0.f;
     for (int q = 0; q < wpb; ++q) s += s_den[q * d2U + col];
     denv[(long long)a * d2U + col] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// gather_dw
-// Replaces allegro_tpu/ops/fused_tp.py:_gather_dw_kernel (gather_dw_call).
-// Bound: one read each of x [E, d1*U] and g [E, d3*U] (~71 us at layer 0, as
-// tp_scatter); env rows are re-read by the edges of an atom and stay in L1/L2.
-// Design: a reduction of all edges into [P, U]. The TPU kernel carries the sum
-// from one grid step to the next; here a fixed grid of blocks each sums a
-// fixed, strided share of the edges (one warp per edge, lane = channel, the
-// per-path sums in the warp's own shared-memory row) and writes its partial
-// [P, U]; a second launch adds the partials in block order. No float atomics,
-// so two identical training steps give identical weight gradients. Sentinel
-// edges are skipped: their env row is zero.
-// ---------------------------------------------------------------------------
-__global__ void gather_dw_partial_kernel(const float* __restrict__ x,
-                                         const float* __restrict__ env,
-                                         const float* __restrict__ g,
-                                         const int* __restrict__ centers,
-                                         const int* __restrict__ eidx,
-                                         const float* __restrict__ ecoef, int n_entries,
-                                         long long n_edges, int n_atoms, int d1, int d2, int d3,
-                                         int U, int P, float* __restrict__ partial) {
-  extern __shared__ unsigned char smem[];
-  int* s_idx = reinterpret_cast<int*>(smem);
-  float* s_coef = reinterpret_cast<float*>(s_idx + 4 * n_entries);
-  const int wpb = blockDim.x / kWarp;
-  const int PU = P * U;
-  float* s_acc = s_coef + n_entries;  // [wpb][P*U]
-  load_entries(eidx, ecoef, n_entries, s_idx, s_coef);
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  float* acc = s_acc + warp * PU;
-  for (int t = lane; t < PU; t += kWarp) acc[t] = 0.f;
-  __syncthreads();
-  for (long long e = (long long)blockIdx.x * wpb + warp; e < n_edges;
-       e += (long long)gridDim.x * wpb) {
-    const int c = centers[e];
-    if (c < 0 || c >= n_atoms) continue;  // uniform across the warp
-    const float* xe = x + e * d1 * U;
-    const float* ee = env + (long long)c * d2 * U;
-    const float* ge = g + e * d3 * U;
-    for (int u = lane; u < U; u += kWarp) {
-      for (int n = 0; n < n_entries; ++n) {
-        const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
-                  p = s_idx[4 * n + 3];
-        acc[p * U + u] += s_coef[n] * xe[i * U + u] * ee[j * U + u] * ge[k * U + u];
-      }
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < PU; t += blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < wpb; ++q) s += s_acc[q * PU + t];
-    partial[(long long)blockIdx.x * PU + t] = s;
   }
 }
 
@@ -221,28 +167,6 @@ int atpt_tp_scatter(const float* x, const float* g, const float* w, const int* r
   if (err != cudaSuccess) return (int)err;
   tp_scatter_kernel<<<n_atoms, warps * kWarp, smem, (cudaStream_t)stream>>>(
       x, g, w, row_ptr, eidx, ecoef, n_entries, d1, d2, d3, U, denv);
-  return (int)cudaGetLastError();
-}
-
-// partial: scratch [n_blocks, P, U]; the grid of the first pass is n_blocks.
-int atpt_gather_dw(const float* x, const float* env, const float* g, const int* centers,
-                   const int* eidx, const float* ecoef, int n_entries, long long n_edges,
-                   int n_atoms, int d1, int d2, int d3, int U, int P, int n_blocks,
-                   float* partial, float* dw, void* stream) {
-  size_t fixed = (size_t)n_entries * 5 * sizeof(float);
-  size_t per_warp = (size_t)P * U * sizeof(float);
-  size_t smem = 0;
-  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
-  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = prepare_smem(gather_dw_partial_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gather_dw_partial_kernel<<<n_blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
-      x, env, g, centers, eidx, ecoef, n_entries, n_edges, n_atoms, d1, d2, d3, U, P, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int PU = P * U;
-  partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
-                                                                            PU, dw);
   return (int)cudaGetLastError();
 }
 

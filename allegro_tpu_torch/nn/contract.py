@@ -18,6 +18,10 @@ else ``(P,)``):
   drive the kernels themselves with ``fused_infer_parts``.
 - ``"fused"``: ``fused_layer``, the trainable family of autograd Functions
   (differentiable to any order, real weight gradients).
+
+On both fused backends ``gather_tp`` and ``gather_dw`` walk the layer's
+path tables (``gather_paths``: its entry order and the role swap), built
+once here.
 """
 
 from __future__ import annotations
@@ -132,6 +136,14 @@ class Contracter(nn.Module):
         for name, t in zip(("cg_desc", "cg_scale", "cg_entry_idx", "cg_entry_coef"),
                            path_table(self.entry_idx, self.entry_coef, dtype)):
             self.register_buffer(name, t, persistent=False)
+        if kernel_backend in ("fused", "fused_infer"):
+            # the tables gather_tp and gather_dw walk: the layer's order and
+            # its role swap (the x-transposes), each in the kernels' walk
+            # order, built once from the float64 coefficients
+            for tag, idx in (("", self.entry_idx), ("_swapped", self.entry_swapped)):
+                for name, t in zip(CgPaths._fields, path_table(idx, self.entry_coef, dtype,
+                                                               by_output=True)):
+                    self.register_buffer(f"walk{tag}_{name}", t, persistent=False)
         self.n_irr = len(irreps_in2)
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
         self.register_buffer("dim_to_irr", torch.tensor(dim_to_irr, dtype=torch.int32),
@@ -226,16 +238,31 @@ class Contracter(nn.Module):
         """The layer's path descriptors (``gen_cg_blocks.path_table``)."""
         return CgPaths(self.cg_desc, self.cg_scale, self.cg_entry_idx, self.cg_entry_coef)
 
+    def gather_paths(self) -> Tuple[CgPaths, CgPaths]:
+        """The path tables of ``gather_tp`` and ``gather_dw`` on ``fused`` and
+        ``fused_infer``: the layer's entry order's and its role swap's, in
+        walk order (``path_table(by_output=True)``), gathered from the buffers
+        once and again only after a move or cast has replaced them."""
+        cached = self.__dict__.get("_gather_paths")
+        if cached is None or cached[0].desc is not self.walk_desc \
+                or cached[0].scale is not self.walk_scale:
+            cached = tuple(CgPaths(*(getattr(self, f"walk{tag}_{name}")
+                                     for name in CgPaths._fields)) for tag in ("", "_swapped"))
+            self.__dict__["_gather_paths"] = cached
+        return cached
+
     def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
         """Whole layer update (env weight + scatter + gather + CG) through the
         fused kernels: ``fused_layer`` on ``fused`` (differentiable weights),
         ``fused_layer_infer`` on ``fused_infer`` (NaN weight gradients)."""
         wk, entry_idx, entry_coef = self.fused_infer_parts(x.dtype)
+        paths, swapped = self.gather_paths()
         if self.kernel_backend == "fused":
             st = FusedStatics(centers, row_ptr, self.dim_to_irr, self.n_irr, self.mul, entry_idx,
                               self.entry_swapped, entry_coef, self.num_paths,
-                              (self.d1, self.d2, self.d3))
+                              (self.d1, self.d2, self.d3), paths, swapped)
             return fused_layer(x, sh, wexp, wk, st)
         return fused_layer_infer(
             x, sh, wexp, wk, centers, row_ptr, entry_idx, entry_coef, self.dim_to_irr, self.d3,
+            paths,
         )

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 The kernels are CUDA C++ with a plain C interface (``allegro_tpu_torch/csrc``;
-``cg_blocks.h``, which ``mega.cu`` includes, is written by
+``cg_blocks.h``, which ``mega.cu`` and ``sparse_tp.cu`` include, is written by
 ``ops/gen_cg_blocks.py`` and checked in), compiled with ``nvcc`` for Hopper
 (``sm_90a``) at first use, one ``nvcc`` process per source, all started
 together, then linked into one shared library and loaded with ``ctypes``.
@@ -36,8 +36,8 @@ _i32p = ctypes.POINTER(ctypes.c_int)
 # the readout's piece tables are host arrays
 _SIGNATURES = {
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
-    "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32,
-                       _i32, _vp, _vp, _vp],
+    "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
+                       _i32, _i32, _i32, _vp, _vp, _vp],
     "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32,
                        _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
@@ -58,8 +58,8 @@ _SIGNATURES = {
                        _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
     "atpt_tp_scatter": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
                         _vp],
-    "atpt_gather_dw": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32, _i32,
-                       _i32, _i32, _vp, _vp, _vp],
+    "atpt_gather_dw": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
+                       _i32, _i32, _i32, _i32, _vp, _vp, _vp],
     "atpt_unweight_sh": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_unweight_w": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_sparse_tp": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32,

@@ -40,6 +40,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import fused_tp
+from .gen_cg_blocks import CgPaths
 
 
 def _nan_like(t: Optional[torch.Tensor], needed: bool) -> Optional[torch.Tensor]:
@@ -51,10 +52,14 @@ def _nan_like(t: Optional[torch.Tensor], needed: bool) -> Optional[torch.Tensor]
 class FusedStatics(NamedTuple):
     """The non-differentiable arguments of the trainable family: the CSR
     statics (``centers`` [E] and ``row_ptr`` [n_atoms+1], int32), the SH
-    basis map (``dim_to_irr`` [d2] int32, ``n_irr``), the channels ``U``, and
-    the layer's sparse CG table (``entry_idx`` [n, 4] = (i, j, k, p),
+    basis map (``dim_to_irr`` [d2] int32, ``n_irr``), the channels ``U``, the
+    layer's sparse CG table (``entry_idx`` [n, 4] = (i, j, k, p),
     ``entry_swapped`` its role swap, ``entry_coef`` [n], ``n_paths``) with its
-    dims ``(d1, d2, d3)``."""
+    dims ``(d1, d2, d3)``, and, for the path-walking kernels on the card
+    (``gather_tp``, ``gather_dw``), each order's path table in walk order
+    (``paths`` for ``entry_idx``, ``paths_swapped`` for ``entry_swapped``;
+    ``Contracter.gather_paths``). The plain versions read the entries and
+    need none."""
 
     centers: torch.Tensor
     row_ptr: torch.Tensor
@@ -66,11 +71,15 @@ class FusedStatics(NamedTuple):
     entry_coef: torch.Tensor
     n_paths: int
     dims: Tuple[int, int, int]
+    paths: Optional[CgPaths] = None
+    paths_swapped: Optional[CgPaths] = None
 
     def swap(self) -> "FusedStatics":
-        """The ᵀ of the transpose table: entries (i,j,k) -> (k,j,i), dims reversed."""
+        """The ᵀ of the transpose table: entries (i,j,k) -> (k,j,i) with their
+        path table, dims reversed."""
         d1, d2, d3 = self.dims
         return self._replace(entry_idx=self.entry_swapped, entry_swapped=self.entry_idx,
+                             paths=self.paths_swapped, paths_swapped=self.paths,
                              dims=(d3, d2, d1))
 
 
@@ -103,7 +112,8 @@ class GatherTp(torch.autograd.Function):
     def forward(ctx, x, env, w, st: FusedStatics):
         ctx.save_for_backward(x, env, w)
         ctx.st = st
-        return fused_tp.gather_tp(x, env, w, st.centers, st.entry_idx, st.entry_coef, st.dims[2])
+        return fused_tp.gather_tp(x, env, w, st.centers, st.entry_idx, st.entry_coef, st.dims[2],
+                                  paths=st.paths)
 
     @staticmethod
     def backward(ctx, g):
@@ -141,7 +151,7 @@ class GatherDw(torch.autograd.Function):
         ctx.save_for_backward(x, env, g)
         ctx.st = st
         return fused_tp.gather_dw(x, env, g, st.centers, st.entry_idx, st.entry_coef, st.n_paths,
-                                  st.U)
+                                  st.U, st.paths)
 
     @staticmethod
     def backward(ctx, v):
@@ -196,9 +206,10 @@ def fused_layer(x, sh, wexp, w, st: FusedStatics) -> torch.Tensor:
 
 class _FusedLayerInfer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3):
+    def forward(ctx, x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3,
+                paths):
         env = fused_tp.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, w.shape[1])
-        out = fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3)
+        out = fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, paths=paths)
         ctx.save_for_backward(x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef,
                               dim_to_irr)
         return out
@@ -214,17 +225,19 @@ class _FusedLayerInfer(torch.autograd.Function):
         )
         dsh, dwexp = fused_tp.unweight_both(denv, sh, wexp, centers, dim_to_irr)
         dw = _nan_like(w, ctx.needs_input_grad[3])
-        return dx, dsh, dwexp, dw, None, None, None, None, None, None
+        return dx, dsh, dwexp, dw, None, None, None, None, None, None, None
 
 
 def fused_layer_infer(x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr,
-                      d3: int) -> torch.Tensor:
+                      d3: int, paths: Optional[CgPaths] = None) -> torch.Tensor:
     """x [E, d1*U] tensor features; sh [E, d2] basis; wexp [E, n_irr*U] env
     weights (irrep-major, scatter factor already applied); w [P, U] path
     weights; centers [E] and row_ptr [n_atoms+1] the CSR statics; the sparse
-    CG entries as idx [n, 4] (i, j, k, p) and coef [n]. Returns [E, d3*U]."""
+    CG entries as idx [n, 4] (i, j, k, p) and coef [n], and on the card
+    their path table (``paths``, which ``gather_tp`` walks). Returns
+    [E, d3*U]."""
     return _FusedLayerInfer.apply(
-        x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3
+        x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3, paths
     )
 
 
@@ -350,9 +363,9 @@ def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.T
 
 class _GatherTpInfer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split):
+    def forward(ctx, x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split, paths):
         ctx.save_for_backward(x, env, w, centers, row_ptr, entry_idx, entry_coef)
-        return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split)
+        return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
 
     @staticmethod
     @once_differentiable
@@ -360,15 +373,19 @@ class _GatherTpInfer(torch.autograd.Function):
         x, env, w, centers, row_ptr, entry_idx, entry_coef = ctx.saved_tensors
         dx, denv = fused_tp.bwd_fused(x, g.contiguous(), env, w, centers, row_ptr, entry_idx,
                                       entry_coef, None if gts is None else gts.contiguous())
-        return dx, denv, _nan_like(w, ctx.needs_input_grad[2]), None, None, None, None, None, None
+        return (dx, denv, _nan_like(w, ctx.needs_input_grad[2]), None, None, None, None, None,
+                None, None)
 
 
 def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
-                    split: bool = False):
+                    split: bool = False, paths: Optional[CgPaths] = None):
     """x [E, d1*U], env [n_atoms, d2*U], w [P, U] → out [E, d3*U], or
     ``(out, ts)`` with ``split`` (ts [E, U], the leading 0e block, whose
-    cotangent the backward folds in)."""
-    return _GatherTpInfer.apply(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split)
+    cotangent the backward folds in). ``paths``: the entries' path table in
+    walk order, which ``gather_tp`` walks on the card
+    (``Contracter.gather_paths``)."""
+    return _GatherTpInfer.apply(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split,
+                                paths)
 
 
 class _GatherTpEmbedInfer(torch.autograd.Function):

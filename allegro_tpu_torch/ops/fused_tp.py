@@ -35,10 +35,15 @@ two rank-window partials ``(eA, eB)``.
 The first four are in ``csrc/fused_tp.cu``, the next four in
 ``csrc/center_readout.cu``, the next four (the mega-fused layers) in
 ``csrc/mega.cu``, the last four (the trainable backend's transposes) in
-``csrc/train_tp.cu``. ``gather_tp`` also serves ``gather_tp_call`` /
-``_gather_tp_kernel``: the port keeps one env array, so that kernel's
-combined-env form is the same function, and its x-transpose is
-``gather_tp`` on the role-swapped entry table (:func:`swap_entries`).
+``csrc/train_tp.cu``, except ``gather_tp`` and ``gather_dw``: they walk
+the layer's compiled CG paths in ``csrc/sparse_tp.cu``, the same walkers
+as the ``pallas`` backend's ``sparse_tp`` / ``sparse_tp_gradw`` with the
+env row gathered by center, and on the card take the table's path table
+(``paths``, built once per layer by ``nn/contract.py:Contracter``).
+``gather_tp`` also serves ``gather_tp_call`` / ``_gather_tp_kernel``: the
+port keeps one env array, so that kernel's combined-env form is the same
+function, and its x-transpose is ``gather_tp`` on the role-swapped entry
+table (:func:`swap_entries`).
 ``unweight_both`` serves ``unweight_both_call`` / ``_unweight_both_kernel``
 the same way: from one denv array, the function of its window pair. What
 bounds each kernel on the card and how its design answers it is noted
@@ -54,7 +59,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .gen_cg_blocks import path_table
+from .gen_cg_blocks import CgPaths, path_table
 
 LAUNCHES: Dict[str, int] = {
     "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
@@ -416,6 +421,21 @@ def _device_paths(paths, entry_idx, entry_coef, device):
     return path_table(entry_idx, entry_coef).to(device) if paths is None else paths
 
 
+def _kernel_paths(name, paths: Optional[CgPaths], n_entries: int) -> CgPaths:
+    """The path table a kernel walks; raises where there is none (it is
+    built once per layer, never per call) or it is not in the kernels'
+    types."""
+    if paths is None:
+        raise ValueError(f"{name} on the card walks the table's path table: pass paths "
+                         "(built once per layer by nn/contract.py:Contracter)")
+    if paths.entry_idx.shape[0] != n_entries:
+        raise ValueError(f"{name}: the path table has {paths.entry_idx.shape[0]} entries, "
+                         f"the entry table {n_entries}")
+    _check_kernel_args({"scale": paths.scale, "paths.entry_coef": paths.entry_coef},
+                       {"desc": paths.desc, "paths.entry_idx": paths.entry_idx})
+    return paths
+
+
 def _check_entries(entry_idx, entry_coef):
     if entry_idx.ndim != 2 or entry_idx.shape[1] != 4 or entry_coef.shape != entry_idx.shape[:1]:
         raise ValueError(
@@ -454,15 +474,20 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
     return env
 
 
-def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = False):
+def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = False,
+              paths: Optional[CgPaths] = None):
     """out [E, d3*U]: ``out[e,kU+u] = Σ c w[p,u] x[e,iU+u] env[c(e),jU+u]``.
 
-    x [E, d1*U], env [n_atoms, d2*U], w [P, U], entries (i, j, k, p) / c.
-    ``split``: also return the leading 0e block ``out[:, :U]`` as its own
-    [E, U] array, ``(out, ts)``.
+    x [E, d1*U], env [n_atoms, d2*U], w [P, U], entries (i, j, k, p) / c in
+    either role order; on the card also ``paths``, that order's path table
+    in walk order (``gen_cg_blocks.path_table(by_output=True)``); dims up to
+    32. ``split``: also return the leading 0e block ``out[:, :U]`` as its
+    own [E, U] array, ``(out, ts)``.
 
     Replaces ``_gather_tp_raw_kernel``. Bound by the read of x and the write
-    of out; one warp per edge, lane = channel, coalesced rows."""
+    of out; one thread per (edge, channel), coalesced rows, the edge's env
+    row gathered by center, each output slice summed in registers over the
+    compiled CG blocks of its paths and stored once."""
     E, U = x.shape[0], w.shape[1]
     n_atoms = env.shape[0]
     _check_entries(entry_idx, entry_coef)
@@ -473,18 +498,16 @@ def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = 
         )
     if _on_cpu(x, env, w, centers, entry_idx, entry_coef):
         return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split)
-    _check_kernel_args(
-        {"x": x, "env": env, "w": w, "entry_coef": entry_coef},
-        {"centers": centers, "entry_idx": entry_idx},
-    )
+    _check_kernel_args({"x": x, "env": env, "w": w}, {"centers": centers})
+    paths = _kernel_paths("gather_tp", paths, entry_idx.shape[0])
     out = torch.empty((E, d3 * U), dtype=x.dtype, device=x.device)
     ts = torch.empty((E, U), dtype=x.dtype, device=x.device) if split else None
     if E > 0:
         _launch("gather_tp", "atpt_gather_tp", x.device,
                 x.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
-                entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0],
-                E, n_atoms, x.shape[1] // U, env.shape[1] // U, d3, U, out.data_ptr(),
-                _ptr(ts))
+                paths.desc.data_ptr(), paths.scale.data_ptr(), paths.desc.shape[0],
+                paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(), E, n_atoms,
+                x.shape[1] // U, env.shape[1] // U, d3, U, w.shape[0], out.data_ptr(), _ptr(ts))
     return (out, ts) if split else out
 
 
@@ -966,16 +989,20 @@ def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int) -> tor
     return denv
 
 
-_DW_MAX_BLOCKS = 1024  # blocks of gather_dw's first pass (partials [blocks, P, U])
+_DW_MAX_BLOCKS = 1024  # kGradwMaxBlocks of csrc/sparse_tp.cu (partials [blocks, P, U])
 
 
-def gather_dw(x, env, g, centers, entry_idx, entry_coef, n_paths: int, U: int) -> torch.Tensor:
+def gather_dw(x, env, g, centers, entry_idx, entry_coef, n_paths: int, U: int,
+              paths: Optional[CgPaths] = None) -> torch.Tensor:
     """dw [n_paths, U]: ``dw[p, u] = Σ_e Σ_{(i,j,k)∈p} c x[e,iU+u]
     env[c(e),jU+u] g[e,kU+u]``, the w-transpose of ``gather_tp``. x [E,
-    d1*U], env [n_atoms, d2*U], g [E, d3*U]; sentinel edges add nothing.
+    d1*U], env [n_atoms, d2*U], g [E, d3*U]; sentinel edges add nothing; on
+    the card also ``paths`` (as ``gather_tp``).
 
-    Replaces ``_gather_dw_kernel``. Bound by the reads of x and g; per-block
-    partials summed in a second pass in block order (no float atomics)."""
+    Replaces ``_gather_dw_kernel``. Bound by the reads of x and g; each
+    path's compiled block once per edge and channel, dotted with g's slice,
+    per-block partials summed in a second launch in block order (no float
+    atomics)."""
     E = x.shape[0]
     _check_entries(entry_idx, entry_coef)
     if x.shape[1] % U or env.shape[1] % U or g.shape[0] != E or g.shape[1] % U \
@@ -986,14 +1013,15 @@ def gather_dw(x, env, g, centers, entry_idx, entry_coef, n_paths: int, U: int) -
         )
     if _on_cpu(x, env, g, centers, entry_idx, entry_coef):
         return gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, n_paths, U)
-    _check_kernel_args({"x": x, "env": env, "g": g, "entry_coef": entry_coef},
-                       {"centers": centers, "entry_idx": entry_idx})
+    _check_kernel_args({"x": x, "env": env, "g": g}, {"centers": centers})
+    paths = _kernel_paths("gather_dw", paths, entry_idx.shape[0])
     n_blocks = max(1, min(_DW_MAX_BLOCKS, -(-E // 64)))
     partial = torch.empty((n_blocks, n_paths, U), dtype=x.dtype, device=x.device)
     dw = torch.empty((n_paths, U), dtype=x.dtype, device=x.device)
     _launch("gather_dw", "atpt_gather_dw", x.device,
             x.data_ptr(), env.data_ptr(), g.data_ptr(), centers.data_ptr(),
-            entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0], E, env.shape[0],
+            paths.desc.data_ptr(), paths.scale.data_ptr(), paths.desc.shape[0],
+            paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(), E, env.shape[0],
             x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
             partial.data_ptr(), dw.data_ptr())
     return dw

@@ -37,6 +37,7 @@ from .fused_tp import (
     _cg_tensor,
     _check_entries,
     _check_kernel_args,
+    _kernel_paths,
     _launch,
     _on_cpu,
     _path_tensor,
@@ -99,21 +100,6 @@ def sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U):
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-
-
-def _kernel_paths(name, paths: Optional[CgPaths], n_entries: int) -> CgPaths:
-    """The path table a kernel walks; raises where there is none (it is
-    built once per layer, never per call) or it is not in the kernels'
-    types."""
-    if paths is None:
-        raise ValueError(f"{name} on the card walks the table's path table: pass paths "
-                         "(nn/contract.py:Contracter.tp_statics builds them once)")
-    if paths.entry_idx.shape[0] != n_entries:
-        raise ValueError(f"{name}: the path table has {paths.entry_idx.shape[0]} entries, "
-                         f"the entry table {n_entries}")
-    _check_kernel_args({"scale": paths.scale, "paths.entry_coef": paths.entry_coef},
-                       {"desc": paths.desc, "paths.entry_idx": paths.entry_idx})
-    return paths
 
 
 def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int,

@@ -17,13 +17,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    layer (the first projection, W0 [64, 160]) and with one (layer 0's latent,
    W0 [96, 64], W1 [64, 160]), ``gather_tp_embed`` with its split output and
    ``bwd_embed`` with ``gts``, and ``gather_tp`` with the split output and
-   ``bwd_fused`` with ``gts`` at layer-0 dims; then, checks only, all of
-   these at U = 16 and 48 (the lane loops for other widths),
-   ``gather_tp_embed`` (with and without its split output) and ``bwd_embed``
-   on an l = 4 layer at U = 32, whose paths beyond the compiled CG header
-   take the kernels' per-entry default case, and the mega kernels on the
-   same crystal at r_max 7.0 (~134 edges per atom: a segment spans three of
-   ``latent_env_scatter``'s 64-edge tiles); the center
+   ``bwd_fused`` with ``gts`` at layer-0 dims (``gather_tp`` walks the
+   layer's path table, ``Contracter.gather_paths``); then, checks only, all
+   of these at U = 16 and 48 (the lane loops for other widths) and
+   ``gather_tp`` without its split output, ``gather_tp_embed`` (with and
+   without its split output), ``bwd_embed`` and ``gather_tp`` (with and
+   without) on an l = 4 layer at U = 32, whose paths beyond the compiled CG
+   header take the kernels' per-entry default case, and the mega kernels
+   and ``gather_tp`` (with and without) on the same crystal at r_max 7.0
+   (~134 edges per atom: a segment spans three of ``latent_env_scatter``'s
+   64-edge tiles); the center
    gather and sum on positions [4096, 3] at the center and the neighbor side
    (and, checks only, on the [·, 1] energy column of the plain readout
    chain); the fused readout and its backward on three 64-wide pieces (W0
@@ -52,9 +55,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 5. training on the trainable ``fused`` backend: (a) on the JAX bench's
    4 x 1,000-atom crystal batch (seeds 200-203, 100,928 edges), the four
    transposes ``tp_scatter``, ``gather_dw`` (each layer's entry table in
-   both role orders), ``unweight_sh``, ``unweight_w`` and ``gather_tp`` on
-   the role-swapped table, each against its plain version (1e-5) with
-   median times, then checks only at U = 16 and 48; (b) on that batch (zero
+   both role orders; against the plain version in float64), ``unweight_sh``,
+   ``unweight_w`` and ``gather_tp`` on the role-swapped table (and, checked,
+   the layer's own), each against its plain version (1e-5) with median
+   times, then checks only at U = 16 and 48, and ``gather_tp`` (with and
+   without its split output) and ``gather_dw`` in both role orders on the
+   batch's edges less one (an odd count) at U = 16 and 48 and on an l = 4
+   layer (walk rows beyond the header), with x nonzero on the sentinel
+   edges; a call on the card without a path table must raise; (b) on that batch (zero
    targets) and on the bench's 16 synthetic 21-atom frames (984 edges):
    the flagship on ``fused`` through ``Trainer.fit``, Adam 1e-3, EMA 0.999,
    10 steps with the exact launch count of every kernel per step, finite
@@ -181,7 +189,7 @@ SOURCES = {
     "gather_tp_embed": "allegro_tpu_torch/csrc/mega.cu",
     "bwd_embed": "allegro_tpu_torch/csrc/mega.cu",
     "env_scatter": "allegro_tpu_torch/csrc/fused_tp.cu",
-    "gather_tp": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "gather_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "bwd_fused": "allegro_tpu_torch/csrc/fused_tp.cu",
     "unweight_both": "allegro_tpu_torch/csrc/fused_tp.cu",
     "center_gather": "allegro_tpu_torch/csrc/center_readout.cu",
@@ -189,7 +197,7 @@ SOURCES = {
     "readout_sum": "allegro_tpu_torch/csrc/center_readout.cu",
     "readout_bwd": "allegro_tpu_torch/csrc/center_readout.cu",
     "tp_scatter": "allegro_tpu_torch/csrc/train_tp.cu",
-    "gather_dw": "allegro_tpu_torch/csrc/train_tp.cu",
+    "gather_dw": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "unweight_sh": "allegro_tpu_torch/csrc/train_tp.cu",
     "unweight_w": "allegro_tpu_torch/csrc/train_tp.cu",
     "sparse_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
@@ -456,6 +464,7 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
         U, d1, d2, d3 = tp.mul, tp.d1, tp.d2, tp.d3
         n_irr = int(tp.dim_to_irr.max().item()) + 1
         idx, coef, d2i = tp.entry_idx, tp.entry_coef.to(torch.float32), tp.dim_to_irr
+        paths = tp.gather_paths()[0]
         x, sh, wexp, g = rand(E, d1 * U), rand(E, d2), rand(E, n_irr * U), rand(E, d3 * U)
         w = rand(tp.num_paths, U, edge=False)
         env = fused_tp.env_scatter(sh, wexp, centers, row_ptr, d2i, U)
@@ -471,9 +480,9 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
                 (sh, wexp, row_ptr, d2i), 2 * Er * d2 * U,
             ),
             "gather_tp": (
-                lambda: (fused_tp.gather_tp(x, env, w, centers, idx, coef, d3),),
+                lambda: (fused_tp.gather_tp(x, env, w, centers, idx, coef, d3, paths=paths),),
                 lambda: (fused_tp.gather_tp_reference(x, env, w, centers, idx, coef, d3),),
-                (x, env, w, centers, *tables), 3 * Er * n * U,
+                (x, env, w, centers, *paths), 3 * Er * n * U,
             ),
             "bwd_fused": (
                 lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef),
@@ -613,10 +622,16 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
                                                     coef, specs, gts), what, records,
                (sh, w2b, g, gts, env, wk, row_ptr, idx, coef, specs),
                2 * tp_flops + 4 * Er * d1 * U, plain_timing=plain_timing)
+    walk = tp.gather_paths()[0]
     check_case("gather_tp[split]",
-               lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, True),
+               lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, True, walk),
                lambda: fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, d3, True),
-               what, records, (x, env, wk, centers, idx, coef), tp_flops, plain_timing=plain_timing)
+               what, records, (x, env, wk, centers, *walk), tp_flops, plain_timing=plain_timing)
+    if records is None:  # the checks at other widths and at r_max 7.0: without ts too
+        check_case("gather_tp",
+                   lambda: (fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, paths=walk),),
+                   lambda: (fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, d3),),
+                   what)
     check_case("bwd_fused[gts]",
                lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts),
                lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef,
@@ -626,10 +641,12 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
 
 
 def check_embed_beyond_the_header(data, rng):
-    """Phase 2: ``gather_tp_embed`` and ``bwd_embed`` on a layer whose paths
-    the compiled CG header does not hold (l = 4: the kernels' per-entry
-    default case), U = 32, on the crystal's edges, against their plain
-    versions (with and without the split output / gts)."""
+    """Phase 2: ``gather_tp_embed``, ``bwd_embed`` and ``gather_tp`` on a
+    layer whose paths the compiled CG header does not hold (l = 4: the
+    kernels' per-entry default case), U = 32, on the crystal's edges, against
+    their plain versions (with and without the split output / gts;
+    ``gather_tp``'s x nonzero on the sentinel edges too, which it must not
+    read)."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.nn.contract import Contracter
     from allegro_tpu_torch.ops import fused_tp
@@ -639,7 +656,7 @@ def check_embed_beyond_the_header(data, rng):
     row_ptr = data[keys.CENTER_ROW_PTR]
     n_atoms, E, U = row_ptr.shape[0] - 1, centers.shape[0], 32
     irreps = "1x0e+1x2e+1x4e"
-    tp = Contracter(irreps, irreps, irreps, U).to(dev)
+    tp = Contracter(irreps, irreps, irreps, U, kernel_backend="fused_infer").to(dev)
     paths = tp.cg_paths()
     beyond = int((paths.desc[:, 1] < 0).sum())
     assert beyond > 0, "the l = 4 layer has no path beyond the header"
@@ -671,6 +688,18 @@ def check_embed_beyond_the_header(data, rng):
                    lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms,
                                                         idx, coef, specs, opt),
                    label + ("" if opt is None else " gts"))
+    walk = tp.gather_paths()[0]
+    x = rand(E, tp.d1 * U)
+    label = (f"U {U} l_max 4 dims ({tp.d1},{tp.d2},{tp.d3}) entries {idx.shape[0]}, "
+             f"{int((walk.desc[:, 1] < 0).sum())} of {walk.desc.shape[0]} walk rows beyond the "
+             f"header")
+    for split in (False, True):
+        check_case("gather_tp",
+                   lambda: _flat_out(fused_tp.gather_tp(x, env, wk, centers, idx, coef, tp.d3,
+                                                        split, walk)),
+                   lambda: _flat_out(fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef,
+                                                                  tp.d3, split)),
+                   label + (" split" if split else ""))
 
 
 def _flat(res):
@@ -780,9 +809,14 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
     """Phase 5a: the trainable backend's transposes against their plain
     versions at the training batch's shapes, each layer's table in both role
     orders (the swapped one under ``kernel[swapped]``), and ``gather_tp`` on
-    the swapped table; with ``records``, also the median times (one launch per
-    layer and order, summed). Per-edge inputs are zero on sentinel edges,
-    per-atom ones (env, t) are not."""
+    the swapped table (the layer's own order, timed in phase 2, checked
+    here too); with ``records``, also the median times (one launch per layer
+    and order, summed). ``gather_tp`` and ``gather_dw`` walk the order's
+    path table (``Contracter.gather_paths``, carried by ``FusedStatics``).
+    Each entry of ``gather_dw`` sums ~10^5 edges, so it is held to the plain
+    version in float64 (from the float64 entries), as ``sparse_tp_gradw``
+    is; the float32 plain version is timed. Per-edge inputs are zero on
+    sentinel edges, per-atom ones (env, t) are not."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
     from allegro_tpu_torch.ops.fused_primitives import FusedStatics
@@ -804,7 +838,7 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
         _, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
         d2i = tp.dim_to_irr
         st = FusedStatics(centers, row_ptr, d2i, tp.n_irr, U, idx, tp.entry_swapped, coef,
-                          tp.num_paths, (tp.d1, tp.d2, tp.d3))
+                          tp.num_paths, (tp.d1, tp.d2, tp.d3), *tp.gather_paths())
         n = idx.shape[0]
         t, sh, wexp = rand(n_atoms, tp.d2 * U, edge=False), rand(E, tp.d2), rand(E, tp.n_irr * U)
         label = f"U {U} layer {layer} dims {st.dims} entries {n:3d}"
@@ -828,18 +862,84 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
                        label, records, (x, g, w, row_ptr, *tab), 3 * Er * n * U,
                        plain_timing=plain_timing)
             # a CG entry's dw term: x*env, *g, then the multiply-add with c
+            exact = fused_tp.gather_dw_reference(x.double(), env.double(), g.double(), centers,
+                                                 s.entry_idx, tp.entry_coef, s.n_paths, U)
             check_case("gather_dw" + tag,
-                       lambda: (fused_tp.gather_dw(x, env, g, centers, *tab, s.n_paths, U),),
+                       lambda: (fused_tp.gather_dw(x, env, g, centers, *tab, s.n_paths, U,
+                                                   s.paths),),
                        lambda: (fused_tp.gather_dw_reference(x, env, g, centers, *tab,
                                                              s.n_paths, U),),
-                       label, records, (x, env, g, centers, *tab), 4 * Er * n * U,
-                       plain_timing=plain_timing)
-            if tag:
-                check_case("gather_tp" + tag,
-                           lambda: (fused_tp.gather_tp(x, env, w, centers, *tab, d3),),
-                           lambda: (fused_tp.gather_tp_reference(x, env, w, centers, *tab, d3),),
-                           label, records, (x, env, w, centers, *tab), 3 * Er * n * U,
-                           plain_timing=plain_timing)
+                       label + " (vs float64)", records, (x, env, g, centers, *s.paths),
+                       4 * Er * n * U, plain_timing=plain_timing, exact=lambda: (exact,))
+            check_case("gather_tp" + tag,
+                       lambda: (fused_tp.gather_tp(x, env, w, centers, *tab, d3, paths=s.paths),),
+                       lambda: (fused_tp.gather_tp_reference(x, env, w, centers, *tab, d3),),
+                       label, records if tag else None, (x, env, w, centers, *s.paths),
+                       3 * Er * n * U, plain_timing=plain_timing)
+
+
+def check_gather_shapes(data, rng):
+    """Phase 5a, checks only, on the training batch's edges less the last (an
+    odd count: a whole number of no block's edges): ``gather_tp`` (the
+    layer's order with and without its split output, and the role swap) and
+    ``gather_dw`` (both orders, held to the plain version in float64) on the
+    flagship's two layer shapes at U = 16 and 48 and on an l = 4 layer at
+    U = 32 (dims 25: walk rows beyond the compiled CG header, walked entry by
+    entry). x and g are nonzero on the sentinel edges too, which neither
+    kernel may read. Then a call on the card without its path table must
+    raise: there is no fallback to an entry walk or the plain version."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.nn.contract import Contracter
+    from allegro_tpu_torch.ops import fused_tp, gen_cg_blocks
+
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32)[:-1].contiguous()
+    n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
+    E = centers.shape[0]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    l2 = "1x0e+1x1o+1x2e"
+    l4 = "+".join(f"1x{l}{'e' if l % 2 == 0 else 'o'}" for l in range(5))
+    layers = [Contracter(*irreps, mul, kernel_backend="fused")
+              for mul in (16, 48) for irreps in ((l2,) * 3, (l2, l2, "1x0e"))]
+    layers.append(Contracter(l4, l4, l4, 32, kernel_backend="fused"))
+    for tp in layers:
+        tp = tp.to(dev)
+        U, P = tp.mul, tp.num_paths
+        coef = tp.entry_coef.to(torch.float32)
+        walk, walk_swapped = tp.gather_paths()
+        for order, idx, paths, (d1, d2, d3) in (
+                ("own", tp.entry_idx, walk, (tp.d1, tp.d2, tp.d3)),
+                ("swapped", tp.entry_swapped, walk_swapped, (tp.d3, tp.d2, tp.d1))):
+            x, g = rand(E, d1 * U), rand(E, d3 * U)
+            env, w = rand(n_atoms, d2 * U), rand(P, U)
+            beyond = int((paths.desc[:, 1] == gen_cg_blocks.DEFAULT).sum())
+            label = (f"U {U} E {E} {order:7s} dims ({d1},{d2},{d3}) entries {idx.shape[0]:4d} "
+                     f"rows {paths.desc.shape[0]} ({beyond} beyond the header)")
+            for split in (False, True) if order == "own" else (False,):
+                check_case("gather_tp",
+                           lambda: _flat_out(fused_tp.gather_tp(x, env, w, centers, idx, coef, d3,
+                                                                split, paths)),
+                           lambda: _flat_out(fused_tp.gather_tp_reference(x, env, w, centers,
+                                                                          idx, coef, d3, split)),
+                           label + (" split" if split else ""))
+            exact = fused_tp.gather_dw_reference(x.double(), env.double(), g.double(), centers,
+                                                 idx, tp.entry_coef, P, U)
+            check_case("gather_dw",
+                       lambda: (fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U, paths),),
+                       lambda: (exact,), label + " (vs float64)")
+            del exact
+    for name, call in (
+            ("gather_tp", lambda: fused_tp.gather_tp(x, env, w, centers, idx, coef, d3)),
+            ("gather_dw", lambda: fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"    {name} on the card without a path table raises: {e}")
+        else:
+            raise AssertionError(f"{name} ran on the card without its path table")
 
 
 def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
@@ -1128,7 +1228,9 @@ def check_same_gradients(trainer, state, data, what):
 
 def profile_steps(trainer, state, loader, steps=3):
     """Where a training step's time goes: torch.profiler over ``steps`` steps,
-    device time by kernel name and the device's idle share of the span."""
+    device time by kernel name and the device's idle share of the span.
+    Returns (device ms per step, idle %), or None where the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1147,12 +1249,14 @@ def profile_steps(trainer, state, loader, steps=3):
     busy = sum(r[0] for r in rows)
     if not rows:
         print("    profile: torch.profiler recorded no device time")
-        return
+        return None
+    idle = 100 * (1 - busy * steps / span_ms)
     print(f"    profile of {steps} steps (1k batch): {sum(r[1] for r in rows):.0f} device ops "
           f"and {busy:.4f} ms device time per step, span {span_ms / steps:.4f} ms per step "
-          f"(profiled), idle {100 * (1 - busy * steps / span_ms):.1f}%; per step by name:")
+          f"(profiled), idle {idle:.1f}%; per step by name:")
     for ms, count, key in sorted(rows, reverse=True)[:16]:
         print(f"      {ms:9.4f} ms {count:6.1f}x  {key[:90]}")
+    return busy, idle
 
 
 def drive_force_calls(phase, config, model, data, ref, n_atoms, n_rows):
@@ -1324,9 +1428,11 @@ def check_kernel18(tps, data, rng, records, tag, plain_timing=None):
         if not same:
             raise AssertionError(f"bwd_fused with dw ({label}) is not deterministic")
         swapped = tp.entry_swapped
-        trio = lambda: (fused_tp.gather_tp(g, env, w, centers, swapped, coef, d1),
+        walk, walk_swapped = tp.gather_paths()
+        trio = lambda: (fused_tp.gather_tp(g, env, w, centers, swapped, coef, d1,
+                                           paths=walk_swapped),
                         fused_tp.tp_scatter(x, g, w, centers, row_ptr, idx, coef, d2),
-                        fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U))
+                        fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U, walk))
         check_case("bwd_fused[trio]", trio,
                    lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx, coef,
                                                         with_dw=True),
@@ -1674,6 +1780,7 @@ def main() -> int:
         other = AllegroModel(**{**FLAGSHIP, "num_tensor_features": U}, avg_num_neighbors=25.0,
                              tp_kernel_backend="fused").init(SEED).to(dev)
         check_train_kernels(other.module.allegro.tps, train_data, rng)
+    check_gather_shapes(train_data, rng)
     del train_data
     train_launches = run_training(loaders, dev, smi)
 

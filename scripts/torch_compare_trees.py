@@ -35,7 +35,21 @@ Each run times, with that tree's package:
   ``gather_tp_embed_ms`` and ``bwd_embed_ms``, flagship and l_max 3
   (``*_lmax3_ms``): device times from CUDA events (``chip_smoke.median_ms``)
   of the tree's wrappers on the force call's shapes and the model's
-  weights, with the tables the tree's layers cache where it has them.
+  weights, with the tables the tree's layers cache where it has them;
+- ``nomega_us_per_atom``, ``nomega_busy_ms`` and ``nomega_idle_pct``: the
+  flagship's force call on ``fused_infer`` with ``use_mega=False`` (host
+  clock; torch.profiler, 3 calls);
+- ``gather_tp_ms``, ``gather_tp_swapped_ms`` and ``gather_dw_ms``: device
+  times from CUDA events of kernels 2, 13 and 15 on the crystal's edges at
+  both flagship layers (``gather_tp`` in the layer's entry order, the
+  force call's; ``gather_tp`` on the role-swapped table and ``gather_dw`` in
+  the layer's order, a training step's), and (``*_lmax3_ms``) at the
+  l_max-3 model's layer 0, each through the tree's wrapper with the path
+  tables the tree's layers cache where it has them;
+- ``fused_train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
+  ``fused`` on the 4 x 1,000-atom batch (median of 10 steps after 2, host
+  clock), ``fused_train_busy_ms`` and ``fused_train_idle_pct`` its device
+  time per step and idle share under torch.profiler (3 steps).
 
 The crystal, the batch and the flagship's settings come from this checkout's
 ``chip_smoke.py``, so both trees see the same inputs. Prints one JSON line
@@ -163,6 +177,45 @@ def pallas_kernel_times(smoke, tps, n_edges, dev) -> dict:
     return ms
 
 
+def gather_kernel_times(smoke, tps, data) -> dict:
+    """Device ms, from CUDA events, of gather_tp (the layer's entry order),
+    gather_tp on the role-swapped table and gather_dw (the layer's order) on
+    ``data``'s edges, summed over the layers ``tps``, each through the tree's
+    wrapper with the path tables the tree's layers cache where it has them."""
+    import numpy as np
+    import torch
+
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    rng = np.random.RandomState(smoke.SEED)
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    n_atoms, E = data[keys.CENTER_ROW_PTR].shape[0] - 1, centers.shape[0]
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+
+    def rand(*shape, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return t * real if edge else t
+
+    ms = {"gather_tp_ms": 0.0, "gather_tp_swapped_ms": 0.0, "gather_dw_ms": 0.0}
+    for tp in tps:
+        U, P = tp.mul, tp.num_paths
+        coef = tp.entry_coef.to(torch.float32)
+        walks = tp.gather_paths() if hasattr(tp, "gather_paths") else None
+        own, swapped = ((walks[0],), (walks[1],)) if walks else ((), ())
+        x, g = rand(E, tp.d1 * U), rand(E, tp.d3 * U)
+        env, w = rand(n_atoms, tp.d2 * U, edge=False), rand(P, U, edge=False)
+        ms["gather_tp_ms"] += smoke.median_ms(lambda: fused_tp.gather_tp(
+            x, env, w, centers, tp.entry_idx, coef, tp.d3, False, *own))
+        ms["gather_tp_swapped_ms"] += smoke.median_ms(lambda: fused_tp.gather_tp(
+            g, env, w, centers, tp.entry_swapped, coef, tp.d1, False, *swapped))
+        ms["gather_dw_ms"] += smoke.median_ms(lambda: fused_tp.gather_dw(
+            x, env, g, centers, tp.entry_idx, coef, P, U, *own))
+        del x, g, env
+    return ms
+
+
 def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -231,7 +284,41 @@ def measure(tree: Path) -> dict:
         del model, data
         torch.cuda.empty_cache()
 
+    for tag, cfg in (("nomega", smoke.FLAGSHIP), ("nomega_lmax3", smoke.LMAX3)):
+        model = AllegroModel(**cfg, avg_num_neighbors=n_edges / n_atoms,
+                             tp_kernel_backend="fused_infer", use_mega=False).init(smoke.SEED).to(dev)
+        data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
+                        dtype=torch.float32, device=dev)
+        tps = model.module.allegro.tps
+        if tag == "nomega":
+            out["nomega_us_per_atom"] = smoke.time_force_call(model, data, n_atoms, FORCE_CALLS)
+            prof = smoke.profile_calls(lambda: model.apply_with_derivatives(data), 3, tag)
+            if prof is not None:
+                out["nomega_busy_ms"], out["nomega_idle_pct"] = prof[0], prof[1]
+        suffix = "" if tag == "nomega" else "_lmax3"
+        for key, ms in gather_kernel_times(smoke, tps if tag == "nomega" else tps[:1],
+                                           data).items():
+            out[key.replace("_ms", suffix + "_ms")] = ms
+        del model, data
+        torch.cuda.empty_cache()
+
     loader = smoke.train_loaders()["1k"]
+    train, _ = smoke.train_models(next(iter(loader)), "fused")
+    trainer = smoke.make_trainer(train, dev)
+    state = trainer.init_state()
+    times = []
+    for _ in range(WARMUP_STEPS + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        trainer.fit(state, loader, max_epochs=1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["fused_train_ms_per_step"] = 1e3 * float(np.median(times[WARMUP_STEPS:]))
+    prof = smoke.profile_steps(trainer, state, loader)
+    if prof is not None:
+        out["fused_train_busy_ms"], out["fused_train_idle_pct"] = prof
+    del train, trainer, state
+    torch.cuda.empty_cache()
+
     train, _ = smoke.train_models(next(iter(loader)), "pallas")
     trainer = smoke.make_trainer(train, dev)
     state = trainer.init_state()
