@@ -8,17 +8,20 @@
 //   gather_tp        out[e, kU+u] = sum_n c_n w[p_n, u] x[e, i_nU+u] env[c(e), j_nU+u]
 //                    (optionally also ts[e, u] = out[e, u], the leading 0e block)
 //   gather_dw        dw[p, u]     = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u] env[c(e), j_nU+u] g[e, k_nU+u]
+//   tp_scatter       denv[a, kU+u] = sum_{c(e)=a} sum_n c_n w[p_n, u] x[e, i_nU+u] g[e, j_nU+u]
+//                    (the table's roles permuted so that out is gather_tp's env)
 //
 // The `pallas` backend (`tp_kernel_backend="pallas"`) sums the environment
 // first (on the center kernels, csrc/center_readout.cu) and then contracts
 // two per-edge arrays: nothing is gathered by center in sparse_tp and
 // sparse_tp_gradw, every row of a, b, g and out belongs to one edge. The
 // fused backends keep the environment per atom and gather_tp / gather_dw read
-// row c(e) of it for each edge (see their section below).
+// row c(e) of it for each edge, and tp_scatter sums its per-edge out rows
+// over each atom's edges (see their sections below).
 // The table is the caller's: the layer's own, or one of its role
 // permutations (the transposes of the derivative families,
 // allegro_tpu_torch/ops/tp_primitives.py and ops/fused_primitives.py), so
-// the inputs and out may have any of the layer's dims in any order. All four
+// the inputs and out may have any of the layer's dims in any order. All five
 // kernels walk it by path, not by entry (gen_cg_blocks.path_table(by_output=True):
 // rows (p, triple id, i0, j0, k0, n0, n1, width) ordered by output slice k0,
 // then p). A path with l <= 3 is one block of cg_blocks.h (CgBlock::fwd: its
@@ -472,6 +475,111 @@ __global__ void gather_dw_partial_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// tp_scatter
+// Replaces allegro_tpu/ops/fused_tp.py:_tp_scatter_kernel (tp_scatter_call):
+// gather_tp's env transpose, denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u]
+// x[e, i_nU+u] g[e, k_nU+u], on the layer's table or its role swap. Its out
+// is the table's middle role, so it walks the path table of that table with
+// roles (0, 2, 1) (a = x over i, b = g over k, out = j; built once per layer,
+// nn/contract.py:Contracter.scatter_paths): per edge, sparse_tp's walk.
+// Bound: one read each of x [E, d1*U] and g [E, d3*U] and one write of denv
+// [n_atoms, d2*U] (237 MB, ~0.071 ms at 3.35 TB/s, at the flagship's layer 0
+// on the 1k training batch); the ~3 FLOPs per entry, edge and channel take
+// ~17% of that time at 83 entries and ~40% at 353.
+// Design: one block per atom; its threads are (chunk q, channel u), U
+// channels on consecutive lanes (every row access coalesced, any U) and
+// T / U chunks. Chunk q walks the edges row_ptr[a] + q + n T / U (n = 0,
+// 1, ...) of the segment in edge order: per edge, its x and g columns go
+// into the thread's own shared-memory columns by cp.async, then TpRow walks
+// the rows, each output slice summed in registers over its rows and added once
+// per edge to the thread's shared-memory column of the atom's denv. At the
+// end the chunks' columns are added in chunk order and the row is stored
+// once, coalesced. An atom without edges stores a zero row; sentinel edges
+// lie after row_ptr[n_atoms] and are never read. No float atomics: two
+// identical calls give identical bits. Measured on the H100 and not kept: a
+// second column buffer loading the next edge during this one (3-7% slower:
+// fewer blocks per SM, as in sparse_tp), a persistent grid striding over
+// the atoms (up to 9% slower: the card's block scheduler balances segments
+// of unequal length better), and __launch_bounds__(128, 10) (48 registers
+// instead of 56-64, 1-2% faster, but it would cap U at 128).
+// ---------------------------------------------------------------------------
+
+// Starts the cp.async copies of edge e's x and g columns (channel u) into a
+// thread's columns at col (stride T).
+__device__ __forceinline__ void stage_scatter_edge(const float* __restrict__ x,
+                                                   const float* __restrict__ g, long long e,
+                                                   int d1, int d3, int U, int u, float* col,
+                                                   int T) {
+  stage_column(x + e * d1 * U + u, d1, U, col, T);
+  stage_column(g + e * d3 * U + u, d3, U, col + d1 * T, T);
+}
+
+// Adds one output slice's accumulator to the thread's denv column (stride T).
+__device__ __forceinline__ void add_slice(float* den, const float (&acc)[kSliceMax], int k0,
+                                          int width, int T) {
+#pragma unroll
+  for (int c = 0; c < kSliceMax; ++c)
+    if (c < width) den[(k0 + c) * T] += acc[c];
+}
+
+__global__ void tp_scatter_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                                  const float* __restrict__ w, const int* __restrict__ row_ptr,
+                                  const int* __restrict__ desc, const float* __restrict__ dscale,
+                                  int n_rows, const int* __restrict__ eidx,
+                                  const float* __restrict__ ecoef, int d1, int d2, int d3,
+                                  int U, float* __restrict__ denv) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x, tid = threadIdx.x, a = blockIdx.x;
+  const int chunks = T / U, q = tid / U, u = tid - q * U;
+  int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
+  float* s_ws = smem + n_rows * kDescCols;        // [n_rows][U]
+  float* s_den = s_ws + n_rows * U;               // [d2][T]
+  float* s_col = s_den + d2 * T;                  // [d1 + d3][T]
+  float* den = s_den + tid;  // the thread's column of the atom's denv
+  float* col = s_col + tid;  // its x and g columns
+  load_desc(desc, n_rows, reinterpret_cast<int*>(s_desc));
+  for (int k = 0; k < d2; ++k) den[k * T] = 0.f;
+  __syncthreads();
+  for (int r = tid; r < n_rows * U; r += T) {
+    const int row = r / U;
+    s_ws[r] = w[s_desc[2 * row].x * U + (r - row * U)] * dscale[row];
+  }
+  __syncthreads();
+  const int end = row_ptr[a + 1];
+  for (int e = row_ptr[a] + q; e < end; e += chunks) {
+    stage_scatter_edge(x, g, e, d1, d3, U, u, col, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    TpRow f{col, col + d1 * T, T, 0, 0, 0.f, {}};
+    int k0 = -1, width = 0;  // the current slice
+    for (int r = 0; r < n_rows; ++r) {
+      // (p, triple id, i0, j0) and (k0, n0, n1, width)
+      const int4 dp = s_desc[2 * r], dk = s_desc[2 * r + 1];
+      if (dk.x != k0) {
+        if (k0 >= 0) add_slice(den, f.acc, k0, width, T);
+        k0 = dk.x;
+        width = dk.w;
+#pragma unroll
+        for (int c = 0; c < kSliceMax; ++c) f.acc[c] = 0.f;
+      }
+      f.i0 = dp.z;
+      f.j0 = dp.w;
+      f.ws = s_ws[r * U + u];
+      if (!cg_dispatch(dp.y, f)) f.entries(eidx, ecoef, dk.y, dk.z, k0, width);
+    }
+    add_slice(den, f.acc, k0, width, T);
+  }
+  __syncthreads();
+  const int d2U = d2 * U;
+  for (int c = tid; c < d2U; c += T) {
+    const int k = c / U, uu = c - k * U;
+    float s = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) s += s_den[k * T + ch * U + uu];
+    denv[(long long)a * d2U + c] = s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -559,6 +667,25 @@ int atpt_gather_dw(const float* x, const float* env, const float* g, const int* 
   const int PU = P * U;
   partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
                                                                             PU, dw);
+  return (int)cudaGetLastError();
+}
+
+// row_ptr [n_atoms + 1]: the CSR of the center-sorted edges; desc, dscale,
+// eidx, ecoef: the path table of the table with roles (0, 2, 1), as in
+// atpt_sparse_tp (its out is d2 wide).
+int atpt_tp_scatter(const float* x, const float* g, const float* w, const int* row_ptr,
+                    const int* desc, const float* dscale, int n_rows, const int* eidx,
+                    const float* ecoef, int n_atoms, int d1, int d2, int d3, int U, int P,
+                    float* denv, void* stream) {
+  if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
+  if (U < 1 || U > 1024) return (int)cudaErrorInvalidValue;
+  const int T = U * (U < kTpThreads ? kTpThreads / U : 1);
+  const size_t smem = (size_t)n_rows * (kDescCols + U) * sizeof(float) +
+                      (size_t)(d2 + d1 + d3) * T * sizeof(float);
+  cudaError_t err = prepare_smem(tp_scatter_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  tp_scatter_kernel<<<n_atoms, T, smem, (cudaStream_t)stream>>>(
+      x, g, w, row_ptr, desc, dscale, n_rows, eidx, ecoef, d1, d2, d3, U, denv);
   return (int)cudaGetLastError();
 }
 

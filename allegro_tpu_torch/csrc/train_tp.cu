@@ -6,110 +6,130 @@
 // derivatives are the closed family of allegro_tpu/ops/fused_primitives.py:
 // every transpose is again one of the family with permuted roles, so the
 // double backward of force training stays on the kernels. This file holds
-// three of the members; gather_dw, the weight transpose, walks compiled CG
-// paths in csrc/sparse_tp.cu. Each replaces one Pallas TPU kernel of
-// allegro_tpu/ops/fused_tp.py and computes its function in atom space
+// env_scatter's two transposes; gather_tp's, tp_scatter and gather_dw, walk
+// compiled CG paths in csrc/sparse_tp.cu. Each replaces one Pallas TPU kernel
+// of allegro_tpu/ops/fused_tp.py and computes its function in atom space
 // instead of the TPU's rank windows:
 //
-//   tp_scatter   denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u]
 //   unweight_sh  dsh[e, j]     = sum_u t[c(e), jU+u] wexp[e, irr(j)U+u]
 //   unweight_w   dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] sh[e, j]
 //
-// The entry table (i, j, k, p, c) is whatever the caller passes: the layer's
-// own, or its role swap (i, j, k) -> (k, j, i) for the x-transposes, so the
-// dims (d1 of x, d3 of g) may come in either order. Layout, sentinels and the
-// CSR row pointer as in fused_tp.cu: padded edges carry the center n_atoms,
-// add nothing to a per-atom or per-path sum and read zeros from per-atom
-// arrays. Every sum runs in a fixed order (no atomics), so two identical
-// calls give identical results. Each kernel runs on the caller's stream and
-// allocates nothing; each entry point returns cudaGetLastError().
+// Layout, sentinels and the CSR as in fused_tp.cu: edges sorted by center,
+// padded edges carry the center n_atoms, add nothing and read zeros from
+// per-atom arrays. Every sum runs in a fixed order (no atomics), so two
+// identical calls give identical results. Each kernel runs on the caller's
+// stream and allocates nothing; each entry point returns cudaGetLastError().
 
 #include "common.cu"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// tp_scatter
-// Replaces allegro_tpu/ops/fused_tp.py:_tp_scatter_kernel (tp_scatter_call).
-// Bound: one read each of x [E, d1*U] and g [E, d3*U] (2 x 116 MB at layer 0
-// of the 100k-edge training batch, ~71 us at 3.35 TB/s). Design: the denv half
-// of bwd_fused. One block per atom segment; each warp takes every W-th edge of
-// the segment (lane = channel) and accumulates into its own shared-memory row
-// of denv; the rows are summed across warps in a fixed order, so the result is
-// deterministic without atomics. Sentinel edges lie after row_ptr[n_atoms] and
-// belong to no segment.
-// ---------------------------------------------------------------------------
-__global__ void tp_scatter_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                  const float* __restrict__ w, const int* __restrict__ row_ptr,
-                                  const int* __restrict__ eidx, const float* __restrict__ ecoef,
-                                  int n_entries, int d1, int d2, int d3, int U,
-                                  float* __restrict__ denv) {
-  extern __shared__ unsigned char smem[];
-  const int a = blockIdx.x;
-  int* s_idx = reinterpret_cast<int*>(smem);
-  float* s_coef = reinterpret_cast<float*>(s_idx + 4 * n_entries);
-  const int wpb = blockDim.x / kWarp;
-  const int d2U = d2 * U;
-  float* s_den = s_coef + n_entries;  // [wpb][d2*U]
-  load_entries(eidx, ecoef, n_entries, s_idx, s_coef);
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  float* pden = s_den + warp * d2U;
-  for (int col = lane; col < d2U; col += kWarp) pden[col] = 0.f;
-  __syncthreads();
-  const int start = row_ptr[a], end = row_ptr[a + 1];
-  for (int e = start + warp; e < end; e += wpb) {
-    const float* xe = x + (long long)e * d1 * U;
-    const float* ge = g + (long long)e * d3 * U;
-    for (int u = lane; u < U; u += kWarp) {
-      for (int n = 0; n < n_entries; ++n) {
-        const int i = s_idx[4 * n], j = s_idx[4 * n + 1], k = s_idx[4 * n + 2],
-                  p = s_idx[4 * n + 3];
-        pden[j * U + u] += s_coef[n] * w[p * U + u] * xe[i * U + u] * ge[k * U + u];
-      }
-    }
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < d2U; col += blockDim.x) {
-    float s = 0.f;
-    for (int q = 0; q < wpb; ++q) s += s_den[q * d2U + col];
-    denv[(long long)a * d2U + col] = s;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // unweight_sh
 // Replaces allegro_tpu/ops/fused_tp.py:_gather_unweight_sh_kernel
 // (gather_unweight_sh_call): the sh-transpose of env_scatter.
-// Bound: one read of wexp [E, n_irr*U] (39 MB at the training batch, ~12 us);
-// t rows are shared by the edges of an atom (L1/L2). Design: the dsh half of
-// unweight_both as its own launch: one warp per edge, lane = channel, each
-// dsh[e, j] a warp shuffle reduction over u.
+// Bound: one read of wexp [E, n_irr*U] and of t [n_atoms, d2*U] and one
+// write of dsh [E, d2] (48 MB at the flagship's layer 0 on the 4,096-atom
+// crystal, ~0.014 ms at 3.35 TB/s); 2 FLOPs per (edge, dim, channel).
+// Design: a row kernel on tiles of kShTile consecutive edges, one block per
+// tile. The tile's wexp rows are one contiguous range: they go into shared
+// memory by 16-byte cp.async copies (4-byte ones where U or the pointers
+// are not 16-byte multiples). Edges are sorted by center, so the tile's
+// centers are few and consecutive: the t rows [c(first edge), c(last real
+// edge)] go into shared memory too, up to kShCenters of them (an edge whose
+// row is not staged reads it from device memory). Where those rows do not
+// fit in the card's opt-in shared memory (l_max 4 at U = 256 needs 260 KiB),
+// the launcher stages fewer t rows, down to one, then halves the tile, down
+// to one edge, then stages no t row. Each thread then computes
+// whole (edge, j) dots over u from shared memory, with no shuffle
+// reduction: thread o of the tile's d2 * n_edges outputs starts its walk
+// over the U channels at float4 o mod (U / 4), so the eight threads of a
+// 16-byte shared-memory phase read eight different bank groups with no
+// padding. The tile's dsh [n_edges, d2] is one contiguous range, written
+// coalesced. A sentinel edge (center outside [0, n_atoms)) writes zeros and
+// reads no t row; the last tile may be partial.
 // ---------------------------------------------------------------------------
-__global__ void unweight_sh_kernel(const float* __restrict__ t, const float* __restrict__ wexp,
-                                   const int* __restrict__ centers,
-                                   const int* __restrict__ dim_to_irr, long long n_edges,
-                                   int n_atoms, int d2, int n_irr, int U,
-                                   float* __restrict__ dsh) {
-  extern __shared__ unsigned char smem[];
-  int* s_irr = reinterpret_cast<int*>(smem);
-  for (int q = threadIdx.x; q < d2; q += blockDim.x) s_irr[q] = dim_to_irr[q];
-  __syncthreads();
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  for (long long e = (long long)blockIdx.x * wpb + warp; e < n_edges;
-       e += (long long)gridDim.x * wpb) {
-    const int c = centers[e];
-    const bool valid = c >= 0 && c < n_atoms;
-    const float* te = t + (valid ? (long long)c * d2 * U : 0);
-    const float* we = wexp + e * n_irr * U;
-    for (int j = 0; j < d2; ++j) {
-      const int r = s_irr[j];
-      float s = 0.f;
-      if (valid)
-        for (int u = lane; u < U; u += kWarp) s += te[j * U + u] * we[r * U + u];
-      s = warp_sum(s);
-      if (lane == 0) dsh[e * d2 + j] = s;
+
+constexpr int kShTile = 32;      // edges per block (64 ran slower on an H100)
+constexpr int kShThreads = 128;  // threads per block
+constexpr int kShCenters = 4;    // t rows staged per tile (at most)
+
+// sum_u a[u] b[u] over U channels, starting at element (kVec = 1) or float4
+// (kVec = 4) rot and wrapping around.
+template <int kVec>
+__device__ __forceinline__ float rotated_dot(const float* __restrict__ a,
+                                             const float* __restrict__ b, int U, int rot) {
+  float s = 0.f;
+  if (kVec == 4) {
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    const int nv = U / 4;
+    for (int n = 0, k = rot; n < nv; ++n) {
+      const float4 p = a4[k], v = b4[k];
+      s = fmaf(p.x, v.x, s);
+      s = fmaf(p.y, v.y, s);
+      s = fmaf(p.z, v.z, s);
+      s = fmaf(p.w, v.w, s);
+      if (++k == nv) k = 0;
     }
+  } else {
+    for (int n = 0, k = rot; n < U; ++n) {
+      s = fmaf(a[k], b[k], s);
+      if (++k == U) k = 0;
+    }
+  }
+  return s;
+}
+
+// Copies n floats from src to dst with cp.async, 16 bytes (kVec = 4: both
+// 16-byte aligned, n a multiple of 4) or 4 bytes at a time.
+template <int kVec>
+__device__ __forceinline__ void stage_range(float* dst, const float* src, int n) {
+  if (kVec == 4) {
+    for (int q = 4 * threadIdx.x; q < n; q += 4 * blockDim.x) cp_async16(dst + q, src + q);
+  } else {
+    for (int q = threadIdx.x; q < n; q += blockDim.x) cp_async4(dst + q, src + q);
+  }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
+    const float* __restrict__ t, const float* __restrict__ wexp, const int* __restrict__ centers,
+    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
+    int tile, int n_stage, float* __restrict__ dsh) {
+  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
+  const int wrow = n_irr * U, trow = d2 * U;
+  float* s_w = reinterpret_cast<float*>(smem);  // [tile][n_irr * U]
+  float* s_t = s_w + tile * wrow;               // [n_stage][d2 * U]
+  const long long e0 = (long long)blockIdx.x * tile;
+  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
+  // the staged t rows [c_lo, c_lo + n_c): from the first edge's center to the
+  // last real one's
+  const int c_lo = __ldg(centers + e0);
+  int n_c = 0;
+  if (c_lo >= 0 && c_lo < n_atoms) {
+    const int c_hi = min(__ldg(centers + e0 + n_e - 1), n_atoms - 1);
+    n_c = max(0, min(n_stage, c_hi - c_lo + 1));
+  }
+  stage_range<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
+  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int period = kVec == 4 ? U / 4 : U;
+  for (int o = threadIdx.x; o < n_e * d2; o += kShThreads) {
+    const int el = o / d2, j = o - el * d2;
+    const int c = __ldg(centers + e0 + el);
+    float s = 0.f;
+    if (c >= 0 && c < n_atoms) {
+      const float* wr = s_w + el * wrow + __ldg(dim_to_irr + j) * U;
+      const int rot = o % period;
+      if (c - c_lo >= 0 && c - c_lo < n_c)
+        s = rotated_dot<kVec>(wr, s_t + (c - c_lo) * trow + j * U, U, rot);
+      else
+        s = rotated_dot<kVec>(wr, t + (long long)c * trow + j * U, U, rot);
+    }
+    dsh[e0 * d2 + o] = s;
   }
 }
 
@@ -155,27 +175,27 @@ __global__ void unweight_w_kernel(const float* __restrict__ t, const float* __re
 
 extern "C" {
 
-int atpt_tp_scatter(const float* x, const float* g, const float* w, const int* row_ptr,
-                    const int* eidx, const float* ecoef, int n_entries, int n_atoms, int d1,
-                    int d2, int d3, int U, float* denv, void* stream) {
-  size_t fixed = (size_t)n_entries * 5 * sizeof(float);
-  size_t per_warp = (size_t)d2 * U * sizeof(float);
-  size_t smem = 0;
-  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
-  if (warps == 0) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = prepare_smem(tp_scatter_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  tp_scatter_kernel<<<n_atoms, warps * kWarp, smem, (cudaStream_t)stream>>>(
-      x, g, w, row_ptr, eidx, ecoef, n_entries, d1, d2, d3, U, denv);
-  return (int)cudaGetLastError();
-}
-
 int atpt_unweight_sh(const float* t, const float* wexp, const int* centers,
                      const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
                      int U, float* dsh, void* stream) {
-  unweight_sh_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, (size_t)d2 * sizeof(int),
-                       (cudaStream_t)stream>>>(t, wexp, centers, dim_to_irr, n_edges, n_atoms,
-                                               d2, n_irr, U, dsh);
+  if (n_edges < 1 || d2 < 1 || n_irr < 1 || U < 1) return (int)cudaErrorInvalidValue;
+  // the widest schedule whose rows fit: fewer staged t rows first, then
+  // smaller tiles, then no staged t row
+  int tile = kShTile, n_stage = kShCenters;
+  const auto bytes = [&] { return (size_t)(tile * n_irr + n_stage * d2) * U * sizeof(float); };
+  const size_t limit = smem_optin();
+  while (bytes() > limit && n_stage > 1) --n_stage;
+  while (bytes() > limit && tile > 1) tile /= 2;
+  if (bytes() > limit) n_stage = 0;
+  if (bytes() > limit) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n_edges + tile - 1) / tile;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)wexp % 16 == 0;
+  auto kernel = vec ? unweight_sh_kernel<4> : unweight_sh_kernel<1>;
+  cudaError_t err = prepare_smem(kernel, bytes());
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)tiles, kShThreads, bytes(), (cudaStream_t)stream>>>(
+      t, wexp, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dsh);
   return (int)cudaGetLastError();
 }
 

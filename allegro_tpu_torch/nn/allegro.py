@@ -115,8 +115,8 @@ class AllegroLayers(nn.Module):
         super().__init__()
         if tp_kernel_backend not in BACKENDS:
             raise NotImplementedError(
-                f"tp_kernel_backend={tp_kernel_backend!r} is not ported yet; the port has "
-                f"{BACKENDS} (ROADMAP.md queue 1, item 7)"
+                f"tp_kernel_backend={tp_kernel_backend!r} is not ported; the port has "
+                f"{BACKENDS} (ROADMAP.md queue 1, item 12: not to be ported)"
             )
         irreps_sh = Irreps(irreps_sh)
         ladder = compute_irreps_ladder(irreps_sh, Irreps(tensor_track_allowed_irreps), num_layers)

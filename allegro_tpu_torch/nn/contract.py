@@ -20,8 +20,9 @@ else ``(P,)``):
   (differentiable to any order, real weight gradients).
 
 On both fused backends ``gather_tp`` and ``gather_dw`` walk the layer's
-path tables (``gather_paths``: its entry order and the role swap), built
-once here.
+path tables (``gather_paths``: its entry order and the role swap), and on
+``fused`` ``tp_scatter`` walks those two orders with their roles permuted
+(0, 2, 1) (``scatter_paths``), all built once here.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from ..ops.fused_primitives import (
     fused_layer,
     fused_layer_infer,
 )
-from ..ops.fused_tp import gather_rows, irrep_ranges, segment_sum, swap_entries
+from ..ops.fused_tp import (SCATTER_ROLES, gather_rows, irrep_ranges, segment_sum,
+                             swap_entries)
 from ..ops.gen_cg_blocks import CgPaths, path_table
 from ..ops.pallas_contract import ROLES, Entry, role_tables
 from ..ops.tp_primitives import TpStatics, sparse_tp_layer
@@ -86,6 +88,17 @@ def sparse_entries(w3j_packed: np.ndarray, tol: float = 1e-12) -> Tuple[Entry, .
             entries.append((int(i), int(j), int(k), int(p), float(w3j_packed[p, i, j, k])))
     entries.sort(key=lambda e: (e[0], e[1], e[2]))
     return tuple(entries)
+
+
+def walk_tables(entry_idx, entry_swapped, entry_coef, columns,
+                dtype=torch.float32) -> Tuple[CgPaths, CgPaths]:
+    """The path tables (``path_table(by_output=True)``, on the CPU) of a
+    layer's entry order and of its role swap, each with its (i, j, k, p)
+    columns taken in ``columns``' order: ``[0, 1, 2, 3]`` for ``gather_tp``
+    and ``gather_dw``, ``SCATTER_ROLES`` for ``tp_scatter``. ``entry_coef``
+    must be the float64 coefficients."""
+    return tuple(path_table(idx[:, columns], entry_coef, dtype, by_output=True)
+                 for idx in (entry_idx, entry_swapped))
 
 
 class Contracter(nn.Module):
@@ -140,10 +153,11 @@ class Contracter(nn.Module):
             # the tables gather_tp and gather_dw walk: the layer's order and
             # its role swap (the x-transposes), each in the kernels' walk
             # order, built once from the float64 coefficients
-            for tag, idx in (("", self.entry_idx), ("_swapped", self.entry_swapped)):
-                for name, t in zip(CgPaths._fields, path_table(idx, self.entry_coef, dtype,
-                                                               by_output=True)):
-                    self.register_buffer(f"walk{tag}_{name}", t, persistent=False)
+            self._register_paths("walk", [0, 1, 2, 3], dtype)
+        if kernel_backend == "fused":
+            # the tables tp_scatter walks: both orders with their roles
+            # permuted (0, 2, 1), so that the walk's out is j (the env)
+            self._register_paths("scatter", SCATTER_ROLES, dtype)
         self.n_irr = len(irreps_in2)
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
         self.register_buffer("dim_to_irr", torch.tensor(dim_to_irr, dtype=torch.int32),
@@ -238,18 +252,38 @@ class Contracter(nn.Module):
         """The layer's path descriptors (``gen_cg_blocks.path_table``)."""
         return CgPaths(self.cg_desc, self.cg_scale, self.cg_entry_idx, self.cg_entry_coef)
 
+    def _register_paths(self, prefix: str, columns, dtype) -> None:
+        """Buffers ``{prefix}_*`` and ``{prefix}_swapped_*``: the layer's
+        ``walk_tables(..., columns)``; non-persistent, so checkpoints do not
+        change."""
+        tables = walk_tables(self.entry_idx, self.entry_swapped, self.entry_coef, columns, dtype)
+        for tag, paths in zip(("", "_swapped"), tables):
+            for name, t in zip(CgPaths._fields, paths):
+                self.register_buffer(f"{prefix}{tag}_{name}", t, persistent=False)
+
+    def _buffer_paths(self, prefix: str) -> Tuple[CgPaths, CgPaths]:
+        """The two path tables of ``_register_paths(prefix, ...)``, gathered
+        from the buffers once and again only after a move or cast has
+        replaced them."""
+        cached = self.__dict__.get(f"_{prefix}_paths")
+        if cached is None or cached[0].desc is not getattr(self, f"{prefix}_desc") \
+                or cached[0].scale is not getattr(self, f"{prefix}_scale"):
+            cached = tuple(CgPaths(*(getattr(self, f"{prefix}{tag}_{name}")
+                                     for name in CgPaths._fields)) for tag in ("", "_swapped"))
+            self.__dict__[f"_{prefix}_paths"] = cached
+        return cached
+
     def gather_paths(self) -> Tuple[CgPaths, CgPaths]:
         """The path tables of ``gather_tp`` and ``gather_dw`` on ``fused`` and
         ``fused_infer``: the layer's entry order's and its role swap's, in
-        walk order (``path_table(by_output=True)``), gathered from the buffers
-        once and again only after a move or cast has replaced them."""
-        cached = self.__dict__.get("_gather_paths")
-        if cached is None or cached[0].desc is not self.walk_desc \
-                or cached[0].scale is not self.walk_scale:
-            cached = tuple(CgPaths(*(getattr(self, f"walk{tag}_{name}")
-                                     for name in CgPaths._fields)) for tag in ("", "_swapped"))
-            self.__dict__["_gather_paths"] = cached
-        return cached
+        walk order (``path_table(by_output=True)``)."""
+        return self._buffer_paths("walk")
+
+    def scatter_paths(self) -> Tuple[CgPaths, CgPaths]:
+        """The path tables of ``tp_scatter`` on ``fused``: the layer's entry
+        order's and its role swap's, each with its roles permuted (0, 2, 1),
+        in walk order."""
+        return self._buffer_paths("scatter")
 
     def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
         """Whole layer update (env weight + scatter + gather + CG) through the
@@ -260,7 +294,7 @@ class Contracter(nn.Module):
         if self.kernel_backend == "fused":
             st = FusedStatics(centers, row_ptr, self.dim_to_irr, self.n_irr, self.mul, entry_idx,
                               self.entry_swapped, entry_coef, self.num_paths,
-                              (self.d1, self.d2, self.d3), paths, swapped)
+                              (self.d1, self.d2, self.d3), paths, swapped, *self.scatter_paths())
             return fused_layer(x, sh, wexp, wk, st)
         return fused_layer_infer(
             x, sh, wexp, wk, centers, row_ptr, entry_idx, entry_coef, self.dim_to_irr, self.d3,

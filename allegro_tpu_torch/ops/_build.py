@@ -56,8 +56,8 @@ _SIGNATURES = {
                              _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp],
     "atpt_bwd_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
                        _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
-    "atpt_tp_scatter": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp,
-                        _vp],
+    "atpt_tp_scatter": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32,
+                        _i32, _i32, _vp, _vp],
     "atpt_gather_dw": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
                        _i32, _i32, _i32, _i32, _vp, _vp, _vp],
     "atpt_unweight_sh": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],

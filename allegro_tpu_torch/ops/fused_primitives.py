@@ -55,10 +55,13 @@ class FusedStatics(NamedTuple):
     basis map (``dim_to_irr`` [d2] int32, ``n_irr``), the channels ``U``, the
     layer's sparse CG table (``entry_idx`` [n, 4] = (i, j, k, p),
     ``entry_swapped`` its role swap, ``entry_coef`` [n], ``n_paths``) with its
-    dims ``(d1, d2, d3)``, and, for the path-walking kernels on the card
-    (``gather_tp``, ``gather_dw``), each order's path table in walk order
-    (``paths`` for ``entry_idx``, ``paths_swapped`` for ``entry_swapped``;
-    ``Contracter.gather_paths``). The plain versions read the entries and
+    dims ``(d1, d2, d3)``, and, for the path-walking kernels on the card,
+    each order's path tables in walk order: ``paths`` for ``entry_idx`` and
+    ``paths_swapped`` for ``entry_swapped`` (``gather_tp``, ``gather_dw``;
+    ``Contracter.gather_paths``), and ``scatter_paths`` /
+    ``scatter_paths_swapped``, the same two orders with their roles permuted
+    (0, 2, 1) so that out is j (``tp_scatter``;
+    ``Contracter.scatter_paths``). The plain versions read the entries and
     need none."""
 
     centers: torch.Tensor
@@ -73,14 +76,17 @@ class FusedStatics(NamedTuple):
     dims: Tuple[int, int, int]
     paths: Optional[CgPaths] = None
     paths_swapped: Optional[CgPaths] = None
+    scatter_paths: Optional[CgPaths] = None
+    scatter_paths_swapped: Optional[CgPaths] = None
 
     def swap(self) -> "FusedStatics":
         """The ᵀ of the transpose table: entries (i,j,k) -> (k,j,i) with their
-        path table, dims reversed."""
+        path tables, dims reversed."""
         d1, d2, d3 = self.dims
         return self._replace(entry_idx=self.entry_swapped, entry_swapped=self.entry_idx,
                              paths=self.paths_swapped, paths_swapped=self.paths,
-                             dims=(d3, d2, d1))
+                             scatter_paths=self.scatter_paths_swapped,
+                             scatter_paths_swapped=self.scatter_paths, dims=(d3, d2, d1))
 
 
 def _need(ctx, i: int, fn):
@@ -132,7 +138,7 @@ class TpScatter(torch.autograd.Function):
         ctx.save_for_backward(x, g, w)
         ctx.st = st
         return fused_tp.tp_scatter(x, g, w, st.centers, st.row_ptr, st.entry_idx, st.entry_coef,
-                                   st.dims[1])
+                                   st.dims[1], st.scatter_paths)
 
     @staticmethod
     def backward(ctx, t):

@@ -35,11 +35,13 @@ two rank-window partials ``(eA, eB)``.
 The first four are in ``csrc/fused_tp.cu``, the next four in
 ``csrc/center_readout.cu``, the next four (the mega-fused layers) in
 ``csrc/mega.cu``, the last four (the trainable backend's transposes) in
-``csrc/train_tp.cu``, except ``gather_tp`` and ``gather_dw``: they walk
-the layer's compiled CG paths in ``csrc/sparse_tp.cu``, the same walkers
-as the ``pallas`` backend's ``sparse_tp`` / ``sparse_tp_gradw`` with the
-env row gathered by center, and on the card take the table's path table
-(``paths``, built once per layer by ``nn/contract.py:Contracter``).
+``csrc/train_tp.cu``, except ``gather_tp``, ``gather_dw`` and
+``tp_scatter``: they walk the layer's compiled CG paths in
+``csrc/sparse_tp.cu``, the same walkers as the ``pallas`` backend's
+``sparse_tp`` / ``sparse_tp_gradw`` with the env row gathered by center
+(``tp_scatter``: the per-edge rows summed over each atom's edges), and on
+the card take the table's path table (``paths``, built once per layer by
+``nn/contract.py:Contracter``).
 ``gather_tp`` also serves ``gather_tp_call`` / ``_gather_tp_kernel``: the
 port keeps one env array, so that kernel's combined-env form is the same
 function, and its x-transpose is ``gather_tp`` on the role-swapped entry
@@ -146,6 +148,12 @@ def swap_entries(entry_idx: torch.Tensor) -> torch.Tensor:
     transpose of ``gather_tp`` in its first input, mapping ``[E, d3*U]`` to
     ``[E, d1*U]``. Swapping twice gives the table back."""
     return entry_idx[:, [2, 1, 0, 3]].contiguous()
+
+
+# The columns of an entry table (i, j, k, p) in the role order (0, 2, 1)
+# whose path table ``tp_scatter`` walks: (i, k, j, p), so that the walk's
+# inputs are x (over i) and g (over k) and its out is j, the env.
+SCATTER_ROLES = [0, 2, 1, 3]
 
 
 def _cg_tensor(like, entry_idx, entry_coef, n_paths, d1, d2, d3):
@@ -960,13 +968,18 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
     return dsh, dw2b, denv
 
 
-def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int) -> torch.Tensor:
+def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int,
+               paths: Optional[CgPaths] = None) -> torch.Tensor:
     """denv [n_atoms, d2*U]: ``denv[a, jU+u] = Σ_{c(e)=a} Σ c w[p,u] x[e,iU+u]
     g[e,kU+u]``, the env-transpose of ``gather_tp``. x [E, d1*U], g [E, d3*U],
-    w [P, U], row_ptr [n_atoms+1]; the entry table in either role order.
+    w [P, U], row_ptr [n_atoms+1]; the entry table in either role order; on
+    the card also ``paths``, the path table of that order with its roles
+    permuted (0, 2, 1), so that its out is j (``Contracter.scatter_paths``).
 
-    Replaces ``_tp_scatter_kernel``. Bound by the reads of x and g; one block
-    per atom segment, summed across warps in a fixed order (no atomics)."""
+    Replaces ``_tp_scatter_kernel``. Bound by the reads of x and g; per atom
+    segment, threads of (chunk, channel) walk the edges' compiled CG paths
+    with each output slice summed in registers, the chunks' partials added
+    in chunk order and the row stored once (no atomics)."""
     E, U = x.shape[0], w.shape[1]
     n_atoms = row_ptr.shape[0] - 1
     _check_entries(entry_idx, entry_coef)
@@ -977,15 +990,16 @@ def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int) -> tor
         )
     if _on_cpu(x, g, w, centers, row_ptr, entry_idx, entry_coef):
         return tp_scatter_reference(x, g, w, centers, n_atoms, entry_idx, entry_coef, d2)
-    _check_kernel_args({"x": x, "g": g, "w": w, "entry_coef": entry_coef},
-                       {"row_ptr": row_ptr, "entry_idx": entry_idx})
+    _check_kernel_args({"x": x, "g": g, "w": w}, {"row_ptr": row_ptr})
+    paths = _kernel_paths("tp_scatter", paths, entry_idx.shape[0])
     denv = torch.empty((n_atoms, d2 * U), dtype=x.dtype, device=x.device)
     if n_atoms == 0:
         return denv
     _launch("tp_scatter", "atpt_tp_scatter", x.device,
-            x.data_ptr(), g.data_ptr(), w.data_ptr(), row_ptr.data_ptr(), entry_idx.data_ptr(),
-            entry_coef.data_ptr(), entry_idx.shape[0], n_atoms, x.shape[1] // U, d2,
-            g.shape[1] // U, U, denv.data_ptr())
+            x.data_ptr(), g.data_ptr(), w.data_ptr(), row_ptr.data_ptr(), paths.desc.data_ptr(),
+            paths.scale.data_ptr(), paths.desc.shape[0], paths.entry_idx.data_ptr(),
+            paths.entry_coef.data_ptr(), n_atoms, x.shape[1] // U, d2, g.shape[1] // U, U,
+            w.shape[0], denv.data_ptr())
     return denv
 
 
@@ -1041,8 +1055,13 @@ def unweight_sh(t, wexp, centers, dim_to_irr) -> torch.Tensor:
     """dsh [E, d2]: ``dsh[e, j] = Σ_u t[c(e), jU+u] wexp[e, irr(j)U+u]``, the
     sh-transpose of ``env_scatter``. t [n_atoms, d2*U], wexp [E, n_irr*U].
 
-    Replaces ``_gather_unweight_sh_kernel``. Bound by the read of wexp; one
-    warp per edge, a warp shuffle reduction per basis dim."""
+    Replaces ``_gather_unweight_sh_kernel``. Bound by the read of wexp; a
+    block per tile of 32 consecutive edges, the tile's wexp rows and up to 4
+    of its centers' t rows staged in shared memory, each (edge, dim) dot over
+    the channels by one thread, the tile's dsh rows written as one range.
+    Where those rows outgrow the card's shared memory (wide layers: l_max 4
+    at U = 256), the launcher stages fewer t rows, then takes smaller
+    tiles."""
     E, d2 = wexp.shape[0], dim_to_irr.shape[0]
     U = _check_unweight("unweight_sh", t, wexp, centers, dim_to_irr)
     if wexp.shape[1] % U:

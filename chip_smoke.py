@@ -23,10 +23,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``gather_tp`` without its split output, ``gather_tp_embed`` (with and
    without its split output), ``bwd_embed`` and ``gather_tp`` (with and
    without) on an l = 4 layer at U = 32, whose paths beyond the compiled CG
-   header take the kernels' per-entry default case, and the mega kernels
-   and ``gather_tp`` (with and without) on the same crystal at r_max 7.0
-   (~134 edges per atom: a segment spans three of ``latent_env_scatter``'s
-   64-edge tiles); the center
+   header take the kernels' per-entry default case, and the mega kernels,
+   ``gather_tp`` (with and without), ``tp_scatter`` (both role orders,
+   against the plain version in float64) and ``unweight_sh`` on the same
+   crystal at r_max 7.0 (~134 edges per atom: a segment spans three of
+   ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s four
+   chunks walks ~34 of its edges); the center
    gather and sum on positions [4096, 3] at the center and the neighbor side
    (and, checks only, on the [·, 1] energy column of the plain readout
    chain); the fused readout and its backward on three 64-wide pieces (W0
@@ -62,7 +64,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    without its split output) and ``gather_dw`` in both role orders on the
    batch's edges less one (an odd count) at U = 16 and 48 and on an l = 4
    layer (walk rows beyond the header), with x nonzero on the sentinel
-   edges; a call on the card without a path table must raise; (b) on that batch (zero
+   edges, and ``tp_scatter`` (both orders, against float64) and
+   ``unweight_sh`` at those shapes on the batch's edges less those of atom
+   ``EMPTY_ATOM`` (a segment without edges) and an odd count (a whole number
+   of no tile's or chunk's edges), with x, g and wexp nonzero on the
+   sentinel edges, and ``unweight_sh`` on an l = 4 layer at U = 256 and
+   512, whose full tile outgrows the card's shared memory (the launcher
+   stages fewer t rows, then takes smaller tiles), on the edges of the
+   first ``WIDE_ATOMS`` atoms less one; ``gather_tp``, ``gather_dw`` and
+   ``tp_scatter`` on the
+   card without a path table must raise; (b) on that batch (zero
    targets) and on the bench's 16 synthetic 21-atom frames (984 edges):
    the flagship on ``fused`` through ``Trainer.fit``, Adam 1e-3, EMA 0.999,
    10 steps with the exact launch count of every kernel per step, finite
@@ -164,6 +175,8 @@ import torch
 N_ATOMS = 4096
 R_MAX = 4.0
 LONG_R_MAX = 7.0  # phase 2's long segments: ~134 edges per atom
+EMPTY_ATOM = 7  # phase 5a: the atom whose edges check_scatter_shapes removes
+WIDE_ATOMS = 512  # phase 5a: the atoms whose edges unweight_sh's wide-U checks take
 SEED = 0
 N_CALLS = 5
 KERNEL_TOL = 1e-5
@@ -196,7 +209,7 @@ SOURCES = {
     "center_sum": "allegro_tpu_torch/csrc/center_readout.cu",
     "readout_sum": "allegro_tpu_torch/csrc/center_readout.cu",
     "readout_bwd": "allegro_tpu_torch/csrc/center_readout.cu",
-    "tp_scatter": "allegro_tpu_torch/csrc/train_tp.cu",
+    "tp_scatter": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "gather_dw": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "unweight_sh": "allegro_tpu_torch/csrc/train_tp.cu",
     "unweight_w": "allegro_tpu_torch/csrc/train_tp.cu",
@@ -715,8 +728,11 @@ def _flat_out(res):
 def check_long_segments(model, rng, dev):
     """Phase 2: the mega kernels (checks only) on the crystal at r_max
     LONG_R_MAX, where an atom has ~134 edges: its segment spans three of
-    ``latent_env_scatter``'s 64-edge tiles."""
+    ``latent_env_scatter``'s 64-edge tiles; and ``tp_scatter`` (both orders)
+    and ``unweight_sh`` at the flagship's layer-0 dims there, where each of
+    ``tp_scatter``'s chunks walks ~34 edges of a segment."""
     from allegro_tpu_torch.data import batch_frames, keys, to_torch
+    from allegro_tpu_torch.nn.contract import Contracter
 
     frame, n_atoms = crystal_frame(N_ATOMS, LONG_R_MAX, SEED)
     data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
@@ -725,6 +741,10 @@ def check_long_segments(model, rng, dev):
     print(f"  r_max {LONG_R_MAX}: {int(data[keys.EDGE_MASK].sum())} edges, "
           f"{degree.float().mean().item():.1f} per atom (at most {int(degree.max())})")
     check_mega_kernels(model.module.allegro, data, rng)
+    l2 = "1x0e+1x1o+1x2e"
+    tps = [Contracter(l2, l2, l2, model.module.allegro.U, kernel_backend="fused").to(dev)]
+    check_scatter_kernels(tps, data[keys.EDGE_INDEX][0].to(torch.int32).contiguous(),
+                          data[keys.CENTER_ROW_PTR], rng, f"r_max {LONG_R_MAX}")
 
 
 def check_center_readout(data, rng, records):
@@ -812,7 +832,9 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
     the swapped table (the layer's own order, timed in phase 2, checked
     here too); with ``records``, also the median times (one launch per layer
     and order, summed). ``gather_tp`` and ``gather_dw`` walk the order's
-    path table (``Contracter.gather_paths``, carried by ``FusedStatics``).
+    path table (``Contracter.gather_paths``, carried by ``FusedStatics``),
+    ``tp_scatter`` that order's with its roles permuted (0, 2, 1)
+    (:func:`scatter_paths`).
     Each entry of ``gather_dw`` sums ~10^5 edges, so it is held to the plain
     version in float64 (from the float64 entries), as ``sparse_tp_gradw``
     is; the float32 plain version is timed. Per-edge inputs are zero on
@@ -838,7 +860,8 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
         _, idx, coef = (v.detach() for v in tp.fused_infer_parts(torch.float32))
         d2i = tp.dim_to_irr
         st = FusedStatics(centers, row_ptr, d2i, tp.n_irr, U, idx, tp.entry_swapped, coef,
-                          tp.num_paths, (tp.d1, tp.d2, tp.d3), *tp.gather_paths())
+                          tp.num_paths, (tp.d1, tp.d2, tp.d3), *tp.gather_paths(),
+                          *scatter_paths(tp))
         n = idx.shape[0]
         t, sh, wexp = rand(n_atoms, tp.d2 * U, edge=False), rand(E, tp.d2), rand(E, tp.n_irr * U)
         label = f"U {U} layer {layer} dims {st.dims} entries {n:3d}"
@@ -856,10 +879,11 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
             tab = (s.entry_idx, coef)
             label = f"U {U} layer {layer} dims {s.dims} entries {n:3d}"
             check_case("tp_scatter" + tag,
-                       lambda: (fused_tp.tp_scatter(x, g, w, centers, row_ptr, *tab, d2),),
+                       lambda: (fused_tp.tp_scatter(x, g, w, centers, row_ptr, *tab, d2,
+                                                    s.scatter_paths),),
                        lambda: (fused_tp.tp_scatter_reference(x, g, w, centers, n_atoms, *tab,
                                                               d2),),
-                       label, records, (x, g, w, row_ptr, *tab), 3 * Er * n * U,
+                       label, records, (x, g, w, row_ptr, *s.scatter_paths), 3 * Er * n * U,
                        plain_timing=plain_timing)
             # a CG entry's dw term: x*env, *g, then the multiply-add with c
             exact = fused_tp.gather_dw_reference(x.double(), env.double(), g.double(), centers,
@@ -940,6 +964,119 @@ def check_gather_shapes(data, rng):
             print(f"    {name} on the card without a path table raises: {e}")
         else:
             raise AssertionError(f"{name} ran on the card without its path table")
+
+
+def scatter_paths(tp):
+    """``tp_scatter``'s path tables for layer ``tp``: its entry order's and its
+    role swap's, each with its roles permuted (0, 2, 1) so that the walk's out
+    is j. A ``fused`` layer's own (``Contracter.scatter_paths``); for a layer
+    of another backend, which never runs ``tp_scatter``, built by the
+    function ``Contracter`` builds them with (``contract.walk_tables``)."""
+    from allegro_tpu_torch.nn import contract
+    from allegro_tpu_torch.ops import fused_tp
+
+    if hasattr(tp, "scatter_desc"):
+        return tp.scatter_paths()
+    return tuple(paths.to(tp.entry_idx.device) for paths in contract.walk_tables(
+        tp.entry_idx, tp.entry_swapped, tp.entry_coef, fused_tp.SCATTER_ROLES))
+
+
+def check_scatter_kernels(tps, centers, row_ptr, rng, label):
+    """Checks only: ``unweight_sh`` and ``tp_scatter`` (each layer's table in
+    both role orders, walking :func:`scatter_paths`; held to the plain
+    version in float64) on the edges ``centers`` with the CSR ``row_ptr``,
+    with x, g and wexp nonzero on the sentinel edges, which neither kernel
+    may read."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = centers.device
+    n_atoms, E = row_ptr.shape[0] - 1, centers.shape[0]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    for tp in tps:
+        U, P = tp.mul, tp.num_paths
+        coef = tp.entry_coef.to(torch.float32)
+        t, wexp = rand(n_atoms, tp.d2 * U), rand(E, tp.n_irr * U)
+        what = f"{label} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) entries {tp.entry_idx.shape[0]:4d}"
+        check_case("unweight_sh",
+                   lambda: (fused_tp.unweight_sh(t, wexp, centers, tp.dim_to_irr),),
+                   lambda: (fused_tp.unweight_sh_reference(t, wexp, centers, tp.dim_to_irr),),
+                   what)
+        for order, idx, paths, (d1, d2, d3) in zip(
+                ("own", "swapped"), (tp.entry_idx, tp.entry_swapped), scatter_paths(tp),
+                ((tp.d1, tp.d2, tp.d3), (tp.d3, tp.d2, tp.d1))):
+            x, g, w = rand(E, d1 * U), rand(E, d3 * U), rand(P, U)
+            exact = fused_tp.tp_scatter_reference(x.double(), g.double(), w.double(), centers,
+                                                  n_atoms, idx, tp.entry_coef, d2)
+            beyond = int((paths.desc[:, 1] < 0).sum())
+            check_case("tp_scatter",
+                       lambda: (fused_tp.tp_scatter(x, g, w, centers, row_ptr, idx, coef, d2,
+                                                    paths),),
+                       lambda: (exact,),
+                       f"{what} {order:7s} rows {paths.desc.shape[0]} ({beyond} beyond the "
+                       f"header) (vs float64)")
+            del exact
+
+
+def check_scatter_shapes(data, rng):
+    """Phase 5a, checks only: ``tp_scatter`` and ``unweight_sh`` (both role
+    orders) on the training batch's edges less those of atom ``EMPTY_ATOM``
+    (a segment without edges) and less the last one or two (an odd count: a
+    whole number of no tile's or chunk's edges), on the flagship's two layer
+    shapes at U = 16 and 48 and on an l = 4 layer at U = 32 (dims 25: walk
+    rows beyond the compiled CG header, walked entry by entry), and
+    ``unweight_sh`` on that l = 4 layer's dims at U = 256 and 512 on the
+    edges of the first ``WIDE_ATOMS`` atoms less one: 32 wexp rows and 4 t
+    rows take 260 KiB there at U = 256 and 520 KiB at 512, more than the
+    card's opt-in shared memory (227 KiB on an H100), so the launcher stages 2 t rows at U = 256
+    and takes 16-edge tiles with one t row at 512. Then a ``tp_scatter``
+    call on the card without its path table must raise."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.nn.contract import Contracter
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32)
+    centers = centers[centers != EMPTY_ATOM]
+    centers = centers[:-1] if centers.shape[0] % 2 == 0 else centers[:-2]
+    centers = centers.contiguous()
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.cpu().numpy(), n_atoms), device=dev)
+    if row_ptr[EMPTY_ATOM] != row_ptr[EMPTY_ATOM + 1]:
+        raise AssertionError(f"atom {EMPTY_ATOM} still has edges")
+    l2 = "1x0e+1x1o+1x2e"
+    l4 = "+".join(f"1x{l}{'e' if l % 2 == 0 else 'o'}" for l in range(5))
+    layers = [Contracter(*irreps, mul, kernel_backend="fused")
+              for mul in (16, 48) for irreps in ((l2,) * 3, (l2, l2, "1x0e"))]
+    layers.append(Contracter(l4, l4, l4, 32, kernel_backend="fused"))
+    E = centers.shape[0]
+    check_scatter_kernels([tp.to(dev) for tp in layers], centers, row_ptr, rng,
+                          f"E {E} (atom {EMPTY_ATOM} without edges)")
+    tp = layers[-1]
+    wide = centers[:int(row_ptr[WIDE_ATOMS]) - 1]
+    for U in (256, 512):
+        t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U).astype(np.float32), device=dev)
+        wexp = torch.as_tensor(rng.randn(wide.shape[0], tp.n_irr * U).astype(np.float32),
+                               device=dev)
+        full = (32 * tp.n_irr + 4 * tp.d2) * U * 4
+        check_case("unweight_sh",
+                   lambda: (fused_tp.unweight_sh(t, wexp, wide, tp.dim_to_irr),),
+                   lambda: (fused_tp.unweight_sh_reference(t, wexp, wide, tp.dim_to_irr),),
+                   f"E {wide.shape[0]} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) (full tile "
+                   f"{full // 1024} KiB)")
+        del t, wexp
+    tp = layers[0]
+    x, w = torch.zeros(E, tp.d1 * tp.mul, device=dev), torch.zeros(tp.num_paths, tp.mul,
+                                                                   device=dev)
+    try:
+        fused_tp.tp_scatter(x, x, w, centers, row_ptr, tp.entry_idx,
+                            tp.entry_coef.to(torch.float32), tp.d2)
+    except ValueError as e:
+        print(f"    tp_scatter on the card without a path table raises: {e}")
+    else:
+        raise AssertionError("tp_scatter ran on the card without its path table")
 
 
 def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
@@ -1431,7 +1568,8 @@ def check_kernel18(tps, data, rng, records, tag, plain_timing=None):
         walk, walk_swapped = tp.gather_paths()
         trio = lambda: (fused_tp.gather_tp(g, env, w, centers, swapped, coef, d1,
                                            paths=walk_swapped),
-                        fused_tp.tp_scatter(x, g, w, centers, row_ptr, idx, coef, d2),
+                        fused_tp.tp_scatter(x, g, w, centers, row_ptr, idx, coef, d2,
+                                            scatter_paths(tp)[0]),
                         fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U, walk))
         check_case("bwd_fused[trio]", trio,
                    lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx, coef,
@@ -1781,6 +1919,7 @@ def main() -> int:
                              tp_kernel_backend="fused").init(SEED).to(dev)
         check_train_kernels(other.module.allegro.tps, train_data, rng)
     check_gather_shapes(train_data, rng)
+    check_scatter_shapes(train_data, rng)
     del train_data
     train_launches = run_training(loaders, dev, smi)
 
@@ -1856,12 +1995,14 @@ def ptxas_usage(log):
 def kernel_ptxas(name, usage):
     """The ptxas records of the entry functions of wrapper ``name``'s kernel
     (``<name>_kernel`` and its ``_partial`` first pass; ``<true>`` /
-    ``<false>``: the instantiations of a bool template)."""
+    ``<false>``, ``<4>``: the instantiations of a bool or int template)."""
     out = []
     for mangled, (regs, stores, loads) in usage.items():
-        m = re.search(rf"\d({re.escape(name)}(?:_partial)?_kernel)(ILb([01])E)?", mangled)
+        m = re.search(rf"\d({re.escape(name)}(?:_partial)?_kernel)(IL([bi])(\d+)E)?", mangled)
         if m:
-            tag = {"1": "<true>", "0": "<false>"}.get(m.group(3), "")
+            tag = ("" if m.group(2) is None else
+                   {"1": "<true>", "0": "<false>"}[m.group(4)] if m.group(3) == "b" else
+                   f"<{m.group(4)}>")
             out.append({"kernel": m.group(1) + tag, "registers": regs, "spill_stores": stores,
                         "spill_loads": loads})
     return out

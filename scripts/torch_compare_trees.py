@@ -46,6 +46,13 @@ Each run times, with that tree's package:
   the layer's order, a training step's), and (``*_lmax3_ms``) at the
   l_max-3 model's layer 0, each through the tree's wrapper with the path
   tables the tree's layers cache where it has them;
+- ``tp_scatter_ms``, ``tp_scatter_swapped_ms`` and ``unweight_sh_ms``:
+  device times from CUDA events of kernels 14 (in the layer's entry order
+  and on the role-swapped table) and 16 on the same edges and layers, with
+  the path table the tree's ``tp_scatter`` walks where it takes one
+  (``chip_smoke.scatter_paths``), and (``*_rmax7_ms``) at the flagship's
+  layer 0 on the crystal at r_max 7.0 (``chip_smoke.LONG_R_MAX``: ~137
+  edges per atom);
 - ``fused_train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``fused`` on the 4 x 1,000-atom batch (median of 10 steps after 2, host
   clock), ``fused_train_busy_ms`` and ``fused_train_idle_pct`` its device
@@ -216,6 +223,49 @@ def gather_kernel_times(smoke, tps, data) -> dict:
     return ms
 
 
+def scatter_kernel_times(smoke, tps, data) -> dict:
+    """Device ms, from CUDA events, of tp_scatter (the layer's entry order
+    and the role swap, the two orders a training step runs) and unweight_sh
+    on ``data``'s edges, summed over the layers ``tps``, each through the
+    tree's wrapper, with the path table of this checkout's
+    ``chip_smoke.scatter_paths`` where the tree's ``tp_scatter`` takes one."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    rng = np.random.RandomState(smoke.SEED)
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms, E = row_ptr.shape[0] - 1, centers.shape[0]
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+    walks = "paths" in inspect.signature(fused_tp.tp_scatter).parameters
+
+    def rand(*shape, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return t * real if edge else t
+
+    ms = {"tp_scatter_ms": 0.0, "tp_scatter_swapped_ms": 0.0, "unweight_sh_ms": 0.0}
+    for tp in tps:
+        U, P = tp.mul, tp.num_paths
+        coef = tp.entry_coef.to(torch.float32)
+        own, swapped = ((p,) for p in smoke.scatter_paths(tp)) if walks else ((), ())
+        x, g, w = rand(E, tp.d1 * U), rand(E, tp.d3 * U), rand(P, U, edge=False)
+        t, wexp = rand(n_atoms, tp.d2 * U, edge=False), rand(E, tp.n_irr * U)
+        ms["tp_scatter_ms"] += smoke.median_ms(lambda: fused_tp.tp_scatter(
+            x, g, w, centers, row_ptr, tp.entry_idx, coef, tp.d2, *own))
+        ms["tp_scatter_swapped_ms"] += smoke.median_ms(lambda: fused_tp.tp_scatter(
+            g, x, w, centers, row_ptr, tp.entry_swapped, coef, tp.d2, *swapped))
+        ms["unweight_sh_ms"] += smoke.median_ms(lambda: fused_tp.unweight_sh(
+            t, wexp, centers, tp.dim_to_irr))
+        del x, g, t, wexp
+    return ms
+
+
 def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -296,11 +346,23 @@ def measure(tree: Path) -> dict:
             if prof is not None:
                 out["nomega_busy_ms"], out["nomega_idle_pct"] = prof[0], prof[1]
         suffix = "" if tag == "nomega" else "_lmax3"
-        for key, ms in gather_kernel_times(smoke, tps if tag == "nomega" else tps[:1],
-                                           data).items():
-            out[key.replace("_ms", suffix + "_ms")] = ms
+        for times in (gather_kernel_times, scatter_kernel_times):
+            for key, ms in times(smoke, tps if tag == "nomega" else tps[:1], data).items():
+                out[key.replace("_ms", suffix + "_ms")] = ms
         del model, data
         torch.cuda.empty_cache()
+
+    frame, n_atoms = smoke.crystal_frame(smoke.N_ATOMS, smoke.LONG_R_MAX, smoke.SEED)
+    n_edges = frame[keys.EDGE_INDEX].shape[1]
+    model = AllegroModel(**{**smoke.FLAGSHIP, "r_max": smoke.LONG_R_MAX},
+                         avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
+                         use_mega=False).init(smoke.SEED).to(dev)
+    data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
+                    dtype=torch.float32, device=dev)
+    for key, ms in scatter_kernel_times(smoke, model.module.allegro.tps[:1], data).items():
+        out[key.replace("_ms", "_rmax7_ms")] = ms
+    del model, data
+    torch.cuda.empty_cache()
 
     loader = smoke.train_loaders()["1k"]
     train, _ = smoke.train_models(next(iter(loader)), "fused")

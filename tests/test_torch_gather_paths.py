@@ -22,6 +22,32 @@ of its own:
   block's output dotted with the cotangent slice; sentinel edges skipped)
   equals ``gather_dw_reference`` at 1e-12.
 
+And the tables ``tp_scatter`` walks on ``fused`` (``sparse_tp``'s walk per
+edge, the rows summed over each atom's edges) with the tile schedule of
+``unweight_sh`` (``csrc/train_tp.cu``), on the same models and layers:
+
+- every ``Contracter`` on ``fused`` carries two ``tp_scatter`` tables, its
+  entry order and its role swap, each with its roles permuted (0, 2, 1) so
+  that the walk's out is j (the env), equal to
+  ``gen_cg_blocks.path_table(by_output=True)`` of the permuted float64
+  entries; ``fused_infer`` layers carry none;
+- ``FusedStatics`` carries them and ``swap()`` exchanges them, and
+  ``TpScatter`` passes the order's table to the kernel's wrapper, also from
+  the backward of ``GatherTp``;
+- in both role orders, a plain float64 emulation of the new ``tp_scatter``
+  walk (per atom segment, T / U chunks of edges in edge order, each edge
+  through ``sparse_tp``'s walk on the permuted table, the chunks' partials
+  added in chunk order; an atom without edges, sentinel edges never read)
+  equals ``tp_scatter_reference`` at 1e-12;
+- a plain float64 emulation of ``unweight_sh``'s tile schedule (tiles of
+  consecutive edges, the last partial; up to a number of staged center rows
+  per tile, the rest read from the table; each dot over the channels started
+  at the thread's rotation; sentinel edges zero) equals
+  ``unweight_sh_reference`` at 1e-12, at U = 3 (4-byte copies) and U = 8
+  (16-byte copies), for the full schedule (32-edge tiles, 4 staged rows) and
+  for the smaller ones the launcher takes where rows are too wide for shared
+  memory.
+
 The kernels themselves run only on the card (``chip_smoke.py`` phases 2, 5a
 and 7a).
 """
@@ -35,8 +61,8 @@ import torch
 from allegro_tpu_torch.model import AllegroModel
 from allegro_tpu_torch.nn import contract
 from allegro_tpu_torch.nn.contract import Contracter
-from allegro_tpu_torch.ops import fused_tp, gen_cg_blocks
-from allegro_tpu_torch.ops.fused_primitives import FusedStatics
+from allegro_tpu_torch.ops import fused_primitives, fused_tp, gen_cg_blocks
+from allegro_tpu_torch.ops.fused_primitives import FusedStatics, GatherTp, TpScatter
 from test_torch_sparse_paths import _emulate_gradw, _emulate_tp, _one_thread  # noqa: F401
 
 MODELS = {
@@ -49,6 +75,14 @@ BACKENDS = ("fused", "fused_infer")
 ORDERS = ("own", "swapped")
 LAYERS = [(m, layer) for m, (_, n) in MODELS.items() for layer in range(n)]
 N_ATOMS, N_REAL, N_SENTINEL, U = 6, 30, 7, 3
+IDS = [f"{m}-layer{n}" for m, n in LAYERS]
+# (i, j, k, p) -> (i, k, j, p): the roles (0, 2, 1), written out here
+ROLES_021 = [0, 2, 1, 3]
+TP_THREADS = 128  # kTpThreads of csrc/sparse_tp.cu: a block is (T / U chunks, U channels)
+# unweight_sh's (edges per tile, staged t rows): the full schedule (kShTile,
+# kShCenters of csrc/train_tp.cu) and smaller ones its launcher takes where
+# the rows do not fit in shared memory
+SH_SCHEDULES = [(32, 4), (16, 1), (1, 0)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,3 +228,206 @@ def test_gather_dw_walk_equals_the_plain_version(model, layer, order):
     real = centers < N_ATOMS
     got = _emulate_gradw(x[real], env[centers[real].long()], g[real], paths, tp.num_paths, U)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+def _scatter_table(idx, coef):
+    return gen_cg_blocks.path_table(idx[:, ROLES_021], coef, torch.float32, by_output=True)
+
+
+def _degree_graph(degrees, n_sentinel):
+    """Center-sorted edges with the given degree per atom, then n_sentinel
+    padded edges with the sentinel center len(degrees)."""
+    n_atoms = len(degrees)
+    centers = np.concatenate([np.repeat(np.arange(n_atoms), degrees),
+                              np.full(n_sentinel, n_atoms)]).astype(np.int32)
+    return torch.as_tensor(centers), n_atoms
+
+
+def _statics(tp, centers, n_atoms, monkeypatch):
+    """The layer's FusedStatics, as ``fused_call`` builds them."""
+    seen = {}
+    monkeypatch.setattr(contract, "fused_layer",
+                        lambda x, sh, wexp, w, st: seen.setdefault("st", st))
+    E, dtype = centers.shape[0], tp.path_weights.dtype
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.numpy(), n_atoms))
+    tp.fused_call(torch.zeros(E, tp.d1 * tp.mul, dtype=dtype), torch.zeros(E, tp.d2, dtype=dtype),
+                  torch.zeros(E, tp.n_irr * tp.mul, dtype=dtype), centers, row_ptr)
+    return seen["st"]
+
+
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_layer_carries_its_scatter_tables(model, layer):
+    """The float32 layer's tables are the permuted float64 entries' path
+    tables (scales cast to float32), in both orders, out of the checkpoint,
+    built once; their outputs are the env's dims. Only ``fused`` builds
+    them."""
+    tp = _layers(model, "fused", "float32")[layer]
+    assert tp.entry_coef.dtype == torch.float64
+    own, swapped = tp.scatter_paths()
+    _assert_same_paths(own, _scatter_table(tp.entry_idx, tp.entry_coef))
+    _assert_same_paths(swapped, _scatter_table(fused_tp.swap_entries(tp.entry_idx),
+                                               tp.entry_coef))
+    for paths in (own, swapped):
+        assert paths.scale.dtype == torch.float32 and paths.entry_coef.dtype == torch.float32
+        assert int((paths.desc[:, 4] + paths.desc[:, 7]).max()) <= tp.d2
+    again = tp.scatter_paths()
+    assert again[0] is own and again[1] is swapped
+    assert not any(k.startswith("scatter") for k in tp.state_dict())
+    infer = _layers(model, "fused_infer", "float32")[layer]
+    assert not hasattr(infer, "scatter_desc")
+
+
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_statics_carry_the_scatter_tables_and_swap_exchanges_them(model, layer, monkeypatch):
+    tp = _layers(model, "fused", "float32")[layer]
+    centers, n_atoms = _degree_graph([3, 0, 2], 2)
+    st = _statics(tp, centers, n_atoms, monkeypatch)
+    own, swapped = tp.scatter_paths()
+    assert isinstance(st, FusedStatics)
+    assert st.scatter_paths is own and st.scatter_paths_swapped is swapped
+    sw = st.swap()
+    assert sw.scatter_paths is swapped and sw.scatter_paths_swapped is own
+    assert sw.paths is st.paths_swapped and sw.entry_idx is st.entry_swapped
+    back = sw.swap()
+    assert back.scatter_paths is own and back.entry_idx is st.entry_idx
+    for s in (st, sw):
+        _assert_same_paths(s.scatter_paths, _scatter_table(s.entry_idx, tp.entry_coef))
+
+
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_tp_scatter_gets_the_orders_table(model, layer, monkeypatch):
+    """TpScatter hands its statics' table to the wrapper in both orders, and
+    GatherTp's backward reaches it with the same order's table."""
+    tp = _layers(model, "fused", "float64")[layer]
+    centers, n_atoms = _degree_graph([3, 0, 2], 2)
+    st = _statics(tp, centers, n_atoms, monkeypatch)
+    seen = []
+    real = fused_tp.tp_scatter
+
+    def spy(*args, **kwargs):
+        seen.append(args[8] if len(args) > 8 else kwargs.get("paths"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fused_primitives.fused_tp, "tp_scatter", spy)
+    E, U = centers.shape[0], tp.mul
+    rng = np.random.RandomState(layer)
+    for s in (st, st.swap()):
+        d1, d2, d3 = s.dims
+        x, g = (torch.as_tensor(rng.randn(E, d * U)) for d in (d1, d3))
+        w = torch.as_tensor(rng.randn(tp.num_paths, U))
+        TpScatter.apply(x, g, w, s)
+        env = torch.as_tensor(rng.randn(n_atoms, d2 * U)).requires_grad_()
+        GatherTp.apply(x, env, w, s).backward(g)
+    own, swapped = tp.scatter_paths()
+    assert [p is q for p, q in zip(seen, (own, own, swapped, swapped))] == [True] * 4
+
+
+def _emulate_tp_scatter(x, g, w, row_ptr, paths, d2):
+    """tp_scatter's walk in plain float64: per atom, chunk q of T / U walks
+    the segment's edges q, q + chunks, ... in edge order, each edge's x and g
+    rows through sparse_tp's walk on the permuted table (``_emulate_tp``),
+    its rows added to the chunk's partial; the partials are added in chunk
+    order. Edges past row_ptr[n_atoms] are never read."""
+    U = w.shape[1]
+    chunks = max(1, TP_THREADS // U)
+    n_atoms = row_ptr.shape[0] - 1
+    n_real = int(row_ptr[n_atoms])
+    rows = _emulate_tp(x[:n_real], g[:n_real], w, paths, d2)  # each edge's walk
+    denv = torch.full((n_atoms, d2 * U), float("nan"), dtype=x.dtype)
+    for a in range(n_atoms):
+        start, end = int(row_ptr[a]), int(row_ptr[a + 1])
+        total = x.new_zeros(d2 * U)
+        for q in range(chunks):
+            part = x.new_zeros(d2 * U)
+            for e in range(start + q, end, chunks):
+                part += rows[e]
+            total += part
+        denv[a] = total
+    return denv
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_tp_scatter_walk_equals_the_plain_version(model, layer, order):
+    """float64, U = 16 (8 chunks): one 21-edge segment (3 edges a chunk), an
+    atom without edges, 7 sentinel edges with large x and g."""
+    tp = _layers(model, "fused", "float64")[layer]
+    own, swapped = tp.scatter_paths()
+    idx, paths = (tp.entry_idx, own) if order == "own" else (tp.entry_swapped, swapped)
+    d1, d2, d3 = (tp.d1, tp.d2, tp.d3) if order == "own" else (tp.d3, tp.d2, tp.d1)
+    centers, n_atoms = _degree_graph([21, 4, 0, 9, 1], 7)
+    real = int((centers < n_atoms).sum())
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.numpy(), n_atoms))
+    U, E = 16, centers.shape[0]
+    rng = np.random.RandomState(20 + ORDERS.index(order))
+    x, g = (torch.as_tensor(rng.randn(E, d * U)) for d in (d1, d3))
+    x[real:] *= 1e6
+    g[real:] *= 1e6
+    w = torch.as_tensor(rng.randn(tp.num_paths, U))
+    want = fused_tp.tp_scatter_reference(x, g, w, centers, n_atoms, idx, tp.entry_coef, d2)
+    got = _emulate_tp_scatter(x, g, w, row_ptr, paths, d2)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    assert (got[2] == 0).all()
+
+
+def _emulate_unweight_sh(t, wexp, centers, dim_to_irr, n_atoms, tile, n_stage):
+    """unweight_sh's tile schedule in plain float64: per ``tile``-edge tile
+    (the last partial), the t rows [c(first edge), c(last real edge)] staged,
+    at most ``n_stage`` of them; output o = (edge, j) of the tile is the dot
+    of its wexp irrep row and its t row over the U channels, in float4 (U a
+    multiple of 4) or element steps starting at o mod (steps per row);
+    sentinel edges zero. Returns dsh and how many dots read an unstaged row."""
+    E, d2 = wexp.shape[0], dim_to_irr.shape[0]
+    U = t.shape[1] // d2
+    vec = 4 if U % 4 == 0 else 1
+    period = U // vec
+    dsh = torch.full((E, d2), float("nan"), dtype=t.dtype)
+    unstaged = 0
+    for e0 in range(0, E, tile):
+        n_e = min(tile, E - e0)
+        s_w = wexp[e0:e0 + n_e].clone()
+        c_lo, n_c = int(centers[e0]), 0
+        if 0 <= c_lo < n_atoms:
+            c_hi = min(int(centers[e0 + n_e - 1]), n_atoms - 1)
+            n_c = max(0, min(n_stage, c_hi - c_lo + 1))
+        s_t = t[c_lo:c_lo + n_c].clone() if n_c else None
+        for o in range(n_e * d2):
+            el, j = divmod(o, d2)
+            c = int(centers[e0 + el])
+            if not 0 <= c < n_atoms:
+                dsh[e0 + el, j] = 0.0
+                continue
+            r = int(dim_to_irr[j])
+            wr = s_w[el, r * U:(r + 1) * U]
+            staged = 0 <= c - c_lo < n_c
+            unstaged += not staged
+            tr = (s_t[c - c_lo] if staged else t[c])[j * U:(j + 1) * U]
+            s = t.new_zeros(())
+            for n in range(period):
+                k = (o % period + n) % period
+                for v in range(vec):
+                    s = s + wr[k * vec + v] * tr[k * vec + v]
+            dsh[e0 + el, j] = s
+    return dsh, unstaged
+
+
+@pytest.mark.parametrize("tile,n_stage", SH_SCHEDULES,
+                         ids=[f"tile{a}-staged{b}" for a, b in SH_SCHEDULES])
+@pytest.mark.parametrize("U", [3, 8])
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_unweight_sh_tile_schedule_equals_the_plain_version(model, layer, U, tile, n_stage):
+    """float64, 75 edges: whole tiles and a partial one, tiles over more
+    centers than are staged, an atom without edges, 5 sentinel edges (wexp
+    large there)."""
+    tp = _layers(model, "fused", "float64")[layer]
+    centers, n_atoms = _degree_graph([9, 3, 0, 7, 5, 6, 4, 12, 10, 14], 5)
+    E = centers.shape[0]
+    rng = np.random.RandomState(30 + U)
+    t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U))
+    wexp = torch.as_tensor(rng.randn(E, tp.n_irr * U))
+    wexp[E - 5:] *= 1e6
+    want = fused_tp.unweight_sh_reference(t, wexp, centers, tp.dim_to_irr)
+    got, unstaged = _emulate_unweight_sh(t, wexp, centers, tp.dim_to_irr, n_atoms, tile,
+                                         n_stage)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    assert unstaged > 0 and (got[E - 5:] == 0).all()

@@ -167,6 +167,16 @@ def test_unported_options_raise(override, avg_n):
         AllegroModel(**kw)
 
 
+def test_backend_outside_the_four_raises_naming_item_12(avg_n):
+    """JAX runs any backend string (``einsum_direct`` is its three-operand
+    einsum); the port raises for one outside its four, naming the ROADMAP
+    item that keeps it so."""
+    kw = {**_model_kwargs(avg_n, "float32"), "tp_kernel_backend": "einsum_direct"}
+    with pytest.raises(NotImplementedError,
+                       match=r"'einsum_direct' is not ported.*queue 1, item 12: not to be ported"):
+        AllegroModel(**kw)
+
+
 # wrapper calls per fused_infer force call of the 2-layer model: on a card,
 # each call is one launch (chip_smoke.py asserts the same counts there)
 _MEGA_OFF = {"latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0}
