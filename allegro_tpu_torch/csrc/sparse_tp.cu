@@ -10,6 +10,8 @@
 //   gather_dw        dw[p, u]     = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u] env[c(e), j_nU+u] g[e, k_nU+u]
 //   tp_scatter       denv[a, kU+u] = sum_{c(e)=a} sum_n c_n w[p_n, u] x[e, i_nU+u] g[e, j_nU+u]
 //                    (the table's roles permuted so that out is gather_tp's env)
+//   bwd_fused        gather_tp's backward in x and env: gather_tp's walk on the
+//                    role-swapped table (dx) and tp_scatter's (denv) in one pass
 //
 // The `pallas` backend (`tp_kernel_backend="pallas"`) sums the environment
 // first (on the center kernels, csrc/center_readout.cu) and then contracts
@@ -21,7 +23,7 @@
 // The table is the caller's: the layer's own, or one of its role
 // permutations (the transposes of the derivative families,
 // allegro_tpu_torch/ops/tp_primitives.py and ops/fused_primitives.py), so
-// the inputs and out may have any of the layer's dims in any order. All five
+// the inputs and out may have any of the layer's dims in any order. All six
 // kernels walk it by path, not by entry (gen_cg_blocks.path_table(by_output=True):
 // rows (p, triple id, i0, j0, k0, n0, n1, width) ordered by output slice k0,
 // then p). A path with l <= 3 is one block of cg_blocks.h (CgBlock::fwd: its
@@ -580,7 +582,223 @@ __global__ void tp_scatter_kernel(const float* __restrict__ x, const float* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// bwd_fused
+// Replaces allegro_tpu/ops/fused_tp.py:_bwd_fused_raw_kernel
+// (bwd_fused_raw_call): gather_tp's backward in x and env,
+//   dx[e, iU+u]   = sum_n c_n w[p_n,u] g[e, k_nU+u] env[c(e), j_nU+u]
+//   denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u],
+// optionally with g[e, u] += gts[e, u] (the cotangent of gather_tp's split
+// output ts). Its weight-gradient variant (kernel 18, _bwd_fused_kernel)
+// stays an entry loop in csrc/fused_tp.cu.
+// Bound: one read each of x [E, d1*U] and g [E, d3*U], one write of dx
+// [E, d1*U] and of denv [n_atoms, d2*U] (3 x 119 MB and 5 MB, ~0.108 ms at
+// 3.35 TB/s, at the flagship's layer 0 on the 4,096-atom crystal); the ~6
+// FLOPs per entry, edge and channel take ~23% of that time at 83 entries.
+// Design: the two walks the port already has, in one pass over each atom's
+// edges. dx is gather_tp's walk on the role-swapped table (a = g over k,
+// b = env over j, out = i), denv tp_scatter's on the layer's table with
+// roles (0, 2, 1) (a = x over i, b = g over k, out = j). One block per atom,
+// threads (chunk q, channel u) as in tp_scatter. Once per block: both path
+// tables and their ws into shared memory, and env[a] by cp.async, one
+// [d2][U] row that the chunks share (EnvRow reads it at stride U): every edge
+// of the block has the center a, so the env row is read once per atom, not
+// once per edge. Per edge of chunk q, in edge order:
+// the x and g columns by cp.async; with gts, gts[e, u] added to the thread's
+// own g row 0, so that both walks see the folded value (as the TPU kernel
+// folds it in VMEM); the dx walk stores each output slice once to dx[e],
+// and the rows no path writes as zeros; the denv walk adds each slice once
+// per edge to the thread's shared-memory denv column. At the end the chunks'
+// columns are added in chunk order and denv[a] is stored once; an atom
+// without edges stores a zero row. The sentinel edges lie after
+// row_ptr[n_atoms]: one extra block zeroes their dx rows and reads nothing
+// of them. Where the columns do not fit in shared memory, the launcher takes
+// fewer chunks. No float atomics: two identical calls give identical bits.
+// Measured on the H100 and not kept: an env column per thread (slower: fewer
+// blocks per SM), a second x and g buffer loading the next edge during this
+// one, __launch_bounds__(128, 12) (spills), 8 chunks at U = 32 and ws from
+// one shared w [P][U] with per-row scales (each faster at l_max 3, slower at
+// the flagship).
+// ---------------------------------------------------------------------------
+
+// Copies a path table into shared memory with ws[row, u] = w[p, u] * scale[row].
+__device__ __forceinline__ void load_walk(const int* __restrict__ desc,
+                                          const float* __restrict__ dscale, int n_rows,
+                                          const float* __restrict__ w, int U, int* s_desc,
+                                          float* s_ws) {
+  load_desc(desc, n_rows, s_desc);
+  for (int q = threadIdx.x; q < n_rows * U; q += blockDim.x) {
+    const int r = q / U;
+    s_ws[q] = __ldg(w + __ldg(desc + r * kDescCols) * U + (q - r * U)) * __ldg(dscale + r);
+  }
+}
+
+// TpRow with its b column at a stride of its own: bwd_fused's dx walk reads
+// the block's one staged env row [d2][U], which its chunks share.
+struct EnvRow {
+  const float* x;  // the thread's a column, stride T
+  const float* e;  // channel u of the env row, stride U
+  int T, U, i0, j0;
+  float ws;  // w[p, u] times the row's scale
+  float acc[kSliceMax];
+
+  template <int L1, int L2, int L3>
+  __device__ __forceinline__ void run() {
+    constexpr int n1 = 2 * L1 + 1, n2 = 2 * L2 + 1, n3 = 2 * L3 + 1;
+    float xs[n1], es[n2], os[n3];
+#pragma unroll
+    for (int a = 0; a < n1; ++a) xs[a] = ws * x[(i0 + a) * T];
+#pragma unroll
+    for (int b = 0; b < n2; ++b) es[b] = e[(j0 + b) * U];
+#pragma unroll
+    for (int c = 0; c < n3; ++c) os[c] = acc[c];
+    CgBlock<L1, L2, L3>::fwd(xs, es, os);
+#pragma unroll
+    for (int c = 0; c < n3; ++c) acc[c] = os[c];
+  }
+
+  // A path beyond the header: its entries one by one (k0, width: the row's slice).
+  __device__ __forceinline__ void entries(const int* __restrict__ eidx,
+                                          const float* __restrict__ ecoef, int n0, int n1,
+                                          int k0, int width) {
+    for (int n = n0; n < n1; ++n) {
+      const int k = __ldg(eidx + 4 * n + 2) - k0;
+      if (k < 0 || k >= width) continue;
+      const float v = __ldg(ecoef + n) * ws * x[__ldg(eidx + 4 * n) * T] *
+                      e[__ldg(eidx + 4 * n + 1) * U];
+#pragma unroll
+      for (int c = 0; c < kSliceMax; ++c)
+        if (c == k) acc[c] += v;
+    }
+  }
+};
+
+// One edge's walk over a path table's rows, the row f (TpRow or EnvRow)
+// holding the thread's a and b columns: each output slice is summed in f.acc
+// over its rows, and emit(k0, width) is called once per slice, when it is
+// complete.
+template <typename Row, typename Emit>
+__device__ __forceinline__ void walk_slices(Row& f, const int4* s_desc, const float* s_ws,
+                                            int n_rows, int U, int u,
+                                            const int* __restrict__ eidx,
+                                            const float* __restrict__ ecoef, Emit&& emit) {
+  int k0 = -1, width = 0;  // the current slice
+  for (int r = 0; r < n_rows; ++r) {
+    // (p, triple id, i0, j0) and (k0, n0, n1, width)
+    const int4 dp = s_desc[2 * r], dk = s_desc[2 * r + 1];
+    if (dk.x != k0) {
+      if (k0 >= 0) emit(k0, width);
+      k0 = dk.x;
+      width = dk.w;
+#pragma unroll
+      for (int c = 0; c < kSliceMax; ++c) f.acc[c] = 0.f;
+    }
+    f.i0 = dp.z;
+    f.j0 = dp.w;
+    f.ws = s_ws[r * U + u];
+    if (!cg_dispatch(dp.y, f)) f.entries(eidx, ecoef, dk.y, dk.z, k0, width);
+  }
+  if (k0 >= 0) emit(k0, width);
+}
+
+__global__ void bwd_fused_kernel(
+    const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ gts,
+    const float* __restrict__ env, const float* __restrict__ w, const int* __restrict__ row_ptr,
+    const int* __restrict__ desc_dx, const float* __restrict__ scale_dx, int rows_dx,
+    const int* __restrict__ eidx_dx, const float* __restrict__ ecoef_dx,
+    const int* __restrict__ desc_den, const float* __restrict__ scale_den, int rows_den,
+    const int* __restrict__ eidx_den, const float* __restrict__ ecoef_den, long long n_edges,
+    int n_atoms, int d1, int d2, int d3, int U, float* __restrict__ dx,
+    float* __restrict__ denv) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x, tid = threadIdx.x, a = blockIdx.x;
+  if (a == n_atoms) {  // the sentinel edges' dx rows
+    const long long d1U = (long long)d1 * U;
+    for (long long t = (long long)row_ptr[n_atoms] * d1U + tid; t < n_edges * d1U; t += T)
+      dx[t] = 0.f;
+    return;
+  }
+  const int chunks = T / U, q = tid / U, u = tid - q * U;
+  int4* s_desc_dx = reinterpret_cast<int4*>(smem);   // [rows_dx][kDescCols]
+  int4* s_desc_den = s_desc_dx + 2 * rows_dx;        // [rows_den][kDescCols]
+  float* s_ws_dx = reinterpret_cast<float*>(s_desc_den + 2 * rows_den);  // [rows_dx][U]
+  float* s_ws_den = s_ws_dx + rows_dx * U;           // [rows_den][U]
+  float* s_env = s_ws_den + rows_den * U;            // [d2][U]: env[a]
+  float* s_den = s_env + d2 * U;                     // [d2][T]
+  float* den = s_den + tid;    // the thread's column of the atom's denv
+  float* xcol = den + d2 * T;  // its x (d1 rows) and g (d3) columns
+  float* gcol = xcol + d1 * T;
+  load_walk(desc_dx, scale_dx, rows_dx, w, U, reinterpret_cast<int*>(s_desc_dx), s_ws_dx);
+  load_walk(desc_den, scale_den, rows_den, w, U, reinterpret_cast<int*>(s_desc_den), s_ws_den);
+  for (int k = 0; k < d2; ++k) den[k * T] = 0.f;
+  const int d2U = d2 * U;
+  for (int c = tid; c < d2U; c += T) cp_async4(s_env + c, env + (long long)a * d2U + c);
+  const int first = row_ptr[a] + q, end = row_ptr[a + 1];
+  if (first < end) stage_scatter_edge(x, g, first, d1, d3, U, u, xcol, T);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int e = first; e < end; e += chunks) {
+    if (e != first) {
+      stage_scatter_edge(x, g, e, d1, d3, U, u, xcol, T);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    if (gts) gcol[0] += __ldg(gts + (long long)e * U + u);
+    float* o = dx + (long long)e * d1 * U + u;
+    int next = 0;  // the first row of dx no slice has written
+    EnvRow fe{gcol, s_env + u, T, U, 0, 0, 0.f, {}};
+    walk_slices(fe, s_desc_dx, s_ws_dx, rows_dx, U, u, eidx_dx, ecoef_dx,
+                [&](int k0, int width) {
+                  for (int k = next; k < k0; ++k) o[(long long)k * U] = 0.f;
+                  store_slice(o, fe.acc, k0, width, U);
+                  next = k0 + width;
+                });
+    for (int k = next; k < d1; ++k) o[(long long)k * U] = 0.f;
+    TpRow f{xcol, gcol, T, 0, 0, 0.f, {}};
+    walk_slices(f, s_desc_den, s_ws_den, rows_den, U, u, eidx_den, ecoef_den,
+                [&](int k0, int width) { add_slice(den, f.acc, k0, width, T); });
+  }
+  __syncthreads();
+  for (int c = tid; c < d2U; c += T) {
+    const int k = c / U, uu = c - k * U;
+    float s = 0.f;
+    for (int ch = 0; ch < chunks; ++ch) s += s_den[k * T + ch * U + uu];
+    denv[(long long)a * d2U + c] = s;
+  }
+}
+
 }  // namespace
+
+// bwd_fused without the weight gradient (csrc/fused_tp.cu's atpt_bwd_fused
+// takes this path when dw is null): desc_dx ... ecoef_dx, the role-swapped
+// table's path table; desc_den ... ecoef_den, the layer's table's with roles
+// (0, 2, 1) (both in walk order, as in atpt_sparse_tp). The chunks per block
+// start at kTpThreads / U and are halved while the block's shared memory
+// does not fit on the card; 0 or a CUDA error code.
+int launch_bwd_fused_walk(const float* x, const float* g, const float* gts, const float* env,
+                          const float* w, const int* row_ptr, const int* desc_dx,
+                          const float* scale_dx, int rows_dx, const int* eidx_dx,
+                          const float* ecoef_dx, const int* desc_den, const float* scale_den,
+                          int rows_den, const int* eidx_den, const float* ecoef_den,
+                          long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
+                          float* dx, float* denv, cudaStream_t stream) {
+  if (int rc = check_tp_dims(d1, d2, d3, P, rows_dx)) return rc;
+  if (rows_den < 1 || U < 1 || U > 1024) return (int)cudaErrorInvalidValue;
+  int chunks = U < kTpThreads ? kTpThreads / U : 1;
+  const auto bytes = [&] {
+    return (size_t)(rows_dx + rows_den) * (kDescCols + U) * sizeof(float) +
+           (size_t)d2 * U * sizeof(float) + (size_t)(d2 + d1 + d3) * U * chunks * sizeof(float);
+  };
+  const size_t limit = smem_optin();
+  while (bytes() > limit && chunks > 1) chunks /= 2;
+  cudaError_t err = prepare_smem(bwd_fused_kernel, bytes());
+  if (err != cudaSuccess) return (int)err;
+  bwd_fused_kernel<<<n_atoms + 1, U * chunks, bytes(), stream>>>(
+      x, g, gts, env, w, row_ptr, desc_dx, scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den,
+      scale_den, rows_den, eidx_den, ecoef_den, n_edges, n_atoms, d1, d2, d3, U, dx, denv);
+  return (int)cudaGetLastError();
+}
 
 extern "C" {
 

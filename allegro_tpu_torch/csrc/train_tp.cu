@@ -137,38 +137,110 @@ __global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
 // unweight_w
 // Replaces allegro_tpu/ops/fused_tp.py:_gather_unweight_w_kernel
 // (gather_unweight_w_call): the wexp-transpose of env_scatter.
-// Bound: one write of dwexp [E, n_irr*U] (39 MB, ~12 us); t rows from L1/L2.
-// Design: the dwexp half of unweight_both as its own launch: one warp per
-// edge, lane = channel, each output element a sum over the dims of its irrep.
+// Bound: one write of dwexp [E, n_irr*U] (40 MB at the flagship's layer 0
+// on the 4,096-atom crystal, ~0.012 ms at 3.35 TB/s), one read of sh [E,
+// d2] and t [n_atoms, d2*U]; 2 FLOPs per (edge, dim, channel).
+// Design: unweight_sh's tiles run the other way. One block per tile of
+// kShTile consecutive edges: the tile's sh rows (one contiguous range) and
+// up to kShCenters t rows of its consecutive centers go into shared memory
+// by cp.async (t by 16-byte copies where U and the pointers allow, else 4
+// bytes; the same back-off as unweight_sh where the t rows outgrow shared
+// memory). Each irrep's dims are one contiguous range (every Contracter
+// registers irr_ranges, and ops/fused_tp.py:irrep_ranges raises otherwise):
+// each block finds each irrep's (first, end) dims from dim_to_irr. Each
+// thread then takes items (edge, channels 4v..4v+3), single channels where
+// U is not a multiple of 4: one center, t row and sh row for all the edge's
+// outputs, and per irrep r a float4 sum over the dims of r with no branch
+// per dim. The tile's dwexp [n_edges, n_irr*U] is one contiguous range:
+// consecutive threads store consecutive 16 bytes of it. A sentinel edge
+// (center outside [0, n_atoms)) writes zeros and reads no t row; the last
+// tile may be partial. Measured on the H100 and not kept: one thread per
+// float4 output (edge, irrep, channels), its indices by integer division,
+// 256 threads or 16- and 64-edge tiles, a persistent grid
+// staging the next tile during this one, and no staged t row (all slower).
 // ---------------------------------------------------------------------------
-__global__ void unweight_w_kernel(const float* __restrict__ t, const float* __restrict__ sh,
-                                  const int* __restrict__ centers,
-                                  const int* __restrict__ dim_to_irr, long long n_edges,
-                                  int n_atoms, int d2, int n_irr, int U,
-                                  float* __restrict__ dwexp) {
-  extern __shared__ unsigned char smem[];
-  int* s_irr = reinterpret_cast<int*>(smem);
-  for (int q = threadIdx.x; q < d2; q += blockDim.x) s_irr[q] = dim_to_irr[q];
+template <int kVec>
+__global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
+    const float* __restrict__ t, const float* __restrict__ sh, const int* __restrict__ centers,
+    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
+    int tile, int n_stage, float* __restrict__ dwexp) {
+  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
+  const int trow = d2 * U, nU = n_irr * U;
+  float* s_t = reinterpret_cast<float*>(smem);        // [n_stage][d2 * U]
+  float* s_sh = s_t + n_stage * trow;                 // [tile][d2]
+  int* s_first = reinterpret_cast<int*>(s_sh + tile * d2);  // [n_irr]: irrep r's dims are
+  int* s_end = s_first + n_irr;                       // [s_first[r], s_end[r])
+  const long long e0 = (long long)blockIdx.x * tile;
+  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
+  // the staged t rows [c_lo, c_lo + n_c): from the first edge's center to the
+  // last real one's
+  const int c_lo = __ldg(centers + e0);
+  int n_c = 0;
+  if (c_lo >= 0 && c_lo < n_atoms) {
+    const int c_hi = min(__ldg(centers + e0 + n_e - 1), n_atoms - 1);
+    n_c = max(0, min(n_stage, c_hi - c_lo + 1));
+  }
+  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
+  stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < d2; j += kShThreads) {
+    const int r = __ldg(dim_to_irr + j);
+    if (j == 0 || __ldg(dim_to_irr + j - 1) != r) s_first[r] = j;
+    if (j == d2 - 1 || __ldg(dim_to_irr + j + 1) != r) s_end[r] = j + 1;
+  }
+  cp_async_wait<0>();
   __syncthreads();
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  const long long nU = (long long)n_irr * U;
-  for (long long e = (long long)blockIdx.x * wpb + warp; e < n_edges;
-       e += (long long)gridDim.x * wpb) {
-    const int c = centers[e];
-    const bool valid = c >= 0 && c < n_atoms;
-    const float* te = t + (valid ? (long long)c * d2 * U : 0);
-    const float* se = sh + e * d2;
-    for (int u = lane; u < U; u += kWarp) {
-      for (int r = 0; r < n_irr; ++r) {
-        float s = 0.f;
-        if (valid)
-          for (int j = 0; j < d2; ++j)
-            if (s_irr[j] == r) s += te[j * U + u] * se[j];
-        dwexp[e * nU + r * U + u] = s;
+  // thread item q = (edge el of the tile, channel group v): one center, t
+  // row and sh row for all of the edge's irreps; el by a float reciprocal,
+  // exact while q + 0.5 < 2^22 (the launcher checks), not an integer division
+  const int per_irr = U / kVec;  // channel groups of kVec floats
+  const float inv_irr = 1.f / per_irr;
+  for (int q = threadIdx.x; q < n_e * per_irr; q += kShThreads) {
+    const int el = (int)(((float)q + 0.5f) * inv_irr), v = q - el * per_irr;
+    const int c = __ldg(centers + e0 + el);
+    const bool real = c >= 0 && c < n_atoms;
+    const float* tr = !real ? nullptr
+                      : c - c_lo >= 0 && c - c_lo < n_c ? s_t + (c - c_lo) * trow
+                                                        : t + (long long)c * trow;
+    const float* sr = s_sh + el * d2;
+    float* o = dwexp + (e0 + el) * nU;
+    for (int r = 0; r < n_irr; ++r) {
+      const int j0 = s_first[r], j1 = real ? s_end[r] : j0;  // a sentinel sums no dim
+      if constexpr (kVec == 4) {
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        // not unrolled: unrolled, this loop took 56 registers and spilled
+#pragma unroll 1
+        for (int j = j0; j < j1; ++j) {
+          const float s = sr[j];
+          const float4 tv = reinterpret_cast<const float4*>(tr + j * U)[v];
+          acc.x = fmaf(s, tv.x, acc.x);
+          acc.y = fmaf(s, tv.y, acc.y);
+          acc.z = fmaf(s, tv.z, acc.z);
+          acc.w = fmaf(s, tv.w, acc.w);
+        }
+        reinterpret_cast<float4*>(o + r * U)[v] = acc;
+      } else {
+        float acc = 0.f;
+        for (int j = j0; j < j1; ++j) acc = fmaf(sr[j], tr[j * U + v], acc);
+        o[r * U + v] = acc;
       }
     }
   }
+}
+
+// The widest schedule of a tiled row kernel whose shared memory, bytes(tile,
+// n_stage), fits on the card: fewer staged t rows first (down to one), then
+// smaller tiles (down to one edge), then no staged t row; false where even
+// that does not fit.
+template <typename Bytes>
+bool fit_tile(Bytes bytes, int* tile, int* n_stage) {
+  *tile = kShTile;
+  *n_stage = kShCenters;
+  const size_t limit = smem_optin();
+  while (bytes(*tile, *n_stage) > limit && *n_stage > 1) --*n_stage;
+  while (bytes(*tile, *n_stage) > limit && *tile > 1) *tile /= 2;
+  if (bytes(*tile, *n_stage) > limit) *n_stage = 0;
+  return bytes(*tile, *n_stage) <= limit;
 }
 
 }  // namespace
@@ -179,32 +251,44 @@ int atpt_unweight_sh(const float* t, const float* wexp, const int* centers,
                      const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
                      int U, float* dsh, void* stream) {
   if (n_edges < 1 || d2 < 1 || n_irr < 1 || U < 1) return (int)cudaErrorInvalidValue;
-  // the widest schedule whose rows fit: fewer staged t rows first, then
-  // smaller tiles, then no staged t row
-  int tile = kShTile, n_stage = kShCenters;
-  const auto bytes = [&] { return (size_t)(tile * n_irr + n_stage * d2) * U * sizeof(float); };
-  const size_t limit = smem_optin();
-  while (bytes() > limit && n_stage > 1) --n_stage;
-  while (bytes() > limit && tile > 1) tile /= 2;
-  if (bytes() > limit) n_stage = 0;
-  if (bytes() > limit) return (int)cudaErrorInvalidValue;
+  const auto bytes = [&](int tile, int n_stage) {
+    return (size_t)(tile * n_irr + n_stage * d2) * U * sizeof(float);
+  };
+  int tile, n_stage;
+  if (!fit_tile(bytes, &tile, &n_stage)) return (int)cudaErrorInvalidValue;
   const long long tiles = (n_edges + tile - 1) / tile;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)wexp % 16 == 0;
   auto kernel = vec ? unweight_sh_kernel<4> : unweight_sh_kernel<1>;
-  cudaError_t err = prepare_smem(kernel, bytes());
+  const size_t smem = bytes(tile, n_stage);
+  cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)tiles, kShThreads, bytes(), (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
       t, wexp, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dsh);
   return (int)cudaGetLastError();
 }
 
+// dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
 int atpt_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
                     long long n_edges, int n_atoms, int d2, int n_irr, int U, float* dwexp,
                     void* stream) {
-  unweight_w_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, (size_t)d2 * sizeof(int),
-                      (cudaStream_t)stream>>>(t, sh, centers, dim_to_irr, n_edges, n_atoms, d2,
-                                              n_irr, U, dwexp);
+  // n_irr <= d2, and the kernel's float reciprocal is exact for its items
+  if (n_edges < 1 || d2 < 1 || n_irr < 1 || n_irr > d2 || U < 1 || (long long)kShTile * U >= 1 << 22)
+    return (int)cudaErrorInvalidValue;
+  const auto bytes = [&](int tile, int n_stage) {
+    return ((size_t)n_stage * d2 * U + (size_t)tile * d2 + 2 * n_irr) * sizeof(float);
+  };
+  int tile, n_stage;
+  if (!fit_tile(bytes, &tile, &n_stage)) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n_edges + tile - 1) / tile;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)dwexp % 16 == 0;
+  auto kernel = vec ? unweight_w_kernel<4> : unweight_w_kernel<1>;
+  const size_t smem = bytes(tile, n_stage);
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
+      t, sh, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dwexp);
   return (int)cudaGetLastError();
 }
 

@@ -243,7 +243,7 @@ class AllegroLayers(nn.Module):
                                             tp.cg_paths())
             else:
                 res = gather_tp_infer(x, env, wk, centers, row_ptr, entry_idx, entry_coef, tp.d3,
-                                      split, tp.gather_paths()[0])
+                                      split, *tp.infer_paths())
             x, tp_scalars = res if split else (res, res[:, :U])
             latent = self.latents[layer]
             if layer == self.num_layers - 1:

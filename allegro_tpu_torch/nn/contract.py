@@ -20,9 +20,10 @@ else ``(P,)``):
   (differentiable to any order, real weight gradients).
 
 On both fused backends ``gather_tp`` and ``gather_dw`` walk the layer's
-path tables (``gather_paths``: its entry order and the role swap), and on
-``fused`` ``tp_scatter`` walks those two orders with their roles permuted
-(0, 2, 1) (``scatter_paths``), all built once here.
+path tables (``gather_paths``: its entry order and the role swap), and
+``tp_scatter`` (``fused``) and ``bwd_fused`` (``fused_infer``, denv) walk
+those two orders with their roles permuted (0, 2, 1) (``scatter_paths``),
+all built once here.
 """
 
 from __future__ import annotations
@@ -154,9 +155,9 @@ class Contracter(nn.Module):
             # its role swap (the x-transposes), each in the kernels' walk
             # order, built once from the float64 coefficients
             self._register_paths("walk", [0, 1, 2, 3], dtype)
-        if kernel_backend == "fused":
-            # the tables tp_scatter walks: both orders with their roles
-            # permuted (0, 2, 1), so that the walk's out is j (the env)
+            # the tables tp_scatter and bwd_fused's denv walk: both orders
+            # with their roles permuted (0, 2, 1), so that the walk's out is
+            # j (the env)
             self._register_paths("scatter", SCATTER_ROLES, dtype)
         self.n_irr = len(irreps_in2)
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
@@ -280,23 +281,32 @@ class Contracter(nn.Module):
         return self._buffer_paths("walk")
 
     def scatter_paths(self) -> Tuple[CgPaths, CgPaths]:
-        """The path tables of ``tp_scatter`` on ``fused``: the layer's entry
+        """The path tables of ``tp_scatter`` on ``fused`` and of
+        ``bwd_fused``'s denv walk on ``fused_infer``: the layer's entry
         order's and its role swap's, each with its roles permuted (0, 2, 1),
         in walk order."""
         return self._buffer_paths("scatter")
+
+    def infer_paths(self) -> Tuple[CgPaths, CgPaths, CgPaths]:
+        """The path tables of a ``fused_infer`` layer's kernels:
+        ``gather_tp``'s (the layer's order), then ``bwd_fused``'s, the role
+        swap's (dx) and the layer's order with roles (0, 2, 1) (denv)."""
+        paths, swapped = self.gather_paths()
+        return paths, swapped, self.scatter_paths()[0]
 
     def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
         """Whole layer update (env weight + scatter + gather + CG) through the
         fused kernels: ``fused_layer`` on ``fused`` (differentiable weights),
         ``fused_layer_infer`` on ``fused_infer`` (NaN weight gradients)."""
         wk, entry_idx, entry_coef = self.fused_infer_parts(x.dtype)
-        paths, swapped = self.gather_paths()
         if self.kernel_backend == "fused":
             st = FusedStatics(centers, row_ptr, self.dim_to_irr, self.n_irr, self.mul, entry_idx,
                               self.entry_swapped, entry_coef, self.num_paths,
-                              (self.d1, self.d2, self.d3), paths, swapped, *self.scatter_paths())
+                              (self.d1, self.d2, self.d3), *self.gather_paths(),
+                              *self.scatter_paths())
             return fused_layer(x, sh, wexp, wk, st)
+        paths, swapped, scatter = self.infer_paths()
         return fused_layer_infer(
             x, sh, wexp, wk, centers, row_ptr, entry_idx, entry_coef, self.dim_to_irr, self.d3,
-            paths,
+            paths, swapped_paths=swapped, scatter_paths=scatter,
         )

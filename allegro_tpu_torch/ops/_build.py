@@ -38,8 +38,11 @@ _SIGNATURES = {
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
                        _i32, _i32, _i32, _vp, _vp, _vp],
-    "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32,
-                       _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp, _vp],
+    # the entry table (with dw), then the two path tables (without): each
+    # desc, scale, rows, entry idx, entry coef
+    "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp, _vp,
+                       _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+                       _vp, _vp, _vp, _vp, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
                            _vp],
     "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],

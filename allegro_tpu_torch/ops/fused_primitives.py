@@ -213,11 +213,12 @@ def fused_layer(x, sh, wexp, w, st: FusedStatics) -> torch.Tensor:
 class _FusedLayerInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3,
-                paths):
+                paths, swapped_paths, scatter_paths):
         env = fused_tp.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, w.shape[1])
         out = fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, paths=paths)
         ctx.save_for_backward(x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef,
                               dim_to_irr)
+        ctx.bwd_paths = (swapped_paths, scatter_paths)
         return out
 
     @staticmethod
@@ -227,23 +228,29 @@ class _FusedLayerInfer(torch.autograd.Function):
             ctx.saved_tensors
         )
         dx, denv = fused_tp.bwd_fused(
-            x, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef
+            x, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef,
+            paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1],
         )
         dsh, dwexp = fused_tp.unweight_both(denv, sh, wexp, centers, dim_to_irr)
         dw = _nan_like(w, ctx.needs_input_grad[3])
-        return dx, dsh, dwexp, dw, None, None, None, None, None, None, None
+        return dx, dsh, dwexp, dw, None, None, None, None, None, None, None, None, None
 
 
 def fused_layer_infer(x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr,
-                      d3: int, paths: Optional[CgPaths] = None) -> torch.Tensor:
+                      d3: int, paths: Optional[CgPaths] = None,
+                      swapped_paths: Optional[CgPaths] = None,
+                      scatter_paths: Optional[CgPaths] = None) -> torch.Tensor:
     """x [E, d1*U] tensor features; sh [E, d2] basis; wexp [E, n_irr*U] env
     weights (irrep-major, scatter factor already applied); w [P, U] path
     weights; centers [E] and row_ptr [n_atoms+1] the CSR statics; the sparse
     CG entries as idx [n, 4] (i, j, k, p) and coef [n], and on the card
-    their path table (``paths``, which ``gather_tp`` walks). Returns
-    [E, d3*U]."""
+    their path tables (``Contracter.infer_paths``): ``paths``, which
+    ``gather_tp`` walks, and the role swap's (``swapped_paths``) and the
+    (0, 2, 1) order's (``scatter_paths``), which ``bwd_fused`` walks.
+    Returns [E, d3*U]."""
     return _FusedLayerInfer.apply(
-        x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3, paths
+        x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3, paths,
+        swapped_paths, scatter_paths,
     )
 
 
@@ -369,8 +376,10 @@ def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.T
 
 class _GatherTpInfer(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split, paths):
+    def forward(ctx, x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split, paths,
+                swapped_paths, scatter_paths):
         ctx.save_for_backward(x, env, w, centers, row_ptr, entry_idx, entry_coef)
+        ctx.bwd_paths = (swapped_paths, scatter_paths)
         return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
 
     @staticmethod
@@ -378,20 +387,24 @@ class _GatherTpInfer(torch.autograd.Function):
     def backward(ctx, g, gts=None):
         x, env, w, centers, row_ptr, entry_idx, entry_coef = ctx.saved_tensors
         dx, denv = fused_tp.bwd_fused(x, g.contiguous(), env, w, centers, row_ptr, entry_idx,
-                                      entry_coef, None if gts is None else gts.contiguous())
+                                      entry_coef, None if gts is None else gts.contiguous(),
+                                      paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1])
         return (dx, denv, _nan_like(w, ctx.needs_input_grad[2]), None, None, None, None, None,
-                None, None)
+                None, None, None, None)
 
 
 def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
-                    split: bool = False, paths: Optional[CgPaths] = None):
+                    split: bool = False, paths: Optional[CgPaths] = None,
+                    swapped_paths: Optional[CgPaths] = None,
+                    scatter_paths: Optional[CgPaths] = None):
     """x [E, d1*U], env [n_atoms, d2*U], w [P, U] → out [E, d3*U], or
     ``(out, ts)`` with ``split`` (ts [E, U], the leading 0e block, whose
     cotangent the backward folds in). ``paths``: the entries' path table in
-    walk order, which ``gather_tp`` walks on the card
-    (``Contracter.gather_paths``)."""
+    walk order, which ``gather_tp`` walks on the card; ``swapped_paths`` and
+    ``scatter_paths``: the role swap's and the (0, 2, 1) order's, which the
+    backward's ``bwd_fused`` walks (``Contracter.infer_paths``)."""
     return _GatherTpInfer.apply(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split,
-                                paths)
+                                paths, swapped_paths, scatter_paths)
 
 
 class _GatherTpEmbedInfer(torch.autograd.Function):

@@ -35,13 +35,14 @@ two rank-window partials ``(eA, eB)``.
 The first four are in ``csrc/fused_tp.cu``, the next four in
 ``csrc/center_readout.cu``, the next four (the mega-fused layers) in
 ``csrc/mega.cu``, the last four (the trainable backend's transposes) in
-``csrc/train_tp.cu``, except ``gather_tp``, ``gather_dw`` and
-``tp_scatter``: they walk the layer's compiled CG paths in
-``csrc/sparse_tp.cu``, the same walkers as the ``pallas`` backend's
-``sparse_tp`` / ``sparse_tp_gradw`` with the env row gathered by center
-(``tp_scatter``: the per-edge rows summed over each atom's edges), and on
-the card take the table's path table (``paths``, built once per layer by
-``nn/contract.py:Contracter``).
+``csrc/train_tp.cu``, except ``gather_tp``, ``gather_dw``, ``tp_scatter``
+and ``bwd_fused`` without ``with_dw``: they walk the layer's compiled CG
+paths in ``csrc/sparse_tp.cu``, the same walkers as the ``pallas``
+backend's ``sparse_tp`` / ``sparse_tp_gradw`` with the env row gathered by
+center (``tp_scatter``: the per-edge rows summed over each atom's edges;
+``bwd_fused``: ``gather_tp``'s walk on the role swap and ``tp_scatter``'s
+in one pass), and on the card take the table's path tables (``paths``,
+built once per layer by ``nn/contract.py:Contracter``).
 ``gather_tp`` also serves ``gather_tp_call`` / ``_gather_tp_kernel``: the
 port keeps one env array, so that kernel's combined-env form is the same
 function, and its x-transpose is ``gather_tp`` on the role-swapped entry
@@ -523,19 +524,28 @@ _BWD_DW_MAX_BLOCKS = 1024  # blocks of bwd_fused's with_dw pass (partials [block
 
 
 def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
-              with_dw: bool = False) -> Tuple[torch.Tensor, ...]:
+              with_dw: bool = False, paths: Optional[CgPaths] = None,
+              scatter_paths: Optional[CgPaths] = None) -> Tuple[torch.Tensor, ...]:
     """Backward of ``gather_tp`` in x and env: dx [E, d1*U] and denv
     [n_atoms, d2*U]; with ``with_dw`` also its weight gradient dw [P, U],
     ``dw[p, u] = Σ_e Σ_{(i,j,k)∈p} c x[e,iU+u] env[c(e),jU+u] g[e,kU+u]``
     (the sentinel edges add nothing). ``gts`` [E, U]: the cotangent of the
-    split scalar output, added to g's block 0.
+    split scalar output, added to g's block 0. On the card without
+    ``with_dw`` also the two path tables it walks (``Contracter``'s, built
+    once per layer): ``paths``, that of the role-swapped entry table
+    (``gather_paths()[1]``: dx), and ``scatter_paths``, that of the entry
+    table with its roles permuted (0, 2, 1) (``scatter_paths()[0]``: denv).
 
     Replaces ``_bwd_fused_raw_kernel`` and, with ``with_dw``,
     ``_bwd_fused_kernel``. Bound by the reads of x and g and the write of
-    dx; one block per atom segment gives dx and denv in one pass, denv summed
-    across warps in shared memory in a fixed order; dw as per-lane path sums,
-    added across warps, then across blocks in block order (a second launch),
-    with no float atomics."""
+    dx. Without dw (``csrc/sparse_tp.cu``): a block per atom, whose env row
+    is staged once, walks each edge's compiled CG paths twice, dx by
+    ``gather_tp``'s walk and denv by ``tp_scatter``'s, the chunks' denv
+    columns added in chunk order (no atomics). With dw (``csrc/fused_tp.cu``):
+    the run-time entry loop, a block per atom segment, denv summed across
+    warps in a fixed order, dw as per-lane path sums added across warps,
+    then across blocks in block order (a second launch), with no float
+    atomics."""
     E, U = x.shape[0], w.shape[1]
     n_atoms = row_ptr.shape[0] - 1
     n_paths = w.shape[0]
@@ -563,11 +573,19 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
     if with_dw:
         partial = torch.empty((n_blocks, n_paths, U), dtype=x.dtype, device=x.device)
         dw = torch.empty((n_paths, U), dtype=x.dtype, device=x.device)
+        table = (entry_idx.data_ptr(), entry_coef.data_ptr(), entry_idx.shape[0])
+        walks = (None, None, 0, None, None) * 2
+    else:
+        n = entry_idx.shape[0]
+        table = (None, None, 0)
+        walks = tuple(v for t in (_kernel_paths("bwd_fused", paths, n),
+                                  _kernel_paths("bwd_fused", scatter_paths, n))
+                      for v in (t.desc.data_ptr(), t.scale.data_ptr(), t.desc.shape[0],
+                                t.entry_idx.data_ptr(), t.entry_coef.data_ptr()))
     if E > 0 or n_atoms > 0:
         _launch("bwd_fused", "atpt_bwd_fused", x.device,
                 x.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
-                row_ptr.data_ptr(), entry_idx.data_ptr(), entry_coef.data_ptr(),
-                entry_idx.shape[0], E, n_atoms,
+                row_ptr.data_ptr(), *table, *walks, E, n_atoms,
                 x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
                 dx.data_ptr(), denv.data_ptr(), _ptr(partial), _ptr(dw))
     elif with_dw:
@@ -1082,8 +1100,13 @@ def unweight_w(t, sh, centers, dim_to_irr, n_irr: int) -> torch.Tensor:
     sh[e, j]``, the wexp-transpose of ``env_scatter``. t [n_atoms, d2*U],
     sh [E, d2].
 
-    Replaces ``_gather_unweight_w_kernel``. Bound by the write of dwexp; one
-    warp per edge, lane = channel."""
+    Replaces ``_gather_unweight_w_kernel``. Bound by the write of dwexp; a
+    block per tile of 32 consecutive edges, the tile's sh rows and up to 4
+    of its centers' t rows staged in shared memory, each output (edge,
+    irrep, 4 channels) summed over the irrep's dims (a contiguous range,
+    :func:`irrep_ranges`), the tile's dwexp rows written as one range. Where
+    the t rows outgrow the card's shared memory, the launcher stages fewer,
+    as ``unweight_sh``'s does."""
     E = sh.shape[0]
     U = _check_unweight("unweight_w", t, sh, centers, dim_to_irr)
     if sh.shape[1] != dim_to_irr.shape[0]:

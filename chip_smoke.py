@@ -18,17 +18,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    W0 [96, 64], W1 [64, 160]), ``gather_tp_embed`` with its split output and
    ``bwd_embed`` with ``gts``, and ``gather_tp`` with the split output and
    ``bwd_fused`` with ``gts`` at layer-0 dims (``gather_tp`` walks the
-   layer's path table, ``Contracter.gather_paths``); then, checks only, all
+   layer's path table, ``bwd_fused`` those of its role swap and of its
+   (0, 2, 1) order, ``Contracter.infer_paths``), and at layer 0 beside
+   ``bwd_fused`` the pair that computes its function in two launches,
+   ``gather_tp`` on the role swap and ``tp_scatter`` (``bwd_fused[pair]``);
+   then, checks only, all
    of these at U = 16 and 48 (the lane loops for other widths) and
    ``gather_tp`` without its split output, ``gather_tp_embed`` (with and
    without its split output), ``bwd_embed`` and ``gather_tp`` (with and
    without) on an l = 4 layer at U = 32, whose paths beyond the compiled CG
    header take the kernels' per-entry default case, and the mega kernels,
    ``gather_tp`` (with and without), ``tp_scatter`` (both role orders,
-   against the plain version in float64) and ``unweight_sh`` on the same
-   crystal at r_max 7.0 (~134 edges per atom: a segment spans three of
-   ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s four
-   chunks walks ~34 of its edges); the center
+   against the plain version in float64), ``unweight_sh``, ``bwd_fused``
+   (with and without ``gts``, against float64) and ``unweight_w`` on the
+   same crystal at r_max 7.0 (~134 edges per atom: a segment spans three
+   of ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s
+   and ``bwd_fused``'s four chunks walks ~34 of its edges); the center
    gather and sum on positions [4096, 3] at the center and the neighbor side
    (and, checks only, on the [·, 1] energy column of the plain readout
    chain); the fused readout and its backward on three 64-wide pieces (W0
@@ -71,9 +76,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    sentinel edges, and ``unweight_sh`` on an l = 4 layer at U = 256 and
    512, whose full tile outgrows the card's shared memory (the launcher
    stages fewer t rows, then takes smaller tiles), on the edges of the
-   first ``WIDE_ATOMS`` atoms less one; ``gather_tp``, ``gather_dw`` and
-   ``tp_scatter`` on the
-   card without a path table must raise; (b) on that batch (zero
+   first ``WIDE_ATOMS`` atoms less one; ``bwd_fused`` (with and without
+   ``gts``, against float64) and ``unweight_w`` at the same shapes, with
+   x, g, gts and sh nonzero on the sentinel edges, and ``unweight_w`` on
+   the l = 4 dims at U = 256 and 512; ``gather_tp``, ``gather_dw``,
+   ``tp_scatter`` and ``bwd_fused`` on the
+   card without their path tables must raise; (b) on that batch (zero
    targets) and on the bench's 16 synthetic 21-atom frames (984 edges):
    the flagship on ``fused`` through ``Trainer.fit``, Adam 1e-3, EMA 0.999,
    10 steps with the exact launch count of every kernel per step, finite
@@ -155,7 +163,7 @@ where there is one (the center gather and sum, ``sparse_tp*``), else null,
 (``-Xptxas -v`` of this run's build).
 Every configuration and entry point has its own ``launches_*`` key; the
 ``*_lmax3`` keys are the same kernel's record at the l_max-3 layer-0 shapes;
-variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``) have
+variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``, ``[pair]``) have
 their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*`` in the base row.
 """
 
@@ -203,7 +211,8 @@ SOURCES = {
     "bwd_embed": "allegro_tpu_torch/csrc/mega.cu",
     "env_scatter": "allegro_tpu_torch/csrc/fused_tp.cu",
     "gather_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
-    "bwd_fused": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "bwd_fused": "allegro_tpu_torch/csrc/sparse_tp.cu",
+    "bwd_fused[dw]": "allegro_tpu_torch/csrc/fused_tp.cu",
     "unweight_both": "allegro_tpu_torch/csrc/fused_tp.cu",
     "center_gather": "allegro_tpu_torch/csrc/center_readout.cu",
     "center_sum": "allegro_tpu_torch/csrc/center_readout.cu",
@@ -477,13 +486,13 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
         U, d1, d2, d3 = tp.mul, tp.d1, tp.d2, tp.d3
         n_irr = int(tp.dim_to_irr.max().item()) + 1
         idx, coef, d2i = tp.entry_idx, tp.entry_coef.to(torch.float32), tp.dim_to_irr
-        paths = tp.gather_paths()[0]
+        paths, swapped, scatter = tp.infer_paths()
         x, sh, wexp, g = rand(E, d1 * U), rand(E, d2), rand(E, n_irr * U), rand(E, d3 * U)
         w = rand(tp.num_paths, U, edge=False)
         env = fused_tp.env_scatter(sh, wexp, centers, row_ptr, d2i, U)
         t = rand(n_atoms, d2 * U, edge=False)
         n = idx.shape[0]
-        tables = (idx, coef, d2i)
+        walks = (*swapped, *scatter)
         # (kernel, plain version, inputs read, FLOPs): a CG entry costs 3 per
         # edge and channel (c*w formed once; x*env, then the multiply-add)
         cases = {
@@ -498,9 +507,10 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
                 (x, env, w, centers, *paths), 3 * Er * n * U,
             ),
             "bwd_fused": (
-                lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef),
+                lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef,
+                                           paths=swapped, scatter_paths=scatter),
                 lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx, coef),
-                (x, g, env, w, row_ptr, *tables), 6 * Er * n * U,
+                (x, g, env, w, row_ptr, *walks), 6 * Er * n * U,
             ),
             "unweight_both": (
                 lambda: fused_tp.unweight_both(t, sh, wexp, centers, d2i),
@@ -508,6 +518,15 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
                 (t, sh, wexp, centers, d2i), 4 * Er * d2 * U,
             ),
         }
+        if records is not None and layer == first:
+            # the same function from the trainable backend's two walks, one
+            # launch each: gather_tp on the role swap (dx), tp_scatter (denv)
+            cases["bwd_fused[pair]"] = (
+                lambda: (fused_tp.gather_tp(g, env, w, centers, tp.entry_swapped, coef, d1,
+                                            paths=swapped),
+                         fused_tp.tp_scatter(x, g, w, centers, row_ptr, idx, coef, d2, scatter)),
+                cases["bwd_fused"][1], (x, g, env, w, centers, row_ptr, *walks), 6 * Er * n * U,
+            )
         for name, (kernel, plain, reads, flops) in cases.items():
             label = f"U {U} layer {layer} dims ({d1},{d2},{d3}) entries {n:3d}"
             check_case(name, kernel, plain, label, records, reads, flops, plain_timing=plain_timing)
@@ -645,11 +664,13 @@ def check_mega_kernels(allegro, data, rng, records=None, plain_timing=None):
                    lambda: (fused_tp.gather_tp(x, env, wk, centers, idx, coef, d3, paths=walk),),
                    lambda: (fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, d3),),
                    what)
+    _, swapped, scatter = tp.infer_paths()
     check_case("bwd_fused[gts]",
-               lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts),
+               lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts,
+                                          paths=swapped, scatter_paths=scatter),
                lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef,
                                                     gts), what, records,
-               (x, g, gts, env, wk, row_ptr, idx, coef), 2 * tp_flops + Er * U,
+               (x, g, gts, env, wk, row_ptr, *swapped, *scatter), 2 * tp_flops + Er * U,
                plain_timing=plain_timing)
 
 
@@ -729,8 +750,10 @@ def check_long_segments(model, rng, dev):
     """Phase 2: the mega kernels (checks only) on the crystal at r_max
     LONG_R_MAX, where an atom has ~134 edges: its segment spans three of
     ``latent_env_scatter``'s 64-edge tiles; and ``tp_scatter`` (both orders)
-    and ``unweight_sh`` at the flagship's layer-0 dims there, where each of
-    ``tp_scatter``'s chunks walks ~34 edges of a segment."""
+    and ``unweight_sh``, ``bwd_fused`` (with and without ``gts``) and
+    ``unweight_w`` at the flagship's layer-0 dims there, where each of
+    ``tp_scatter``'s and ``bwd_fused``'s chunks walks ~34 edges of a
+    segment."""
     from allegro_tpu_torch.data import batch_frames, keys, to_torch
     from allegro_tpu_torch.nn.contract import Contracter
 
@@ -743,8 +766,9 @@ def check_long_segments(model, rng, dev):
     check_mega_kernels(model.module.allegro, data, rng)
     l2 = "1x0e+1x1o+1x2e"
     tps = [Contracter(l2, l2, l2, model.module.allegro.U, kernel_backend="fused").to(dev)]
-    check_scatter_kernels(tps, data[keys.EDGE_INDEX][0].to(torch.int32).contiguous(),
-                          data[keys.CENTER_ROW_PTR], rng, f"r_max {LONG_R_MAX}")
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    check_scatter_kernels(tps, centers, data[keys.CENTER_ROW_PTR], rng, f"r_max {LONG_R_MAX}")
+    check_bwd_kernels(tps, centers, data[keys.CENTER_ROW_PTR], rng, f"r_max {LONG_R_MAX}")
 
 
 def check_center_readout(data, rng, records):
@@ -1020,21 +1044,11 @@ def check_scatter_kernels(tps, centers, row_ptr, rng, label):
             del exact
 
 
-def check_scatter_shapes(data, rng):
-    """Phase 5a, checks only: ``tp_scatter`` and ``unweight_sh`` (both role
-    orders) on the training batch's edges less those of atom ``EMPTY_ATOM``
-    (a segment without edges) and less the last one or two (an odd count: a
-    whole number of no tile's or chunk's edges), on the flagship's two layer
-    shapes at U = 16 and 48 and on an l = 4 layer at U = 32 (dims 25: walk
-    rows beyond the compiled CG header, walked entry by entry), and
-    ``unweight_sh`` on that l = 4 layer's dims at U = 256 and 512 on the
-    edges of the first ``WIDE_ATOMS`` atoms less one: 32 wexp rows and 4 t
-    rows take 260 KiB there at U = 256 and 520 KiB at 512, more than the
-    card's opt-in shared memory (227 KiB on an H100), so the launcher stages 2 t rows at U = 256
-    and takes 16-edge tiles with one t row at 512. Then a ``tp_scatter``
-    call on the card without its path table must raise."""
+def _odd_edges(data):
+    """Phase 5a's edge set: the training batch's edges less those of atom
+    ``EMPTY_ATOM`` (a segment without edges) and less the last one or two (an
+    odd count: a whole number of no tile's or chunk's edges), with its CSR."""
     from allegro_tpu_torch.data import keys
-    from allegro_tpu_torch.nn.contract import Contracter
     from allegro_tpu_torch.ops import fused_tp
 
     dev = data[keys.POSITIONS].device
@@ -1046,14 +1060,41 @@ def check_scatter_shapes(data, rng):
     row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.cpu().numpy(), n_atoms), device=dev)
     if row_ptr[EMPTY_ATOM] != row_ptr[EMPTY_ATOM + 1]:
         raise AssertionError(f"atom {EMPTY_ATOM} still has edges")
+    return centers, row_ptr
+
+
+def _shape_layers(dev):
+    """Phase 5a's layers: the flagship's two layer shapes at U = 16 and 48 and
+    an l = 4 layer at U = 32 (dims 25: walk rows beyond the compiled CG
+    header, walked entry by entry), on ``fused``."""
+    from allegro_tpu_torch.nn.contract import Contracter
+
     l2 = "1x0e+1x1o+1x2e"
     l4 = "+".join(f"1x{l}{'e' if l % 2 == 0 else 'o'}" for l in range(5))
     layers = [Contracter(*irreps, mul, kernel_backend="fused")
               for mul in (16, 48) for irreps in ((l2,) * 3, (l2, l2, "1x0e"))]
     layers.append(Contracter(l4, l4, l4, 32, kernel_backend="fused"))
+    return [tp.to(dev) for tp in layers]
+
+
+def check_scatter_shapes(data, rng):
+    """Phase 5a, checks only: ``tp_scatter`` and ``unweight_sh`` (both role
+    orders) on :func:`_odd_edges` at :func:`_shape_layers`' shapes, and
+    ``unweight_sh`` on that l = 4 layer's dims at U = 256 and 512 on the
+    edges of the first ``WIDE_ATOMS`` atoms less one: 32 wexp rows and 4 t
+    rows take 260 KiB there at U = 256 and 520 KiB at 512, more than the
+    card's opt-in shared memory (227 KiB on an H100), so the launcher stages 2 t rows at U = 256
+    and takes 16-edge tiles with one t row at 512. Then a ``tp_scatter``
+    call on the card without its path table must raise."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
+    centers, row_ptr = _odd_edges(data)
+    layers = _shape_layers(dev)
     E = centers.shape[0]
-    check_scatter_kernels([tp.to(dev) for tp in layers], centers, row_ptr, rng,
-                          f"E {E} (atom {EMPTY_ATOM} without edges)")
+    check_scatter_kernels(layers, centers, row_ptr, rng, f"E {E} (atom {EMPTY_ATOM} without edges)")
     tp = layers[-1]
     wide = centers[:int(row_ptr[WIDE_ATOMS]) - 1]
     for U in (256, 512):
@@ -1077,6 +1118,91 @@ def check_scatter_shapes(data, rng):
         print(f"    tp_scatter on the card without a path table raises: {e}")
     else:
         raise AssertionError("tp_scatter ran on the card without its path table")
+
+
+def check_bwd_kernels(tps, centers, row_ptr, rng, label):
+    """Checks only: ``bwd_fused`` without its weight gradient, with and
+    without ``gts``, walking the layer's role-swap table (dx) and its (0, 2,
+    1) table (denv) (``Contracter.infer_paths``), held to the plain version
+    in float64 (denv sums up to ~137 edges per atom), and ``unweight_w``, on
+    the edges ``centers`` with the CSR ``row_ptr``, with x, g, gts and sh
+    nonzero on the sentinel edges, which neither kernel may read."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = centers.device
+    n_atoms, E = row_ptr.shape[0] - 1, centers.shape[0]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    for tp in tps:
+        U = tp.mul
+        idx, coef = tp.entry_idx, tp.entry_coef.to(torch.float32)
+        _, swapped, scatter = tp.infer_paths()
+        what = f"{label} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) entries {idx.shape[0]:4d}"
+        t, sh = rand(n_atoms, tp.d2 * U), rand(E, tp.d2)
+        check_case("unweight_w",
+                   lambda: (fused_tp.unweight_w(t, sh, centers, tp.dim_to_irr, tp.n_irr),),
+                   lambda: (fused_tp.unweight_w_reference(t, sh, centers, tp.dim_to_irr,
+                                                          tp.n_irr),), what)
+        del t, sh
+        x, g, gts = rand(E, tp.d1 * U), rand(E, tp.d3 * U), rand(E, U)
+        env, w = rand(n_atoms, tp.d2 * U), rand(tp.num_paths, U)
+        beyond = int((swapped.desc[:, 1] < 0).sum() + (scatter.desc[:, 1] < 0).sum())
+        for opt in (None, gts):
+            exact = fused_tp.bwd_fused_reference(
+                x.double(), g.double(), env.double(), w.double(), centers, n_atoms, idx,
+                tp.entry_coef, None if opt is None else opt.double())
+            check_case("bwd_fused",
+                       lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef, opt,
+                                                  paths=swapped, scatter_paths=scatter),
+                       lambda: exact,
+                       f"{what} {'gts' if opt is not None else '   '} rows "
+                       f"{swapped.desc.shape[0]} + {scatter.desc.shape[0]} ({beyond} beyond the "
+                       f"header) (vs float64)")
+            del exact
+        del x, g, gts, env
+
+
+def check_bwd_shapes(data, rng):
+    """Phase 5a, checks only: :func:`check_bwd_kernels` on :func:`_odd_edges`
+    at :func:`_shape_layers`' shapes, ``unweight_w`` on the l = 4 layer's
+    dims at U = 256 and 512 on the edges of the first ``WIDE_ATOMS`` atoms
+    less one (4 staged t rows take 200 KiB at U = 512, as do ``unweight_sh``'s
+    there), then a ``bwd_fused`` call on the card without its path tables,
+    which must raise."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
+    centers, row_ptr = _odd_edges(data)
+    layers = _shape_layers(dev)
+    E = centers.shape[0]
+    check_bwd_kernels(layers, centers, row_ptr, rng, f"E {E} (atom {EMPTY_ATOM} without edges)")
+    tp = layers[-1]
+    wide = centers[:int(row_ptr[WIDE_ATOMS]) - 1]
+    for U in (256, 512):
+        t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U).astype(np.float32), device=dev)
+        sh = torch.as_tensor(rng.randn(wide.shape[0], tp.d2).astype(np.float32), device=dev)
+        check_case("unweight_w",
+                   lambda: (fused_tp.unweight_w(t, sh, wide, tp.dim_to_irr, tp.n_irr),),
+                   lambda: (fused_tp.unweight_w_reference(t, sh, wide, tp.dim_to_irr,
+                                                          tp.n_irr),),
+                   f"E {wide.shape[0]} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) (4 staged t rows "
+                   f"{4 * tp.d2 * U * 4 // 1024} KiB)")
+        del t, sh
+    tp = layers[0]
+    x = torch.zeros(E, tp.d1 * tp.mul, device=dev)
+    env = torch.zeros(n_atoms, tp.d2 * tp.mul, device=dev)
+    w = torch.zeros(tp.num_paths, tp.mul, device=dev)
+    try:
+        fused_tp.bwd_fused(x, x, env, w, centers, row_ptr, tp.entry_idx,
+                           tp.entry_coef.to(torch.float32))
+    except ValueError as e:
+        print(f"    bwd_fused on the card without its path tables raises: {e}")
+    else:
+        raise AssertionError("bwd_fused ran on the card without its path tables")
 
 
 def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
@@ -1550,10 +1676,12 @@ def check_kernel18(tps, data, rng, records, tag, plain_timing=None):
         timed = records if layer == 0 else None
         label = f"{tag} U {U} layer {layer} dims ({d1},{d2},{d3}) entries {n:3d} P {P}"
         reads = (x, g, env, w, row_ptr, idx, coef)
+        _, swapped_walk, scatter = tp.infer_paths()
         for with_dw in (False, True):
             key = "bwd_fused[dw]" if with_dw else "bwd_fused"
             check_case(key, lambda: fused_tp.bwd_fused(x, g, env, w, centers, row_ptr, idx, coef,
-                                                       with_dw=with_dw),
+                                                       with_dw=with_dw, paths=swapped_walk,
+                                                       scatter_paths=scatter),
                        lambda: fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, idx,
                                                             coef, with_dw=with_dw),
                        label, timed if with_dw else None, reads, (6 + 4 * with_dw) * Er * n * U,
@@ -1920,6 +2048,7 @@ def main() -> int:
         check_train_kernels(other.module.allegro.tps, train_data, rng)
     check_gather_shapes(train_data, rng)
     check_scatter_shapes(train_data, rng)
+    check_bwd_shapes(train_data, rng)
     del train_data
     train_launches = run_training(loaders, dev, smi)
 
@@ -2030,11 +2159,13 @@ def kernel_record(row, records, records_l3, runs):
         config = "fused readout" if name in LAYER_KERNELS else "mega"
         count = launches[config][name]
     bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
-    out = {"name": key, "route": "cuda", "source": SOURCES[name], "replaces": replaces,
-           "tpu_kernel": n, "launches": count, "max_abs_err": rec["max_abs_err"],
-           "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": rec["library_ms"], "ms_config": config,
-           "ptxas": kernel_ptxas(name, runs["ptxas"])}
+    # kernel 18 (bwd_fused with dw) is a kernel of its own, bwd_fused_dw_kernel
+    entry = "bwd_fused_dw" if key == "bwd_fused[dw]" else name
+    out = {"name": key, "route": "cuda", "source": SOURCES.get(key, SOURCES[name]),
+           "replaces": replaces, "tpu_kernel": n, "launches": count,
+           "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec["library_ms"],
+           "ms_config": config, "ptxas": kernel_ptxas(entry, runs["ptxas"])}
     for config in PER_CALL:
         out["launches_" + config.replace(" ", "_")] = launches[config][name]
     for run in ("md", "calculator", "lmax3_md", "lmax3_calculator"):

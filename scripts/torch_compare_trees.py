@@ -53,6 +53,11 @@ Each run times, with that tree's package:
   (``chip_smoke.scatter_paths``), and (``*_rmax7_ms``) at the flagship's
   layer 0 on the crystal at r_max 7.0 (``chip_smoke.LONG_R_MAX``: ~137
   edges per atom);
+- ``bwd_fused_ms``, ``bwd_fused_gts_ms`` and ``unweight_w_ms``: the same
+  for kernels 3 (without and with the split output's cotangent ``gts``;
+  with the path tables of the layer's ``infer_paths`` where the tree's
+  ``bwd_fused`` takes them) and 17, on the same edges and layers (the
+  flagship's two, l_max 3's layer 0, r_max 7.0's layer 0);
 - ``fused_train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``fused`` on the 4 x 1,000-atom batch (median of 10 steps after 2, host
   clock), ``fused_train_busy_ms`` and ``fused_train_idle_pct`` its device
@@ -225,10 +230,12 @@ def gather_kernel_times(smoke, tps, data) -> dict:
 
 def scatter_kernel_times(smoke, tps, data) -> dict:
     """Device ms, from CUDA events, of tp_scatter (the layer's entry order
-    and the role swap, the two orders a training step runs) and unweight_sh
-    on ``data``'s edges, summed over the layers ``tps``, each through the
-    tree's wrapper, with the path table of this checkout's
-    ``chip_smoke.scatter_paths`` where the tree's ``tp_scatter`` takes one."""
+    and the role swap, the two orders a training step runs), unweight_sh,
+    bwd_fused (without and with gts) and unweight_w on ``data``'s edges,
+    summed over the layers ``tps``, each through the tree's wrapper, with the
+    path table of this checkout's ``chip_smoke.scatter_paths`` where the
+    tree's ``tp_scatter`` takes one, and the layer's ``infer_paths`` where
+    the tree's ``bwd_fused`` takes them."""
     import inspect
 
     import numpy as np
@@ -244,12 +251,14 @@ def scatter_kernel_times(smoke, tps, data) -> dict:
     n_atoms, E = row_ptr.shape[0] - 1, centers.shape[0]
     real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
     walks = "paths" in inspect.signature(fused_tp.tp_scatter).parameters
+    bwd_walks = "scatter_paths" in inspect.signature(fused_tp.bwd_fused).parameters
 
     def rand(*shape, edge=True):
         t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
         return t * real if edge else t
 
-    ms = {"tp_scatter_ms": 0.0, "tp_scatter_swapped_ms": 0.0, "unweight_sh_ms": 0.0}
+    ms = {"tp_scatter_ms": 0.0, "tp_scatter_swapped_ms": 0.0, "unweight_sh_ms": 0.0,
+          "bwd_fused_ms": 0.0, "bwd_fused_gts_ms": 0.0, "unweight_w_ms": 0.0}
     for tp in tps:
         U, P = tp.mul, tp.num_paths
         coef = tp.entry_coef.to(torch.float32)
@@ -262,7 +271,15 @@ def scatter_kernel_times(smoke, tps, data) -> dict:
             g, x, w, centers, row_ptr, tp.entry_swapped, coef, tp.d2, *swapped))
         ms["unweight_sh_ms"] += smoke.median_ms(lambda: fused_tp.unweight_sh(
             t, wexp, centers, tp.dim_to_irr))
-        del x, g, t, wexp
+        env, sh, gts = rand(n_atoms, tp.d2 * U, edge=False), rand(E, tp.d2), rand(E, U)
+        bwd = dict(zip(("paths", "scatter_paths"), tp.infer_paths()[1:])) if bwd_walks else {}
+        ms["bwd_fused_ms"] += smoke.median_ms(lambda: fused_tp.bwd_fused(
+            x, g, env, w, centers, row_ptr, tp.entry_idx, coef, **bwd))
+        ms["bwd_fused_gts_ms"] += smoke.median_ms(lambda: fused_tp.bwd_fused(
+            x, g, env, w, centers, row_ptr, tp.entry_idx, coef, gts, **bwd))
+        ms["unweight_w_ms"] += smoke.median_ms(lambda: fused_tp.unweight_w(
+            t, sh, centers, tp.dim_to_irr, tp.n_irr))
+        del x, g, t, wexp, env, sh, gts
     return ms
 
 

@@ -30,7 +30,8 @@ edge, the rows summed over each atom's edges) with the tile schedule of
   entry order and its role swap, each with its roles permuted (0, 2, 1) so
   that the walk's out is j (the env), equal to
   ``gen_cg_blocks.path_table(by_output=True)`` of the permuted float64
-  entries; ``fused_infer`` layers carry none;
+  entries; ``fused_infer`` layers carry the same tables (``bwd_fused``'s
+  denv walk);
 - ``FusedStatics`` carries them and ``swap()`` exchanges them, and
   ``TpScatter`` passes the order's table to the kernel's wrapper, also from
   the backward of ``GatherTp``;
@@ -48,6 +49,27 @@ edge, the rows summed over each atom's edges) with the tile schedule of
   for the smaller ones the launcher takes where rows are too wide for shared
   memory.
 
+And the walks of ``bwd_fused`` without its weight gradient and the tiles of
+``unweight_w``, on the same models and layers:
+
+- ``fused_layer_infer`` (``Contracter.fused_call`` on ``fused_infer``) and
+  ``gather_tp_infer`` (the mega path's layers after the first) hand
+  ``bwd_fused`` the layer's role-swapped path table and its (0, 2, 1)
+  table (``Contracter.infer_paths``);
+- a plain float64 emulation of the new ``bwd_fused`` schedule (per atom
+  segment, T / U chunks of edges in edge order; per edge, gts folded into
+  g's row 0, dx by ``gather_tp``'s walk on the role-swapped table with the
+  atom's env row, denv by ``tp_scatter``'s walk, the chunks' partials added
+  in chunk order; an atom without edges; sentinel edges, with large x, g
+  and gts, stored as zero dx rows and never read) equals
+  ``bwd_fused_reference`` at 1e-12, with and without gts;
+- a plain float64 emulation of ``unweight_w``'s tile schedule (the tiles
+  and staged rows of ``unweight_sh``; per item (edge, 4 channels, or 1
+  where U is not a multiple of 4), the edge found by the kernel's float32
+  reciprocal, each irrep's sum over its contiguous dims stored once in the
+  tile's one output range; sentinel edges zero) equals
+  ``unweight_w_reference`` at 1e-12, for the same schedules and widths.
+
 The kernels themselves run only on the card (``chip_smoke.py`` phases 2, 5a
 and 7a).
 """
@@ -58,6 +80,7 @@ import numpy as np
 import pytest
 import torch
 
+from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel
 from allegro_tpu_torch.nn import contract
 from allegro_tpu_torch.nn.contract import Contracter
@@ -177,7 +200,7 @@ def test_calls_pass_the_tables_and_swap_exchanges_them(model, layer, backend, mo
     monkeypatch.setattr(contract, "fused_layer",
                         lambda x, sh, wexp, w, st: seen.setdefault("st", st))
     monkeypatch.setattr(contract, "fused_layer_infer",
-                        lambda *args: seen.setdefault("paths", args[-1]))
+                        lambda *args, **bwd: seen.setdefault("paths", args[-1]))
     _, centers = _graph(0)
     E = centers.shape[0]
     row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.numpy(), N_ATOMS))
@@ -259,8 +282,8 @@ def _statics(tp, centers, n_atoms, monkeypatch):
 def test_layer_carries_its_scatter_tables(model, layer):
     """The float32 layer's tables are the permuted float64 entries' path
     tables (scales cast to float32), in both orders, out of the checkpoint,
-    built once; their outputs are the env's dims. Only ``fused`` builds
-    them."""
+    built once; their outputs are the env's dims. ``fused_infer`` builds the
+    same tables (``bwd_fused`` walks the first)."""
     tp = _layers(model, "fused", "float32")[layer]
     assert tp.entry_coef.dtype == torch.float64
     own, swapped = tp.scatter_paths()
@@ -274,7 +297,9 @@ def test_layer_carries_its_scatter_tables(model, layer):
     assert again[0] is own and again[1] is swapped
     assert not any(k.startswith("scatter") for k in tp.state_dict())
     infer = _layers(model, "fused_infer", "float32")[layer]
-    assert not hasattr(infer, "scatter_desc")
+    for got, want in zip(infer.scatter_paths(), (own, swapped)):
+        _assert_same_paths(got, want)
+    assert not any(k.startswith("scatter") for k in infer.state_dict())
 
 
 @pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
@@ -429,5 +454,202 @@ def test_unweight_sh_tile_schedule_equals_the_plain_version(model, layer, U, til
     want = fused_tp.unweight_sh_reference(t, wexp, centers, tp.dim_to_irr)
     got, unstaged = _emulate_unweight_sh(t, wexp, centers, tp.dim_to_irr, n_atoms, tile,
                                          n_stage)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    assert unstaged > 0 and (got[E - 5:] == 0).all()
+
+
+def _emulate_bwd_fused(x, g, env, w, gts, centers, row_ptr, paths, scatter, d1, d2):
+    """bwd_fused's schedule in plain float64: each real edge's staged g
+    column with gts added to its row 0; dx by gather_tp's walk on the
+    role-swapped table (``_emulate_gather_tp``: a = g over k, b = the atom's
+    env row over j, out = i; sentinel rows stored as zeros, their g never
+    read); denv by tp_scatter's walk on the (0, 2, 1) table
+    (``_emulate_tp_scatter``: a = x, b = g, out = j; per atom, T / U chunks
+    in edge order, their partials added in chunk order)."""
+    U = w.shape[1]
+    n_real = int(row_ptr[-1])
+    gf = g.clone()
+    if gts is not None:
+        gf[:n_real, :U] += gts[:n_real]
+    return (_emulate_gather_tp(gf, env, w, centers, paths, d1, False),
+            _emulate_tp_scatter(x, gf, w, row_ptr, scatter, d2))
+
+
+@pytest.mark.parametrize("gts", [False, True], ids=["g", "gts"])
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_bwd_fused_walk_equals_the_plain_version(model, layer, gts):
+    """float64, U = 16 (8 chunks): one 21-edge segment (3 edges a chunk), an
+    atom without edges, 7 sentinel edges with large x, g and gts."""
+    tp = _layers(model, "fused_infer", "float64")[layer]
+    _, swapped, scatter = tp.infer_paths()
+    centers, n_atoms = _degree_graph([21, 4, 0, 9, 1], 7)
+    real = int((centers < n_atoms).sum())
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.numpy(), n_atoms))
+    U, E = 16, centers.shape[0]
+    rng = np.random.RandomState(40 + gts)
+    x, g = (torch.as_tensor(rng.randn(E, d * U)) for d in (tp.d1, tp.d3))
+    env = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U))
+    w = torch.as_tensor(rng.randn(tp.num_paths, U))
+    t_gts = torch.as_tensor(rng.randn(E, U)) if gts else None
+    for a in (x, g) if t_gts is None else (x, g, t_gts):
+        a[real:] *= 1e6
+    want = fused_tp.bwd_fused_reference(x, g, env, w, centers, n_atoms, tp.entry_idx,
+                                        tp.entry_coef, t_gts)
+    got = _emulate_bwd_fused(x, g, env, w, t_gts, centers, row_ptr, swapped, scatter, tp.d1,
+                             tp.d2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+    assert (got[0][real:] == 0).all() and (got[1][2] == 0).all()
+
+
+def _frame(n_types=2):
+    """A periodic 2 x 2 x 2 crystal (spacing 2.2, r_max 4.0): every atom's
+    segment holds periodic images."""
+    rng = np.random.RandomState(5)
+    grid = np.stack(np.meshgrid(*(np.arange(2),) * 3, indexing="ij"), -1).reshape(-1, 3)
+    frame = {keys.POSITIONS: grid * 2.2 + 0.1 * rng.randn(8, 3),
+             keys.ATOM_TYPES: rng.randint(0, n_types, 8).astype(np.int32),
+             keys.CELL: np.eye(3) * 4.4, keys.PBC: np.ones(3, dtype=bool)}
+    return neighbor_list(frame, 4.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _mega_bwd_tables(model):
+    """The mega path of ``model`` on ``fused_infer`` (float64, the CPU's plain
+    versions): one force call on a tiny crystal, with ``bwd_fused`` spied
+    on. Returns the model's layers and the (paths, scatter_paths) of each
+    ``bwd_fused`` call."""
+    kw, n = MODELS[model]
+    m = AllegroModel(r_max=4.0, type_names=["A", "B"], num_scalar_features=8,
+                     num_tensor_features=4, avg_num_neighbors=10.0, model_dtype="float64",
+                     tp_kernel_backend="fused_infer", **kw).init(0)
+    assert m.module.allegro.mega
+    seen = []
+    real = fused_tp.bwd_fused
+
+    def spy(*args, **kwargs):
+        seen.append((kwargs.get("paths"), kwargs.get("scatter_paths")))
+        return real(*args, **kwargs)
+
+    fused_primitives.fused_tp.bwd_fused = spy
+    try:
+        data = to_torch(m.precompute_statics(batch_frames([_frame()], n_frames=1)),
+                        dtype=torch.float64)
+        out = m.apply_with_derivatives(data)
+    finally:
+        fused_primitives.fused_tp.bwd_fused = real
+    assert torch.isfinite(out[keys.FORCES]).all()
+    layers = [t for t in m.module.modules() if isinstance(t, Contracter)]
+    assert len(layers) == n
+    return layers, seen
+
+
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_fused_infer_calls_pass_the_bwd_tables(model, layer, monkeypatch):
+    """``fused_layer_infer`` (``use_mega=False``'s layers, through
+    ``fused_call``) and ``gather_tp_infer`` (the mega path's layers after the
+    first; layer 0 runs ``bwd_embed``) give ``bwd_fused`` the layer's role
+    swap's table and its (0, 2, 1) table, the ones ``infer_paths`` names."""
+    tp = _layers(model, "fused_infer", "float64")[layer]
+    paths, swapped, scatter = tp.infer_paths()
+    assert paths is tp.gather_paths()[0] and swapped is tp.gather_paths()[1]
+    assert scatter is tp.scatter_paths()[0]
+    seen = []
+    real = fused_tp.bwd_fused
+
+    def spy(*args, **kwargs):
+        seen.append((kwargs.get("paths"), kwargs.get("scatter_paths")))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fused_primitives.fused_tp, "bwd_fused", spy)
+    centers, n_atoms = _degree_graph([3, 0, 2], 2)
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.numpy(), n_atoms))
+    E, U = centers.shape[0], tp.mul
+    rng = np.random.RandomState(layer)
+    x = torch.as_tensor(rng.randn(E, tp.d1 * U)).requires_grad_()
+    sh = torch.as_tensor(rng.randn(E, tp.d2))
+    wexp = torch.as_tensor(rng.randn(E, tp.n_irr * U))
+    tp.fused_call(x, sh, wexp, centers, row_ptr).sum().backward()
+    assert len(seen) == 1 and seen[0][0] is swapped and seen[0][1] is scatter
+    layers, mega_seen = _mega_bwd_tables(model)
+    assert len(mega_seen) == len(layers) - 1
+    mega = layers[layer]
+    want = (mega.gather_paths()[1], mega.scatter_paths()[0])
+    hits = sum(p is want[0] and q is want[1] for p, q in mega_seen)
+    assert hits == (layer > 0)
+
+
+def _emulate_unweight_w(t, sh, centers, dim_to_irr, n_atoms, n_irr, tile, n_stage):
+    """unweight_w's tile schedule in plain float64: per ``tile``-edge tile
+    (the last partial), its sh rows and the t rows [c(first edge), c(last
+    real edge)] staged, at most ``n_stage`` of them; each irrep's dims the
+    run [first, end) of its id in ``dim_to_irr``; thread item q of the tile
+    = (edge el, group v of 4 channels, or of 1 where U is not a multiple of
+    4), el found as the kernel finds it, by a float32 reciprocal; per irrep
+    r, the sum over r's dims, in order, of sh times the t row, stored at its
+    place in the tile's one output range; sentinel edges zero. Returns
+    dwexp and how many items read an unstaged row."""
+    E, d2 = sh.shape
+    U = t.shape[1] // d2
+    vec = 4 if U % 4 == 0 else 1
+    per_irr = U // vec
+    inv_irr = np.float32(1.0) / np.float32(per_irr)
+    nU = n_irr * U
+    d2i = [int(r) for r in dim_to_irr]
+    first, end = {}, {}
+    for j, r in enumerate(d2i):
+        if j == 0 or d2i[j - 1] != r:
+            first[r] = j
+        if j == d2 - 1 or d2i[j + 1] != r:
+            end[r] = j + 1
+    t_np, sh_np, c_np = t.numpy(), sh.numpy(), centers.numpy()
+    out = np.full(E * nU, np.nan)
+    unstaged = 0
+    for e0 in range(0, E, tile):
+        n_e = min(tile, E - e0)
+        s_sh = sh_np[e0:e0 + n_e].copy()
+        c_lo, n_c = int(c_np[e0]), 0
+        if 0 <= c_lo < n_atoms:
+            c_hi = min(int(c_np[e0 + n_e - 1]), n_atoms - 1)
+            n_c = max(0, min(n_stage, c_hi - c_lo + 1))
+        s_t = t_np[c_lo:c_lo + n_c].copy() if n_c else None
+        for q in range(n_e * per_irr):
+            el = int((np.float32(q) + np.float32(0.5)) * inv_irr)
+            assert el == q // per_irr
+            v = q - el * per_irr
+            c = int(c_np[e0 + el])
+            real = 0 <= c < n_atoms
+            if real:
+                staged = 0 <= c - c_lo < n_c
+                unstaged += not staged
+                tr = s_t[c - c_lo] if staged else t_np[c]
+            for r in range(n_irr):
+                acc = np.zeros(vec)
+                for j in range(first[r], end[r] if real else first[r]):
+                    acc = acc + s_sh[el, j] * tr[j * U + v * vec:j * U + (v + 1) * vec]
+                at = (e0 + el) * nU + r * U + v * vec
+                assert np.isnan(out[at:at + vec]).all(), "an output is stored twice"
+                out[at:at + vec] = acc
+    return torch.as_tensor(out.reshape(E, nU)), unstaged
+
+
+@pytest.mark.parametrize("tile,n_stage", SH_SCHEDULES,
+                         ids=[f"tile{a}-staged{b}" for a, b in SH_SCHEDULES])
+@pytest.mark.parametrize("U", [3, 8])
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_unweight_w_tile_schedule_equals_the_plain_version(model, layer, U, tile, n_stage):
+    """float64, 75 edges: whole tiles and a partial one, tiles over more
+    centers than are staged, an atom without edges, 5 sentinel edges (sh
+    large there)."""
+    tp = _layers(model, "fused", "float64")[layer]
+    centers, n_atoms = _degree_graph([9, 3, 0, 7, 5, 6, 4, 12, 10, 14], 5)
+    E = centers.shape[0]
+    rng = np.random.RandomState(50 + U)
+    t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U))
+    sh = torch.as_tensor(rng.randn(E, tp.d2))
+    sh[E - 5:] *= 1e6
+    want = fused_tp.unweight_w_reference(t, sh, centers, tp.dim_to_irr, tp.n_irr)
+    got, unstaged = _emulate_unweight_w(t, sh, centers, tp.dim_to_irr, n_atoms, tp.n_irr, tile,
+                                        n_stage)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
     assert unstaged > 0 and (got[E - 5:] == 0).all()
