@@ -1,7 +1,8 @@
-// Device helpers shared by the kernels of csrc/*.cu: warp reductions,
-// cp.async copies, the sparse Clebsch-Gordan table in shared memory, the
-// per-edge MLP of a tile of 32 edges (lane = edge) with its backward, and
-// launch-size helpers.
+// Device helpers shared by the kernels of csrc/*.cu: cp.async copies, the
+// sparse Clebsch-Gordan table in shared memory, the per-edge MLP of a tile
+// of 32 edges (lane = edge), the register-tiled products of the tiled GEMM
+// chains (csrc/mega.cu, readout_bwd in csrc/center_readout.cu) with their
+// piece-row loader, and launch-size helpers.
 //
 // The other sources include this file once each, and everything here has
 // internal linkage, so each gets its own copy. The build compiles every
@@ -9,6 +10,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -18,11 +21,6 @@ constexpr int kMaxPieces = 16;
 constexpr int kEdgeWarps = 4;           // warps per block of the per-edge TP kernels
 constexpr int kSegmentWarps = 8;        // warps per block of the per-atom-segment kernels
 constexpr size_t kSmemLimit = 48 * 1024;
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // Asynchronous copies from device to shared memory (cp.async): 4 bytes, or
 // 16 aligned bytes; a thread's copies since its last commit form one group,
@@ -120,44 +118,150 @@ __device__ __forceinline__ void hidden_chunk(const Pieces& P, long long e0, int 
   }
 }
 
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
 // ---------------------------------------------------------------------------
-// The transpose of hidden_chunk: with lane l holding dh[j], the cotangent of
-// output unit h0+j of edge e0+l, adds sum_j dh[j] W[k, h0+j] into row e0+l,
-// column k of the output pieces (``first``: store instead of add). 32 columns
-// k at a time go through the warp's tile, which the warp then writes out as
-// coalesced row pieces.
+// Register-tiled products in shared memory, exact FP32 FMAs, for a block
+// whose thread tid is (ty, tx) = (tid / 8, tid % 8): row group ty owns 4 rows
+// of a tile, column group tx 8 columns of a chunk of kMmaCols (TN = 8) or 4 of
+// a last chunk of 32 (TN = 4), so each float4 read from shared memory feeds 8
+// or more FMAs. Rows of a stored operand that threads read strided have a
+// stride of 4 mod 32 floats (tile_ld), so those float4 reads are free of
+// bank conflicts.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void backprop_chunk(const OutPieces& D, long long e0, int n,
-                                               const float* __restrict__ s_w, int ldw, int h0,
-                                               const float (&dh)[kWarp], float* tile, int lane,
-                                               bool first) {
-  for (int i = 0; i < D.n; ++i) {
-    const int d = D.dim[i];
-    float* base = D.ptr[i];
-    const long long stride = D.stride[i];
-    for (int k0 = 0; k0 < d; k0 += kWarp) {
-      const int kc = min(kWarp, d - k0);
-      const float* wrow = s_w + (long long)(D.off[i] + k0) * ldw + h0;
-      for (int kk = 0; kk < kc; ++kk, wrow += ldw) {
-        float s = 0.f;
+constexpr int kMmaCols = 64;  // columns per chunk: 8 column groups of 8
+
+// A row stride of 4 mod 32 floats: 8 threads reading rows r, r+1, ... of it
+// as float4 hit 8 distinct bank quads.
+__host__ __device__ inline int tile_ld(int width) { return round_up(width, kWarp) + 4; }
+
+template <int TN>
+__device__ __forceinline__ void fma_rows(const float4 (&x)[4], const float4 (&y)[TN],
+                                         float (&acc)[4][8]) {
 #pragma unroll
-        for (int j = 0; j < kWarp; j += 4) {
-          const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-          s = fmaf(dh[j], w.x, s);
-          s = fmaf(dh[j + 1], w.y, s);
-          s = fmaf(dh[j + 2], w.z, s);
-          s = fmaf(dh[j + 3], w.w, s);
-        }
-        tile[lane * kTile + kk] = s;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+      acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+      acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+      acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+    }
+}
+
+template <int TN>
+__device__ __forceinline__ void load_rows(const float* X, int ldx, const float* Y, int ldy, int k,
+                                          float4 (&x)[4], float4 (&y)[TN]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(X + i * ldx + k);
+#pragma unroll
+  for (int j = 0; j < TN; ++j) y[j] = *reinterpret_cast<const float4*>(Y + j * 8 * ldy + k);
+}
+
+// acc[i][j] += sum_k X[i][k] Y[8j][k] over Kd (a multiple of 4): the thread's
+// 4 rows of X (stride ldx) against its TN rows of Y, 8 apart (stride ldy).
+template <int TN>
+__device__ __forceinline__ void mma_rows(const float* X, int ldx, const float* Y, int ldy, int Kd,
+                                         float (&acc)[4][8]) {
+#pragma unroll 2
+  for (int k = 0; k < Kd; k += 4) {
+    float4 x[4], y[TN];
+    load_rows<TN>(X, ldx, Y, ldy, k, x, y);
+    fma_rows<TN>(x, y, acc);
+  }
+}
+
+template <int TN>
+__device__ __forceinline__ void load_cols(const float* Lt, int ldl, const float* R, int ldr,
+                                          int k, float4 (&a)[4], float4 (&b)[4][2]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a[s] = *reinterpret_cast<const float4*>(Lt + (k + s) * ldl);
+    b[s][0] = *reinterpret_cast<const float4*>(R + (k + s) * ldr);
+    if (TN == 8) b[s][1] = *reinterpret_cast<const float4*>(R + (k + s) * ldr + 32);
+  }
+}
+
+template <int TN>
+__device__ __forceinline__ void fma_cols(const float4 (&a)[4], const float4 (&b)[4][2], int n,
+                                         float (&acc)[4][8]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (s >= n) break;
+    const float av[4] = {a[s].x, a[s].y, a[s].z, a[s].w};
+    const float bv[8] = {b[s][0].x, b[s][0].y, b[s][0].z, b[s][0].w,
+                         b[s][1].x, b[s][1].y, b[s][1].z, b[s][1].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_k Lt[k][i] R[k][j'] over Kd: the thread's 4 contiguous
+// columns of Lt (row stride ldl) against its TN columns of R, 4 k's at a
+// time; j' = j for j < 4 and j + 28 for the last 4 (TN = 8), so the 8
+// threads of a quarter warp, whose R starts 4 columns apart, read distinct
+// banks. Lt and R must have round_up(Kd, 4) readable rows (the tail rows are
+// multiplied by nothing).
+template <int TN>
+__device__ __forceinline__ void mma_cols(const float* Lt, int ldl, const float* R, int ldr, int Kd,
+                                         float (&acc)[4][8]) {
+  float4 a[4], b[4][2];
+  b[0][1] = b[1][1] = b[2][1] = b[3][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < Kd; k += 4) {
+    load_cols<TN>(Lt, ldl, R, ldr, k, a, b);
+    fma_cols<TN>(a, b, Kd - k, acc);
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[4][8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// f(TN, c0) over the column chunks of [0, width): kMmaCols columns (8 a
+// thread) while they last, then 32 (4 a thread), so no thread idles on a wide
+// tail.
+template <class F>
+__device__ __forceinline__ void col_chunks(int width, F&& f) {
+  int c0 = 0;
+  for (; c0 + kMmaCols <= width; c0 += kMmaCols) f(std::integral_constant<int, 8>(), c0);
+  for (; c0 < width; c0 += kMmaCols / 2) f(std::integral_constant<int, 4>(), c0);
+}
+
+// Whether piece i's rows can be copied 16 bytes at a time into a tile whose
+// piece columns start at its offset: its pointer, row stride, width and
+// offset all 16-byte multiples.
+__host__ __device__ inline bool piece_vec4(const float* ptr, long long stride, int dim, int off) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && (stride & 3) == 0 && (dim & 3) == 0 &&
+         (off & 3) == 0;
+}
+
+// Rows [e0, end) (at most kRows) of each piece into the tile A (row stride
+// ld) by cp.async, by the kThreads threads of index tid: 16-byte copies where
+// the piece allows (piece_vec4), else 4-byte ones, a warp per row.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void load_piece_rows(const Pieces& P, long long e0, long long end,
+                                                float* A, int ld, int tid) {
+  const int lane = tid % kWarp, warp = tid / kWarp;
+  const int rows = (int)min((long long)kRows, end - e0);
+  for (int i = 0; i < P.n; ++i) {
+    const float* src = P.ptr[i] + e0 * P.stride[i];
+    float* dst = A + P.off[i];
+    const int d = P.dim[i];
+    if (piece_vec4(P.ptr[i], P.stride[i], d, P.off[i])) {
+      const int d4 = d / 4;
+      for (int q = tid; q < rows * d4; q += kThreads) {
+        const int m = q / d4, k = 4 * (q - m * d4);
+        cp_async16(dst + m * ld + k, src + m * P.stride[i] + k);
       }
-      __syncwarp();
-      if (lane < kc) {
-        for (int r = 0; r < n; ++r) {
-          float* o = base + (e0 + r) * stride + k0 + lane;
-          *o = first ? tile[r * kTile + lane] : *o + tile[r * kTile + lane];
-        }
-      }
-      __syncwarp();
+    } else {
+      for (int m = warp; m < rows; m += kThreads / kWarp)
+        for (int k = lane; k < d; k += kWarp)
+          cp_async4(dst + m * ld + k, src + m * P.stride[i] + k);
     }
   }
 }
@@ -173,17 +277,11 @@ __global__ void partials_reduce_kernel(const float* __restrict__ partial, int n_
   out[t] = s;
 }
 
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 int grid_for(long long work, int per_block, int max_blocks) {
   long long b = (work + per_block - 1) / per_block;
   if (b < 1) b = 1;
   return (int)(b < max_blocks ? b : max_blocks);
-}
-
-int edge_blocks(long long n_edges) {
-  long long b = (n_edges + kEdgeWarps - 1) / kEdgeWarps;
-  return (int)(b < (1LL << 30) ? b : (1LL << 30));
 }
 
 int sm_count() {

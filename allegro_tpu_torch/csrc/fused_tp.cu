@@ -1,13 +1,15 @@
 // Allegro tensor-product layer kernels for Hopper (sm_90a), float32.
 //
-// Three of the four kernels of one Allegro layer on the inference backend
-// (`tp_kernel_backend="fused_infer"` without the mega kernels); the fourth,
-// gather_tp, and bwd_fused without its weight gradient walk compiled CG
-// paths in csrc/sparse_tp.cu beside the `pallas` backend's per-edge product,
-// which differs from gather_tp only in where its second input's row comes
-// from. Each replaces one Pallas TPU kernel of allegro_tpu/ops/fused_tp.py
-// and computes the same function, in atom space instead of the TPU's
-// rank-window space:
+// Two kernels of one Allegro layer on the inference backend
+// (`tp_kernel_backend="fused_infer"` without the mega kernels) and the
+// trainable one: env_scatter, and bwd_fused with its weight gradient. The
+// layer's other kernels live elsewhere: gather_tp, and bwd_fused without its
+// weight gradient, walk compiled CG paths in csrc/sparse_tp.cu beside the
+// `pallas` backend's per-edge product, which differs from gather_tp only in
+// where its second input's row comes from; unweight_both runs the tiles of
+// env_scatter's two transposes in csrc/train_tp.cu. Each replaces one Pallas
+// TPU kernel of allegro_tpu/ops/fused_tp.py and computes the same function,
+// in atom space instead of the TPU's rank-window space:
 //
 //   env_scatter   env[a, jU+u] = sum_{c(e)=a} sh[e,j] * wexp[e, irr(j)U+u]
 //   bwd_fused     dx[e, iU+u]  = sum_n c_n w[p_n,u] g[e, k_nU+u] env[c(e), j_nU+u]
@@ -17,8 +19,6 @@
 //                 weight gradient dw[p, u] = sum_e sum_{n: p_n=p} c_n x[e, i_nU+u]
 //                 env[c(e), j_nU+u] g[e, k_nU+u] (bwd_fused_dw_kernel); without
 //                 it, atpt_bwd_fused launches csrc/sparse_tp.cu's path walk
-//   unweight_both dsh[e, j]   = sum_u t[c(e), jU+u] * wexp[e, irr(j)U+u]
-//                 dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] * sh[e, j]
 //
 // Layout (the JAX package's contract): per-edge arrays are row-major with
 // the flat dim-major tensor track (column i*U+u is basis dim i, channel u);
@@ -162,54 +162,6 @@ __global__ void bwd_fused_dw_kernel(const float* __restrict__ x, const float* __
   }
 }
 
-// ---------------------------------------------------------------------------
-// unweight_both
-// Replaces allegro_tpu/ops/fused_tp.py:_unweight_both_raw_kernel
-// (unweight_both_raw_call): the two transposes of env_scatter in one pass.
-// Bound: one read of wexp and one write of dwexp [E, n_irr*U]; t rows are
-// shared by the edges of an atom (L1/L2). Design: one warp per edge, lane =
-// channel; dsh is a warp shuffle reduction over u, dwexp is elementwise.
-// ---------------------------------------------------------------------------
-__global__ void unweight_both_kernel(const float* __restrict__ t, const float* __restrict__ sh,
-                                     const float* __restrict__ wexp,
-                                     const int* __restrict__ centers,
-                                     const int* __restrict__ dim_to_irr, long long n_edges,
-                                     int n_atoms, int d2, int n_irr, int U,
-                                     float* __restrict__ dsh, float* __restrict__ dwexp) {
-  extern __shared__ unsigned char smem[];
-  int* s_irr = reinterpret_cast<int*>(smem);
-  for (int q = threadIdx.x; q < d2; q += blockDim.x) s_irr[q] = dim_to_irr[q];
-  __syncthreads();
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  const long long nU = (long long)n_irr * U;
-  for (long long e = (long long)blockIdx.x * wpb + warp; e < n_edges;
-       e += (long long)gridDim.x * wpb) {
-    const int c = centers[e];
-    const bool valid = c >= 0 && c < n_atoms;
-    const float* te = t + (valid ? (long long)c * d2 * U : 0);
-    const float* we = wexp + e * nU;
-    const float* se = sh + e * d2;
-    for (int j = 0; j < d2; ++j) {
-      const int r = s_irr[j];
-      float s = 0.f;
-      if (valid)
-        for (int u = lane; u < U; u += kWarp) s += te[j * U + u] * we[r * U + u];
-      s = warp_sum(s);
-      if (lane == 0) dsh[e * d2 + j] = s;
-    }
-    for (int u = lane; u < U; u += kWarp) {
-      for (int r = 0; r < n_irr; ++r) {
-        float s = 0.f;
-        if (valid)
-          for (int j = 0; j < d2; ++j)
-            if (s_irr[j] == r) s += te[j * U + u] * se[j];
-        dwexp[e * nU + r * U + u] = s;
-      }
-    }
-  }
-}
-
 template <bool kGts>
 int launch_bwd_fused_dw(const float* x, const float* g, const float* gts, const float* env,
                         const float* w, const int* row_ptr, const int* eidx, const float* ecoef,
@@ -289,16 +241,6 @@ int atpt_bwd_fused(const float* x, const float* g, const float* gts, const float
   return launch_bwd_fused_dw<false>(x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges,
                                     n_atoms, d1, d2, d3, U, P, n_blocks, dx, denv, partial, dw,
                                     st);
-}
-
-int atpt_unweight_both(const float* t, const float* sh, const float* wexp, const int* centers,
-                       const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
-                       int U, float* dsh, float* dwexp, void* stream) {
-  size_t smem = (size_t)d2 * sizeof(int);
-  unweight_both_kernel<<<edge_blocks(n_edges), kEdgeWarps * kWarp, smem,
-                         (cudaStream_t)stream>>>(t, sh, wexp, centers, dim_to_irr, n_edges,
-                                                 n_atoms, d2, n_irr, U, dsh, dwexp);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

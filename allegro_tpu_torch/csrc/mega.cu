@@ -32,8 +32,6 @@
 // the caller's stream and allocates nothing; each entry point returns
 // cudaGetLastError().
 
-#include <type_traits>
-
 #include "common.cu"
 #include "cg_blocks.h"
 
@@ -53,7 +51,8 @@ namespace {
 // with cp.async, double-buffered where shared memory allows, so the next
 // tile's rows load during this tile's math; its g_lat and sh rows load
 // during the first two products. Every product runs on 4 x 8 register
-// micro-tiles (4 x 4 on a last chunk of 32 columns): thread row group ty
+// micro-tiles (4 x 4 on a last chunk of 32 columns; common.cu's mma_rows
+// and mma_cols): thread row group ty
 // owns 4 edges, column group tx 8 columns, so each float4 read from shared
 // memory feeds 8 or more FMAs:
 //   pre = A W0                    (rows of A against rows of W0^T)
@@ -78,14 +77,10 @@ namespace {
 // piece cotangents come from g_lat alone.
 // ---------------------------------------------------------------------------
 constexpr int kLebRows = 64;      // edges per tile: 16 row groups of 4
-constexpr int kLebCols = 64;      // columns per pass: 8 column groups of 8
+constexpr int kLebCols = kMmaCols;  // columns per pass: 8 column groups of 8
 constexpr int kLebThreads = 128;  // (kLebRows / 4) x (kLebCols / 8)
 constexpr int kLebIlp = 4;        // env-step items a thread works on at once
 constexpr int kLebTileAtoms = 6;  // t rows a tile stages (it spans ~3 atoms at ~25 edges each)
-
-// A row stride of 4 mod 32 floats: 8 threads reading rows r, r+1, ... of it
-// as float4 hit 8 distinct bank quads.
-__host__ __device__ inline int leb_ld(int width) { return round_up(width, kWarp) + 4; }
 
 // Shared-memory layout of latent_env_bwd, offsets in floats (multiples of 4).
 struct LebLayout {
@@ -104,9 +99,9 @@ struct LebLayout {
 __host__ __device__ inline LebLayout leb_layout(bool hidden, int K, int H, int S, int NE, int d2,
                                                 int U, int n_irr, int stages, int ta) {
   LebLayout L;
-  L.ldK = leb_ld(K);
-  L.ldS = leb_ld(S);
-  L.ldE = leb_ld(NE);
+  L.ldK = tile_ld(K);
+  L.ldS = tile_ld(S);
+  L.ldE = tile_ld(NE);
   L.ldM = kLebRows + 4;
   const int Hr = round_up(H, kLebCols), Kr = round_up(K, kLebCols), NEr = round_up(NE, kLebCols);
   int o = 0;
@@ -151,128 +146,6 @@ __device__ __forceinline__ void leb_load_rows(const float* src, long long stride
   const int lane = threadIdx.x % kWarp;
   for (int m = threadIdx.x / kWarp; m < kLebRows && e0 + m < n_edges; m += kLebWarps)
     for (int k = lane; k < width; k += kWarp) cp_async4(dst + m * ld + k, src + (e0 + m) * stride + k);
-}
-
-// Rows [e0, end) (at most kLebRows) of each piece into the tile (row stride
-// ld) by the kLebThreads threads of index tid: 16-byte copies where the
-// piece's rows and columns allow, else 4-byte ones, a warp per row.
-__device__ __forceinline__ void leb_load_pieces(const Pieces& P, long long e0, long long end,
-                                                float* A, int ld, int tid) {
-  const int lane = tid % kWarp, warp = tid / kWarp;
-  const int rows = (int)min((long long)kLebRows, end - e0);
-  for (int i = 0; i < P.n; ++i) {
-    const float* src = P.ptr[i] + e0 * P.stride[i];
-    float* dst = A + P.off[i];
-    const int d = P.dim[i];
-    if ((reinterpret_cast<uintptr_t>(P.ptr[i]) & 15) == 0 && (P.stride[i] & 3) == 0 &&
-        (d & 3) == 0 && (P.off[i] & 3) == 0) {
-      const int d4 = d / 4;
-      for (int q = tid; q < rows * d4; q += kLebThreads) {
-        const int m = q / d4, k = 4 * (q - m * d4);
-        cp_async16(dst + m * ld + k, src + m * P.stride[i] + k);
-      }
-    } else {
-      for (int m = warp; m < rows; m += kLebWarps)
-        for (int k = lane; k < d; k += kWarp)
-          cp_async4(dst + m * ld + k, src + m * P.stride[i] + k);
-    }
-  }
-}
-
-template <int TN>
-__device__ __forceinline__ void fma_rows(const float4 (&x)[4], const float4 (&y)[TN],
-                                         float (&acc)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-      acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-      acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-      acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-    }
-}
-
-template <int TN>
-__device__ __forceinline__ void load_rows(const float* X, int ldx, const float* Y, int ldy, int k,
-                                          float4 (&x)[4], float4 (&y)[TN]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(X + i * ldx + k);
-#pragma unroll
-  for (int j = 0; j < TN; ++j) y[j] = *reinterpret_cast<const float4*>(Y + j * 8 * ldy + k);
-}
-
-// acc[i][j] += sum_k X[i][k] Y[8j][k] over Kd (a multiple of 4): the thread's
-// 4 rows of X (stride ldx) against its TN rows of Y, 8 apart (stride ldy).
-template <int TN>
-__device__ __forceinline__ void mma_rows(const float* X, int ldx, const float* Y, int ldy, int Kd,
-                                         float (&acc)[4][8]) {
-#pragma unroll 2
-  for (int k = 0; k < Kd; k += 4) {
-    float4 x[4], y[TN];
-    load_rows<TN>(X, ldx, Y, ldy, k, x, y);
-    fma_rows<TN>(x, y, acc);
-  }
-}
-
-template <int TN>
-__device__ __forceinline__ void load_cols(const float* Lt, int ldl, const float* R, int ldr,
-                                          int k, float4 (&a)[4], float4 (&b)[4][2]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    a[s] = *reinterpret_cast<const float4*>(Lt + (k + s) * ldl);
-    b[s][0] = *reinterpret_cast<const float4*>(R + (k + s) * ldr);
-    if (TN == 8) b[s][1] = *reinterpret_cast<const float4*>(R + (k + s) * ldr + 32);
-  }
-}
-
-template <int TN>
-__device__ __forceinline__ void fma_cols(const float4 (&a)[4], const float4 (&b)[4][2], int n,
-                                         float (&acc)[4][8]) {
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    if (s >= n) break;
-    const float av[4] = {a[s].x, a[s].y, a[s].z, a[s].w};
-    const float bv[8] = {b[s][0].x, b[s][0].y, b[s][0].z, b[s][0].w,
-                         b[s][1].x, b[s][1].y, b[s][1].z, b[s][1].w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_k Lt[k][i] R[k][j'] over Kd: the thread's 4 contiguous
-// columns of Lt (row stride ldl) against its TN columns of R, 4 k's at a
-// time; j' = j for j < 4 and j + 28 for the last 4 (TN = 8), so the 8
-// threads of a quarter warp, whose R starts 4 columns apart, read distinct
-// banks. Lt and R must have round_up(Kd, 4) readable rows (the tail rows are
-// multiplied by nothing).
-template <int TN>
-__device__ __forceinline__ void mma_cols(const float* Lt, int ldl, const float* R, int ldr, int Kd,
-                                         float (&acc)[4][8]) {
-  float4 a[4], b[4][2];
-  b[0][1] = b[1][1] = b[2][1] = b[3][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < Kd; k += 4) {
-    load_cols<TN>(Lt, ldl, R, ldr, k, a, b);
-    fma_cols<TN>(a, b, Kd - k, acc);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-}
-
-// f(TN, c0) over the column chunks of [0, width): 64 columns (8 a thread)
-// while they last, then 32 (4 a thread), so no thread idles on a wide tail.
-template <class F>
-__device__ __forceinline__ void leb_chunks(int width, F&& f) {
-  int c0 = 0;
-  for (; c0 + kLebCols <= width; c0 += kLebCols) f(std::integral_constant<int, 8>(), c0);
-  for (; c0 < width; c0 += kLebCols / 2) f(std::integral_constant<int, 4>(), c0);
 }
 
 template <bool kHidden>
@@ -339,13 +212,14 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
   float acc[4][8];
   int buf = 0;
   if (L.stages == 2 && blockIdx.x < n_tiles)
-    leb_load_pieces(P, (long long)blockIdx.x * kLebRows, n_edges, A0, L.ldK, tid);
+    load_piece_rows<kLebRows, kLebThreads>(P, (long long)blockIdx.x * kLebRows, n_edges, A0,
+                                           L.ldK, tid);
   cp_async_commit();
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long e0 = tile * kLebRows;
     float* A = A0 + (L.stages == 2 ? buf * a_floats : 0);
     if (L.stages == 1) {
-      leb_load_pieces(P, e0, n_edges, A, L.ldK, tid);
+      load_piece_rows<kLebRows, kLebThreads>(P, e0, n_edges, A, L.ldK, tid);
       cp_async_commit();
     }
     leb_load_rows(g_lat, S, S, e0, n_edges, G, L.ldS);
@@ -363,8 +237,8 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
     if (L.stages == 2) {
       const long long next = tile + gridDim.x;
       if (next < n_tiles)
-        leb_load_pieces(P, next * kLebRows, n_edges, A0 + (buf ^ 1) * a_floats, L.ldK,
-                        tid);
+        load_piece_rows<kLebRows, kLebThreads>(P, next * kLebRows, n_edges,
+                                               A0 + (buf ^ 1) * a_floats, L.ldK, tid);
       cp_async_commit();
       cp_async_wait<2>();
     } else {
@@ -374,7 +248,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
 
     if (kHidden) {
       // pre = A W0, leaving the registers as silu(pre)^T and silu'(pre)^T
-      leb_chunks(H, [&](auto tn, int h0) {
+      col_chunks(H, [&](auto tn, int h0) {
         constexpr int TN = decltype(tn)::value;
         zero_acc(acc);
         mma_rows<TN>(A + m0 * L.ldK, L.ldK, Wa + (h0 + tx) * L.ldK, L.ldK, Kd, acc);
@@ -395,7 +269,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       });
       __syncthreads();
       // lat_env = silu(pre) W1[:, S:]
-      leb_chunks(NE, [&](auto tn, int c0) {
+      col_chunks(NE, [&](auto tn, int c0) {
         constexpr int TN = decltype(tn)::value;
         const int c = c0 + tx * 4;
         zero_acc(acc);
@@ -411,7 +285,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       });
     } else {
       // lat_env = A W0[:, S:]
-      leb_chunks(NE, [&](auto tn, int c0) {
+      col_chunks(NE, [&](auto tn, int c0) {
         constexpr int TN = decltype(tn)::value;
         zero_acc(acc);
         mma_rows<TN>(A + m0 * L.ldK, L.ldK, Wa + (c0 + tx) * L.ldK, L.ldK, Kd, acc);
@@ -496,7 +370,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
 
     if (kHidden) {
       // dpre = (dlat W1^T) * silu'(pre), transposed over silu(pre)^T
-      leb_chunks(H, [&](auto tn, int h0) {
+      col_chunks(H, [&](auto tn, int h0) {
         constexpr int TN = decltype(tn)::value;
         zero_acc(acc);
         mma_rows<TN>(G + m0 * L.ldS, L.ldS, Wb + (h0 + tx) * L.ldS, L.ldS, Sd, acc);
@@ -512,7 +386,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       });
       __syncthreads();
       // dA = dpre W0^T, into the tile's piece rows (read by nothing since pre)
-      leb_chunks(K, [&](auto tn, int k0) {
+      col_chunks(K, [&](auto tn, int k0) {
         constexpr int TN = decltype(tn)::value;
         const int k = k0 + tx * 4;
         zero_acc(acc);
@@ -528,7 +402,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       });
     } else {
       // dA = dlat W0^T, into the tile's piece rows
-      leb_chunks(K, [&](auto tn, int k0) {
+      col_chunks(K, [&](auto tn, int k0) {
         constexpr int TN = decltype(tn)::value;
         zero_acc(acc);
         mma_rows<TN>(G + m0 * L.ldS, L.ldS, Wb + (k0 + tx) * L.ldS, L.ldS, Sd, acc);
@@ -619,8 +493,8 @@ struct LesLayout {
 __host__ __device__ inline LesLayout les_layout(bool hidden, int K, int H, int N, int d2, int U,
                                                 int n_irr, int stages, int groups) {
   LesLayout L;
-  L.ldK = leb_ld(K);
-  L.ldN = leb_ld(N);
+  L.ldK = tile_ld(K);
+  L.ldN = tile_ld(N);
   L.ldM = kLebRows + 4;
   int o = 0;
   L.w0 = o;
@@ -757,7 +631,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
   if (L.stages == 2 && n_tiles > 0) {
     long long e0, end;
     tile_at(0, e0, end);
-    leb_load_pieces(P, e0, end, A0, L.ldK, gtid);
+    load_piece_rows<kLebRows, kLebThreads>(P, e0, end, A0, L.ldK, gtid);
   }
   cp_async_commit();
   for (int k = 0; k < n_tiles; ++k) {
@@ -767,7 +641,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
     const int rows = (int)min((long long)kLebRows, end - e0);
     float* A = A0 + (L.stages == 2 ? buf * a_floats : 0);
     if (L.stages == 1) {
-      leb_load_pieces(P, e0, end, A, L.ldK, gtid);
+      load_piece_rows<kLebRows, kLebThreads>(P, e0, end, A, L.ldK, gtid);
       if (kHidden && Kd > K)  // the lat tile of the tile before wrote over the padding
         for (int q = gtid; q < kLebRows * (Kd - K); q += kLebThreads)
           A[(q / (Kd - K)) * L.ldK + K + q % (Kd - K)] = 0.f;
@@ -794,7 +668,8 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
       if (k + 1 < n_tiles) {
         long long n0, nend;
         tile_at(k + 1, n0, nend);
-        leb_load_pieces(P, n0, nend, A0 + (buf ^ 1) * a_floats, L.ldK, gtid);
+        load_piece_rows<kLebRows, kLebThreads>(P, n0, nend, A0 + (buf ^ 1) * a_floats, L.ldK,
+                                               gtid);
       }
       cp_async_commit();
       cp_async_wait<2>();
@@ -805,7 +680,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
 
     if (kHidden) {
       // pre = A W0, leaving the registers as silu(pre)^T
-      leb_chunks(H, [&](auto tn, int h0) {
+      col_chunks(H, [&](auto tn, int h0) {
         constexpr int TN = decltype(tn)::value;
         zero_acc(acc);
         mma_rows<TN>(A + m0 * L.ldK, L.ldK, W0t + (h0 + tx) * L.ldK, L.ldK, Kd, acc);
@@ -819,7 +694,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
       });
       group_sync(group);
       // lat = silu(pre) W1, over the piece rows
-      leb_chunks(N, [&](auto tn, int c0) {
+      col_chunks(N, [&](auto tn, int c0) {
         constexpr int TN = decltype(tn)::value;
         const int c = c0 + tx * 4;
         zero_acc(acc);
@@ -835,7 +710,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
       });
     } else {
       // lat = A W0
-      leb_chunks(N, [&](auto tn, int c0) {
+      col_chunks(N, [&](auto tn, int c0) {
         constexpr int TN = decltype(tn)::value;
         zero_acc(acc);
         mma_rows<TN>(A + m0 * L.ldK, L.ldK, W0t + (c0 + tx) * L.ldK, L.ldK, Kd, acc);

@@ -11,8 +11,13 @@
 // of allegro_tpu/ops/fused_tp.py and computes its function in atom space
 // instead of the TPU's rank windows:
 //
-//   unweight_sh  dsh[e, j]     = sum_u t[c(e), jU+u] wexp[e, irr(j)U+u]
-//   unweight_w   dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] sh[e, j]
+//   unweight_sh   dsh[e, j]     = sum_u t[c(e), jU+u] wexp[e, irr(j)U+u]
+//   unweight_w    dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] sh[e, j]
+//   unweight_both both of them in one pass: the backward of env_scatter on
+//                 the inference backend without the mega kernels
+//
+// The three run the same tile schedule on the same device functions
+// (tile_dsh, tile_dwexp): unweight_both stages the rows both need once.
 //
 // Layout, sentinels and the CSR as in fused_tp.cu: edges sorted by center,
 // padded edges carry the center n_atoms, add nothing and read zeros from
@@ -92,30 +97,31 @@ __device__ __forceinline__ void stage_range(float* dst, const float* src, int n)
   }
 }
 
-template <int kVec>
-__global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
-    const float* __restrict__ t, const float* __restrict__ wexp, const int* __restrict__ centers,
-    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
-    int tile, int n_stage, float* __restrict__ dsh) {
-  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
-  const int wrow = n_irr * U, trow = d2 * U;
-  float* s_w = reinterpret_cast<float*>(smem);  // [tile][n_irr * U]
-  float* s_t = s_w + tile * wrow;               // [n_stage][d2 * U]
-  const long long e0 = (long long)blockIdx.x * tile;
-  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
-  // the staged t rows [c_lo, c_lo + n_c): from the first edge's center to the
-  // last real one's
-  const int c_lo = __ldg(centers + e0);
-  int n_c = 0;
-  if (c_lo >= 0 && c_lo < n_atoms) {
+// The t rows a tile stages, [c_lo, c_lo + n_c): from its first edge's center
+// to its last real one's, at most n_stage (none where the first edge is a
+// sentinel).
+__device__ __forceinline__ void tile_centers(const int* __restrict__ centers, long long e0,
+                                             int n_e, int n_atoms, int n_stage, int* c_lo,
+                                             int* n_c) {
+  *c_lo = __ldg(centers + e0);
+  *n_c = 0;
+  if (*c_lo >= 0 && *c_lo < n_atoms) {
     const int c_hi = min(__ldg(centers + e0 + n_e - 1), n_atoms - 1);
-    n_c = max(0, min(n_stage, c_hi - c_lo + 1));
+    *n_c = max(0, min(n_stage, c_hi - *c_lo + 1));
   }
-  stage_range<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
-  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+}
+
+// dsh of the tile's n_e edges from e0, its wexp rows staged in s_w and the t
+// rows [c_lo, c_lo + n_c) in s_t: thread o of the tile's n_e * d2 outputs
+// (edge, j) dots its wexp irrep row with its t row over the U channels,
+// starting at its own rotation.
+template <int kVec>
+__device__ __forceinline__ void tile_dsh(const float* __restrict__ t, const float* s_w,
+                                         const float* s_t, const int* __restrict__ centers,
+                                         const int* __restrict__ dim_to_irr, long long e0, int n_e,
+                                         int c_lo, int n_c, int n_atoms, int d2, int n_irr, int U,
+                                         float* __restrict__ dsh) {
+  const int wrow = n_irr * U, trow = d2 * U;
   const int period = kVec == 4 ? U / 4 : U;
   for (int o = threadIdx.x; o < n_e * d2; o += kShThreads) {
     const int el = o / d2, j = o - el * d2;
@@ -131,6 +137,27 @@ __global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
     }
     dsh[e0 * d2 + o] = s;
   }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
+    const float* __restrict__ t, const float* __restrict__ wexp, const int* __restrict__ centers,
+    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
+    int tile, int n_stage, float* __restrict__ dsh) {
+  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
+  const int wrow = n_irr * U, trow = d2 * U;
+  float* s_w = reinterpret_cast<float*>(smem);  // [tile][n_irr * U]
+  float* s_t = s_w + tile * wrow;               // [n_stage][d2 * U]
+  const long long e0 = (long long)blockIdx.x * tile;
+  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
+  int c_lo, n_c;
+  tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
+  stage_range<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
+  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  tile_dsh<kVec>(t, s_w, s_t, centers, dim_to_irr, e0, n_e, c_lo, n_c, n_atoms, d2, n_irr, U, dsh);
 }
 
 // ---------------------------------------------------------------------------
@@ -159,40 +186,29 @@ __global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
 // 256 threads or 16- and 64-edge tiles, a persistent grid
 // staging the next tile during this one, and no staged t row (all slower).
 // ---------------------------------------------------------------------------
-template <int kVec>
-__global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
-    const float* __restrict__ t, const float* __restrict__ sh, const int* __restrict__ centers,
-    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
-    int tile, int n_stage, float* __restrict__ dwexp) {
-  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
-  const int trow = d2 * U, nU = n_irr * U;
-  float* s_t = reinterpret_cast<float*>(smem);        // [n_stage][d2 * U]
-  float* s_sh = s_t + n_stage * trow;                 // [tile][d2]
-  int* s_first = reinterpret_cast<int*>(s_sh + tile * d2);  // [n_irr]: irrep r's dims are
-  int* s_end = s_first + n_irr;                       // [s_first[r], s_end[r])
-  const long long e0 = (long long)blockIdx.x * tile;
-  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
-  // the staged t rows [c_lo, c_lo + n_c): from the first edge's center to the
-  // last real one's
-  const int c_lo = __ldg(centers + e0);
-  int n_c = 0;
-  if (c_lo >= 0 && c_lo < n_atoms) {
-    const int c_hi = min(__ldg(centers + e0 + n_e - 1), n_atoms - 1);
-    n_c = max(0, min(n_stage, c_hi - c_lo + 1));
-  }
-  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
-  stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
-  cp_async_commit();
+// Each irrep's dims [s_first[r], s_end[r]) from dim_to_irr (each irrep's
+// dims one contiguous range), one thread per dim.
+__device__ __forceinline__ void irrep_bounds(const int* __restrict__ dim_to_irr, int d2,
+                                             int* s_first, int* s_end) {
   for (int j = threadIdx.x; j < d2; j += kShThreads) {
     const int r = __ldg(dim_to_irr + j);
     if (j == 0 || __ldg(dim_to_irr + j - 1) != r) s_first[r] = j;
     if (j == d2 - 1 || __ldg(dim_to_irr + j + 1) != r) s_end[r] = j + 1;
   }
-  cp_async_wait<0>();
-  __syncthreads();
-  // thread item q = (edge el of the tile, channel group v): one center, t
-  // row and sh row for all of the edge's irreps; el by a float reciprocal,
-  // exact while q + 0.5 < 2^22 (the launcher checks), not an integer division
+}
+
+// dwexp of the tile's n_e edges from e0, its sh rows staged in s_sh, the t
+// rows [c_lo, c_lo + n_c) in s_t and the irreps' dims in s_first / s_end:
+// thread item q = (edge el of the tile, channel group v): one center, t row
+// and sh row for all of the edge's irreps; el by a float reciprocal, exact
+// while q + 0.5 < 2^22 (the launchers check), not an integer division.
+template <int kVec>
+__device__ __forceinline__ void tile_dwexp(const float* __restrict__ t, const float* s_sh,
+                                           const float* s_t, const int* s_first, const int* s_end,
+                                           const int* __restrict__ centers, long long e0, int n_e,
+                                           int c_lo, int n_c, int n_atoms, int d2, int n_irr,
+                                           int U, float* __restrict__ dwexp) {
+  const int trow = d2 * U, nU = n_irr * U;
   const int per_irr = U / kVec;  // channel groups of kVec floats
   const float inv_irr = 1.f / per_irr;
   for (int q = threadIdx.x; q < n_e * per_irr; q += kShThreads) {
@@ -226,6 +242,81 @@ __global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
       }
     }
   }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
+    const float* __restrict__ t, const float* __restrict__ sh, const int* __restrict__ centers,
+    const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
+    int tile, int n_stage, float* __restrict__ dwexp) {
+  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
+  const int trow = d2 * U;
+  float* s_t = reinterpret_cast<float*>(smem);        // [n_stage][d2 * U]
+  float* s_sh = s_t + n_stage * trow;                 // [tile][d2]
+  int* s_first = reinterpret_cast<int*>(s_sh + tile * d2);  // [n_irr]: irrep r's dims are
+  int* s_end = s_first + n_irr;                       // [s_first[r], s_end[r])
+  const long long e0 = (long long)blockIdx.x * tile;
+  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
+  int c_lo, n_c;
+  tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
+  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
+  stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
+  cp_async_commit();
+  irrep_bounds(dim_to_irr, d2, s_first, s_end);
+  cp_async_wait<0>();
+  __syncthreads();
+  tile_dwexp<kVec>(t, s_sh, s_t, s_first, s_end, centers, e0, n_e, c_lo, n_c, n_atoms, d2, n_irr,
+                   U, dwexp);
+}
+
+// ---------------------------------------------------------------------------
+// unweight_both
+// Replaces allegro_tpu/ops/fused_tp.py:_unweight_both_raw_kernel
+// (unweight_both_raw_call) and _unweight_both_kernel (unweight_both_call, the
+// same function from one denv array): the two transposes of env_scatter in
+// one pass.
+// Bound: one read of wexp [E, n_irr*U], sh [E, d2] and t [n_atoms, d2*U], one
+// write of dsh [E, d2] and dwexp [E, n_irr*U] (92 MB per layer at the
+// flagship on the 4,096-atom crystal, ~0.027 ms at 3.35 TB/s); 4 FLOPs per
+// (edge, dim, channel).
+// Design: unweight_sh's and unweight_w's tiles in one block. One block per
+// tile of kShTile consecutive edges stages the tile's wexp rows and sh rows
+// (each one contiguous range) and up to kShCenters t rows of its consecutive
+// centers in one cp.async group, finds each irrep's dims as unweight_w does,
+// then runs unweight_sh's (edge, j) dots (tile_dsh) and unweight_w's (edge,
+// 4 channels) items (tile_dwexp) on the staged rows: every t row a tile's
+// edges share is read from device memory once for both outputs. The
+// launcher backs off as the other two do where the three staged ranges
+// outgrow shared memory (fit_tile). A sentinel edge writes zero dsh and
+// dwexp rows and reads no t row; the last tile may be partial; no atomics.
+// ---------------------------------------------------------------------------
+template <int kVec>
+__global__ void __launch_bounds__(kShThreads) unweight_both_kernel(
+    const float* __restrict__ t, const float* __restrict__ sh, const float* __restrict__ wexp,
+    const int* __restrict__ centers, const int* __restrict__ dim_to_irr, long long n_edges,
+    int n_atoms, int d2, int n_irr, int U, int tile, int n_stage, float* __restrict__ dsh,
+    float* __restrict__ dwexp) {
+  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
+  const int wrow = n_irr * U, trow = d2 * U;
+  float* s_w = reinterpret_cast<float*>(smem);              // [tile][n_irr * U]
+  float* s_t = s_w + tile * wrow;                           // [n_stage][d2 * U]
+  float* s_sh = s_t + n_stage * trow;                       // [tile][d2]
+  int* s_first = reinterpret_cast<int*>(s_sh + tile * d2);  // [n_irr]
+  int* s_end = s_first + n_irr;                             // [n_irr]
+  const long long e0 = (long long)blockIdx.x * tile;
+  const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
+  int c_lo, n_c;
+  tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
+  stage_range<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
+  stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
+  stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
+  cp_async_commit();
+  irrep_bounds(dim_to_irr, d2, s_first, s_end);
+  cp_async_wait<0>();
+  __syncthreads();
+  tile_dsh<kVec>(t, s_w, s_t, centers, dim_to_irr, e0, n_e, c_lo, n_c, n_atoms, d2, n_irr, U, dsh);
+  tile_dwexp<kVec>(t, s_sh, s_t, s_first, s_end, centers, e0, n_e, c_lo, n_c, n_atoms, d2, n_irr,
+                   U, dwexp);
 }
 
 // The widest schedule of a tiled row kernel whose shared memory, bytes(tile,
@@ -289,6 +380,33 @@ int atpt_unweight_w(const float* t, const float* sh, const int* centers, const i
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
       t, sh, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dwexp);
+  return (int)cudaGetLastError();
+}
+
+// dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
+int atpt_unweight_both(const float* t, const float* sh, const float* wexp, const int* centers,
+                       const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
+                       int U, float* dsh, float* dwexp, void* stream) {
+  // as atpt_unweight_w: n_irr <= d2, and the float reciprocal exact for its items
+  if (n_edges < 1 || d2 < 1 || n_irr < 1 || n_irr > d2 || U < 1 || (long long)kShTile * U >= 1 << 22)
+    return (int)cudaErrorInvalidValue;
+  // the wexp rows, the t rows (once for both outputs), the sh rows, the irreps' dims
+  const auto bytes = [&](int tile, int n_stage) {
+    return ((size_t)(tile * n_irr + n_stage * d2) * U + (size_t)tile * d2 + 2 * n_irr) *
+           sizeof(float);
+  };
+  int tile, n_stage;
+  if (!fit_tile(bytes, &tile, &n_stage)) return (int)cudaErrorInvalidValue;
+  const long long tiles = (n_edges + tile - 1) / tile;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)wexp % 16 == 0 &&
+                   (uintptr_t)dwexp % 16 == 0;
+  auto kernel = vec ? unweight_both_kernel<4> : unweight_both_kernel<1>;
+  const size_t smem = bytes(tile, n_stage);
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
+      t, sh, wexp, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dsh, dwexp);
   return (int)cudaGetLastError();
 }
 

@@ -597,8 +597,15 @@ def unweight_both(t, sh, wexp, centers, dim_to_irr) -> Tuple[torch.Tensor, torch
     """The two transposes of ``env_scatter`` from t = denv [n_atoms, d2*U]:
     dsh [E, d2] and dwexp [E, n_irr*U].
 
-    Replaces ``_unweight_both_raw_kernel``. Bound by the read of wexp and the
-    write of dwexp; one warp per edge, dsh by a warp shuffle reduction."""
+    Replaces ``_unweight_both_raw_kernel`` (and ``_unweight_both_kernel``).
+    Bound by the read of wexp and the write of dwexp; the tiles of
+    :func:`unweight_sh` and :func:`unweight_w` in one pass: a block per tile
+    of 32 consecutive edges stages the tile's wexp and sh rows and up to 4 of
+    its centers' t rows once, then computes each (edge, dim) dot of dsh and
+    each (edge, irrep, 4 channels) sum of dwexp over the irrep's contiguous
+    dims (:func:`irrep_ranges`) from them, each output written as one range.
+    Where the rows outgrow the card's shared memory the launcher stages fewer
+    t rows, then takes smaller tiles, as theirs do."""
     E, d2 = sh.shape
     U = t.shape[1] // d2
     n_irr = wexp.shape[1] // U
@@ -769,8 +776,13 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
     edges. Returns contiguous dpieces [E, S_i].
 
     Replaces ``_readout_bwd_kernel``. Bound by the read of the pieces and the
-    write of their cotangents; one thread per edge gathers y[c(e)] itself,
-    recomputes the pre-activation and writes its dp rows."""
+    write of their cotangents, with 2·K·H FMAs per edge close behind; a
+    register-tiled GEMM chain on tiles of 64 consecutive edges (32 or 16
+    where W0 is too wide for shared memory), a persistent grid: the tile's
+    piece rows staged (the next tile's during this one's second product),
+    ``pre = p W0`` split over the warps by ranges of K and summed in warp
+    order, ``dh = y[c(e)] w1 ⊙ silu'(pre)``, then ``dp = dh W0ᵀ`` from
+    registers, stored once per element straight to the dpieces."""
     pieces = tuple(pieces)
     E = centers.shape[0]
     H = _check_readout(pieces, w0, w1, E)

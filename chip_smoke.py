@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    layer's path table, ``bwd_fused`` those of its role swap and of its
    (0, 2, 1) order, ``Contracter.infer_paths``), and at layer 0 beside
    ``bwd_fused`` the pair that computes its function in two launches,
-   ``gather_tp`` on the role swap and ``tp_scatter`` (``bwd_fused[pair]``);
+   ``gather_tp`` on the role swap and ``tp_scatter`` (``bwd_fused[pair]``),
+   and at both layers beside ``unweight_both`` the pair ``unweight_sh`` +
+   ``unweight_w`` (``unweight_both[pair]``);
    then, checks only, all
    of these at U = 16 and 48 (the lane loops for other widths) and
    ``gather_tp`` without its split output, ``gather_tp_embed`` (with and
@@ -30,8 +32,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    header take the kernels' per-entry default case, and the mega kernels,
    ``gather_tp`` (with and without), ``tp_scatter`` (both role orders,
    against the plain version in float64), ``unweight_sh``, ``bwd_fused``
-   (with and without ``gts``, against float64) and ``unweight_w`` on the
-   same crystal at r_max 7.0 (~134 edges per atom: a segment spans three
+   (with and without ``gts``, against float64), ``unweight_w`` and
+   ``unweight_both`` on the same crystal at r_max 7.0 (~134 edges per atom: a segment spans three
    of ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s
    and ``bwd_fused``'s four chunks walks ~34 of its edges); the center
    gather and sum on positions [4096, 3] at the center and the neighbor side
@@ -79,9 +81,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    first ``WIDE_ATOMS`` atoms less one; ``bwd_fused`` (with and without
    ``gts``, against float64) and ``unweight_w`` at the same shapes, with
    x, g, gts and sh nonzero on the sentinel edges, and ``unweight_w`` on
-   the l = 4 dims at U = 256 and 512; ``gather_tp``, ``gather_dw``,
-   ``tp_scatter`` and ``bwd_fused`` on the
-   card without their path tables must raise; (b) on that batch (zero
+   the l = 4 dims at U = 256 and 512; ``unweight_both`` wherever
+   ``unweight_w`` is checked (its full tile outgrows shared memory at
+   U = 256 and 512 too); ``readout_bwd`` on the edges less atom
+   ``EMPTY_ATOM``'s with its pieces nonzero on the sentinel edges: the
+   flagship's 64-wide column slices at H = 20, 32, 64 and without a hidden
+   layer, pieces 5, 3 and 17 wide, slices not 16-byte aligned, and K = 768
+   (32-edge tiles); ``gather_tp``, ``gather_dw``, ``tp_scatter`` and
+   ``bwd_fused`` on the card without their path tables must raise; (b) on
+   that batch (zero
    targets) and on the bench's 16 synthetic 21-atom frames (984 edges):
    the flagship on ``fused`` through ``Trainer.fit``, Adam 1e-3, EMA 0.999,
    10 steps with the exact launch count of every kernel per step, finite
@@ -141,19 +149,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    four periodic frames, whose virial sums per frame). Phase 7 times the
    plain versions with fewer calls (``PHASE7_PLAIN_TIMING``).
 
-The last two lines of stdout are a JSON object with the kernels' records and
-the JSON result ``{"ok": true, "device": {...}}``. The kernels line has one
-row per TPU kernel (``tpu_kernel`` 1-21, ``name`` the port's wrapper, with
-``[variant]`` where a variant serves it). A row's ``ms`` and ``plain_ms``
-sum the device times of its launches in one force call of ``ms_config``
-(``mega``, except for the four layer kernels and 19 on ``use_mega=False``:
-``fused readout``, where all their launches are; for the trainable
-backend's kernels, ``train step``: one launch per layer; 18: its layer-0
-launch), and ``launches`` counts the launches in the 5 force calls of that
-configuration (the 10 training steps on the 1k batch; 0 for 18, which no
-user path runs, in JAX either). ``sparse_tp`` is timed on the ``pallas``
-force call (its 6 launches), ``sparse_tp_gradw`` on the ``pallas`` training
-step (one launch per layer and table order, 6 of its 8 per step).
+The run prints its total seconds (``[done]``). The last two lines of stdout
+are a JSON object with the kernels' records and the JSON result ``{"ok":
+true, "device": {...}}``. The kernels line has one row per TPU kernel
+(``tpu_kernel`` 1-21, ``name`` the port's wrapper, with ``[variant]`` where
+a variant serves it). A row's ``ms`` and ``plain_ms`` sum the device times
+of its launches in one force call of ``ms_config`` (``mega``, except for
+the four layer kernels and 19 on ``use_mega=False``: ``fused readout``,
+where all their launches are; for the trainable backend's kernels, ``train
+step``: one launch per layer; 18: its layer-0 launch). ``launches`` is the
+total of every launch in the force calls of all four configurations of
+phases 3 and 6b (5 calls each) and in the 10 training steps on the 1k batch
+of both backends (phases 5b and 6c): the kernel's launches on every path
+the run times (0 for 18, which no user path runs, in JAX either).
+``sparse_tp`` is timed on the ``pallas`` force call (its 6 launches),
+``sparse_tp_gradw`` on the ``pallas`` training step (one launch per layer
+and table order, 6 of its 8 per step).
 ``bound_ms`` is the least time of the same work on the card (the bytes of
 the inputs read once and the outputs written once at 3.35 TB/s, or the
 FLOPs at 67 TFLOP/s f32, the larger; ``bound_by`` says which),
@@ -164,7 +175,11 @@ where there is one (the center gather and sum, ``sparse_tp*``), else null,
 Every configuration and entry point has its own ``launches_*`` key; the
 ``*_lmax3`` keys are the same kernel's record at the l_max-3 layer-0 shapes;
 variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``, ``[pair]``) have
-their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*`` in the base row.
+their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*`` in the base row;
+``pair_ms`` (and ``pair_ms_lmax3``) is the ``[pair]`` variant's time: the two
+launches that compute the same function (``unweight_sh`` + ``unweight_w``
+for ``unweight_both``; ``gather_tp`` swapped + ``tp_scatter`` for
+``bwd_fused``, at layer 0).
 """
 
 from __future__ import annotations
@@ -213,7 +228,7 @@ SOURCES = {
     "gather_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "bwd_fused": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "bwd_fused[dw]": "allegro_tpu_torch/csrc/fused_tp.cu",
-    "unweight_both": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "unweight_both": "allegro_tpu_torch/csrc/train_tp.cu",
     "center_gather": "allegro_tpu_torch/csrc/center_readout.cu",
     "center_sum": "allegro_tpu_torch/csrc/center_readout.cu",
     "readout_sum": "allegro_tpu_torch/csrc/center_readout.cu",
@@ -518,6 +533,14 @@ def check_kernels(tps, data, rng, records=None, first=0, plain_timing=None):
                 (t, sh, wexp, centers, d2i), 4 * Er * d2 * U,
             ),
         }
+        if records is not None:
+            # the same function from the trainable backend's two row
+            # kernels, one launch each, at every layer unweight_both runs
+            cases["unweight_both[pair]"] = (
+                lambda: (fused_tp.unweight_sh(t, wexp, centers, d2i),
+                         fused_tp.unweight_w(t, sh, centers, d2i, n_irr)),
+                cases["unweight_both"][1], (t, sh, wexp, centers, d2i), 4 * Er * d2 * U,
+            )
         if records is not None and layer == first:
             # the same function from the trainable backend's two walks, one
             # launch each: gather_tp on the role swap (dx), tp_scatter (denv)
@@ -1124,9 +1147,10 @@ def check_bwd_kernels(tps, centers, row_ptr, rng, label):
     """Checks only: ``bwd_fused`` without its weight gradient, with and
     without ``gts``, walking the layer's role-swap table (dx) and its (0, 2,
     1) table (denv) (``Contracter.infer_paths``), held to the plain version
-    in float64 (denv sums up to ~137 edges per atom), and ``unweight_w``, on
-    the edges ``centers`` with the CSR ``row_ptr``, with x, g, gts and sh
-    nonzero on the sentinel edges, which neither kernel may read."""
+    in float64 (denv sums up to ~137 edges per atom), ``unweight_w`` and
+    ``unweight_both``, on the edges ``centers`` with the CSR ``row_ptr``,
+    with x, g, gts, sh and wexp nonzero on the sentinel edges, which no
+    kernel may read."""
     from allegro_tpu_torch.ops import fused_tp
 
     dev = centers.device
@@ -1140,12 +1164,16 @@ def check_bwd_kernels(tps, centers, row_ptr, rng, label):
         idx, coef = tp.entry_idx, tp.entry_coef.to(torch.float32)
         _, swapped, scatter = tp.infer_paths()
         what = f"{label} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) entries {idx.shape[0]:4d}"
-        t, sh = rand(n_atoms, tp.d2 * U), rand(E, tp.d2)
+        t, sh, wexp = rand(n_atoms, tp.d2 * U), rand(E, tp.d2), rand(E, tp.n_irr * U)
         check_case("unweight_w",
                    lambda: (fused_tp.unweight_w(t, sh, centers, tp.dim_to_irr, tp.n_irr),),
                    lambda: (fused_tp.unweight_w_reference(t, sh, centers, tp.dim_to_irr,
                                                           tp.n_irr),), what)
-        del t, sh
+        check_case("unweight_both",
+                   lambda: fused_tp.unweight_both(t, sh, wexp, centers, tp.dim_to_irr),
+                   lambda: fused_tp.unweight_both_reference(t, sh, wexp, centers, tp.dim_to_irr),
+                   what)
+        del t, sh, wexp
         x, g, gts = rand(E, tp.d1 * U), rand(E, tp.d3 * U), rand(E, U)
         env, w = rand(n_atoms, tp.d2 * U), rand(tp.num_paths, U)
         beyond = int((swapped.desc[:, 1] < 0).sum() + (scatter.desc[:, 1] < 0).sum())
@@ -1166,11 +1194,13 @@ def check_bwd_kernels(tps, centers, row_ptr, rng, label):
 
 def check_bwd_shapes(data, rng):
     """Phase 5a, checks only: :func:`check_bwd_kernels` on :func:`_odd_edges`
-    at :func:`_shape_layers`' shapes, ``unweight_w`` on the l = 4 layer's
-    dims at U = 256 and 512 on the edges of the first ``WIDE_ATOMS`` atoms
-    less one (4 staged t rows take 200 KiB at U = 512, as do ``unweight_sh``'s
-    there), then a ``bwd_fused`` call on the card without its path tables,
-    which must raise."""
+    at :func:`_shape_layers`' shapes, ``unweight_w`` and ``unweight_both`` on
+    the l = 4 layer's dims at U = 256 and 512 on the edges of the first
+    ``WIDE_ATOMS`` atoms less one (4 staged t rows take 200 KiB at U = 512,
+    as do ``unweight_sh``'s there; ``unweight_both``'s full tile, 32 wexp and
+    sh rows beside them, 263 KiB at U = 256 and 523 KiB at 512, so its
+    launcher backs off as ``unweight_sh``'s does), then a ``bwd_fused`` call
+    on the card without its path tables, which must raise."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -1185,13 +1215,20 @@ def check_bwd_shapes(data, rng):
     for U in (256, 512):
         t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U).astype(np.float32), device=dev)
         sh = torch.as_tensor(rng.randn(wide.shape[0], tp.d2).astype(np.float32), device=dev)
+        wexp = torch.as_tensor(rng.randn(wide.shape[0], tp.n_irr * U).astype(np.float32),
+                               device=dev)
+        label = f"E {wide.shape[0]} U {U} dims ({tp.d1},{tp.d2},{tp.d3})"
         check_case("unweight_w",
                    lambda: (fused_tp.unweight_w(t, sh, wide, tp.dim_to_irr, tp.n_irr),),
                    lambda: (fused_tp.unweight_w_reference(t, sh, wide, tp.dim_to_irr,
                                                           tp.n_irr),),
-                   f"E {wide.shape[0]} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) (4 staged t rows "
-                   f"{4 * tp.d2 * U * 4 // 1024} KiB)")
-        del t, sh
+                   f"{label} (4 staged t rows {4 * tp.d2 * U * 4 // 1024} KiB)")
+        full = ((32 * tp.n_irr + 4 * tp.d2) * U + 32 * tp.d2) * 4
+        check_case("unweight_both",
+                   lambda: fused_tp.unweight_both(t, sh, wexp, wide, tp.dim_to_irr),
+                   lambda: fused_tp.unweight_both_reference(t, sh, wexp, wide, tp.dim_to_irr),
+                   f"{label} (full tile {full // 1024} KiB)")
+        del t, sh, wexp
     tp = layers[0]
     x = torch.zeros(E, tp.d1 * tp.mul, device=dev)
     env = torch.zeros(n_atoms, tp.d2 * tp.mul, device=dev)
@@ -1203,6 +1240,46 @@ def check_bwd_shapes(data, rng):
         print(f"    bwd_fused on the card without its path tables raises: {e}")
     else:
         raise AssertionError("bwd_fused ran on the card without its path tables")
+
+
+def check_readout_shapes(data, rng):
+    """Phase 5a, checks only: ``readout_bwd`` on :func:`_odd_edges` (an odd
+    edge count, an atom without edges), its pieces nonzero on the sentinel
+    edges, which get zero rows: the flagship's pieces (64-wide column slices
+    of 160-wide rows; 16-byte copies and float4 stores) with hidden widths
+    20 (padded), 32 and 64 (two column groups per thread) and without a
+    hidden layer; pieces of odd widths (5, 3, 17: 4-byte copies, column
+    stores); 64-wide slices starting at column 1 of their rows (pointers not
+    16-byte aligned); and three 256-wide pieces (K = 768), where W0ᵀ and a
+    64-edge tile outgrow shared memory and the launcher takes 32-edge
+    tiles."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
+    centers, _ = _odd_edges(data)
+    E = centers.shape[0]
+
+    def rand(*shape):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+
+    y = rand(n_atoms, 1)
+    S = FLAGSHIP["num_scalar_features"]
+    layouts = {"flagship slices": ((S,) * 3, 0, S + 96), "odd widths": ((5, 3, 17), 0, 20),
+               "unaligned slices": ((S,) * 3, 1, S + 96), "wide (K 768)": ((256,) * 3, 0, 256)}
+    for what, (dims, start, width) in layouts.items():
+        pieces = [rand(E, width)[:, start:start + d] for d in dims]
+        K = sum(dims)
+        for H in ((20, 32, 64, None) if what == "flagship slices" else (32,)):
+            w0 = rand(K, H or 1) / K**0.5
+            w1 = None if H is None else rand(H, 1) / H**0.5
+            check_case("readout_bwd",
+                       lambda: fused_tp.readout_bwd(pieces, w0, w1, y, centers),
+                       lambda: fused_tp.readout_bwd_reference(pieces, w0, w1, y, centers),
+                       f"E {E} {what} {list(dims)} "
+                       + ("no hidden layer" if H is None else f"H {H}"))
+        del pieces
 
 
 def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
@@ -1953,6 +2030,7 @@ def main() -> int:
     from allegro_tpu_torch.model import AllegroModel
     from allegro_tpu_torch.ops import _build, fused_tp
 
+    t_start = time.perf_counter()
     # phase 0: device
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2049,6 +2127,7 @@ def main() -> int:
     check_gather_shapes(train_data, rng)
     check_scatter_shapes(train_data, rng)
     check_bwd_shapes(train_data, rng)
+    check_readout_shapes(train_data, rng)
     del train_data
     train_launches = run_training(loaders, dev, smi)
 
@@ -2086,6 +2165,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_surface(batch_np, n_atoms, n_edges, dev)
 
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     runs = dict(launches=launches, md=md_launches, calculator=calc_launches, train=train_launches,
                 pallas_train=pallas_train, cli=cli, lmax3=l3_launches, lmax3_md=l3_md,
@@ -2124,14 +2204,16 @@ def ptxas_usage(log):
 def kernel_ptxas(name, usage):
     """The ptxas records of the entry functions of wrapper ``name``'s kernel
     (``<name>_kernel`` and its ``_partial`` first pass; ``<true>`` /
-    ``<false>``, ``<4>``: the instantiations of a bool or int template)."""
+    ``<false>``, ``<4>``, ``<true, 64>``: the instantiations of its bool and
+    int template parameters)."""
     out = []
     for mangled, (regs, stores, loads) in usage.items():
-        m = re.search(rf"\d({re.escape(name)}(?:_partial)?_kernel)(IL([bi])(\d+)E)?", mangled)
+        m = re.search(rf"\d({re.escape(name)}(?:_partial)?_kernel)(I((?:L[bi]\d+E)+)E)?",
+                      mangled)
         if m:
-            tag = ("" if m.group(2) is None else
-                   {"1": "<true>", "0": "<false>"}[m.group(4)] if m.group(3) == "b" else
-                   f"<{m.group(4)}>")
+            args = [{"b1": "true", "b0": "false"}.get(k + v, v)
+                    for k, v in re.findall(r"L([bi])(\d+)E", m.group(3) or "")]
+            tag = f"<{', '.join(args)}>" if args else ""
             out.append({"kernel": m.group(1) + tag, "registers": regs, "spill_stores": stores,
                         "spill_loads": loads})
     return out
@@ -2148,16 +2230,19 @@ def kernel_record(row, records, records_l3, runs):
     # step; sparse_tp on the pallas force call, sparse_tp_gradw on the pallas
     # training step; 18 on no path (JAX runs it on none); the rest on mega
     if n == 18:
-        config, count = "none (not on a user path)", 0
+        config = "none (not on a user path)"
     elif name == "sparse_tp":
-        config, count = "pallas", launches["pallas"][name]
+        config = "pallas"
     elif name == "sparse_tp_gradw":
-        config, count = "pallas train step", runs["pallas_train"]["1k"][name]
+        config = "pallas train step"
     elif name in TRAIN_KERNELS or n == 13:
-        config, count = "train step", runs["train"]["1k"][name]
+        config = "train step"
     else:
         config = "fused readout" if name in LAYER_KERNELS else "mega"
-        count = launches[config][name]
+    # every launch of the force calls of all configurations and of the 1k
+    # batch's training steps on both backends (18: none, no user path runs it)
+    count = 0 if n == 18 else (sum(c[name] for c in launches.values())
+                               + runs["train"]["1k"][name] + runs["pallas_train"]["1k"][name])
     bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
     # kernel 18 (bwd_fused with dw) is a kernel of its own, bwd_fused_dw_kernel
     entry = "bwd_fused_dw" if key == "bwd_fused[dw]" else name
@@ -2183,6 +2268,10 @@ def kernel_record(row, records, records_l3, runs):
         out["max_abs_err_lmax3"], out["ms_lmax3"] = l3["max_abs_err"], l3["ms"]
         out["plain_ms_lmax3"] = l3["plain_ms"]
         out["bound_ms_lmax3"], out["bound_by_lmax3"] = bound(l3["bytes"], l3["flops"])
+    # the pair of launches that computes the same function, timed beside it
+    for suffix, recs in (("", records), ("_lmax3", records_l3)):
+        if f"{key}[pair]" in recs:
+            out["pair_ms" + suffix] = recs[f"{key}[pair]"]["ms"]
     if key == name:
         for variant_key, variant in records.items():
             if variant_key.startswith(name + "["):

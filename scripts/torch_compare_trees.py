@@ -35,7 +35,10 @@ Each run times, with that tree's package:
   ``gather_tp_embed_ms`` and ``bwd_embed_ms``, flagship and l_max 3
   (``*_lmax3_ms``): device times from CUDA events (``chip_smoke.median_ms``)
   of the tree's wrappers on the force call's shapes and the model's
-  weights, with the tables the tree's layers cache where it has them;
+  weights, with the tables the tree's layers cache where it has them; and
+  ``readout_bwd_ms``: the fused readout's backward on ``chip_smoke``'s
+  phase-2 readout shapes (three 64-wide column slices of 160-wide rows, W0
+  [192, 32], w1 [32, 1]; the same at l_max 3, whose readout is the same);
 - ``nomega_us_per_atom``, ``nomega_busy_ms`` and ``nomega_idle_pct``: the
   flagship's force call on ``fused_infer`` with ``use_mega=False`` (host
   clock; torch.profiler, 3 calls);
@@ -53,11 +56,13 @@ Each run times, with that tree's package:
   (``chip_smoke.scatter_paths``), and (``*_rmax7_ms``) at the flagship's
   layer 0 on the crystal at r_max 7.0 (``chip_smoke.LONG_R_MAX``: ~137
   edges per atom);
-- ``bwd_fused_ms``, ``bwd_fused_gts_ms`` and ``unweight_w_ms``: the same
-  for kernels 3 (without and with the split output's cotangent ``gts``;
-  with the path tables of the layer's ``infer_paths`` where the tree's
-  ``bwd_fused`` takes them) and 17, on the same edges and layers (the
-  flagship's two, l_max 3's layer 0, r_max 7.0's layer 0);
+- ``bwd_fused_ms``, ``bwd_fused_gts_ms``, ``unweight_w_ms`` and
+  ``unweight_both_ms``: the same for kernels 3 (without and with the split
+  output's cotangent ``gts``; with the path tables of the layer's
+  ``infer_paths`` where the tree's ``bwd_fused`` takes them), 17 and 4, on
+  the same edges and layers (the flagship's two, l_max 3's layer 0, r_max
+  7.0's layer 0), and ``unweight_pair_ms``: ``unweight_sh`` and
+  ``unweight_w`` one after the other on ``unweight_both``'s inputs;
 - ``fused_train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``fused`` on the 4 x 1,000-atom batch (median of 10 steps after 2, host
   clock), ``fused_train_busy_ms`` and ``fused_train_idle_pct`` its device
@@ -100,7 +105,8 @@ def kernel_times(smoke, allegro, data) -> dict:
     latent_env_scatter and latent_env_bwd (the two launches of one force
     call each: the first projection and layer 0's latent), gather_tp_embed
     (split) and bwd_embed (with gts), each through the tree's wrapper with
-    the tables the tree's layers cache where it has them."""
+    the tables the tree's layers cache where it has them; and readout_bwd
+    on chip_smoke's phase-2 readout shapes."""
     import inspect
 
     import numpy as np
@@ -151,6 +157,11 @@ def kernel_times(smoke, allegro, data) -> dict:
     ms["gather_tp_embed_ms"] = smoke.median_ms(embed)
     ms["bwd_embed_ms"] = smoke.median_ms(lambda: fused_tp.bwd_embed(
         sh, w2b, g, env, wk, centers, row_ptr, idx, coef, allegro.row_specs, gts, *paths))
+    K, H = 3 * S, 32
+    pieces = [rand(E, S + 96)[:, :S] for _ in range(3)]
+    w0, w1, y = rand(K, H) / K**0.5, rand(H, 1) / H**0.5, rand(n_atoms, 1)
+    ms["readout_bwd_ms"] = smoke.median_ms(lambda: fused_tp.readout_bwd(
+        pieces, w0, w1, y, centers))
     return ms
 
 
@@ -231,7 +242,8 @@ def gather_kernel_times(smoke, tps, data) -> dict:
 def scatter_kernel_times(smoke, tps, data) -> dict:
     """Device ms, from CUDA events, of tp_scatter (the layer's entry order
     and the role swap, the two orders a training step runs), unweight_sh,
-    bwd_fused (without and with gts) and unweight_w on ``data``'s edges,
+    bwd_fused (without and with gts), unweight_w, unweight_both and the
+    pair unweight_sh + unweight_w on ``data``'s edges,
     summed over the layers ``tps``, each through the tree's wrapper, with the
     path table of this checkout's ``chip_smoke.scatter_paths`` where the
     tree's ``tp_scatter`` takes one, and the layer's ``infer_paths`` where
@@ -258,7 +270,8 @@ def scatter_kernel_times(smoke, tps, data) -> dict:
         return t * real if edge else t
 
     ms = {"tp_scatter_ms": 0.0, "tp_scatter_swapped_ms": 0.0, "unweight_sh_ms": 0.0,
-          "bwd_fused_ms": 0.0, "bwd_fused_gts_ms": 0.0, "unweight_w_ms": 0.0}
+          "bwd_fused_ms": 0.0, "bwd_fused_gts_ms": 0.0, "unweight_w_ms": 0.0,
+          "unweight_both_ms": 0.0, "unweight_pair_ms": 0.0}
     for tp in tps:
         U, P = tp.mul, tp.num_paths
         coef = tp.entry_coef.to(torch.float32)
@@ -279,6 +292,11 @@ def scatter_kernel_times(smoke, tps, data) -> dict:
             x, g, env, w, centers, row_ptr, tp.entry_idx, coef, gts, **bwd))
         ms["unweight_w_ms"] += smoke.median_ms(lambda: fused_tp.unweight_w(
             t, sh, centers, tp.dim_to_irr, tp.n_irr))
+        ms["unweight_both_ms"] += smoke.median_ms(lambda: fused_tp.unweight_both(
+            t, sh, wexp, centers, tp.dim_to_irr))
+        ms["unweight_pair_ms"] += smoke.median_ms(lambda: (
+            fused_tp.unweight_sh(t, wexp, centers, tp.dim_to_irr),
+            fused_tp.unweight_w(t, sh, centers, tp.dim_to_irr, tp.n_irr)))
         del x, g, t, wexp, env, sh, gts
     return ms
 

@@ -14,6 +14,16 @@ their plain versions (the CPU path).
 - The ``autograd.Function``s: ``gradcheck`` in float64, the gather and the
   scatter as each other's transpose, the readout's backward against
   autograd of the plain chain, NaN weight gradients.
+- ``readout_bwd``'s tile schedule (``csrc/center_readout.cu``), emulated in
+  float64, against the plain version at 1e-12: tiles of 64 edges (and 16,
+  the launcher's back-off for wide pieces) over a persistent grid, the last
+  one partial, the piece rows staged with zero padding columns (rows a tile
+  does not load keep what they held), ``dh`` selected to zero on sentinel
+  edges, ``dp = dh W0ᵀ`` in chunks of 32 hidden units, stored once per
+  element in float4 groups of columns within one piece where every piece
+  is a multiple of 4 wide, else column by column; pieces as column slices
+  and of odd widths (5, 3, 17), H = 20, 32 and 64 and no hidden layer,
+  large pieces on a sentinel block.
 """
 
 import numpy as np
@@ -283,3 +293,114 @@ def test_new_wrappers_check_shapes(graph):
     fused_tp.readout_bwd(tp, _t(w0), _t(w1), torch.zeros(N_ATOMS, 1, dtype=torch.float64),
                          centers)
     assert fused_tp.LAUNCHES == {k: 0 for k in fused_tp.LAUNCHES}
+
+
+def _col_chunks(width):
+    """common.cu's col_chunks: (TN, first column) of each chunk of 64 columns
+    (8 a thread) while they last, then of 32 (4 a thread)."""
+    chunks, c0 = [], 0
+    while c0 + 64 <= width:
+        chunks.append((8, c0))
+        c0 += 64
+    while c0 < width:
+        chunks.append((4, c0))
+        c0 += 32
+    return chunks
+
+
+def _round_up(x, m):
+    return (x + m - 1) // m * m
+
+
+def _emulate_readout_bwd(pieces, w0, w1, y, centers, n_atoms, rows, n_blocks):
+    """readout_bwd's schedule in plain float64: ``n_blocks`` blocks each walk
+    the tiles b, b + n_blocks, ... of ``rows`` edges with their own piece
+    buffer [rows][ldK] (NaN until loaded, padding columns zero; a partial
+    tile leaves its last rows as they were); W0ᵀ zero-padded to [Hr][ldK];
+    ``pre`` over the first round_up(K, 4) columns in ``_col_chunks(H)``'s
+    chunks of hidden units; ``dh = y[c] w1 silu'(pre)`` (``y[c]`` without a
+    hidden layer) selected to zero where the row is a sentinel or past the
+    edges; ``dp = dh W0ᵀ`` in chunks of 32 hidden units (dh zero past H);
+    the column groups 4 tx + 32 n, each stored once: as one float4 inside
+    one piece where every piece is a multiple of 4 wide, else column by
+    column, never at or past K."""
+    E, dims = centers.shape[0], [p.shape[1] for p in pieces]
+    offs = np.concatenate([[0], np.cumsum(dims)]).astype(int)
+    K, H = int(offs[-1]), w0.shape[1]
+    ldK, Hr, Kd = _round_up(K, 32) + 4, _round_up(H, 32), _round_up(K, 4)
+    w0t = np.zeros((Hr, ldK))
+    w0t[:H, :K] = w0.numpy().T
+    vec = all(d % 4 == 0 for d in dims)  # dpieces are contiguous: then offsets too
+    p_np, c_np, y_np = [p.numpy() for p in pieces], centers.numpy(), y.numpy()[:, 0]
+    out = [np.full((E, d), np.nan) for d in dims]
+    n_tiles = -(-E // rows)
+    for b in range(n_blocks):
+        A = np.full((rows, ldK), np.nan)
+        A[:, K:] = 0.0
+        for tile in range(b, n_tiles, n_blocks):
+            e0 = tile * rows
+            n = min(rows, E - e0)
+            c = np.full(rows, -1)
+            c[:n] = c_np[e0:e0 + n]
+            ok = (c >= 0) & (c < n_atoms)
+            ye = np.where(ok, y_np[np.clip(c, 0, n_atoms - 1)], 0.0)
+            if w1 is not None:
+                for p, o, d in zip(p_np, offs, dims):
+                    A[:n, o:o + d] = p[e0:e0 + n]
+                pre = np.zeros((rows, H))
+                for tn, h0 in _col_chunks(H):
+                    cols = slice(h0, min(H, h0 + 8 * tn))
+                    pre[:, cols] = A[:, :Kd] @ w0t[cols, :Kd].T
+                with np.errstate(invalid="ignore", over="ignore"):
+                    sig = 1.0 / (1.0 + np.exp(-pre))
+                    dh = ye[:, None] * w1.numpy()[None, :, 0] * (sig * (1.0 + pre * (1.0 - sig)))
+                dh = np.where(ok[:, None], dh, 0.0)
+            else:
+                dh = ye[:, None]
+            dhp = np.zeros((rows, Hr))
+            dhp[:, :H] = dh
+            dA = sum(dhp[:, hc:hc + 32] @ w0t[hc:hc + 32] for hc in range(0, H, 32))
+            for g in (4 * tx + 32 * n for tx in range(8) for n in range(-(-K // 32))):
+                if g >= K:
+                    continue
+                cols = [g] if vec else [q for q in range(g, g + 4) if q < K]
+                for q in cols:
+                    i = int(np.searchsorted(offs, q, side="right")) - 1
+                    width = 4 if vec else 1
+                    assert q + width <= offs[i + 1], "a float4 across two pieces"
+                    dst = out[i][e0:e0 + n, q - offs[i]:q - offs[i] + width]
+                    assert np.isnan(dst).all(), "an output stored twice"
+                    dst[...] = dA[:n, q:q + width]
+    assert not any(np.isnan(o).any() for o in out), "an output never stored"
+    return [torch.as_tensor(o) for o in out]
+
+
+RB_LAYOUTS = {"slices": (16, 16, 16), "odd": (5, 3, 17)}
+RB_HIDDEN = [20, 32, 64, None]
+
+
+@pytest.mark.parametrize("hidden", RB_HIDDEN, ids=[f"H{h}" if h else "no-hidden" for h in RB_HIDDEN])
+@pytest.mark.parametrize("layout", list(RB_LAYOUTS))
+@pytest.mark.parametrize("rows", [64, 16], ids=["tile64", "tile16"])
+def test_readout_bwd_tile_schedule_equals_the_plain_version(rows, layout, hidden):
+    """203 edges (no number of tiles divides them): 180 real ones over 24
+    atoms (atom 5 without edges), then a block of 23 sentinel edges whose
+    pieces are large; the pieces are column slices of wider rows."""
+    rng = np.random.RandomState(9 + rows)
+    centers = np.sort(rng.choice([a for a in range(N_ATOMS) if a != 5], 180))
+    centers = torch.as_tensor(np.concatenate([centers, np.full(23, N_ATOMS)]).astype(np.int32))
+    E = centers.shape[0]
+    wide = [torch.as_tensor(rng.randn(E, d + 7)) for d in RB_LAYOUTS[layout]]
+    for w in wide:
+        w[180:] *= 1e6
+    pieces = [w[:, 3:3 + d] for w, d in zip(wide, RB_LAYOUTS[layout])]
+    K = sum(RB_LAYOUTS[layout])
+    H = hidden or 1
+    w0 = torch.as_tensor(rng.randn(K, H) / np.sqrt(K))
+    w1 = None if hidden is None else torch.as_tensor(rng.randn(H, 1) / np.sqrt(H))
+    y = torch.as_tensor(rng.randn(N_ATOMS, 1))
+    want = fused_tp.readout_bwd_reference(pieces, w0, w1, y, centers)
+    got = _emulate_readout_bwd(pieces, w0, w1, y, centers, N_ATOMS, rows, n_blocks=3)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-12)
+        assert (g[180:] == 0).all()

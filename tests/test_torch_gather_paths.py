@@ -395,45 +395,54 @@ def test_tp_scatter_walk_equals_the_plain_version(model, layer, order):
     assert (got[2] == 0).all()
 
 
+def _tile_stage(centers, e0, n_e, n_atoms, n_stage):
+    """The t rows a tile of the row kernels stages (``tile_centers`` of
+    csrc/train_tp.cu): [c_lo, c_lo + n_c), from its first edge's center to
+    its last real one's, at most ``n_stage``, none where the first edge is a
+    sentinel."""
+    c_lo, n_c = int(centers[e0]), 0
+    if 0 <= c_lo < n_atoms:
+        c_hi = min(int(centers[e0 + n_e - 1]), n_atoms - 1)
+        n_c = max(0, min(n_stage, c_hi - c_lo + 1))
+    return c_lo, n_c
+
+
 def _emulate_unweight_sh(t, wexp, centers, dim_to_irr, n_atoms, tile, n_stage):
     """unweight_sh's tile schedule in plain float64: per ``tile``-edge tile
-    (the last partial), the t rows [c(first edge), c(last real edge)] staged,
-    at most ``n_stage`` of them; output o = (edge, j) of the tile is the dot
-    of its wexp irrep row and its t row over the U channels, in float4 (U a
-    multiple of 4) or element steps starting at o mod (steps per row);
-    sentinel edges zero. Returns dsh and how many dots read an unstaged row."""
+    (the last partial), the t rows of :func:`_tile_stage` staged; output o =
+    (edge, j) of the tile is the dot of its wexp irrep row and its t row over
+    the U channels, summed in order in float4 (U a multiple of 4) or element
+    steps starting at o mod (steps per row); sentinel edges zero. Returns dsh
+    and how many dots read an unstaged row."""
     E, d2 = wexp.shape[0], dim_to_irr.shape[0]
     U = t.shape[1] // d2
     vec = 4 if U % 4 == 0 else 1
     period = U // vec
-    dsh = torch.full((E, d2), float("nan"), dtype=t.dtype)
+    t_np, w_np, c_np = t.numpy(), wexp.numpy(), centers.numpy()
+    d2i = [int(r) for r in dim_to_irr]
+    dsh = np.full((E, d2), np.nan)
     unstaged = 0
     for e0 in range(0, E, tile):
         n_e = min(tile, E - e0)
-        s_w = wexp[e0:e0 + n_e].clone()
-        c_lo, n_c = int(centers[e0]), 0
-        if 0 <= c_lo < n_atoms:
-            c_hi = min(int(centers[e0 + n_e - 1]), n_atoms - 1)
-            n_c = max(0, min(n_stage, c_hi - c_lo + 1))
-        s_t = t[c_lo:c_lo + n_c].clone() if n_c else None
+        s_w = w_np[e0:e0 + n_e].copy()
+        c_lo, n_c = _tile_stage(c_np, e0, n_e, n_atoms, n_stage)
+        s_t = t_np[c_lo:c_lo + n_c].copy() if n_c else None
         for o in range(n_e * d2):
             el, j = divmod(o, d2)
-            c = int(centers[e0 + el])
+            c = int(c_np[e0 + el])
             if not 0 <= c < n_atoms:
                 dsh[e0 + el, j] = 0.0
                 continue
-            r = int(dim_to_irr[j])
-            wr = s_w[el, r * U:(r + 1) * U]
+            wr = s_w[el, d2i[j] * U:(d2i[j] + 1) * U]
             staged = 0 <= c - c_lo < n_c
             unstaged += not staged
-            tr = (s_t[c - c_lo] if staged else t[c])[j * U:(j + 1) * U]
-            s = t.new_zeros(())
-            for n in range(period):
-                k = (o % period + n) % period
-                for v in range(vec):
-                    s = s + wr[k * vec + v] * tr[k * vec + v]
+            tr = (s_t[c - c_lo] if staged else t_np[c])[j * U:(j + 1) * U]
+            order = (np.arange(U) + (o % period) * vec) % U  # from the thread's rotation
+            s = 0.0
+            for p in (wr[order] * tr[order]).tolist():
+                s += p
             dsh[e0 + el, j] = s
-    return dsh, unstaged
+    return torch.as_tensor(dsh), unstaged
 
 
 @pytest.mark.parametrize("tile,n_stage", SH_SCHEDULES,
@@ -581,8 +590,8 @@ def test_fused_infer_calls_pass_the_bwd_tables(model, layer, monkeypatch):
 
 def _emulate_unweight_w(t, sh, centers, dim_to_irr, n_atoms, n_irr, tile, n_stage):
     """unweight_w's tile schedule in plain float64: per ``tile``-edge tile
-    (the last partial), its sh rows and the t rows [c(first edge), c(last
-    real edge)] staged, at most ``n_stage`` of them; each irrep's dims the
+    (the last partial), its sh rows and the t rows of :func:`_tile_stage`
+    staged; each irrep's dims the
     run [first, end) of its id in ``dim_to_irr``; thread item q of the tile
     = (edge el, group v of 4 channels, or of 1 where U is not a multiple of
     4), el found as the kernel finds it, by a float32 reciprocal; per irrep
@@ -608,10 +617,7 @@ def _emulate_unweight_w(t, sh, centers, dim_to_irr, n_atoms, n_irr, tile, n_stag
     for e0 in range(0, E, tile):
         n_e = min(tile, E - e0)
         s_sh = sh_np[e0:e0 + n_e].copy()
-        c_lo, n_c = int(c_np[e0]), 0
-        if 0 <= c_lo < n_atoms:
-            c_hi = min(int(c_np[e0 + n_e - 1]), n_atoms - 1)
-            n_c = max(0, min(n_stage, c_hi - c_lo + 1))
+        c_lo, n_c = _tile_stage(c_np, e0, n_e, n_atoms, n_stage)
         s_t = t_np[c_lo:c_lo + n_c].copy() if n_c else None
         for q in range(n_e * per_irr):
             el = int((np.float32(q) + np.float32(0.5)) * inv_irr)
@@ -653,3 +659,36 @@ def test_unweight_w_tile_schedule_equals_the_plain_version(model, layer, U, tile
                                         n_stage)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
     assert unstaged > 0 and (got[E - 5:] == 0).all()
+
+
+@pytest.mark.parametrize("tile,n_stage", SH_SCHEDULES,
+                         ids=[f"tile{a}-staged{b}" for a, b in SH_SCHEDULES])
+@pytest.mark.parametrize("U", [3, 8])
+@pytest.mark.parametrize("model,layer", LAYERS, ids=IDS)
+def test_unweight_both_tile_schedule_equals_the_plain_version(model, layer, U, tile, n_stage):
+    """unweight_both's schedule: unweight_sh's dots and unweight_w's items
+    on one tile schedule (one staged set of t rows per tile, both outputs
+    read from it) equal ``unweight_both_reference`` at 1e-12; float64, the
+    75 edges of the two tests above, wexp and sh large on the 5 sentinel
+    edges, whose dsh and dwexp rows are zero."""
+    tp = _layers(model, "fused", "float64")[layer]
+    centers, n_atoms = _degree_graph([9, 3, 0, 7, 5, 6, 4, 12, 10, 14], 5)
+    E = centers.shape[0]
+    rng = np.random.RandomState(70 + U)
+    t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U))
+    sh = torch.as_tensor(rng.randn(E, tp.d2))
+    wexp = torch.as_tensor(rng.randn(E, tp.n_irr * U))
+    sh[E - 5:] *= 1e6
+    wexp[E - 5:] *= 1e6
+    want = fused_tp.unweight_both_reference(t, sh, wexp, centers, tp.dim_to_irr)
+    dsh, unstaged_sh = _emulate_unweight_sh(t, wexp, centers, tp.dim_to_irr, n_atoms, tile,
+                                            n_stage)
+    dwexp, unstaged_w = _emulate_unweight_w(t, sh, centers, tp.dim_to_irr, n_atoms, tp.n_irr,
+                                            tile, n_stage)
+    for got, ref in zip((dsh, dwexp), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-12)
+        assert (got[E - 5:] == 0).all()
+    # the same edges read unstaged rows in both phases: per (edge, dim) and per
+    # (edge, channel group)
+    vec = 4 if U % 4 == 0 else 1
+    assert unstaged_sh > 0 and unstaged_sh // tp.d2 == unstaged_w // (U // vec)
