@@ -108,67 +108,290 @@ __global__ void center_sum_chunks_kernel(const float* __restrict__ v,
   }
 }
 
-// W0 [K, H] → shared [K][Hp] (zero-padded columns), w1 [H] → shared [Hp]
-// (zero-padded; without a hidden layer w1 is the unit vector e_0).
-__device__ __forceinline__ void load_mlp(const float* __restrict__ w0,
-                                         const float* __restrict__ w1, int K, int H, int Hp,
-                                         float* s_w0, float* s_w1) {
-  for (int t = threadIdx.x; t < K * Hp; t += blockDim.x) {
-    const int k = t / Hp, h = t - k * Hp;
-    s_w0[t] = h < H ? w0[(long long)k * H + h] : 0.f;
-  }
-  for (int h = threadIdx.x; h < Hp; h += blockDim.x)
-    s_w1[h] = w1 ? (h < H ? w1[h] : 0.f) : (h == 0 ? 1.f : 0.f);
-}
-
-// Shared memory of the readout kernels: W0, w1 and one tile per warp.
-size_t readout_smem(int K, int Hp, int warps) {
-  return ((size_t)K * Hp + Hp + (size_t)warps * kWarp * kTile) * sizeof(float);
-}
-
 // ---------------------------------------------------------------------------
 // readout_sum
 // Replaces allegro_tpu/ops/fused_tp.py:_readout_sum_kernel (readout_sum_call).
-// Bound: the one read of the pieces [E, K] (79.5 MB at the flagship) and
-// K*H FMAs per edge (6,144 at K = 192, H = 32); the hidden activation and the
-// per-edge energy never reach device memory, as on the TPU. Design: W0 and
-// w1 in shared memory once per block; one warp per atom, lane = edge of the
-// atom's segment (32 at a time, through hidden_chunk's tile), each thread
-// keeping its edge's 32 hidden pre-activations in registers, so each
-// shared-memory float4 read feeds 4 FMAs of the lane. The per-edge energies
-// are then added in edge order by warp shuffles. Exact FP32 FMAs: no TF32,
-// no tensor cores (precision "highest").
+// Bound: the one read of the pieces [E, K] (79.5 MB at the flagship, ~0.0238
+// ms at 3.35 TB/s) and K*H FMAs per edge (6,144 at K = 192, H = 32; ~0.019 ms
+// at 67 TFLOP/s): the two are close, so the loads have to overlap the math.
+// The hidden activations and the per-edge energies never reach device
+// memory, as on the TPU. Design: a register-tiled product, as readout_bwd's
+// first, on atom-aligned edge ranges, a persistent grid of kRsThreads-thread
+// blocks:
+//   - block b of G owns the atoms whose first edge lies in [b E' / G, (b + 1)
+//     E' / G), E' = row_ptr[n_atoms] (the last block also those at E', the
+//     atoms without edges at the end), found by a search of the whole block
+//     in row_ptr (two rounds of one load each at 4,096 atoms), and walks
+//     their edges in tiles of kRows = kRsThreads / kRsCols * 4 (128 edges):
+//     the ranges balance edges, not atoms, so unequal segments do not
+//     unbalance the grid, and each atom is summed by one block in edge
+//     order, in one launch, with no partials;
+//   - a tile's piece rows stream in by cp.async in stages of kRsStage
+//     columns of K (16-byte copies where a piece allows, else 4-byte ones)
+//     into a ring of kRsBufs small buffers, the next stage loading while
+//     this one's product runs; so the block's shared memory is W0^T, staged
+//     once (read in W0's own order) and zero-padded as [Hr][ldK], and the
+//     ring, and three blocks fit on an SM at the flagship;
+//   - pre = A W0 by common.cu's mma_rows, exact FP32 FMAs, 4 rows x 8 columns
+//     of each 32-column chunk of H a thread (kRsCols = 4 threads a row
+//     group), so 12 float4 reads from shared memory feed 128 FMAs (8 feed
+//     64 in readout_bwd's 4 x 4 at H = 32); a warp whose rows all lie
+//     past the tile's edges skips it. Then each thread's share of each of
+//     its rows' energy, sum_j silu(pre) w1[h] (pre itself without a hidden
+//     layer, w1 = e_0), added over the chunks in order and across the row's
+//     threads by a fixed xor butterfly;
+//   - the tile's per-edge energies go to shared memory (kRows floats), and a
+//     thread per atom of the tile adds its rows in edge order onto its
+//     running sum; the sum of the atom that crosses into the next tile
+//     carries over in shared memory, and energy[a] is written once, when its
+//     last edge is added.
+// Atoms without edges get 0; nothing past row_ptr[n_atoms] is read. No TF32
+// and no tensor cores (precision "highest"). Where shared memory does not
+// hold W0^T and the ring (wide K), the launcher takes blocks of half, then a
+// quarter of the threads. Every per-edge energy is the same sum whichever
+// tile holds its row, and every atom's one block adds them in edge order:
+// two identical calls give identical bits, whatever the grid. No atomics.
+// Measured on an H100 and not kept (PERF.md, PR 14): a tile's rows staged
+// whole (64 edges, 4 x 4 or 4 x 8 micro-tiles, 32-edge tiles), staged by
+// piece into the whole-K tile, 8 x 8 micro-tiles, 64-column stages, three
+// buffers: all as fast or slower.
 // ---------------------------------------------------------------------------
-template <bool kSilu>
-__global__ void __launch_bounds__(kThreads, 2) readout_sum_kernel(Pieces P, const float* __restrict__ w0,
-                                   const float* __restrict__ w1, const int* __restrict__ row_ptr,
-                                   int n_atoms, int K, int H, int Hp,
-                                   float* __restrict__ energy) {
-  extern __shared__ float smem[];
-  float* s_w0 = smem;
-  float* s_w1 = s_w0 + (long long)K * Hp;
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int wpb = blockDim.x / kWarp;
-  float* tile = s_w1 + Hp + warp * kWarp * kTile;
-  load_mlp(w0, w1, K, H, Hp, s_w0, s_w1);
-  __syncthreads();
-  float pre[kWarp];
-  for (int a = blockIdx.x * wpb + warp; a < n_atoms; a += gridDim.x * wpb) {
-    const int start = row_ptr[a], end = row_ptr[a + 1];
-    float total = 0.f;
-    for (int e0 = start; e0 < end; e0 += kWarp) {
-      const int n = min(kWarp, end - e0);
-      float en = 0.f;
-      for (int h0 = 0; h0 < Hp; h0 += kWarp) {
-        hidden_chunk(P, e0, n, s_w0, Hp, h0, tile, lane, pre);
-#pragma unroll
-        for (int j = 0; j < kWarp; ++j)
-          en = fmaf(kSilu ? silu(pre[j]) : pre[j], s_w1[h0 + j], en);
-      }
-      for (int l = 0; l < n; ++l) total += __shfl_sync(0xffffffffu, en, l);
-    }
-    if (lane == 0) energy[a] = total;
+constexpr int kRsThreads = 128;  // threads per block
+constexpr int kRsCols = 4;       // column groups: threads per row group of 4 rows, 32 / kRsCols
+                                 // columns each
+constexpr int kRsStage = 32;     // columns of K a stage loads (its buffers' stride: kRsStage + 4)
+constexpr int kRsBufs = 2;       // stage buffers: a step loads kRsBufs - 1 steps ahead
+constexpr int kRsMinBlocks = 3;  // blocks an SM holds (their shared memory fits three at the
+                                 // flagship): without it ptxas caps the registers at 128 and spills
+
+// Shared-memory layout of readout_sum, offsets in floats (multiples of 4).
+struct RsLayout {
+  int ldK;                           // stride of W0^T's K-wide rows
+  int w0t, w1, a, en, carry, total;  // W0^T [Hr][ldK], w1 [Hr], the stage buffers
+                                     // [kRsBufs][rows][kRsStage + 4], the tile's energies
+                                     // [rows], the carried atom sum (two slots)
+};
+
+__host__ __device__ inline RsLayout rs_layout(int K, int H, int rows) {
+  RsLayout L;
+  L.ldK = tile_ld(K);
+  const int Hr = round_up(H, kWarp);
+  int o = 0;
+  L.w0t = o;
+  o += Hr * L.ldK;
+  L.w1 = o;
+  o += Hr;
+  L.a = o;
+  o += kRsBufs * rows * (kRsStage + 4);
+  L.en = o;
+  o += rows;
+  L.carry = o;
+  o += 4;
+  L.total = round_up(o, 4);
+  return L;
+}
+
+// The first atom a in [lo, hi) with row_ptr[a] >= e (hi if none), searched
+// by the block's kT threads together (every thread calls it, with the same
+// arguments): each round probes kT evenly spaced atoms of the range, so
+// 4,096 atoms take two rounds of one load each.
+template <int kT>
+__device__ __forceinline__ int block_first_atom(const int* __restrict__ row_ptr, int lo, int hi,
+                                                long long e) {
+  while (lo < hi) {  // the atom lies in [lo, hi]
+    const int stride = (hi - lo + kT - 1) / kT;
+    const int p = lo + (int)threadIdx.x * stride;
+    // probes 0 .. c - 1 lie before e: the atom is in (probe c - 1, probe c]
+    const int c = __syncthreads_count(p < hi && __ldg(row_ptr + p) < e);
+    const int next_hi = min(hi, lo + c * stride);
+    lo = c == 0 ? lo : lo + (c - 1) * stride + 1;
+    hi = next_hi;
   }
+  return lo;
+}
+
+// Columns [c0, c1) of K (at most kRsStage; c0 a multiple of 4) of rows [e0,
+// e0 + rows) of the pieces into the stage buffer S (stride kRsStage + 4) by
+// cp.async, 16 bytes where the piece allows, else 4; where c1 - c0 is not a
+// multiple of 4, the columns up to the next one are set to zero.
+template <int kThreads, int kRows>
+__device__ __forceinline__ void rs_load_stage(const Pieces& P, long long e0, int rows, int c0,
+                                              int c1, float* S, int tid) {
+  constexpr int ld = kRsStage + 4;
+  for (int i = 0; i < P.n; ++i) {
+    const int lo = max(c0, P.off[i]), hi = min(c1, P.off[i] + P.dim[i]);
+    if (lo >= hi) continue;
+    const float* src = P.ptr[i] + e0 * P.stride[i] + (lo - P.off[i]);
+    float* dst = S + (lo - c0);
+    const int w = hi - lo;
+    if (piece_vec4(P.ptr[i], P.stride[i], P.dim[i], P.off[i])) {  // then lo, hi multiples of 4
+      const int w4 = w / 4;
+      for (int q = tid; q < rows * w4; q += kThreads) {
+        const int m = q / w4, k = 4 * (q - m * w4);
+        cp_async16(dst + m * ld + k, src + m * P.stride[i] + k);
+      }
+    } else {
+      for (int q = tid; q < rows * w; q += kThreads) {
+        const int m = q / w, k = q - m * w;
+        cp_async4(dst + m * ld + k, src + m * P.stride[i] + k);
+      }
+    }
+  }
+  const int w = c1 - c0, pad = round_up(w, 4) - w;
+  for (int q = tid; q < kRows * pad; q += kThreads) {
+    const int m = q / pad;
+    S[m * ld + w + (q - m * pad)] = 0.f;
+  }
+}
+
+// silu(x) = x sigmoid(x): expf, then the correctly rounded reciprocal and one
+// multiply (one rounding more than x / (1 + e^-x), in fewer instructions).
+__device__ __forceinline__ float rs_silu(float x) { return x * __frcp_rn(1.f + expf(-x)); }
+
+template <bool kSilu, int kT>
+__global__ void __launch_bounds__(kT, kRsMinBlocks) readout_sum_kernel(
+    Pieces P, const float* __restrict__ w0, const float* __restrict__ w1,
+    const int* __restrict__ row_ptr, int n_atoms, int K, int H, RsLayout L,
+    float* __restrict__ energy) {
+  extern __shared__ float smem[];
+  constexpr int kCx = kRsCols, TM = 4;  // mma_rows's 4 rows a thread
+  constexpr int TN = kWarp / kCx;        // a thread's columns of a 32-column chunk of H
+  constexpr int kRows = kT / kCx * TM;
+  constexpr int ldS = kRsStage + 4;
+  constexpr unsigned kMask = kT >= kWarp ? 0xffffffffu : (1u << (kT & 31)) - 1u;  // a warp's lanes
+  const int tid = threadIdx.x, ty = tid / kCx, tx = tid % kCx, m0 = ty * TM;
+  // the first row of the thread's warp: a warp whose rows all lie past the
+  // tile's edges skips the product (warp-uniform, so its shuffles stay whole)
+  const int warp_row = (tid / kWarp) * kWarp / kCx * TM;
+  float* W0t = smem + L.w0t;
+  float* W1 = smem + L.w1;
+  float* A = smem + L.a;  // stage buffer b at A + b * kRows * ldS
+  float* En = smem + L.en;
+  float* carry = smem + L.carry;
+  // the block's atoms [a_first, a_end) and their edges [eb, ee)
+  const long long n_edges = __ldg(row_ptr + n_atoms);
+  const long long lo = (long long)blockIdx.x * n_edges / gridDim.x;
+  const long long hi = (long long)(blockIdx.x + 1) * n_edges / gridDim.x;
+  const int a_first = block_first_atom<kT>(row_ptr, 0, n_atoms, lo);
+  const int a_end =
+      blockIdx.x + 1 == gridDim.x ? n_atoms : block_first_atom<kT>(row_ptr, a_first, n_atoms, hi);
+  const long long eb = __ldg(row_ptr + a_first), ee = __ldg(row_ptr + a_end);
+  // a tile's steps: each 32-column chunk of H over each stage of K; the
+  // block's step g runs on buffer g % kRsBufs while steps up to g +
+  // kRsBufs - 1 load
+  const int n_st = max((K + kRsStage - 1) / kRsStage, 1), n_ch = (H + 31) / 32;
+  const int steps = n_st * n_ch;
+  const auto load_step = [&](int g) {
+    const long long e0 = eb + (long long)(g / steps) * kRows;
+    const int c0 = (g % steps) % n_st * kRsStage;
+    if (e0 < ee && K > 0)
+      rs_load_stage<kT, kRows>(P, e0, (int)min((long long)kRows, ee - e0), c0,
+                               min(K, c0 + kRsStage), A + (g % kRsBufs) * kRows * ldS, tid);
+    cp_async_commit();
+  };
+  // the block's first steps load while the weights are staged
+  for (int g = 0; g + 1 < kRsBufs; ++g) load_step(g);
+  // W0^T: W0 read in its own order (coalesced), then the padding zeroed
+  const int Hr = round_up(H, kWarp);
+#pragma unroll 4
+  for (int q = tid; q < K * H; q += kT) {
+    const int k = q / H;
+    W0t[(q - k * H) * L.ldK + k] = __ldg(w0 + q);
+  }
+  for (int q = tid; q < Hr * L.ldK; q += kT) {
+    const int h = q / L.ldK, k = q - h * L.ldK;
+    if (h >= H || k >= K) W0t[q] = 0.f;
+  }
+  for (int h = tid; h < Hr; h += kT)
+    W1[h] = h >= H ? 0.f : kSilu ? w1[h] : (h == 0 ? 1.f : 0.f);
+  int a_lo = a_first;  // the block's first atom whose energy is not written yet
+  int slot = 0;        // the carry slot this tile reads
+  int g = 0;           // the block's step count
+  for (long long e0 = eb; e0 < ee; e0 += kRows) {
+    const long long e1 = min(e0 + kRows, ee);
+    const bool busy = warp_row < e1 - e0;
+    float en[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) en[i] = 0.f;
+    for (int c = 0; c < n_ch; ++c) {
+      float acc[4][8];
+      zero_acc(acc);
+      for (int s = 0; s < n_st; ++s, ++g) {
+        cp_async_wait<kRsBufs - 2>();
+        __syncthreads();  // step g is in, and every thread is done with step g - 1's buffer
+        load_step(g + kRsBufs - 1);
+        const int c0 = s * kRsStage;
+        if (busy && K > 0)
+          mma_rows<TN, kCx>(A + (g % kRsBufs) * kRows * ldS + m0 * ldS, ldS,
+                            W0t + (32 * c + tx) * L.ldK + c0, L.ldK,
+                            round_up(min(K, c0 + kRsStage) - c0, 4), acc);
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {  // the thread's shares of its rows' energies
+        const float w = W1[32 * c + tx + kCx * j];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) en[i] = fmaf(kSilu ? rs_silu(acc[i][j]) : acc[i][j], w, en[i]);
+      }
+    }
+    if (busy) {  // the row's shares, added by a fixed xor butterfly
+#pragma unroll
+      for (int o = 1; o < kCx; o <<= 1)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) en[i] += __shfl_xor_sync(kMask, en[i], o);
+      if (tx == 0)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) En[m0 + i] = en[i];
+    }
+    __syncthreads();  // the energies are in
+    // a thread per atom with an edge before e1: its rows of the tile, in edge order
+    const int a_hi = block_first_atom<kT>(row_ptr, a_lo, a_end, e1);
+    for (int a = a_lo + tid; a < a_hi; a += kT) {
+      const long long s0 = __ldg(row_ptr + a), s1 = __ldg(row_ptr + a + 1);
+      float s = s0 < e0 ? carry[slot] : 0.f;
+      const int r1 = (int)(min(s1, e1) - e0);
+      for (int r = (int)(max(s0, e0) - e0); r < r1; ++r) s += En[r];
+      if (s1 <= e1)
+        energy[a] = s;
+      else
+        carry[slot ^ 1] = s;  // the last atom, which crosses into the next tile
+    }
+    a_lo = a_hi > a_lo && __ldg(row_ptr + a_hi) > e1 ? a_hi - 1 : a_hi;
+    slot ^= 1;
+  }
+  for (int a = a_lo + tid; a < a_end; a += kT) energy[a] = 0.f;  // without edges, at E'
+  cp_async_wait<0>();
+}
+
+template <bool kSilu, int kT>
+int launch_readout_sum(const Pieces& P, const float* w0, const float* w1, const int* row_ptr,
+                       int n_atoms, int K, int H, float* energy, cudaStream_t stream) {
+  const RsLayout L = rs_layout(K, H, kT / kRsCols * 4);
+  const size_t smem = (size_t)L.total * sizeof(float);
+  auto kernel = readout_sum_kernel<kSilu, kT>;
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = persistent_blocks(kernel, kT, smem, n_atoms, 1);
+  kernel<<<blocks, kT, smem, stream>>>(P, w0, w1, row_ptr, n_atoms, K, H, L, energy);
+  return (int)cudaGetLastError();
+}
+
+// The widest block whose shared memory (W0^T with the stage buffers) fits on
+// the card: kRsThreads threads, then half, then a quarter.
+template <bool kSilu>
+int launch_readout_sum_fit(const Pieces& P, const float* w0, const float* w1, const int* row_ptr,
+                           int n_atoms, int K, int H, float* energy, cudaStream_t stream) {
+  const size_t limit = smem_optin();
+  const auto fits = [&](int threads) {
+    return (size_t)rs_layout(K, H, threads / kRsCols * 4).total * sizeof(float) <= limit;
+  };
+  if (fits(kRsThreads))
+    return launch_readout_sum<kSilu, kRsThreads>(P, w0, w1, row_ptr, n_atoms, K, H, energy,
+                                                 stream);
+  if (fits(kRsThreads / 2))
+    return launch_readout_sum<kSilu, kRsThreads / 2>(P, w0, w1, row_ptr, n_atoms, K, H, energy,
+                                                     stream);
+  return launch_readout_sum<kSilu, kRsThreads / 4>(P, w0, w1, row_ptr, n_atoms, K, H, energy,
+                                                   stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -458,23 +681,11 @@ int atpt_readout_sum(const float* const* piece_ptrs, const long long* piece_stri
   Pieces P;
   const int K = fill_pieces(piece_ptrs, piece_strides, piece_dims, n_pieces, P.ptr, P.stride,
                             P.dim, P.off);
-  if (K < 0) return (int)cudaErrorInvalidValue;
+  if (K < 0 || H < 1 || n_atoms < 1) return (int)cudaErrorInvalidValue;
   P.n = n_pieces;
-  const int Hp = (H + kWarp - 1) / kWarp * kWarp;
-  const size_t smem = readout_smem(K, Hp, kThreads / kWarp);
-  const int blocks = grid_for(n_atoms, kThreads / kWarp, 4 * sm_count());
-  if (w1) {
-    cudaError_t err = set_smem(readout_sum_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
-    readout_sum_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        P, w0, w1, row_ptr, n_atoms, K, H, Hp, energy);
-  } else {
-    cudaError_t err = set_smem(readout_sum_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    readout_sum_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        P, w0, w1, row_ptr, n_atoms, K, H, Hp, energy);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (w1) return launch_readout_sum_fit<true>(P, w0, w1, row_ptr, n_atoms, K, H, energy, st);
+  return launch_readout_sum_fit<false>(P, w0, w1, row_ptr, n_atoms, K, H, energy, st);
 }
 
 int atpt_readout_bwd(const float* const* piece_ptrs, const long long* piece_strides,

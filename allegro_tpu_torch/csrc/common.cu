@@ -1,8 +1,8 @@
 // Device helpers shared by the kernels of csrc/*.cu: cp.async copies, the
-// sparse Clebsch-Gordan table in shared memory, the per-edge MLP of a tile
-// of 32 edges (lane = edge), the register-tiled products of the tiled GEMM
-// chains (csrc/mega.cu, readout_bwd in csrc/center_readout.cu) with their
-// piece-row loader, and launch-size helpers.
+// sparse Clebsch-Gordan table in shared memory, the register-tiled products
+// of the tiled GEMM chains (csrc/mega.cu, readout_sum and readout_bwd in
+// csrc/center_readout.cu) with their piece-row loader, and launch-size
+// helpers.
 //
 // The other sources include this file once each, and everything here has
 // internal linkage, so each gets its own copy. The build compiles every
@@ -75,49 +75,6 @@ struct OutPieces {
   int n;
 };
 
-// ---------------------------------------------------------------------------
-// The first layer of a per-edge MLP for a tile of 32 edges, one warp, lane =
-// edge: lane l gets pre[j] = sum_k x[e0+l, k] W[k, h0+j] for a chunk of 32
-// output units. The pieces are read 32 x 32 at a time into the warp's
-// shared-memory tile, one coalesced 128-byte row piece per load, and each lane
-// then reads its own row of the tile. W sits in shared memory as [K][ldw]
-// with ldw a multiple of 32 and zero padding, so its reads are float4
-// broadcasts (every lane reads the same row) and need no guards. Rows of the
-// tile past the n edges of the tile are zero.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void hidden_chunk(const Pieces& P, long long e0, int n,
-                                             const float* __restrict__ s_w, int ldw, int h0,
-                                             float* tile, int lane, float (&pre)[kWarp]) {
-#pragma unroll
-  for (int j = 0; j < kWarp; ++j) pre[j] = 0.f;
-  for (int i = 0; i < P.n; ++i) {
-    const int d = P.dim[i];
-    const float* base = P.ptr[i];
-    const long long stride = P.stride[i];
-    for (int k0 = 0; k0 < d; k0 += kWarp) {
-      const int k = k0 + lane;
-#pragma unroll
-      for (int r = 0; r < kWarp; ++r)  // 32 independent loads in flight
-        tile[r * kTile + lane] = (r < n && k < d) ? __ldg(base + (e0 + r) * stride + k) : 0.f;
-      __syncwarp();
-      const int kc = min(kWarp, d - k0);
-      const float* wrow = s_w + (long long)(P.off[i] + k0) * ldw + h0;
-      for (int kk = 0; kk < kc; ++kk, wrow += ldw) {
-        const float x = tile[lane * kTile + kk];
-#pragma unroll
-        for (int j = 0; j < kWarp; j += 4) {
-          const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-          pre[j] = fmaf(x, w.x, pre[j]);
-          pre[j + 1] = fmaf(x, w.y, pre[j + 1]);
-          pre[j + 2] = fmaf(x, w.z, pre[j + 2]);
-          pre[j + 3] = fmaf(x, w.w, pre[j + 3]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // ---------------------------------------------------------------------------
@@ -149,24 +106,25 @@ __device__ __forceinline__ void fma_rows(const float4 (&x)[4], const float4 (&y)
     }
 }
 
-template <int TN>
+template <int TN, int kStep>
 __device__ __forceinline__ void load_rows(const float* X, int ldx, const float* Y, int ldy, int k,
                                           float4 (&x)[4], float4 (&y)[TN]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(X + i * ldx + k);
 #pragma unroll
-  for (int j = 0; j < TN; ++j) y[j] = *reinterpret_cast<const float4*>(Y + j * 8 * ldy + k);
+  for (int j = 0; j < TN; ++j) y[j] = *reinterpret_cast<const float4*>(Y + j * kStep * ldy + k);
 }
 
-// acc[i][j] += sum_k X[i][k] Y[8j][k] over Kd (a multiple of 4): the thread's
-// 4 rows of X (stride ldx) against its TN rows of Y, 8 apart (stride ldy).
-template <int TN>
+// acc[i][j] += sum_k X[i][k] Y[kStep j][k] over Kd (a multiple of 4): the
+// thread's 4 rows of X (stride ldx) against its TN rows of Y, kStep apart
+// (stride ldy): 8 column groups unless the kernel has fewer.
+template <int TN, int kStep = 8>
 __device__ __forceinline__ void mma_rows(const float* X, int ldx, const float* Y, int ldy, int Kd,
                                          float (&acc)[4][8]) {
 #pragma unroll 2
   for (int k = 0; k < Kd; k += 4) {
     float4 x[4], y[TN];
-    load_rows<TN>(X, ldx, Y, ldy, k, x, y);
+    load_rows<TN, kStep>(X, ldx, Y, ldy, k, x, y);
     fma_rows<TN>(x, y, acc);
   }
 }

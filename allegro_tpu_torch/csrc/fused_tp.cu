@@ -1,17 +1,17 @@
 // Allegro tensor-product layer kernels for Hopper (sm_90a), float32.
 //
-// Two kernels of one Allegro layer on the inference backend
-// (`tp_kernel_backend="fused_infer"` without the mega kernels) and the
-// trainable one: env_scatter, and bwd_fused with its weight gradient. The
-// layer's other kernels live elsewhere: gather_tp, and bwd_fused without its
-// weight gradient, walk compiled CG paths in csrc/sparse_tp.cu beside the
-// `pallas` backend's per-edge product, which differs from gather_tp only in
-// where its second input's row comes from; unweight_both runs the tiles of
-// env_scatter's two transposes in csrc/train_tp.cu. Each replaces one Pallas
-// TPU kernel of allegro_tpu/ops/fused_tp.py and computes the same function,
-// in atom space instead of the TPU's rank-window space:
+// bwd_fused with its weight gradient (TPU kernel 18, on no user path), the
+// dispatch of atpt_bwd_fused, and two utility entry points: the error string
+// of a launcher's code, and an empty kernel whose launch time is the floor
+// under every kernel's time. The layer's other kernels live elsewhere:
+// gather_tp, and bwd_fused without its weight gradient, walk compiled CG
+// paths in csrc/sparse_tp.cu beside the `pallas` backend's per-edge product,
+// which differs from gather_tp only in where its second input's row comes
+// from; env_scatter and its transposes (unweight_both among them) run on
+// staged rows in csrc/train_tp.cu. bwd_fused replaces a Pallas TPU kernel of
+// allegro_tpu/ops/fused_tp.py and computes the same function, in atom space
+// instead of the TPU's rank-window space:
 //
-//   env_scatter   env[a, jU+u] = sum_{c(e)=a} sh[e,j] * wexp[e, irr(j)U+u]
 //   bwd_fused     dx[e, iU+u]  = sum_n c_n w[p_n,u] g[e, k_nU+u] env[c(e), j_nU+u]
 //                 denv[a, jU+u] = sum_{c(e)=a} sum_n c_n w[p_n,u] x[e, i_nU+u] g[e, k_nU+u]
 //                 (the backward of gather_tp; optionally with g[e, u] += gts[e, u],
@@ -38,31 +38,9 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// env_scatter
-// Replaces allegro_tpu/ops/fused_tp.py:_env_scatter_kernel (env_scatter_call).
-// Bound: device-memory reads of wexp [E, n_irr*U] (each element read once per
-// basis dim of its irrep, from L1) and one write of env [N, d2*U]. Design:
-// one block per atom walks its CSR segment; threads own output columns, so
-// the segment sum is a register accumulation in edge order, with no atomics
-// and no second pass.
-// ---------------------------------------------------------------------------
-__global__ void env_scatter_kernel(const float* __restrict__ sh, const float* __restrict__ wexp,
-                                   const int* __restrict__ row_ptr,
-                                   const int* __restrict__ dim_to_irr, int d2, int n_irr, int U,
-                                   float* __restrict__ env) {
-  const int a = blockIdx.x;
-  const int start = row_ptr[a], end = row_ptr[a + 1];
-  const int cols = d2 * U;
-  const long long wstride = (long long)n_irr * U;
-  for (int col = threadIdx.x; col < cols; col += blockDim.x) {
-    const int j = col / U, u = col - j * U;
-    const int wcol = dim_to_irr[j] * U + u;
-    float s = 0.f;
-    for (int e = start; e < end; ++e) s += sh[(long long)e * d2 + j] * wexp[e * wstride + wcol];
-    env[(long long)a * cols + col] = s;
-  }
-}
+// An empty kernel: its time under chip_smoke.py's median_ms is the launch
+// floor, the least time any kernel of the port can take there.
+__global__ void noop_kernel() {}
 
 // ---------------------------------------------------------------------------
 // bwd_fused with the weight gradient
@@ -200,15 +178,9 @@ extern "C" {
 
 const char* atpt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr,
-                     const int* dim_to_irr, int n_atoms, int d2, int n_irr, int U, float* env,
-                     void* stream) {
-  int cols = d2 * U;
-  int threads = ((cols + kWarp - 1) / kWarp) * kWarp;
-  if (threads > 256) threads = 256;
-  env_scatter_kernel<<<n_atoms, threads, 0, (cudaStream_t)stream>>>(sh, wexp, row_ptr,
-                                                                     dim_to_irr, d2, n_irr, U,
-                                                                     env);
+// One launch of one block of one thread that does nothing.
+int atpt_noop(void* stream) {
+  noop_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

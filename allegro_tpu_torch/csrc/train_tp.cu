@@ -1,29 +1,37 @@
-// Allegro tensor-product kernels of the trainable backend for Hopper
-// (sm_90a), float32.
+// Allegro tensor-product kernels of env_scatter and its transposes for
+// Hopper (sm_90a), float32.
 //
-// The trainable backend (`tp_kernel_backend="fused"`) runs env_scatter
-// (csrc/fused_tp.cu) and gather_tp (csrc/sparse_tp.cu) forward, and its
-// derivatives are the closed family of allegro_tpu/ops/fused_primitives.py:
-// every transpose is again one of the family with permuted roles, so the
-// double backward of force training stays on the kernels. This file holds
-// env_scatter's two transposes; gather_tp's, tp_scatter and gather_dw, walk
-// compiled CG paths in csrc/sparse_tp.cu. Each replaces one Pallas TPU kernel
-// of allegro_tpu/ops/fused_tp.py and computes its function in atom space
+// The layer's environment sum and the trainable backend's kernels around it.
+// The inference backend without the mega kernels (`tp_kernel_backend=
+// "fused_infer"`, `use_mega=False` or shared env weights) and the trainable
+// one (`"fused"`) run env_scatter and gather_tp (csrc/sparse_tp.cu) forward;
+// the trainable backend's derivatives are the closed family of
+// allegro_tpu/ops/fused_primitives.py: every transpose is again one of the
+// family with permuted roles, so the double backward of force training stays
+// on the kernels. This file holds env_scatter and its two transposes;
+// gather_tp's, tp_scatter and gather_dw, walk compiled CG paths in
+// csrc/sparse_tp.cu. Each replaces one Pallas TPU kernel of
+// allegro_tpu/ops/fused_tp.py and computes its function in atom space
 // instead of the TPU's rank windows:
 //
+//   env_scatter   env[a, jU+u]  = sum_{c(e)=a} sh[e, j] wexp[e, irr(j)U+u]
 //   unweight_sh   dsh[e, j]     = sum_u t[c(e), jU+u] wexp[e, irr(j)U+u]
 //   unweight_w    dwexp[e, rU+u] = sum_{j: irr(j)=r} t[c(e), jU+u] sh[e, j]
 //   unweight_both both of them in one pass: the backward of env_scatter on
 //                 the inference backend without the mega kernels
 //
-// The three run the same tile schedule on the same device functions
+// All four stage contiguous wexp and sh rows by cp.async (stage_range). The
+// three transposes run the same tile schedule on the same device functions
 // (tile_dsh, tile_dwexp): unweight_both stages the rows both need once.
 //
-// Layout, sentinels and the CSR as in fused_tp.cu: edges sorted by center,
-// padded edges carry the center n_atoms, add nothing and read zeros from
-// per-atom arrays. Every sum runs in a fixed order (no atomics), so two
-// identical calls give identical results. Each kernel runs on the caller's
-// stream and allocates nothing; each entry point returns cudaGetLastError().
+// Layout (the JAX package's contract): per-edge arrays are row-major with
+// the flat dim-major tensor track (column i*U+u is basis dim i, channel u);
+// edges are sorted by center, the CSR row pointer `row_ptr[a]` is the first
+// edge of atom a, and padded edges carry the center n_atoms after
+// row_ptr[n_atoms]: they add nothing and read zeros from per-atom arrays.
+// Every sum runs in a fixed order (no atomics), so two identical calls give
+// identical results. Each kernel runs on the caller's stream and allocates
+// nothing; each entry point returns cudaGetLastError().
 
 #include "common.cu"
 
@@ -319,6 +327,93 @@ __global__ void __launch_bounds__(kShThreads) unweight_both_kernel(
                    U, dwexp);
 }
 
+// ---------------------------------------------------------------------------
+// env_scatter
+// Replaces allegro_tpu/ops/fused_tp.py:_env_scatter_kernel (env_scatter_call).
+// Bound: one read of wexp [E, n_irr*U] and sh [E, d2] and one write of env
+// [n_atoms, d2*U] (48 MB at the flagship's layer 0 on the 4,096-atom
+// crystal, ~0.0144 ms at 3.35 TB/s); 2 FLOPs per (edge, dim, channel).
+// Design: a block per group of kEnvGroup consecutive atoms. Edges are sorted
+// by center, so the group's edges are one contiguous range [row_ptr[a0],
+// row_ptr[a0 + G]): its wexp rows and sh rows go into shared memory by
+// cp.async (wexp by 16-byte copies where U and the pointers allow, else 4
+// bytes), in chunks of at most kEnvTile edges, halved while their rows take
+// more than a quarter of the card's shared memory so that four blocks share
+// an SM (U = 256 takes 16-edge chunks), so device memory reads each wexp row
+// once. Each thread owns one item (atom of the group, dim j, channels
+// 4q..4q+3; one channel where U is not a multiple of 4): it sums sh[e, j] *
+// wexp[e, irr(j)U + 4q..] over its atom's staged edges in edge order, in
+// four registers carried across chunks, and writes env as one float4, so a
+// block's stores are one contiguous range. Where an atom's items outnumber
+// kEnvThreads (wide U), a block takes one atom and a slice of its items. An
+// atom without edges writes zeros; nothing past row_ptr[n_atoms] is read, so
+// sentinel edges and their rows are never touched. No atomics: two identical
+// calls give identical bits. Measured on an H100 and not kept (PERF.md, PR
+// 14): groups of 1, 3, 4 and 6 atoms with 32-, 96-, 128- and 192-edge chunks
+// (as fast or up to 10% slower at the flagship).
+// ---------------------------------------------------------------------------
+constexpr int kEnvGroup = 2;      // atoms per block
+constexpr int kEnvTile = 64;      // edges staged per chunk (at most)
+constexpr int kEnvThreads = 512;  // threads per block (at most)
+
+template <int kVec>
+__global__ void __launch_bounds__(kEnvThreads) env_scatter_kernel(
+    const float* __restrict__ sh, const float* __restrict__ wexp, const int* __restrict__ row_ptr,
+    const int* __restrict__ dim_to_irr, int n_atoms, int d2, int n_irr, int U, int group,
+    int slices, int per_atom, int tile, float* __restrict__ env) {
+  extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
+  const int wrow = n_irr * U;
+  float* s_w = reinterpret_cast<float*>(smem);  // [tile][n_irr * U]
+  float* s_sh = s_w + tile * wrow;              // [tile][d2]
+  // block b: the atoms' group b / slices, their items' slice b % slices (the
+  // slices of an atom run side by side, so its rows come from L2 after the first)
+  const int slice = blockIdx.x % slices;
+  const int a0 = (blockIdx.x / slices) * group, a_stop = min(a0 + group, n_atoms);
+  const int gi = threadIdx.x / per_atom;
+  const int item = slice * per_atom + (threadIdx.x - gi * per_atom);
+  const int per_dim = U / kVec, a = a0 + gi;
+  const bool active = gi < group && a < n_atoms && item < d2 * per_dim;
+  // the thread's dim, its wexp column and its atom's edges [seg0, seg1)
+  int j = 0, wcol = 0, seg0 = 0, seg1 = 0;
+  if (active) {
+    j = item / per_dim;
+    wcol = __ldg(dim_to_irr + j) * U + (item - j * per_dim) * kVec;
+    seg0 = __ldg(row_ptr + a);
+    seg1 = __ldg(row_ptr + a + 1);
+  }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int g0 = __ldg(row_ptr + a0), g1 = __ldg(row_ptr + a_stop);
+  for (int c0 = g0; c0 < g1; c0 += tile) {
+    const int n = min(tile, g1 - c0);
+    if (c0 > g0) __syncthreads();  // every thread is done with the last chunk's rows
+    stage_range<kVec>(s_w, wexp + (long long)c0 * wrow, n * wrow);
+    stage_range<1>(s_sh, sh + (long long)c0 * d2, n * d2);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int e1 = min(seg1, c0 + n) - c0;
+#pragma unroll 4
+    for (int e = max(seg0, c0) - c0; e < e1; ++e) {
+      const float s = s_sh[e * d2 + j];
+      if constexpr (kVec == 4) {
+        const float4 w = *reinterpret_cast<const float4*>(s_w + e * wrow + wcol);
+        acc.x = fmaf(s, w.x, acc.x);
+        acc.y = fmaf(s, w.y, acc.y);
+        acc.z = fmaf(s, w.z, acc.z);
+        acc.w = fmaf(s, w.w, acc.w);
+      } else {
+        acc.x = fmaf(s, s_w[e * wrow + wcol], acc.x);
+      }
+    }
+  }
+  if (!active) return;
+  float* out = env + (long long)a * d2 * U + item * kVec;
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(out) = acc;
+  else
+    *out = acc.x;
+}
+
 // The widest schedule of a tiled row kernel whose shared memory, bytes(tile,
 // n_stage), fits on the card: fewer staged t rows first (down to one), then
 // smaller tiles (down to one edge), then no staged t row; false where even
@@ -337,6 +432,35 @@ bool fit_tile(Bytes bytes, int* tile, int* n_stage) {
 }  // namespace
 
 extern "C" {
+
+// dim_to_irr [d2]; the edges of atom a are [row_ptr[a], row_ptr[a + 1]).
+int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr,
+                     const int* dim_to_irr, int n_atoms, int d2, int n_irr, int U, float* env,
+                     void* stream) {
+  if (n_atoms < 1 || d2 < 1 || n_irr < 1 || U < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = U % 4 == 0 && (uintptr_t)wexp % 16 == 0 && (uintptr_t)env % 16 == 0;
+  // an atom's items (dim, channel group), split into slices of at most
+  // kEnvThreads; atoms of one slice each are grouped, up to kEnvGroup a block
+  const int items = d2 * (vec ? U / 4 : U);
+  const int slices = (items + kEnvThreads - 1) / kEnvThreads;
+  const int per_atom = (items + slices - 1) / slices;
+  int group = slices > 1 ? 1 : kEnvThreads / per_atom;  // at least 1: per_atom <= kEnvThreads
+  if (group > kEnvGroup) group = kEnvGroup;
+  const int threads = round_up(group * per_atom, kWarp);
+  // chunks of kEnvTile edges, halved while their rows take more than a
+  // quarter of the card's shared memory (at least four blocks an SM)
+  const auto bytes = [&](int tile) { return (size_t)tile * (n_irr * U + d2) * sizeof(float); };
+  int tile = kEnvTile;
+  while (bytes(tile) > smem_optin() / 4 && tile > 1) tile /= 2;
+  const long long blocks = (long long)(n_atoms + group - 1) / group * slices;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = vec ? env_scatter_kernel<4> : env_scatter_kernel<1>;
+  cudaError_t err = prepare_smem(kernel, bytes(tile));
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, threads, bytes(tile), (cudaStream_t)stream>>>(
+      sh, wexp, row_ptr, dim_to_irr, n_atoms, d2, n_irr, U, group, slices, per_atom, tile, env);
+  return (int)cudaGetLastError();
+}
 
 int atpt_unweight_sh(const float* t, const float* wexp, const int* centers,
                      const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,

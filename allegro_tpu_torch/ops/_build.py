@@ -35,6 +35,7 @@ _i32p = ctypes.POINTER(ctypes.c_int)
 # C signatures of csrc/*.cu; every device pointer and the stream are void*,
 # the readout's piece tables are host arrays
 _SIGNATURES = {
+    "atpt_noop": [_vp],
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
                        _i32, _i32, _i32, _vp, _vp, _vp],

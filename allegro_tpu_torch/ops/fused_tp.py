@@ -9,7 +9,7 @@ two rank-window partials ``(eA, eB)``.
 - A tensor on the CPU goes to the kernel's plain PyTorch version
   (``*_reference``), which the CPU tests hold against the Pallas kernels.
 - A tensor on a CUDA device goes to the hand-written CUDA kernel
-  (``csrc/fused_tp.cu``, built by ``ops/_build.py``) on the current stream;
+  (``csrc/*.cu``, built by ``ops/_build.py``) on the current stream;
   the wrapper raises if the launch fails. There is no fallback.
 - ``LAUNCHES[name]`` counts the kernel launches, and only those.
 
@@ -32,11 +32,12 @@ two rank-window partials ``(eA, eB)``.
 | ``unweight_sh`` | ``gather_unweight_sh_call`` / ``_gather_unweight_sh_kernel`` |
 | ``unweight_w`` | ``gather_unweight_w_call`` / ``_gather_unweight_w_kernel`` |
 
-The first four are in ``csrc/fused_tp.cu``, the next four in
-``csrc/center_readout.cu``, the next four (the mega-fused layers) in
-``csrc/mega.cu``, the last four (the trainable backend's transposes) in
-``csrc/train_tp.cu``, except ``gather_tp``, ``gather_dw``, ``tp_scatter``
-and ``bwd_fused`` without ``with_dw``: they walk the layer's compiled CG
+``env_scatter`` and ``unweight_both`` are in ``csrc/train_tp.cu`` beside
+``unweight_sh`` and ``unweight_w`` (env_scatter's transposes, all four on
+staged rows), ``bwd_fused`` with ``with_dw`` in ``csrc/fused_tp.cu``, the
+center gathers and the readout in ``csrc/center_readout.cu``, the four
+mega-fused layers in ``csrc/mega.cu``; ``gather_tp``, ``gather_dw``,
+``tp_scatter`` and ``bwd_fused`` without ``with_dw`` walk the layer's compiled CG
 paths in ``csrc/sparse_tp.cu``, the same walkers as the ``pallas``
 backend's ``sparse_tp`` / ``sparse_tp_gradw`` with the env row gathered by
 center (``tp_scatter``: the per-edge rows summed over each atom's edges;
@@ -459,8 +460,10 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
     sh [E, d2], wexp [E, n_irr*U], centers [E], row_ptr [n_atoms+1] (CSR over
     the center-sorted edges), dim_to_irr [d2].
 
-    Replaces ``_env_scatter_kernel``. Bound by the one read of wexp; one
-    block per atom sums its CSR segment in edge order (no atomics)."""
+    Replaces ``_env_scatter_kernel``. Bound by the one read of wexp; a block
+    per group of consecutive atoms stages their edges' wexp and sh rows (one
+    contiguous range) in shared memory, and a thread per (atom, dim, 4
+    channels) sums its atom's rows in edge order (no atomics)."""
     E, d2 = sh.shape
     n_atoms = row_ptr.shape[0] - 1
     n_irr = wexp.shape[1] // U
@@ -746,8 +749,12 @@ def readout_sum(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor],
     center CSR; sentinel edges after ``row_ptr[n_atoms]`` add nothing). The edgewise factor is expected folded into the last weight.
 
     Replaces ``_readout_sum_kernel``. Bound by the read of the pieces and
-    K·H FMAs per edge; W0 in shared memory, one warp per atom, lane = edge,
-    the per-edge energies summed in edge order."""
+    K·H FMAs per edge; a register-tiled product on tiles of 128 consecutive
+    edges (64 or 32 where W0 is too wide for shared memory), their pieces
+    streamed in 32-column stages, on a persistent grid whose blocks own
+    edge-balanced ranges of whole atoms: the per-edge energies stay in shared
+    memory, and each atom's are added in edge order by one thread of one
+    block."""
     pieces = tuple(pieces)
     n_atoms = row_ptr.shape[0] - 1
     H = _check_readout(pieces, w0, w1, pieces[0].shape[0] if pieces else 0)

@@ -30,16 +30,18 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    without its split output), ``bwd_embed`` and ``gather_tp`` (with and
    without) on an l = 4 layer at U = 32, whose paths beyond the compiled CG
    header take the kernels' per-entry default case, and the mega kernels,
-   ``gather_tp`` (with and without), ``tp_scatter`` (both role orders,
-   against the plain version in float64), ``unweight_sh``, ``bwd_fused``
-   (with and without ``gts``, against float64), ``unweight_w`` and
-   ``unweight_both`` on the same crystal at r_max 7.0 (~134 edges per atom: a segment spans three
-   of ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s
-   and ``bwd_fused``'s four chunks walks ~34 of its edges); the center
-   gather and sum on positions [4096, 3] at the center and the neighbor side
-   (and, checks only, on the [·, 1] energy column of the plain readout
-   chain); the fused readout and its backward on three 64-wide pieces (W0
-   [192, 32], w1 [32, 1]);
+   ``gather_tp`` (with and without), ``env_scatter`` (against float64),
+   ``tp_scatter`` (both role orders, against the plain version in float64),
+   ``unweight_sh``, ``bwd_fused`` (with and without ``gts``, against
+   float64), ``unweight_w``, ``unweight_both`` and ``readout_sum`` on the
+   same crystal at r_max 7.0 (~134 edges per atom: a segment spans three of
+   ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s and
+   ``bwd_fused``'s four chunks walks ~34 of its edges); the center gather
+   and sum on positions [4096, 3] at the center and the neighbor side (and,
+   checks only, on the [·, 1] energy column of the plain readout chain);
+   the fused readout and its backward on three 64-wide pieces (W0 [192,
+   32], w1 [32, 1]); the launch floor, an empty kernel's time under the
+   same timer, printed again before the kernels line;
 3. force call: the flagship ``AllegroModel`` (l_max 2, 2 layers, 64 scalar
    and 32 tensor features, random weights from seed 0) on ``fused_infer`` in
    three configurations: ``mega`` (the default ``use_mega=None``: the JAX
@@ -78,13 +80,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    sentinel edges, and ``unweight_sh`` on an l = 4 layer at U = 256 and
    512, whose full tile outgrows the card's shared memory (the launcher
    stages fewer t rows, then takes smaller tiles), on the edges of the
-   first ``WIDE_ATOMS`` atoms less one; ``bwd_fused`` (with and without
-   ``gts``, against float64) and ``unweight_w`` at the same shapes, with
-   x, g, gts and sh nonzero on the sentinel edges, and ``unweight_w`` on
-   the l = 4 dims at U = 256 and 512; ``unweight_both`` wherever
-   ``unweight_w`` is checked (its full tile outgrows shared memory at
-   U = 256 and 512 too); ``readout_bwd`` on the edges less atom
-   ``EMPTY_ATOM``'s with its pieces nonzero on the sentinel edges: the
+   first ``WIDE_ATOMS`` atoms less one; ``env_scatter`` (against float64)
+   wherever ``unweight_sh`` is checked (at U = 256 and 512 its chunks are
+   cut and a block takes a slice of one atom's items); ``bwd_fused`` (with
+   and without ``gts``, against float64) and ``unweight_w`` at the same
+   shapes, with x, g, gts and sh nonzero on the sentinel edges, and
+   ``unweight_w`` on the l = 4 dims at U = 256 and 512; ``unweight_both``
+   wherever ``unweight_w`` is checked (its full tile outgrows shared memory
+   at U = 256 and 512 too); ``readout_sum`` and ``readout_bwd`` on the
+   edges less atom ``EMPTY_ATOM``'s with their pieces nonzero on the
+   sentinel edges: the
    flagship's 64-wide column slices at H = 20, 32, 64 and without a hidden
    layer, pieces 5, 3 and 17 wide, slices not 16-byte aligned, and K = 768
    (32-edge tiles); ``gather_tp``, ``gather_dw``, ``tp_scatter`` and
@@ -224,7 +229,7 @@ SOURCES = {
     "latent_env_bwd": "allegro_tpu_torch/csrc/mega.cu",
     "gather_tp_embed": "allegro_tpu_torch/csrc/mega.cu",
     "bwd_embed": "allegro_tpu_torch/csrc/mega.cu",
-    "env_scatter": "allegro_tpu_torch/csrc/fused_tp.cu",
+    "env_scatter": "allegro_tpu_torch/csrc/train_tp.cu",
     "gather_tp": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "bwd_fused": "allegro_tpu_torch/csrc/sparse_tp.cu",
     "bwd_fused[dw]": "allegro_tpu_torch/csrc/fused_tp.cu",
@@ -466,6 +471,17 @@ def median_ms(fn, reps=20, runs=5, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def launch_floor_ms(dev):
+    """The device time of one launch of an empty kernel under
+    :func:`median_ms` (``atpt_noop``, ``csrc/fused_tp.cu``): the floor under
+    every kernel time of this run, which the bound leaves out."""
+    from allegro_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return median_ms(lambda: _build.check(lib, lib.atpt_noop(stream), "noop"))
 
 
 def rel_err(got, ref):
@@ -772,13 +788,16 @@ def _flat_out(res):
 def check_long_segments(model, rng, dev):
     """Phase 2: the mega kernels (checks only) on the crystal at r_max
     LONG_R_MAX, where an atom has ~134 edges: its segment spans three of
-    ``latent_env_scatter``'s 64-edge tiles; and ``tp_scatter`` (both orders)
-    and ``unweight_sh``, ``bwd_fused`` (with and without ``gts``) and
-    ``unweight_w`` at the flagship's layer-0 dims there, where each of
-    ``tp_scatter``'s and ``bwd_fused``'s chunks walks ~34 edges of a
-    segment."""
+    ``latent_env_scatter``'s 64-edge tiles; ``env_scatter``, ``tp_scatter``
+    (both orders), ``unweight_sh``, ``bwd_fused`` (with and without ``gts``)
+    and ``unweight_w`` at the flagship's layer-0 dims there, where each of
+    ``tp_scatter``'s and ``bwd_fused``'s chunks walks ~34 edges of a segment
+    and an ``env_scatter`` block's 2 atoms take 5 of its 64-edge chunks; and
+    ``readout_sum`` on the flagship's readout pieces, whose 128-edge tiles
+    each hold about one atom's segment."""
     from allegro_tpu_torch.data import batch_frames, keys, to_torch
     from allegro_tpu_torch.nn.contract import Contracter
+    from allegro_tpu_torch.ops import fused_tp
 
     frame, n_atoms = crystal_frame(N_ATOMS, LONG_R_MAX, SEED)
     data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
@@ -792,6 +811,15 @@ def check_long_segments(model, rng, dev):
     centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
     check_scatter_kernels(tps, centers, data[keys.CENTER_ROW_PTR], rng, f"r_max {LONG_R_MAX}")
     check_bwd_kernels(tps, centers, data[keys.CENTER_ROW_PTR], rng, f"r_max {LONG_R_MAX}")
+    E, S = centers.shape[0], FLAGSHIP["num_scalar_features"]
+    pieces = [torch.as_tensor(rng.randn(E, S + 96).astype(np.float32), device=dev)[:, :S]
+              for _ in range(3)]
+    w0 = torch.as_tensor(rng.randn(3 * S, 32).astype(np.float32), device=dev) / (3 * S)**0.5
+    w1 = torch.as_tensor(rng.randn(32, 1).astype(np.float32), device=dev) / 32**0.5
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    check_case("readout_sum", lambda: (fused_tp.readout_sum(pieces, w0, w1, row_ptr),),
+               lambda: (fused_tp.readout_sum_reference(pieces, w0, w1, row_ptr),),
+               f"r_max {LONG_R_MAX} pieces 3 x [{E}, {S}] W0 [{3 * S}, 32]")
 
 
 def check_center_readout(data, rng, records):
@@ -1029,11 +1057,11 @@ def scatter_paths(tp):
 
 
 def check_scatter_kernels(tps, centers, row_ptr, rng, label):
-    """Checks only: ``unweight_sh`` and ``tp_scatter`` (each layer's table in
-    both role orders, walking :func:`scatter_paths`; held to the plain
-    version in float64) on the edges ``centers`` with the CSR ``row_ptr``,
-    with x, g and wexp nonzero on the sentinel edges, which neither kernel
-    may read."""
+    """Checks only: ``env_scatter`` (held to the plain version in float64),
+    ``unweight_sh`` and ``tp_scatter`` (each layer's table in both role
+    orders, walking :func:`scatter_paths`; held to the plain version in
+    float64) on the edges ``centers`` with the CSR ``row_ptr``, with x, g, sh
+    and wexp nonzero on the sentinel edges, which no kernel may read."""
     from allegro_tpu_torch.ops import fused_tp
 
     dev = centers.device
@@ -1047,6 +1075,7 @@ def check_scatter_kernels(tps, centers, row_ptr, rng, label):
         coef = tp.entry_coef.to(torch.float32)
         t, wexp = rand(n_atoms, tp.d2 * U), rand(E, tp.n_irr * U)
         what = f"{label} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) entries {tp.entry_idx.shape[0]:4d}"
+        check_env_scatter(rand(E, tp.d2), wexp, centers, row_ptr, tp.dim_to_irr, U, what)
         check_case("unweight_sh",
                    lambda: (fused_tp.unweight_sh(t, wexp, centers, tp.dim_to_irr),),
                    lambda: (fused_tp.unweight_sh_reference(t, wexp, centers, tp.dim_to_irr),),
@@ -1065,6 +1094,19 @@ def check_scatter_kernels(tps, centers, row_ptr, rng, label):
                        f"{what} {order:7s} rows {paths.desc.shape[0]} ({beyond} beyond the "
                        f"header) (vs float64)")
             del exact
+
+
+def check_env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U, label):
+    """Checks only: ``env_scatter`` against its plain version in float64 (a
+    segment sums up to ~137 edges)."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    n_atoms = row_ptr.shape[0] - 1
+    exact = fused_tp.env_scatter_reference(sh.double(), wexp.double(), centers, n_atoms,
+                                           dim_to_irr, U)
+    check_case("env_scatter",
+               lambda: (fused_tp.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U),),
+               lambda: (exact,), f"{label} (vs float64)")
 
 
 def _odd_edges(data):
@@ -1102,13 +1144,17 @@ def _shape_layers(dev):
 
 def check_scatter_shapes(data, rng):
     """Phase 5a, checks only: ``tp_scatter`` and ``unweight_sh`` (both role
-    orders) on :func:`_odd_edges` at :func:`_shape_layers`' shapes, and
-    ``unweight_sh`` on that l = 4 layer's dims at U = 256 and 512 on the
-    edges of the first ``WIDE_ATOMS`` atoms less one: 32 wexp rows and 4 t
-    rows take 260 KiB there at U = 256 and 520 KiB at 512, more than the
-    card's opt-in shared memory (227 KiB on an H100), so the launcher stages 2 t rows at U = 256
-    and takes 16-edge tiles with one t row at 512. Then a ``tp_scatter``
-    call on the card without its path table must raise."""
+    orders) and ``env_scatter`` on :func:`_odd_edges` at :func:`_shape_layers`'
+    shapes, and ``unweight_sh`` and ``env_scatter`` on that l = 4 layer's
+    dims at U = 256 and 512 on the edges of the first ``WIDE_ATOMS`` atoms
+    less one: 32 wexp rows and 4 t rows take 260 KiB there at U = 256 and 520
+    KiB at 512, more than the card's opt-in shared memory (227 KiB on an
+    H100), so ``unweight_sh``'s launcher stages 2 t rows at U = 256 and takes
+    16-edge tiles with one t row at 512; ``env_scatter``'s 64-edge chunks of
+    wexp and sh rows are cut to 8 and 4 edges there (a quarter of the card's
+    shared memory), and a block takes one atom and a slice of its 1,600 and
+    3,200 (dim, 4 channels) items. Then a ``tp_scatter`` call on the card
+    without its path table must raise."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -1120,17 +1166,21 @@ def check_scatter_shapes(data, rng):
     check_scatter_kernels(layers, centers, row_ptr, rng, f"E {E} (atom {EMPTY_ATOM} without edges)")
     tp = layers[-1]
     wide = centers[:int(row_ptr[WIDE_ATOMS]) - 1]
+    wide_ptr = torch.as_tensor(fused_tp.csr_row_ptr(wide.cpu().numpy(), n_atoms), device=dev)
     for U in (256, 512):
         t = torch.as_tensor(rng.randn(n_atoms, tp.d2 * U).astype(np.float32), device=dev)
         wexp = torch.as_tensor(rng.randn(wide.shape[0], tp.n_irr * U).astype(np.float32),
                                device=dev)
+        sh = torch.as_tensor(rng.randn(wide.shape[0], tp.d2).astype(np.float32), device=dev)
+        check_env_scatter(sh, wexp, wide, wide_ptr, tp.dim_to_irr, U,
+                          f"E {wide.shape[0]} U {U} dims ({tp.d1},{tp.d2},{tp.d3})")
         full = (32 * tp.n_irr + 4 * tp.d2) * U * 4
         check_case("unweight_sh",
                    lambda: (fused_tp.unweight_sh(t, wexp, wide, tp.dim_to_irr),),
                    lambda: (fused_tp.unweight_sh_reference(t, wexp, wide, tp.dim_to_irr),),
                    f"E {wide.shape[0]} U {U} dims ({tp.d1},{tp.d2},{tp.d3}) (full tile "
                    f"{full // 1024} KiB)")
-        del t, wexp
+        del t, wexp, sh
     tp = layers[0]
     x, w = torch.zeros(E, tp.d1 * tp.mul, device=dev), torch.zeros(tp.num_paths, tp.mul,
                                                                    device=dev)
@@ -1243,22 +1293,23 @@ def check_bwd_shapes(data, rng):
 
 
 def check_readout_shapes(data, rng):
-    """Phase 5a, checks only: ``readout_bwd`` on :func:`_odd_edges` (an odd
-    edge count, an atom without edges), its pieces nonzero on the sentinel
-    edges, which get zero rows: the flagship's pieces (64-wide column slices
+    """Phase 5a, checks only: ``readout_sum`` and ``readout_bwd`` on
+    :func:`_odd_edges` (an odd edge count, an atom without edges), their
+    pieces nonzero on the sentinel edges, which add nothing to any atom's
+    energy and get zero rows: the flagship's pieces (64-wide column slices
     of 160-wide rows; 16-byte copies and float4 stores) with hidden widths
     20 (padded), 32 and 64 (two column groups per thread) and without a
     hidden layer; pieces of odd widths (5, 3, 17: 4-byte copies, column
     stores); 64-wide slices starting at column 1 of their rows (pointers not
     16-byte aligned); and three 256-wide pieces (K = 768), where W0ᵀ and a
-    64-edge tile outgrow shared memory and the launcher takes 32-edge
-    tiles."""
+    64-edge tile outgrow shared memory and ``readout_bwd``'s launcher takes
+    32-edge tiles (``readout_sum``'s W0ᵀ and stage buffers still fit)."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
     dev = data[keys.POSITIONS].device
     n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
-    centers, _ = _odd_edges(data)
+    centers, row_ptr = _odd_edges(data)
     E = centers.shape[0]
 
     def rand(*shape):
@@ -1274,11 +1325,13 @@ def check_readout_shapes(data, rng):
         for H in ((20, 32, 64, None) if what == "flagship slices" else (32,)):
             w0 = rand(K, H or 1) / K**0.5
             w1 = None if H is None else rand(H, 1) / H**0.5
+            label = f"E {E} {what} {list(dims)} " + ("no hidden layer" if H is None else f"H {H}")
+            check_case("readout_sum",
+                       lambda: (fused_tp.readout_sum(pieces, w0, w1, row_ptr),),
+                       lambda: (fused_tp.readout_sum_reference(pieces, w0, w1, row_ptr),), label)
             check_case("readout_bwd",
                        lambda: fused_tp.readout_bwd(pieces, w0, w1, y, centers),
-                       lambda: fused_tp.readout_bwd_reference(pieces, w0, w1, y, centers),
-                       f"E {E} {what} {list(dims)} "
-                       + ("no hidden layer" if H is None else f"H {H}"))
+                       lambda: fused_tp.readout_bwd_reference(pieces, w0, w1, y, centers), label)
         del pieces
 
 
@@ -2082,6 +2135,8 @@ def main() -> int:
     check_long_segments(mega, rng, dev)
 
     check_center_readout(data, rng, records)
+    floor_ms = launch_floor_ms(dev)
+    print(f"    launch floor: an empty kernel {floor_ms:.4f} ms under median_ms ({smi})")
 
     # phase 3: the force call — 5 calls per configuration through the kernels
     fused_ro = AllegroModel(
@@ -2167,6 +2222,7 @@ def main() -> int:
 
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
+    print(f"launch floor {floor_ms:.4f} ms (an empty kernel under median_ms, phase 2)")
     runs = dict(launches=launches, md=md_launches, calculator=calc_launches, train=train_launches,
                 pallas_train=pallas_train, cli=cli, lmax3=l3_launches, lmax3_md=l3_md,
                 lmax3_calculator=l3_calc, ptxas=usage)

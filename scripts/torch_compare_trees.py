@@ -36,9 +36,10 @@ Each run times, with that tree's package:
   (``*_lmax3_ms``): device times from CUDA events (``chip_smoke.median_ms``)
   of the tree's wrappers on the force call's shapes and the model's
   weights, with the tables the tree's layers cache where it has them; and
-  ``readout_bwd_ms``: the fused readout's backward on ``chip_smoke``'s
-  phase-2 readout shapes (three 64-wide column slices of 160-wide rows, W0
-  [192, 32], w1 [32, 1]; the same at l_max 3, whose readout is the same);
+  ``readout_sum_ms`` and ``readout_bwd_ms``: the fused readout and its
+  backward on ``chip_smoke``'s phase-2 readout shapes (three 64-wide column
+  slices of 160-wide rows, W0 [192, 32], w1 [32, 1]; the same at l_max 3,
+  whose readout is the same);
 - ``nomega_us_per_atom``, ``nomega_busy_ms`` and ``nomega_idle_pct``: the
   flagship's force call on ``fused_infer`` with ``use_mega=False`` (host
   clock; torch.profiler, 3 calls);
@@ -56,13 +57,15 @@ Each run times, with that tree's package:
   (``chip_smoke.scatter_paths``), and (``*_rmax7_ms``) at the flagship's
   layer 0 on the crystal at r_max 7.0 (``chip_smoke.LONG_R_MAX``: ~137
   edges per atom);
-- ``bwd_fused_ms``, ``bwd_fused_gts_ms``, ``unweight_w_ms`` and
-  ``unweight_both_ms``: the same for kernels 3 (without and with the split
-  output's cotangent ``gts``; with the path tables of the layer's
-  ``infer_paths`` where the tree's ``bwd_fused`` takes them), 17 and 4, on
-  the same edges and layers (the flagship's two, l_max 3's layer 0, r_max
-  7.0's layer 0), and ``unweight_pair_ms``: ``unweight_sh`` and
-  ``unweight_w`` one after the other on ``unweight_both``'s inputs;
+- ``bwd_fused_ms``, ``bwd_fused_gts_ms``, ``unweight_w_ms``,
+  ``unweight_both_ms`` and ``env_scatter_ms``: the same for kernels 3
+  (without and with the split output's cotangent ``gts``; with the path
+  tables of the layer's ``infer_paths`` where the tree's ``bwd_fused`` takes
+  them), 17, 4 and 1, on the same edges and layers (the flagship's two,
+  l_max 3's layer 0, r_max 7.0's layer 0), and ``unweight_pair_ms``:
+  ``unweight_sh`` and ``unweight_w`` one after the other on
+  ``unweight_both``'s inputs; ``env_scatter_u256_ms``: kernel 1 on the
+  crystal's edges at the flagship's layer-0 dims with U = 256;
 - ``fused_train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``fused`` on the 4 x 1,000-atom batch (median of 10 steps after 2, host
   clock), ``fused_train_busy_ms`` and ``fused_train_idle_pct`` its device
@@ -160,6 +163,8 @@ def kernel_times(smoke, allegro, data) -> dict:
     K, H = 3 * S, 32
     pieces = [rand(E, S + 96)[:, :S] for _ in range(3)]
     w0, w1, y = rand(K, H) / K**0.5, rand(H, 1) / H**0.5, rand(n_atoms, 1)
+    ms["readout_sum_ms"] = smoke.median_ms(lambda: fused_tp.readout_sum(
+        pieces, w0, w1, row_ptr))
     ms["readout_bwd_ms"] = smoke.median_ms(lambda: fused_tp.readout_bwd(
         pieces, w0, w1, y, centers))
     return ms
@@ -242,8 +247,8 @@ def gather_kernel_times(smoke, tps, data) -> dict:
 def scatter_kernel_times(smoke, tps, data) -> dict:
     """Device ms, from CUDA events, of tp_scatter (the layer's entry order
     and the role swap, the two orders a training step runs), unweight_sh,
-    bwd_fused (without and with gts), unweight_w, unweight_both and the
-    pair unweight_sh + unweight_w on ``data``'s edges,
+    bwd_fused (without and with gts), unweight_w, unweight_both, the pair
+    unweight_sh + unweight_w and env_scatter on ``data``'s edges,
     summed over the layers ``tps``, each through the tree's wrapper, with the
     path table of this checkout's ``chip_smoke.scatter_paths`` where the
     tree's ``tp_scatter`` takes one, and the layer's ``infer_paths`` where
@@ -271,7 +276,7 @@ def scatter_kernel_times(smoke, tps, data) -> dict:
 
     ms = {"tp_scatter_ms": 0.0, "tp_scatter_swapped_ms": 0.0, "unweight_sh_ms": 0.0,
           "bwd_fused_ms": 0.0, "bwd_fused_gts_ms": 0.0, "unweight_w_ms": 0.0,
-          "unweight_both_ms": 0.0, "unweight_pair_ms": 0.0}
+          "unweight_both_ms": 0.0, "unweight_pair_ms": 0.0, "env_scatter_ms": 0.0}
     for tp in tps:
         U, P = tp.mul, tp.num_paths
         coef = tp.entry_coef.to(torch.float32)
@@ -297,8 +302,29 @@ def scatter_kernel_times(smoke, tps, data) -> dict:
         ms["unweight_pair_ms"] += smoke.median_ms(lambda: (
             fused_tp.unweight_sh(t, wexp, centers, tp.dim_to_irr),
             fused_tp.unweight_w(t, sh, centers, tp.dim_to_irr, tp.n_irr)))
+        ms["env_scatter_ms"] += smoke.median_ms(lambda: fused_tp.env_scatter(
+            sh, wexp, centers, row_ptr, tp.dim_to_irr, U))
         del x, g, t, wexp, env, sh, gts
     return ms
+
+
+def env_scatter_wide_ms(smoke, tp, data, U) -> float:
+    """Device ms, from CUDA events, of env_scatter on ``data``'s edges at
+    layer ``tp``'s dims with ``U`` channels (random sh and wexp)."""
+    import numpy as np
+    import torch
+
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    rng = np.random.RandomState(smoke.SEED)
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    E = centers.shape[0]
+    sh = torch.as_tensor(rng.randn(E, tp.d2).astype(np.float32), device=dev)
+    wexp = torch.as_tensor(rng.randn(E, tp.n_irr * U).astype(np.float32), device=dev)
+    return smoke.median_ms(lambda: fused_tp.env_scatter(
+        sh, wexp, centers, data[keys.CENTER_ROW_PTR], tp.dim_to_irr, U))
 
 
 def measure(tree: Path) -> dict:
@@ -384,6 +410,8 @@ def measure(tree: Path) -> dict:
         for times in (gather_kernel_times, scatter_kernel_times):
             for key, ms in times(smoke, tps if tag == "nomega" else tps[:1], data).items():
                 out[key.replace("_ms", suffix + "_ms")] = ms
+        if tag == "nomega":
+            out["env_scatter_u256_ms"] = env_scatter_wide_ms(smoke, tps[0], data, 256)
         del model, data
         torch.cuda.empty_cache()
 

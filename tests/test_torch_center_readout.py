@@ -404,3 +404,138 @@ def test_readout_bwd_tile_schedule_equals_the_plain_version(rows, layout, hidden
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-12)
         assert (g[180:] == 0).all()
+
+
+RS_THREADS, RS_COLS, RS_TM = 128, 4, 4  # csrc/center_readout.cu's kRsThreads, kRsCols, kRsTM
+RS_STAGE, RS_BUFS = 32, 2  # kRsStage (the columns of K a stage loads), kRsBufs
+
+
+def _first_atom_from(row_ptr, lo, hi, e):
+    """The first atom a in [lo, hi) with row_ptr[a] >= e (hi if none)."""
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if row_ptr[mid] < e:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _emulate_readout_sum(pieces, w0, w1, row_ptr, threads, n_blocks, cols=RS_COLS, tm=RS_TM):
+    """readout_sum's schedule in plain float64: block b of ``n_blocks`` owns
+    the atoms whose first edge lies in [b E' / G, (b + 1) E' / G) (the last
+    block also those at E') and walks their edges in tiles of threads / cols
+    * tm rows; each tile runs, for each 32-column chunk of H, each
+    32-column stage of K, loaded into the next of RS_BUFS stage buffers (NaN until
+    first loaded; a partial tile leaves its last rows as they were; columns
+    past K up to a multiple of 4 zero); W0ᵀ zero-padded to [Hr][ldK], w1
+    padded (e_0 without a hidden layer); thread (row group, column group
+    tx) sums its share of its rows' energies over its chunks' columns 32 c
+    + tx + cols j in order, and the row's shares are added by an xor
+    butterfly; a warp whose rows all lie past the tile's edges computes
+    nothing; a thread per atom adds its rows of each tile in edge order, the
+    atom that crosses a tile carried in one of two slots; energy[a] written
+    once, atoms left at the end get 0."""
+    dims = [p.shape[1] for p in pieces]
+    K, H = sum(dims), w0.shape[1]
+    rows = threads // cols * tm
+    ldK, Hr = _round_up(K, 32) + 4, _round_up(H, 32)
+    w0t = np.zeros((Hr, ldK))
+    w0t[:H, :K] = w0.numpy().T
+    W1 = np.zeros(Hr)
+    W1[:H] = w1.numpy()[:, 0] if w1 is not None else np.eye(1, H)[0]
+    p_np = np.concatenate([p.numpy() for p in pieces], axis=1)
+    rp = row_ptr.numpy().astype(np.int64)
+    n_atoms, n_edges = len(rp) - 1, int(rp[-1])
+    n_st, n_ch = -(-K // RS_STAGE), -(-H // 32)
+    energy = np.full(n_atoms, np.nan)
+    for b in range(n_blocks):
+        lo, hi = b * n_edges // n_blocks, (b + 1) * n_edges // n_blocks
+        a_first = _first_atom_from(rp, 0, n_atoms, lo)
+        a_end = n_atoms if b == n_blocks - 1 else _first_atom_from(rp, a_first, n_atoms, hi)
+        eb, ee = rp[a_first], rp[a_end]
+        bufs = [np.full((rows, RS_STAGE + 4), np.nan) for _ in range(RS_BUFS)]
+        g = 0
+        a_lo, carry, slot = a_first, [np.nan, np.nan], 0
+        for e0 in range(eb, ee, rows):
+            e1 = min(e0 + rows, ee)
+            assert e1 <= n_edges, "a row past row_ptr[n_atoms]"
+            shares = np.zeros((rows, cols))
+            for c in range(n_ch):
+                acc = np.zeros((rows, 32))
+                for s_ in range(n_st):
+                    c0, c1 = s_ * RS_STAGE, min(K, (s_ + 1) * RS_STAGE)
+                    S = bufs[g % RS_BUFS]
+                    S[:e1 - e0, :c1 - c0] = p_np[e0:e1, c0:c1]
+                    S[:, c1 - c0:_round_up(c1 - c0, 4)] = 0.0
+                    kd = _round_up(c1 - c0, 4)
+                    with np.errstate(invalid="ignore", over="ignore"):
+                        acc += S[:, :kd] @ w0t[32 * c:32 * c + 32, c0:c0 + kd].T
+                    g += 1
+                with np.errstate(invalid="ignore", over="ignore"):
+                    f = acc / (1.0 + np.exp(-acc)) if w1 is not None else acc
+                    for tx in range(cols):
+                        for j in range(32 // cols):
+                            h = tx + cols * j
+                            shares[:, tx] += f[:, h] * W1[32 * c + h]
+            with np.errstate(invalid="ignore", over="ignore"):
+                o = 1
+                while o < cols:  # __shfl_xor_sync, lane tx adds lane tx ^ o
+                    shares = shares + shares[:, np.arange(cols) ^ o]
+                    o *= 2
+            En = np.where(np.arange(rows) // (32 // cols * tm) * (32 // cols * tm) < e1 - e0,
+                          shares[:, 0], np.nan)  # a warp past the tile's edges computes nothing
+            a_hi = _first_atom_from(rp, a_lo, a_end, e1)
+            for a in range(a_lo, a_hi):
+                s0, s1 = rp[a], rp[a + 1]
+                s = carry[slot] if s0 < e0 else 0.0
+                for r in range(max(s0, e0) - e0, min(s1, e1) - e0):
+                    s += En[r]
+                if s1 <= e1:
+                    assert np.isnan(energy[a]), "an energy written twice"
+                    energy[a] = s
+                else:
+                    carry[slot ^ 1] = s
+            a_lo = a_hi - 1 if a_hi > a_lo and rp[a_hi] > e1 else a_hi
+            slot ^= 1
+        for a in range(a_lo, a_end):
+            assert np.isnan(energy[a]), "an energy written twice"
+            energy[a] = 0.0
+    assert not np.isnan(energy).any(), "an energy never written"
+    return torch.as_tensor(energy[:, None])
+
+
+# per-atom edge counts: atoms without edges at the start (0), on the range
+# boundaries of 3 and 6 blocks (4, 5 at edge 70; 8 at 140), in the middle
+# (11) and at E' = 210 (15-23); atom 6's 40 edges are longer than a whole
+# range of 6 or 40 blocks
+RS_COUNTS = [0, 10, 25, 35, 0, 0, 40, 30, 0, 5, 3, 0, 20, 1, 41] + [0] * 9
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 6, 40])
+@pytest.mark.parametrize("hidden", RB_HIDDEN, ids=[f"H{h}" if h else "no-hidden" for h in RB_HIDDEN])
+@pytest.mark.parametrize("layout", list(RB_LAYOUTS))
+@pytest.mark.parametrize("threads", [RS_THREADS, RS_THREADS // 4], ids=["full", "quarter"])
+def test_readout_sum_tile_schedule_equals_the_plain_version(threads, layout, hidden, n_blocks):
+    """210 real edges over 24 atoms (:data:`RS_COUNTS`), then 30 sentinel
+    edges whose pieces are large; the pieces are column slices of wider
+    rows."""
+    rng = np.random.RandomState(31 + threads + n_blocks)
+    counts = np.array(RS_COUNTS)
+    centers = np.concatenate([np.repeat(np.arange(len(counts)), counts),
+                              np.full(30, len(counts))]).astype(np.int32)
+    row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers, len(counts)))
+    assert int(row_ptr[-1]) == 210 and row_ptr[4] == row_ptr[6] == 70 and row_ptr[8] == 140
+    E = centers.shape[0]
+    wide = [torch.as_tensor(rng.randn(E, d + 7)) for d in RB_LAYOUTS[layout]]
+    for w in wide:
+        w[210:] *= 1e6
+    pieces = [w[:, 3:3 + d] for w, d in zip(wide, RB_LAYOUTS[layout])]
+    K = sum(RB_LAYOUTS[layout])
+    H = hidden or 1
+    w0 = torch.as_tensor(rng.randn(K, H) / np.sqrt(K))
+    w1 = None if hidden is None else torch.as_tensor(rng.randn(H, 1) / np.sqrt(H))
+    want = fused_tp.readout_sum_reference(pieces, w0, w1, row_ptr)
+    got = _emulate_readout_sum(pieces, w0, w1, row_ptr, threads, n_blocks)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    assert (got[counts == 0] == 0).all()

@@ -268,3 +268,121 @@ def test_fused_layer_second_order_force_style_matches_jax(layer_grads):
     (frc,) = torch.autograd.grad((out * out).sum(), sh, create_graph=True)
     (got,) = torch.autograd.grad((frc * frc).sum(), w)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# env_scatter's schedule (csrc/train_tp.cu), emulated in float64
+# ---------------------------------------------------------------------------
+
+DIM_TO_IRR = {2: (0, 1, 1, 1, 2, 2, 2, 2, 2), 3: (0, 1, 1, 1, 2, 2, 2, 2, 2) + (3,) * 7}
+SMEM_OPTIN = 232448  # bytes of shared memory a block may opt into on an H100
+
+
+def _env_plan(d2, n_irr, U, group_max=2, tile=64, max_threads=512):
+    """atpt_env_scatter's launch plan: the float4 form where U is a multiple
+    of 4, an atom's (dim, channel group) items in slices of at most
+    ``max_threads``, up to ``group_max`` atoms a block where one slice holds
+    them, chunks of ``tile`` edges halved until their rows take at most a
+    quarter of the shared memory a block may opt into."""
+    vec = 4 if U % 4 == 0 else 1
+    items = d2 * (U // vec)
+    slices = -(-items // max_threads)
+    per_atom = -(-items // slices)
+    group = 1 if slices > 1 else min(group_max, max_threads // per_atom)
+    while tile * (n_irr * U + d2) * 4 > SMEM_OPTIN // 4 and tile > 1:
+        tile //= 2
+    return dict(vec=vec, slices=slices, per_atom=per_atom, group=group, tile=tile)
+
+
+def _emulate_env_scatter(sh, wexp, row_ptr, dim_to_irr, U, vec, slices, per_atom, group, tile):
+    """env_scatter_kernel in plain float64: a block per group of atoms (and
+    slice of their items) stages its edges' rows chunk by chunk (never past
+    row_ptr[n_atoms]); each thread (atom, item) sums its atom's staged rows
+    in edge order in registers carried across chunks, then writes its
+    ``vec`` columns once."""
+    n_atoms, d2 = len(row_ptr) - 1, sh.shape[1]
+    wrow, per_dim = wexp.shape[1], U // vec
+    env = np.full((n_atoms, d2 * U), np.nan)
+    threads = -(-group * per_atom // 32) * 32
+    for b in range(-(-n_atoms // group) * slices):
+        sl = b % slices  # an atom's slices side by side
+        a0 = (b // slices) * group
+        a_stop = min(a0 + group, n_atoms)
+        acc = np.zeros((threads, vec))
+        plan = []  # (thread, atom, dim, wexp column, item) of the active threads
+        for tid in range(threads):
+            gi, item = tid // per_atom, sl * per_atom + tid % per_atom
+            if gi < group and a0 + gi < n_atoms and item < d2 * per_dim:
+                j = item // per_dim
+                plan.append((tid, a0 + gi, j, dim_to_irr[j] * U + (item % per_dim) * vec,
+                             item))
+        g0, g1 = row_ptr[a0], row_ptr[a_stop]
+        for c0 in range(g0, g1, tile):
+            n = min(tile, g1 - c0)
+            assert c0 + n <= row_ptr[n_atoms], "a staged row past row_ptr[n_atoms]"
+            s_w, s_sh = wexp[c0:c0 + n].copy(), sh[c0:c0 + n].copy()
+            for tid, a, j, wcol, _ in plan:
+                for e in range(max(row_ptr[a], c0) - c0, min(row_ptr[a + 1], c0 + n) - c0):
+                    acc[tid] += s_sh[e, j] * s_w[e, wcol:wcol + vec]
+        for tid, a, _, _, item in plan:
+            out = env[a, item * vec:(item + 1) * vec]
+            assert np.isnan(out).all(), "an output written twice"
+            out[...] = acc[tid]
+    assert not np.isnan(env).any(), "an output never written"
+    return env
+
+
+ENV_PLANS = {
+    "launcher": {},  # 64-edge chunks: a group's edges in one chunk
+    "chunks": dict(tile=5),  # chunks shorter than a segment: it spans several
+    "slices": dict(max_threads=24),  # wide U's path: one atom, a slice of its items a block
+    "fours": dict(group_max=4, tile=7),
+}
+
+
+@pytest.mark.parametrize("plan", list(ENV_PLANS))
+@pytest.mark.parametrize("u", [3, 16], ids=["U3", "U16"])
+@pytest.mark.parametrize("l_max", [2, 3], ids=["lmax2", "lmax3"])
+def test_env_scatter_schedule_equals_the_plain_version(l_max, u, plan):
+    """27 atoms, 170 real edges: atoms 0 and 1 (first), 11 (middle) and 24-26
+    (last) without edges, atom 6 with 40 edges; then 30 sentinel edges whose
+    sh and wexp rows are large and nonzero."""
+    rng = np.random.RandomState(20 + u + l_max)
+    n_atoms = 27
+    counts = np.zeros(n_atoms, dtype=np.int64)
+    counts[6] = 40
+    others = [a for a in range(2, 24) if a not in (6, 11)]
+    counts[others] = 1 + rng.multinomial(130 - len(others), np.ones(len(others)) / len(others))
+    centers = np.concatenate([np.repeat(np.arange(n_atoms), counts), np.full(30, n_atoms)])
+    row_ptr = fused_tp.csr_row_ptr(centers, n_atoms)
+    assert row_ptr[n_atoms] == 170 and counts[[0, 1, 11, 24, 25, 26]].sum() == 0
+    dim_to_irr = DIM_TO_IRR[l_max]
+    d2, n_irr = len(dim_to_irr), max(dim_to_irr) + 1
+    E = len(centers)
+    sh, wexp = rng.randn(E, d2), rng.randn(E, n_irr * u)
+    sh[170:] *= 1e6
+    wexp[170:] *= 1e6
+    want = fused_tp.env_scatter_reference(
+        torch.as_tensor(sh), torch.as_tensor(wexp), torch.as_tensor(centers), n_atoms,
+        torch.tensor(dim_to_irr), u).numpy()
+    p = _env_plan(d2, n_irr, u, **ENV_PLANS[plan])
+    if plan == "slices":
+        assert p["slices"] > 1
+    got = _emulate_env_scatter(sh, wexp, row_ptr, dim_to_irr, u, **p)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert (got[[0, 1, 11, 24, 25, 26]] == 0).all()
+
+
+def test_env_scatter_plan_backs_off_on_wide_rows():
+    """The launcher's plan at the chip check's shapes: the flagship (72 items
+    an atom, 2 atoms a block, one 64-edge chunk), l_max 3 (64 items), the
+    flagship's dims at U = 256 (576 items in 2 slices, 16-edge chunks), and
+    the l = 4 dims (25 of 5 irreps) at U = 256 and 512, whose 1,600 and
+    3,200 items take 4 and 7 slices and whose chunks take 8 and 4 edges, so
+    that four blocks share an SM."""
+    assert _env_plan(9, 3, 32) == dict(vec=4, slices=1, per_atom=72, group=2, tile=64)
+    assert _env_plan(16, 4, 16) == dict(vec=4, slices=1, per_atom=64, group=2, tile=64)
+    assert _env_plan(9, 3, 256) == dict(vec=4, slices=2, per_atom=288, group=1, tile=16)
+    assert _env_plan(25, 5, 256) == dict(vec=4, slices=4, per_atom=400, group=1, tile=8)
+    assert _env_plan(25, 5, 512) == dict(vec=4, slices=7, per_atom=458, group=1, tile=4)
+    assert _env_plan(9, 3, 3) == dict(vec=1, slices=1, per_atom=27, group=2, tile=64)
