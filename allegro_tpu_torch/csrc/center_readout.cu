@@ -18,8 +18,8 @@
 // The readout's inputs are the scalar-track pieces, given as a table of row
 // pointers with their row strides, never concatenated.
 //
-// Every per-atom sum runs in edge order within its CSR segment (no atomics),
-// so results are deterministic. Each kernel runs on the caller's stream and
+// Every per-atom sum adds its CSR segment in a fixed order (no atomics), so
+// results are deterministic. Each kernel runs on the caller's stream and
 // allocates nothing; each entry point returns cudaGetLastError().
 
 #include "common.cu"
@@ -27,85 +27,265 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kNarrow = 4;    // the widest row the narrow forms take (positions, energies)
+constexpr int kSumLanes = 16;  // lanes per atom of center_sum's narrow form
+
+// A row of C floats as cv = C / 4 float4s (16-byte loads and stores) where C
+// % 4 == 0 and the bases are 16-byte aligned, else as C floats.
+__device__ __forceinline__ void vadd(float& s, float x) { s += x; }
+__device__ __forceinline__ void vadd(float4& s, const float4& x) {
+  s.x += x.x;
+  s.y += x.y;
+  s.z += x.z;
+  s.w += x.w;
+}
+template <typename V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float vzero<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// Lanes per row of cv vectors for the per-row forms: the whole row up to a
+// warp, else the largest divisor of cv in [16, 32] (no idle lane: 24 for
+// the 72 float4s of a 288-wide row), else 32.
+inline int row_lanes(int cv) {
+  if (cv <= kWarp) return cv;
+  for (int t = kWarp; t >= kWarp / 2; --t)
+    if (cv % t == 0) return t;
+  return kWarp;
+}
+
+// Adds the blockDim.y values of each x lane (one a thread, through red:
+// blockDim.x * blockDim.y V) in a fixed pairwise tree; the sum is returned
+// to every thread. All of the block's threads must call it.
+template <typename V>
+__device__ V block_sum_y(V s, V* red) {
+  const int x = threadIdx.x, y = threadIdx.y, tx = blockDim.x, ty = blockDim.y;
+  red[y * tx + x] = s;
+  __syncthreads();
+  int h = 1;
+  while (2 * h < ty) h *= 2;
+  for (; h > 0; h >>= 1) {
+    if (y < h && y + h < ty) vadd(red[y * tx + x], red[(y + h) * tx + x]);
+    __syncthreads();
+  }
+  const V out = red[x];
+  __syncthreads();  // red is free for the next call
+  return out;
+}
 
 // ---------------------------------------------------------------------------
 // center_gather
 // Replaces allegro_tpu/ops/fused_tp.py:_center_broadcast_kernel
-// (center_broadcast_call). Bound: the write of out [E, C] and the reads of
-// idx; the rows of a [n_atoms, C] stay in L1/L2. The TPU needed a one-hot
-// MXU product (with a bf16 split to stay exact); here the gather is a plain
-// indexed load, exact by construction. One thread per output element.
+// (center_broadcast_call). Bound: the write of out [E, C] (the reads of a
+// [n_atoms, C] and of the index are a few percent of it, and a stays in L2).
+// The TPU needed a one-hot MXU product (with a bf16 split to stay exact);
+// here a copy, exact by construction, split by the row's width:
+//   - narrow rows (C <= kNarrow: positions, energies): a warp per 32
+//     edges reads their indices once, a lane each, and stores the warp's C
+//     x 32 outputs as C coalesced 128-byte rows, each float's index shuffled
+//     from its edge's lane (center_gather_narrow_kernel);
+//   - wide rows (the pallas env sums, a class lookup), on either side: a
+//     group of row_lanes lanes per edge reads the index once and copies the
+//     row, as float4 where it can (see vadd), the table's rows from L2
+//     (center_gather_rows_kernel). On an H100 at C = 288 and 256 it ran as
+//     fast as a form that stored each atom's row to its edge range on the
+//     center side (PERF.md), so that form is not kept.
+// Each grid is sized to its work; every offset is 64-bit (E x C passes 2^31
+// at 100k atoms and C = 1,024).
 // ---------------------------------------------------------------------------
-__global__ void center_gather_kernel(const float* __restrict__ a, const int* __restrict__ idx,
-                                     long long n_edges, int n_atoms, int C,
-                                     float* __restrict__ out) {
-  const long long total = n_edges * C;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long e = t / C;
-    const int c = (int)(t - e * C);
-    const int i = idx[e];
-    out[t] = (i >= 0 && i < n_atoms) ? a[(long long)i * C + c] : 0.f;
+__global__ void center_gather_narrow_kernel(const float* __restrict__ a,
+                                            const int* __restrict__ idx, long long n_edges,
+                                            int n_atoms, int C, float* __restrict__ out) {
+  // a warp per 32 edges: lane l reads edge e0 + l's index, then stores the
+  // floats l, l + 32, ... of the warp's C x 32 contiguous outputs, each
+  // float's index taken from its edge's lane by a shuffle
+  const long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kWarp * kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int mine = e0 + lane < n_edges ? idx[e0 + lane] : n_atoms;
+  const long long n_out = min((long long)kWarp, n_edges - e0) * C;
+#pragma unroll
+  for (int j = 0; j < kNarrow; ++j) {
+    if (j >= C) break;
+    const int f = lane + kWarp * j, edge = f / C;
+    const int i = __shfl_sync(0xffffffffu, mine, edge);
+    if (f < n_out)
+      out[e0 * C + f] = i >= 0 && i < n_atoms ? a[(long long)i * C + f - edge * C] : 0.f;
   }
+}
+
+template <typename V>
+__global__ void center_gather_rows_kernel(const V* __restrict__ a, const int* __restrict__ idx,
+                                          long long n_edges, int n_atoms, int cv,
+                                          V* __restrict__ out) {
+  const long long e = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  if (e >= n_edges) return;
+  const int i = idx[e];
+  const bool real = i >= 0 && i < n_atoms;
+  for (int q = threadIdx.x; q < cv; q += blockDim.x)
+    out[e * cv + q] = real ? a[(long long)i * cv + q] : vzero<V>();
 }
 
 // ---------------------------------------------------------------------------
 // center_sum
 // Replaces allegro_tpu/ops/fused_tp.py:_center_sum_kernel (center_sum_call).
 // Bound: one read of v [E, C] (through perm on the neighbor side). The TPU
-// summed one-hot window products into two rank-window partials; here a CSR
-// segment sum: one thread per (atom, column) adds its segment in edge order,
-// a register accumulation with no atomics and no second pass.
+// summed one-hot window products into two rank-window partials; here CSR
+// segment sums in a fixed order (no atomics: two identical calls give the
+// same bits), split by the row's width:
+//   - narrow rows (C <= kNarrow: the force scatters, the energy sum):
+//     kSumLanes lanes per atom; lane j adds the segment's rows j, j +
+//     kSumLanes, ... in order (each row's perm[k] read once), so a warp's
+//     loads cover consecutive rows of two atoms, and the lanes' sums meet in
+//     a fixed xor butterfly (center_sum_narrow_kernel). On an H100 at the
+//     flagship's shapes 16 lanes ran faster than 8 and 32 (PERF.md);
+//   - wide rows (the pallas env sums, C = d2 U): a thread per (atom, vector)
+//     adds its segment's rows in edge order, as float4 where it can, the
+//     same per-column order as a scalar walk (center_sum_segments_kernel);
+//   - chunked (a parameter table's class CSR: a few rows of 10^4-10^5
+//     positions each) in two passes, below.
+// Atoms without edges get 0; positions after row_ptr[n_atoms] are not read.
 // ---------------------------------------------------------------------------
-__global__ void center_sum_kernel(const float* __restrict__ v, const int* __restrict__ row_ptr,
-                                  const int* __restrict__ perm, int n_atoms, int C,
-                                  float* __restrict__ out) {
-  const long long total = (long long)n_atoms * C;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const int a = (int)(t / C);
-    const int c = (int)(t - (long long)a * C);
-    float s = 0.f;
-    const int end = row_ptr[a + 1];
-    for (int k = row_ptr[a]; k < end; ++k) {
+__global__ void center_sum_narrow_kernel(const float* __restrict__ v,
+                                         const int* __restrict__ row_ptr,
+                                         const int* __restrict__ perm, int n_atoms, int C,
+                                         float* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long atom = t / kSumLanes;
+  const int lane = (int)(t % kSumLanes);
+  float s[kNarrow] = {};
+  if (atom < n_atoms) {
+    const int k1 = row_ptr[atom + 1];
+#pragma unroll 4
+    for (int k = row_ptr[atom] + lane; k < k1; k += kSumLanes) {
       const long long r = perm ? perm[k] : k;
-      s += v[r * C + c];
+#pragma unroll
+      for (int c = 0; c < kNarrow; ++c)
+        if (c < C) s[c] += v[r * C + c];
     }
-    out[t] = s;
+  }
+  // every lane of the warp takes part (blockDim.x is a multiple of 32)
+#pragma unroll
+  for (int m = kSumLanes / 2; m > 0; m >>= 1)
+#pragma unroll
+    for (int c = 0; c < kNarrow; ++c) s[c] += __shfl_xor_sync(0xffffffffu, s[c], m);
+  if (atom < n_atoms && lane == 0)
+#pragma unroll
+    for (int c = 0; c < kNarrow; ++c)
+      if (c < C) out[atom * C + c] = s[c];
+}
+
+template <typename V>
+__global__ void center_sum_segments_kernel(const V* __restrict__ v,
+                                           const int* __restrict__ row_ptr,
+                                           const int* __restrict__ perm, int n_atoms, int cv,
+                                           V* __restrict__ out) {
+  const int atom = blockIdx.x * blockDim.y + threadIdx.y;
+  if (atom >= n_atoms) return;
+  const int k0 = row_ptr[atom], k1 = row_ptr[atom + 1];
+  for (int q = threadIdx.x; q < cv; q += blockDim.x) {
+    V s = vzero<V>();
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) vadd(s, v[(perm ? (long long)perm[k] : k) * cv + q]);
+    out[(long long)atom * cv + q] = s;
   }
 }
 
-// center_sum over few, long segments (a parameter table's class CSR: a
-// handful of rows, each summing thousands of edges or atoms), where one
-// thread per (row, column) would walk a whole segment alone. Pass 1: block
-// i adds the CSR positions [i*chunk, (i+1)*chunk) of each segment it meets,
-// in position order, into partial[i][row] (the caller zeroes partial, so a
-// segment that misses the chunk stays 0); pass 2 (partials_reduce_kernel)
-// adds the blocks' partials in block order. A fixed order, no atomics.
-__global__ void center_sum_chunks_kernel(const float* __restrict__ v,
+// center_sum over a class CSR, in two passes and no buffer to clear. Pass 1
+// (center_sum_chunks_kernel): block (i, y) takes CSR positions [i chunk,
+// (i + 1) chunk) and the y-th slice of blockDim.x vectors of the columns;
+// for each row r whose segment meets the chunk (rows in order), its y
+// lanes add the piece's positions lo + y, lo + y + blockDim.y, ... in
+// order, block_sum_y adds the lanes, and the sum goes to partial[i + r]:
+// row r's pieces take the consecutive entries [first(r) + r, last(r) + r]
+// (first and last its chunks), and no two pieces share one, so pass 1
+// writes every entry pass 2 reads. Pass 2 (center_sum_partials_kernel):
+// block (r, y) adds row r's entries the same way (0 for an empty row). A
+// fixed order, no atomics; each chunk's rows are read once, coalesced
+// along the row, with each row's perm[k] read once.
+template <typename V>
+__global__ void center_sum_chunks_kernel(const V* __restrict__ v,
                                          const int* __restrict__ row_ptr,
-                                         const int* __restrict__ perm, int n_rows, int C,
-                                         int chunk, float* __restrict__ partial) {
-  const long long k0 = (long long)blockIdx.x * chunk, end = row_ptr[n_rows];
+                                         const int* __restrict__ perm, int n_rows, int cv,
+                                         int chunk, V* __restrict__ partial) {
+  __shared__ V red[kThreads];
+  const long long k0 = (long long)blockIdx.x * chunk;
+  const int end = row_ptr[n_rows];
   if (k0 >= end) return;
-  const long long k1 = min(k0 + chunk, end);
-  int a0 = 0;  // the segment of position k0
-  while (row_ptr[a0 + 1] <= k0) ++a0;
-  float* out = partial + (long long)blockIdx.x * n_rows * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    int a = a0;
-    long long next = row_ptr[a + 1];
-    float s = 0.f;
-    for (long long k = k0; k < k1; ++k) {
-      while (k >= next) {  // segment a ends before k
-        out[(long long)a * C + c] = s;
-        s = 0.f;
-        next = row_ptr[++a + 1];
-      }
-      s += v[(perm ? perm[k] : k) * C + c];
-    }
-    out[(long long)a * C + c] = s;
+  const int k1 = (int)min(k0 + chunk, (long long)end);
+  const int q = blockIdx.y * blockDim.x + threadIdx.x;
+  int r = 0, hi = n_rows;  // the last row whose segment starts at or before k0
+  while (hi - r > 1) {
+    const int mid = (r + hi) / 2;
+    if (row_ptr[mid] <= k0) r = mid;
+    else hi = mid;
   }
+  for (; r < n_rows && row_ptr[r] < k1; ++r) {
+    const int lo = max(row_ptr[r], (int)k0), up = min(row_ptr[r + 1], k1);
+    if (lo >= up) continue;  // an empty row (the whole block skips it)
+    V s = vzero<V>();
+    if (q < cv)
+      for (int k = lo + threadIdx.y; k < up; k += blockDim.y)
+        vadd(s, v[(perm ? (long long)perm[k] : k) * cv + q]);
+    s = block_sum_y(s, red);
+    if (threadIdx.y == 0 && q < cv) partial[(blockIdx.x + (long long)r) * cv + q] = s;
+  }
+}
+
+template <typename V>
+__global__ void center_sum_partials_kernel(const V* __restrict__ partial,
+                                           const int* __restrict__ row_ptr, int cv, int chunk,
+                                           V* __restrict__ out) {
+  __shared__ V red[kThreads];
+  const int r = blockIdx.x, q = blockIdx.y * blockDim.x + threadIdx.x;
+  const int b = row_ptr[r], e = row_ptr[r + 1];
+  V s = vzero<V>();
+  if (b < e && q < cv)
+    for (long long p = b / chunk + r + threadIdx.y; p <= (e - 1) / chunk + r; p += blockDim.y)
+      vadd(s, partial[p * cv + q]);
+  s = block_sum_y(s, red);
+  if (threadIdx.y == 0 && q < cv) out[(long long)r * cv + q] = s;
+}
+
+template <typename V>
+int launch_center_gather(const float* a, const int* idx, long long n_edges, int n_atoms, int cv,
+                         float* out, cudaStream_t stream) {
+  const int tx = row_lanes(cv), ty = kThreads / tx;
+  center_gather_rows_kernel<V><<<(unsigned)((n_edges + ty - 1) / ty), dim3(tx, ty), 0, stream>>>(
+      reinterpret_cast<const V*>(a), idx, n_edges, n_atoms, cv, reinterpret_cast<V*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_center_sum(const float* v, const int* row_ptr, const int* perm, int n_atoms, int cv,
+                      float* out, cudaStream_t stream) {
+  const int tx = min(cv, kThreads), ty = kThreads / tx;
+  center_sum_segments_kernel<V><<<(n_atoms + ty - 1) / ty, dim3(tx, ty), 0, stream>>>(
+      reinterpret_cast<const V*>(v), row_ptr, perm, n_atoms, cv, reinterpret_cast<V*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_center_sum_chunked(const float* v, const int* row_ptr, const int* perm, int n_rows,
+                              int cv, long long n_pos, int chunk, float* partial, float* out,
+                              cudaStream_t stream) {
+  const int tx = row_lanes(cv), ty = kThreads / tx;
+  const unsigned slices = (unsigned)((cv + tx - 1) / tx);
+  const long long n_chunks = (n_pos + chunk - 1) / chunk;
+  if (n_chunks > 0)
+    center_sum_chunks_kernel<V><<<dim3((unsigned)n_chunks, slices), dim3(tx, ty), 0, stream>>>(
+        reinterpret_cast<const V*>(v), row_ptr, perm, n_rows, cv, chunk,
+        reinterpret_cast<V*>(partial));
+  center_sum_partials_kernel<V><<<dim3(n_rows, slices), dim3(tx, ty), 0, stream>>>(
+      reinterpret_cast<const V*>(partial), row_ptr, cv, chunk, reinterpret_cast<V*>(out));
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -647,32 +827,40 @@ extern "C" {
 
 int atpt_center_gather(const float* a, const int* idx, long long n_edges, int n_atoms, int C,
                        float* out, void* stream) {
-  const int blocks = grid_for(n_edges * C, kThreads, 8 * sm_count());
-  center_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a, idx, n_edges, n_atoms,
-                                                                      C, out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C <= kNarrow) {
+    center_gather_narrow_kernel<<<(unsigned)((n_edges + kThreads - 1) / kThreads), kThreads, 0,
+                                  st>>>(a, idx, n_edges, n_atoms, C, out);
+    return (int)cudaGetLastError();
+  }
+  if (C % 4 == 0 && aligned16(a) && aligned16(out))
+    return launch_center_gather<float4>(a, idx, n_edges, n_atoms, C / 4, out, st);
+  return launch_center_gather<float>(a, idx, n_edges, n_atoms, C, out, st);
 }
 
 int atpt_center_sum(const float* v, const int* row_ptr, const int* perm, int n_atoms, int C,
                     float* out, void* stream) {
-  const int blocks = grid_for((long long)n_atoms * C, kThreads, 8 * sm_count());
-  center_sum_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(v, row_ptr, perm, n_atoms, C,
-                                                                   out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C <= kNarrow) {
+    const long long threads = (long long)n_atoms * kSumLanes;
+    center_sum_narrow_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
+                               st>>>(v, row_ptr, perm, n_atoms, C, out);
+    return (int)cudaGetLastError();
+  }
+  if (C % 4 == 0 && aligned16(v) && aligned16(out))
+    return launch_center_sum<float4>(v, row_ptr, perm, n_atoms, C / 4, out, st);
+  return launch_center_sum<float>(v, row_ptr, perm, n_atoms, C, out, st);
 }
 
 int atpt_center_sum_chunked(const float* v, const int* row_ptr, const int* perm, int n_rows,
                             int C, long long n_pos, int chunk, float* partial, float* out,
                             void* stream) {
-  const long long n_blocks = (n_pos + chunk - 1) / chunk;
-  const int threads = C < kThreads ? (C + kWarp - 1) / kWarp * kWarp : kThreads;
-  if (n_blocks > 0)
-    center_sum_chunks_kernel<<<(int)n_blocks, threads, 0, (cudaStream_t)stream>>>(
-        v, row_ptr, perm, n_rows, C, chunk, partial);
-  const int n = n_rows * C;
-  partials_reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-      partial, (int)n_blocks, n, out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C % 4 == 0 && aligned16(v) && aligned16(partial) && aligned16(out))
+    return launch_center_sum_chunked<float4>(v, row_ptr, perm, n_rows, C / 4, n_pos, chunk,
+                                             partial, out, st);
+  return launch_center_sum_chunked<float>(v, row_ptr, perm, n_rows, C, n_pos, chunk, partial,
+                                          out, st);
 }
 
 int atpt_readout_sum(const float* const* piece_ptrs, const long long* piece_strides,

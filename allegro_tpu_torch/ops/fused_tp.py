@@ -638,8 +638,11 @@ def center_gather(a, idx) -> torch.Tensor:
     """out [E, C]: ``out[e] = a[idx[e]]``, zeros where ``idx[e] >= n_atoms``
     (sentinel edges). a [n_atoms, C], idx [E]. Exact (a copy).
 
-    Replaces ``_center_broadcast_kernel``. Bound by the write of out; one
-    thread per output element, an indexed load."""
+    Replaces ``_center_broadcast_kernel``. Bound by the write of out. Narrow
+    rows (C <= 4: positions, energies): a warp per 32 edges reads their
+    indices once and stores the warp's outputs as C coalesced rows; wider
+    rows: a group of lanes per edge reads its index once and copies the
+    row, as float4 where C % 4 == 0."""
     if a.ndim != 2 or idx.ndim != 1:
         raise ValueError(f"center_gather shapes: a {tuple(a.shape)}, idx {tuple(idx.shape)}")
     if _on_cpu(a, idx):
@@ -654,7 +657,7 @@ def center_gather(a, idx) -> torch.Tensor:
     return out
 
 
-CENTER_SUM_CHUNK = 256  # CSR positions per block of center_sum's chunked pass
+CENTER_SUM_CHUNK = 256  # CSR positions per block of center_sum's chunked first pass
 
 
 def center_sum(v, row_ptr, perm=None, chunked: bool = False) -> torch.Tensor:
@@ -662,12 +665,16 @@ def center_sum(v, row_ptr, perm=None, chunked: bool = False) -> torch.Tensor:
     (``perm`` None = identity, the center side). v [E, C], row_ptr
     [n_atoms+1], perm [E]; CSR positions after ``row_ptr[n_atoms]`` (sentinel
     edges) are dropped. ``chunked``: for a few long segments (a parameter
-    table's class CSR), sum each segment in fixed chunks of
-    ``CENTER_SUM_CHUNK`` positions, then the chunks in order.
+    table's class CSR).
 
-    Replaces ``_center_sum_kernel``. Bound by the read of v; one thread per
-    (atom, column) sums its segment in edge order (no atomics); chunked, one
-    block per chunk and a second pass over the chunks' partials."""
+    Replaces ``_center_sum_kernel``. Bound by the read of v; every sum in a
+    fixed order (no atomics). Narrow rows (C <= 4): 16 lanes per atom add
+    every 16th row of its segment, then meet in a fixed shuffle tree; wider
+    rows: a thread per (atom, 4 columns) adds its segment in edge order, as
+    float4. Chunked, two launches and no buffer to clear: a block per chunk
+    of ``CENTER_SUM_CHUNK`` positions and slice of columns writes one
+    partial per segment piece of the chunk, then a block per row and slice
+    adds the row's partials, each in a fixed tree."""
     n_atoms = row_ptr.shape[0] - 1
     if v.ndim != 2 or row_ptr.ndim != 1 or (perm is not None and perm.shape != v.shape[:1]):
         raise ValueError(
@@ -683,15 +690,15 @@ def center_sum(v, row_ptr, perm=None, chunked: bool = False) -> torch.Tensor:
     if n_atoms == 0 or C == 0:
         return out
     if chunked:
-        n_blocks = -(-v.shape[0] // CENTER_SUM_CHUNK)
-        partial = torch.zeros((n_blocks, n_atoms, C), dtype=v.dtype, device=v.device)
+        # row r's pieces take the entries [first chunk + r, last chunk + r]
+        n_chunks = -(-v.shape[0] // CENTER_SUM_CHUNK)
+        partial = torch.empty((n_chunks + n_atoms, C), dtype=v.dtype, device=v.device)
         _launch("center_sum", "atpt_center_sum_chunked", v.device,
-                v.data_ptr(), row_ptr.data_ptr(), None if perm is None else perm.data_ptr(),
-                n_atoms, C, v.shape[0], CENTER_SUM_CHUNK, partial.data_ptr(), out.data_ptr())
+                v.data_ptr(), row_ptr.data_ptr(), _ptr(perm), n_atoms, C, v.shape[0],
+                CENTER_SUM_CHUNK, partial.data_ptr(), out.data_ptr())
         return out
     _launch("center_sum", "atpt_center_sum", v.device,
-            v.data_ptr(), row_ptr.data_ptr(), None if perm is None else perm.data_ptr(),
-            n_atoms, C, out.data_ptr())
+            v.data_ptr(), row_ptr.data_ptr(), _ptr(perm), n_atoms, C, out.data_ptr())
     return out
 
 

@@ -37,8 +37,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    same crystal at r_max 7.0 (~134 edges per atom: a segment spans three of
    ``latent_env_scatter``'s 64-edge tiles, and each of ``tp_scatter``'s and
    ``bwd_fused``'s four chunks walks ~34 of its edges); the center gather
-   and sum on positions [4096, 3] at the center and the neighbor side (and,
-   checks only, on the [·, 1] energy column of the plain readout chain);
+   and sum on positions [4096, 3] at the center and the neighbor side, and
+   timed at every other width a user path runs them (``center_cases``: the
+   [·, 1] energy column, the ``pallas`` env sums at d2 U = 288 and the
+   l_max-3 256, the chunked sums of two class CSRs against float64), and
+   untimed on their scalar builds (C = 18 on both sides and chunked, C =
+   288 from bases that are not 16-byte aligned: ``[scalar]``);
    the fused readout and its backward on three 64-wide pieces (W0 [192,
    32], w1 [32, 1]); the launch floor, an empty kernel's time under the
    same timer, printed again before the kernels line;
@@ -179,8 +183,10 @@ where there is one (the center gather and sum, ``sparse_tp*``), else null,
 (``-Xptxas -v`` of this run's build).
 Every configuration and entry point has its own ``launches_*`` key; the
 ``*_lmax3`` keys are the same kernel's record at the l_max-3 layer-0 shapes;
-variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``, ``[pair]``) have
-their own ``ms_*``, ``plain_ms_*`` and ``bound_ms_*`` in the base row;
+variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``, ``[pair]``; the
+center gather's and sum's other widths, ``[C1]``, ``[C288]``, ``[C256]``,
+``[chunked1024]``, ``[chunked32]``, ``[class32]``: ``center_cases``) have
+their own ``ms_*``, ``plain_ms_*``, ``bound_ms_*`` and ``library_ms_*`` in the base row;
 ``pair_ms`` (and ``pair_ms_lmax3``) is the ``[pair]`` variant's time: the two
 launches that compute the same function (``unweight_sh`` + ``unweight_w``
 for ``unweight_both``; ``gather_tp`` swapped + ``tp_scatter`` for
@@ -822,12 +828,23 @@ def check_long_segments(model, rng, dev):
                f"r_max {LONG_R_MAX} pieces 3 x [{E}, {S}] W0 [{3 * S}, 32]")
 
 
-def check_center_readout(data, rng, records):
-    """Phase 2, second part: the center gather and sum and the fused readout
-    at the force call's shapes, summed over the launches of one call. Beside
-    the center kernels, the one PyTorch call that computes the same function
-    (``index_select`` on the table with a zero row for the sentinel,
-    ``index_add_``) is timed; the port never calls it."""
+def center_cases(data, rng):
+    """The center gather's and sum's cases at every width and side a user
+    path runs them, on ``data``'s edges: (record key, case, label, kernel,
+    plain, reads, FLOPs, library, exact). The record key is the kernel's
+    name at the flagship force call's widths (the C = 3 position gathers and
+    force scatters, both sides, summed), else ``name[variant]``: the [·, 1]
+    energy column of the plain readout chain (``C1``), the ``pallas``
+    backend's env sum at the flagship (``C288``: d2 U = 9 x 32) and at the
+    l_max-3 layer 0 (``C256``: 16 x 16), and a parameter table's class CSR
+    (``chunked1024``: the crystal's 9 edge classes on rows of 64 x 16 spline
+    weights; ``chunked32``: 3 center types on a 32-wide type embedding, and
+    ``class32``, that table's read). ``library``: the one PyTorch call that
+    computes the same function (``index_select`` on the table with a zero
+    row for the sentinel, ``index_add_``), timed beside it; the port never
+    calls it. ``exact``: the plain version in float64 where the kernel is
+    held to it (the chunked sums: each row sums ~10^4-10^5 edges, so the
+    kernel is held to the exact sum, not to another float32 order of it)."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.ops import fused_tp
 
@@ -836,6 +853,113 @@ def check_center_readout(data, rng, records):
     centers, neighbors = ei[0].contiguous(), ei[1].contiguous()
     row_ptr = data[keys.CENTER_ROW_PTR]
     nbr = (data[keys.NBR_ROW_PTR], data[keys.NBR_PERM])
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+    E = centers.shape[0]
+    Er = int(data[keys.EDGE_MASK].sum())
+
+    def rand(*shape, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return t * real if edge else t
+
+    n_types = len(FLAGSHIP["type_names"])
+    perm, rp = fused_tp.neighbor_csr(data[keys.EDGE_TYPE].cpu().numpy(), n_types**2)
+    edge_class = (data[keys.EDGE_TYPE], torch.as_tensor(rp, device=dev),
+                  torch.as_tensor(perm, device=dev))
+    center_type = tuple(data[k] for k in keys.class_csr_keys(keys.CENTER_TYPE_LOOKUP))
+    sides = {"center": (centers, row_ptr, None), "neighbor": (neighbors, *nbr)}
+    # (key, case, width, side or class CSR, sum only)
+    plan = [(None, "C3_center", 3, sides["center"], False),
+            (None, "C3_neighbor", 3, sides["neighbor"], False),
+            ("C1", "C1_center", 1, sides["center"], False),
+            ("C288", "C288_center", 288, sides["center"], False),
+            ("C256", "C256_center", 256, sides["center"], False),
+            ("chunked1024", "chunked1024", 64 * 16, edge_class, True),
+            ("chunked32", "chunked32", 32, center_type, True)]
+    cases = []
+
+    def add(tag, case, width, idx, rp, perm, chunked):
+        n_rows = rp.shape[0] - 1
+        a = (data[keys.POSITIONS].contiguous() if width == 3
+             else rand(n_rows, width, edge=False))
+        v = rand(E, width)
+        a_pad = torch.cat([a, a.new_zeros((1, width))])  # the sentinel's zero row
+        idx_l = idx.long()
+        acc = a.new_zeros((n_rows + 1, width))
+        side = "chunked (class CSR)" if chunked else case.split("_")[-1]
+        label = f"[{n_rows}, {width}] <-> [{E}, {width}] {side:8s}"
+        gather_case = (lambda: (fused_tp.center_gather(a, idx),),
+                       lambda: (fused_tp.center_gather_reference(a, idx),), (a, idx), 0,
+                       lambda: a_pad.index_select(0, idx_l), None)
+        sum_case = (lambda: (fused_tp.center_sum(v, rp, perm, chunked),),
+                    lambda: (fused_tp.center_sum_reference(v, rp, perm),), (v, rp, perm),
+                    Er * width, lambda: acc.index_add_(0, idx_l, v),
+                    (lambda: (fused_tp.center_sum_reference(v.double(), rp, perm),))
+                    if chunked else None)
+        if chunked:  # a table's read (a gather by class), then its gradient
+            if width == 32:
+                cases.append(("center_gather[class32]", "class32", label, *gather_case))
+            cases.append((f"center_sum[{tag}]", case, label, *sum_case))
+            return
+        cases.append(("center_gather" + (f"[{tag}]" if tag else ""), case, label, *gather_case))
+        cases.append(("center_sum" + (f"[{tag}]" if tag else ""), case, label, *sum_case))
+
+    for tag, case, width, csr, chunked in plan:
+        add(tag, case, width, *csr, chunked)
+    return cases
+
+
+def check_center_scalar_forms(data, rng):
+    """Phase 2: the center gather's and sum's scalar builds, which no shape
+    of a user path reaches today (C > 4 and no multiple of 4, or a base that
+    is not 16-byte aligned), against their plain versions, untimed: C = 18
+    on the center side, the neighbor side and the crystal's edge classes
+    (the chunked sum, against float64), and C = 288 on the center side from
+    bases 4 bytes past alignment."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    ei = data[keys.EDGE_INDEX].to(torch.int32)
+    real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
+    E = ei.shape[1]
+    n_types = len(FLAGSHIP["type_names"])
+    perm, rp = fused_tp.neighbor_csr(data[keys.EDGE_TYPE].cpu().numpy(), n_types**2)
+    csrs = {"center": (ei[0].contiguous(), data[keys.CENTER_ROW_PTR], None),
+            "neighbor": (ei[1].contiguous(), data[keys.NBR_ROW_PTR], data[keys.NBR_PERM]),
+            "chunked": (data[keys.EDGE_TYPE], torch.as_tensor(rp, device=dev),
+                        torch.as_tensor(perm, device=dev))}
+
+    def rand(n, width, offset):
+        """[n, width], contiguous, its base ``offset`` floats into its buffer."""
+        flat = torch.as_tensor(rng.randn(offset + n * width).astype(np.float32), device=dev)
+        return flat[offset:].view(n, width)
+
+    for side, width, offset in (("center", 18, 0), ("neighbor", 18, 0), ("chunked", 18, 0),
+                                ("center", 288, 1)):
+        idx, rp, perm = csrs[side]
+        chunked = side == "chunked"
+        a, v = rand(rp.shape[0] - 1, width, offset), rand(E, width, offset)
+        v.mul_(real)
+        label = f"[{a.shape[0]}, {width}] <-> [{E}, {width}] {side:8s} base +{4 * offset} B"
+        check_case("center_gather[scalar]", lambda: (fused_tp.center_gather(a, idx),),
+                   lambda: (fused_tp.center_gather_reference(a, idx),), label)
+        check_case("center_sum[scalar]", lambda: (fused_tp.center_sum(v, rp, perm, chunked),),
+                   lambda: (fused_tp.center_sum_reference(v, rp, perm),), label,
+                   exact=(lambda: (fused_tp.center_sum_reference(v.double(), rp, perm),))
+                   if chunked else None)
+
+
+def check_center_readout(data, rng, records):
+    """Phase 2, second part: the center gather and sum at every width and
+    side a user path runs them (:func:`center_cases`; the kernels line's
+    rows 5 and 6 sum the C = 3 launches of one force call, the other widths
+    are variants), and the fused readout at the force call's shapes."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
     n_atoms = row_ptr.shape[0] - 1
     real = data[keys.EDGE_MASK].to(torch.float32)[:, None]
     E = centers.shape[0]
@@ -845,42 +969,9 @@ def check_center_readout(data, rng, records):
         t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
         return t * real if edge else t
 
-    pos = data[keys.POSITIONS].contiguous()
-    for width, timed in ((3, True), (1, False)):
-        a = pos if width == 3 else rand(n_atoms, 1, edge=False)
-        v = rand(E, width)
-        rec = records if timed else None
-        a_pad = torch.cat([a, a.new_zeros((1, width))])  # the sentinel's zero row
-        for side, idx, (rp, perm) in (("center", centers, (row_ptr, None)),
-                                      ("neighbor", neighbors, nbr)):
-            label = f"[{n_atoms}, {width}] <-> [{E}, {width}] {side:8s}"
-            idx_l = idx.long()
-            acc = a.new_zeros((n_atoms + 1, width))
-            check_case("center_gather",
-                       lambda: (fused_tp.center_gather(a, idx),),
-                       lambda: (fused_tp.center_gather_reference(a, idx),), label, rec,
-                       (a, idx), 0, lambda: a_pad.index_select(0, idx_l))
-            check_case("center_sum",
-                       lambda: (fused_tp.center_sum(v, rp, perm),),
-                       lambda: (fused_tp.center_sum_reference(v, rp, perm),), label, rec,
-                       (v, rp, perm), Er * width, lambda: acc.index_add_(0, idx_l, v))
-            if width == 1:  # the plain readout chain sums on the center side only
-                break
-    # the chunked sum of a parameter table's gradient over its class CSR: the
-    # crystal's edge types (9 classes, rows of 64 x 16 spline weights) and
-    # center types (3, rows of a 32-wide type embedding). Each row sums
-    # ~10^4-10^5 edges, so the plain version runs in float64: the kernel is
-    # held to the exact sum, not to another float32 order of it.
-    n_types = len(FLAGSHIP["type_names"])
-    perm, rp = fused_tp.neighbor_csr(data[keys.EDGE_TYPE].cpu().numpy(), n_types**2)
-    for rp, perm, width in ((torch.as_tensor(rp, device=dev), torch.as_tensor(perm, device=dev),
-                             64 * 16),
-                            (*(data[k] for k in keys.class_csr_keys(keys.CENTER_TYPE_LOOKUP)[1:]),
-                             32)):
-        v = rand(E, width)
-        check_case("center_sum", lambda: (fused_tp.center_sum(v, rp, perm, chunked=True),),
-                   lambda: (fused_tp.center_sum_reference(v.double(), rp, perm),),
-                   f"[{rp.shape[0] - 1}, {width}] <- [{E}, {width}] chunked (class CSR)")
+    for key, _, label, kernel, plain, reads, flops, library, exact in center_cases(data, rng):
+        check_case(key, kernel, plain, label, records, reads, flops, library, exact=exact)
+    check_center_scalar_forms(data, np.random.RandomState(SEED + 1))
     S, H = FLAGSHIP["num_scalar_features"], 32
     K = S * (FLAGSHIP["num_layers"] + 1)
     # the scalar track's pieces are column slices of the layers' MLP outputs
@@ -2259,17 +2350,21 @@ def ptxas_usage(log):
 
 def kernel_ptxas(name, usage):
     """The ptxas records of the entry functions of wrapper ``name``'s kernel
-    (``<name>_kernel`` and its ``_partial`` first pass; ``<true>`` /
-    ``<false>``, ``<4>``, ``<true, 64>``: the instantiations of its bool and
-    int template parameters)."""
+    (``<name>_kernel``, its ``_partial`` first pass, and the center
+    kernels' forms ``_narrow``, ``_segments``, ``_rows``, ``_chunks`` and
+    ``_partials``; ``<true>`` / ``<false>``, ``<4>``, ``<true, 64>``,
+    ``<float4>``: the instantiations of its bool, int and vector-type
+    template parameters)."""
     out = []
+    forms = "partial|narrow|segments|rows|chunks|partials"
     for mangled, (regs, stores, loads) in usage.items():
-        m = re.search(rf"\d({re.escape(name)}(?:_partial)?_kernel)(I((?:L[bi]\d+E)+)E)?",
-                      mangled)
+        m = re.search(rf"\d({re.escape(name)}(?:_(?:{forms}))?_kernel)"
+                      r"(I((?:L[bi]\d+E)+|f|6float4)E)?", mangled)
         if m:
             args = [{"b1": "true", "b0": "false"}.get(k + v, v)
                     for k, v in re.findall(r"L([bi])(\d+)E", m.group(3) or "")]
-            tag = f"<{', '.join(args)}>" if args else ""
+            args = args or [{"f": "float", "6float4": "float4"}.get(m.group(3), "")]
+            tag = f"<{', '.join(args)}>" if any(args) else ""
             out.append({"kernel": m.group(1) + tag, "registers": regs, "spill_stores": stores,
                         "spill_loads": loads})
     return out
@@ -2336,6 +2431,7 @@ def kernel_record(row, records, records_l3, runs):
                 out[f"max_abs_err_{tag}"] = variant["max_abs_err"]
                 out[f"ms_{tag}"], out[f"plain_ms_{tag}"] = variant["ms"], variant["plain_ms"]
                 out[f"bound_ms_{tag}"], out[f"bound_by_{tag}"] = v_bound, v_by
+                out[f"library_ms_{tag}"] = variant["library_ms"]
     return out
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two checkouts of allegro_tpu_torch on one CUDA card, interleaved.
 
-    python3 scripts/torch_compare_trees.py BEFORE AFTER [--out FILE]
+    python3 scripts/torch_compare_trees.py BEFORE AFTER [--out FILE] [--center]
 
 BEFORE and AFTER are directories that each hold a checkout (``git
 archive``) of the repository. Each tree is measured in a subprocess of its
@@ -23,7 +23,8 @@ Each run times, with that tree's package:
   path tables the tree's layers cache where it has them;
 - ``train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``pallas`` on the 4 x 1,000-atom batch: the median of 10 steps after 2,
-  host clock;
+  host clock; ``pallas_train_busy_ms`` and ``pallas_train_idle_pct`` its
+  device time per step and idle share under torch.profiler (3 steps);
 - ``md_ms_per_step``: ``python -m allegro_tpu_torch md -c configs/md.yaml``
   run from the tree, its own "MD done" ms/step;
 - ``mega_us_per_atom`` and ``mega_lmax3_us_per_atom``: the same force call
@@ -66,6 +67,13 @@ Each run times, with that tree's package:
   ``unweight_sh`` and ``unweight_w`` one after the other on
   ``unweight_both``'s inputs; ``env_scatter_u256_ms``: kernel 1 on the
   crystal's edges at the flagship's layer-0 dims with U = 256;
+- ``center_gather_<case>_ms`` and ``center_sum_<case>_ms``: device times
+  from CUDA events of kernels 5 and 6 at every width and side a user path
+  runs them (``chip_smoke.center_cases``: C = 3 on the center and the
+  neighbor side, C = 1, the ``pallas`` env sums at 288 and 256, the
+  chunked class-CSR sums at 1,024 and 32 and the 32-wide class gather),
+  with each case's ``_bound_ms`` and ``_library_ms``; ``--center`` times
+  these alone;
 - ``fused_train_ms_per_step``: one ``Trainer.fit`` step of the flagship on
   ``fused`` on the 4 x 1,000-atom batch (median of 10 steps after 2, host
   clock), ``fused_train_busy_ms`` and ``fused_train_idle_pct`` its device
@@ -167,6 +175,24 @@ def kernel_times(smoke, allegro, data) -> dict:
         pieces, w0, w1, row_ptr))
     ms["readout_bwd_ms"] = smoke.median_ms(lambda: fused_tp.readout_bwd(
         pieces, w0, w1, y, centers))
+    return ms
+
+
+def center_kernel_times(smoke, data) -> dict:
+    """Device ms, from CUDA events, of the center gather and sum at every
+    width and side a user path runs them (``chip_smoke.center_cases``, on
+    ``data``'s edges), each through the tree's wrapper, keyed
+    ``<kernel>_<case>_ms``; beside each, ``_bound_ms`` and ``_library_ms``
+    (the same for both trees)."""
+    import numpy as np
+
+    ms = {}
+    cases = smoke.center_cases(data, np.random.RandomState(smoke.SEED))
+    for key, case, _, kernel, _, reads, flops, library, _ in cases:
+        name = f"{key.split('[')[0]}_{case}"
+        ms[f"{name}_ms"] = smoke.median_ms(kernel)
+        ms[f"{name}_bound_ms"] = smoke.bound(smoke.nbytes(*reads, *kernel()), flops)[0]
+        ms[f"{name}_library_ms"] = smoke.median_ms(library)
     return ms
 
 
@@ -327,7 +353,7 @@ def env_scatter_wide_ms(smoke, tp, data, U) -> float:
         sh, wexp, centers, data[keys.CENTER_ROW_PTR], tp.dim_to_irr, U))
 
 
-def measure(tree: Path) -> dict:
+def measure(tree: Path, center_only: bool = False) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -349,6 +375,9 @@ def measure(tree: Path) -> dict:
                          tp_kernel_backend="pallas").init(smoke.SEED).to(dev)
     data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
                     dtype=torch.float32, device=dev)
+    out.update(center_kernel_times(smoke, data))
+    if center_only:
+        return out
     for _ in range(WARMUP_CALLS):
         model.apply_with_derivatives(data)
     torch.cuda.synchronize()
@@ -454,6 +483,9 @@ def measure(tree: Path) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     out["train_ms_per_step"] = 1e3 * float(np.median(times[WARMUP_STEPS:]))
+    prof = smoke.profile_steps(trainer, state, loader)
+    if prof is not None:
+        out["pallas_train_busy_ms"], out["pallas_train_idle_pct"] = prof
 
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
@@ -471,10 +503,12 @@ def main() -> int:
     ap.add_argument("before", type=Path)
     ap.add_argument("after", type=Path, nargs="?")
     ap.add_argument("--one", action="store_true", help="measure BEFORE alone, in this process")
+    ap.add_argument("--center", action="store_true",
+                    help="time the center gather and sum cases alone")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if args.one:
-        print(json.dumps(measure(args.before)))
+        print(json.dumps(measure(args.before, args.center)))
         return 0
     if args.after is None:
         ap.error("give two trees, or one with --one")
@@ -484,7 +518,8 @@ def main() -> int:
     lines = [smi]
     for label, tree in (("before", args.before), ("after", args.after),
                         ("after", args.after), ("before", args.before)):
-        proc = subprocess.run([sys.executable, __file__, str(tree), "--one"], capture_output=True,
+        proc = subprocess.run([sys.executable, __file__, str(tree), "--one"]
+                              + ["--center"] * args.center, capture_output=True,
                               text=True, timeout=TIMEOUT)
         if proc.returncode != 0:
             print(proc.stdout[-3000:])

@@ -24,6 +24,14 @@ their plain versions (the CPU path).
   is a multiple of 4 wide, else column by column; pieces as column slices
   and of odd widths (5, 3, 17), H = 20, 32 and 64 and no hidden layer,
   large pieces on a sentinel block.
+- ``center_gather``'s work split and ``center_sum``'s summation orders
+  (``csrc/center_readout.cu``), emulated in float64 against the plain
+  versions, at C = 1, 3, 32, 288 and 1,024 on an odd edge count with atoms
+  without edges and nonzero sentinel rows: the gather's narrow (a warp per
+  32 edges) and per-row forms, each output stored once; the sum's lanes and butterfly (narrow rows) and
+  edge order (wide), both sides; the chunked sum's two passes over a class
+  CSR with an empty row and with one row holding every position, each
+  partial written once before it is read.
 """
 
 import numpy as np
@@ -539,3 +547,236 @@ def test_readout_sum_tile_schedule_equals_the_plain_version(threads, layout, hid
     got = _emulate_readout_sum(pieces, w0, w1, row_ptr, threads, n_blocks)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
     assert (got[counts == 0] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# center_gather's and center_sum's work splits and summation orders
+# (csrc/center_readout.cu), emulated in float64 against the plain versions
+# ---------------------------------------------------------------------------
+
+THREADS, NARROW, SUM_LANES, WARP = 256, 4, 16, 32
+WIDTHS = [1, 3, 32, 288, 1024]
+GAP_ATOMS = (0, 7, 23)  # atoms without edges on either side
+
+
+def _vectors(C):
+    """(vectors per row, floats per vector): float4 where C % 4 == 0."""
+    return (C // 4, 4) if C % 4 == 0 else (C, 1)
+
+
+def _row_lanes(cv):
+    """center_readout.cu's row_lanes."""
+    if cv <= 32:
+        return cv
+    return next((t for t in range(32, 15, -1) if cv % t == 0), 32)
+
+
+def _lane_vectors(cv, tx):
+    """The vectors the tx lanes of a row take (q = lane, lane + tx, ...):
+    each exactly once."""
+    qs = sorted(q for lane in range(tx) for q in range(lane, cv, tx))
+    assert qs == list(range(cv))
+
+
+def _tree(lanes):
+    """block_sum_y: the ty lane sums added pairwise (y += y + h for h the
+    powers of two below ty, largest first); the sum of lane 0."""
+    lanes, ty = lanes.copy(), lanes.shape[0]
+    h = 1
+    while 2 * h < ty:
+        h *= 2
+    while h > 0:
+        for y in range(h):
+            if y + h < ty:
+                lanes[y] = lanes[y] + lanes[y + h]
+        h //= 2
+    return lanes[0]
+
+
+def _gap_graph(side):
+    """191 edges (odd): 171 real over the atoms but GAP_ATOMS, then 20
+    sentinel edges. ``center``: sorted centers with their CSR; ``neighbor``:
+    neighbors in edge order with the neighbor-sorted CSR and perm."""
+    rng = np.random.RandomState(11)
+    atoms = [a for a in range(N_ATOMS) if a not in GAP_ATOMS]
+    centers = np.sort(np.concatenate([atoms, rng.choice(atoms, 150)]))
+    if side == "center":
+        idx = np.concatenate([centers, np.full(20, N_ATOMS)]).astype(np.int32)
+        return idx, fused_tp.csr_row_ptr(idx, N_ATOMS), None
+    idx = np.concatenate([rng.permutation(np.resize(atoms, 171)),
+                          np.full(20, N_ATOMS)]).astype(np.int32)
+    perm, rp = fused_tp.neighbor_csr(idx, N_ATOMS)
+    return idx, rp, perm
+
+
+def _class_csr(kind):
+    """A parameter table's class CSR over the same 191 positions: ``classes``,
+    5 rows with row 2 empty; ``one_row``, 3 rows with every real position
+    in row 1. The 20 padded positions read the sentinel row."""
+    rng = np.random.RandomState(12)
+    n_rows = 5 if kind == "classes" else 3
+    real = rng.choice([0, 1, 3, 4], 171) if kind == "classes" else np.ones(171, int)
+    idx = np.concatenate([real, np.full(20, n_rows)]).astype(np.int32)
+    perm, rp = fused_tp.neighbor_csr(idx, n_rows)
+    return idx, rp, perm
+
+
+def _emulate_gather(a, idx):
+    """center_gather's work split. Narrow rows (C <= NARROW): a warp per 32
+    edges, lane l reading edge e0 + l's index (the sentinel past E) and
+    storing the floats l, l + 32, ... of the warp's C x 32 outputs, each
+    with the index of its edge's lane. Wider rows: a group of row_lanes
+    lanes per edge. Every output must be stored exactly once."""
+    E, (n, C) = idx.shape[0], a.shape
+    out = np.full((E, C), np.nan)
+    stores = np.zeros((E, C), int)
+
+    def store(k, row):
+        out[k] = row
+        stores[k] += 1
+
+    if C <= NARROW:
+        flat, flat_stores = out.reshape(-1), stores.reshape(-1)
+        for e0 in range(0, E, WARP):
+            mine = [idx[e0 + lane] if e0 + lane < E else n for lane in range(WARP)]
+            n_out = min(WARP, E - e0) * C
+            for j in range(C):
+                for lane in range(WARP):
+                    f = lane + WARP * j
+                    i = mine[f // C]
+                    if f < n_out:
+                        flat[e0 * C + f] = a[i, f - f // C * C] if 0 <= i < n else 0.0
+                        flat_stores[e0 * C + f] += 1
+    else:
+        _lane_vectors(_vectors(C)[0], _row_lanes(_vectors(C)[0]))
+        for e in range(E):
+            store(e, a[idx[e]] if 0 <= idx[e] < n else 0.0)
+    assert (stores == 1).all(), "an output stored twice or never"
+    return torch.as_tensor(out)
+
+
+def _emulate_sum(v, row_ptr, perm):
+    """center_sum's order: for C <= NARROW, SUM_LANES lanes per atom, lane j
+    adding the segment's rows j, j + SUM_LANES, ... in order, then the xor
+    butterfly (lane j += lane j ^ m, m = SUM_LANES / 2, ..., 1) and lane 0's
+    value; wider, each column's segment in edge order."""
+    n, C = row_ptr.shape[0] - 1, v.shape[1]
+    rows = v if perm is None else v[perm]
+    out = np.zeros((n, C))
+    for atom in range(n):
+        seg = rows[row_ptr[atom]:row_ptr[atom + 1]]
+        if C <= NARROW:
+            lanes = np.zeros((SUM_LANES, C))
+            for j in range(SUM_LANES):
+                for r in seg[j::SUM_LANES]:
+                    lanes[j] = lanes[j] + r
+            m = SUM_LANES // 2
+            while m:
+                lanes = lanes + lanes[np.arange(SUM_LANES) ^ m]
+                m //= 2
+            out[atom] = lanes[0]
+        else:
+            for r in seg:
+                out[atom] = out[atom] + r
+    return torch.as_tensor(out)
+
+
+def _emulate_chunked(v, row_ptr, perm, chunk):
+    """The chunked center_sum: pass 1, block i over positions [i chunk, (i +
+    1) chunk) (up to row_ptr[n_rows]) finds its first row by binary search,
+    and for each row r meeting the chunk its ty lanes add the piece's
+    positions lo + y, lo + y + ty, ... in order, then _tree; the sum goes to
+    partial[i + r], which no other piece may take. Pass 2: row r's ty lanes
+    add its entries [first + r, last + r] the same way (0 for an empty row),
+    each of which pass 1 must have written."""
+    n_rows, (E, C) = row_ptr.shape[0] - 1, v.shape
+    cv = _vectors(C)[0]
+    ty = THREADS // _row_lanes(cv)
+    _lane_vectors(cv, _row_lanes(cv))
+    rows = v if perm is None else v[perm]
+    n_chunks, end = -(-E // chunk), row_ptr[n_rows]
+    partial = np.full((n_chunks + n_rows, C), np.nan)
+
+    def tree_sum(block):
+        lanes = np.zeros((ty, C))
+        for y in range(ty):
+            for r in block[y::ty]:
+                lanes[y] = lanes[y] + r
+        return _tree(lanes)
+
+    for i in range(n_chunks):
+        k0 = i * chunk
+        if k0 >= end:
+            continue
+        k1 = min(k0 + chunk, end)
+        r, hi = 0, n_rows
+        while hi - r > 1:
+            mid = (r + hi) // 2
+            r, hi = (mid, hi) if row_ptr[mid] <= k0 else (r, mid)
+        while r < n_rows and row_ptr[r] < k1:
+            lo, up = max(row_ptr[r], k0), min(row_ptr[r + 1], k1)
+            if lo < up:
+                assert np.isnan(partial[i + r]).all(), "two pieces on one partial"
+                partial[i + r] = tree_sum(rows[lo:up])
+            r += 1
+    out = np.zeros((n_rows, C))
+    for r in range(n_rows):
+        b, e = row_ptr[r], row_ptr[r + 1]
+        if b < e:
+            mine = partial[b // chunk + r:(e - 1) // chunk + r + 1]
+            assert not np.isnan(mine).any(), "a partial read before it is written"
+            out[r] = tree_sum(mine)
+        else:
+            out[r] = tree_sum(np.zeros((0, C)))
+    return torch.as_tensor(out)
+
+
+def _values(rng, *shape):
+    """Inputs nonzero on the sentinel rows too, which the sums must drop."""
+    return torch.as_tensor(rng.randn(*shape) * 10.0)
+
+
+@pytest.mark.parametrize("side", ["center", "neighbor", "class"])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_center_gather_work_split_equals_the_plain_version(C, side):
+    """Every width class (narrow, float4 rows, scalar rows) on the sorted
+    center side (atoms without edges, sentinel edges), by an unsorted
+    neighbor index and by class, 191 edges (the last warp partial): exact
+    copies."""
+    idx, rp, perm = _class_csr("classes") if side == "class" else _gap_graph(side)
+    n = rp.shape[0] - 1
+    a = _values(np.random.RandomState(C), n, C)
+    want = fused_tp.center_gather_reference(a, _t(idx))
+    got = _emulate_gather(a.numpy(), idx)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the wrapper's CPU path
+    torch.testing.assert_close(fused_tp.center_gather(a, _t(idx)), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("side", ["center", "neighbor"])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_center_sum_order_equals_the_plain_version(C, side):
+    """Lanes and butterfly for narrow rows, edge order for wide ones, on
+    both sides, atoms without edges, values on the sentinel rows."""
+    idx, rp, perm = _gap_graph(side)
+    v = _values(np.random.RandomState(C + 1), idx.shape[0], C)
+    got = _emulate_sum(v.numpy(), rp, perm)
+    want = fused_tp.center_sum_reference(v, _t(rp), None if perm is None else _t(perm))
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert (got[list(GAP_ATOMS)] == 0).all()
+
+
+@pytest.mark.parametrize("chunk", [16, fused_tp.CENTER_SUM_CHUNK])
+@pytest.mark.parametrize("kind", ["classes", "one_row"])
+@pytest.mark.parametrize("C", WIDTHS)
+def test_center_sum_chunked_order_equals_the_plain_version(C, kind, chunk):
+    """The two passes over a class CSR with an empty row, and with one row
+    that holds every position; chunks of 16 (a row spans many, a chunk
+    meets several rows) and of the wrapper's size (one chunk)."""
+    idx, rp, perm = _class_csr(kind)
+    v = _values(np.random.RandomState(C + 2), idx.shape[0], C)
+    got = _emulate_chunked(v.numpy(), rp, perm, chunk)
+    want = fused_tp.center_sum_reference(v, _t(rp), _t(perm))
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-11)
+    torch.testing.assert_close(fused_tp.center_sum(v, _t(rp), _t(perm), chunked=True), want,
+                               rtol=0, atol=0)
