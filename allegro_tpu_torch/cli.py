@@ -5,16 +5,21 @@
     python -m allegro_tpu_torch run   -c configs/tutorial.yaml   # the config's `run:` list
     python -m allegro_tpu_torch md    -c configs/md.yaml
 
+    python -m allegro_tpu_torch package -c configs/tutorial.yaml -w <dir> [-o model.atpkg]
+
 The JAX package's config files run as they are: ``_target_`` names under
-``allegro_tpu.`` build the port's builders and datasets, and ``optax.adam``
-is ``torch.optim.Adam``. Everything runs on the CUDA card unless
+``allegro_tpu.`` build the port's builders and datasets, ``optax.adam``,
+``optax.adamw`` and ``optax.sgd`` are ``torch.optim`` optimizers and
+``optax.exponential_decay`` / ``optax.cosine_decay_schedule`` learning-rate
+schedules (``train/optim.py``), ``trainer.profile_dir`` traces training
+steps with ``torch.profiler``, and the ``package`` stage writes an
+``.atpkg`` (``train/package.py``). Everything runs on the CUDA card unless
 ``--device cpu`` is given; without a card the CLI raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import sys
@@ -22,13 +27,11 @@ import time
 from typing import Any, Dict, Optional
 
 import numpy as np
-import torch
 
 from .model.builders import _not_ported
 
 _NOT_PORTED = {
     "compile": "queue 1, item 10 (deployment)",
-    "package": "queue 1, item 8 (train/package.py)",
     "benchmark": "queue 1, item 4 (the port bench)",
 }
 
@@ -82,14 +85,16 @@ def _build_data(cfg: Dict[str, Any], seed: int = 0):
     return parts, loaders
 
 
-def _optimizer(opt_cfg: Dict[str, Any]):
-    """``torch.optim.Adam`` at the block's learning rate, for ``optax.adam``."""
-    opt_cfg = dict(opt_cfg)
-    target = str(opt_cfg.pop("_target_", "optax.adam"))
-    lr = float(opt_cfg.pop("learning_rate", opt_cfg.pop("lr", 1e-3)))
-    if target.rsplit(".", 1)[-1] != "adam" or opt_cfg:
-        raise _not_ported(f"optimizer {target} with {sorted(opt_cfg)}", "queue 1, item 8")
-    return functools.partial(torch.optim.Adam, lr=lr)
+def _optimizer(tcfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``Trainer``'s ``optimizer`` and ``lr_scheduler`` for the trainer
+    block (both popped from ``tcfg``): ``train/optim.py``'s mapping of the
+    optax names."""
+    from .train.optim import optimizer_from_config, schedule_from_config
+
+    optimizer, lr = optimizer_from_config(tcfg.pop("optimizer", {"learning_rate": 1e-3}))
+    sched_cfg = tcfg.pop("lr_scheduler", None)
+    return {"optimizer": optimizer,
+            "lr_scheduler": schedule_from_config(sched_cfg, lr) if sched_cfg else None}
 
 
 def run_train(config: Dict[str, Any], workdir: str, device=None) -> str:
@@ -107,13 +112,10 @@ def run_train(config: Dict[str, Any], workdir: str, device=None) -> str:
     cfg = resolve(config, stats)
     model = build_model(cfg["model"])
     tcfg = dict(cfg.get("trainer", {}))
-    if tcfg.pop("lr_scheduler", None):
-        raise _not_ported("trainer.lr_scheduler", "queue 1, item 8")
-    if tcfg.pop("profile_dir", None):
-        raise _not_ported("trainer.profile_dir", "queue 1, item 8")
     trainer = Trainer(
         model,
-        optimizer=_optimizer(tcfg.pop("optimizer", {"learning_rate": 1e-3})),
+        **_optimizer(tcfg),
+        profile_dir=tcfg.pop("profile_dir", None),
         loss=EnergyForceLoss(tcfg.pop("loss_coeffs", None)),
         ema_decay=float(tcfg.pop("ema_decay", 0.999)),
         ema_use_num_updates=bool(tcfg.pop("ema_use_num_updates", True)),
@@ -144,7 +146,9 @@ def run_test(config: Dict[str, Any], workdir: str, ckpt: Optional[str] = None,
 
     parts, loaders = _build_data(config["data"])
     cfg = resolve(config, compute_statistics(parts["train"]))
-    trainer = Trainer(build_model(cfg["model"]), device=device)
+    # the trainer block's optimizer, so that the checkpoint's state loads
+    trainer = Trainer(build_model(cfg["model"]), device=device,
+                      **_optimizer(dict(cfg.get("trainer", {}))))
     state = trainer.init_state(0)
     ckpt_dir = ckpt or workdir
     name = "best" if os.path.exists(os.path.join(ckpt_dir, "best.pt")) else "last"
@@ -169,6 +173,8 @@ def main(argv=None) -> int:
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-w", "--workdir", default=None)
     p.add_argument("--ckpt", default=None)
+    p.add_argument("-o", "--output", default=None,
+                   help="the package stage's archive (default model.atpkg in the workdir)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     args = p.parse_args(argv)
@@ -190,6 +196,10 @@ def main(argv=None) -> int:
             run_train(config, workdir, device)
         elif stage == "test":
             run_test(config, workdir, ckpt=args.ckpt, device=device)
+        elif stage == "package":
+            from .train.package import run_package
+
+            run_package(config, workdir, args.ckpt, args.output or "model.atpkg")
         elif stage == "md":
             from .md.cli import run_md
 

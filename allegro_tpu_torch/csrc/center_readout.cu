@@ -555,19 +555,25 @@ int launch_readout_sum(const Pieces& P, const float* w0, const float* w1, const 
   return (int)cudaGetLastError();
 }
 
-// The widest block whose shared memory (W0^T with the stage buffers) fits on
-// the card: kRsThreads threads, then half, then a quarter.
+// The widest block whose shared memory (W0^T with the stage buffers) fits in
+// ``limit`` bytes: kRsThreads threads, then half, then a quarter (a quarter
+// where none fits: its launch then fails). The model's routing rule
+// (ops/smem_fit.py) holds the same choice, through atpt_readout_sum_smem.
+inline int rs_threads(int K, int H, size_t limit) {
+  for (int threads = kRsThreads; threads > kRsThreads / 4; threads /= 2)
+    if ((size_t)rs_layout(K, H, threads / kRsCols * 4).total * sizeof(float) <= limit)
+      return threads;
+  return kRsThreads / 4;
+}
+
 template <bool kSilu>
 int launch_readout_sum_fit(const Pieces& P, const float* w0, const float* w1, const int* row_ptr,
                            int n_atoms, int K, int H, float* energy, cudaStream_t stream) {
-  const size_t limit = smem_optin();
-  const auto fits = [&](int threads) {
-    return (size_t)rs_layout(K, H, threads / kRsCols * 4).total * sizeof(float) <= limit;
-  };
-  if (fits(kRsThreads))
+  const int threads = rs_threads(K, H, smem_optin());
+  if (threads == kRsThreads)
     return launch_readout_sum<kSilu, kRsThreads>(P, w0, w1, row_ptr, n_atoms, K, H, energy,
                                                  stream);
-  if (fits(kRsThreads / 2))
+  if (threads == kRsThreads / 2)
     return launch_readout_sum<kSilu, kRsThreads / 2>(P, w0, w1, row_ptr, n_atoms, K, H, energy,
                                                      stream);
   return launch_readout_sum<kSilu, kRsThreads / 4>(P, w0, w1, row_ptr, n_atoms, K, H, energy,
@@ -801,20 +807,25 @@ int launch_readout_bwd(const Pieces& P, const OutPieces& D, bool vec_out, const 
   return (int)cudaGetLastError();
 }
 
-// The widest tile whose shared memory fits on the card: 64 edges, then 32,
-// then 16.
+// The widest tile whose shared memory fits in ``limit`` bytes: 64 edges, then
+// 32, then 16 (16 where none fits: its launch then fails). The model's
+// routing rule (ops/smem_fit.py) holds the same choice, through
+// atpt_readout_bwd_smem.
+inline int rb_rows(int K, int H, bool hidden, size_t limit) {
+  for (int rows = 64; rows > 16; rows /= 2)
+    if ((size_t)rb_layout(K, H, rows, hidden).total * sizeof(float) <= limit) return rows;
+  return 16;
+}
+
 template <bool kSilu>
 int launch_readout_bwd_fit(const Pieces& P, const OutPieces& D, bool vec_out, const float* w0,
                            const float* w1, const float* y, const int* centers, long long n_edges,
                            int n_atoms, int K, int H, cudaStream_t stream) {
-  const size_t limit = smem_optin();
-  const auto fits = [&](int rows) {
-    return (size_t)rb_layout(K, H, rows, kSilu).total * sizeof(float) <= limit;
-  };
-  if (fits(64))
+  const int rows = rb_rows(K, H, kSilu, smem_optin());
+  if (rows == 64)
     return launch_readout_bwd<kSilu, 64>(P, D, vec_out, w0, w1, y, centers, n_edges, n_atoms, K,
                                          H, stream);
-  if (fits(32))
+  if (rows == 32)
     return launch_readout_bwd<kSilu, 32>(P, D, vec_out, w0, w1, y, centers, n_edges, n_atoms, K,
                                          H, stream);
   return launch_readout_bwd<kSilu, 16>(P, D, vec_out, w0, w1, y, centers, n_edges, n_atoms, K, H,
@@ -902,6 +913,22 @@ int atpt_readout_bwd(const float* const* piece_ptrs, const long long* piece_stri
                                         H, st);
   return launch_readout_bwd_fit<false>(P, D, vec_out, w0, w1, y, centers, n_edges, n_atoms, K, H,
                                        st);
+}
+
+// The bytes of shared memory the launchers above request for a readout of
+// input width K and hidden width H (H = 1 and hidden = 0 without a hidden
+// layer) on a card whose blocks may opt into ``limit`` bytes: the layout
+// they choose, or their smallest where none fits (more than ``limit``: the
+// launch is refused). ops/smem_fit.py computes the same on the host, and
+// chip_smoke.py holds the two together.
+long long atpt_readout_sum_smem(int K, int H, long long limit) {
+  return (long long)rs_layout(K, H, rs_threads(K, H, (size_t)limit) / kRsCols * 4).total *
+         (long long)sizeof(float);
+}
+
+long long atpt_readout_bwd_smem(int K, int H, int hidden, long long limit) {
+  return (long long)rb_layout(K, H, rb_rows(K, H, hidden != 0, (size_t)limit), hidden != 0)
+             .total * (long long)sizeof(float);
 }
 
 }  // extern "C"

@@ -274,12 +274,12 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
 
 // The warps of a per-atom-segment block beside ``fixed`` bytes of shared
 // memory at ``per_warp`` bytes each: as many as fit in 48 KB, at most
-// ``max_warps``; where not even one fits there, as many as fit in the card's
-// opt-in maximum (the launcher then opts in with prepare_smem). 0 when none
-// fits at all. *smem gets the bytes to launch with.
-int fit_warps(size_t fixed, size_t per_warp, int max_warps, size_t* smem) {
+// ``max_warps``; where not even one fits there, as many as fit in ``optin``
+// bytes, the card's opt-in maximum (the launcher then opts in with
+// prepare_smem). 0 when none fits at all. *smem gets the bytes to launch with.
+int fit_warps(size_t fixed, size_t per_warp, int max_warps, size_t optin, size_t* smem) {
   size_t limit = kSmemLimit;
-  if (fixed + per_warp > limit) limit = smem_optin();
+  if (fixed + per_warp > limit) limit = optin;
   if (fixed + per_warp > limit) return 0;
   size_t warps = (limit - fixed) / per_warp;
   if (warps > (size_t)max_warps) warps = max_warps;

@@ -149,7 +149,7 @@ int launch_bwd_fused_dw(const float* x, const float* g, const float* gts, const 
   const size_t fixed = (size_t)n_entries * 5 * sizeof(float);
   const size_t per_warp = ((size_t)d2 * U + (size_t)d1 * kWarp + (size_t)P * U) * sizeof(float);
   size_t smem = 0;
-  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, smem_optin(), &smem);
   if (warps == 0) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = prepare_smem(bwd_fused_dw_kernel<kGts>, smem);
   if (err != cudaSuccess) return (int)err;

@@ -1176,25 +1176,48 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
   }
 }
 
+// The layout latent_env_scatter launches with in ``limit`` bytes of shared
+// memory: kLesGroups walkers with double-buffered piece rows where they fit
+// (a single buffer with a hidden layer: the lat tile takes it over), then
+// fewer. False where not even one walker with a single buffer fits (*L is
+// then that smallest layout). The model's routing rule (ops/smem_fit.py)
+// holds the same choice, through atpt_latent_env_scatter_smem.
+inline bool les_fit(bool hidden, int K, int H, int N, int d2, int U, int n_irr, size_t limit,
+                    LesLayout* L) {
+  for (int groups = kLesGroups; groups >= 1; --groups)
+    for (int stages = hidden ? 1 : 2; stages >= 1; --stages) {
+      *L = les_layout(hidden, K, H, N, d2, U, n_irr, stages, groups);
+      if ((size_t)L->total * sizeof(float) <= limit) return true;
+    }
+  return false;
+}
+
+// The layout latent_env_bwd launches with in ``limit`` bytes: the piece rows
+// double-buffered and kLebTileAtoms t rows staged where they fit; else fewer
+// t rows (at least 2), then a single buffer with as many as fit (down to
+// none). False where even that does not fit (*L is then that smallest
+// layout); ops/smem_fit.py holds the same choice, through
+// atpt_latent_env_bwd_smem.
+inline bool leb_fit(bool hidden, int K, int H, int S, int N, int d2, int U, int n_irr,
+                    size_t limit, LebLayout* L) {
+  for (int stages = 2; stages >= 1; --stages)
+    for (int ta = kLebTileAtoms; ta >= (stages == 2 ? 2 : 0); --ta) {
+      *L = leb_layout(hidden, K, H, S, N - S, d2, U, n_irr, stages, ta);
+      if ((size_t)L->total * sizeof(float) <= limit) return true;
+    }
+  return false;
+}
+
 template <bool kHidden>
 int launch_latent_env_scatter(const Pieces& P, const float* w0, const float* w1, const float* sh,
                               const int* centers, const int* row_ptr, const int* irr_ranges,
                               long long n_edges, int n_atoms, int d2, int U, int S, int K, int H,
                               int N, float* lat_s, float* env, cudaStream_t stream) {
   const int n_irr = (N - S) / U;
-  // kLesGroups walkers with double-buffered piece rows where shared memory
-  // allows (a single buffer with a hidden layer: the lat tile takes it
-  // over), then fewer
   LesLayout L;
-  size_t smem = 0;
-  bool fits = false;
-  for (int groups = kLesGroups; groups >= 1 && !fits; --groups)
-    for (int stages = kHidden ? 1 : 2; stages >= 1 && !fits; --stages) {
-      L = les_layout(kHidden, K, H, N, d2, U, n_irr, stages, groups);
-      smem = (size_t)L.total * sizeof(float);
-      fits = smem <= smem_optin();
-    }
-  if (!fits) return (int)cudaErrorInvalidConfiguration;
+  if (!les_fit(kHidden, K, H, N, d2, U, n_irr, smem_optin(), &L))
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)L.total * sizeof(float);
   cudaError_t err = prepare_smem(latent_env_scatter_kernel<kHidden>, smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = L.groups * kLebThreads;
@@ -1212,19 +1235,10 @@ int launch_latent_env_bwd(const Pieces& P, const OutPieces& D, const float* w0, 
                           const int* irr_ranges, long long n_edges, int n_atoms, int d2, int U,
                           int S, int K, int H, int N, float* dsh, cudaStream_t stream) {
   const int n_irr = (N - S) / U;
-  // the piece rows double-buffered and kLebTileAtoms t rows staged where
-  // shared memory allows; else fewer t rows (at least 2), then a single
-  // buffer with as many as fit
   LebLayout L;
-  size_t smem = 0;
-  bool fits = false;
-  for (int stages = 2; stages >= 1 && !fits; --stages)
-    for (int ta = kLebTileAtoms; ta >= (stages == 2 ? 2 : 0) && !fits; --ta) {
-      L = leb_layout(kHidden, K, H, S, N - S, d2, U, n_irr, stages, ta);
-      smem = (size_t)L.total * sizeof(float);
-      fits = smem <= smem_optin();
-    }
-  if (!fits) return (int)cudaErrorInvalidConfiguration;
+  if (!leb_fit(kHidden, K, H, S, N, d2, U, n_irr, smem_optin(), &L))
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = (size_t)L.total * sizeof(float);
   cudaError_t err = prepare_smem(latent_env_bwd_kernel<kHidden>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = persistent_blocks(latent_env_bwd_kernel<kHidden>, kLebThreads, smem,
@@ -1292,7 +1306,7 @@ int atpt_gather_tp_embed(const float* sh, const float* w2b, const float* env, co
   const size_t per_warp =
       (size_t)gather_embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
   size_t smem = 0;
-  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, smem_optin(), &smem);
   if (warps == 0) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err = prepare_smem(gather_tp_embed_kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1313,7 +1327,7 @@ int atpt_bwd_embed(const float* sh, const float* w2b, const float* g, const floa
   const size_t fixed = (size_t)embed_fixed_floats(n_paths, n_w, U, d1) * sizeof(float);
   const size_t per_warp = (size_t)embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
   size_t smem = 0;
-  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, &smem);
+  const int warps = fit_warps(fixed, per_warp, kSegmentWarps, smem_optin(), &smem);
   if (warps == 0) return (int)cudaErrorInvalidConfiguration;
   const long long items = n_atoms + (n_edges + kWarp - 1) / kWarp;
   if (gts) {
@@ -1333,6 +1347,48 @@ int atpt_bwd_embed(const float* sh, const float* w2b, const float* g, const floa
         n_edges, n_atoms, d_sh, n_irr, d1, d2, d3, U, dsh, dw2b, denv);
   }
   return (int)cudaGetLastError();
+}
+
+// The bytes of shared memory each launcher above requests on a card whose
+// blocks may opt into ``limit`` bytes: the layout it chooses, or its smallest
+// where none fits (more than ``limit``: the launch is refused). The
+// arguments are the launchers' own (hidden: 0 or 1; the embeds' n_paths,
+// n_w and d1 are the path table's rows, the path weights' rows and
+// row_specs' rows). ops/smem_fit.py computes the same on the host, and
+// chip_smoke.py holds the two together.
+long long atpt_latent_env_scatter_smem(int hidden, int K, int H, int N, int d2, int U, int n_irr,
+                                       long long limit) {
+  LesLayout L;
+  les_fit(hidden != 0, K, H, N, d2, U, n_irr, (size_t)limit, &L);
+  return (long long)L.total * (long long)sizeof(float);
+}
+
+long long atpt_latent_env_bwd_smem(int hidden, int K, int H, int S, int N, int d2, int U,
+                                   int n_irr, long long limit) {
+  LebLayout L;
+  leb_fit(hidden != 0, K, H, S, N, d2, U, n_irr, (size_t)limit, &L);
+  return (long long)L.total * (long long)sizeof(float);
+}
+
+long long atpt_gather_tp_embed_smem(int n_paths, int n_w, int d_sh, int n_irr, int d1, int d2,
+                                    int d3, int U, long long limit) {
+  const size_t fixed = (size_t)embed_fixed_floats(n_paths, n_w, U, d1) * sizeof(float);
+  const size_t per_warp =
+      (size_t)gather_embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
+  size_t smem = 0;
+  if (fit_warps(fixed, per_warp, kSegmentWarps, (size_t)limit, &smem) == 0)
+    smem = fixed + per_warp;
+  return (long long)smem;
+}
+
+long long atpt_bwd_embed_smem(int n_paths, int n_w, int d_sh, int n_irr, int d1, int d2, int d3,
+                              int U, long long limit) {
+  const size_t fixed = (size_t)embed_fixed_floats(n_paths, n_w, U, d1) * sizeof(float);
+  const size_t per_warp = (size_t)embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
+  size_t smem = 0;
+  if (fit_warps(fixed, per_warp, kSegmentWarps, (size_t)limit, &smem) == 0)
+    smem = fixed + per_warp;
+  return (long long)smem;
 }
 
 }  // extern "C"

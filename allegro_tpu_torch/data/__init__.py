@@ -2,7 +2,17 @@
 ``allegro_tpu.data``)."""
 
 from . import keys
-from .atomic_data import AtomsData, batch_frames, pad_data, round_up, to_torch
+from .atomic_data import (
+    AtomsData,
+    batch_frames,
+    count_real_atoms,
+    count_real_edges,
+    num_frames,
+    num_nodes,
+    pad_data,
+    round_up,
+    to_torch,
+)
 from .dataloader import DataLoader
 from .datasets import (
     InMemoryDataset,
@@ -19,6 +29,10 @@ __all__ = [
     "pad_data",
     "round_up",
     "to_torch",
+    "num_nodes",
+    "num_frames",
+    "count_real_atoms",
+    "count_real_edges",
     "DataLoader",
     "InMemoryDataset",
     "compute_statistics",

@@ -25,6 +25,33 @@ def round_up(x: int, multiple: int) -> int:
     return int(-(-x // multiple) * multiple)
 
 
+def num_nodes(data: AtomsData) -> int:
+    """Padded atom-array length (the role of ``AtomicDataDict.num_nodes``)."""
+    return int(data[keys.POSITIONS].shape[0])
+
+
+def num_frames(data: AtomsData) -> int:
+    """Padded frame count (the role of ``AtomicDataDict.num_frames``)."""
+    for k in (keys.FRAME_MASK, keys.NUM_NODES, keys.CELL, keys.TOTAL_ENERGY):
+        if k in data:
+            return int(data[k].shape[0])
+    return 1
+
+
+def count_real_atoms(data: AtomsData) -> int:
+    """Atoms that are not padding."""
+    if keys.NODE_MASK in data:
+        return int(data[keys.NODE_MASK].sum())
+    return int(data[keys.POSITIONS].shape[0])
+
+
+def count_real_edges(data: AtomsData) -> int:
+    """Edges that are not padding."""
+    if keys.EDGE_MASK in data:
+        return int(data[keys.EDGE_MASK].sum())
+    return int(data[keys.EDGE_INDEX].shape[1])
+
+
 def _pad_axis(a: np.ndarray, n: int, axis: int = 0, fill=0) -> np.ndarray:
     cur = a.shape[axis]
     if cur == n:

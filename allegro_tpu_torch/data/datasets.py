@@ -47,10 +47,13 @@ def species_to_types(atomic_numbers: np.ndarray, type_names: Sequence[str]) -> n
 
 class InMemoryDataset:
     """A list of frames with center-sorted neighbor lists precomputed; atom
-    types come from ``ATOMIC_NUMBERS`` and ``type_names`` when absent."""
+    types come from ``ATOMIC_NUMBERS`` and ``type_names`` when absent.
+    ``per_edge_type_cutoff`` ([n_types, n_types], <= r_max) drops each edge
+    beyond its type pair's cutoff (``neighbor_list``)."""
 
     def __init__(self, frames: List[Dict[str, np.ndarray]], r_max: float,
-                 type_names: Optional[Sequence[str]] = None):
+                 type_names: Optional[Sequence[str]] = None,
+                 per_edge_type_cutoff: Optional[np.ndarray] = None):
         self.r_max = float(r_max)
         self.type_names = list(type_names) if type_names is not None else None
         self.frames: List[Dict[str, np.ndarray]] = []
@@ -60,7 +63,7 @@ class InMemoryDataset:
                 if self.type_names is None:
                     raise ValueError("need type_names to map atomic numbers to types")
                 fr[keys.ATOM_TYPES] = species_to_types(fr[keys.ATOMIC_NUMBERS], self.type_names)
-            self.frames.append(neighbor_list(fr, r_max))
+            self.frames.append(neighbor_list(fr, r_max, per_edge_type_cutoff))
 
     def __len__(self) -> int:
         return len(self.frames)

@@ -1,22 +1,36 @@
-"""Periodic neighbor lists (host-side, NumPy/scipy).
+"""Periodic neighbor lists on the host (twin of
+``allegro_tpu/data/neighborlist.py``).
 
-Twin of the scipy branch of ``allegro_tpu/data/neighborlist.py``: directed
-edges ``(i=center, j=neighbor)`` with integer cell shifts such that
+Directed edges ``(i=center, j=neighbor)`` with integer cell shifts such that
 
     r_ij = pos[j] - pos[i] + shift @ cell   and   |r_ij| < r_max,
 
 both directions emitted, zero-shift self-edges excluded, and the edges sorted
 by center (stable), which is the order the port's CSR kernels require.
+
+As in JAX, the list is the C++ cell list of ``allegro_tpu_torch.native``
+unless ``ALLEGRO_TPU_NATIVE=0`` is set or no C++ toolchain is available;
+then the scipy cKDTree list below. Both give the same edges with the same
+shifts. ``NEIGHBOR_LISTS`` counts the lists each one built (reset with
+``reset_neighbor_list_counts``), so a run can show which ran.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 from scipy.spatial import cKDTree
 
 from . import keys
+
+NEIGHBOR_LISTS: Dict[str, int] = {"native": 0, "scipy": 0}
+
+
+def reset_neighbor_list_counts() -> None:
+    for k in NEIGHBOR_LISTS:
+        NEIGHBOR_LISTS[k] = 0
 
 
 def _n_repeats(cell: np.ndarray, pbc: np.ndarray, r_max: float) -> np.ndarray:
@@ -39,7 +53,16 @@ def primitive_neighbor_list(
     pbc=(False, False, False),
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Directed neighbor list: centers [E] int32, neighbors [E] int32,
-    cell_shifts [E, 3] float64 (integer-valued)."""
+    cell_shifts [E, 3] float64 (integer-valued). The native C++ list where
+    it is available and not disabled (``ALLEGRO_TPU_NATIVE=0``), else scipy."""
+    if os.environ.get("ALLEGRO_TPU_NATIVE", "1") != "0":
+        from ..native import native_neighbor_list
+
+        res = native_neighbor_list(positions, r_max, cell, pbc)
+        if res is not None:
+            NEIGHBOR_LISTS["native"] += 1
+            return res
+    NEIGHBOR_LISTS["scipy"] += 1
     positions = np.asarray(positions, dtype=np.float64)
     n = positions.shape[0]
     pbc = np.asarray(pbc, dtype=bool)
@@ -81,12 +104,28 @@ def primitive_neighbor_list(
     return np.concatenate(ci), np.concatenate(cj), np.concatenate(cs, axis=0)
 
 
-def neighbor_list(frame: dict, r_max: float) -> dict:
-    """Attach center-sorted ``EDGE_INDEX``/``EDGE_CELL_SHIFT`` to a frame dict."""
+def edge_lengths(pos: np.ndarray, cell: Optional[np.ndarray], i, j, shifts) -> np.ndarray:
+    """|pos[j] - pos[i] + shift @ cell| of each edge (float64)."""
+    c = np.asarray(cell, dtype=np.float64).reshape(3, 3) if cell is not None else np.zeros((3, 3))
+    return np.linalg.norm(pos[j] - pos[i] + shifts @ c, axis=1)
+
+
+def neighbor_list(frame: dict, r_max: float,
+                  per_edge_type_cutoff: Optional[np.ndarray] = None) -> dict:
+    """Attach center-sorted ``EDGE_INDEX``/``EDGE_CELL_SHIFT`` to a frame dict.
+
+    ``per_edge_type_cutoff``: an optional [n_types, n_types] matrix of
+    cutoffs (<= r_max, center type by neighbor type); an edge no shorter
+    than its type pair's cutoff is dropped, as in JAX."""
     pos = np.asarray(frame[keys.POSITIONS], dtype=np.float64)
     cell = frame.get(keys.CELL)
     pbc = np.asarray(frame.get(keys.PBC, (False, False, False))).reshape(-1)[-3:]
     i, j, shifts = primitive_neighbor_list(pos, r_max, cell, pbc)
+    if per_edge_type_cutoff is not None and len(i):
+        types = np.asarray(frame[keys.ATOM_TYPES])
+        keep = edge_lengths(pos, cell, i, j, shifts) < np.asarray(per_edge_type_cutoff)[
+            types[i], types[j]]
+        i, j, shifts = i[keep], j[keep], shifts[keep]
     if len(i):
         order = np.argsort(i, kind="stable")
         i, j, shifts = i[order], j[order], shifts[order]

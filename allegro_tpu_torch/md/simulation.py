@@ -12,6 +12,9 @@ re-neighboring (twin of ``allegro_tpu/md/simulation.py``, single device).
   ``edge_multiple``) with sentinel edges, and take their per-neighbor-list
   statics (edge types, the kernels' CSR arrays) from
   ``Model.precompute_statics``.
+- ``per_edge_type_cutoff`` ([T, T], <= r_max) keeps each edge within its
+  type pair's cutoff plus the skin; beyond its pair's cutoff an edge adds
+  exactly zero (the model's envelope), as in JAX.
 - One device and the ``edge_shard`` strategy only: a mesh of more than one
   device and the ``slab`` / ``brick`` decompositions are not ported yet.
 """
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..data import keys, round_up, to_torch
-from ..data.neighborlist import primitive_neighbor_list
+from ..data.neighborlist import edge_lengths, primitive_neighbor_list
 from ..device import resolve_device
 
 _MULTI_DEVICE = "ROADMAP.md queue 1, item 11"
@@ -88,6 +91,7 @@ class Simulation:
         langevin_kT: float = 0.0,
         seed: int = 0,
         strategy: str = "edge_shard",
+        per_edge_type_cutoff: Optional[np.ndarray] = None,  # [T, T] <= r_max
         device=None,
     ):
         if strategy in ("slab", "brick"):
@@ -111,6 +115,13 @@ class Simulation:
         self.masses_per_atom = np.asarray(masses, dtype=np.float64)[self.types]
         self.r_max = float(r_max)
         self.skin = float(skin)
+        # the per-(center, neighbor)-type cutoff matrix: at (re-)neighboring
+        # an edge is kept within its pair's cutoff plus the skin, as in JAX
+        if per_edge_type_cutoff is not None:
+            per_edge_type_cutoff = np.asarray(per_edge_type_cutoff, np.float64)
+            if not (per_edge_type_cutoff <= self.r_max + 1e-12).all():
+                raise ValueError("per-edge-type cutoffs must be <= r_max")
+        self.per_edge_type_cutoff = per_edge_type_cutoff
         self.dt = float(dt)
         self.cell = None if cell is None else np.asarray(cell, dtype=np.float64).reshape(3, 3)
         self.pbc = np.asarray(pbc, dtype=bool)
@@ -148,6 +159,11 @@ class Simulation:
         i, j, shifts = primitive_neighbor_list(
             positions, self.r_max + self.skin, self.cell, self.pbc
         )
+        if self.per_edge_type_cutoff is not None and len(i):
+            # the skin margin per type pair (the rebuild trigger's safety)
+            r = edge_lengths(positions, self.cell, i, j, shifts)
+            keep = r < self.per_edge_type_cutoff[self.types[i], self.types[j]] + self.skin
+            i, j, shifts = i[keep], j[keep], shifts[keep]
         E = len(i)
         bucket = round_up(max(E, 1), self.edge_multiple)
         if bucket > self._edge_bucket:

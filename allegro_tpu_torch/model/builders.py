@@ -39,6 +39,7 @@ from ..nn import (
     force_stress_wrapper,
 )
 from ..nn.mlp import silu
+from ..ops import smem_fit
 from ..ops.fused_primitives import readout_sum_infer
 from ..ops.fused_tp import csr_row_ptr, neighbor_csr
 
@@ -102,8 +103,12 @@ class FusedEdgeReadoutSum(torch.nn.Module):
     are present, the MLP has at most one hidden layer, its activation is
     SiLU, and ``use_fused`` is not False; otherwise the plain chain runs
     (readout MLP, then the edge sum, which takes the ``center_sum`` kernel
-    when the statics are present). The parameters are ``mlp.w*`` either way,
-    as in the JAX stage."""
+    when the statics are present). The fused kernels keep W0ᵀ in shared
+    memory: where the readout is too wide for the card (``fits``, the
+    launchers' own layout rule, ``ops/smem_fit.py``), the plain chain runs
+    there too. ``route(device)`` says which, decided once per device when
+    the stage first runs there. The parameters are ``mlp.w*`` either way, as
+    in the JAX stage."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int] = (), nonlinearity=silu,
                  dtype=torch.float32, factor: Optional[float] = None,
@@ -115,12 +120,32 @@ class FusedEdgeReadoutSum(torch.nn.Module):
         )
         self.fusable = len(hidden_dims) <= 1 and nonlinearity is silu and use_fused is not False
         self.reduce = EdgewiseReduce(field=keys.EDGE_ENERGY, out_field=keys.PER_ATOM_ENERGY)
+        self._routes: Dict[torch.device, str] = {}
+
+    def fits(self, limit: Optional[int]) -> bool:
+        """Whether ``readout_sum`` and ``readout_bwd`` fit in ``limit`` bytes
+        of shared memory (None: no limit)."""
+        if limit is None:
+            return True
+        K, H = self.mlp.w0.shape
+        hidden = self.mlp.n_layers > 1
+        return (smem_fit.readout_sum_bytes(K, H, limit) <= limit
+                and smem_fit.readout_bwd_bytes(K, H, hidden, limit) <= limit)
+
+    def route(self, device) -> str:
+        """``"fused"`` (``readout_sum`` / ``readout_bwd``) or ``"plain"`` (the
+        readout MLP, then the edge sum) on ``device``."""
+        device = torch.device(device)
+        if device not in self._routes:
+            fused = self.fusable and self.fits(smem_fit.smem_optin(device))
+            self._routes[device] = "fused" if fused else "plain"
+        return self._routes[device]
 
     def forward(self, data: Dict) -> Dict:
         blocks = data[keys.EDGE_SCALARS]
         pieces = tuple(blocks) if isinstance(blocks, (tuple, list)) else (blocks,)
         out = dict(data)
-        if self.fusable and keys.CENTER_ROW_PTR in data:
+        if keys.CENTER_ROW_PTR in data and self.route(pieces[0].device) == "fused":
             ws = self.mlp.weights()
             centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
             out[keys.PER_ATOM_ENERGY] = readout_sum_infer(
@@ -161,6 +186,17 @@ class Model:
     def to(self, device) -> "Model":
         self.module.to(device)
         return self
+
+    def routes(self, device=None) -> Dict[str, str]:
+        """The kernel route of each stage that has a choice, on ``device``
+        (default: where the parameters are): ``{"allegro": "mega" |
+        "fused_call" | "pallas" | "einsum", "edge_readout": "fused" |
+        "plain"}`` (the readout only on ``fused_infer``). A fused route whose
+        shared memory would not fit on the card is not taken there."""
+        if device is None:
+            device = next(self.module.parameters()).device
+        return {name: m.route(device) for name, m in self.module.named_children()
+                if hasattr(m, "route")}
 
     def state_dict(self):
         return self.module.state_dict()
@@ -286,6 +322,28 @@ def _pin_fp32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _per_edge_type_cutoff_matrix(per_edge_type_cutoff, type_names: Sequence[str],
+                                 r_max: float) -> Optional[np.ndarray]:
+    """The config's per-edge-type cutoffs as a dense [T, T] matrix (center
+    type by neighbor type), twin of JAX's: a dict of center type → a float
+    (every neighbor) or a dict of neighbor type → float, pairs not named at
+    r_max; an ndarray passes through."""
+    if per_edge_type_cutoff is None:
+        return None
+    if isinstance(per_edge_type_cutoff, np.ndarray):
+        return per_edge_type_cutoff
+    names = list(type_names)
+    mat = np.full((len(names), len(names)), r_max, dtype=np.float64)
+    for center, v in per_edge_type_cutoff.items():
+        ci = names.index(center)
+        if isinstance(v, dict):
+            for neigh, c in v.items():
+                mat[ci, names.index(neigh)] = float(c)
+        else:
+            mat[ci, :] = float(v)
+    return mat
+
+
 def _scalar_embed(cfg, num_types: int, output_dim: int, dtype) -> torch.nn.Module:
     """The ``radial_chemical_embed`` stage from its config block (JAX's
     ``_instantiate_scalar_embed``): the Bessel embed (the default) or the
@@ -369,8 +427,6 @@ def FullAllegroEnergyModel(
         raise _not_ported("remat/checkpoint_energy", "queue 1, item 6")
     if tp_chunk_edges:
         raise _not_ported("tp_chunk_edges", "queue 1, item 6")
-    if per_edge_type_cutoff is not None:
-        raise _not_ported("per_edge_type_cutoff", "queue 1, item 9")
     if allow_tf32 or precision not in (None, "highest"):
         raise _not_ported(f"precision={precision!r}/allow_tf32={allow_tf32}", "queue 1, item 6")
     if str(model_dtype) not in DTYPES:
@@ -409,7 +465,10 @@ def FullAllegroEnergyModel(
     )
 
     layers = [
-        ("edge_norm", EdgeLengthNormalizer(r_max=r_max, num_types=num_types)),
+        ("edge_norm", EdgeLengthNormalizer(
+            r_max=r_max, num_types=num_types,
+            per_edge_type_cutoff=_per_edge_type_cutoff_matrix(per_edge_type_cutoff, type_names,
+                                                              r_max))),
         ("radial_chemical_embed", _scalar_embed(radial_chemical_embed, num_types, embed_dim, dtype)),
         (
             "scalar_embed_mlp",

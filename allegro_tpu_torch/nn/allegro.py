@@ -28,6 +28,7 @@ from torch import nn
 
 from ..data import keys
 from ..lib.irreps import Irrep, Irreps, tp_path_exists
+from ..ops import smem_fit
 from ..ops.fused_primitives import gather_tp_embed_infer, gather_tp_infer, mega_latent_env
 from .channels import MakeWeightedChannels, device_index
 from .contract import Contracter
@@ -93,7 +94,14 @@ class AllegroLayers(nn.Module):
     not read: the model kwarg decides.
 
     ``weight_individual_irreps=False``: one env weight per channel, shared
-    by the irreps; the kernel backends read it tiled over the irreps."""
+    by the irreps; the kernel backends read it tiled over the irreps.
+
+    Within that condition the mega kernels keep the latent MLPs' weights in
+    shared memory, and the embed-fused layer 0 the path weights. Where the
+    widths would not fit on the card (``mega_fits``, the launchers' own
+    layout rule, ``ops/smem_fit.py``), the stack takes the non-mega kernels
+    (``fused_call``), as it does outside the condition. ``route(device)``
+    says which, decided once per device when the model first runs there."""
 
     def __init__(
         self,
@@ -159,6 +167,8 @@ class AllegroLayers(nn.Module):
             tp_kernel_backend == "fused_infer" and len(mlp_hidden_dims) == 1
             and mlp_nonlinearity is silu and weight_individual_irreps and use_mega is not False
         )
+        self.embed_dim = int(embed_dim)
+        self._routes: Dict[torch.device, str] = {}
         # layer 0's input rows as (SH dim, irrep), for the embed-fused kernel
         dim_to_irr = self.env_weighter.dim_to_irr
         in_dims = self.input_dims or range(irreps_sh.dim)
@@ -166,6 +176,41 @@ class AllegroLayers(nn.Module):
             "row_specs", torch.tensor([(j, dim_to_irr[j]) for j in in_dims], dtype=torch.int32),
             persistent=False,
         )
+
+    def mega_fits(self, limit: Optional[int]) -> bool:
+        """Whether every mega kernel's shared memory fits in ``limit`` bytes
+        (None: no limit): ``latent_env_scatter`` and ``latent_env_bwd`` on
+        the first projection (no hidden layer) and on every latent but the
+        last, ``gather_tp_embed`` and ``bwd_embed`` on layer 0."""
+        if limit is None:
+            return True
+        S, U = self.S, self.U
+        d2, n_irr = self.env_weighter.irreps_in.dim, self.env_weighter.n_irr
+        N = S + n_irr * U
+        mlps = [(False, self.embed_dim, 0)]
+        for layer in range(self.num_layers - 1):
+            mlps.append((True, S * (layer + 1) + U, self.latents[layer].w0.shape[1]))
+        for hidden, K, H in mlps:
+            if (smem_fit.latent_env_scatter_bytes(hidden, K, H, N, d2, U, n_irr, limit) > limit
+                    or smem_fit.latent_env_bwd_bytes(hidden, K, H, S, N, d2, U, n_irr, limit)
+                    > limit):
+                return False
+        tp = self.tps[0]
+        embed = (tp.cg_desc.shape[0], tp.w3j.shape[0], d2, n_irr, self.row_specs.shape[0], d2,
+                 tp.d3, U, limit)
+        return (smem_fit.gather_tp_embed_bytes(*embed) <= limit
+                and smem_fit.bwd_embed_bytes(*embed) <= limit)
+
+    def route(self, device) -> str:
+        """The layer kernels this stack runs on ``device``: ``"mega"``, or
+        the backend's own (``"fused_call"`` on ``fused`` / ``fused_infer``,
+        ``"pallas"``, ``"einsum"``)."""
+        device = torch.device(device)
+        if device not in self._routes:
+            mega = self.mega and self.mega_fits(smem_fit.smem_optin(device))
+            own = "fused_call" if self.backend in ("fused", "fused_infer") else self.backend
+            self._routes[device] = "mega" if mega else own
+        return self._routes[device]
 
     def forward(self, data: Dict) -> Dict:
         S, U = self.S, self.U
@@ -187,10 +232,15 @@ class AllegroLayers(nn.Module):
             centers = centers.to(torch.int32).contiguous()
             sh = sh.contiguous()
         out = dict(data)
-        if self.mega:
+        if self.route(sh.device) == "mega":
             out[keys.EDGE_SCALARS] = self._mega_forward(data, sh, centers, row_ptr)
             return out
-        features = data[keys.EDGE_FEATURES]
+        features = data.get(keys.EDGE_FEATURES)
+        if features is None:
+            # a mega model routed off the mega kernels: the tensor embed left
+            # its features to layer 0 (build_features=False), so build them
+            # here from its factors, as that embed would have
+            features = self.env_weighter.flat_dim_major(sh, data[keys.EDGE_FEATURE_WEIGHTS])
         if self.input_dims is not None:
             cols = device_index(
                 tuple(d * U + u for d in self.input_dims for u in range(U)), features.device

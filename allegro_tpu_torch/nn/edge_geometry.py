@@ -15,8 +15,9 @@ sum over edges needs no ``index_add`` either.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..data import keys
@@ -67,15 +68,36 @@ def with_edge_vectors(data: Dict) -> Dict:
     return out
 
 
-class EdgeLengthNormalizer:
-    """``NORM_LENGTH = r / r_max`` and the flattened
-    ``EDGE_TYPE = center_type * n_types + neighbor_type`` (stateless)."""
+class EdgeLengthNormalizer(torch.nn.Module):
+    """``NORM_LENGTH = r / r_max``, or ``r / cutoff[EDGE_TYPE]`` with
+    per-edge-type cutoffs, and the flattened ``EDGE_TYPE = center_type *
+    n_types + neighbor_type``.
 
-    def __init__(self, r_max: float, num_types: int):
+    ``per_edge_type_cutoff`` is a [n_types, n_types] matrix (center type by
+    neighbor type, each <= r_max), kept flattened as a non-persistent buffer
+    (checkpoints do not change). An edge beyond its pair's cutoff gets
+    ``NORM_LENGTH > 1``, where the cutoff envelope and so the edge's whole
+    contribution are exactly zero."""
+
+    def __init__(self, r_max: float, num_types: int,
+                 per_edge_type_cutoff: Optional[np.ndarray] = None):
+        super().__init__()
         self.r_max = float(r_max)
         self.num_types = int(num_types)
+        self.flat_cutoffs: Optional[torch.Tensor]
+        if per_edge_type_cutoff is None:
+            self.register_buffer("flat_cutoffs", None, persistent=False)
+        else:
+            cut = np.asarray(per_edge_type_cutoff, dtype=np.float64)
+            if cut.shape != (num_types, num_types):
+                raise ValueError(f"per_edge_type_cutoff must be [{num_types}, {num_types}], "
+                                 f"got {cut.shape}")
+            if not (cut <= r_max + 1e-12).all():
+                raise ValueError("per-edge-type cutoffs must be <= r_max")
+            self.register_buffer("flat_cutoffs", torch.from_numpy(cut.reshape(-1).copy()),
+                                 persistent=False)
 
-    def __call__(self, data: Dict) -> Dict:
+    def forward(self, data: Dict) -> Dict:
         data = with_edge_vectors(data)
         out = dict(data)
         if keys.EDGE_TYPE not in data:
@@ -85,5 +107,10 @@ class EdgeLengthNormalizer:
             out[keys.EDGE_TYPE] = (
                 types.index_select(0, ei[0]) * self.num_types + types.index_select(0, ei[1])
             ).to(torch.int32)
-        out[keys.NORM_LENGTH] = data[keys.EDGE_LENGTH] / self.r_max
+        r = data[keys.EDGE_LENGTH]
+        if self.flat_cutoffs is None:
+            out[keys.NORM_LENGTH] = r / self.r_max
+        else:
+            rc = self.flat_cutoffs.to(r.dtype).index_select(0, out[keys.EDGE_TYPE].long())
+            out[keys.NORM_LENGTH] = r / rc[:, None]
         return out

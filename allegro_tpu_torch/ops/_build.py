@@ -71,6 +71,16 @@ _SIGNATURES = {
     "atpt_sparse_tp_gradw": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
                              _i32, _i32, _i32, _vp, _vp, _vp],
 }
+# the launchers' shared-memory sizes (bytes, as long long) for given widths
+# and an opt-in limit: ops/smem_fit.py's rule is held to these on the card
+_SMEM_SIGNATURES = {
+    "atpt_readout_sum_smem": [_i32, _i32, _i64],
+    "atpt_readout_bwd_smem": [_i32, _i32, _i32, _i64],
+    "atpt_latent_env_scatter_smem": [_i32, _i32, _i32, _i32, _i32, _i32, _i32, _i64],
+    "atpt_latent_env_bwd_smem": [_i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i64],
+    "atpt_gather_tp_embed_smem": [_i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i64],
+    "atpt_bwd_embed_smem": [_i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i64],
+}
 
 
 def find_nvcc() -> str | None:
@@ -153,6 +163,10 @@ def load_library(build_dir: Path | str = BUILD_DIR) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SMEM_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.atpt_error_string.argtypes = [ctypes.c_int]
     lib.atpt_error_string.restype = ctypes.c_char_p
     return lib

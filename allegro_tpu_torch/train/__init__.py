@@ -1,5 +1,6 @@
-"""Training: loss and metrics, the one-device train loop with EMA, and
-checkpoints (twin of ``allegro_tpu.train``, without ``package``).
+"""Training: loss and metrics, the one-device train loop with EMA, the
+optax optimizers and schedules it maps (``optim``), checkpoints and model
+packages (``package``) (twin of ``allegro_tpu.train``).
 
 The loop's steps are force-loss steps: the parameter gradient goes through
 the forces (second order), on the ``fused`` backend through the kernels'

@@ -1,5 +1,6 @@
 """Train-state checkpoints in the port's own format (``torch.save``): the
-parameters, the EMA parameters, the optimizer's state and the step, as in
+parameters, the EMA parameters, the optimizer's state, the step and the
+learning-rate schedule's state (where there is one), as in
 ``allegro_tpu/train/checkpoint.py``. Parameters are keyed by their
 ``state_dict`` names, which do not depend on the kernel backend, so a
 checkpoint moves between backends."""
@@ -25,6 +26,7 @@ def save_checkpoint(ckpt_dir: str, state, name: str = "last") -> str:
         "ema_params": _cpu(state.ema_params),
         "opt_state": opt.state_dict() if hasattr(opt, "state_dict") else opt,
         "step": int(state.step),
+        "lr_scheduler": None if state.lr_scheduler is None else state.lr_scheduler.state_dict(),
     }, path)
     return path
 
@@ -41,7 +43,7 @@ def load_checkpoint(ckpt_dir: str, name: str = "last", template=None):
                          weights_only=True)
     if template is None:
         return TrainState(payload["params"], payload["ema_params"], payload["opt_state"],
-                          payload["step"])
+                          payload["step"], payload.get("lr_scheduler"))
     with torch.no_grad():
         for dst, src in ((template.params, payload["params"]),
                          (template.ema_params, payload["ema_params"])):
@@ -50,5 +52,7 @@ def load_checkpoint(ckpt_dir: str, name: str = "last", template=None):
             for k, v in src.items():
                 dst[k].copy_(v)
     template.opt_state.load_state_dict(payload["opt_state"])
+    if template.lr_scheduler is not None and payload.get("lr_scheduler") is not None:
+        template.lr_scheduler.load_state_dict(payload["lr_scheduler"])
     template.step = payload["step"]
     return template

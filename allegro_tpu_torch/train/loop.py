@@ -5,12 +5,15 @@ kept (``Model.apply_with_derivatives(create_graph=True)``), takes the
 gradient of the loss in the parameters (second order through the forces:
 on the ``fused`` backend, through the kernels' closed derivative family),
 applies the optimizer (Adam by default, whose update is ``optax.adam``'s)
-and updates the exponential moving average of the parameters. Each batch
-from the loader gets the model's statics on the host
-(``Model.precompute_statics``) before it goes to the device.
+and its learning-rate schedule, if any (stepped once per update), and
+updates the exponential moving average of the parameters. Each batch from
+the loader gets the model's statics on the host
+(``Model.precompute_statics``) before it goes to the device. With
+``profile_dir`` the steps ``[profile_steps)`` are traced by
+``torch.profiler`` into that directory (``utils.profiling.profile_trace``).
 
 One device only: data parallelism over several (the JAX loop's ``dp`` mesh
-axis) is the DDP part of ROADMAP.md queue 1, item 8.
+axis) is ROADMAP.md queue 1, item 11 (DDP, with multi-device MD).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import contextlib
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,10 +30,11 @@ import torch
 from ..data import keys, to_torch
 from ..device import resolve_device
 from ..model.builders import Model
+from ..utils.profiling import profile_trace
 from .checkpoint import save_checkpoint
 from .loss import EnergyForceLoss, EnergyForceMetrics
 
-_DDP = "ROADMAP.md queue 1, item 8 (DDP)"
+_DDP = "ROADMAP.md queue 1, item 11 (DDP, with multi-device MD)"
 
 
 def shard_stack(batches: List[Dict]) -> Dict:
@@ -43,12 +47,15 @@ class TrainState:
     """``params``: the model's trainable parameters by name (the live
     tensors); ``ema_params``: their moving average; ``opt_state``: the
     optimizer, which holds its own state (a checkpoint keeps its
-    ``state_dict``); ``step``: updates taken."""
+    ``state_dict``); ``step``: updates taken; ``lr_scheduler``: the
+    learning-rate schedule over ``opt_state``, or None (a checkpoint keeps
+    its ``state_dict`` too)."""
 
     params: Dict[str, torch.Tensor]
     ema_params: Dict[str, torch.Tensor]
     opt_state: Any
     step: int
+    lr_scheduler: Any = None
 
 
 class Trainer:
@@ -56,7 +63,12 @@ class Trainer:
 
     ``optimizer``: a callable that takes the parameter list and returns a
     ``torch.optim.Optimizer`` (default ``torch.optim.Adam`` at
-    ``learning_rate``). ``ema_use_num_updates``: the EMA decay at update t
+    ``learning_rate``); ``lr_scheduler``: None, or a callable that takes the
+    optimizer and returns a ``torch.optim.lr_scheduler`` stepped after each
+    update (``train.optim.schedule_from_config``: optax's schedules, whose
+    update t runs at ``schedule(t)``). ``profile_dir``: trace the steps
+    ``[profile_steps[0], profile_steps[1])`` (counted from 0, as JAX's loop
+    does) into it with ``torch.profiler``. ``ema_use_num_updates``: the EMA decay at update t
     is ``min(ema_decay, (1 + t) / (10 + t))``, so early averages follow the
     parameters instead of staying near their initial values. ``device``:
     None is the CUDA card; without one this raises unless ``device="cpu"``.
@@ -74,6 +86,9 @@ class Trainer:
         log_every: int = 10,
         logger: Callable[[str], None] = print,
         device=None,
+        lr_scheduler: Optional[Callable[[torch.optim.Optimizer], Any]] = None,
+        profile_dir: Optional[str] = None,
+        profile_steps: Tuple[int, int] = (5, 10),
     ):
         if isinstance(device, (list, tuple)):
             raise NotImplementedError(f"training on several devices is not ported yet ({_DDP})")
@@ -89,6 +104,9 @@ class Trainer:
         self.ema_use_num_updates = bool(ema_use_num_updates)
         self.log_every = log_every
         self.logger = logger
+        self.lr_scheduler = lr_scheduler
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
         self.history: List[Dict[str, float]] = []
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
@@ -98,11 +116,13 @@ class Trainer:
             self.model.init(seed)
         self.model.to(self.device)
         params = self.model.parameters()
+        opt = self.optimizer(list(params.values()))
         return TrainState(
             params=params,
             ema_params={k: v.detach().clone() for k, v in params.items()},
-            opt_state=self.optimizer(list(params.values())),
+            opt_state=opt,
             step=0,
+            lr_scheduler=None if self.lr_scheduler is None else self.lr_scheduler(opt),
         )
 
     def to_device(self, batch: Dict) -> Dict:
@@ -125,6 +145,8 @@ class Trainer:
         for k, p in state.params.items():
             p.grad = grads[k]
         state.opt_state.step()
+        if state.lr_scheduler is not None:
+            state.lr_scheduler.step()
         # the decay and its complement in float32, as the JAX loop computes them
         decay = np.float32(self.ema_decay)
         if self.ema_use_num_updates:
@@ -140,28 +162,35 @@ class Trainer:
     def fit(self, state: TrainState, train_loader, val_loader=None, max_epochs: int = 1,
             ckpt_dir: Optional[str] = None) -> TrainState:
         best = np.inf
-        for epoch in range(max_epochs):
-            t0 = time.time()
-            losses = []
-            for batch in train_loader:
-                loss, terms = self.train_step(state, self.to_device(batch))
-                losses.append(float(loss))
-                if state.step % self.log_every == 0:
-                    self.logger(f"epoch {epoch} step {state.step} loss {float(loss):.6f} "
-                                + " ".join(f"{k}={float(v):.6f}" for k, v in terms.items()))
-            rec = {"epoch": epoch, "train_loss": float(np.mean(losses)), "time": time.time() - t0}
-            if val_loader is not None:
-                val = self.evaluate(state.ema_params, val_loader)
-                rec.update({f"val_{k}": v for k, v in val.items()})
-                score = val.get("forces_mae", val.get("per_atom_energy_mae", np.inf))
-                if ckpt_dir is not None and score < best:
-                    best = score
-                    save_checkpoint(ckpt_dir, state, name="best")
-            if ckpt_dir is not None:
-                save_checkpoint(ckpt_dir, state, name="last")
-            self.history.append(rec)
-            self.logger("  ".join(f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
-                                  for k, v in rec.items()))
+        with contextlib.ExitStack() as trace:
+            for epoch in range(max_epochs):
+                t0 = time.time()
+                losses = []
+                for batch in train_loader:
+                    data = self.to_device(batch)
+                    if self.profile_dir and state.step == self.profile_steps[0]:
+                        trace.enter_context(profile_trace(self.profile_dir))
+                    loss, terms = self.train_step(state, data)
+                    if self.profile_dir and state.step == self.profile_steps[1]:
+                        trace.close()
+                    losses.append(float(loss))
+                    if state.step % self.log_every == 0:
+                        self.logger(f"epoch {epoch} step {state.step} loss {float(loss):.6f} "
+                                    + " ".join(f"{k}={float(v):.6f}" for k, v in terms.items()))
+                rec = {"epoch": epoch, "train_loss": float(np.mean(losses)),
+                       "time": time.time() - t0}
+                if val_loader is not None:
+                    val = self.evaluate(state.ema_params, val_loader)
+                    rec.update({f"val_{k}": v for k, v in val.items()})
+                    score = val.get("forces_mae", val.get("per_atom_energy_mae", np.inf))
+                    if ckpt_dir is not None and score < best:
+                        best = score
+                        save_checkpoint(ckpt_dir, state, name="best")
+                if ckpt_dir is not None:
+                    save_checkpoint(ckpt_dir, state, name="last")
+                self.history.append(rec)
+                self.logger("  ".join(f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+                                      for k, v in rec.items()))
         return state
 
     def evaluate(self, params: Dict[str, torch.Tensor], loader) -> Dict[str, float]:

@@ -24,8 +24,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    ``gather_tp`` on the role swap and ``tp_scatter`` (``bwd_fused[pair]``),
    and at both layers beside ``unweight_both`` the pair ``unweight_sh`` +
    ``unweight_w`` (``unweight_both[pair]``);
-   then, checks only, all
-   of these at U = 16 and 48 (the lane loops for other widths) and
+   then, checks only, the
+   mega kernels at U = 16 and 48 (the lane loops for other widths; the
+   layer kernels at those widths are phase 5a's shape checks) and
    ``gather_tp`` without its split output, ``gather_tp_embed`` (with and
    without its split output), ``bwd_embed`` and ``gather_tp`` (with and
    without) on an l = 4 layer at U = 32, whose paths beyond the compiled CG
@@ -56,7 +57,14 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    backend on the same card (force max-abs rel < 1e-5, per-atom energies
    allclose at 5e-5). Prints µs/atom per force call, the run-to-run
    max |Δforces| of two identical calls and a torch.profiler breakdown of
-   three ``mega`` calls;
+   three ``mega`` calls; (3w) the routing rule for models wider than the
+   fused kernels' shared memory: ``ops/smem_fit.py``'s bytes against the
+   launchers' own (``atpt_*_smem``) over 1,108 widths on both sides of the
+   card's opt-in limit, then ``WIDE_MODELS`` (S = 128 with 3 layers and
+   readout width 128; S = 128 with latent width 128; S = 256 with latent
+   width 256) on the default path: their ``Model.routes()`` printed and
+   asserted, one force call each with exact launch counts held to
+   ``einsum`` as above, and their µs/atom;
 4. MD and calculator, on the ``mega`` model: ``md.Simulation`` runs 100
    steps (10 blocks) of NVE on the crystal with a skin small enough to
    re-neighbor, asserting finite positions, the exact launch counts of every
@@ -65,7 +73,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    block; prints the energy drift, ms/step and µs/atom per step. Then three
    ``AllegroCalculator.calculate`` calls on jittered copies of the crystal,
    each checked against ``apply_with_derivatives`` and its launch counts;
-   the padded buckets must not grow after the first call.
+   the padded buckets must not grow after the first call. Every MD neighbor
+   list must come from the native C++ list. (4c) per-edge-type cutoffs
+   (``PER_TYPE_CUTOFF``) on the flagship's mega path: the per-type list's
+   edges beside the r_max list's, one force call with exact launch counts
+   held to ``einsum``, two with the same bits, µs/atom, and 20 MD steps with
+   the per-type skin on native lists, within 1e-4 Å of ``einsum`` MD.
 
 5. training on the trainable ``fused`` backend: (a) on the JAX bench's
    4 x 1,000-atom crystal batch (seeds 200-203, 100,928 edges), the four
@@ -134,9 +147,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    checks; (d) the command line in
    subprocesses, as shipped: ``python -m allegro_tpu_torch md -c
    configs/md.yaml`` (1,000 atoms, 200 steps on ``pallas``), ``run -c
-   configs/tutorial.yaml`` (train + test, ``einsum`` + ZBL) and the same with
-   ``model.tp_kernel_backend: pallas``; each must exit 0 and write its log,
-   checkpoints and test metrics, with the exact launch counts of its run.
+   configs/tutorial.yaml`` (train + test, ``einsum`` + ZBL), the same with
+   ``model.tp_kernel_backend: pallas``, and the tutorial under ``optax.sgd``
+   (momentum 0.9) with ``optax.exponential_decay``, ``profile_dir`` and the
+   ``package`` stage (``-o``); each must exit 0 and write its log,
+   checkpoints and test metrics, with the exact launch counts of its run;
+   the package must hold the checkpoint's EMA parameters and give their
+   force call bit for bit, and the profiler must have left a trace.
 7. kernels 18 and 19 and the rest of the model surface: (b) ``bwd_fused``
    with its weight gradient (kernel 18) at the flagship's layer dims, with
    and without dw, two calls with the same bits, timed at layer 0 beside the
@@ -359,6 +376,18 @@ def per_call(config, L=2, zbl=False):
     return counts
 
 
+def per_call_routes(routes, L):
+    """Launches per force call of an L-layer ``fused_infer`` model on its
+    ``Model.routes``: the mega or the non-mega layer kernels (``per_call``),
+    and the plain readout chain in place of the fused readout (one more
+    center_sum and center_gather, no readout kernel)."""
+    counts = per_call("mega" if routes["allegro"] == "mega" else "fused readout", L)
+    if routes["edge_readout"] == "plain":
+        counts.update(readout_sum=0, readout_bwd=0, center_gather=counts["center_gather"] + 1,
+                      center_sum=counts["center_sum"] + 1)
+    return counts
+
+
 def per_step_pallas(L=2, zbl=False, lookups=2):
     """Launches per training step on ``pallas`` of an L-layer model. Per
     layer: the forward SparseTp (1); the force backward (create_graph) runs
@@ -385,6 +414,26 @@ def per_step_pallas(L=2, zbl=False, lookups=2):
 # calls give the same bits
 PER_CALL["pallas"] = per_call("pallas")
 PER_STEP_PALLAS = per_step_pallas()
+# phase 3w (ROADMAP F1): models wider than the fused kernels' shared memory.
+# On a card whose blocks may opt into 227 KB the first and second keep no
+# mega kernel (S = 128: latent_env_bwd's weights of the first projection
+# alone take 282 KB) and the first also no fused readout (W0 [512, 128]:
+# readout_bwd 308 KB, readout_sum 274 KB); the flagship keeps both
+WIDE_MODELS = {
+    "S128, 3 layers, readout 128": {**FLAGSHIP, "num_scalar_features": 128, "num_layers": 3,
+                                    "readout_mlp_hidden_layers_width": 128},
+    "S128, latent 128": {**FLAGSHIP, "num_scalar_features": 128,
+                         "allegro_mlp_hidden_layers_width": 128},
+    "S256, latent 256": {**FLAGSHIP, "num_scalar_features": 256,
+                         "allegro_mlp_hidden_layers_width": 256},
+}
+WIDE_ROUTES = {
+    "S128, 3 layers, readout 128": {"allegro": "fused_call", "edge_readout": "plain"},
+    "S128, latent 128": {"allegro": "fused_call", "edge_readout": "fused"},
+    "S256, latent 256": {"allegro": "fused_call", "edge_readout": "fused"},
+}
+FLAGSHIP_ROUTES = {"allegro": "mega", "edge_readout": "fused"}
+H100_SMEM_OPTIN = 232448  # the opt-in the wide models' expected routes assume (227 KB)
 # phase 7: the JAX bench's l_max-3 model (allegro_tpu/bench.py:run_lmax3_bench,
 # BASELINE.json config 3) and the rest of the model surface, at full width
 LMAX3 = {**FLAGSHIP, "l_max": 3}
@@ -404,6 +453,12 @@ MD_STEPS_PER_BLOCK = 10
 MD = dict(masses=[1.0, 1.0, 1.0], r_max=R_MAX, dt=0.01, skin=0.2,
           steps_per_block=MD_STEPS_PER_BLOCK, edge_multiple=1024)
 MD_KT = 0.01
+# phase 4c: per-edge-type cutoffs in the style of JAX's MODEL_GRID row
+# (tests/model/test_allegro_model.py): center type A at 3.5 A to every
+# neighbor, B's row asymmetric (B-A at r_max, B-B 3.5, B-C 3.8), C at r_max;
+# 3.5 A drops the crystal's third shell (3.81 A at spacing 2.2) for those pairs
+PER_TYPE_CUTOFF = {"A": 3.5, "B": {"A": 4.0, "B": 3.5, "C": 3.8}}
+PER_TYPE_MD_STEPS = 20
 MD_TOL = 1e-4
 CALC_JITTER = 0.01
 CALC_SEED = 100
@@ -1800,13 +1855,76 @@ def cli_launches(config):
     return {k: calls * call[k] + steps * step[k] for k in counts}
 
 
-def run_cli(smi):
+SGD_PACKAGE = "tutorial.atpkg"
+
+
+def tutorial_sgd(workdir):
+    """``configs/tutorial.yaml`` under ``optax.sgd`` with momentum 0.9 on an
+    ``optax.exponential_decay`` schedule, steps 5-10 traced into
+    ``workdir/trace``, and the ``package`` stage after train and test."""
+    import yaml
+
+    cfg = yaml.safe_load((REPO / "configs/tutorial.yaml").read_text())
+    cfg["run"] = ["train", "test", "package"]
+    # plain SGD on the tutorial's force loss diverges at 1e-3 and 1e-4
+    cfg["trainer"]["optimizer"] = {"_target_": "optax.sgd", "learning_rate": 1e-5,
+                                   "momentum": 0.9}
+    cfg["trainer"]["lr_scheduler"] = {"_target_": "optax.exponential_decay",
+                                      "transition_steps": 20, "decay_rate": 0.9}
+    cfg["trainer"]["profile_dir"] = str(workdir / "trace")
+    return cfg
+
+
+def check_package(workdir, dev):
+    """Phase 6d's package: the ``.atpkg`` the ``package`` stage wrote holds
+    the EMA parameters of its checkpoint, bit for bit, and a force call on
+    the card with the packaged parameters gives the same bits as one with
+    the checkpoint's EMA parameters (the resolved config's model, on
+    ``fused_infer``); the training run left a torch.profiler trace."""
+    from allegro_tpu_torch.cli import _build_data
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.train import load_checkpoint
+    from allegro_tpu_torch.train.config import build_model
+    from allegro_tpu_torch.train.package import load_package
+
+    _, params, meta = load_package(str(workdir / SGD_PACKAGE))
+    name = meta["extra"]["checkpoint"]
+    ema = load_checkpoint(str(workdir), name).ema_params
+    if not meta["extra"]["from_checkpoint"] or any(not torch.equal(params[k], v)
+                                                   for k, v in ema.items()):
+        raise AssertionError(f"package {meta} does not hold the {name} checkpoint's EMA")
+    resolved = json.loads((workdir / "resolved_config.json").read_text())
+    # the force calls on fused_infer, whose kernels sum in a fixed order (the
+    # run's einsum backend adds with atomics on the card)
+    infer = {**resolved["model"], "tp_kernel_backend": "fused_infer"}
+    from_package, from_ema = build_model(infer), build_model(infer)
+    from_package.load_state_dict(params)
+    from_ema.load_state_dict({**from_ema.state_dict(), **ema})
+    _, loaders = _build_data(resolved["data"])
+    batch = next(iter(loaders["test"]))
+    outs = []
+    for m in (from_package.to(dev), from_ema.to(dev)):
+        outs.append(m.apply_with_derivatives(
+            to_torch(m.precompute_statics(batch), dtype=torch.float32, device=dev)))
+    same = all(torch.equal(outs[0][k], outs[1][k])
+               for k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES))
+    traces = sorted((workdir / "trace").glob("trace_*.json"))
+    print(f"    package {SGD_PACKAGE} ({meta['format']}, {meta['n_params']} arrays, the {name} "
+          f"checkpoint's EMA): force call on fused_infer "
+          f"{'the same bits' if same else 'DIFFERS'}; "
+          f"{len(traces)} torch.profiler trace(s) of steps 5-10")
+    if not same or not traces:
+        raise AssertionError("the package's force call differs, or no profiler trace")
+
+
+def run_cli(smi, dev):
     """Phase 6d: ``python -m allegro_tpu_torch`` in subprocesses on the
     shipped configs (``md -c configs/md.yaml``, ``run -c
-    configs/tutorial.yaml``) and on the tutorial with the ``pallas``
-    backend, each into a temporary workdir: exit 0, the exact launch counts
-    of the run, the files each writes, finite energies and test metrics.
-    Returns the launches by run."""
+    configs/tutorial.yaml``), on the tutorial with the ``pallas`` backend,
+    and on it under sgd with an exponential decay, profiled, then packaged
+    (``tutorial_sgd``, ``check_package``), each into a temporary workdir:
+    exit 0, the exact launch counts of the run, the files each writes,
+    finite energies and test metrics. Returns the launches by run."""
     import yaml
 
     out = {}
@@ -1815,9 +1933,12 @@ def run_cli(smi):
         tutorial["model"]["tp_kernel_backend"] = "pallas"
         pallas_cfg = Path(tmp) / "tutorial_pallas.yaml"
         pallas_cfg.write_text(yaml.safe_dump(tutorial))
+        sgd_cfg = Path(tmp) / "tutorial_sgd.yaml"
+        sgd_cfg.write_text(yaml.safe_dump(tutorial_sgd(Path(tmp) / "tutorial_sgd")))
         for name, args in (("md", ["md", "-c", "configs/md.yaml"]),
                            ("tutorial", ["run", "-c", "configs/tutorial.yaml"]),
-                           ("tutorial_pallas", ["run", "-c", str(pallas_cfg)])):
+                           ("tutorial_pallas", ["run", "-c", str(pallas_cfg)]),
+                           ("tutorial_sgd", ["run", "-c", str(sgd_cfg), "-o", SGD_PACKAGE])):
             workdir = Path(tmp) / name
             cfg_path = Path(args[2]) if Path(args[2]).is_absolute() else REPO / args[2]
             config = yaml.safe_load(cfg_path.read_text())
@@ -1851,6 +1972,8 @@ def run_cli(smi):
             files = {p.name for p in workdir.iterdir()}
             if not {"best.pt", "last.pt", "resolved_config.json"} <= files:
                 raise AssertionError(f"CLI {name} wrote {sorted(files)}")
+            if name == "tutorial_sgd":
+                check_package(workdir, dev)
             metrics = json.loads(next(ln for ln in lines if ln.startswith("test metrics: "))
                                  [len("test metrics: "):])
             if not metrics or not np.isfinite(list(metrics.values())).all():
@@ -2155,6 +2278,102 @@ def run_surface(batch_np, n_atoms, n_edges, dev):
         torch.cuda.empty_cache()
 
 
+def fit_rule_cases():
+    """The width grid of ``check_fit_rule``: (family, C function, Python
+    rule, arguments without the limit). Readouts K = 16..2,016 at H = 1 (no
+    hidden layer) to 256; latent MLPs at S = 32..256, U = 16..64, l_max 2
+    and 3 bases, the first projection and hidden widths 32..256; the embed
+    kernels at U = 16..1,024. Each family reaches both sides of 227 KB."""
+    from allegro_tpu_torch.ops import smem_fit as f
+
+    cases = []
+    for H in (1, 20, 32, 64, 128, 256):
+        for K in range(16, 2049, 40):
+            cases.append(("readout_sum", "atpt_readout_sum_smem", f.readout_sum_bytes, (K, H)))
+            cases.append(("readout_bwd", "atpt_readout_bwd_smem", f.readout_bwd_bytes,
+                          (K, H, int(H > 1))))
+    for d2, n_irr in ((9, 3), (16, 4)):
+        for U in (16, 32, 64):
+            for S in (32, 64, 128, 256):
+                N = S + n_irr * U
+                mlps = [(0, S, 0)] + [(1, 2 * S + U, H) for H in (32, 64, 128, 256)]
+                for hidden, K, H in mlps:
+                    cases.append(("latent_env", "atpt_latent_env_scatter_smem",
+                                  f.latent_env_scatter_bytes, (hidden, K, H, N, d2, U, n_irr)))
+                    cases.append(("latent_env", "atpt_latent_env_bwd_smem",
+                                  f.latent_env_bwd_bytes, (hidden, K, H, S, N, d2, U, n_irr)))
+        for U in range(16, 1025, 16):
+            args = (6 * n_irr, 6 * n_irr, d2, n_irr, d2, d2, d2, U)
+            cases.append(("embed", "atpt_gather_tp_embed_smem", f.gather_tp_embed_bytes, args))
+            cases.append(("embed", "atpt_bwd_embed_smem", f.bwd_embed_bytes, args))
+    return cases
+
+
+def check_fit_rule(dev):
+    """The routing rule (``ops/smem_fit.py``) against the launchers' own
+    layout choice (``atpt_*_smem``, the same code the launchers run) over
+    ``fit_rule_cases`` at this card's opt-in limit: the same bytes in every
+    case, and each family's grid on both sides of the limit."""
+    from allegro_tpu_torch.ops import _build, smem_fit
+
+    lib = _build.load_library()
+    limit = smem_fit.smem_optin(dev)
+    sides = {}
+    cases = fit_rule_cases()
+    for family, c_name, rule, args in cases:
+        c_bytes = getattr(lib, c_name)(*(int(a) for a in args), limit)
+        py_bytes = rule(*args, limit)
+        if c_bytes != py_bytes:
+            raise AssertionError(f"{c_name}{args} at {limit} B: the launcher takes {c_bytes} B, "
+                                 f"ops/smem_fit.py says {py_bytes} B")
+        fit = sides.setdefault(family, [0, 0])
+        fit[c_bytes > limit] += 1
+    print(f"[3w] fit rule: {len(cases)} widths, ops/smem_fit.py == the launchers' atpt_*_smem "
+          f"bytes at the card's opt-in {limit} B; fits / refused: "
+          + ", ".join(f"{k} {a} / {b}" for k, (a, b) in sides.items()))
+    for family, (fits, refused) in sides.items():
+        if not fits or not refused:
+            raise AssertionError(f"{family}: the width grid does not reach both sides of {limit} B")
+    return limit
+
+
+def run_wide_models(batch_np, n_atoms, n_edges, dev, smi):
+    """Phase 3w: ``WIDE_MODELS`` on the default ``fused_infer`` path (their
+    routes printed and asserted, one force call with its exact launch counts
+    held to ``einsum`` as in phase 3, and the µs/atom); returns {model:
+    µs/atom}."""
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp, smem_fit
+
+    n_rows = batch_np[keys.POSITIONS].shape[0]
+    us = {}
+    for name, kw in WIDE_MODELS.items():
+        model = AllegroModel(**kw, avg_num_neighbors=n_edges / n_atoms,
+                             tp_kernel_backend="fused_infer").init(SEED).to(dev)
+        einsum = AllegroModel(**kw, avg_num_neighbors=n_edges / n_atoms,
+                              tp_kernel_backend="einsum").to(dev)
+        einsum.load_state_dict(model.state_dict())
+        ref = einsum.apply_with_derivatives(
+            to_torch(einsum.precompute_statics(batch_np), dtype=torch.float32, device=dev))
+        data = to_torch(model.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+        routes = model.routes()
+        print(f"[3w] {name}: routes {routes}")
+        if smem_fit.smem_optin(dev) == H100_SMEM_OPTIN and routes != WIDE_ROUTES[name]:
+            raise AssertionError(f"{name}: routes {routes}, expected {WIDE_ROUTES[name]}")
+        fused_tp.reset_launch_counts()
+        out = model.apply_with_derivatives(data)
+        want = per_call_routes(routes, kw["num_layers"])
+        if fused_tp.LAUNCHES != want:
+            raise AssertionError(f"{name}: launches {fused_tp.LAUNCHES}, expected {want}")
+        check_force_call(out, ref, n_atoms, n_rows)
+        us[name] = time_force_call(model, data, n_atoms)
+        print(f"    {name}: {us[name]:.3f} us/atom ({n_atoms} atoms, f32; {smi})")
+        del model, einsum, ref, data, out
+        torch.cuda.empty_cache()
+    return us
+
+
 def time_force_call(model, data, n_atoms, reps=10):
     for _ in range(2):
         model.apply_with_derivatives(data)
@@ -2175,6 +2394,10 @@ def main() -> int:
     from allegro_tpu_torch.ops import _build, fused_tp
 
     t_start = time.perf_counter()
+
+    def stamp(phase):
+        print(f"[t] phase {phase} starts at {time.perf_counter() - t_start:.1f} s")
+
     # phase 0: device
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2195,6 +2418,7 @@ def main() -> int:
     for mangled, (regs, stores, loads) in usage.items():
         print(f"    ptxas: {regs:3d} registers, spill stores {stores} B, loads {loads} B: {mangled}")
 
+    stamp("2")
     # phase 2: kernels at the slice's shapes
     frame, n_atoms = crystal_frame(N_ATOMS, R_MAX, SEED)
     n_edges = frame[keys.EDGE_INDEX].shape[1]
@@ -2209,18 +2433,19 @@ def main() -> int:
         **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
     ).to(dev)
     mega.load_state_dict(fused.state_dict())
-    if not mega.module.allegro.mega:
-        raise AssertionError("the default fused_infer model does not take the mega path")
+    if not mega.module.allegro.mega or mega.routes() != FLAGSHIP_ROUTES:
+        raise AssertionError(f"the default fused_infer model takes {mega.routes()}, not "
+                             f"{FLAGSHIP_ROUTES}")
     records = {}
     rng = np.random.RandomState(SEED)
     check_kernels(fused.module.allegro.tps, data, rng, records)
     check_mega_kernels(mega.module.allegro, data, rng, records)
     for U in (16, 48):
+        # the layer kernels at these widths: phase 5a's shape checks
         other = AllegroModel(
             **{**FLAGSHIP, "num_tensor_features": U}, avg_num_neighbors=n_edges / n_atoms,
             tp_kernel_backend="fused_infer",
         ).init(SEED).to(dev)
-        check_kernels(other.module.allegro.tps, data, rng)
         check_mega_kernels(other.module.allegro, data, rng)
     check_embed_beyond_the_header(data, rng)
     check_long_segments(mega, rng, dev)
@@ -2229,6 +2454,7 @@ def main() -> int:
     floor_ms = launch_floor_ms(dev)
     print(f"    launch floor: an empty kernel {floor_ms:.4f} ms under median_ms ({smi})")
 
+    stamp("3")
     # phase 3: the force call — 5 calls per configuration through the kernels
     fused_ro = AllegroModel(
         **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
@@ -2252,10 +2478,20 @@ def main() -> int:
     print("    force call: " + ", ".join(f"{k} {v:.3f} us/atom" for k, v in us.items())
           + f" ({n_atoms} atoms, f32; {smi})")
 
+    stamp("3w")
+    # phase 3w: wide models on the default path, routed around the fused
+    # kernels whose shared memory they outgrow (ROADMAP F1)
+    check_fit_rule(dev)
+    run_wide_models(batch_np, n_atoms, n_edges, dev, smi)
+
+    stamp("4")
     # phase 4: the MD and calculator entry points, on the mega model
     md_launches = run_md(mega, einsum, frame, n_atoms, dev, smi)
     calc_launches = run_calculator(mega, frame, n_atoms, dev)
+    stamp("4c")
+    run_per_type_md(mega, data, frame, n_atoms, n_edges, dev, smi)
 
+    stamp("5")
     # phase 5: training on the trainable `fused` backend
     loaders = train_loaders()
     batch_1k = next(iter(loaders["1k"]))
@@ -2277,6 +2513,7 @@ def main() -> int:
     del train_data
     train_launches = run_training(loaders, dev, smi)
 
+    stamp("6")
     # phase 6: the pallas backend (kernels 20 and 21) and the CLI
     pallas = AllegroModel(**FLAGSHIP, avg_num_neighbors=n_edges / n_atoms,
                           tp_kernel_backend="pallas").to(dev)
@@ -2293,8 +2530,10 @@ def main() -> int:
     del pallas_data
     torch.cuda.empty_cache()
     pallas_train = run_training(loaders, dev, smi, "pallas", PER_STEP_PALLAS, ("6c", "6c"))
-    cli = run_cli(smi)
+    stamp("6d")
+    cli = run_cli(smi, dev)
 
+    stamp("7")
     # phase 7: kernels 18 and 19, the l_max-3 model and the rest of the surface
     print("[7b] kernel 18 (bwd_fused with dw) and 19 (unweight_both) at the flagship dims")
     check_kernel18(fused.module.allegro.tps, data, rng, records, "flagship", PHASE7_PLAIN_TIMING)
@@ -2458,8 +2697,9 @@ def check_force_call(out, ref, n_atoms, n_rows):
 
 
 def run_md(model, einsum, frame, n_atoms, dev, smi):
-    """Phase 4a: MD_BLOCKS blocks of NVE through ``md.Simulation``."""
-    from allegro_tpu_torch.data import keys
+    """Phase 4a: MD_BLOCKS blocks of NVE through ``md.Simulation``; its
+    neighbor lists must come from the native C++ list."""
+    from allegro_tpu_torch.data import keys, neighborlist
     from allegro_tpu_torch.md import MDState, Simulation, kinetic_energy
     from allegro_tpu_torch.md import maxwell_boltzmann_velocities
     from allegro_tpu_torch.ops import fused_tp
@@ -2482,6 +2722,7 @@ def run_md(model, einsum, frame, n_atoms, dev, smi):
     sim._block = no_sync_block
     per_block = {k: n * (MD_STEPS_PER_BLOCK + 1) for k, n in PER_CALL["mega"].items()}
     state = MDState(pos0, vel0)
+    neighborlist.reset_neighbor_list_counts()
     totals, times, rebuilt = [], [], []
     total_launches = {k: 0 for k in per_block}
     for b in range(MD_BLOCKS):
@@ -2508,6 +2749,7 @@ def run_md(model, einsum, frame, n_atoms, dev, smi):
           f"launches per block {per_block}")
     if sim.rebuilds < 2:
         raise AssertionError("MD: no re-neighboring happened")
+    check_native_lists(sim.rebuilds)
     ref_sim = Simulation(einsum, **kw)
     ref = ref_sim.run(MDState(pos0, vel0), MD_STEPS_PER_BLOCK)
     dpos = float(np.abs(first - ref.positions).max())
@@ -2524,6 +2766,94 @@ def run_md(model, einsum, frame, n_atoms, dev, smi):
           f"(median of {len(steady)} blocks without a rebuild; all {steps} steps with "
           f"rebuilds {1e3 * sum(times) / steps:.3f} ms/step; {smi})")
     return total_launches
+
+
+def check_native_lists(rebuilds):
+    """The neighbor lists since the last reset: all ``rebuilds`` of them
+    built by the native C++ list (``data.neighborlist.NEIGHBOR_LISTS``)."""
+    from allegro_tpu_torch.data import neighborlist
+
+    lists = dict(neighborlist.NEIGHBOR_LISTS)
+    print(f"    neighbor lists built: {lists}")
+    if lists != {"native": rebuilds, "scipy": 0}:
+        raise AssertionError(f"{rebuilds} rebuilds, lists {lists}: not all native")
+
+
+def run_per_type_md(mega, mega_data, frame, n_atoms, n_edges, dev, smi):
+    """Phase 4c: the flagship with ``PER_TYPE_CUTOFF`` on the default mega
+    path: the per-type neighbor list (native) against the r_max list's
+    edges; one force call with the exact launches of ``PER_CALL["mega"]``
+    held to ``einsum`` as in phase 3, two calls with the same bits, and its
+    µs/atom in turns with the flagship's (``mega`` on ``mega_data``: flagship,
+    per-type, per-type, flagship); ``PER_TYPE_MD_STEPS`` MD steps with the
+    per-type skin, all lists native, positions within ``MD_TOL`` of
+    ``einsum`` MD, ms/step by block."""
+    from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, neighborlist, to_torch
+    from allegro_tpu_torch.md import MDState, Simulation, maxwell_boltzmann_velocities
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.model.builders import _per_edge_type_cutoff_matrix
+    from allegro_tpu_torch.ops import fused_tp
+
+    matrix = _per_edge_type_cutoff_matrix(PER_TYPE_CUTOFF, FLAGSHIP["type_names"], R_MAX)
+    neighborlist.reset_neighbor_list_counts()
+    pt_frame = neighbor_list(frame, R_MAX, matrix)
+    check_native_lists(1)
+    n_pt = pt_frame[keys.EDGE_INDEX].shape[1]
+    print(f"[4c] per-edge-type cutoffs {PER_TYPE_CUTOFF} (rows: center type): {n_pt} edges, "
+          f"{n_edges} at r_max {R_MAX} for every pair")
+    if not n_pt < n_edges:
+        raise AssertionError("the per-type cutoffs drop no edge")
+    kw = {**FLAGSHIP, "per_edge_type_cutoff": PER_TYPE_CUTOFF, "avg_num_neighbors": n_pt / n_atoms}
+    model = AllegroModel(**kw, tp_kernel_backend="fused_infer").init(SEED).to(dev)
+    if model.routes() != FLAGSHIP_ROUTES:
+        raise AssertionError(f"per-type model routes {model.routes()}")
+    einsum = AllegroModel(**kw, tp_kernel_backend="einsum").to(dev)
+    einsum.load_state_dict(model.state_dict())
+    batch = batch_frames([pt_frame], n_frames=1)
+    data = to_torch(model.precompute_statics(batch), dtype=torch.float32, device=dev)
+    ref = einsum.apply_with_derivatives(
+        to_torch(einsum.precompute_statics(batch), dtype=torch.float32, device=dev))
+    fused_tp.reset_launch_counts()
+    out = model.apply_with_derivatives(data)
+    if fused_tp.LAUNCHES != PER_CALL["mega"]:
+        raise AssertionError(f"per-type force call: launches {fused_tp.LAUNCHES}")
+    check_force_call(out, ref, n_atoms, batch[keys.POSITIONS].shape[0])
+    if not bitwise_same(out, model.apply_with_derivatives(data)):
+        raise AssertionError("per-type model: two identical force calls differ")
+    turns = [time_force_call(m, d, n_atoms) for m, d in ((mega, mega_data), (model, data),
+                                                         (model, data), (mega, mega_data))]
+    us = float(np.mean(turns[1:3]))
+    print(f"    two identical calls: the same bits; us/atom in turns, flagship | per-type | "
+          f"per-type | flagship: {' | '.join(f'{t:.3f}' for t in turns)} ({n_atoms} atoms, "
+          f"f32; {smi})")
+    md_kw = dict(atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL], pbc=frame[keys.PBC],
+                 device=dev, per_edge_type_cutoff=matrix, **MD)
+    sim = Simulation(model, **md_kw)
+    vel0 = maxwell_boltzmann_velocities(sim.masses_per_atom, MD_KT, seed=SEED)
+    neighborlist.reset_neighbor_list_counts()
+    fused_tp.reset_launch_counts()
+    state, times = MDState(frame[keys.POSITIONS], vel0), []
+    for _ in range(PER_TYPE_MD_STEPS // MD_STEPS_PER_BLOCK):
+        rebuilds, t0 = sim.rebuilds, time.perf_counter()
+        state = sim.run(state, MD_STEPS_PER_BLOCK)
+        times.append((time.perf_counter() - t0, sim.rebuilds > rebuilds))
+    check_native_lists(sim.rebuilds)
+    calls = PER_TYPE_MD_STEPS // MD_STEPS_PER_BLOCK * (MD_STEPS_PER_BLOCK + 1)
+    if fused_tp.LAUNCHES != {k: calls * n for k, n in PER_CALL["mega"].items()}:
+        raise AssertionError(f"per-type MD: launches {fused_tp.LAUNCHES}")
+    ref_state = Simulation(einsum, **md_kw).run(MDState(frame[keys.POSITIONS], vel0),
+                                                PER_TYPE_MD_STEPS)
+    dpos = float(np.abs(state.positions - ref_state.positions).max())
+    ms_step = 1e3 * sum(t for t, _ in times) / PER_TYPE_MD_STEPS
+    steady = [1e3 * t / MD_STEPS_PER_BLOCK for t, rebuilt in times if not rebuilt]
+    print(f"    MD: {PER_TYPE_MD_STEPS} steps, {sim.rebuilds} neighbor lists (per-type skin "
+          f"{MD['skin']}), max |dpos| vs einsum MD {dpos:.3e} A (< {MD_TOL}); ms/step by "
+          f"block {[round(1e3 * t / MD_STEPS_PER_BLOCK, 3) for t, _ in times]} (rebuilt "
+          f"{[r for _, r in times]}), {ms_step:.3f} over all ({smi})")
+    if not np.isfinite(state.positions).all() or not dpos < MD_TOL:
+        raise AssertionError(f"per-type MD positions vs einsum: {dpos:.3e}")
+    return {"edges": n_pt, "us_per_atom": us, "md_ms_per_step": ms_step,
+            "md_ms_per_step_without_rebuild": steady}
 
 
 def run_calculator(model, frame, n_atoms, dev):

@@ -8,8 +8,9 @@
 - ``md`` on ``configs/md.yaml`` cut to 27 atoms, l_max 1 and 10 steps, on the
   ``pallas`` backend it ships with: ``md_log.json`` and a trajectory that
   reads back (with the port's reader and JAX's).
-- The stages and options the port does not run raise ``NotImplementedError``
-  naming their ROADMAP item; without a card the CLI raises unless
+- The stages and options the port does not run (the ``compile`` and
+  ``benchmark`` stages, optimizers, options and schedules it does not map,
+  precision policies) raise ``NotImplementedError`` naming their ROADMAP item; without a card the CLI raises unless
   ``--device cpu`` is given.
 - ZBL against JAX's (energies, forces, virial at 1e-10, f64, with
   ``chemical_species`` names); ``sgdml_npz_dataset`` and extxyz write → read
@@ -125,10 +126,15 @@ def test_cli_md_on_pallas(tmp_path):
 
 @pytest.mark.parametrize("change", [
     {"run": ["compile"]},
-    {"run": ["package"]},
+    # the package stage runs (tests/test_torch_train_rest.py), but a run list
+    # that holds it and an unported stage is refused before any stage runs
+    {"run": ["train", "package", "compile"]},
     {"run": ["benchmark"]},
-    {"trainer": {"optimizer": {"_target_": "optax.sgd", "learning_rate": 0.1}}},
-    {"trainer": {"lr_scheduler": {"_target_": "optax.exponential_decay"}}},
+    # sgd runs; an optax option the port does not map raises
+    {"trainer": {"optimizer": {"_target_": "optax.sgd", "learning_rate": 0.1,
+                               "accumulator_dtype": "bfloat16"}}},
+    # exponential_decay and cosine_decay_schedule run; other schedules raise
+    {"trainer": {"lr_scheduler": {"_target_": "optax.warmup_cosine_decay_schedule"}}},
     {"global_options": {"allow_tf32": True}},
 ], ids=["compile", "package", "benchmark", "sgd", "lr_scheduler", "allow_tf32"])
 def test_cli_unported_stages_and_options_raise(tmp_path, change):

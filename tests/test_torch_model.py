@@ -159,7 +159,6 @@ def test_unsorted_edges_raise(frames, avg_n):
     {"tensor_dtype": "bfloat16"},
     {"remat": True},
     {"checkpoint_energy": True},
-    {"per_edge_type_cutoff": {"A": 3.0}},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override, avg_n):
     kw = {**_model_kwargs(avg_n, "float32"), **override}
@@ -337,6 +336,9 @@ from allegro_tpu_torch.data import DataLoader, InMemoryDataset, synthetic_molecu
 from allegro_tpu_torch.md import MDState, Simulation
 from allegro_tpu_torch.model import AllegroModel
 from allegro_tpu_torch.train import Trainer
+from allegro_tpu_torch.native import native_available
+from allegro_tpu_torch.train.package import load_package, save_package
+from allegro_tpu_torch.utils.profiling import profile_trace
 import numpy as np
 
 rng = np.random.RandomState(0)
@@ -379,6 +381,15 @@ sm = AllegroModel(r_max=4.0, type_names=["H", "C"], l_max=3, parity=False, num_l
                   ).init(0)
 out = sm.apply_with_derivatives(to_torch(sm.precompute_statics(b), torch.float32))
 assert torch.isfinite(out[keys.FORCES]).all() and rep_matrix("1x3o", np.eye(3)).shape == (7, 7)
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    pkg = save_package(tmp + "/m.atpkg", {"r_max": 4.0, "type_names": ["H", "C"], "l_max": 2,
+                       "num_layers": 2, "num_scalar_features": 8, "num_tensor_features": 4,
+                       "model_dtype": "float32", "tp_kernel_backend": "fused_infer"}, m)
+    back, _, _ = load_package(pkg)
+    with profile_trace(tmp + "/trace"):
+        again = back.apply_with_derivatives(to_torch(back.precompute_statics(b), torch.float32))
+assert torch.isfinite(again[keys.FORCES]).all() and native_available() in (True, False)
 sys.argv = ["allegro_tpu_torch", "--help"]
 try:
     runpy.run_module("allegro_tpu_torch", run_name="__main__")

@@ -2,7 +2,7 @@
 
 Configurations: JAX's ``MODEL_GRID`` (``tests/model/test_allegro_model.py``:
 the defaults, ``parity=False``, no path-channel coupling, the spline embed;
-its per-edge-type-cutoff row still raises here), plus l_max 3, three layers
+its per-edge-type-cutoff row is ``tests/test_torch_cutoffs.py``'s), plus l_max 3, three layers
 with ``parity=False`` (the only depth at which it changes the ladder) and
 shared env weights (``weight_individual_irreps=False``). Tiny widths
 (``num_tensor_features=4``, as that file has), float64.
@@ -259,8 +259,11 @@ def test_spline_embed_parameters_carry_over():
 
 
 def test_per_edge_type_cutoff_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 9"):
-        _port("einsum", per_edge_type_cutoff={"A": 3.0})
+    """Per-edge-type cutoffs run (``tests/test_torch_cutoffs.py``); one above
+    r_max raises, as JAX's assertion does."""
+    _port("einsum", per_edge_type_cutoff={"A": 3.0})
+    with pytest.raises(ValueError, match="<= r_max"):
+        _port("einsum", per_edge_type_cutoff={"A": 5.0})
 
 
 def test_cpu_force_calls_launch_nothing():
