@@ -158,12 +158,22 @@ def run_test(config: Dict[str, Any], workdir: str, ckpt: Optional[str] = None,
     return metrics
 
 
-def _global_options(gopt: Dict[str, Any]) -> None:
-    """``allow_tf32: false`` (and ``matmul_precision: highest``) are the
-    port's full-f32 pin, which every model call sets; other policies are
-    not ported."""
-    if gopt.get("allow_tf32") or gopt.get("matmul_precision", "highest") != "highest":
+def _global_options(gopt: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's matrix-product policy from the config's ``global_options``
+    (JAX's process-wide precision, here the model kwargs each model call
+    sets): ``matmul_precision`` high or highest → ``precision``;
+    ``allow_tf32: false`` pins "highest" over any ``matmul_precision``, as
+    JAX's CLI does; ``allow_tf32: true`` → the model's ``allow_tf32`` (TF32
+    for the products outside the kernels), where JAX's CLI leaves its model
+    at "highest" (a departure, ROADMAP queue 3). Other values are not ported
+    and raise."""
+    mp = gopt.get("matmul_precision")
+    if mp not in (None, "high", "highest") or gopt.get("allow_tf32") not in (None, True, False):
         raise _not_ported(f"global_options {gopt}", "queue 1, item 6")
+    if gopt.get("allow_tf32") is False:
+        return {"precision": "highest"}
+    policy = {"allow_tf32": True} if gopt.get("allow_tf32") else {}
+    return {**policy, **({"precision": mp} if mp else {})}
 
 
 def main(argv=None) -> int:
@@ -184,7 +194,10 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     config = load_config(args.config)
-    _global_options(config.get("global_options") or {})
+    policy = _global_options(config.get("global_options") or {})
+    if policy and isinstance(config.get("model"), dict):
+        # the model block's own kwargs win over the global defaults
+        config["model"] = {**policy, **config["model"]}
     workdir = args.workdir or os.path.join(
         "outputs", os.path.splitext(os.path.basename(args.config))[0])
     stages = config.get("run", ["train", "test"]) if args.command == "run" else [args.command]

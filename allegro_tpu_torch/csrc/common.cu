@@ -8,6 +8,7 @@
 // internal linkage, so each gets its own copy. The build compiles every
 // csrc/*.cu, this one too: on its own it defines no symbol.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,6 +49,21 @@ __device__ __forceinline__ void load_entries(const int* __restrict__ eidx,
                                              int* s_idx, float* s_coef) {
   for (int t = threadIdx.x; t < 4 * n_entries; t += blockDim.x) s_idx[t] = eidx[t];
   for (int t = threadIdx.x; t < n_entries; t += blockDim.x) s_coef[t] = ecoef[t];
+}
+
+// The tensor track's two storage types (the model's `tensor_dtype`): float,
+// or __nv_bfloat16 (the bf16 track). A kernel that reads the track widens
+// each element to float and computes in float; one that writes it rounds
+// once, to nearest even (what `astype(bfloat16)` does), from its float sum.
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// v rounded to bf16 and back: the env weights of the bf16 track (JAX's
+// `wexp.astype(bfloat16).astype(float32)` inside kernels 7 and 8).
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }

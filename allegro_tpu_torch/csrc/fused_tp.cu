@@ -166,13 +166,13 @@ int launch_bwd_fused_dw(const float* x, const float* g, const float* gts, const 
 }  // namespace
 
 // csrc/sparse_tp.cu: bwd_fused without the weight gradient, on the path tables
-int launch_bwd_fused_walk(const float* x, const float* g, const float* gts, const float* env,
+int launch_bwd_fused_walk(const void* x, const void* g, const float* gts, const float* env,
                           const float* w, const int* row_ptr, const int* desc_dx,
                           const float* scale_dx, int rows_dx, const int* eidx_dx,
                           const float* ecoef_dx, const int* desc_den, const float* scale_den,
                           int rows_den, const int* eidx_den, const float* ecoef_den,
                           long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
-                          float* dx, float* denv, cudaStream_t stream);
+                          void* dx, float* denv, int bf16, cudaStream_t stream);
 
 extern "C" {
 
@@ -192,20 +192,26 @@ int atpt_noop(void* stream) {
 // U] and the run-time entry table eidx [n_entries, 4], ecoef [n_entries];
 // n_blocks is chosen by the caller from n_atoms alone (so the order of the
 // sums does not depend on the card), and the path tables are not read.
-int atpt_bwd_fused(const float* x, const float* g, const float* gts, const float* env,
+// bf16: x, g and dx are the bf16 track (__nv_bfloat16; without dw only),
+// otherwise float; gts, env, denv and dw are float either way.
+int atpt_bwd_fused(const void* x_, const void* g_, const float* gts, const float* env,
                    const float* w, const int* row_ptr, const int* eidx, const float* ecoef,
                    int n_entries, const int* desc_dx, const float* scale_dx, int rows_dx,
                    const int* eidx_dx, const float* ecoef_dx, const int* desc_den,
                    const float* scale_den, int rows_den, const int* eidx_den,
                    const float* ecoef_den, long long n_edges, int n_atoms, int d1, int d2, int d3,
-                   int U, int P, int n_blocks, float* dx, float* denv, float* partial, float* dw,
-                   void* stream) {
+                   int U, int P, int n_blocks, void* dx_, float* denv, float* partial, float* dw,
+                   int bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (!dw)
-    return launch_bwd_fused_walk(x, g, gts, env, w, row_ptr, desc_dx, scale_dx, rows_dx, eidx_dx,
-                                 ecoef_dx, desc_den, scale_den, rows_den, eidx_den, ecoef_den,
-                                 n_edges, n_atoms, d1, d2, d3, U, P, dx, denv, st);
-  if (n_blocks < 1 || P < 1) return (int)cudaErrorInvalidValue;
+    return launch_bwd_fused_walk(x_, g_, gts, env, w, row_ptr, desc_dx, scale_dx, rows_dx,
+                                 eidx_dx, ecoef_dx, desc_den, scale_den, rows_den, eidx_den,
+                                 ecoef_den, n_edges, n_atoms, d1, d2, d3, U, P, dx_, denv, bf16,
+                                 st);
+  if (n_blocks < 1 || P < 1 || bf16) return (int)cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(x_);
+  const float* g = static_cast<const float*>(g_);
+  float* dx = static_cast<float*>(dx_);
   if (gts)
     return launch_bwd_fused_dw<true>(x, g, gts, env, w, row_ptr, eidx, ecoef, n_entries, n_edges,
                                      n_atoms, d1, d2, d3, U, P, n_blocks, dx, denv, partial, dw,

@@ -154,7 +154,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
     const float* __restrict__ sh, const float* __restrict__ t, const float* __restrict__ g_lat,
     const int* __restrict__ centers, const int* __restrict__ irr_ranges, long long n_edges,
     int n_atoms, int d2, int n_irr, int U, int S, int K, int H, int N, LebLayout L,
-    float* __restrict__ dsh) {
+    int round_wexp, float* __restrict__ dsh) {
   extern __shared__ float smem[];
   const int NE = N - S, T = blockDim.x;
   const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8, m0 = ty * 4;
@@ -268,12 +268,18 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
         }
       });
       __syncthreads();
-      // lat_env = silu(pre) W1[:, S:]
+      // lat_env = silu(pre) W1[:, S:] (on the bf16 track rounded to bf16,
+      // as the forward weighted sh with it: it is read by dsh alone)
       col_chunks(NE, [&](auto tn, int c0) {
         constexpr int TN = decltype(tn)::value;
         const int c = c0 + tx * 4;
         zero_acc(acc);
         mma_cols<TN>(Ht + m0, L.ldM, Wc + c, L.ldE, H, acc);
+        if (round_wexp)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[i][j] = bf16_round(acc[i][j]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           float* row = E + (m0 + i) * L.ldE + c;
@@ -294,7 +300,8 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
           const int c = c0 + tx + 8 * j;
           if (c < NE)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) E[(m0 + i) * L.ldE + c] = acc[i][j];
+            for (int i = 0; i < 4; ++i)
+              E[(m0 + i) * L.ldE + c] = round_wexp ? bf16_round(acc[i][j]) : acc[i][j];
         }
       });
     }
@@ -548,7 +555,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
     const float* __restrict__ sh, const int* __restrict__ centers,
     const int* __restrict__ row_ptr, const int* __restrict__ irr_ranges, long long n_edges,
     int n_atoms, int d2, int n_irr, int U, int S, int K, int H, int N, LesLayout L,
-    float* __restrict__ lat_s, float* __restrict__ env) {
+    int round_wexp, float* __restrict__ lat_s, float* __restrict__ env) {
   extern __shared__ float smem[];
   const int T = blockDim.x;
   float* W0t = smem + L.w0;
@@ -777,7 +784,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
         for (int m = ms; m < me; ++m, lp += L.ldN, sp += d2) {
           float lv[4], sv[4];
 #pragma unroll
-          for (int b = 0; b < 4; ++b) lv[b] = lp[b];
+          for (int b = 0; b < 4; ++b) lv[b] = round_wexp ? bf16_round(lp[b]) : lp[b];
 #pragma unroll
           for (int a = 0; a < 4; ++a) sv[a] = a < nj ? sp[a] : 0.f;
 #pragma unroll
@@ -882,16 +889,28 @@ __host__ __device__ inline int embed_warp_floats(int U, int d_sh, int n_irr, int
          (2 * d1 + n_irr) * kWarp + d_sh * kTile;
 }
 
+// g's row of edge e into buf: by cp.async from float, widened by plain
+// loads from the bf16 track (the same float buffer either way).
+__device__ __forceinline__ void embed_load_g(const float* __restrict__ g, long long e, int gU,
+                                             float* buf, int lane) {
+  for (int q = lane; q < gU; q += kWarp) cp_async4(buf + q, g + e * gU + q);
+}
+
+__device__ __forceinline__ void embed_load_g(const __nv_bfloat16* __restrict__ g, long long e,
+                                             int gU, float* buf, int lane) {
+  for (int q = lane; q < gU; q += kWarp) buf[q] = load_f(g + e * gU + q);
+}
+
 // Edge e's g, gts, w2b and sh rows into one stage of the warp's buffers.
-template <bool kGts>
-__device__ __forceinline__ void embed_load_edge(const float* __restrict__ g,
+template <bool kGts, typename Tg>
+__device__ __forceinline__ void embed_load_edge(const Tg* __restrict__ g,
                                                 const float* __restrict__ gts,
                                                 const float* __restrict__ w2b,
                                                 const float* __restrict__ sh, long long e, int U,
                                                 int d_sh, int n_irr, int d3, float* buf,
                                                 int lane) {
   const int gU = d3 * U, nU = n_irr * U;
-  for (int q = lane; q < gU; q += kWarp) cp_async4(buf + q, g + e * gU + q);
+  embed_load_g(g, e, gU, buf, lane);
   if (kGts)
     for (int q = lane; q < U; q += kWarp) cp_async4(buf + gU + q, gts + e * U + q);
   for (int q = lane; q < nU; q += kWarp) cp_async4(buf + gU + U + q, w2b + e * nU + q);
@@ -899,9 +918,9 @@ __device__ __forceinline__ void embed_load_edge(const float* __restrict__ g,
   cp_async_commit();
 }
 
-template <bool kGts>
+template <bool kGts, typename Tg>
 __global__ void __launch_bounds__(kSegmentWarps* kWarp) bwd_embed_kernel(
-    const float* __restrict__ sh, const float* __restrict__ w2b, const float* __restrict__ g,
+    const float* __restrict__ sh, const float* __restrict__ w2b, const Tg* __restrict__ g,
     const float* __restrict__ gts, const float* __restrict__ env, const float* __restrict__ w,
     int n_w, const int* __restrict__ row_ptr, const int* __restrict__ desc,
     const float* __restrict__ dscale, int n_paths, const int* __restrict__ eidx,
@@ -1083,13 +1102,14 @@ __host__ __device__ inline int gather_embed_warp_floats(int U, int d_sh, int n_i
          (d1 + d3) * kWarp;
 }
 
+template <typename To>
 __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
     const float* __restrict__ sh, const float* __restrict__ w2b, const float* __restrict__ env,
     const float* __restrict__ w, int n_w, const int* __restrict__ row_ptr,
     const int* __restrict__ desc, const float* __restrict__ dscale, int n_paths,
     const int* __restrict__ eidx, const float* __restrict__ ecoef,
     const int* __restrict__ row_specs, long long n_edges, int n_atoms, int d_sh, int n_irr,
-    int d1, int d2, int d3, int U, float* __restrict__ out, float* __restrict__ ts) {
+    int d1, int d2, int d3, int U, To* __restrict__ out, float* __restrict__ ts) {
   extern __shared__ float smem[];
   const int Up = round_up(U, kWarp);
   int* s_desc = reinterpret_cast<int*>(smem);                  // [n_paths][kDescCols]
@@ -1116,7 +1136,7 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
        item += (long long)gridDim.x * wpb) {
     if (item >= n_atoms) {  // a tile of sentinel edges: zero rows
       const long long e0 = tail + (item - n_atoms) * kWarp, e1 = min(e0 + kWarp, n_edges);
-      for (long long q = e0 * oU + lane; q < e1 * oU; q += kWarp) out[q] = 0.f;
+      for (long long q = e0 * oU + lane; q < e1 * oU; q += kWarp) store_f(out + q, 0.f);
       if (ts)
         for (long long q = e0 * U + lane; q < e1 * U; q += kWarp) ts[q] = 0.f;
       continue;
@@ -1166,7 +1186,7 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
           }
         }
         if (act) {
-          for (int k = 0; k < d3; ++k) out[e * oU + k * U + u] = s_o[k * kWarp + lane];
+          for (int k = 0; k < d3; ++k) store_f(out + e * oU + k * U + u, s_o[k * kWarp + lane]);
           if (ts) ts[e * U + u] = s_o[lane];
         }
       }
@@ -1212,7 +1232,8 @@ template <bool kHidden>
 int launch_latent_env_scatter(const Pieces& P, const float* w0, const float* w1, const float* sh,
                               const int* centers, const int* row_ptr, const int* irr_ranges,
                               long long n_edges, int n_atoms, int d2, int U, int S, int K, int H,
-                              int N, float* lat_s, float* env, cudaStream_t stream) {
+                              int N, int round_wexp, float* lat_s, float* env,
+                              cudaStream_t stream) {
   const int n_irr = (N - S) / U;
   LesLayout L;
   if (!les_fit(kHidden, K, H, N, d2, U, n_irr, smem_optin(), &L))
@@ -1225,7 +1246,7 @@ int launch_latent_env_scatter(const Pieces& P, const float* w0, const float* w1,
                                        (n_edges + kLebRows - 1) / kLebRows, L.groups);
   latent_env_scatter_kernel<kHidden><<<blocks, threads, smem, stream>>>(
       P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges, n_atoms, d2, n_irr, U, S, K, H, N, L,
-      lat_s, env);
+      round_wexp, lat_s, env);
   return (int)cudaGetLastError();
 }
 
@@ -1233,7 +1254,8 @@ template <bool kHidden>
 int launch_latent_env_bwd(const Pieces& P, const OutPieces& D, const float* w0, const float* w1,
                           const float* sh, const float* t, const float* g_lat, const int* centers,
                           const int* irr_ranges, long long n_edges, int n_atoms, int d2, int U,
-                          int S, int K, int H, int N, float* dsh, cudaStream_t stream) {
+                          int S, int K, int H, int N, int round_wexp, float* dsh,
+                          cudaStream_t stream) {
   const int n_irr = (N - S) / U;
   LebLayout L;
   if (!leb_fit(kHidden, K, H, S, N, d2, U, n_irr, smem_optin(), &L))
@@ -1245,7 +1267,7 @@ int launch_latent_env_bwd(const Pieces& P, const OutPieces& D, const float* w0, 
                                        (n_edges + kLebRows - 1) / kLebRows, 1);
   latent_env_bwd_kernel<kHidden><<<blocks, kLebThreads, smem, stream>>>(
       P, D, w0, w1, sh, t, g_lat, centers, irr_ranges, n_edges, n_atoms, d2, n_irr, U, S, K, H, N,
-      L, dsh);
+      L, round_wexp, dsh);
   return (int)cudaGetLastError();
 }
 
@@ -1257,7 +1279,8 @@ int atpt_latent_env_scatter(const float* const* piece_ptrs, const long long* pie
                             const int* piece_dims, int n_pieces, const float* w0, const float* w1,
                             const float* sh, const int* centers, const int* row_ptr,
                             const int* irr_ranges, long long n_edges, int n_atoms, int d2, int U,
-                            int S, int H, int N, float* lat_s, float* env, void* stream) {
+                            int S, int H, int N, float* lat_s, float* env, int bf16_wexp,
+                            void* stream) {
   Pieces P;
   const int K = fill_pieces(piece_ptrs, piece_strides, piece_dims, n_pieces, P.ptr, P.stride,
                             P.dim, P.off);
@@ -1265,10 +1288,10 @@ int atpt_latent_env_scatter(const float* const* piece_ptrs, const long long* pie
   P.n = n_pieces;
   if (w1)
     return launch_latent_env_scatter<true>(P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges,
-                                           n_atoms, d2, U, S, K, H, N, lat_s, env,
+                                           n_atoms, d2, U, S, K, H, N, bf16_wexp, lat_s, env,
                                            (cudaStream_t)stream);
   return launch_latent_env_scatter<false>(P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges,
-                                          n_atoms, d2, U, S, K, H, N, lat_s, env,
+                                          n_atoms, d2, U, S, K, H, N, bf16_wexp, lat_s, env,
                                           (cudaStream_t)stream);
 }
 
@@ -1277,7 +1300,7 @@ int atpt_latent_env_bwd(const float* const* piece_ptrs, const long long* piece_s
                         const int* piece_dims, int n_pieces, const float* w0, const float* w1,
                         const float* sh, const float* t, const float* g_lat, const int* centers,
                         const int* irr_ranges, long long n_edges, int n_atoms, int d2, int U,
-                        int S, int H, int N, float* dsh, void* stream) {
+                        int S, int H, int N, float* dsh, int bf16_wexp, void* stream) {
   Pieces P;
   OutPieces D;
   const int K = fill_pieces(piece_ptrs, piece_strides, piece_dims, n_pieces, P.ptr, P.stride,
@@ -1292,61 +1315,68 @@ int atpt_latent_env_bwd(const float* const* piece_ptrs, const long long* piece_s
   }
   if (w1)
     return launch_latent_env_bwd<true>(P, D, w0, w1, sh, t, g_lat, centers, irr_ranges, n_edges,
-                                       n_atoms, d2, U, S, K, H, N, dsh, (cudaStream_t)stream);
+                                       n_atoms, d2, U, S, K, H, N, bf16_wexp, dsh,
+                                       (cudaStream_t)stream);
   return launch_latent_env_bwd<false>(P, D, w0, w1, sh, t, g_lat, centers, irr_ranges, n_edges,
-                                      n_atoms, d2, U, S, K, H, N, dsh, (cudaStream_t)stream);
+                                      n_atoms, d2, U, S, K, H, N, bf16_wexp, dsh,
+                                      (cudaStream_t)stream);
 }
 
 int atpt_gather_tp_embed(const float* sh, const float* w2b, const float* env, const float* w,
                          int n_w, const int* row_ptr, const int* desc, const float* dscale,
                          int n_paths, const int* eidx, const float* ecoef, const int* row_specs,
                          long long n_edges, int n_atoms, int d_sh, int n_irr, int d1, int d2,
-                         int d3, int U, float* out, float* ts, void* stream) {
+                         int d3, int U, void* out, float* ts, int bf16, void* stream) {
   const size_t fixed = (size_t)embed_fixed_floats(n_paths, n_w, U, d1) * sizeof(float);
   const size_t per_warp =
       (size_t)gather_embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
   size_t smem = 0;
   const int warps = fit_warps(fixed, per_warp, kSegmentWarps, smem_optin(), &smem);
   if (warps == 0) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = prepare_smem(gather_tp_embed_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   const long long items = n_atoms + (n_edges + kWarp - 1) / kWarp;
-  const int blocks = persistent_blocks(gather_tp_embed_kernel, warps * kWarp, smem, items, warps);
-  gather_tp_embed_kernel<<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
-      sh, w2b, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs, n_edges,
-      n_atoms, d_sh, n_irr, d1, d2, d3, U, out, ts);
-  return (int)cudaGetLastError();
+  const auto launch = [&](auto* ot) {
+    using To = std::remove_pointer_t<decltype(ot)>;
+    cudaError_t err = prepare_smem(gather_tp_embed_kernel<To>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks =
+        persistent_blocks(gather_tp_embed_kernel<To>, warps * kWarp, smem, items, warps);
+    gather_tp_embed_kernel<To><<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
+        sh, w2b, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs, n_edges,
+        n_atoms, d_sh, n_irr, d1, d2, d3, U, ot, ts);
+    return (int)cudaGetLastError();
+  };
+  if (bf16) return launch(static_cast<__nv_bfloat16*>(out));
+  return launch(static_cast<float*>(out));
 }
 
-int atpt_bwd_embed(const float* sh, const float* w2b, const float* g, const float* gts,
+int atpt_bwd_embed(const float* sh, const float* w2b, const void* g, const float* gts,
                    const float* env, const float* w, int n_w, const int* row_ptr,
                    const int* desc, const float* dscale, int n_paths, const int* eidx,
                    const float* ecoef, const int* row_specs, long long n_edges, int n_atoms,
                    int d_sh, int n_irr, int d1, int d2, int d3, int U, float* dsh, float* dw2b,
-                   float* denv, void* stream) {
+                   float* denv, int bf16, void* stream) {
   const size_t fixed = (size_t)embed_fixed_floats(n_paths, n_w, U, d1) * sizeof(float);
   const size_t per_warp = (size_t)embed_warp_floats(U, d_sh, n_irr, d1, d2, d3) * sizeof(float);
   size_t smem = 0;
   const int warps = fit_warps(fixed, per_warp, kSegmentWarps, smem_optin(), &smem);
   if (warps == 0) return (int)cudaErrorInvalidConfiguration;
   const long long items = n_atoms + (n_edges + kWarp - 1) / kWarp;
-  if (gts) {
-    cudaError_t err = prepare_smem(bwd_embed_kernel<true>, smem);
+  const auto launch = [&](auto kernel, auto* gt) {
+    cudaError_t err = prepare_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = persistent_blocks(bwd_embed_kernel<true>, warps * kWarp, smem, items, warps);
-    bwd_embed_kernel<true><<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        sh, w2b, g, gts, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs,
+    const int blocks = persistent_blocks(kernel, warps * kWarp, smem, items, warps);
+    kernel<<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
+        sh, w2b, gt, gts, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs,
         n_edges, n_atoms, d_sh, n_irr, d1, d2, d3, U, dsh, dw2b, denv);
-  } else {
-    cudaError_t err = prepare_smem(bwd_embed_kernel<false>, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks =
-        persistent_blocks(bwd_embed_kernel<false>, warps * kWarp, smem, items, warps);
-    bwd_embed_kernel<false><<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
-        sh, w2b, g, gts, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs,
-        n_edges, n_atoms, d_sh, n_irr, d1, d2, d3, U, dsh, dw2b, denv);
-  }
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  };
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  const auto* gf = static_cast<const float*>(g);
+  if (gts)
+    return bf16 ? launch(bwd_embed_kernel<true, __nv_bfloat16>, gb)
+                : launch(bwd_embed_kernel<true, float>, gf);
+  return bf16 ? launch(bwd_embed_kernel<false, __nv_bfloat16>, gb)
+              : launch(bwd_embed_kernel<false, float>, gf);
 }
 
 // The bytes of shared memory each launcher above requests on a card whose

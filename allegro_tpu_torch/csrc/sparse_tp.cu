@@ -62,6 +62,14 @@ __device__ __forceinline__ void stage_column(const float* src, int d, int U, flo
   for (int i = 0; i < d; ++i) cp_async4(dst + i * T, src + (long long)i * U);
 }
 
+// The same from the bf16 track: each element widened to float as it is
+// stored, so the column is the float one (cp.async copies bytes and cannot
+// widen; the loads are synchronous and read 64 coalesced bytes a warp row).
+__device__ __forceinline__ void stage_column(const __nv_bfloat16* src, int d, int U, float* dst,
+                                             int T) {
+  for (int i = 0; i < d; ++i) dst[i * T] = load_f(src + (long long)i * U);
+}
+
 // ---------------------------------------------------------------------------
 // sparse_tp
 // Replaces allegro_tpu/ops/pallas_contract.py:_tp_kernel (_run_tp, lowered
@@ -127,12 +135,14 @@ struct TpRow {
   }
 };
 
-// Rows [k0, k0 + width) of one output column (row stride U) from acc.
-__device__ __forceinline__ void store_slice(float* o, const float (&acc)[kSliceMax], int k0,
+// Rows [k0, k0 + width) of one output column (row stride U) from acc, in
+// the column's storage type (To: float, or __nv_bfloat16 for the bf16 track).
+template <typename To>
+__device__ __forceinline__ void store_slice(To* o, const float (&acc)[kSliceMax], int k0,
                                             int width, int U) {
 #pragma unroll
   for (int c = 0; c < kSliceMax; ++c)
-    if (c < width) o[(long long)(k0 + c) * U] = acc[c];
+    if (c < width) store_f(o + (long long)(k0 + c) * U, acc[c]);
 }
 
 __global__ void __launch_bounds__(kTpThreads) sparse_tp_kernel(
@@ -350,25 +360,29 @@ __device__ __forceinline__ int center_row(const int* __restrict__ centers, long 
 }
 
 // Zeros to rows [k0, k1) of one output column, and to ts where row 0 is one.
-__device__ __forceinline__ void zero_rows(float* o, float* ts, int k0, int k1, int U) {
-  for (int k = k0; k < k1; ++k) o[(long long)k * U] = 0.f;
+template <typename To>
+__device__ __forceinline__ void zero_rows(To* o, float* ts, int k0, int k1, int U) {
+  for (int k = k0; k < k1; ++k) store_f(o + (long long)k * U, 0.f);
   if (ts && k0 == 0 && k1 > 0) *ts = 0.f;
 }
 
-// store_slice, and with ts row 0 there too, from the same register.
-__device__ __forceinline__ void store_slice_ts(float* o, float* ts,
+// store_slice, and with ts row 0 there too, from the same register (ts is
+// float whatever out's storage: on the bf16 track out is rounded, ts not).
+template <typename To>
+__device__ __forceinline__ void store_slice_ts(To* o, float* ts,
                                                const float (&acc)[kSliceMax], int k0, int width,
                                                int U) {
   store_slice(o, acc, k0, width, U);
   if (ts && k0 == 0) *ts = acc[0];
 }
 
+template <typename Tt>
 __global__ void __launch_bounds__(kTpThreads, kGatherMinBlocks) gather_tp_kernel(
-    const float* __restrict__ x, const float* __restrict__ env, const float* __restrict__ w,
+    const Tt* __restrict__ x, const float* __restrict__ env, const float* __restrict__ w,
     const int* __restrict__ centers, const int* __restrict__ desc,
     const float* __restrict__ dscale, int n_rows, const int* __restrict__ eidx,
     const float* __restrict__ ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
-    int U, float* __restrict__ out, float* __restrict__ ts) {
+    int U, Tt* __restrict__ out, float* __restrict__ ts) {
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x, tid = threadIdx.x;
   int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
@@ -386,7 +400,7 @@ __global__ void __launch_bounds__(kTpThreads, kGatherMinBlocks) gather_tp_kernel
   for (long long t = (long long)blockIdx.x * T + tid; t < work; t += (long long)gridDim.x * T) {
     const long long e = t / U;
     const int u = (int)(t - e * U);
-    float* o = out + e * d3 * U + u;
+    Tt* o = out + e * d3 * U + u;
     float* tso = ts ? ts + e * U + u : nullptr;
     const int ctr = center_row(centers, e, n_atoms);
     if (ctr < 0) {  // a sentinel edge: a zero row
@@ -509,8 +523,9 @@ __global__ void gather_dw_partial_kernel(
 
 // Starts the cp.async copies of edge e's x and g columns (channel u) into a
 // thread's columns at col (stride T).
-__device__ __forceinline__ void stage_scatter_edge(const float* __restrict__ x,
-                                                   const float* __restrict__ g, long long e,
+template <typename Tt>
+__device__ __forceinline__ void stage_scatter_edge(const Tt* __restrict__ x,
+                                                   const Tt* __restrict__ g, long long e,
                                                    int d1, int d3, int U, int u, float* col,
                                                    int T) {
   stage_column(x + e * d1 * U + u, d1, U, col, T);
@@ -701,21 +716,22 @@ __device__ __forceinline__ void walk_slices(Row& f, const int4* s_desc, const fl
   if (k0 >= 0) emit(k0, width);
 }
 
+template <typename Tt>
 __global__ void bwd_fused_kernel(
-    const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ gts,
+    const Tt* __restrict__ x, const Tt* __restrict__ g, const float* __restrict__ gts,
     const float* __restrict__ env, const float* __restrict__ w, const int* __restrict__ row_ptr,
     const int* __restrict__ desc_dx, const float* __restrict__ scale_dx, int rows_dx,
     const int* __restrict__ eidx_dx, const float* __restrict__ ecoef_dx,
     const int* __restrict__ desc_den, const float* __restrict__ scale_den, int rows_den,
     const int* __restrict__ eidx_den, const float* __restrict__ ecoef_den, long long n_edges,
-    int n_atoms, int d1, int d2, int d3, int U, float* __restrict__ dx,
+    int n_atoms, int d1, int d2, int d3, int U, Tt* __restrict__ dx,
     float* __restrict__ denv) {
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x, tid = threadIdx.x, a = blockIdx.x;
   if (a == n_atoms) {  // the sentinel edges' dx rows
     const long long d1U = (long long)d1 * U;
     for (long long t = (long long)row_ptr[n_atoms] * d1U + tid; t < n_edges * d1U; t += T)
-      dx[t] = 0.f;
+      store_f(dx + t, 0.f);
     return;
   }
   const int chunks = T / U, q = tid / U, u = tid - q * U;
@@ -745,16 +761,16 @@ __global__ void bwd_fused_kernel(
       cp_async_wait<0>();
     }
     if (gts) gcol[0] += __ldg(gts + (long long)e * U + u);
-    float* o = dx + (long long)e * d1 * U + u;
+    Tt* o = dx + (long long)e * d1 * U + u;
     int next = 0;  // the first row of dx no slice has written
     EnvRow fe{gcol, s_env + u, T, U, 0, 0, 0.f, {}};
     walk_slices(fe, s_desc_dx, s_ws_dx, rows_dx, U, u, eidx_dx, ecoef_dx,
                 [&](int k0, int width) {
-                  for (int k = next; k < k0; ++k) o[(long long)k * U] = 0.f;
+                  for (int k = next; k < k0; ++k) store_f(o + (long long)k * U, 0.f);
                   store_slice(o, fe.acc, k0, width, U);
                   next = k0 + width;
                 });
-    for (int k = next; k < d1; ++k) o[(long long)k * U] = 0.f;
+    for (int k = next; k < d1; ++k) store_f(o + (long long)k * U, 0.f);
     TpRow f{xcol, gcol, T, 0, 0, 0.f, {}};
     walk_slices(f, s_desc_den, s_ws_den, rows_den, U, u, eidx_den, ecoef_den,
                 [&](int k0, int width) { add_slice(den, f.acc, k0, width, T); });
@@ -776,13 +792,16 @@ __global__ void bwd_fused_kernel(
 // (0, 2, 1) (both in walk order, as in atpt_sparse_tp). The chunks per block
 // start at kTpThreads / U and are halved while the block's shared memory
 // does not fit on the card; 0 or a CUDA error code.
-int launch_bwd_fused_walk(const float* x, const float* g, const float* gts, const float* env,
-                          const float* w, const int* row_ptr, const int* desc_dx,
-                          const float* scale_dx, int rows_dx, const int* eidx_dx,
-                          const float* ecoef_dx, const int* desc_den, const float* scale_den,
-                          int rows_den, const int* eidx_den, const float* ecoef_den,
-                          long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
-                          float* dx, float* denv, cudaStream_t stream) {
+namespace {
+
+template <typename Tt>
+int launch_bwd_fused_walk_as(const Tt* x, const Tt* g, const float* gts, const float* env,
+                             const float* w, const int* row_ptr, const int* desc_dx,
+                             const float* scale_dx, int rows_dx, const int* eidx_dx,
+                             const float* ecoef_dx, const int* desc_den, const float* scale_den,
+                             int rows_den, const int* eidx_den, const float* ecoef_den,
+                             long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
+                             Tt* dx, float* denv, cudaStream_t stream) {
   if (int rc = check_tp_dims(d1, d2, d3, P, rows_dx)) return rc;
   if (rows_den < 1 || U < 1 || U > 1024) return (int)cudaErrorInvalidValue;
   int chunks = U < kTpThreads ? kTpThreads / U : 1;
@@ -792,12 +811,36 @@ int launch_bwd_fused_walk(const float* x, const float* g, const float* gts, cons
   };
   const size_t limit = smem_optin();
   while (bytes() > limit && chunks > 1) chunks /= 2;
-  cudaError_t err = prepare_smem(bwd_fused_kernel, bytes());
+  cudaError_t err = prepare_smem(bwd_fused_kernel<Tt>, bytes());
   if (err != cudaSuccess) return (int)err;
-  bwd_fused_kernel<<<n_atoms + 1, U * chunks, bytes(), stream>>>(
+  bwd_fused_kernel<Tt><<<n_atoms + 1, U * chunks, bytes(), stream>>>(
       x, g, gts, env, w, row_ptr, desc_dx, scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den,
       scale_den, rows_den, eidx_den, ecoef_den, n_edges, n_atoms, d1, d2, d3, U, dx, denv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16: x, g and dx are the bf16 track (__nv_bfloat16), otherwise float;
+// gts, env and denv are float either way. The layout does not depend on it:
+// the bf16 form widens x and g into the same float columns.
+int launch_bwd_fused_walk(const void* x, const void* g, const float* gts, const float* env,
+                          const float* w, const int* row_ptr, const int* desc_dx,
+                          const float* scale_dx, int rows_dx, const int* eidx_dx,
+                          const float* ecoef_dx, const int* desc_den, const float* scale_den,
+                          int rows_den, const int* eidx_den, const float* ecoef_den,
+                          long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
+                          void* dx, float* denv, int bf16, cudaStream_t stream) {
+  if (bf16)
+    return launch_bwd_fused_walk_as(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), gts, env, w,
+        row_ptr, desc_dx, scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den, scale_den, rows_den,
+        eidx_den, ecoef_den, n_edges, n_atoms, d1, d2, d3, U, P,
+        static_cast<__nv_bfloat16*>(dx), denv, stream);
+  return launch_bwd_fused_walk_as(
+      static_cast<const float*>(x), static_cast<const float*>(g), gts, env, w, row_ptr, desc_dx,
+      scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den, scale_den, rows_den, eidx_den, ecoef_den,
+      n_edges, n_atoms, d1, d2, d3, U, P, static_cast<float*>(dx), denv, stream);
 }
 
 extern "C" {
@@ -846,22 +889,30 @@ int atpt_sparse_tp_gradw(const float* a, const float* b, const float* g, const i
 
 
 // env [n_atoms, d2*U], centers [E]; ts: null, or [E, U] for the split
-// output; the path table as in atpt_sparse_tp.
-int atpt_gather_tp(const float* x, const float* env, const float* w, const int* centers,
+// output; the path table as in atpt_sparse_tp. bf16: x and out are the bf16
+// track (__nv_bfloat16), otherwise float; env, w and ts are float either
+// way, and so is the shared-memory layout (x is widened as it is staged).
+int atpt_gather_tp(const void* x, const float* env, const float* w, const int* centers,
                    const int* desc, const float* dscale, int n_rows, const int* eidx,
                    const float* ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
-                   int U, int P, float* out, float* ts, void* stream) {
+                   int U, int P, void* out, float* ts, int bf16, void* stream) {
   if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
   const int T = kTpThreads;
   const size_t smem = (size_t)n_rows * (kDescCols + U) * sizeof(float) +
                       (size_t)(d1 + d2) * T * sizeof(float);
-  cudaError_t err = prepare_smem(gather_tp_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = persistent_blocks(gather_tp_kernel, T, smem, n_edges * U, T);
-  gather_tp_kernel<<<blocks, T, smem, (cudaStream_t)stream>>>(
-      x, env, w, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U,
-      out, ts);
-  return (int)cudaGetLastError();
+  const auto launch = [&](auto* xt, auto* ot) {
+    using Tt = std::remove_const_t<std::remove_pointer_t<decltype(xt)>>;
+    cudaError_t err = prepare_smem(gather_tp_kernel<Tt>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = persistent_blocks(gather_tp_kernel<Tt>, T, smem, n_edges * U, T);
+    gather_tp_kernel<Tt><<<blocks, T, smem, (cudaStream_t)stream>>>(
+        xt, env, w, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U,
+        ot, ts);
+    return (int)cudaGetLastError();
+  };
+  if (bf16)
+    return launch(static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out));
+  return launch(static_cast<const float*>(x), static_cast<float*>(out));
 }
 
 // partial and n_blocks as in atpt_sparse_tp_gradw.

@@ -197,12 +197,13 @@ class Simulation:
 
     # --- the block of steps on the device ---
     def _energy_forces(self, pos: torch.Tensor):
-        with torch.enable_grad():
+        # frozen parameters, the backward pass too (a model with remat
+        # recomputes there): no weight-gradient kernel runs for the forces
+        with torch.enable_grad(), self.model.frozen_parameters(), self.model.matmul_policy():
             pos = pos.detach().requires_grad_(True)
             data = dict(self._static)
             data[keys.POSITIONS] = pos
-            # frozen parameters: no weight-gradient kernel runs for the forces
-            energy = self.model.apply(data, frozen=True)[keys.TOTAL_ENERGY].sum()
+            energy = self.model.apply(data)[keys.TOTAL_ENERGY].sum()
             (grad,) = torch.autograd.grad(energy, pos)
         return energy.detach(), -grad
 

@@ -11,10 +11,26 @@ the same parameters.
 
 Options the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item; none of them runs silently on something else.
+
+The big-system and precision policies are JAX's builder kwargs:
+``tensor_dtype="bfloat16"`` (the bf16 tensor track, on the mega route),
+``remat`` (each layer recomputed in the backward pass), ``checkpoint_energy``
+(the whole energy recomputed inside the force call's backward pass),
+``tp_chunk_edges`` (the ``einsum`` contraction over edge slices), and the
+matrix-product policy ``precision`` / ``allow_tf32``, resolved as JAX does
+(``precision`` if given, else None with ``allow_tf32``, else "highest") and
+set for each model call, then restored: "highest" and "high" are exact
+float32 products on the card ("high", JAX's 3-pass bf16 split at ~1e-7,
+has no such split here: exact is its closest form, ROADMAP.md queue 3);
+None lets the products outside the kernels use TF32 (the reference's
+``allow_tf32: true``). The kernels compute in exact float32 under every
+policy. ``features_layout`` is accepted and ignored: the port's track is
+always flat dim-major.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -53,6 +69,11 @@ NONLINEARITIES = {
 }
 
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
+# the tensor track's storage (tensor_dtype): the model dtype, or bfloat16
+TENSOR_DTYPES = {**DTYPES, "bfloat16": torch.bfloat16}
+# the matrix-product policies (the resolved precision): whether the products
+# outside the kernels may use TF32
+PRECISIONS = {"highest": False, "high": False, None: True}
 
 # the backends whose stages run on the kernels, and the CSR statics they read
 KERNEL_BACKENDS = ("fused", "fused_infer", "pallas")
@@ -167,12 +188,31 @@ class Model:
 
     def __init__(self, module: SequentialGraphNet, model_dtype: torch.dtype,
                  config: Dict[str, Any], has_derivatives: bool = True,
-                 builder_kwargs: Optional[Dict[str, Any]] = None):
+                 builder_kwargs: Optional[Dict[str, Any]] = None,
+                 checkpoint_energy: bool = False, precision: Optional[str] = "highest"):
         self.module = module
         self.model_dtype = model_dtype
         self.config = config
         self.has_derivatives = has_derivatives
         self.builder_kwargs = builder_kwargs or {}
+        # recompute the whole energy inside the force call's backward pass
+        self.checkpoint_energy = bool(checkpoint_energy)
+        # the resolved matrix-product policy: "highest", "high" or None
+        self.precision = precision
+
+    @contextlib.contextmanager
+    def matmul_policy(self):
+        """The model's matrix-product policy for the duration of a call:
+        TF32 for the products outside the kernels only where the resolved
+        precision is None (``allow_tf32``), exact float32 otherwise; the
+        process's flags are restored after it."""
+        cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        before = (cuda.allow_tf32, cudnn.allow_tf32)
+        cuda.allow_tf32 = cudnn.allow_tf32 = PRECISIONS[self.precision]
+        try:
+            yield
+        finally:
+            cuda.allow_tf32, cudnn.allow_tf32 = before
 
     def init(self, seed: int) -> "Model":
         """(Re)initialize every parameter from ``torch.Generator(seed)``.
@@ -271,15 +311,21 @@ class Model:
                                    for k in keys.class_csr_keys(lookup))
 
     def apply(self, data: Dict, frozen: bool = False) -> Dict:
-        """Energy-only forward pass. ``frozen``: with the parameters detached,
-        so no autograd pass through the result reaches them (the force call
-        and MD, whose derivatives are in the positions only).
+        """Energy-only forward pass. ``frozen``: with the parameters'
+        ``requires_grad`` off (``frozen_parameters``), so no autograd pass
+        through the result reaches them; a caller that differentiates a
+        model with ``remat`` runs its backward inside ``frozen_parameters``
+        itself (the force call and MD, whose derivatives are in the
+        positions only, do).
 
         The backend decides where the gathers and sums run: a kernel backend
         raises without the CSR statics, so none of its stages falls back to
         a plain sum; ``einsum``, the reference, drops them, so none of its
         stages runs a kernel."""
-        _pin_fp32_matmuls()
+        with self.matmul_policy():
+            return self._apply(data, frozen)
+
+    def _apply(self, data: Dict, frozen: bool) -> Dict:
         statics = self.statics_keys
         if self.on_kernels:
             missing = [k for k in statics if k not in data]
@@ -291,10 +337,23 @@ class Model:
                 )
         else:
             data = {k: v for k, v in data.items() if k not in statics}
-        if not frozen:
+        with self.frozen_parameters() if frozen else contextlib.nullcontext():
             return self.module(data)
-        params = {k: p.detach() for k, p in self.module.named_parameters()}
-        return torch.func.functional_call(self.module, params, (data,))
+
+    @contextlib.contextmanager
+    def frozen_parameters(self):
+        """The parameters with ``requires_grad`` off for the duration: no
+        autograd pass through what runs inside reaches them. A backward pass
+        that recomputes (``remat``, ``checkpoint_energy``) must run inside
+        too, or its recompute would see live parameters."""
+        live = [p for p in self.module.parameters() if p.requires_grad]
+        for p in live:
+            p.requires_grad_(False)
+        try:
+            yield
+        finally:
+            for p in live:
+                p.requires_grad_(True)
 
     def apply_with_derivatives(self, data: Dict, create_graph: bool = False) -> Dict:
         """Forward + forces (and virial/stress when a cell is present).
@@ -304,22 +363,18 @@ class Model:
         parameters frozen: ``ctx.needs_input_grad`` is fixed when a kernel's
         Function runs forward, so with live parameters the force call would
         also launch the weight-gradient kernels whose result nobody reads
-        (JAX's transposes skip them)."""
-        _pin_fp32_matmuls()
-        return force_stress_wrapper(lambda d: self.apply(d, frozen=not create_graph),
-                                    create_graph=create_graph)(data)
+        (JAX's transposes skip them). With ``checkpoint_energy`` the energy
+        is recomputed inside the backward pass (only its inputs are kept)."""
+        frozen = contextlib.nullcontext() if create_graph else self.frozen_parameters()
+        with self.matmul_policy(), frozen:
+            return force_stress_wrapper(lambda d: self._apply(d, frozen=False),
+                                        create_graph=create_graph,
+                                        checkpoint_energy=self.checkpoint_energy)(data)
 
     def __call__(self, data: Dict) -> Dict:
         if self.has_derivatives:
             return self.apply_with_derivatives(data)
         return self.apply(data)
-
-
-def _pin_fp32_matmuls() -> None:
-    # precision "highest" is the reference's allow_tf32: false — full float32
-    # matrix products on the card, never TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _per_edge_type_cutoff_matrix(per_edge_type_cutoff, type_names: Sequence[str],
@@ -421,17 +476,15 @@ def FullAllegroEnergyModel(
     **_unused,
 ) -> Model:
     _kwargs = {k: v for k, v in locals().items() if k != "_unused"}
-    if tensor_dtype is not None:
-        raise _not_ported(f"tensor_dtype={tensor_dtype!r}", "queue 1, item 6")
-    if remat or checkpoint_energy:
-        raise _not_ported("remat/checkpoint_energy", "queue 1, item 6")
-    if tp_chunk_edges:
-        raise _not_ported("tp_chunk_edges", "queue 1, item 6")
-    if allow_tf32 or precision not in (None, "highest"):
-        raise _not_ported(f"precision={precision!r}/allow_tf32={allow_tf32}", "queue 1, item 6")
     if str(model_dtype) not in DTYPES:
         raise _not_ported(f"model_dtype={model_dtype!r}", "queue 1, item 6")
     dtype = DTYPES[str(model_dtype)]
+    if tensor_dtype is not None and str(tensor_dtype) not in TENSOR_DTYPES:
+        raise ValueError(f"tensor_dtype={tensor_dtype!r}: one of {sorted(TENSOR_DTYPES)} or None")
+    track = None if tensor_dtype is None else TENSOR_DTYPES[str(tensor_dtype)]
+    prec = precision if precision is not None else (None if allow_tf32 else "highest")
+    if prec not in PRECISIONS:
+        raise _not_ported(f"precision={precision!r}", "queue 1, item 6")
     num_types = len(type_names)
     if isinstance(irreps_edge_sh, int):
         irreps_sh = Irreps.spherical_harmonics(irreps_edge_sh, p=-1)
@@ -462,6 +515,9 @@ def FullAllegroEnergyModel(
         tp_kernel_backend=tp_kernel_backend,
         use_mega=use_mega,
         weight_individual_irreps=weight_individual_irreps,
+        tensor_dtype=track,
+        remat=remat,
+        tp_chunk_edges=tp_chunk_edges,
     )
 
     layers = [
@@ -482,7 +538,8 @@ def FullAllegroEnergyModel(
             "tensor_embed",
             # the mega-fused layer 0 reads the embed's factors, not its features
             TwoBodySphericalHarmonicTensorEmbed(str(irreps_sh), num_tensor_features, S, dtype,
-                                                build_features=not allegro.mega),
+                                                build_features=not allegro.mega,
+                                                tensor_dtype=track),
         ),
         ("allegro", allegro),
     ]
@@ -529,7 +586,7 @@ def FullAllegroEnergyModel(
         model_dtype=str(model_dtype),
     )
     return Model(SequentialGraphNet(layers), dtype, config, has_derivatives=False,
-                 builder_kwargs=_kwargs)
+                 builder_kwargs=_kwargs, checkpoint_energy=checkpoint_energy, precision=prec)
 
 
 def _zbl(cfg, r_max: float) -> ZBLPairPotential:

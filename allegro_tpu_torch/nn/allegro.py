@@ -16,6 +16,14 @@ trainable one).
 On ``fused_infer`` the default is JAX's mega-fused stack (``_mega_forward``):
 each latent MLP runs in one kernel with the next layer's env scatter, and
 layer 0 builds its features from the tensor embed's factors in the kernel.
+
+The big-system policies (JAX's ``tensor_dtype``, ``remat``,
+``tp_chunk_edges``): ``tensor_dtype="bfloat16"`` stores the tensor track in
+bfloat16 between the mega layers (only there: another route raises), with
+the env weights rounded to it inside the latent kernels; ``remat``
+recomputes each layer in the backward pass (``torch.utils.checkpoint``), on
+every backend; ``tp_chunk_edges`` chunks the ``einsum`` contraction over
+edges (``Contracter``).
 """
 
 from __future__ import annotations
@@ -25,11 +33,13 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data import keys
 from ..lib.irreps import Irrep, Irreps, tp_path_exists
 from ..ops import smem_fit
 from ..ops.fused_primitives import gather_tp_embed_infer, gather_tp_infer, mega_latent_env
+from ..ops.fused_tp import round_to
 from .channels import MakeWeightedChannels, device_index
 from .contract import Contracter
 from .mlp import ScalarMLP, silu
@@ -101,7 +111,20 @@ class AllegroLayers(nn.Module):
     widths would not fit on the card (``mega_fits``, the launchers' own
     layout rule, ``ops/smem_fit.py``), the stack takes the non-mega kernels
     (``fused_call``), as it does outside the condition. ``route(device)``
-    says which, decided once per device when the model first runs there."""
+    says which, decided once per device when the model first runs there.
+
+    ``tensor_dtype`` (a torch dtype; None: the model dtype) is the storage of
+    the tensor track between the mega layers: layer 0's features out of the
+    embed-fused TP, each later layer's out of ``gather_tp``, and their
+    cotangents, as in JAX (``allegro_tpu/nn/allegro.py:480-518``); the env
+    weights are rounded to it inside the latent kernels, and the scalar
+    outputs stay in the model dtype. It is ported on the mega route only:
+    a model with it raises where it would take another route (ROADMAP.md
+    queue 1, item 6). ``remat`` recomputes each layer's body in the backward
+    pass instead of keeping its activations (JAX's ``nn.remat`` of
+    ``_layer_body`` / ``_mega_layer_body``); every kernel sums in a fixed
+    order, so the result is the same bits. ``tp_chunk_edges`` (> 0) chunks
+    the ``einsum`` contraction over edges."""
 
     def __init__(
         self,
@@ -119,6 +142,9 @@ class AllegroLayers(nn.Module):
         tp_kernel_backend: str = "einsum",
         use_mega: Optional[bool] = None,
         weight_individual_irreps: bool = True,
+        tensor_dtype: Optional[torch.dtype] = None,
+        remat: bool = False,
+        tp_chunk_edges: int = 0,
     ):
         super().__init__()
         if tp_kernel_backend not in BACKENDS:
@@ -151,6 +177,7 @@ class AllegroLayers(nn.Module):
                     scatter_factor=None if fold else scatter_factor,
                     dtype=dtype,
                     kernel_backend=tp_kernel_backend,
+                    chunk_edges=tp_chunk_edges,
                 )
             )
             last = layer == self.num_layers - 1
@@ -168,6 +195,10 @@ class AllegroLayers(nn.Module):
             and mlp_nonlinearity is silu and weight_individual_irreps and use_mega is not False
         )
         self.embed_dim = int(embed_dim)
+        self.tensor_dtype = None if tensor_dtype in (None, dtype) else tensor_dtype
+        if self.tensor_dtype is not None and not self.mega:
+            raise _track_not_ported(tensor_dtype, "the mega condition does not hold")
+        self.remat = bool(remat)
         self._routes: Dict[torch.device, str] = {}
         # layer 0's input rows as (SH dim, irrep), for the embed-fused kernel
         dim_to_irr = self.env_weighter.dim_to_irr
@@ -209,8 +240,18 @@ class AllegroLayers(nn.Module):
         if device not in self._routes:
             mega = self.mega and self.mega_fits(smem_fit.smem_optin(device))
             own = "fused_call" if self.backend in ("fused", "fused_infer") else self.backend
+            if self.tensor_dtype is not None and not mega:
+                raise _track_not_ported(self.tensor_dtype,
+                                        f"its widths take the {own!r} route on {device}")
             self._routes[device] = "mega" if mega else own
         return self._routes[device]
+
+    def _body(self, fn, *args):
+        """``fn(*args)``, with ``remat`` recomputed in the backward pass
+        (only the arguments are kept)."""
+        if self.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def forward(self, data: Dict) -> Dict:
         S, U = self.S, self.U
@@ -220,7 +261,6 @@ class AllegroLayers(nn.Module):
         # the backend decides: einsum, the reference, ignores the CSR statics;
         # every kernel backend needs them (pallas is the einsum layer with its
         # env sum on the center kernels and its contraction on sparse_tp)
-        fused = self.backend in ("fused", "fused_infer")
         row_ptr = None
         if self.backend != "einsum":
             row_ptr = data.get(keys.CENTER_ROW_PTR)
@@ -250,22 +290,28 @@ class AllegroLayers(nn.Module):
         scalar_blocks = [proj[:, :S]]
         env_w = proj[:, S:]
         for layer in range(self.num_layers):
-            tp = self.tps[layer]
-            if fused:
-                wexp = self.env_weighter.per_irrep(env_w)
-                feats = tp.fused_call(
-                    features.contiguous(), sh, wexp.contiguous(), centers, row_ptr
-                )
-            else:
-                weighted_sh = self.env_weighter.flat_dim_major(sh, env_w)
-                feats = tp(features, weighted_sh, centers, n_atoms, row_ptr)
-            # densenet latent input: the pieces, not a materialized concat
-            lat = self.latents[layer](scalar_blocks + [feats[:, :U]])
+            # the blocks so far as a tuple: remat's recompute reads the
+            # arguments as they were, and the list grows after the call
+            features, lat = self._body(self._layer_body, layer, features, env_w,
+                                       tuple(scalar_blocks), sh, centers, n_atoms, row_ptr)
             scalar_blocks.append(lat[:, :S])
             env_w = lat[:, S:]
-            features = feats
         out[keys.EDGE_SCALARS] = tuple(scalar_blocks)
         return out
+
+    def _layer_body(self, layer: int, features, env_w, scalar_blocks, sh, centers, n_atoms,
+                    row_ptr):
+        """One layer off the mega route: the TP (with its env sum) and the
+        latent MLP on the densenet pieces → (features, latent output)."""
+        tp = self.tps[layer]
+        if self.backend in ("fused", "fused_infer"):
+            wexp = self.env_weighter.per_irrep(env_w)
+            feats = tp.fused_call(features.contiguous(), sh, wexp.contiguous(), centers, row_ptr)
+        else:
+            weighted_sh = self.env_weighter.flat_dim_major(sh, env_w)
+            feats = tp(features, weighted_sh, centers, n_atoms, row_ptr)
+        # densenet latent input: the pieces, not a materialized concat
+        return feats, self.latents[layer](list(scalar_blocks) + [feats[:, :self.U]])
 
     def _mega_forward(self, data: Dict, sh, centers, row_ptr) -> tuple:
         """Twin of JAX's ``_mega_forward`` / ``_mega_layer_body``: the first
@@ -281,26 +327,48 @@ class AllegroLayers(nn.Module):
         (w_proj,) = self.first_projection.weights()
         emb = data[keys.EDGE_EMBEDDING].to(self.dtype)
         lat_s, env = mega_latent_env((emb,), sh, w_proj, None, centers, row_ptr, d2i, U, S,
-                                     ranges)
+                                     ranges, self.tensor_dtype)
         blocks = [lat_s]
-        w2b = data[keys.EDGE_FEATURE_WEIGHTS].to(self.dtype).contiguous()
-        for layer, tp in enumerate(self.tps):
-            wk, entry_idx, entry_coef = tp.fused_infer_parts(self.dtype)
-            split = tp.d3 > 1
-            if layer == 0:
-                res = gather_tp_embed_infer(sh, w2b, env, wk, centers, row_ptr, entry_idx,
-                                            entry_coef, self.row_specs, tp.d3, split,
-                                            tp.cg_paths())
-            else:
-                res = gather_tp_infer(x, env, wk, centers, row_ptr, entry_idx, entry_coef, tp.d3,
-                                      split, *tp.infer_paths())
-            x, tp_scalars = res if split else (res, res[:, :U])
-            latent = self.latents[layer]
-            if layer == self.num_layers - 1:
-                lat_s = latent(blocks + [tp_scalars])
-            else:
-                w0, w1 = latent.weights()
-                lat_s, env = mega_latent_env(tuple(blocks) + (tp_scalars,), sh, w0, w1, centers,
-                                             row_ptr, d2i, U, S, ranges)
+        # layer 0's input: the embed's channel weights, x0 built in the kernel
+        x = data[keys.EDGE_FEATURE_WEIGHTS].to(self.dtype).contiguous()
+        for layer in range(self.num_layers):
+            x, lat_s, env = self._body(self._mega_layer_body, layer, x, env, tuple(blocks), sh,
+                                       centers, row_ptr)
             blocks.append(lat_s)
         return tuple(blocks)
+
+    def _mega_layer_body(self, layer: int, x, env, blocks, sh, centers, row_ptr):
+        """One mega layer (JAX's ``_mega_layer_body``): the TP of x (layer
+        0: the embed's channel weights) with env, then the latent MLP, as a
+        mega call that also sums the next layer's env (plain on the last
+        layer) → (features, lat_s, next env). On the bf16 track the features
+        are stored in ``tensor_dtype``; the scalars stay in the model dtype."""
+        S, U = self.S, self.U
+        tp = self.tps[layer]
+        wk, entry_idx, entry_coef = tp.fused_infer_parts(self.dtype)
+        if layer > 0:
+            # JAX reads the path weights in the features' dtype
+            # (fused_infer_parts(x.dtype)): on the bf16 track, rounded
+            wk = round_to(wk, self.tensor_dtype)
+        split = tp.d3 > 1
+        if layer == 0:
+            res = gather_tp_embed_infer(sh, x, env, wk, centers, row_ptr, entry_idx, entry_coef,
+                                        self.row_specs, tp.d3, split, tp.cg_paths(),
+                                        self.tensor_dtype)
+        else:
+            res = gather_tp_infer(x, env, wk, centers, row_ptr, entry_idx, entry_coef, tp.d3,
+                                  split, *tp.infer_paths())
+        feats, tp_scalars = res if split else (res, res[:, :U].to(self.dtype))
+        latent = self.latents[layer]
+        if layer == self.num_layers - 1:
+            return feats, latent(list(blocks) + [tp_scalars]), env
+        w0, w1 = latent.weights()
+        lat_s, env = mega_latent_env(tuple(blocks) + (tp_scalars,), sh, w0, w1, centers, row_ptr,
+                                     tp.dim_to_irr, U, S, tp.irr_ranges, self.tensor_dtype)
+        return feats, lat_s, env
+
+
+def _track_not_ported(tensor_dtype, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"tensor_dtype={tensor_dtype} is ported on the mega route only, and {why}: the bf16 "
+        "track off mega is not ported to allegro_tpu_torch yet (ROADMAP.md queue 1, item 6)")

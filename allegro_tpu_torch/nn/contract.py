@@ -107,7 +107,9 @@ class Contracter(nn.Module):
     → ``[E, d_out*U]`` on the ``einsum`` and ``pallas`` backends (``row_ptr``:
     the center CSR, which ``pallas`` requires and ``einsum`` ignores);
     ``fused_call`` on the fused kernel backends (``kernel_backend``
-    "fused_infer" or "fused")."""
+    "fused_infer" or "fused"). ``chunk_edges`` (> 0): the ``einsum``
+    contraction runs over slices of that many edges (JAX's
+    ``tp_chunk_edges``: bounded temporaries, the same result)."""
 
     def __init__(
         self,
@@ -119,9 +121,11 @@ class Contracter(nn.Module):
         scatter_factor: Optional[float] = None,
         dtype=torch.float32,
         kernel_backend: str = "einsum",
+        chunk_edges: int = 0,
     ):
         super().__init__()
         self.kernel_backend = kernel_backend
+        self.chunk_edges = int(chunk_edges or 0)
         irreps_in1, irreps_in2, irreps_out = Irreps(irreps_in1), Irreps(irreps_in2), Irreps(irreps_out)
         self.mul = int(mul)
         self.path_channel_coupling = bool(path_channel_coupling)
@@ -211,9 +215,17 @@ class Contracter(nn.Module):
 
     def contract(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """CG contraction ``out[e,k,u] = Σ_ij x1[e,i,u] x2[e,j,u] WW[u,i,j,k]``
-        as a loop over the first input's basis dims."""
-        E, U = x1.shape[0], self.mul
+        as a loop over the first input's basis dims; with ``chunk_edges``,
+        over slices of that many edges."""
         ww = torch.einsum("up,pijk->uijk", self._w_up(x1.dtype), self.w3j.to(x1.dtype))
+        C = self.chunk_edges
+        if C and x1.shape[0] > C:
+            return torch.cat([self._contract(x1[s : s + C], x2[s : s + C], ww)
+                              for s in range(0, x1.shape[0], C)])
+        return self._contract(x1, x2, ww)
+
+    def _contract(self, x1, x2, ww) -> torch.Tensor:
+        E, U = x1.shape[0], self.mul
         x1v, x2v = x1.view(E, self.d1, U), x2.view(E, self.d2, U)
         out = None
         for i in range(self.d1):

@@ -6,7 +6,13 @@ positions and cell are deformed by ``(I + ε)`` and ``virial = -∂E/∂ε`` at
 ``ε = 0``; ``stress = -virial / volume``. The force call takes the first
 order (``create_graph=False``, outputs detached); training takes the second
 (``create_graph=True``): the derivatives keep their graph, so a force loss
-can be differentiated in the parameters.
+can be differentiated in the parameters. ``checkpoint_energy`` recomputes
+the whole energy evaluation inside the backward pass (JAX's
+``jax.checkpoint`` of ``apply_fn``): only its inputs are kept, and the
+kernels run twice. Its result then holds the energies and the inputs, not
+the model's per-edge intermediates: a tensor returned from the checkpointed
+evaluation stays alive beside its recompute (JAX under ``jit`` drops the
+outputs nobody reads; eager PyTorch cannot).
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data import keys
 from .atomwise import frame_one_hot
@@ -28,8 +35,18 @@ def _detach(v):
 
 
 def force_stress_wrapper(apply_fn: Callable[[Dict], Dict], with_stress: bool = True,
-                         create_graph: bool = False):
+                         create_graph: bool = False, checkpoint_energy: bool = False):
     """Wrap ``apply_fn(data) -> data`` to add FORCES (+ VIRIAL/STRESS)."""
+    if checkpoint_energy:
+        energy_fn = apply_fn
+
+        def energies(d: Dict) -> Dict:
+            out = energy_fn(d)
+            return {k: v for k, v in out.items()
+                    if k in d or k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY)}
+
+        def apply_fn(d: Dict) -> Dict:
+            return checkpoint(energies, d, use_reentrant=False)
 
     def wrapped(data: Dict) -> Dict:
         with torch.enable_grad():

@@ -9,7 +9,9 @@ Edge unit vectors → real spherical harmonics (``EDGE_ATTRS``), weighted into
 ``build_features=False`` leaves ``EDGE_FEATURES`` out, for a consumer that
 reads the factors only (the mega-fused layer 0 builds the features inside
 its kernel). Under ``jit``, JAX drops the unused array by itself; eager
-PyTorch would compute it.
+PyTorch would compute it. ``tensor_dtype``: the features' storage, as in
+JAX (the bf16 track stores them in bfloat16; where it is on, the port's
+mega layer 0 builds its own from the factors and these are not built).
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ from .mlp import ScalarMLP
 
 class TwoBodySphericalHarmonicTensorEmbed(nn.Module):
     def __init__(self, irreps_sh: str, mul: int, embed_dim: int, dtype=torch.float32,
-                 build_features: bool = True):
+                 build_features: bool = True, tensor_dtype=None):
         super().__init__()
         self.irreps_sh = Irreps(irreps_sh)
         self.dtype = dtype
+        self.tensor_dtype = tensor_dtype or dtype
         self.build_features = build_features
         self.weighter = MakeWeightedChannels(self.irreps_sh, mul)
         self.env_embed_linear = ScalarMLP(
@@ -50,5 +53,6 @@ class TwoBodySphericalHarmonicTensorEmbed(nn.Module):
         if self.build_features:
             # padded edges: weights are exactly 0 (zero embedding, bias-free
             # linear), so the features vanish there
-            out[keys.EDGE_FEATURES] = self.weighter.flat_dim_major(sh, weights)
+            out[keys.EDGE_FEATURES] = self.weighter.flat_dim_major(sh, weights).to(
+                self.tensor_dtype)
         return out

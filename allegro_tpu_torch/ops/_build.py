@@ -33,17 +33,20 @@ _vpp = ctypes.POINTER(ctypes.c_void_p)
 _i64p = ctypes.POINTER(ctypes.c_longlong)
 _i32p = ctypes.POINTER(ctypes.c_int)
 # C signatures of csrc/*.cu; every device pointer and the stream are void*,
-# the readout's piece tables are host arrays
+# the readout's piece tables are host arrays; the int before the stream of
+# the kernels with a bf16 form is 1 for it (gather_tp, bwd_fused,
+# gather_tp_embed, bwd_embed: the track in bfloat16; latent_env_scatter,
+# latent_env_bwd: the env weights rounded to bfloat16)
 _SIGNATURES = {
     "atpt_noop": [_vp],
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
-                       _i32, _i32, _i32, _vp, _vp, _vp],
+                       _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     # the entry table (with dw), then the two path tables (without): each
     # desc, scale, rows, entry idx, entry coef
     "atpt_bwd_fused": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _vp, _vp,
                        _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
-                       _vp, _vp, _vp, _vp, _vp],
+                       _vp, _vp, _vp, _vp, _i32, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
                            _vp],
     "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
@@ -53,13 +56,13 @@ _SIGNATURES = {
     "atpt_readout_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _i64,
                          _i32, _i32, _vp],
     "atpt_latent_env_scatter": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
-                                _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp],
+                                _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     "atpt_latent_env_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _vp,
-                            _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp],
+                            _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
     "atpt_gather_tp_embed": [_vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
-                             _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp],
+                             _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     "atpt_bwd_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
-                       _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
+                       _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _vp],
     "atpt_tp_scatter": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32,
                         _i32, _i32, _vp, _vp],
     "atpt_gather_dw": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,

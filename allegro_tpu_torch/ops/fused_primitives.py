@@ -30,6 +30,15 @@
 On the inference Functions the weight gradients are NaN by design, so
 training parameters on the inference backend fails loudly instead of
 silently.
+
+The bf16 tensor track (``tensor_dtype="bfloat16"``, the mega path only):
+``mega_latent_env`` takes ``wexp_dtype`` (the env weights rounded to it
+inside the kernel, forward and backward), ``gather_tp_embed_infer`` takes
+``out_dtype`` (layer 0's features stored in it), and ``gather_tp_infer``
+takes bfloat16 features and returns bfloat16 features. Each feature
+cotangent has its primal's dtype (JAX's ``_cast_ct``): autograd hands a
+bfloat16 output's backward a bfloat16 cotangent, and ``bwd_fused``
+returns dx in x's dtype.
 """
 
 from __future__ import annotations
@@ -342,11 +351,12 @@ def readout_sum_infer(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Ten
 
 class _MegaLatentEnv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S, *pieces):
+    def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S, wexp_dtype,
+                *pieces):
         lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, centers, row_ptr,
-                                                 dim_to_irr, U, S, irr_ranges)
+                                                 dim_to_irr, U, S, irr_ranges, wexp_dtype)
         ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces)
-        ctx.U, ctx.S = U, S
+        ctx.U, ctx.S, ctx.wexp_dtype = U, S, wexp_dtype
         return lat_s, env
 
     @staticmethod
@@ -355,23 +365,26 @@ class _MegaLatentEnv(torch.autograd.Function):
         w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces = ctx.saved_tensors
         dsh, dpieces = fused_tp.latent_env_bwd(
             pieces, sh, w0, w1, g_env.contiguous(), g_lat.contiguous(), centers, dim_to_irr,
-            ctx.U, ctx.S, irr_ranges,
+            ctx.U, ctx.S, irr_ranges, ctx.wexp_dtype,
         )
         nig = ctx.needs_input_grad
         return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), dsh, None, None, None, None, None,
-                None, *dpieces)
+                None, None, *dpieces)
 
 
 def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], centers,
-                    row_ptr, dim_to_irr, U: int, S: int, irr_ranges=None):
+                    row_ptr, dim_to_irr, U: int, S: int, irr_ranges=None,
+                    wexp_dtype: Optional[torch.dtype] = None):
     """A latent MLP (``w1=None``: a linear map) on the pieces [E, S_i] → its
     scalar columns ``lat_s`` [E, S] and the environment ``env``
     [n_atoms, d2*U] that its env-weight columns weight sh [E, d2] into,
     summed over each atom's edges: ``(lat_s, env)``. ``irr_ranges``: the
     basis's per-irrep (start, len) table, which both kernels read
-    (``Contracter.irr_ranges``; built from ``dim_to_irr`` where not given)."""
+    (``Contracter.irr_ranges``; built from ``dim_to_irr`` where not given).
+    ``wexp_dtype``: the env weights are rounded to it and back before they
+    weight sh (the bf16 track's bfloat16; None: not rounded)."""
     return _MegaLatentEnv.apply(w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S,
-                                *pieces)
+                                wexp_dtype, *pieces)
 
 
 class _GatherTpInfer(torch.autograd.Function):
@@ -402,7 +415,8 @@ def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
     cotangent the backward folds in). ``paths``: the entries' path table in
     walk order, which ``gather_tp`` walks on the card; ``swapped_paths`` and
     ``scatter_paths``: the role swap's and the (0, 2, 1) order's, which the
-    backward's ``bwd_fused`` walks (``Contracter.infer_paths``)."""
+    backward's ``bwd_fused`` walks (``Contracter.infer_paths``). x may be
+    the bf16 track: out is then bfloat16 too, ts in env's dtype."""
     return _GatherTpInfer.apply(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split,
                                 paths, swapped_paths, scatter_paths)
 
@@ -410,11 +424,11 @@ def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
 class _GatherTpEmbedInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs, d3,
-                split, paths):
+                split, paths, out_dtype):
         ctx.save_for_backward(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs)
         ctx.paths = paths
         return fused_tp.gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
-                                        row_specs, d3, split, paths)
+                                        row_specs, d3, split, paths, out_dtype)
 
     @staticmethod
     @once_differentiable
@@ -425,16 +439,18 @@ class _GatherTpEmbedInfer(torch.autograd.Function):
             None if gts is None else gts.contiguous(), ctx.paths,
         )
         return (dsh, dw2b, denv, _nan_like(w, ctx.needs_input_grad[3]), None, None, None, None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def gather_tp_embed_infer(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
-                          d3: int, split: bool = False, paths=None):
+                          d3: int, split: bool = False, paths=None,
+                          out_dtype: Optional[torch.dtype] = None):
     """``gather_tp_infer`` at layer 0 on the tensor embed's factors: sh
     [E, d_sh] and w2b [E, n_irr*U] (its channel weights), the features
     ``x0[e, iU+u] = sh[e, js_i] w2b[e, irs_i U+u]`` built in the kernel from
     ``row_specs`` [d1, 2] = (js_i, irs_i). ``paths``: the entry table's path
     descriptors, which both kernels walk (``Contracter.cg_paths``; built from
-    the entries where not given)."""
+    the entries where not given). ``out_dtype``: the features' storage (the
+    bf16 track's bfloat16; default sh's dtype); ts stays in sh's dtype."""
     return _GatherTpEmbedInfer.apply(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
-                                     row_specs, d3, split, paths)
+                                     row_specs, d3, split, paths, out_dtype)

@@ -11,7 +11,8 @@ two rank-window partials ``(eA, eB)``.
 - A tensor on a CUDA device goes to the hand-written CUDA kernel
   (``csrc/*.cu``, built by ``ops/_build.py``) on the current stream;
   the wrapper raises if the launch fails. There is no fallback.
-- ``LAUNCHES[name]`` counts the kernel launches, and only those.
+- ``LAUNCHES[name]`` counts the kernel launches, and only those;
+  ``BF16_LAUNCHES[name]`` counts those of them that ran a bf16 form.
 
 | wrapper | replaces (allegro_tpu/ops/fused_tp.py) |
 | --- | --- |
@@ -52,6 +53,17 @@ table (:func:`swap_entries`).
 the same way: from one denv array, the function of its window pair. What
 bounds each kernel on the card and how its design answers it is noted
 beside each kernel in the CUDA source.
+
+The bf16 tensor track (the model's ``tensor_dtype="bfloat16"``, on the mega
+path): ``gather_tp`` and ``bwd_fused`` (without dw) take x, g and dx in
+bfloat16 where JAX stores them so, ``gather_tp_embed`` writes its out in
+``out_dtype``, ``bwd_embed`` reads its g in bfloat16, and
+``latent_env_scatter`` / ``latent_env_bwd`` round the env weights to
+``wexp_dtype`` and back before the env product; every other array stays in
+the model dtype. As in JAX (``compute_dtype``), each kernel and plain version
+loads the track, computes in float32 at least (the promotion of float32 with
+its inputs' dtypes) and rounds once, on store. The CUDA forms are the same
+kernels on either storage type (``csrc/*.cu``: ``load_f`` / ``store_f``).
 """
 
 from __future__ import annotations
@@ -73,11 +85,18 @@ LAUNCHES: Dict[str, int] = {
     # the `pallas` backend's two, whose wrappers are in ops/pallas_contract.py
     "sparse_tp": 0, "sparse_tp_gradw": 0,
 }
+# the launches of the bf16 forms (kernels 2, 3 and 7-10 on the bf16 track),
+# each also counted in LAUNCHES under its kernel's name
+BF16_LAUNCHES: Dict[str, int] = {
+    "gather_tp": 0, "bwd_fused": 0, "latent_env_scatter": 0, "latent_env_bwd": 0,
+    "gather_tp_embed": 0, "bwd_embed": 0,
+}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BF16_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def csr_row_ptr(centers: np.ndarray, n_atoms: int) -> np.ndarray:
@@ -158,6 +177,23 @@ def swap_entries(entry_idx: torch.Tensor) -> torch.Tensor:
 SCATTER_ROLES = [0, 2, 1, 3]
 
 
+def compute_dtype(*tensors) -> torch.dtype:
+    """The dtype the kernels compute in: float32 promoted with the inputs'
+    (JAX's ``fused_tp.compute_dtype``): bfloat16 storage computes in
+    float32, a float64 model in float64."""
+    dt = torch.float32
+    for t in tensors:
+        if t is not None:
+            dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def round_to(v: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``v`` rounded to ``dtype`` and back (None: ``v`` itself): the env
+    weights of the bf16 track, ``wexp.astype(bfloat16).astype(cdt)``."""
+    return v if dtype is None or dtype == v.dtype else v.to(dtype).to(v.dtype)
+
+
 def _cg_tensor(like, entry_idx, entry_coef, n_paths, d1, d2, d3):
     """The dense ``C[p, i, j, k]`` of the sparse entries, in ``like``'s dtype."""
     idx = entry_idx.long()
@@ -207,6 +243,12 @@ def _embed_x0(sh, w2b, row_specs, U):
 
 
 def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split=False):
+    cdt = compute_dtype(x, env)
+    out = _gather_tp(x.to(cdt), env.to(cdt), w.to(cdt), centers, entry_idx, entry_coef, d3)
+    return (out.to(x.dtype), out[:, :w.shape[1]].clone()) if split else out.to(x.dtype)
+
+
+def _gather_tp(x, env, w, centers, entry_idx, entry_coef, d3):
     E, U = x.shape[0], w.shape[1]
     d1, d2 = x.shape[1] // U, env.shape[1] // U
     ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
@@ -215,12 +257,21 @@ def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split=Fal
     out = x.new_zeros((E, d3, U))
     for i in range(d1):
         out = out + xv[:, i : i + 1, :] * torch.einsum("eju,ujk->eku", env_e, ww[:, i])
-    out = out.reshape(E, d3 * U)
-    return (out, out[:, :U].clone()) if split else out
+    return out.reshape(E, d3 * U)
 
 
 def bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts=None,
                         with_dw=False):
+    cdt = compute_dtype(x, g, env)
+    dx, denv, *dw = _bwd_fused(x.to(cdt), g.to(cdt), env.to(cdt), w.to(cdt), centers, n_atoms,
+                               entry_idx, entry_coef, None if gts is None else gts.to(cdt),
+                               with_dw)
+    # stored as JAX's kernel stores them: dx in x's dtype, denv in the
+    # compute dtype of x and g (float32 for a bf16 track in a float64 model)
+    return (dx.to(x.dtype), denv.to(compute_dtype(x, g)), *dw)
+
+
+def _bwd_fused(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts, with_dw):
     g = _fold_gts(g, gts)
     E, U = x.shape[0], w.shape[1]
     d1, d2, d3 = x.shape[1] // U, env.shape[1] // U, g.shape[1] // U
@@ -298,29 +349,38 @@ def readout_bwd_reference(pieces, w0, w1, y, centers):
     return _edge_mlp_bwd(pieces, pre, gather_rows(y, centers), w0, w1)
 
 
-def latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S):
+def latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S,
+                                 wexp_dtype=None):
     _, lat = _edge_mlp(pieces, w0, w1)
-    env = center_sum_reference(_weighted_sh(sh, lat[:, S:], dim_to_irr, U), row_ptr)
+    wexp = round_to(lat[:, S:], wexp_dtype)
+    env = center_sum_reference(_weighted_sh(sh, wexp, dim_to_irr, U), row_ptr)
     return lat[:, :S].contiguous(), env
 
 
-def latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S):
+def latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S,
+                             wexp_dtype=None):
     pre, lat = _edge_mlp(pieces, w0, w1)
-    dsh, dwexp = unweight_both_reference(t, sh, lat[:, S:], centers, dim_to_irr)
+    # dsh reads the rounded env weights the forward weighted sh with; dwexp
+    # does not read them (the rounding's derivative is taken as 1, as in JAX)
+    dsh, dwexp = unweight_both_reference(t, sh, round_to(lat[:, S:], wexp_dtype), centers,
+                                         dim_to_irr)
     return dsh, _edge_mlp_bwd(pieces, pre, torch.cat([g_lat, dwexp], dim=1), w0, w1)
 
 
 def gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs, d3,
-                              split=False):
+                              split=False, out_dtype=None):
     x0 = _embed_x0(sh, w2b, row_specs, w.shape[1])
-    return gather_tp_reference(x0, env, w, centers, entry_idx, entry_coef, d3, split)
+    out = _gather_tp(x0, env, w, centers, entry_idx, entry_coef, d3)
+    stored = out.to(out_dtype or out.dtype)
+    return (stored, out[:, :w.shape[1]].clone()) if split else stored
 
 
 def bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef, row_specs,
                         gts=None):
     E, U = sh.shape[0], w.shape[1]
     x0 = _embed_x0(sh, w2b, row_specs, U)
-    dx, denv = bwd_fused_reference(x0, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts)
+    dx, denv = _bwd_fused(x0, g.to(x0.dtype), env, w, centers, n_atoms, entry_idx, entry_coef,
+                          gts, False)
     specs = row_specs.long()
     dx = dx.view(E, -1, U)  # [E, d1, U]
     w = w2b.reshape(E, -1, U)
@@ -387,9 +447,18 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check_kernel_args(floats, ints) -> None:
-    for name, t in floats.items():
-        if t.dtype != torch.float32:
+def _check_kernel_args(floats, ints, track=None) -> bool:
+    """Checks the arguments of a CUDA kernel: ``floats`` float32, ``ints``
+    int32, ``track`` (the tensor track's arrays of a kernel with a bf16
+    form) all float32 or all bfloat16, each contiguous. Returns whether the
+    track is bfloat16."""
+    track = track or {}
+    dtypes = {t.dtype for t in track.values()}
+    if dtypes - {torch.float32, torch.bfloat16} or len(dtypes) > 1:
+        raise TypeError("the CUDA kernels take the tensor track as float32 or bfloat16, one "
+                        f"type for all of {sorted(track)}, got {sorted(map(str, dtypes))}")
+    for name, t in {**floats, **track}.items():
+        if name in floats and t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -398,6 +467,7 @@ def _check_kernel_args(floats, ints) -> None:
             raise TypeError(f"{name}: index arrays must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return dtypes == {torch.bfloat16}
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -405,13 +475,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name: str, fn: str, device: torch.device, *args) -> None:
+def _launch(name: str, fn: str, device: torch.device, *args, bf16: bool = False) -> None:
     lib = _build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
     _build.check(lib, rc, name)
     LAUNCHES[name] += 1
+    if bf16:
+        BF16_LAUNCHES[name] += 1
 
 
 def _device_irr_ranges(what, irr_ranges, dim_to_irr, n_irr, device):
@@ -494,7 +566,8 @@ def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = 
     either role order; on the card also ``paths``, that order's path table
     in walk order (``gen_cg_blocks.path_table(by_output=True)``); dims up to
     32. ``split``: also return the leading 0e block ``out[:, :U]`` as its
-    own [E, U] array, ``(out, ts)``.
+    own [E, U] array, ``(out, ts)``. x may be the bf16 track: out is then
+    bfloat16 too, ts float32 (JAX's ``scalar_dtype``).
 
     Replaces ``_gather_tp_raw_kernel``. Bound by the read of x and the write
     of out; one thread per (edge, channel), coalesced rows, the edge's env
@@ -510,16 +583,17 @@ def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = 
         )
     if _on_cpu(x, env, w, centers, entry_idx, entry_coef):
         return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split)
-    _check_kernel_args({"x": x, "env": env, "w": w}, {"centers": centers})
+    bf16 = _check_kernel_args({"env": env, "w": w}, {"centers": centers}, {"x": x})
     paths = _kernel_paths("gather_tp", paths, entry_idx.shape[0])
     out = torch.empty((E, d3 * U), dtype=x.dtype, device=x.device)
-    ts = torch.empty((E, U), dtype=x.dtype, device=x.device) if split else None
+    ts = torch.empty((E, U), dtype=env.dtype, device=x.device) if split else None
     if E > 0:
         _launch("gather_tp", "atpt_gather_tp", x.device,
                 x.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
                 paths.desc.data_ptr(), paths.scale.data_ptr(), paths.desc.shape[0],
                 paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(), E, n_atoms,
-                x.shape[1] // U, env.shape[1] // U, d3, U, w.shape[0], out.data_ptr(), _ptr(ts))
+                x.shape[1] // U, env.shape[1] // U, d3, U, w.shape[0], out.data_ptr(), _ptr(ts),
+                int(bf16), bf16=bf16)
     return (out, ts) if split else out
 
 
@@ -538,6 +612,8 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
     once per layer): ``paths``, that of the role-swapped entry table
     (``gather_paths()[1]``: dx), and ``scatter_paths``, that of the entry
     table with its roles permuted (0, 2, 1) (``scatter_paths()[0]``: denv).
+    x and g may be the bf16 track (without dw): dx is then bfloat16 too,
+    denv in env's dtype.
 
     Replaces ``_bwd_fused_raw_kernel`` and, with ``with_dw``,
     ``_bwd_fused_kernel``. Bound by the reads of x and g and the write of
@@ -564,11 +640,12 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
     if _on_cpu(x, g, *opt, env, w, centers, row_ptr, entry_idx, entry_coef):
         return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts,
                                    with_dw)
-    _check_kernel_args(
-        {"x": x, "g": g, "env": env, "w": w, "entry_coef": entry_coef,
-         **{"gts": t for t in opt}},
-        {"row_ptr": row_ptr, "entry_idx": entry_idx},
+    bf16 = _check_kernel_args(
+        {"env": env, "w": w, "entry_coef": entry_coef, **{"gts": t for t in opt}},
+        {"row_ptr": row_ptr, "entry_idx": entry_idx}, {"x": x, "g": g},
     )
+    if bf16 and with_dw:
+        raise TypeError("bwd_fused with dw takes float32 x and g, got bfloat16")
     dx = torch.empty_like(x)
     denv = torch.empty_like(env)
     n_blocks = max(1, min(_BWD_DW_MAX_BLOCKS, n_atoms + 1))
@@ -590,7 +667,7 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
                 x.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
                 row_ptr.data_ptr(), *table, *walks, E, n_atoms,
                 x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
-                dx.data_ptr(), denv.data_ptr(), _ptr(partial), _ptr(dw))
+                dx.data_ptr(), denv.data_ptr(), _ptr(partial), _ptr(dw), int(bf16), bf16=bf16)
     elif with_dw:
         dw.zero_()
     return (dx, denv, dw) if with_dw else (dx, denv)
@@ -820,9 +897,21 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
     return dpieces
 
 
+def _round_flag(what: str, wexp_dtype: Optional[torch.dtype], like: torch.Tensor) -> int:
+    """1 where the CUDA form rounds the env weights to bfloat16, 0 where it
+    keeps them; raises for a rounding no form takes."""
+    if wexp_dtype is None or wexp_dtype == like.dtype:
+        return 0
+    if wexp_dtype != torch.bfloat16:
+        raise TypeError(f"{what}: the CUDA kernels round the env weights to bfloat16 only, "
+                        f"got {wexp_dtype}")
+    return 1
+
+
 def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor],
                        centers, row_ptr, dim_to_irr, U: int, S: int,
-                       irr_ranges: Optional[torch.Tensor] = None
+                       irr_ranges: Optional[torch.Tensor] = None,
+                       wexp_dtype: Optional[torch.dtype] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A layer's latent MLP fused with the next layer's environment sum:
     ``lat = silu(Σ_i p_i @ W0_i) @ W1`` (or ``Σ_i p_i @ W0_i`` without a
@@ -834,7 +923,9 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
     add no env), dim_to_irr [d2]. The scatter factor is expected folded into
     the env columns of the last weight. ``irr_ranges`` is
     :func:`irrep_ranges` of ``dim_to_irr`` on the device (built on the host
-    where not given).
+    where not given). ``wexp_dtype`` (the bf16 track's bfloat16): the env
+    weights ``lat[:, S:]`` are rounded to it and back before they weight
+    sh, as JAX's kernel does; lat_s is not rounded.
 
     Replaces ``_latent_env_scatter_kernel``. Bound by exact-FP32 FMAs; tiles
     of 64 edges through two register-tiled products, weights in shared
@@ -850,7 +941,9 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
                          f"centers {tuple(centers.shape)}")
     rest = () if w1 is None else (w1,)
     if _on_cpu(*pieces, sh, w0, *rest, centers, row_ptr, dim_to_irr):
-        return latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S)
+        return latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S,
+                                            wexp_dtype)
+    round_wexp = _round_flag("latent_env_scatter", wexp_dtype, sh)
     irr_ranges = _device_irr_ranges("latent_env_scatter", irr_ranges, dim_to_irr, (N - S) // U,
                                     sh.device)
     _check_kernel_args({"sh": sh, "w0": w0, **{"w1": w for w in rest}},
@@ -865,19 +958,23 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
     _launch("latent_env_scatter", "atpt_latent_env_scatter", sh.device,
             ptrs, strides, dims, len(pieces), w0.data_ptr(), _ptr(w1), sh.data_ptr(),
             centers.data_ptr(), row_ptr.data_ptr(), irr_ranges.data_ptr(), E, n_atoms, d2, U, S,
-            0 if w1 is None else w0.shape[1], N, lat_s.data_ptr(), env.data_ptr())
+            0 if w1 is None else w0.shape[1], N, lat_s.data_ptr(), env.data_ptr(), round_wexp,
+            bf16=bool(round_wexp))
     return lat_s, env
 
 
 def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Tensor], t, g_lat,
                    centers, dim_to_irr, U: int, S: int,
-                   irr_ranges: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+                   irr_ranges: Optional[torch.Tensor] = None,
+                   wexp_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, ...]:
     """Backward of ``latent_env_scatter`` in sh and the pieces, from the env
     cotangent t [n_atoms, d2*U] and the lat_s cotangent g_lat [E, S]:
     ``(dsh [E, d2], dpieces)``, dpieces contiguous [E, S_i]. The MLP is
     recomputed; a sentinel edge reads t = 0. ``irr_ranges`` is
     :func:`irrep_ranges` of ``dim_to_irr`` on the device (built on the host
-    where not given).
+    where not given). ``wexp_dtype``: as in ``latent_env_scatter``; dsh
+    reads the rounded env weights, the env weights' cotangent does not
+    depend on them.
 
     Replaces ``_latent_env_bwd_kernel``. Bound by exact-FP32 FMAs; tiles of
     64 edges through four register-tiled products, weights in shared
@@ -891,7 +988,9 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
                          f"sh {tuple(sh.shape)}, t {tuple(t.shape)}, g_lat {tuple(g_lat.shape)}")
     rest = () if w1 is None else (w1,)
     if _on_cpu(*pieces, sh, w0, *rest, t, g_lat, centers, dim_to_irr):
-        return latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S)
+        return latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, U, S,
+                                        wexp_dtype)
+    round_wexp = _round_flag("latent_env_bwd", wexp_dtype, sh)
     irr_ranges = _device_irr_ranges("latent_env_bwd", irr_ranges, dim_to_irr, (N - S) // U,
                                     sh.device)
     _check_kernel_args({"sh": sh, "w0": w0, "t": t, "g_lat": g_lat, **{"w1": w for w in rest}},
@@ -908,7 +1007,7 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
             ptrs, strides, dptrs, dstrides, dims, len(pieces), w0.data_ptr(), _ptr(w1),
             sh.data_ptr(), t.data_ptr(), g_lat.data_ptr(), centers.data_ptr(),
             irr_ranges.data_ptr(), E, t.shape[0], d2, U, S, 0 if w1 is None else w0.shape[1], N,
-            dsh.data_ptr())
+            dsh.data_ptr(), round_wexp, bf16=bool(round_wexp))
     return dsh, dpieces
 
 
@@ -927,7 +1026,8 @@ def _check_embed(what, sh, w2b, env, w, centers, entry_idx, entry_coef, row_spec
 
 
 def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
-                    d3: int, split: bool = False, paths=None):
+                    d3: int, split: bool = False, paths=None,
+                    out_dtype: Optional[torch.dtype] = None):
     """``gather_tp`` on layer 0's features ``x0[e, iU+u] = sh[e, js_i]
     w2b[e, irs_i U+u]``, built on the fly: out [E, d3*U] (and ts [E, U]
     with ``split``). sh [E, d_sh], w2b [E, n_irr*U] (the tensor embed's
@@ -935,7 +1035,9 @@ def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, ro
     get zero rows), row_specs [d1, 2] int32 = (js_i, irs_i). ``paths``
     (``gen_cg_blocks.CgPaths`` on the device) is the entry table by path,
     which the kernel walks; where it is not given it is built from the
-    entries on the host.
+    entries on the host. ``out_dtype``: out's storage (the bf16 track's
+    bfloat16; default sh's dtype), rounded once from the sum; ts stays in
+    sh's dtype.
 
     Replaces ``_gather_tp_embed_raw_kernel``. Bound by the write of out; a
     warp per atom segment walks the CG paths, each a block compiled into
@@ -948,13 +1050,14 @@ def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, ro
         raise ValueError(f"gather_tp_embed shapes: env {tuple(env.shape)} for {n_atoms} atoms")
     if _on_cpu(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs):
         return gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef,
-                                         row_specs, d3, split)
+                                         row_specs, d3, split, out_dtype)
     paths = _device_paths(paths, entry_idx, entry_coef, sh.device)
     _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w, "scale": paths.scale,
                         "path_coef": paths.entry_coef},
                        {"row_ptr": row_ptr, "desc": paths.desc, "path_idx": paths.entry_idx,
                         "row_specs": row_specs})
-    out = torch.empty((E, d3 * U), dtype=sh.dtype, device=sh.device)
+    out = torch.empty((E, d3 * U), dtype=out_dtype or sh.dtype, device=sh.device)
+    _check_kernel_args({}, {}, {"out": out})
     ts = torch.empty((E, U), dtype=sh.dtype, device=sh.device) if split else None
     if E > 0:
         _launch("gather_tp_embed", "atpt_gather_tp_embed", sh.device,
@@ -962,7 +1065,8 @@ def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, ro
                 row_ptr.data_ptr(), paths.desc.data_ptr(), paths.scale.data_ptr(),
                 paths.desc.shape[0], paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(),
                 row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
-                env.shape[1] // U, d3, U, out.data_ptr(), _ptr(ts))
+                env.shape[1] // U, d3, U, out.data_ptr(), _ptr(ts),
+                int(out.dtype == torch.bfloat16), bf16=out.dtype == torch.bfloat16)
     return (out, ts) if split else out
 
 
@@ -973,7 +1077,8 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
     [E, U] is the cotangent of the split scalar output. Sentinel edges get
     zero rows. ``paths`` (``gen_cg_blocks.CgPaths`` on the device) is the
     entry table by path, which the kernel walks; where it is not given it is
-    built from the entries on the host.
+    built from the entries on the host. g may be the bf16 track (the
+    cotangent of a bfloat16 out); the results are in the model dtype.
 
     Replaces ``_bwd_embed_raw_kernel``. Bound by the read of g and the write
     of dw2b; a warp per atom segment walks the CG paths, each a block
@@ -992,11 +1097,11 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
         return bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef,
                                    row_specs, gts)
     paths = _device_paths(paths, entry_idx, entry_coef, sh.device)
-    _check_kernel_args({"sh": sh, "w2b": w2b, "g": g, "env": env, "w": w,
-                        "scale": paths.scale, "path_coef": paths.entry_coef,
-                        **{"gts": t for t in opt}},
-                       {"row_ptr": row_ptr, "desc": paths.desc, "path_idx": paths.entry_idx,
-                        "row_specs": row_specs})
+    bf16 = _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w,
+                               "scale": paths.scale, "path_coef": paths.entry_coef,
+                               **{"gts": t for t in opt}},
+                              {"row_ptr": row_ptr, "desc": paths.desc,
+                               "path_idx": paths.entry_idx, "row_specs": row_specs}, {"g": g})
     dsh = torch.empty_like(sh)
     dw2b = torch.empty_like(w2b)
     denv = torch.empty_like(env)
@@ -1008,7 +1113,7 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
             paths.desc.shape[0], paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(),
             row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
             env.shape[1] // U, g.shape[1] // U, U, dsh.data_ptr(), dw2b.data_ptr(),
-            denv.data_ptr())
+            denv.data_ptr(), int(bf16), bf16=bf16)
     return dsh, dw2b, denv
 
 

@@ -19,7 +19,9 @@ given widths in ``limit`` bytes: the layout it chooses, or its smallest
 where none fits (then more than ``limit``). The C functions
 ``atpt_*_smem`` of the same sources return the same numbers from the
 launchers' own code; ``chip_smoke.py`` holds the two together over a grid of
-widths on both sides of the limit.
+widths on both sides of the limit. The bf16 forms of these kernels (the
+model's ``tensor_dtype="bfloat16"``) widen the track to float as they stage
+it, so their layouts, and these bytes, are the float32 forms'.
 """
 
 from __future__ import annotations

@@ -131,11 +131,13 @@ class Trainer:
                         device=self.device)
 
     def loss_and_grads(self, state: TrainState, data: Dict):
-        """(loss, loss terms, gradients by parameter name) on one batch."""
-        out = self.model.apply_with_derivatives(data, create_graph=True)
-        loss, terms = self.loss(out, data)
-        grads = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True,
-                                    materialize_grads=True)
+        """(loss, loss terms, gradients by parameter name) on one batch,
+        under the model's matrix-product policy (``Model.matmul_policy``)."""
+        with self.model.matmul_policy():
+            out = self.model.apply_with_derivatives(data, create_graph=True)
+            loss, terms = self.loss(out, data)
+            grads = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in terms.items()}, dict(zip(state.params,
                                                                                 grads))
 

@@ -150,7 +150,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    configs/tutorial.yaml`` (train + test, ``einsum`` + ZBL), the same with
    ``model.tp_kernel_backend: pallas``, and the tutorial under ``optax.sgd``
    (momentum 0.9) with ``optax.exponential_decay``, ``profile_dir`` and the
-   ``package`` stage (``-o``); each must exit 0 and write its log,
+   ``package`` stage (``-o``), the four processes started together; each
+   must exit 0 and write its log,
    checkpoints and test metrics, with the exact launch counts of its run;
    the package must hold the checkpoint's EMA parameters and give their
    force call bit for bit, and the profiler must have left a trace.
@@ -170,10 +171,32 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    configuration (``parity=False`` at 3 layers, the 3-layer l_max-3 model,
    shared env weights, the spline embed) on ``fused_infer``'s default and
    ``pallas`` against ``einsum``, with exact launch counts.
-   In phases 3, 5c, 6b, 6c, 7c and 7e two identical force calls must agree
-   bit for bit in energy, forces and virial (5c and 6c: on the 1k batch of
-   four periodic frames, whose virial sums per frame). Phase 7 times the
-   plain versions with fewer calls (``PHASE7_PLAIN_TIMING``).
+   In phases 3, 5c, 6b, 6c, 7c, 7e and 8 two identical force calls must
+   agree bit for bit in energy, forces and virial (5c and 6c: on the 1k
+   batch of four periodic frames, whose virial sums per frame). Phase 7
+   times the plain versions with fewer calls (``PHASE7_PLAIN_TIMING``).
+8. the JAX bench's headline system (``us_per_atom_100k``): the 97,336-atom
+   crystal (``crystal_frame(97336, 4.0, 0)``, r_max 4.0, 2,457,212 edges;
+   its list from the native cell list) on the flagship's default mega path,
+   each call with its launches counted (every kernel of the mega path at
+   least once), two identical calls the same bits, µs/atom (host clock),
+   device busy and idle (torch.profiler) and peak memory, freed between
+   them: (a) the f32 force call; (b) the JAX bench's 100k policy
+   (``POLICY_100K``: the bf16 track, "high", remat, checkpoint_energy),
+   whose forces must meet the reference allclose against (a)'s, max(|Δf| -
+   5e-5 |f|) <= 5e-5; (c) remat and checkpoint_energy in f32, the same bits
+   as (a); (d) ``StreamedEvaluator`` at f32 with 8 chunks, within rtol 1e-4
+   / atol 1e-5 of (a)'s forces and rtol 1e-3 / atol 1e-4 of its virial;
+   then (e) the bf16 forms of kernels 2, 3 and 7-10 at the flagship's
+   4,096-atom shapes, each against its plain version on the same bf16
+   inputs (``check_bf16_case``: bf16 outputs within 1 bf16 ulp beyond the
+   float32 tolerance, float32 outputs within 1e-5, plus for 7's env and 8's
+   dsh one bf16 ulp of each rounded env weight they sum), the share of
+   outputs that are not the same bits, and the median device times of the
+   form, its plain version and its float32 form beside the bound (the
+   track's elements at 2 B). The bf16 forms stage the same float32 columns
+   in shared memory as the float32 forms (they widen as they load), so
+   ``check_fit_rule`` holds both storage types.
 
 The run prints its total seconds (``[done]``). The last two lines of stdout
 are a JSON object with the kernels' records and the JSON result ``{"ok":
@@ -208,6 +231,12 @@ their own ``ms_*``, ``plain_ms_*``, ``bound_ms_*`` and ``library_ms_*`` in the b
 launches that compute the same function (``unweight_sh`` + ``unweight_w``
 for ``unweight_both``; ``gather_tp`` swapped + ``tp_scatter`` for
 ``bwd_fused``, at layer 0).
+After the 21 rows, one row per bf16 form (``name[bf16]``, kernels 2, 3,
+7-10; ``bf16_record``): its times at the flagship shapes (phase 8e, one
+launch per layer of the 100k policy's force call), ``ms_f32_form`` beside
+them, ``max_ulps`` and ``not_same_bits``, and as ``launches`` its launches
+in one force call of the 100k policy on the 97,336-atom crystal (phase 8b:
+the recomputes of remat and checkpoint_energy included).
 """
 
 from __future__ import annotations
@@ -1922,7 +1951,8 @@ def run_cli(smi, dev):
     shipped configs (``md -c configs/md.yaml``, ``run -c
     configs/tutorial.yaml``), on the tutorial with the ``pallas`` backend,
     and on it under sgd with an exponential decay, profiled, then packaged
-    (``tutorial_sgd``, ``check_package``), each into a temporary workdir:
+    (``tutorial_sgd``, ``check_package``), each into a temporary workdir,
+    the four processes started together (each counts its own launches):
     exit 0, the exact launch counts of the run, the files each writes,
     finite energies and test metrics. Returns the launches by run."""
     import yaml
@@ -1935,29 +1965,38 @@ def run_cli(smi, dev):
         pallas_cfg.write_text(yaml.safe_dump(tutorial))
         sgd_cfg = Path(tmp) / "tutorial_sgd.yaml"
         sgd_cfg.write_text(yaml.safe_dump(tutorial_sgd(Path(tmp) / "tutorial_sgd")))
-        for name, args in (("md", ["md", "-c", "configs/md.yaml"]),
-                           ("tutorial", ["run", "-c", "configs/tutorial.yaml"]),
-                           ("tutorial_pallas", ["run", "-c", str(pallas_cfg)]),
-                           ("tutorial_sgd", ["run", "-c", str(sgd_cfg), "-o", SGD_PACKAGE])):
+        runs = (("md", ["md", "-c", "configs/md.yaml"]),
+                ("tutorial", ["run", "-c", "configs/tutorial.yaml"]),
+                ("tutorial_pallas", ["run", "-c", str(pallas_cfg)]),
+                ("tutorial_sgd", ["run", "-c", str(sgd_cfg), "-o", SGD_PACKAGE]))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", CLI_DRIVER, *args, "-w",
+                                   str(Path(tmp) / name)], cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for name, args in runs]
+        try:
+            results = [proc.communicate(timeout=CLI_TIMEOUT) + (time.perf_counter() - t0,)
+                       for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for (name, args), proc, (stdout, stderr, seconds) in zip(runs, procs, results):
             workdir = Path(tmp) / name
             cfg_path = Path(args[2]) if Path(args[2]).is_absolute() else REPO / args[2]
             config = yaml.safe_load(cfg_path.read_text())
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", CLI_DRIVER, *args, "-w", str(workdir)],
-                                  cwd=REPO, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-            seconds = time.perf_counter() - t0
             if proc.returncode != 0:
-                print(proc.stdout[-3000:])
-                print(proc.stderr[-3000:], file=sys.stderr)
+                print(stdout[-3000:])
+                print(stderr[-3000:], file=sys.stderr)
                 raise AssertionError(f"CLI {' '.join(args)} exited {proc.returncode}")
-            lines = proc.stdout.splitlines()
+            lines = stdout.splitlines()
             launches = json.loads(lines[-1][len("LAUNCHES "):])
             want = cli_launches(config)
             if launches != want:
                 raise AssertionError(f"CLI {name}: launches {launches}, expected {want}")
             out[name] = launches
-            print(f"[6d] python -m allegro_tpu_torch {' '.join(args)}: exit 0 in {seconds:.1f} s "
-                  f"(process start and kernel load included); launches "
+            print(f"[6d] python -m allegro_tpu_torch {' '.join(args)}: exit 0 after {seconds:.1f} s "
+                  f"(the four started together; process start and kernel load included); launches "
                   f"{ {k: c for k, c in launches.items() if c} }")
             if name == "md":
                 log = json.loads((workdir / "md_log.json").read_text())
@@ -2550,6 +2589,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_surface(batch_np, n_atoms, n_edges, dev)
 
+    stamp("8")
+    # phase 8: the 97,336-atom crystal under the JAX bench's policies, and
+    # the bf16 forms at the flagship shapes
+    bf16_rows = big_system_phase(mega, data, rng, dev, smi)
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(f"launch floor {floor_ms:.4f} ms (an empty kernel under median_ms, phase 2)")
@@ -2557,7 +2601,8 @@ def main() -> int:
                 pallas_train=pallas_train, cli=cli, lmax3=l3_launches, lmax3_md=l3_md,
                 lmax3_calculator=l3_calc, ptxas=usage)
     print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
-                                  for row in TPU_KERNELS]}))
+                                  for row in TPU_KERNELS]
+                      + bf16_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -2592,17 +2637,18 @@ def kernel_ptxas(name, usage):
     (``<name>_kernel``, its ``_partial`` first pass, and the center
     kernels' forms ``_narrow``, ``_segments``, ``_rows``, ``_chunks`` and
     ``_partials``; ``<true>`` / ``<false>``, ``<4>``, ``<true, 64>``,
-    ``<float4>``: the instantiations of its bool, int and vector-type
-    template parameters)."""
+    ``<float4>``, ``<bf16>``: the instantiations of its bool, int, vector-
+    and storage-type template parameters)."""
     out = []
     forms = "partial|narrow|segments|rows|chunks|partials"
     for mangled, (regs, stores, loads) in usage.items():
         m = re.search(rf"\d({re.escape(name)}(?:_(?:{forms}))?_kernel)"
-                      r"(I((?:L[bi]\d+E)+|f|6float4)E)?", mangled)
+                      r"(I((?:L[bi]\d+E|f|6float4|13__nv_bfloat16)+)E)?", mangled)
         if m:
-            args = [{"b1": "true", "b0": "false"}.get(k + v, v)
-                    for k, v in re.findall(r"L([bi])(\d+)E", m.group(3) or "")]
-            args = args or [{"f": "float", "6float4": "float4"}.get(m.group(3), "")]
+            types = {"f": "float", "6float4": "float4", "13__nv_bfloat16": "bf16"}
+            args = [{"b1": "true", "b0": "false"}.get(b + v, v) if v else types[t]
+                    for b, v, t in re.findall(r"L([bi])(\d+)E|(f|6float4|13__nv_bfloat16)",
+                                              m.group(3) or "")]
             tag = f"<{', '.join(args)}>" if any(args) else ""
             out.append({"kernel": m.group(1) + tag, "registers": regs, "spill_stores": stores,
                         "spill_loads": loads})
@@ -2672,6 +2718,449 @@ def kernel_record(row, records, records_l3, runs):
                 out[f"bound_ms_{tag}"], out[f"bound_by_{tag}"] = v_bound, v_by
                 out[f"library_ms_{tag}"] = variant["library_ms"]
     return out
+
+
+# phase 8: the JAX bench's headline system (us_per_atom_100k,
+# allegro_tpu/bench.py:160-184): the 46^3 crystal under its 100k policy
+BIG_ATOMS = 97_336
+POLICY_100K = dict(tensor_dtype="bfloat16", remat=True, checkpoint_energy=True, precision="high",
+                   features_layout="flat_dim_major")
+# the reference's compiled-model acceptance (tests/model/test_bf16_storage.py:26-33, :60-64):
+# max(|df| - rtol |f_ref|) <= atol
+REF_ATOL = REF_RTOL = 5e-5
+STREAM_CHUNKS = 8
+# the streamed evaluator against the monolithic call (tests/md/test_streaming.py:76-78)
+STREAM_F_TOL = dict(rtol=1e-4, atol=1e-5)
+STREAM_V_TOL = dict(rtol=1e-3, atol=1e-4)
+BIG_REPS = 3  # timed force calls per policy (after two warm-up calls)
+# the kernels of the mega path (each launched in every force call on it)
+MEGA_PATH = ("latent_env_scatter", "latent_env_bwd", "gather_tp_embed", "bwd_embed", "gather_tp",
+             "bwd_fused", "center_gather", "center_sum", "readout_sum", "readout_bwd")
+# the bf16 forms (kernels 2, 3, 7-10) and their TPU kernels
+BF16_KERNELS = [(2, "gather_tp"), (3, "bwd_fused"), (7, "latent_env_scatter"),
+                (8, "latent_env_bwd"), (9, "gather_tp_embed"), (10, "bwd_embed")]
+# the share of a bf16 form's stored bfloat16 outputs that may differ from the
+# plain version's bits: a float32 sum that differs by ~1e-7 of its value
+# crosses a bf16 rounding boundary in ~1e-7 / 2^-8 of the outputs (0.007%
+# read for gather_tp at the flagship shapes, NVIDIA H100 80GB HBM3, 700 W)
+BF16_DIFFER_MAX = 0.01
+
+
+def bf16_ulp(ref):
+    """The spacing of bfloat16 numbers at |ref| (float64): 2^(e - 7) for
+    |ref| in [2^e, 2^(e+1)), the subnormal spacing below 2^-126."""
+    a = ref.double().abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def bf16_gate(got, ref, slack=None):
+    """Holds a bf16 form's outputs to its plain version's on the same bf16
+    inputs: each float32 output within KERNEL_TOL of its max |ref| (plus
+    ``slack``, a per-element bound of the rounding flips a float32 output
+    sums, where given: {output index: bound}), each bfloat16 output within
+    1 bf16 ulp (at the larger of the two magnitudes: the two roundings, half
+    an ulp each) of the reference beyond that same float32 tolerance (the
+    kernel's float32 sum may differ from the plain one's by that much before
+    it is rounded: near a sum that cancels, that is many ulps of a small
+    result), and at most BF16_DIFFER_MAX of the bfloat16 outputs not the
+    same bits (a store that truncates, or rounds the wrong way, would differ
+    in about half). Returns (ok, worst ulps, rel, max abs error, outputs not
+    the same bits, outputs, share of the bfloat16 outputs not the same
+    bits)."""
+    slack = slack or {}
+    worst_ulps, rel, abs_err, differ, total, differ16, total16 = 0.0, 0.0, 0.0, 0, 0, 0, 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"output {i} is {a.dtype}, the plain version's {b.dtype}")
+        d = (a.double() - b.double()).abs()
+        n = int((a != b).sum())
+        differ += n
+        total += a.numel()
+        abs_err = max(abs_err, d.max().item())
+        scale = max(b.double().abs().max().item(), 1e-30)
+        if a.dtype == torch.bfloat16:
+            differ16 += n
+            total16 += a.numel()
+            over = (d - KERNEL_TOL * scale).clamp_min(0.0)
+            worst_ulps = max(worst_ulps, (over / bf16_ulp(torch.maximum(a.abs(), b.abs())))
+                             .max().item())
+        else:
+            over = d - slack.get(i, torch.zeros((), device=d.device))
+            rel = max(rel, over.max().item() / scale)
+    share16 = differ16 / max(total16, 1)
+    ok = worst_ulps <= 1.0 and rel < KERNEL_TOL and share16 <= BF16_DIFFER_MAX
+    return ok, worst_ulps, rel, abs_err, differ, total, share16
+
+
+def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops, slack=None,
+                    timed=True, tells_apart=False):
+    """One bf16 form against its plain version on the same bf16 inputs
+    (``bf16_gate``). Prints the share of outputs that are not the same
+    bits, and, where ``timed``, the median device times of the form, its
+    plain version and the float32 form (``f32_form``) on the same values,
+    beside the bound (the track's elements at 2 B). ``tells_apart``: the
+    float32 form's outputs (the same dtypes, unrounded) must fail the same
+    gate, so the gate is shown to see the rounding."""
+    got, ref = kernel(), plain()
+    ok, worst_ulps, rel, abs_err, differ, total, share16 = bf16_gate(got, ref, slack)
+    share = differ / max(total, 1)
+    print(f"  {label} {name + '[bf16]':22s} max_abs_err {abs_err:.3e}, bf16 outputs within "
+          f"{worst_ulps:.2f} ulp (<= 1), f32 outputs rel {rel:.3e} (< {KERNEL_TOL}), "
+          f"not the same bits {100 * share:.4f}% (bf16 outputs {100 * share16:.4f}%, <= "
+          f"{100 * BF16_DIFFER_MAX:g}%) {'ok' if ok else 'FAIL'}", end="")
+    if not ok:
+        print()
+        raise AssertionError(f"{name}[bf16] ({label}) disagrees with its plain version")
+    if tells_apart:
+        unrounded = bf16_gate(f32_form(), ref, slack)
+        print(f"; the f32 form fails the gate (f32 outputs rel {unrounded[2]:.3e})", end="")
+        if unrounded[0]:
+            print()
+            raise AssertionError(f"{name}[bf16] ({label}): the f32 form passes the bf16 gate")
+    if not timed:
+        print()
+        return
+    ms, plain_ms, f32_ms = median_ms(kernel), median_ms(plain), median_ms(f32_form)
+    work = nbytes(*reads, *got)
+    bound_ms, bound_by = bound(work, flops)
+    print(f"  kernel {ms:.4f} ms (f32 form {f32_ms:.4f})  plain {plain_ms:.4f} ms  bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                                    "flops": 0, "library_ms": None, "ms_f32": 0.0,
+                                    "ulps": 0.0, "differ": 0, "outputs": 0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    rec["ms"] += ms
+    rec["plain_ms"] += plain_ms
+    rec["ms_f32"] += f32_ms
+    rec["bytes"] += work
+    rec["flops"] += flops
+    rec["ulps"] = max(rec["ulps"], worst_ulps)
+    rec["differ"] += differ
+    rec["outputs"] += total
+
+
+def flip_ulps(w):
+    """Per element of the float32 env weights ``w`` (the plain MLP's): the
+    bf16 ulp where a value within the float32 tolerance (KERNEL_TOL of
+    max |w|) of ``w`` may round to another bfloat16 than ``w`` does (the
+    kernel's MLP sums in another order), else 0."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    w = w.double()
+    tau = KERNEL_TOL * w.abs().max().item()
+    up = fused_tp.round_to(w + tau, torch.bfloat16).double()
+    down = fused_tp.round_to(w - tau, torch.bfloat16).double()
+    return torch.where(up != down, bf16_ulp(torch.maximum(up.abs(), down.abs())),
+                       torch.zeros_like(w)).float()
+
+
+def check_bf16_kernels(allegro, data, rng, records):
+    """Phase 8e: the bf16 forms of kernels 2, 3 and 7-10 at the flagship's
+    4,096-atom shapes on the mega model's weights, each against its plain
+    version on the same bf16 inputs (``check_bf16_case``), and timed beside
+    its float32 form; one launch per layer of the bf16 policy's force call
+    (gather_tp and bwd_fused at layer 1's dims, the latent kernels on the
+    first projection and layer 0's latent)."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    bf = torch.bfloat16
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    E, Er = centers.shape[0], int(data[keys.EDGE_MASK].sum())
+    S, U = allegro.S, allegro.U
+    tp0, tp1 = allegro.tps[0], allegro.tps[1]
+    d2i, specs = tp0.dim_to_irr, allegro.row_specs
+    n_irr = tp0.n_irr
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
+
+    label = f"U {U} E {E}"
+    # kernels 7 and 8: the env weights rounded to bf16 inside the kernel. The
+    # kernel's float32 MLP sums in another order than the plain version's, so
+    # a weight within the float32 tolerance of a bf16 rounding midpoint may
+    # round the other way: each env sum (and dsh) may differ by one bf16 ulp
+    # of each such weight it reads, which the slack bounds (flip_ulps). A
+    # kernel that did not round would miss by up to half an ulp of every
+    # weight: the f32 form must fail the same gate (tells_apart)
+    sh, emb, ts = rand(E, tp0.d2), rand(E, S), rand(E, U)
+    t, g_lat = rand(n_atoms, tp0.d2 * U), rand(E, S)
+    (w_proj,) = allegro.first_projection.weights()
+    w0, w1 = allegro.latents[0].weights()
+    for pieces, a, b in (((emb,), w_proj.detach(), None), ((emb, ts), w0.detach(), w1.detach())):
+        what = f"{label} W0 {list(a.shape)}" + ("" if b is None else f" W1 {list(b.shape)}")
+        mlp = a.shape[0] * a.shape[1] + (0 if b is None else b.shape[0] * b.shape[1])
+        env_flops = 2 * Er * tp0.d2 * U
+        ulp = flip_ulps(fused_tp._edge_mlp(pieces, a, b)[1][:, S:])
+        env_slack = fused_tp.env_scatter_reference(sh.abs(), ulp, centers, n_atoms, d2i, U)
+        dsh_slack = fused_tp.unweight_sh_reference(t.abs(), ulp, centers, d2i)
+        check_bf16_case(
+            "latent_env_scatter",
+            lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, centers, row_ptr, d2i, U, S,
+                                                tp0.irr_ranges, bf),
+            lambda: fused_tp.latent_env_scatter_reference(pieces, sh, a, b, row_ptr, d2i, U, S,
+                                                          bf),
+            lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, centers, row_ptr, d2i, U, S,
+                                                tp0.irr_ranges),
+            what, records, (*pieces, sh, a, b, centers, row_ptr, tp0.irr_ranges),
+            2 * E * mlp + env_flops, {1: env_slack.double()}, tells_apart=True)
+        check_bf16_case(
+            "latent_env_bwd",
+            lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers, d2i, U, S,
+                                                  tp0.irr_ranges, bf)),
+            lambda: _flat(fused_tp.latent_env_bwd_reference(pieces, sh, a, b, t, g_lat, centers,
+                                                            d2i, U, S, bf)),
+            lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers, d2i, U, S,
+                                                  tp0.irr_ranges)),
+            what, records, (*pieces, sh, a, b, t, g_lat, centers, d2i),
+            4 * E * mlp + 2 * env_flops, {0: dsh_slack.double()}, tells_apart=True)
+    # kernels 9 and 10 at layer 0: out stored in bf16, g read in bf16
+    wk, idx, coef = (v.detach() for v in tp0.fused_infer_parts(torch.float32))
+    w2b, env = rand(E, n_irr * U), rand(n_atoms, tp0.d2 * U)
+    g, gts = rand(E, tp0.d3 * U, dtype=bf), rand(E, U)
+    paths = tp0.cg_paths()
+    what = f"{label} dims ({tp0.d1},{tp0.d2},{tp0.d3}) entries {idx.shape[0]}"
+    tp_flops = 3 * Er * idx.shape[0] * U
+    check_bf16_case(
+        "gather_tp_embed",
+        lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, row_ptr, idx, coef, specs,
+                                         tp0.d3, True, paths, bf),
+        lambda: fused_tp.gather_tp_embed_reference(sh, w2b, env, wk, centers, idx, coef, specs,
+                                                   tp0.d3, True, bf),
+        lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, row_ptr, idx, coef, specs,
+                                         tp0.d3, True, paths),
+        what, records, (sh, w2b, env, wk, row_ptr, *paths, specs), tp_flops + Er * tp0.d1 * U)
+    check_bf16_case(
+        "bwd_embed",
+        lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef, specs, gts,
+                                   paths),
+        lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx, coef,
+                                             specs, gts),
+        lambda: fused_tp.bwd_embed(sh, w2b, g.float(), env, wk, centers, row_ptr, idx, coef,
+                                   specs, gts, paths),
+        what, records, (sh, w2b, g, gts, env, wk, row_ptr, idx, coef, specs),
+        2 * tp_flops + 4 * Er * tp0.d1 * U)
+    # kernels 2 and 3 at layer 1 (the path's): x, out, g and dx in bf16
+    wk, idx, coef = (v.detach() for v in tp1.fused_infer_parts(torch.float32))
+    walk, swapped, scatter = tp1.infer_paths()
+    x, g = rand(E, tp1.d1 * U, dtype=bf), rand(E, tp1.d3 * U, dtype=bf)
+    what = f"{label} dims ({tp1.d1},{tp1.d2},{tp1.d3}) entries {idx.shape[0]}"
+    tp_flops = 3 * Er * idx.shape[0] * U
+    check_bf16_case(
+        "gather_tp",
+        lambda: (fused_tp.gather_tp(x, env, wk, centers, idx, coef, tp1.d3, paths=walk),),
+        lambda: (fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, tp1.d3),),
+        lambda: (fused_tp.gather_tp(x.float(), env, wk, centers, idx, coef, tp1.d3, paths=walk),),
+        what, records, (x, env, wk, centers, *walk), tp_flops)
+    check_bf16_case(
+        "bwd_fused",
+        lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, paths=swapped,
+                                   scatter_paths=scatter),
+        lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef),
+        lambda: fused_tp.bwd_fused(x.float(), g.float(), env, wk, centers, row_ptr, idx, coef,
+                                   paths=swapped, scatter_paths=scatter),
+        what, records, (x, g, env, wk, row_ptr, *swapped, *scatter), 2 * tp_flops)
+    # checks only: gather_tp with its split output and bwd_fused with gts at
+    # layer-0 dims (a deeper model's middle layers)
+    wk, idx, coef = (v.detach() for v in tp0.fused_infer_parts(torch.float32))
+    walk, swapped, scatter = tp0.infer_paths()
+    x, g = rand(E, tp0.d1 * U, dtype=bf), rand(E, tp0.d3 * U, dtype=bf)
+    check_bf16_case(
+        "gather_tp[split]",
+        lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, tp0.d3, True, walk),
+        lambda: fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, tp0.d3, True),
+        None, f"{label} layer-0 dims", records, (), 0, timed=False)
+    check_bf16_case(
+        "bwd_fused[gts]",
+        lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts,
+                                   paths=swapped, scatter_paths=scatter),
+        lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef, gts),
+        None, f"{label} layer-0 dims", records, (), 0, timed=False)
+
+
+def run_100k(dev, smi):
+    """Phase 8: the 97,336-atom crystal (native cell list) on the flagship's
+    mega path: (a) the f32 force call, (b) the JAX bench's 100k policy (bf16
+    track, "high", remat, checkpoint_energy), (c) remat and
+    checkpoint_energy in f32, (d) ``StreamedEvaluator`` at f32 with K = 8;
+    each with µs/atom (host clock), device busy (torch.profiler) and peak
+    memory, freed between them. Returns the launches of one force call of
+    each and of the streamed call (each kernel of the mega path at least
+    once)."""
+    from allegro_tpu_torch.data import batch_frames, keys, to_torch
+    from allegro_tpu_torch.data.neighborlist import NEIGHBOR_LISTS, reset_neighbor_list_counts
+    from allegro_tpu_torch.md.streaming import StreamedEvaluator
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    reset_neighbor_list_counts()
+    t0 = time.perf_counter()
+    frame, n_atoms = crystal_frame(BIG_ATOMS, R_MAX, SEED)
+    n_edges = frame[keys.EDGE_INDEX].shape[1]
+    lists = dict(NEIGHBOR_LISTS)
+    print(f"[8] crystal: {n_atoms} atoms, {n_edges} edges ({n_edges / n_atoms:.2f}/atom), "
+          f"list {lists} in {time.perf_counter() - t0:.1f} s; {smi}")
+    if lists.get("native", 0) != 1:
+        raise AssertionError(f"the 100k list did not come from the native cell list: {lists}")
+    batch_np = batch_frames([frame], n_frames=1)
+    kw = dict(**FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer")
+    f32 = AllegroModel(**kw).init(SEED).to(dev)
+    policies = {"f32": {}, "100k policy": POLICY_100K,
+                "remat f32": dict(remat=True, checkpoint_energy=True)}
+    t0 = time.perf_counter()
+    data = to_torch(f32.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+    print(f"    statics on the host and the batch on the card in {time.perf_counter() - t0:.1f} s")
+    launches, results = {}, {}
+    ref = None
+    for name, policy in policies.items():
+        model = AllegroModel(**kw, **policy).to(dev)
+        model.load_state_dict(f32.state_dict())
+        if model.routes() != FLAGSHIP_ROUTES:
+            raise AssertionError(f"{name}: routes {model.routes()}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**20
+        fused_tp.reset_launch_counts()
+        out = model.apply_with_derivatives(data)
+        torch.cuda.synchronize()
+        launches[name] = dict(fused_tp.LAUNCHES)
+        launches[name + " bf16"] = dict(fused_tp.BF16_LAUNCHES)
+        peak = peak_mib()
+        missing = [k for k in MEGA_PATH if launches[name][k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: the force call launched no {missing}")
+        # the track is bf16 in this call iff every launch of the six kernels
+        # that read or write it ran its bf16 form (gather_tp_embed stores
+        # layer 0's features, gather_tp reads and stores the later layers',
+        # bwd_fused and bwd_embed read their cotangents; 7 and 8 round the
+        # env weights), and none does in f32
+        bf16 = launches[name + " bf16"]
+        want = {k: launches[name][k] if policy.get("tensor_dtype") else 0 for k in bf16}
+        if bf16 != want:
+            raise AssertionError(f"{name}: bf16 form launches {bf16}, expected {want}")
+        for k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"{name}: non-finite {k}")
+        if out[keys.FORCES].shape != (batch_np[keys.POSITIONS].shape[0], 3):
+            raise AssertionError(f"{name}: forces shape {tuple(out[keys.FORCES].shape)}")
+        again = model.apply_with_derivatives(data)
+        if not bitwise_same(out, again):
+            raise AssertionError(f"{name}: two identical force calls differ")
+        del again
+        forces = out[keys.FORCES][:n_atoms]
+        line = (f"    {name}: launches per call { {k: c for k, c in launches[name].items() if c} }"
+                f", of them bf16 forms { {k: c for k, c in bf16.items() if c} }"
+                f"; two calls the same bits")
+        if ref is None:
+            ref = {k: out[k] for k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL,
+                                       keys.PER_ATOM_ENERGY)}
+        elif name == "100k policy":
+            # the reference allclose form: max(|f - f_ref| - REF_RTOL |f_ref|)
+            f_ref = ref[keys.FORCES][:n_atoms].double()
+            margin = ((forces.double() - f_ref).abs() - REF_RTOL * f_ref.abs()).max().item()
+            line += f"; forces vs f32: margin {margin:.3e} (<= {REF_ATOL})"
+            if not margin <= REF_ATOL:
+                raise AssertionError(f"the 100k policy's forces miss the reference allclose: "
+                                     f"margin {margin:.3e}")
+        else:
+            if not bitwise_same(out, ref):
+                raise AssertionError(f"{name}: not the same bits as the f32 call")
+            line += "; the same bits as the f32 call"
+        print(line)
+        del out
+        us = time_force_call(model, data, n_atoms, reps=BIG_REPS)
+        prof = profile_calls(lambda: model.apply_with_derivatives(data), 2, f"100k, {name}")
+        results[name] = dict(us_per_atom=us, peak_mib=peak, inputs_mib=base,
+                             busy_ms=None if prof is None else prof[0],
+                             idle_pct=None if prof is None else prof[1])
+        print(f"    {name}: {us:.3f} us/atom (host clock, {BIG_REPS} calls), peak "
+              f"{peak:.0f} MiB allocated ({base:.0f} MiB before the call), busy "
+              f"{results[name]['busy_ms']} ms per call ({n_atoms} atoms; {smi})")
+        del model
+    del data
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    ev = StreamedEvaluator(f32, batch_np, STREAM_CHUNKS, with_stress=True, device=dev)
+    print(f"[8d] streamed: {STREAM_CHUNKS} chunks of up to "
+          f"{ev.stacked[keys.EDGE_INDEX].shape[2]} edges and "
+          f"{ev.stacked[keys.ATOM_TYPES].shape[1]} atom rows, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pos = torch.as_tensor(batch_np[keys.POSITIONS], device=dev).float()
+    ev(pos)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_tp.reset_launch_counts()
+    e, f, v = ev(pos)
+    torch.cuda.synchronize()
+    launches["streamed"] = dict(fused_tp.LAUNCHES)
+    peak = peak_mib()
+    missing = [k for k in MEGA_PATH if launches["streamed"][k] == 0]
+    if missing:
+        raise AssertionError(f"streamed: the call launched no {missing}")
+    f_ref, v_ref = ref[keys.FORCES][:n_atoms].double(), ref[keys.VIRIAL][0].double()
+    df = (f[:n_atoms].double() - f_ref).abs()
+    dv = (v.double() - v_ref).abs()
+    f_ok = bool((df <= STREAM_F_TOL["atol"] + STREAM_F_TOL["rtol"] * f_ref.abs()).all())
+    v_ok = bool((dv <= STREAM_V_TOL["atol"] + STREAM_V_TOL["rtol"] * v_ref.abs()).all())
+    de = abs(e.item() - ref[keys.TOTAL_ENERGY].sum().item())
+    print(f"    streamed vs the f32 call: energy |dE| {de:.3e}, forces max |df| "
+          f"{df.max().item():.3e} ({'ok' if f_ok else 'FAIL'} at {STREAM_F_TOL}), virial max "
+          f"|dv| {dv.max().item():.3e} ({'ok' if v_ok else 'FAIL'} at {STREAM_V_TOL})")
+    if not (f_ok and v_ok):
+        raise AssertionError("the streamed evaluator disagrees with the monolithic call")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BIG_REPS):
+        ev(pos)
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / BIG_REPS / n_atoms * 1e6
+    prof = profile_calls(lambda: ev(pos), 2, "100k, streamed")
+    results["streamed"] = dict(us_per_atom=us, peak_mib=peak, inputs_mib=base,
+                               busy_ms=None if prof is None else prof[0],
+                               idle_pct=None if prof is None else prof[1])
+    print(f"    streamed: {us:.3f} us/atom (host clock, {BIG_REPS} calls), peak {peak:.0f} MiB "
+          f"allocated ({base:.0f} MiB before the call), busy {results['streamed']['busy_ms']} ms "
+          f"per call ({n_atoms} atoms; {smi})")
+    print("    100k: " + json.dumps({"atoms": n_atoms, "edges": n_edges, "card": smi,
+                                    "policies": results}))
+    del ev, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def big_system_phase(mega, data, rng, dev, smi):
+    """Phases 8 (``run_100k``) and 8e (``check_bf16_kernels`` on the
+    flagship ``mega`` model at the shapes of ``data``). Returns the kernels
+    line's rows of the bf16 forms."""
+    launches = run_100k(dev, smi)
+    print("[8e] the bf16 forms of kernels 2, 3, 7-10 at the flagship shapes")
+    records = {}
+    check_bf16_kernels(mega.module.allegro, data, rng, records)
+    return [bf16_record(n, name, records, launches) for n, name in BF16_KERNELS]
+
+
+def bf16_record(n, name, records, launches):
+    """The kernels line's row of kernel ``n``'s bf16 form (``name[bf16]``):
+    its times at the flagship shapes (phase 8e) and its launches in one
+    force call of the 100k policy (phase 8b; ``fused_tp.BF16_LAUNCHES``)."""
+    rec = records[name]
+    bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
+    replaces = next(r for k, _, r in TPU_KERNELS if k == n)
+    return {"name": f"{name}[bf16]", "route": "cuda", "source": SOURCES[name],
+            "replaces": replaces, "tpu_kernel": n, "launches": launches["100k policy bf16"][name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec["library_ms"],
+            "ms_f32_form": rec["ms_f32"], "max_ulps": rec["ulps"],
+            "not_same_bits": rec["differ"] / max(rec["outputs"], 1),
+            "ms_config": "bf16 form at the flagship shapes (4,096 atoms), one launch per layer",
+            "launches_config": "one force call of the 100k policy (97,336 atoms)"}
 
 
 def check_force_call(out, ref, n_atoms, n_rows):

@@ -10,7 +10,8 @@
   reads back (with the port's reader and JAX's).
 - The stages and options the port does not run (the ``compile`` and
   ``benchmark`` stages, optimizers, options and schedules it does not map,
-  precision policies) raise ``NotImplementedError`` naming their ROADMAP item; without a card the CLI raises unless
+  matrix-product precisions other than high and highest) raise ``NotImplementedError``
+  naming their ROADMAP item; without a card the CLI raises unless
   ``--device cpu`` is given.
 - ZBL against JAX's (energies, forces, virial at 1e-10, f64, with
   ``chemical_species`` names); ``sgdml_npz_dataset`` and extxyz write → read
@@ -135,7 +136,8 @@ def test_cli_md_on_pallas(tmp_path):
                                "accumulator_dtype": "bfloat16"}}},
     # exponential_decay and cosine_decay_schedule run; other schedules raise
     {"trainer": {"lr_scheduler": {"_target_": "optax.warmup_cosine_decay_schedule"}}},
-    {"global_options": {"allow_tf32": True}},
+    # allow_tf32 and matmul_precision high/highest run; other precisions raise
+    {"global_options": {"matmul_precision": "bfloat16"}},
 ], ids=["compile", "package", "benchmark", "sgd", "lr_scheduler", "allow_tf32"])
 def test_cli_unported_stages_and_options_raise(tmp_path, change):
     cfg = _jax_tiny_cfg()

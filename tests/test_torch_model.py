@@ -156,13 +156,16 @@ def test_unsorted_edges_raise(frames, avg_n):
 
 
 @pytest.mark.parametrize("override", [
-    {"tensor_dtype": "bfloat16"},
-    {"remat": True},
-    {"checkpoint_energy": True},
+    {"model_dtype": "bfloat16"},
+    {"tensor_dtype": "bfloat16", "tp_kernel_backend": "fused_infer", "use_mega": False},
+    {"tensor_dtype": "bfloat16", "tp_kernel_backend": "fused"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override, avg_n):
+    """What of ROADMAP item 6 is left raises, naming it: a bfloat16 model,
+    and the bf16 track off the mega route (use_mega=False, the trainable
+    backend)."""
     kw = {**_model_kwargs(avg_n, "float32"), **override}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         AllegroModel(**kw)
 
 
@@ -339,6 +342,7 @@ from allegro_tpu_torch.train import Trainer
 from allegro_tpu_torch.native import native_available
 from allegro_tpu_torch.train.package import load_package, save_package
 from allegro_tpu_torch.utils.profiling import profile_trace
+from allegro_tpu_torch.md.streaming import StreamedEvaluator
 import numpy as np
 
 rng = np.random.RandomState(0)
@@ -353,6 +357,8 @@ assert m.module.allegro.mega
 b = batch_frames([neighbor_list(frame, 4.0)])
 out = m.apply_with_derivatives(to_torch(m.precompute_statics(b), torch.float32))
 assert torch.isfinite(out[keys.FORCES]).all() and keys.EDGE_FEATURE_WEIGHTS in out
+e, f = StreamedEvaluator(m, b, n_chunks=2, device="cpu")(b[keys.POSITIONS])
+assert torch.isfinite(f).all() and torch.allclose(f, out[keys.FORCES], atol=1e-4)
 res = AllegroCalculator(m, device="cpu").calculate(
     frame[keys.POSITIONS], atomic_numbers=np.array([1, 6])[frame[keys.ATOM_TYPES]],
     cell=frame[keys.CELL], pbc=(True,) * 3)
