@@ -6,14 +6,17 @@
     python -m allegro_tpu_torch md    -c configs/md.yaml
 
     python -m allegro_tpu_torch package -c configs/tutorial.yaml -w <dir> [-o model.atpkg]
+    python -m allegro_tpu_torch compile -c configs/tutorial.yaml -w <dir> [-o model.pt2]
 
 The JAX package's config files run as they are: ``_target_`` names under
 ``allegro_tpu.`` build the port's builders and datasets, ``optax.adam``,
 ``optax.adamw`` and ``optax.sgd`` are ``torch.optim`` optimizers and
 ``optax.exponential_decay`` / ``optax.cosine_decay_schedule`` learning-rate
 schedules (``train/optim.py``), ``trainer.profile_dir`` traces training
-steps with ``torch.profiler``, and the ``package`` stage writes an
-``.atpkg`` (``train/package.py``). Everything runs on the CUDA card unless
+steps with ``torch.profiler``, the ``package`` stage writes an ``.atpkg``
+(``train/package.py``) and the ``compile`` stage an AOTInductor ``.pt2`` of
+the force call (``compile/export.py``, with the config's ``compile:``
+block). Everything runs on the CUDA card unless
 ``--device cpu`` is given; without a card the CLI raises.
 """
 
@@ -31,7 +34,6 @@ import numpy as np
 from .model.builders import _not_ported
 
 _NOT_PORTED = {
-    "compile": "queue 1, item 10 (deployment)",
     "benchmark": "queue 1, item 4 (the port bench)",
 }
 
@@ -184,7 +186,8 @@ def main(argv=None) -> int:
     p.add_argument("-w", "--workdir", default=None)
     p.add_argument("--ckpt", default=None)
     p.add_argument("-o", "--output", default=None,
-                   help="the package stage's archive (default model.atpkg in the workdir)")
+                   help="the package stage's archive (default model.atpkg in the workdir) or "
+                        "the compile stage's package (default model.pt2)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     args = p.parse_args(argv)
@@ -213,6 +216,10 @@ def main(argv=None) -> int:
             from .train.package import run_package
 
             run_package(config, workdir, args.ckpt, args.output or "model.atpkg")
+        elif stage == "compile":
+            from .compile import compile_model
+
+            compile_model(config, workdir, args.ckpt, args.output or "model.pt2", device)
         elif stage == "md":
             from .md.cli import run_md
 

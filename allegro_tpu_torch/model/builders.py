@@ -178,6 +178,26 @@ class FusedEdgeReadoutSum(torch.nn.Module):
         return self.reduce(out)
 
 
+def _row_ptr(sorted_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``csr_row_ptr`` in torch: the first position of each id in ``[0, n]``
+    (int32 [n+1]). Non-decreasing in the id on any input, so a kernel's
+    segments stay within the array even where the ids are not sorted."""
+    ids = torch.arange(n + 1, dtype=sorted_ids.dtype, device=sorted_ids.device)
+    return torch.searchsorted(sorted_ids.contiguous(), ids, out_int32=True)
+
+
+def _class_lookups(ct, nt, types, num_types: int, real_edge, real_atom) -> Dict:
+    """Each class lookup's (class per edge or atom, table rows, real mask),
+    from the center and neighbor types per edge and the types per atom
+    (numpy arrays or tensors alike)."""
+    return {
+        keys.CENTER_TYPE_LOOKUP: (ct, num_types, real_edge),
+        keys.NEIGHBOR_TYPE_LOOKUP: (nt, num_types, real_edge),
+        keys.EDGE_CLASS_LOOKUP: (ct * num_types + nt, num_types**2, real_edge),
+        keys.ATOM_TYPE_LOOKUP: (types, num_types, real_atom),
+    }
+
+
 def _as_numpy(v) -> np.ndarray:
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
@@ -276,12 +296,7 @@ class Model:
                 real_edge &= _as_numpy(data[keys.EDGE_MASK]).astype(bool)
             real_atom = (_as_numpy(data[keys.NODE_MASK]).astype(bool) if keys.NODE_MASK in data
                          else np.ones(n_atoms, dtype=bool))
-            classes = {  # lookup: (class per edge or atom, table rows, real)
-                keys.CENTER_TYPE_LOOKUP: (ct, num_types, real_edge),
-                keys.NEIGHBOR_TYPE_LOOKUP: (nt, num_types, real_edge),
-                keys.EDGE_CLASS_LOOKUP: (ct * num_types + nt, num_types**2, real_edge),
-                keys.ATOM_TYPE_LOOKUP: (types, num_types, real_atom),
-            }
+            classes = _class_lookups(ct, nt, types, num_types, real_edge, real_atom)
             for lookup in self.class_lookups:
                 cls, rows, real = classes[lookup]
                 idx = np.where(real, cls, rows).astype(np.int32)
@@ -292,6 +307,57 @@ class Model:
         for k, v in new.items():
             out[k] = torch.as_tensor(v, device=like.device) if isinstance(like, torch.Tensor) else v
         return out
+
+    def graph_statics(self, data: Dict) -> Tuple[Dict, torch.Tensor]:
+        """``precompute_statics`` in torch ops on the data's device, for a
+        force call traced into one program (``compile/export.py``), and
+        ``ok``, a 0-d bool tensor. JAX's rule for the in-jit statics
+        (``allegro_tpu/nn/allegro.py:286-305``): edges that ``EDGE_MASK``
+        masks are padding and get the sentinel atom ``n_atoms`` in both
+        rows of ``EDGE_INDEX`` (and so the sentinel class row); the real
+        edges must have ids within ``[0, n_atoms]`` and, on a kernel
+        backend, be sorted by center with the padding trailing. Where they
+        are not, ``ok`` is False (the caller poisons the energies with NaN)
+        and the ids are clamped so that every kernel reads within its
+        arrays. On a list within the rule the arrays equal
+        ``precompute_statics`` of the list with the sentinel rows, bit for
+        bit."""
+        ei = data[keys.EDGE_INDEX].long()
+        types = data[keys.ATOM_TYPES].long()
+        n_atoms = types.shape[0]
+        num_types = len(self.config["type_names"])
+        mask = data[keys.EDGE_MASK].bool() if keys.EDGE_MASK in data else \
+            torch.ones(ei.shape[1], dtype=torch.bool, device=ei.device)
+        ei = torch.where(mask[None], ei, n_atoms)
+        ok = ((ei >= 0) & (ei <= n_atoms)).all()
+        if self.on_kernels:
+            ok = ok & (ei[0, 1:] >= ei[0, :-1]).all()
+        ei = ei.clamp(0, n_atoms)
+        ct = types.index_select(0, ei[0].clamp(max=n_atoms - 1))
+        nt = types.index_select(0, ei[1].clamp(max=n_atoms - 1))
+        out = dict(data)
+        out[keys.EDGE_INDEX] = ei.to(torch.int32)
+        out[keys.EDGE_TYPE] = (ct * num_types + nt).to(torch.int32)
+        if not self.on_kernels:
+            return out, ok
+
+        def csr(ids, rows):
+            """(perm, row_ptr) of ``ids`` in ``[0, rows]``: ``neighbor_csr``."""
+            perm = torch.sort(ids, stable=True).indices
+            return perm.to(torch.int32), _row_ptr(ids.index_select(0, perm), rows)
+
+        out[keys.CENTER_ROW_PTR] = _row_ptr(ei[0], n_atoms)
+        out[keys.NBR_PERM], out[keys.NBR_ROW_PTR] = csr(ei[1], n_atoms)
+        real_edge = (ei[0] < n_atoms) & mask
+        real_atom = data[keys.NODE_MASK].bool() if keys.NODE_MASK in data else \
+            torch.ones(n_atoms, dtype=torch.bool, device=ei.device)
+        classes = _class_lookups(ct, nt, types, num_types, real_edge, real_atom)
+        for lookup in self.class_lookups:
+            cls, rows, real = classes[lookup]
+            idx = torch.where(real, cls, rows)
+            perm, row_ptr = csr(idx, rows)
+            out.update(zip(keys.class_csr_keys(lookup), (idx.to(torch.int32), row_ptr, perm)))
+        return out, ok
 
     @property
     def on_kernels(self) -> bool:

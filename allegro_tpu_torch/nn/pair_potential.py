@@ -18,7 +18,8 @@ the kernel backends and drops on ``einsum``) the edge → atom sum is the
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import functools
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +31,15 @@ from .cutoffs import PolynomialCutoff
 from .edge_geometry import with_edge_vectors
 
 _COULOMB_EV_ANG = 14.399645478425668  # e^2 / (4 pi eps0) in eV·Å
+
+
+@functools.lru_cache(maxsize=None)
+def _device_z(type_to_Z: Tuple[float, ...], dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """The atomic numbers by type on ``device``, uploaded once: an upload per
+    call would make the host wait for the device (and, inside a traced call,
+    be a host constant)."""
+    return torch.as_tensor(type_to_Z, dtype=dtype, device=device)
 
 
 class ZBLPairPotential:
@@ -47,7 +57,7 @@ class ZBLPairPotential:
         n_atoms = data[keys.POSITIONS].shape[0]
         ei = data[keys.EDGE_INDEX].long().clamp(0, n_atoms - 1)
         types = data[keys.ATOM_TYPES].long()
-        Z = torch.as_tensor(self.type_to_Z, dtype=r.dtype, device=r.device)
+        Z = _device_z(tuple(self.type_to_Z.tolist()), r.dtype, r.device)
         Zi = Z.index_select(0, types.index_select(0, ei[0]))
         Zj = Z.index_select(0, types.index_select(0, ei[1]))
         a = 0.46850 / (Zi**0.23 + Zj**0.23)

@@ -29,7 +29,9 @@
 
 On the inference Functions the weight gradients are NaN by design, so
 training parameters on the inference backend fails loudly instead of
-silently.
+silently. They reach their kernels through ``custom_ops``: the wrappers of
+``fused_tp`` eagerly, the ``atpt::`` ops inside ``custom_ops.tracing()``
+(the export of ``compile/export.py``).
 
 The bf16 tensor track (``tensor_dtype="bfloat16"``, the mega path only):
 ``mega_latent_env`` takes ``wexp_dtype`` (the env weights rounded to it
@@ -48,6 +50,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from . import custom_ops as kernels
 from . import fused_tp
 from .gen_cg_blocks import CgPaths
 
@@ -223,8 +226,8 @@ class _FusedLayerInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3,
                 paths, swapped_paths, scatter_paths):
-        env = fused_tp.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, w.shape[1])
-        out = fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, paths=paths)
+        env = kernels.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, w.shape[1])
+        out = kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, paths=paths)
         ctx.save_for_backward(x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef,
                               dim_to_irr)
         ctx.bwd_paths = (swapped_paths, scatter_paths)
@@ -236,11 +239,11 @@ class _FusedLayerInfer(torch.autograd.Function):
         x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef, dim_to_irr = (
             ctx.saved_tensors
         )
-        dx, denv = fused_tp.bwd_fused(
+        dx, denv = kernels.bwd_fused(
             x, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef,
             paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1],
         )
-        dsh, dwexp = fused_tp.unweight_both(denv, sh, wexp, centers, dim_to_irr)
+        dsh, dwexp = kernels.unweight_both(denv, sh, wexp, centers, dim_to_irr)
         dw = _nan_like(w, ctx.needs_input_grad[3])
         return dx, dsh, dwexp, dw, None, None, None, None, None, None, None, None, None
 
@@ -268,7 +271,7 @@ class _CenterGather(torch.autograd.Function):
     def forward(ctx, a, idx, row_ptr, perm, chunked):
         ctx.save_for_backward(idx, row_ptr, perm)
         ctx.chunked = chunked
-        return fused_tp.center_gather(a, idx)
+        return kernels.center_gather(a, idx)
 
     @staticmethod
     def backward(ctx, g):
@@ -282,7 +285,7 @@ class _CenterScatter(torch.autograd.Function):
     def forward(ctx, v, idx, row_ptr, perm, chunked):
         ctx.save_for_backward(idx, row_ptr, perm)
         ctx.chunked = chunked
-        return fused_tp.center_sum(v, row_ptr, perm, chunked)
+        return kernels.center_sum(v, row_ptr, perm, chunked)
 
     @staticmethod
     def backward(ctx, g):
@@ -330,13 +333,13 @@ class _ReadoutSumInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w0, w1, centers, row_ptr, *pieces):
         ctx.save_for_backward(w0, w1, centers, *pieces)
-        return fused_tp.readout_sum(pieces, w0, w1, row_ptr)
+        return kernels.readout_sum(pieces, w0, w1, row_ptr)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         w0, w1, centers, *pieces = ctx.saved_tensors
-        dpieces = fused_tp.readout_bwd(pieces, w0, w1, g.contiguous(), centers)
+        dpieces = kernels.readout_bwd(pieces, w0, w1, g.contiguous(), centers)
         nig = ctx.needs_input_grad
         return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), None, None, *dpieces)
 
@@ -353,8 +356,8 @@ class _MegaLatentEnv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S, wexp_dtype,
                 *pieces):
-        lat_s, env = fused_tp.latent_env_scatter(pieces, sh, w0, w1, centers, row_ptr,
-                                                 dim_to_irr, U, S, irr_ranges, wexp_dtype)
+        lat_s, env = kernels.latent_env_scatter(pieces, sh, w0, w1, centers, row_ptr,
+                                                dim_to_irr, U, S, irr_ranges, wexp_dtype)
         ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces)
         ctx.U, ctx.S, ctx.wexp_dtype = U, S, wexp_dtype
         return lat_s, env
@@ -363,7 +366,7 @@ class _MegaLatentEnv(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g_lat, g_env):
         w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces = ctx.saved_tensors
-        dsh, dpieces = fused_tp.latent_env_bwd(
+        dsh, dpieces = kernels.latent_env_bwd(
             pieces, sh, w0, w1, g_env.contiguous(), g_lat.contiguous(), centers, dim_to_irr,
             ctx.U, ctx.S, irr_ranges, ctx.wexp_dtype,
         )
@@ -393,15 +396,15 @@ class _GatherTpInfer(torch.autograd.Function):
                 swapped_paths, scatter_paths):
         ctx.save_for_backward(x, env, w, centers, row_ptr, entry_idx, entry_coef)
         ctx.bwd_paths = (swapped_paths, scatter_paths)
-        return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
+        return kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g, gts=None):
         x, env, w, centers, row_ptr, entry_idx, entry_coef = ctx.saved_tensors
-        dx, denv = fused_tp.bwd_fused(x, g.contiguous(), env, w, centers, row_ptr, entry_idx,
-                                      entry_coef, None if gts is None else gts.contiguous(),
-                                      paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1])
+        dx, denv = kernels.bwd_fused(x, g.contiguous(), env, w, centers, row_ptr, entry_idx,
+                                     entry_coef, None if gts is None else gts.contiguous(),
+                                     paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1])
         return (dx, denv, _nan_like(w, ctx.needs_input_grad[2]), None, None, None, None, None,
                 None, None, None, None)
 
@@ -427,14 +430,14 @@ class _GatherTpEmbedInfer(torch.autograd.Function):
                 split, paths, out_dtype):
         ctx.save_for_backward(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs)
         ctx.paths = paths
-        return fused_tp.gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
-                                        row_specs, d3, split, paths, out_dtype)
+        return kernels.gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,
+                                       row_specs, d3, split, paths, out_dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g, gts=None):
         sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs = ctx.saved_tensors
-        dsh, dw2b, denv = fused_tp.bwd_embed(
+        dsh, dw2b, denv = kernels.bwd_embed(
             sh, w2b, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef, row_specs,
             None if gts is None else gts.contiguous(), ctx.paths,
         )

@@ -104,11 +104,12 @@ def resolved_config_for(config: Dict, workdir: str) -> Dict:
     return resolve(config, stats=None)
 
 
-def run_package(config: Dict, workdir: str, ckpt: Optional[str], output: str) -> str:
-    """The CLI's ``package`` stage: the model of the resolved config with
-    the EMA parameters of the ``best`` checkpoint in ``ckpt`` (or
-    ``workdir``), else ``last``, else its initial parameters (``extra``
-    says which), written to ``output`` (relative to ``workdir``)."""
+def trained_model(config: Dict, workdir: str,
+                  ckpt: Optional[str]) -> Tuple[Dict, Any, Optional[str], Dict]:
+    """``(model_cfg, model, checkpoint, cfg)``: the model of the resolved
+    config with the EMA parameters of the ``best`` checkpoint in ``ckpt``
+    (or ``workdir``), else ``last``, else its initial parameters
+    (``checkpoint`` None), on the CPU."""
     from .checkpoint import load_checkpoint
     from .config import build_model
 
@@ -126,8 +127,22 @@ def run_package(config: Dict, workdir: str, ckpt: Optional[str], output: str) ->
         with torch.no_grad():
             for k, p in live.items():
                 p.copy_(ema[k])
+    return model_cfg, model, name, cfg
+
+
+def output_path(workdir: str, output: str) -> str:
+    """``output`` relative to ``workdir`` (unless absolute), its folder made."""
     path = output if os.path.isabs(output) else os.path.join(workdir, output)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    return path
+
+
+def run_package(config: Dict, workdir: str, ckpt: Optional[str], output: str) -> str:
+    """The CLI's ``package`` stage: ``trained_model``'s model written to
+    ``output`` (relative to ``workdir``); ``extra`` says which checkpoint
+    its parameters came from."""
+    model_cfg, model, name, _ = trained_model(config, workdir, ckpt)
+    path = output_path(workdir, output)
     save_package(path, model_cfg, model,
                  extra={"from_checkpoint": name is not None, "checkpoint": name})
     print(f"wrote package: {path}")

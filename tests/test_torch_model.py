@@ -396,6 +396,16 @@ with tempfile.TemporaryDirectory() as tmp:
     with profile_trace(tmp + "/trace"):
         again = back.apply_with_derivatives(to_torch(back.precompute_statics(b), torch.float32))
 assert torch.isfinite(again[keys.FORCES]).all() and native_available() in (True, False)
+from allegro_tpu_torch.compile import LoadedModel, export_program, ghost_atom_conversion
+g = ghost_atom_conversion(neighbor_list(frame, 4.0))
+g.pop("_ghost_owner")
+gb = batch_frames([g], n_frames=1)
+program, meta = export_program(m, n_atoms=gb[keys.POSITIONS].shape[0],
+                               n_edges=gb[keys.EDGE_INDEX].shape[1])
+exported = LoadedModel(program.module(), meta)(*(gb[k] for k in (
+    keys.POSITIONS, keys.EDGE_INDEX, keys.ATOM_TYPES, keys.NODE_MASK, keys.EDGE_MASK)))
+assert torch.isfinite(exported[keys.FORCES]).all()
+assert any(str(n.target).startswith("atpt.") for n in program.graph.nodes)
 sys.argv = ["allegro_tpu_torch", "--help"]
 try:
     runpy.run_module("allegro_tpu_torch", run_name="__main__")
