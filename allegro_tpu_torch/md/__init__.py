@@ -1,5 +1,6 @@
-"""Molecular dynamics with a port model (twin of ``allegro_tpu.md``, one
-device)."""
+"""Molecular dynamics with a port model (twin of ``allegro_tpu.md``): one
+device, or a mesh of devices run by one process (``edge_shard``, ``slab``,
+``brick``)."""
 
 from .simulation import (
     MDState,

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..data import keys
-from ..device import resolve_device
+from ..device import resolve_device, visible_cards
 from ..train import load_checkpoint
 from ..train.config import build_model, resolve
 from .simulation import MDState, Simulation, kinetic_energy
@@ -25,7 +25,11 @@ def run_md(config: Dict[str, Any], workdir: str, device=None) -> MDState:
     ``md.ckpt``, the EMA parameters of a port checkpoint. Writes
     ``md_log.json`` (per block: step, potential, kinetic and total energy)
     and, with ``dump_trajectory``, ``trajectory.extxyz`` into ``workdir``.
-    ``device``: None is the CUDA card (raises without one)."""
+    ``device``: None is the CUDA card (raises without one).
+
+    ``md.strategy`` (``edge_shard``, ``slab`` or ``brick``) and, for the
+    brick, ``md.mesh_shape`` ``[Dx, Dy, Dz]`` choose the devices as JAX's
+    CLI does (``md_mesh``)."""
     device = resolve_device(device)
     mcfg = dict(config.get("md", {}))
     cfg = resolve(config, stats=None)
@@ -53,6 +57,8 @@ def run_md(config: Dict[str, Any], workdir: str, device=None) -> MDState:
                 p.copy_(ema[k])
     model.to(device)
 
+    strategy = str(mcfg.get("strategy", "edge_shard"))
+    mesh, mesh_shape = md_mesh(strategy, mcfg.get("mesh_shape"), device)
     sim = Simulation(
         model,
         atom_types=types,
@@ -65,8 +71,9 @@ def run_md(config: Dict[str, Any], workdir: str, device=None) -> MDState:
         steps_per_block=int(mcfg.get("steps_per_block", 20)),
         langevin_gamma=mcfg.get("langevin_gamma"),
         langevin_kT=float(mcfg.get("langevin_kT", 0.0)),
-        strategy=str(mcfg.get("strategy", "edge_shard")),
-        device=device,
+        strategy=strategy,
+        mesh=mesh,
+        mesh_shape=mesh_shape,
     )
     st = MDState(pos, rng.randn(n_atoms, 3) * float(mcfg.get("v0", 0.05)))
     log, traj = [], []
@@ -96,3 +103,24 @@ def run_md(config: Dict[str, Any], workdir: str, device=None) -> MDState:
           f"({1e3 * seconds / max(st.step, 1):.3f} ms/step), {sim.rebuilds} neighbor rebuilds, "
           f"{sim.bucket_grows} bucket growths")
     return st
+
+
+def md_mesh(strategy: str, mesh_shape, device: torch.device):
+    """(mesh, mesh_shape) of the CLI's MD, as JAX's CLI builds its mesh:
+    ``edge_shard`` runs on ``device`` alone; ``slab`` on every device (every
+    visible card; on the CPU, the one CPU device); ``brick`` on
+    ``mesh_shape`` (default ``[every device, 1, 1]``), the first
+    ``prod(mesh_shape)`` cards, or on the CPU the CPU device for each entry
+    (the role of JAX's virtual host devices)."""
+    every = visible_cards() if device.type == "cuda" else [device]
+    if strategy == "slab":
+        return every, None
+    if strategy != "brick":
+        return [device], None
+    shape = tuple(int(s) for s in (mesh_shape or [len(every), 1, 1]))
+    n = int(np.prod(shape))
+    if device.type != "cuda":
+        return [device] * n, shape
+    if n > len(every):
+        raise ValueError(f"md.mesh_shape {list(shape)} needs {n} cards; {len(every)} visible")
+    return every[:n], shape

@@ -437,6 +437,17 @@ class Model:
                                         create_graph=create_graph,
                                         checkpoint_energy=self.checkpoint_energy)(data)
 
+    def energy_forces(self, data: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """MD's force call: the total energy (0-d) and ``-∂E/∂positions``,
+        both detached, with the parameters frozen for the forward and the
+        backward pass (a model with ``remat`` recomputes there), so no
+        weight-gradient kernel runs; no virial."""
+        with torch.enable_grad(), self.frozen_parameters(), self.matmul_policy():
+            pos = data[keys.POSITIONS].detach().requires_grad_(True)
+            energy = self.apply({**data, keys.POSITIONS: pos})[keys.TOTAL_ENERGY].sum()
+            (grad,) = torch.autograd.grad(energy, pos)
+        return energy.detach(), -grad
+
     def __call__(self, data: Dict) -> Dict:
         if self.has_derivatives:
             return self.apply_with_derivatives(data)

@@ -1,4 +1,4 @@
-"""The training loop on one device (twin of ``allegro_tpu/train/loop.py``).
+"""The training loop (twin of ``allegro_tpu/train/loop.py``).
 
 A step evaluates the energy and the forces with the graph of the forces
 kept (``Model.apply_with_derivatives(create_graph=True)``), takes the
@@ -12,8 +12,15 @@ the loader gets the model's statics on the host
 ``profile_dir`` the steps ``[profile_steps)`` are traced by
 ``torch.profiler`` into that directory (``utils.profiling.profile_trace``).
 
-One device only: data parallelism over several (the JAX loop's ``dp`` mesh
-axis) is ROADMAP.md queue 1, item 11 (DDP, with multi-device MD).
+Data parallelism (JAX's ``dp`` mesh axis) over a mesh of devices run by one
+process: a step takes one loader batch per mesh entry (the last group of an
+epoch filled with all-padding rows, ``_empty_like_batch``); the other
+devices' model copies take the first device's parameters (one copy per
+distinct device; rows on one device share it); each row's loss and its
+gradient are computed on its device; the gradient is the mean over rows,
+summed onto the first device in row order; one optimizer step and EMA
+update run there. The loss and its terms are the rows' means, as JAX's
+step computes them.
 """
 
 from __future__ import annotations
@@ -22,24 +29,33 @@ import contextlib
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data import keys, to_torch
-from ..device import resolve_device
+from ..device import replicate, resolve_mesh, visible_cards
 from ..model.builders import Model
 from ..utils.profiling import profile_trace
 from .checkpoint import save_checkpoint
 from .loss import EnergyForceLoss, EnergyForceMetrics
 
-_DDP = "ROADMAP.md queue 1, item 11 (DDP, with multi-device MD)"
-
 
 def shard_stack(batches: List[Dict]) -> Dict:
     """Stack per-device batches along a new leading device axis."""
     return {k: np.stack([np.asarray(b[k]) for b in batches], axis=0) for k in batches[0]}
+
+
+def _empty_like_batch(batch: Dict) -> Dict:
+    """An all-padding batch (fills the last device rows of an epoch)."""
+    out = {}
+    for k, v in batch.items():
+        if k in (keys.NODE_MASK, keys.EDGE_MASK, keys.FRAME_MASK, keys.NUM_NODES):
+            out[k] = np.zeros_like(v)
+        else:
+            out[k] = np.asarray(v)
+    return out
 
 
 @dataclasses.dataclass
@@ -70,8 +86,14 @@ class Trainer:
     ``[profile_steps[0], profile_steps[1])`` (counted from 0, as JAX's loop
     does) into it with ``torch.profiler``. ``ema_use_num_updates``: the EMA decay at update t
     is ``min(ema_decay, (1 + t) / (10 + t))``, so early averages follow the
-    parameters instead of staying near their initial values. ``device``:
-    None is the CUDA card; without one this raises unless ``device="cpu"``.
+    parameters instead of staying near their initial values.
+
+    ``mesh``: the devices of the data-parallel rows, in order (an entry may
+    repeat: ``["cpu"] * D`` on the CPU, ``[cuda:0] * D`` on one card);
+    ``device``: one device. Both None: every visible CUDA card, as JAX's
+    default mesh is every device (raises without a card unless
+    ``device="cpu"``). A ``torch.distributed`` world of several processes
+    raises: the port runs one process over a mesh, as JAX does.
     """
 
     def __init__(
@@ -89,14 +111,22 @@ class Trainer:
         lr_scheduler: Optional[Callable[[torch.optim.Optimizer], Any]] = None,
         profile_dir: Optional[str] = None,
         profile_steps: Tuple[int, int] = (5, 10),
+        mesh: Optional[Sequence] = None,
     ):
-        if isinstance(device, (list, tuple)):
-            raise NotImplementedError(f"training on several devices is not ported yet ({_DDP})")
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(f"data-parallel training is not ported yet ({_DDP})")
-        self.device = resolve_device(device)
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                f"a torch.distributed world of {dist.get_world_size()} processes: "
+                "allegro_tpu_torch trains in one process over a mesh of devices, as JAX does "
+                "(Trainer(mesh=[...]))"
+            )
+        if mesh is None and device is None:
+            mesh = visible_cards()
+        self.mesh = resolve_mesh(mesh, device)
+        self.n_dev = len(self.mesh)
+        self.device = self.mesh[0]
         self.model = model
+        self._models = {self.device: model}  # one model per distinct device (init_state)
         self.optimizer = optimizer or functools.partial(torch.optim.Adam, lr=learning_rate)
         self.loss = loss or EnergyForceLoss()
         self.metrics = metrics or EnergyForceMetrics()
@@ -110,11 +140,13 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
-        """Moves the model to the device and starts a state from its
-        parameters (first drawn anew from ``seed``, if given)."""
+        """Moves the model to the first device of the mesh (a copy to each
+        other distinct device) and starts a state from its parameters (first
+        drawn anew from ``seed``, if given)."""
         if seed is not None:
             self.model.init(seed)
         self.model.to(self.device)
+        self._models = replicate(self.model, self.mesh)
         params = self.model.parameters()
         opt = self.optimizer(list(params.values()))
         return TrainState(
@@ -125,24 +157,71 @@ class Trainer:
             lr_scheduler=None if self.lr_scheduler is None else self.lr_scheduler(opt),
         )
 
-    def to_device(self, batch: Dict) -> Dict:
-        """A loader batch (NumPy) with the model's statics, on the device."""
+    def to_device(self, batch: Dict, device=None) -> Dict:
+        """A loader batch (NumPy) with the model's statics, on ``device``
+        (default: the first of the mesh)."""
         return to_torch(self.model.precompute_statics(batch), dtype=self.model.model_dtype,
-                        device=self.device)
+                        device=self.device if device is None else device)
 
-    def loss_and_grads(self, state: TrainState, data: Dict):
-        """(loss, loss terms, gradients by parameter name) on one batch,
-        under the model's matrix-product policy (``Model.matmul_policy``)."""
-        with self.model.matmul_policy():
-            out = self.model.apply_with_derivatives(data, create_graph=True)
-            loss, terms = self.loss(out, data)
-            grads = torch.autograd.grad(loss, list(state.params.values()), allow_unused=True,
+    def _device_batches(self, loader_iter) -> Iterable[List[Dict]]:
+        """Groups of ``n_dev`` loader batches, one per mesh entry, each on
+        its device; the last group is filled with all-padding rows."""
+        group: List[Dict] = []
+        for b in loader_iter:
+            group.append(b)
+            if len(group) == self.n_dev:
+                yield [self.to_device(b, dev) for b, dev in zip(group, self.mesh)]
+                group = []
+        if group:
+            filler = _empty_like_batch(group[0])
+            group += [filler] * (self.n_dev - len(group))
+            yield [self.to_device(b, dev) for b, dev in zip(group, self.mesh)]
+
+    def _sync_replicas(self) -> None:
+        """The first device's parameters copied to the other devices' models."""
+        live = self.model.parameters()
+        with torch.no_grad():
+            for model in self._models.values():
+                if model is not self.model:
+                    for k, p in model.parameters().items():
+                        p.copy_(live[k])
+
+    def loss_and_grads(self, state: TrainState, data):
+        """(loss, loss terms, gradients by parameter name) on one batch, or
+        on a list of rows, one per mesh entry: each row's on its device,
+        under the model's matrix-product policy (``Model.matmul_policy``);
+        then the means over the rows, summed on the first device in row
+        order."""
+        rows = [data] if isinstance(data, dict) else list(data)
+        if len(rows) != (1 if isinstance(data, dict) else self.n_dev):
+            raise ValueError(f"{len(rows)} rows for a mesh of {self.n_dev} devices")
+        self._sync_replicas()
+        first = self.device
+        total = terms = grads = None
+        for row, device in zip(rows, self.mesh):
+            model = self._models[device]
+            params = state.params if model is self.model else model.parameters()
+            with model.matmul_policy():
+                out = model.apply_with_derivatives(row, create_graph=True)
+                loss, t = self.loss(out, row)
+                g = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                         materialize_grads=True)
-        return loss.detach(), {k: v.detach() for k, v in terms.items()}, dict(zip(state.params,
-                                                                                grads))
+            loss, t = loss.detach().to(first), {k: v.detach().to(first) for k, v in t.items()}
+            if grads is None:
+                total, terms, grads = loss, t, list(g)
+            else:
+                total = total + loss
+                terms = {k: v + t[k] for k, v in terms.items()}
+                grads = [a + b.to(first) for a, b in zip(grads, g)]
+        if len(rows) > 1:
+            n = len(rows)
+            total, terms = total / n, {k: v / n for k, v in terms.items()}
+            grads = [g / n for g in grads]
+        return total, terms, dict(zip(state.params, grads))
 
-    def train_step(self, state: TrainState, data: Dict):
-        """One optimizer and EMA update on one device batch; returns (loss, terms)."""
+    def train_step(self, state: TrainState, data):
+        """One optimizer and EMA update on one device batch, or on a list
+        of rows, one per mesh entry; returns (loss, terms)."""
         loss, terms, grads = self.loss_and_grads(state, data)
         for k, p in state.params.items():
             p.grad = grads[k]
@@ -168,11 +247,10 @@ class Trainer:
             for epoch in range(max_epochs):
                 t0 = time.time()
                 losses = []
-                for batch in train_loader:
-                    data = self.to_device(batch)
+                for rows in self._device_batches(iter(train_loader)):
                     if self.profile_dir and state.step == self.profile_steps[0]:
                         trace.enter_context(profile_trace(self.profile_dir))
-                    loss, terms = self.train_step(state, data)
+                    loss, terms = self.train_step(state, rows)
                     if self.profile_dir and state.step == self.profile_steps[1]:
                         trace.close()
                     losses.append(float(loss))
@@ -198,19 +276,25 @@ class Trainer:
     def evaluate(self, params: Dict[str, torch.Tensor], loader) -> Dict[str, float]:
         """The metrics of the model with ``params`` (e.g. the EMA ones) over
         the loader, energies averaged over real frames and forces over real
-        atoms; the model's own parameters are restored afterwards."""
+        atoms (each row weighted by its real frames and atoms, the rows that
+        fill the last group by none); the models' own parameters are
+        restored afterwards."""
         acc: Dict[str, float] = {}
         tot_frames = tot_nodes = 0.0
-        with _loaded(self.model, params):
-            for batch in loader:
-                data = self.to_device(batch)
-                m = self.metrics(self.model.apply_with_derivatives(data), data)
-                nf = float(data[keys.FRAME_MASK].sum())
-                nn = float(data[keys.NODE_MASK].sum())
-                for k, v in m.items():
-                    acc[k] = acc.get(k, 0.0) + float(v) * (nn if k.startswith("forces") else nf)
-                tot_frames += nf
-                tot_nodes += nn
+        with contextlib.ExitStack() as loaded:
+            for model in self._models.values():
+                loaded.enter_context(_loaded(model, params))
+            for rows in self._device_batches(iter(loader)):
+                for data, device in zip(rows, self.mesh):
+                    model = self._models[device]
+                    m = self.metrics(model.apply_with_derivatives(data), data)
+                    nf = float(data[keys.FRAME_MASK].sum())
+                    nn = float(data[keys.NODE_MASK].sum())
+                    for k, v in m.items():
+                        acc[k] = acc.get(k, 0.0) + float(v) * (nn if k.startswith("forces")
+                                                               else nf)
+                    tot_frames += nf
+                    tot_nodes += nn
         return {k: v / max(tot_nodes if k.startswith("forces") else tot_frames, 1.0)
                 for k, v in acc.items()}
 

@@ -216,6 +216,24 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    (d) ``python -m allegro_tpu_torch compile`` on phase 6d's tutorial
    workdir (started with (c)'s build), its ``.pt2`` loaded and called once
    against the eager model of the same checkpoint.
+10. multi-device (``parallel_phase``; ``python3 scripts/torch_parallel.py``
+   runs it alone), every mesh ``[cuda:0] * D`` on this one card: (a) slab
+   at D = 2 and 4, brick at (2, 2, 1) and (2, 2, 2) on the 4,096-atom
+   crystal (``parallel.SlabDecomposition`` / ``BrickDecomposition``: halo
+   exchange, the mega force call per domain, ghost forces sent back in a
+   fixed order) against the undecomposed force call (``Model.energy_forces``
+   on the same list): energy within 1e-5 of sum |E_i| (the crystal's total
+   is a near-cancellation, so its own relative error is printed beside),
+   forces within 5e-5 of max|F|, two calls the same bits, each kernel's launches D times the
+   undecomposed call's, ms per call beside it in turns; (b) ``edge_shard``
+   over ``[cuda:0] * 2`` against one device (energy, forces, launches 2x);
+   (c) 20 NVE steps (2 blocks) with ``slab`` (D = 2) and ``brick`` (2, 2,
+   1) against one-device ``edge_shard``: positions within 1e-4 A, launches
+   per block D x 11 x the call's, ms per step; (d) ``Trainer(mesh=[cuda:0,
+   cuda:0])`` on ``fused`` over two 1k-atom crystals (phase 5's seeds 200
+   and 201), one per row: its mean gradient equal to the mean of the two
+   one-row gradients bit for bit, twice; launches 2x a one-row step's; ms
+   per step.
 
 The run prints its total seconds (``[done]``). The last two lines of stdout
 are a JSON object with the kernels' records and the JSON result ``{"ok":
@@ -240,7 +258,9 @@ FLOPs at 67 TFLOP/s f32, the larger; ``bound_by`` says which),
 where there is one (the center gather and sum, ``sparse_tp*``), else null,
 ``ptxas`` the registers and spill bytes of each of its entry functions
 (``-Xptxas -v`` of this run's build).
-Every configuration and entry point has its own ``launches_*`` key; the
+Every configuration and entry point has its own ``launches_*`` key (phase
+10's runs ``launches_parallel_*``: each decomposed call, the edge_shard
+call, both MD runs' 20 steps, the data-parallel step); the
 ``*_lmax3`` keys are the same kernel's record at the l_max-3 layer-0 shapes;
 variants (``[split]``, ``[gts]``, ``[swapped]``, ``[dw]``, ``[trio]``, ``[pair]``; the
 center gather's and sum's other widths, ``[C1]``, ``[C288]``, ``[C256]``,
@@ -2624,12 +2644,16 @@ def main() -> int:
     pt2_launches = deploy_phase(mega, dev, smi, str(Path(cli_dir.name) / "tutorial"), stamp)
     cli_dir.cleanup()
 
+    stamp("10")
+    # phase 10: multi-device MD and data-parallel training on meshes of this card
+    parallel = parallel_phase(mega, dev, smi, stamp)
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(f"launch floor {floor_ms:.4f} ms (an empty kernel under median_ms, phase 2)")
     runs = dict(launches=launches, md=md_launches, calculator=calc_launches, train=train_launches,
                 pallas_train=pallas_train, cli=cli, lmax3=l3_launches, lmax3_md=l3_md,
-                lmax3_calculator=l3_calc, ptxas=usage, pt2=pt2_launches)
+                lmax3_calculator=l3_calc, ptxas=usage, pt2=pt2_launches, parallel=parallel)
     print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
                                   for row in TPU_KERNELS]
                       + bf16_rows}))
@@ -2722,6 +2746,8 @@ def kernel_record(row, records, records_l3, runs):
     for run in ("md", "calculator", "lmax3_md", "lmax3_calculator"):
         out["launches_" + run] = runs[run][name]
     out["launches_pt2_call"] = runs["pt2"].get(name, 0)
+    for run, counts in runs["parallel"].items():
+        out[f"launches_parallel_{run}"] = counts.get(name, 0)
     for batch, counts in runs["train"].items():
         out[f"launches_train_{batch}"] = counts[name]
     for batch, counts in runs["pallas_train"].items():
@@ -3702,6 +3728,258 @@ def deploy_phase(mega, dev, smi, tutorial_dir, stamp):
                 proc.wait()
         work_dir.cleanup()
     return launches
+
+
+# phase 10: multi-device MD and data-parallel training, every mesh on this
+# one card ([cuda:0] * D): the decompositions' force calls held to the
+# undecomposed call, edge_shard over 2, MD on slab and brick, the Trainer
+# over two rows
+PARALLEL_CASES = (("slab", (2,)), ("slab", (4,)), ("brick", (2, 2, 1)), ("brick", (2, 2, 2)))
+# energy, relative to sum |E_i|: the crystal's total (shifts 0, random
+# weights) is a near-cancellation of per-atom energies of either sign, so
+# float32 sums in another order move it far more than 1e-5 of itself
+PARALLEL_E_TOL = 1e-5
+PARALLEL_F_TOL = 5e-5  # forces, of max |F| (BASELINE's float32 model tolerance)
+PARALLEL_TIMING_REPS = 5
+PARALLEL_MD_STEPS = 20  # 2 blocks of MD_STEPS_PER_BLOCK
+DP_SEEDS = TRAIN_SEEDS[:2]  # phase 5's 1k-atom crystals, one per row
+DP_STEPS = 3
+
+
+def _plain_force_data(model, frame, dev):
+    """The frame as MD's force call takes it (no batch axis, edges sorted by
+    center, the model's statics), on ``dev``."""
+    from allegro_tpu_torch.data import keys, to_torch
+
+    ei = frame[keys.EDGE_INDEX]
+    order = np.argsort(ei[0], kind="stable")
+    data = {keys.ATOM_TYPES: frame[keys.ATOM_TYPES], keys.EDGE_INDEX: ei[:, order],
+            keys.EDGE_CELL_SHIFT: frame[keys.EDGE_CELL_SHIFT][order],
+            keys.EDGE_MASK: np.ones(ei.shape[1], bool), keys.CELL: frame[keys.CELL][None],
+            keys.PBC: frame[keys.PBC][None]}
+    data = to_torch(model.precompute_statics(data), dtype=torch.float32, device=dev)
+    data[keys.POSITIONS] = torch.as_tensor(frame[keys.POSITIONS], dtype=torch.float32,
+                                           device=dev)
+    return data
+
+
+def _launches_of(fn):
+    """The kernels' launches in one call of ``fn`` (counts set to 0 just
+    before it and read just after) and its result."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    fused_tp.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return dict(fused_tp.LAUNCHES), out
+
+
+def _check_launches(label, got, per_unit, units):
+    want = {k: units * n for k, n in per_unit.items()}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {units} x {per_unit}")
+    if not any(got.values()):
+        raise AssertionError(f"{label}: no kernel launched")
+
+
+def _host_ms(fn, reps=PARALLEL_TIMING_REPS):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _force_error(e, f, ref, label):
+    """The energy error over sum |E_i| (and, printed, over |E|) and the force
+    error over max |F| against ``ref`` (energy, forces, sum |E_i|); raises
+    beyond PARALLEL_E_TOL / PARALLEL_F_TOL."""
+    e_ref, f_ref, scale = ref
+    diff = abs(float(e) - float(e_ref))
+    de = diff / scale
+    f = torch.as_tensor(f, dtype=torch.float64).cpu()
+    f_ref = torch.as_tensor(f_ref, dtype=torch.float64).cpu()
+    df = float((f - f_ref).abs().max() / f_ref.abs().max())
+    print(f"    {label}: energy {float(e):.6f} vs {float(e_ref):.6f} ({de:.3e} of sum|E_i| "
+          f"{scale:.4f}; {diff / max(abs(float(e_ref)), 1e-30):.3e} of |E|), forces {df:.3e} "
+          f"of max|F|")
+    if not (de < PARALLEL_E_TOL and df < PARALLEL_F_TOL):
+        raise AssertionError(f"{label}: energy {de:.3e} of sum|E_i| (< {PARALLEL_E_TOL}), "
+                             f"forces {df:.3e} of max|F| (< {PARALLEL_F_TOL})")
+    return de, df
+
+
+def check_decomposed_calls(mega, frame, n_atoms, dev, smi):
+    """10a: slab at D = 2 and 4, brick at (2, 2, 1) and (2, 2, 2), all on
+    ``[dev] * D``, against the undecomposed force call: energy, forces, the
+    same bits twice, launches D x the undecomposed call's, ms per call in
+    turns. Returns the launches of each case's call."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.parallel import BrickDecomposition, SlabDecomposition
+    from allegro_tpu_torch.parallel.accounting import decomposition_accounting
+
+    pos, types = frame[keys.POSITIONS], frame[keys.ATOM_TYPES]
+    cell, pbc = frame[keys.CELL], frame[keys.PBC]
+    data = _plain_force_data(mega, frame, dev)
+    ref_launches, (e_ref, f_ref) = _launches_of(lambda: mega.energy_forces(data))
+    if ref_launches != PER_CALL["mega"]:
+        raise AssertionError(f"10a: the undecomposed call launched {ref_launches}, not "
+                             f"{PER_CALL['mega']}")
+    scale = float(mega.apply(data, frozen=True)[keys.PER_ATOM_ENERGY].abs().sum())
+    ref = (e_ref, f_ref[:n_atoms], scale)
+    out = {}
+    for kind, shape in PARALLEL_CASES:
+        D = int(np.prod(shape))
+        t0 = time.perf_counter()
+        if kind == "slab":
+            dd = SlabDecomposition(pos, types, cell, pbc, R_MAX, [dev] * D)
+        else:
+            dd = BrickDecomposition(pos, types, cell, pbc, R_MAX, [dev] * D, mesh_shape=shape)
+        fn = dd.make_energy_forces_fn(mega)
+        local = [torch.as_tensor(x, device=dev) for x in dd.scatter_positions(pos)]
+        build_s = time.perf_counter() - t0
+        label = f"{kind} {'x'.join(map(str, shape))}"
+        launches, (e, f_local) = _launches_of(lambda: fn(local))
+        _check_launches(f"10a {label}", launches, ref_launches, D)
+        _force_error(e, dd.gather_forces(f_local), ref, f"10a {label}")
+        e2, f2 = fn(local)
+        if not (torch.equal(e, e2) and all(torch.equal(a, b) for a, b in zip(f_local, f2))):
+            raise AssertionError(f"10a {label}: two identical calls differ")
+        plain = [_host_ms(lambda: mega.energy_forces(data))]
+        split = [_host_ms(lambda: fn(local))]
+        split.append(_host_ms(lambda: fn(local)))
+        plain.append(_host_ms(lambda: mega.energy_forces(data)))
+        acct = decomposition_accounting(dd)
+        print(f"[10a] {label}: {D} domains, No {dd.No}, L {dd.L}, El {dd.El}, ghost fraction "
+              f"{acct['ghost_fraction']:.4f}, halo {acct['halo_bytes_per_device_step']} B per "
+              f"domain per call; same bits twice; launches {D} x the undecomposed call's; "
+              f"host build {build_s:.2f} s")
+        print(f"    ms per call (host clock, in turns undecomposed/decomposed/decomposed/"
+              f"undecomposed): {plain[0]:.3f} {split[0]:.3f} {split[1]:.3f} {plain[1]:.3f} "
+              f"({n_atoms} atoms, f32, {D} domains on one card; {smi})")
+        out[f"{kind}{''.join(map(str, shape))}"] = launches
+    return ref_launches, ref, out
+
+
+def check_edge_shard(mega, frame, n_atoms, dev, ref_launches, ref, smi):
+    """10b: edge_shard over ``[dev] * 2`` against one device: energy and
+    forces, launches 2 x the one-device call's."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.md import Simulation
+
+    kw = dict(atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL], pbc=frame[keys.PBC],
+              **{**MD, "skin": 0.0})
+    one = Simulation(mega, device=dev, **kw)
+    two = Simulation(mega, mesh=[dev, dev], **kw)
+    pos = one._wrap(frame[keys.POSITIONS])
+    x = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    for sim in (one, two):
+        sim._rebuild(pos)
+    _, (e1, f1) = _launches_of(lambda: one._energy_forces(x))
+    launches, (e2, f2) = _launches_of(lambda: two._energy_forces(x))
+    _check_launches("10b edge_shard x2", launches, ref_launches, 2)
+    _force_error(e2, f2, (e1, f1, ref[2]), "10b edge_shard x2 vs one device")
+    _force_error(e1, f1, ref, "10b edge_shard x1 vs 10a's call")
+    ms = (_host_ms(lambda: one._energy_forces(x)), _host_ms(lambda: two._energy_forces(x)))
+    print(f"[10b] edge_shard: shards of {[int(s[keys.EDGE_MASK].sum()) for s in two._shards]} "
+          f"edges (whole centers); ms per call one device {ms[0]:.3f}, two shards {ms[1]:.3f} "
+          f"(f32; {smi})")
+    return launches
+
+
+def run_parallel_md(mega, frame, n_atoms, dev, ref_launches, smi):
+    """10c: PARALLEL_MD_STEPS steps of NVE with slab (D = 2) and brick
+    (2, 2, 1) on ``[dev] * D`` against one-device edge_shard: positions
+    within MD_TOL, launches per block D x (steps + 1) x the call's, ms per
+    step."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.md import MDState, Simulation, maxwell_boltzmann_velocities
+
+    kw = dict(atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL], pbc=frame[keys.PBC],
+              **MD)
+    ref = Simulation(mega, device=dev, **kw)
+    vel0 = maxwell_boltzmann_velocities(ref.masses_per_atom, MD_KT, seed=SEED)
+    start = MDState(frame[keys.POSITIONS], vel0)
+    t0 = time.perf_counter()
+    want = ref.run(start, PARALLEL_MD_STEPS)
+    ref_ms = 1e3 * (time.perf_counter() - t0) / PARALLEL_MD_STEPS
+    out = {}
+    per_block = MD_STEPS_PER_BLOCK + 1
+    for strategy, shape in (("slab", (2,)), ("brick", (2, 2, 1))):
+        D = int(np.prod(shape))
+        sim = Simulation(mega, mesh=[dev] * D, strategy=strategy,
+                         mesh_shape=shape if strategy == "brick" else None, **kw)
+        state, total = start, {}
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_MD_STEPS // MD_STEPS_PER_BLOCK):
+            launches, state = _launches_of(lambda: sim.run(state, MD_STEPS_PER_BLOCK))
+            _check_launches(f"10c {strategy} block", launches, ref_launches, D * per_block)
+            total = {k: total.get(k, 0) + n for k, n in launches.items()}
+        ms = 1e3 * (time.perf_counter() - t0) / PARALLEL_MD_STEPS
+        dpos = float(np.abs(state.positions - want.positions).max())
+        print(f"[10c] MD {strategy} {'x'.join(map(str, shape))}: {PARALLEL_MD_STEPS} steps, "
+              f"{sim.rebuilds} decompositions, max |dpos| vs one-device edge_shard {dpos:.3e} A "
+              f"(< {MD_TOL}); {ms:.3f} ms/step against edge_shard's {ref_ms:.3f} (host clock, "
+              f"decompositions included; {smi})")
+        if not (dpos < MD_TOL and np.isfinite(state.positions).all()):
+            raise AssertionError(f"10c {strategy}: positions {dpos:.3e} A from edge_shard")
+        out[f"md_{strategy}"] = total
+    return out
+
+
+def run_data_parallel(dev, smi):
+    """10d: ``Trainer(mesh=[dev, dev])`` on ``fused`` over two 1k-atom
+    crystals, one per row: the step's mean gradient equals the mean of the
+    two one-row gradients to the bits, twice; launches 2 x a one-row step's;
+    ms per step."""
+    from allegro_tpu_torch.data import DataLoader, InMemoryDataset, keys
+    from allegro_tpu_torch.train import Trainer
+
+    frames = []
+    for seed in DP_SEEDS:
+        frame, _ = crystal_frame(TRAIN_ATOMS, R_MAX, seed)
+        frames.append({**frame, keys.TOTAL_ENERGY: np.zeros(1),
+                       keys.FORCES: np.zeros_like(frame[keys.POSITIONS])})
+    batches = list(DataLoader(InMemoryDataset(frames, R_MAX), batch_size=1))
+    one_model, _ = train_models(batches[0])
+    two_model, _ = train_models(batches[0])
+    one = make_trainer(one_model, dev)
+    two = Trainer(two_model, learning_rate=1e-3, ema_decay=0.999, mesh=[dev, dev],
+                  logger=lambda s: None)
+    s1, s2 = one.init_state(), two.init_state()
+    rows = [one.to_device(b) for b in batches]
+    row_launches, (_, _, g0) = _launches_of(lambda: one.loss_and_grads(s1, rows[0]))
+    _, _, g1 = one.loss_and_grads(s1, rows[1])
+    launches, (_, _, g) = _launches_of(lambda: two.loss_and_grads(s2, rows))
+    _check_launches("10d two rows", launches, row_launches, 2)
+    _, _, again = two.loss_and_grads(s2, rows)
+    for k in g:
+        if not torch.equal(g[k], (g0[k] + g1[k]) / 2):
+            raise AssertionError(f"10d: {k}'s mean gradient is not the rows' mean")
+        if not torch.equal(g[k], again[k]):
+            raise AssertionError(f"10d: {k}'s gradient differs between two identical steps")
+    one_ms = _host_ms(lambda: one.train_step(s1, rows[0]), DP_STEPS)
+    two_ms = _host_ms(lambda: two.train_step(s2, rows), DP_STEPS)
+    print(f"[10d] data-parallel step on fused, 2 rows of {TRAIN_ATOMS} atoms on one card: mean "
+          f"gradient = the rows' mean, same bits twice; launches 2 x a one-row step's; "
+          f"{two_ms:.3f} ms/step against one row's {one_ms:.3f} (host clock; {smi})")
+    return {"dp_step": launches}
+
+
+def parallel_phase(mega, dev, smi, stamp):
+    """Phase 10 (10a-10d); returns the launches of each run, by name."""
+    frame, n_atoms = crystal_frame(N_ATOMS, R_MAX, SEED)
+    stamp("10a")
+    ref_launches, ref, runs = check_decomposed_calls(mega, frame, n_atoms, dev, smi)
+    stamp("10b")
+    runs["edge_shard2"] = check_edge_shard(mega, frame, n_atoms, dev, ref_launches, ref, smi)
+    stamp("10c")
+    runs.update(run_parallel_md(mega, frame, n_atoms, dev, ref_launches, smi))
+    stamp("10d")
+    runs.update(run_data_parallel(dev, smi))
+    return runs
 
 
 if __name__ == "__main__":

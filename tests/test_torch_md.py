@@ -7,7 +7,8 @@ one-layer model runs kernels 7-10 there, without the split output)
 against JAX's ``Simulation`` on the ``einsum`` backend with the same
 parameters, positions and velocities, through neighbor rebuilds; NVE energy
 conservation and the Langevin equipartition band to the JAX tests' bounds;
-the multi-device strategies raise.
+the multi-device strategies on this box give the one-device trajectory
+(``tests/test_torch_md_parallel.py`` holds them to JAX on larger boxes).
 """
 
 import numpy as np
@@ -120,7 +121,17 @@ def test_langevin_heats_system(jax_params):
     {"strategy": "slab"}, {"strategy": "brick"},
     {"mesh": [torch.device("cpu"), torch.device("cpu")]},
 ], ids=["slab", "brick", "mesh2"])
-def test_multi_device_strategies_raise(jax_params, kw):
-    pos, types, cell, _ = _system()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 11"):
-        _port_sim(_port_model(jax_params, "einsum"), types, cell, **kw)
+def test_multi_device_strategies_match_one_device(jax_params, kw):
+    """A slab and a brick of one domain (the box is too small for two) and
+    edge_shard over a mesh of two devices: the one-device trajectory."""
+    pos, types, cell, rng = _system()
+    v0 = rng.randn(len(pos), 3) * 0.05
+    want = _port_sim(_port_model(jax_params, "fused_infer"), types, cell).run(
+        MDState(pos.copy(), v0.copy()), 20)
+    model = _port_model(jax_params, "fused_infer")
+    sim = Simulation(model, atom_types=types, cell=cell, dtype=torch.float64,
+                     **{"device": "cpu", **SIM_KW, **kw} if "mesh" not in kw else {**SIM_KW, **kw})
+    got = sim.run(MDState(pos.copy(), v0.copy()), 20)
+    assert sim.n_dev == len(kw.get("mesh", ["cpu"]))
+    np.testing.assert_allclose(got.positions, want.positions, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(got.velocities, want.velocities, rtol=0, atol=1e-10)

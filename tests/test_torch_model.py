@@ -406,6 +406,18 @@ exported = LoadedModel(program.module(), meta)(*(gb[k] for k in (
     keys.POSITIONS, keys.EDGE_INDEX, keys.ATOM_TYPES, keys.NODE_MASK, keys.EDGE_MASK)))
 assert torch.isfinite(exported[keys.FORCES]).all()
 assert any(str(n.target).startswith("atpt.") for n in program.graph.nodes)
+from allegro_tpu_torch.parallel import SlabDecomposition
+g4 = np.stack(np.meshgrid(np.arange(4), np.arange(2), np.arange(2), indexing="ij"), -1)
+p4 = g4.reshape(-1, 3) * 2.2 + 0.1 * rng.randn(16, 3)
+slab = {keys.POSITIONS: p4, keys.ATOM_TYPES: rng.randint(0, 2, 16).astype(np.int32),
+        keys.CELL: np.diag([8.8, 4.4, 4.4]), keys.PBC: np.ones(3, dtype=bool)}
+dd = SlabDecomposition(p4, slab[keys.ATOM_TYPES], slab[keys.CELL], (True,) * 3, 4.0,
+                       ["cpu", "cpu"])
+e_dd, f_dd = dd.make_energy_forces_fn(m)(dd.scatter_positions(p4))
+sb = batch_frames([neighbor_list(slab, 4.0)])
+ref = m.apply_with_derivatives(to_torch(m.precompute_statics(sb), torch.float32))
+assert abs(float(e_dd) - float(ref[keys.TOTAL_ENERGY].sum())) < 1e-4
+assert np.abs(dd.gather_forces(f_dd) - ref[keys.FORCES].numpy()[:16]).max() < 1e-4
 sys.argv = ["allegro_tpu_torch", "--help"]
 try:
     runpy.run_module("allegro_tpu_torch", run_name="__main__")

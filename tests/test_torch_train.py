@@ -12,7 +12,8 @@
   ``compute_statistics``, ``resolve`` and ``build_model`` against JAX's; the
   checkpoint round trip.
 - ``Trainer``, ``AllegroCalculator`` and ``md.Simulation`` run on the card
-  by default and raise without one unless ``device="cpu"`` is given.
+  by default and raise without one unless ``device="cpu"`` is given; the
+  ``Trainer`` runs on a mesh of two CPU devices.
 """
 
 import numpy as np
@@ -253,7 +254,21 @@ def test_entry_points_raise_without_cuda_unless_asked_for_the_cpu(entry, monkeyp
     assert make(device="cpu").device == torch.device("cpu")
 
 
-def test_trainer_refuses_several_devices():
-    _, _, kw = _train_setup(n_frames=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(AllegroModel(**kw), device=["cpu", "cpu"])
+def test_trainer_runs_on_several_devices():
+    """Two rows on ``["cpu", "cpu"]``: one step on two loader batches, the
+    mean of the two one-row gradients (``tests/test_torch_ddp.py`` holds the
+    mesh to JAX's)."""
+    _, ds, kw = _train_setup(n_frames=2)
+    one = Trainer(AllegroModel(**kw, tp_kernel_backend="fused"), device="cpu",
+                  logger=lambda s: None)
+    state = one.init_state(0)
+    two = Trainer(AllegroModel(**kw, tp_kernel_backend="fused"), mesh=["cpu", "cpu"],
+                  logger=lambda s: None)
+    state2 = two.init_state(0)
+    assert two.mesh == [torch.device("cpu")] * 2 and two.device == torch.device("cpu")
+    rows = [one.to_device(b) for b in DataLoader(ds, batch_size=1)]
+    _, _, g0 = one.loss_and_grads(state, rows[0])
+    _, _, g1 = one.loss_and_grads(state, rows[1])
+    _, _, g = two.loss_and_grads(state2, rows)
+    for k in g:
+        torch.testing.assert_close(g[k], (g0[k] + g1[k]) / 2, rtol=0, atol=0)
