@@ -35,6 +35,13 @@
 // (column i*U+u is basis dim i, channel u), w and gw are [P, U]. Padded
 // edges of the per-edge kernels are rows like any other: the caller's
 // cotangents are zero there.
+// The bf16 tensor track (the model's tensor_dtype="bfloat16"): gather_tp,
+// gather_dw, tp_scatter and bwd_fused have bf16 forms, templated on the
+// track's storage (Tt = __nv_bfloat16): x and g (or g in x's role), and
+// gather_tp's and bwd_fused's per-edge out, are bf16, widened to float as
+// they are staged into the same float columns (stage_column), so every sum
+// and the shared memory are the float32 forms'; env, w, ts, denv and dw stay
+// float32.
 // Every sum runs in a fixed order (no atomics), so two identical calls give
 // identical bits. Each kernel runs on the caller's stream and allocates
 // nothing; each entry point returns cudaGetLastError().
@@ -440,8 +447,9 @@ __global__ void __launch_bounds__(kTpThreads, kGatherMinBlocks) gather_tp_kernel
   }
 }
 
+template <typename Tt>
 __global__ void gather_dw_partial_kernel(
-    const float* __restrict__ x, const float* __restrict__ env, const float* __restrict__ g,
+    const Tt* __restrict__ x, const float* __restrict__ env, const Tt* __restrict__ g,
     const int* __restrict__ centers, const int* __restrict__ desc,
     const float* __restrict__ dscale, int n_rows, const int* __restrict__ eidx,
     const float* __restrict__ ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
@@ -540,7 +548,8 @@ __device__ __forceinline__ void add_slice(float* den, const float (&acc)[kSliceM
     if (c < width) den[(k0 + c) * T] += acc[c];
 }
 
-__global__ void tp_scatter_kernel(const float* __restrict__ x, const float* __restrict__ g,
+template <typename Tt>
+__global__ void tp_scatter_kernel(const Tt* __restrict__ x, const Tt* __restrict__ g,
                                   const float* __restrict__ w, const int* __restrict__ row_ptr,
                                   const int* __restrict__ desc, const float* __restrict__ dscale,
                                   int n_rows, const int* __restrict__ eidx,
@@ -915,23 +924,33 @@ int atpt_gather_tp(const void* x, const float* env, const float* w, const int* c
   return launch(static_cast<const float*>(x), static_cast<float*>(out));
 }
 
-// partial and n_blocks as in atpt_sparse_tp_gradw.
-int atpt_gather_dw(const float* x, const float* env, const float* g, const int* centers,
+// partial and n_blocks as in atpt_sparse_tp_gradw. bf16: x and g are the
+// bf16 track (__nv_bfloat16), otherwise float; env, partial and dw are float
+// either way, and so is the shared-memory layout (x and g are widened as
+// they are staged).
+int atpt_gather_dw(const void* x, const float* env, const void* g, const int* centers,
                    const int* desc, const float* dscale, int n_rows, const int* eidx,
                    const float* ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
-                   int U, int P, int n_blocks, float* partial, float* dw, void* stream) {
+                   int U, int P, int n_blocks, float* partial, float* dw, int bf16,
+                   void* stream) {
   if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
   if (U < 1 || U > 1024 || n_blocks < 1 || n_blocks > kGradwMaxBlocks)
     return (int)cudaErrorInvalidValue;
   const int T = U * (U < kTpThreads ? kTpThreads / U : 1);
   const size_t smem = (size_t)n_rows * (kDescCols + 1) * sizeof(float) +
                       (size_t)(P + d1 + d2 + d3) * T * sizeof(float);
-  cudaError_t err = prepare_smem(gather_dw_partial_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  gather_dw_partial_kernel<<<n_blocks, T, smem, (cudaStream_t)stream>>>(
-      x, env, g, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U, P,
-      partial);
-  err = cudaGetLastError();
+  const auto launch = [&](auto* xt, auto* gt) {
+    using Tt = std::remove_const_t<std::remove_pointer_t<decltype(xt)>>;
+    cudaError_t err = prepare_smem(gather_dw_partial_kernel<Tt>, smem);
+    if (err != cudaSuccess) return err;
+    gather_dw_partial_kernel<Tt><<<n_blocks, T, smem, (cudaStream_t)stream>>>(
+        xt, env, gt, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U,
+        P, partial);
+    return cudaGetLastError();
+  };
+  cudaError_t err = bf16 ? launch(static_cast<const __nv_bfloat16*>(x),
+                                  static_cast<const __nv_bfloat16*>(g))
+                         : launch(static_cast<const float*>(x), static_cast<const float*>(g));
   if (err != cudaSuccess) return (int)err;
   const int PU = P * U;
   partials_reduce_kernel<<<(PU + 255) / 256, 256, 0, (cudaStream_t)stream>>>(partial, n_blocks,
@@ -941,21 +960,29 @@ int atpt_gather_dw(const float* x, const float* env, const float* g, const int* 
 
 // row_ptr [n_atoms + 1]: the CSR of the center-sorted edges; desc, dscale,
 // eidx, ecoef: the path table of the table with roles (0, 2, 1), as in
-// atpt_sparse_tp (its out is d2 wide).
-int atpt_tp_scatter(const float* x, const float* g, const float* w, const int* row_ptr,
+// atpt_sparse_tp (its out is d2 wide). bf16: x and g are the bf16 track
+// (__nv_bfloat16), otherwise float; w and denv are float either way, and so
+// is the shared-memory layout (x and g are widened as they are staged).
+int atpt_tp_scatter(const void* x, const void* g, const float* w, const int* row_ptr,
                     const int* desc, const float* dscale, int n_rows, const int* eidx,
                     const float* ecoef, int n_atoms, int d1, int d2, int d3, int U, int P,
-                    float* denv, void* stream) {
+                    float* denv, int bf16, void* stream) {
   if (int rc = check_tp_dims(d1, d2, d3, P, n_rows)) return rc;
   if (U < 1 || U > 1024) return (int)cudaErrorInvalidValue;
   const int T = U * (U < kTpThreads ? kTpThreads / U : 1);
   const size_t smem = (size_t)n_rows * (kDescCols + U) * sizeof(float) +
                       (size_t)(d2 + d1 + d3) * T * sizeof(float);
-  cudaError_t err = prepare_smem(tp_scatter_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  tp_scatter_kernel<<<n_atoms, T, smem, (cudaStream_t)stream>>>(
-      x, g, w, row_ptr, desc, dscale, n_rows, eidx, ecoef, d1, d2, d3, U, denv);
-  return (int)cudaGetLastError();
+  const auto launch = [&](auto* xt, auto* gt) {
+    using Tt = std::remove_const_t<std::remove_pointer_t<decltype(xt)>>;
+    cudaError_t err = prepare_smem(tp_scatter_kernel<Tt>, smem);
+    if (err != cudaSuccess) return (int)err;
+    tp_scatter_kernel<Tt><<<n_atoms, T, smem, (cudaStream_t)stream>>>(
+        xt, gt, w, row_ptr, desc, dscale, n_rows, eidx, ecoef, d1, d2, d3, U, denv);
+    return (int)cudaGetLastError();
+  };
+  if (bf16)
+    return launch(static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g));
+  return launch(static_cast<const float*>(x), static_cast<const float*>(g));
 }
 
 }  // extern "C"

@@ -25,8 +25,8 @@
 #include <vector>
 
 extern "C" {
-int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr, const int* dim_to_irr,
-                     int n_atoms, int d2, int n_irr, int U, float* env, void* stream);
+int atpt_env_scatter(const float* sh, const void* wexp, const int* row_ptr, const int* dim_to_irr,
+                     int n_atoms, int d2, int n_irr, int U, float* env, int bf16, void* stream);
 int atpt_gather_tp(const void* x, const float* env, const float* w, const int* centers,
                    const int* desc, const float* dscale, int n_rows, const int* eidx,
                    const float* ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
@@ -39,9 +39,9 @@ int atpt_bwd_fused(const void* x, const void* g, const float* gts, const float* 
                    const float* ecoef_den, long long n_edges, int n_atoms, int d1, int d2, int d3,
                    int U, int P, int n_blocks, void* dx, float* denv, float* partial, float* dw,
                    int bf16, void* stream);
-int atpt_unweight_both(const float* t, const float* sh, const float* wexp, const int* centers,
+int atpt_unweight_both(const float* t, const float* sh, const void* wexp, const int* centers,
                        const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
-                       int U, float* dsh, float* dwexp, void* stream);
+                       int U, float* dsh, void* dwexp, int bf16, int bf16_out, void* stream);
 int atpt_center_gather(const float* a, const int* idx, long long n_edges, int n_atoms, int C,
                        float* out, void* stream);
 int atpt_center_sum(const float* v, const int* row_ptr, const int* perm, int n_atoms, int C,
@@ -172,7 +172,7 @@ Tensor env_scatter(const Tensor& sh_, const Tensor& wexp_, const Tensor& centers
   launched("env_scatter",
            atpt_env_scatter(sh.data_ptr<float>(), wexp.data_ptr<float>(), row_ptr.data_ptr<int>(),
                             dim_to_irr.data_ptr<int>(), I(n_atoms), I(d2), I(wexp.size(1) / U),
-                            I(U), env.data_ptr<float>(), stream()));
+                            I(U), env.data_ptr<float>(), 0, stream()));
   return env;
 }
 
@@ -241,7 +241,7 @@ std::tuple<Tensor, Tensor> unweight_both(const Tensor& t_, const Tensor& sh_,
            atpt_unweight_both(t.data_ptr<float>(), sh.data_ptr<float>(), wexp.data_ptr<float>(),
                               centers.data_ptr<int>(), dim_to_irr.data_ptr<int>(), E,
                               I(t.size(0)), I(d2), I(wexp.size(1) / U), I(U),
-                              dsh.data_ptr<float>(), dwexp.data_ptr<float>(), stream()));
+                              dsh.data_ptr<float>(), dwexp.data_ptr<float>(), 0, 0, stream()));
   return {dsh, dwexp};
 }
 

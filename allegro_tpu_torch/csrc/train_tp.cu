@@ -1,5 +1,5 @@
 // Allegro tensor-product kernels of env_scatter and its transposes for
-// Hopper (sm_90a), float32.
+// Hopper (sm_90a), float32, each with a bf16 form for the bf16 tensor track.
 //
 // The layer's environment sum and the trainable backend's kernels around it.
 // The inference backend without the mega kernels (`tp_kernel_backend=
@@ -23,6 +23,18 @@
 // All four stage contiguous wexp and sh rows by cp.async (stage_range). The
 // three transposes run the same tile schedule on the same device functions
 // (tile_dsh, tile_dwexp): unweight_both stages the rows both need once.
+//
+// The bf16 forms (the model's tensor_dtype="bfloat16", JAX's storage): the
+// env weights wexp of env_scatter, unweight_sh and unweight_both may be
+// __nv_bfloat16 (or a cotangent in their role, on the trainable backend's
+// double backward), and so may the dwexp that unweight_w and unweight_both
+// write (JAX stores it in the env weights' dtype; unweight_both also reads
+// bf16 wexp and writes float dwexp, for a mega model routed off the mega
+// kernels, whose env weights' cotangent JAX's mega path never rounds). A bf16 wexp row is
+// widened to float as it is staged (stage_rows: plain loads, since cp.async
+// copies bytes and cannot widen), so shared memory and every sum are the
+// float32 forms'; dwexp is rounded once, on store. t, sh, env and dsh stay
+// float32.
 //
 // Layout (the JAX package's contract): per-edge arrays are row-major with
 // the flat dim-major tensor track (column i*U+u is basis dim i, channel u);
@@ -105,6 +117,33 @@ __device__ __forceinline__ void stage_range(float* dst, const float* src, int n)
   }
 }
 
+// Stages n elements of a row range into shared memory as float: the float
+// rows by stage_range's cp.async copies, the bf16 ones by plain loads
+// widened to float as they are stored (the caller's cp_async_wait and
+// __syncthreads cover both).
+template <int kVec>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int n) {
+  stage_range<kVec>(dst, src, n);
+}
+
+template <int kVec>
+__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* src, int n) {
+  for (int q = threadIdx.x; q < n; q += blockDim.x) dst[q] = load_f(src + q);
+}
+
+// Stores four channels of an output row from one float4: one 16-byte store
+// (float, 16-byte aligned: the launchers check) or four rounded ones (bf16).
+__device__ __forceinline__ void store4(float* o, const float4& v) {
+  *reinterpret_cast<float4*>(o) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* o, const float4& v) {
+  store_f(o, v.x);
+  store_f(o + 1, v.y);
+  store_f(o + 2, v.z);
+  store_f(o + 3, v.w);
+}
+
 // The t rows a tile stages, [c_lo, c_lo + n_c): from its first edge's center
 // to its last real one's, at most n_stage (none where the first edge is a
 // sentinel).
@@ -147,9 +186,9 @@ __device__ __forceinline__ void tile_dsh(const float* __restrict__ t, const floa
   }
 }
 
-template <int kVec>
+template <int kVec, typename Tw>
 __global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
-    const float* __restrict__ t, const float* __restrict__ wexp, const int* __restrict__ centers,
+    const float* __restrict__ t, const Tw* __restrict__ wexp, const int* __restrict__ centers,
     const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
     int tile, int n_stage, float* __restrict__ dsh) {
   extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
@@ -160,7 +199,7 @@ __global__ void __launch_bounds__(kShThreads) unweight_sh_kernel(
   const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
   int c_lo, n_c;
   tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
-  stage_range<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
+  stage_rows<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
   stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
   cp_async_commit();
   cp_async_wait<0>();
@@ -210,12 +249,12 @@ __device__ __forceinline__ void irrep_bounds(const int* __restrict__ dim_to_irr,
 // thread item q = (edge el of the tile, channel group v): one center, t row
 // and sh row for all of the edge's irreps; el by a float reciprocal, exact
 // while q + 0.5 < 2^22 (the launchers check), not an integer division.
-template <int kVec>
+template <int kVec, typename To>
 __device__ __forceinline__ void tile_dwexp(const float* __restrict__ t, const float* s_sh,
                                            const float* s_t, const int* s_first, const int* s_end,
                                            const int* __restrict__ centers, long long e0, int n_e,
                                            int c_lo, int n_c, int n_atoms, int d2, int n_irr,
-                                           int U, float* __restrict__ dwexp) {
+                                           int U, To* __restrict__ dwexp) {
   const int trow = d2 * U, nU = n_irr * U;
   const int per_irr = U / kVec;  // channel groups of kVec floats
   const float inv_irr = 1.f / per_irr;
@@ -227,7 +266,7 @@ __device__ __forceinline__ void tile_dwexp(const float* __restrict__ t, const fl
                       : c - c_lo >= 0 && c - c_lo < n_c ? s_t + (c - c_lo) * trow
                                                         : t + (long long)c * trow;
     const float* sr = s_sh + el * d2;
-    float* o = dwexp + (e0 + el) * nU;
+    To* o = dwexp + (e0 + el) * nU;
     for (int r = 0; r < n_irr; ++r) {
       const int j0 = s_first[r], j1 = real ? s_end[r] : j0;  // a sentinel sums no dim
       if constexpr (kVec == 4) {
@@ -242,21 +281,21 @@ __device__ __forceinline__ void tile_dwexp(const float* __restrict__ t, const fl
           acc.z = fmaf(s, tv.z, acc.z);
           acc.w = fmaf(s, tv.w, acc.w);
         }
-        reinterpret_cast<float4*>(o + r * U)[v] = acc;
+        store4(o + r * U + 4 * v, acc);
       } else {
         float acc = 0.f;
         for (int j = j0; j < j1; ++j) acc = fmaf(sr[j], tr[j * U + v], acc);
-        o[r * U + v] = acc;
+        store_f(o + r * U + v, acc);
       }
     }
   }
 }
 
-template <int kVec>
+template <int kVec, typename To>
 __global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
     const float* __restrict__ t, const float* __restrict__ sh, const int* __restrict__ centers,
     const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
-    int tile, int n_stage, float* __restrict__ dwexp) {
+    int tile, int n_stage, To* __restrict__ dwexp) {
   extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
   const int trow = d2 * U;
   float* s_t = reinterpret_cast<float*>(smem);        // [n_stage][d2 * U]
@@ -298,12 +337,12 @@ __global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
 // outgrow shared memory (fit_tile). A sentinel edge writes zero dsh and
 // dwexp rows and reads no t row; the last tile may be partial; no atomics.
 // ---------------------------------------------------------------------------
-template <int kVec>
+template <int kVec, typename Tw, typename To>
 __global__ void __launch_bounds__(kShThreads) unweight_both_kernel(
-    const float* __restrict__ t, const float* __restrict__ sh, const float* __restrict__ wexp,
+    const float* __restrict__ t, const float* __restrict__ sh, const Tw* __restrict__ wexp,
     const int* __restrict__ centers, const int* __restrict__ dim_to_irr, long long n_edges,
     int n_atoms, int d2, int n_irr, int U, int tile, int n_stage, float* __restrict__ dsh,
-    float* __restrict__ dwexp) {
+    To* __restrict__ dwexp) {
   extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
   const int wrow = n_irr * U, trow = d2 * U;
   float* s_w = reinterpret_cast<float*>(smem);              // [tile][n_irr * U]
@@ -315,7 +354,7 @@ __global__ void __launch_bounds__(kShThreads) unweight_both_kernel(
   const int n_e = (int)(n_edges - e0 < tile ? n_edges - e0 : tile);
   int c_lo, n_c;
   tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
-  stage_range<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
+  stage_rows<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
   stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
   stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
   cp_async_commit();
@@ -356,9 +395,9 @@ constexpr int kEnvGroup = 2;      // atoms per block
 constexpr int kEnvTile = 64;      // edges staged per chunk (at most)
 constexpr int kEnvThreads = 512;  // threads per block (at most)
 
-template <int kVec>
+template <int kVec, typename Tw>
 __global__ void __launch_bounds__(kEnvThreads) env_scatter_kernel(
-    const float* __restrict__ sh, const float* __restrict__ wexp, const int* __restrict__ row_ptr,
+    const float* __restrict__ sh, const Tw* __restrict__ wexp, const int* __restrict__ row_ptr,
     const int* __restrict__ dim_to_irr, int n_atoms, int d2, int n_irr, int U, int group,
     int slices, int per_atom, int tile, float* __restrict__ env) {
   extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
@@ -386,7 +425,7 @@ __global__ void __launch_bounds__(kEnvThreads) env_scatter_kernel(
   for (int c0 = g0; c0 < g1; c0 += tile) {
     const int n = min(tile, g1 - c0);
     if (c0 > g0) __syncthreads();  // every thread is done with the last chunk's rows
-    stage_range<kVec>(s_w, wexp + (long long)c0 * wrow, n * wrow);
+    stage_rows<kVec>(s_w, wexp + (long long)c0 * wrow, n * wrow);
     stage_range<1>(s_sh, sh + (long long)c0 * d2, n * d2);
     cp_async_commit();
     cp_async_wait<0>();
@@ -429,16 +468,16 @@ bool fit_tile(Bytes bytes, int* tile, int* n_stage) {
   return bytes(*tile, *n_stage) <= limit;
 }
 
-}  // namespace
-
-extern "C" {
-
-// dim_to_irr [d2]; the edges of atom a are [row_ptr[a], row_ptr[a + 1]).
-int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr,
-                     const int* dim_to_irr, int n_atoms, int d2, int n_irr, int U, float* env,
-                     void* stream) {
+// The launches of the four kernels, on float (Tw = float) or bf16 env
+// weights: the same schedule and shared memory either way. A bf16 row is
+// staged by plain loads, so only a float range's pointer must be 16-byte
+// aligned for the float4 form.
+template <typename Tw>
+int launch_env_scatter(const float* sh, const Tw* wexp, const int* row_ptr, const int* dim_to_irr,
+                       int n_atoms, int d2, int n_irr, int U, float* env, cudaStream_t stream) {
   if (n_atoms < 1 || d2 < 1 || n_irr < 1 || U < 1) return (int)cudaErrorInvalidValue;
-  const bool vec = U % 4 == 0 && (uintptr_t)wexp % 16 == 0 && (uintptr_t)env % 16 == 0;
+  const bool vec = U % 4 == 0 && (!std::is_same_v<Tw, float> || (uintptr_t)wexp % 16 == 0) &&
+                   (uintptr_t)env % 16 == 0;
   // an atom's items (dim, channel group), split into slices of at most
   // kEnvThreads; atoms of one slice each are grouped, up to kEnvGroup a block
   const int items = d2 * (vec ? U / 4 : U);
@@ -454,17 +493,18 @@ int atpt_env_scatter(const float* sh, const float* wexp, const int* row_ptr,
   while (bytes(tile) > smem_optin() / 4 && tile > 1) tile /= 2;
   const long long blocks = (long long)(n_atoms + group - 1) / group * slices;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = vec ? env_scatter_kernel<4> : env_scatter_kernel<1>;
+  auto kernel = vec ? env_scatter_kernel<4, Tw> : env_scatter_kernel<1, Tw>;
   cudaError_t err = prepare_smem(kernel, bytes(tile));
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, threads, bytes(tile), (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, threads, bytes(tile), stream>>>(
       sh, wexp, row_ptr, dim_to_irr, n_atoms, d2, n_irr, U, group, slices, per_atom, tile, env);
   return (int)cudaGetLastError();
 }
 
-int atpt_unweight_sh(const float* t, const float* wexp, const int* centers,
-                     const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
-                     int U, float* dsh, void* stream) {
+template <typename Tw>
+int launch_unweight_sh(const float* t, const Tw* wexp, const int* centers, const int* dim_to_irr,
+                       long long n_edges, int n_atoms, int d2, int n_irr, int U, float* dsh,
+                       cudaStream_t stream) {
   if (n_edges < 1 || d2 < 1 || n_irr < 1 || U < 1) return (int)cudaErrorInvalidValue;
   const auto bytes = [&](int tile, int n_stage) {
     return (size_t)(tile * n_irr + n_stage * d2) * U * sizeof(float);
@@ -473,20 +513,21 @@ int atpt_unweight_sh(const float* t, const float* wexp, const int* centers,
   if (!fit_tile(bytes, &tile, &n_stage)) return (int)cudaErrorInvalidValue;
   const long long tiles = (n_edges + tile - 1) / tile;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)wexp % 16 == 0;
-  auto kernel = vec ? unweight_sh_kernel<4> : unweight_sh_kernel<1>;
+  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 &&
+                   (!std::is_same_v<Tw, float> || (uintptr_t)wexp % 16 == 0);
+  auto kernel = vec ? unweight_sh_kernel<4, Tw> : unweight_sh_kernel<1, Tw>;
   const size_t smem = bytes(tile, n_stage);
   cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)tiles, kShThreads, smem, stream>>>(
       t, wexp, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dsh);
   return (int)cudaGetLastError();
 }
 
-// dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
-int atpt_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
-                    long long n_edges, int n_atoms, int d2, int n_irr, int U, float* dwexp,
-                    void* stream) {
+template <typename To>
+int launch_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
+                      long long n_edges, int n_atoms, int d2, int n_irr, int U, To* dwexp,
+                      cudaStream_t stream) {
   // n_irr <= d2, and the kernel's float reciprocal is exact for its items
   if (n_edges < 1 || d2 < 1 || n_irr < 1 || n_irr > d2 || U < 1 || (long long)kShTile * U >= 1 << 22)
     return (int)cudaErrorInvalidValue;
@@ -497,20 +538,21 @@ int atpt_unweight_w(const float* t, const float* sh, const int* centers, const i
   if (!fit_tile(bytes, &tile, &n_stage)) return (int)cudaErrorInvalidValue;
   const long long tiles = (n_edges + tile - 1) / tile;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)dwexp % 16 == 0;
-  auto kernel = vec ? unweight_w_kernel<4> : unweight_w_kernel<1>;
+  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 &&
+                   (!std::is_same_v<To, float> || (uintptr_t)dwexp % 16 == 0);
+  auto kernel = vec ? unweight_w_kernel<4, To> : unweight_w_kernel<1, To>;
   const size_t smem = bytes(tile, n_stage);
   cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)tiles, kShThreads, smem, stream>>>(
       t, sh, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dwexp);
   return (int)cudaGetLastError();
 }
 
-// dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
-int atpt_unweight_both(const float* t, const float* sh, const float* wexp, const int* centers,
-                       const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
-                       int U, float* dsh, float* dwexp, void* stream) {
+template <typename Tw, typename To>
+int launch_unweight_both(const float* t, const float* sh, const Tw* wexp, const int* centers,
+                         const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
+                         int U, float* dsh, To* dwexp, cudaStream_t stream) {
   // as atpt_unweight_w: n_irr <= d2, and the float reciprocal exact for its items
   if (n_edges < 1 || d2 < 1 || n_irr < 1 || n_irr > d2 || U < 1 || (long long)kShTile * U >= 1 << 22)
     return (int)cudaErrorInvalidValue;
@@ -523,15 +565,77 @@ int atpt_unweight_both(const float* t, const float* sh, const float* wexp, const
   if (!fit_tile(bytes, &tile, &n_stage)) return (int)cudaErrorInvalidValue;
   const long long tiles = (n_edges + tile - 1) / tile;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 && (uintptr_t)wexp % 16 == 0 &&
-                   (uintptr_t)dwexp % 16 == 0;
-  auto kernel = vec ? unweight_both_kernel<4> : unweight_both_kernel<1>;
+  const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 &&
+                   (!std::is_same_v<Tw, float> || (uintptr_t)wexp % 16 == 0) &&
+                   (!std::is_same_v<To, float> || (uintptr_t)dwexp % 16 == 0);
+  auto kernel = vec ? unweight_both_kernel<4, Tw, To> : unweight_both_kernel<1, Tw, To>;
   const size_t smem = bytes(tile, n_stage);
   cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)tiles, kShThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)tiles, kShThreads, smem, stream>>>(
       t, sh, wexp, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, tile, n_stage, dsh, dwexp);
   return (int)cudaGetLastError();
+}
+
+using bf16_t = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" {
+
+// dim_to_irr [d2]; the edges of atom a are [row_ptr[a], row_ptr[a + 1]).
+// bf16: wexp is __nv_bfloat16 (the bf16 track's env weights), else float.
+int atpt_env_scatter(const float* sh, const void* wexp, const int* row_ptr,
+                     const int* dim_to_irr, int n_atoms, int d2, int n_irr, int U, float* env,
+                     int bf16, void* stream) {
+  if (bf16)
+    return launch_env_scatter(sh, static_cast<const bf16_t*>(wexp), row_ptr, dim_to_irr, n_atoms,
+                              d2, n_irr, U, env, (cudaStream_t)stream);
+  return launch_env_scatter(sh, static_cast<const float*>(wexp), row_ptr, dim_to_irr, n_atoms, d2,
+                            n_irr, U, env, (cudaStream_t)stream);
+}
+
+// bf16: wexp is __nv_bfloat16, else float.
+int atpt_unweight_sh(const float* t, const void* wexp, const int* centers,
+                     const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
+                     int U, float* dsh, int bf16, void* stream) {
+  if (bf16)
+    return launch_unweight_sh(t, static_cast<const bf16_t*>(wexp), centers, dim_to_irr, n_edges,
+                              n_atoms, d2, n_irr, U, dsh, (cudaStream_t)stream);
+  return launch_unweight_sh(t, static_cast<const float*>(wexp), centers, dim_to_irr, n_edges,
+                            n_atoms, d2, n_irr, U, dsh, (cudaStream_t)stream);
+}
+
+// dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
+// bf16: dwexp is __nv_bfloat16 (the env weights' storage), else float.
+int atpt_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
+                    long long n_edges, int n_atoms, int d2, int n_irr, int U, void* dwexp,
+                    int bf16, void* stream) {
+  if (bf16)
+    return launch_unweight_w(t, sh, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U,
+                             static_cast<bf16_t*>(dwexp), (cudaStream_t)stream);
+  return launch_unweight_w(t, sh, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U,
+                           static_cast<float*>(dwexp), (cudaStream_t)stream);
+}
+
+// dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
+// bf16: wexp is __nv_bfloat16, else float; bf16_out: dwexp is __nv_bfloat16
+// (only with a bf16 wexp), else float; dsh is float either way.
+int atpt_unweight_both(const float* t, const float* sh, const void* wexp, const int* centers,
+                       const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
+                       int U, float* dsh, void* dwexp, int bf16, int bf16_out, void* stream) {
+  const auto s = (cudaStream_t)stream;
+  if (!bf16)
+    return bf16_out ? (int)cudaErrorInvalidValue
+                    : launch_unweight_both(t, sh, static_cast<const float*>(wexp), centers,
+                                           dim_to_irr, n_edges, n_atoms, d2, n_irr, U, dsh,
+                                           static_cast<float*>(dwexp), s);
+  const auto* w = static_cast<const bf16_t*>(wexp);
+  if (bf16_out)
+    return launch_unweight_both(t, sh, w, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U,
+                                dsh, static_cast<bf16_t*>(dwexp), s);
+  return launch_unweight_both(t, sh, w, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U, dsh,
+                              static_cast<float*>(dwexp), s);
 }
 
 }  // extern "C"

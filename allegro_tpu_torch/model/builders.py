@@ -13,7 +13,8 @@ Options the port does not run yet raise ``NotImplementedError`` naming the
 ROADMAP item; none of them runs silently on something else.
 
 The big-system and precision policies are JAX's builder kwargs:
-``tensor_dtype="bfloat16"`` (the bf16 tensor track, on the mega route),
+``tensor_dtype="bfloat16"`` (the bf16 tensor track, on both fused backends;
+``einsum`` and ``pallas`` ignore it),
 ``remat`` (each layer recomputed in the backward pass), ``checkpoint_energy``
 (the whole energy recomputed inside the force call's backward pass),
 ``tp_chunk_edges`` (the ``einsum`` contraction over edge slices), and the
@@ -616,7 +617,7 @@ def FullAllegroEnergyModel(
             # the mega-fused layer 0 reads the embed's factors, not its features
             TwoBodySphericalHarmonicTensorEmbed(str(irreps_sh), num_tensor_features, S, dtype,
                                                 build_features=not allegro.mega,
-                                                tensor_dtype=track),
+                                                tensor_dtype=allegro.tensor_dtype),
         ),
         ("allegro", allegro),
     ]

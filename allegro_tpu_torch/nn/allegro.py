@@ -19,8 +19,10 @@ layer 0 builds its features from the tensor embed's factors in the kernel.
 
 The big-system policies (JAX's ``tensor_dtype``, ``remat``,
 ``tp_chunk_edges``): ``tensor_dtype="bfloat16"`` stores the tensor track in
-bfloat16 between the mega layers (only there: another route raises), with
-the env weights rounded to it inside the latent kernels; ``remat``
+bfloat16 on both fused backends, on every route (JAX's ``if fused``): between
+the mega layers, with the env weights rounded to it inside the latent
+kernels, and off mega (``_layer_body``), with the env and path weights cast
+to it each layer; ``einsum`` and ``pallas`` ignore it; ``remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``), on
 every backend; ``tp_chunk_edges`` chunks the ``einsum`` contraction over
 edges (``Contracter``).
@@ -114,13 +116,21 @@ class AllegroLayers(nn.Module):
     says which, decided once per device when the model first runs there.
 
     ``tensor_dtype`` (a torch dtype; None: the model dtype) is the storage of
-    the tensor track between the mega layers: layer 0's features out of the
-    embed-fused TP, each later layer's out of ``gather_tp``, and their
-    cotangents, as in JAX (``allegro_tpu/nn/allegro.py:480-518``); the env
-    weights are rounded to it inside the latent kernels, and the scalar
-    outputs stay in the model dtype. It is ported on the mega route only:
-    a model with it raises where it would take another route (ROADMAP.md
-    queue 1, item 6). ``remat`` recomputes each layer's body in the backward
+    the tensor track on the fused backends, as in JAX: on the mega route
+    layer 0's features out of the embed-fused TP, each later layer's out of
+    ``gather_tp``, and their cotangents (``allegro_tpu/nn/allegro.py:480-518``),
+    with the env weights rounded to it inside the latent kernels; off it
+    (``fused_call``, on ``fused_infer`` and the trainable ``fused``) the
+    features, cast once at entry, each layer's env weights, cast after the
+    shared-weight tile, and their cotangents (``:240-270``, ``:521-534``),
+    with the path weights cast to it (``Contracter.fused_call``); a mega
+    model routed off the mega kernels keeps the mega path's rounding points
+    (JAX runs mega for it). The scalars, sh, env and the parameters stay in
+    the model dtype. JAX casts only where the backend is fused: on
+    ``einsum`` and ``pallas`` the port ignores it (``self.tensor_dtype`` is
+    None there, and the result is that of ``tensor_dtype=None`` bit for bit;
+    JAX's tensor embed would still round layer 0's features there,
+    ROADMAP.md queue 3). ``remat`` recomputes each layer's body in the backward
     pass instead of keeping its activations (JAX's ``nn.remat`` of
     ``_layer_body`` / ``_mega_layer_body``); every kernel sums in a fixed
     order, so the result is the same bits. ``tp_chunk_edges`` (> 0) chunks
@@ -195,9 +205,7 @@ class AllegroLayers(nn.Module):
             and mlp_nonlinearity is silu and weight_individual_irreps and use_mega is not False
         )
         self.embed_dim = int(embed_dim)
-        self.tensor_dtype = None if tensor_dtype in (None, dtype) else tensor_dtype
-        if self.tensor_dtype is not None and not self.mega:
-            raise _track_not_ported(tensor_dtype, "the mega condition does not hold")
+        self.tensor_dtype = None if tensor_dtype in (None, dtype) or not fold else tensor_dtype
         self.remat = bool(remat)
         self._routes: Dict[torch.device, str] = {}
         # layer 0's input rows as (SH dim, irrep), for the embed-fused kernel
@@ -240,9 +248,6 @@ class AllegroLayers(nn.Module):
         if device not in self._routes:
             mega = self.mega and self.mega_fits(smem_fit.smem_optin(device))
             own = "fused_call" if self.backend in ("fused", "fused_infer") else self.backend
-            if self.tensor_dtype is not None and not mega:
-                raise _track_not_ported(self.tensor_dtype,
-                                        f"its widths take the {own!r} route on {device}")
             self._routes[device] = "mega" if mega else own
         return self._routes[device]
 
@@ -286,6 +291,13 @@ class AllegroLayers(nn.Module):
                 tuple(d * U + u for d in self.input_dims for u in range(U)), features.device
             )
             features = features.index_select(1, cols)
+        if self.tensor_dtype is not None and not self.mega:
+            # JAX's non-mega path: the track's storage from here on, cast
+            # once at entry. A mega model routed off the mega kernels keeps
+            # the mega path's rounding points instead (JAX runs mega there):
+            # layer 0 reads its features unrounded (x0, built in the kernel
+            # on mega) and stores its output in the track
+            features = features.to(self.tensor_dtype)
         proj = self.first_projection(data[keys.EDGE_EMBEDDING])
         scalar_blocks = [proj[:, :S]]
         env_w = proj[:, S:]
@@ -304,14 +316,35 @@ class AllegroLayers(nn.Module):
         """One layer off the mega route: the TP (with its env sum) and the
         latent MLP on the densenet pieces → (features, latent output)."""
         tp = self.tps[layer]
+        tp_scalars = None
         if self.backend in ("fused", "fused_infer"):
+            # the shared weights tiled over the irreps, then (the bf16
+            # track) cast to its storage, in JAX's order
             wexp = self.env_weighter.per_irrep(env_w)
-            feats = tp.fused_call(features.contiguous(), sh, wexp.contiguous(), centers, row_ptr)
+            track = self.tensor_dtype
+            # a mega model routed off the mega kernels on the track keeps
+            # JAX's mega rounding points: the env weights rounded for the
+            # product only (their cotangent unrounded), each layer's scalars
+            # unrounded where the mega layer splits them out (more than one
+            # output dim)
+            routed = track is not None and self.mega
+            split = routed and tp.d3 > 1
+            if track is not None and not routed:
+                wexp = wexp.to(track)
+            feats = tp.fused_call(features.contiguous(), sh, wexp.contiguous(), centers, row_ptr,
+                                  split, track if routed else None)
+            if split:
+                feats, tp_scalars = feats
+            if track is not None:
+                feats = feats.to(track)
         else:
             weighted_sh = self.env_weighter.flat_dim_major(sh, env_w)
             feats = tp(features, weighted_sh, centers, n_atoms, row_ptr)
+        if tp_scalars is None:
+            # the track's scalars back in the model dtype
+            tp_scalars = feats[:, :self.U].to(self.dtype)
         # densenet latent input: the pieces, not a materialized concat
-        return feats, self.latents[layer](list(scalar_blocks) + [feats[:, :self.U]])
+        return feats, self.latents[layer](list(scalar_blocks) + [tp_scalars])
 
     def _mega_forward(self, data: Dict, sh, centers, row_ptr) -> tuple:
         """Twin of JAX's ``_mega_forward`` / ``_mega_layer_body``: the first
@@ -367,8 +400,3 @@ class AllegroLayers(nn.Module):
                                      tp.dim_to_irr, U, S, tp.irr_ranges, self.tensor_dtype)
         return feats, lat_s, env
 
-
-def _track_not_ported(tensor_dtype, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"tensor_dtype={tensor_dtype} is ported on the mega route only, and {why}: the bf16 "
-        "track off mega is not ported to allegro_tpu_torch yet (ROADMAP.md queue 1, item 6)")

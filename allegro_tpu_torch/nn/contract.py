@@ -306,12 +306,25 @@ class Contracter(nn.Module):
         paths, swapped = self.gather_paths()
         return paths, swapped, self.scatter_paths()[0]
 
-    def fused_call(self, x, sh, wexp, centers, row_ptr) -> torch.Tensor:
+    def fused_call(self, x, sh, wexp, centers, row_ptr, split: bool = False,
+                   wexp_dtype: Optional[torch.dtype] = None):
         """Whole layer update (env weight + scatter + gather + CG) through the
         fused kernels: ``fused_layer`` on ``fused`` (differentiable weights),
-        ``fused_layer_infer`` on ``fused_infer`` (NaN weight gradients)."""
-        wk, entry_idx, entry_coef = self.fused_infer_parts(x.dtype)
+        ``fused_layer_infer`` on ``fused_infer`` (NaN weight gradients). On
+        the bf16 track (x and wexp bfloat16) the path weights are cast to
+        x's dtype, as JAX's are, so that their gradient's contributions are
+        each rounded to it and summed in it; the kernels read them widened
+        to float32 (``fused_primitives._wide``). ``split`` and ``wexp_dtype``
+        (``fused_infer`` only, JAX's mega path for a mega model routed here):
+        also return the leading 0e block, unrounded, as its own [E, U] array
+        in the model dtype, ``(out, ts)``; the env weights, in the model
+        dtype, stored in ``wexp_dtype`` for the kernels, their cotangent
+        unrounded."""
+        wk, entry_idx, entry_coef = self.fused_infer_parts(self.path_weights.dtype)
+        wk = wk.to(x.dtype)
         if self.kernel_backend == "fused":
+            if split or wexp_dtype is not None:
+                raise ValueError("fused_call: split and wexp_dtype are for fused_infer")
             st = FusedStatics(centers, row_ptr, self.dim_to_irr, self.n_irr, self.mul, entry_idx,
                               self.entry_swapped, entry_coef, self.num_paths,
                               (self.d1, self.d2, self.d3), *self.gather_paths(),
@@ -320,5 +333,6 @@ class Contracter(nn.Module):
         paths, swapped, scatter = self.infer_paths()
         return fused_layer_infer(
             x, sh, wexp, wk, centers, row_ptr, entry_idx, entry_coef, self.dim_to_irr, self.d3,
-            paths, swapped_paths=swapped, scatter_paths=scatter,
+            paths, swapped_paths=swapped, scatter_paths=scatter, split=split,
+            wexp_dtype=wexp_dtype,
         )

@@ -35,11 +35,14 @@ _i32p = ctypes.POINTER(ctypes.c_int)
 # C signatures of csrc/*.cu; every device pointer and the stream are void*,
 # the readout's piece tables are host arrays; the int before the stream of
 # the kernels with a bf16 form is 1 for it (gather_tp, bwd_fused,
-# gather_tp_embed, bwd_embed: the track in bfloat16; latent_env_scatter,
-# latent_env_bwd: the env weights rounded to bfloat16)
+# gather_tp_embed, bwd_embed, tp_scatter, gather_dw: the features or their
+# cotangents in bfloat16; env_scatter, unweight_sh, unweight_both: the env
+# weights in bfloat16; unweight_w: its dwexp; unweight_both takes a second
+# int, 1 for its dwexp in bfloat16;
+# latent_env_scatter, latent_env_bwd: the env weights rounded to bfloat16)
 _SIGNATURES = {
     "atpt_noop": [_vp],
-    "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp],
+    "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
     "atpt_gather_tp": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
                        _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     # the entry table (with dw), then the two path tables (without): each
@@ -48,7 +51,7 @@ _SIGNATURES = {
                        _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
                        _vp, _vp, _vp, _vp, _i32, _vp],
     "atpt_unweight_both": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp,
-                           _vp],
+                           _i32, _i32, _vp],
     "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
     "atpt_center_sum": [_vp, _vp, _vp, _i32, _i32, _vp, _vp],
     "atpt_center_sum_chunked": [_vp, _vp, _vp, _i32, _i32, _i64, _i32, _vp, _vp, _vp],
@@ -64,11 +67,11 @@ _SIGNATURES = {
     "atpt_bwd_embed": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp,
                        _i64, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _i32, _vp],
     "atpt_tp_scatter": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32,
-                        _i32, _i32, _vp, _vp],
+                        _i32, _i32, _vp, _i32, _vp],
     "atpt_gather_dw": [_vp, _vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
-                       _i32, _i32, _i32, _i32, _vp, _vp, _vp],
-    "atpt_unweight_sh": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
-    "atpt_unweight_w": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _vp],
+                       _i32, _i32, _i32, _i32, _vp, _vp, _i32, _vp],
+    "atpt_unweight_sh": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
+    "atpt_unweight_w": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
     "atpt_sparse_tp": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32,
                        _i32, _vp, _vp],
     "atpt_sparse_tp_gradw": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,

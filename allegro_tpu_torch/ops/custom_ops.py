@@ -323,9 +323,10 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
                                   *paths, *scatter_paths))
 
 
-def unweight_both(t, sh, wexp, centers, dim_to_irr):
+def unweight_both(t, sh, wexp, centers, dim_to_irr, out_dtype=None):
     if not _TRACING:
-        return fused_tp.unweight_both(t, sh, wexp, centers, dim_to_irr)
+        return fused_tp.unweight_both(t, sh, wexp, centers, dim_to_irr, out_dtype)
+    _untraced("unweight_both", out_dtype=out_dtype)
     return tuple(_ops().unweight_both(t, sh, wexp, centers, dim_to_irr))
 
 

@@ -33,14 +33,23 @@ silently. They reach their kernels through ``custom_ops``: the wrappers of
 ``fused_tp`` eagerly, the ``atpt::`` ops inside ``custom_ops.tracing()``
 (the export of ``compile/export.py``).
 
-The bf16 tensor track (``tensor_dtype="bfloat16"``, the mega path only):
-``mega_latent_env`` takes ``wexp_dtype`` (the env weights rounded to it
-inside the kernel, forward and backward), ``gather_tp_embed_infer`` takes
-``out_dtype`` (layer 0's features stored in it), and ``gather_tp_infer``
-takes bfloat16 features and returns bfloat16 features. Each feature
-cotangent has its primal's dtype (JAX's ``_cast_ct``): autograd hands a
-bfloat16 output's backward a bfloat16 cotangent, and ``bwd_fused``
-returns dx in x's dtype.
+The bf16 tensor track (``tensor_dtype="bfloat16"``, on every route of both
+fused backends): on the mega path ``mega_latent_env`` takes ``wexp_dtype``
+(the env weights rounded to it inside the kernel, forward and backward),
+``gather_tp_embed_infer`` takes ``out_dtype`` (layer 0's features stored in
+it), and ``gather_tp_infer`` takes bfloat16 features and returns bfloat16
+features. Off it, ``fused_layer`` and ``fused_layer_infer`` take bfloat16
+features x, env weights wexp and path weights w (JAX's
+``path_weights.astype(x.dtype)``: autograd sums their gradient's
+contributions in bfloat16, as JAX does; the kernels read w widened to
+float32, :func:`_wide`) and return bfloat16 features; sh stays in the model
+dtype. Each kernel returns JAX's dtype (``fused_tp.compute_dtype``), and
+each cotangent takes its primal's dtype (JAX's ``_cast_ct``, :func:`_ct`):
+autograd hands a bfloat16 output's backward a bfloat16 cotangent, dx comes
+back in x's dtype, dwexp in wexp's (``unweight_w``'s ``out_dtype``,
+``unweight_both``'s bf16 store), and on the CPU a float64 model's float32
+kernel results are cast to the model dtype. On the card every such cast is
+the identity: the kernels store each output in its primal's dtype.
 """
 
 from __future__ import annotations
@@ -106,6 +115,18 @@ def _need(ctx, i: int, fn):
     return fn() if ctx.needs_input_grad[i] else None
 
 
+def _wide(w: torch.Tensor) -> torch.Tensor:
+    """The path weights as the kernels read them: on the bf16 track, JAX's
+    bfloat16 weights (or a cotangent in their role) widened to float32, the
+    [P, U] values exactly (the kernels read float32 path weights)."""
+    return w.float() if w.dtype == torch.bfloat16 else w
+
+
+def _ct(v: torch.Tensor, primal: torch.Tensor) -> torch.Tensor:
+    """The cotangent ``v`` in its primal's dtype (JAX's ``_cast_ct``)."""
+    return v if v.dtype == primal.dtype else v.to(primal.dtype)
+
+
 class EnvScatter(torch.autograd.Function):
     """``env [n_atoms, d2*U] = Σ_{c(e)=a} sh[e,j] wexp[e, irr(j)U+u]``."""
 
@@ -119,8 +140,8 @@ class EnvScatter(torch.autograd.Function):
     def backward(ctx, t):
         sh, wexp = ctx.saved_tensors
         t, st = t.contiguous(), ctx.st
-        return (_need(ctx, 0, lambda: UnweightSh.apply(t, wexp, st)),
-                _need(ctx, 1, lambda: UnweightW.apply(t, sh, st)), None)
+        return (_need(ctx, 0, lambda: _ct(UnweightSh.apply(t, wexp, st), sh)),
+                _need(ctx, 1, lambda: UnweightW.apply(t, sh, st, wexp.dtype)), None)
 
 
 class GatherTp(torch.autograd.Function):
@@ -130,16 +151,16 @@ class GatherTp(torch.autograd.Function):
     def forward(ctx, x, env, w, st: FusedStatics):
         ctx.save_for_backward(x, env, w)
         ctx.st = st
-        return fused_tp.gather_tp(x, env, w, st.centers, st.entry_idx, st.entry_coef, st.dims[2],
-                                  paths=st.paths)
+        return fused_tp.gather_tp(x, env, _wide(w), st.centers, st.entry_idx, st.entry_coef,
+                                  st.dims[2], paths=st.paths)
 
     @staticmethod
     def backward(ctx, g):
         x, env, w = ctx.saved_tensors
         g, st = g.contiguous(), ctx.st
-        return (_need(ctx, 0, lambda: GatherTp.apply(g, env, w, st.swap())),
-                _need(ctx, 1, lambda: TpScatter.apply(x, g, w, st)),
-                _need(ctx, 2, lambda: GatherDw.apply(x, env, g, st)), None)
+        return (_need(ctx, 0, lambda: _ct(GatherTp.apply(g, env, w, st.swap()), x)),
+                _need(ctx, 1, lambda: _ct(TpScatter.apply(x, g, w, st), env)),
+                _need(ctx, 2, lambda: _ct(GatherDw.apply(x, env, g, st), w)), None)
 
 
 class TpScatter(torch.autograd.Function):
@@ -149,16 +170,16 @@ class TpScatter(torch.autograd.Function):
     def forward(ctx, x, g, w, st: FusedStatics):
         ctx.save_for_backward(x, g, w)
         ctx.st = st
-        return fused_tp.tp_scatter(x, g, w, st.centers, st.row_ptr, st.entry_idx, st.entry_coef,
-                                   st.dims[1], st.scatter_paths)
+        return fused_tp.tp_scatter(x, g, _wide(w), st.centers, st.row_ptr, st.entry_idx,
+                                   st.entry_coef, st.dims[1], st.scatter_paths)
 
     @staticmethod
     def backward(ctx, t):
         x, g, w = ctx.saved_tensors
         t, st = t.contiguous(), ctx.st
-        return (_need(ctx, 0, lambda: GatherTp.apply(g, t, w, st.swap())),
-                _need(ctx, 1, lambda: GatherTp.apply(x, t, w, st)),
-                _need(ctx, 2, lambda: GatherDw.apply(x, t, g, st)), None)
+        return (_need(ctx, 0, lambda: _ct(GatherTp.apply(g, t, w, st.swap()), x)),
+                _need(ctx, 1, lambda: _ct(GatherTp.apply(x, t, w, st), g)),
+                _need(ctx, 2, lambda: _ct(GatherDw.apply(x, t, g, st), w)), None)
 
 
 class GatherDw(torch.autograd.Function):
@@ -175,9 +196,9 @@ class GatherDw(torch.autograd.Function):
     def backward(ctx, v):
         x, env, g = ctx.saved_tensors
         v, st = v.contiguous(), ctx.st
-        return (_need(ctx, 0, lambda: GatherTp.apply(g, env, v, st.swap())),
-                _need(ctx, 1, lambda: TpScatter.apply(x, g, v, st)),
-                _need(ctx, 2, lambda: GatherTp.apply(x, env, v, st)), None)
+        return (_need(ctx, 0, lambda: _ct(GatherTp.apply(g, env, v, st.swap()), x)),
+                _need(ctx, 1, lambda: _ct(TpScatter.apply(x, g, v, st), env)),
+                _need(ctx, 2, lambda: _ct(GatherTp.apply(x, env, v, st), g)), None)
 
 
 class UnweightSh(torch.autograd.Function):
@@ -193,41 +214,48 @@ class UnweightSh(torch.autograd.Function):
     def backward(ctx, s):
         t, wexp = ctx.saved_tensors
         s, st = s.contiguous(), ctx.st
-        return (_need(ctx, 0, lambda: EnvScatter.apply(s, wexp, st)),
-                _need(ctx, 1, lambda: UnweightW.apply(t, s, st)), None)
+        return (_need(ctx, 0, lambda: _ct(EnvScatter.apply(s, wexp, st), t)),
+                _need(ctx, 1, lambda: UnweightW.apply(t, s, st, wexp.dtype)), None)
 
 
 class UnweightW(torch.autograd.Function):
-    """``dwexp [E, n_irr*U] = Σ_{irr(j)=r} t[c(e), jU+u] sh[e, j]``."""
+    """``dwexp [E, n_irr*U] = Σ_{irr(j)=r} t[c(e), jU+u] sh[e, j]``, stored
+    in ``out_dtype`` (the env weights': the wexp-cotangent it is)."""
 
     @staticmethod
-    def forward(ctx, t, sh, st: FusedStatics):
+    def forward(ctx, t, sh, st: FusedStatics, out_dtype: Optional[torch.dtype] = None):
         ctx.save_for_backward(t, sh)
         ctx.st = st
-        return fused_tp.unweight_w(t, sh, st.centers, st.dim_to_irr, st.n_irr)
+        return fused_tp.unweight_w(t, sh, st.centers, st.dim_to_irr, st.n_irr, out_dtype)
 
     @staticmethod
     def backward(ctx, v):
         t, sh = ctx.saved_tensors
         v, st = v.contiguous(), ctx.st
-        return (_need(ctx, 0, lambda: EnvScatter.apply(sh, v, st)),
-                _need(ctx, 1, lambda: UnweightSh.apply(t, v, st)), None)
+        return (_need(ctx, 0, lambda: _ct(EnvScatter.apply(sh, v, st), t)),
+                _need(ctx, 1, lambda: _ct(UnweightSh.apply(t, v, st), sh)), None, None)
 
 
 def fused_layer(x, sh, wexp, w, st: FusedStatics) -> torch.Tensor:
     """One Allegro layer's tensor-track update on the trainable backend:
     x [E, d1*U] features, sh [E, d2] basis, wexp [E, n_irr*U] env weights
     (irrep-major, scatter factor already applied), w [P, U] path weights
-    → [E, d3*U]. Differentiable to any order in all four."""
+    → [E, d3*U] in x's dtype. Differentiable to any order in all four. x,
+    wexp and w may be the bf16 track (all three): sh stays in the model
+    dtype."""
     return GatherTp.apply(x, EnvScatter.apply(sh, wexp, st), w, st)
 
 
 class _FusedLayerInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3,
-                paths, swapped_paths, scatter_paths):
+                paths, swapped_paths, scatter_paths, split, wexp_dtype):
+        ctx.w_dtype, ctx.dwexp_dtype = w.dtype, wexp.dtype
+        w = _wide(w)
+        if wexp_dtype is not None:
+            wexp = wexp.to(wexp_dtype)
         env = kernels.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, w.shape[1])
-        out = kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, paths=paths)
+        out = kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
         ctx.save_for_backward(x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef,
                               dim_to_irr)
         ctx.bwd_paths = (swapped_paths, scatter_paths)
@@ -235,23 +263,29 @@ class _FusedLayerInfer(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, g, gts=None):
         x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef, dim_to_irr = (
             ctx.saved_tensors
         )
         dx, denv = kernels.bwd_fused(
             x, g.contiguous(), env, w, centers, row_ptr, entry_idx, entry_coef,
-            paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1],
+            None if gts is None else gts.contiguous(), paths=ctx.bwd_paths[0],
+            scatter_paths=ctx.bwd_paths[1],
         )
-        dsh, dwexp = kernels.unweight_both(denv, sh, wexp, centers, dim_to_irr)
+        # dwexp in wexp's primal dtype: the stored wexp's, except on a routed
+        # mega model (wexp_dtype), whose env weights' cotangent is unrounded
+        out_dtype = None if ctx.dwexp_dtype == wexp.dtype else ctx.dwexp_dtype
+        dsh, dwexp = kernels.unweight_both(denv, sh, wexp, centers, dim_to_irr, out_dtype)
         dw = _nan_like(w, ctx.needs_input_grad[3])
-        return dx, dsh, dwexp, dw, None, None, None, None, None, None, None, None, None
+        return (_ct(dx, x), _ct(dsh, sh), dwexp, None if dw is None else dw.to(ctx.w_dtype),
+                None, None, None, None, None, None, None, None, None, None, None)
 
 
 def fused_layer_infer(x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr,
                       d3: int, paths: Optional[CgPaths] = None,
                       swapped_paths: Optional[CgPaths] = None,
-                      scatter_paths: Optional[CgPaths] = None) -> torch.Tensor:
+                      scatter_paths: Optional[CgPaths] = None, split: bool = False,
+                      wexp_dtype: Optional[torch.dtype] = None):
     """x [E, d1*U] tensor features; sh [E, d2] basis; wexp [E, n_irr*U] env
     weights (irrep-major, scatter factor already applied); w [P, U] path
     weights; centers [E] and row_ptr [n_atoms+1] the CSR statics; the sparse
@@ -259,10 +293,17 @@ def fused_layer_infer(x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, d
     their path tables (``Contracter.infer_paths``): ``paths``, which
     ``gather_tp`` walks, and the role swap's (``swapped_paths``) and the
     (0, 2, 1) order's (``scatter_paths``), which ``bwd_fused`` walks.
-    Returns [E, d3*U]."""
+    Returns [E, d3*U] in x's dtype, or with ``split`` ``(out, ts)``: ts
+    [E, U] the leading 0e block in env's dtype, unrounded (``gather_tp``'s
+    split output; its cotangent goes to ``bwd_fused``'s gts). x, wexp and
+    w may be the bf16 track: the backward returns dx and dwexp in bfloat16
+    (``bwd_fused``'s dx, ``unweight_both``'s dwexp), dsh in sh's dtype.
+    ``wexp_dtype`` (JAX's mega path, for a mega model routed here): wexp in
+    the model dtype is stored in it for the kernels, and its cotangent comes
+    back unrounded in the model dtype (``unweight_both``'s ``out_dtype``)."""
     return _FusedLayerInfer.apply(
         x, sh, wexp, w, centers, row_ptr, entry_idx, entry_coef, dim_to_irr, d3, paths,
-        swapped_paths, scatter_paths,
+        swapped_paths, scatter_paths, split, wexp_dtype,
     )
 
 

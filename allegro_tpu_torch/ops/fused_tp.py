@@ -54,16 +54,22 @@ the same way: from one denv array, the function of its window pair. What
 bounds each kernel on the card and how its design answers it is noted
 beside each kernel in the CUDA source.
 
-The bf16 tensor track (the model's ``tensor_dtype="bfloat16"``, on the mega
-path): ``gather_tp`` and ``bwd_fused`` (without dw) take x, g and dx in
-bfloat16 where JAX stores them so, ``gather_tp_embed`` writes its out in
-``out_dtype``, ``bwd_embed`` reads its g in bfloat16, and
-``latent_env_scatter`` / ``latent_env_bwd`` round the env weights to
-``wexp_dtype`` and back before the env product; every other array stays in
-the model dtype. As in JAX (``compute_dtype``), each kernel and plain version
-loads the track, computes in float32 at least (the promotion of float32 with
-its inputs' dtypes) and rounds once, on store. The CUDA forms are the same
-kernels on either storage type (``csrc/*.cu``: ``load_f`` / ``store_f``).
+The bf16 tensor track (the model's ``tensor_dtype="bfloat16"``, on both
+fused backends): the features, their cotangents and the env weights are
+stored in bfloat16 where JAX stores them so. ``gather_tp`` and ``bwd_fused``
+(without dw) take x, g and dx in bfloat16, ``tp_scatter`` and ``gather_dw``
+x and g; ``env_scatter``, ``unweight_sh`` and ``unweight_both`` take wexp
+in bfloat16 (``unweight_both`` writes dwexp in it too, ``unweight_w`` in its
+``out_dtype``); ``gather_tp_embed`` writes its out in ``out_dtype``,
+``bwd_embed`` reads its g in bfloat16, and ``latent_env_scatter`` /
+``latent_env_bwd`` round the env weights to ``wexp_dtype`` and back before
+the env product. Every other array stays in the model dtype. As in JAX
+(``compute_dtype``), each kernel and plain version loads the track, computes
+in float32 at least (the promotion of float32 with its inputs' dtypes) and
+rounds once, on store; each output has the dtype JAX gives it. The CUDA
+forms are the same kernels on either storage type (``csrc/*.cu``:
+``load_f`` / ``store_f``, the staged rows widened to float); a combination
+of dtypes that has no form raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -85,11 +91,12 @@ LAUNCHES: Dict[str, int] = {
     # the `pallas` backend's two, whose wrappers are in ops/pallas_contract.py
     "sparse_tp": 0, "sparse_tp_gradw": 0,
 }
-# the launches of the bf16 forms (kernels 2, 3 and 7-10 on the bf16 track),
-# each also counted in LAUNCHES under its kernel's name
+# the launches of the bf16 forms (kernels 1-4, 7-10 and 14-17 on the bf16
+# track), each also counted in LAUNCHES under its kernel's name
 BF16_LAUNCHES: Dict[str, int] = {
-    "gather_tp": 0, "bwd_fused": 0, "latent_env_scatter": 0, "latent_env_bwd": 0,
-    "gather_tp_embed": 0, "bwd_embed": 0,
+    "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
+    "latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0,
+    "tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0,
 }
 
 
@@ -222,7 +229,8 @@ def _weighted_sh(sh, wexp, dim_to_irr, U):
 
 
 def env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U):
-    return segment_sum(_weighted_sh(sh, wexp, dim_to_irr, U), centers, n_atoms)
+    cdt = compute_dtype(sh, wexp)
+    return segment_sum(_weighted_sh(sh.to(cdt), wexp.to(cdt), dim_to_irr, U), centers, n_atoms)
 
 
 def _fold_gts(g, gts):
@@ -291,15 +299,15 @@ def _bwd_fused(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts, with_
     return dx, denv, gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, w.shape[0], U)
 
 
-def unweight_both_reference(t, sh, wexp, centers, dim_to_irr):
-    E, d2 = sh.shape
-    U = t.shape[1] // d2
-    n_irr = wexp.shape[1] // U
-    d2i = dim_to_irr.long()
-    t_e = gather_rows(t, centers).view(E, d2, U)
-    dsh = (t_e * wexp.view(E, n_irr, U).index_select(1, d2i)).sum(-1)
-    dwexp = wexp.new_zeros((E, n_irr, U)).index_add(1, d2i, t_e * sh[:, :, None])
-    return dsh, dwexp.reshape(E, n_irr * U)
+def unweight_both_reference(t, sh, wexp, centers, dim_to_irr, out_dtype=None):
+    # JAX's dtypes: computed in the promotion of all three, dsh stored in
+    # t's compute dtype, dwexp in out_dtype, default wexp's (the bf16
+    # track's bfloat16)
+    cdt = compute_dtype(t, wexp, sh)
+    n_irr = wexp.shape[1] // (t.shape[1] // sh.shape[1])
+    dsh = unweight_sh_reference(t.to(cdt), wexp.to(cdt), centers, dim_to_irr)
+    dwexp = unweight_w_reference(t.to(cdt), sh.to(cdt), centers, dim_to_irr, n_irr)
+    return dsh.to(compute_dtype(t)), dwexp.to(out_dtype or wexp.dtype)
 
 
 def center_gather_reference(a, idx):
@@ -392,6 +400,10 @@ def bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_c
 
 
 def tp_scatter_reference(x, g, w, centers, n_atoms, entry_idx, entry_coef, d2):
+    # computed and stored in the compute dtype of x and g (float32 for the
+    # bf16 track, also in a float64 model: JAX's), w read in it
+    cdt = compute_dtype(x, g)
+    x, g, w = x.to(cdt), g.to(cdt), w.to(cdt)
     E, U = x.shape[0], w.shape[1]
     d1, d3 = x.shape[1] // U, g.shape[1] // U
     ww = _path_tensor(w, entry_idx, entry_coef, d1, d2, d3)
@@ -403,6 +415,11 @@ def tp_scatter_reference(x, g, w, centers, n_atoms, entry_idx, entry_coef, d2):
 
 
 def gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, n_paths, U):
+    # computed in the promotion of all three, stored in the compute dtype of
+    # x and g (JAX's)
+    out_dtype = compute_dtype(x, g)
+    cdt = compute_dtype(x, env, g)
+    x, env, g = x.to(cdt), env.to(cdt), g.to(cdt)
     E = x.shape[0]
     d1, d2, d3 = x.shape[1] // U, env.shape[1] // U, g.shape[1] // U
     C = _cg_tensor(x, entry_idx, entry_coef, n_paths, d1, d2, d3)
@@ -412,22 +429,29 @@ def gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, n_paths, U):
     for i in range(d1):
         t = torch.einsum("eju,eku->jku", xv[:, i : i + 1, :] * env_e, gv)  # [d2, d3, U]
         dw = dw + torch.einsum("pjk,jku->pu", C[:, i], t)
-    return dw
+    return dw.to(out_dtype)
 
 
 def unweight_sh_reference(t, wexp, centers, dim_to_irr):
+    # computed in the promotion of t and wexp, stored in t's compute dtype
+    cdt = compute_dtype(t, wexp)
     E, d2 = wexp.shape[0], dim_to_irr.shape[0]
     U = t.shape[1] // d2
-    t_e = gather_rows(t, centers).view(E, d2, U)
-    return (t_e * wexp.view(E, -1, U).index_select(1, dim_to_irr.long())).sum(-1)
+    t_e = gather_rows(t.to(cdt), centers).view(E, d2, U)
+    w = wexp.to(cdt).view(E, -1, U).index_select(1, dim_to_irr.long())
+    return (t_e * w).sum(-1).to(compute_dtype(t))
 
 
-def unweight_w_reference(t, sh, centers, dim_to_irr, n_irr):
+def unweight_w_reference(t, sh, centers, dim_to_irr, n_irr, out_dtype=None):
+    # computed in the promotion of t and sh, stored in out_dtype (the env
+    # weights' storage: JAX's out_dtype) or that promotion
+    cdt = compute_dtype(t, sh)
     E, d2 = sh.shape
     U = t.shape[1] // d2
-    t_e = gather_rows(t, centers).view(E, d2, U)
-    dwexp = sh.new_zeros((E, n_irr, U)).index_add(1, dim_to_irr.long(), t_e * sh[:, :, None])
-    return dwexp.reshape(E, n_irr * U)
+    t_e = gather_rows(t.to(cdt), centers).view(E, d2, U)
+    dwexp = t_e.new_zeros((E, n_irr, U)).index_add(1, dim_to_irr.long(),
+                                                   t_e * sh.to(cdt)[:, :, None])
+    return dwexp.reshape(E, n_irr * U).to(out_dtype or cdt)
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +554,9 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
     """env [n_atoms, d2*U]: ``env[a, jU+u] = Σ_{c(e)=a} sh[e,j] wexp[e, irr(j)U+u]``.
 
     sh [E, d2], wexp [E, n_irr*U], centers [E], row_ptr [n_atoms+1] (CSR over
-    the center-sorted edges), dim_to_irr [d2].
+    the center-sorted edges), dim_to_irr [d2]. wexp may be the bf16 track
+    (the env weights, or a cotangent in their role): env is in the compute
+    dtype (float32).
 
     Replaces ``_env_scatter_kernel``. Bound by the one read of wexp; a block
     per group of consecutive atoms stages their edges' wexp and sh rows (one
@@ -546,15 +572,14 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
         )
     if _on_cpu(sh, wexp, centers, row_ptr, dim_to_irr):
         return env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U)
-    _check_kernel_args(
-        {"sh": sh, "wexp": wexp}, {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr}
-    )
+    bf16 = _check_kernel_args({"sh": sh}, {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr},
+                              {"wexp": wexp})
     env = torch.empty((n_atoms, d2 * U), dtype=sh.dtype, device=sh.device)
     if n_atoms == 0:
         return env
     _launch("env_scatter", "atpt_env_scatter", sh.device,
             sh.data_ptr(), wexp.data_ptr(), row_ptr.data_ptr(), dim_to_irr.data_ptr(),
-            n_atoms, d2, n_irr, U, env.data_ptr())
+            n_atoms, d2, n_irr, U, env.data_ptr(), int(bf16), bf16=bf16)
     return env
 
 
@@ -673,9 +698,13 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
     return (dx, denv, dw) if with_dw else (dx, denv)
 
 
-def unweight_both(t, sh, wexp, centers, dim_to_irr) -> Tuple[torch.Tensor, torch.Tensor]:
+def unweight_both(t, sh, wexp, centers, dim_to_irr, out_dtype: Optional[torch.dtype] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two transposes of ``env_scatter`` from t = denv [n_atoms, d2*U]:
-    dsh [E, d2] and dwexp [E, n_irr*U].
+    dsh [E, d2] and dwexp [E, n_irr*U]. wexp may be the bf16 track: dwexp
+    is then stored in ``out_dtype``, default wexp's (JAX's non-mega path
+    stores it in bfloat16; float32 is the unrounded cotangent of JAX's mega
+    path, for a mega model routed here), dsh float32.
 
     Replaces ``_unweight_both_raw_kernel`` (and ``_unweight_both_kernel``).
     Bound by the read of wexp and the write of dwexp; the tiles of
@@ -696,18 +725,20 @@ def unweight_both(t, sh, wexp, centers, dim_to_irr) -> Tuple[torch.Tensor, torch
             f"wexp {tuple(wexp.shape)}, centers {tuple(centers.shape)}"
         )
     if _on_cpu(t, sh, wexp, centers, dim_to_irr):
-        return unweight_both_reference(t, sh, wexp, centers, dim_to_irr)
-    _check_kernel_args(
-        {"t": t, "sh": sh, "wexp": wexp}, {"centers": centers, "dim_to_irr": dim_to_irr}
-    )
+        return unweight_both_reference(t, sh, wexp, centers, dim_to_irr, out_dtype)
+    bf16 = _check_kernel_args({"t": t, "sh": sh}, {"centers": centers, "dim_to_irr": dim_to_irr},
+                              {"wexp": wexp})
     dsh = torch.empty_like(sh)
-    dwexp = torch.empty_like(wexp)
+    dwexp = torch.empty_like(wexp, dtype=out_dtype or wexp.dtype)
+    bf16_out = _check_kernel_args({}, {}, {"dwexp": dwexp})
+    if bf16_out and not bf16:
+        raise TypeError("unweight_both: a bfloat16 dwexp needs bfloat16 env weights")
     if E == 0:
         return dsh, dwexp
     _launch("unweight_both", "atpt_unweight_both", t.device,
             t.data_ptr(), sh.data_ptr(), wexp.data_ptr(), centers.data_ptr(),
             dim_to_irr.data_ptr(), E, t.shape[0], d2, n_irr, U,
-            dsh.data_ptr(), dwexp.data_ptr())
+            dsh.data_ptr(), dwexp.data_ptr(), int(bf16), int(bf16_out), bf16=bf16)
     return dsh, dwexp
 
 
@@ -1124,6 +1155,7 @@ def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int,
     w [P, U], row_ptr [n_atoms+1]; the entry table in either role order; on
     the card also ``paths``, the path table of that order with its roles
     permuted (0, 2, 1), so that its out is j (``Contracter.scatter_paths``).
+    x and g may be the bf16 track (both): denv is float32 either way.
 
     Replaces ``_tp_scatter_kernel``. Bound by the reads of x and g; per atom
     segment, threads of (chunk, channel) walk the edges' compiled CG paths
@@ -1139,16 +1171,16 @@ def tp_scatter(x, g, w, centers, row_ptr, entry_idx, entry_coef, d2: int,
         )
     if _on_cpu(x, g, w, centers, row_ptr, entry_idx, entry_coef):
         return tp_scatter_reference(x, g, w, centers, n_atoms, entry_idx, entry_coef, d2)
-    _check_kernel_args({"x": x, "g": g, "w": w}, {"row_ptr": row_ptr})
+    bf16 = _check_kernel_args({"w": w}, {"row_ptr": row_ptr}, {"x": x, "g": g})
     paths = _kernel_paths("tp_scatter", paths, entry_idx.shape[0])
-    denv = torch.empty((n_atoms, d2 * U), dtype=x.dtype, device=x.device)
+    denv = torch.empty((n_atoms, d2 * U), dtype=w.dtype, device=x.device)
     if n_atoms == 0:
         return denv
     _launch("tp_scatter", "atpt_tp_scatter", x.device,
             x.data_ptr(), g.data_ptr(), w.data_ptr(), row_ptr.data_ptr(), paths.desc.data_ptr(),
             paths.scale.data_ptr(), paths.desc.shape[0], paths.entry_idx.data_ptr(),
             paths.entry_coef.data_ptr(), n_atoms, x.shape[1] // U, d2, g.shape[1] // U, U,
-            w.shape[0], denv.data_ptr())
+            w.shape[0], denv.data_ptr(), int(bf16), bf16=bf16)
     return denv
 
 
@@ -1160,7 +1192,8 @@ def gather_dw(x, env, g, centers, entry_idx, entry_coef, n_paths: int, U: int,
     """dw [n_paths, U]: ``dw[p, u] = Σ_e Σ_{(i,j,k)∈p} c x[e,iU+u]
     env[c(e),jU+u] g[e,kU+u]``, the w-transpose of ``gather_tp``. x [E,
     d1*U], env [n_atoms, d2*U], g [E, d3*U]; sentinel edges add nothing; on
-    the card also ``paths`` (as ``gather_tp``).
+    the card also ``paths`` (as ``gather_tp``). x and g may be the bf16
+    track (both): dw is float32 either way.
 
     Replaces ``_gather_dw_kernel``. Bound by the reads of x and g; each
     path's compiled block once per edge and channel, dotted with g's slice,
@@ -1176,17 +1209,17 @@ def gather_dw(x, env, g, centers, entry_idx, entry_coef, n_paths: int, U: int,
         )
     if _on_cpu(x, env, g, centers, entry_idx, entry_coef):
         return gather_dw_reference(x, env, g, centers, entry_idx, entry_coef, n_paths, U)
-    _check_kernel_args({"x": x, "env": env, "g": g}, {"centers": centers})
+    bf16 = _check_kernel_args({"env": env}, {"centers": centers}, {"x": x, "g": g})
     paths = _kernel_paths("gather_dw", paths, entry_idx.shape[0])
     n_blocks = max(1, min(_DW_MAX_BLOCKS, -(-E // 64)))
-    partial = torch.empty((n_blocks, n_paths, U), dtype=x.dtype, device=x.device)
-    dw = torch.empty((n_paths, U), dtype=x.dtype, device=x.device)
+    partial = torch.empty((n_blocks, n_paths, U), dtype=env.dtype, device=x.device)
+    dw = torch.empty((n_paths, U), dtype=env.dtype, device=x.device)
     _launch("gather_dw", "atpt_gather_dw", x.device,
             x.data_ptr(), env.data_ptr(), g.data_ptr(), centers.data_ptr(),
             paths.desc.data_ptr(), paths.scale.data_ptr(), paths.desc.shape[0],
             paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(), E, env.shape[0],
             x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
-            partial.data_ptr(), dw.data_ptr())
+            partial.data_ptr(), dw.data_ptr(), int(bf16), bf16=bf16)
     return dw
 
 
@@ -1202,7 +1235,9 @@ def _check_unweight(what, t, e_arr, centers, dim_to_irr):
 
 def unweight_sh(t, wexp, centers, dim_to_irr) -> torch.Tensor:
     """dsh [E, d2]: ``dsh[e, j] = Σ_u t[c(e), jU+u] wexp[e, irr(j)U+u]``, the
-    sh-transpose of ``env_scatter``. t [n_atoms, d2*U], wexp [E, n_irr*U].
+    sh-transpose of ``env_scatter``. t [n_atoms, d2*U], wexp [E, n_irr*U];
+    wexp may be the bf16 track (the env weights, or a cotangent in their
+    role): dsh is float32 either way.
 
     Replaces ``_gather_unweight_sh_kernel``. Bound by the read of wexp; a
     block per tile of 32 consecutive edges, the tile's wexp rows and up to 4
@@ -1217,19 +1252,23 @@ def unweight_sh(t, wexp, centers, dim_to_irr) -> torch.Tensor:
         raise ValueError(f"unweight_sh: wexp {tuple(wexp.shape)} is not [E, n_irr*{U}]")
     if _on_cpu(t, wexp, centers, dim_to_irr):
         return unweight_sh_reference(t, wexp, centers, dim_to_irr)
-    _check_kernel_args({"t": t, "wexp": wexp}, {"centers": centers, "dim_to_irr": dim_to_irr})
+    bf16 = _check_kernel_args({"t": t}, {"centers": centers, "dim_to_irr": dim_to_irr},
+                              {"wexp": wexp})
     dsh = torch.empty((E, d2), dtype=t.dtype, device=t.device)
     if E > 0:
         _launch("unweight_sh", "atpt_unweight_sh", t.device,
                 t.data_ptr(), wexp.data_ptr(), centers.data_ptr(), dim_to_irr.data_ptr(), E,
-                t.shape[0], d2, wexp.shape[1] // U, U, dsh.data_ptr())
+                t.shape[0], d2, wexp.shape[1] // U, U, dsh.data_ptr(), int(bf16), bf16=bf16)
     return dsh
 
 
-def unweight_w(t, sh, centers, dim_to_irr, n_irr: int) -> torch.Tensor:
+def unweight_w(t, sh, centers, dim_to_irr, n_irr: int,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """dwexp [E, n_irr*U]: ``dwexp[e, rU+u] = Σ_{irr(j)=r} t[c(e), jU+u]
     sh[e, j]``, the wexp-transpose of ``env_scatter``. t [n_atoms, d2*U],
-    sh [E, d2].
+    sh [E, d2]. ``out_dtype``: dwexp's storage, the env weights' (JAX's
+    ``out_dtype``: the bf16 track's bfloat16, rounded once from the float32
+    sum); default the compute dtype.
 
     Replaces ``_gather_unweight_w_kernel``. Bound by the write of dwexp; a
     block per tile of 32 consecutive edges, the tile's sh rows and up to 4
@@ -1244,11 +1283,12 @@ def unweight_w(t, sh, centers, dim_to_irr, n_irr: int) -> torch.Tensor:
         raise ValueError(f"unweight_w: sh {tuple(sh.shape)} against dim_to_irr "
                          f"{tuple(dim_to_irr.shape)}")
     if _on_cpu(t, sh, centers, dim_to_irr):
-        return unweight_w_reference(t, sh, centers, dim_to_irr, n_irr)
+        return unweight_w_reference(t, sh, centers, dim_to_irr, n_irr, out_dtype)
     _check_kernel_args({"t": t, "sh": sh}, {"centers": centers, "dim_to_irr": dim_to_irr})
-    dwexp = torch.empty((E, n_irr * U), dtype=t.dtype, device=t.device)
+    dwexp = torch.empty((E, n_irr * U), dtype=out_dtype or t.dtype, device=t.device)
+    bf16 = _check_kernel_args({}, {}, {"dwexp": dwexp})
     if E > 0:
         _launch("unweight_w", "atpt_unweight_w", t.device,
                 t.data_ptr(), sh.data_ptr(), centers.data_ptr(), dim_to_irr.data_ptr(), E,
-                t.shape[0], sh.shape[1], n_irr, U, dwexp.data_ptr())
+                t.shape[0], sh.shape[1], n_irr, U, dwexp.data_ptr(), int(bf16), bf16=bf16)
     return dwexp

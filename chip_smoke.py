@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of allegro_tpu_torch on one CUDA GPU: build, check, drive.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --phase 11   # the build, then phase 8, 9, 10 or 11 alone
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
@@ -198,8 +199,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    track's elements at 2 B). The bf16 forms stage the same float32 columns
    in shared memory as the float32 forms (they widen as they load), so
    ``check_fit_rule`` holds both storage types.
-9. deployment (``deploy_phase``; ``python3 scripts/torch_deploy.py`` runs it
-   alone): the mega model's force call on the ghost-format crystal (its
+9. deployment (``deploy_phase``; ``--phase 9`` runs it alone, on a tutorial
+   workdir it trains while the kernels build): the mega model's force call on the ghost-format crystal (its
    list to r_max + ``DEPLOY_SKIN``, the C++ driver's), padded with room to
    grow, exported by ``compile/export.py``: (a) the ``ExportedProgram``'s
    module on the card holds one ``atpt::`` op per launch of the eager call
@@ -216,8 +217,7 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    (d) ``python -m allegro_tpu_torch compile`` on phase 6d's tutorial
    workdir (started with (c)'s build), its ``.pt2`` loaded and called once
    against the eager model of the same checkpoint.
-10. multi-device (``parallel_phase``; ``python3 scripts/torch_parallel.py``
-   runs it alone), every mesh ``[cuda:0] * D`` on this one card: (a) slab
+10. multi-device (``parallel_phase``; ``--phase 10`` runs it alone), every mesh ``[cuda:0] * D`` on this one card: (a) slab
    at D = 2 and 4, brick at (2, 2, 1) and (2, 2, 2) on the 4,096-atom
    crystal (``parallel.SlabDecomposition`` / ``BrickDecomposition``: halo
    exchange, the mega force call per domain, ghost forces sent back in a
@@ -234,6 +234,35 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    and 201), one per row: its mean gradient equal to the mean of the two
    one-row gradients bit for bit, twice; launches 2x a one-row step's; ms
    per step.
+11. the bf16 tensor track off the mega route (``track_phase``; ``--phase
+   11`` runs it alone): (a) the bf16 forms of
+   kernels 1, 4 and 14-17 (the env weights of ``env_scatter``,
+   ``unweight_sh`` and ``unweight_both`` in bfloat16, and the dwexp that
+   ``unweight_both`` and ``unweight_w`` store; the x and g of ``tp_scatter``
+   and ``gather_dw``) at the flagship's 4,096-atom shapes, each against its
+   plain version on the same bf16 inputs (``check_bf16_case``) and timed
+   beside its float32 form; untimed checks of ``unweight_both`` with a
+   float32 dwexp (a mega model routed off the mega kernels) and of
+   ``tp_scatter`` and ``gather_dw`` on layer 0's table (where training
+   launches them too); (b) under
+   ``POLICY_100K``, the flagship with ``use_mega=False`` (JAX's non-mega
+   semantics) and phase 3w's widest model, routed to ``fused_call`` on this
+   card (JAX's mega semantics), against the float64 ``einsum`` oracle: the
+   routed model within the reference allclose, the ``use_mega=False`` call
+   within ``OFF_MEGA_TOL`` (its 5e-5 margin printed beside: JAX's non-mega
+   path rounds layer 0's input features, which mega does not; JAX's own call
+   misses 5e-5 by as much on this crystal), each energy within its force
+   tolerance of sum |E_i|, each with its exact bf16 launches (``TRACK_CALL``, ``TRACK_ROUTED_CALL``) and two
+   calls the same bits; (c) ``TRACK_TRAIN_STEPS`` Adam steps on ``fused``
+   with the track on phase 5's 1k batch: every launch of the trainable
+   family a bf16 form (``PER_STEP``'s counts), finite losses, float32
+   parameters and gradients, two identical steps' gradients the same bits.
+
+``--phase N`` (8, 9, 10 or 11) runs phases 0 and 1, builds the flagship's
+models on the crystal as a whole run does, runs phase N (8 with 8e) with a
+fresh ``RandomState(SEED)``, prints the ptxas lines of its bf16 forms and
+its rows of the kernels line (8, 11) or its launches (10), then ``[done]``;
+no ``ok`` line, since the other phases did not run.
 
 The run prints its total seconds (``[done]``). The last two lines of stdout
 are a JSON object with the kernels' records and the JSON result ``{"ok":
@@ -273,9 +302,15 @@ for ``unweight_both``; ``gather_tp`` swapped + ``tp_scatter`` for
 After the 21 rows, one row per bf16 form (``name[bf16]``, kernels 2, 3,
 7-10; ``bf16_record``): its times at the flagship shapes (phase 8e, one
 launch per layer of the 100k policy's force call), ``ms_f32_form`` beside
-them, ``max_ulps`` and ``not_same_bits``, and as ``launches`` its launches
+them, ``max_ulps``, ``not_same_bits`` (``same_bits``: the share of its
+bfloat16-stored outputs, null where it stores none) and
+``not_same_bits_all`` (of all its outputs), and as ``launches`` its launches
 in one force call of the 100k policy on the 97,336-atom crystal (phase 8b:
-the recomputes of remat and checkpoint_energy included).
+the recomputes of remat and checkpoint_energy included). Then one row per
+bf16 form of phase 11 (kernels 1, 4, 14-17; ``track_record``): its times at
+the flagship shapes (11a) and as ``launches`` the sum of its bf16 launches
+in the ``use_mega=False`` force call of 11b and one training step of 11c,
+each also under its own key.
 """
 
 from __future__ import annotations
@@ -2163,7 +2198,11 @@ def check_lmax3_kernels(models, deep, data, n_edges, dev, rng, records):
     training step at that layer) and layer 1 (16, 16, 1; 16 entries) of the
     2-layer model; the 3-layer model's middle dims (16, 16, 31) and (31, 16,
     16) (611 entries each), checks only. ``deep``: that model on ``fused``
-    and on ``pallas`` (whose Contracters hold the six table orders)."""
+    and on ``pallas`` (whose Contracters hold the six table orders). The
+    untimed ``pallas`` checks take a quarter of the crystal's rows: their
+    walks do not depend on the row count, and on all of them (with their
+    float64 references) they took 89 of phase 7a's 192 s on an NVIDIA H100
+    80GB HBM3 at 700 W."""
     mega, tps = models["mega"].module.allegro, models["fused readout"].module.allegro.tps
     ptps = models["pallas"].module.allegro.tps
     timing = PHASE7_PLAIN_TIMING
@@ -2174,13 +2213,14 @@ def check_lmax3_kernels(models, deep, data, n_edges, dev, rng, records):
     check_train_kernels(tps[1:], data, rng, first=1)
     check_kernel18(tps, data, rng, records, "l_max 3", timing)
     check_pallas_kernels(ptps[:1], n_edges, dev, rng, records, library=False, plain_timing=timing)
-    check_pallas_kernels(ptps[1:], n_edges, dev, rng, None, library=False, first=1)
+    rows = n_edges // 4
+    check_pallas_kernels(ptps[1:], rows, dev, rng, None, library=False, first=1)
     fused_deep, pallas_deep = (m.module.allegro for m in deep)
     check_kernels(fused_deep.tps[:2], data, rng)
     check_mega_kernels(fused_deep, data, rng)
     check_train_kernels(fused_deep.tps[:2], data, rng)
     check_kernel18(fused_deep.tps[:2], data, rng, None, "l_max 3, 3 layers")
-    check_pallas_kernels(pallas_deep.tps[:2], n_edges, dev, rng, None, library=False)
+    check_pallas_kernels(pallas_deep.tps[:2], rows, dev, rng, None, library=False)
 
 
 def bitwise_same(a, b):
@@ -2466,7 +2506,16 @@ def time_force_call(model, data, n_atoms, reps=10):
     return (time.perf_counter() - t0) / reps / n_atoms * 1e6
 
 
-def main() -> int:
+ONE_PHASE = ("8", "9", "10", "11")  # the phases ``--phase`` runs alone
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of allegro_tpu_torch on one GPU.")
+    parser.add_argument("--phase", choices=ONE_PHASE,
+                        help="run the build and this phase alone (default: every phase)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -2488,6 +2537,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[0] device {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
+    tutorial = None
+    if args.phase == "9":
+        # phase 9d's workdir (a whole run's comes from phase 6d), trained
+        # while the kernels build
+        tutorial = tempfile.TemporaryDirectory(prefix="chip_smoke_tutorial_")
+        train = subprocess.Popen(
+            [sys.executable, "-m", "allegro_tpu_torch", "run", "-c", "configs/tutorial.yaml",
+             "-w", str(Path(tutorial.name) / "tutorial")], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -2496,6 +2554,22 @@ def main() -> int:
     print(f"[1] built {so.name} in {time.perf_counter() - t0:.1f} s")
     log = so.with_suffix(".log")
     usage = ptxas_usage(log.read_text()) if log.exists() else {}
+    if args.phase:
+        try:
+            if tutorial is not None:
+                out, err = train.communicate(timeout=CLI_TIMEOUT)
+                if train.returncode != 0:
+                    print(out[-2000:], err[-3000:], file=sys.stderr)
+                    raise AssertionError("the tutorial run for phase 9d failed")
+            one_phase(args.phase, dev, smi, usage, stamp,
+                      tutorial and str(Path(tutorial.name) / "tutorial"))
+        finally:
+            if tutorial is not None:
+                train.kill()
+                tutorial.cleanup()
+        print(f"[done] phase {args.phase} in {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     for mangled, (regs, stores, loads) in usage.items():
         print(f"    ptxas: {regs:3d} registers, spill stores {stores} B, loads {loads} B: {mangled}")
 
@@ -2520,7 +2594,9 @@ def main() -> int:
     records = {}
     rng = np.random.RandomState(SEED)
     check_kernels(fused.module.allegro.tps, data, rng, records)
+    stamp("2 mega")
     check_mega_kernels(mega.module.allegro, data, rng, records)
+    stamp("2 U16/48")
     for U in (16, 48):
         # the layer kernels at these widths: phase 5a's shape checks
         other = AllegroModel(
@@ -2529,8 +2605,9 @@ def main() -> int:
         ).init(SEED).to(dev)
         check_mega_kernels(other.module.allegro, data, rng)
     check_embed_beyond_the_header(data, rng)
+    stamp("2 long")
     check_long_segments(mega, rng, dev)
-
+    stamp("2 center")
     check_center_readout(data, rng, records)
     floor_ms = launch_floor_ms(dev)
     print(f"    launch floor: an empty kernel {floor_ms:.4f} ms under median_ms ({smi})")
@@ -2583,15 +2660,18 @@ def main() -> int:
           f"{int(batch_1k[keys.EDGE_MASK].sum())} edges (padded "
           f"{batch_1k[keys.EDGE_INDEX].shape[1]})")
     check_train_kernels(train.module.allegro.tps, train_data, rng, records)
+    stamp("5a U16/48")
     for U in (16, 48):
         other = AllegroModel(**{**FLAGSHIP, "num_tensor_features": U}, avg_num_neighbors=25.0,
                              tp_kernel_backend="fused").init(SEED).to(dev)
         check_train_kernels(other.module.allegro.tps, train_data, rng)
+    stamp("5a shapes")
     check_gather_shapes(train_data, rng)
     check_scatter_shapes(train_data, rng)
     check_bwd_shapes(train_data, rng)
     check_readout_shapes(train_data, rng)
     del train_data
+    stamp("5b")
     train_launches = run_training(loaders, dev, smi)
 
     stamp("6")
@@ -2602,6 +2682,7 @@ def main() -> int:
     print(f"[6] pallas kernels on the crystal's {n_edges} edges")
     check_pallas_kernels(pallas.module.allegro.tps, n_edges, dev, rng, records)
     check_pallas_shapes(n_edges - 1, dev, rng)
+    stamp("6b")
     pallas_data = to_torch(pallas.precompute_statics(batch_np), dtype=torch.float32, device=dev)
     launches["pallas"], us["pallas"] = drive_force_calls("6b", "pallas", pallas, pallas_data, ref,
                                                          n_atoms, n_rows)
@@ -2610,6 +2691,7 @@ def main() -> int:
     profile_calls(lambda: pallas.apply_with_derivatives(pallas_data), 3, "flagship, pallas")
     del pallas_data
     torch.cuda.empty_cache()
+    stamp("6c")
     pallas_train = run_training(loaders, dev, smi, "pallas", PER_STEP_PALLAS, ("6c", "6c"))
     stamp("6d")
     # the CLI's workdirs stay for phase 9d, which compiles the tutorial's
@@ -2620,7 +2702,9 @@ def main() -> int:
     # phase 7: kernels 18 and 19, the l_max-3 model and the rest of the surface
     print("[7b] kernel 18 (bwd_fused with dw) and 19 (unweight_both) at the flagship dims")
     check_kernel18(fused.module.allegro.tps, data, rng, records, "flagship", PHASE7_PLAIN_TIMING)
+    stamp("7 models")
     models, deep = lmax3_models(n_edges, n_atoms, dev)
+    stamp("7a")
     print(f"[7a] kernels at the l_max-3 shapes on the crystal's {n_edges} edges")
     records_l3 = {}
     l3_data = to_torch(models["mega"].precompute_statics(batch_np), dtype=torch.float32,
@@ -2628,9 +2712,11 @@ def main() -> int:
     check_lmax3_kernels(models, deep, l3_data, n_edges, dev, rng, records_l3)
     del deep, l3_data
     torch.cuda.empty_cache()
+    stamp("7c")
     l3_launches, l3_md, l3_calc = run_lmax3(models, frame, batch_np, n_atoms, dev, smi)
     del models
     torch.cuda.empty_cache()
+    stamp("7e")
     run_surface(batch_np, n_atoms, n_edges, dev)
 
     stamp("8")
@@ -2648,6 +2734,10 @@ def main() -> int:
     # phase 10: multi-device MD and data-parallel training on meshes of this card
     parallel = parallel_phase(mega, dev, smi, stamp)
 
+    stamp("11")
+    # phase 11: the bf16 tensor track off the mega route
+    track_rows = track_phase(fused, batch_np, data, n_atoms, n_edges, loaders, rng, dev, smi)
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(f"launch floor {floor_ms:.4f} ms (an empty kernel under median_ms, phase 2)")
@@ -2656,10 +2746,48 @@ def main() -> int:
                 lmax3_calculator=l3_calc, ptxas=usage, pt2=pt2_launches, parallel=parallel)
     print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
                                   for row in TPU_KERNELS]
-                      + bf16_rows}))
+                      + bf16_rows + track_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def one_phase(phase, dev, smi, usage, stamp, tutorial_dir):
+    """``--phase``: phase 8 (with 8e), 9, 10 or 11 alone on the flagship's
+    models and the 4,096-atom crystal, as ``main`` builds them."""
+    from allegro_tpu_torch.data import batch_frames, keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+
+    frame, n_atoms = crystal_frame(N_ATOMS, R_MAX, SEED)
+    n_edges = frame[keys.EDGE_INDEX].shape[1]
+    batch_np = batch_frames([frame], n_frames=1)
+    fused = AllegroModel(
+        **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
+        use_mega=False, use_fused_readout=False,
+    ).init(SEED).to(dev)
+    data = to_torch(fused.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+    mega = AllegroModel(
+        **FLAGSHIP, avg_num_neighbors=n_edges / n_atoms, tp_kernel_backend="fused_infer",
+    ).to(dev)
+    mega.load_state_dict(fused.state_dict())
+    rng = np.random.RandomState(SEED)
+    stamp(phase)
+    if phase == "8":
+        rows, forms = big_system_phase(mega, data, rng, dev, smi), BF16_KERNELS
+    elif phase == "9":
+        deploy_phase(mega, dev, smi, tutorial_dir, stamp)
+        return
+    elif phase == "10":
+        for run, counts in parallel_phase(mega, dev, smi, stamp).items():
+            print(f"launches {run}: {sum(counts.values())} ({counts})")
+        return
+    else:
+        rows = track_phase(fused, batch_np, data, n_atoms, n_edges, train_loaders(), rng, dev,
+                           smi)
+        forms = TRACK_KERNELS
+    for _, name in forms:
+        print(f"    ptxas {name}: {kernel_ptxas(name, usage)}")
+    print(json.dumps(rows))
 
 
 def ptxas_usage(log):
@@ -2697,12 +2825,19 @@ def kernel_ptxas(name, usage):
     forms = "partial|narrow|segments|rows|chunks|partials"
     for mangled, (regs, stores, loads) in usage.items():
         m = re.search(rf"\d({re.escape(name)}(?:_(?:{forms}))?_kernel)"
-                      r"(I((?:L[bi]\d+E|f|6float4|13__nv_bfloat16)+)E)?", mangled)
+                      r"(I((?:L[bi]\d+E|f|6float4|13__nv_bfloat16|S\d*_)+)E)?", mangled)
         if m:
             types = {"f": "float", "6float4": "float4", "13__nv_bfloat16": "bf16"}
-            args = [{"b1": "true", "b0": "false"}.get(b + v, v) if v else types[t]
-                    for b, v, t in re.findall(r"L([bi])(\d+)E|(f|6float4|13__nv_bfloat16)",
-                                              m.group(3) or "")]
+            args = []
+            # S<n>_ repeats a type named before it (the only repeat here:
+            # the last storage type, as in <4, bf16, bf16>)
+            for b, v, t in re.findall(r"L([bi])(\d+)E|(f|6float4|13__nv_bfloat16|S\d*_)",
+                                      m.group(3) or ""):
+                if v:
+                    args.append({"b1": "true", "b0": "false"}.get(b + v, v))
+                else:
+                    args.append(types.get(t) or next(a for a in reversed(args)
+                                                     if a in types.values()))
             tag = f"<{', '.join(args)}>" if any(args) else ""
             out.append({"kernel": m.group(1) + tag, "registers": regs, "spill_stores": stores,
                         "spill_loads": loads})
@@ -2822,8 +2957,8 @@ def bf16_gate(got, ref, slack=None):
     result), and at most BF16_DIFFER_MAX of the bfloat16 outputs not the
     same bits (a store that truncates, or rounds the wrong way, would differ
     in about half). Returns (ok, worst ulps, rel, max abs error, outputs not
-    the same bits, outputs, share of the bfloat16 outputs not the same
-    bits)."""
+    the same bits, outputs, bfloat16 outputs not the same bits, bfloat16
+    outputs)."""
     slack = slack or {}
     worst_ulps, rel, abs_err, differ, total, differ16, total16 = 0.0, 0.0, 0.0, 0, 0, 0, 0
     for i, (a, b) in enumerate(zip(got, ref)):
@@ -2846,7 +2981,7 @@ def bf16_gate(got, ref, slack=None):
             rel = max(rel, over.max().item() / scale)
     share16 = differ16 / max(total16, 1)
     ok = worst_ulps <= 1.0 and rel < KERNEL_TOL and share16 <= BF16_DIFFER_MAX
-    return ok, worst_ulps, rel, abs_err, differ, total, share16
+    return ok, worst_ulps, rel, abs_err, differ, total, differ16, total16
 
 
 def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops, slack=None,
@@ -2859,8 +2994,8 @@ def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops,
     float32 form's outputs (the same dtypes, unrounded) must fail the same
     gate, so the gate is shown to see the rounding."""
     got, ref = kernel(), plain()
-    ok, worst_ulps, rel, abs_err, differ, total, share16 = bf16_gate(got, ref, slack)
-    share = differ / max(total, 1)
+    ok, worst_ulps, rel, abs_err, differ, total, differ16, total16 = bf16_gate(got, ref, slack)
+    share, share16 = differ / max(total, 1), differ16 / max(total16, 1)
     print(f"  {label} {name + '[bf16]':22s} max_abs_err {abs_err:.3e}, bf16 outputs within "
           f"{worst_ulps:.2f} ulp (<= 1), f32 outputs rel {rel:.3e} (< {KERNEL_TOL}), "
           f"not the same bits {100 * share:.4f}% (bf16 outputs {100 * share16:.4f}%, <= "
@@ -2885,7 +3020,8 @@ def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops,
           f"{bound_ms:.4f} ms ({bound_by})")
     rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
                                     "flops": 0, "library_ms": None, "ms_f32": 0.0,
-                                    "ulps": 0.0, "differ": 0, "outputs": 0})
+                                    "ulps": 0.0, "differ": 0, "outputs": 0, "differ16": 0,
+                                    "outputs16": 0})
     rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
     rec["ms"] += ms
     rec["plain_ms"] += plain_ms
@@ -2895,6 +3031,18 @@ def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops,
     rec["ulps"] = max(rec["ulps"], worst_ulps)
     rec["differ"] += differ
     rec["outputs"] += total
+    rec["differ16"] += differ16
+    rec["outputs16"] += total16
+
+
+def same_bits(rec):
+    """A bf16 form's row keys for its outputs that are not the plain
+    version's bits: ``not_same_bits`` the share of its bfloat16-stored
+    outputs (null where it stores none), ``not_same_bits_all`` of all its
+    outputs (float32 sums in another order than the plain version's differ
+    in most of their bits, and are held to KERNEL_TOL instead)."""
+    return {"not_same_bits": rec["differ16"] / rec["outputs16"] if rec["outputs16"] else None,
+            "not_same_bits_all": rec["differ"] / max(rec["outputs"], 1)}
 
 
 def flip_ulps(w):
@@ -2979,6 +3127,7 @@ def check_bf16_kernels(allegro, data, rng, records):
     wk, idx, coef = (v.detach() for v in tp0.fused_infer_parts(torch.float32))
     w2b, env = rand(E, n_irr * U), rand(n_atoms, tp0.d2 * U)
     g, gts = rand(E, tp0.d3 * U, dtype=bf), rand(E, U)
+    g32 = g.float()  # the float32 form's input, widened once, outside the timing
     paths = tp0.cg_paths()
     what = f"{label} dims ({tp0.d1},{tp0.d2},{tp0.d3}) entries {idx.shape[0]}"
     tp_flops = 3 * Er * idx.shape[0] * U
@@ -2997,7 +3146,7 @@ def check_bf16_kernels(allegro, data, rng, records):
                                    paths),
         lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx, coef,
                                              specs, gts),
-        lambda: fused_tp.bwd_embed(sh, w2b, g.float(), env, wk, centers, row_ptr, idx, coef,
+        lambda: fused_tp.bwd_embed(sh, w2b, g32, env, wk, centers, row_ptr, idx, coef,
                                    specs, gts, paths),
         what, records, (sh, w2b, g, gts, env, wk, row_ptr, idx, coef, specs),
         2 * tp_flops + 4 * Er * tp0.d1 * U)
@@ -3005,20 +3154,21 @@ def check_bf16_kernels(allegro, data, rng, records):
     wk, idx, coef = (v.detach() for v in tp1.fused_infer_parts(torch.float32))
     walk, swapped, scatter = tp1.infer_paths()
     x, g = rand(E, tp1.d1 * U, dtype=bf), rand(E, tp1.d3 * U, dtype=bf)
+    x32, g32 = x.float(), g.float()
     what = f"{label} dims ({tp1.d1},{tp1.d2},{tp1.d3}) entries {idx.shape[0]}"
     tp_flops = 3 * Er * idx.shape[0] * U
     check_bf16_case(
         "gather_tp",
         lambda: (fused_tp.gather_tp(x, env, wk, centers, idx, coef, tp1.d3, paths=walk),),
         lambda: (fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, tp1.d3),),
-        lambda: (fused_tp.gather_tp(x.float(), env, wk, centers, idx, coef, tp1.d3, paths=walk),),
+        lambda: (fused_tp.gather_tp(x32, env, wk, centers, idx, coef, tp1.d3, paths=walk),),
         what, records, (x, env, wk, centers, *walk), tp_flops)
     check_bf16_case(
         "bwd_fused",
         lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, paths=swapped,
                                    scatter_paths=scatter),
         lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef),
-        lambda: fused_tp.bwd_fused(x.float(), g.float(), env, wk, centers, row_ptr, idx, coef,
+        lambda: fused_tp.bwd_fused(x32, g32, env, wk, centers, row_ptr, idx, coef,
                                    paths=swapped, scatter_paths=scatter),
         what, records, (x, g, env, wk, row_ptr, *swapped, *scatter), 2 * tp_flops)
     # checks only: gather_tp with its split output and bwd_fused with gts at
@@ -3216,9 +3366,295 @@ def bf16_record(n, name, records, launches):
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec["library_ms"],
             "ms_f32_form": rec["ms_f32"], "max_ulps": rec["ulps"],
-            "not_same_bits": rec["differ"] / max(rec["outputs"], 1),
+            **same_bits(rec),
             "ms_config": "bf16 form at the flagship shapes (4,096 atoms), one launch per layer",
             "launches_config": "one force call of the 100k policy (97,336 atoms)"}
+
+
+# phase 11: the bf16 tensor track off the mega route (ROADMAP item 6)
+TRACK_KERNELS = [(1, "env_scatter"), (4, "unweight_both"), (14, "tp_scatter"), (15, "gather_dw"),
+                 (16, "unweight_sh"), (17, "unweight_w")]
+TRACK_WIDE = "S256, latent 256"  # phase 3w's widest model
+# bf16 launches per force call under POLICY_100K (2 layers): remat and
+# checkpoint_energy run each layer's forward three times (the call, the
+# energy's recompute in the backward pass, remat's recompute inside that),
+# its backward once. use_mega=False (JAX's non-mega path): the track from
+# the entry on, every launch of the four layer kernels a bf16 form. The
+# routed model (JAX's mega path): layer 0 reads unrounded float32 features
+# (its gather_tp and bwd_fused are the float32 forms), every env_scatter and
+# unweight_both reads the env weights in bfloat16
+TRACK_CALL = {"env_scatter": 6, "gather_tp": 6, "bwd_fused": 2, "unweight_both": 2}
+TRACK_ROUTED_CALL = {"env_scatter": 6, "gather_tp": 3, "bwd_fused": 1, "unweight_both": 2}
+# the use_mega=False call of the 100k policy against the float64 oracle:
+# JAX's non-mega path stores layer 0's input features in bfloat16 (its
+# tensor embed casts them; the mega path builds them in float32 in the
+# kernel), which alone takes the reference allclose's margin past 5e-5 on
+# a few hundred atoms. JAX's own non-mega call, on the CPU with these
+# weights (tests/test_torch_precision.py::
+# test_the_100k_policy_off_the_mega_path_is_as_close_as_jaxs_own): margin
+# 8.33e-5 on this crystal cut to 216 atoms, 9.42e-5 on its 4,096, its energy
+# 3.14e-5 of sum |E_i| there (1.44e-2 of the cancelling |E|). Held to the
+# allclose at this tolerance, both sides, and its 5e-5 margin printed; each
+# call's energy within its force tolerance of sum |E_i|
+OFF_MEGA_TOL = 2e-4
+TRACK_TRAIN_STEPS = 3
+
+
+def check_track_kernels(tps, data, rng, records):
+    """Phase 11a: the bf16 forms of kernels 1, 4 and 14-17 at the flagship's
+    4,096-atom shapes, each against its plain version on the same bf16
+    inputs (``check_bf16_case``) and timed beside its float32 form: the env
+    weights' kernels (1, 4, 16, 17) on layer 0's basis, ``tp_scatter`` and
+    ``gather_dw`` on layer 1's table (the layer 8e times ``gather_tp`` and
+    ``bwd_fused`` on); untimed, ``unweight_both`` with a float32 dwexp and
+    ``tp_scatter`` and ``gather_dw`` on layer 0's table."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+
+    bf = torch.bfloat16
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    E, Er = centers.shape[0], int(data[keys.EDGE_MASK].sum())
+    tp0, tp1 = tps[0], tps[1]
+    U, d2, n_irr, d2i = tp0.mul, tp0.d2, tp0.n_irr, tp0.dim_to_irr
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev).to(dtype)
+
+    label = f"U {U} E {E}"
+    sh, wexp, t = rand(E, d2), rand(E, n_irr * U, dtype=bf), rand(n_atoms, d2 * U)
+    wexp32 = wexp.float()  # the float32 forms' inputs, widened once, outside the timing
+    env_flops = 2 * Er * d2 * U
+    check_bf16_case(
+        "env_scatter",
+        lambda: (fused_tp.env_scatter(sh, wexp, centers, row_ptr, d2i, U),),
+        lambda: (fused_tp.env_scatter_reference(sh, wexp, centers, n_atoms, d2i, U),),
+        lambda: (fused_tp.env_scatter(sh, wexp32, centers, row_ptr, d2i, U),),
+        f"{label} d2 {d2}", records, (sh, wexp, row_ptr, d2i), env_flops)
+    check_bf16_case(
+        "unweight_both",
+        lambda: fused_tp.unweight_both(t, sh, wexp, centers, d2i),
+        lambda: fused_tp.unweight_both_reference(t, sh, wexp, centers, d2i),
+        lambda: fused_tp.unweight_both(t, sh, wexp32, centers, d2i),
+        f"{label} d2 {d2}", records, (t, sh, wexp, centers, d2i), 2 * env_flops)
+    check_bf16_case(
+        "unweight_both",
+        lambda: fused_tp.unweight_both(t, sh, wexp, centers, d2i, torch.float32),
+        lambda: fused_tp.unweight_both_reference(t, sh, wexp, centers, d2i, torch.float32),
+        None, f"{label} d2 {d2}, float32 dwexp", records, (), 0, timed=False)
+    check_bf16_case(
+        "unweight_sh",
+        lambda: (fused_tp.unweight_sh(t, wexp, centers, d2i),),
+        lambda: (fused_tp.unweight_sh_reference(t, wexp, centers, d2i),),
+        lambda: (fused_tp.unweight_sh(t, wexp32, centers, d2i),),
+        f"{label} d2 {d2}", records, (t, wexp, centers, d2i), env_flops)
+    check_bf16_case(
+        "unweight_w",
+        lambda: (fused_tp.unweight_w(t, sh, centers, d2i, n_irr, bf),),
+        lambda: (fused_tp.unweight_w_reference(t, sh, centers, d2i, n_irr, bf),),
+        lambda: (fused_tp.unweight_w(t, sh, centers, d2i, n_irr),),
+        f"{label} d2 {d2}", records, (t, sh, centers, d2i), env_flops)
+    # kernels 14 and 15 on layer 1's table: x and g in bf16, env and w float32
+    wk, idx, coef = (v.detach() for v in tp1.fused_infer_parts(torch.float32))
+    walk, scatter = tp1.gather_paths()[0], tp1.scatter_paths()[0]
+    x, g = rand(E, tp1.d1 * U, dtype=bf), rand(E, tp1.d3 * U, dtype=bf)
+    x32, g32 = x.float(), g.float()
+    env = rand(n_atoms, tp1.d2 * U)
+    what = f"{label} dims ({tp1.d1},{tp1.d2},{tp1.d3}) entries {idx.shape[0]}"
+    tp_flops = 3 * Er * idx.shape[0] * U
+    check_bf16_case(
+        "tp_scatter",
+        lambda: (fused_tp.tp_scatter(x, g, wk, centers, row_ptr, idx, coef, tp1.d2, scatter),),
+        lambda: (fused_tp.tp_scatter_reference(x, g, wk, centers, n_atoms, idx, coef, tp1.d2),),
+        lambda: (fused_tp.tp_scatter(x32, g32, wk, centers, row_ptr, idx, coef, tp1.d2,
+                                     scatter),),
+        what, records, (x, g, wk, row_ptr, *scatter), tp_flops)
+    P = wk.shape[0]
+    check_bf16_case(
+        "gather_dw",
+        lambda: (fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U, walk),),
+        lambda: (fused_tp.gather_dw_reference(x, env, g, centers, idx, coef, P, U),),
+        lambda: (fused_tp.gather_dw(x32, env, g32, centers, idx, coef, P, U, walk),),
+        what, records, (x, env, g, centers, *walk), tp_flops)
+    # checks only: both on layer 0's table, where g is a whole feature wide
+    # (phase 11c launches them there in each training step)
+    wk, idx, coef = (v.detach() for v in tp0.fused_infer_parts(torch.float32))
+    walk, scatter = tp0.gather_paths()[0], tp0.scatter_paths()[0]
+    x, g = rand(E, tp0.d1 * U, dtype=bf), rand(E, tp0.d3 * U, dtype=bf)
+    env = rand(n_atoms, tp0.d2 * U)
+    what = f"{label} layer-0 dims ({tp0.d1},{tp0.d2},{tp0.d3})"
+    check_bf16_case(
+        "tp_scatter",
+        lambda: (fused_tp.tp_scatter(x, g, wk, centers, row_ptr, idx, coef, tp0.d2, scatter),),
+        lambda: (fused_tp.tp_scatter_reference(x, g, wk, centers, n_atoms, idx, coef, tp0.d2),),
+        None, what, records, (), 0, timed=False)
+    check_bf16_case(
+        "gather_dw",
+        lambda: (fused_tp.gather_dw(x, env, g, centers, idx, coef, wk.shape[0], U, walk),),
+        lambda: (fused_tp.gather_dw_reference(x, env, g, centers, idx, coef, wk.shape[0], U),),
+        None, what, records, (), 0, timed=False)
+
+
+def track_force_calls(fused, batch_np, n_atoms, n_edges, dev, smi):
+    """Phase 11b: under POLICY_100K on the 4,096-atom crystal, the flagship
+    with ``use_mega=False`` and ``TRACK_WIDE`` (routed to ``fused_call`` on
+    this card) against the float64 ``einsum`` oracle with the same weights
+    (forces within the allclose at 5e-5, or ``OFF_MEGA_TOL``; the energy
+    within that tolerance of sum |E_i|); exact bf16 launches per call, two
+    calls the same bits. Returns the
+    launches of one call of each."""
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    avg_n = n_edges / n_atoms
+    launches = {}
+    for name, kw, extra, want, tol in (
+            ("use_mega=False", FLAGSHIP, dict(use_mega=False), TRACK_CALL, OFF_MEGA_TOL),
+            (TRACK_WIDE, WIDE_MODELS[TRACK_WIDE], {}, TRACK_ROUTED_CALL, REF_ATOL)):
+        source = fused if name == "use_mega=False" else AllegroModel(
+            **kw, avg_num_neighbors=avg_n, tp_kernel_backend="fused_infer").init(SEED)
+        weights = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+        oracle = AllegroModel(**{**kw, "model_dtype": "float64"}, avg_num_neighbors=avg_n,
+                              tp_kernel_backend="einsum").to(dev)
+        oracle.load_state_dict({k: v.double() for k, v in weights.items()})
+        ref = oracle.apply_with_derivatives(
+            to_torch(oracle.precompute_statics(batch_np), dtype=torch.float64, device=dev))
+        f_ref = ref[keys.FORCES][:n_atoms].detach()
+        e_ref = float(ref[keys.TOTAL_ENERGY].sum())
+        e_scale = float(ref[keys.PER_ATOM_ENERGY][:n_atoms].abs().sum())
+        del oracle, ref
+        torch.cuda.empty_cache()
+        model = AllegroModel(**kw, avg_num_neighbors=avg_n, tp_kernel_backend="fused_infer",
+                             **extra, **POLICY_100K).to(dev)
+        model.load_state_dict(weights)
+        data = to_torch(model.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+        routes = model.routes()
+        if routes["allegro"] != "fused_call":
+            raise AssertionError(f"{name}: routes {routes}, expected the fused_call route")
+        fused_tp.reset_launch_counts()
+        out = model.apply_with_derivatives(data)
+        torch.cuda.synchronize()
+        calls, bf16 = dict(fused_tp.LAUNCHES), dict(fused_tp.BF16_LAUNCHES)
+        got = {k: c for k, c in bf16.items() if c}
+        if got != want:
+            raise AssertionError(f"{name}: bf16 form launches {got}, expected {want}")
+        for k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"{name}: non-finite {k}")
+        again = model.apply_with_derivatives(data)
+        if not bitwise_same(out, again):
+            raise AssertionError(f"{name}: two identical force calls differ")
+        f = out[keys.FORCES][:n_atoms].double()
+        diff = (f - f_ref).abs()
+        margin = (diff - REF_RTOL * f_ref.abs()).max().item()
+        within = (diff - tol * f_ref.abs()).max().item()
+        e = float(out[keys.TOTAL_ENERGY].sum())
+        e_err = abs(e - e_ref) / e_scale
+        us = time_force_call(model, data, n_atoms, reps=3)
+        print(f"[11b] {name}, 100k policy, routes {routes}: launches per call "
+              f"{ {k: c for k, c in calls.items() if c} }, of them bf16 forms {got}; two calls "
+              f"the same bits; forces vs the float64 einsum oracle: reference allclose margin "
+              f"{margin:.3e} (atol = rtol = {REF_ATOL}), at {tol}: {within:.3e}; energy |dE| "
+              f"{e_err:.3e} of sum |E_i| (< {tol}; {abs(e - e_ref) / max(abs(e_ref), 1e-3):.3e} "
+              f"of |E|); {us:.3f} us/atom ({n_atoms} atoms; {smi})")
+        if not within <= tol:
+            raise AssertionError(f"{name}: forces miss the allclose at {tol}: {within:.3e}")
+        if not e_err < tol:
+            raise AssertionError(f"{name}: energy {e_err:.3e} of sum |E_i| from the oracle's")
+        launches[name] = bf16
+        del model, data, out, again
+        torch.cuda.empty_cache()
+    return launches
+
+
+def track_training(loaders, dev, smi):
+    """Phase 11c: TRACK_TRAIN_STEPS Adam steps of the flagship on ``fused``
+    with the bf16 track on phase 5's 1k batch: each step's launches
+    ``PER_STEP``, every launch of the trainable family's kernels (and
+    gather_tp) a bf16 form; finite losses; float32 parameters and gradients;
+    two identical steps' gradients the same bits. Returns one step's bf16
+    launches."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    loader = loaders["1k"]
+    batch_np = next(iter(loader))
+    avg_n = float(batch_np[keys.EDGE_MASK].sum()) / float(batch_np[keys.NODE_MASK].sum())
+    model = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n, tp_kernel_backend="fused",
+                         tensor_dtype="bfloat16").init(SEED)
+    trainer = make_trainer(model, dev)
+    state = trainer.init_state()
+    want = {k: c for k, c in PER_STEP.items()
+            if c and k in ("env_scatter", "gather_tp", *TRAIN_KERNELS)}
+    times = []
+    for step in range(TRACK_TRAIN_STEPS):
+        fused_tp.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(state, loader, max_epochs=1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bf16 = {k: c for k, c in fused_tp.BF16_LAUNCHES.items() if c}
+        if fused_tp.LAUNCHES != PER_STEP or bf16 != want:
+            raise AssertionError(f"bf16 training step {step}: launches {fused_tp.LAUNCHES}, of "
+                                 f"them bf16 {bf16}; expected {PER_STEP}, bf16 {want}")
+    losses = [h["train_loss"] for h in trainer.history]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"bf16 training: losses {losses}")
+    data = trainer.to_device(batch_np)
+    _, _, first = trainer.loss_and_grads(state, data)
+    _, _, again = trainer.loss_and_grads(state, data)
+    dtypes = {str(t.dtype) for t in (*state.params.values(), *first.values())}
+    differ = [k for k in first if not torch.equal(first[k], again[k])]
+    finite = all(torch.isfinite(g).all() for g in first.values())
+    print(f"[11c] {TRACK_TRAIN_STEPS} Adam steps on fused with the bf16 track, "
+          f"{int(batch_np[keys.NODE_MASK].sum())} atoms: loss {losses[0]:.6e} -> "
+          f"{losses[-1]:.6e}; bf16 launches per step {want}; {1e3 * float(np.median(times)):.3f} "
+          f"ms/step (median, host clock); parameters and gradients {sorted(dtypes)}, gradients "
+          f"{'finite' if finite else 'NOT FINITE'}; two identical steps "
+          f"{'the same bits' if not differ else 'DIFFER in ' + ', '.join(differ)}; {smi}")
+    if dtypes != {"torch.float32"} or not finite or differ:
+        raise AssertionError("bf16 training: parameters or gradients not float32 and finite, "
+                             f"or two identical steps differ ({differ})")
+    return want
+
+
+def track_phase(fused, batch_np, data, n_atoms, n_edges, loaders, rng, dev, smi):
+    """Phase 11 (11a ``check_track_kernels`` on ``fused``'s layers at the
+    shapes of ``data``, 11b ``track_force_calls``, 11c ``track_training``).
+    Returns the kernels line's rows of its bf16 forms."""
+    records = {}
+    print("[11a] the bf16 forms of kernels 1, 4, 14-17 at the flagship shapes")
+    check_track_kernels(fused.module.allegro.tps, data, rng, records)
+    calls = track_force_calls(fused, batch_np, n_atoms, n_edges, dev, smi)
+    step = track_training(loaders, dev, smi)
+    return [track_record(n, name, records, calls["use_mega=False"], step)
+            for n, name in TRACK_KERNELS]
+
+
+def track_record(n, name, records, call, step):
+    """The kernels line's row of kernel ``n``'s bf16 form of phase 11
+    (``name[bf16]``): its times at the flagship shapes (11a), its launches
+    in the use_mega=False call of the 100k policy (11b) and in one bf16
+    training step (11c), and their sum as ``launches``."""
+    rec = records[name]
+    bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
+    replaces = next(r for k, _, r in TPU_KERNELS if k == n)
+    return {"name": f"{name}[bf16]", "route": "cuda", "source": SOURCES[name],
+            "replaces": replaces, "tpu_kernel": n,
+            "launches": call.get(name, 0) + step.get(name, 0),
+            "launches_100k_use_mega_false_call": call.get(name, 0),
+            "launches_train_step": step.get(name, 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec["library_ms"],
+            "ms_f32_form": rec["ms_f32"], "max_ulps": rec["ulps"],
+            **same_bits(rec),
+            "ms_config": "bf16 form at the flagship shapes (4,096 atoms), one launch",
+            "launches_config": "phase 11b's use_mega=False call of the 100k policy (4,096 "
+                               "atoms) and one bf16 training step on the 1k batch (11c)"}
 
 
 def check_force_call(out, ref, n_atoms, n_rows):

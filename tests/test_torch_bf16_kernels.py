@@ -1,6 +1,7 @@
-"""The bf16 forms of the port's kernels 2, 3 and 7-10, through their plain
-versions (the CPU path), against the JAX Pallas kernels they replace, run in
-interpret mode on the same bf16 inputs (float64 compute).
+"""The bf16 forms of the port's kernels 1-4, 7-10 and 14-17, through their
+plain versions (the CPU path), against the JAX Pallas kernels they replace,
+run in interpret mode on the same bf16 inputs (float64 compute where the
+inputs allow it).
 
 - ``gather_tp`` (x bf16 → out bf16, ts float64) and ``bwd_fused`` (x, g bf16
   → dx bf16, denv as JAX stores it: float32, the compute dtype of x and g),
@@ -9,7 +10,16 @@ interpret mode on the same bf16 inputs (float64 compute).
   ``bwd_embed`` reading g in bfloat16;
 - ``latent_env_scatter`` and ``latent_env_bwd`` with ``wexp_dtype``
   bfloat16 (the env weights rounded inside the kernel), with and without a
-  hidden layer.
+  hidden layer;
+- the env weights in bfloat16: ``env_scatter`` (env float64),
+  ``unweight_both`` (dsh float64, dwexp bf16, as JAX stores it),
+  ``unweight_sh`` and ``unweight_w`` with its ``out_dtype`` bfloat16;
+- the trainable backend's transposes on bf16 features: ``tp_scatter`` (x, g
+  bf16 → denv float32, computed in float32 as JAX's kernel does: within
+  ``F32_SUM_TOL``) and ``gather_dw`` (x, g bf16 → dw float32), on both
+  layers' tables;
+- the dtype pairs one bf16 training step reaches (each call the trainable
+  family makes, enumerated on the CPU path) and the ones that raise.
 
 Outputs stored in bfloat16 must be the same bits as JAX's (both round the
 same float64 sums once); float64 ones agree at 1e-10; ``bwd_fused``'s denv,
@@ -39,6 +49,10 @@ N_ATOMS = 24
 E_REAL = 150
 TOL = 1e-10
 F32_TOL = 2.0**-22  # two float32 roundings of the same float64 sum
+# a sum computed in float32 in two orders (JAX's tp_scatter computes in the
+# compute dtype of its bf16 inputs, float32): a few float32 roundings of
+# each term, relative to the output's max (measured 1.2e-7)
+F32_SUM_TOL = 2.0**-20
 SH = Irreps("1x0e+1x1o+1x2e")
 DIM_TO_IRR = tuple(k for k, s in enumerate(SH.slices()) for _ in range(s.stop - s.start))
 N_IRR = len(SH)
@@ -227,3 +241,66 @@ def test_latent_env_bf16_weights_match_pallas(graph, interpret, n_hidden):
     _same(dsh, dsh_j)
     for got, want in zip(dpieces, dp_j):
         _same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# kernels 1, 4 and 14-17: the env weights in bfloat16, and the trainable
+# backend's transposes on bf16 features
+# ---------------------------------------------------------------------------
+
+
+def _rank(graph, a):
+    """Atom rows as the Pallas kernels' combined rank rows."""
+    r = np.zeros((graph["nr"], a.shape[1]))
+    r[: len(graph["atoms"])] = np.asarray(a)[graph["atoms"]]
+    return jnp.asarray(r)
+
+
+def test_env_weight_kernels_bf16_match_pallas(graph, interpret):
+    rng, Ep = np.random.RandomState(110), graph["Ep"]
+    sh, wexp = torch.as_tensor(_arr(rng, Ep, 9)), _bf(_arr(rng, Ep, N_IRR * U))
+    kw = dict(dim_to_irr=DIM_TO_IRR, U=U, eb=EB)
+    c, row_ptr, d2i = graph["t_centers"], graph["row_ptr"], graph["d2i"]
+    eA, eB = jax_ftp.env_scatter_call(_j(sh), _j(wexp), graph["offs"], graph["win"],
+                                      n_rank_rows=graph["nr"], **kw)
+    env = fused_tp.env_scatter(sh, wexp, c, row_ptr, d2i, U)
+    assert env.dtype == torch.float64
+    _same(env, _atoms_of(graph, eA, eB))
+    tA, tB, t = _env_pair(graph, rng)
+    dsh_j, dwexp_j = jax_ftp.unweight_both_raw_call(tA, tB, _j(sh), _j(wexp), graph["offs"],
+                                                    graph["win"], **kw)
+    dsh, dwexp = fused_tp.unweight_both(t, sh, wexp, c, d2i)
+    assert dsh.dtype == torch.float64 and dwexp.dtype == BF
+    _same(dsh, dsh_j)
+    _same(dwexp, dwexp_j)
+    t_r = _rank(graph, t.numpy())
+    _same(fused_tp.unweight_sh(t, wexp, c, d2i),
+          jax_ftp.gather_unweight_sh_call(t_r, t_r, _j(wexp), graph["offs"], graph["win"], **kw))
+    _same(fused_tp.unweight_w(t, sh, c, d2i, N_IRR, BF),
+          jax_ftp.gather_unweight_w_call(t_r, t_r, _j(sh), graph["offs"], graph["win"],
+                                         out_dtype=jnp.bfloat16, **kw))
+    # dwexp unrounded (a mega model off the mega kernels): unweight_w's sum
+    _, dwexp64 = fused_tp.unweight_both(t, sh, wexp, c, d2i, torch.float64)
+    assert torch.equal(dwexp64, fused_tp.unweight_w(t, sh, c, d2i, N_IRR))
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_tp_scatter_and_gather_dw_bf16_match_pallas(graph, interpret, layer):
+    (P, d1, d2, d3), entries, idx, coef = _tables(layer)
+    rng, Ep = np.random.RandomState(120 + layer), graph["Ep"]
+    x, g = _bf(_arr(rng, Ep, d1 * U)), _bf(_arr(rng, Ep, d3 * U))
+    w = _bf(rng.randn(P, U)).double()  # the track's path weights: bf16 values
+    kw = dict(entries=entries, dims=(d1, d2, d3), U=U, eb=EB)
+    dA, dB = jax_ftp.tp_scatter_call(_j(x), _j(g), _j(w.to(BF)), graph["offs"], graph["win"],
+                                     n_rank_rows=graph["nr"], **kw)
+    denv = fused_tp.tp_scatter(x, g, w, graph["t_centers"], graph["row_ptr"], idx, coef, d2)
+    assert denv.dtype == torch.float32 and str(dA.dtype) == "float32"
+    want = _atoms_of(graph, dA, dB)
+    err = float(np.abs(denv.double().numpy() - want).max())
+    assert err <= F32_SUM_TOL * float(np.abs(want).max()), f"max abs err {err:.3e}"
+    env = torch.as_tensor(rng.randn(N_ATOMS, d2 * U))
+    env_r = _rank(graph, env.numpy())
+    dw_j = jax_ftp.gather_dw_call(_j(x), env_r, env_r, _j(g), graph["offs"], graph["win"], **kw)
+    dw = fused_tp.gather_dw(x, env, g, graph["t_centers"], idx, coef, P, U)
+    assert dw.dtype == torch.float32 and str(dw_j.dtype) == "float32"
+    _same(dw, dw_j)

@@ -157,13 +157,9 @@ def test_unsorted_edges_raise(frames, avg_n):
 
 @pytest.mark.parametrize("override", [
     {"model_dtype": "bfloat16"},
-    {"tensor_dtype": "bfloat16", "tp_kernel_backend": "fused_infer", "use_mega": False},
-    {"tensor_dtype": "bfloat16", "tp_kernel_backend": "fused"},
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
 def test_unported_options_raise(override, avg_n):
-    """What of ROADMAP item 6 is left raises, naming it: a bfloat16 model,
-    and the bf16 track off the mega route (use_mega=False, the trainable
-    backend)."""
+    """What of ROADMAP item 6 is left raises, naming it: a bfloat16 model."""
     kw = {**_model_kwargs(avg_n, "float32"), **override}
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         AllegroModel(**kw)
