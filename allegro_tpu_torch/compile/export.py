@@ -24,18 +24,24 @@ How the program is made (:func:`export_program`):
   it (``Model.graph_statics``); an edge list that is not sorted by center
   gives NaN energies.
 - The parameters are constants of the program, frozen as in the force call.
+- ``remat`` and ``checkpoint_energy`` (``torch.utils.checkpoint``) record
+  their recompute: the backward's unpack hook runs the checkpointed forward
+  again under the trace, so the program launches each of its kernels twice,
+  as the eager call does. ``tp_chunk_edges`` traces as its loop of slices.
 
 The package's metadata (``aot_inductor.metadata``: strings, which
 ``AOTIModelPackageLoader::get_metadata()`` returns) holds what JAX's
 ``meta.json`` holds: ``format``, ``target``, ``inputs``, ``outputs``,
 ``n_atoms``, ``n_edges``, ``dtype``, ``config`` (JSON), and ``r_max``,
-``device`` and ``precision``, the model's matrix-product policy. The package
-is built under that policy, and both runners set TF32 from it for each call.
+``device``, ``precision`` (the model's matrix-product policy),
+``tensor_dtype``, ``remat`` and ``checkpoint_energy``. The package is built
+under that policy, and both runners set TF32 from it for each call.
 
-Exported: ``fused_infer`` and ``einsum`` models with ``precision`` "highest",
-"high" or None. The ``fused`` and ``pallas`` backends, the bf16 track,
-``remat``, ``checkpoint_energy`` and ``tp_chunk_edges`` are not traced yet
-and raise ``NotImplementedError`` (ROADMAP.md queue 1, item 10).
+Exported: every model the builder makes, on all four backends (``fused``
+with its parameters frozen, as the force call runs it), the bf16 track on
+every route, ``remat``, ``checkpoint_energy`` and ``tp_chunk_edges``, with
+``precision`` "highest", "high" or None. The builder itself refuses
+``model_dtype="bfloat16"`` (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -53,25 +59,20 @@ from ..ops import custom_ops
 from .targets import COMPILE_TARGETS, EXPORT_INPUTS
 
 FORMAT = "allegro-tpu-torch-pt2-v1"
-EXPORTED_BACKENDS = ("fused_infer", "einsum")
+EXPORTED_BACKENDS = ("fused_infer", "fused", "pallas", "einsum")
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def check_exportable(model: Model) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP item 10) for what the export
-    does not trace yet."""
+    """Raise for a model the export has no program for: only what the
+    builder itself refuses (a model dtype other than float32 or float64,
+    ROADMAP item 6; a backend it does not know)."""
     kw = model.builder_kwargs
     backend = kw.get("tp_kernel_backend", "einsum")
-    reasons = []
     if backend not in EXPORTED_BACKENDS:
-        reasons.append(f"tp_kernel_backend={backend!r}")
-    if kw.get("tensor_dtype") not in (None, kw.get("model_dtype", "float32")):
-        reasons.append(f"tensor_dtype={kw['tensor_dtype']!r} (the bf16 track)")
-    for option in ("remat", "checkpoint_energy", "tp_chunk_edges"):
-        if kw.get(option):
-            reasons.append(f"{option}={kw[option]!r}")
-    if reasons:
-        raise _not_ported(f"exporting a model with {', '.join(reasons)}", "queue 1, item 10")
+        raise ValueError(f"tp_kernel_backend={backend!r}: one of {EXPORTED_BACKENDS}")
+    if str(kw.get("model_dtype", "float32")) not in _DTYPES:
+        raise _not_ported(f"model_dtype={kw['model_dtype']!r}", "queue 1, item 6")
 
 
 def _force_fn(model: Model, target: str) -> Callable:
@@ -141,6 +142,9 @@ def export_program(model: Model, target: str = "pair_allegro", n_atoms: int = 51
         "r_max": repr(float(model.config["r_max"])),
         "device": device.type,
         "precision": str(model.precision),
+        "tensor_dtype": str(model.builder_kwargs.get("tensor_dtype")),
+        "remat": str(bool(model.builder_kwargs.get("remat"))),
+        "checkpoint_energy": str(model.checkpoint_energy),
     }
     return program, meta
 
@@ -148,10 +152,19 @@ def export_program(model: Model, target: str = "pair_allegro", n_atoms: int = 51
 def _package(program, path: str, meta: Dict[str, str]) -> str:
     """AOTInductor's build of ``program`` into the ``.pt2`` at ``path``, with
     the ``g++`` on the path (the kernels' and the MD driver's compiler;
-    AOTInductor would take ``$CXX``); raises where it fails."""
+    AOTInductor would take ``$CXX``) and the eager call's rounding points.
+    Inductor's graph patterns fold a round trip through bfloat16
+    (``pointless_convert``: float32 → bfloat16 → float32 becomes nothing on
+    some torch versions), and its code generator may skip such a rounding
+    unless ``emulate_precision_casts``: the bf16 track's path weights,
+    rounded so in the eager call, would reach the kernels unrounded (with
+    the patterns on, the 100k policy's package on an H100 under torch 2.11
+    was 1.5e-4 of sum |E_i| off the eager energy; without, 2.2e-6). Raises
+    where the build fails."""
     return torch._inductor.aoti_compile_and_package(
         program, package_path=os.path.abspath(path),
-        inductor_configs={"aot_inductor.metadata": meta, "cpp.cxx": ("g++",)})
+        inductor_configs={"aot_inductor.metadata": meta, "cpp.cxx": ("g++",),
+                          "pattern_matcher": False, "emulate_precision_casts": True})
 
 
 def export_model(model: Model, path: str, target: str = "pair_allegro", n_atoms: int = 512,

@@ -61,10 +61,11 @@ using namespace atpt_md;
 namespace {
 
 const char* kFormat = "allegro-tpu-torch-pt2-v1";
-const char* kOps[] = {"env_scatter",    "gather_tp",          "bwd_fused",      "unweight_both",
-                      "center_gather",  "center_sum",         "latent_env_scatter",
-                      "latent_env_bwd", "gather_tp_embed",    "bwd_embed",      "readout_sum",
-                      "readout_bwd"};
+const char* kOps[] = {"env_scatter",    "gather_tp",       "bwd_fused",   "unweight_both",
+                      "center_gather",  "center_sum",      "latent_env_scatter",
+                      "latent_env_bwd", "gather_tp_embed", "bwd_embed",   "readout_sum",
+                      "readout_bwd",    "tp_scatter",      "unweight_sh", "unweight_w",
+                      "sparse_tp"};
 
 std::string meta_at(const std::unordered_map<std::string, std::string>& meta,
                     const std::string& key) {

@@ -8,8 +8,9 @@
 // allocates the outputs and launches the kernel through its C interface
 // (csrc/*.cu, the library ops/_build.py builds) on the current stream, or
 // raises. There is no CPU implementation and no fallback: a package of the
-// kernel route runs on the card. The ops take float32 only (the bf16 track
-// is not exported).
+// kernel route runs on the card. The tensor track of a kernel with a bf16
+// form is float32 or bfloat16 as the op's flag says (the flag its launch
+// takes); every other array is float32, and an op given another type raises.
 //
 // Built by allegro_tpu_torch/native/md_driver.py with g++ against PyTorch's
 // headers and libraries, and linked into the driver.
@@ -80,6 +81,20 @@ int atpt_bwd_embed(const float* sh, const float* w2b, const void* g, const float
                    const float* ecoef, const int* row_specs, long long n_edges, int n_atoms,
                    int d_sh, int n_irr, int d1, int d2, int d3, int U, float* dsh, float* dw2b,
                    float* denv, int bf16, void* stream);
+int atpt_tp_scatter(const void* x, const void* g, const float* w, const int* row_ptr,
+                    const int* desc, const float* dscale, int n_rows, const int* eidx,
+                    const float* ecoef, int n_atoms, int d1, int d2, int d3, int U, int P,
+                    float* denv, int bf16, void* stream);
+int atpt_unweight_sh(const float* t, const void* wexp, const int* centers, const int* dim_to_irr,
+                     long long n_edges, int n_atoms, int d2, int n_irr, int U, float* dsh,
+                     int bf16, void* stream);
+int atpt_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
+                    long long n_edges, int n_atoms, int d2, int n_irr, int U, void* dwexp,
+                    int bf16, void* stream);
+int atpt_sparse_tp(const float* a, const float* b, const float* w, const int* desc,
+                   const float* dscale, int n_rows, const int* eidx, const float* ecoef,
+                   long long n_edges, int d1, int d2, int d3, int U, int P, float* out,
+                   void* stream);
 const char* atpt_error_string(int code);
 
 // the launches of each op's kernel in this process (ops/fused_tp.py's
@@ -112,6 +127,11 @@ Tensor dense(const Tensor& t, at::ScalarType dtype, const char* name) {
   return t.contiguous();
 }
 Tensor f32(const Tensor& t, const char* name) { return dense(t, at::kFloat, name); }
+// an array of the tensor track: bfloat16 where the op's bf16 flag says so
+Tensor track(const Tensor& t, bool bf16, const char* name) {
+  return dense(t, bf16 ? at::kBFloat16 : at::kFloat, name);
+}
+at::ScalarType storage(bool bf16) { return bf16 ? at::kBFloat16 : at::kFloat; }
 Tensor i32(const Tensor& t, const char* name) { return dense(t, at::kInt, name); }
 const float* fptr(const std::optional<Tensor>& t) {
   return t.has_value() ? t->data_ptr<float>() : nullptr;
@@ -163,16 +183,16 @@ struct Paths {
 };
 
 Tensor env_scatter(const Tensor& sh_, const Tensor& wexp_, const Tensor& centers,
-                   const Tensor& row_ptr_, const Tensor& dim_to_irr_, int64_t U) {
-  auto sh = f32(sh_, "sh"), wexp = f32(wexp_, "wexp");
+                   const Tensor& row_ptr_, const Tensor& dim_to_irr_, int64_t U, bool bf16) {
+  auto sh = f32(sh_, "sh"), wexp = track(wexp_, bf16, "wexp");
   auto row_ptr = i32(row_ptr_, "row_ptr"), dim_to_irr = i32(dim_to_irr_, "dim_to_irr");
   int64_t n_atoms = row_ptr.size(0) - 1, d2 = sh.size(1);
   auto env = at::empty({n_atoms, d2 * U}, sh.options());
   if (n_atoms == 0) return env;
   launched("env_scatter",
-           atpt_env_scatter(sh.data_ptr<float>(), wexp.data_ptr<float>(), row_ptr.data_ptr<int>(),
+           atpt_env_scatter(sh.data_ptr<float>(), wexp.data_ptr(), row_ptr.data_ptr<int>(),
                             dim_to_irr.data_ptr<int>(), I(n_atoms), I(d2), I(wexp.size(1) / U),
-                            I(U), env.data_ptr<float>(), 0, stream()));
+                            I(U), env.data_ptr<float>(), bf16, stream()));
   return env;
 }
 
@@ -180,8 +200,9 @@ std::tuple<Tensor, Tensor> gather_tp(const Tensor& x_, const Tensor& env_, const
                                      const Tensor& centers_, const Tensor& entry_idx,
                                      const Tensor& entry_coef, int64_t d3, bool split,
                                      const Tensor& desc, const Tensor& scale,
-                                     const Tensor& path_idx, const Tensor& path_coef) {
-  auto x = f32(x_, "x"), env = f32(env_, "env"), w = f32(w_, "w");
+                                     const Tensor& path_idx, const Tensor& path_coef,
+                                     bool bf16) {
+  auto x = track(x_, bf16, "x"), env = f32(env_, "env"), w = f32(w_, "w");
   auto centers = i32(centers_, "centers");
   Paths paths(desc, scale, path_idx, path_coef);
   int64_t E = x.size(0), U = w.size(1);
@@ -189,13 +210,13 @@ std::tuple<Tensor, Tensor> gather_tp(const Tensor& x_, const Tensor& env_, const
   auto ts = at::empty({E, split ? U : 0}, env.options());
   if (E > 0)
     launched("gather_tp",
-             atpt_gather_tp(x.data_ptr<float>(), env.data_ptr<float>(), w.data_ptr<float>(),
+             atpt_gather_tp(x.data_ptr(), env.data_ptr<float>(), w.data_ptr<float>(),
                             centers.data_ptr<int>(), paths.desc.data_ptr<int>(),
                             paths.scale.data_ptr<float>(), paths.rows(),
                             paths.idx.data_ptr<int>(), paths.coef.data_ptr<float>(), E,
                             I(env.size(0)), I(x.size(1) / U), I(env.size(1) / U), I(d3), I(U),
-                            I(w.size(0)), out.data_ptr<float>(),
-                            split ? ts.data_ptr<float>() : nullptr, 0, stream()));
+                            I(w.size(0)), out.data_ptr(),
+                            split ? ts.data_ptr<float>() : nullptr, bf16, stream()));
   return {out, ts};
 }
 
@@ -204,8 +225,9 @@ std::tuple<Tensor, Tensor> bwd_fused(
     const Tensor& w_, const Tensor& centers, const Tensor& row_ptr_, const Tensor& entry_idx,
     const Tensor& entry_coef, const Tensor& desc, const Tensor& scale, const Tensor& path_idx,
     const Tensor& path_coef, const Tensor& scatter_desc, const Tensor& scatter_scale,
-    const Tensor& scatter_path_idx, const Tensor& scatter_path_coef) {
-  auto x = f32(x_, "x"), g = f32(g_, "g"), env = f32(env_, "env"), w = f32(w_, "w");
+    const Tensor& scatter_path_idx, const Tensor& scatter_path_coef, bool bf16) {
+  auto x = track(x_, bf16, "x"), g = track(g_, bf16, "g"), env = f32(env_, "env");
+  auto w = f32(w_, "w");
   auto gts = f32_opt(gts_, "gts");
   auto row_ptr = i32(row_ptr_, "row_ptr");
   Paths dx_paths(desc, scale, path_idx, path_coef);
@@ -215,7 +237,7 @@ std::tuple<Tensor, Tensor> bwd_fused(
   auto dx = at::empty_like(x), denv = at::empty_like(env);
   if (E > 0 || n_atoms > 0)
     launched("bwd_fused",
-             atpt_bwd_fused(x.data_ptr<float>(), g.data_ptr<float>(), fptr(gts),
+             atpt_bwd_fused(x.data_ptr(), g.data_ptr(), fptr(gts),
                             env.data_ptr<float>(), w.data_ptr<float>(), row_ptr.data_ptr<int>(),
                             nullptr, nullptr, 0, dx_paths.desc.data_ptr<int>(),
                             dx_paths.scale.data_ptr<float>(), dx_paths.rows(),
@@ -224,24 +246,27 @@ std::tuple<Tensor, Tensor> bwd_fused(
                             denv_paths.rows(), denv_paths.idx.data_ptr<int>(),
                             denv_paths.coef.data_ptr<float>(), E, I(n_atoms), I(x.size(1) / U),
                             I(env.size(1) / U), I(g.size(1) / U), I(U), I(w.size(0)), n_blocks,
-                            dx.data_ptr<float>(), denv.data_ptr<float>(), nullptr, nullptr, 0,
+                            dx.data_ptr(), denv.data_ptr<float>(), nullptr, nullptr, bf16,
                             stream()));
   return {dx, denv};
 }
 
 std::tuple<Tensor, Tensor> unweight_both(const Tensor& t_, const Tensor& sh_,
                                          const Tensor& wexp_, const Tensor& centers_,
-                                         const Tensor& dim_to_irr_) {
-  auto t = f32(t_, "t"), sh = f32(sh_, "sh"), wexp = f32(wexp_, "wexp");
+                                         const Tensor& dim_to_irr_, bool bf16, bool bf16_out) {
+  TORCH_CHECK(bf16 || !bf16_out, "unweight_both: a bfloat16 dwexp needs bfloat16 env weights");
+  auto t = f32(t_, "t"), sh = f32(sh_, "sh"), wexp = track(wexp_, bf16, "wexp");
   auto centers = i32(centers_, "centers"), dim_to_irr = i32(dim_to_irr_, "dim_to_irr");
   int64_t E = sh.size(0), d2 = sh.size(1), U = t.size(1) / d2;
-  auto dsh = at::empty_like(sh), dwexp = at::empty_like(wexp);
+  auto dsh = at::empty_like(sh);
+  auto dwexp = at::empty(wexp.sizes(), wexp.options().dtype(storage(bf16_out)));
   if (E == 0) return {dsh, dwexp};
   launched("unweight_both",
-           atpt_unweight_both(t.data_ptr<float>(), sh.data_ptr<float>(), wexp.data_ptr<float>(),
+           atpt_unweight_both(t.data_ptr<float>(), sh.data_ptr<float>(), wexp.data_ptr(),
                               centers.data_ptr<int>(), dim_to_irr.data_ptr<int>(), E,
                               I(t.size(0)), I(d2), I(wexp.size(1) / U), I(U),
-                              dsh.data_ptr<float>(), dwexp.data_ptr<float>(), 0, 0, stream()));
+                              dsh.data_ptr<float>(), dwexp.data_ptr(), bf16, bf16_out,
+                              stream()));
   return {dsh, dwexp};
 }
 
@@ -284,7 +309,7 @@ Tensor center_sum(const Tensor& v_, const Tensor& row_ptr_, const std::optional<
 std::tuple<Tensor, Tensor> latent_env_scatter(
     at::TensorList pieces_, const Tensor& sh_, const Tensor& w0_,
     const std::optional<Tensor>& w1_, const Tensor& centers_, const Tensor& row_ptr_,
-    const Tensor& dim_to_irr, const Tensor& irr_ranges_, int64_t U, int64_t S) {
+    const Tensor& dim_to_irr, const Tensor& irr_ranges_, int64_t U, int64_t S, bool bf16_wexp) {
   Pieces pieces(pieces_.vec());
   auto sh = f32(sh_, "sh"), w0 = f32(w0_, "w0");
   auto w1 = f32_opt(w1_, "w1");
@@ -302,7 +327,8 @@ std::tuple<Tensor, Tensor> latent_env_scatter(
                                    row_ptr.data_ptr<int>(), irr_ranges.data_ptr<int>(), E,
                                    I(n_atoms), I(d2), I(U), I(S),
                                    w1.has_value() ? I(w0.size(1)) : 0, I(N),
-                                   lat_s.data_ptr<float>(), env.data_ptr<float>(), 0, stream()));
+                                   lat_s.data_ptr<float>(), env.data_ptr<float>(), bf16_wexp,
+                                   stream()));
   return {lat_s, env};
 }
 
@@ -310,7 +336,7 @@ std::vector<Tensor> latent_env_bwd(at::TensorList pieces_, const Tensor& sh_, co
                                    const std::optional<Tensor>& w1_, const Tensor& t_,
                                    const Tensor& g_lat_, const Tensor& centers_,
                                    const Tensor& dim_to_irr, const Tensor& irr_ranges_,
-                                   int64_t U, int64_t S) {
+                                   int64_t U, int64_t S, bool bf16_wexp) {
   Pieces pieces(pieces_.vec());
   Outputs dpieces(pieces.tensors);
   auto sh = f32(sh_, "sh"), w0 = f32(w0_, "w0"), t = f32(t_, "t"), g_lat = f32(g_lat_, "g_lat");
@@ -329,7 +355,7 @@ std::vector<Tensor> latent_env_bwd(at::TensorList pieces_, const Tensor& sh_, co
                                t.data_ptr<float>(), g_lat.data_ptr<float>(),
                                centers.data_ptr<int>(), irr_ranges.data_ptr<int>(), E,
                                I(t.size(0)), I(d2), I(U), I(S), w1.has_value() ? I(w0.size(1)) : 0,
-                               I(N), dsh.data_ptr<float>(), 0, stream()));
+                               I(N), dsh.data_ptr<float>(), bf16_wexp, stream()));
   return out;
 }
 
@@ -337,12 +363,13 @@ std::tuple<Tensor, Tensor> gather_tp_embed(
     const Tensor& sh_, const Tensor& w2b_, const Tensor& env_, const Tensor& w_,
     const Tensor& centers, const Tensor& row_ptr_, const Tensor& entry_idx,
     const Tensor& entry_coef, const Tensor& row_specs_, int64_t d3, bool split,
-    const Tensor& desc, const Tensor& scale, const Tensor& path_idx, const Tensor& path_coef) {
+    const Tensor& desc, const Tensor& scale, const Tensor& path_idx, const Tensor& path_coef,
+    bool bf16) {
   auto sh = f32(sh_, "sh"), w2b = f32(w2b_, "w2b"), env = f32(env_, "env"), w = f32(w_, "w");
   auto row_ptr = i32(row_ptr_, "row_ptr"), row_specs = i32(row_specs_, "row_specs");
   Paths paths(desc, scale, path_idx, path_coef);
   int64_t E = sh.size(0), U = w.size(1), n_atoms = row_ptr.size(0) - 1;
-  auto out = at::empty({E, d3 * U}, sh.options());
+  auto out = at::empty({E, d3 * U}, sh.options().dtype(storage(bf16)));
   auto ts = at::empty({E, split ? U : 0}, sh.options());
   if (E > 0)
     launched("gather_tp_embed",
@@ -353,8 +380,8 @@ std::tuple<Tensor, Tensor> gather_tp_embed(
                                   paths.idx.data_ptr<int>(), paths.coef.data_ptr<float>(),
                                   row_specs.data_ptr<int>(), E, I(n_atoms), I(sh.size(1)),
                                   I(w2b.size(1) / U), I(row_specs.size(0)), I(env.size(1) / U),
-                                  I(d3), I(U), out.data_ptr<float>(),
-                                  split ? ts.data_ptr<float>() : nullptr, 0, stream()));
+                                  I(d3), I(U), out.data_ptr(),
+                                  split ? ts.data_ptr<float>() : nullptr, bf16, stream()));
   return {out, ts};
 }
 
@@ -362,8 +389,10 @@ std::tuple<Tensor, Tensor, Tensor> bwd_embed(
     const Tensor& sh_, const Tensor& w2b_, const Tensor& g_, const std::optional<Tensor>& gts_,
     const Tensor& env_, const Tensor& w_, const Tensor& centers, const Tensor& row_ptr_,
     const Tensor& entry_idx, const Tensor& entry_coef, const Tensor& row_specs_,
-    const Tensor& desc, const Tensor& scale, const Tensor& path_idx, const Tensor& path_coef) {
-  auto sh = f32(sh_, "sh"), w2b = f32(w2b_, "w2b"), g = f32(g_, "g"), env = f32(env_, "env");
+    const Tensor& desc, const Tensor& scale, const Tensor& path_idx, const Tensor& path_coef,
+    bool bf16) {
+  auto sh = f32(sh_, "sh"), w2b = f32(w2b_, "w2b"), g = track(g_, bf16, "g");
+  auto env = f32(env_, "env");
   auto w = f32(w_, "w");
   auto gts = f32_opt(gts_, "gts");
   auto row_ptr = i32(row_ptr_, "row_ptr"), row_specs = i32(row_specs_, "row_specs");
@@ -372,14 +401,14 @@ std::tuple<Tensor, Tensor, Tensor> bwd_embed(
   auto dsh = at::empty_like(sh), dw2b = at::empty_like(w2b), denv = at::empty_like(env);
   if (E == 0 && n_atoms == 0) return {dsh, dw2b, denv};
   launched("bwd_embed",
-           atpt_bwd_embed(sh.data_ptr<float>(), w2b.data_ptr<float>(), g.data_ptr<float>(),
+           atpt_bwd_embed(sh.data_ptr<float>(), w2b.data_ptr<float>(), g.data_ptr(),
                           fptr(gts), env.data_ptr<float>(), w.data_ptr<float>(), I(w.size(0)),
                           row_ptr.data_ptr<int>(), paths.desc.data_ptr<int>(),
                           paths.scale.data_ptr<float>(), paths.rows(), paths.idx.data_ptr<int>(),
                           paths.coef.data_ptr<float>(), row_specs.data_ptr<int>(), E,
                           I(n_atoms), I(sh.size(1)), I(w2b.size(1) / U), I(row_specs.size(0)),
                           I(env.size(1) / U), I(g.size(1) / U), I(U), dsh.data_ptr<float>(),
-                          dw2b.data_ptr<float>(), denv.data_ptr<float>(), 0, stream()));
+                          dw2b.data_ptr<float>(), denv.data_ptr<float>(), bf16, stream()));
   return {dsh, dw2b, denv};
 }
 
@@ -418,6 +447,71 @@ std::vector<Tensor> readout_bwd(at::TensorList pieces_, const Tensor& w0_,
   return dpieces.tensors;
 }
 
+Tensor tp_scatter(const Tensor& x_, const Tensor& g_, const Tensor& w_, const Tensor& centers,
+                  const Tensor& row_ptr_, const Tensor& entry_idx, const Tensor& entry_coef,
+                  int64_t d2, const Tensor& desc, const Tensor& scale, const Tensor& path_idx,
+                  const Tensor& path_coef, bool bf16) {
+  auto x = track(x_, bf16, "x"), g = track(g_, bf16, "g"), w = f32(w_, "w");
+  auto row_ptr = i32(row_ptr_, "row_ptr");
+  Paths paths(desc, scale, path_idx, path_coef);
+  int64_t U = w.size(1), n_atoms = row_ptr.size(0) - 1;
+  auto denv = at::empty({n_atoms, d2 * U}, w.options());
+  if (n_atoms == 0) return denv;
+  launched("tp_scatter",
+           atpt_tp_scatter(x.data_ptr(), g.data_ptr(), w.data_ptr<float>(),
+                           row_ptr.data_ptr<int>(), paths.desc.data_ptr<int>(),
+                           paths.scale.data_ptr<float>(), paths.rows(), paths.idx.data_ptr<int>(),
+                           paths.coef.data_ptr<float>(), I(n_atoms), I(x.size(1) / U), I(d2),
+                           I(g.size(1) / U), I(U), I(w.size(0)), denv.data_ptr<float>(), bf16,
+                           stream()));
+  return denv;
+}
+
+Tensor unweight_sh(const Tensor& t_, const Tensor& wexp_, const Tensor& centers_,
+                   const Tensor& dim_to_irr_, bool bf16) {
+  auto t = f32(t_, "t"), wexp = track(wexp_, bf16, "wexp");
+  auto centers = i32(centers_, "centers"), dim_to_irr = i32(dim_to_irr_, "dim_to_irr");
+  int64_t E = wexp.size(0), d2 = dim_to_irr.size(0), U = t.size(1) / d2;
+  auto dsh = at::empty({E, d2}, t.options());
+  if (E > 0)
+    launched("unweight_sh",
+             atpt_unweight_sh(t.data_ptr<float>(), wexp.data_ptr(), centers.data_ptr<int>(),
+                              dim_to_irr.data_ptr<int>(), E, I(t.size(0)), I(d2),
+                              I(wexp.size(1) / U), I(U), dsh.data_ptr<float>(), bf16, stream()));
+  return dsh;
+}
+
+Tensor unweight_w(const Tensor& t_, const Tensor& sh_, const Tensor& centers_,
+                  const Tensor& dim_to_irr_, int64_t n_irr, bool bf16) {
+  auto t = f32(t_, "t"), sh = f32(sh_, "sh");
+  auto centers = i32(centers_, "centers"), dim_to_irr = i32(dim_to_irr_, "dim_to_irr");
+  int64_t E = sh.size(0), d2 = sh.size(1), U = t.size(1) / d2;
+  auto dwexp = at::empty({E, n_irr * U}, t.options().dtype(storage(bf16)));
+  if (E > 0)
+    launched("unweight_w",
+             atpt_unweight_w(t.data_ptr<float>(), sh.data_ptr<float>(), centers.data_ptr<int>(),
+                             dim_to_irr.data_ptr<int>(), E, I(t.size(0)), I(d2), I(n_irr), I(U),
+                             dwexp.data_ptr(), bf16, stream()));
+  return dwexp;
+}
+
+Tensor sparse_tp(const Tensor& a_, const Tensor& b_, const Tensor& w_, const Tensor& entry_idx,
+                 const Tensor& entry_coef, int64_t d3, const Tensor& desc, const Tensor& scale,
+                 const Tensor& path_idx, const Tensor& path_coef) {
+  auto a = f32(a_, "a"), b = f32(b_, "b"), w = f32(w_, "w");
+  Paths paths(desc, scale, path_idx, path_coef);
+  int64_t E = a.size(0), U = w.size(1);
+  auto out = at::empty({E, d3 * U}, a.options());
+  if (E > 0)
+    launched("sparse_tp",
+             atpt_sparse_tp(a.data_ptr<float>(), b.data_ptr<float>(), w.data_ptr<float>(),
+                            paths.desc.data_ptr<int>(), paths.scale.data_ptr<float>(),
+                            paths.rows(), paths.idx.data_ptr<int>(), paths.coef.data_ptr<float>(),
+                            E, I(a.size(1) / U), I(b.size(1) / U), I(d3), I(U), I(w.size(0)),
+                            out.data_ptr<float>(), stream()));
+  return out;
+}
+
 }  // namespace
 
 long long atpt_op_launches(const char* name) {
@@ -427,36 +521,45 @@ long long atpt_op_launches(const char* name) {
 }
 
 TORCH_LIBRARY(atpt, m) {
-  m.def("env_scatter(Tensor sh, Tensor wexp, Tensor centers, Tensor row_ptr, "
-        "Tensor dim_to_irr, int U) -> Tensor");
-  m.def("gather_tp(Tensor x, Tensor env, Tensor w, Tensor centers, Tensor entry_idx, "
-        "Tensor entry_coef, int d3, bool split, Tensor desc, Tensor scale, Tensor path_idx, "
-        "Tensor path_coef) -> (Tensor, Tensor)");
-  m.def("bwd_fused(Tensor x, Tensor g, Tensor? gts, Tensor env, Tensor w, Tensor centers, "
-        "Tensor row_ptr, Tensor entry_idx, Tensor entry_coef, Tensor desc, Tensor scale, "
-        "Tensor path_idx, Tensor path_coef, Tensor scatter_desc, Tensor scatter_scale, "
-        "Tensor scatter_path_idx, Tensor scatter_path_coef) -> (Tensor, Tensor)");
-  m.def("unweight_both(Tensor t, Tensor sh, Tensor wexp, Tensor centers, Tensor dim_to_irr) "
-        "-> (Tensor, Tensor)");
+  m.def("env_scatter(Tensor sh, Tensor wexp, Tensor centers, Tensor row_ptr,"
+        " Tensor dim_to_irr, int U, bool bf16) -> Tensor");
+  m.def("gather_tp(Tensor x, Tensor env, Tensor w, Tensor centers, Tensor entry_idx,"
+        " Tensor entry_coef, int d3, bool split, Tensor desc, Tensor scale, Tensor path_idx,"
+        " Tensor path_coef, bool bf16) -> (Tensor, Tensor)");
+  m.def("bwd_fused(Tensor x, Tensor g, Tensor? gts, Tensor env, Tensor w, Tensor centers,"
+        " Tensor row_ptr, Tensor entry_idx, Tensor entry_coef, Tensor desc, Tensor scale,"
+        " Tensor path_idx, Tensor path_coef, Tensor scatter_desc, Tensor scatter_scale,"
+        " Tensor scatter_path_idx, Tensor scatter_path_coef, bool bf16) -> (Tensor, Tensor)");
+  m.def("unweight_both(Tensor t, Tensor sh, Tensor wexp, Tensor centers, Tensor dim_to_irr,"
+        " bool bf16, bool bf16_out) -> (Tensor, Tensor)");
   m.def("center_gather(Tensor a, Tensor idx) -> Tensor");
   m.def("center_sum(Tensor v, Tensor row_ptr, Tensor? perm, bool chunked) -> Tensor");
-  m.def("latent_env_scatter(Tensor[] pieces, Tensor sh, Tensor w0, Tensor? w1, Tensor centers, "
-        "Tensor row_ptr, Tensor dim_to_irr, Tensor irr_ranges, int U, int S) "
-        "-> (Tensor, Tensor)");
-  m.def("latent_env_bwd(Tensor[] pieces, Tensor sh, Tensor w0, Tensor? w1, Tensor t, "
-        "Tensor g_lat, Tensor centers, Tensor dim_to_irr, Tensor irr_ranges, "
-        "int U, int S) -> Tensor[]");
-  m.def("gather_tp_embed(Tensor sh, Tensor w2b, Tensor env, Tensor w, Tensor centers, "
-        "Tensor row_ptr, Tensor entry_idx, Tensor entry_coef, Tensor row_specs, "
-        "int d3, bool split, Tensor desc, Tensor scale, Tensor path_idx, Tensor path_coef) "
-        "-> (Tensor, Tensor)");
-  m.def("bwd_embed(Tensor sh, Tensor w2b, Tensor g, Tensor? gts, Tensor env, Tensor w, "
-        "Tensor centers, Tensor row_ptr, Tensor entry_idx, Tensor entry_coef, "
-        "Tensor row_specs, Tensor desc, Tensor scale, Tensor path_idx, Tensor path_coef) "
-        "-> (Tensor, Tensor, Tensor)");
+  m.def("latent_env_scatter(Tensor[] pieces, Tensor sh, Tensor w0, Tensor? w1,"
+        " Tensor centers, Tensor row_ptr, Tensor dim_to_irr, Tensor irr_ranges, int U, int S,"
+        " bool bf16_wexp) -> (Tensor, Tensor)");
+  m.def("latent_env_bwd(Tensor[] pieces, Tensor sh, Tensor w0, Tensor? w1, Tensor t,"
+        " Tensor g_lat, Tensor centers, Tensor dim_to_irr, Tensor irr_ranges, int U, int S,"
+        " bool bf16_wexp) -> Tensor[]");
+  m.def("gather_tp_embed(Tensor sh, Tensor w2b, Tensor env, Tensor w, Tensor centers,"
+        " Tensor row_ptr, Tensor entry_idx, Tensor entry_coef, Tensor row_specs, int d3,"
+        " bool split, Tensor desc, Tensor scale, Tensor path_idx, Tensor path_coef,"
+        " bool bf16) -> (Tensor, Tensor)");
+  m.def("bwd_embed(Tensor sh, Tensor w2b, Tensor g, Tensor? gts, Tensor env, Tensor w,"
+        " Tensor centers, Tensor row_ptr, Tensor entry_idx, Tensor entry_coef,"
+        " Tensor row_specs, Tensor desc, Tensor scale, Tensor path_idx, Tensor path_coef,"
+        " bool bf16) -> (Tensor, Tensor, Tensor)");
   m.def("readout_sum(Tensor[] pieces, Tensor w0, Tensor? w1, Tensor row_ptr) -> Tensor");
-  m.def("readout_bwd(Tensor[] pieces, Tensor w0, Tensor? w1, Tensor y, Tensor centers) "
-        "-> Tensor[]");
+  m.def("readout_bwd(Tensor[] pieces, Tensor w0, Tensor? w1, Tensor y, Tensor centers)"
+        " -> Tensor[]");
+  m.def("tp_scatter(Tensor x, Tensor g, Tensor w, Tensor centers, Tensor row_ptr,"
+        " Tensor entry_idx, Tensor entry_coef, int d2, Tensor desc, Tensor scale,"
+        " Tensor path_idx, Tensor path_coef, bool bf16) -> Tensor");
+  m.def("unweight_sh(Tensor t, Tensor wexp, Tensor centers, Tensor dim_to_irr, bool bf16)"
+        " -> Tensor");
+  m.def("unweight_w(Tensor t, Tensor sh, Tensor centers, Tensor dim_to_irr, int n_irr,"
+        " bool bf16) -> Tensor");
+  m.def("sparse_tp(Tensor a, Tensor b, Tensor w, Tensor entry_idx, Tensor entry_coef, int d3,"
+        " Tensor desc, Tensor scale, Tensor path_idx, Tensor path_coef) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(atpt, CUDA, m) {
@@ -472,4 +575,8 @@ TORCH_LIBRARY_IMPL(atpt, CUDA, m) {
   m.impl("bwd_embed", &bwd_embed);
   m.impl("readout_sum", &readout_sum);
   m.impl("readout_bwd", &readout_bwd);
+  m.impl("tp_scatter", &tp_scatter);
+  m.impl("unweight_sh", &unweight_sh);
+  m.impl("unweight_w", &unweight_w);
+  m.impl("sparse_tp", &sparse_tp);
 }

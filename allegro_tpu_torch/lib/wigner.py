@@ -90,7 +90,9 @@ def wigner_3j(l1: int, l2: int, l3: int) -> np.ndarray:
         D = np.kron(np.kron(wigner_D(l1, R), wigner_D(l2, R)), wigner_D(l3, R))
         mats.append(D - np.eye(d1 * d2 * d3))
     M = np.concatenate(mats, axis=0)
-    _, s, vh = np.linalg.svd(M, full_matrices=True)
+    # the thin SVD: vh is the same [d, d] matrix, to the bit, without the
+    # [3d, 3d] left factor
+    _, s, vh = np.linalg.svd(M, full_matrices=False)
     # Null space must be exactly 1-dimensional for triangle-allowed l's.
     tol = 1e-7
     null_dim = int(np.sum(s < tol)) + (vh.shape[0] - len(s))

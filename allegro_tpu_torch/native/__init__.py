@@ -9,7 +9,8 @@ implementation. The MD driver (``md_driver.py``) has none: its builds raise
 where they fail.
 """
 
-from .md_driver import build_md_core, build_md_driver
+from .md_driver import build_md_core, build_md_driver, build_torch_ops
 from .neighborlist import native_available, native_neighbor_list
 
-__all__ = ["native_neighbor_list", "native_available", "build_md_core", "build_md_driver"]
+__all__ = ["native_neighbor_list", "native_available", "build_md_core", "build_md_driver",
+           "build_torch_ops"]

@@ -15,7 +15,11 @@ and flags; a failed build raises with the compiler's output:
   PyTorch's headers and libraries, with the ``atpt`` ops of
   ``csrc/torch_ops.cpp`` linked in and the kernels' library of
   ``ops/_build.py`` (so it needs the card's toolkit: ``nvcc`` and the CUDA
-  headers). Its four sources compile in parallel.
+  headers). Its four sources compile in parallel. The same build links
+  ``csrc/torch_ops.cpp`` alone into a shared library (:func:`build_torch_ops`),
+  which ``torch.ops.load_library`` loads into a Python process that does not
+  import ``ops/custom_ops.py`` (both define the ``atpt`` namespace): there
+  each op's C++ implementation can be held against its Python wrapper.
 
 Run ``allegro_md --artifact model.pt2 --init system.npz --steps N`` (the
 system file and its options: ``csrc/md_driver.cpp``).
@@ -84,9 +88,15 @@ def _torch_paths():
     return root / "include", root / "lib", int(torch._C._GLIBCXX_USE_CXX11_ABI), torch.__version__
 
 
+def _ops_library(driver: Path) -> Path:
+    """The ``torch_ops.cpp`` library built beside the driver ``driver``."""
+    return driver.with_name("libatpt_ops_" + driver.name.rsplit("_", 1)[1] + ".so")
+
+
 def build_md_driver(build_dir: Path | str = BUILD_DIR) -> Path:
-    """The driver binary ``allegro_md``; its path. Builds the kernels'
-    library first (``ops/_build.build_library``)."""
+    """The driver binary ``allegro_md``, and beside it the ops' library of
+    :func:`build_torch_ops`; the driver's path. Builds the kernels' library
+    first (``ops/_build.build_library``)."""
     build_dir = Path(build_dir)
     kernels = _build.build_library(build_dir)
     include, lib, abi, version = _torch_paths()
@@ -97,23 +107,33 @@ def build_md_driver(build_dir: Path | str = BUILD_DIR) -> Path:
     srcs = [CSRC / s for s in DRIVER_SOURCES]
     out = build_dir / "allegro_md_{}".format(
         _digest([*srcs, CSRC / "md_core.h"], *flags, kernels.name, version))
-    if out.exists():
+    ops = _ops_library(out)
+    if out.exists() and ops.exists():
         return out
     build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     objs = [build_dir / f"{s.stem}.{tag}.o" for s in srcs]
-    tmp = out.with_name(f"{out.name}.{tag}")
+    tmp, ops_tmp = out.with_name(f"{out.name}.{tag}"), ops.with_name(f"{ops.name}.{tag}")
+    libs = [str(kernels), f"-L{lib}", "-Wl,--no-as-needed", "-ltorch", "-ltorch_cpu",
+            "-ltorch_cuda", "-lc10", "-lc10_cuda", "-Wl,--as-needed", f"-Wl,-rpath,{lib}",
+            f"-Wl,-rpath,{kernels.parent}"]
     try:
         _run_all([["g++", *flags, "-c", str(s), "-o", str(o)] for s, o in zip(srcs, objs)])
-        _run_all([["g++", *map(str, objs), str(kernels), "-o", str(tmp), f"-L{lib}",
-                   "-Wl,--no-as-needed", "-ltorch", "-ltorch_cpu", "-ltorch_cuda", "-lc10",
-                   "-lc10_cuda", "-Wl,--as-needed", f"-Wl,-rpath,{lib}",
-                   f"-Wl,-rpath,{kernels.parent}", "-fopenmp", "-lpthread", "-ldl"]])
+        ops_obj = objs[DRIVER_SOURCES.index("torch_ops.cpp")]
+        _run_all([["g++", *map(str, objs), *libs, "-o", str(tmp), "-fopenmp", "-lpthread", "-ldl"],
+                  ["g++", "-shared", str(ops_obj), *libs, "-o", str(ops_tmp)]])
+        os.replace(ops_tmp, ops)
         os.replace(tmp, out)
     finally:
-        for path in (*objs, tmp):
+        for path in (*objs, tmp, ops_tmp):
             path.unlink(missing_ok=True)
     return out
+
+
+def build_torch_ops(build_dir: Path | str = BUILD_DIR) -> Path:
+    """``csrc/torch_ops.cpp`` as a shared library for ``torch.ops.load_library``
+    (the kernels' library linked in), built with the driver; its path."""
+    return _ops_library(build_md_driver(build_dir))
 
 
 if __name__ == "__main__":

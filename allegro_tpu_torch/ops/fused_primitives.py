@@ -29,9 +29,9 @@
 
 On the inference Functions the weight gradients are NaN by design, so
 training parameters on the inference backend fails loudly instead of
-silently. They reach their kernels through ``custom_ops``: the wrappers of
-``fused_tp`` eagerly, the ``atpt::`` ops inside ``custom_ops.tracing()``
-(the export of ``compile/export.py``).
+silently. Every Function here reaches its kernels through ``custom_ops``:
+the wrappers of ``fused_tp`` eagerly, the ``atpt::`` ops inside
+``custom_ops.tracing()`` (the export of ``compile/export.py``).
 
 The bf16 tensor track (``tensor_dtype="bfloat16"``, on every route of both
 fused backends): on the mega path ``mega_latent_env`` takes ``wexp_dtype``
@@ -60,7 +60,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import custom_ops as kernels
-from . import fused_tp
 from .gen_cg_blocks import CgPaths
 
 
@@ -134,7 +133,7 @@ class EnvScatter(torch.autograd.Function):
     def forward(ctx, sh, wexp, st: FusedStatics):
         ctx.save_for_backward(sh, wexp)
         ctx.st = st
-        return fused_tp.env_scatter(sh, wexp, st.centers, st.row_ptr, st.dim_to_irr, st.U)
+        return kernels.env_scatter(sh, wexp, st.centers, st.row_ptr, st.dim_to_irr, st.U)
 
     @staticmethod
     def backward(ctx, t):
@@ -151,8 +150,8 @@ class GatherTp(torch.autograd.Function):
     def forward(ctx, x, env, w, st: FusedStatics):
         ctx.save_for_backward(x, env, w)
         ctx.st = st
-        return fused_tp.gather_tp(x, env, _wide(w), st.centers, st.entry_idx, st.entry_coef,
-                                  st.dims[2], paths=st.paths)
+        return kernels.gather_tp(x, env, _wide(w), st.centers, st.entry_idx, st.entry_coef,
+                                 st.dims[2], paths=st.paths)
 
     @staticmethod
     def backward(ctx, g):
@@ -170,8 +169,8 @@ class TpScatter(torch.autograd.Function):
     def forward(ctx, x, g, w, st: FusedStatics):
         ctx.save_for_backward(x, g, w)
         ctx.st = st
-        return fused_tp.tp_scatter(x, g, _wide(w), st.centers, st.row_ptr, st.entry_idx,
-                                   st.entry_coef, st.dims[1], st.scatter_paths)
+        return kernels.tp_scatter(x, g, _wide(w), st.centers, st.row_ptr, st.entry_idx,
+                                  st.entry_coef, st.dims[1], st.scatter_paths)
 
     @staticmethod
     def backward(ctx, t):
@@ -189,8 +188,8 @@ class GatherDw(torch.autograd.Function):
     def forward(ctx, x, env, g, st: FusedStatics):
         ctx.save_for_backward(x, env, g)
         ctx.st = st
-        return fused_tp.gather_dw(x, env, g, st.centers, st.entry_idx, st.entry_coef, st.n_paths,
-                                  st.U, st.paths)
+        return kernels.gather_dw(x, env, g, st.centers, st.entry_idx, st.entry_coef, st.n_paths,
+                                 st.U, st.paths)
 
     @staticmethod
     def backward(ctx, v):
@@ -208,7 +207,7 @@ class UnweightSh(torch.autograd.Function):
     def forward(ctx, t, wexp, st: FusedStatics):
         ctx.save_for_backward(t, wexp)
         ctx.st = st
-        return fused_tp.unweight_sh(t, wexp, st.centers, st.dim_to_irr)
+        return kernels.unweight_sh(t, wexp, st.centers, st.dim_to_irr)
 
     @staticmethod
     def backward(ctx, s):
@@ -226,7 +225,7 @@ class UnweightW(torch.autograd.Function):
     def forward(ctx, t, sh, st: FusedStatics, out_dtype: Optional[torch.dtype] = None):
         ctx.save_for_backward(t, sh)
         ctx.st = st
-        return fused_tp.unweight_w(t, sh, st.centers, st.dim_to_irr, st.n_irr, out_dtype)
+        return kernels.unweight_w(t, sh, st.centers, st.dim_to_irr, st.n_irr, out_dtype)
 
     @staticmethod
     def backward(ctx, v):

@@ -15,7 +15,11 @@ permuted entry table (``ops/pallas_contract.py:ROLES``):
 
 Each ``backward`` is built from ``.apply`` of the two only, so it is itself
 differentiable (the double backward of force training runs on the kernels),
-and computes only the cotangents in ``ctx.needs_input_grad``.
+and computes only the cotangents in ``ctx.needs_input_grad``. Both reach
+their kernels through ``custom_ops``: the wrappers of
+``ops/pallas_contract.py`` eagerly, the ``atpt::sparse_tp`` op inside
+``custom_ops.tracing()`` (a force call, whose parameters are frozen, never
+reaches ``SparseTpGradW``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import pallas_contract
+from . import custom_ops as kernels
 from .gen_cg_blocks import CgPaths
 from .fused_primitives import _need
 from .pallas_contract import ROLES
@@ -69,7 +73,7 @@ class SparseTp(torch.autograd.Function):
     def forward(ctx, a, b, w, st: TpStatics, r: int):
         ctx.save_for_backward(a, b, w)
         ctx.st, ctx.r = st, r
-        return pallas_contract.sparse_tp(a, b, w, *st.table(r), st.out_dim(r), st.walk(r))
+        return kernels.sparse_tp(a, b, w, *st.table(r), st.out_dim(r), st.walk(r))
 
     @staticmethod
     def backward(ctx, g):
@@ -89,7 +93,7 @@ class SparseTpGradW(torch.autograd.Function):
         ctx.save_for_backward(a, b, g)
         ctx.st, ctx.r = st, r
         U = a.shape[1] // st.dims[ROLES[r][0]]
-        return pallas_contract.sparse_tp_gradw(a, b, g, *st.table(r), st.n_paths, U, st.walk(r))
+        return kernels.sparse_tp_gradw(a, b, g, *st.table(r), st.n_paths, U, st.walk(r))
 
     @staticmethod
     def backward(ctx, t):

@@ -87,9 +87,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    both role orders; against the plain version in float64), ``unweight_sh``,
    ``unweight_w`` and ``gather_tp`` on the role-swapped table (and, checked,
    the layer's own), each against its plain version (1e-5) with median
-   times, then checks only at U = 16 and 48, and ``gather_tp`` (with and
-   without its split output) and ``gather_dw`` in both role orders on the
-   batch's edges less one (an odd count) at U = 16 and 48 and on an l = 4
+   times, then checks only at U = 16 and 48, and (the shape checks, on the
+   edges of a quarter of the batch's atoms and every sentinel edge:
+   ``SHAPE_ROWS``) ``gather_tp`` (with and
+   without its split output) and ``gather_dw`` in both role orders on
+   those edges less one (an odd count) at U = 16 and 48 and on an l = 4
    layer (walk rows beyond the header), with x nonzero on the sentinel
    edges, and ``tp_scatter`` (both orders, against float64) and
    ``unweight_sh`` at those shapes on the batch's edges less those of atom
@@ -129,7 +131,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    walking the role order's path table): (a) ``sparse_tp`` and
    ``sparse_tp_gradw`` against their plain versions on the crystal's
    103,532 edges at both layer dims, in all six role orders of the layer's
-   table, with and without path-channel coupling (1e-5; ``sparse_tp_gradw``,
+   table (the three untimed ones on a quarter of those rows: the walks do
+   not depend on the row count), with and without path-channel coupling
+   (1e-5; ``sparse_tp_gradw``,
    whose entries sum ~10^5 edges, against the plain version in float64),
    with median times (the table and its a- and b-swaps; the plain versions
    timed in float32), the bound and the one PyTorch call
@@ -216,7 +220,30 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    positions within 1e-4 A of a host float64 Verlet driven by eager forces;
    (d) ``python -m allegro_tpu_torch compile`` on phase 6d's tutorial
    workdir (started with (c)'s build), its ``.pt2`` loaded and called once
-   against the eager model of the same checkpoint.
+   against the eager model of the same checkpoint; (e) every model the port
+   builds exported at the same padded shape (``EXPORT_MODELS``: md.yaml's
+   on ``pallas``, the flagship on ``fused``, under ``POLICY_100K`` on the
+   mega route, the bf16 track with ``use_mega=False``, ``remat`` +
+   ``checkpoint_energy`` in f32, ``einsum`` with ``tp_chunk_edges``): (a)
+   each program's module on the card holds one ``atpt::`` op per launch of
+   the eager call, op by op, and one set bf16 flag per bf16 launch, gives
+   the eager outputs within 1e-6 rel (the same bits expected) and the same
+   bits twice; (b) the ``POLICY_100K`` model's ``.pt2``, built by a child
+   process started with (c)'s build (its seconds printed), loaded here:
+   forces within 1e-5 rel and energies within 5e-5 of sum |E_i| of the
+   eager call, the same bits twice, per call the launches of the program's
+   live ops (the eager call's less the recomputed ops whose results nothing
+   reads, which the compiler drops; a recompute merged into the forward
+   would launch fewer still), eager against ``.pt2`` us/atom in turns, and each one's peak memory net of the
+   inputs beside the call without remat and checkpoint_energy; (c) the C++
+   driver runs that package for 1 and ``DEPLOY_STEPS`` steps against a host
+   Verlet on eager forces, as in (c) above (the bf16 flags of
+   ``csrc/torch_ops.cpp``); (d) every ``atpt::`` op form those models and
+   ``OP_CHECK_MODELS`` call on a 512-atom crystal, captured with its
+   arguments and outputs, called again through ``csrc/torch_ops.cpp``'s
+   implementation in a child process that loads it as a library
+   (``native.build_torch_ops``) without ``ops/custom_ops.py``: the same
+   bits, every op of ``custom_ops.SCHEMAS`` held.
 10. multi-device (``parallel_phase``; ``--phase 10`` runs it alone), every mesh ``[cuda:0] * D`` on this one card: (a) slab
    at D = 2 and 4, brick at (2, 2, 1) and (2, 2, 2) on the 4,096-atom
    crystal (``parallel.SlabDecomposition`` / ``BrickDecomposition``: halo
@@ -315,6 +342,7 @@ each also under its own key.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -331,6 +359,7 @@ R_MAX = 4.0
 LONG_R_MAX = 7.0  # phase 2's long segments: ~134 edges per atom
 EMPTY_ATOM = 7  # phase 5a: the atom whose edges check_scatter_shapes removes
 WIDE_ATOMS = 512  # phase 5a: the atoms whose edges unweight_sh's wide-U checks take
+SHAPE_ROWS = 4  # phase 5a's shape checks: the edges of a quarter of the batch's atoms
 SEED = 0
 N_CALLS = 5
 KERNEL_TOL = 1e-5
@@ -1230,8 +1259,9 @@ def check_train_kernels(tps, data, rng, records=None, first=0, plain_timing=None
 
 
 def check_gather_shapes(data, rng):
-    """Phase 5a, checks only, on the training batch's edges less the last (an
-    odd count: a whole number of no block's edges): ``gather_tp`` (the
+    """Phase 5a, checks only, on :func:`_shape_centers` less one edge where
+    their count is even (an odd count: a whole number of no block's edges):
+    ``gather_tp`` (the
     layer's order with and without its split output, and the role swap) and
     ``gather_dw`` (both orders, held to the plain version in float64) on the
     flagship's two layer shapes at U = 16 and 48 and on an l = 4 layer at
@@ -1244,7 +1274,8 @@ def check_gather_shapes(data, rng):
     from allegro_tpu_torch.ops import fused_tp, gen_cg_blocks
 
     dev = data[keys.POSITIONS].device
-    centers = data[keys.EDGE_INDEX][0].to(torch.int32)[:-1].contiguous()
+    centers = _shape_centers(data)
+    centers = (centers[:-1] if centers.shape[0] % 2 == 0 else centers).contiguous()
     n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
     E = centers.shape[0]
 
@@ -1361,8 +1392,20 @@ def check_env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U, label):
                lambda: (exact,), f"{label} (vs float64)")
 
 
+def _shape_centers(data):
+    """Phase 5a's rows: the training batch's edges whose center is among the
+    first 1/SHAPE_ROWS of its atoms, and every sentinel edge (the rows the
+    kernels must not read), still sorted by center. The walks and tiles do
+    not depend on the row count."""
+    from allegro_tpu_torch.data import keys
+
+    n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32)
+    return centers[(centers < n_atoms // SHAPE_ROWS) | (centers >= n_atoms)]
+
+
 def _odd_edges(data):
-    """Phase 5a's edge set: the training batch's edges less those of atom
+    """Phase 5a's edge set: :func:`_shape_centers` less the edges of atom
     ``EMPTY_ATOM`` (a segment without edges) and less the last one or two (an
     odd count: a whole number of no tile's or chunk's edges), with its CSR."""
     from allegro_tpu_torch.data import keys
@@ -1370,7 +1413,7 @@ def _odd_edges(data):
 
     dev = data[keys.POSITIONS].device
     n_atoms = data[keys.CENTER_ROW_PTR].shape[0] - 1
-    centers = data[keys.EDGE_INDEX][0].to(torch.int32)
+    centers = _shape_centers(data)
     centers = centers[centers != EMPTY_ATOM]
     centers = centers[:-1] if centers.shape[0] % 2 == 0 else centers[:-2]
     centers = centers.contiguous()
@@ -1588,7 +1631,7 @@ def check_readout_shapes(data, rng):
 
 
 def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
-                         plain_timing=None):
+                         plain_timing=None, untimed_rows=None):
     """Phase 6a: ``sparse_tp`` and ``sparse_tp_gradw`` against their plain
     versions on ``n_edges`` rows, at each layer's dims, in all six role
     orders of its table (each order's path table in walk order, as the
@@ -1600,7 +1643,9 @@ def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
     the one ``torch.einsum`` call that computes the same function from the
     dense CG tensor (None and "OOM" printed where it runs out of device
     memory). The other three orders (the weight gradient's transposes) are
-    checks only. Each entry of ``sparse_tp_gradw`` sums ~10^5 edges, and the
+    checks only, on ``untimed_rows`` rows where given (the walks do not
+    depend on the row count). Each entry of ``sparse_tp_gradw`` sums ~10^5
+    edges, and the
     float32 plain version's own error comes near the tolerance at the 3-layer
     l_max-3 dims (printed beside each case), so the kernel is held to the
     plain version in float64 (from the float64 entries), as the chunked
@@ -1613,7 +1658,6 @@ def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
     def rand(*shape):
         return torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
 
-    E = n_edges
     timed_orders = {0: "table", compose(0, SWAP_A): "swap_a", compose(0, SWAP_B): "swap_b"}
     for layer, tp in enumerate(tps, first):
         U, P, st = tp.mul, tp.num_paths, tp.tp_statics()
@@ -1625,6 +1669,7 @@ def check_pallas_kernels(tps, n_edges, dev, rng, records, library=True, first=0,
             (idx, coef), paths = st.table(r), st.walk(r)
             n = idx.shape[0]
             timed = records if r in timed_orders else None
+            E = n_edges if r in timed_orders or untimed_rows is None else untimed_rows
             a, b, g = rand(E, d1 * U), rand(E, d2 * U), rand(E, d3 * U)
             a3, b3, g3 = a.view(E, d1, U), b.view(E, d2, U), g.view(E, d3, U)
             C = fused_tp._cg_tensor(a, idx, coef, P, d1, d2, d3)
@@ -2680,7 +2725,8 @@ def main(argv=None) -> int:
                           tp_kernel_backend="pallas").to(dev)
     pallas.load_state_dict(fused.state_dict())
     print(f"[6] pallas kernels on the crystal's {n_edges} edges")
-    check_pallas_kernels(pallas.module.allegro.tps, n_edges, dev, rng, records)
+    check_pallas_kernels(pallas.module.allegro.tps, n_edges, dev, rng, records,
+                         untimed_rows=n_edges // 4)
     check_pallas_shapes(n_edges - 1, dev, rng)
     stamp("6b")
     pallas_data = to_torch(pallas.precompute_statics(batch_np), dtype=torch.float32, device=dev)
@@ -2880,7 +2926,8 @@ def kernel_record(row, records, records_l3, runs):
         out["launches_" + config.replace(" ", "_")] = launches[config][name]
     for run in ("md", "calculator", "lmax3_md", "lmax3_calculator"):
         out["launches_" + run] = runs[run][name]
-    out["launches_pt2_call"] = runs["pt2"].get(name, 0)
+    for package, counts in runs["pt2"].items():
+        out[f"launches_pt2_{package}_call"] = counts.get(name, 0)
     for run, counts in runs["parallel"].items():
         out[f"launches_parallel_{run}"] = counts.get(name, 0)
     for batch, counts in runs["train"].items():
@@ -3894,6 +3941,7 @@ DEPLOY_VELOCITY = 2.0
 DEPLOY_SEED = 9
 DEPLOY_TURNS = 5
 DEPLOY_TIMEOUT = 900
+PT2_FORCE_TOL = 1e-5  # a .pt2's forces against the eager call's (9b, 9e(b)), max-abs rel
 BUILD_DRIVER = "from allegro_tpu_torch.native import build_md_driver; print(build_md_driver())"
 
 
@@ -3906,7 +3954,8 @@ def _outputs_rel(got, want):
 
 def deploy_inputs(mega, dev):
     """The ghost-format crystal padded for the package: (the single-frame
-    data with the host statics, the export's inputs, n_pad, e_pad)."""
+    data with the host statics, the export's inputs, n_pad, e_pad, the
+    padded host batch)."""
     from allegro_tpu_torch.compile import ghost_atom_conversion
     from allegro_tpu_torch.compile.targets import EXPORT_INPUTS
     from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
@@ -3930,7 +3979,7 @@ def deploy_inputs(mega, dev):
     print(f"[9] ghost-format crystal (wrapped): {n_atoms} atoms + {n_rows - n_atoms} ghosts, "
           f"{n_edges} edges within r_max + skin ({R_MAX + DEPLOY_SKIN}), padded to {n_pad} rows "
           f"and {e_pad} edges")
-    return data, tuple(data[k] for k in EXPORT_INPUTS), n_pad, e_pad
+    return data, tuple(data[k] for k in EXPORT_INPUTS), n_pad, e_pad, batch
 
 
 def check_program(mega, data, args, n_pad, e_pad):
@@ -3945,11 +3994,7 @@ def check_program(mega, data, args, n_pad, e_pad):
     t0 = time.perf_counter()
     program, meta = export_program(mega, n_atoms=n_pad, n_edges=e_pad)
     seconds = time.perf_counter() - t0
-    ops = {}
-    for node in program.graph.nodes:
-        if str(node.target).startswith("atpt."):
-            name = str(node.target).split(".")[1]
-            ops[name] = ops.get(name, 0) + 1
+    ops = _atpt_counts(program.graph.nodes)
     if ops != eager_launches:
         raise AssertionError(f"9a: the program's atpt ops {ops}, the eager call's launches "
                              f"{eager_launches}")
@@ -3991,7 +4036,7 @@ def check_pt2(mega, data, eager, eager_launches, args, n_pad, e_pad, work, n_ato
         raise AssertionError(f"9b: .pt2 launches {launches}, eager {eager_launches}")
     if not same_twice:
         raise AssertionError("9b: two identical .pt2 calls differ")
-    if rel[keys.FORCES] > 1e-5:
+    if rel[keys.FORCES] > PT2_FORCE_TOL:
         raise AssertionError(f"9b: .pt2 forces vs eager rel {rel[keys.FORCES]:.3e}")
     for k in (keys.PER_ATOM_ENERGY, keys.TOTAL_ENERGY):
         np.testing.assert_allclose(first[k].double().cpu().numpy(),
@@ -4037,12 +4082,9 @@ def eager_forces(mega, pos, types, cell, dev):
     return mega.apply_with_derivatives(data)[keys.FORCES][:len(pos)].double().cpu().numpy()
 
 
-def run_driver(build, path, mega, work, n_atoms, dev, smi):
-    """9c: the C++ driver (built in the background) runs --selftest, then
-    one step and DEPLOY_STEPS steps of the crystal on the package: its
-    step-0 forces, recovered from the first Verlet displacement, within
-    1e-4 rel of the eager call's, and its final positions within 1e-4 A of a
-    host float64 Verlet driven by the eager forces."""
+def driver_binary(build):
+    """9c: the C++ driver, built in the background (``build``), and its
+    --selftest; returns the binary's path."""
     out, err = build.communicate(timeout=DEPLOY_TIMEOUT)
     if build.returncode != 0:
         print(err[-4000:], file=sys.stderr)
@@ -4051,21 +4093,32 @@ def run_driver(build, path, mega, work, n_atoms, dev, smi):
     selftest = subprocess.run([binary, "--selftest"], capture_output=True, text=True, timeout=60)
     if selftest.returncode != 0 or "selftest OK" not in selftest.stdout:
         raise AssertionError(f"9c: --selftest: {selftest.stdout[-1000:]} {selftest.stderr[-2000:]}")
+    return binary
+
+
+def run_driver(binary, path, mega, work, dev, smi, label="9c"):
+    """9c (and 9e(c) on the 100k policy's package): the C++ driver runs one
+    step and DEPLOY_STEPS steps of the crystal on the package: its step-0
+    forces, recovered from the first Verlet displacement, within 1e-4 rel of
+    the eager call's, and its final positions within 1e-4 A of a host
+    float64 Verlet driven by the eager forces."""
     pos, types, masses, vel, cell = driver_system()
     init = work / "system.npz"
     np.savez(init, positions=pos, types=types.astype(np.int32), masses=masses, velocities=vel,
              cell=cell, pbc=np.ones(3, np.int32))
     reports = {}
+    prefix = label.replace("(", "").replace(")", "")
     for steps in (1, DEPLOY_STEPS):
         cmd = [binary, "--artifact", path, "--init", str(init), "--steps", str(steps), "--dt",
-               str(DEPLOY_DT), "--skin", str(DEPLOY_SKIN), "--out-prefix", str(work / f"run{steps}_")]
+               str(DEPLOY_DT), "--skin", str(DEPLOY_SKIN), "--out-prefix",
+               str(work / f"{prefix}run{steps}_")]
         run = subprocess.run(cmd, capture_output=True, text=True, timeout=DEPLOY_TIMEOUT)
         if run.returncode != 0:
             print(run.stdout[-2000:])
             print(run.stderr[-4000:], file=sys.stderr)
-            raise AssertionError(f"9c: the driver exited {run.returncode}: {' '.join(cmd)}")
+            raise AssertionError(f"{label}: the driver exited {run.returncode}: {' '.join(cmd)}")
         reports[steps] = json.loads(run.stdout.strip().splitlines()[-1])
-    x1 = np.load(work / "run1_positions.npy")
+    x1 = np.load(work / f"{prefix}run1_positions.npy")
     f0 = 2.0 * masses[:, None] * (x1 - pos - DEPLOY_DT * vel) / DEPLOY_DT**2
     f_eager = eager_forces(mega, pos, types, cell, dev)
     f_rel = float(np.abs(f0 - f_eager).max() / np.abs(f_eager).max())
@@ -4076,21 +4129,22 @@ def run_driver(build, path, mega, work, n_atoms, dev, smi):
         fn = eager_forces(mega, x, types, cell, dev)
         v = v + 0.5 * DEPLOY_DT / masses[:, None] * (f + fn)
         f = fn
-    x_drv = np.load(work / f"run{DEPLOY_STEPS}_positions.npy")
+    x_drv = np.load(work / f"{prefix}run{DEPLOY_STEPS}_positions.npy")
     d = (x_drv - x) @ np.linalg.inv(cell)
     x_err = float(np.abs((d - np.round(d)) @ cell).max())
     rep = reports[DEPLOY_STEPS]
-    print(f"[9c] allegro_md: --selftest OK; step-0 forces from the first displacement vs eager "
+    print(f"[{label}] allegro_md: --selftest OK; step-0 forces from the first displacement vs eager "
           f"rel {f_rel:.3e} (< 1e-4); after {DEPLOY_STEPS} steps ({rep['rebuilds']} list builds) "
           f"positions vs the host f64 Verlet max {x_err:.3e} A (< 1e-4), moved up to "
           f"{np.abs(x - pos).max():.3f} A; {rep['ms_per_step']:.3f} ms/step, first call "
           f"{rep['first_call_ms']:.1f} ms; kernel launches {rep['launches']}; {smi}")
     if not f_rel < 1e-4:
-        raise AssertionError(f"9c: driver step-0 forces rel {f_rel:.3e}")
+        raise AssertionError(f"{label}: driver step-0 forces rel {f_rel:.3e}")
     if not x_err < 1e-4:
-        raise AssertionError(f"9c: driver positions off by {x_err:.3e} A")
+        raise AssertionError(f"{label}: driver positions off by {x_err:.3e} A")
     if not any(rep["launches"].values()):
-        raise AssertionError("9c: the driver launched no kernel")
+        raise AssertionError(f"{label}: the driver launched no kernel")
+    return rep["launches"]
 
 
 def check_cli_package(cli, tutorial_dir, dev):
@@ -4132,21 +4186,390 @@ def check_cli_package(cli, tutorial_dir, dev):
         raise AssertionError(f"9d: the CLI's package vs eager {rel}")
 
 
+# phase 9e (ROADMAP item 10's remainder): every model the port builds,
+# exported at phase 9's padded shape. Each one's program module against its
+# eager call on the card; the 100k policy's as a .pt2 (built in a child
+# process from the start of phase 9) and in the C++ driver; every op's C++
+# implementation against its Python wrapper
+EXPORT_CHUNK_EDGES = 65536  # tp_chunk_edges of the einsum model: 2 slices of the padded list
+EXPORT_MODELS = {
+    "md.yaml (pallas)": None,  # configs/md.yaml's model as shipped, its own seed
+    "fused": dict(tp_kernel_backend="fused"),
+    "100k policy": dict(tp_kernel_backend="fused_infer", **POLICY_100K),
+    "bf16 track, use_mega=False": dict(tp_kernel_backend="fused_infer",
+                                       tensor_dtype="bfloat16", use_mega=False),
+    "remat + checkpoint_energy": dict(tp_kernel_backend="fused_infer", remat=True,
+                                      checkpoint_energy=True),
+    "einsum, tp_chunk_edges": dict(tp_kernel_backend="einsum",
+                                   tp_chunk_edges=EXPORT_CHUNK_EDGES),
+}
+# 9e(d): the op forms the six models do not reach, captured beside theirs
+OP_CHECK_MODELS = {
+    "fused, bf16 track": dict(tp_kernel_backend="fused", tensor_dtype="bfloat16"),
+    "use_mega=False": dict(tp_kernel_backend="fused_infer", use_mega=False),
+}
+# 9e(b)'s memory reference: the 100k policy without its recomputes
+NO_RECOMPUTE = {**EXPORT_MODELS["100k policy"], "remat": False, "checkpoint_energy": False}
+# ... and its accuracy reference: the same weights in float64 on einsum
+F64_ORACLE = dict(tp_kernel_backend="einsum", model_dtype="float64")
+VARIANTS = {**EXPORT_MODELS, **OP_CHECK_MODELS, "100k policy, no recompute": NO_RECOMPUTE,
+            "100k policy, float64 einsum oracle": F64_ORACLE}
+OP_CHECK_ATOMS = 512  # the crystal of 9e(d)'s captured calls
+EXPORT_REL_TOL = 1e-6
+PT2_100K = """
+import json, sys, time
+import torch
+import chip_smoke as cs
+from allegro_tpu_torch.compile import export_model
+weights, path, n_pad, e_pad = sys.argv[1:]
+model = cs.export_variant("100k policy", torch.load(weights), torch.device("cuda", 0))
+t = time.perf_counter()
+export_model(model, path, n_atoms=int(n_pad), n_edges=int(e_pad))
+print(json.dumps({"seconds": time.perf_counter() - t}))
+"""
+OPS_CHECK = """
+import json, sys
+import torch
+torch.ops.load_library(sys.argv[1])
+report = {}
+for name, args, want in torch.load(sys.argv[2], weights_only=False):
+    got = getattr(torch.ops.atpt, name)(*args)
+    got = list(got) if isinstance(got, (tuple, list)) else [got]
+    same = len(got) == len(want) and all(
+        g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+    report.setdefault(name, []).append(bool(same))
+print(json.dumps(report))
+"""
+
+
+def export_variant(name, state, dev):
+    """A model of VARIANTS on ``dev``: the flagship at its crystal's mean
+    neighbor count with the parameters ``state`` (``md.yaml``'s: its own,
+    from its seed)."""
+    import yaml
+
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.train.config import build_model
+
+    if name == "md.yaml (pallas)":
+        cfg = yaml.safe_load((REPO / "configs/md.yaml").read_text())["model"]
+        return build_model(cfg).init(int(cfg["seed"])).to(dev)
+    model = AllegroModel(**{**FLAGSHIP, **VARIANTS[name]},
+                         avg_num_neighbors=float(state["avg_num_neighbors"]))
+    model.load_state_dict({k: v for k, v in state.items() if k != "avg_num_neighbors"})
+    return model.to(dev)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for the duration (ops without
+    a deterministic form warn), restored after."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _atpt_counts(nodes):
+    """{op: nodes} of the ``atpt::`` calls among graph ``nodes``."""
+    ops = {}
+    for node in nodes:
+        if str(node.target).startswith("atpt."):
+            name = str(node.target).split(".")[1]
+            ops[name] = ops.get(name, 0) + 1
+    return ops
+
+
+def _atpt_nodes(program):
+    """``({op: nodes}, bf16 nodes)`` of a program: its ``atpt::`` calls, and
+    those whose bf16 flag (``bf16`` or ``bf16_wexp``) is set."""
+    bf16 = 0
+    for node in program.graph.nodes:
+        if str(node.target).startswith("atpt."):
+            names = [a.name for a in node.target._schema.arguments]
+            values = dict(zip(names, node.args), **node.kwargs)
+            bf16 += bool(values.get("bf16") or values.get("bf16_wexp"))
+    return _atpt_counts(program.graph.nodes), bf16
+
+
+def _live_atpt_ops(program):
+    """{op: nodes} of the program's ``atpt::`` calls that an output depends
+    on: what a compiled package launches, since the compiler drops a pure
+    op whose results nothing reads (a recompute's energy sum, say)."""
+    live, todo = set(), [n for n in program.graph.nodes if n.op == "output"]
+    while todo:
+        node = todo.pop()
+        if node not in live:
+            live.add(node)
+            todo.extend(node.all_input_nodes)
+    return _atpt_counts(live)
+
+
+def _launch_counts():
+    from allegro_tpu_torch.ops import fused_tp
+
+    torch.cuda.synchronize()
+    return ({k: v for k, v in fused_tp.LAUNCHES.items() if v},
+            sum(fused_tp.BF16_LAUNCHES.values()))
+
+
+def check_exported_models(state, batch, args, n_pad, e_pad, dev):
+    """9e(a): each model of EXPORT_MODELS exported at phase 9's padded shape
+    (``export_program``); its program's module on the card holds one
+    ``atpt::`` op per launch of the eager call, op by op (and one bf16 flag
+    per bf16 launch), gives the eager outputs within 1e-6 rel (the same bits
+    expected), and the same bits twice; its live ops (``_live_atpt_ops``)
+    are counted for 9e(b). ``einsum``, the plain reference,
+    sums with ``index_add_``, atomics on the card: its eager call and its
+    program run under ``torch.use_deterministic_algorithms`` here. Returns
+    {model: (model, data, eager outputs, eager launches, live ops)}."""
+    from allegro_tpu_torch.compile import LoadedModel, export_program
+    from allegro_tpu_torch.data import to_torch
+    from allegro_tpu_torch.ops import fused_tp
+
+    eager_runs = {}
+    for name in EXPORT_MODELS:
+        model = export_variant(name, state, dev)
+        data = to_torch(model.precompute_statics(batch), dtype=torch.float32, device=dev)
+        with contextlib.nullcontext() if model.on_kernels else deterministic():
+            fused_tp.reset_launch_counts()
+            eager = model.apply_with_derivatives(data)
+            launches, bf16 = _launch_counts()
+            t0 = time.perf_counter()
+            program, meta = export_program(model, n_atoms=n_pad, n_edges=e_pad)
+            seconds = time.perf_counter() - t0
+            ops, flagged = _atpt_nodes(program)
+            if ops != launches or flagged != bf16:
+                raise AssertionError(f"9e(a) {name}: the program's atpt ops {ops} ({flagged} "
+                                     f"bf16), the eager call's launches {launches} ({bf16} bf16)")
+            loaded = LoadedModel(program.module(), meta)
+            first, second = loaded(*args), loaded(*args)
+        rel, same = _outputs_rel(first, {k: eager[k] for k in first})
+        _, twice = _outputs_rel(second, first)
+        print(f"[9e(a)] {name}{'' if model.on_kernels else ' (deterministic algorithms)'}: "
+              f"exported in {seconds:.1f} s ({len(program.graph.nodes)} nodes; "
+              f"meta tensor_dtype {meta['tensor_dtype']}, remat {meta['remat']}, "
+              f"checkpoint_energy {meta['checkpoint_energy']}); atpt ops {ops} ({flagged} bf16) "
+              f"= the eager launches; module vs eager max-abs rel "
+              f"{ {k: f'{v:.2e}' for k, v in rel.items()} }, same bits: {same}; twice the same "
+              f"bits: {twice}")
+        if max(rel.values()) > EXPORT_REL_TOL or not twice:
+            raise AssertionError(f"9e(a) {name}: module vs eager {rel}, twice the same: {twice}")
+        eager_runs[name] = (model, data, eager, launches, _live_atpt_ops(program))
+        del program, loaded, first, second
+    return eager_runs
+
+
+def _dead(launches, live):
+    return {k: v - live.get(k, 0) for k, v in launches.items() if v != live.get(k, 0)}
+
+
+def _peak_net_mib(fn):
+    """Peak device memory of ``fn()`` net of what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _allclose_margin(f, ref):
+    """max(|f - ref| - REF_RTOL |ref|): the reference allclose holds where
+    this is at most REF_ATOL."""
+    ref = ref.double()
+    return ((f.double() - ref).abs() - REF_RTOL * ref.abs()).max().item()
+
+
+def check_policy_pt2(child, path, run, state, batch, args, n_atoms, dev, smi):
+    """9e(b): the 100k policy's .pt2 (built in ``child`` from the start of
+    phase 9) loaded here: its forces within the reference allclose of the
+    eager call's (the bf16 track's own criterion: an f32 package moves its
+    products by ~5e-6, and stored bf16 features whose f32 value lies within
+    that of a rounding midpoint round the other way, so 1e-5 rel is out of
+    reach; the rel error and both calls' margins against the float64
+    ``einsum`` oracle are printed), energies within 5e-5 of sum |E_i|, the
+    same bits twice, and per call the
+    launches of the program's live ops: the eager call's less the recomputed
+    ops whose results nothing reads, which the compiler drops (a recompute
+    merged into the forward would launch fewer still, and keep the
+    activations remat drops); eager against .pt2 us/atom in turns, and each
+    one's peak memory net of the inputs beside the track's call without
+    remat and checkpoint_energy."""
+    from allegro_tpu_torch.compile import load_exported
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.ops import fused_tp
+
+    out, err = child.communicate(timeout=DEPLOY_TIMEOUT)
+    if child.returncode != 0:
+        print(out[-2000:])
+        print(err[-4000:], file=sys.stderr)
+        raise AssertionError(f"9e(b): the .pt2 build exited {child.returncode}")
+    build_s = json.loads(out.strip().splitlines()[-1])["seconds"]
+    model, data, eager, eager_launches, live = run
+    loaded = load_exported(path)
+    fused_tp.reset_launch_counts()
+    first = loaded(*args)
+    launches, bf16 = _launch_counts()
+    second = loaded(*args)
+    rel, _ = _outputs_rel(first, {k: eager[k] for k in first})
+    _, same_twice = _outputs_rel(second, first)
+    e_scale = float(eager[keys.PER_ATOM_ENERGY].abs().sum())
+    e_err = float((first[keys.TOTAL_ENERGY].double() - eager[keys.TOTAL_ENERGY].double()).abs()
+                  .max())
+    margin = _allclose_margin(first[keys.FORCES], eager[keys.FORCES])
+    oracle = export_variant("100k policy, float64 einsum oracle", state, dev)
+    ref = oracle.apply_with_derivatives(to_torch(oracle.precompute_statics(batch),
+                                                 dtype=torch.float64, device=dev))[keys.FORCES]
+    to_oracle = {k: _allclose_margin(out[keys.FORCES], ref) for k, out in (("eager", eager),
+                                                                          (".pt2", first))}
+    del oracle, ref
+    print(f"[9e(b)] 100k policy .pt2 built in {build_s:.1f} s (child process, from the start of "
+          f"phase 9; {Path(path).stat().st_size} bytes); vs eager max-abs rel "
+          f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (forces "
+          f"{'within' if rel[keys.FORCES] <= PT2_FORCE_TOL else 'beyond'} {PT2_FORCE_TOL}), "
+          f"forces' reference allclose margin {margin:.3e} (<= {REF_ATOL}), "
+          f"energy {e_err:.2e} of sum |E_i| {e_scale:.4g}; forces' margin against the float64 "
+          f"einsum oracle: { {k: f'{v:.3e}' for k, v in to_oracle.items()} }; two calls the "
+          f"same bits: {same_twice}; launches per call {launches} "
+          f"({bf16} bf16) = the program's live ops; of the eager call's, not launched (dead "
+          f"recomputes): {_dead(eager_launches, live)}")
+    if launches != live:
+        raise AssertionError(f"9e(b): .pt2 launches {launches}, the program's live ops {live} "
+                             f"(eager {eager_launches})")
+    if not same_twice:
+        raise AssertionError("9e(b): two identical .pt2 calls differ")
+    if not margin <= REF_ATOL:
+        raise AssertionError(f"9e(b): .pt2 forces miss the reference allclose of eager's: "
+                             f"margin {margin:.3e}")
+    if e_err > 5e-5 * e_scale:
+        raise AssertionError(f"9e(b): .pt2 energy off by {e_err:.3e} of sum |E_i| {e_scale:.4g}")
+    np.testing.assert_allclose(first[keys.PER_ATOM_ENERGY].double().cpu().numpy(),
+                               eager[keys.PER_ATOM_ENERGY].double().cpu().numpy(),
+                               rtol=5e-5, atol=5e-5)
+    times = {"eager": [], "pt2": []}
+    for _ in range(DEPLOY_TURNS):
+        for name, fn in (("eager", lambda: model.apply_with_derivatives(data)),
+                         ("pt2", lambda: loaded(*args))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) / n_atoms * 1e6)
+    print("    in turns (host clock, synchronized): " + ", ".join(
+        f"{k} {np.median(v):.3f} us/atom (runs {[round(x, 3) for x in v]})"
+        for k, v in times.items()) + f"; {n_atoms} atoms, {smi}")
+    no_recompute = export_variant("100k policy, no recompute", state, dev)
+    peaks = {"eager": _peak_net_mib(lambda: model.apply_with_derivatives(data)),
+             ".pt2": _peak_net_mib(lambda: loaded(*args)),
+             "eager without remat and checkpoint_energy": _peak_net_mib(
+                 lambda: no_recompute.apply_with_derivatives(data))}
+    print("    peak memory net of the inputs: " + ", ".join(
+        f"{k} {v:.1f} MiB" for k, v in peaks.items()) + f"; {smi}")
+    return launches
+def _clone(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().clone()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_clone(x) for x in v)
+    return v
+
+
+def _form(v):
+    """The dtypes and flags of an op call's arguments: one case per form."""
+    if isinstance(v, torch.Tensor):
+        return str(v.dtype)
+    if isinstance(v, (list, tuple)):
+        return tuple(_form(x) for x in v)
+    return v if isinstance(v, bool) or v is None else "value"
+
+
+def capture_op_calls(state, dev):
+    """9e(d)'s cases: every ``atpt::`` op form that the models of
+    EXPORT_MODELS and OP_CHECK_MODELS call in a force call on an
+    OP_CHECK_ATOMS-atom crystal (their eager calls inside
+    ``custom_ops.tracing()``, so the Functions call the ops, whose
+    implementations run the Python wrappers on the card): [(op, arguments,
+    outputs)], one per op and form of its arguments."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from allegro_tpu_torch.data import batch_frames, to_torch
+    from allegro_tpu_torch.ops import custom_ops
+
+    cases = {}
+
+    class Capture(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "atpt":
+                key = (func._schema.name, _form(args))
+                if key not in cases:
+                    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+                    cases[key] = (func._schema.name.split("::")[1], _clone(args), _clone(outs))
+            return out
+
+    frame, _ = crystal_frame(OP_CHECK_ATOMS, R_MAX, SEED)
+    batch = batch_frames([frame], n_frames=1)
+    for name in (*EXPORT_MODELS, *OP_CHECK_MODELS):
+        model = export_variant(name, state, dev)
+        data = to_torch(model.precompute_statics(batch), dtype=torch.float32, device=dev)
+        with custom_ops.tracing(), Capture():
+            model.apply_with_derivatives(data)
+    torch.cuda.synchronize()
+    return list(cases.values())
+
+
+def check_op_implementations(cases, work):
+    """9e(d): each captured op call again, through ``csrc/torch_ops.cpp``'s
+    CUDA implementation, in a child process that loads that library
+    (``native.build_torch_ops``, built with the driver) and does not import
+    ``ops/custom_ops.py`` (both define the ``atpt`` namespace): the same
+    outputs, bit for bit."""
+    from allegro_tpu_torch.native import build_torch_ops
+    from allegro_tpu_torch.ops import custom_ops
+
+    path = work / "op_cases.pt"
+    torch.save(cases, path)
+    run = subprocess.run([sys.executable, "-c", OPS_CHECK, str(build_torch_ops()), str(path)],
+                         capture_output=True, text=True, timeout=DEPLOY_TIMEOUT, cwd=REPO)
+    if run.returncode != 0:
+        print(run.stdout[-2000:])
+        print(run.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"9e(d): the op check exited {run.returncode}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    forms = {name: f"{sum(same)}/{len(same)}" for name, same in report.items()}
+    print(f"[9e(d)] csrc/torch_ops.cpp's op implementations vs the Python wrappers on the same "
+          f"inputs ({OP_CHECK_ATOMS}-atom crystal), forms the same bits: {forms}")
+    missing = sorted(set(custom_ops.SCHEMAS) - set(report))
+    if missing or not all(all(same) for same in report.values()):
+        raise AssertionError(f"9e(d): ops not held {missing}; report {report}")
+
+
 def deploy_phase(mega, dev, smi, tutorial_dir, stamp):
     """Phase 9: the flagship's force call exported (9a), built into a .pt2
     and run from Python (9b) and from the C++ MD driver (9c), and the CLI's
-    compile stage on the tutorial's workdir (9d). The driver's build and the
-    CLI start in the background before 9b's build. Returns the .pt2's
-    launches per call."""
+    compile stage on the tutorial's workdir (9d); then every model the port
+    builds exported (9e). The driver's build, the CLI and the 100k policy's
+    .pt2 build start in the background before 9a. Returns each .pt2's
+    launches per call: {"flagship": ..., "100k_policy": ...}."""
     work_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_")
     work = Path(work_dir.name)
-    data, args, n_pad, e_pad = deploy_inputs(mega, dev)
+    data, args, n_pad, e_pad, batch = deploy_inputs(mega, dev)
     n_atoms = N_ATOMS
+    state = {k: v.cpu() for k, v in mega.state_dict().items()}
+    state["avg_num_neighbors"] = float(mega.builder_kwargs["avg_num_neighbors"])
+    torch.save(state, work / "weights.pt")
     pipes = dict(cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     build = subprocess.Popen([sys.executable, "-c", BUILD_DRIVER], **pipes)
     cli = subprocess.Popen([sys.executable, "-m", "allegro_tpu_torch", "compile", "-c",
                             "configs/tutorial.yaml", "-w", str(tutorial_dir), "-o", "model.pt2"],
                            **pipes)
+    policy_path = str(work / "policy_100k.pt2")
+    policy = subprocess.Popen([sys.executable, "-c", PT2_100K, str(work / "weights.pt"),
+                               policy_path, str(n_pad), str(e_pad)], **pipes)
     try:
         stamp("9a")
         eager, eager_launches = check_program(mega, data, args, n_pad, e_pad)
@@ -4154,16 +4577,30 @@ def deploy_phase(mega, dev, smi, tutorial_dir, stamp):
         path, launches = check_pt2(mega, data, eager, eager_launches, args, n_pad, e_pad, work,
                                    n_atoms, smi)
         stamp("9c")
-        run_driver(build, path, mega, work, n_atoms, dev, smi)
+        binary = driver_binary(build)
+        run_driver(binary, path, mega, work, dev, smi)
         stamp("9d")
         check_cli_package(cli, tutorial_dir, dev)
+        stamp("9e")
+        runs = check_exported_models(state, batch, args, n_pad, e_pad, dev)
+        stamp("9e(b)")
+        policy_launches = check_policy_pt2(policy, policy_path, runs["100k policy"], state,
+                                           batch, args, n_atoms, dev, smi)
+        stamp("9e(c)")
+        driver_launches = run_driver(binary, policy_path, runs["100k policy"][0], work, dev, smi,
+                                     "9e(c)")
+        print(f"    the 100k policy's package in the driver: launches {driver_launches}")
+        stamp("9e(d)")
+        del runs
+        torch.cuda.empty_cache()
+        check_op_implementations(capture_op_calls(state, dev), work)
     finally:
-        for proc in (build, cli):
+        for proc in (build, cli, policy):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
         work_dir.cleanup()
-    return launches
+    return {"flagship": launches, "100k_policy": policy_launches}
 
 
 # phase 10: multi-device MD and data-parallel training, every mesh on this

@@ -43,6 +43,7 @@ from allegro_tpu_torch.data import (DataLoader, InMemoryDataset, batch_frames, k
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
 from allegro_tpu_torch.ops import fused_tp, smem_fit
 from allegro_tpu_torch.train import Trainer
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 2.5
 TOL = 1e-10
@@ -50,14 +51,6 @@ F64_SCATTER_TOL = 1e-8
 F32_TRACK_TOL = 1e-5  # tests/test_torch_precision.py's
 OPTIN = 232448  # an H100 block's opt-in shared memory (227 KB)
 BF = torch.bfloat16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _toy(model_dtype, **kw):

@@ -20,6 +20,7 @@ from allegro_tpu.model import AllegroModel as JaxAllegroModel
 from allegro_tpu_torch.calculator import AllegroCalculator
 from allegro_tpu_torch.data import keys
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 3.0
 MODEL_KW = dict(

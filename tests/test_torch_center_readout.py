@@ -47,6 +47,7 @@ from allegro_tpu_torch.ops import fused_tp
 from allegro_tpu_torch.ops.fused_primitives import (
     center_gather, center_scatter, readout_sum_infer,
 )
+from torch_threads import one_thread  # noqa: F401
 
 EB = 128
 N_ATOMS = 24

@@ -38,6 +38,7 @@ from allegro_tpu_torch.nn.contract import sparse_entries
 from allegro_tpu_torch.ops import fused_tp, gen_cg_blocks
 from allegro_tpu_torch.ops.fused_tp import csr_row_ptr, irrep_ranges
 from allegro_tpu_torch.lib.wigner import wigner_3j
+from torch_threads import one_thread  # noqa: F401
 
 
 def _parse_header():

@@ -42,6 +42,7 @@ from allegro_tpu_torch.cli import main
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, sgdml_npz_dataset, to_torch
 from allegro_tpu_torch.data.xyz import read_extxyz, write_extxyz
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ZBL = {"_target_": "allegro_tpu.nn.ZBLPairPotential", "chemical_species": "${data.type_names}"}
@@ -126,10 +127,12 @@ def test_cli_md_on_pallas(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    # the compile stage runs (tests/test_torch_export_ops.py); what the
-    # export does not trace yet raises, before any build
+    # the compile stage exports every model the builder makes
+    # (tests/test_torch_export_rest.py); the one it cannot build raises,
+    # before any build
     {"run": ["compile"], "model": {"avg_num_neighbors": 5.0, "per_type_energy_shifts": 0.0,
-                                   "per_type_energy_scales": 1.0, "remat": True}},
+                                   "per_type_energy_scales": 1.0,
+                                   "model_dtype": "bfloat16"}},
     # the package stage runs (tests/test_torch_train_rest.py), but a run list
     # that holds it and an unported stage is refused before any stage runs
     {"run": ["train", "package", "benchmark"]},

@@ -28,6 +28,7 @@ from allegro_tpu_torch.compile import (
 )
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 2.6
 TOL = 1e-10

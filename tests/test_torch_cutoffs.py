@@ -36,6 +36,7 @@ from allegro_tpu_torch.md import MDState, Simulation
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
 from allegro_tpu_torch.model.builders import _per_edge_type_cutoff_matrix
 from allegro_tpu_torch.native import native_available, native_neighbor_list
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 2.5
 TYPES = ["A", "B", "C"]

@@ -10,6 +10,7 @@ from allegro_tpu.data import neighborlist as jax_nl
 
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, pad_data, to_torch
 from allegro_tpu_torch.ops.fused_tp import csr_row_ptr
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 4.0
 

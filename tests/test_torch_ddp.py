@@ -32,19 +32,10 @@ from allegro_tpu_torch.model import AllegroModel, params_from_jax
 from allegro_tpu_torch.train import Trainer
 from allegro_tpu_torch.train.optim import optimizer_from_config
 from allegro_tpu_torch.utils import RankedLogger
+from torch_threads import one_thread  # noqa: F401
 
 LR = 0.05
 N_FRAMES = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the models are tiny, and in the suite the other
-    workers already occupy the cores (8 threads took ~1.8x as long alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup():

@@ -29,6 +29,7 @@ from allegro_tpu.model import AllegroModel as JaxAllegroModel
 from allegro_tpu_torch.compile import LoadedModel, export_program, ghost_atom_conversion
 from allegro_tpu_torch.data import keys, neighbor_list
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 2.6
 TOLS = {"float64": 1e-10, "float32": 5e-5}

@@ -5,13 +5,15 @@
   zero-padded masked lists, for every class lookup; an out-of-order list
   sets its ``ok`` flag False.
 - The exported program holds exactly one ``atpt::`` op per kernel launch of
-  the eager call on its route (mega, ``use_mega=False``, the plain readout;
-  none on ``einsum``), and runs to the eager call's outputs.
-- ``csrc/torch_ops.cpp`` defines the Python ops' schemas letter for letter.
+  the eager call on its route (mega, ``use_mega=False``, the plain readout,
+  ``fused``, ``pallas``, the bf16 track on mega and with ``use_mega=False``;
+  none on ``einsum``), and runs to the eager call's outputs. No route's
+  force call reaches the weight-gradient kernels 15 and 21.
+- ``csrc/torch_ops.cpp`` defines the Python ops' schemas letter for letter,
+  the bf16 flags included.
 - The CLI's ``compile`` stage on a tiny config, with the ``.pt2`` builder
   replaced by a recorder: the recorded program against the eager model.
-- What the export does not trace yet raises ``NotImplementedError`` naming
-  ROADMAP item 10.
+- Eager calls on ``fused_infer``, ``fused`` and ``pallas`` use no op.
 """
 
 import functools
@@ -28,7 +30,8 @@ from allegro_tpu_torch.compile import LoadedModel, export, export_program
 from allegro_tpu_torch.compile.targets import EXPORT_INPUTS
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel
-from allegro_tpu_torch.ops import custom_ops, fused_tp
+from allegro_tpu_torch.ops import custom_ops, fused_tp, pallas_contract
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 R_MAX = 2.6
@@ -114,15 +117,16 @@ def test_graph_statics_flag_lists_outside_the_contract():
 
 def _count_wrapper_calls(monkeypatch):
     """Count each kernel wrapper's calls (the launches it would make on the
-    card) in ``fused_tp.LAUNCHES``."""
-    for name in custom_ops.SCHEMAS:
-        fn = getattr(fused_tp, name)
+    card) in ``fused_tp.LAUNCHES``, the weight-gradient kernels' too."""
+    for name in fused_tp.LAUNCHES:
+        module = pallas_contract if name.startswith("sparse_tp") else fused_tp
+        fn = getattr(module, name)
 
         def counted(*a, _fn=fn, _name=name, **k):
             fused_tp.LAUNCHES[_name] += 1
             return _fn(*a, **k)
 
-        monkeypatch.setattr(fused_tp, name, functools.wraps(fn)(counted))
+        monkeypatch.setattr(module, name, functools.wraps(fn)(counted))
 
 
 ROUTES = {
@@ -130,6 +134,10 @@ ROUTES = {
     "use_mega=False": dict(use_mega=False),
     "plain readout": dict(use_mega=False, use_fused_readout=False),
     "einsum": dict(tp_kernel_backend="einsum"),
+    "fused": dict(tp_kernel_backend="fused"),
+    "pallas": dict(tp_kernel_backend="pallas"),
+    "bf16 mega": dict(tensor_dtype="bfloat16"),
+    "bf16 use_mega=False": dict(tensor_dtype="bfloat16", use_mega=False),
 }
 
 
@@ -150,6 +158,7 @@ def test_program_holds_one_op_per_launch_of_its_route(route, monkeypatch):
             ops[name] = ops.get(name, 0) + 1
     assert ops == launches
     assert set(ops) <= set(custom_ops.SCHEMAS) and (route == "einsum") == (not ops)
+    assert not {"gather_dw", "sparse_tp_gradw"} & set(launches)
     got = LoadedModel(program.module(), meta)(*(batch[k] for k in EXPORT_INPUTS))
     for k in got:
         torch.testing.assert_close(got[k], eager[k], atol=1e-12, rtol=1e-12)
@@ -166,16 +175,30 @@ def _cpp_schemas():
     return out
 
 
+# the flags each op's kernel launch takes (kernels 1-4, 7-10, 14, 16, 17)
+BF16_FLAGS = {
+    "env_scatter": ("bf16",), "gather_tp": ("bf16",), "bwd_fused": ("bf16",),
+    "unweight_both": ("bf16", "bf16_out"), "latent_env_scatter": ("bf16_wexp",),
+    "latent_env_bwd": ("bf16_wexp",), "gather_tp_embed": ("bf16",), "bwd_embed": ("bf16",),
+    "tp_scatter": ("bf16",), "unweight_sh": ("bf16",), "unweight_w": ("bf16",),
+}
+
+
 def test_cpp_schemas_are_the_python_ops_schemas():
+    src = (REPO / "allegro_tpu_torch/csrc/torch_ops.cpp").read_text()
     cpp = _cpp_schemas()
     assert sorted(cpp) == sorted(custom_ops.SCHEMAS)
-    impls = re.findall(r'm\.impl\("(\w+)"', (REPO / "allegro_tpu_torch/csrc/torch_ops.cpp")
-                       .read_text())
+    impls = re.findall(r'm\.impl\("(\w+)"', src)
     assert sorted(impls) == sorted(custom_ops.SCHEMAS)
     for name, schema in custom_ops.SCHEMAS.items():
         assert cpp[name] == name + schema
         registered = getattr(torch.ops.atpt, name).default._schema
         assert str(registered) == str(torch._C.parse_schema(f"atpt::{cpp[name]}"))
+        flags = tuple(a.name for a in registered.arguments if a.name.startswith("bf16"))
+        assert flags == BF16_FLAGS.get(name, ()), name
+        assert all(str(a.type) == "bool" for a in registered.arguments if a.name in flags)
+    # every launch passes its op's flags: no literal flag before the stream
+    assert not re.search(r"\b0,\s*(?:0,\s*)?stream\(\)\)", src)
 
 
 TINY_CONFIG = {
@@ -224,33 +247,18 @@ def test_cli_compile_stage_records_the_program(tmp_path, monkeypatch):
     np.testing.assert_allclose(got[keys.VIRIAL][0].numpy(), virial, atol=1e-12)
 
 
-NOT_EXPORTED = {
-    "fused": dict(tp_kernel_backend="fused"),
-    "pallas": dict(tp_kernel_backend="pallas"),
-    "bf16 track": dict(model_dtype="float32", tensor_dtype="bfloat16"),
-    "remat": dict(remat=True),
-    "checkpoint_energy": dict(checkpoint_energy=True),
-    "tp_chunk_edges": dict(tp_kernel_backend="einsum", tp_chunk_edges=8),
-}
-
-
-@pytest.mark.parametrize("option", list(NOT_EXPORTED))
-def test_options_outside_the_export_raise_naming_item_10(option):
-    model = _model(**NOT_EXPORTED[option])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        export_program(model, n_atoms=8, n_edges=16)
-
-
 def test_eager_call_does_not_use_the_ops(monkeypatch):
-    """Outside ``tracing()`` the Functions call the wrappers themselves."""
+    """Outside ``tracing()`` the Functions call the wrappers themselves, on
+    the inference and both trainable backends."""
     def refuse():
         raise AssertionError("an atpt op ran in an eager call")
 
     monkeypatch.setattr(custom_ops, "_ops", refuse)
-    model = _model()
     frame = _frame(5)
     batch = _batch(frame, 12, frame[keys.EDGE_INDEX].shape[1])
-    out = model.apply_with_derivatives(to_torch(model.precompute_statics(batch)))
-    assert torch.isfinite(out[keys.FORCES]).all()
-    with custom_ops.tracing(), pytest.raises(AssertionError, match="eager call"):
-        model.apply_with_derivatives(to_torch(model.precompute_statics(batch)))
+    for backend in ("fused_infer", "fused", "pallas"):
+        model = _model(tp_kernel_backend=backend)
+        out = model.apply_with_derivatives(to_torch(model.precompute_statics(batch)))
+        assert torch.isfinite(out[keys.FORCES]).all()
+        with custom_ops.tracing(), pytest.raises(AssertionError, match="eager call"):
+            model.apply_with_derivatives(to_torch(model.precompute_statics(batch)))

@@ -24,6 +24,7 @@ from allegro_tpu_torch.nn.allegro import compute_irreps_ladder
 from allegro_tpu_torch.nn.contract import enumerate_instructions, pack_w3j, sparse_entries
 from allegro_tpu_torch.ops import _build, fused_tp
 from allegro_tpu_torch.ops.fused_primitives import fused_layer_infer
+from torch_threads import one_thread  # noqa: F401
 
 EB = 128
 U = 4

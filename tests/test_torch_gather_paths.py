@@ -84,9 +84,10 @@ from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel
 from allegro_tpu_torch.nn import contract
 from allegro_tpu_torch.nn.contract import Contracter
-from allegro_tpu_torch.ops import fused_primitives, fused_tp, gen_cg_blocks
+from allegro_tpu_torch.ops import fused_tp, gen_cg_blocks
 from allegro_tpu_torch.ops.fused_primitives import FusedStatics, GatherTp, TpScatter
-from test_torch_sparse_paths import _emulate_gradw, _emulate_tp, _one_thread  # noqa: F401
+from test_torch_sparse_paths import _emulate_gradw, _emulate_tp
+from torch_threads import one_thread  # noqa: F401
 
 MODELS = {
     "flagship": (dict(l_max=2), 2),
@@ -333,7 +334,7 @@ def test_tp_scatter_gets_the_orders_table(model, layer, monkeypatch):
         seen.append(args[8] if len(args) > 8 else kwargs.get("paths"))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(fused_primitives.fused_tp, "tp_scatter", spy)
+    monkeypatch.setattr(fused_tp, "tp_scatter", spy)
     E, U = centers.shape[0], tp.mul
     rng = np.random.RandomState(layer)
     for s in (st, st.swap()):
@@ -540,13 +541,13 @@ def _mega_bwd_tables(model):
         seen.append((kwargs.get("paths"), kwargs.get("scatter_paths")))
         return real(*args, **kwargs)
 
-    fused_primitives.fused_tp.bwd_fused = spy
+    fused_tp.bwd_fused = spy
     try:
         data = to_torch(m.precompute_statics(batch_frames([_frame()], n_frames=1)),
                         dtype=torch.float64)
         out = m.apply_with_derivatives(data)
     finally:
-        fused_primitives.fused_tp.bwd_fused = real
+        fused_tp.bwd_fused = real
     assert torch.isfinite(out[keys.FORCES]).all()
     layers = [t for t in m.module.modules() if isinstance(t, Contracter)]
     assert len(layers) == n
@@ -570,7 +571,7 @@ def test_fused_infer_calls_pass_the_bwd_tables(model, layer, monkeypatch):
         seen.append((kwargs.get("paths"), kwargs.get("scatter_paths")))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(fused_primitives.fused_tp, "bwd_fused", spy)
+    monkeypatch.setattr(fused_tp, "bwd_fused", spy)
     centers, n_atoms = _degree_graph([3, 0, 2], 2)
     row_ptr = torch.as_tensor(fused_tp.csr_row_ptr(centers.numpy(), n_atoms))
     E, U = centers.shape[0], tp.mul

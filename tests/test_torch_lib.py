@@ -20,6 +20,7 @@ from allegro_tpu.ops.pallas_contract import sparse_entries as jax_sparse_entries
 from allegro_tpu_torch.lib import Irreps, sh_coefficients, spherical_harmonics, wigner_3j
 from allegro_tpu_torch.nn.allegro import compute_irreps_ladder
 from allegro_tpu_torch.nn.contract import enumerate_instructions, pack_w3j, sparse_entries
+from torch_threads import one_thread  # noqa: F401
 
 # the package re-exports a function under the module's name: import the modules
 jax_sh = importlib.import_module("allegro_tpu.lib.spherical_harmonics")

@@ -23,6 +23,7 @@ from allegro_tpu_torch.data import keys
 from allegro_tpu_torch.md import MDState, Simulation, kinetic_energy
 from allegro_tpu_torch.model import AllegroEnergyModel, params_from_jax
 from allegro_tpu_torch.ops import fused_tp
+from torch_threads import one_thread  # noqa: F401
 
 N_TYPES = 2
 MODEL_KW = dict(

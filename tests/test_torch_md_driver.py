@@ -17,6 +17,7 @@ import subprocess
 import pytest
 
 from allegro_tpu_torch.native import build_md_core
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

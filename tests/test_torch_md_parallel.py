@@ -29,6 +29,7 @@ from allegro_tpu_torch.data import keys
 from allegro_tpu_torch.md import MDState, Simulation
 from allegro_tpu_torch.md.cli import md_mesh, run_md
 from allegro_tpu_torch.model import AllegroEnergyModel, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 MODEL_KW = dict(
     r_max=1.6, type_names=["A", "B"], l_max=1, num_layers=1, num_scalar_features=8,
@@ -40,16 +41,6 @@ MODEL_KW = dict(
 # small skin, fast atoms: the domains are rebuilt within 20 steps
 SIM_KW = dict(masses=np.ones(2), r_max=1.6, dt=4e-3, pbc=(True, True, True), skin=0.06,
               steps_per_block=5, edge_multiple=32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the models are tiny, and in the suite the other
-    workers already occupy the cores (8 threads took ~1.8x as long alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _system(seed, nx, n, a=1.4):

@@ -34,6 +34,7 @@ from allegro_tpu_torch.ops.fused_primitives import (
     gather_tp_infer,
     mega_latent_env,
 )
+from torch_threads import one_thread  # noqa: F401
 
 EB = 128
 U = 4

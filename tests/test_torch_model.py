@@ -24,6 +24,7 @@ from allegro_tpu.model import AllegroModel as JaxAllegroModel
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
 from allegro_tpu_torch.ops import fused_tp, pallas_contract
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 4.0
 OUT_KEYS = (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY, keys.FORCES, keys.VIRIAL)
@@ -402,6 +403,12 @@ exported = LoadedModel(program.module(), meta)(*(gb[k] for k in (
     keys.POSITIONS, keys.EDGE_INDEX, keys.ATOM_TYPES, keys.NODE_MASK, keys.EDGE_MASK)))
 assert torch.isfinite(exported[keys.FORCES]).all()
 assert any(str(n.target).startswith("atpt.") for n in program.graph.nodes)
+program, meta = export_program(pm, n_atoms=gb[keys.POSITIONS].shape[0],
+                               n_edges=gb[keys.EDGE_INDEX].shape[1])
+exported = LoadedModel(program.module(), meta)(*(gb[k] for k in (
+    keys.POSITIONS, keys.EDGE_INDEX, keys.ATOM_TYPES, keys.NODE_MASK, keys.EDGE_MASK)))
+assert torch.isfinite(exported[keys.FORCES]).all()
+assert any(str(n.target) == "atpt.sparse_tp.default" for n in program.graph.nodes)
 from allegro_tpu_torch.parallel import SlabDecomposition
 g4 = np.stack(np.meshgrid(np.arange(4), np.arange(2), np.arange(2), indexing="ij"), -1)
 p4 = g4.reshape(-1, 3) * 2.2 + 0.1 * rng.randn(16, 3)

@@ -45,6 +45,7 @@ from allegro_tpu_torch.nn.allegro import compute_irreps_ladder
 from allegro_tpu_torch.nn.contract import Contracter
 from allegro_tpu_torch.ops import fused_tp
 from allegro_tpu_torch.ops.fused_tp import csr_row_ptr
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 4.0
 SPLINE = {"_target_": "allegro_tpu.nn.TwoBodySplineScalarEmbed", "num_splines": 8,

@@ -45,6 +45,7 @@ from allegro_tpu_torch.nn.contract import Contracter
 from allegro_tpu_torch.ops import fused_tp, pallas_contract
 from allegro_tpu_torch.ops.pallas_contract import ROLES, permute_entries
 from allegro_tpu_torch.ops.tp_primitives import SparseTp, SparseTpGradW, TpStatics
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 4.0
 L2 = "1x0e+1x1o+1x2e"

@@ -38,6 +38,7 @@ from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroEnergyModel, params_from_jax
 from allegro_tpu_torch.parallel import BrickDecomposition, SlabDecomposition
 from allegro_tpu_torch.parallel.accounting import decomposition_accounting, project_step
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 1.6
 MODEL_KW = dict(
@@ -49,16 +50,6 @@ MODEL_KW = dict(
 )
 PBC = {"all": (True, True, True), "none": (False, False, False), "mixed": (True, False, True)}
 BRICK_SHAPES = [(2, 2, 2), (4, 2), (8,), (1, 2, 2)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the models are tiny, and in the suite the other
-    workers already occupy the cores (8 threads took ~1.8x as long alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _system(seed, nx, ny, nz, a=1.4, jitter=0.05):

@@ -51,6 +51,7 @@ from allegro_tpu.ops import fused_tp as jax_ftp
 
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 2.5
 TOL = 1e-10

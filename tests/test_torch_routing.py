@@ -26,6 +26,7 @@ from allegro_tpu.model import AllegroModel as JaxAllegroModel
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
 from allegro_tpu_torch.ops import smem_fit
+from torch_threads import one_thread  # noqa: F401
 
 OPTIN = 232448  # an H100 block's opt-in shared memory (227 KB)
 FLAGSHIP = dict(r_max=4.0, type_names=["A", "B", "C"], l_max=2, parity=True, num_layers=2,

@@ -33,6 +33,7 @@ from allegro_tpu_torch.model import AllegroModel
 from allegro_tpu_torch.nn.contract import Contracter, sparse_entries
 from allegro_tpu_torch.ops import gen_cg_blocks, pallas_contract
 from allegro_tpu_torch.ops.pallas_contract import ROLES, role_tables
+from torch_threads import one_thread  # noqa: F401
 
 MODELS = {
     "flagship": (dict(l_max=2), 2),
@@ -44,19 +45,6 @@ MODELS = {
 CASES = [(m, layer, r) for m, (_, n) in MODELS.items() for layer in range(n)
          for r in range(len(ROLES))]
 IDS = [f"{m}-layer{layer}-{''.join(map(str, ROLES[r]))}" for m, layer, r in CASES]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The cases are tiny: one intra-op torch thread each, so that this file
-    does not contend for the cores with the other test workers. (The BLAS
-    keeps its threads: the CG blocks that ``lib/wigner.py`` caches per
-    process come from its SVDs, and their last bits depend on its thread
-    count, which ``test_torch_cg_blocks.py`` compares byte for byte.)"""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,7 @@ from allegro_tpu.model import AllegroModel as JaxAllegroModel
 from allegro_tpu_torch.data import batch_frames, keys, neighbor_list, to_torch
 from allegro_tpu_torch.md.streaming import LOCAL_IDX, StreamedEvaluator, build_chunks
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 2.5
 TOL = 1e-10

@@ -47,6 +47,7 @@ from allegro_tpu_torch.md import Simulation
 from allegro_tpu_torch.model import AllegroModel, params_from_jax
 from allegro_tpu_torch.train import Trainer, load_checkpoint, save_checkpoint
 from allegro_tpu_torch.train.config import build_model, resolve
+from torch_threads import one_thread  # noqa: F401
 
 R_MAX = 4.0
 

@@ -39,6 +39,7 @@ from allegro_tpu_torch.ops.fused_primitives import (
     UnweightW,
     fused_layer,
 )
+from torch_threads import one_thread  # noqa: F401
 
 EB = 128
 U = 4

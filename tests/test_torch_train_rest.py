@@ -69,6 +69,7 @@ from allegro_tpu_torch.train.package import (
     load_package,
     save_package,
 )
+from torch_threads import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 LR = 5e-3

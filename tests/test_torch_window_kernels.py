@@ -27,6 +27,7 @@ from allegro_tpu_torch.lib import Irreps
 from allegro_tpu_torch.nn.allegro import compute_irreps_ladder
 from allegro_tpu_torch.nn.contract import enumerate_instructions, pack_w3j, sparse_entries
 from allegro_tpu_torch.ops import fused_tp
+from torch_threads import one_thread  # noqa: F401
 
 EB = 128
 U = 4
