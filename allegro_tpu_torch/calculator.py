@@ -22,6 +22,13 @@ from .data.datasets import species_to_types
 from .device import resolve_device
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A result as a numpy array. numpy has no bfloat16: a bfloat16 model's
+    bfloat16 results (JAX returns them as ``ml_dtypes.bfloat16`` arrays)
+    come back as float32 arrays of the same values."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 class AllegroCalculator:
     def __init__(
         self,
@@ -78,12 +85,12 @@ class AllegroCalculator:
         )
         res = {
             "energy": float(out[keys.TOTAL_ENERGY].sum()),
-            "energies": out[keys.PER_ATOM_ENERGY][:n, 0].cpu().numpy(),
-            "forces": out[keys.FORCES][:n].cpu().numpy(),
+            "energies": _host(out[keys.PER_ATOM_ENERGY][:n, 0]),
+            "forces": _host(out[keys.FORCES][:n]),
         }
         if keys.STRESS in out:
-            res["stress"] = out[keys.STRESS][0].cpu().numpy()
-            res["virial"] = out[keys.VIRIAL][0].cpu().numpy()
+            res["stress"] = _host(out[keys.STRESS][0])
+            res["virial"] = _host(out[keys.VIRIAL][0])
         return res
 
     def as_ase(self):

@@ -64,15 +64,15 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def check_exportable(model: Model) -> None:
-    """Raise for a model the export has no program for: only what the
-    builder itself refuses (a model dtype other than float32 or float64,
-    ROADMAP item 6; a backend it does not know)."""
+    """Raise for a model the export has no program for: a bfloat16 model
+    (ROADMAP item 14: its kernel forms have no ``atpt::`` ops yet) and what
+    the builder itself refuses (a backend it does not know)."""
     kw = model.builder_kwargs
     backend = kw.get("tp_kernel_backend", "einsum")
     if backend not in EXPORTED_BACKENDS:
         raise ValueError(f"tp_kernel_backend={backend!r}: one of {EXPORTED_BACKENDS}")
     if str(kw.get("model_dtype", "float32")) not in _DTYPES:
-        raise _not_ported(f"model_dtype={kw['model_dtype']!r}", "queue 1, item 6")
+        raise _not_ported(f"exporting model_dtype={kw['model_dtype']!r}", "queue 1, item 14")
 
 
 def _force_fn(model: Model, target: str) -> Callable:

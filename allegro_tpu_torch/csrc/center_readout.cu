@@ -49,6 +49,15 @@ template <>
 __device__ __forceinline__ float4 vzero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
+// bf16 rows (a bfloat16 model's) for the gather, a copy: pairs where they can
+template <>
+__device__ __forceinline__ __nv_bfloat162 vzero<__nv_bfloat162>() {
+  return __floats2bfloat162_rn(0.f, 0.f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 vzero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -401,9 +410,14 @@ __device__ __forceinline__ void rs_load_stage(const Pieces& P, long long e0, int
   for (int i = 0; i < P.n; ++i) {
     const int lo = max(c0, P.off[i]), hi = min(c1, P.off[i] + P.dim[i]);
     if (lo >= hi) continue;
-    const float* src = P.ptr[i] + e0 * P.stride[i] + (lo - P.off[i]);
     float* dst = S + (lo - c0);
     const int w = hi - lo;
+    if (P.bf16 >> i & 1) {  // a bf16 piece: plain loads, widened
+      load_bf16_rows<kThreads>(piece_bf16(P, i) + e0 * P.stride[i] + (lo - P.off[i]),
+                               P.stride[i], rows, w, dst, ld, tid);
+      continue;
+    }
+    const float* src = P.ptr[i] + e0 * P.stride[i] + (lo - P.off[i]);
     if (piece_vec4(P.ptr[i], P.stride[i], P.dim[i], P.off[i])) {  // then lo, hi multiples of 4
       const int w4 = w / 4;
       for (int q = tid; q < rows * w4; q += kThreads) {
@@ -834,7 +848,49 @@ int launch_readout_bwd_fit(const Pieces& P, const OutPieces& D, bool vec_out, co
 
 }  // namespace
 
+// The bfloat16 forms of center_gather and center_sum (a bfloat16 model's
+// positions, the pallas env sums and edge energies). The gather is the
+// per-row form on bf16 pairs (one bf16 where C is odd or a base is not
+// 4-byte aligned), a copy. The sum: the simple schedule, a thread per
+// (atom, column) adding its segment in edge order in float and storing the
+// sum once, rounded to bfloat16 (JAX's bf16 result of a float32-computed
+// sum). The sum's order is fixed, so two calls give the same bits; no
+// atomics.
+__global__ void center_sum_bf16_kernel(const __nv_bfloat16* __restrict__ v,
+                                       const int* __restrict__ row_ptr,
+                                       const int* __restrict__ perm, int n_atoms, int C,
+                                       __nv_bfloat16* __restrict__ out) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long long)n_atoms * C) return;
+  const long long atom = q / C;
+  const int c = (int)(q - atom * C), k1 = row_ptr[atom + 1];
+  float s = 0.f;
+  for (int k = row_ptr[atom]; k < k1; ++k)
+    s += __bfloat162float(v[(perm ? (long long)perm[k] : k) * C + c]);
+  out[q] = __float2bfloat16_rn(s);
+}
+
 extern "C" {
+
+int atpt_center_gather_bf16(const void* a, const int* idx, long long n_edges, int n_atoms, int C,
+                            void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto* af = static_cast<const float*>(a);
+  auto* of = static_cast<float*>(out);
+  if (C % 2 == 0 && ((uintptr_t)a & 3) == 0 && ((uintptr_t)out & 3) == 0)
+    return launch_center_gather<__nv_bfloat162>(af, idx, n_edges, n_atoms, C / 2, of, st);
+  return launch_center_gather<__nv_bfloat16>(af, idx, n_edges, n_atoms, C, of, st);
+}
+
+int atpt_center_sum_bf16(const void* v, const int* row_ptr, const int* perm, int n_atoms, int C,
+                         void* out, void* stream) {
+  const long long n = (long long)n_atoms * C;
+  center_sum_bf16_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(v), row_ptr, perm, n_atoms, C,
+      static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
 
 int atpt_center_gather(const float* a, const int* idx, long long n_edges, int n_atoms, int C,
                        float* out, void* stream) {
@@ -874,24 +930,36 @@ int atpt_center_sum_chunked(const float* v, const int* row_ptr, const int* perm,
                                           out, st);
 }
 
-int atpt_readout_sum(const float* const* piece_ptrs, const long long* piece_strides,
-                     const int* piece_dims, int n_pieces, const float* w0, const float* w1,
-                     const int* row_ptr, int n_atoms, int H, float* energy, void* stream) {
+// bf16_pieces: bit i, piece i is __nv_bfloat16 (a bfloat16 model's), widened
+// as it is staged; w0, w1 and energy are float either way.
+int atpt_readout_sum_mixed(const float* const* piece_ptrs, const long long* piece_strides,
+                           const int* piece_dims, int n_pieces, const float* w0, const float* w1,
+                           const int* row_ptr, int n_atoms, int H, float* energy,
+                           int bf16_pieces, void* stream) {
   Pieces P;
   const int K = fill_pieces(piece_ptrs, piece_strides, piece_dims, n_pieces, P.ptr, P.stride,
                             P.dim, P.off);
   if (K < 0 || H < 1 || n_atoms < 1) return (int)cudaErrorInvalidValue;
   P.n = n_pieces;
+  P.bf16 = (unsigned)bf16_pieces;
   cudaStream_t st = (cudaStream_t)stream;
   if (w1) return launch_readout_sum_fit<true>(P, w0, w1, row_ptr, n_atoms, K, H, energy, st);
   return launch_readout_sum_fit<false>(P, w0, w1, row_ptr, n_atoms, K, H, energy, st);
 }
 
-int atpt_readout_bwd(const float* const* piece_ptrs, const long long* piece_strides,
-                     float* const* dpiece_ptrs, const long long* dpiece_strides,
+int atpt_readout_sum(const float* const* piece_ptrs, const long long* piece_strides,
                      const int* piece_dims, int n_pieces, const float* w0, const float* w1,
-                     const float* y, const int* centers, long long n_edges, int n_atoms, int H,
-                     void* stream) {
+                     const int* row_ptr, int n_atoms, int H, float* energy, void* stream) {
+  return atpt_readout_sum_mixed(piece_ptrs, piece_strides, piece_dims, n_pieces, w0, w1, row_ptr,
+                                n_atoms, H, energy, 0, stream);
+}
+
+// bf16_pieces: as atpt_readout_sum_mixed's; the dpieces are float either way.
+int atpt_readout_bwd_mixed(const float* const* piece_ptrs, const long long* piece_strides,
+                           float* const* dpiece_ptrs, const long long* dpiece_strides,
+                           const int* piece_dims, int n_pieces, const float* w0, const float* w1,
+                           const float* y, const int* centers, long long n_edges, int n_atoms,
+                           int H, int bf16_pieces, void* stream) {
   Pieces P;
   OutPieces D;
   const int K = fill_pieces(piece_ptrs, piece_strides, piece_dims, n_pieces, P.ptr, P.stride,
@@ -899,6 +967,7 @@ int atpt_readout_bwd(const float* const* piece_ptrs, const long long* piece_stri
   if (K < 0 || H < 1 || n_edges < 1) return (int)cudaErrorInvalidValue;
   if (K == 0) return (int)cudaSuccess;  // no output column
   P.n = D.n = n_pieces;
+  P.bf16 = (unsigned)bf16_pieces;
   bool vec_out = true;
   for (int i = 0; i < n_pieces; ++i) {
     D.ptr[i] = dpiece_ptrs[i];
@@ -913,6 +982,16 @@ int atpt_readout_bwd(const float* const* piece_ptrs, const long long* piece_stri
                                         H, st);
   return launch_readout_bwd_fit<false>(P, D, vec_out, w0, w1, y, centers, n_edges, n_atoms, K, H,
                                        st);
+}
+
+int atpt_readout_bwd(const float* const* piece_ptrs, const long long* piece_strides,
+                     float* const* dpiece_ptrs, const long long* dpiece_strides,
+                     const int* piece_dims, int n_pieces, const float* w0, const float* w1,
+                     const float* y, const int* centers, long long n_edges, int n_atoms, int H,
+                     void* stream) {
+  return atpt_readout_bwd_mixed(piece_ptrs, piece_strides, dpiece_ptrs, dpiece_strides,
+                                piece_dims, n_pieces, w0, w1, y, centers, n_edges, n_atoms, H, 0,
+                                stream);
 }
 
 // The bytes of shared memory the launchers above request for a readout of

@@ -74,14 +74,49 @@ __device__ __forceinline__ float silu_grad(float x) {
 }
 
 // An MLP's input blocks: piece i holds columns [off[i], off[i]+dim[i]) of the
-// (virtual) concatenated input; row e of piece i starts at ptr[i] + e * stride[i].
+// (virtual) concatenated input; row e of piece i starts at element e *
+// stride[i] of ptr[i]. Bit i of bf16 (a bfloat16 model's pieces): piece i's
+// elements are __nv_bfloat16 (ptr[i] then holds their address), widened to
+// float as they are staged.
 struct Pieces {
   const float* ptr[kMaxPieces];
   long long stride[kMaxPieces];
   int dim[kMaxPieces];
   int off[kMaxPieces];
   int n;
+  unsigned bf16 = 0;
 };
+
+__device__ __forceinline__ const __nv_bfloat16* piece_bf16(const Pieces& P, int i) {
+  return reinterpret_cast<const __nv_bfloat16*>(P.ptr[i]);
+}
+
+// rows x d bf16 elements (row stride ``stride``) into the float tile dst
+// (row stride ld), widened, by the kThreads threads of index tid: plain
+// loads (cp.async copies bytes and cannot widen), bf16 pairs where the rows
+// allow, four loads in flight a thread.
+template <int kThreads>
+__device__ __forceinline__ void load_bf16_rows(const __nv_bfloat16* __restrict__ src,
+                                               long long stride, int rows, int d, float* dst,
+                                               int ld, int tid) {
+  if ((d & 1) == 0 && (stride & 1) == 0 && (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+    const int d2 = d / 2;
+#pragma unroll 4
+    for (int q = tid; q < rows * d2; q += kThreads) {
+      const int m = q / d2, k = 2 * (q - m * d2);
+      const float2 v =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + m * stride + k));
+      dst[m * ld + k] = v.x;
+      dst[m * ld + k + 1] = v.y;
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int q = tid; q < rows * d; q += kThreads) {
+    const int m = q / d, k = q - m * d;
+    dst[m * ld + k] = __bfloat162float(src[m * stride + k]);
+  }
+}
 
 struct OutPieces {
   float* ptr[kMaxPieces];
@@ -216,16 +251,23 @@ __host__ __device__ inline bool piece_vec4(const float* ptr, long long stride, i
 
 // Rows [e0, end) (at most kRows) of each piece into the tile A (row stride
 // ld) by cp.async, by the kThreads threads of index tid: 16-byte copies where
-// the piece allows (piece_vec4), else 4-byte ones, a warp per row.
+// the piece allows (piece_vec4), else 4-byte ones, a warp per row; a bf16
+// piece by plain loads widened to float (the caller's cp_async_wait and
+// __syncthreads cover both).
 template <int kRows, int kThreads>
 __device__ __forceinline__ void load_piece_rows(const Pieces& P, long long e0, long long end,
                                                 float* A, int ld, int tid) {
   const int lane = tid % kWarp, warp = tid / kWarp;
   const int rows = (int)min((long long)kRows, end - e0);
   for (int i = 0; i < P.n; ++i) {
-    const float* src = P.ptr[i] + e0 * P.stride[i];
     float* dst = A + P.off[i];
     const int d = P.dim[i];
+    if (P.bf16 >> i & 1) {
+      load_bf16_rows<kThreads>(piece_bf16(P, i) + e0 * P.stride[i], P.stride[i], rows, d, dst,
+                               ld, tid);
+      continue;
+    }
+    const float* src = P.ptr[i] + e0 * P.stride[i];
     if (piece_vec4(P.ptr[i], P.stride[i], d, P.off[i])) {
       const int d4 = d / 4;
       for (int q = tid; q < rows * d4; q += kThreads) {

@@ -192,8 +192,9 @@ int atpt_noop(void* stream) {
 // U] and the run-time entry table eidx [n_entries, 4], ecoef [n_entries];
 // n_blocks is chosen by the caller from n_atoms alone (so the order of the
 // sums does not depend on the card), and the path tables are not read.
-// bf16: x, g and dx are the bf16 track (__nv_bfloat16; without dw only),
-// otherwise float; gts, env, denv and dw are float either way.
+// bf16: bit 0, x, g and dx are the bf16 track (__nv_bfloat16; without dw
+// only), otherwise float; bit 3 (without dw only), gts is __nv_bfloat16 (a
+// bfloat16 model's); env, denv and dw are float either way.
 int atpt_bwd_fused(const void* x_, const void* g_, const float* gts, const float* env,
                    const float* w, const int* row_ptr, const int* eidx, const float* ecoef,
                    int n_entries, const int* desc_dx, const float* scale_dx, int rows_dx,

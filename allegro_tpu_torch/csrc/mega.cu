@@ -148,6 +148,24 @@ __device__ __forceinline__ void leb_load_rows(const float* src, long long stride
     for (int k = lane; k < width; k += kWarp) cp_async4(dst + m * ld + k, src + (e0 + m) * stride + k);
 }
 
+// The dtype flags of the latent kernels (their bf16_wexp argument): bit 0
+// rounds the env weights to bf16 (the bf16 track), bit 1 (kShBf16) reads sh
+// as __nv_bfloat16, and bit kPiecesShift + i reads piece i as
+// __nv_bfloat16 (a bfloat16 model's: both widened to float as they are
+// staged; the weights arrive widened, and every output is float).
+constexpr int kShBf16 = 2, kPiecesShift = 8;
+
+// The same rows of a bf16 array (a bfloat16 model's sh), widened by plain
+// loads (the caller's cp_async_wait and __syncthreads cover them).
+__device__ __forceinline__ void leb_load_rows(const __nv_bfloat16* src, long long stride,
+                                              int width, long long e0, long long n_edges,
+                                              float* dst, int ld) {
+  const int lane = threadIdx.x % kWarp;
+  for (int m = threadIdx.x / kWarp; m < kLebRows && e0 + m < n_edges; m += kLebWarps)
+    for (int k = lane; k < width; k += kWarp)
+      dst[m * ld + k] = __bfloat162float(src[(e0 + m) * stride + k]);
+}
+
 template <bool kHidden>
 __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
     Pieces P, OutPieces D, const float* __restrict__ w0, const float* __restrict__ w1,
@@ -223,7 +241,10 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
       cp_async_commit();
     }
     leb_load_rows(g_lat, S, S, e0, n_edges, G, L.ldS);
-    leb_load_rows(sh, d2, d2, e0, n_edges, Sh, d2);
+    if (round_wexp & kShBf16)
+      leb_load_rows(reinterpret_cast<const __nv_bfloat16*>(sh), d2, d2, e0, n_edges, Sh, d2);
+    else
+      leb_load_rows(sh, d2, d2, e0, n_edges, Sh, d2);
     // the t rows of the tile's first L.ta atoms (centers are sorted: the
     // edges of atoms ca .. ca + L.ta - 1 read them from here)
     const int ca = centers[e0];
@@ -275,7 +296,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
         const int c = c0 + tx * 4;
         zero_acc(acc);
         mma_cols<TN>(Ht + m0, L.ldM, Wc + c, L.ldE, H, acc);
-        if (round_wexp)
+        if (round_wexp & 1)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -301,7 +322,7 @@ __global__ void __launch_bounds__(kLebThreads) latent_env_bwd_kernel(
           if (c < NE)
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-              E[(m0 + i) * L.ldE + c] = round_wexp ? bf16_round(acc[i][j]) : acc[i][j];
+              E[(m0 + i) * L.ldE + c] = (round_wexp & 1) ? bf16_round(acc[i][j]) : acc[i][j];
         }
       });
     }
@@ -660,7 +681,12 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
     int center = -1, before = -1;
     bool carried = false, carries = false;
     if (has_env) {
-      for (int q = gtid; q < rows * d2; q += kLebThreads) cp_async4(Sh + q, sh + e0 * d2 + q);
+      if (round_wexp & kShBf16) {
+        const auto* shb = reinterpret_cast<const __nv_bfloat16*>(sh) + e0 * d2;
+        for (int q = gtid; q < rows * d2; q += kLebThreads) Sh[q] = __bfloat162float(shb[q]);
+      } else {
+        for (int q = gtid; q < rows * d2; q += kLebThreads) cp_async4(Sh + q, sh + e0 * d2 + q);
+      }
       if (gtid < rows) {
         center = centers[e0 + gtid];
         before = gtid > 0 ? centers[e0 + gtid - 1] : -1;
@@ -784,7 +810,7 @@ __global__ void __launch_bounds__(kLesGroups* kLebThreads, 1) latent_env_scatter
         for (int m = ms; m < me; ++m, lp += L.ldN, sp += d2) {
           float lv[4], sv[4];
 #pragma unroll
-          for (int b = 0; b < 4; ++b) lv[b] = round_wexp ? bf16_round(lp[b]) : lp[b];
+          for (int b = 0; b < 4; ++b) lv[b] = (round_wexp & 1) ? bf16_round(lp[b]) : lp[b];
 #pragma unroll
           for (int a = 0; a < 4; ++a) sv[a] = a < nj ? sp[a] : 0.f;
 #pragma unroll
@@ -901,6 +927,24 @@ __device__ __forceinline__ void embed_load_g(const __nv_bfloat16* __restrict__ g
   for (int q = lane; q < gU; q += kWarp) buf[q] = load_f(g + e * gU + q);
 }
 
+// The embeds' dtype flags (their bf16 argument): bit 0 their bf16-track form
+// (gather_tp_embed's out, bwd_embed's g), and a bfloat16 model's per-edge
+// operands (JAX's param dtype): kEmbedSh sh, kEmbedW2b w2b, kEmbedTs
+// gather_tp_embed's ts and bwd_embed's gts, each __nv_bfloat16 where set.
+constexpr int kEmbedSh = 2, kEmbedW2b = 4, kEmbedTs = 8;
+
+// n elements of a row from element off of src into buf, by cp.async from
+// float, widened by plain loads where src holds __nv_bfloat16 (bf16).
+__device__ __forceinline__ void embed_load_row(const float* __restrict__ src, long long off,
+                                               bool bf16, int n, float* buf, int lane) {
+  if (bf16) {
+    const auto* b = reinterpret_cast<const __nv_bfloat16*>(src) + off;
+    for (int q = lane; q < n; q += kWarp) buf[q] = __bfloat162float(b[q]);
+  } else {
+    for (int q = lane; q < n; q += kWarp) cp_async4(buf + q, src + off + q);
+  }
+}
+
 // Edge e's g, gts, w2b and sh rows into one stage of the warp's buffers.
 template <bool kGts, typename Tg>
 __device__ __forceinline__ void embed_load_edge(const Tg* __restrict__ g,
@@ -908,13 +952,12 @@ __device__ __forceinline__ void embed_load_edge(const Tg* __restrict__ g,
                                                 const float* __restrict__ w2b,
                                                 const float* __restrict__ sh, long long e, int U,
                                                 int d_sh, int n_irr, int d3, float* buf,
-                                                int lane) {
+                                                int lane, int flags) {
   const int gU = d3 * U, nU = n_irr * U;
   embed_load_g(g, e, gU, buf, lane);
-  if (kGts)
-    for (int q = lane; q < U; q += kWarp) cp_async4(buf + gU + q, gts + e * U + q);
-  for (int q = lane; q < nU; q += kWarp) cp_async4(buf + gU + U + q, w2b + e * nU + q);
-  for (int q = lane; q < d_sh; q += kWarp) cp_async4(buf + gU + U + nU + q, sh + e * d_sh + q);
+  if (kGts) embed_load_row(gts, e * U, flags & kEmbedTs, U, buf + gU, lane);
+  embed_load_row(w2b, e * nU, flags & kEmbedW2b, nU, buf + gU + U, lane);
+  embed_load_row(sh, e * d_sh, flags & kEmbedSh, d_sh, buf + gU + U + nU, lane);
   cp_async_commit();
 }
 
@@ -926,7 +969,7 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) bwd_embed_kernel(
     const float* __restrict__ dscale, int n_paths, const int* __restrict__ eidx,
     const float* __restrict__ ecoef, const int* __restrict__ row_specs, long long n_edges,
     int n_atoms, int d_sh, int n_irr, int d1, int d2, int d3, int U, float* __restrict__ dsh,
-    float* __restrict__ dw2b, float* __restrict__ denv) {
+    float* __restrict__ dw2b, float* __restrict__ denv, int flags) {
   extern __shared__ float smem[];
   const int Up = round_up(U, kWarp);
   int* s_desc = reinterpret_cast<int*>(smem);                       // [n_paths][kDescCols]
@@ -968,13 +1011,14 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) bwd_embed_kernel(
         s_env[j * Up + u] = u < U ? env[(a * d2 + j) * U + u] : 0.f;
         s_den[j * Up + u] = 0.f;
       }
-    if (start < end) embed_load_edge<kGts>(g, gts, w2b, sh, start, U, d_sh, n_irr, d3, s_edge, lane);
+    if (start < end)
+      embed_load_edge<kGts>(g, gts, w2b, sh, start, U, d_sh, n_irr, d3, s_edge, lane, flags);
     int stage = 0;
     for (long long e = start; e < end; ++e) {
       // the next edge's rows load while this one is worked on
       if (e + 1 < end) {
         embed_load_edge<kGts>(g, gts, w2b, sh, e + 1, U, d_sh, n_irr, d3,
-                              s_edge + (stage ^ 1) * edge_floats, lane);
+                              s_edge + (stage ^ 1) * edge_floats, lane, flags);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -1102,6 +1146,14 @@ __host__ __device__ inline int gather_embed_warp_floats(int U, int d_sh, int n_i
          (d1 + d3) * kWarp;
 }
 
+// ts's element q: float, or __nv_bfloat16 (a bfloat16 model's) rounded once.
+__device__ __forceinline__ void store_ts(float* ts, long long q, float v, int flags) {
+  if (flags & kEmbedTs)
+    store_f(reinterpret_cast<__nv_bfloat16*>(ts) + q, v);
+  else
+    ts[q] = v;
+}
+
 template <typename To>
 __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
     const float* __restrict__ sh, const float* __restrict__ w2b, const float* __restrict__ env,
@@ -1109,7 +1161,7 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
     const int* __restrict__ desc, const float* __restrict__ dscale, int n_paths,
     const int* __restrict__ eidx, const float* __restrict__ ecoef,
     const int* __restrict__ row_specs, long long n_edges, int n_atoms, int d_sh, int n_irr,
-    int d1, int d2, int d3, int U, To* __restrict__ out, float* __restrict__ ts) {
+    int d1, int d2, int d3, int U, To* __restrict__ out, float* __restrict__ ts, int flags) {
   extern __shared__ float smem[];
   const int Up = round_up(U, kWarp);
   int* s_desc = reinterpret_cast<int*>(smem);                  // [n_paths][kDescCols]
@@ -1138,7 +1190,7 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
       const long long e0 = tail + (item - n_atoms) * kWarp, e1 = min(e0 + kWarp, n_edges);
       for (long long q = e0 * oU + lane; q < e1 * oU; q += kWarp) store_f(out + q, 0.f);
       if (ts)
-        for (long long q = e0 * U + lane; q < e1 * U; q += kWarp) ts[q] = 0.f;
+        for (long long q = e0 * U + lane; q < e1 * U; q += kWarp) store_ts(ts, q, 0.f, flags);
       continue;
     }
     const long long a = item, start = row_ptr[a], end = row_ptr[a + 1];
@@ -1147,8 +1199,8 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
       for (int u = lane; u < Up; u += kWarp)
         s_env[j * Up + u] = u < U ? env[(a * d2 + j) * U + u] : 0.f;
     auto load_edge = [&](long long e, float* dst) {
-      for (int q = lane; q < nU; q += kWarp) cp_async4(dst + q, w2b + e * nU + q);
-      for (int q = lane; q < d_sh; q += kWarp) cp_async4(dst + nU + q, sh + e * d_sh + q);
+      embed_load_row(w2b, e * nU, flags & kEmbedW2b, (int)nU, dst, lane);
+      embed_load_row(sh, e * d_sh, flags & kEmbedSh, d_sh, dst + nU, lane);
       cp_async_commit();
     };
     if (start < end) load_edge(start, s_edge);
@@ -1187,7 +1239,7 @@ __global__ void __launch_bounds__(kSegmentWarps* kWarp) gather_tp_embed_kernel(
         }
         if (act) {
           for (int k = 0; k < d3; ++k) store_f(out + e * oU + k * U + u, s_o[k * kWarp + lane]);
-          if (ts) ts[e * U + u] = s_o[lane];
+          if (ts) store_ts(ts, e * U + u, s_o[lane], flags);
         }
       }
       __syncwarp();
@@ -1286,6 +1338,8 @@ int atpt_latent_env_scatter(const float* const* piece_ptrs, const long long* pie
                             P.dim, P.off);
   if (K < 0) return (int)cudaErrorInvalidValue;
   P.n = n_pieces;
+  P.bf16 = (unsigned)bf16_wexp >> kPiecesShift;
+  bf16_wexp &= 1 | kShBf16;
   if (w1)
     return launch_latent_env_scatter<true>(P, w0, w1, sh, centers, row_ptr, irr_ranges, n_edges,
                                            n_atoms, d2, U, S, K, H, N, bf16_wexp, lat_s, env,
@@ -1307,6 +1361,8 @@ int atpt_latent_env_bwd(const float* const* piece_ptrs, const long long* piece_s
                             P.dim, P.off);
   if (K < 0) return (int)cudaErrorInvalidValue;
   P.n = D.n = n_pieces;
+  P.bf16 = (unsigned)bf16_wexp >> kPiecesShift;
+  bf16_wexp &= 1 | kShBf16;
   for (int i = 0; i < n_pieces; ++i) {
     D.ptr[i] = dpiece_ptrs[i];
     D.stride[i] = dpiece_strides[i];
@@ -1342,10 +1398,10 @@ int atpt_gather_tp_embed(const float* sh, const float* w2b, const float* env, co
         persistent_blocks(gather_tp_embed_kernel<To>, warps * kWarp, smem, items, warps);
     gather_tp_embed_kernel<To><<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
         sh, w2b, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs, n_edges,
-        n_atoms, d_sh, n_irr, d1, d2, d3, U, ot, ts);
+        n_atoms, d_sh, n_irr, d1, d2, d3, U, ot, ts, bf16);
     return (int)cudaGetLastError();
   };
-  if (bf16) return launch(static_cast<__nv_bfloat16*>(out));
+  if (bf16 & 1) return launch(static_cast<__nv_bfloat16*>(out));
   return launch(static_cast<float*>(out));
 }
 
@@ -1367,16 +1423,16 @@ int atpt_bwd_embed(const float* sh, const float* w2b, const void* g, const float
     const int blocks = persistent_blocks(kernel, warps * kWarp, smem, items, warps);
     kernel<<<blocks, warps * kWarp, smem, (cudaStream_t)stream>>>(
         sh, w2b, gt, gts, env, w, n_w, row_ptr, desc, dscale, n_paths, eidx, ecoef, row_specs,
-        n_edges, n_atoms, d_sh, n_irr, d1, d2, d3, U, dsh, dw2b, denv);
+        n_edges, n_atoms, d_sh, n_irr, d1, d2, d3, U, dsh, dw2b, denv, bf16);
     return (int)cudaGetLastError();
   };
   const auto* gb = static_cast<const __nv_bfloat16*>(g);
   const auto* gf = static_cast<const float*>(g);
   if (gts)
-    return bf16 ? launch(bwd_embed_kernel<true, __nv_bfloat16>, gb)
-                : launch(bwd_embed_kernel<true, float>, gf);
-  return bf16 ? launch(bwd_embed_kernel<false, __nv_bfloat16>, gb)
-              : launch(bwd_embed_kernel<false, float>, gf);
+    return (bf16 & 1) ? launch(bwd_embed_kernel<true, __nv_bfloat16>, gb)
+                      : launch(bwd_embed_kernel<true, float>, gf);
+  return (bf16 & 1) ? launch(bwd_embed_kernel<false, __nv_bfloat16>, gb)
+                    : launch(bwd_embed_kernel<false, float>, gf);
 }
 
 // The bytes of shared memory each launcher above requests on a card whose

@@ -366,21 +366,42 @@ __device__ __forceinline__ int center_row(const int* __restrict__ centers, long 
   return c >= 0 && c < n_atoms ? c : -1;
 }
 
+// One element of ts (none where p is null): float, or __nv_bfloat16 (a
+// bfloat16 model's split scalars, JAX's scalar_dtype) rounded once.
+struct TsOut {
+  float* p;
+  bool bf16;
+  __device__ __forceinline__ void store(float v) const {
+    if (bf16)
+      store_f(reinterpret_cast<__nv_bfloat16*>(p), v);
+    else
+      *p = v;
+  }
+};
+
+// The ts element of (edge e, channel u).
+__device__ __forceinline__ TsOut ts_at(float* ts, bool bf16, long long q) {
+  if (!ts) return {nullptr, false};
+  return {bf16 ? reinterpret_cast<float*>(reinterpret_cast<__nv_bfloat16*>(ts) + q) : ts + q,
+          bf16};
+}
+
 // Zeros to rows [k0, k1) of one output column, and to ts where row 0 is one.
 template <typename To>
-__device__ __forceinline__ void zero_rows(To* o, float* ts, int k0, int k1, int U) {
+__device__ __forceinline__ void zero_rows(To* o, TsOut ts, int k0, int k1, int U) {
   for (int k = k0; k < k1; ++k) store_f(o + (long long)k * U, 0.f);
-  if (ts && k0 == 0 && k1 > 0) *ts = 0.f;
+  if (ts.p && k0 == 0 && k1 > 0) ts.store(0.f);
 }
 
 // store_slice, and with ts row 0 there too, from the same register (ts is
-// float whatever out's storage: on the bf16 track out is rounded, ts not).
+// stored in its own type whatever out's storage: on the bf16 track out is
+// rounded, ts not).
 template <typename To>
-__device__ __forceinline__ void store_slice_ts(To* o, float* ts,
+__device__ __forceinline__ void store_slice_ts(To* o, TsOut ts,
                                                const float (&acc)[kSliceMax], int k0, int width,
                                                int U) {
   store_slice(o, acc, k0, width, U);
-  if (ts && k0 == 0) *ts = acc[0];
+  if (ts.p && k0 == 0) ts.store(acc[0]);
 }
 
 template <typename Tt>
@@ -389,7 +410,7 @@ __global__ void __launch_bounds__(kTpThreads, kGatherMinBlocks) gather_tp_kernel
     const int* __restrict__ centers, const int* __restrict__ desc,
     const float* __restrict__ dscale, int n_rows, const int* __restrict__ eidx,
     const float* __restrict__ ecoef, long long n_edges, int n_atoms, int d1, int d2, int d3,
-    int U, Tt* __restrict__ out, float* __restrict__ ts) {
+    int U, Tt* __restrict__ out, float* __restrict__ ts, bool ts_bf16) {
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x, tid = threadIdx.x;
   int4* s_desc = reinterpret_cast<int4*>(smem);  // [n_rows][kDescCols]
@@ -408,7 +429,7 @@ __global__ void __launch_bounds__(kTpThreads, kGatherMinBlocks) gather_tp_kernel
     const long long e = t / U;
     const int u = (int)(t - e * U);
     Tt* o = out + e * d3 * U + u;
-    float* tso = ts ? ts + e * U + u : nullptr;
+    const TsOut tso = ts_at(ts, ts_bf16, e * U + u);
     const int ctr = center_row(centers, e, n_atoms);
     if (ctr < 0) {  // a sentinel edge: a zero row
       zero_rows(o, tso, 0, d3, U);
@@ -734,7 +755,7 @@ __global__ void bwd_fused_kernel(
     const int* __restrict__ desc_den, const float* __restrict__ scale_den, int rows_den,
     const int* __restrict__ eidx_den, const float* __restrict__ ecoef_den, long long n_edges,
     int n_atoms, int d1, int d2, int d3, int U, Tt* __restrict__ dx,
-    float* __restrict__ denv) {
+    float* __restrict__ denv, bool gts_bf16) {
   extern __shared__ __align__(16) float smem[];
   const int T = blockDim.x, tid = threadIdx.x, a = blockIdx.x;
   if (a == n_atoms) {  // the sentinel edges' dx rows
@@ -769,7 +790,9 @@ __global__ void bwd_fused_kernel(
       cp_async_commit();
       cp_async_wait<0>();
     }
-    if (gts) gcol[0] += __ldg(gts + (long long)e * U + u);
+    if (gts)
+      gcol[0] += gts_bf16 ? load_f(reinterpret_cast<const __nv_bfloat16*>(gts) + (long long)e * U + u)
+                          : __ldg(gts + (long long)e * U + u);
     Tt* o = dx + (long long)e * d1 * U + u;
     int next = 0;  // the first row of dx no slice has written
     EnvRow fe{gcol, s_env + u, T, U, 0, 0, 0.f, {}};
@@ -810,7 +833,7 @@ int launch_bwd_fused_walk_as(const Tt* x, const Tt* g, const float* gts, const f
                              const float* ecoef_dx, const int* desc_den, const float* scale_den,
                              int rows_den, const int* eidx_den, const float* ecoef_den,
                              long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
-                             Tt* dx, float* denv, cudaStream_t stream) {
+                             Tt* dx, float* denv, bool gts_bf16, cudaStream_t stream) {
   if (int rc = check_tp_dims(d1, d2, d3, P, rows_dx)) return rc;
   if (rows_den < 1 || U < 1 || U > 1024) return (int)cudaErrorInvalidValue;
   int chunks = U < kTpThreads ? kTpThreads / U : 1;
@@ -824,15 +847,17 @@ int launch_bwd_fused_walk_as(const Tt* x, const Tt* g, const float* gts, const f
   if (err != cudaSuccess) return (int)err;
   bwd_fused_kernel<Tt><<<n_atoms + 1, U * chunks, bytes(), stream>>>(
       x, g, gts, env, w, row_ptr, desc_dx, scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den,
-      scale_den, rows_den, eidx_den, ecoef_den, n_edges, n_atoms, d1, d2, d3, U, dx, denv);
+      scale_den, rows_den, eidx_den, ecoef_den, n_edges, n_atoms, d1, d2, d3, U, dx, denv,
+      gts_bf16);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16: x, g and dx are the bf16 track (__nv_bfloat16), otherwise float;
-// gts, env and denv are float either way. The layout does not depend on it:
-// the bf16 form widens x and g into the same float columns.
+// bf16: bit 0, x, g and dx are the bf16 track (__nv_bfloat16), otherwise
+// float; bit 3, gts is __nv_bfloat16 (a bfloat16 model's); env and denv are
+// float either way. The layout does not depend on it: the bf16 form widens
+// x and g into the same float columns.
 int launch_bwd_fused_walk(const void* x, const void* g, const float* gts, const float* env,
                           const float* w, const int* row_ptr, const int* desc_dx,
                           const float* scale_dx, int rows_dx, const int* eidx_dx,
@@ -840,19 +865,103 @@ int launch_bwd_fused_walk(const void* x, const void* g, const float* gts, const 
                           int rows_den, const int* eidx_den, const float* ecoef_den,
                           long long n_edges, int n_atoms, int d1, int d2, int d3, int U, int P,
                           void* dx, float* denv, int bf16, cudaStream_t stream) {
-  if (bf16)
+  const bool gts_bf16 = bf16 & 8;
+  if (bf16 & 1)
     return launch_bwd_fused_walk_as(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), gts, env, w,
         row_ptr, desc_dx, scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den, scale_den, rows_den,
         eidx_den, ecoef_den, n_edges, n_atoms, d1, d2, d3, U, P,
-        static_cast<__nv_bfloat16*>(dx), denv, stream);
+        static_cast<__nv_bfloat16*>(dx), denv, gts_bf16, stream);
   return launch_bwd_fused_walk_as(
       static_cast<const float*>(x), static_cast<const float*>(g), gts, env, w, row_ptr, desc_dx,
       scale_dx, rows_dx, eidx_dx, ecoef_dx, desc_den, scale_den, rows_den, eidx_den, ecoef_den,
-      n_edges, n_atoms, d1, d2, d3, U, P, static_cast<float*>(dx), denv, stream);
+      n_edges, n_atoms, d1, d2, d3, U, P, static_cast<float*>(dx), denv, gts_bf16, stream);
+}
+
+// ---------------------------------------------------------------------------
+// sparse_tp, the bfloat16 form (a bfloat16 model's `pallas` layer)
+// Replaces allegro_tpu/ops/pallas_contract.py:_tp_kernel (_run_tp) on
+// bfloat16 operands. JAX's kernel does not promote there: in its table's
+// entry order, t = a[i] b[j] (formed again where (i, j) changes), c w[p]
+// with the Python float c taken to bfloat16, their product and each
+// output's running sum are each rounded to bfloat16, and out is bfloat16.
+// This form computes exactly that (each op in float, as XLA computes a
+// bfloat16 op, then rounded), so it walks the entry table itself in its own
+// order: the compiled CG blocks (csrc/cg_blocks.h) sum a path at a time,
+// which is not the entry order where two paths share an i. Bound: the reads
+// of a and b and the write of out, like the float form's; the entries (and
+// c rounded once) sit in shared memory, one thread per (edge, channel)
+// keeps its outputs' running sums in a local array, and every store is
+// coalesced along the channels. The simple form: speed is later work.
+// ---------------------------------------------------------------------------
+constexpr int kBf16TpThreads = 256;
+constexpr int kBf16TpMaxDim = 32;
+
+__global__ void __launch_bounds__(kBf16TpThreads) sparse_tp_bf16_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+    const __nv_bfloat16* __restrict__ w, const int* __restrict__ eidx,
+    const float* __restrict__ ecoef, int n_entries, long long n_edges, int d1, int d2, int d3,
+    int U, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  int4* s_idx = reinterpret_cast<int4*>(smem);                   // [n_entries] (i, j, k, p)
+  float* s_c = reinterpret_cast<float*>(s_idx + n_entries);      // [n_entries] c in bf16
+  for (int q = threadIdx.x; q < n_entries; q += blockDim.x) {
+    s_idx[q] = make_int4(eidx[4 * q], eidx[4 * q + 1], eidx[4 * q + 2], eidx[4 * q + 3]);
+    s_c[q] = bf16_round(ecoef[q]);
+  }
+  __syncthreads();
+  const long long work = n_edges * U;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < work;
+       t += (long long)gridDim.x * blockDim.x) {
+    const long long e = t / U;
+    const int u = (int)(t - e * U);
+    const __nv_bfloat16* ar = a + e * d1 * U + u;
+    const __nv_bfloat16* br = b + e * d2 * U + u;
+    float acc[kBf16TpMaxDim];
+    unsigned set = 0;  // bit k: output k has its first contribution
+    int ci = -1, cj = -1;
+    float prod = 0.f;
+    for (int n = 0; n < n_entries; ++n) {
+      const int4 x = s_idx[n];
+      if (x.x != ci || x.y != cj) {
+        ci = x.x;
+        cj = x.y;
+        prod = bf16_round(load_f(ar + ci * U) * load_f(br + cj * U));
+      }
+      const float con = bf16_round(bf16_round(s_c[n] * load_f(w + x.w * U + u)) * prod);
+      if (set >> x.z & 1) {
+        acc[x.z] = bf16_round(acc[x.z] + con);
+      } else {
+        acc[x.z] = con;
+        set |= 1u << x.z;
+      }
+    }
+    __nv_bfloat16* o = out + e * d3 * U + u;
+    for (int k = 0; k < d3; ++k) store_f(o + (long long)k * U, set >> k & 1 ? acc[k] : 0.f);
+  }
 }
 
 extern "C" {
+
+// The bfloat16 form: a, b, w and out __nv_bfloat16; eidx [n_entries, 4],
+// ecoef [n_entries]: the table itself, in its (sorted) entry order.
+int atpt_sparse_tp_bf16(const void* a, const void* b, const void* w, const int* eidx,
+                        const float* ecoef, int n_entries, long long n_edges, int d1, int d2,
+                        int d3, int U, void* out, void* stream) {
+  if (d1 < 1 || d2 < 1 || d3 < 1 || d1 > kBf16TpMaxDim || d2 > kBf16TpMaxDim ||
+      d3 > kBf16TpMaxDim || U < 1 || n_entries < 0 || n_edges < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)n_entries * (sizeof(int4) + sizeof(float));
+  cudaError_t err = prepare_smem(sparse_tp_bf16_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = persistent_blocks(sparse_tp_bf16_kernel, kBf16TpThreads, smem,
+                                       n_edges * U, kBf16TpThreads);
+  sparse_tp_bf16_kernel<<<blocks, kBf16TpThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(w), eidx, ecoef, n_entries, n_edges, d1, d2, d3, U,
+      static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
 
 // desc [n_rows, kDescCols], dscale [n_rows]: the table's path table in walk
 // order; eidx [n, 4], ecoef [n]: its entries ordered by path.
@@ -916,10 +1025,10 @@ int atpt_gather_tp(const void* x, const float* env, const float* w, const int* c
     const int blocks = persistent_blocks(gather_tp_kernel<Tt>, T, smem, n_edges * U, T);
     gather_tp_kernel<Tt><<<blocks, T, smem, (cudaStream_t)stream>>>(
         xt, env, w, centers, desc, dscale, n_rows, eidx, ecoef, n_edges, n_atoms, d1, d2, d3, U,
-        ot, ts);
+        ot, ts, (bf16 & 8) != 0);
     return (int)cudaGetLastError();
   };
-  if (bf16)
+  if (bf16 & 1)
     return launch(static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out));
   return launch(static_cast<const float*>(x), static_cast<float*>(out));
 }

@@ -33,8 +33,11 @@
 // kernels, whose env weights' cotangent JAX's mega path never rounds). A bf16 wexp row is
 // widened to float as it is staged (stage_rows: plain loads, since cp.async
 // copies bytes and cannot widen), so shared memory and every sum are the
-// float32 forms'; dwexp is rounded once, on store. t, sh, env and dsh stay
-// float32.
+// float32 forms'; dwexp is rounded once, on store. t, env and dsh stay
+// float32, and so does sh, except in a bfloat16 model (model_dtype=
+// "bfloat16", JAX's param dtype): there env_scatter and unweight_both read
+// bf16 sh beside bf16 wexp, its rows widened as they are staged (the same
+// stage_rows), bit 1 of their bf16 flags.
 //
 // Layout (the JAX package's contract): per-edge arrays are row-major with
 // the flat dim-major tensor track (column i*U+u is basis dim i, channel u);
@@ -337,9 +340,9 @@ __global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
 // outgrow shared memory (fit_tile). A sentinel edge writes zero dsh and
 // dwexp rows and reads no t row; the last tile may be partial; no atomics.
 // ---------------------------------------------------------------------------
-template <int kVec, typename Tw, typename To>
+template <int kVec, typename Tw, typename To, typename Ts>
 __global__ void __launch_bounds__(kShThreads) unweight_both_kernel(
-    const float* __restrict__ t, const float* __restrict__ sh, const Tw* __restrict__ wexp,
+    const float* __restrict__ t, const Ts* __restrict__ sh, const Tw* __restrict__ wexp,
     const int* __restrict__ centers, const int* __restrict__ dim_to_irr, long long n_edges,
     int n_atoms, int d2, int n_irr, int U, int tile, int n_stage, float* __restrict__ dsh,
     To* __restrict__ dwexp) {
@@ -356,7 +359,7 @@ __global__ void __launch_bounds__(kShThreads) unweight_both_kernel(
   tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
   stage_rows<kVec>(s_w, wexp + e0 * wrow, n_e * wrow);
   stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
-  stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
+  stage_rows<1>(s_sh, sh + e0 * d2, n_e * d2);
   cp_async_commit();
   irrep_bounds(dim_to_irr, d2, s_first, s_end);
   cp_async_wait<0>();
@@ -395,9 +398,9 @@ constexpr int kEnvGroup = 2;      // atoms per block
 constexpr int kEnvTile = 64;      // edges staged per chunk (at most)
 constexpr int kEnvThreads = 512;  // threads per block (at most)
 
-template <int kVec, typename Tw>
+template <int kVec, typename Tw, typename Ts>
 __global__ void __launch_bounds__(kEnvThreads) env_scatter_kernel(
-    const float* __restrict__ sh, const Tw* __restrict__ wexp, const int* __restrict__ row_ptr,
+    const Ts* __restrict__ sh, const Tw* __restrict__ wexp, const int* __restrict__ row_ptr,
     const int* __restrict__ dim_to_irr, int n_atoms, int d2, int n_irr, int U, int group,
     int slices, int per_atom, int tile, float* __restrict__ env) {
   extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
@@ -426,7 +429,7 @@ __global__ void __launch_bounds__(kEnvThreads) env_scatter_kernel(
     const int n = min(tile, g1 - c0);
     if (c0 > g0) __syncthreads();  // every thread is done with the last chunk's rows
     stage_rows<kVec>(s_w, wexp + (long long)c0 * wrow, n * wrow);
-    stage_range<1>(s_sh, sh + (long long)c0 * d2, n * d2);
+    stage_rows<1>(s_sh, sh + (long long)c0 * d2, n * d2);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -472,8 +475,8 @@ bool fit_tile(Bytes bytes, int* tile, int* n_stage) {
 // weights: the same schedule and shared memory either way. A bf16 row is
 // staged by plain loads, so only a float range's pointer must be 16-byte
 // aligned for the float4 form.
-template <typename Tw>
-int launch_env_scatter(const float* sh, const Tw* wexp, const int* row_ptr, const int* dim_to_irr,
+template <typename Tw, typename Ts = float>
+int launch_env_scatter(const Ts* sh, const Tw* wexp, const int* row_ptr, const int* dim_to_irr,
                        int n_atoms, int d2, int n_irr, int U, float* env, cudaStream_t stream) {
   if (n_atoms < 1 || d2 < 1 || n_irr < 1 || U < 1) return (int)cudaErrorInvalidValue;
   const bool vec = U % 4 == 0 && (!std::is_same_v<Tw, float> || (uintptr_t)wexp % 16 == 0) &&
@@ -493,7 +496,7 @@ int launch_env_scatter(const float* sh, const Tw* wexp, const int* row_ptr, cons
   while (bytes(tile) > smem_optin() / 4 && tile > 1) tile /= 2;
   const long long blocks = (long long)(n_atoms + group - 1) / group * slices;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = vec ? env_scatter_kernel<4, Tw> : env_scatter_kernel<1, Tw>;
+  auto kernel = vec ? env_scatter_kernel<4, Tw, Ts> : env_scatter_kernel<1, Tw, Ts>;
   cudaError_t err = prepare_smem(kernel, bytes(tile));
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, threads, bytes(tile), stream>>>(
@@ -549,8 +552,8 @@ int launch_unweight_w(const float* t, const float* sh, const int* centers, const
   return (int)cudaGetLastError();
 }
 
-template <typename Tw, typename To>
-int launch_unweight_both(const float* t, const float* sh, const Tw* wexp, const int* centers,
+template <typename Tw, typename To, typename Ts = float>
+int launch_unweight_both(const float* t, const Ts* sh, const Tw* wexp, const int* centers,
                          const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
                          int U, float* dsh, To* dwexp, cudaStream_t stream) {
   // as atpt_unweight_w: n_irr <= d2, and the float reciprocal exact for its items
@@ -568,7 +571,7 @@ int launch_unweight_both(const float* t, const float* sh, const Tw* wexp, const 
   const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 &&
                    (!std::is_same_v<Tw, float> || (uintptr_t)wexp % 16 == 0) &&
                    (!std::is_same_v<To, float> || (uintptr_t)dwexp % 16 == 0);
-  auto kernel = vec ? unweight_both_kernel<4, Tw, To> : unweight_both_kernel<1, Tw, To>;
+  auto kernel = vec ? unweight_both_kernel<4, Tw, To, Ts> : unweight_both_kernel<1, Tw, To, Ts>;
   const size_t smem = bytes(tile, n_stage);
   cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -584,11 +587,18 @@ using bf16_t = __nv_bfloat16;
 extern "C" {
 
 // dim_to_irr [d2]; the edges of atom a are [row_ptr[a], row_ptr[a + 1]).
-// bf16: wexp is __nv_bfloat16 (the bf16 track's env weights), else float.
-int atpt_env_scatter(const float* sh, const void* wexp, const int* row_ptr,
+// bf16: bit 0, wexp is __nv_bfloat16 (the bf16 track's env weights), else
+// float; bit 1 (with bit 0), sh is __nv_bfloat16 too (a bfloat16 model's).
+int atpt_env_scatter(const void* sh_, const void* wexp, const int* row_ptr,
                      const int* dim_to_irr, int n_atoms, int d2, int n_irr, int U, float* env,
                      int bf16, void* stream) {
-  if (bf16)
+  const auto* sh = static_cast<const float*>(sh_);
+  if (bf16 & 2)
+    return (bf16 & 1) ? launch_env_scatter(static_cast<const bf16_t*>(sh_),
+                                           static_cast<const bf16_t*>(wexp), row_ptr, dim_to_irr,
+                                           n_atoms, d2, n_irr, U, env, (cudaStream_t)stream)
+                      : (int)cudaErrorInvalidValue;
+  if (bf16 & 1)
     return launch_env_scatter(sh, static_cast<const bf16_t*>(wexp), row_ptr, dim_to_irr, n_atoms,
                               d2, n_irr, U, env, (cudaStream_t)stream);
   return launch_env_scatter(sh, static_cast<const float*>(wexp), row_ptr, dim_to_irr, n_atoms, d2,
@@ -619,12 +629,22 @@ int atpt_unweight_w(const float* t, const float* sh, const int* centers, const i
 }
 
 // dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
-// bf16: wexp is __nv_bfloat16, else float; bf16_out: dwexp is __nv_bfloat16
-// (only with a bf16 wexp), else float; dsh is float either way.
-int atpt_unweight_both(const float* t, const float* sh, const void* wexp, const int* centers,
+// bf16: bit 0, wexp is __nv_bfloat16, else float; bit 1 (with bit 0 and
+// bf16_out), sh is __nv_bfloat16 too (a bfloat16 model's); bf16_out: dwexp
+// is __nv_bfloat16 (only with a bf16 wexp), else float; dsh is float either
+// way.
+int atpt_unweight_both(const float* t, const void* sh_, const void* wexp, const int* centers,
                        const int* dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr,
                        int U, float* dsh, void* dwexp, int bf16, int bf16_out, void* stream) {
   const auto s = (cudaStream_t)stream;
+  const auto* sh = static_cast<const float*>(sh_);
+  if (bf16 & 2)
+    return (bf16 & 1) && bf16_out
+               ? launch_unweight_both(t, static_cast<const bf16_t*>(sh_),
+                                      static_cast<const bf16_t*>(wexp), centers, dim_to_irr,
+                                      n_edges, n_atoms, d2, n_irr, U, dsh,
+                                      static_cast<bf16_t*>(dwexp), s)
+               : (int)cudaErrorInvalidValue;
   if (!bf16)
     return bf16_out ? (int)cudaErrorInvalidValue
                     : launch_unweight_both(t, sh, static_cast<const float*>(wexp), centers,

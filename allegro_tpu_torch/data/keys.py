@@ -45,6 +45,12 @@ CENTER_ROW_PTR = "center_row_ptr"     # [N+1] int32
 # edges whose neighbor is atom a are NBR_PERM[NBR_ROW_PTR[a]:NBR_ROW_PTR[a+1]]
 NBR_PERM = "nbr_perm"                 # [E] int32
 NBR_ROW_PTR = "nbr_row_ptr"           # [N+1] int32
+# marker (a 0-d bool, value unused): the real centers are the atoms 0..max,
+# each with an edge (JAX's key: its rank plan is then the identity). JAX's
+# fused readout runs only with it, and a bfloat16 model's per-atom energy
+# takes its dtype from which readout ran (FusedEdgeReadoutSum), so
+# Model.precompute_statics attaches it for a bfloat16 model
+CENTER_RANK_IDENTITY = "center_rank_identity"
 # Class CSRs of the parameter tables read per edge or per atom by a class
 # (the type embeddings, the spline's per-edge-type weights, the trainable
 # per-type scales and shifts). For lookup L, ``L_idx`` [M] int32 is the row

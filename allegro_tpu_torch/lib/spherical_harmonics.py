@@ -93,7 +93,10 @@ def spherical_harmonics(
     lmax = max(ls) if ls else 0
     v = vectors
     if normalize:
-        n2 = (v * v).sum(dim=-1, keepdim=True)
+        # bfloat16 vectors squared and summed in float32, rounded once (XLA's
+        # reduction of JAX's bfloat16 sum(v * v))
+        wide = v.float() if v.dtype == torch.bfloat16 else v
+        n2 = (wide * wide).sum(dim=-1, keepdim=True).to(v.dtype)
         inv = torch.where(n2 > eps, 1.0 / torch.sqrt(n2.clamp_min(eps)), torch.zeros_like(n2))
         v = v * inv
     x, y, z = v[..., 0], v[..., 1], v[..., 2]

@@ -27,11 +27,17 @@ None lets the products outside the kernels use TF32 (the reference's
 ``allow_tf32: true``). The kernels compute in exact float32 under every
 policy. ``features_layout`` is accepted and ignored: the port's track is
 always flat dim-major.
+
+``model_dtype="bfloat16"`` (JAX's: every parameter in bfloat16) serves on
+``fused_infer`` (on and off the mega path), ``pallas`` and ``einsum`` with
+JAX's rounding points and output dtypes; training it, its ``fused`` backend
+and its export raise (ROADMAP item 14).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -69,9 +75,8 @@ NONLINEARITIES = {
     "none": None,
 }
 
-DTYPES = {"float64": torch.float64, "float32": torch.float32}
-# the tensor track's storage (tensor_dtype): the model dtype, or bfloat16
-TENSOR_DTYPES = {**DTYPES, "bfloat16": torch.bfloat16}
+# the model dtypes, and the tensor track's storages (tensor_dtype)
+DTYPES = {"float64": torch.float64, "float32": torch.float32, "bfloat16": torch.bfloat16}
 # the matrix-product policies (the resolved precision): whether the products
 # outside the kernels may use TF32
 PRECISIONS = {"highest": False, "high": False, None: True}
@@ -170,10 +175,18 @@ class FusedEdgeReadoutSum(torch.nn.Module):
         if keys.CENTER_ROW_PTR in data and self.route(pieces[0].device) == "fused":
             ws = self.mlp.weights()
             centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+            # summed in the compute dtype and stored, as JAX stores it, in the
+            # model dtype (its fused readout's per_atom.astype(param_dtype));
+            # JAX runs that readout only where its rank plan is the identity
+            # (keys.CENTER_RANK_IDENTITY), else the plain chain, whose sum
+            # keeps the pieces' dtype. The two differ in a bfloat16 model
+            # only: float32 pieces on the mega route
+            dtype = ws[0].dtype if keys.CENTER_RANK_IDENTITY in data else \
+                functools.reduce(torch.promote_types, (p.dtype for p in pieces))
             out[keys.PER_ATOM_ENERGY] = readout_sum_infer(
                 pieces, ws[0], ws[1] if len(ws) > 1 else None, centers,
                 data[keys.CENTER_ROW_PTR],
-            )
+            ).to(dtype)
             return out
         out[keys.EDGE_ENERGY] = self.mlp(pieces)
         return self.reduce(out)
@@ -291,6 +304,11 @@ class Model:
         new = {keys.EDGE_TYPE: (ct * num_types + nt).astype(np.int32)}
         if self.on_kernels:
             new[keys.CENTER_ROW_PTR] = csr_row_ptr(ei[0], n_atoms)
+            real = ei[0][ei[0] < n_atoms]
+            if (self.model_dtype == torch.bfloat16 and real.size
+                    and np.array_equal(np.unique(real), np.arange(int(real.max()) + 1))):
+                # the marker of the readout's dtype in a bfloat16 model
+                new[keys.CENTER_RANK_IDENTITY] = np.ones((), np.bool_)
             new[keys.NBR_PERM], new[keys.NBR_ROW_PTR] = neighbor_csr(ei[1], n_atoms)
             real_edge = ei[0] < n_atoms
             if keys.EDGE_MASK in data:
@@ -555,11 +573,15 @@ def FullAllegroEnergyModel(
 ) -> Model:
     _kwargs = {k: v for k, v in locals().items() if k != "_unused"}
     if str(model_dtype) not in DTYPES:
-        raise _not_ported(f"model_dtype={model_dtype!r}", "queue 1, item 6")
+        raise ValueError(f"model_dtype={model_dtype!r}: one of {sorted(DTYPES)}")
     dtype = DTYPES[str(model_dtype)]
-    if tensor_dtype is not None and str(tensor_dtype) not in TENSOR_DTYPES:
-        raise ValueError(f"tensor_dtype={tensor_dtype!r}: one of {sorted(TENSOR_DTYPES)} or None")
-    track = None if tensor_dtype is None else TENSOR_DTYPES[str(tensor_dtype)]
+    if dtype == torch.bfloat16 and tp_kernel_backend == "fused":
+        # the trainable family's kernels (13-17, 21) take no bf16 parameters yet
+        raise _not_ported("tp_kernel_backend='fused' with model_dtype='bfloat16'",
+                          "queue 1, item 14")
+    if tensor_dtype is not None and str(tensor_dtype) not in DTYPES:
+        raise ValueError(f"tensor_dtype={tensor_dtype!r}: one of {sorted(DTYPES)} or None")
+    track = None if tensor_dtype is None else DTYPES[str(tensor_dtype)]
     prec = precision if precision is not None else (None if allow_tf32 else "highest")
     if prec not in PRECISIONS:
         raise _not_ported(f"precision={precision!r}", "queue 1, item 6")

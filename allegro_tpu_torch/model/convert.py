@@ -56,5 +56,16 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"no port stage for parameter {'/'.join(path)}")
         rest = [_LIST_KEY.sub(r"\1.\2", p) for p in path[1:]]
-        out[".".join([stage, *rest])] = torch.from_numpy(np.array(leaf))
+        out[".".join([stage, *rest])] = _tensor(leaf)
     return out
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A leaf as a tensor of its own dtype. A JAX bfloat16 leaf reaches numpy
+    as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` does not
+    take: its bits are read as int16 and viewed as ``torch.bfloat16``, so the
+    values are JAX's bit for bit (without importing ``ml_dtypes``)."""
+    arr = np.array(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)

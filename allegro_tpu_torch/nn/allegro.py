@@ -26,6 +26,12 @@ to it each layer; ``einsum`` and ``pallas`` ignore it; ``remat``
 recomputes each layer in the backward pass (``torch.utils.checkpoint``), on
 every backend; ``tp_chunk_edges`` chunks the ``einsum`` contraction over
 edges (``Contracter``).
+
+A bfloat16 model (``dtype`` bfloat16, JAX's ``param_dtype``) keeps JAX's
+dtypes: on the mega path the latent kernels' scalars and env are float32
+(their compute dtype), layer 0's features and every layer's split scalars
+bfloat16; off it every array the layer stores is bfloat16 but env
+(float32); the kernels widen what they read.
 """
 
 from __future__ import annotations
@@ -390,7 +396,7 @@ class AllegroLayers(nn.Module):
                                         self.tensor_dtype)
         else:
             res = gather_tp_infer(x, env, wk, centers, row_ptr, entry_idx, entry_coef, tp.d3,
-                                  split, *tp.infer_paths())
+                                  split, *tp.infer_paths(), ts_dtype=self.dtype)
         feats, tp_scalars = res if split else (res, res[:, :U].to(self.dtype))
         latent = self.latents[layer]
         if layer == self.num_layers - 1:

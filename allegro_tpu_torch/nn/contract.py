@@ -138,6 +138,11 @@ class Contracter(nn.Module):
         shape = (self.mul, P) if self.path_channel_coupling else (P,)
         self.path_weights = nn.Parameter(torch.empty(shape, dtype=dtype))
         entries = sparse_entries(w3j)
+        # the kernels' CG tables in their compute dtype: a bfloat16 model's
+        # kernels compute in float32 with the coefficients JAX's kernels
+        # read (Python floats), so its tables stay float32; the einsum
+        # reference rounds w3j to the model dtype, as JAX's does
+        kdt = torch.promote_types(torch.float32, dtype)
         self.register_buffer("w3j", torch.from_numpy(w3j), persistent=False)
         self.register_buffer(
             "entry_idx",
@@ -152,17 +157,17 @@ class Contracter(nn.Module):
         )
         # the table walked by path (the embed-fused backward), built once
         for name, t in zip(("cg_desc", "cg_scale", "cg_entry_idx", "cg_entry_coef"),
-                           path_table(self.entry_idx, self.entry_coef, dtype)):
+                           path_table(self.entry_idx, self.entry_coef, kdt)):
             self.register_buffer(name, t, persistent=False)
         if kernel_backend in ("fused", "fused_infer"):
             # the tables gather_tp and gather_dw walk: the layer's order and
             # its role swap (the x-transposes), each in the kernels' walk
             # order, built once from the float64 coefficients
-            self._register_paths("walk", [0, 1, 2, 3], dtype)
+            self._register_paths("walk", [0, 1, 2, 3], kdt)
             # the tables tp_scatter and bwd_fused's denv walk: both orders
             # with their roles permuted (0, 2, 1), so that the walk's out is
             # j (the env)
-            self._register_paths("scatter", SCATTER_ROLES, dtype)
+            self._register_paths("scatter", SCATTER_ROLES, kdt)
         self.n_irr = len(irreps_in2)
         dim_to_irr = [k for k, sl in enumerate(irreps_in2.slices()) for _ in range(sl.stop - sl.start)]
         self.register_buffer("dim_to_irr", torch.tensor(dim_to_irr, dtype=torch.int32),
@@ -174,10 +179,10 @@ class Contracter(nn.Module):
             # the float64 coefficients (a float32 table is no CG block to 1e-12)
             tp_idx, tp_coef = role_tables(entries, torch.float64)
             self.register_buffer("tp_idx", tp_idx, persistent=False)
-            self.register_buffer("tp_coef", tp_coef.to(dtype), persistent=False)
+            self.register_buffer("tp_coef", tp_coef.to(kdt), persistent=False)
             for r in range(len(ROLES)):
                 for name, t in zip(CgPaths._fields,
-                                   path_table(tp_idx[r], tp_coef[r], dtype, by_output=True)):
+                                   path_table(tp_idx[r], tp_coef[r], kdt, by_output=True)):
                     self.register_buffer(f"tp_paths{r}_{name}", t, persistent=False)
 
     @property
@@ -255,11 +260,13 @@ class Contracter(nn.Module):
         return st
 
     def fused_infer_parts(self, dtype):
-        """(wk [P, U], entry_idx, entry_coef) for the fused kernels; the
-        scatter factor must already be folded into the env weights."""
+        """(wk [P, U] in ``dtype``, entry_idx, entry_coef in the kernels'
+        compute dtype) for the fused kernels; the scatter factor must
+        already be folded into the env weights."""
         if self.scatter_factor is not None:
             raise ValueError("the fused kernels expect the scatter factor folded into the weights")
-        return self._w_up(dtype).T.contiguous(), self.entry_idx, self.entry_coef.to(dtype)
+        return (self._w_up(dtype).T.contiguous(), self.entry_idx,
+                self.entry_coef.to(torch.promote_types(torch.float32, dtype)))
 
     def cg_paths(self) -> CgPaths:
         """The layer's path descriptors (``gen_cg_blocks.path_table``)."""

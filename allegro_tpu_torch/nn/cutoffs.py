@@ -32,4 +32,6 @@ def bessel_basis(u: torch.Tensor, num_bessels: int, eps: float = 1e-10) -> torch
     small = (u.abs() < eps)[..., None]
     safe_u = torch.where(u.abs() < eps, torch.full_like(u, eps), u)[..., None]
     out = torch.where(small, n.expand(*u.shape, num_bessels), torch.sin(u[..., None] * n) / safe_u)
-    return math.sqrt(2.0) * out
+    # sqrt(2) in u's dtype first, as JAX's jnp.sqrt(2.0).astype(u.dtype)
+    # (rounded to 1.4140625 in bfloat16)
+    return torch.tensor(math.sqrt(2.0), dtype=u.dtype) * out

@@ -62,7 +62,10 @@ def with_edge_vectors(data: Dict) -> Dict:
     out[keys.EDGE_VECTORS] = vec
     # NaN-safe norm: d|v|/dv at v = 0 is NaN and would poison the force
     # gradient of padded edges; the double where keeps it finite (r = 0 there)
-    n2 = (vec * vec).sum(dim=-1, keepdim=True)
+    # a bfloat16 vec (bfloat16 positions) squared and summed in float32 and
+    # rounded once, as XLA reduces JAX's bfloat16 sum(vec * vec)
+    wide = vec.float() if vec.dtype == torch.bfloat16 else vec
+    n2 = (wide * wide).sum(dim=-1, keepdim=True).to(vec.dtype)
     safe = torch.where(n2 > 0, n2, torch.ones_like(n2))
     out[keys.EDGE_LENGTH] = torch.where(n2 > 0, torch.sqrt(safe), torch.zeros_like(n2))
     return out

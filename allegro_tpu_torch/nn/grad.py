@@ -91,7 +91,10 @@ def force_stress_wrapper(apply_fn: Callable[[Dict], Dict], with_stress: bool = T
             forces = forces * data[keys.NODE_MASK].to(forces.dtype)[:, None]
         out[keys.FORCES] = forces
         if do_stress:
-            volume = torch.linalg.det(cell).abs()
+            # torch has no bfloat16 LU: a bf16 cell's determinant in
+            # float32, rounded back (JAX's ``jnp.linalg.det`` keeps the dtype)
+            wide = cell.float() if cell.dtype == torch.bfloat16 else cell
+            volume = torch.linalg.det(wide).abs().to(cell.dtype)
             out[keys.VIRIAL] = -grads[1]
             out[keys.STRESS] = grads[1] / volume.clamp_min(1e-12)[:, None, None]
         return out

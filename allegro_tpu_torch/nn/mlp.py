@@ -15,6 +15,10 @@ from torch import nn
 
 
 def silu(x):
+    if x.dtype == torch.bfloat16:
+        # JAX's bfloat16 x * sigmoid(x) as XLA computes it: sigmoid as
+        # 1 / (1 + exp(-x)), every op rounded to bfloat16 (the same bits)
+        return x * (1.0 / (1.0 + torch.exp(-x)))
     return torch.nn.functional.silu(x)
 
 

@@ -39,7 +39,11 @@ _i32p = ctypes.POINTER(ctypes.c_int)
 # cotangents in bfloat16; env_scatter, unweight_sh, unweight_both: the env
 # weights in bfloat16; unweight_w: its dwexp; unweight_both takes a second
 # int, 1 for its dwexp in bfloat16;
-# latent_env_scatter, latent_env_bwd: the env weights rounded to bfloat16)
+# latent_env_scatter, latent_env_bwd: the env weights rounded to bfloat16);
+# the same int carries a bfloat16 model's per-edge operands in its higher
+# bits (fused_tp.BF_SH, BF_W2B, BF_TS, and the mega kernels' pieces from
+# BF_PIECES on); the readout's _mixed forms take a mask of bfloat16 pieces,
+# and the center kernels and sparse_tp have bfloat16 forms of their own
 _SIGNATURES = {
     "atpt_noop": [_vp],
     "atpt_env_scatter": [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
@@ -55,7 +59,13 @@ _SIGNATURES = {
     "atpt_center_gather": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
     "atpt_center_sum": [_vp, _vp, _vp, _i32, _i32, _vp, _vp],
     "atpt_center_sum_chunked": [_vp, _vp, _vp, _i32, _i32, _i64, _i32, _vp, _vp, _vp],
+    "atpt_center_gather_bf16": [_vp, _vp, _i64, _i32, _i32, _vp, _vp],
+    "atpt_center_sum_bf16": [_vp, _vp, _vp, _i32, _i32, _vp, _vp],
     "atpt_readout_sum": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _vp],
+    "atpt_readout_sum_mixed": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _i32, _i32, _vp, _i32,
+                               _vp],
+    "atpt_readout_bwd_mixed": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _i64,
+                               _i32, _i32, _i32, _vp],
     "atpt_readout_bwd": [_vpp, _i64p, _vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _i64,
                          _i32, _i32, _vp],
     "atpt_latent_env_scatter": [_vpp, _i64p, _i32p, _i32, _vp, _vp, _vp, _vp, _vp, _vp, _i64,
@@ -72,6 +82,8 @@ _SIGNATURES = {
                        _i32, _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     "atpt_unweight_sh": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
     "atpt_unweight_w": [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _vp, _i32, _vp],
+    "atpt_sparse_tp_bf16": [_vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32, _vp,
+                            _vp],
     "atpt_sparse_tp": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32, _i32,
                        _i32, _vp, _vp],
     "atpt_sparse_tp_gradw": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,

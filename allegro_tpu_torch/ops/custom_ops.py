@@ -432,9 +432,10 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int):
 
 
 def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = False,
-              paths: Optional[CgPaths] = None):
+              paths: Optional[CgPaths] = None, ts_dtype: Optional[torch.dtype] = None):
     if not _TRACING:
-        return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
+        return fused_tp.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths,
+                                  ts_dtype)
     out, ts = _ops().gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, *paths,
                                _is_bf16(x))
     return (out, ts) if split else out

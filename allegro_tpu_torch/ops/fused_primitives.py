@@ -60,6 +60,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import custom_ops as kernels
+from .fused_tp import compute_dtype
 from .gen_cg_blocks import CgPaths
 
 
@@ -254,7 +255,9 @@ class _FusedLayerInfer(torch.autograd.Function):
         if wexp_dtype is not None:
             wexp = wexp.to(wexp_dtype)
         env = kernels.env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, w.shape[1])
-        out = kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
+        # ts (a routed mega model's) in the model dtype, sh's: JAX's scalar_dtype
+        out = kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths,
+                                sh.dtype)
         ctx.save_for_backward(x, sh, wexp, w, env, centers, row_ptr, entry_idx, entry_coef,
                               dim_to_irr)
         ctx.bwd_paths = (swapped_paths, scatter_paths)
@@ -373,13 +376,14 @@ class _ReadoutSumInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w0, w1, centers, row_ptr, *pieces):
         ctx.save_for_backward(w0, w1, centers, *pieces)
-        return kernels.readout_sum(pieces, w0, w1, row_ptr)
+        return kernels.readout_sum(pieces, _wide(w0), None if w1 is None else _wide(w1), row_ptr)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         w0, w1, centers, *pieces = ctx.saved_tensors
-        dpieces = kernels.readout_bwd(pieces, w0, w1, g.contiguous(), centers)
+        dpieces = kernels.readout_bwd(pieces, _wide(w0), None if w1 is None else _wide(w1),
+                                      g.to(compute_dtype(g)).contiguous(), centers)
         nig = ctx.needs_input_grad
         return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), None, None, *dpieces)
 
@@ -388,7 +392,10 @@ def readout_sum_infer(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Ten
                       row_ptr) -> torch.Tensor:
     """Per-atom readout energy [n_atoms, 1] from the scalar-track pieces
     [E, S_i] through the readout MLP (w0 [ΣS_i, H], w1 [H, 1]; ``w1=None``
-    for a linear readout, w0 [ΣS_i, 1]), summed over each atom's edges."""
+    for a linear readout, w0 [ΣS_i, 1]), summed over each atom's edges, in
+    the compute dtype (float32 for a bfloat16 model: JAX's kernel's; its
+    caller rounds it to the model dtype). A bfloat16 model's weights are
+    widened for the kernels (:func:`_wide`)."""
     return _ReadoutSumInfer.apply(w0, w1, centers, row_ptr, *pieces)
 
 
@@ -396,8 +403,9 @@ class _MegaLatentEnv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S, wexp_dtype,
                 *pieces):
-        lat_s, env = kernels.latent_env_scatter(pieces, sh, w0, w1, centers, row_ptr,
-                                                dim_to_irr, U, S, irr_ranges, wexp_dtype)
+        lat_s, env = kernels.latent_env_scatter(pieces, sh, _wide(w0),
+                                                None if w1 is None else _wide(w1), centers,
+                                                row_ptr, dim_to_irr, U, S, irr_ranges, wexp_dtype)
         ctx.save_for_backward(w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces)
         ctx.U, ctx.S, ctx.wexp_dtype = U, S, wexp_dtype
         return lat_s, env
@@ -407,8 +415,8 @@ class _MegaLatentEnv(torch.autograd.Function):
     def backward(ctx, g_lat, g_env):
         w0, w1, sh, centers, dim_to_irr, irr_ranges, *pieces = ctx.saved_tensors
         dsh, dpieces = kernels.latent_env_bwd(
-            pieces, sh, w0, w1, g_env.contiguous(), g_lat.contiguous(), centers, dim_to_irr,
-            ctx.U, ctx.S, irr_ranges, ctx.wexp_dtype,
+            pieces, sh, _wide(w0), None if w1 is None else _wide(w1), g_env.contiguous(),
+            g_lat.contiguous(), centers, dim_to_irr, ctx.U, ctx.S, irr_ranges, ctx.wexp_dtype,
         )
         nig = ctx.needs_input_grad
         return (_nan_like(w0, nig[0]), _nan_like(w1, nig[1]), dsh, None, None, None, None, None,
@@ -425,7 +433,9 @@ def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.T
     basis's per-irrep (start, len) table, which both kernels read
     (``Contracter.irr_ranges``; built from ``dim_to_irr`` where not given).
     ``wexp_dtype``: the env weights are rounded to it and back before they
-    weight sh (the bf16 track's bfloat16; None: not rounded)."""
+    weight sh (the bf16 track's bfloat16; None: not rounded). A bfloat16
+    model's pieces and sh may be bfloat16: lat_s and env are then float32
+    (JAX's compute dtype), and the weights are widened for the kernels."""
     return _MegaLatentEnv.apply(w0, w1, sh, centers, row_ptr, dim_to_irr, irr_ranges, U, S,
                                 wexp_dtype, *pieces)
 
@@ -433,10 +443,12 @@ def mega_latent_env(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.T
 class _GatherTpInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split, paths,
-                swapped_paths, scatter_paths):
+                swapped_paths, scatter_paths, ts_dtype):
+        w = _wide(w)
         ctx.save_for_backward(x, env, w, centers, row_ptr, entry_idx, entry_coef)
         ctx.bwd_paths = (swapped_paths, scatter_paths)
-        return kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths)
+        return kernels.gather_tp(x, env, w, centers, entry_idx, entry_coef, d3, split, paths,
+                                 ts_dtype)
 
     @staticmethod
     @once_differentiable
@@ -446,28 +458,32 @@ class _GatherTpInfer(torch.autograd.Function):
                                      entry_coef, None if gts is None else gts.contiguous(),
                                      paths=ctx.bwd_paths[0], scatter_paths=ctx.bwd_paths[1])
         return (dx, denv, _nan_like(w, ctx.needs_input_grad[2]), None, None, None, None, None,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def gather_tp_infer(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3: int,
                     split: bool = False, paths: Optional[CgPaths] = None,
                     swapped_paths: Optional[CgPaths] = None,
-                    scatter_paths: Optional[CgPaths] = None):
+                    scatter_paths: Optional[CgPaths] = None,
+                    ts_dtype: Optional[torch.dtype] = None):
     """x [E, d1*U], env [n_atoms, d2*U], w [P, U] → out [E, d3*U], or
     ``(out, ts)`` with ``split`` (ts [E, U], the leading 0e block, whose
     cotangent the backward folds in). ``paths``: the entries' path table in
     walk order, which ``gather_tp`` walks on the card; ``swapped_paths`` and
     ``scatter_paths``: the role swap's and the (0, 2, 1) order's, which the
     backward's ``bwd_fused`` walks (``Contracter.infer_paths``). x may be
-    the bf16 track: out is then bfloat16 too, ts in env's dtype."""
+    the bf16 track: out is then bfloat16 too. ts is stored in ``ts_dtype``
+    (JAX's ``scalar_dtype``, the model dtype; default env's). A bfloat16
+    model's w is widened for the kernels (:func:`_wide`)."""
     return _GatherTpInfer.apply(x, env, w, centers, row_ptr, entry_idx, entry_coef, d3, split,
-                                paths, swapped_paths, scatter_paths)
+                                paths, swapped_paths, scatter_paths, ts_dtype)
 
 
 class _GatherTpEmbedInfer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs, d3,
                 split, paths, out_dtype):
+        w = _wide(w)
         ctx.save_for_backward(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, row_specs)
         ctx.paths = paths
         return kernels.gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef,

@@ -70,6 +70,17 @@ rounds once, on store; each output has the dtype JAX gives it. The CUDA
 forms are the same kernels on either storage type (``csrc/*.cu``:
 ``load_f`` / ``store_f``, the staged rows widened to float); a combination
 of dtypes that has no form raises ``TypeError``.
+
+A bfloat16 model (``model_dtype="bfloat16"``): the per-edge operands JAX
+stores in bfloat16 are read in bfloat16 by the kernels' bf16-operand forms,
+widened as they are staged (their flags: ``BF_SH``, ``BF_W2B``, ``BF_TS``
+and the pieces' masks): sh (``env_scatter``, ``unweight_both``, the mega
+kernels), w2b (the embeds), the MLP pieces (the mega and readout kernels),
+ts and gts (``gather_tp``, ``bwd_fused``, the embeds); ``center_gather``
+and ``center_sum`` have bfloat16 forms (a copy; a float32 sum rounded
+once). The MLP and path weights come widened to float32, once per call
+(``fused_primitives._wide``). Outputs take JAX's dtypes: what JAX stores in
+bfloat16 is rounded once from the float32 sum, the rest float32.
 """
 
 from __future__ import annotations
@@ -92,12 +103,9 @@ LAUNCHES: Dict[str, int] = {
     "sparse_tp": 0, "sparse_tp_gradw": 0,
 }
 # the launches of the bf16 forms (kernels 1-4, 7-10 and 14-17 on the bf16
-# track), each also counted in LAUNCHES under its kernel's name
-BF16_LAUNCHES: Dict[str, int] = {
-    "env_scatter": 0, "gather_tp": 0, "bwd_fused": 0, "unweight_both": 0,
-    "latent_env_scatter": 0, "latent_env_bwd": 0, "gather_tp_embed": 0, "bwd_embed": 0,
-    "tp_scatter": 0, "gather_dw": 0, "unweight_sh": 0, "unweight_w": 0,
-}
+# track; kernels 1-12 and 20 on a bfloat16 model's bf16 operands), each
+# also counted in LAUNCHES under its kernel's name
+BF16_LAUNCHES: Dict[str, int] = {name: 0 for name in LAUNCHES if name != "sparse_tp_gradw"}
 
 
 def reset_launch_counts() -> None:
@@ -250,10 +258,13 @@ def _embed_x0(sh, w2b, row_specs, U):
     return (sh.index_select(1, specs[:, 0])[:, :, None] * w).reshape(E, -1)
 
 
-def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split=False):
+def gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split=False,
+                        ts_dtype=None):
     cdt = compute_dtype(x, env)
     out = _gather_tp(x.to(cdt), env.to(cdt), w.to(cdt), centers, entry_idx, entry_coef, d3)
-    return (out.to(x.dtype), out[:, :w.shape[1]].clone()) if split else out.to(x.dtype)
+    if not split:
+        return out.to(x.dtype)
+    return out.to(x.dtype), out[:, :w.shape[1]].to(ts_dtype or env.dtype, copy=True)
 
 
 def _gather_tp(x, env, w, centers, entry_idx, entry_coef, d3):
@@ -315,6 +326,9 @@ def center_gather_reference(a, idx):
 
 
 def center_sum_reference(v, row_ptr, perm=None):
+    if v.dtype == torch.bfloat16:
+        # summed in float32, stored once (a bfloat16 model's sums)
+        return center_sum_reference(v.float(), row_ptr, perm).to(v.dtype)
     n_atoms = row_ptr.shape[0] - 1
     E = v.shape[0]
     k = torch.arange(E, device=v.device)
@@ -327,11 +341,16 @@ def center_sum_reference(v, row_ptr, perm=None):
 
 def _edge_mlp(pieces, w0, w1):
     """Per-edge ``pre = Σ_i p_i @ W0_i`` and output ``silu(pre) @ w1`` (or
-    ``pre`` itself without a hidden layer, ``w1 is None``)."""
+    ``pre`` itself without a hidden layer, ``w1 is None``), in the compute
+    dtype: a bfloat16 model's pieces and weights widened, as JAX's kernels
+    read them."""
+    cdt = compute_dtype(*pieces, w0, w1)
+    w0 = w0.to(cdt)
+    w1 = None if w1 is None else w1.to(cdt)
     pre = None
     off = 0
     for p in pieces:
-        t = p @ w0[off : off + p.shape[1]]
+        t = p.to(cdt) @ w0[off : off + p.shape[1]]
         pre = t if pre is None else pre + t
         off += p.shape[1]
     return pre, pre if w1 is None else torch.nn.functional.silu(pre) @ w1
@@ -339,11 +358,12 @@ def _edge_mlp(pieces, w0, w1):
 
 def _edge_mlp_bwd(pieces, pre, dout, w0, w1):
     """The piece cotangents of :func:`_edge_mlp` from its output's ``dout``."""
-    dh = dout
+    cdt = pre.dtype
+    dh = dout.to(cdt)
     if w1 is not None:
         sig = torch.sigmoid(pre)
-        dh = (dh @ w1.T) * (sig * (1.0 + pre * (1.0 - sig)))
-    dp = dh @ w0.T
+        dh = (dh @ w1.to(cdt).T) * (sig * (1.0 + pre * (1.0 - sig)))
+    dp = dh @ w0.to(cdt).T
     return tuple(torch.split(dp, [p.shape[1] for p in pieces], dim=1))
 
 
@@ -361,7 +381,7 @@ def latent_env_scatter_reference(pieces, sh, w0, w1, row_ptr, dim_to_irr, U, S,
                                  wexp_dtype=None):
     _, lat = _edge_mlp(pieces, w0, w1)
     wexp = round_to(lat[:, S:], wexp_dtype)
-    env = center_sum_reference(_weighted_sh(sh, wexp, dim_to_irr, U), row_ptr)
+    env = center_sum_reference(_weighted_sh(sh.to(lat.dtype), wexp, dim_to_irr, U), row_ptr)
     return lat[:, :S].contiguous(), env
 
 
@@ -370,25 +390,30 @@ def latent_env_bwd_reference(pieces, sh, w0, w1, t, g_lat, centers, dim_to_irr, 
     pre, lat = _edge_mlp(pieces, w0, w1)
     # dsh reads the rounded env weights the forward weighted sh with; dwexp
     # does not read them (the rounding's derivative is taken as 1, as in JAX)
-    dsh, dwexp = unweight_both_reference(t, sh, round_to(lat[:, S:], wexp_dtype), centers,
-                                         dim_to_irr)
+    dsh, dwexp = unweight_both_reference(t, sh.to(lat.dtype), round_to(lat[:, S:], wexp_dtype),
+                                         centers, dim_to_irr)
     return dsh, _edge_mlp_bwd(pieces, pre, torch.cat([g_lat, dwexp], dim=1), w0, w1)
 
 
 def gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef, row_specs, d3,
                               split=False, out_dtype=None):
-    x0 = _embed_x0(sh, w2b, row_specs, w.shape[1])
-    out = _gather_tp(x0, env, w, centers, entry_idx, entry_coef, d3)
-    stored = out.to(out_dtype or out.dtype)
-    return (stored, out[:, :w.shape[1]].clone()) if split else stored
+    # computed in the promotion of all four (float32 for a bfloat16 model),
+    # out stored in out_dtype (default sh's), ts in sh's dtype
+    cdt = compute_dtype(sh, w2b, env, w)
+    x0 = _embed_x0(sh.to(cdt), w2b.to(cdt), row_specs, w.shape[1])
+    out = _gather_tp(x0, env.to(cdt), w.to(cdt), centers, entry_idx, entry_coef, d3)
+    stored = out.to(out_dtype or sh.dtype)
+    return (stored, out[:, :w.shape[1]].to(sh.dtype, copy=True)) if split else stored
 
 
 def bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef, row_specs,
                         gts=None):
     E, U = sh.shape[0], w.shape[1]
+    cdt = compute_dtype(sh, w2b, env, w)
+    sh, w2b = sh.to(cdt), w2b.to(cdt)
     x0 = _embed_x0(sh, w2b, row_specs, U)
-    dx, denv = _bwd_fused(x0, g.to(x0.dtype), env, w, centers, n_atoms, entry_idx, entry_coef,
-                          gts, False)
+    dx, denv = _bwd_fused(x0, g.to(cdt), env.to(cdt), w.to(cdt), centers, n_atoms, entry_idx,
+                          entry_coef, None if gts is None else gts.to(cdt), False)
     specs = row_specs.long()
     dx = dx.view(E, -1, U)  # [E, d1, U]
     w = w2b.reshape(E, -1, U)
@@ -494,6 +519,32 @@ def _check_kernel_args(floats, ints, track=None) -> bool:
     return dtypes == {torch.bfloat16}
 
 
+# The bits of a kernel's dtype flags (its ``int bf16`` argument): bit 0 the
+# form it had before (the tensor track's bf16), and the per-edge operands a
+# bfloat16 model (``model_dtype="bfloat16"``) stores in bfloat16: sh, the
+# embed's channel weights w2b, and the split scalars ts (or their cotangent
+# gts). The mega kernels' flags carry the pieces from bit BF_PIECES on.
+BF_SH, BF_W2B, BF_TS = 2, 4, 8
+BF_PIECES = 8
+
+
+def _bf16_operands(**arrays) -> int:
+    """The flag bits (``BF_*``, passed as ``name=(bit, tensor)``) of the
+    operands given in bfloat16; each must be float32 or bfloat16 and
+    contiguous (None: absent)."""
+    flags = 0
+    for name, (bit, t) in arrays.items():
+        if t is None:
+            continue
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: the CUDA kernels take float32 or bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16:
+            flags |= bit
+    return flags
+
+
 def _ptr(t: Optional[torch.Tensor]):
     """A device pointer for ctypes; None (a null pointer) for an absent array."""
     return None if t is None else t.data_ptr()
@@ -555,8 +606,8 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
 
     sh [E, d2], wexp [E, n_irr*U], centers [E], row_ptr [n_atoms+1] (CSR over
     the center-sorted edges), dim_to_irr [d2]. wexp may be the bf16 track
-    (the env weights, or a cotangent in their role): env is in the compute
-    dtype (float32).
+    (the env weights, or a cotangent in their role), and sh that of a
+    bfloat16 model: env is in the compute dtype (float32).
 
     Replaces ``_env_scatter_kernel``. Bound by the one read of wexp; a block
     per group of consecutive atoms stages their edges' wexp and sh rows (one
@@ -572,27 +623,31 @@ def env_scatter(sh, wexp, centers, row_ptr, dim_to_irr, U: int) -> torch.Tensor:
         )
     if _on_cpu(sh, wexp, centers, row_ptr, dim_to_irr):
         return env_scatter_reference(sh, wexp, centers, n_atoms, dim_to_irr, U)
-    bf16 = _check_kernel_args({"sh": sh}, {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr},
-                              {"wexp": wexp})
-    env = torch.empty((n_atoms, d2 * U), dtype=sh.dtype, device=sh.device)
+    flags = _check_kernel_args({}, {"row_ptr": row_ptr, "dim_to_irr": dim_to_irr},
+                               {"wexp": wexp}) | _bf16_operands(sh=(BF_SH, sh))
+    if flags == BF_SH:
+        raise TypeError("env_scatter: a bfloat16 sh takes bfloat16 env weights (a bfloat16 "
+                        "model's), got float32")
+    env = torch.empty((n_atoms, d2 * U), dtype=compute_dtype(sh, wexp), device=sh.device)
     if n_atoms == 0:
         return env
     _launch("env_scatter", "atpt_env_scatter", sh.device,
             sh.data_ptr(), wexp.data_ptr(), row_ptr.data_ptr(), dim_to_irr.data_ptr(),
-            n_atoms, d2, n_irr, U, env.data_ptr(), int(bf16), bf16=bf16)
+            n_atoms, d2, n_irr, U, env.data_ptr(), flags, bf16=bool(flags))
     return env
 
 
 def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = False,
-              paths: Optional[CgPaths] = None):
+              paths: Optional[CgPaths] = None, ts_dtype: Optional[torch.dtype] = None):
     """out [E, d3*U]: ``out[e,kU+u] = Σ c w[p,u] x[e,iU+u] env[c(e),jU+u]``.
 
     x [E, d1*U], env [n_atoms, d2*U], w [P, U], entries (i, j, k, p) / c in
     either role order; on the card also ``paths``, that order's path table
     in walk order (``gen_cg_blocks.path_table(by_output=True)``); dims up to
     32. ``split``: also return the leading 0e block ``out[:, :U]`` as its
-    own [E, U] array, ``(out, ts)``. x may be the bf16 track: out is then
-    bfloat16 too, ts float32 (JAX's ``scalar_dtype``).
+    own [E, U] array, ``(out, ts)``, ts stored in ``ts_dtype`` (JAX's
+    ``scalar_dtype``, the model dtype; default env's). x may be the bf16
+    track: out is then bfloat16 too.
 
     Replaces ``_gather_tp_raw_kernel``. Bound by the read of x and the write
     of out; one thread per (edge, channel), coalesced rows, the edge's env
@@ -607,18 +662,20 @@ def gather_tp(x, env, w, centers, entry_idx, entry_coef, d3: int, split: bool = 
             f"w {tuple(w.shape)}, centers {tuple(centers.shape)}"
         )
     if _on_cpu(x, env, w, centers, entry_idx, entry_coef):
-        return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split)
+        return gather_tp_reference(x, env, w, centers, entry_idx, entry_coef, d3, split,
+                                   ts_dtype)
     bf16 = _check_kernel_args({"env": env, "w": w}, {"centers": centers}, {"x": x})
     paths = _kernel_paths("gather_tp", paths, entry_idx.shape[0])
     out = torch.empty((E, d3 * U), dtype=x.dtype, device=x.device)
-    ts = torch.empty((E, U), dtype=env.dtype, device=x.device) if split else None
+    ts = torch.empty((E, U), dtype=ts_dtype or env.dtype, device=x.device) if split else None
+    flags = int(bf16) | _bf16_operands(ts=(BF_TS, ts))
     if E > 0:
         _launch("gather_tp", "atpt_gather_tp", x.device,
                 x.data_ptr(), env.data_ptr(), w.data_ptr(), centers.data_ptr(),
                 paths.desc.data_ptr(), paths.scale.data_ptr(), paths.desc.shape[0],
                 paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(), E, n_atoms,
                 x.shape[1] // U, env.shape[1] // U, d3, U, w.shape[0], out.data_ptr(), _ptr(ts),
-                int(bf16), bf16=bf16)
+                flags, bf16=bool(flags))
     return (out, ts) if split else out
 
 
@@ -638,7 +695,7 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
     (``gather_paths()[1]``: dx), and ``scatter_paths``, that of the entry
     table with its roles permuted (0, 2, 1) (``scatter_paths()[0]``: denv).
     x and g may be the bf16 track (without dw): dx is then bfloat16 too,
-    denv in env's dtype.
+    denv in env's dtype; gts may be bfloat16 (a bfloat16 model's).
 
     Replaces ``_bwd_fused_raw_kernel`` and, with ``with_dw``,
     ``_bwd_fused_kernel``. Bound by the reads of x and g and the write of
@@ -666,10 +723,11 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
         return bwd_fused_reference(x, g, env, w, centers, n_atoms, entry_idx, entry_coef, gts,
                                    with_dw)
     bf16 = _check_kernel_args(
-        {"env": env, "w": w, "entry_coef": entry_coef, **{"gts": t for t in opt}},
+        {"env": env, "w": w, "entry_coef": entry_coef},
         {"row_ptr": row_ptr, "entry_idx": entry_idx}, {"x": x, "g": g},
     )
-    if bf16 and with_dw:
+    flags = int(bf16) | _bf16_operands(gts=(BF_TS, gts))
+    if flags and with_dw:
         raise TypeError("bwd_fused with dw takes float32 x and g, got bfloat16")
     dx = torch.empty_like(x)
     denv = torch.empty_like(env)
@@ -692,7 +750,7 @@ def bwd_fused(x, g, env, w, centers, row_ptr, entry_idx, entry_coef, gts=None,
                 x.data_ptr(), g.data_ptr(), _ptr(gts), env.data_ptr(), w.data_ptr(),
                 row_ptr.data_ptr(), *table, *walks, E, n_atoms,
                 x.shape[1] // U, env.shape[1] // U, g.shape[1] // U, U, n_paths, n_blocks,
-                dx.data_ptr(), denv.data_ptr(), _ptr(partial), _ptr(dw), int(bf16), bf16=bf16)
+                dx.data_ptr(), denv.data_ptr(), _ptr(partial), _ptr(dw), flags, bf16=bool(flags))
     elif with_dw:
         dw.zero_()
     return (dx, denv, dw) if with_dw else (dx, denv)
@@ -704,7 +762,8 @@ def unweight_both(t, sh, wexp, centers, dim_to_irr, out_dtype: Optional[torch.dt
     dsh [E, d2] and dwexp [E, n_irr*U]. wexp may be the bf16 track: dwexp
     is then stored in ``out_dtype``, default wexp's (JAX's non-mega path
     stores it in bfloat16; float32 is the unrounded cotangent of JAX's mega
-    path, for a mega model routed here), dsh float32.
+    path, for a mega model routed here), dsh float32. sh may be bfloat16
+    (a bfloat16 model's; dsh float32).
 
     Replaces ``_unweight_both_raw_kernel`` (and ``_unweight_both_kernel``).
     Bound by the read of wexp and the write of dwexp; the tiles of
@@ -726,19 +785,23 @@ def unweight_both(t, sh, wexp, centers, dim_to_irr, out_dtype: Optional[torch.dt
         )
     if _on_cpu(t, sh, wexp, centers, dim_to_irr):
         return unweight_both_reference(t, sh, wexp, centers, dim_to_irr, out_dtype)
-    bf16 = _check_kernel_args({"t": t, "sh": sh}, {"centers": centers, "dim_to_irr": dim_to_irr},
+    bf16 = _check_kernel_args({"t": t}, {"centers": centers, "dim_to_irr": dim_to_irr},
                               {"wexp": wexp})
-    dsh = torch.empty_like(sh)
+    flags = int(bf16) | _bf16_operands(sh=(BF_SH, sh))
+    dsh = torch.empty(sh.shape, dtype=compute_dtype(t), device=sh.device)
     dwexp = torch.empty_like(wexp, dtype=out_dtype or wexp.dtype)
     bf16_out = _check_kernel_args({}, {}, {"dwexp": dwexp})
     if bf16_out and not bf16:
         raise TypeError("unweight_both: a bfloat16 dwexp needs bfloat16 env weights")
+    if flags & BF_SH and not bf16_out:
+        raise TypeError("unweight_both: a bfloat16 sh takes bfloat16 env weights and dwexp "
+                        "(a bfloat16 model's)")
     if E == 0:
         return dsh, dwexp
     _launch("unweight_both", "atpt_unweight_both", t.device,
             t.data_ptr(), sh.data_ptr(), wexp.data_ptr(), centers.data_ptr(),
             dim_to_irr.data_ptr(), E, t.shape[0], d2, n_irr, U,
-            dsh.data_ptr(), dwexp.data_ptr(), int(bf16), int(bf16_out), bf16=bf16)
+            dsh.data_ptr(), dwexp.data_ptr(), flags, int(bf16_out), bf16=bool(flags))
     return dsh, dwexp
 
 
@@ -750,18 +813,20 @@ def center_gather(a, idx) -> torch.Tensor:
     rows (C <= 4: positions, energies): a warp per 32 edges reads their
     indices once and stores the warp's outputs as C coalesced rows; wider
     rows: a group of lanes per edge reads its index once and copies the
-    row, as float4 where C % 4 == 0."""
+    row, as float4 where C % 4 == 0. A bfloat16 a (a bfloat16 model's
+    positions or env) is copied to a bfloat16 out by its own form, a thread
+    per element."""
     if a.ndim != 2 or idx.ndim != 1:
         raise ValueError(f"center_gather shapes: a {tuple(a.shape)}, idx {tuple(idx.shape)}")
     if _on_cpu(a, idx):
         return center_gather_reference(a, idx)
-    _check_kernel_args({"a": a}, {"idx": idx})
+    bf16 = _check_kernel_args({}, {"idx": idx}, {"a": a})
     E, (n_atoms, C) = idx.shape[0], a.shape
     out = torch.empty((E, C), dtype=a.dtype, device=a.device)
     if E == 0 or C == 0:
         return out
-    _launch("center_gather", "atpt_center_gather", a.device,
-            a.data_ptr(), idx.data_ptr(), E, n_atoms, C, out.data_ptr())
+    _launch("center_gather", "atpt_center_gather_bf16" if bf16 else "atpt_center_gather",
+            a.device, a.data_ptr(), idx.data_ptr(), E, n_atoms, C, out.data_ptr(), bf16=bf16)
     return out
 
 
@@ -782,7 +847,10 @@ def center_sum(v, row_ptr, perm=None, chunked: bool = False) -> torch.Tensor:
     float4. Chunked, two launches and no buffer to clear: a block per chunk
     of ``CENTER_SUM_CHUNK`` positions and slice of columns writes one
     partial per segment piece of the chunk, then a block per row and slice
-    adds the row's partials, each in a fixed tree."""
+    adds the row's partials, each in a fixed tree. A bfloat16 v (a bfloat16
+    model's) has its own form, chunked or not: a thread per (atom, column)
+    adds its segment in edge order in float32 and stores the sum once, in
+    bfloat16."""
     n_atoms = row_ptr.shape[0] - 1
     if v.ndim != 2 or row_ptr.ndim != 1 or (perm is not None and perm.shape != v.shape[:1]):
         raise ValueError(
@@ -792,10 +860,15 @@ def center_sum(v, row_ptr, perm=None, chunked: bool = False) -> torch.Tensor:
     ints = {"row_ptr": row_ptr} if perm is None else {"row_ptr": row_ptr, "perm": perm}
     if _on_cpu(v, *ints.values()):
         return center_sum_reference(v, row_ptr, perm)
-    _check_kernel_args({"v": v}, ints)
+    bf16 = _check_kernel_args({}, ints, {"v": v})
     C = v.shape[1]
     out = torch.empty((n_atoms, C), dtype=v.dtype, device=v.device)
     if n_atoms == 0 or C == 0:
+        return out
+    if bf16:
+        _launch("center_sum", "atpt_center_sum_bf16", v.device,
+                v.data_ptr(), row_ptr.data_ptr(), _ptr(perm), n_atoms, C, out.data_ptr(),
+                bf16=True)
         return out
     if chunked:
         # row r's pieces take the entries [first chunk + r, last chunk + r]
@@ -831,10 +904,17 @@ def _check_mlp(what, pieces, w0, w1, E, n_out=None) -> int:
     return N
 
 
-def _check_pieces_dtype(pieces) -> None:
+def _check_pieces_dtype(pieces) -> int:
+    """The mask of the pieces in bfloat16 (bit i: piece i), a bfloat16
+    model's; each piece float32 or bfloat16."""
+    mask = 0
     for i, p in enumerate(pieces):
-        if p.dtype != torch.float32:
-            raise TypeError(f"piece {i}: the CUDA kernels take float32, got {p.dtype}")
+        if p.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"piece {i}: the CUDA kernels take float32 or bfloat16, "
+                            f"got {p.dtype}")
+        if p.dtype == torch.bfloat16:
+            mask |= 1 << i
+    return mask
 
 
 def _check_readout(pieces, w0, w1, E) -> int:
@@ -861,7 +941,11 @@ def readout_sum(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor],
     W0_i) @ w1``, or ``Σ_i p_i[e] @ W0_i`` without a hidden layer
     (``w1=None``, w0 [K, 1]). pieces [E, S_i] (column slices are fine: only
     their rows are read), w0 [ΣS_i, H], w1 [H, 1], row_ptr [n_atoms+1] (the
-    center CSR; sentinel edges after ``row_ptr[n_atoms]`` add nothing). The edgewise factor is expected folded into the last weight.
+    center CSR; sentinel edges after ``row_ptr[n_atoms]`` add nothing). The
+    edgewise factor is expected folded into the last weight. A bfloat16
+    model's pieces may be bfloat16 (each widened as it is staged; its
+    weights come widened, ``fused_primitives._wide``): the energy is
+    float32, the compute dtype.
 
     Replaces ``_readout_sum_kernel``. Bound by the read of the pieces and
     K·H FMAs per edge; a register-tiled product on tiles of 128 consecutive
@@ -877,16 +961,16 @@ def readout_sum(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor],
     if _on_cpu(*pieces, w0, *rest, row_ptr):
         return readout_sum_reference(pieces, w0, w1, row_ptr)
     _check_kernel_args({"w0": w0, **{"w1": w for w in rest}}, {"row_ptr": row_ptr})
-    _check_pieces_dtype(pieces)
+    mask = _check_pieces_dtype(pieces)
     energy = torch.empty((n_atoms, 1), dtype=w0.dtype, device=w0.device)
     if n_atoms == 0:
         return energy
     ptrs, strides = _piece_table(pieces)
     dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
-    _launch("readout_sum", "atpt_readout_sum", w0.device,
+    _launch("readout_sum", "atpt_readout_sum_mixed", w0.device,
             ptrs, strides, dims, len(pieces), w0.data_ptr(),
             None if w1 is None else w1.data_ptr(), row_ptr.data_ptr(), n_atoms, H,
-            energy.data_ptr())
+            energy.data_ptr(), mask, bf16=bool(mask))
     return energy
 
 
@@ -895,7 +979,8 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
     """Backward of ``readout_sum`` in the pieces, from the per-atom energy
     cotangent y [n_atoms, 1]: ``dp_i[e] = (y[c(e)] w1ᵀ ⊙ silu'(pre_e)) @
     W0_iᵀ`` (``y[c(e)] W0_iᵀ`` without a hidden layer); zero rows on sentinel
-    edges. Returns contiguous dpieces [E, S_i].
+    edges. Returns contiguous dpieces [E, S_i] in the compute dtype (JAX's:
+    float32 for a bfloat16 piece, whose cotangent autograd then rounds).
 
     Replaces ``_readout_bwd_kernel``. Bound by the read of the pieces and the
     write of their cotangents, with 2·K·H FMAs per edge close behind; a
@@ -914,17 +999,18 @@ def readout_bwd(pieces: Sequence[torch.Tensor], w0, w1: Optional[torch.Tensor], 
     if _on_cpu(*pieces, w0, *rest, y, centers):
         return readout_bwd_reference(pieces, w0, w1, y, centers)
     _check_kernel_args({"w0": w0, "y": y, **{"w1": w for w in rest}}, {"centers": centers})
-    _check_pieces_dtype(pieces)
-    dpieces = tuple(torch.empty(p.shape, dtype=p.dtype, device=p.device) for p in pieces)
+    mask = _check_pieces_dtype(pieces)
+    dpieces = tuple(torch.empty(p.shape, dtype=compute_dtype(p), device=p.device)
+                    for p in pieces)
     if E == 0:
         return dpieces
     ptrs, strides = _piece_table(pieces)
     dptrs, dstrides = _piece_table(dpieces)
     dims = (ctypes.c_int * len(pieces))(*(p.shape[1] for p in pieces))
-    _launch("readout_bwd", "atpt_readout_bwd", w0.device,
+    _launch("readout_bwd", "atpt_readout_bwd_mixed", w0.device,
             ptrs, strides, dptrs, dstrides, dims, len(pieces), w0.data_ptr(),
             None if w1 is None else w1.data_ptr(), y.data_ptr(), centers.data_ptr(), E,
-            y.shape[0], H)
+            y.shape[0], H, mask, bf16=bool(mask))
     return dpieces
 
 
@@ -956,7 +1042,10 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
     :func:`irrep_ranges` of ``dim_to_irr`` on the device (built on the host
     where not given). ``wexp_dtype`` (the bf16 track's bfloat16): the env
     weights ``lat[:, S:]`` are rounded to it and back before they weight
-    sh, as JAX's kernel does; lat_s is not rounded.
+    sh, as JAX's kernel does; lat_s is not rounded. A bfloat16 model's
+    pieces and sh may be bfloat16 (widened as they are staged; its weights
+    come widened, ``fused_primitives._wide``): lat_s and env are float32,
+    the compute dtype, as JAX's.
 
     Replaces ``_latent_env_scatter_kernel``. Bound by exact-FP32 FMAs; tiles
     of 64 edges through two register-tiled products, weights in shared
@@ -977,11 +1066,13 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
     round_wexp = _round_flag("latent_env_scatter", wexp_dtype, sh)
     irr_ranges = _device_irr_ranges("latent_env_scatter", irr_ranges, dim_to_irr, (N - S) // U,
                                     sh.device)
-    _check_kernel_args({"sh": sh, "w0": w0, **{"w1": w for w in rest}},
+    _check_kernel_args({"w0": w0, **{"w1": w for w in rest}},
                        {"centers": centers, "row_ptr": row_ptr, "irr_ranges": irr_ranges})
-    _check_pieces_dtype(pieces)
-    lat_s = torch.empty((E, S), dtype=sh.dtype, device=sh.device)
-    env = torch.empty((n_atoms, d2 * U), dtype=sh.dtype, device=sh.device)
+    flags = (round_wexp | _bf16_operands(sh=(BF_SH, sh))
+             | _check_pieces_dtype(pieces) << BF_PIECES)
+    cdt = compute_dtype(sh, *pieces)
+    lat_s = torch.empty((E, S), dtype=cdt, device=sh.device)
+    env = torch.empty((n_atoms, d2 * U), dtype=cdt, device=sh.device)
     if E == 0 and n_atoms == 0:
         return lat_s, env
     ptrs, strides = _piece_table(pieces)
@@ -989,8 +1080,8 @@ def latent_env_scatter(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torc
     _launch("latent_env_scatter", "atpt_latent_env_scatter", sh.device,
             ptrs, strides, dims, len(pieces), w0.data_ptr(), _ptr(w1), sh.data_ptr(),
             centers.data_ptr(), row_ptr.data_ptr(), irr_ranges.data_ptr(), E, n_atoms, d2, U, S,
-            0 if w1 is None else w0.shape[1], N, lat_s.data_ptr(), env.data_ptr(), round_wexp,
-            bf16=bool(round_wexp))
+            0 if w1 is None else w0.shape[1], N, lat_s.data_ptr(), env.data_ptr(), flags,
+            bf16=bool(flags))
     return lat_s, env
 
 
@@ -1005,7 +1096,8 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
     :func:`irrep_ranges` of ``dim_to_irr`` on the device (built on the host
     where not given). ``wexp_dtype``: as in ``latent_env_scatter``; dsh
     reads the rounded env weights, the env weights' cotangent does not
-    depend on them.
+    depend on them. dsh and dpieces are in the compute dtype (float32 for a
+    bfloat16 model's sh and pieces, as JAX's).
 
     Replaces ``_latent_env_bwd_kernel``. Bound by exact-FP32 FMAs; tiles of
     64 edges through four register-tiled products, weights in shared
@@ -1024,11 +1116,13 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
     round_wexp = _round_flag("latent_env_bwd", wexp_dtype, sh)
     irr_ranges = _device_irr_ranges("latent_env_bwd", irr_ranges, dim_to_irr, (N - S) // U,
                                     sh.device)
-    _check_kernel_args({"sh": sh, "w0": w0, "t": t, "g_lat": g_lat, **{"w1": w for w in rest}},
+    _check_kernel_args({"w0": w0, "t": t, "g_lat": g_lat, **{"w1": w for w in rest}},
                        {"centers": centers, "dim_to_irr": dim_to_irr, "irr_ranges": irr_ranges})
-    _check_pieces_dtype(pieces)
-    dsh = torch.empty_like(sh)
-    dpieces = tuple(torch.empty(p.shape, dtype=p.dtype, device=p.device) for p in pieces)
+    flags = (round_wexp | _bf16_operands(sh=(BF_SH, sh))
+             | _check_pieces_dtype(pieces) << BF_PIECES)
+    dsh = torch.empty(sh.shape, dtype=compute_dtype(sh), device=sh.device)
+    dpieces = tuple(torch.empty(p.shape, dtype=compute_dtype(p), device=p.device)
+                    for p in pieces)
     if E == 0:
         return dsh, dpieces
     ptrs, strides = _piece_table(pieces)
@@ -1038,7 +1132,7 @@ def latent_env_bwd(pieces: Sequence[torch.Tensor], sh, w0, w1: Optional[torch.Te
             ptrs, strides, dptrs, dstrides, dims, len(pieces), w0.data_ptr(), _ptr(w1),
             sh.data_ptr(), t.data_ptr(), g_lat.data_ptr(), centers.data_ptr(),
             irr_ranges.data_ptr(), E, t.shape[0], d2, U, S, 0 if w1 is None else w0.shape[1], N,
-            dsh.data_ptr(), round_wexp, bf16=bool(round_wexp))
+            dsh.data_ptr(), flags, bf16=bool(flags))
     return dsh, dpieces
 
 
@@ -1068,7 +1162,8 @@ def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, ro
     which the kernel walks; where it is not given it is built from the
     entries on the host. ``out_dtype``: out's storage (the bf16 track's
     bfloat16; default sh's dtype), rounded once from the sum; ts stays in
-    sh's dtype.
+    sh's dtype. A bfloat16 model's sh and w2b are bfloat16 (widened as
+    they are staged), and so are out and ts.
 
     Replaces ``_gather_tp_embed_raw_kernel``. Bound by the write of out; a
     warp per atom segment walks the CG paths, each a block compiled into
@@ -1083,21 +1178,20 @@ def gather_tp_embed(sh, w2b, env, w, centers, row_ptr, entry_idx, entry_coef, ro
         return gather_tp_embed_reference(sh, w2b, env, w, centers, entry_idx, entry_coef,
                                          row_specs, d3, split, out_dtype)
     paths = _device_paths(paths, entry_idx, entry_coef, sh.device)
-    _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w, "scale": paths.scale,
-                        "path_coef": paths.entry_coef},
+    _check_kernel_args({"env": env, "w": w, "scale": paths.scale, "path_coef": paths.entry_coef},
                        {"row_ptr": row_ptr, "desc": paths.desc, "path_idx": paths.entry_idx,
                         "row_specs": row_specs})
     out = torch.empty((E, d3 * U), dtype=out_dtype or sh.dtype, device=sh.device)
-    _check_kernel_args({}, {}, {"out": out})
     ts = torch.empty((E, U), dtype=sh.dtype, device=sh.device) if split else None
+    flags = _check_kernel_args({}, {}, {"out": out}) | _bf16_operands(
+        sh=(BF_SH, sh), w2b=(BF_W2B, w2b), ts=(BF_TS, ts))
     if E > 0:
         _launch("gather_tp_embed", "atpt_gather_tp_embed", sh.device,
                 sh.data_ptr(), w2b.data_ptr(), env.data_ptr(), w.data_ptr(), w.shape[0],
                 row_ptr.data_ptr(), paths.desc.data_ptr(), paths.scale.data_ptr(),
                 paths.desc.shape[0], paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(),
                 row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
-                env.shape[1] // U, d3, U, out.data_ptr(), _ptr(ts),
-                int(out.dtype == torch.bfloat16), bf16=out.dtype == torch.bfloat16)
+                env.shape[1] // U, d3, U, out.data_ptr(), _ptr(ts), flags, bf16=bool(flags))
     return (out, ts) if split else out
 
 
@@ -1109,7 +1203,9 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
     zero rows. ``paths`` (``gen_cg_blocks.CgPaths`` on the device) is the
     entry table by path, which the kernel walks; where it is not given it is
     built from the entries on the host. g may be the bf16 track (the
-    cotangent of a bfloat16 out); the results are in the model dtype.
+    cotangent of a bfloat16 out); a bfloat16 model's sh, w2b, g and gts are
+    bfloat16. The results are in the compute dtype (the model dtype, or
+    float32 for a bfloat16 model, as JAX's).
 
     Replaces ``_bwd_embed_raw_kernel``. Bound by the read of g and the write
     of dw2b; a warp per atom segment walks the CG paths, each a block
@@ -1128,13 +1224,14 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
         return bwd_embed_reference(sh, w2b, g, env, w, centers, n_atoms, entry_idx, entry_coef,
                                    row_specs, gts)
     paths = _device_paths(paths, entry_idx, entry_coef, sh.device)
-    bf16 = _check_kernel_args({"sh": sh, "w2b": w2b, "env": env, "w": w,
-                               "scale": paths.scale, "path_coef": paths.entry_coef,
-                               **{"gts": t for t in opt}},
+    bf16 = _check_kernel_args({"env": env, "w": w,
+                               "scale": paths.scale, "path_coef": paths.entry_coef},
                               {"row_ptr": row_ptr, "desc": paths.desc,
                                "path_idx": paths.entry_idx, "row_specs": row_specs}, {"g": g})
-    dsh = torch.empty_like(sh)
-    dw2b = torch.empty_like(w2b)
+    flags = int(bf16) | _bf16_operands(sh=(BF_SH, sh), w2b=(BF_W2B, w2b), gts=(BF_TS, gts))
+    cdt = compute_dtype(sh, w2b, env)
+    dsh = torch.empty(sh.shape, dtype=cdt, device=sh.device)
+    dw2b = torch.empty(w2b.shape, dtype=cdt, device=sh.device)
     denv = torch.empty_like(env)
     if E == 0 and n_atoms == 0:
         return dsh, dw2b, denv
@@ -1144,7 +1241,7 @@ def bwd_embed(sh, w2b, g, env, w, centers, row_ptr, entry_idx, entry_coef, row_s
             paths.desc.shape[0], paths.entry_idx.data_ptr(), paths.entry_coef.data_ptr(),
             row_specs.data_ptr(), E, n_atoms, sh.shape[1], n_irr, row_specs.shape[0],
             env.shape[1] // U, g.shape[1] // U, U, dsh.data_ptr(), dw2b.data_ptr(),
-            denv.data_ptr(), int(bf16), bf16=bf16)
+            denv.data_ptr(), flags, bf16=bool(flags))
     return dsh, dw2b, denv
 
 

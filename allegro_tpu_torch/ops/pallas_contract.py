@@ -85,6 +85,33 @@ def sparse_tp_reference(a, b, w, entry_idx, entry_coef, d3):
     return out.reshape(E, d3 * U)
 
 
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """``v`` (float32) rounded to bfloat16, kept in float32."""
+    return v.to(torch.bfloat16).float()
+
+
+def sparse_tp_bf16_reference(a, b, w, entry_idx, entry_coef, d3):
+    """The bfloat16 form's semantics, JAX's ``_tp_kernel`` on bfloat16
+    operands, which does not promote: in the table's entry order, ``t =
+    a[i] b[j]`` (formed again where (i, j) changes), ``c w[p]`` with c
+    rounded to bfloat16, their product, and each output's running sum are
+    each rounded to bfloat16 (float32 arithmetic, then rounded, as XLA
+    computes a bfloat16 op); out is bfloat16, an output no entry reaches
+    zero."""
+    E, U = a.shape[0], w.shape[1]
+    av, bv = a.float().view(E, -1, U), b.float().view(E, -1, U)
+    wf, coef = w.float(), _bf16(entry_coef.float())
+    acc = [None] * d3
+    cur, t = None, None
+    for (i, j, k, p), c in zip(entry_idx.tolist(), coef.unbind(0)):
+        if (i, j) != cur:
+            t, cur = _bf16(av[:, i] * bv[:, j]), (i, j)
+        con = _bf16(_bf16(c * wf[p]) * t)
+        acc[k] = con if acc[k] is None else _bf16(acc[k] + con)
+    zero = a.new_zeros((E, U), dtype=torch.float32)
+    return torch.stack([zero if v is None else v for v in acc], 1).reshape(E, d3 * U).to(a.dtype)
+
+
 def sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U):
     E = a.shape[0]
     d1, d2, d3 = a.shape[1] // U, b.shape[1] // U, g.shape[1] // U
@@ -112,7 +139,13 @@ def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int,
     Replaces ``_tp_kernel``. Bound by the reads of a and b and the write of
     out; one thread per (edge, channel), coalesced rows, each output slice
     summed in registers over the compiled CG blocks of its paths and stored
-    once."""
+    once.
+
+    bfloat16 a, b and w (a bfloat16 model's) take the bfloat16 form, with
+    JAX's semantics (:func:`sparse_tp_bf16_reference`: every product and
+    sum rounded to bfloat16, in the table's entry order, which the compiled
+    blocks do not keep): a thread per (edge, channel) walks the entry table
+    itself, ``entry_idx`` and ``entry_coef`` on the card, out bfloat16."""
     E, U = a.shape[0], w.shape[1]
     _check_entries(entry_idx, entry_coef)
     if a.ndim != 2 or b.ndim != 2 or w.ndim != 2 or b.shape[0] != E or a.shape[1] % U \
@@ -120,8 +153,27 @@ def sparse_tp(a, b, w, entry_idx, entry_coef, d3: int,
         raise ValueError(
             f"sparse_tp shapes: a {tuple(a.shape)}, b {tuple(b.shape)}, w {tuple(w.shape)}"
         )
+    bf16 = torch.bfloat16 in (a.dtype, b.dtype, w.dtype)
+    if bf16 and not a.dtype == b.dtype == w.dtype:
+        raise TypeError(f"sparse_tp: the bfloat16 form takes a, b and w all bfloat16, got "
+                        f"{a.dtype}, {b.dtype}, {w.dtype}")
     if _on_cpu(a, b, w, entry_idx, entry_coef):
+        if bf16:
+            return sparse_tp_bf16_reference(a, b, w, entry_idx, entry_coef, d3)
         return sparse_tp_reference(a, b, w, entry_idx, entry_coef, d3)
+    if bf16:
+        _check_kernel_args({"entry_coef": entry_coef}, {"entry_idx": entry_idx},
+                           {"a": a, "b": b, "w": w})
+        d1, d2 = a.shape[1] // U, b.shape[1] // U
+        if max(d1, d2, d3) > 32:
+            raise ValueError(f"sparse_tp: dims up to 32, got {(d1, d2, d3)}")
+        out = torch.empty((E, d3 * U), dtype=a.dtype, device=a.device)
+        if E > 0:
+            _launch("sparse_tp", "atpt_sparse_tp_bf16", a.device,
+                    a.data_ptr(), b.data_ptr(), w.data_ptr(), entry_idx.data_ptr(),
+                    entry_coef.data_ptr(), entry_idx.shape[0], E, d1, d2, d3, U,
+                    out.data_ptr(), bf16=True)
+        return out
     _check_kernel_args({"a": a, "b": b, "w": w}, {})
     paths = _kernel_paths("sparse_tp", paths, entry_idx.shape[0])
     out = torch.empty((E, d3 * U), dtype=a.dtype, device=a.device)
@@ -154,6 +206,12 @@ def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int,
             f"sparse_tp_gradw shapes: a {tuple(a.shape)}, b {tuple(b.shape)}, "
             f"g {tuple(g.shape)}, U={U}"
         )
+    if torch.bfloat16 in (a.dtype, b.dtype, g.dtype):
+        # JAX's _gradw_kernel rounds each op to bfloat16 there, as _tp_kernel
+        # does; that form is not ported (a bfloat16 model's training)
+        raise NotImplementedError(
+            "sparse_tp_gradw on bfloat16 operands is not ported to allegro_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 14)")
     if _on_cpu(a, b, g, entry_idx, entry_coef):
         return sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U)
     _check_kernel_args({"a": a, "b": b, "g": g}, {})

@@ -2,7 +2,7 @@
 """Smoke run of allegro_tpu_torch on one CUDA GPU: build, check, drive.
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase 11   # the build, then phase 8, 9, 10 or 11 alone
+    python3 chip_smoke.py --phase 12   # the build, then phase 8, 9, 10, 11 or 12 alone
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
@@ -284,11 +284,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    with the track on phase 5's 1k batch: every launch of the trainable
    family a bf16 form (``PER_STEP``'s counts), finite losses, float32
    parameters and gradients, two identical steps' gradients the same bits.
+12. a bfloat16 model (``model_dtype="bfloat16"``; ``model_phase``;
+   ``--phase 12`` runs it alone), the flagship's weights from seed 0 rounded
+   to bfloat16: (b) a force call on each route (``mega``,
+   ``use_mega=False``, ``pallas``, ``einsum``) with its exact launches and
+   bf16-operand launches (``MODEL_ROUTES``), output dtypes those of the
+   CPU's call, two calls the same bits, forces and per-atom energies
+   against the port's bfloat16 ``einsum`` and the float64 ``einsum`` oracle
+   (``MODEL_F_TOL``, ``MODEL_E_TOL``; margins printed) and µs/atom; (a) the
+   bf16-operand forms of kernels 1-12 and 20 at the flagship shapes
+   (``check_model_forms``), each against its plain version in float64 on
+   the same bfloat16 inputs (bfloat16 outputs within 1 bf16 ulp, float32
+   outputs within KERNEL_TOL), ``sparse_tp``'s against its plain version
+   (JAX's bfloat16 rounding op by op), each timed beside its float32 form;
+   (c) ``MODEL_MD_STEPS`` MD steps and one calculator call on the default
+   route against the same on the bfloat16 ``einsum``.
 
-``--phase N`` (8, 9, 10 or 11) runs phases 0 and 1, builds the flagship's
+``--phase N`` (8, 9, 10, 11 or 12) runs phases 0 and 1, builds the flagship's
 models on the crystal as a whole run does, runs phase N (8 with 8e) with a
 fresh ``RandomState(SEED)``, prints the ptxas lines of its bf16 forms and
-its rows of the kernels line (8, 11) or its launches (10), then ``[done]``;
+its rows of the kernels line (8, 11, 12) or its launches (10), then ``[done]``;
 no ``ok`` line, since the other phases did not run.
 
 The run prints its total seconds (``[done]``). The last two lines of stdout
@@ -357,6 +372,10 @@ import torch
 N_ATOMS = 4096
 R_MAX = 4.0
 LONG_R_MAX = 7.0  # phase 2's long segments: ~134 edges per atom
+# phase 2's long segments on a smaller crystal: an atom's segment is as long
+# (the same r_max and spacing), the kernels' tiles and chunks meet it as on
+# the 4,096 atoms, in a quarter of the time (the run's time limit)
+LONG_ATOMS = 1000
 EMPTY_ATOM = 7  # phase 5a: the atom whose edges check_scatter_shapes removes
 WIDE_ATOMS = 512  # phase 5a: the atoms whose edges unweight_sh's wide-U checks take
 SHAPE_ROWS = 4  # phase 5a's shape checks: the edges of a quarter of the batch's atoms
@@ -982,8 +1001,8 @@ def _flat_out(res):
 
 
 def check_long_segments(model, rng, dev):
-    """Phase 2: the mega kernels (checks only) on the crystal at r_max
-    LONG_R_MAX, where an atom has ~134 edges: its segment spans three of
+    """Phase 2: the mega kernels (checks only) on the crystal of LONG_ATOMS
+    atoms at r_max LONG_R_MAX, where an atom has ~134 edges: its segment spans three of
     ``latent_env_scatter``'s 64-edge tiles; ``env_scatter``, ``tp_scatter``
     (both orders), ``unweight_sh``, ``bwd_fused`` (with and without ``gts``)
     and ``unweight_w`` at the flagship's layer-0 dims there, where each of
@@ -995,7 +1014,7 @@ def check_long_segments(model, rng, dev):
     from allegro_tpu_torch.nn.contract import Contracter
     from allegro_tpu_torch.ops import fused_tp
 
-    frame, n_atoms = crystal_frame(N_ATOMS, LONG_R_MAX, SEED)
+    frame, n_atoms = crystal_frame(LONG_ATOMS, LONG_R_MAX, SEED)
     data = to_torch(model.precompute_statics(batch_frames([frame], n_frames=1)),
                     dtype=torch.float32, device=dev)
     degree = torch.diff(data[keys.CENTER_ROW_PTR][: n_atoms + 1])
@@ -2551,7 +2570,7 @@ def time_force_call(model, data, n_atoms, reps=10):
     return (time.perf_counter() - t0) / reps / n_atoms * 1e6
 
 
-ONE_PHASE = ("8", "9", "10", "11")  # the phases ``--phase`` runs alone
+ONE_PHASE = ("8", "9", "10", "11", "12")  # the phases ``--phase`` runs alone
 
 
 def main(argv=None) -> int:
@@ -2784,6 +2803,10 @@ def main(argv=None) -> int:
     # phase 11: the bf16 tensor track off the mega route
     track_rows = track_phase(fused, batch_np, data, n_atoms, n_edges, loaders, rng, dev, smi)
 
+    stamp("12")
+    # phase 12: a bfloat16 model on the serving routes
+    model_rows = model_phase(fused, batch_np, frame, data, n_atoms, n_edges, rng, dev, smi)
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(f"launch floor {floor_ms:.4f} ms (an empty kernel under median_ms, phase 2)")
@@ -2792,14 +2815,14 @@ def main(argv=None) -> int:
                 lmax3_calculator=l3_calc, ptxas=usage, pt2=pt2_launches, parallel=parallel)
     print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
                                   for row in TPU_KERNELS]
-                      + bf16_rows + track_rows}))
+                      + bf16_rows + track_rows + model_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
 def one_phase(phase, dev, smi, usage, stamp, tutorial_dir):
-    """``--phase``: phase 8 (with 8e), 9, 10 or 11 alone on the flagship's
+    """``--phase``: phase 8 (with 8e), 9, 10, 11 or 12 alone on the flagship's
     models and the 4,096-atom crystal, as ``main`` builds them."""
     from allegro_tpu_torch.data import batch_frames, keys, to_torch
     from allegro_tpu_torch.model import AllegroModel
@@ -2827,10 +2850,13 @@ def one_phase(phase, dev, smi, usage, stamp, tutorial_dir):
         for run, counts in parallel_phase(mega, dev, smi, stamp).items():
             print(f"launches {run}: {sum(counts.values())} ({counts})")
         return
-    else:
+    elif phase == "11":
         rows = track_phase(fused, batch_np, data, n_atoms, n_edges, train_loaders(), rng, dev,
                            smi)
         forms = TRACK_KERNELS
+    else:
+        rows = model_phase(fused, batch_np, frame, data, n_atoms, n_edges, rng, dev, smi)
+        forms = MODEL_FORMS
     for _, name in forms:
         print(f"    ptxas {name}: {kernel_ptxas(name, usage)}")
     print(json.dumps(rows))
@@ -2868,7 +2894,7 @@ def kernel_ptxas(name, usage):
     ``<float4>``, ``<bf16>``: the instantiations of its bool, int, vector-
     and storage-type template parameters)."""
     out = []
-    forms = "partial|narrow|segments|rows|chunks|partials"
+    forms = "partial|narrow|segments|rows|chunks|partials|bf16"
     for mangled, (regs, stores, loads) in usage.items():
         m = re.search(rf"\d({re.escape(name)}(?:_(?:{forms}))?_kernel)"
                       r"(I((?:L[bi]\d+E|f|6float4|13__nv_bfloat16|S\d*_)+)E)?", mangled)
@@ -3032,15 +3058,19 @@ def bf16_gate(got, ref, slack=None):
 
 
 def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops, slack=None,
-                    timed=True, tells_apart=False):
+                    timed=True, tells_apart=False, exact=None, library=None):
     """One bf16 form against its plain version on the same bf16 inputs
     (``bf16_gate``). Prints the share of outputs that are not the same
     bits, and, where ``timed``, the median device times of the form, its
     plain version and the float32 form (``f32_form``) on the same values,
     beside the bound (the track's elements at 2 B). ``tells_apart``: the
     float32 form's outputs (the same dtypes, unrounded) must fail the same
-    gate, so the gate is shown to see the rounding."""
-    got, ref = kernel(), plain()
+    gate, so the gate is shown to see the rounding. ``exact``: the plain
+    version in float64, which the form is then held to, its outputs rounded
+    once to the form's dtypes (``plain`` is only timed). ``library``: one
+    PyTorch call computing the same function, timed beside them."""
+    got = kernel()
+    ref = tuple(r.to(g.dtype) for r, g in zip((exact or plain)(), got))
     ok, worst_ulps, rel, abs_err, differ, total, differ16, total16 = bf16_gate(got, ref, slack)
     share, share16 = differ / max(total, 1), differ16 / max(total16, 1)
     print(f"  {label} {name + '[bf16]':22s} max_abs_err {abs_err:.3e}, bf16 outputs within "
@@ -3080,6 +3110,10 @@ def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops,
     rec["outputs"] += total
     rec["differ16"] += differ16
     rec["outputs16"] += total16
+    if library is not None:
+        lib_ms = median_ms(library)
+        rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+        print(f"  library {lib_ms:.4f} ms")
 
 
 def same_bits(rec):
@@ -3294,7 +3328,9 @@ def run_100k(dev, smi):
         # bwd_fused and bwd_embed read their cotangents; 7 and 8 round the
         # env weights), and none does in f32
         bf16 = launches[name + " bf16"]
-        want = {k: launches[name][k] if policy.get("tensor_dtype") else 0 for k in bf16}
+        track = {k for _, k in BF16_KERNELS}
+        want = {k: launches[name][k] if policy.get("tensor_dtype") and k in track else 0
+                for k in bf16}
         if bf16 != want:
             raise AssertionError(f"{name}: bf16 form launches {bf16}, expected {want}")
         for k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL):
@@ -3702,6 +3738,502 @@ def track_record(n, name, records, call, step):
             "ms_config": "bf16 form at the flagship shapes (4,096 atoms), one launch",
             "launches_config": "phase 11b's use_mega=False call of the 100k policy (4,096 "
                                "atoms) and one bf16 training step on the 1k batch (11c)"}
+
+
+# phase 12: a bfloat16 model (model_dtype="bfloat16", ROADMAP item 6) on the
+# serving routes. Its per-edge operands that JAX stores in bfloat16 (sh, the
+# embeddings, the scalar pieces, features, env weights) take the kernels'
+# bf16-operand forms, widened as they are staged; its MLP and path weights
+# are widened once per call (exact), and sparse_tp rounds every op to
+# bfloat16 as JAX's pallas kernel does
+MODEL_FORMS = [(1, "env_scatter"), (2, "gather_tp"), (3, "bwd_fused"), (4, "unweight_both"),
+               (5, "center_gather"), (6, "center_sum"), (7, "latent_env_scatter"),
+               (8, "latent_env_bwd"), (9, "gather_tp_embed"), (10, "bwd_embed"),
+               (11, "readout_sum"), (12, "readout_bwd"), (20, "sparse_tp")]
+# each route's launches per force call of the bfloat16 flagship on float32
+# positions (the entry points' default, JAX's too), and of them the
+# bf16-operand forms' (fused_tp.BF16_LAUNCHES). The position gathers and the
+# force sums read float32 on every route, and mega's readout float32 pieces
+# (the latent kernels' lat_s, as in JAX): those take the float32 forms.
+# pallas sums its env rows and edge energies in bfloat16 (center_sum and
+# center_gather, forward and transposed) and runs every sparse_tp on
+# bfloat16 operands
+MODEL_ROUTES = {
+    "mega": (dict(tp_kernel_backend="fused_infer"), PER_CALL["mega"],
+             {"latent_env_scatter": 2, "latent_env_bwd": 2, "gather_tp_embed": 1, "bwd_embed": 1,
+              "gather_tp": 1, "bwd_fused": 1}),
+    "use_mega=False": (dict(tp_kernel_backend="fused_infer", use_mega=False),
+                       PER_CALL["fused readout"],
+                       {"env_scatter": 2, "gather_tp": 2, "bwd_fused": 2, "unweight_both": 2,
+                        "readout_sum": 1, "readout_bwd": 1}),
+    "pallas": (dict(tp_kernel_backend="pallas"), per_call("pallas"),
+               {"center_gather": 5, "center_sum": 5, "sparse_tp": 6}),
+    "einsum": (dict(tp_kernel_backend="einsum"), {}, {}),
+}
+MODEL_KERNEL_ROUTES = {"mega": "mega", "use_mega=False": "fused_call", "pallas": "pallas",
+                       "einsum": "einsum"}
+# a route of the bfloat16 model against the port's bfloat16 einsum on the
+# card: forces max |dF| / max |F|, per-atom energies max |dE_i| / sum |E_i|.
+# bfloat16 storage moves forces by ~1.5e-2 of max |F| whatever the route:
+# on the CPU (tests/test_torch_model_dtype_bf16.py) JAX's own backends differ
+# by up to 1.82e-2 on float32 data, and the port's routes lie within that of
+# JAX's same backend; here ~3x that, for the 4,096 atoms' larger maximum
+MODEL_F_TOL = 5e-2
+MODEL_E_TOL = 1e-3
+MODEL_MD_STEPS = 20
+
+
+def check_model_forms(mega, fused, pallas, data, rng, records):
+    """Phase 12a: each bf16-operand form of a bfloat16 model at the
+    flagship's 4,096-atom shapes, against its plain version in float64 on
+    the same bfloat16 inputs (``check_bf16_case``'s gate: bfloat16 outputs
+    within 1 bf16 ulp, float32 outputs within KERNEL_TOL); sparse_tp's
+    against its plain version, JAX's bfloat16 rounding op by op (the same
+    bits). Each timed beside its float32 form on the same values widened."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp, pallas_contract
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    E, Er = centers.shape[0], int(data[keys.EDGE_MASK].sum())
+    real = data[keys.EDGE_MASK].to(f32)[:, None]
+    allegro = mega.module.allegro
+    tp0, tp1 = allegro.tps
+    S, U, d2, n_irr, d2i = allegro.S, allegro.U, tp0.d2, tp0.n_irr, tp0.dim_to_irr
+    ranges = tp0.irr_ranges
+
+    def rand(*shape, dtype=f32, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return (t * real if edge else t).to(dtype)
+
+    def f64(fn, *args):
+        """``fn`` on the float tensors of ``args`` widened to float64."""
+        return lambda: fn(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                            for a in args))
+
+    def wide(*ts):
+        return tuple(t.float() for t in ts)
+
+    def case(name, kernel, plain, exact, f32_form, what, reads, flops, library=None):
+        check_bf16_case(name, kernel, plain, f32_form, what, records, reads, flops, exact=exact,
+                        library=library)
+
+    label = f"U {U} E {E}"
+    # 1: env_scatter on layer 0's basis, sh and wexp bfloat16
+    sh, wexp, t = rand(E, d2, dtype=bf), rand(E, n_irr * U, dtype=bf), rand(n_atoms, d2 * U,
+                                                                             edge=False)
+    sh32, wexp32 = wide(sh, wexp)
+    env_flops = 2 * Er * d2 * U
+    case("env_scatter", lambda: (fused_tp.env_scatter(sh, wexp, centers, row_ptr, d2i, U),),
+         lambda: (fused_tp.env_scatter_reference(sh, wexp, centers, n_atoms, d2i, U),),
+         f64(lambda *a: (fused_tp.env_scatter_reference(*a, centers, n_atoms, d2i, U),), sh, wexp),
+         lambda: (fused_tp.env_scatter(sh32, wexp32, centers, row_ptr, d2i, U),),
+         f"{label} d2 {d2}", (sh, wexp, row_ptr, d2i), env_flops)
+    # 4: unweight_both, dsh float32 and dwexp bfloat16
+    case("unweight_both", lambda: fused_tp.unweight_both(t, sh, wexp, centers, d2i),
+         lambda: fused_tp.unweight_both_reference(t, sh, wexp, centers, d2i),
+         f64(lambda *a: fused_tp.unweight_both_reference(*a, centers, d2i, torch.float64),
+             t, sh, wexp),
+         lambda: fused_tp.unweight_both(t, sh32, wexp32, centers, d2i),
+         f"{label} d2 {d2}", (t, sh, wexp, centers, d2i), 2 * env_flops)
+    # 2 and 3 on layer 0's table (its split scalars, ts and gts bfloat16)
+    wk, idx, coef = (v.detach() for v in tp0.fused_infer_parts(bf))
+    wk = wk.float()
+    walk, swapped, scatter = tp0.infer_paths()
+    x, env = rand(E, tp0.d1 * U, dtype=bf), rand(n_atoms, tp0.d2 * U, edge=False)
+    g, gts = rand(E, tp0.d3 * U, dtype=bf), rand(E, U, dtype=bf)
+    x32, g32, gts32 = wide(x, g, gts)
+    what = f"{label} dims ({tp0.d1},{tp0.d2},{tp0.d3}) entries {idx.shape[0]}"
+    tp_flops = 3 * Er * idx.shape[0] * U
+    case("gather_tp",
+         lambda: fused_tp.gather_tp(x, env, wk, centers, idx, coef, tp0.d3, True, walk, bf),
+         lambda: fused_tp.gather_tp_reference(x, env, wk, centers, idx, coef, tp0.d3, True, bf),
+         f64(lambda *a: fused_tp.gather_tp_reference(*a, centers, idx, coef, tp0.d3, True,
+                                                     torch.float64), x, env, wk),
+         lambda: fused_tp.gather_tp(x32, env, wk, centers, idx, coef, tp0.d3, True, walk),
+         what + ", split, ts bf16", (x, env, wk, centers, *walk), tp_flops)
+    case("bwd_fused",
+         lambda: fused_tp.bwd_fused(x, g, env, wk, centers, row_ptr, idx, coef, gts,
+                                    paths=swapped, scatter_paths=scatter),
+         lambda: fused_tp.bwd_fused_reference(x, g, env, wk, centers, n_atoms, idx, coef, gts),
+         f64(lambda x_, g_, e_, w_, t_: fused_tp.bwd_fused_reference(
+             x_, g_, e_, w_, centers, n_atoms, idx, coef, t_), x, g, env, wk, gts),
+         lambda: fused_tp.bwd_fused(x32, g32, env, wk, centers, row_ptr, idx, coef, gts32,
+                                    paths=swapped, scatter_paths=scatter),
+         what + ", gts bf16", (x, g, gts, env, wk, row_ptr, *swapped, *scatter), 2 * tp_flops)
+    # 9 and 10: layer 0's embed-fused TP on bfloat16 factors
+    w2b = rand(E, n_irr * U, dtype=bf)
+    w2b32 = w2b.float()
+    paths = tp0.cg_paths()
+    specs = allegro.row_specs
+    what = f"{label} d1 {specs.shape[0]} d3 {tp0.d3}"
+    case("gather_tp_embed",
+         lambda: fused_tp.gather_tp_embed(sh, w2b, env, wk, centers, row_ptr, idx, coef, specs,
+                                          tp0.d3, True, paths),
+         lambda: fused_tp.gather_tp_embed_reference(sh, w2b, env, wk, centers, idx, coef, specs,
+                                                    tp0.d3, True),
+         f64(lambda *a: fused_tp.gather_tp_embed_reference(*a, centers, idx, coef, specs, tp0.d3,
+                                                           True), sh, w2b, env, wk),
+         lambda: fused_tp.gather_tp_embed(sh32, w2b32, env, wk, centers, row_ptr, idx, coef,
+                                          specs, tp0.d3, True, paths),
+         what + ", out and ts bf16", (sh, w2b, env, wk, row_ptr, *paths), tp_flops)
+    case("bwd_embed",
+         lambda: fused_tp.bwd_embed(sh, w2b, g, env, wk, centers, row_ptr, idx, coef, specs, gts,
+                                    paths),
+         lambda: fused_tp.bwd_embed_reference(sh, w2b, g, env, wk, centers, n_atoms, idx, coef,
+                                              specs, gts),
+         f64(lambda s_, w_, g_, e_, k_, t_: fused_tp.bwd_embed_reference(
+             s_, w_, g_, e_, k_, centers, n_atoms, idx, coef, specs, t_),
+             sh, w2b, g, env, wk, gts),
+         lambda: fused_tp.bwd_embed(sh32, w2b32, g32, env, wk, centers, row_ptr, idx, coef,
+                                    specs, gts32, paths),
+         what + ", g and gts bf16", (sh, w2b, g, gts, env, wk, row_ptr, *paths), 2 * tp_flops)
+    # 7 and 8: the first projection (a bfloat16 embedding) and layer 0's
+    # latent (float32 scalars beside bfloat16 tensor scalars), sh bfloat16
+    (w_proj,) = (w.detach().float() for w in allegro.first_projection.weights())
+    w0, w1 = (w.detach().float() for w in allegro.latents[0].weights())
+    emb = rand(E, allegro.embed_dim, dtype=bf)
+    lat, ts = rand(E, S), rand(E, U, dtype=bf)
+    g_lat = rand(E, S)
+    for tag, pieces, a, b in (("first projection", (emb,), w_proj, None),
+                              ("layer-0 latent", (lat, ts), w0, w1)):
+        p32 = wide(*pieces)
+        K, N = a.shape[0], (a if b is None else b).shape[1]
+        H = 0 if b is None else a.shape[1]
+        what = f"{label} pieces {[tuple(p.shape[1:]) for p in pieces]} K {K} H {H} N {N}"
+        mlp = 2 * Er * (K * N if b is None else K * H + H * N)
+        case("latent_env_scatter",
+             lambda: fused_tp.latent_env_scatter(pieces, sh, a, b, centers, row_ptr, d2i, U, S,
+                                                 ranges),
+             lambda: fused_tp.latent_env_scatter_reference(pieces, sh, a, b, row_ptr, d2i, U, S),
+             lambda: fused_tp.latent_env_scatter_reference(
+                 tuple(p.double() for p in pieces), sh.double(), a.double(),
+                 None if b is None else b.double(), row_ptr, d2i, U, S),
+             lambda: fused_tp.latent_env_scatter(p32, sh32, a, b, centers, row_ptr, d2i, U, S,
+                                                 ranges),
+             f"{what} ({tag})", (*pieces, sh, a, *([] if b is None else [b]), row_ptr),
+             mlp + env_flops)
+        case("latent_env_bwd",
+             lambda: _flat(fused_tp.latent_env_bwd(pieces, sh, a, b, t, g_lat, centers, d2i, U,
+                                                   S, ranges)),
+             lambda: _flat(fused_tp.latent_env_bwd_reference(pieces, sh, a, b, t, g_lat, centers,
+                                                             d2i, U, S)),
+             lambda: _flat(fused_tp.latent_env_bwd_reference(
+                 tuple(p.double() for p in pieces), sh.double(), a.double(),
+                 None if b is None else b.double(), t.double(), g_lat.double(), centers, d2i,
+                 U, S)),
+             lambda: _flat(fused_tp.latent_env_bwd(p32, sh32, a, b, t, g_lat, centers, d2i, U,
+                                                   S, ranges)),
+             f"{what} ({tag})", (*pieces, sh, a, *([] if b is None else [b]), t, g_lat, centers),
+             3 * mlp + 2 * env_flops)
+    # 11 and 12: use_mega=False's readout on bfloat16 pieces (column slices
+    # of the latent MLPs' outputs)
+    ro = fused.module.edge_readout.mlp
+    r0, r1 = (w.detach().float() for w in ro.weights())
+    K, H = r0.shape
+    wide_rows = [rand(E, S + 96, dtype=bf), rand(E, S + 96, dtype=bf), rand(E, S, dtype=bf)]
+    pieces = [w[:, :S] for w in wide_rows]
+    p32 = [p.float() for p in pieces]
+    y = rand(n_atoms, 1, edge=False)
+    what = f"pieces 3 x [{E}, {S}] bf16, W0 [{K}, {H}]"
+    case("readout_sum", lambda: (fused_tp.readout_sum(pieces, r0, r1, row_ptr),),
+         lambda: (fused_tp.readout_sum_reference(pieces, r0, r1, row_ptr),),
+         lambda: (fused_tp.readout_sum_reference([p.double() for p in pieces], r0.double(),
+                                                 r1.double(), row_ptr),),
+         lambda: (fused_tp.readout_sum(p32, r0, r1, row_ptr),),
+         what, (*pieces, r0, r1, row_ptr), 2 * Er * (K * H + H))
+    case("readout_bwd", lambda: fused_tp.readout_bwd(pieces, r0, r1, y, centers),
+         lambda: fused_tp.readout_bwd_reference(pieces, r0, r1, y, centers),
+         lambda: fused_tp.readout_bwd_reference([p.double() for p in pieces], r0.double(),
+                                                r1.double(), y.double(), centers),
+         lambda: fused_tp.readout_bwd(p32, r0, r1, y, centers),
+         what, (*pieces, r0, r1, y, centers), 2 * Er * (2 * K * H + H))
+    # 5 and 6 at pallas's widths: the env rows (d2 U) and the edge energies
+    # (1), and at the positions' (3), bfloat16
+    nbr_perm, nbr_ptr = data[keys.NBR_PERM], data[keys.NBR_ROW_PTR]
+    idx_l = centers.long()
+    for C in (d2 * U, 3, 1):
+        a = rand(n_atoms, C, dtype=bf, edge=False)
+        v = rand(E, C, dtype=bf)
+        a32, v32 = a.float(), v.float()
+        a_pad = torch.cat([a, a.new_zeros((1, C))])
+        acc = v.new_zeros((n_atoms + 1, C))
+        case("center_gather", lambda: (fused_tp.center_gather(a, centers),),
+             lambda: (fused_tp.center_gather_reference(a, centers),),
+             None, lambda: (fused_tp.center_gather(a32, centers),),
+             f"[{n_atoms}, {C}] -> [{E}, {C}] bf16", (a, centers), 0,
+             library=lambda: a_pad.index_select(0, idx_l))
+        case("center_sum", lambda: (fused_tp.center_sum(v, row_ptr),),
+             lambda: (fused_tp.center_sum_reference(v, row_ptr),),
+             f64(lambda v_: (fused_tp.center_sum_reference(v_, row_ptr),), v),
+             lambda: (fused_tp.center_sum(v32, row_ptr),),
+             f"[{E}, {C}] -> [{n_atoms}, {C}] bf16", (v, row_ptr), Er * C,
+             library=lambda: acc.index_add_(0, idx_l, v))
+    # the neighbor side's gather and sum (the positions' other CSR), checked
+    a = rand(n_atoms, 3, dtype=bf, edge=False)
+    v = rand(E, 3, dtype=bf)
+    nbrs = data[keys.EDGE_INDEX][1].to(torch.int32).contiguous()
+    check_bf16_case("center_gather", lambda: (fused_tp.center_gather(a, nbrs),),
+                    lambda: (fused_tp.center_gather_reference(a, nbrs),), None,
+                    f"[{n_atoms}, 3] -> [{E}, 3] bf16, neighbor side", records, (), 0,
+                    timed=False)
+    check_bf16_case("center_sum", lambda: (fused_tp.center_sum(v, nbr_ptr, nbr_perm),),
+                    lambda: (fused_tp.center_sum_reference(v, nbr_ptr, nbr_perm),), None,
+                    f"[{E}, 3] -> [{n_atoms}, 3] bf16, neighbor side", records, (), 0,
+                    timed=False,
+                    exact=f64(lambda v_: (fused_tp.center_sum_reference(v_, nbr_ptr, nbr_perm),),
+                              v))
+    # 20: sparse_tp on bfloat16 a, b and w, the layer tables of pallas's
+    # force call (orders 0 and the a- and b-swaps' of layer 0, order 0 of
+    # layer 1): the plain version is JAX's rounding, op by op
+    ptps = pallas.module.allegro.tps
+    for li, r in ((0, 0), (0, 5), (0, 1), (1, 0)):
+        st = ptps[li].tp_statics()
+        idx, coef = st.table(r)
+        dims = [st.dims[k] for k in pallas_contract.ROLES[r]]
+        av, bv = rand(E, dims[0] * U, dtype=bf), rand(E, dims[1] * U, dtype=bf)
+        wv = rand(st.n_paths, U, dtype=bf, edge=False)
+        a32, b32, w32 = wide(av, bv, wv)
+        walk_r = st.walk(r)
+        case("sparse_tp",
+             lambda: (pallas_contract.sparse_tp(av, bv, wv, idx, coef, dims[2], walk_r),),
+             lambda: (pallas_contract.sparse_tp_bf16_reference(av, bv, wv, idx, coef, dims[2]),),
+             None,
+             lambda: (pallas_contract.sparse_tp(a32, b32, w32, idx, coef, dims[2], walk_r),),
+             f"{label} layer {li} order {pallas_contract.ROLES[r]} dims {tuple(dims)} entries "
+             f"{idx.shape[0]}", (av, bv, wv, idx, coef), 4 * Er * idx.shape[0] * U)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """``torch.use_deterministic_algorithms`` where ``on``, restored after:
+    the ``einsum`` reference sums with ``index_add``, whose CUDA form adds
+    with atomics unless asked for its deterministic form."""
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    if on:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def model_force_calls(weights, batch_np, n_atoms, n_edges, dev, smi):
+    """Phase 12b: the bfloat16 flagship (``weights`` rounded to bfloat16) on
+    each route against the port's bfloat16 ``einsum`` on the card
+    (MODEL_F_TOL, MODEL_E_TOL) and against the float64 ``einsum`` oracle on
+    the same bfloat16 values: margins printed; output dtypes those of the
+    CPU's call on a small crystal; exact launches per call (MODEL_ROUTES),
+    the bf16-operand forms' among them; two calls the same bits (``einsum``
+    under ``deterministic_algorithms``); µs/atom. Returns each route's
+    launches per call, and the models."""
+    from allegro_tpu_torch.data import batch_frames, keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    avg_n = n_edges / n_atoms
+    kw = {**FLAGSHIP, "model_dtype": "bfloat16", "avg_num_neighbors": avg_n}
+    oracle = AllegroModel(**{**kw, "model_dtype": "float64"}, tp_kernel_backend="einsum").to(dev)
+    oracle.load_state_dict({k: v.to(torch.bfloat16).double() for k, v in weights.items()})
+    ref64 = oracle.apply_with_derivatives(
+        to_torch(oracle.precompute_statics(batch_np), dtype=torch.float64, device=dev))
+    del oracle
+    torch.cuda.empty_cache()
+    small_frame, small_n = crystal_frame(64, R_MAX, SEED)
+    small = batch_frames([small_frame], n_frames=1)
+
+    def metrics(out, ref):
+        f, f_ref = out[keys.FORCES][:n_atoms].double(), ref[keys.FORCES][:n_atoms].double()
+        e = out[keys.PER_ATOM_ENERGY][:n_atoms].double()
+        e_ref = ref[keys.PER_ATOM_ENERGY][:n_atoms].double()
+        d = (f - f_ref).abs()
+        return (d.max().item() / f_ref.abs().max().item(),
+                (d - REF_RTOL * f_ref.abs()).max().item(),
+                (e - e_ref).abs().max().item() / e_ref.abs().sum().item())
+
+    models, launches, ref_bf = {}, {}, None
+    for name in ("einsum", "mega", "use_mega=False", "pallas"):
+        extra, want, want_bf16 = MODEL_ROUTES[name]
+        model = AllegroModel(**kw, **extra).to(dev)
+        model.load_state_dict(weights)
+        routes = model.routes()
+        if routes["allegro"] != MODEL_KERNEL_ROUTES[name]:
+            raise AssertionError(f"bfloat16 model, {name}: routes {routes}")
+        data = to_torch(model.precompute_statics(batch_np), dtype=torch.float32, device=dev)
+        with deterministic_algorithms(name == "einsum"):
+            model.apply_with_derivatives(data)
+            torch.cuda.synchronize()
+            fused_tp.reset_launch_counts()
+            out = model.apply_with_derivatives(data)
+            torch.cuda.synchronize()
+            calls = {k: c for k, c in fused_tp.LAUNCHES.items() if c}
+            bf16 = {k: c for k, c in fused_tp.BF16_LAUNCHES.items() if c}
+            again = model.apply_with_derivatives(data)
+        if calls != {k: c for k, c in want.items() if c} or bf16 != want_bf16:
+            raise AssertionError(f"bfloat16 model, {name}: launches {calls}, of them bf16 forms "
+                                 f"{bf16}; expected {want}, bf16 {want_bf16}")
+        for k in (keys.TOTAL_ENERGY, keys.FORCES, keys.VIRIAL):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"bfloat16 model, {name}: non-finite {k}")
+        cpu = AllegroModel(**kw, **extra)
+        cpu.load_state_dict({k: v.cpu() for k, v in weights.items()})
+        cpu_out = cpu.apply_with_derivatives(to_torch(cpu.precompute_statics(small), torch.float32))
+        dtypes = {k: str(out[k].dtype) for k in (keys.TOTAL_ENERGY, keys.PER_ATOM_ENERGY,
+                                                 keys.FORCES)}
+        cpu_dtypes = {k: str(cpu_out[k].dtype) for k in dtypes}
+        if dtypes != cpu_dtypes:
+            raise AssertionError(f"bfloat16 model, {name}: dtypes {dtypes}, the CPU's "
+                                 f"{cpu_dtypes}")
+        if not bitwise_same(out, again):
+            raise AssertionError(f"bfloat16 model, {name}: two identical force calls differ")
+        us, us_f32 = time_force_call(model, data, n_atoms, reps=5), None
+        if name != "einsum":
+            # the float32 model on the same weights and data, in turns with
+            # the bfloat16 one: host clocks move between calls
+            f32 = AllegroModel(**{**kw, "model_dtype": "float32"}, **extra).to(dev)
+            f32.load_state_dict({k: v.to(torch.bfloat16).float() for k, v in weights.items()})
+            turns = [time_force_call(m, data, n_atoms, reps=5) for m in (model, f32, f32, model)]
+            us, us_f32 = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            if name == "mega":
+                profile_calls(lambda: model.apply_with_derivatives(data), 3,
+                              "bfloat16 flagship, mega")
+                profile_calls(lambda: f32.apply_with_derivatives(data), 3,
+                              "the float32 flagship on the same weights, mega")
+            del f32
+        if ref_bf is None:
+            ref_bf = out
+        rel, margin, e_err = metrics(out, ref_bf)
+        rel64, margin64, e64 = metrics(out, ref64)
+        print(f"[12b] bfloat16 model, {name} (routes {routes}): launches per call {calls}, of "
+              f"them bf16 forms {bf16}; dtypes {dtypes} (the CPU's); two calls the same bits; "
+              f"vs the bf16 einsum: forces max|dF|/max|F| {rel:.3e} (< {MODEL_F_TOL}), "
+              f"reference allclose margin {margin:.3e} (atol = rtol = {REF_ATOL}), per-atom "
+              f"energies {e_err:.3e} of sum |E_i| (< {MODEL_E_TOL}); vs the float64 einsum "
+              f"oracle: {rel64:.3e}, margin {margin64:.3e}, energies {e64:.3e}; {us:.3f} "
+              f"us/atom" + ("" if us_f32 is None else
+                            f" (the float32 model's {us_f32:.3f}, in turns)")
+              + f" ({n_atoms} atoms; {smi})")
+        if not (rel <= MODEL_F_TOL and e_err <= MODEL_E_TOL and rel64 <= MODEL_F_TOL
+                and e64 <= MODEL_E_TOL):
+            raise AssertionError(f"bfloat16 model, {name}: beyond the tolerances")
+        launches[name] = bf16
+        models[name] = model
+        del data, out, again
+        torch.cuda.empty_cache()
+    return launches, models
+
+
+def model_entry_points(mega, einsum, frame, n_atoms, dev, smi):
+    """Phase 12c: MODEL_MD_STEPS MD steps (``md.Simulation``, float32, its
+    default) and one calculator call of the bfloat16 flagship on the default
+    route, exact launches per MD block, against the same on the bfloat16
+    ``einsum``: the positions' difference within MODEL_F_TOL of the largest
+    displacement, the calculator's forces within MODEL_F_TOL of max |F|."""
+    from allegro_tpu_torch.calculator import AllegroCalculator
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.md import MDState, Simulation, maxwell_boltzmann_velocities
+    from allegro_tpu_torch.ops import fused_tp
+
+    kw = dict(atom_types=frame[keys.ATOM_TYPES], cell=frame[keys.CELL], pbc=frame[keys.PBC],
+              device=dev, **MD)
+    _, per_call, per_call_bf16 = MODEL_ROUTES["mega"]
+    ends, times = {}, []
+    for name, model in (("mega", mega), ("einsum", einsum)):
+        sim = Simulation(model, **kw)
+        vel0 = maxwell_boltzmann_velocities(sim.masses_per_atom, MD_KT, seed=SEED)
+        state = MDState(frame[keys.POSITIONS], vel0)
+        for b in range(MODEL_MD_STEPS // MD_STEPS_PER_BLOCK):
+            fused_tp.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = sim.run(state, MD_STEPS_PER_BLOCK)
+            if name == "mega":
+                times.append(time.perf_counter() - t0)
+                steps = MD_STEPS_PER_BLOCK + 1
+                want = {k: n * steps for k, n in per_call.items() if n}
+                want_bf16 = {k: n * steps for k, n in per_call_bf16.items()}
+                got = {k: c for k, c in fused_tp.LAUNCHES.items() if c}
+                got_bf16 = {k: c for k, c in fused_tp.BF16_LAUNCHES.items() if c}
+                if got != want or got_bf16 != want_bf16:
+                    raise AssertionError(f"bfloat16 MD block {b}: launches {got}, bf16 "
+                                         f"{got_bf16}; expected {want}, bf16 {want_bf16}")
+        if not np.isfinite(state.positions).all():
+            raise AssertionError(f"bfloat16 MD on {name}: non-finite positions")
+        ends[name] = state.positions
+    cell = np.asarray(frame[keys.CELL], dtype=np.float64).reshape(3, 3)
+
+    def minimum_image(d):
+        """Displacements wrapped to the periodic cell's nearest image."""
+        frac = d @ np.linalg.inv(cell)
+        return (frac - np.round(frac)) @ cell
+
+    moved = float(np.abs(minimum_image(ends["einsum"] - frame[keys.POSITIONS])).max())
+    dpos = float(np.abs(minimum_image(ends["mega"] - ends["einsum"])).max())
+    print(f"[12c] bfloat16 model, {MODEL_MD_STEPS} MD steps on mega (float32 positions): max "
+          f"|dpos| vs the bf16 einsum's MD {dpos:.3e} A, {dpos / moved:.3e} of the largest "
+          f"displacement {moved:.3e} A (< {MODEL_F_TOL}); "
+          f"{1e3 * float(np.median(times)) / MD_STEPS_PER_BLOCK:.3f} ms/step ({smi})")
+    if not dpos <= MODEL_F_TOL * moved:
+        raise AssertionError(f"bfloat16 MD: positions {dpos:.3e} from einsum's")
+    res = {}
+    for name, model in (("mega", mega), ("einsum", einsum)):
+        calc = AllegroCalculator(model, device=dev)
+        fused_tp.reset_launch_counts()
+        res[name] = calc.calculate(frame[keys.POSITIONS], atom_types=frame[keys.ATOM_TYPES],
+                                   cell=frame[keys.CELL], pbc=frame[keys.PBC])
+        if name == "mega" and {k: c for k, c in fused_tp.BF16_LAUNCHES.items() if c} \
+                != per_call_bf16:
+            raise AssertionError(f"bfloat16 calculator call: bf16 launches "
+                                 f"{fused_tp.BF16_LAUNCHES}")
+    f, f_ref = res["mega"]["forces"], res["einsum"]["forces"]
+    rel = float(np.abs(f - f_ref).max() / np.abs(f_ref).max())
+    e_err = float(np.abs(res["mega"]["energies"] - res["einsum"]["energies"]).max()
+                  / np.abs(res["einsum"]["energies"]).sum())
+    print(f"    calculator call on mega: energy {res['mega']['energy']:.6f} (einsum "
+          f"{res['einsum']['energy']:.6f}), forces {res['mega']['forces'].dtype} max|dF|/max|F| "
+          f"{rel:.3e} (< {MODEL_F_TOL}), per-atom energies {e_err:.3e} of sum |E_i| "
+          f"(< {MODEL_E_TOL})")
+    if not (np.isfinite(f).all() and rel <= MODEL_F_TOL and e_err <= MODEL_E_TOL):
+        raise AssertionError("bfloat16 calculator call beyond the tolerances")
+
+
+def model_phase(fused, batch_np, frame, data, n_atoms, n_edges, rng, dev, smi):
+    """Phase 12 (12a ``check_model_forms``, 12b ``model_force_calls``, 12c
+    ``model_entry_points``) on the flagship's weights from seed 0 (``fused``'s)
+    rounded to bfloat16. Returns the kernels line's rows of its forms."""
+    weights = {k: v.detach() for k, v in fused.state_dict().items()}
+    launches, models = model_force_calls(weights, batch_np, n_atoms, n_edges, dev, smi)
+    records = {}
+    print("[12a] the bf16-operand forms of kernels 1-12 and 20 (a bfloat16 model) at the "
+          "flagship shapes")
+    check_model_forms(models["mega"], models["use_mega=False"], models["pallas"], data, rng,
+                      records)
+    model_entry_points(models["mega"], models["einsum"], frame, n_atoms, dev, smi)
+    return [model_record(n, name, records, launches) for n, name in MODEL_FORMS]
+
+
+def model_record(n, name, records, launches):
+    """The kernels line's row of kernel ``n``'s bf16-operand form
+    (``name[bf16 model]``): its times at the flagship shapes (12a) and its
+    launches in one force call on each route (12b)."""
+    rec = records[name]
+    bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
+    replaces = next(r for k, _, r in TPU_KERNELS if k == n)
+    per_route = {route: calls.get(name, 0) for route, calls in launches.items()}
+    return {"name": f"{name}[bf16 model]", "route": "cuda", "source": SOURCES[name],
+            "replaces": replaces, "tpu_kernel": n, "launches": sum(per_route.values()),
+            "launches_per_route": per_route,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": rec["library_ms"],
+            "ms_f32_form": rec["ms_f32"], "max_ulps": rec["ulps"],
+            **same_bits(rec),
+            "ms_config": "bf16-operand form at the flagship shapes (4,096 atoms), each timed "
+                         "case of phase 12a summed",
+            "launches_config": "one force call of the bfloat16 flagship on each route (4,096 "
+                               "atoms, phase 12b)"}
 
 
 def check_force_call(out, ref, n_atoms, n_rows):

@@ -344,7 +344,7 @@ def test_combinations_without_a_cuda_form_raise(case, monkeypatch):
     U, c, rp, d2i, bf = s["U"], s["c"], s["row_ptr"], s["d2i"], BF
     calls = {
         "env_scatter sh bf16":
-            lambda: fused_tp.env_scatter(s["sh"].to(bf), s["wexp"].to(bf), c, rp, d2i, U),
+            lambda: fused_tp.env_scatter(s["sh"].to(bf), s["wexp"], c, rp, d2i, U),
         "env_scatter env-role f64":
             lambda: fused_tp.env_scatter(s["sh"].double(), s["wexp"].to(bf), c, rp, d2i, U),
         "unweight_both f32 wexp bf16 dwexp":

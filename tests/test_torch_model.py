@@ -157,12 +157,14 @@ def test_unsorted_edges_raise(frames, avg_n):
 
 
 @pytest.mark.parametrize("override", [
-    {"model_dtype": "bfloat16"},
-], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
+    {"model_dtype": "bfloat16", "tp_kernel_backend": "fused"},
+], ids=["model_dtype=bfloat16"])
 def test_unported_options_raise(override, avg_n):
-    """What of ROADMAP item 6 is left raises, naming it: a bfloat16 model."""
+    """What of a bfloat16 model is left raises, naming its ROADMAP item
+    (14): the trainable ``fused`` backend (the force call's four routes run
+    it, ``tests/test_torch_model_dtype_bf16.py``)."""
     kw = {**_model_kwargs(avg_n, "float32"), **override}
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
         AllegroModel(**kw)
 
 
