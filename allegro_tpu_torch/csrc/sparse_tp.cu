@@ -941,6 +941,110 @@ __global__ void __launch_bounds__(kBf16TpThreads) sparse_tp_bf16_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// sparse_tp_gradw, the bfloat16 form (a bfloat16 model's `pallas` training)
+// Replaces allegro_tpu/ops/pallas_contract.py:_gradw_kernel (_run_gradw) on
+// bfloat16 operands, and the fold of its lane-tiled [P, 128] output into
+// [P, U] (the transpose of PallasTPBackend.tile_weights' jnp.tile). JAX sums
+// on its packed layout: lane l = q*U + u of row r is channel u of edge
+// r*Q + q (Q = 128 / U), and its grid steps are blocks of 64 rows. The
+// semantics, established on JAX's CPU output (ops/pallas_contract.py:
+// sparse_tp_gradw_bf16_reference): per block and lane, in the table's entry
+// order, s = sum over the 64 rows of bf16(a[i] b[j]) * g[k] in float (each
+// product exact, the rows in order), rounded; c s with c rounded to bf16,
+// rounded; the path's running sum, rounded; then the blocks' sums added in
+// block order and a channel's Q lanes in lane order, each add rounded. So
+// this form sums the edges in JAX's groups, not in the float form's.
+// Bound: one read each of a, b and g, as the float form's. Design: a warp
+// per (block, 32 of its lanes), a thread per lane. Per row, the thread's a,
+// b and g columns go into its shared-memory columns, widened (stride 32:
+// no bank conflicts); each entry's float row sum is a shared-memory column
+// too, so every input element is read once per chunk of kGradwBf16Chunk
+// entries (one chunk at the flagship's l_max 2 layers when they have at
+// most that many entries; more chunks read the rows again). After the rows,
+// the chunk's sums are rounded into the paths' running sums (a shared
+// column per path, started at -0.0, which adds exactly), and the block
+// writes its partial [P][128]; a second launch, a thread per (p, u), adds
+// the blocks and folds the lanes. Rows past the last edge add zeros, as
+// JAX's padding does. The simple form: speed is later work.
+// ---------------------------------------------------------------------------
+constexpr int kGradwBf16Chunk = 64;  // entries whose row sums are kept at once
+constexpr int kGradwLanes = 128;     // JAX's lanes
+constexpr int kGradwRows = 64;       // rows of one of JAX's blocks
+
+__global__ void __launch_bounds__(kWarp) sparse_tp_gradw_bf16_kernel(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+    const __nv_bfloat16* __restrict__ g, const int* __restrict__ eidx,
+    const float* __restrict__ ecoef, int n_entries, long long n_edges, int d1, int d2, int d3,
+    int U, int P, float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  int4* s_idx = reinterpret_cast<int4*>(smem);                    // [kGradwBf16Chunk]
+  float* s_c = reinterpret_cast<float*>(s_idx + kGradwBf16Chunk);  // [kGradwBf16Chunk]
+  float* s_sum = s_c + kGradwBf16Chunk;                            // [kGradwBf16Chunk][32]
+  float* s_acc = s_sum + kGradwBf16Chunk * kWarp;                  // [P][32]
+  float* s_col = s_acc + P * kWarp;                                // [d1 + d2 + d3][32]
+  const int per_block = kGradwLanes / kWarp;
+  const long long blk = blockIdx.x / per_block;
+  const int lane = (int)(blockIdx.x - blk * per_block) * kWarp + tid;
+  const int Q = kGradwLanes / U, q = lane / U, u = lane - q * U;
+  float* ca = s_col + tid;
+  float* cb = ca + d1 * kWarp;
+  float* cg = cb + d2 * kWarp;
+  for (int p = 0; p < P; ++p) s_acc[p * kWarp + tid] = -0.f;
+  for (int n0 = 0; n0 < n_entries; n0 += kGradwBf16Chunk) {
+    const int nc = min(kGradwBf16Chunk, n_entries - n0);
+    __syncthreads();  // the last chunk's entries are read
+    for (int m = tid; m < nc; m += kWarp) {
+      const int n = n0 + m;
+      s_idx[m] = make_int4(eidx[4 * n], eidx[4 * n + 1], eidx[4 * n + 2], eidx[4 * n + 3]);
+      s_c[m] = bf16_round(ecoef[n]);
+    }
+    for (int m = 0; m < nc; ++m) s_sum[m * kWarp + tid] = 0.f;
+    __syncthreads();
+    for (int r = 0; r < kGradwRows; ++r) {
+      const long long e = (blk * kGradwRows + r) * Q + q;
+      const bool real = e < n_edges;
+      for (int i = 0; i < d1; ++i)
+        ca[i * kWarp] = real ? load_f(a + (e * d1 + i) * U + u) : 0.f;
+      for (int j = 0; j < d2; ++j)
+        cb[j * kWarp] = real ? load_f(b + (e * d2 + j) * U + u) : 0.f;
+      for (int k = 0; k < d3; ++k)
+        cg[k * kWarp] = real ? load_f(g + (e * d3 + k) * U + u) : 0.f;
+      for (int m = 0; m < nc; ++m) {
+        const int4 x = s_idx[m];
+        s_sum[m * kWarp + tid] += bf16_round(ca[x.x * kWarp] * cb[x.y * kWarp]) * cg[x.z * kWarp];
+      }
+    }
+    for (int m = 0; m < nc; ++m) {
+      const float con = bf16_round(s_c[m] * bf16_round(s_sum[m * kWarp + tid]));
+      float* acc = s_acc + s_idx[m].w * kWarp + tid;
+      *acc = bf16_round(*acc + con);
+    }
+  }
+  for (int p = 0; p < P; ++p)
+    partial[(blk * P + p) * kGradwLanes + lane] = s_acc[p * kWarp + tid];
+}
+
+// gw[p, u]: the blocks' partials of each lane (q, u) added in block order,
+// then the Q lanes in lane order, each add rounded to bf16 (JAX's bf16
+// output accumulated over its grid, then the fold of the lane tiling).
+__global__ void sparse_tp_gradw_bf16_fold_kernel(const float* __restrict__ partial,
+                                                 long long n_blocks, int U, int P,
+                                                 __nv_bfloat16* __restrict__ gw) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= P * U) return;
+  const int p = t / U, u = t - p * U, Q = kGradwLanes / U;
+  float s = 0.f;
+  for (int q = 0; q < Q; ++q) {
+    float ow = 0.f;
+    for (long long b = 0; b < n_blocks; ++b)
+      ow = bf16_round(ow + partial[(b * P + p) * kGradwLanes + q * U + u]);
+    s = bf16_round(s + ow);
+  }
+  gw[t] = __float2bfloat16_rn(s);
+}
+
 extern "C" {
 
 // The bfloat16 form: a, b, w and out __nv_bfloat16; eidx [n_entries, 4],
@@ -960,6 +1064,35 @@ int atpt_sparse_tp_bf16(const void* a, const void* b, const void* w, const int* 
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
       static_cast<const __nv_bfloat16*>(w), eidx, ecoef, n_entries, n_edges, d1, d2, d3, U,
       static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 form: a, b and g __nv_bfloat16, gw [P, U] __nv_bfloat16;
+// eidx [n_entries, 4], ecoef [n_entries]: the table itself, in its (sorted)
+// entry order; partial: scratch [n_blocks, P, 128], n_blocks JAX's 64-row
+// blocks of the E edges at 128 / U a row (U must divide 128).
+int atpt_sparse_tp_gradw_bf16(const void* a, const void* b, const void* g, const int* eidx,
+                              const float* ecoef, int n_entries, long long n_edges, int d1,
+                              int d2, int d3, int U, int P, long long n_blocks, float* partial,
+                              void* gw, void* stream) {
+  if (d1 < 1 || d2 < 1 || d3 < 1 || d1 > kMaxTpDim || d2 > kMaxTpDim || d3 > kMaxTpDim ||
+      U < 1 || kGradwLanes % U || P < 1 || n_entries < 1 || n_edges < 0 || n_blocks < 1 ||
+      n_blocks * (kGradwLanes / kWarp) > 0x7fffffffLL ||
+      n_blocks * kGradwRows * (kGradwLanes / U) < n_edges)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kGradwBf16Chunk * (sizeof(int4) + sizeof(float)) +
+                      (size_t)(kGradwBf16Chunk + P + d1 + d2 + d3) * kWarp * sizeof(float);
+  cudaError_t err = prepare_smem(sparse_tp_gradw_bf16_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const auto s = (cudaStream_t)stream;
+  sparse_tp_gradw_bf16_kernel<<<(unsigned)(n_blocks * (kGradwLanes / kWarp)), kWarp, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(g), eidx, ecoef, n_entries, n_edges, d1, d2, d3, U, P,
+      partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sparse_tp_gradw_bf16_fold_kernel<<<(P * U + 127) / 128, 128, 0, s>>>(
+      partial, n_blocks, U, P, static_cast<__nv_bfloat16*>(gw));
   return (int)cudaGetLastError();
 }
 

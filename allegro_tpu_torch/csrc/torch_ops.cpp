@@ -88,7 +88,7 @@ int atpt_tp_scatter(const void* x, const void* g, const float* w, const int* row
 int atpt_unweight_sh(const float* t, const void* wexp, const int* centers, const int* dim_to_irr,
                      long long n_edges, int n_atoms, int d2, int n_irr, int U, float* dsh,
                      int bf16, void* stream);
-int atpt_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
+int atpt_unweight_w(const float* t, const void* sh, const int* centers, const int* dim_to_irr,
                     long long n_edges, int n_atoms, int d2, int n_irr, int U, void* dwexp,
                     int bf16, void* stream);
 int atpt_sparse_tp(const float* a, const float* b, const float* w, const int* desc,

@@ -36,8 +36,10 @@
 // float32 forms'; dwexp is rounded once, on store. t, env and dsh stay
 // float32, and so does sh, except in a bfloat16 model (model_dtype=
 // "bfloat16", JAX's param dtype): there env_scatter and unweight_both read
-// bf16 sh beside bf16 wexp, its rows widened as they are staged (the same
-// stage_rows), bit 1 of their bf16 flags.
+// bf16 sh beside bf16 wexp, and unweight_w (its training form, the wexp
+// cotangent of env_scatter's double backward) bf16 sh beside its bf16
+// dwexp, their rows widened as they are staged (the same stage_rows), bit 1
+// of their bf16 flags.
 //
 // Layout (the JAX package's contract): per-edge arrays are row-major with
 // the flat dim-major tensor track (column i*U+u is basis dim i, channel u);
@@ -294,9 +296,9 @@ __device__ __forceinline__ void tile_dwexp(const float* __restrict__ t, const fl
   }
 }
 
-template <int kVec, typename To>
+template <int kVec, typename To, typename Ts>
 __global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
-    const float* __restrict__ t, const float* __restrict__ sh, const int* __restrict__ centers,
+    const float* __restrict__ t, const Ts* __restrict__ sh, const int* __restrict__ centers,
     const int* __restrict__ dim_to_irr, long long n_edges, int n_atoms, int d2, int n_irr, int U,
     int tile, int n_stage, To* __restrict__ dwexp) {
   extern __shared__ unsigned char smem[];  // 16-byte aligned: the dynamic window's start
@@ -310,7 +312,7 @@ __global__ void __launch_bounds__(kShThreads) unweight_w_kernel(
   int c_lo, n_c;
   tile_centers(centers, e0, n_e, n_atoms, n_stage, &c_lo, &n_c);
   stage_range<kVec>(s_t, t + (long long)c_lo * trow, n_c * trow);
-  stage_range<1>(s_sh, sh + e0 * d2, n_e * d2);
+  stage_rows<1>(s_sh, sh + e0 * d2, n_e * d2);
   cp_async_commit();
   irrep_bounds(dim_to_irr, d2, s_first, s_end);
   cp_async_wait<0>();
@@ -527,8 +529,8 @@ int launch_unweight_sh(const float* t, const Tw* wexp, const int* centers, const
   return (int)cudaGetLastError();
 }
 
-template <typename To>
-int launch_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
+template <typename To, typename Ts = float>
+int launch_unweight_w(const float* t, const Ts* sh, const int* centers, const int* dim_to_irr,
                       long long n_edges, int n_atoms, int d2, int n_irr, int U, To* dwexp,
                       cudaStream_t stream) {
   // n_irr <= d2, and the kernel's float reciprocal is exact for its items
@@ -543,7 +545,7 @@ int launch_unweight_w(const float* t, const float* sh, const int* centers, const
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const bool vec = U % 4 == 0 && (uintptr_t)t % 16 == 0 &&
                    (!std::is_same_v<To, float> || (uintptr_t)dwexp % 16 == 0);
-  auto kernel = vec ? unweight_w_kernel<4, To> : unweight_w_kernel<1, To>;
+  auto kernel = vec ? unweight_w_kernel<4, To, Ts> : unweight_w_kernel<1, To, Ts>;
   const size_t smem = bytes(tile, n_stage);
   cudaError_t err = prepare_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -617,10 +619,17 @@ int atpt_unweight_sh(const float* t, const void* wexp, const int* centers,
 }
 
 // dim_to_irr [d2]: each irrep's dims one contiguous range, the irreps in order.
-// bf16: dwexp is __nv_bfloat16 (the env weights' storage), else float.
-int atpt_unweight_w(const float* t, const float* sh, const int* centers, const int* dim_to_irr,
+// bf16: bit 0, dwexp is __nv_bfloat16 (the env weights' storage), else
+// float; bit 1 (with bit 0), sh is __nv_bfloat16 too (a bfloat16 model's).
+int atpt_unweight_w(const float* t, const void* sh_, const int* centers, const int* dim_to_irr,
                     long long n_edges, int n_atoms, int d2, int n_irr, int U, void* dwexp,
                     int bf16, void* stream) {
+  const auto* sh = static_cast<const float*>(sh_);
+  if (bf16 & 2)
+    return (bf16 & 1) ? launch_unweight_w(t, static_cast<const bf16_t*>(sh_), centers,
+                                          dim_to_irr, n_edges, n_atoms, d2, n_irr, U,
+                                          static_cast<bf16_t*>(dwexp), (cudaStream_t)stream)
+                      : (int)cudaErrorInvalidValue;
   if (bf16)
     return launch_unweight_w(t, sh, centers, dim_to_irr, n_edges, n_atoms, d2, n_irr, U,
                              static_cast<bf16_t*>(dwexp), (cudaStream_t)stream);

@@ -29,9 +29,10 @@ policy. ``features_layout`` is accepted and ignored: the port's track is
 always flat dim-major.
 
 ``model_dtype="bfloat16"`` (JAX's: every parameter in bfloat16) serves on
-``fused_infer`` (on and off the mega path), ``pallas`` and ``einsum`` with
-JAX's rounding points and output dtypes; training it, its ``fused`` backend
-and its export raise (ROADMAP item 14).
+``fused_infer`` (on and off the mega path), ``pallas``, ``einsum`` and the
+trainable ``fused`` with JAX's rounding points and output dtypes, and
+trains on ``fused``, ``pallas`` and ``einsum``; its export raises (ROADMAP
+item 14).
 """
 
 from __future__ import annotations
@@ -575,10 +576,6 @@ def FullAllegroEnergyModel(
     if str(model_dtype) not in DTYPES:
         raise ValueError(f"model_dtype={model_dtype!r}: one of {sorted(DTYPES)}")
     dtype = DTYPES[str(model_dtype)]
-    if dtype == torch.bfloat16 and tp_kernel_backend == "fused":
-        # the trainable family's kernels (13-17, 21) take no bf16 parameters yet
-        raise _not_ported("tp_kernel_backend='fused' with model_dtype='bfloat16'",
-                          "queue 1, item 14")
     if tensor_dtype is not None and str(tensor_dtype) not in DTYPES:
         raise ValueError(f"tensor_dtype={tensor_dtype!r}: one of {sorted(DTYPES)} or None")
     track = None if tensor_dtype is None else DTYPES[str(tensor_dtype)]

@@ -88,6 +88,8 @@ _SIGNATURES = {
                        _i32, _vp, _vp],
     "atpt_sparse_tp_gradw": [_vp, _vp, _vp, _vp, _vp, _i32, _vp, _vp, _i64, _i32, _i32, _i32,
                              _i32, _i32, _i32, _vp, _vp, _vp],
+    "atpt_sparse_tp_gradw_bf16": [_vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32, _i32, _i32, _i32,
+                                  _i32, _i64, _vp, _vp, _vp],
 }
 # the launchers' shared-memory sizes (bytes, as long long) for given widths
 # and an opt-in limit: ops/smem_fit.py's rule is held to these on the card

@@ -50,6 +50,14 @@ back in x's dtype, dwexp in wexp's (``unweight_w``'s ``out_dtype``,
 ``unweight_both``'s bf16 store), and on the CPU a float64 model's float32
 kernel results are cast to the model dtype. On the card every such cast is
 the identity: the kernels store each output in its primal's dtype.
+
+A bfloat16 model (``model_dtype="bfloat16"``) on the trainable backend:
+sh, the features, the env weights and the path weights are bfloat16 (the
+kernels read the path weights widened, :func:`_wide`), env and the
+per-atom cotangents float32; each gradient comes back in its primal's
+dtype, the parameters' bfloat16 (``_ct``, as JAX's ``_cast_ct``), and
+autograd sums a parameter's contributions in it, as JAX does. The double
+backward launches only bf16 forms (``UnweightW`` reads bf16 sh).
 """
 
 from __future__ import annotations

@@ -80,7 +80,10 @@ ts and gts (``gather_tp``, ``bwd_fused``, the embeds); ``center_gather``
 and ``center_sum`` have bfloat16 forms (a copy; a float32 sum rounded
 once). The MLP and path weights come widened to float32, once per call
 (``fused_primitives._wide``). Outputs take JAX's dtypes: what JAX stores in
-bfloat16 is rounded once from the float32 sum, the rest float32.
+bfloat16 is rounded once from the float32 sum, the rest float32. Its
+training (the trainable backend's double backward) reaches 13-16 with the
+bf16 track's operands (features, cotangents and env weights bfloat16) and
+``unweight_w`` with bfloat16 sh beside its bfloat16 dwexp (``BF_SH``).
 """
 
 from __future__ import annotations
@@ -103,9 +106,9 @@ LAUNCHES: Dict[str, int] = {
     "sparse_tp": 0, "sparse_tp_gradw": 0,
 }
 # the launches of the bf16 forms (kernels 1-4, 7-10 and 14-17 on the bf16
-# track; kernels 1-12 and 20 on a bfloat16 model's bf16 operands), each
+# track; kernels 1-17, 20 and 21 on a bfloat16 model's bf16 operands), each
 # also counted in LAUNCHES under its kernel's name
-BF16_LAUNCHES: Dict[str, int] = {name: 0 for name in LAUNCHES if name != "sparse_tp_gradw"}
+BF16_LAUNCHES: Dict[str, int] = {name: 0 for name in LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -1365,7 +1368,8 @@ def unweight_w(t, sh, centers, dim_to_irr, n_irr: int,
     sh[e, j]``, the wexp-transpose of ``env_scatter``. t [n_atoms, d2*U],
     sh [E, d2]. ``out_dtype``: dwexp's storage, the env weights' (JAX's
     ``out_dtype``: the bf16 track's bfloat16, rounded once from the float32
-    sum); default the compute dtype.
+    sum); default the compute dtype. sh may be a bfloat16 model's (with a
+    bfloat16 dwexp: the env weights' cotangent in training).
 
     Replaces ``_gather_unweight_w_kernel``. Bound by the write of dwexp; a
     block per tile of 32 consecutive edges, the tile's sh rows and up to 4
@@ -1381,11 +1385,14 @@ def unweight_w(t, sh, centers, dim_to_irr, n_irr: int,
                          f"{tuple(dim_to_irr.shape)}")
     if _on_cpu(t, sh, centers, dim_to_irr):
         return unweight_w_reference(t, sh, centers, dim_to_irr, n_irr, out_dtype)
-    _check_kernel_args({"t": t, "sh": sh}, {"centers": centers, "dim_to_irr": dim_to_irr})
+    _check_kernel_args({"t": t}, {"centers": centers, "dim_to_irr": dim_to_irr})
     dwexp = torch.empty((E, n_irr * U), dtype=out_dtype or t.dtype, device=t.device)
-    bf16 = _check_kernel_args({}, {}, {"dwexp": dwexp})
+    flags = int(_check_kernel_args({}, {}, {"dwexp": dwexp})) | _bf16_operands(sh=(BF_SH, sh))
+    if flags == BF_SH:
+        raise TypeError("unweight_w: a bfloat16 sh takes a bfloat16 dwexp (a bfloat16 "
+                        "model's env weights), got float32")
     if E > 0:
         _launch("unweight_w", "atpt_unweight_w", t.device,
                 t.data_ptr(), sh.data_ptr(), centers.data_ptr(), dim_to_irr.data_ptr(), E,
-                t.shape[0], sh.shape[1], n_irr, U, dwexp.data_ptr(), int(bf16), bf16=bf16)
+                t.shape[0], sh.shape[1], n_irr, U, dwexp.data_ptr(), flags, bf16=bool(flags))
     return dwexp

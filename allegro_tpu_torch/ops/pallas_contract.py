@@ -23,6 +23,12 @@ kernel on permuted tables. The kernels walk that order's path table
 (``gen_cg_blocks.path_table(by_output=True)``, built once per layer by
 ``nn/contract.py:Contracter``): each path with l <= 3 is one compiled CG
 block of ``csrc/cg_blocks.h``, a path beyond it its entries one by one.
+
+A bfloat16 model's operands take bfloat16 forms with JAX's semantics:
+``sparse_tp`` rounds each op in the table's entry order
+(:func:`sparse_tp_bf16_reference`), ``sparse_tp_gradw`` sums the edges in
+the groups of JAX's packed layout and rounds where its kernel and the fold
+of its lane-tiled output do (:func:`sparse_tp_gradw_bf16_reference`).
 """
 
 from __future__ import annotations
@@ -112,6 +118,72 @@ def sparse_tp_bf16_reference(a, b, w, entry_idx, entry_coef, d3):
     return torch.stack([zero if v is None else v for v in acc], 1).reshape(E, d3 * U).to(a.dtype)
 
 
+# JAX's packed layout, which its bfloat16 weight gradient sums in: (edge,
+# channel) pairs on 128 lanes (lane q*U + u of row r is channel u of edge
+# r*Q + q, Q = 128 / U), blocks of 64 rows (``PallasTPBackend.block_rows``)
+GRADW_LANES, GRADW_BLOCK_ROWS = 128, 64
+
+
+def _gradw_layout(E: int, U: int) -> Tuple[int, int]:
+    """(Q, the edges on a row of JAX's packed layout; its blocks of 64 rows
+    over E edges, at least one); raises unless U divides the 128 lanes
+    (JAX's ``tile_weights`` asserts it too)."""
+    if U < 1 or GRADW_LANES % U:
+        raise ValueError(f"sparse_tp_gradw on bfloat16 operands: U={U} must divide "
+                         f"{GRADW_LANES} (JAX's lane tiling of the weights)")
+    Q = GRADW_LANES // U
+    rows = -(-E // Q)
+    return Q, max(1, -(-rows // GRADW_BLOCK_ROWS))
+
+
+def sparse_tp_gradw_bf16_reference(a, b, g, entry_idx, entry_coef, n_paths, U,
+                                   chunk: int = 32):
+    """The bfloat16 form's semantics, JAX's ``_gradw_kernel`` on bfloat16
+    operands and the fold of its lane-tiled [P, 128] output into [P, U]
+    (the transpose of ``tile_weights``' ``jnp.tile``), established on JAX's
+    CPU output. The edges are cut as JAX packs them (:data:`GRADW_LANES`,
+    :data:`GRADW_BLOCK_ROWS`): lane (q, u) of block b sums the edges
+    ``(64 b + r) Q + q``, r = 0..63. Per block, in the table's entry order:
+    ``t = a[i] b[j]`` rounded to bfloat16, ``s = Σ_r t g[k]`` in float32 (the
+    products exact, summed in row order; ``jnp.sum`` upcasts, and XLA forms
+    the product in float32) rounded to bfloat16, ``c s`` with c rounded to
+    bfloat16, and the path's running sum, each rounded to bfloat16; then the
+    blocks' sums are added in block order and the Q lanes of a channel in
+    lane order, each add rounded to bfloat16. gw is bfloat16. ``chunk``:
+    entries formed at once (memory only)."""
+    E, B = a.shape[0], GRADW_BLOCK_ROWS
+    Q, nb = _gradw_layout(E, U)
+
+    def lanes(t):  # [E, d*U] -> [nb, B, Q, d, U] float32, zero past the last edge
+        t = torch.cat([t.float(), t.new_zeros((nb * B * Q - E, t.shape[1]), dtype=torch.float32)])
+        return t.view(nb, B, Q, -1, U)
+
+    A, Bv, G = lanes(a), lanes(b), lanes(g)
+    idx = entry_idx.long().tolist()
+    coef = _bf16(entry_coef.float()).tolist()
+    acc = [None] * n_paths
+    for n0 in range(0, len(idx), chunk):
+        part = idx[n0:n0 + chunk]
+        i, j, k = (torch.tensor([e[c] for e in part], device=a.device) for c in range(3))
+        prod = _bf16(A[:, :, :, i] * Bv[:, :, :, j]) * G[:, :, :, k]  # [nb, B, Q, n, U]
+        s = torch.zeros_like(prod[:, 0])
+        for r in range(B):
+            s = s + prod[:, r]
+        s = _bf16(s)
+        for m, (_, _, _, p) in enumerate(part):
+            con = _bf16(coef[n0 + m] * s[:, :, m])
+            acc[p] = con if acc[p] is None else _bf16(acc[p] + con)
+    zero = a.new_zeros((nb, Q, U), dtype=torch.float32)
+    blocks = torch.stack([zero if v is None else v for v in acc], 1)  # [nb, P, Q, U]
+    ow = torch.zeros_like(blocks[0])
+    for blk in blocks.unbind(0):
+        ow = _bf16(ow + blk)
+    gw = torch.zeros_like(ow[:, 0])
+    for lane in ow.unbind(1):
+        gw = _bf16(gw + lane)
+    return gw.to(torch.bfloat16)
+
+
 def sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U):
     E = a.shape[0]
     d1, d2, d3 = a.shape[1] // U, b.shape[1] // U, g.shape[1] // U
@@ -197,7 +269,11 @@ def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int,
 
     Replaces ``_gradw_kernel``. Bound by the reads of a, b and g; each
     path's compiled block once per edge and channel, per-block partials
-    summed in a second launch in block order (no float atomics)."""
+    summed in a second launch in block order (no float atomics).
+
+    bfloat16 a, b and g (a bfloat16 model's training) take the bfloat16
+    form, gw bfloat16 (:func:`sparse_tp_gradw_bf16_reference`'s semantics:
+    JAX's bits; U must divide 128)."""
     E = a.shape[0]
     _check_entries(entry_idx, entry_coef)
     if (a.ndim != 2 or b.ndim != 2 or g.ndim != 2 or b.shape[0] != E or g.shape[0] != E
@@ -206,14 +282,16 @@ def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int,
             f"sparse_tp_gradw shapes: a {tuple(a.shape)}, b {tuple(b.shape)}, "
             f"g {tuple(g.shape)}, U={U}"
         )
-    if torch.bfloat16 in (a.dtype, b.dtype, g.dtype):
-        # JAX's _gradw_kernel rounds each op to bfloat16 there, as _tp_kernel
-        # does; that form is not ported (a bfloat16 model's training)
-        raise NotImplementedError(
-            "sparse_tp_gradw on bfloat16 operands is not ported to allegro_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 14)")
+    bf16 = torch.bfloat16 in (a.dtype, b.dtype, g.dtype)
+    if bf16 and not a.dtype == b.dtype == g.dtype:
+        raise TypeError(f"sparse_tp_gradw: the bfloat16 form takes a, b and g all bfloat16, "
+                        f"got {a.dtype}, {b.dtype}, {g.dtype}")
     if _on_cpu(a, b, g, entry_idx, entry_coef):
+        if bf16:
+            return sparse_tp_gradw_bf16_reference(a, b, g, entry_idx, entry_coef, n_paths, U)
         return sparse_tp_gradw_reference(a, b, g, entry_idx, entry_coef, n_paths, U)
+    if bf16:
+        return _sparse_tp_gradw_bf16(a, b, g, entry_idx, entry_coef, n_paths, U)
     _check_kernel_args({"a": a, "b": b, "g": g}, {})
     paths = _kernel_paths("sparse_tp_gradw", paths, entry_idx.shape[0])
     n_blocks = max(1, min(_GRADW_MAX_BLOCKS, -(-E // 64)))
@@ -224,4 +302,24 @@ def sparse_tp_gradw(a, b, g, entry_idx, entry_coef, n_paths: int, U: int,
             paths.scale.data_ptr(), paths.desc.shape[0], paths.entry_idx.data_ptr(),
             paths.entry_coef.data_ptr(), E, a.shape[1] // U, b.shape[1] // U, g.shape[1] // U, U,
             n_paths, n_blocks, partial.data_ptr(), gw.data_ptr())
+    return gw
+
+
+def _sparse_tp_gradw_bf16(a, b, g, entry_idx, entry_coef, n_paths: int, U: int):
+    """The bfloat16 form on the card (:func:`sparse_tp_gradw_bf16_reference`'s
+    semantics): a warp per 32 lanes of one of JAX's 64-row blocks walks the
+    entry table, each entry's float32 row sums in its shared-memory column,
+    then rounds them into the paths' bfloat16 sums (the partials [nb, P,
+    128]); a second launch adds the blocks in block order and folds the
+    lanes."""
+    E = a.shape[0]
+    _, nb = _gradw_layout(E, U)
+    _check_kernel_args({"entry_coef": entry_coef}, {"entry_idx": entry_idx},
+                       {"a": a, "b": b, "g": g})
+    partial = torch.empty((nb, n_paths, GRADW_LANES), dtype=torch.float32, device=a.device)
+    gw = torch.empty((n_paths, U), dtype=torch.bfloat16, device=a.device)
+    _launch("sparse_tp_gradw", "atpt_sparse_tp_gradw_bf16", a.device,
+            a.data_ptr(), b.data_ptr(), g.data_ptr(), entry_idx.data_ptr(),
+            entry_coef.data_ptr(), entry_idx.shape[0], E, a.shape[1] // U, b.shape[1] // U,
+            g.shape[1] // U, U, n_paths, nb, partial.data_ptr(), gw.data_ptr(), bf16=True)
     return gw

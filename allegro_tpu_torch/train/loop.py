@@ -21,13 +21,21 @@ gradient are computed on its device; the gradient is the mean over rows,
 summed onto the first device in row order; one optimizer step and EMA
 update run there. The loss and its terms are the rows' means, as JAX's
 step computes them.
+
+A bfloat16 model (``model_dtype="bfloat16"``) trains as JAX's does: its
+parameters, gradients, EMA and optimizer state are bfloat16; the batch's
+floats are float32 (JAX's, without x64), so the forces and the loss are
+float32 and the energy bfloat16 (``EnergyForceLoss`` promotes); the
+optimizer rounds where optax does (``optim.OptaxBf16``); the EMA is
+computed in float32 and rounded once (``(decay * e + (1 - decay) *
+p).astype(p.dtype)``); over a mesh the rows' gradients are summed in
+float32, divided by the rows and rounded once.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -36,10 +44,11 @@ import torch
 
 from ..data import keys, to_torch
 from ..device import replicate, resolve_mesh, visible_cards
-from ..model.builders import Model, _not_ported
+from ..model.builders import Model
 from ..utils.profiling import profile_trace
 from .checkpoint import save_checkpoint
 from .loss import EnergyForceLoss, EnergyForceMetrics
+from .optim import optimizer as optax_optimizer
 
 
 def shard_stack(batches: List[Dict]) -> Dict:
@@ -78,8 +87,9 @@ class Trainer:
     """fit / evaluate with EMA and best/last checkpoints.
 
     ``optimizer``: a callable that takes the parameter list and returns a
-    ``torch.optim.Optimizer`` (default ``torch.optim.Adam`` at
-    ``learning_rate``); ``lr_scheduler``: None, or a callable that takes the
+    ``torch.optim.Optimizer`` (default optax's ``adam`` at ``learning_rate``,
+    ``train.optim.optimizer``: ``torch.optim.Adam``, or ``OptaxBf16`` over
+    bfloat16 parameters); ``lr_scheduler``: None, or a callable that takes the
     optimizer and returns a ``torch.optim.lr_scheduler`` stepped after each
     update (``train.optim.schedule_from_config``: optax's schedules, whose
     update t runs at ``schedule(t)``). ``profile_dir``: trace the steps
@@ -113,10 +123,6 @@ class Trainer:
         profile_steps: Tuple[int, int] = (5, 10),
         mesh: Optional[Sequence] = None,
     ):
-        if model.model_dtype == torch.bfloat16:
-            # JAX trains it (optax over bf16 parameters, allegro_tpu/train/loop.py:144-149);
-            # the port's trainable kernels have no bf16-parameter forms yet
-            raise _not_ported("training a model_dtype='bfloat16' model", "queue 1, item 14")
         dist = torch.distributed
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
             raise NotImplementedError(
@@ -131,7 +137,7 @@ class Trainer:
         self.device = self.mesh[0]
         self.model = model
         self._models = {self.device: model}  # one model per distinct device (init_state)
-        self.optimizer = optimizer or functools.partial(torch.optim.Adam, lr=learning_rate)
+        self.optimizer = optimizer or optax_optimizer("adam", lr=learning_rate)
         self.loss = loss or EnergyForceLoss()
         self.metrics = metrics or EnergyForceMetrics()
         self.ema_decay = float(ema_decay)
@@ -163,8 +169,10 @@ class Trainer:
 
     def to_device(self, batch: Dict, device=None) -> Dict:
         """A loader batch (NumPy) with the model's statics, on ``device``
-        (default: the first of the mesh)."""
-        return to_torch(self.model.precompute_statics(batch), dtype=self.model.model_dtype,
+        (default: the first of the mesh), its floats in the model dtype
+        (float32 for a bfloat16 model: JAX's data without x64)."""
+        dtype = torch.promote_types(torch.float32, self.model.model_dtype)
+        return to_torch(self.model.precompute_statics(batch), dtype=dtype,
                         device=self.device if device is None else device)
 
     def _device_batches(self, loader_iter) -> Iterable[List[Dict]]:
@@ -195,7 +203,8 @@ class Trainer:
         on a list of rows, one per mesh entry: each row's on its device,
         under the model's matrix-product policy (``Model.matmul_policy``);
         then the means over the rows, summed on the first device in row
-        order."""
+        order (in float32 at least: a bfloat16 model's gradients are
+        rounded once, after the division)."""
         rows = [data] if isinstance(data, dict) else list(data)
         if len(rows) != (1 if isinstance(data, dict) else self.n_dev):
             raise ValueError(f"{len(rows)} rows for a mesh of {self.n_dev} devices")
@@ -211,16 +220,18 @@ class Trainer:
                 g = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                         materialize_grads=True)
             loss, t = loss.detach().to(first), {k: v.detach().to(first) for k, v in t.items()}
+            g = [v.to(first, torch.promote_types(torch.float32, v.dtype)) for v in g]
             if grads is None:
-                total, terms, grads = loss, t, list(g)
+                total, terms, grads = loss, t, g
             else:
                 total = total + loss
                 terms = {k: v + t[k] for k, v in terms.items()}
-                grads = [a + b.to(first) for a, b in zip(grads, g)]
+                grads = [a + b for a, b in zip(grads, g)]
         if len(rows) > 1:
             n = len(rows)
             total, terms = total / n, {k: v / n for k, v in terms.items()}
             grads = [g / n for g in grads]
+        grads = [g.to(p.dtype) for g, p in zip(grads, state.params.values())]
         return total, terms, dict(zip(state.params, grads))
 
     def train_step(self, state: TrainState, data):
@@ -232,7 +243,13 @@ class Trainer:
         state.opt_state.step()
         if state.lr_scheduler is not None:
             state.lr_scheduler.step()
-        # the decay and its complement in float32, as the JAX loop computes them
+        self.update_ema(state)
+        state.step += 1
+        return loss, terms
+
+    def update_ema(self, state: TrainState) -> None:
+        """The EMA of ``state.params`` after update ``state.step``; the decay
+        and its complement in float32, as the JAX loop computes them."""
         decay = np.float32(self.ema_decay)
         if self.ema_use_num_updates:
             t = np.float32(state.step)
@@ -240,9 +257,12 @@ class Trainer:
         keep, take = float(decay), float(np.float32(1.0) - decay)
         with torch.no_grad():
             for k, p in state.params.items():
-                state.ema_params[k].mul_(keep).add_(p, alpha=take)
-        state.step += 1
-        return loss, terms
+                ema = state.ema_params[k]
+                if p.dtype == torch.bfloat16:
+                    # JAX's (decay * e + (1 - decay) * p).astype(p.dtype): float32, rounded once
+                    ema.copy_(ema.float() * keep + p.float() * take)
+                else:
+                    ema.mul_(keep).add_(p, alpha=take)
 
     def fit(self, state: TrainState, train_loader, val_loader=None, max_epochs: int = 1,
             ckpt_dir: Optional[str] = None) -> TrainState:

@@ -58,9 +58,12 @@ def _nested(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 def save_package(path: str, model_config: Dict[str, Any], model,
                  extra: Optional[Dict] = None) -> str:
     """Write ``model``'s ``state_dict`` (a port ``Model``, parameters as
-    they are now) with ``model_config`` into the archive ``path``."""
+    they are now) with ``model_config`` into the archive ``path``. numpy has
+    no bfloat16: a bfloat16 model's arrays are stored as float32 arrays of
+    the same values, which load back to the same bits."""
     names = jax_param_names(model)
-    arrays = {names[k]: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    arrays = {names[k]: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
+              for k, v in model.state_dict().items()}
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     meta = {"format": FORMAT, "version": __version__, "n_params": len(arrays),

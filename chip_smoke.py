@@ -2,7 +2,7 @@
 """Smoke run of allegro_tpu_torch on one CUDA GPU: build, check, drive.
 
     python3 chip_smoke.py              # every phase
-    python3 chip_smoke.py --phase 12   # the build, then phase 8, 9, 10, 11 or 12 alone
+    python3 chip_smoke.py --phase 13   # the build, then phase 8, 9, 10, 11, 12 or 13 alone
 
 Phases (any failure exits non-zero; there is no CPU fallback):
 
@@ -280,8 +280,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    path rounds layer 0's input features, which mega does not; JAX's own call
    misses 5e-5 by as much on this crystal), each energy within its force
    tolerance of sum |E_i|, each with its exact bf16 launches (``TRACK_CALL``, ``TRACK_ROUTED_CALL``) and two
-   calls the same bits; (c) ``TRACK_TRAIN_STEPS`` Adam steps on ``fused``
-   with the track on phase 5's 1k batch: every launch of the trainable
+   calls the same bits; (c) on phase 5's 1k batch, the first step's
+   gradients on ``fused`` with the track against the float32 ``einsum``
+   step's (``TRACK_GRAD_TOL``, margin printed), then
+   ``TRACK_TRAIN_STEPS`` Adam steps: every launch of the trainable
    family a bf16 form (``PER_STEP``'s counts), finite losses, float32
    parameters and gradients, two identical steps' gradients the same bits.
 12. a bfloat16 model (``model_dtype="bfloat16"``; ``model_phase``;
@@ -300,11 +302,29 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    (c) ``MODEL_MD_STEPS`` MD steps and one calculator call on the default
    route against the same on the bfloat16 ``einsum``.
 
-``--phase N`` (8, 9, 10, 11 or 12) runs phases 0 and 1, builds the flagship's
-models on the crystal as a whole run does, runs phase N (8 with 8e) with a
-fresh ``RandomState(SEED)``, prints the ptxas lines of its bf16 forms and
-its rows of the kernels line (8, 11, 12) or its launches (10), then ``[done]``;
-no ``ok`` line, since the other phases did not run.
+13. a bfloat16 model in training (``model_train_phase``; ``--phase 13``
+   runs it alone), the flagship's weights from seed 0 rounded to bfloat16
+   on phase 5's 1k batch: (a) the bf16-operand forms of kernels 13-17 and
+   21 its training step launches, at that batch's shapes on both layers
+   (``check_model_train_forms``): 13-17 against their plain versions in
+   float64 (bfloat16 outputs within 1 bf16 ulp, float32 outputs within
+   KERNEL_TOL), ``sparse_tp_gradw`` the same bits as its plain version in
+   each role order a ``pallas`` step launches, each timed beside its
+   float32 form; (c) the first step's gradients on ``fused`` and ``pallas``
+   against the bfloat16 and the float32 ``einsum`` step's (``SPREAD_GRAD``,
+   margins printed), two identical steps the same bits on every backend
+   (``einsum`` under ``deterministic_algorithms``); (b)
+   ``MODEL_TRAIN_STEPS`` Adam steps on ``fused`` and on ``pallas``: each
+   step's exact launches and bf16-operand launches (``MODEL_TRAIN_BF16``),
+   finite losses, bfloat16 parameters, gradients, EMA and moments, two
+   identical steps the same bits, ms per step beside the float32 model's in
+   turns.
+
+``--phase N`` (8, 9, 10, 11, 12 or 13) runs phases 0 and 1, builds the
+flagship's models on the crystal as a whole run does, runs phase N (8 with
+8e) with a fresh ``RandomState(SEED)``, prints the ptxas lines of its bf16
+forms and its rows of the kernels line (8, 11, 12, 13) or its launches
+(10), then ``[done]``; no ``ok`` line, since the other phases did not run.
 
 The run prints its total seconds (``[done]``). The last two lines of stdout
 are a JSON object with the kernels' records and the JSON result ``{"ok":
@@ -352,7 +372,11 @@ the recomputes of remat and checkpoint_energy included). Then one row per
 bf16 form of phase 11 (kernels 1, 4, 14-17; ``track_record``): its times at
 the flagship shapes (11a) and as ``launches`` the sum of its bf16 launches
 in the ``use_mega=False`` force call of 11b and one training step of 11c,
-each also under its own key.
+each also under its own key. Then the rows of phase 12's bf16-operand
+forms (``name[bf16 model]``, kernels 1-12 and 20; ``model_record``) and of
+phase 13's training forms (``name[bf16 model train]``, kernels 13-17 and
+21; ``model_train_record``): their times at the 1k batch's shapes (13a)
+and as ``launches`` their launches in one bfloat16 training step (13b).
 """
 
 from __future__ import annotations
@@ -2570,7 +2594,7 @@ def time_force_call(model, data, n_atoms, reps=10):
     return (time.perf_counter() - t0) / reps / n_atoms * 1e6
 
 
-ONE_PHASE = ("8", "9", "10", "11", "12")  # the phases ``--phase`` runs alone
+ONE_PHASE = ("8", "9", "10", "11", "12", "13")  # the phases ``--phase`` runs alone
 
 
 def main(argv=None) -> int:
@@ -2807,6 +2831,10 @@ def main(argv=None) -> int:
     # phase 12: a bfloat16 model on the serving routes
     model_rows = model_phase(fused, batch_np, frame, data, n_atoms, n_edges, rng, dev, smi)
 
+    stamp("13")
+    # phase 13: a bfloat16 model in training
+    train_rows = model_train_phase(fused, loaders, rng, dev, smi)
+
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(f"launch floor {floor_ms:.4f} ms (an empty kernel under median_ms, phase 2)")
@@ -2815,15 +2843,15 @@ def main(argv=None) -> int:
                 lmax3_calculator=l3_calc, ptxas=usage, pt2=pt2_launches, parallel=parallel)
     print(json.dumps({"kernels": [kernel_record(row, records, records_l3, runs)
                                   for row in TPU_KERNELS]
-                      + bf16_rows + track_rows + model_rows}))
+                      + bf16_rows + track_rows + model_rows + train_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
 def one_phase(phase, dev, smi, usage, stamp, tutorial_dir):
-    """``--phase``: phase 8 (with 8e), 9, 10, 11 or 12 alone on the flagship's
-    models and the 4,096-atom crystal, as ``main`` builds them."""
+    """``--phase``: phase 8 (with 8e), 9, 10, 11, 12 or 13 alone on the
+    flagship's models and the 4,096-atom crystal, as ``main`` builds them."""
     from allegro_tpu_torch.data import batch_frames, keys, to_torch
     from allegro_tpu_torch.model import AllegroModel
 
@@ -2854,9 +2882,12 @@ def one_phase(phase, dev, smi, usage, stamp, tutorial_dir):
         rows = track_phase(fused, batch_np, data, n_atoms, n_edges, train_loaders(), rng, dev,
                            smi)
         forms = TRACK_KERNELS
-    else:
+    elif phase == "12":
         rows = model_phase(fused, batch_np, frame, data, n_atoms, n_edges, rng, dev, smi)
         forms = MODEL_FORMS
+    else:
+        rows = model_train_phase(fused, train_loaders(), rng, dev, smi)
+        forms = [(n, name.split("[")[0]) for n, name in MODEL_TRAIN_FORMS]
     for _, name in forms:
         print(f"    ptxas {name}: {kernel_ptxas(name, usage)}")
     print(json.dumps(rows))
@@ -3058,7 +3089,8 @@ def bf16_gate(got, ref, slack=None):
 
 
 def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops, slack=None,
-                    timed=True, tells_apart=False, exact=None, library=None):
+                    timed=True, tells_apart=False, exact=None, library=None, plain_timing=None,
+                    exact_bits=False):
     """One bf16 form against its plain version on the same bf16 inputs
     (``bf16_gate``). Prints the share of outputs that are not the same
     bits, and, where ``timed``, the median device times of the form, its
@@ -3068,15 +3100,24 @@ def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops,
     gate, so the gate is shown to see the rounding. ``exact``: the plain
     version in float64, which the form is then held to, its outputs rounded
     once to the form's dtypes (``plain`` is only timed). ``library``: one
-    PyTorch call computing the same function, timed beside them."""
+    PyTorch call computing the same function, timed beside them.
+    ``plain_timing``: median_ms's keyword arguments for the plain version
+    (default ``PLAIN_TIMING``). ``exact_bits``: the form's outputs must be
+    the plain version's, dtypes and bits."""
     got = kernel()
-    ref = tuple(r.to(g.dtype) for r, g in zip((exact or plain)(), got))
+    want = (exact or plain)()
+    ref = tuple(r.to(g.dtype) for r, g in zip(want, got))
     ok, worst_ulps, rel, abs_err, differ, total, differ16, total16 = bf16_gate(got, ref, slack)
     share, share16 = differ / max(total, 1), differ16 / max(total16, 1)
-    print(f"  {label} {name + '[bf16]':22s} max_abs_err {abs_err:.3e}, bf16 outputs within "
-          f"{worst_ulps:.2f} ulp (<= 1), f32 outputs rel {rel:.3e} (< {KERNEL_TOL}), "
-          f"not the same bits {100 * share:.4f}% (bf16 outputs {100 * share16:.4f}%, <= "
-          f"{100 * BF16_DIFFER_MAX:g}%) {'ok' if ok else 'FAIL'}", end="")
+    if exact_bits:
+        ok = all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  {label} {name + '[bf16]':22s} {'the same' if ok else 'NOT the same'} dtypes "
+              f"and bits as its plain version ({differ} of {total} outputs differ)", end="")
+    else:
+        print(f"  {label} {name + '[bf16]':22s} max_abs_err {abs_err:.3e}, bf16 outputs within "
+              f"{worst_ulps:.2f} ulp (<= 1), f32 outputs rel {rel:.3e} (< {KERNEL_TOL}), "
+              f"not the same bits {100 * share:.4f}% (bf16 outputs {100 * share16:.4f}%, <= "
+              f"{100 * BF16_DIFFER_MAX:g}%) {'ok' if ok else 'FAIL'}", end="")
     if not ok:
         print()
         raise AssertionError(f"{name}[bf16] ({label}) disagrees with its plain version")
@@ -3090,7 +3131,7 @@ def check_bf16_case(name, kernel, plain, f32_form, label, records, reads, flops,
         print()
         return
     ms, f32_ms = median_ms(kernel), median_ms(f32_form)
-    plain_ms = median_ms(plain, **PLAIN_TIMING)
+    plain_ms = median_ms(plain, **(plain_timing or PLAIN_TIMING))
     work = nbytes(*reads, *got)
     bound_ms, bound_by = bound(work, flops)
     print(f"  kernel {ms:.4f} ms (f32 form {f32_ms:.4f})  plain {plain_ms:.4f} ms  bound "
@@ -3654,12 +3695,14 @@ def track_force_calls(fused, batch_np, n_atoms, n_edges, dev, smi):
 
 
 def track_training(loaders, dev, smi):
-    """Phase 11c: TRACK_TRAIN_STEPS Adam steps of the flagship on ``fused``
-    with the bf16 track on phase 5's 1k batch: each step's launches
-    ``PER_STEP``, every launch of the trainable family's kernels (and
-    gather_tp) a bf16 form; finite losses; float32 parameters and gradients;
-    two identical steps' gradients the same bits. Returns one step's bf16
-    launches."""
+    """Phase 11c: the first step's parameter gradients of the flagship on
+    ``fused`` with the bf16 track on phase 5's 1k batch against the float32
+    ``einsum`` step's on the same weights (``grad_spread`` within
+    ``TRACK_GRAD_TOL``, margin printed); then TRACK_TRAIN_STEPS Adam steps:
+    each step's launches ``PER_STEP``, every launch of the trainable
+    family's kernels (and gather_tp) a bf16 form; finite losses; float32
+    parameters and gradients; two identical steps' gradients the same bits.
+    Returns one step's bf16 launches."""
     from allegro_tpu_torch.data import keys
     from allegro_tpu_torch.model import AllegroModel
     from allegro_tpu_torch.ops import fused_tp
@@ -3669,6 +3712,16 @@ def track_training(loaders, dev, smi):
     avg_n = float(batch_np[keys.EDGE_MASK].sum()) / float(batch_np[keys.NODE_MASK].sum())
     model = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n, tp_kernel_backend="fused",
                          tensor_dtype="bfloat16").init(SEED)
+    einsum = AllegroModel(**FLAGSHIP, avg_num_neighbors=avg_n, tp_kernel_backend="einsum")
+    einsum.load_state_dict(model.state_dict())
+    # the first step's gradients against the float32 einsum step's
+    firsts = {}
+    for which, m in (("track", model), ("einsum", einsum)):
+        t = make_trainer(m, dev)
+        _, _, firsts[which] = t.loss_and_grads(t.init_state(), t.to_device(batch_np))
+    spread, leaf = grad_spread(firsts["track"], firsts["einsum"])
+    del einsum, firsts
+    torch.cuda.empty_cache()
     trainer = make_trainer(model, dev)
     state = trainer.init_state()
     want = {k: c for k, c in PER_STEP.items()
@@ -3698,10 +3751,13 @@ def track_training(loaders, dev, smi):
           f"{losses[-1]:.6e}; bf16 launches per step {want}; {1e3 * float(np.median(times)):.3f} "
           f"ms/step (median, host clock); parameters and gradients {sorted(dtypes)}, gradients "
           f"{'finite' if finite else 'NOT FINITE'}; two identical steps "
-          f"{'the same bits' if not differ else 'DIFFER in ' + ', '.join(differ)}; {smi}")
-    if dtypes != {"torch.float32"} or not finite or differ:
+          f"{'the same bits' if not differ else 'DIFFER in ' + ', '.join(differ)}; first-step "
+          f"gradients vs the float32 einsum step's {spread:.3e} ({leaf}; <= {TRACK_GRAD_TOL}, "
+          f"margin {TRACK_GRAD_TOL - spread:.3e}); {smi}")
+    if dtypes != {"torch.float32"} or not finite or differ or not spread <= TRACK_GRAD_TOL:
         raise AssertionError("bf16 training: parameters or gradients not float32 and finite, "
-                             f"or two identical steps differ ({differ})")
+                             f"two identical steps differ ({differ}), or the first step's "
+                             f"gradients lie {spread:.3e} from the float32 einsum step's")
     return want
 
 
@@ -4234,6 +4290,379 @@ def model_record(n, name, records, launches):
                          "case of phase 12a summed",
             "launches_config": "one force call of the bfloat16 flagship on each route (4,096 "
                                "atoms, phase 12b)"}
+
+
+# phase 13: a bfloat16 model in training (model_dtype="bfloat16", ROADMAP
+# item 14's first half): the flagship's weights from seed 0 rounded to
+# bfloat16 on phase 5's 1k batch. Its training step reaches the trainable
+# families' kernels with bfloat16 operands: on fused the bf16 track's forms
+# (features, their cotangents and the env weights bfloat16) and
+# unweight_w's form on bfloat16 sh; on pallas sparse_tp_gradw's bfloat16
+# form, which sums the edges in JAX's packed groups
+MODEL_TRAIN_FORMS = [(13, "gather_tp[swapped]"), (14, "tp_scatter"), (15, "gather_dw"),
+                     (16, "unweight_sh"), (17, "unweight_w"), (21, "sparse_tp_gradw")]
+MODEL_TRAIN_STEPS = 3
+# a training step's bf16-operand launches (fused_tp.BF16_LAUNCHES): every
+# launch of the trainable families' kernels and of gather_tp and
+# env_scatter; of the center kernels those on bfloat16 rows (the edge
+# energies and their cotangent, the type embeddings read by class, pallas's
+# env sums), not the position gathers and force sums, which read float32
+MODEL_TRAIN_BF16 = {
+    "fused": {"env_scatter": 6, "gather_tp": 12, "tp_scatter": 6, "gather_dw": 8,
+              "unweight_sh": 6, "unweight_w": 6, "center_gather": 4, "center_sum": 3},
+    "pallas": {"sparse_tp": 18, "sparse_tp_gradw": 8, "center_gather": 12, "center_sum": 11},
+}
+# of a fused step's 12 gather_tp launches (PER_STEP), those on the layers'
+# role-swapped tables (kernel 13's training form): per layer the force
+# backward's dx, the parameter backward's dx of the forward GatherTp, and
+# the x-gradient of the force backward's TpScatter; the other 3 L (the
+# forward, the swapped GatherTp's dx, TpScatter's g-gradient) run on the
+# layers' own tables
+MODEL_TRAIN_SWAPPED = {"fused": 6, "pallas": 0}
+# the pallas step's gradw role orders (the table, its b- and a-swaps)
+MODEL_GRADW_ORDERS = (0, 1, 5)
+# the first-step gradients' gate: JAX's own spread of the bf16 toy's
+# gradients over its backends and its float32 einsum gradient, four draws
+# (tests/test_torch_model_dtype_bf16_train.py, SPREAD_GRAD; measured by
+# tests/bf16_grad_probe.py), max over the leaves of
+# max |g_a - g_b| / max(|g_a|, |g_b|)
+SPREAD_GRAD = 6.646e-2
+# phase 11c: the bf16 track's first-step gradients against the float32
+# einsum step's, the same gauge. Measured on the CPU at the flagship's
+# widths on four crystals of phase 5's seeds cut to 64 and 216 atoms:
+# 3.34e-3 and 3.36e-3 (tests/test_torch_bf16_track.py holds the track's
+# gradients to JAX's at 1e-8); three times that, for the kernels' other
+# summation order on the card
+TRACK_GRAD_TOL = 1e-2
+
+
+def grad_spread(a, b):
+    """(max over the leaves of max |a - b| / max(|a|, |b|), its leaf)."""
+    r = {k: ((a[k].double() - b[k].double()).abs().max()
+             / torch.maximum(a[k].double().abs().max(), b[k].double().abs().max())).item()
+         for k in a}
+    worst = max(r, key=r.get)
+    return r[worst], worst
+
+
+def check_model_train_forms(fused, pallas, data, rng, records):
+    """Phase 13a: the bf16-operand forms a bfloat16 model's training step
+    launches, at the shapes of the 1k batch's two layers (``data``: the
+    batch's statics), each against its plain version on the same bfloat16
+    inputs and timed beside its float32 form on float32 copies (plain
+    versions with PHASE7_PLAIN_TIMING): 13 ``gather_tp`` on the role-swapped
+    table, 14 ``tp_scatter``, 15 ``gather_dw`` (x and g bfloat16, env and
+    the widened path weights float32), held to the plain version in float64
+    (bfloat16 outputs within 1 bf16 ulp, float32 outputs within KERNEL_TOL,
+    ``check_bf16_case``), on both layers' tables; 16 ``unweight_sh``
+    (bfloat16 env weights) and 17 ``unweight_w`` (bfloat16 sh, its new form)
+    on layer 0's basis, the same gate; 21 ``sparse_tp_gradw`` on bfloat16
+    operands in the role orders a pallas step launches (MODEL_GRADW_ORDERS)
+    on both layers' tables: the same bits as its plain version (JAX's
+    bfloat16 rounding, in JAX's packed groups), timed beside the float32
+    form and one ``torch.einsum`` call."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.ops import fused_tp
+    from allegro_tpu_torch.ops import pallas_contract as pc
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = data[keys.POSITIONS].device
+    centers = data[keys.EDGE_INDEX][0].to(torch.int32).contiguous()
+    row_ptr = data[keys.CENTER_ROW_PTR]
+    n_atoms = row_ptr.shape[0] - 1
+    E, Er = centers.shape[0], int(data[keys.EDGE_MASK].sum())
+    real = data[keys.EDGE_MASK].to(f32)[:, None]
+    tps = fused.module.allegro.tps
+
+    def rand(*shape, dtype=f32, edge=True):
+        t = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+        return (t * real if edge else t).to(dtype)
+
+    def f64(fn, *args):
+        return lambda: fn(*(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+                            for a in args))
+
+    def case(name, kernel, plain, exact, f32_form, what, reads, flops):
+        check_bf16_case(name, kernel, plain, f32_form, what, records, reads, flops, exact=exact,
+                        plain_timing=PHASE7_PLAIN_TIMING)
+
+    for layer, tp in enumerate(tps):
+        U, P = tp.mul, tp.num_paths
+        wk, idx, coef = (v.detach() for v in tp.fused_infer_parts(bf))
+        wk = wk.float()  # the Functions' widened path weights (fused_primitives._wide)
+        (walk, walk_sw), scatter = tp.gather_paths(), tp.scatter_paths()[0]
+        d1, d2, d3 = tp.d1, tp.d2, tp.d3
+        x, g = rand(E, d1 * U, dtype=bf), rand(E, d3 * U, dtype=bf)
+        env = rand(n_atoms, d2 * U, edge=False)
+        x32, g32 = x.float(), g.float()
+        n = idx.shape[0]
+        what = f"U {U} E {E} layer {layer} dims ({d1},{d2},{d3}) entries {n}"
+        flops = 3 * Er * n * U
+        sw = tp.entry_swapped
+        case("gather_tp[swapped]",
+             lambda: (fused_tp.gather_tp(g, env, wk, centers, sw, coef, d1, paths=walk_sw),),
+             lambda: (fused_tp.gather_tp_reference(g, env, wk, centers, sw, coef, d1),),
+             f64(lambda *a: (fused_tp.gather_tp_reference(*a),), g, env, wk, centers, sw, coef,
+                 d1),
+             lambda: (fused_tp.gather_tp(g32, env, wk, centers, sw, coef, d1, paths=walk_sw),),
+             what, (g, env, wk, centers, *walk_sw), flops)
+        case("tp_scatter",
+             lambda: (fused_tp.tp_scatter(x, g, wk, centers, row_ptr, idx, coef, d2, scatter),),
+             lambda: (fused_tp.tp_scatter_reference(x, g, wk, centers, n_atoms, idx, coef, d2),),
+             f64(lambda *a: (fused_tp.tp_scatter_reference(*a),), x, g, wk, centers, n_atoms,
+                 idx, coef, d2),
+             lambda: (fused_tp.tp_scatter(x32, g32, wk, centers, row_ptr, idx, coef, d2,
+                                          scatter),),
+             what, (x, g, wk, row_ptr, *scatter), flops)
+        case("gather_dw",
+             lambda: (fused_tp.gather_dw(x, env, g, centers, idx, coef, P, U, walk),),
+             lambda: (fused_tp.gather_dw_reference(x, env, g, centers, idx, coef, P, U),),
+             f64(lambda *a: (fused_tp.gather_dw_reference(*a),), x, env, g, centers, idx, coef,
+                 P, U),
+             lambda: (fused_tp.gather_dw(x32, env, g32, centers, idx, coef, P, U, walk),),
+             what, (x, env, g, centers, *walk), flops)
+        del x, g, env, x32, g32
+    tp0 = tps[0]
+    U, d2, n_irr, d2i = tp0.mul, tp0.d2, tp0.n_irr, tp0.dim_to_irr
+    sh, wexp, t = rand(E, d2, dtype=bf), rand(E, n_irr * U, dtype=bf), rand(n_atoms, d2 * U,
+                                                                             edge=False)
+    sh32, wexp32 = sh.float(), wexp.float()
+    env_flops = 2 * Er * d2 * U
+    what = f"U {U} E {E} layer 0 d2 {d2}"
+    case("unweight_sh", lambda: (fused_tp.unweight_sh(t, wexp, centers, d2i),),
+         lambda: (fused_tp.unweight_sh_reference(t, wexp, centers, d2i),),
+         f64(lambda *a: (fused_tp.unweight_sh_reference(*a),), t, wexp, centers, d2i),
+         lambda: (fused_tp.unweight_sh(t, wexp32, centers, d2i),),
+         what, (t, wexp, centers, d2i), env_flops)
+    case("unweight_w", lambda: (fused_tp.unweight_w(t, sh, centers, d2i, n_irr, bf),),
+         lambda: (fused_tp.unweight_w_reference(t, sh, centers, d2i, n_irr, bf),),
+         f64(lambda *a: (fused_tp.unweight_w_reference(*a, bf),), t, sh, centers, d2i, n_irr),
+         lambda: (fused_tp.unweight_w(t, sh32, centers, d2i, n_irr),),
+         what, (t, sh, centers, d2i), env_flops)
+    del sh, wexp, t, sh32, wexp32
+    # 21: the same bits as the plain version, in each order a pallas step launches
+    for layer, tp in enumerate(pallas.module.allegro.tps):
+        U, P, st = tp.mul, tp.num_paths, tp.tp_statics()
+        for r in MODEL_GRADW_ORDERS:
+            d1, d2, d3 = (st.dims[s] for s in pc.ROLES[r])
+            (idx, coef), paths = st.table(r), st.walk(r)
+            n = idx.shape[0]
+            a, b, g = (rand(E, d * U, dtype=bf) for d in (d1, d2, d3))
+            a32, b32, g32 = a.float(), b.float(), g.float()
+            label = (f"U {U} E {E} layer {layer} order {''.join(map(str, pc.ROLES[r]))} dims "
+                     f"({d1},{d2},{d3}) entries {n}")
+            C = fused_tp._cg_tensor(a32, idx, coef, P, d1, d2, d3).to(bf)
+            a3, b3, g3 = a.view(E, d1, U), b.view(E, d2, U), g.view(E, d3, U)
+            check_bf16_case(
+                "sparse_tp_gradw", lambda: (pc.sparse_tp_gradw(a, b, g, idx, coef, P, U),),
+                lambda: (pc.sparse_tp_gradw_bf16_reference(a, b, g, idx, coef, P, U),),
+                lambda: (pc.sparse_tp_gradw(a32, b32, g32, idx, coef, P, U, paths),),
+                label, records, (a, b, g, idx, coef), 4 * Er * n * U,
+                library=_fits(lambda: torch.einsum("eiu,eju,eku,pijk->pu", a3, b3, g3, C)),
+                plain_timing=PHASE7_PLAIN_TIMING, exact_bits=True)
+            del a, b, g, a32, b32, g32, C, a3, b3, g3
+            torch.cuda.empty_cache()
+
+
+def _count_swapped(tps):
+    """A wrapper of ``fused_tp.gather_tp`` that sorts its launches (the rise
+    of ``LAUNCHES["gather_tp"]`` over the real call) by table: ``swapped``
+    on a role-swapped table of ``tps`` (kernel 13's training form), ``own``
+    on their own tables, ``other`` on any other: (install, restore,
+    counts)."""
+    from allegro_tpu_torch.ops import fused_tp
+
+    real, counts = fused_tp.gather_tp, {"swapped": 0, "own": 0, "other": 0}
+    swapped, own = [tp.entry_swapped for tp in tps], [tp.entry_idx for tp in tps]
+
+    def wrap(x, env, w, centers, entry_idx, *args, **kw):
+        before = fused_tp.LAUNCHES["gather_tp"]
+        out = real(x, env, w, centers, entry_idx, *args, **kw)
+        table = ("swapped" if any(entry_idx is t for t in swapped) else
+                 "own" if any(entry_idx is t for t in own) else "other")
+        counts[table] += fused_tp.LAUNCHES["gather_tp"] - before
+        return out
+
+    return (lambda: setattr(fused_tp, "gather_tp", wrap),
+            lambda: setattr(fused_tp, "gather_tp", real), counts)
+
+
+def model_training(weights, loader, dev, smi):
+    """Phase 13b/13c: the bfloat16 flagship (``weights`` rounded) on the 1k
+    batch. (c) the first step's parameter gradients on ``fused`` and
+    ``pallas`` against the bfloat16 ``einsum`` step's and the float32
+    ``einsum`` step's on the same values (``SPREAD_GRAD``, margins printed),
+    bfloat16 as the parameters; two identical ``einsum`` steps the same
+    bits under ``deterministic_algorithms`` (``index_add_`` adds with
+    atomics otherwise). (b) MODEL_TRAIN_STEPS Adam steps (optax's rounding,
+    ``OptaxBf16``) on ``fused`` and ``pallas``: each step's launches exact
+    (``PER_STEP``, ``PER_STEP_PALLAS``) and its bf16-operand launches
+    ``MODEL_TRAIN_BF16`` (every launch of 13-17 and 21 a bf16 form); finite
+    losses; parameters, gradients, EMA and moments bfloat16; two identical
+    steps' gradients the same bits; ms per step (host clock) in turns with
+    the float32 model's on the same values. Returns each backend's
+    bf16-operand launches per step, with kernel 13's apart."""
+    from allegro_tpu_torch.data import keys
+    from allegro_tpu_torch.model import AllegroModel
+    from allegro_tpu_torch.ops import fused_tp
+
+    batch_np = next(iter(loader))
+    avg_n = float(batch_np[keys.EDGE_MASK].sum()) / float(batch_np[keys.NODE_MASK].sum())
+    kw = {**FLAGSHIP, "avg_num_neighbors": avg_n}
+    values = {k: v.to(torch.bfloat16) for k, v in weights.items()}
+
+    def model(dtype, backend):
+        m = AllegroModel(**{**kw, "model_dtype": dtype}, tp_kernel_backend=backend)
+        m.load_state_dict({k: v.to(m.model_dtype) for k, v in values.items()})
+        return m
+
+    grads, launches = {}, {}
+    for dtype, backend in (("float32", "einsum"), ("bfloat16", "einsum"), ("bfloat16", "fused"),
+                           ("bfloat16", "pallas")):
+        trainer = make_trainer(model(dtype, backend), dev)
+        state = trainer.init_state()
+        data = trainer.to_device(batch_np)
+        with deterministic_algorithms(backend == "einsum"):
+            _, _, first = trainer.loss_and_grads(state, data)
+            _, _, again = trainer.loss_and_grads(state, data)
+        differ = [k for k in first if not torch.equal(first[k], again[k])]
+        dtypes = {str(g.dtype) for g in first.values()}
+        if differ or dtypes != {f"torch.{dtype}"} or not all(
+                torch.isfinite(g).all() for g in first.values()):
+            raise AssertionError(f"{dtype} {backend}: gradients {sorted(dtypes)}, finite or not, "
+                                 f"two identical steps differ in {differ}")
+        grads[dtype, backend] = first
+        del trainer, state, data, again
+        torch.cuda.empty_cache()
+    print(f"[13c] first-step gradients, bfloat16 flagship on {int(batch_np[keys.NODE_MASK].sum())}"
+          f" atoms: bfloat16, finite; two identical steps the same bits on each backend (einsum "
+          f"under deterministic_algorithms)")
+    for backend in ("fused", "pallas"):
+        for ref in (("bfloat16", "einsum"), ("float32", "einsum")):
+            spread, leaf = grad_spread(grads["bfloat16", backend], grads[ref])
+            print(f"    {backend} vs the {ref[0]} einsum step: {spread:.3e} ({leaf}; <= "
+                  f"{SPREAD_GRAD}, margin {SPREAD_GRAD - spread:.3e})")
+            if not spread <= SPREAD_GRAD:
+                raise AssertionError(f"bfloat16 {backend} gradients vs the {ref[0]} einsum "
+                                     f"step's: {spread:.3e} of {leaf}")
+    del grads
+    torch.cuda.empty_cache()
+    for backend, per_step in (("fused", PER_STEP), ("pallas", PER_STEP_PALLAS)):
+        trainer = make_trainer(model("bfloat16", backend), dev)
+        state = trainer.init_state()
+        install, restore, swapped = _count_swapped(trainer.model.module.allegro.tps)
+        install()
+        try:
+            for step in range(MODEL_TRAIN_STEPS):
+                fused_tp.reset_launch_counts()
+                swapped.update(swapped=0, own=0, other=0)
+                trainer.fit(state, loader, max_epochs=1)
+                torch.cuda.synchronize()
+                bf16 = {k: c for k, c in fused_tp.BF16_LAUNCHES.items() if c}
+                want_sw = MODEL_TRAIN_SWAPPED[backend]
+                if fused_tp.LAUNCHES != per_step or bf16 != MODEL_TRAIN_BF16[backend] or \
+                        swapped != {"swapped": want_sw, "own": per_step["gather_tp"] - want_sw,
+                                    "other": 0}:
+                    raise AssertionError(f"bfloat16 {backend} step {step}: launches "
+                                         f"{fused_tp.LAUNCHES}, of them bf16 {bf16}, gather_tp "
+                                         f"by table {swapped}; expected {per_step}, bf16 "
+                                         f"{MODEL_TRAIN_BF16[backend]}, {want_sw} on the "
+                                         "swapped tables and the rest on their own")
+        finally:
+            restore()
+        losses = [h["train_loss"] for h in trainer.history]
+        moments = [v for s in state.opt_state.state.values() for v in s.values()
+                   if torch.is_tensor(v)]
+        dtypes = {str(t.dtype) for t in (*state.params.values(), *state.ema_params.values(),
+                                         *moments)}
+        data = trainer.to_device(batch_np)
+        _, _, first = trainer.loss_and_grads(state, data)
+        _, _, again = trainer.loss_and_grads(state, data)
+        differ = [k for k in first if not torch.equal(first[k], again[k])]
+        dtypes |= {str(g.dtype) for g in first.values()}
+        # ms per step in turns with the float32 model on the same values
+        f32 = make_trainer(model("float32", backend), dev)
+        f32_state = f32.init_state()
+        turns = []
+        for t in (trainer, f32, f32, trainer):
+            s = state if t is trainer else f32_state
+            t.fit(s, loader, max_epochs=1)  # a warm step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit(s, loader, max_epochs=1)
+            torch.cuda.synchronize()
+            turns.append(1e3 * (time.perf_counter() - t0))
+        ms, ms_f32 = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        launches[backend] = {**MODEL_TRAIN_BF16[backend], "gather_tp[swapped]": swapped["swapped"]}
+        print(f"[13b] {MODEL_TRAIN_STEPS} Adam steps (optax's bfloat16 rounding) on {backend}: "
+              f"loss {losses[0]:.6e} -> {losses[-1]:.6e}; launches per step "
+              f"{ {k: c for k, c in per_step.items() if c} }, of them bf16 forms "
+              f"{MODEL_TRAIN_BF16[backend]}"
+              + (f" (gather_tp on the swapped tables {swapped['swapped']}, on their own "
+                 f"{swapped['own']})" if backend == "fused" else "")
+              + f"; parameters, gradients, EMA and moments {sorted(dtypes)}; two identical steps "
+              f"{'the same bits' if not differ else 'DIFFER in ' + ', '.join(differ)}; "
+              f"{ms:.3f} ms/step (the float32 model's {ms_f32:.3f}, in turns, host clock); {smi}")
+        if not np.isfinite(losses).all() or dtypes != {"torch.bfloat16"} or differ:
+            raise AssertionError(f"bfloat16 {backend} training: losses {losses}, dtypes "
+                                 f"{sorted(dtypes)}, two identical steps differ in {differ}")
+        del trainer, state, f32, f32_state, data, first, again
+        torch.cuda.empty_cache()
+    return launches
+
+
+def model_train_phase(fused, loaders, rng, dev, smi):
+    """Phase 13 (13a ``check_model_train_forms`` at the 1k batch's shapes,
+    13b/13c ``model_training``) on the flagship's weights from seed 0
+    (``fused``'s) rounded to bfloat16. Returns the kernels line's rows of
+    its forms."""
+    from allegro_tpu_torch.data import keys, to_torch
+    from allegro_tpu_torch.model import AllegroModel
+
+    weights = {k: v.detach() for k, v in fused.state_dict().items()}
+    loader = loaders["1k"]
+    batch_np = next(iter(loader))
+    avg_n = float(batch_np[keys.EDGE_MASK].sum()) / float(batch_np[keys.NODE_MASK].sum())
+    models = {}
+    for backend in ("fused", "pallas"):
+        models[backend] = AllegroModel(**{**FLAGSHIP, "model_dtype": "bfloat16"},
+                                       avg_num_neighbors=avg_n, tp_kernel_backend=backend).to(dev)
+        models[backend].load_state_dict(weights)
+    data = to_torch(models["fused"].precompute_statics(batch_np), dtype=torch.float32,
+                    device=dev)
+    records = {}
+    print("[13a] the bf16-operand forms of kernels 13-17 and 21 (a bfloat16 model's training) "
+          f"at the 1k batch's shapes ({int(batch_np[keys.NODE_MASK].sum())} atoms)")
+    check_model_train_forms(models["fused"], models["pallas"], data, rng, records)
+    del data, models
+    torch.cuda.empty_cache()
+    launches = model_training(weights, loader, dev, smi)
+    return [model_train_record(n, name, records, launches) for n, name in MODEL_TRAIN_FORMS]
+
+
+def model_train_record(n, name, records, launches):
+    """The kernels line's row of kernel ``n``'s bf16-operand training form
+    (``name[bf16 model train]``): its times at the 1k batch's shapes (13a,
+    each timed case summed) and its launches in one training step of the
+    bfloat16 flagship on that batch (13b; 13 counted apart from gather_tp's
+    other launches)."""
+    rec = records[name]
+    bound_ms, bound_by = bound(rec["bytes"], rec["flops"])
+    replaces = next(r for k, _, r in TPU_KERNELS if k == n)
+    base = name.split("[")[0]
+    backend = "pallas" if base == "sparse_tp_gradw" else "fused"
+    step = launches[backend].get(name, 0)
+    return {"name": f"{name}[bf16 model train]", "route": "cuda", "source": SOURCES[base],
+            "replaces": replaces, "tpu_kernel": n, "launches": step,
+            "launches_train_step": step, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": rec["library_ms"], "ms_f32_form": rec["ms_f32"],
+            "max_ulps": rec["ulps"], **same_bits(rec),
+            "ms_config": "bf16-operand form at the 1k training batch's shapes, each timed case "
+                         "of phase 13a summed (13-15 and 21 both layers' tables, 21 in each "
+                         "order a pallas step launches; 16 and 17 layer 0's basis)",
+            "launches_config": f"one training step of the bfloat16 flagship on {backend} on the "
+                               "1k batch (phase 13b)"}
 
 
 def check_force_call(out, ref, n_atoms, n_rows):

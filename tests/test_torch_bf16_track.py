@@ -336,6 +336,7 @@ def _args():
     "env_scatter sh bf16", "env_scatter env-role f64", "unweight_both f32 wexp bf16 dwexp",
     "unweight_sh t bf16", "tp_scatter x bf16 g f32", "tp_scatter w bf16",
     "gather_dw env bf16", "gather_dw x f32 g bf16", "unweight_w out f16",
+    "unweight_w sh bf16 out f32",
 ])
 def test_combinations_without_a_cuda_form_raise(case, monkeypatch):
     monkeypatch.setattr(fused_tp, "_on_cpu", lambda *t: False)
@@ -365,6 +366,8 @@ def test_combinations_without_a_cuda_form_raise(case, monkeypatch):
                                        s["coef"], s["wk"].shape[0], U, s["walk"]),
         "unweight_w out f16":
             lambda: fused_tp.unweight_w(s["t"], s["sh"], c, d2i, s["tp"].n_irr, torch.float16),
+        "unweight_w sh bf16 out f32":
+            lambda: fused_tp.unweight_w(s["t"], s["sh"].to(bf), c, d2i, s["tp"].n_irr),
     }
     with pytest.raises(TypeError):
         calls[case]()

@@ -161,11 +161,13 @@ def test_unsorted_edges_raise(frames, avg_n):
 ], ids=["model_dtype=bfloat16"])
 def test_unported_options_raise(override, avg_n):
     """What of a bfloat16 model is left raises, naming its ROADMAP item
-    (14): the trainable ``fused`` backend (the force call's four routes run
-    it, ``tests/test_torch_model_dtype_bf16.py``)."""
+    (14): its export (the trainable ``fused`` backend builds and trains,
+    ``tests/test_torch_model_dtype_bf16_train.py``)."""
+    from allegro_tpu_torch.compile.export import check_exportable
+
     kw = {**_model_kwargs(avg_n, "float32"), **override}
     with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        AllegroModel(**kw)
+        check_exportable(AllegroModel(**kw))
 
 
 def test_backend_outside_the_four_raises_naming_item_12(avg_n):

@@ -17,9 +17,10 @@ serving routes, on the CPU, against the JAX package.
   ``SPREAD_BF16``: how far JAX's backends lie from one another on these
   inputs and weights, measured first).
 - ``params_from_jax`` on JAX's bfloat16 leaves, bit for bit.
-- Training a bfloat16 model, the trainable ``fused`` backend and the
-  export raise, naming ROADMAP item 14; MD, the calculator and the CLI's
-  ``md`` stage run it.
+- The export of a bfloat16 model raises, naming ROADMAP item 14 (training
+  and the trainable ``fused`` backend run:
+  ``tests/test_torch_model_dtype_bf16_train.py``); MD, the calculator and
+  the CLI's ``md`` stage run it.
 """
 
 import numpy as np
@@ -380,20 +381,24 @@ def test_params_from_jax_takes_bf16_leaves_bit_for_bit():
 
 
 def test_training_the_fused_backend_and_export_raise_naming_item_14():
+    """Of the three raises naming item 14, the export's stays (the next
+    slice); training (``Trainer``, a force loss's parameter gradient on
+    ``pallas``) and the ``fused`` build run now
+    (``tests/test_torch_model_dtype_bf16_train.py`` holds them to JAX)."""
     model = AllegroModel(**_toy("bfloat16", tp_kernel_backend="pallas"))
     with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        Trainer(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        AllegroModel(**_toy("bfloat16", tp_kernel_backend="fused"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
         check_exportable(AllegroModel(**_toy("bfloat16", tp_kernel_backend="fused_infer")))
-    # a force loss's parameter gradient on pallas (training without Trainer)
+    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
+        check_exportable(AllegroModel(**_toy("bfloat16", tp_kernel_backend="fused")))
+    assert Trainer(model, device="cpu").model is model
+    fused = AllegroModel(**_toy("bfloat16", tp_kernel_backend="fused"))
+    assert {p.dtype for p in fused.parameters().values()} == {BF}
     model.init(0)
     data = to_torch(model.precompute_statics(_toy_batch()), torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        out = model.apply_with_derivatives(data, create_graph=True)
-        torch.autograd.grad(out[keys.FORCES].float().square().sum(),
-                            list(model.parameters().values()), allow_unused=True)
+    out = model.apply_with_derivatives(data, create_graph=True)
+    grads = torch.autograd.grad(out[keys.FORCES].float().square().sum(),
+                                list(model.parameters().values()), allow_unused=True)
+    assert {g.dtype for g in grads if g is not None} == {BF}
 
 
 def test_md_calculator_and_cli_run_a_bf16_model(tmp_path):
